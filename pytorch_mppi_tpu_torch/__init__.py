@@ -1,0 +1,31 @@
+"""pytorch_mppi_tpu_torch — the MPPI engine of ``pytorch_mppi_tpu`` in PyTorch and CUDA.
+
+A port of the JAX package to PyTorch on an NVIDIA H100.  This slice runs
+``MPPI.command()`` for one plant: the plain torch path, and with
+``use_pallas=True`` the fused MPPI iteration as a hand-written CUDA kernel
+(``csrc/fused_mppi.cu``).  Entry points run on the card unless the caller
+passes ``device="cpu"``.  The package imports neither JAX nor
+``pytorch_mppi_tpu``.
+"""
+
+from .config import Artifacts, MPPIConfig, MPPIParams, MPPIState
+from .controller import MPPI
+from .ops.kernel_models import KernelModel, linear_quadratic
+from .runner import run_mppi
+from .utils.batch import batch_quadratic_product, ensure_tensor, handle_batch_input
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "MPPI",
+    "run_mppi",
+    "KernelModel",
+    "linear_quadratic",
+    "handle_batch_input",
+    "ensure_tensor",
+    "batch_quadratic_product",
+    "MPPIConfig",
+    "MPPIParams",
+    "MPPIState",
+    "Artifacts",
+]

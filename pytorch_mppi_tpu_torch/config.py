@@ -1,0 +1,97 @@
+"""Static configuration, tunable parameters and controller state of the MPPI solve.
+
+The counterpart of ``pytorch_mppi_tpu/config.py``.  :class:`MPPIConfig` is a
+frozen, hashable description of one solve configuration; the step factories
+read it once when they build the solve, so every feature flag resolves to one
+code path before the first command.  :class:`MPPIParams` holds the
+hyperparameters a tuner changes between commands (tensors, so changing them
+rebuilds nothing).  :class:`MPPIState` carries the nominal sequence and the
+random-number state from one command to the next: in place of a JAX PRNG key
+it holds a 64-bit ``seed`` and a ``counter`` that every solve advances by one,
+so a run is reproducible from the seed alone.
+
+Only the fields this port runs are here; the JAX package's other flags are
+rejected by :class:`~pytorch_mppi_tpu_torch.controller.MPPI` with
+``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class MPPIConfig:
+    """Static MPPI configuration (reference ``mppi.py:45-61`` minus the
+    tensor-valued hyperparameters, which live in :class:`MPPIParams`)."""
+
+    nx: int
+    nu: int
+    K: int
+    T: int
+    u_scale: float = 1.0
+    u_per_command: int = 1
+    sample_null_action: bool = False
+    noise_abs_cost: bool = False
+    step_dependent_dynamics: bool = False
+    # draw K/2 normals and mirror them (z, -z): rows k and K/2 + k form a pair
+    antithetic: bool = False
+    # AR(1) correlation of the noise across the horizon (0 = white noise)
+    noise_rho: float = 0.0
+    # sigma is diagonal: the noise transform is an elementwise scale
+    diag_sigma: bool = False
+    # the fused kernel also stores the clamped perturbed actions (D, K), so
+    # the noise / perturbed_action artifacts exist on the fused path too
+    fused_artifacts: bool = False
+    dtype: torch.dtype = torch.float32
+
+    def __post_init__(self):
+        if not isinstance(self.dtype, torch.dtype):
+            raise TypeError(f"dtype must be a torch.dtype, got {self.dtype!r}")
+
+
+class MPPIParams(NamedTuple):
+    """Tunable hyperparameters; ``noise_sigma`` is always a full (nu, nu)
+    covariance whose factors are derived inside every solve, so a tuner can
+    never leave the sampler stale."""
+
+    noise_mu: torch.Tensor  # (nu,)
+    noise_sigma: torch.Tensor  # (nu, nu)
+    lambda_: torch.Tensor  # scalar
+    u_min: torch.Tensor  # (nu,); -inf when unbounded
+    u_max: torch.Tensor  # (nu,); +inf when unbounded
+    u_init: torch.Tensor  # (nu,)
+
+
+class MPPIState(NamedTuple):
+    """Controller state threaded through solves: the nominal sequence and the
+    random-number stream position.  ``seed`` is drawn once from the
+    controller's ``torch.Generator``; ``counter`` counts the solves taken from
+    it, and :func:`~pytorch_mppi_tpu_torch.ops.solve.iteration_seed` maps the
+    pair to the noise of one solve."""
+
+    U: torch.Tensor  # (T, nu) nominal control sequence
+    seed: int
+    counter: int = 0
+
+
+class Artifacts(NamedTuple):
+    """Per-solve introspection artifacts (reference ``mppi.py:179-184``)."""
+
+    cost_total: torch.Tensor  # (K,)
+    cost_total_non_zero: torch.Tensor  # (K,)
+    omega: torch.Tensor  # (K,)
+    noise: Optional[torch.Tensor]  # (K, T, nu) rectified noise
+    perturbed_action: Optional[torch.Tensor]  # (K, T, nu)
+    states: Optional[torch.Tensor] = None  # no terminal cost in this port yet
+    actions: Optional[torch.Tensor] = None
+
+
+def as_dtype_array(value, dtype, shape=None, device=None):
+    """Coerce python scalars / numpy / tensors to a tensor of ``dtype``."""
+    arr = torch.as_tensor(value, dtype=dtype, device=device)
+    if shape is not None:
+        arr = torch.broadcast_to(arr, shape)
+    return arr

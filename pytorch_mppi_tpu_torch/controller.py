@@ -1,0 +1,425 @@
+"""The stateful MPPI controller over the functional solve.
+
+The counterpart of ``pytorch_mppi_tpu/controller.py``'s ``MPPI``, with the
+same constructor surface so that code moves across by changing its import.
+Where JAX places arrays on a device of its choosing, the port takes an
+explicit ``device``: ``None`` means ``"cuda"``, and with no CUDA device the
+constructor raises and asks for ``device="cpu"``.  Random numbers come from
+the controller's own ``torch.Generator``, seeded by ``seed``.
+
+``use_pallas=True`` keeps its JAX name: here it runs each command through the
+fused CUDA kernel (``csrc/fused_mppi.cu``) when the dynamics and running cost
+carry a kernel model (``ops/kernel_models.py``) and the configuration is
+eligible; otherwise the plain torch path runs, after a warning.  On a CPU
+device it runs the kernel's plain version.
+
+Flags of the JAX controller that the port does not run yet raise
+``NotImplementedError`` naming the ``ROADMAP.md`` item that will port them.
+"""
+from __future__ import annotations
+
+import logging
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from .config import MPPIConfig, MPPIParams, MPPIState
+from .ops import solve as _solve
+
+logger = logging.getLogger(__name__)
+
+__all__ = ["MPPI"]
+
+# flag -> (value that means "off", ROADMAP.md item that ports it)
+_UNPORTED = {
+    "terminal_state_cost": (None, "Queue 1 item 5 (terminal costs)"),
+    "terminal_final_cost": (None, "Queue 1 item 5 (terminal costs)"),
+    "rollout_samples": (1, "Queue 1 item 5 (stochastic rollouts)"),
+    "rollout_var_cost": (0.0, "Queue 1 item 5 (stochastic rollouts)"),
+    "rollout_var_discount": (0.95, "Queue 1 item 5 (stochastic rollouts)"),
+    "risk_alpha": (0.0, "Queue 1 item 5 (stochastic rollouts)"),
+    "stochastic_dynamics": (False, "Queue 1 item 5 (stochastic rollouts)"),
+    "specific_action_sampler": (None, "Queue 1 item 5 (SpecificActionSampler)"),
+    "num_iterations": (1, "Queue 1 item 5 (num_iterations)"),
+    "adaptive_covariance": (False, "Queue 1 item 5 (adaptive covariance)"),
+    "adaptive_cov_lr": (0.5, "Queue 1 item 5 (adaptive covariance)"),
+    "gradient_refinement_steps": (0, "Queue 1 item 5 (gradient refinement)"),
+    "gradient_refinement_lr": (0.05, "Queue 1 item 5 (gradient refinement)"),
+    "num_elites": (0, "Queue 1 item 5 (elite reuse)"),
+    "dynamics_params": (None, "Queue 1 item 9 (learned models)"),
+    "mesh": (None, "Queue 1 item 12 (sharding)"),
+}
+
+
+def _reject_unported(**flags):
+    for name, value in flags.items():
+        off, item = _UNPORTED[name]
+        if value is not off and value != off:
+            raise NotImplementedError(
+                f"{name}={value!r} is not ported to pytorch_mppi_tpu_torch yet; "
+                f"see ROADMAP.md {item}"
+            )
+
+
+def _resolve_device(device) -> torch.device:
+    """``None`` means the card.  Never falls back to the CPU on its own."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "MPPI runs on a CUDA device by default and none is available; "
+            "pass device='cpu' to run on the CPU"
+        )
+    return device
+
+
+def _coerce_sigma(noise_sigma, dtype=None):
+    """Normalize noise_sigma to a (nu, nu) matrix (reference mppi.py:94,
+    103-106); a 1-D vector of length nu > 1 is a diagonal.  A tensor keeps
+    its dtype; anything else becomes torch's default dtype."""
+    if dtype is None:
+        dtype = (noise_sigma.dtype if isinstance(noise_sigma, torch.Tensor)
+                 and noise_sigma.is_floating_point() else torch.get_default_dtype())
+    sigma = torch.as_tensor(np.asarray(noise_sigma) if not isinstance(
+        noise_sigma, torch.Tensor) else noise_sigma, dtype=dtype)
+    if sigma.ndim == 0:
+        sigma = sigma.reshape(1, 1)
+    elif sigma.ndim == 1:
+        sigma = sigma.reshape(-1, 1) if sigma.shape[0] == 1 else torch.diag(sigma)
+    if sigma.ndim != 2 or sigma.shape[0] != sigma.shape[1]:
+        raise ValueError(
+            f"noise_sigma must be a scalar, (nu,) diagonal, or (nu, nu) covariance; "
+            f"got shape {tuple(sigma.shape)}"
+        )
+    if torch.linalg.cholesky_ex(sigma.detach().cpu()).info != 0:
+        raise ValueError("noise_sigma must be symmetric positive definite")
+    return sigma
+
+
+def _validate_rho(noise_rho):
+    if not (0.0 <= float(noise_rho) < 1.0):
+        raise ValueError("noise_rho must be in [0, 1)")
+    return float(noise_rho)
+
+
+def _is_diag(sigma) -> bool:
+    """Diagonality, checked when sigma is set (reference mppi.py:131-139)."""
+    s = sigma.detach().cpu().numpy()
+    return bool(np.all(s == np.diag(np.diagonal(s))))
+
+
+def _complete_bounds(u_min, u_max, nu, dtype, device):
+    """Symmetric-bound completion, resolved to +-inf clamps (mppi.py:108-126)."""
+    if u_max is not None and u_min is None:
+        u_max = torch.as_tensor(u_max, dtype=dtype)
+        u_min = -u_max
+    if u_min is not None and u_max is None:
+        u_min = torch.as_tensor(u_min, dtype=dtype)
+        u_max = -u_min
+    if u_min is None:
+        lo = torch.full((nu,), -torch.inf, dtype=dtype, device=device)
+        hi = torch.full((nu,), torch.inf, dtype=dtype, device=device)
+        return lo, hi, False
+    lo = torch.broadcast_to(torch.as_tensor(u_min, dtype=dtype), (nu,)).clone()
+    hi = torch.broadcast_to(torch.as_tensor(u_max, dtype=dtype), (nu,)).clone()
+    return lo.to(device), hi.to(device), True
+
+
+def _vector(value, nu, dtype, device):
+    return torch.broadcast_to(
+        torch.as_tensor(value, dtype=dtype).reshape(-1), (nu,)).clone().to(device)
+
+
+class MPPI:
+    """Model Predictive Path Integral control (Williams et al. 2017, Alg. 2).
+
+    :param dynamics: ``(state (K, nx), action (K, nu)) -> (K, nx)`` on tensors;
+        with ``step_dependent_dynamics`` it also takes the step index.
+    :param running_cost: ``(state, action) -> (K,)``, taken at the state after
+        the dynamics step (mppi.py:314-318).
+    :param device: ``None`` (the card), ``"cuda"``, ``"cuda:N"`` or ``"cpu"``.
+    :param seed: seeds the controller's ``torch.Generator``.
+    :param use_pallas: run each command through the fused CUDA kernel.
+    """
+
+    def __init__(
+        self,
+        dynamics: Callable,
+        running_cost: Callable,
+        nx: int,
+        noise_sigma,
+        num_samples: int = 100,
+        horizon: int = 15,
+        device=None,
+        terminal_state_cost: Optional[Callable] = None,
+        terminal_final_cost: Optional[Callable] = None,
+        lambda_: float = 1.0,
+        noise_mu=None,
+        u_min=None,
+        u_max=None,
+        u_init=None,
+        U_init=None,
+        u_scale: float = 1.0,
+        u_per_command: int = 1,
+        step_dependent_dynamics: bool = False,
+        rollout_samples: int = 1,
+        rollout_var_cost: float = 0.0,
+        rollout_var_discount: float = 0.95,
+        risk_alpha: float = 0.0,
+        sample_null_action: bool = False,
+        specific_action_sampler=None,
+        noise_abs_cost: bool = False,
+        stochastic_dynamics: bool = False,
+        antithetic_sampling: bool = False,
+        num_iterations: int = 1,
+        adaptive_covariance: bool = False,
+        adaptive_cov_lr: float = 0.5,
+        gradient_refinement_steps: int = 0,
+        gradient_refinement_lr: float = 0.05,
+        num_elites: int = 0,
+        noise_rho: float = 0.0,
+        dynamics_params=None,
+        seed: Optional[int] = 0,
+        mesh=None,
+        use_pallas: bool = False,
+        fused_artifacts: bool = False,
+    ):
+        _reject_unported(
+            terminal_state_cost=terminal_state_cost,
+            terminal_final_cost=terminal_final_cost,
+            rollout_samples=rollout_samples, rollout_var_cost=rollout_var_cost,
+            rollout_var_discount=rollout_var_discount, risk_alpha=risk_alpha,
+            stochastic_dynamics=stochastic_dynamics,
+            specific_action_sampler=specific_action_sampler,
+            num_iterations=num_iterations,
+            adaptive_covariance=adaptive_covariance,
+            adaptive_cov_lr=adaptive_cov_lr,
+            gradient_refinement_steps=gradient_refinement_steps,
+            gradient_refinement_lr=gradient_refinement_lr,
+            num_elites=num_elites, dynamics_params=dynamics_params, mesh=mesh,
+        )
+        self.d = _resolve_device(device)
+        self.use_pallas = bool(use_pallas)
+        self.fused_artifacts = bool(fused_artifacts)
+        sigma = _coerce_sigma(noise_sigma)
+        self.dtype = sigma.dtype
+        self.K = int(num_samples)
+        self.T = int(horizon)
+        self.nx = int(nx)
+        self.nu = int(sigma.shape[0])
+
+        if noise_mu is None:
+            noise_mu = torch.zeros(self.nu, dtype=self.dtype)
+        noise_mu = _vector(noise_mu, self.nu, self.dtype, self.d)
+        u_init = _vector(0.0 if u_init is None else u_init, self.nu, self.dtype, self.d)
+        lo, hi, self._bounded = _complete_bounds(u_min, u_max, self.nu, self.dtype, self.d)
+
+        self.u_scale = float(u_scale)
+        self.u_per_command = int(u_per_command)
+        self.F = dynamics
+        self.running_cost = running_cost
+        self.step_dependency = bool(step_dependent_dynamics)
+        self.sample_null_action = bool(sample_null_action)
+        self.noise_abs_cost = bool(noise_abs_cost)
+        self.antithetic_sampling = bool(antithetic_sampling)
+        self.noise_rho = _validate_rho(noise_rho)
+        self._diag_sigma = _is_diag(sigma)
+
+        self._params = MPPIParams(
+            noise_mu=noise_mu,
+            noise_sigma=sigma.to(self.d),
+            lambda_=torch.tensor(float(lambda_), dtype=self.dtype, device=self.d),
+            u_min=lo,
+            u_max=hi,
+            u_init=u_init,
+        )
+        self._gen = torch.Generator()
+        self._gen.manual_seed(0 if seed is None else int(seed))
+
+        self._build_config()
+        self._build_step_fns()
+
+        # initial nominal trajectory: user-provided or sampled noise (mppi.py:140-145)
+        if U_init is not None:
+            U0 = torch.as_tensor(U_init, dtype=self.dtype).reshape(self.T, self.nu).to(self.d)
+        else:
+            U0 = self._sample_noise_eager((self.T,))
+        self._state = MPPIState(U=U0, seed=self._next_seed())
+
+        # per-solve artifacts (reference mppi.py:179-184)
+        self.state = None
+        self.cost_total = None
+        self.cost_total_non_zero = None
+        self.omega = None
+        self.noise = None
+        self.perturbed_action = None
+        self.states = None
+        self.actions = None
+
+    # -- construction helpers ------------------------------------------------
+
+    def _build_config(self):
+        self.config = MPPIConfig(
+            nx=self.nx,
+            nu=self.nu,
+            K=self.K,
+            T=self.T,
+            u_scale=self.u_scale,
+            u_per_command=self.u_per_command,
+            sample_null_action=self.sample_null_action,
+            noise_abs_cost=self.noise_abs_cost,
+            step_dependent_dynamics=self.step_dependency,
+            antithetic=self.antithetic_sampling,
+            noise_rho=self.noise_rho,
+            diag_sigma=self._diag_sigma,
+            fused_artifacts=self.fused_artifacts,
+            dtype=self.dtype,
+        )
+
+    def _build_step_fns(self):
+        """Build (or reuse) the solve for the current config: a horizon
+        toggled back reuses the step functions built for it."""
+        cache = self.__dict__.setdefault("_fns_cache", {})
+        key = (self.config, self.use_pallas)
+        if key not in cache:
+            cache[key] = _solve.make_mppi_step(
+                self.config, self.F, self.running_cost, use_pallas=self.use_pallas)
+        self._fns = cache[key]
+
+    def _next_seed(self) -> int:
+        """A fresh 63-bit stream seed from the controller's generator."""
+        return int(torch.randint(0, 2**63 - 1, (), generator=self._gen))
+
+    def _sample_noise_eager(self, leading_shape):
+        """N(mu, Sigma) draws for init/reset (mppi.py:144-145, 286-290)."""
+        return _solve.sample_noise(self._gen, leading_shape, self._params, self.dtype)
+
+    # -- tunable hyperparameters (a tuner changes these between commands) -----
+
+    @property
+    def noise_sigma(self):
+        return self._params.noise_sigma
+
+    @noise_sigma.setter
+    def noise_sigma(self, value):
+        sigma = _coerce_sigma(value, self.dtype)
+        diag = _is_diag(sigma)
+        if diag != self._diag_sigma:
+            # diagonality selects the noise transform: rebuild the solve
+            self._diag_sigma = diag
+            self._build_config()
+            self._build_step_fns()
+        self._params = self._params._replace(noise_sigma=sigma.to(self.d))
+
+    @property
+    def noise_mu(self):
+        return self._params.noise_mu
+
+    @noise_mu.setter
+    def noise_mu(self, value):
+        self._params = self._params._replace(
+            noise_mu=_vector(value, self.nu, self.dtype, self.d))
+
+    @property
+    def lambda_(self):
+        return float(self._params.lambda_)
+
+    @lambda_.setter
+    def lambda_(self, value):
+        self._params = self._params._replace(
+            lambda_=torch.tensor(float(value), dtype=self.dtype, device=self.d))
+
+    @property
+    def noise_sigma_inv(self):
+        return torch.linalg.inv(self._params.noise_sigma)
+
+    @property
+    def u_min(self):
+        return self._params.u_min
+
+    @property
+    def u_max(self):
+        return self._params.u_max
+
+    @property
+    def u_init(self):
+        return self._params.u_init
+
+    @property
+    def U(self):
+        return self._state.U
+
+    @U.setter
+    def U(self, value):
+        self._state = self._state._replace(
+            U=torch.as_tensor(value, dtype=self.dtype).to(self.d))
+
+    # -- public API ----------------------------------------------------------
+
+    def get_params(self):
+        return (
+            f"K={self.K} T={self.T} M=1 lambda={self.lambda_} "
+            f"noise_mu={self.noise_mu.cpu().numpy()} "
+            f"noise_sigma={self.noise_sigma.cpu().numpy()}"
+        ).replace("\n", ",")
+
+    def get_action_sequence(self):
+        return self._state.U
+
+    def shift_nominal_trajectory(self):
+        """Shift the nominal trajectory forward one step (mppi.py:232-238)."""
+        self._state = self._state._replace(
+            U=_solve._shift_U(self._state.U, self._params.u_init))
+
+    def change_horizon(self, horizon: int):
+        """Truncate/extend U and rebuild the solve (mppi.py:277-284)."""
+        horizon = int(horizon)
+        U = self._state.U
+        if horizon < U.shape[0]:
+            U = U[:horizon]
+        elif horizon > U.shape[0]:
+            pad = self._params.u_init.expand(horizon - U.shape[0], self.nu)
+            U = torch.cat([U, pad], dim=0)
+        if horizon != self.T:
+            self.T = horizon
+            self._build_config()
+            self._build_step_fns()
+        self._state = self._state._replace(U=U)
+
+    def reset(self):
+        """Clear controller state after a trial: resample U (mppi.py:286-290)."""
+        self._state = self._state._replace(U=self._sample_noise_eager((self.T,)))
+
+    def command(self, state, shift_nominal_trajectory: bool = True, info=None):
+        """One MPC solve (reference mppi.py:240-252).
+
+        :param state: (nx,) or (K, nx) current state (array-like or tensor)
+        :param info: accepted for API parity; nothing in this port reads it
+        :returns: (nu,) action, or (u_per_command, nu) when u_per_command > 1,
+            as a tensor on the controller's device
+        """
+        x0 = torch.as_tensor(state, dtype=self.dtype, device=self.d)
+        if x0.shape[-1] != self.nx:
+            raise ValueError(
+                f"state must have trailing dimension nx={self.nx}; got shape {tuple(x0.shape)}"
+            )
+        fn = self._fns.step if shift_nominal_trajectory else self._fns.step_no_shift
+        self._state, action, artifacts = fn(self._params, self._state, x0)
+        self.state = x0
+        self.cost_total = artifacts.cost_total
+        self.cost_total_non_zero = artifacts.cost_total_non_zero
+        self.omega = artifacts.omega
+        self.noise = artifacts.noise
+        self.perturbed_action = artifacts.perturbed_action
+        self.states = artifacts.states
+        self.actions = artifacts.actions
+        return action
+
+    def get_rollouts(self, state, num_rollouts: int = 1, U=None):
+        """Roll the nominal action sequence from given states (mppi.py:425-448).
+
+        :returns: (num_rollouts, T, nx) trajectories
+        """
+        if U is None:
+            U = self.get_action_sequence()
+        return self._fns.get_rollouts(self._params, state, U, num_rollouts=num_rollouts)

@@ -1,0 +1,97 @@
+"""The dynamics bridge between user models and the fused CUDA kernel.
+
+The JAX package evaluates any traceable dynamics inside its fused kernel by
+interpreting the traced jaxpr batch-axis-last (``pytorch_mppi_tpu/ops/
+batch_last.py``).  A CUDA kernel cannot evaluate a Python callable, so the port
+names its models instead: a :class:`KernelModel` pairs a C++ device model
+compiled into ``csrc/fused_mppi.cu`` (selected by ``model_id``, fed the float32
+``consts``) with the plain torch ``dynamics`` and ``running_cost`` that compute
+the same thing.  The plain pair is what the controller is given, what the
+plain solve path runs, and what the kernel's plain version runs on the CPU.
+
+:func:`find_kernel_model` recovers the model from a ``(dynamics,
+running_cost)`` pair; any other callable has no kernel model, and
+``use_pallas`` then takes the plain path with a warning.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import torch
+
+# model ids of the device models in csrc/fused_mppi.cu
+LINEAR_QUADRATIC = 0
+PENDULUM = 1
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class KernelModel:
+    """A dynamics + running-cost pair the fused kernel can evaluate.
+
+    ``dynamics(state (K, nx), action (K, nu)) -> (K, nx)`` and
+    ``running_cost(state, action) -> (K,)`` are the plain torch versions;
+    the kernel runs the device model ``model_id`` with ``consts``."""
+
+    name: str
+    model_id: int
+    nx: int
+    nu: int
+    consts: torch.Tensor  # float32, 1-D, on the CPU
+    dynamics: Callable
+    running_cost: Callable
+    _device_consts: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    def consts_on(self, device) -> torch.Tensor:
+        """The constants as a contiguous float32 tensor on ``device`` (copied
+        once per device)."""
+        device = torch.device(device)
+        c = self._device_consts.get(device)
+        if c is None:
+            c = self.consts.to(device=device, dtype=torch.float32).contiguous()
+            self._device_consts[device] = c
+        return c
+
+
+def _tag(model: KernelModel) -> KernelModel:
+    model.dynamics.kernel_model = model
+    model.running_cost.kernel_model = model
+    return model
+
+
+def find_kernel_model(dynamics, running_cost) -> Optional[KernelModel]:
+    """The kernel model both callables belong to, or None."""
+    m = getattr(dynamics, "kernel_model", None)
+    if m is not None and getattr(running_cost, "kernel_model", None) is m:
+        return m
+    return None
+
+
+def linear_quadratic(B, goal) -> KernelModel:
+    """``x' = x + u Bᵀ`` with cost ``‖goal − x'‖²`` (the flagship problem of
+    ``bench.py``).  ``B`` is (nx, nu), ``goal`` is (nx,)."""
+    B = torch.as_tensor(B)
+    goal = torch.as_tensor(goal)
+    if B.ndim != 2 or goal.shape != (B.shape[0],):
+        raise ValueError(
+            f"linear_quadratic needs B (nx, nu) and goal (nx,); got "
+            f"{tuple(B.shape)} and {tuple(goal.shape)}"
+        )
+    nx, nu = B.shape
+
+    def dynamics(state, action):
+        return state + action @ B.to(state.device, state.dtype).T
+
+    def running_cost(state, action):
+        return ((goal.to(state.device, state.dtype) - state) ** 2).sum(dim=-1)
+
+    consts = torch.cat([B.reshape(-1), goal.reshape(-1)]).to(torch.float32).cpu()
+    return _tag(KernelModel("linear_quadratic", LINEAR_QUADRATIC, nx, nu,
+                            consts, dynamics, running_cost))
+
+
+def pendulum_model(dynamics: Callable, running_cost: Callable) -> KernelModel:
+    """Tag the gym pendulum's plain functions (``models/pendulum.py``) with
+    the kernel's pendulum model; its constants are compiled into the kernel."""
+    return _tag(KernelModel("pendulum", PENDULUM, 2, 1, torch.zeros(1),
+                            dynamics, running_cost))

@@ -1,0 +1,422 @@
+"""The MPPI solve as plain functions on tensors.
+
+The counterpart of ``pytorch_mppi_tpu/ops/solve.py`` for one plant and one
+optimisation cycle per command.  :func:`make_mppi_step` builds the two ways a
+command runs:
+
+* the plain path, ``_one_iteration``: noise in the flat ``(K, T·nu)`` layout,
+  the null-action row, the clamp, the rectified noise and its action cost, a
+  T-step rollout in a Python loop, the softmax weights and the nominal update;
+* with ``use_pallas=True``, ``_one_iteration_fused``: the whole cycle in one
+  call to the fused CUDA kernel (:mod:`.fused_solve`), which keeps the noise
+  out of device memory.  On a CPU tensor that call runs the kernel's plain
+  version.
+
+The reference quirks stay: U is not clamped again after the update, the
+running cost is taken at the state after the dynamics step, and ``u_scale``
+is applied inside the rollout.  Tensors are not updated in place, except
+fresh intermediates the function itself allocated.
+"""
+from __future__ import annotations
+
+import logging
+from typing import Callable, NamedTuple
+
+import torch
+
+from ..config import Artifacts, MPPIConfig, MPPIParams, MPPIState
+from . import fused_solve as FS
+from .kernel_models import find_kernel_model
+
+logger = logging.getLogger(__name__)
+
+_MASK64 = (1 << 64) - 1
+
+
+# ---------------------------------------------------------------------------
+# Random-number stream
+# ---------------------------------------------------------------------------
+
+
+def iteration_seed(seed: int, counter: int) -> int:
+    """The 64-bit seed of solve number ``counter`` of a stream (splitmix64 of
+    the stream position), the counterpart of splitting a JAX key per solve."""
+    z = (seed + (counter + 1) * 0x9E3779B97F4A7C15) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return z ^ (z >> 31)
+
+
+def _generator(s: int, device) -> torch.Generator:
+    g = torch.Generator(device=device)
+    g.manual_seed(s)
+    return g
+
+
+def standard_normal(generator: torch.Generator, shape, dtype, device) -> torch.Tensor:
+    """N(0, 1) draws: the one place the plain path takes random numbers."""
+    return torch.randn(shape, generator=generator, dtype=dtype, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Small numeric helpers
+# ---------------------------------------------------------------------------
+
+
+def _sigma_factors(noise_sigma: torch.Tensor, diag: bool = False):
+    """Cholesky factor and inverse of the (nu, nu) control covariance, derived
+    inside every solve so that a changed sigma can never leave them stale.
+    The ``_ex`` forms do not synchronise with the card to check the result;
+    the controller rejects a sigma that is not positive definite where it is
+    set (``controller._coerce_sigma``)."""
+    if diag:
+        d = torch.diagonal(noise_sigma)
+        return torch.diag(torch.sqrt(d)), torch.diag(1.0 / d)
+    chol, _ = torch.linalg.cholesky_ex(noise_sigma)
+    sigma_inv, _ = torch.linalg.inv_ex(noise_sigma)
+    return chol, sigma_inv
+
+
+def sample_noise(generator: torch.Generator, leading_shape, params: MPPIParams,
+                 dtype) -> torch.Tensor:
+    """N(mu, Sigma) noise of shape ``(*leading_shape, nu)``, drawn on the
+    generator's device and returned on the parameters' device."""
+    nu = params.noise_mu.shape[-1]
+    chol, _ = _sigma_factors(params.noise_sigma)
+    z = standard_normal(generator, (*leading_shape, nu), dtype, generator.device)
+    z = z.to(params.noise_mu.device)
+    return z @ chol.T + params.noise_mu
+
+
+def ar1_mixing(reps: int, rho: float, dtype, device=None) -> torch.Tensor:
+    """Lower-triangular AR(1) mixing matrix A with unit row norms:
+    A[t, s] = rho^(t-s) * (sqrt(1-rho^2) if s > 0 else 1) for s <= t, so
+    per-step marginals stay N(0, 1) and the lag-1 correlation is rho."""
+    t = torch.arange(reps, device=device)[:, None]
+    s = torch.arange(reps, device=device)[None, :]
+    r = torch.tensor(rho, dtype=torch.float32, device=device)
+    pw = torch.where(s <= t, r ** (t - s).to(torch.float32),
+                     torch.zeros((), dtype=torch.float32, device=device))
+    one = torch.ones((), dtype=torch.float32, device=device)
+    scale = torch.where(s > 0, torch.sqrt(one - r * r), one)
+    return (pw * scale).to(dtype)
+
+
+def noise_operator(chol: torch.Tensor, reps: int, noise_rho: float, dtype) -> torch.Tensor:
+    """The (reps·nu, reps·nu) operator that correlates flat noise rows in the
+    row-vector convention ``z2 @ C``: ``kron(A_rhoᵀ, cholᵀ)`` (identity A for
+    white noise).  ``torch.kron`` needs contiguous factors."""
+    mix = (ar1_mixing(reps, noise_rho, dtype, chol.device) if noise_rho
+           else torch.eye(reps, dtype=dtype, device=chol.device))
+    return torch.kron(mix.T.contiguous(), chol.T.to(dtype).contiguous())
+
+
+def sample_noise_flat(generator: torch.Generator, K: int, reps: int,
+                      params: MPPIParams, dtype, antithetic: bool = False,
+                      chol=None, noise_rho: float = 0.0,
+                      diag_sigma: bool = False) -> torch.Tensor:
+    """N(mu, Sigma) noise in the flat ``(K, reps·nu)`` layout.
+
+    With ``antithetic`` the first ``ceil(K/2)`` rows are drawn and mirrored,
+    so global rows k and K/2 + k form a pair.  A white diagonal sigma scales
+    elementwise; otherwise the rows go through :func:`noise_operator`.
+    """
+    nu = params.noise_mu.shape[-1]
+    device = params.noise_mu.device
+    if chol is None:
+        chol, _ = _sigma_factors(params.noise_sigma, diag=diag_sigma)
+    if antithetic:
+        Kh = (K + 1) // 2
+        z_half = standard_normal(generator, (Kh, reps * nu), dtype, device)
+        z2 = torch.cat([z_half, -z_half], dim=0)[:K]
+    else:
+        z2 = standard_normal(generator, (K, reps * nu), dtype, device)
+    mu_t = params.noise_mu.tile(reps)
+    if diag_sigma and not noise_rho:
+        return z2 * torch.diagonal(chol).to(dtype).tile(reps) + mu_t
+    return z2 @ noise_operator(chol, reps, noise_rho, dtype) + mu_t
+
+
+def compute_weighting(cost_total: torch.Tensor, lambda_: torch.Tensor, dim: int = -1):
+    """beta/eta/omega softmax weighting (reference mppi.py:12-13, 254-259)."""
+    beta = torch.amin(cost_total, dim=dim, keepdim=True)
+    cost_total_non_zero = torch.exp(-(cost_total - beta) / lambda_)
+    eta = torch.sum(cost_total_non_zero, dim=dim, keepdim=True)
+    return cost_total_non_zero, cost_total_non_zero / eta
+
+
+def _bound(action: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """Clamp; lo/hi are -inf/+inf when unbounded (mppi.py:120-126)."""
+    return torch.clamp(action, lo, hi)
+
+
+def _tile_bound(b: torch.Tensor, nu: int, reps: int, dtype) -> torch.Tensor:
+    return torch.broadcast_to(b, (nu,)).to(dtype).tile(reps)
+
+
+# ---------------------------------------------------------------------------
+# Dynamics / cost adapters
+# ---------------------------------------------------------------------------
+
+
+def _adapt_batch_rank(call: Callable) -> Callable:
+    """``handle_batch_input(n=2)`` semantics on the ``(state, action)`` pair:
+    extra leading batch dimensions are flattened before the call and
+    restored on the output."""
+
+    def adapted(s, u, *rest):
+        if s.ndim <= 2:
+            return call(s, u, *rest)
+        lead = s.shape[:-1]
+        out = call(s.reshape(-1, s.shape[-1]), u.reshape(-1, u.shape[-1]), *rest)
+        return out.reshape(*lead, *out.shape[1:])
+
+    return adapted
+
+
+def wrap_dynamics(config: MPPIConfig, dynamics: Callable) -> Callable:
+    """Resolve the user dynamics to ``(state, u, t) -> next_state``."""
+    if config.step_dependent_dynamics:
+        return _adapt_batch_rank(dynamics)
+    return _adapt_batch_rank(lambda s, u, t: dynamics(s, u))
+
+
+def wrap_cost(config: MPPIConfig, running_cost: Callable) -> Callable:
+    """Resolve the user running cost to ``(state, u, t) -> cost``."""
+    if config.step_dependent_dynamics:
+        return _adapt_batch_rank(running_cost)
+    return _adapt_batch_rank(lambda s, u, t: running_cost(s, u))
+
+
+# ---------------------------------------------------------------------------
+# Rollout
+# ---------------------------------------------------------------------------
+
+
+def rollout_costs(config: MPPIConfig, dynamics: Callable, running_cost: Callable,
+                  x0: torch.Tensor, perturbed_actions: torch.Tensor) -> torch.Tensor:
+    """T-step rollout of K trajectories from ``x0`` ((nx,) shared or (K, nx)),
+    returning the (K,) summed running cost.  ``dynamics`` and
+    ``running_cost`` are wrapped (:func:`wrap_dynamics`); the cost is taken
+    at the state after each step, on the ``u_scale``-scaled action."""
+    K, T, _ = perturbed_actions.shape
+    state = x0 if x0.ndim == 2 else x0[None].expand(K, x0.shape[-1])
+    u_scaled = perturbed_actions * config.u_scale
+    cost = torch.zeros(K, dtype=config.dtype, device=perturbed_actions.device)
+    for t in range(T):
+        u_t = u_scaled[:, t]
+        state = dynamics(state, u_t, t)
+        cost = cost + running_cost(state, u_t, t)
+    return cost
+
+
+def inject_specific_actions(config: MPPIConfig, perturbed2: torch.Tensor) -> torch.Tensor:
+    """Zero the first sample row when ``sample_null_action`` (reference
+    ``_sample_specific_actions``, mppi.py:387-400); the JAX function's
+    specific-action sampler is not ported yet.  ``perturbed2`` is a fresh
+    tensor of the caller's, so the row is set in place."""
+    if config.sample_null_action:
+        perturbed2[0] = 0.0
+    return perturbed2
+
+
+def _select_action(config: MPPIConfig, seq: torch.Tensor) -> torch.Tensor:
+    """The first u_per_command actions, squeezed if 1 (mppi.py:271-275)."""
+    action = seq[: config.u_per_command]
+    if config.u_per_command == 1:
+        action = action[0]
+    return action
+
+
+def _shift_U(U: torch.Tensor, u_init: torch.Tensor) -> torch.Tensor:
+    """Roll the nominal sequence forward one step (mppi.py:232-238)."""
+    U = torch.roll(U, -1, dims=0)
+    U[-1] = u_init
+    return U
+
+
+# ---------------------------------------------------------------------------
+# Fused-kernel routing
+# ---------------------------------------------------------------------------
+
+
+def _transposed_operands(noise_sigma, noise_mu, u_min, u_max, config: MPPIConfig,
+                         reps: int, nu: int, dtype):
+    """Per-solve operands of the fused kernel: sigma⁻¹, the noise operator
+    (per-row scale for a white diagonal sigma, else ``kron(A_rho, chol)``
+    applied as ``op @ z``), and the tiled mu and bound columns."""
+    chol, sigma_inv = _sigma_factors(noise_sigma, diag=config.diag_sigma)
+    if config.diag_sigma and not config.noise_rho:
+        op = torch.diagonal(chol).to(dtype).tile(reps)
+    else:
+        mix = (ar1_mixing(reps, config.noise_rho, dtype, chol.device)
+               if config.noise_rho
+               else torch.eye(reps, dtype=dtype, device=chol.device))
+        op = torch.kron(mix, chol.to(dtype).contiguous())
+    mu_t = noise_mu.tile(reps)
+    return (sigma_inv, op, mu_t, _tile_bound(u_min, nu, reps, dtype),
+            _tile_bound(u_max, nu, reps, dtype))
+
+
+def _x0_to_lanes(x0: torch.Tensor, K: int) -> torch.Tensor:
+    """(nx,) shared or (K, nx) per-sample initial states -> (nx, K); a shared
+    state becomes a stride-0 view, which the kernel reads without a copy."""
+    if x0.ndim == 2:
+        return x0.T
+    return x0[:, None].expand(x0.shape[-1], K)
+
+
+def _route_transposed_solve(config: MPPIConfig, dynamics: Callable,
+                            running_cost: Callable):
+    """``use_pallas`` routing, decided once when the step is built: the fused
+    solve, or None (the plain path) with a warning saying why."""
+    model = find_kernel_model(dynamics, running_cost)
+    if model is None:
+        logger.warning(
+            "use_pallas: the dynamics and running cost carry no kernel model "
+            "(ops/kernel_models.py); using the plain torch path"
+        )
+        return None
+    if not FS.transposed_eligible(config):
+        logger.warning(
+            "use_pallas requested but the configuration is ineligible "
+            "(non-float32 or step-dependent); using the plain torch path"
+        )
+        return None
+    try:
+        solve = FS.make_transposed_fused_solve(
+            config, model, emit_perturbed=config.fused_artifacts)
+    except FS.FusedSolveUnavailable as e:
+        logger.warning(
+            "use_pallas: fused kernel unavailable for this configuration "
+            "(%s); using the plain torch path", e,
+        )
+        return None
+    logger.info(
+        "use_pallas: routing to the fused CUDA kernel with the %r kernel "
+        "model; noise/perturbed artifacts %s", model.name,
+        "materialized (fused_artifacts)" if config.fused_artifacts
+        else "are not materialized",
+    )
+    return solve
+
+
+# ---------------------------------------------------------------------------
+# Step factory
+# ---------------------------------------------------------------------------
+
+
+class StepFns(NamedTuple):
+    """The entry points a factory builds."""
+
+    step: Callable  # (params, state, x0) -> (state, action, Artifacts)  [with shift]
+    step_no_shift: Callable  # same, without the nominal-trajectory shift
+    get_rollouts: Callable  # (params, x0 (R, nx), U (T, nu)) -> (R, T, nx)
+    fused: bool = False  # commands run through the fused kernel
+
+
+def make_mppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callable,
+                   use_pallas: bool = False) -> StepFns:
+    """Build the MPPI solve for one configuration.
+
+    With ``use_pallas`` (the JAX package's name for its fused kernel), an
+    eligible configuration whose dynamics and cost carry a kernel model runs
+    each command through the fused CUDA kernel; otherwise the plain path runs,
+    after a warning.  The fused path draws its noise from the kernel's own
+    Philox stream, so its samples differ from the plain path's.
+    """
+    dyn = wrap_dynamics(config, dynamics)
+    cost = wrap_cost(config, running_cost)
+    dtype = config.dtype
+    K, T, nu = config.K, config.T, config.nu
+    D = T * nu
+
+    transposed_solve = (_route_transposed_solve(config, dynamics, running_cost)
+                        if use_pallas else None)
+
+    def _one_iteration_fused(params: MPPIParams, U, x0, s: int):
+        """The whole cycle as one fused-kernel call; only the tiny operands
+        (sigma factors, noise operator, action-cost vector) are made here."""
+        sigma_inv, op, mu_t, lo2, hi2 = _transposed_operands(
+            params.noise_sigma, params.noise_mu, params.u_min, params.u_max,
+            config, T, nu, dtype,
+        )
+        a_flat = (params.lambda_ * (U @ sigma_inv.T)).reshape(D)
+        out = transposed_solve(
+            FS.key_to_seed(s), _x0_to_lanes(x0, K), U.reshape(D), op, mu_t, lo2,
+            hi2, a_flat, params.lambda_,
+        )
+        delta, m, s_, cost_total = out[:4]
+        ctnz, omega = FS.weighting_from_stats(cost_total, params.lambda_, m, s_)
+        U_new = U + (delta / s_).reshape(T, nu)
+        noise_art = pert_art = None
+        if config.fused_artifacts:
+            # the rectified noise is the subtraction the kernel's update used
+            perturbed2 = out[4].T
+            noise_art = (perturbed2 - U.reshape(D)[None]).reshape(K, T, nu)
+            pert_art = perturbed2.reshape(K, T, nu)
+        return U_new, Artifacts(cost_total, ctnz, omega, noise_art, pert_art)
+
+    def _one_iteration(params: MPPIParams, U, x0, s: int):
+        if transposed_solve is not None:
+            return _one_iteration_fused(params, U, x0, s)
+        chol, sigma_inv = _sigma_factors(params.noise_sigma, diag=config.diag_sigma)
+        noise2 = sample_noise_flat(
+            _generator(s, U.device), K, T, params, dtype,
+            antithetic=config.antithetic, chol=chol,
+            noise_rho=config.noise_rho, diag_sigma=config.diag_sigma,
+        )
+        U2 = U.reshape(D)
+        perturbed2 = inject_specific_actions(config, U2[None] + noise2)
+        perturbed2 = _bound(perturbed2, _tile_bound(params.u_min, nu, T, dtype),
+                            _tile_bound(params.u_max, nu, T, dtype))
+        # rectified noise: recomputed after the clamp so that truncated noise
+        # is not charged in the action cost (mppi.py:383-385)
+        noise2 = perturbed2 - U2[None]
+        # sum_{t,n} U λ (noise Σ⁻¹) == noise_flat @ (λ Σ⁻¹ U)_flat (mppi.py:407-417)
+        a_flat = (params.lambda_ * (U @ sigma_inv.T)).reshape(D)
+        n_for_cost = torch.abs(noise2) if config.noise_abs_cost else noise2
+        perturbation_cost = n_for_cost @ a_flat
+        perturbed = perturbed2.reshape(K, T, nu)
+        cost_total = rollout_costs(config, dyn, cost, x0, perturbed) + perturbation_cost
+        cost_total_non_zero, omega = compute_weighting(cost_total, params.lambda_)
+        U_new = U + (omega @ noise2).reshape(T, nu)
+        return U_new, Artifacts(cost_total, cost_total_non_zero, omega,
+                                noise2.reshape(K, T, nu), perturbed)
+
+    def _solve(params: MPPIParams, state: MPPIState, x0, shift: bool):
+        U = _shift_U(state.U, params.u_init) if shift else state.U
+        x0 = torch.as_tensor(x0, dtype=dtype, device=U.device)
+        U_new, artifacts = _one_iteration(
+            params, U, x0, iteration_seed(state.seed, state.counter))
+        new_state = MPPIState(U=U_new, seed=state.seed, counter=state.counter + 1)
+        return new_state, _select_action(config, U_new), artifacts
+
+    def step(params, state, x0):
+        return _solve(params, state, x0, shift=True)
+
+    def step_no_shift(params, state, x0):
+        return _solve(params, state, x0, shift=False)
+
+    return StepFns(step=step, step_no_shift=step_no_shift,
+                   get_rollouts=make_get_rollouts(config, dyn),
+                   fused=transposed_solve is not None)
+
+
+def make_get_rollouts(config: MPPIConfig, wrapped_dynamics: Callable) -> Callable:
+    """Roll a nominal sequence from given initial states (mppi.py:425-448)."""
+    dtype = config.dtype
+
+    def get_rollouts(params: MPPIParams, x0, U, num_rollouts: int = 1):
+        x0 = torch.as_tensor(x0, dtype=dtype, device=U.device).reshape(-1, config.nx)
+        if x0.shape[0] == 1:
+            x0 = x0.expand(num_rollouts, config.nx)
+        state = x0
+        states = []
+        for t in range(U.shape[0]):
+            u = U[t][None].expand(x0.shape[0], config.nu) * config.u_scale
+            state = wrapped_dynamics(state, u, t)[..., : config.nx]
+            states.append(state)
+        return torch.stack(states, dim=1)  # (R, T, nx)
+
+    return get_rollouts
