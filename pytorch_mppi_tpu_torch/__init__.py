@@ -1,15 +1,25 @@
 """pytorch_mppi_tpu_torch — the MPPI engine of ``pytorch_mppi_tpu`` in PyTorch and CUDA.
 
-A port of the JAX package to PyTorch on an NVIDIA H100.  This slice runs
-``MPPI.command()`` for one plant: the plain torch path, and with
-``use_pallas=True`` the fused MPPI iteration as a hand-written CUDA kernel
-(``csrc/fused_mppi.cu``).  Entry points run on the card unless the caller
+A port of the JAX package to PyTorch on an NVIDIA H100.  It runs
+``MPPI.command()``, ``SMPPI.command()`` and ``KMPPI.command()`` for one plant:
+the plain torch path, and with ``use_pallas=True`` the fused iteration of each
+as a hand-written CUDA kernel (``csrc/fused_mppi.cu``).  Entry points run on the card unless the caller
 passes ``device="cpu"``.  The package imports neither JAX nor
 ``pytorch_mppi_tpu``.
 """
 
-from .config import Artifacts, MPPIConfig, MPPIParams, MPPIState
-from .controller import MPPI
+from .config import (
+    Artifacts,
+    KMPPIParams,
+    KMPPIState,
+    MPPIConfig,
+    MPPIParams,
+    MPPIState,
+    SMPPIParams,
+    SMPPIState,
+)
+from .controller import KMPPI, MPPI, SMPPI
+from .ops.kernels import BSplineKernel, RBFKernel, TimeKernel
 from .ops.kernel_models import KernelModel, linear_quadratic
 from .runner import run_mppi
 from .utils.batch import batch_quadratic_product, ensure_tensor, handle_batch_input
@@ -18,6 +28,11 @@ __version__ = "0.1.0"
 
 __all__ = [
     "MPPI",
+    "SMPPI",
+    "KMPPI",
+    "TimeKernel",
+    "RBFKernel",
+    "BSplineKernel",
     "run_mppi",
     "KernelModel",
     "linear_quadratic",
@@ -27,5 +42,9 @@ __all__ = [
     "MPPIConfig",
     "MPPIParams",
     "MPPIState",
+    "SMPPIParams",
+    "SMPPIState",
+    "KMPPIParams",
+    "KMPPIState",
     "Artifacts",
 ]

@@ -46,6 +46,10 @@ class MPPIConfig:
     # the noise / perturbed_action artifacts exist on the fused path too
     fused_artifacts: bool = False
     dtype: torch.dtype = torch.float32
+    # SMPPI extras (reference mppi.py:451-570); only the SMPPI factory reads it
+    smppi: bool = False
+    # KMPPI extras (reference mppi.py:593-688); only the KMPPI factory reads it
+    num_support_pts: int = 0
 
     def __post_init__(self):
         if not isinstance(self.dtype, torch.dtype):
@@ -65,6 +69,27 @@ class MPPIParams(NamedTuple):
     u_init: torch.Tensor  # (nu,)
 
 
+class SMPPIParams(NamedTuple):
+    """SMPPI adds action-space bounds and the smoothing weights
+    (mppi.py:456-477).  The scalars are 0-d tensors on the controller's
+    device, so a tuner changes them without rebuilding the solve."""
+
+    base: MPPIParams
+    action_min: torch.Tensor  # (nu,); -inf when unbounded
+    action_max: torch.Tensor  # (nu,); +inf when unbounded
+    w_action_seq_cost: torch.Tensor  # scalar
+    delta_t: torch.Tensor  # scalar
+
+
+class KMPPIParams(NamedTuple):
+    """KMPPI adds the precomputed kernel-interpolation operators: both are
+    constant for a fixed horizon, so deparameterization is one product."""
+
+    base: MPPIParams
+    interp_full: torch.Tensor  # (T, nsp): K(Hs, Tk) @ inv(K(Tk, Tk))
+    interp_shift: torch.Tensor  # (nsp, nsp): K(Tk + 1, Tk) @ inv(K(Tk, Tk))
+
+
 class MPPIState(NamedTuple):
     """Controller state threaded through solves: the nominal sequence and the
     random-number stream position.  ``seed`` is drawn once from the
@@ -73,6 +98,27 @@ class MPPIState(NamedTuple):
     pair to the noise of one solve."""
 
     U: torch.Tensor  # (T, nu) nominal control sequence
+    seed: int
+    counter: int = 0
+
+
+class SMPPIState(NamedTuple):
+    """SMPPI's state: the lifted action-rate sequence ``U`` and the commanded
+    ``action_sequence`` (mppi.py:481-484), with the stream position of
+    :class:`MPPIState`."""
+
+    U: torch.Tensor  # (T, nu) action-rate sequence
+    action_sequence: torch.Tensor  # (T, nu) commanded actions
+    seed: int
+    counter: int = 0
+
+
+class KMPPIState(NamedTuple):
+    """KMPPI's state: the nominal sequence and its control points ``theta``
+    (mppi.py:600), with the stream position of :class:`MPPIState`."""
+
+    U: torch.Tensor  # (T, nu)
+    theta: torch.Tensor  # (nsp, nu) control points
     seed: int
     counter: int = 0
 

@@ -1,7 +1,8 @@
 """The stateful MPPI controller over the functional solve.
 
-The counterpart of ``pytorch_mppi_tpu/controller.py``'s ``MPPI``, with the
-same constructor surface so that code moves across by changing its import.
+The counterpart of ``pytorch_mppi_tpu/controller.py``'s ``MPPI``, ``SMPPI``
+and ``KMPPI``, with the same constructor surface so that code moves across by
+changing its import.
 Where JAX places arrays on a device of its choosing, the port takes an
 explicit ``device``: ``None`` means ``"cuda"``, and with no CUDA device the
 constructor raises and asks for ``device="cpu"``.  Random numbers come from
@@ -18,18 +19,28 @@ Flags of the JAX controller that the port does not run yet raise
 """
 from __future__ import annotations
 
+import dataclasses
 import logging
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
-from .config import MPPIConfig, MPPIParams, MPPIState
+from .config import (
+    KMPPIParams,
+    KMPPIState,
+    MPPIConfig,
+    MPPIParams,
+    MPPIState,
+    SMPPIParams,
+    SMPPIState,
+)
 from .ops import solve as _solve
+from .ops.kernels import RBFKernel, TimeKernel, interpolation_operators
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["MPPI"]
+__all__ = ["MPPI", "SMPPI", "KMPPI"]
 
 # flag -> (value that means "off", ROADMAP.md item that ports it)
 _UNPORTED = {
@@ -244,7 +255,7 @@ class MPPI:
             U0 = torch.as_tensor(U_init, dtype=self.dtype).reshape(self.T, self.nu).to(self.d)
         else:
             U0 = self._sample_noise_eager((self.T,))
-        self._state = MPPIState(U=U0, seed=self._next_seed())
+        self._state = self._initial_state(U0)
 
         # per-solve artifacts (reference mppi.py:179-184)
         self.state = None
@@ -276,15 +287,26 @@ class MPPI:
             dtype=self.dtype,
         )
 
-    def _build_step_fns(self):
-        """Build (or reuse) the solve for the current config: a horizon
-        toggled back reuses the step functions built for it."""
+    def _cached_fns(self, factory):
+        """Build (or reuse) the solve ``factory`` makes for the current
+        config: a horizon toggled back reuses the step functions built for
+        it."""
         cache = self.__dict__.setdefault("_fns_cache", {})
         key = (self.config, self.use_pallas)
         if key not in cache:
-            cache[key] = _solve.make_mppi_step(
-                self.config, self.F, self.running_cost, use_pallas=self.use_pallas)
-        self._fns = cache[key]
+            cache[key] = factory(self.config, self.F, self.running_cost,
+                                 use_pallas=self.use_pallas)
+        return cache[key]
+
+    def _build_step_fns(self):
+        self._fns = self._cached_fns(_solve.make_mppi_step)
+
+    def _initial_state(self, U0):
+        return MPPIState(U=U0, seed=self._next_seed())
+
+    def _full_params(self):
+        """The parameters one command's step takes."""
+        return self._params
 
     def _next_seed(self) -> int:
         """A fresh 63-bit stream seed from the controller's generator."""
@@ -404,8 +426,12 @@ class MPPI:
                 f"state must have trailing dimension nx={self.nx}; got shape {tuple(x0.shape)}"
             )
         fn = self._fns.step if shift_nominal_trajectory else self._fns.step_no_shift
-        self._state, action, artifacts = fn(self._params, self._state, x0)
+        self._state, action, artifacts = fn(self._full_params(), self._state, x0)
         self.state = x0
+        self._store_artifacts(artifacts)
+        return action
+
+    def _store_artifacts(self, artifacts):
         self.cost_total = artifacts.cost_total
         self.cost_total_non_zero = artifacts.cost_total_non_zero
         self.omega = artifacts.omega
@@ -413,7 +439,6 @@ class MPPI:
         self.perturbed_action = artifacts.perturbed_action
         self.states = artifacts.states
         self.actions = artifacts.actions
-        return action
 
     def get_rollouts(self, state, num_rollouts: int = 1, U=None):
         """Roll the nominal action sequence from given states (mppi.py:425-448).
@@ -423,3 +448,231 @@ class MPPI:
         if U is None:
             U = self.get_action_sequence()
         return self._fns.get_rollouts(self._params, state, U, num_rollouts=num_rollouts)
+
+
+class SMPPI(MPPI):
+    """Smooth MPPI: samples in action-rate space and penalizes action change
+    (reference mppi.py:451-570; arXiv:2112.09988).
+
+    ``U`` is the lifted action-rate sequence and starts at zero;
+    ``action_sequence`` holds the commanded actions (``U_init``, or zero)
+    and is what a command returns from.  ``u_min``/``u_max`` bound the
+    rates, ``action_min``/``action_max`` the actions.  ``w_action_seq_cost``,
+    ``delta_t`` and ``lambda_`` reach the solve as device scalars, so a
+    tuner changes them without rebuilding it.
+    """
+
+    def __init__(self, *args, w_action_seq_cost: float = 1.0, delta_t: float = 1.0,
+                 U_init=None, action_min=None, action_max=None, **kwargs):
+        self._U_init_arg = U_init
+        super().__init__(*args, U_init=None, **kwargs)
+        self._action_min, self._action_max, _ = _complete_bounds(
+            action_min, action_max, self.nu, self.dtype, self.d)
+        self.w_action_seq_cost = w_action_seq_cost
+        self.delta_t = delta_t
+
+    def _scalar(self, value):
+        return torch.tensor(float(value), dtype=self.dtype, device=self.d)
+
+    @property
+    def w_action_seq_cost(self):
+        return float(self._w_action_seq_cost)
+
+    @w_action_seq_cost.setter
+    def w_action_seq_cost(self, value):
+        self._w_action_seq_cost = self._scalar(value)
+
+    @property
+    def delta_t(self):
+        return float(self._delta_t)
+
+    @delta_t.setter
+    def delta_t(self, value):
+        self._delta_t = self._scalar(value)
+
+    @property
+    def action_min(self):
+        return self._action_min
+
+    @property
+    def action_max(self):
+        return self._action_max
+
+    @property
+    def action_sequence(self):
+        return self._state.action_sequence
+
+    @action_sequence.setter
+    def action_sequence(self, value):
+        self._state = self._state._replace(
+            action_sequence=torch.as_tensor(value, dtype=self.dtype).to(self.d))
+
+    def _build_config(self):
+        super()._build_config()
+        self.config = dataclasses.replace(self.config, smppi=True)
+
+    def _build_step_fns(self):
+        self._fns = self._cached_fns(_solve.make_smppi_step)
+
+    def _full_params(self):
+        return SMPPIParams(base=self._params, action_min=self._action_min,
+                           action_max=self._action_max,
+                           w_action_seq_cost=self._w_action_seq_cost,
+                           delta_t=self._delta_t)
+
+    def _initial_state(self, U0):
+        # the smooth formulation starts from zero rates (mppi.py:479-484)
+        zeros = torch.zeros((self.T, self.nu), dtype=self.dtype, device=self.d)
+        if self._U_init_arg is not None:
+            seq = torch.as_tensor(self._U_init_arg, dtype=self.dtype).reshape(
+                self.T, self.nu).to(self.d)
+        else:
+            seq = zeros.clone()
+        return SMPPIState(U=zeros, action_sequence=seq, seed=self._next_seed())
+
+    def get_params(self):
+        return f"{super().get_params()} w={self.w_action_seq_cost} t={self.delta_t}"
+
+    def get_action_sequence(self):
+        return self._state.action_sequence
+
+    def shift_nominal_trajectory(self):
+        """Roll both sequences; repeat the last commanded action (mppi.py:489-493)."""
+        self._state = self._state._replace(
+            U=_solve._shift_U(self._state.U, self._params.u_init),
+            action_sequence=_solve._shift_sequence(self._state.action_sequence))
+
+    def change_horizon(self, horizon: int):
+        """Truncate or extend both sequences (the rates with ``u_init``, the
+        actions with their last row) and rebuild the solve."""
+        horizon = int(horizon)
+        U, seq = self._state.U, self._state.action_sequence
+        if horizon < U.shape[0]:
+            U, seq = U[:horizon], seq[:horizon]
+        elif horizon > U.shape[0]:
+            extend = horizon - U.shape[0]
+            U = torch.cat([U, self._params.u_init.expand(extend, self.nu)], dim=0)
+            seq = torch.cat([seq, seq[-1].expand(extend, self.nu)], dim=0)
+        if horizon != self.T:
+            self.T = horizon
+            self._build_config()
+            self._build_step_fns()
+        self._state = self._state._replace(U=U, action_sequence=seq)
+
+    def reset(self):
+        """Zero both sequences (mppi.py:498-500)."""
+        z = torch.zeros((self.T, self.nu), dtype=self.dtype, device=self.d)
+        self._state = self._state._replace(U=z, action_sequence=z.clone())
+
+
+class KMPPI(MPPI):
+    """Kernel MPPI: noise sampled at control points, kernel-interpolated to the
+    full horizon (reference mppi.py:593-688).
+
+    ``num_support_pts`` defaults to ``max(1, T // 2)`` and is frozen at
+    construction (theta's shape depends on it); ``kernel`` defaults to
+    ``RBFKernel()``.
+    """
+
+    def __init__(self, *args, num_support_pts: Optional[int] = None,
+                 kernel: TimeKernel = None, **kwargs):
+        self._nsp_arg = num_support_pts
+        self.interpolation_kernel = kernel if kernel is not None else RBFKernel()
+        super().__init__(*args, **kwargs)
+
+    def _build_config(self):
+        if not hasattr(self, "num_support_pts"):
+            self.num_support_pts = max(1, int(self._nsp_arg or self.T // 2))
+            if self.num_support_pts > self.T:
+                raise ValueError(
+                    f"num_support_pts={self.num_support_pts} exceeds horizon "
+                    f"T={self.T}: support points would be denser than "
+                    f"timesteps and the kernel Gram solve ill-conditioned")
+        super()._build_config()
+        self.config = dataclasses.replace(self.config,
+                                          num_support_pts=self.num_support_pts)
+        self._set_interpolation()
+
+    def _set_interpolation(self):
+        self._interp_full, self._interp_shift = interpolation_operators(
+            self.interpolation_kernel, self.T, self.num_support_pts, self.dtype,
+            device=self.d)
+
+    def _build_step_fns(self):
+        self._fns = self._cached_fns(_solve.make_kmppi_step)
+
+    def _full_params(self):
+        return KMPPIParams(base=self._params, interp_full=self._interp_full,
+                           interp_shift=self._interp_shift)
+
+    def _initial_state(self, U0):
+        return KMPPIState(
+            U=U0, theta=torch.zeros((self.num_support_pts, self.nu), dtype=self.dtype,
+                                    device=self.d),
+            seed=self._next_seed())
+
+    @property
+    def theta(self):
+        return self._state.theta
+
+    @theta.setter
+    def theta(self, value):
+        self._state = self._state._replace(
+            theta=torch.as_tensor(value, dtype=self.dtype).to(self.d))
+
+    @property
+    def kernel_sigma(self):
+        """Bandwidth of the interpolation kernel (RBF ``sigma``, B-spline
+        ``scale``); setting it rebuilds the two interpolation operators and
+        nothing else."""
+        k = self.interpolation_kernel
+        return float(getattr(k, "sigma", getattr(k, "scale", 1.0)))
+
+    @kernel_sigma.setter
+    def kernel_sigma(self, value):
+        k = self.interpolation_kernel
+        if hasattr(k, "sigma"):
+            k.sigma = float(value)
+        elif hasattr(k, "scale"):
+            k.scale = float(value)
+        else:
+            raise AttributeError(f"kernel {k!r} exposes neither 'sigma' nor 'scale'")
+        self._set_interpolation()
+
+    def get_params(self):
+        return (f"{super().get_params()} num_support_pts={self.num_support_pts} "
+                f"kernel={self.interpolation_kernel}")
+
+    def reset(self):
+        """Resample U and zero theta (mppi.py:613-615)."""
+        super().reset()
+        self._state = self._state._replace(theta=torch.zeros_like(self._state.theta))
+
+    def shift_nominal_trajectory(self):
+        """Roll U; re-interpolate theta at Tk + 1 (mppi.py:617-619)."""
+        self._state = self._state._replace(
+            U=_solve._shift_U(self._state.U, self._params.u_init),
+            theta=self._interp_shift @ self._state.theta)
+
+    def change_horizon(self, horizon: int):
+        """Change the horizon and rebuild the interpolation operators.
+        ``num_support_pts`` is frozen, so the horizon is clamped to at least
+        it: support points denser than timesteps make the Gram solve
+        ill-conditioned."""
+        horizon = int(horizon)
+        if horizon < self.num_support_pts:
+            logger.warning(
+                "KMPPI horizon %d clamped to num_support_pts=%d (support points "
+                "cannot be denser than timesteps)", horizon, self.num_support_pts)
+            horizon = self.num_support_pts
+        super().change_horizon(horizon)
+
+    def deparameterize_to_trajectory_single(self, theta):
+        """(nsp, nu) control points -> (T, nu) trajectory (mppi.py:650-651)."""
+        theta = torch.as_tensor(theta, dtype=self.dtype).to(self.d)
+        return self._interp_full @ theta, self._interp_full
+
+    def deparameterize_to_trajectory_batch(self, theta):
+        """(K, nsp, nu) -> (K, T, nu) in one product (mppi.py:653-655)."""
+        theta = torch.as_tensor(theta, dtype=self.dtype).to(self.d)
+        return torch.einsum("ts,ksu->ktu", self._interp_full, theta), self._interp_full

@@ -1,25 +1,42 @@
-// One whole MPPI iteration for one plant, written by hand for Hopper (sm_90a).
+// One whole MPPI, SMPPI or KMPPI iteration for one plant, written by hand for
+// Hopper (sm_90a).
 //
-// Replaces the TPU kernel pallas_rollout.py:512 make_transposed_fused_solve
-// (pytorch_mppi_tpu/ops/pallas_rollout.py).  It computes, for K samples of a
-// D = T*nu flat action sequence: the normals (from injected int32 bits or from
-// Philox4x32-10), the antithetic sign, the noise transform (diagonal scale or
-// full (D, D) operator), U + noise, the null-action row, the clamp, the
-// rectified noise and its action cost, the T-step rollout of a device model
-// with u_scale, and the streaming softmax statistics.  The contract is the
-// JAX one: (delta, m, s, cost) with U_new = U + delta / s.
+// Replaces three TPU kernels of pytorch_mppi_tpu/ops/pallas_rollout.py:
+//   MPPI   make_transposed_fused_solve  (pallas_rollout.py:512)
+//   SMPPI  make_transposed_smppi_solve  (pallas_rollout.py:755)
+//   KMPPI  make_transposed_kmppi_solve  (pallas_rollout.py:940)
+// as one kernel template, mppi_fused_partial<Model, N, kGlobal, V>, followed by
+// flash_merge.  For K samples it computes: the normals of the R drawn rows (from
+// injected int32 bits or from Philox4x32-10), the antithetic sign, the noise
+// transform (diagonal scale or full (R, R) operator), then per variant
+//   MPPI  (R = D = T*nu): U + noise, the null-action row, the clamp;
+//   SMPPI (R = D): the rate clamp, the integration as + rate*dt, the null row,
+//         the action clamp, the noise back-computed through both clamps as
+//         (pa - as)/dt - U, and the smoothness cost w*sum ||u_scale*diff||^2;
+//   KMPPI (R = Dp = nsp*nu): theta + noise clamped at the support points, each
+//         full-horizon row interpolated in the kernel as W[d, :] . pts (fp32
+//         FMAs, no TF32), the null row and the trajectory clamp;
+// the action cost of the rectified noise, the T-step rollout of a device
+// model with u_scale, and the streaming softmax statistics of the update
+// (rate-space noise for SMPPI, support-point noise for KMPPI).  The contract is
+// the JAX one: (delta (R,), m, s, cost) with the nominal + delta / s.
 //
 // Design.  The TPU kernel walks its K blocks in order and carries (m, s, acc)
 // in scratch; GPU blocks run at the same time.  So the work is two kernels:
-//   A. mppi_fused_partial<Model>: one thread per sample, BLOCK samples per
-//      block.  A thread keeps its perturbed column in shared memory (row
-//      stride BLOCK + 1, so the column writes and the row reads of the update
-//      are free of bank conflicts), rolls the model out in registers, and
-//      writes cost[k].  The block then reduces its own max m_b, sum s_b and
-//      acc_b[d] = sum_k w_k n_k[d] and writes them to a (nblocks, D + 2) scratch.
-//      Threads with k >= K take no part (the counterpart of _tp_mask_phantom).
+//   A. mppi_fused_partial: one thread per sample, BLOCK samples per block.  A
+//      thread keeps its R drawn rows in a (R, BLOCK) tile (a second tile holds
+//      the raw normals for a full operator), rolls the model out in registers,
+//      and writes cost[k].  The block then reduces its own max m_b, sum s_b and
+//      acc_b[r] = sum_k w_k n_k[r] and writes them to a (nblocks, R + 2)
+//      scratch.  Threads with k >= K take no part (_tp_mask_phantom).
 //   B. flash_merge: one block merges the partials,
-//      m = max m_b, s = sum s_b e^(m_b - m), delta[d] = sum acc_b[d] e^(m_b - m).
+//      m = max m_b, s = sum s_b e^(m_b - m), delta[r] = sum acc_b[r] e^(m_b - m).
+// The tiles live in shared memory (row stride BLOCK + 1, so the column writes
+// and the row reads of the update are free of bank conflicts) when they fit
+// in the 227 KB a block may use; otherwise (kGlobal) in a global scratch of
+// one (R, BLOCK) slice per block, which stays in the 50 MB L2.  The TPU
+// kernel shrinks its block instead.  The device models keep state and action
+// in register arrays of N = 8 or N = 32, chosen at launch from max(nx, nu).
 // The noise never reaches device memory unless the caller asks for the
 // perturbed actions (emit_perturbed).
 //
@@ -27,49 +44,65 @@
 // nu = 2, seed mode) it reads and writes about 41 KB (the cost row and the
 // small operands), which takes about 0.012 us at 3.35 TB/s.  Its float32 work
 // is about 60 normals (Philox + Giles' erfinv, about 55 operations each) and
-// 30 model steps per sample, some 4e7 operations, about 0.6 us at 67 TFLOP/s.
-// So it is bound by launch latency and by how few of the 132 SMs its 79
-// blocks of 128 threads fill.  chip_smoke.py computes the exact bound from
-// the run's shapes.
+// 30 model steps per sample, some 4e7 operations, about 0.6 us at 67 TFLOP/s
+// (KMPPI adds D*Dp = 1,800 FMAs of interpolation per sample).  So it is bound
+// by launch latency and by how few of the 132 SMs its 79 blocks of 128
+// threads fill.  chip_smoke.py computes the exact bound from the run's shapes.
 //
 // Left for later: warp-shuffle reductions in place of the shared-memory ones,
 // several samples per thread, and one pass with a last-block merge in place
 // of kernel B.
 //
 // Plain C interface (no PyTorch headers), loaded with ctypes; each entry
-// returns cudaGetLastError() after its launches.
+// returns cudaGetLastError() after its launches.  The file builds whole, or
+// as six translation units selected by -DFUSED_MPPI_PART=0..5 (one for each
+// device model and register size, one for kernel B and the entry points),
+// which ops/_build.py compiles in parallel and links.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-namespace {
+#ifndef FUSED_MPPI_PART
+#define FUSED_MPPI_PART -1  // the whole library in one translation unit
+#endif
+#define FUSED_MPPI_HAS(k) (FUSED_MPPI_PART == -1 || FUSED_MPPI_PART == (k))
+
+namespace fused_mppi {
 
 constexpr int BLOCK = 128;  // samples (threads) per block of kernel A
-constexpr int LD = BLOCK + 1;  // row stride of the shared (D, BLOCK) tiles
-constexpr int MAXN = 8;  // largest nx or nu of a device model
+constexpr int MAXN = 32;  // largest nx or nu of a device model
 constexpr int MERGE_THREADS = 256;
+
+enum Variant { kMPPI = 0, kSMPPI = 1, kKMPPI = 2 };
 
 struct Params {
   const float* consts;
-  int K, T, nx, nu, D, nblocks;
-  const int* bits;  // (D, bits_cols) int32, or null in seed mode
+  int K, T, nx, nu, D, R, nblocks;  // R: rows drawn and updated (D, or Dp for KMPPI)
+  const int* bits;  // (R, bits_cols) int32, or null in seed mode
   int bits_cols;
   unsigned key0, key1;
   int pair_block, antithetic, null_action, abs_cost, full_op;
   const float* x0;  // (nx, K) with the strides below (col stride 0: shared)
   long long x0_row_stride, x0_col_stride;
-  const float* U;
-  const float* op;  // (D,) diagonal or (D, D) row-major
-  const float* mu;
-  const float* lo;
+  const float* U;  // (D,) the nominal sequence (SMPPI: action rates)
+  const float* base;  // (R,) SMPPI: the action sequence; KMPPI: theta; MPPI: U
+  const float* op;  // (R,) diagonal or (R, R) row-major
+  const float* mu;  // (R,)
+  const float* lo;  // (R,) bounds of the drawn rows (SMPPI: rate bounds)
   const float* hi;
-  const float* a;
-  const float* lam;  // device scalar
+  const float* alo;  // (D,) SMPPI: action bounds; KMPPI: trajectory bounds
+  const float* ahi;
+  const float* a;  // (D,) action-cost vector
+  const float* W;  // (D, R) KMPPI: kron(interp_full, I_nu)
+  const float* lam;  // device scalars
+  const float* w_seq;
+  const float* dt;
   float u_scale;
   float* cost;  // (K,)
-  float* partial;  // (nblocks, D + 2): m_b, s_b, acc_b[0..D)
+  float* partial;  // (nblocks, R + 2): m_b, s_b, acc_b[0..R)
   float* pert;  // (D, K) or null
+  float* scratch;  // kGlobal: (nblocks, tiles, R, BLOCK)
 };
 
 // --- random numbers -------------------------------------------------------
@@ -130,32 +163,79 @@ __device__ __forceinline__ float bits_to_normal(unsigned b) {
 }
 
 // --- device models (ops/kernel_models.py) ---------------------------------
+// State x and action u are register arrays of N; entries at and beyond nx
+// (nu) are not read.
 
-// x' = x + u B^T, cost |goal - x'|^2; consts = B (nx, nu) row-major, goal (nx).
-struct LinearQuadratic {
-  __device__ static void step(const float* c, float* x, const float* u, int nx, int nu) {
+// x' = x + u B^T; consts = B (nx, nu) row-major, goal (nx).
+template <int N>
+__device__ __forceinline__ void linear_delta(const float* B, float* x, const float* u, int nx,
+                                             int nu) {
 #pragma unroll
-    for (int i = 0; i < MAXN; ++i) {
-      if (i < nx) {
-        float acc = 0.0f;
+  for (int i = 0; i < N; ++i) {
+    if (i < nx) {
+      float acc = 0.0f;
 #pragma unroll
-        for (int j = 0; j < MAXN; ++j)
-          if (j < nu) acc += u[j] * c[i * nu + j];
-        x[i] = x[i] + acc;
-      }
+      for (int j = 0; j < N; ++j)
+        if (j < nu) acc += u[j] * B[i * nu + j];
+      x[i] = x[i] + acc;
     }
   }
+}
+
+// |goal - x'|^2
+struct LinearQuadratic {
+  template <int N>
+  __device__ static void step(const float* c, float* x, const float* u, int nx, int nu) {
+    linear_delta<N>(c, x, u, nx, nu);
+  }
+  template <int N>
   __device__ static float cost(const float* c, const float* x, const float*, int nx, int nu) {
     const float* goal = c + nx * nu;
     float s = 0.0f;
 #pragma unroll
-    for (int i = 0; i < MAXN; ++i) {
+    for (int i = 0; i < N; ++i) {
       if (i < nx) {
         const float d = goal[i] - x[i];
         s += d * d;
       }
     }
     return s;
+  }
+};
+
+// models/toy2d.py: x' = x + u B^T; cost |goal - x'|^2 + r |u|^2 (LQRCost with
+// Q = I, R = r I) + c0 exp(-(c - x')^T Qh (c - x')) (HillCost).  consts = B
+// (nx, nu), goal (nx), r, Qh (nx, nx), c (nx), c0.
+struct Toy2D {
+  template <int N>
+  __device__ static void step(const float* c, float* x, const float* u, int nx, int nu) {
+    linear_delta<N>(c, x, u, nx, nu);
+  }
+  template <int N>
+  __device__ static float cost(const float* c, const float* x, const float* u, int nx, int nu) {
+    const float* goal = c + nx * nu;
+    const float r = goal[nx];
+    const float* Qh = goal + nx + 1;
+    const float* center = Qh + nx * nx;
+    const float c0 = center[nx];
+    float lqr = 0.0f, uu = 0.0f, hill = 0.0f;
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      if (i < nx) {
+        const float d = goal[i] - x[i];
+        lqr += d * d;
+        const float di = center[i] - x[i];
+        float row = 0.0f;
+#pragma unroll
+        for (int j = 0; j < N; ++j)
+          if (j < nx) row += Qh[i * nx + j] * (center[j] - x[j]);
+        hill += di * row;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+      if (j < nu) uu += u[j] * u[j];
+    return (lqr + r * uu) + c0 * expf(-hill);
   }
 };
 
@@ -169,6 +249,7 @@ struct Pendulum {
     if (r < 0.0f) r += two_pi;
     return r - 3.14159274f;
   }
+  template <int N>
   __device__ static void step(const float*, float* x, const float* u, int, int) {
     const float th = x[0], thdot = x[1];
     const float uc = fminf(fmaxf(u[0], -2.0f), 2.0f);
@@ -177,6 +258,7 @@ struct Pendulum {
     x[0] = th + nthdot * 0.05f;
     x[1] = nthdot;
   }
+  template <int N>
   __device__ static float cost(const float*, const float* x, const float*, int, int) {
     const float an = angle_normalize(x[0]);
     return an * an + 0.1f * (x[1] * x[1]);
@@ -185,14 +267,23 @@ struct Pendulum {
 
 // --- kernel A ---------------------------------------------------------------
 
-template <class Model>
+template <class Model, int N, bool kGlobal, int V>
 __global__ void __launch_bounds__(BLOCK) mppi_fused_partial(Params p) {
+  constexpr int LDT = kGlobal ? BLOCK : BLOCK + 1;  // row stride of the tiles
   extern __shared__ float smem[];
-  const int D = p.D;
-  float* ps = smem;  // (D, LD) perturbed actions of this block
-  float* zs = ps + (size_t)D * LD;  // (D, LD) raw normals, full op only
-  float* red = zs + (p.full_op ? (size_t)D * LD : 0);  // BLOCK
+  const int D = p.D, R = p.R;
+  float* red = smem;  // BLOCK
   float* ws = red + BLOCK;  // BLOCK softmax weights
+  float* Ws = ws + BLOCK;  // (D, R) KMPPI interpolation, shared path only
+  constexpr bool kSharedW = V == kKMPPI && !kGlobal;
+  float* ps = kGlobal ? p.scratch + (size_t)blockIdx.x * (p.full_op ? 2 : 1) * R * BLOCK
+                      : Ws + (kSharedW ? (size_t)D * R : 0);  // (R, LDT) drawn rows
+  float* zs = ps + (size_t)R * LDT;  // (R, LDT) raw normals, full op only
+  const float* W = kSharedW ? Ws : p.W;
+  if (kSharedW) {
+    for (int i = threadIdx.x; i < D * R; i += BLOCK) Ws[i] = p.W[i];
+    __syncthreads();
+  }
 
   const int tid = threadIdx.x;
   const int k = blockIdx.x * BLOCK + tid;
@@ -212,57 +303,104 @@ __global__ void __launch_bounds__(BLOCK) mppi_fused_partial(Params p) {
     }
     float* zdst = p.full_op ? zs : ps;
     if (p.bits) {
-      for (int d = 0; d < D; ++d)
-        zdst[d * LD + tid] = sgn * bits_to_normal((unsigned)p.bits[(size_t)d * p.bits_cols + src]);
+      for (int d = 0; d < R; ++d)
+        zdst[d * LDT + tid] = sgn * bits_to_normal((unsigned)p.bits[(size_t)d * p.bits_cols + src]);
     } else {
-      for (int g = 0; 4 * g < D; ++g) {
+      for (int g = 0; 4 * g < R; ++g) {
         const uint4 r = philox4x32_10(make_uint4((unsigned)src, (unsigned)g, 0u, 0u), p.key0, p.key1);
         const unsigned words[4] = {r.x, r.y, r.z, r.w};
 #pragma unroll
         for (int w = 0; w < 4; ++w)
-          if (4 * g + w < D) zdst[(4 * g + w) * LD + tid] = sgn * bits_to_normal(words[w]);
+          if (4 * g + w < R) zdst[(4 * g + w) * LDT + tid] = sgn * bits_to_normal(words[w]);
       }
     }
 
-    float pc = 0.0f;
-    for (int d = 0; d < D; ++d) {
+    const float dt = V == kSMPPI ? *p.dt : 1.0f;
+    float pc = 0.0f;  // action cost of the rectified noise
+    for (int d = 0; d < R; ++d) {
       float n;
       if (p.full_op) {
         float acc = 0.0f;
-        const float* row = p.op + (size_t)d * D;
-        for (int e = 0; e < D; ++e) acc += row[e] * zs[e * LD + tid];
+        const float* row = p.op + (size_t)d * R;
+        for (int e = 0; e < R; ++e) acc += row[e] * zs[e * LDT + tid];
         n = acc + p.mu[d];
       } else {
-        n = ps[d * LD + tid] * p.op[d] + p.mu[d];
+        n = ps[d * LDT + tid] * p.op[d] + p.mu[d];
       }
-      const float u0 = p.U[d];
-      float v = u0 + n;
-      if (p.null_action && k == 0) v = 0.0f;
-      v = fminf(fmaxf(v, p.lo[d]), p.hi[d]);
-      ps[d * LD + tid] = v;
-      if (p.pert) p.pert[(size_t)d * p.K + k] = v;
-      const float r = v - u0;  // rectified noise (mppi.py:383-385)
-      pc += (p.abs_cost ? fabsf(r) : r) * p.a[d];
+      float v;
+      if (V == kMPPI) {
+        const float u0 = p.U[d];
+        v = u0 + n;
+        if (p.null_action && k == 0) v = 0.0f;
+        v = fminf(fmaxf(v, p.lo[d]), p.hi[d]);
+        if (p.pert) p.pert[(size_t)d * p.K + k] = v;
+        const float r = v - u0;  // rectified noise (mppi.py:383-385)
+        pc += (p.abs_cost ? fabsf(r) : r) * p.a[d];
+      } else if (V == kSMPPI) {
+        // rate clamp, integrate, null row, action clamp (mppi.py:539-552)
+        const float u0 = p.U[d], as = p.base[d];
+        const float rate = fminf(fmaxf(u0 + n, p.lo[d]), p.hi[d]);
+        v = __fadd_rn(as, __fmul_rn(rate, dt));  // two roundings, as as + rate*dt
+        if (p.null_action && k == 0) v = 0.0f;
+        v = fminf(fmaxf(v, p.alo[d]), p.ahi[d]);
+        if (p.pert) p.pert[(size_t)d * p.K + k] = v;
+        const float r = (v - as) / dt - u0;  // noise through both clamps (mppi.py:552)
+        pc += (p.abs_cost ? fabsf(r) : r) * p.a[d];
+      } else {
+        // support points, clamped (mppi.py:657-664)
+        v = fminf(fmaxf(p.base[d] + n, p.lo[d]), p.hi[d]);
+      }
+      ps[d * LDT + tid] = v;
     }
 
-    float x[MAXN], u[MAXN];
+    float x[N], u[N], prev[N];
 #pragma unroll
-    for (int i = 0; i < MAXN; ++i)
+    for (int i = 0; i < N; ++i) {
       x[i] = i < p.nx ? p.x0[i * p.x0_row_stride + (long long)k * p.x0_col_stride] : 0.0f;
-    float total = 0.0f;
+      prev[i] = 0.0f;
+    }
+    float total = 0.0f, smooth = 0.0f;
     for (int t = 0; t < p.T; ++t) {
 #pragma unroll
-      for (int j = 0; j < MAXN; ++j)
-        u[j] = j < p.nu ? ps[(t * p.nu + j) * LD + tid] * p.u_scale : 0.0f;
-      Model::step(p.consts, x, u, p.nx, p.nu);
-      total += Model::cost(p.consts, x, u, p.nx, p.nu);
+      for (int j = 0; j < N; ++j) {
+        float act = 0.0f;
+        if (j < p.nu) {
+          const int d = t * p.nu + j;
+          if (V == kKMPPI) {
+            // the full-horizon row d: W[d, :] . pts, then the null row and
+            // the trajectory clamp; its rectified noise is charged here
+            float acc = 0.0f;
+            const float* wrow = W + (size_t)d * R;
+            for (int e = 0; e < R; ++e) acc = fmaf(wrow[e], ps[e * LDT + tid], acc);
+            act = (p.null_action && k == 0) ? 0.0f : acc;
+            act = fminf(fmaxf(act, p.alo[d]), p.ahi[d]);
+            if (p.pert) p.pert[(size_t)d * p.K + k] = act;
+            const float r = act - p.U[d];
+            pc += (p.abs_cost ? fabsf(r) : r) * p.a[d];
+          } else {
+            act = ps[d * LDT + tid];
+          }
+          if (V == kSMPPI) {
+            // smoothness on the previous action row (mppi.py:558-562)
+            if (t > 0) {
+              float df = act - prev[j];
+              if (p.u_scale != 1.0f) df *= p.u_scale;
+              smooth += df * df;
+            }
+            prev[j] = act;
+          }
+        }
+        u[j] = act * p.u_scale;
+      }
+      Model::template step<N>(p.consts, x, u, p.nx, p.nu);
+      total += Model::template cost<N>(p.consts, x, u, p.nx, p.nu);
     }
-    const float c = pc + total;
+    const float c = (V == kSMPPI ? pc + *p.w_seq * smooth : pc) + total;
     p.cost[k] = c;
     logit = -c / *p.lam;
   } else {
-    // phantom sample: a zero rectified noise keeps the update sum finite
-    for (int d = 0; d < D; ++d) ps[d * LD + tid] = p.U[d];
+    // phantom sample: the rows of a zero update keep the sum finite
+    for (int d = 0; d < R; ++d) ps[d * LDT + tid] = V == kMPPI ? p.U[d] : p.base[d];
   }
 
   // block max of the logits
@@ -282,25 +420,33 @@ __global__ void __launch_bounds__(BLOCK) mppi_fused_partial(Params p) {
     if (tid < h) red[tid] += red[tid + h];
     __syncthreads();
   }
-  float* out = p.partial + (size_t)blockIdx.x * (D + 2);
+  float* out = p.partial + (size_t)blockIdx.x * (R + 2);
   if (tid == 0) {
     out[0] = m_b;
     out[1] = red[0];
   }
-  for (int d = tid; d < D; d += BLOCK) {
-    const float u0 = p.U[d];
-    const float* row = ps + d * LD;
+  const float dt = V == kSMPPI ? *p.dt : 1.0f;
+  for (int d = tid; d < R; d += BLOCK) {
+    const float* row = ps + d * LDT;
     float acc = 0.0f;
-    for (int i = 0; i < BLOCK; ++i) acc += ws[i] * (row[i] - u0);
+    if (V == kSMPPI) {
+      // the update accumulates the rate-space noise
+      const float as = p.base[d], u0 = p.U[d];
+      for (int i = 0; i < BLOCK; ++i) acc += ws[i] * ((row[i] - as) / dt - u0);
+    } else {
+      const float b0 = V == kMPPI ? p.U[d] : p.base[d];
+      for (int i = 0; i < BLOCK; ++i) acc += ws[i] * (row[i] - b0);
+    }
     out[2 + d] = acc;
   }
 }
 
 // --- kernel B ---------------------------------------------------------------
 
-__global__ void flash_merge(const float* partial, int nblocks, int D, float* delta, float* ms) {
+#if FUSED_MPPI_HAS(5)
+__global__ void flash_merge(const float* partial, int nblocks, int R, float* delta, float* ms) {
   __shared__ float m_sh;
-  const int stride = D + 2;
+  const int stride = R + 2;
   if (threadIdx.x == 0) {
     float m = -INFINITY;
     for (int b = 0; b < nblocks; ++b) m = fmaxf(m, partial[(size_t)b * stride]);
@@ -313,49 +459,111 @@ __global__ void flash_merge(const float* partial, int nblocks, int D, float* del
   }
   __syncthreads();
   const float m = m_sh;
-  for (int d = threadIdx.x; d < D; d += blockDim.x) {
+  for (int d = threadIdx.x; d < R; d += blockDim.x) {
     float acc = 0.0f;
     for (int b = 0; b < nblocks; ++b)
       acc += partial[(size_t)b * stride + 2 + d] * expf(partial[(size_t)b * stride] - m);
     delta[d] = acc;
   }
 }
+#endif
 
-template <class Model>
+template <class Model, int N, bool kGlobal, int V>
 cudaError_t launch_partial(const Params& p, size_t smem, cudaStream_t stream) {
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        mppi_fused_partial<Model>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        mppi_fused_partial<Model, N, kGlobal, V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
     if (e != cudaSuccess) return e;
   }
-  mppi_fused_partial<Model><<<p.nblocks, BLOCK, smem, stream>>>(p);
+  mppi_fused_partial<Model, N, kGlobal, V><<<p.nblocks, BLOCK, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-}  // namespace
+template <class Model, int N, bool kGlobal>
+cudaError_t launch_variant(const Params& p, int variant, size_t smem, cudaStream_t s) {
+  switch (variant) {
+    case kMPPI: return launch_partial<Model, N, kGlobal, kMPPI>(p, smem, s);
+    case kSMPPI: return launch_partial<Model, N, kGlobal, kSMPPI>(p, smem, s);
+    case kKMPPI: return launch_partial<Model, N, kGlobal, kKMPPI>(p, smem, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <class Model, int N>
+cudaError_t launch_tiles(const Params& p, int variant, size_t smem, cudaStream_t s) {
+  return p.scratch ? launch_variant<Model, N, true>(p, variant, smem, s)
+                   : launch_variant<Model, N, false>(p, variant, smem, s);
+}
+
+// One launcher per device model and register size, each in a part of its own.
+using Launcher = cudaError_t (*)(const Params&, int, size_t, cudaStream_t);
+cudaError_t launch_lq8(const Params&, int, size_t, cudaStream_t);
+cudaError_t launch_lq32(const Params&, int, size_t, cudaStream_t);
+cudaError_t launch_toy8(const Params&, int, size_t, cudaStream_t);
+cudaError_t launch_toy32(const Params&, int, size_t, cudaStream_t);
+cudaError_t launch_pendulum8(const Params&, int, size_t, cudaStream_t);
+
+#if FUSED_MPPI_HAS(0)
+cudaError_t launch_lq8(const Params& p, int v, size_t smem, cudaStream_t s) {
+  return launch_tiles<LinearQuadratic, 8>(p, v, smem, s);
+}
+#endif
+#if FUSED_MPPI_HAS(1)
+cudaError_t launch_lq32(const Params& p, int v, size_t smem, cudaStream_t s) {
+  return launch_tiles<LinearQuadratic, MAXN>(p, v, smem, s);
+}
+#endif
+#if FUSED_MPPI_HAS(2)
+cudaError_t launch_toy8(const Params& p, int v, size_t smem, cudaStream_t s) {
+  return launch_tiles<Toy2D, 8>(p, v, smem, s);
+}
+#endif
+#if FUSED_MPPI_HAS(3)
+cudaError_t launch_toy32(const Params& p, int v, size_t smem, cudaStream_t s) {
+  return launch_tiles<Toy2D, MAXN>(p, v, smem, s);
+}
+#endif
+#if FUSED_MPPI_HAS(4)
+cudaError_t launch_pendulum8(const Params& p, int v, size_t smem, cudaStream_t s) {
+  return launch_tiles<Pendulum, 8>(p, v, smem, s);
+}
+#endif
+
+}  // namespace fused_mppi
+
+#if FUSED_MPPI_HAS(5)
+using namespace fused_mppi;
 
 extern "C" {
 
 int fused_mppi_block() { return BLOCK; }
 
-// Dynamic shared memory of kernel A for D rows (the wrapper checks it
-// against the card's 227 KB).
-long long fused_mppi_smem_bytes(int D, int full_op) {
-  return (long long)((full_op ? 2 : 1) * (size_t)D * LD + 2 * BLOCK) * sizeof(float);
+int fused_mppi_max_n() { return MAXN; }
+
+// Dynamic shared memory of kernel A with the tiles in shared memory (the
+// wrapper checks it against the card's 227 KB, and otherwise passes a global
+// scratch, with which kernel A needs only its 2 * BLOCK floats).
+long long fused_mppi_smem_bytes(int variant, int D, int R, int full_op) {
+  return (long long)(2 * BLOCK + (variant == kKMPPI ? (size_t)D * R : 0) +
+                     (full_op ? 2 : 1) * (size_t)R * (BLOCK + 1)) *
+         sizeof(float);
 }
 
 const char* fused_mppi_error_string(int e) { return cudaGetErrorString((cudaError_t)e); }
 
 // Launches kernel A then kernel B on `stream`; returns cudaGetLastError().
-int fused_mppi_launch(int device, void* stream, int model_id, const float* consts,
-                      int K, int T, int nx, int nu,
+// `scratch` is null for the shared-memory tiles, else (nblocks, tiles, R, BLOCK).
+int fused_mppi_launch(int device, void* stream, int variant, int model_id, const float* consts,
+                      int K, int T, int nx, int nu, int R,
                       const int* bits, int bits_cols, unsigned key0, unsigned key1,
                       int pair_block, int antithetic, int null_action, int abs_cost,
                       const float* x0, long long x0_row_stride, long long x0_col_stride,
-                      const float* U, const float* op, int full_op, const float* mu,
-                      const float* lo, const float* hi, const float* a, const float* lam,
-                      float u_scale, float* cost, float* partial, float* delta, float* ms,
-                      float* pert) {
+                      const float* U, const float* base, const float* op, int full_op,
+                      const float* mu, const float* lo, const float* hi, const float* alo,
+                      const float* ahi, const float* a, const float* W, const float* lam,
+                      const float* w_seq, const float* dt, float u_scale, float* cost,
+                      float* partial, float* delta, float* ms, float* pert, float* scratch) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   Params p;
@@ -365,6 +573,7 @@ int fused_mppi_launch(int device, void* stream, int model_id, const float* const
   p.nx = nx;
   p.nu = nu;
   p.D = T * nu;
+  p.R = R;
   p.nblocks = (K + BLOCK - 1) / BLOCK;
   p.bits = bits;
   p.bits_cols = bits_cols;
@@ -379,26 +588,38 @@ int fused_mppi_launch(int device, void* stream, int model_id, const float* const
   p.x0_row_stride = x0_row_stride;
   p.x0_col_stride = x0_col_stride;
   p.U = U;
+  p.base = base;
   p.op = op;
   p.mu = mu;
   p.lo = lo;
   p.hi = hi;
+  p.alo = alo;
+  p.ahi = ahi;
   p.a = a;
+  p.W = W;
   p.lam = lam;
+  p.w_seq = w_seq;
+  p.dt = dt;
   p.u_scale = u_scale;
   p.cost = cost;
   p.partial = partial;
   p.pert = pert;
-  const size_t smem = (size_t)fused_mppi_smem_bytes(p.D, full_op);
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (model_id) {
-    case 0: e = launch_partial<LinearQuadratic>(p, smem, s); break;
-    case 1: e = launch_partial<Pendulum>(p, smem, s); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+  p.scratch = scratch;
+  const size_t smem = scratch ? 2 * BLOCK * sizeof(float)
+                              : (size_t)fused_mppi_smem_bytes(variant, p.D, R, full_op);
+  // the device model (by id) and its register size (8 or MAXN)
+  const int n = nx > nu ? nx : nu;
+  const Launcher launchers[3][2] = {{launch_lq8, launch_lq32},
+                                    {launch_pendulum8, nullptr},
+                                    {launch_toy8, launch_toy32}};
+  if (model_id < 0 || model_id > 2 || n > MAXN) return (int)cudaErrorInvalidValue;
+  const Launcher launch = launchers[model_id][n <= 8 ? 0 : 1];
+  if (!launch) return (int)cudaErrorInvalidValue;
+  e = launch(p, variant, smem, (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
-  flash_merge<<<1, MERGE_THREADS, 0, s>>>(partial, p.nblocks, p.D, delta, ms);
+  flash_merge<<<1, MERGE_THREADS, 0, (cudaStream_t)stream>>>(partial, p.nblocks, R, delta, ms);
   return (int)cudaGetLastError();
 }
 
 }  // extern "C"
+#endif

@@ -1,4 +1,5 @@
-"""Built-in models: the gym pendulum (true dynamics, cost, environment)."""
+"""Built-in models: the gym pendulum (true dynamics, cost, environment) and
+the 2-D navigation task of the SMPPI/KMPPI comparison."""
 from .pendulum import (
     PENDULUM_MODEL,
     PendulumEnv,
@@ -6,6 +7,7 @@ from .pendulum import (
     pendulum_dynamics,
     pendulum_running_cost,
 )
+from .toy2d import HillCost, LinearDeltaDynamics, LQRCost, Toy2DEnvironment
 
 __all__ = [
     "PENDULUM_MODEL",
@@ -13,4 +15,8 @@ __all__ = [
     "pendulum_dynamics",
     "pendulum_running_cost",
     "angle_normalize",
+    "LinearDeltaDynamics",
+    "LQRCost",
+    "HillCost",
+    "Toy2DEnvironment",
 ]

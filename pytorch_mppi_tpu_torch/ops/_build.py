@@ -2,10 +2,12 @@
 
 ``csrc/fused_mppi.cu`` is compiled on first use into a shared library with a
 plain C interface, under ``build/kernels/`` beside the package (a directory
-git ignores).  The library's name carries a hash of its source and flags, so
-an edited source is rebuilt and an unchanged one is reused.  Nothing here
-runs at import time: this module is imported on machines without ``nvcc``
-or a card.
+git ignores).  The source builds as ``PARTS`` translation units (its
+``FUSED_MPPI_PART`` macro selects one), one ``nvcc`` each, all started
+together, then linked.  The library's name carries a hash of its source and
+flags, so an edited source is rebuilt and an unchanged one is reused.
+Nothing here runs at import time: this module is imported on machines
+without ``nvcc`` or a card.
 """
 from __future__ import annotations
 
@@ -14,14 +16,16 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 SOURCE = _PKG / "csrc" / "fused_mppi.cu"
+PARTS = 6  # FUSED_MPPI_PART = 0 .. PARTS - 1 in fused_mppi.cu
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib = None
 
@@ -40,8 +44,19 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
+                            + str(PARTS).encode())
     return BUILD_DIR / f"fused_mppi-{digest.hexdigest()[:16]}.so"
+
+
+def _run(procs):
+    """Wait for every process; raise with the first failure's output."""
+    outs = [p.communicate()[0] for p in procs]
+    for p, out in zip(procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"kernel build failed: {p.args[0]} exited "
+                               f"{p.returncode}\n{out}")
+    return outs
 
 
 def build():
@@ -52,16 +67,21 @@ def build():
     if out.is_file():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    nvcc = _nvcc()
     start = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                          text=True, check=False)
-    if proc.returncode != 0:
-        raise RuntimeError(f"kernel build failed: nvcc exited {proc.returncode}\n"
-                           f"{proc.stdout}")
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
-    return time.perf_counter() - start, proc.stdout
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [Path(tmpdir) / f"part{k}.o" for k in range(PARTS)]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, f"-DFUSED_MPPI_PART={k}", "-c",
+                                   "-o", str(obj), str(SOURCE)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for k, obj in enumerate(objs)]
+        logs = _run(procs)
+        tmp = Path(tmpdir) / out.name
+        logs += _run([subprocess.Popen([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                       text=True)])
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    return time.perf_counter() - start, "".join(logs)
 
 
 def load() -> ctypes.CDLL:

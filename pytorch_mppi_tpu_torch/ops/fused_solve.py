@@ -1,22 +1,37 @@
-"""The fused MPPI iteration: the CUDA kernel's wrapper and its plain version.
+"""The fused MPPI, SMPPI and KMPPI iterations: the CUDA kernel's wrappers and
+their plain versions.
 
-The counterpart of ``make_transposed_fused_solve`` (``pytorch_mppi_tpu/ops/
-pallas_rollout.py:512``) and its helpers.  :func:`make_transposed_fused_solve`
-returns ``solve(seed_or_bits, x0T, U2, op, mu_t, lo_t, hi_t, a_flat,
-lambda_) -> (delta (D,), m, s, cost (K,)[, perturbed (D, K)])`` with
-``U_new = U + delta / s``, for a :class:`~.kernel_models.KernelModel`:
+The counterparts of three TPU kernels of ``pytorch_mppi_tpu/ops/
+pallas_rollout.py`` and their helpers, each with the JAX call contract:
+
+* :func:`make_transposed_fused_solve` (``:512``) returns ``solve(seed_or_bits,
+  x0T, U2, op, mu_t, lo_t, hi_t, a_flat, lambda_) -> (delta (D,), m, s,
+  cost (K,)[, perturbed (D, K)])`` with ``U_new = U + delta / s``;
+* :func:`make_transposed_smppi_solve` (``:755``) returns ``solve(seed_or_bits,
+  x0T, U2, as2, op, mu_t, lo_t, hi_t, alo_t, ahi_t, a_flat, lambda_, w_seq,
+  delta_t)``, the same results with ``delta`` in action-rate space and the
+  perturbed actions after both clamps;
+* :func:`make_transposed_kmppi_solve` (``:940``) returns ``solve(seed_or_bits,
+  x0T, U2, theta2, op, mu_p, lop, hip, lo_t, hi_t, a_flat, Wt, lambda_)``
+  with ``delta`` of Dp = nsp·nu rows (``theta_new = theta + delta / s``)
+  and the full-horizon perturbed actions.
+
+Each is built for a :class:`~.kernel_models.KernelModel`:
 
 * on CUDA tensors it launches ``csrc/fused_mppi.cu`` (kernel A, one thread
   per sample, then kernel B, the merge of the per-block softmax statistics)
   and raises if the launch fails;
-* on CPU tensors it runs :func:`fused_solve_plain`, the same function in
-  plain torch ops on (D, K) tensors.
+* on CPU tensors it runs its plain version (:func:`fused_solve_plain`,
+  :func:`smppi_solve_plain`, :func:`kmppi_solve_plain`), the same function in
+  plain torch ops on (rows, K) tensors; ``solve.plain`` is that version with
+  the solve's flags bound, on any device.
 
-``seed_or_bits`` selects the noise source.  A (D, K_pad) int32 tensor —
-(D, K_pad/2) with antithetic sampling — injects the random bits, as the JAX
-kernel's ``rng_in_kernel=False``; a pair of 32-bit ints is a Philox4x32-10
-key, and the kernel draws its own bits.  Word w of Philox counter (c, g, 0, 0)
-is the bits of row 4g + w of source column c.
+``seed_or_bits`` selects the noise source.  An (R, K_pad) int32 tensor —
+(R, K_pad/2) with antithetic sampling, R the drawn rows (D, or Dp for KMPPI)
+— injects the random bits, as the JAX kernel's ``rng_in_kernel=False``; a
+pair of 32-bit ints is a Philox4x32-10 key, and the kernel draws its own
+bits.  Word w of Philox counter (c, g, 0, 0) is the bits of row 4g + w of
+source column c.
 
 Antithetic pairs sit inside pairing blocks of ``pair_block`` samples: sample
 j of block b takes source column b·pair_block/2 + j for j < pair_block/2,
@@ -28,6 +43,9 @@ block size.
 
 Float32 only.  Normals come from Giles' single-precision erfinv, the
 polynomial XLA uses for ``erf_inv``, in both the kernel and the plain version.
+The kernel keeps its per-block tiles in shared memory when they fit in
+Hopper's 227 KB, else in a global scratch; the device models hold nx and nu
+up to 32.
 """
 from __future__ import annotations
 
@@ -38,12 +56,16 @@ import torch
 from ..config import MPPIConfig
 from .kernel_models import KernelModel
 
-# kernel launches (A and B each count one); chip_smoke.py reads it
-launches = 0
+MPPI, SMPPI, KMPPI = 0, 1, 2  # the kernel's variants (Variant in fused_mppi.cu)
+VARIANTS = ("mppi", "smppi", "kmppi")
+
+# kernel launches of each variant (A and B each count one); chip_smoke.py
+# reads them
+launches = dict.fromkeys(VARIANTS, 0)
 
 MAX_SMEM_BYTES = 232_448  # shared memory one block may use on Hopper
 _BLOCK = 128  # samples per block of kernel A (BLOCK in fused_mppi.cu)
-_MAXN = 8  # largest nx or nu of a device model (MAXN in fused_mppi.cu)
+_MAXN = 32  # largest nx or nu of a device model (MAXN in fused_mppi.cu)
 
 
 class FusedSolveUnavailable(ValueError):
@@ -57,9 +79,12 @@ def transposed_eligible(config: MPPIConfig) -> bool:
     return config.dtype == torch.float32 and not config.step_dependent_dynamics
 
 
-def smem_bytes(D: int, full_op: bool) -> int:
-    """Dynamic shared memory of kernel A (``fused_mppi_smem_bytes``)."""
-    return ((2 if full_op else 1) * D * (_BLOCK + 1) + 2 * _BLOCK) * 4
+def smem_bytes(variant: int, D: int, R: int, full_op: bool) -> int:
+    """Dynamic shared memory of kernel A with its tiles in shared memory
+    (``fused_mppi_smem_bytes``): two BLOCK vectors, KMPPI's (D, R)
+    interpolation operator, and one (R, BLOCK + 1) tile, two with a full op."""
+    w = D * R if variant == KMPPI else 0
+    return (2 * _BLOCK + w + (2 if full_op else 1) * R * (_BLOCK + 1)) * 4
 
 
 def padded_k(K: int, pair_block: int) -> int:
@@ -167,8 +192,57 @@ def weighting_from_stats(cost_total, lambda_, m, s):
 
 
 # ---------------------------------------------------------------------------
-# The plain version
+# The plain versions
 # ---------------------------------------------------------------------------
+
+
+def _noise(seed_or_bits, R: int, K: int, pair_block: int, antithetic: bool, op,
+           mu, device):
+    """(R, K) noise of the drawn rows: the normals of each sample's source
+    column, the antithetic sign, then the diagonal scale or ``op @ z``."""
+    src, sign = source_columns(K, pair_block, antithetic, device)
+    if isinstance(seed_or_bits, torch.Tensor):
+        bits = seed_or_bits.to(device)[:, src]
+    else:
+        bits = philox_bits(seed_or_bits, src, R)
+    z = bits_to_normal(bits)
+    if sign is not None:
+        z = z * sign
+    if op.ndim == 1:
+        return z * op[:, None] + mu[:, None]
+    return op @ z + mu[:, None]
+
+
+def _action_cost(n, a_flat, abs_cost: bool):
+    return ((torch.abs(n) if abs_cost else n) * a_flat[:, None]).sum(dim=0)
+
+
+def _rollout_total(model: KernelModel, perturbed, x0T, T: int, nu: int, u_scale: float):
+    """(K,) running cost of the T-step rollout of the (D, K) actions."""
+    state = x0T.T
+    total = torch.zeros(perturbed.shape[1], dtype=torch.float32, device=perturbed.device)
+    for t in range(T):
+        u_t = perturbed[t * nu:(t + 1) * nu].T
+        if u_scale != 1.0:
+            u_t = u_t * u_scale
+        state = model.dynamics(state, u_t)
+        total = total + model.running_cost(state, u_t)
+    return total
+
+
+def _softmax_update(cost, lambda_, upd):
+    """(delta, m, s) of the update ``upd`` (R, K) under the weights of the
+    costs: the un-normalised weights against the largest logit."""
+    logits = -cost / lambda_
+    m = torch.amax(logits)
+    w = torch.exp(logits - m)
+    return upd @ w, m, torch.sum(w)
+
+
+def _null_row(perturbed, null_action: bool):
+    if null_action:
+        perturbed[:, 0] = 0.0  # a fresh tensor of the caller's
+    return perturbed
 
 
 def fused_solve_plain(seed_or_bits, x0T, U2, op, mu_t, lo_t, hi_t, a_flat,
@@ -176,48 +250,75 @@ def fused_solve_plain(seed_or_bits, x0T, U2, op, mu_t, lo_t, hi_t, a_flat,
                       antithetic: bool = False, null_action: bool = False,
                       abs_cost: bool = False, u_scale: float = 1.0,
                       emit_perturbed: bool = False, pair_block: int = None):
-    """What the fused kernel computes, in torch ops on (D, K) tensors of any
-    device.  Same arguments and results as the kernel's wrapper."""
+    """What the fused MPPI kernel computes, in torch ops on (D, K) tensors of
+    any device.  Same arguments and results as the kernel's wrapper."""
     D = T * nu
-    device = x0T.device
     pair_block = pair_block or K + K % 2
-    src, sign = source_columns(K, pair_block, antithetic, device)
-    if isinstance(seed_or_bits, torch.Tensor):
-        bits = seed_or_bits.to(device)[:, src]
-    else:
-        bits = philox_bits(seed_or_bits, src, D)
-    z = bits_to_normal(bits)
-    if sign is not None:
-        z = z * sign
+    noise = _noise(seed_or_bits, D, K, pair_block, antithetic, op, mu_t, x0T.device)
     U_col = U2.reshape(D, 1)
-    if op.ndim == 1:
-        noise = z * op[:, None] + mu_t[:, None]
-    else:
-        noise = op @ z + mu_t[:, None]
-    perturbed = U_col + noise
-    if null_action:
-        perturbed[:, 0] = 0.0  # a fresh tensor of this function
+    perturbed = _null_row(U_col + noise, null_action)
     perturbed = torch.clamp(perturbed, lo_t[:, None], hi_t[:, None])
     n = perturbed - U_col
-    pert_cost = ((torch.abs(n) if abs_cost else n) * a_flat[:, None]).sum(dim=0)
-    state = x0T.T
-    total = torch.zeros(K, dtype=torch.float32, device=device)
-    for t in range(T):
-        u_t = perturbed[t * nu:(t + 1) * nu].T
-        if u_scale != 1.0:
-            u_t = u_t * u_scale
-        state = model.dynamics(state, u_t)
-        total = total + model.running_cost(state, u_t)
-    cost = pert_cost + total
-    logits = -cost / lambda_
-    m = torch.amax(logits)
-    w = torch.exp(logits - m)
-    out = (n @ w, m, torch.sum(w), cost)
+    cost = _action_cost(n, a_flat, abs_cost) + _rollout_total(
+        model, perturbed, x0T, T, nu, u_scale)
+    out = _softmax_update(cost, lambda_, n) + (cost,)
+    return out + (perturbed,) if emit_perturbed else out
+
+
+def smppi_solve_plain(seed_or_bits, x0T, U2, as2, op, mu_t, lo_t, hi_t, alo_t,
+                      ahi_t, a_flat, lambda_, w_seq, delta_t, *, model: KernelModel,
+                      K: int, T: int, nu: int, antithetic: bool = False,
+                      null_action: bool = False, abs_cost: bool = False,
+                      u_scale: float = 1.0, emit_perturbed: bool = False,
+                      pair_block: int = None):
+    """What the fused SMPPI kernel computes (pallas_rollout.py:829-861): the
+    rate clamp, the integration, the null row, the action clamp, the noise
+    back-computed through both clamps, the smoothness cost; ``delta`` is in
+    rate space and the perturbed actions are the action-space ones."""
+    D = T * nu
+    pair_block = pair_block or K + K % 2
+    noise = _noise(seed_or_bits, D, K, pair_block, antithetic, op, mu_t, x0T.device)
+    U_col, as_col = U2.reshape(D, 1), as2.reshape(D, 1)
+    rate = torch.clamp(U_col + noise, lo_t[:, None], hi_t[:, None])
+    pert_act = _null_row(as_col + rate * delta_t, null_action)
+    pert_act = torch.clamp(pert_act, alo_t[:, None], ahi_t[:, None])
+    n = (pert_act - as_col) / delta_t - U_col  # mppi.py:552
+    diff = pert_act[nu:] - pert_act[:-nu]
+    if u_scale != 1.0:
+        diff = diff * u_scale
+    smooth = w_seq * torch.sum(diff * diff, dim=0)
+    cost = (_action_cost(n, a_flat, abs_cost) + smooth) + _rollout_total(
+        model, pert_act, x0T, T, nu, u_scale)
+    out = _softmax_update(cost, lambda_, n) + (cost,)
+    return out + (pert_act,) if emit_perturbed else out
+
+
+def kmppi_solve_plain(seed_or_bits, x0T, U2, theta2, op, mu_p, lop, hip, lo_t,
+                      hi_t, a_flat, Wt, lambda_, *, model: KernelModel, K: int,
+                      T: int, nu: int, nsp: int, antithetic: bool = False,
+                      null_action: bool = False, abs_cost: bool = False,
+                      u_scale: float = 1.0, emit_perturbed: bool = False,
+                      pair_block: int = None):
+    """What the fused KMPPI kernel computes (pallas_rollout.py:1011-1040):
+    support-point noise clamped there, interpolated to the full horizon by
+    ``Wt`` (D, Dp) in float32, the null row, the trajectory clamp; ``delta``
+    has Dp rows (theta space)."""
+    D, Dp = T * nu, nsp * nu
+    pair_block = pair_block or K + K % 2
+    noise = _noise(seed_or_bits, Dp, K, pair_block, antithetic, op, mu_p, x0T.device)
+    th_col = theta2.reshape(Dp, 1)
+    pts = torch.clamp(th_col + noise, lop[:, None], hip[:, None])
+    perturbed = _null_row(Wt @ pts, null_action)
+    perturbed = torch.clamp(perturbed, lo_t[:, None], hi_t[:, None])
+    n = perturbed - U2.reshape(D, 1)
+    cost = _action_cost(n, a_flat, abs_cost) + _rollout_total(
+        model, perturbed, x0T, T, nu, u_scale)
+    out = _softmax_update(cost, lambda_, pts - th_col) + (cost,)
     return out + (perturbed,) if emit_perturbed else out
 
 
 # ---------------------------------------------------------------------------
-# The kernel's wrapper
+# The kernel's wrappers
 # ---------------------------------------------------------------------------
 
 _P = ctypes.c_void_p
@@ -230,17 +331,23 @@ def _lib():
     lib = _build.load()
     if not getattr(lib, "_argtypes_set", False):
         lib.fused_mppi_launch.argtypes = [
-            _I, _P, _I, _P, _I, _I, _I, _I, _P, _I, ctypes.c_uint32,
+            _I, _P, _I, _I, _P, _I, _I, _I, _I, _I, _P, _I, ctypes.c_uint32,
             ctypes.c_uint32, _I, _I, _I, _I, _P, ctypes.c_longlong,
-            ctypes.c_longlong, _P, _P, _I, _P, _P, _P, _P, _P, ctypes.c_float,
-            _P, _P, _P, _P, _P,
+            ctypes.c_longlong, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+            _P, _P, ctypes.c_float, _P, _P, _P, _P, _P, _P,
         ]
         lib.fused_mppi_launch.restype = _I
         lib.fused_mppi_error_string.argtypes = [_I]
         lib.fused_mppi_error_string.restype = ctypes.c_char_p
         lib.fused_mppi_block.restype = _I
-        if lib.fused_mppi_block() != _BLOCK:
-            raise RuntimeError("fused_mppi.cu BLOCK differs from fused_solve._BLOCK")
+        lib.fused_mppi_max_n.restype = _I
+        lib.fused_mppi_smem_bytes.argtypes = [_I, _I, _I, _I]
+        lib.fused_mppi_smem_bytes.restype = ctypes.c_longlong
+        if lib.fused_mppi_block() != _BLOCK or lib.fused_mppi_max_n() != _MAXN:
+            raise RuntimeError("fused_mppi.cu BLOCK or MAXN differs from fused_solve")
+        if any(lib.fused_mppi_smem_bytes(v, 60, r, f) != smem_bytes(v, 60, r, bool(f))
+               for v in (MPPI, KMPPI) for r in (30, 60) for f in (0, 1)):
+            raise RuntimeError("fused_mppi_smem_bytes differs from fused_solve.smem_bytes")
         lib._argtypes_set = True
     return lib
 
@@ -259,19 +366,17 @@ def _check(name, t, device, dtype=torch.float32, shape=None, contiguous=True):
     return t
 
 
-def make_transposed_fused_solve(config: MPPIConfig, model: KernelModel,
-                                pair_block: int = None,
-                                emit_perturbed: bool = False,
-                                null_dynamic_gate: bool = False,
-                                terminal_final=None):
-    """The whole MPPI iteration as one fused-kernel call (see the module
-    docstring for the call contract).  Raises ValueError for a non-float32
-    config or a model whose sizes differ from the config's, and
-    :class:`FusedSolveUnavailable` when nx or nu exceeds the device models'
-    registers, when kernel A's tile does not fit in shared memory, or for the JAX
-    kernel's options this port does not run yet: ``null_dynamic_gate`` and
-    ``terminal_final`` (the elites operand has no config field here; the
-    controller rejects ``num_elites``)."""
+def _ptr(t):
+    return t.data_ptr() if t is not None else None
+
+
+def _make_launch(variant: int, config: MPPIConfig, model: KernelModel, R: int,
+                 pair_block, emit_perturbed: bool, null_dynamic_gate: bool,
+                 terminal_final):
+    """Checks shared by the three factories, and the launch of one variant:
+    ``launch(lead, x0T, U2, base, op, mu, lo, hi, alo, ahi, a_flat, W,
+    lambda_, w_seq, dt)`` on CUDA tensors.  Returns ``(launch, flags, info)``
+    where ``flags`` are the plain version's keyword arguments."""
     if null_dynamic_gate:
         raise FusedSolveUnavailable(
             "null_dynamic_gate is not ported yet (ROADMAP.md Queue 1 item 12, sharding)")
@@ -293,10 +398,11 @@ def make_transposed_fused_solve(config: MPPIConfig, model: KernelModel,
     if config.antithetic and pair_block % 2:
         raise ValueError(f"antithetic pairing needs an even pair_block, got {pair_block}")
     full_op = not (config.diag_sigma and not config.noise_rho)
-    if smem_bytes(D, full_op) > MAX_SMEM_BYTES:
-        raise FusedSolveUnavailable(
-            f"D={D} rows need {smem_bytes(D, full_op)} B of shared memory "
-            f"per block (Hopper allows {MAX_SMEM_BYTES})")
+    # tiles that do not fit in shared memory go to a global scratch of one
+    # (R, BLOCK) slice per block and tile
+    shared = smem_bytes(variant, D, R, full_op) <= MAX_SMEM_BYTES
+    nblocks = -(-K // _BLOCK)
+    scratch_elems = 0 if shared else nblocks * (2 if full_op else 1) * R * _BLOCK
     K_pad = padded_k(K, pair_block)
     bits_cols = K_pad // 2 if config.antithetic else K_pad
     flags = dict(model=model, K=K, T=T, nu=nu, antithetic=config.antithetic,
@@ -304,63 +410,146 @@ def make_transposed_fused_solve(config: MPPIConfig, model: KernelModel,
                  abs_cost=config.noise_abs_cost, u_scale=float(config.u_scale),
                  emit_perturbed=emit_perturbed, pair_block=pair_block)
 
-    def launch(seed_or_bits, x0T, U2, op, mu_t, lo_t, hi_t, a_flat, lambda_):
-        global launches
+    def launch(lead, x0T, U2, base, op, mu, lo, hi, alo, ahi, a_flat, W, lam,
+               w_seq, dt):
         device = x0T.device
         _check("x0T", x0T, device, shape=(nx, K), contiguous=False)
-        for name, t in (("U2", U2), ("mu_t", mu_t), ("lo_t", lo_t),
-                        ("hi_t", hi_t), ("a_flat", a_flat)):
-            _check(name, t, device, shape=(D,))
-        _check("op", op, device, shape=(D, D) if full_op else (D,))
-        _check("lambda_", lambda_.reshape(1), device, shape=(1,))
-        if isinstance(seed_or_bits, torch.Tensor):
-            bits = _check("bits", seed_or_bits, device, dtype=torch.int32,
-                          shape=(D, bits_cols))
+        for name, t in (("U2", U2), ("a_flat", a_flat), ("alo", alo), ("ahi", ahi)):
+            if t is not None:
+                _check(name, t, device, shape=(D,))
+        for name, t in (("base", base), ("mu", mu), ("lo", lo), ("hi", hi)):
+            _check(name, t, device, shape=(R,))
+        _check("op", op, device, shape=(R, R) if full_op else (R,))
+        if W is not None:
+            _check("Wt", W, device, shape=(D, R))
+        for name, t in (("lambda_", lam), ("w_seq", w_seq), ("delta_t", dt)):
+            if t is not None:
+                _check(name, t.reshape(1), device, shape=(1,))
+        if isinstance(lead, torch.Tensor):
+            bits = _check("bits", lead, device, dtype=torch.int32, shape=(R, bits_cols))
             key = (0, 0)
         else:
             bits = None
-            key = tuple(int(w) & 0xFFFFFFFF for w in seed_or_bits)
+            key = tuple(int(w) & 0xFFFFFFFF for w in lead)
         consts = model.consts_on(device)
-        cost = torch.empty(K, dtype=torch.float32, device=device)
-        partial = torch.empty((-(-K // _BLOCK), D + 2), dtype=torch.float32, device=device)
-        delta = torch.empty(D, dtype=torch.float32, device=device)
-        ms = torch.empty(2, dtype=torch.float32, device=device)
-        pert = (torch.empty((D, K), dtype=torch.float32, device=device)
-                if emit_perturbed else None)
+        f32 = dict(dtype=torch.float32, device=device)
+        cost = torch.empty(K, **f32)
+        partial = torch.empty((nblocks, R + 2), **f32)
+        delta = torch.empty(R, **f32)
+        ms = torch.empty(2, **f32)
+        pert = torch.empty((D, K), **f32) if emit_perturbed else None
+        scratch = torch.empty(scratch_elems, **f32) if scratch_elems else None
         lib = _lib()
         rc = lib.fused_mppi_launch(
             device.index if device.index is not None else torch.cuda.current_device(),
             torch.cuda.current_stream(device).cuda_stream,
-            model.model_id, consts.data_ptr(), K, T, nx, nu,
-            bits.data_ptr() if bits is not None else None, bits_cols,
-            key[0], key[1], pair_block, int(config.antithetic),
-            int(config.sample_null_action), int(config.noise_abs_cost),
-            x0T.data_ptr(), x0T.stride(0), x0T.stride(1),
-            U2.data_ptr(), op.data_ptr(), int(full_op), mu_t.data_ptr(),
-            lo_t.data_ptr(), hi_t.data_ptr(), a_flat.data_ptr(),
-            lambda_.data_ptr(), float(config.u_scale), cost.data_ptr(),
-            partial.data_ptr(), delta.data_ptr(), ms.data_ptr(),
-            pert.data_ptr() if pert is not None else None,
+            variant, model.model_id, consts.data_ptr(), K, T, nx, nu, R,
+            _ptr(bits), bits_cols, key[0], key[1], pair_block,
+            int(config.antithetic), int(config.sample_null_action),
+            int(config.noise_abs_cost), x0T.data_ptr(), x0T.stride(0), x0T.stride(1),
+            U2.data_ptr(), base.data_ptr(), op.data_ptr(), int(full_op),
+            mu.data_ptr(), lo.data_ptr(), hi.data_ptr(), _ptr(alo), _ptr(ahi),
+            a_flat.data_ptr(), _ptr(W), lam.data_ptr(), _ptr(w_seq), _ptr(dt),
+            float(config.u_scale), cost.data_ptr(), partial.data_ptr(),
+            delta.data_ptr(), ms.data_ptr(), _ptr(pert), _ptr(scratch),
         )
         if rc != 0:
             raise RuntimeError(
                 f"fused_mppi launch failed: CUDA error {rc} "
                 f"({lib.fused_mppi_error_string(rc).decode()})")
-        launches += 2
+        launches[VARIANTS[variant]] += 2
         out = (delta, ms[0], ms[1], cost)
         return out + (pert,) if emit_perturbed else out
 
+    info = dict(K_pad=K_pad, pair_block=pair_block, bits_cols=bits_cols,
+                tiles="shared" if shared else "global")
+    return launch, flags, info
+
+
+def _finish(solve, plain, flags, info):
+    """Route by device and attach the plain version and the shapes."""
+
+    def routed(*args):
+        device = args[1].device
+        if device.type == "cuda":
+            return solve(*args)
+        if device.type != "cpu":
+            raise ValueError(f"the fused solve runs on cuda or cpu tensors, not {device}")
+        return plain(*args, **flags)
+
+    routed.plain = lambda *args: plain(*args, **flags)
+    for k, v in info.items():
+        setattr(routed, k, v)
+    return routed
+
+
+def make_transposed_fused_solve(config: MPPIConfig, model: KernelModel,
+                                pair_block: int = None,
+                                emit_perturbed: bool = False,
+                                null_dynamic_gate: bool = False,
+                                terminal_final=None):
+    """The whole MPPI iteration as one fused-kernel call (see the module
+    docstring for the call contract).  Raises ValueError for a non-float32
+    config or a model whose sizes differ from the config's, and
+    :class:`FusedSolveUnavailable` when nx or nu exceeds the device models'
+    registers (32), or for the JAX kernel's options this port does not run
+    yet: ``null_dynamic_gate`` and ``terminal_final`` (the elites operand has
+    no config field here; the controller rejects ``num_elites``)."""
+    D = config.T * config.nu
+    launch, flags, info = _make_launch(MPPI, config, model, D, pair_block,
+                                       emit_perturbed, null_dynamic_gate,
+                                       terminal_final)
+
     def solve(seed_or_bits, x0T, U2, op, mu_t, lo_t, hi_t, a_flat, lambda_):
-        if x0T.device.type == "cuda":
-            return launch(seed_or_bits, x0T, U2, op, mu_t, lo_t, hi_t, a_flat,
-                          lambda_)
-        if x0T.device.type != "cpu":
-            raise ValueError(f"the fused solve runs on cuda or cpu tensors, not {x0T.device}")
-        return fused_solve_plain(seed_or_bits, x0T, U2, op, mu_t, lo_t, hi_t,
-                                 a_flat, lambda_, **flags)
+        return launch(seed_or_bits, x0T, U2, U2, op, mu_t, lo_t, hi_t, None, None,
+                      a_flat, None, lambda_, None, None)
 
-    solve.K_pad = K_pad
-    solve.pair_block = pair_block
-    solve.bits_cols = bits_cols
-    return solve
+    return _finish(solve, fused_solve_plain, flags, info)
 
+
+def make_transposed_smppi_solve(config: MPPIConfig, model: KernelModel,
+                                pair_block: int = None,
+                                emit_perturbed: bool = False,
+                                null_dynamic_gate: bool = False,
+                                terminal_final=None):
+    """The whole SMPPI iteration as one fused-kernel call, with the call
+    contract of ``pallas_rollout.py:775-784``: ``solve(seed_or_bits, x0T,
+    U2, as2, op, mu_t, lo_t, hi_t (rate bounds), alo_t, ahi_t (action
+    bounds), a_flat, lambda_, w_seq, delta_t)``, the three scalars as 0-d
+    tensors.  Raises as :func:`make_transposed_fused_solve`."""
+    D = config.T * config.nu
+    launch, flags, info = _make_launch(SMPPI, config, model, D, pair_block,
+                                       emit_perturbed, null_dynamic_gate,
+                                       terminal_final)
+
+    def solve(seed_or_bits, x0T, U2, as2, op, mu_t, lo_t, hi_t, alo_t, ahi_t,
+              a_flat, lambda_, w_seq, delta_t):
+        return launch(seed_or_bits, x0T, U2, as2, op, mu_t, lo_t, hi_t, alo_t,
+                      ahi_t, a_flat, None, lambda_, w_seq, delta_t)
+
+    return _finish(solve, smppi_solve_plain, flags, info)
+
+
+def make_transposed_kmppi_solve(config: MPPIConfig, model: KernelModel,
+                                pair_block: int = None,
+                                emit_perturbed: bool = False,
+                                null_dynamic_gate: bool = False,
+                                terminal_final=None):
+    """The whole KMPPI iteration as one fused-kernel call, with the call
+    contract of ``pallas_rollout.py:958-967``: ``solve(seed_or_bits, x0T,
+    U2, theta2 (Dp,), op, mu_p, lop, hip (Dp,), lo_t, hi_t (D,), a_flat,
+    Wt (D, Dp), lambda_)`` with ``Dp = config.num_support_pts · nu``.
+    Raises as :func:`make_transposed_fused_solve`."""
+    nsp = config.num_support_pts
+    if nsp < 1:
+        raise ValueError(f"KMPPI needs num_support_pts >= 1, got {nsp}")
+    launch, flags, info = _make_launch(KMPPI, config, model, nsp * config.nu,
+                                       pair_block, emit_perturbed,
+                                       null_dynamic_gate, terminal_final)
+
+    def solve(seed_or_bits, x0T, U2, theta2, op, mu_p, lop, hip, lo_t, hi_t,
+              a_flat, Wt, lambda_):
+        return launch(seed_or_bits, x0T, U2, theta2, op, mu_p, lop, hip, lo_t,
+                      hi_t, a_flat, Wt, lambda_, None, None)
+
+    return _finish(solve, kmppi_solve_plain, dict(flags, nsp=nsp), info)

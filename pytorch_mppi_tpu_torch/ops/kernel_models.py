@@ -23,6 +23,7 @@ import torch
 # model ids of the device models in csrc/fused_mppi.cu
 LINEAR_QUADRATIC = 0
 PENDULUM = 1
+TOY2D = 2
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -95,3 +96,22 @@ def pendulum_model(dynamics: Callable, running_cost: Callable) -> KernelModel:
     the kernel's pendulum model; its constants are compiled into the kernel."""
     return _tag(KernelModel("pendulum", PENDULUM, 2, 1, torch.zeros(1),
                             dynamics, running_cost))
+
+
+def toy2d_model(dynamics: Callable, running_cost: Callable, B, goal, r: float,
+                hill_Q, hill_center, hill_cost: float) -> KernelModel:
+    """Tag the 2-D navigation task's plain functions (``models/toy2d.py``)
+    with the kernel's toy2d model: ``x' = x + u Bᵀ`` and the cost
+    ``‖goal − x'‖² + r‖u‖² + c0·exp(−(c − x')ᵀ Q_h (c − x'))``."""
+    B = torch.as_tensor(B, dtype=torch.float32)
+    nx, nu = B.shape
+    consts = torch.cat([
+        B.reshape(-1), torch.as_tensor(goal, dtype=torch.float32).reshape(-1),
+        torch.tensor([float(r)]),
+        torch.as_tensor(hill_Q, dtype=torch.float32).reshape(-1),
+        torch.as_tensor(hill_center, dtype=torch.float32).reshape(-1),
+        torch.tensor([float(hill_cost)]),
+    ]).cpu()
+    if consts.numel() != nx * nu + 2 * nx + 2 + nx * nx:
+        raise ValueError("toy2d_model needs goal (nx,), hill_Q (nx, nx) and hill_center (nx,)")
+    return _tag(KernelModel("toy2d", TOY2D, nx, nu, consts, dynamics, running_cost))

@@ -1,8 +1,8 @@
 """The MPPI solve as plain functions on tensors.
 
 The counterpart of ``pytorch_mppi_tpu/ops/solve.py`` for one plant and one
-optimisation cycle per command.  :func:`make_mppi_step` builds the two ways a
-command runs:
+optimisation cycle per command.  :func:`make_mppi_step`, :func:`make_smppi_step`
+and :func:`make_kmppi_step` each build the two ways a command runs:
 
 * the plain path, ``_one_iteration``: noise in the flat ``(K, T·nu)`` layout,
   the null-action row, the clamp, the rectified noise and its action cost, a
@@ -11,6 +11,10 @@ command runs:
   call to the fused CUDA kernel (:mod:`.fused_solve`), which keeps the noise
   out of device memory.  On a CPU tensor that call runs the kernel's plain
   version.
+
+SMPPI samples in action-rate space and integrates onto the commanded
+sequence (reference mppi.py:451-570); KMPPI samples at support points and
+interpolates them to the horizon (reference mppi.py:593-688).
 
 The reference quirks stay: U is not clamped again after the update, the
 running cost is taken at the state after the dynamics step, and ``u_scale``
@@ -24,7 +28,16 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from ..config import Artifacts, MPPIConfig, MPPIParams, MPPIState
+from ..config import (
+    Artifacts,
+    KMPPIParams,
+    KMPPIState,
+    MPPIConfig,
+    MPPIParams,
+    MPPIState,
+    SMPPIParams,
+    SMPPIState,
+)
 from . import fused_solve as FS
 from .kernel_models import find_kernel_model
 
@@ -267,34 +280,38 @@ def _x0_to_lanes(x0: torch.Tensor, K: int) -> torch.Tensor:
 
 
 def _route_transposed_solve(config: MPPIConfig, dynamics: Callable,
-                            running_cost: Callable):
+                            running_cost: Callable,
+                            factory: Callable = FS.make_transposed_fused_solve,
+                            variant: str = "MPPI"):
     """``use_pallas`` routing, decided once when the step is built: the fused
-    solve, or None (the plain path) with a warning saying why."""
+    solve that ``factory`` builds, or None (the plain path) with a warning
+    saying why."""
     model = find_kernel_model(dynamics, running_cost)
     if model is None:
         logger.warning(
             "use_pallas: the dynamics and running cost carry no kernel model "
-            "(ops/kernel_models.py); using the plain torch path"
+            "(ops/kernel_models.py); using the plain torch path for %s", variant,
         )
         return None
     if not FS.transposed_eligible(config):
         logger.warning(
             "use_pallas requested but the configuration is ineligible "
-            "(non-float32 or step-dependent); using the plain torch path"
+            "(non-float32 or step-dependent); using the plain torch path for %s",
+            variant,
         )
         return None
     try:
-        solve = FS.make_transposed_fused_solve(
-            config, model, emit_perturbed=config.fused_artifacts)
+        solve = factory(config, model, emit_perturbed=config.fused_artifacts)
     except FS.FusedSolveUnavailable as e:
         logger.warning(
-            "use_pallas: fused kernel unavailable for this configuration "
-            "(%s); using the plain torch path", e,
+            "use_pallas: fused %s kernel unavailable for this configuration "
+            "(%s); using the plain torch path", variant, e,
         )
         return None
     logger.info(
-        "use_pallas: routing to the fused CUDA kernel with the %r kernel "
-        "model; noise/perturbed artifacts %s", model.name,
+        "use_pallas: routing %s to the fused CUDA kernel with the %r kernel "
+        "model (%s-memory tiles); noise/perturbed artifacts %s", variant,
+        model.name, solve.tiles,
         "materialized (fused_artifacts)" if config.fused_artifacts
         else "are not materialized",
     )
@@ -399,6 +416,213 @@ def make_mppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callabl
         return _solve(params, state, x0, shift=False)
 
     return StepFns(step=step, step_no_shift=step_no_shift,
+                   get_rollouts=make_get_rollouts(config, dyn),
+                   fused=transposed_solve is not None)
+
+
+def make_smppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callable,
+                    use_pallas: bool = False) -> StepFns:
+    """Build the SMPPI solve (``pytorch_mppi_tpu/ops/solve.py:1469-1696``):
+    noise in action-rate space, clamped to the rate bounds, integrated onto
+    the commanded sequence, clamped to the action bounds, the noise
+    back-computed through both clamps and a smoothness cost added.  The
+    steps take :class:`SMPPIParams` and :class:`SMPPIState`; ``use_pallas``
+    routes as in :func:`make_mppi_step`."""
+    dyn = wrap_dynamics(config, dynamics)
+    cost = wrap_cost(config, running_cost)
+    dtype = config.dtype
+    K, T, nu = config.K, config.T, config.nu
+    D = T * nu
+
+    transposed_solve = (
+        _route_transposed_solve(config, dynamics, running_cost,
+                                FS.make_transposed_smppi_solve, "SMPPI")
+        if use_pallas else None)
+
+    def _one_iteration_fused(params: SMPPIParams, U, action_sequence, x0, s: int):
+        base = params.base
+        sigma_inv, op, mu_t, lo2, hi2 = _transposed_operands(
+            base.noise_sigma, base.noise_mu, base.u_min, base.u_max, config, T, nu, dtype)
+        alo2 = _tile_bound(params.action_min, nu, T, dtype)
+        ahi2 = _tile_bound(params.action_max, nu, T, dtype)
+        a_flat = (base.lambda_ * (U @ sigma_inv.T)).reshape(D)
+        out = transposed_solve(
+            FS.key_to_seed(s), _x0_to_lanes(x0, K), U.reshape(D),
+            action_sequence.reshape(D), op, mu_t, lo2, hi2, alo2, ahi2, a_flat,
+            base.lambda_, params.w_action_seq_cost, params.delta_t,
+        )
+        delta, m, s_, cost_total = out[:4]
+        ctnz, omega = FS.weighting_from_stats(cost_total, base.lambda_, m, s_)
+        U_new = U + (delta / s_).reshape(T, nu)
+        noise_art = pert_art = None
+        if config.fused_artifacts:
+            # action-space sequences come back (D, K); the rate-space noise is
+            # the kernel's own back-computation through both clamps
+            pa2 = out[4].T
+            noise_art = ((pa2 - action_sequence.reshape(D)[None]) / params.delta_t
+                         - U.reshape(D)[None]).reshape(K, T, nu)
+            pert_art = pa2.reshape(K, T, nu)
+        return U_new, Artifacts(cost_total, ctnz, omega, noise_art, pert_art)
+
+    def _one_iteration(params: SMPPIParams, U, action_sequence, x0, s: int):
+        if transposed_solve is not None:
+            return _one_iteration_fused(params, U, action_sequence, x0, s)
+        base = params.base
+        chol, sigma_inv = _sigma_factors(base.noise_sigma, diag=config.diag_sigma)
+        noise2 = sample_noise_flat(
+            _generator(s, U.device), K, T, base, dtype,
+            antithetic=config.antithetic, chol=chol,
+            noise_rho=config.noise_rho, diag_sigma=config.diag_sigma,
+        )
+        U2 = U.reshape(D)
+        as2 = action_sequence.reshape(D)
+        perturbed_control2 = _bound(U2[None] + noise2, _tile_bound(base.u_min, nu, T, dtype),
+                                    _tile_bound(base.u_max, nu, T, dtype))
+        perturbed_action2 = inject_specific_actions(
+            config, as2[None] + perturbed_control2 * params.delta_t)
+        perturbed_action2 = _bound(perturbed_action2,
+                                   _tile_bound(params.action_min, nu, T, dtype),
+                                   _tile_bound(params.action_max, nu, T, dtype))
+        # effective noise back-computed through both clamps (mppi.py:552)
+        noise2 = (perturbed_action2 - as2[None]) / params.delta_t - U2[None]
+        a_flat = (base.lambda_ * (U @ sigma_inv.T)).reshape(D)
+        n_for_cost = torch.abs(noise2) if config.noise_abs_cost else noise2
+        perturbation_cost = n_for_cost @ a_flat
+        # smoothness w * sum ||u_scale * diff(actions)||^2 (mppi.py:558-562):
+        # the time difference is a shift by nu in the flat layout
+        action_diff = config.u_scale * (perturbed_action2[:, nu:] - perturbed_action2[:, :-nu])
+        smoothness = params.w_action_seq_cost * torch.sum(action_diff * action_diff, dim=1)
+        perturbed_action = perturbed_action2.reshape(K, T, nu)
+        cost_total = (rollout_costs(config, dyn, cost, x0, perturbed_action)
+                      + perturbation_cost + smoothness)
+        cost_total_non_zero, omega = compute_weighting(cost_total, base.lambda_)
+        U_new = U + (omega @ noise2).reshape(T, nu)
+        return U_new, Artifacts(cost_total, cost_total_non_zero, omega,
+                                noise2.reshape(K, T, nu), perturbed_action)
+
+    def _solve(params: SMPPIParams, state: SMPPIState, x0, shift: bool):
+        U, action_sequence = state.U, state.action_sequence
+        if shift:
+            # roll both sequences; repeat the last commanded action (mppi.py:489-493)
+            U = _shift_U(U, params.base.u_init)
+            action_sequence = _shift_sequence(action_sequence)
+        x0 = torch.as_tensor(x0, dtype=dtype, device=U.device)
+        U, artifacts = _one_iteration(params, U, action_sequence, x0,
+                                      iteration_seed(state.seed, state.counter))
+        # integrate the lifted control (mppi.py:529-531)
+        action_sequence_new = action_sequence + U * params.delta_t
+        new_state = SMPPIState(U=U, action_sequence=action_sequence_new,
+                               seed=state.seed, counter=state.counter + 1)
+        return new_state, _select_action(config, action_sequence_new), artifacts
+
+    return StepFns(step=lambda params, state, x0: _solve(params, state, x0, True),
+                   step_no_shift=lambda params, state, x0: _solve(params, state, x0, False),
+                   get_rollouts=make_get_rollouts(config, dyn),
+                   fused=transposed_solve is not None)
+
+
+def _shift_sequence(seq: torch.Tensor) -> torch.Tensor:
+    """Roll a commanded sequence forward one step and repeat its last row
+    (mppi.py:489-493)."""
+    seq = torch.roll(seq, -1, dims=0)
+    seq[-1] = seq[max(seq.shape[0] - 2, 0)]
+    return seq
+
+
+def make_kmppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callable,
+                    use_pallas: bool = False) -> StepFns:
+    """Build the KMPPI solve (``pytorch_mppi_tpu/ops/solve.py:1704-1924``):
+    noise at the ``num_support_pts`` control points, clamped there,
+    interpolated to the horizon by ``kron(interp_full, I_nu)``, the null row,
+    the trajectory clamp; the update is taken in theta space and
+    ``U = interp_full @ theta``.  The steps take :class:`KMPPIParams` and
+    :class:`KMPPIState`; ``use_pallas`` routes as in :func:`make_mppi_step`."""
+    dyn = wrap_dynamics(config, dynamics)
+    cost = wrap_cost(config, running_cost)
+    dtype = config.dtype
+    K, T, nu, nsp = config.K, config.T, config.nu, config.num_support_pts
+    D, Dp = T * nu, nsp * nu
+
+    transposed_solve = (
+        _route_transposed_solve(config, dynamics, running_cost,
+                                FS.make_transposed_kmppi_solve, "KMPPI")
+        if use_pallas else None)
+
+    def _interp_rows(params: KMPPIParams):
+        """kron(interp_full, I_nu): the (D, Dp) operator of the flat layout."""
+        eye = torch.eye(nu, dtype=dtype, device=params.interp_full.device)
+        return torch.kron(params.interp_full.to(dtype).contiguous(), eye)
+
+    def _one_iteration_fused(params: KMPPIParams, U, theta, x0, s: int):
+        base = params.base
+        sigma_inv, op, mu_p, lop, hip = _transposed_operands(
+            base.noise_sigma, base.noise_mu, base.u_min, base.u_max, config, nsp, nu, dtype)
+        a_flat = (base.lambda_ * (U @ sigma_inv.T)).reshape(D)
+        out = transposed_solve(
+            FS.key_to_seed(s), _x0_to_lanes(x0, K), U.reshape(D), theta.reshape(Dp),
+            op, mu_p, lop, hip, _tile_bound(base.u_min, nu, T, dtype),
+            _tile_bound(base.u_max, nu, T, dtype), a_flat, _interp_rows(params),
+            base.lambda_,
+        )
+        delta_th, m, s_, cost_total = out[:4]
+        ctnz, omega = FS.weighting_from_stats(cost_total, base.lambda_, m, s_)
+        theta_new = theta + (delta_th / s_).reshape(nsp, nu)
+        noise_art = pert_art = None
+        if config.fused_artifacts:
+            # full-horizon perturbed trajectories come back (D, K); the noise
+            # artifact is the full-horizon noise, as on the plain path
+            perturbed2 = out[4].T
+            noise_art = (perturbed2 - U.reshape(D)[None]).reshape(K, T, nu)
+            pert_art = perturbed2.reshape(K, T, nu)
+        return (params.interp_full @ theta_new, theta_new,
+                Artifacts(cost_total, ctnz, omega, noise_art, pert_art))
+
+    def _one_iteration(params: KMPPIParams, U, theta, x0, s: int):
+        if transposed_solve is not None:
+            return _one_iteration_fused(params, U, theta, x0, s)
+        base = params.base
+        chol, sigma_inv = _sigma_factors(base.noise_sigma, diag=config.diag_sigma)
+        noise_theta2 = sample_noise_flat(
+            _generator(s, U.device), K, nsp, base, dtype,
+            antithetic=config.antithetic, chol=chol,
+            noise_rho=config.noise_rho, diag_sigma=config.diag_sigma,
+        )
+        theta2 = theta.reshape(Dp)
+        perturbed_pts2 = _bound(theta2[None] + noise_theta2,
+                                _tile_bound(base.u_min, nu, nsp, dtype),
+                                _tile_bound(base.u_max, nu, nsp, dtype))
+        noise_theta2 = perturbed_pts2 - theta2[None]
+        # deparameterize to the full horizon: one (K, Dp) @ (Dp, D) product
+        perturbed2 = inject_specific_actions(config, perturbed_pts2 @ _interp_rows(params).T)
+        perturbed2 = _bound(perturbed2, _tile_bound(base.u_min, nu, T, dtype),
+                            _tile_bound(base.u_max, nu, T, dtype))
+        noise2 = perturbed2 - U.reshape(D)[None]
+        a_flat = (base.lambda_ * (U @ sigma_inv.T)).reshape(D)
+        n_for_cost = torch.abs(noise2) if config.noise_abs_cost else noise2
+        perturbation_cost = n_for_cost @ a_flat
+        perturbed = perturbed2.reshape(K, T, nu)
+        cost_total = rollout_costs(config, dyn, cost, x0, perturbed) + perturbation_cost
+        cost_total_non_zero, omega = compute_weighting(cost_total, base.lambda_)
+        # weighted update in control-point space (mppi.py:672-682)
+        theta_new = theta + (omega @ noise_theta2).reshape(nsp, nu)
+        return (params.interp_full @ theta_new, theta_new,
+                Artifacts(cost_total, cost_total_non_zero, omega,
+                          noise2.reshape(K, T, nu), perturbed))
+
+    def _solve(params: KMPPIParams, state: KMPPIState, x0, shift: bool):
+        U, theta = state.U, state.theta
+        if shift:
+            U = _shift_U(U, params.base.u_init)
+            # theta <- theta interpolated at Tk + 1 (mppi.py:617-619)
+            theta = params.interp_shift @ theta
+        x0 = torch.as_tensor(x0, dtype=dtype, device=U.device)
+        U, theta, artifacts = _one_iteration(params, U, theta, x0,
+                                             iteration_seed(state.seed, state.counter))
+        new_state = KMPPIState(U=U, theta=theta, seed=state.seed, counter=state.counter + 1)
+        return new_state, _select_action(config, U), artifacts
+
+    return StepFns(step=lambda params, state, x0: _solve(params, state, x0, True),
+                   step_no_shift=lambda params, state, x0: _solve(params, state, x0, False),
                    get_rollouts=make_get_rollouts(config, dyn),
                    fused=transposed_solve is not None)
 

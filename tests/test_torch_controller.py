@@ -1,14 +1,16 @@
-"""The port's ``MPPI`` controller on the CPU: the pendulum swing-up on both
-paths, the device rule, the unported flags, routing and the step cache."""
+"""The port's controllers on the CPU: the pendulum swing-up on both paths,
+the device rule, the unported flags, routing and the step cache of ``MPPI``;
+the quality checks, API surface and step cache of ``SMPPI`` and ``KMPPI``."""
 import logging
 
 import numpy as np
 import pytest
 import torch
 
-from pytorch_mppi_tpu_torch import MPPI, linear_quadratic, run_mppi
+from pytorch_mppi_tpu_torch import KMPPI, MPPI, SMPPI, RBFKernel, linear_quadratic, run_mppi
 from pytorch_mppi_tpu_torch.models import (
     PendulumEnv,
+    Toy2DEnvironment,
     angle_normalize,
     pendulum_dynamics,
     pendulum_running_cost,
@@ -125,3 +127,165 @@ def test_controller_api_surface():
 def test_seeded_runs_repeat():
     a = [_pendulum(seed=3).command(np.array([np.pi, 1.0])) for _ in range(2)]
     torch.testing.assert_close(a[0], a[1], rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# SMPPI and KMPPI: the quality checks of tests/test_mppi.py:744-771, 820-836
+# on the port, on the plain path and (use_pallas=True) the kernel's plain
+# version; the API surface; the step cache; KMPPI's horizon clamp.
+# ---------------------------------------------------------------------------
+
+LQ = linear_quadratic(torch.tensor([[1.0, 0.0], [0.0, -1.0]]), torch.tensor([2.0, 2.0]))
+GOAL = torch.tensor([2.0, 2.0])
+PATHS = pytest.mark.parametrize("use_pallas", [False, True], ids=["plain", "fused_plain"])
+
+
+def _lq_ctrl(cls, use_pallas, **kw):
+    ctrl = cls(LQ.dynamics, LQ.running_cost, nx=2, noise_sigma=torch.eye(2),
+               num_samples=500, horizon=15, lambda_=1.0, device="cpu",
+               use_pallas=use_pallas, **kw)
+    assert ctrl._fns.fused == use_pallas
+    return ctrl
+
+
+def _final_dist(ctrl, state, steps=20):
+    for _ in range(steps):
+        state = LQ.dynamics(state[None], ctrl.command(state)[None])[0]
+    return float(torch.linalg.norm(state - GOAL))
+
+
+@PATHS
+def test_smppi_stable_trajectory(use_pallas):
+    ctrl = _lq_ctrl(SMPPI, use_pallas, w_action_seq_cost=5.0, seed=42)
+    state = torch.tensor([-1.0, -1.0])
+    for _ in range(10):
+        action = ctrl.command(state)
+        assert bool(torch.isfinite(action).all())
+        state = LQ.dynamics(state[None], action[None])[0]
+        assert bool(torch.isfinite(state).all())
+    assert bool(torch.isfinite(ctrl.cost_total).all())
+    assert bool((ctrl.cost_total >= 0).all())
+
+
+@PATHS
+def test_kmppi_reaches_goal(use_pallas):
+    dists = [_final_dist(_lq_ctrl(KMPPI, use_pallas, num_support_pts=5,
+                                  kernel=RBFKernel(sigma=2.0), seed=seed),
+                         torch.tensor([-3.0, -2.0]))
+             for seed in (42, 43, 44)]
+    assert sum(dists) / 3 < 2.0, dists
+
+
+@PATHS
+def test_smppi_planned_trajectory_smoother(use_pallas):
+    state = torch.tensor([-3.0, -2.0])
+    mppi = _lq_ctrl(MPPI, use_pallas, seed=42)
+    mppi.command(state)
+    smppi = _lq_ctrl(SMPPI, use_pallas, w_action_seq_cost=10.0, seed=42)
+    smppi.command(state)
+    mppi_smooth = float(torch.diff(mppi.U, dim=0).abs().sum())
+    smppi_smooth = float(torch.diff(smppi.get_action_sequence(), dim=0).abs().sum())
+    assert smppi_smooth < mppi_smooth * 2.0, (mppi_smooth, smppi_smooth)
+
+
+def test_smppi_api_surface():
+    ctrl = SMPPI(LQ.dynamics, LQ.running_cost, nx=2, noise_sigma=torch.eye(2),
+                 num_samples=64, horizon=6, device="cpu", w_action_seq_cost=2.0,
+                 delta_t=0.5, action_min=-0.5, action_max=0.5, U_init=torch.full((6, 2), 0.1))
+    torch.testing.assert_close(ctrl.U, torch.zeros(6, 2))
+    torch.testing.assert_close(ctrl.get_action_sequence(), torch.full((6, 2), 0.1))
+    torch.testing.assert_close(ctrl.action_min, torch.full((2,), -0.5))
+    assert ctrl.w_action_seq_cost == 2.0 and ctrl.delta_t == 0.5
+    fns = ctrl._fns
+    ctrl.w_action_seq_cost = 7.0
+    ctrl.delta_t = 0.25
+    assert ctrl._fns is fns and ctrl.delta_t == 0.25
+    assert "w=7.0 t=0.25" in ctrl.get_params()
+    action = ctrl.command(np.array([0.0, 0.0]))
+    assert action.shape == (2,) and bool((action.abs() <= 0.5).all())
+    torch.testing.assert_close(action, ctrl.action_sequence[0])
+    seq = ctrl.action_sequence.clone()
+    ctrl.shift_nominal_trajectory()
+    torch.testing.assert_close(ctrl.action_sequence[:-1], seq[1:])
+    torch.testing.assert_close(ctrl.action_sequence[-1], seq[-1])
+    ctrl.change_horizon(8)
+    assert ctrl.U.shape == (8, 2) and ctrl.action_sequence.shape == (8, 2)
+    torch.testing.assert_close(ctrl.action_sequence[-1], seq[-1])
+    ctrl.change_horizon(4)
+    assert ctrl.action_sequence.shape == (4, 2)
+    ctrl.action_sequence = torch.ones(4, 2)
+    ctrl.reset()
+    torch.testing.assert_close(ctrl.action_sequence, torch.zeros(4, 2))
+    torch.testing.assert_close(ctrl.U, torch.zeros(4, 2))
+
+
+def test_kmppi_api_surface():
+    ctrl = KMPPI(LQ.dynamics, LQ.running_cost, nx=2, noise_sigma=torch.eye(2),
+                 num_samples=64, horizon=9, device="cpu")
+    assert ctrl.num_support_pts == 4 and ctrl.config.num_support_pts == 4
+    assert isinstance(ctrl.interpolation_kernel, RBFKernel)
+    torch.testing.assert_close(ctrl.theta, torch.zeros(4, 2))
+    assert ctrl.command(np.array([0.0, 0.0])).shape == (2,)
+    traj, full = ctrl.deparameterize_to_trajectory_single(ctrl.theta)
+    torch.testing.assert_close(traj, ctrl.U)
+    assert full.shape == (9, 4)
+    batch, _ = ctrl.deparameterize_to_trajectory_batch(torch.ones(3, 4, 2))
+    assert batch.shape == (3, 9, 2)
+    theta = ctrl.theta.clone()
+    ctrl.shift_nominal_trajectory()
+    torch.testing.assert_close(ctrl.theta, ctrl._interp_shift @ theta)
+    fns = ctrl._fns
+    old_full = ctrl._interp_full
+    ctrl.kernel_sigma = 3.0
+    assert ctrl.kernel_sigma == 3.0 and ctrl._fns is fns
+    assert not torch.equal(ctrl._interp_full, old_full)
+    ctrl.reset()
+    torch.testing.assert_close(ctrl.theta, torch.zeros(4, 2))
+    assert "num_support_pts=4" in ctrl.get_params()
+    with pytest.raises(ValueError, match="exceeds horizon"):
+        KMPPI(LQ.dynamics, LQ.running_cost, nx=2, noise_sigma=torch.eye(2),
+              num_samples=8, horizon=3, num_support_pts=5, device="cpu")
+
+
+@pytest.mark.parametrize("cls", [SMPPI, KMPPI], ids=["smppi", "kmppi"])
+def test_variant_change_horizon_reuses_step_fns(cls):
+    ctrl = cls(LQ.dynamics, LQ.running_cost, nx=2, noise_sigma=torch.eye(2),
+               num_samples=32, horizon=10, device="cpu", use_pallas=True)
+    fns10 = ctrl._fns
+    ctrl.change_horizon(12)
+    assert ctrl.U.shape == (12, 2) and ctrl._fns is not fns10
+    fns12 = ctrl._fns
+    ctrl.change_horizon(10)
+    assert ctrl._fns is fns10
+    ctrl.change_horizon(12)
+    assert ctrl._fns is fns12
+    assert ctrl.command(np.array([0.0, 0.0])).shape == (2,)
+
+
+def test_kmppi_clamps_horizon_to_support_points(caplog):
+    ctrl = KMPPI(LQ.dynamics, LQ.running_cost, nx=2, noise_sigma=torch.eye(2),
+                 num_samples=32, horizon=10, num_support_pts=5, device="cpu")
+    with caplog.at_level(logging.WARNING, logger="pytorch_mppi_tpu_torch"):
+        ctrl.change_horizon(3)
+    assert "clamped to num_support_pts=5" in caplog.text
+    assert ctrl.T == 5 and ctrl.U.shape == (5, 2) and ctrl.theta.shape == (5, 2)
+    assert ctrl._interp_full.shape == (5, 5)
+    assert bool(torch.isfinite(ctrl._interp_full).all())
+    assert ctrl.command(np.array([0.0, 0.0])).shape == (2,)
+
+
+@pytest.mark.parametrize("cls", [MPPI, SMPPI, KMPPI], ids=["mppi", "smppi", "kmppi"])
+def test_toy2d_runs_the_kernel_model(cls):
+    """The 2-D navigation task carries the kernel's toy2d model, so
+    ``use_pallas=True`` routes to the fused solve (its plain version here)."""
+    env = Toy2DEnvironment()
+    ctrl = cls(env.dynamics, env.running_cost, nx=2, noise_sigma=torch.eye(2) * 0.2,
+               num_samples=64, horizon=8, u_min=torch.tensor([-1.0, -1.0]),
+               u_max=torch.tensor([1.0, 1.0]), device="cpu", use_pallas=True)
+    assert ctrl._fns.fused
+    state = env.start
+    for _ in range(3):
+        action = ctrl.command(state)
+        assert bool((action.abs() <= 1.0).all())
+        state = env.dynamics(state[None], action[None])[0]
+    assert bool(torch.isfinite(state).all())

@@ -14,6 +14,7 @@ below).  Costs and the update then differ by float32 summation order, as in
 the update delta/s rtol 2e-4 / atol 2e-6, s rtol 2e-5.
 """
 import importlib.util
+import logging
 from pathlib import Path
 
 import numpy as np
@@ -284,13 +285,17 @@ def test_wrapper_rejects_other_devices():
     with pytest.raises(ValueError, match="float32"):
         FS.make_transposed_fused_solve(
             MPPIConfig(nx=2, nu=2, K=8, T=3, dtype=torch.float64), model)
-    with pytest.raises(FS.FusedSolveUnavailable):
+    # a large D takes the global-memory tiles; nx or nu up to 32 is taken
+    big = FS.make_transposed_fused_solve(
+        MPPIConfig(nx=2, nu=2, K=8, T=250, noise_rho=0.5), model)
+    assert big.tiles == "global"
+    FS.make_transposed_fused_solve(
+        MPPIConfig(nx=32, nu=2, K=8, T=3),
+        linear_quadratic(torch.zeros(32, 2), torch.zeros(32)))
+    with pytest.raises(FS.FusedSolveUnavailable, match="at most 32"):
         FS.make_transposed_fused_solve(
-            MPPIConfig(nx=2, nu=2, K=8, T=250, noise_rho=0.5), model)
-    with pytest.raises(FS.FusedSolveUnavailable, match="at most 8"):
-        FS.make_transposed_fused_solve(
-            MPPIConfig(nx=9, nu=2, K=8, T=3),
-            linear_quadratic(torch.zeros(9, 2), torch.zeros(9)))
+            MPPIConfig(nx=33, nu=2, K=8, T=3),
+            linear_quadratic(torch.zeros(33, 2), torch.zeros(33)))
     with pytest.raises(ValueError, match="the config is"):
         FS.make_transposed_fused_solve(MPPIConfig(nx=3, nu=2, K=8, T=3), model)
     with pytest.raises(FS.FusedSolveUnavailable, match="Queue 1 item 12"):
@@ -322,3 +327,57 @@ def test_fused_work_counts_inputs_once():
     assert b_bits == 4 * (nx * K + small + D * K + D * K)
     # seed mode adds Philox: 98 operations per 4 rows of every sample
     assert ops_seed - ops_bits == K * (D // 4) * 98
+
+
+# variant, config: the two shapes that took the plain path before the kernel
+# held its tiles in global memory and its device models 32 states and actions
+ROUTES = [
+    ("mppi_T100_nu3_rho", PS.make_mppi_step, dict(nx=2, nu=3, T=100, noise_rho=0.5)),
+    ("smppi_T100_nu3_rho", PS.make_smppi_step, dict(nx=2, nu=3, T=100, noise_rho=0.5)),
+    ("kmppi_T100_nu3_rho", PS.make_kmppi_step,
+     dict(nx=2, nu=3, T=100, noise_rho=0.5, num_support_pts=50)),
+    ("mppi_lq12", PS.make_mppi_step, dict(nx=12, nu=4, T=10, diag_sigma=True)),
+    ("smppi_lq12", PS.make_smppi_step, dict(nx=12, nu=4, T=10, diag_sigma=True)),
+    ("kmppi_lq12", PS.make_kmppi_step,
+     dict(nx=12, nu=4, T=10, diag_sigma=True, num_support_pts=5)),
+]
+
+
+@pytest.mark.parametrize("factory,fields", [r[1:] for r in ROUTES], ids=[r[0] for r in ROUTES])
+def test_large_configs_route_fused(caplog, factory, fields):
+    """T = 100, nu = 3 with ``noise_rho`` (D = 300) and a 12-state
+    ``linear_quadratic`` reach the fused kernel with no warning."""
+    nx, nu = fields["nx"], fields["nu"]
+    rs = np.random.RandomState(0)
+    model = linear_quadratic(torch.from_numpy(rs.randn(nx, nu).astype(np.float32) * 0.3),
+                             torch.from_numpy(rs.randn(nx).astype(np.float32)))
+    cfg = MPPIConfig(K=64, **fields)
+    with caplog.at_level(logging.WARNING, logger="pytorch_mppi_tpu_torch"):
+        fns = factory(cfg, model.dynamics, model.running_cost, use_pallas=True)
+    assert fns.fused
+    assert not [r for r in caplog.records if r.levelno >= logging.WARNING], caplog.text
+
+
+@pytest.mark.parametrize("variant", ["smppi", "kmppi"])
+def test_fused_work_counts_variant_inputs_once(variant):
+    """``chip_smoke.fused_work`` for SMPPI (as, two bound pairs, three
+    scalars) and KMPPI (Dp drawn rows, the (D, Dp) interpolation operator,
+    a Dp-row update)."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    K, T, nu, nx, nsp = 300, 4, 2, 2, 2
+    D, Dp = T * nu, nsp * nu
+    R = Dp if variant == "kmppi" else D
+    cfg = MPPIConfig(nx=nx, nu=nu, K=K, T=T, diag_sigma=True,
+                     num_support_pts=nsp if variant == "kmppi" else 0)
+    model = linear_quadratic(torch.from_numpy(B_NP), torch.from_numpy(GOAL_NP))
+    x0 = torch.zeros(nx)[:, None].expand(nx, K)
+    ops_seed, b_seed = smoke.fused_work(cfg, model, (1, 2), x0, torch.ones(R), variant=variant)
+    vectors = 8 * D + 3 if variant == "smppi" else 4 * D + 4 * Dp + D * Dp + 1
+    assert b_seed == 4 * (nx + vectors + R + model.consts.numel() + K + R + 2)
+    bits = torch.zeros((R, K), dtype=torch.int32)
+    ops_bits, b_bits = smoke.fused_work(cfg, model, bits, x0, torch.ones(R), variant=variant)
+    assert b_bits - b_seed == 4 * R * K
+    assert ops_seed - ops_bits == K * (-(-R // 4)) * 98
