@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""On-card smoke test of pytorch_mppi_tpu_torch: builds the CUDA kernel, holds
-its three variants (MPPI, SMPPI, KMPPI) against their plain PyTorch versions,
-and drives the port's main paths.
+"""On-card smoke test of pytorch_mppi_tpu_torch: builds the CUDA kernels,
+holds each against its plain PyTorch version (the fused iteration's MPPI,
+SMPPI, KMPPI and batched variants; the legacy route's rollout and weighted
+update), and drives the port's main paths.
 
     python3 chip_smoke.py
 
@@ -17,20 +18,32 @@ the package is not beside it.  Phases, each fatal when it fails:
    K = 500) and more (D = 300 with a full operator, on the global-memory
    tiles; a 12-state, 4-action ``linear_quadratic``), in bits mode and in
    seed mode (Philox in both), then the statistics of the seed-mode noise;
+   the batched variant in bits, seed and operand mode (N = 16, K = 10,240;
+   the full width N = 1,024, K = 16,384; antithetic; D = 300 with a full
+   operator; the pendulum and toy2d); the legacy rollout and weighted update
+   at K = 10,000, T = 30 and at K not a multiple of the block;
 4. main paths: 1,000 closed-loop commands of ``MPPI``, ``SMPPI`` and
    ``KMPPI`` on ``linear_quadratic`` at K = 10,000, T = 30 (``bench.py``'s
    flagship problem), fused (``use_pallas=True``) with the launch count and
-   the goal checked, then the same on the plain torch path; the kernels
-   alone at the same shapes;
+   the goal checked, then the same on the plain torch path, and ``MPPI``'s
+   legacy route (``use_pallas="rollout"``) held to the plain step; then
+   ``MPPI_Batched`` on ``examples/scenario_batch.py``'s problem at N = 1,024,
+   K = 16,384, T = 30 and at N = 16, K = 10,240: operand mode, seed mode and
+   the plain path, the launch counts and the fused step held to the plain
+   step on one seed; the crossover sweep of the batched kernel (N = 64,
+   K = 256 to 10,240); the kernels alone at the main paths' shapes;
 5. swing-up: the pendulum with ``use_pallas=True``, 150 steps;
 6. closed loops through the kernels: the ``tests/test_mppi.py`` LQ problem
-   (KMPPI reaches the goal, SMPPI stays finite) and the toy2d comparison of
-   ``examples/smooth_mppi.py`` (MPPI, SMPPI, KMPPI);
+   (KMPPI reaches the goal, SMPPI stays finite), the toy2d comparison of
+   ``examples/smooth_mppi.py`` (MPPI, SMPPI, KMPPI), and
+   ``examples/scenario_batch.py``'s loops (N = 16 and N = 1,024: more than
+   90 % of the plants end within 0.5 of the goal);
 7. the ``kernels`` line, the card line, then the last line
    ``{"ok": true, "device": ...}``.
 """
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -45,6 +58,13 @@ NSP = T // 2  # KMPPI's default support points at the flagship
 COMMANDS = 1000
 WARMUP = 20
 LOOP_K = 500  # the closed loops of phase 6
+# MPPI_Batched: examples/scenario_batch.py's north-star width, and its
+# default closed loop
+BATCH_N, BATCH_K = 1024, 16_384
+BATCH_SMALL_N, BATCH_SMALL_K = 16, 10_240
+BATCH_COMMANDS, BATCH_PLAIN_COMMANDS, BATCH_WARMUP = 200, 50, 5
+SWEEP_N, SWEEP_KS, SWEEP_COMMANDS = 64, (256, 512, 1024, 2048, 4096, 10_240), 40
+SCENARIO_N, SCENARIO_K, SCENARIO_T, SCENARIO_STEPS = 16, 256, 10, 30
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_PER_S = 67e12  # float32 outside the tensor cores, H100 SXM data sheet
 PR1_MPPI_SEED_MS = 0.04754  # the MPPI pair, seed mode, flagship (PERF.md, PR 1)
@@ -71,30 +91,34 @@ def _per_step(model, nx, nu):
 
 
 def fused_work(config, model, seed_or_bits, x0T, op, emit_perturbed=False,
-               variant="mppi"):
+               variant="mppi", plants=1):
     """``(operations, bytes)`` one fused iteration needs on these inputs,
     for the least time the card could take (the ``bound_ms`` below).
 
     Operations are counted from ``csrc/fused_mppi.cu`` for the K live
-    samples: every arithmetic instruction on the data, integer or float,
-    once (a fused multiply-add twice, a library function such as ``log1pf``,
-    ``expf``, ``sinf`` or ``fmodf`` once), erfinv on its common branch
-    (|z| < 2.9).  Bytes count each input read once (a stride-0 ``x0T`` is
-    its nx values) and each output written once; the (nblocks, R + 2)
-    partials between the two kernels are not the function's.  R is the
-    rows drawn and updated: D = T·nu, or Dp = nsp·nu for KMPPI."""
+    samples (of each of the ``plants`` plants of the batched variant): every
+    arithmetic instruction on the data, integer or float, once (a fused
+    multiply-add twice, a library function such as ``log1pf``, ``expf``,
+    ``sinf`` or ``fmodf`` once), erfinv on its common branch (|z| < 2.9).
+    Bytes count each input read once (a stride-0 ``x0T`` is its nx values)
+    and each output written once; the (plants, nblocks, R + 2) partials
+    between the two kernels are not the function's.  R is the rows drawn
+    and updated: D = T·nu, or Dp = nsp·nu for KMPPI.  A float32
+    ``seed_or_bits`` is the batched variant's final noise operand: nothing
+    is drawn, and the operator is not read."""
     from pytorch_mppi_tpu_torch.ops.fused_solve import _BLOCK
 
     K, T, nx, nu = config.K, config.T, config.nx, config.nu
     D = T * nu
     R = config.num_support_pts * nu if variant == "kmppi" else D
     seed_mode = not isinstance(seed_or_bits, torch.Tensor)
-    full_op = op.ndim == 2
+    operand = not seed_mode and seed_or_bits.is_floating_point()
+    full_op = op.ndim == 2 and not operand
     absc = int(config.noise_abs_cost)
     # per drawn row: the normal (bits -> u: 6; Giles' erfinv: 22; sqrt(2)
-    # and the antithetic sign: 2), the transform
-    draw = 30 + (2 * R + 1 if full_op else 2)
-    if variant == "mppi":
+    # and the antithetic sign: 2), the transform; nothing for an operand
+    draw = 0 if operand else 30 + (2 * R + 1 if full_op else 2)
+    if variant in ("mppi", "batched"):
         # U + n, the clamp, the rectified noise and its action cost, the
         # weighted update (3)
         per_sample = D * (draw + 6 + absc + 3)
@@ -113,14 +137,64 @@ def fused_work(config, model, seed_or_bits, x0T, op, emit_perturbed=False,
     # per sample: the total, the logit, the block max, exp, the block sum
     per_sample += philox + T * _per_step(model, nx, nu) + 7
     nblocks = -(-K // _BLOCK)
-    operations = K * per_sample + nblocks * (5 + 4 * R)
-    x0_elems = nx if x0T.stride(1) == 0 else nx * K
+    operations = plants * (K * per_sample + nblocks * (5 + 4 * R))
+    x0_elems = nx if x0T.stride(1) == 0 else x0T.numel()
     vectors = {"mppi": 5 * D + 1, "smppi": 8 * D + 3,
-               "kmppi": 4 * D + 4 * R + D * R + 1}[variant]
-    in_elems = (x0_elems + vectors + op.numel() + model.consts.numel()
-                + (0 if seed_mode else seed_or_bits.numel()))
-    out_elems = K + R + 2 + (D * K if emit_perturbed else 0)
+               "kmppi": 4 * D + 4 * R + D * R + 1,
+               "batched": 2 * D * plants + 3 * D + 1}[variant]
+    in_elems = (x0_elems + vectors + (0 if operand else op.numel())
+                + model.consts.numel() + (0 if seed_mode else seed_or_bits.numel()))
+    out_elems = plants * (K + R + 2) + (D * K if emit_perturbed else 0)
     return operations, 4 * (in_elems + out_elems)
+
+
+def rollout_work(model, x0_K, u_scaled):
+    """``(operations, bytes)`` of the legacy rollout kernel: T model steps
+    and running costs a sample (the actions come scaled); its x0 (nx values
+    when shared), the (K, T·nu) actions and the constants read once, the
+    (K,) cost written once."""
+    K, T, nu = u_scaled.shape
+    nx = x0_K.shape[1]
+    x0_elems = nx if x0_K.stride(0) == 0 else x0_K.numel()
+    operations = K * T * (_per_step(model, nx, nu) - nu)
+    return operations, 4 * (x0_elems + u_scaled.numel() + model.consts.numel() + K)
+
+
+def weighted_update_work(K, D):
+    """``(operations, bytes)`` of the legacy weighted update: a sample's
+    logit (negate, divide), the block max, exp, the block sum and D fused
+    multiply-adds; each block's merge (max, exp, s and D fmas); the (K,)
+    cost, the (K, D) noise and lambda read once, (D,) and m, s written."""
+    from pytorch_mppi_tpu_torch.ops.fused_solve import _BLOCK
+
+    nblocks = -(-K // _BLOCK)
+    operations = K * (5 + 2 * D) + nblocks * (5 + 4 * D)
+    return operations, 4 * (K + K * D + 1 + D + 2)
+
+
+def bound(work):
+    """The least time (ms) and what bounds it, from ``(operations, bytes)``."""
+    ops, nbytes = work
+    return max((nbytes / H100_BYTES_PER_S * 1e3, "bytes"),
+               (ops / H100_F32_PER_S * 1e3, "operations"))
+
+
+def agree(cost_k, cost_p, upd_k, upd_p, lam, m_k=None, m_p=None, s_k=None, s_p=None):
+    """The kernel's results against the plain version's.  A cost error e
+    moves each softmax weight by a factor e^(+-e/lam), so m, s and the
+    update may move by that much; the update is compared on the scale of
+    its largest element (of each plant's column for the batched variant).
+    Returns ``(ok, cost error, update error, weight tolerance)``."""
+    c_err = float((cost_k - cost_p).abs().max())
+    ok = bool(((cost_k - cost_p).abs() <= 1e-5 + 2e-5 * cost_p.abs()).all())
+    w_tol = 2e-4 + 2 * c_err / lam
+    if m_k is not None:
+        ok = ok and float((m_k - m_p).abs().max()) <= c_err / lam + 1e-6
+        ok = ok and float((s_k / s_p - 1).abs().max()) <= w_tol
+    u_err = float((upd_k - upd_p).abs().max())
+    scale = upd_p.abs().amax(dim=0) if upd_p.ndim == 2 else upd_p.abs().max()
+    ok = ok and bool(((upd_k - upd_p).abs() <= w_tol * scale).all())
+    return ok, c_err, u_err, w_tol
 
 
 def events_ms(fn, iters):
@@ -198,8 +272,16 @@ def main():
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(root))  # the checkout's package, never an installed one
-    from pytorch_mppi_tpu_torch import KMPPI, MPPI, SMPPI, RBFKernel, linear_quadratic, run_mppi
-    from pytorch_mppi_tpu_torch.config import MPPIConfig
+    from pytorch_mppi_tpu_torch import (
+        KMPPI,
+        MPPI,
+        SMPPI,
+        MPPI_Batched,
+        RBFKernel,
+        linear_quadratic,
+        run_mppi,
+    )
+    from pytorch_mppi_tpu_torch.config import BatchedState, MPPIConfig, MPPIState
     from pytorch_mppi_tpu_torch.models import (
         PENDULUM_MODEL,
         PendulumEnv,
@@ -210,6 +292,7 @@ def main():
     )
     from pytorch_mppi_tpu_torch.ops import _build
     from pytorch_mppi_tpu_torch.ops import fused_solve as FS
+    from pytorch_mppi_tpu_torch.ops import legacy as LG
     from pytorch_mppi_tpu_torch.ops import solve as PS
     from pytorch_mppi_tpu_torch.ops.kernels import interpolation_operators
 
@@ -219,8 +302,12 @@ def main():
     dev = torch.device(DEVICE)
 
     def reset_launches():
-        for v in FS.VARIANTS:
-            FS.launches[v] = 0
+        for name in FS.launches:
+            FS.launches[name] = 0
+
+    def only(**counts):
+        """The launch counts of a run that launched only these kernels."""
+        return {name: counts.get(name, 0) for name in FS.launches}
 
     # -- 1. device -----------------------------------------------------------
     card = card_line()
@@ -234,9 +321,14 @@ def main():
         print(f"# build: {_build.library_path().name} already built")
     else:
         secs, log = built
-        print(f"# build {_build.SOURCE.name} ({_build.PARTS} parts in parallel): "
-              f"{secs:.1f} s\n" + "\n".join(
-                  "#   " + line for line in log.strip().splitlines()))
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+        spills = [int(b) for b in re.findall(r"(\d+) bytes spill stores", log)]
+        log_path = _build.library_path().with_suffix(".log")
+        log_path.write_text(log)
+        print(f"# build {_build.SOURCE.name} ({_build.PARTS} parts in parallel): {secs:.1f} s | "
+              f"{len(regs)} kernels, {min(regs, default=0)}-{max(regs, default=0)} registers | "
+              f"spill stores in {sum(b > 0 for b in spills)}, up to {max(spills, default=0)} "
+              f"bytes | nvcc -Xptxas -v output in {log_path}")
 
     # -- 3. kernel against its plain version ----------------------------------
     gen = torch.Generator(device=dev)
@@ -370,15 +462,9 @@ def main():
                       f"{mode}/{variant}/{name}: non-finite kernel output")
             dk, mk, sk, ck = out_k[:4]
             dp, mp, sp, cp = out_p[:4]
-            c_err = float((ck - cp).abs().max())
-            c_ok = bool(((ck - cp).abs() <= 1e-5 + 2e-5 * cp.abs()).all())
-            w_tol = 2e-4 + 2 * c_err / lam
+            ok, c_err, u_err, w_tol = agree(ck, cp, dk / sk, dp / sp, lam, mk, mp, sk, sp)
             m_err = abs(float(mk - mp))
             s_rel = abs(float(sk / sp - 1))
-            uk, up = dk / sk, dp / sp
-            u_err = float((uk - up).abs().max())
-            u_ok = bool(((uk - up).abs() <= w_tol * float(up.abs().max())).all())
-            ok = (c_ok and m_err <= c_err / lam + 1e-6 and s_rel <= w_tol and u_ok)
             line = (f"# {mode:4s} {variant:5s} {name:20s} K={K_:5d} D={T_ * nu:3d} "
                     f"tiles={solve.tiles:6s} cost err {c_err:.3e} | m err {m_err:.3e} "
                     f"| s rel {s_rel:.3e} (tol {w_tol:.3e}) | delta/s err {u_err:.3e}")
@@ -418,6 +504,113 @@ def main():
             check(abs(mean) <= 5 / n ** 0.5, "seed-mode noise mean is not 0")
         check(abs(var - 1) <= 5 * (2 / n) ** 0.5, "seed-mode noise variance is not 1")
 
+    # the batched variant: (name, model, N, K, T, nu, config flags, noise_rho,
+    # pairing block, modes, operand overrides).  The overrides give the
+    # diagonal op, mu and the bound of phase 4's and phase 6's own operands
+    # (examples/scenario_batch.py: sigma = 0.5 I, bounds +-1).
+    scenario_ops = dict(op=math.sqrt(0.5), mu=0.0, bound=1.0)
+    all_modes = ("bits", "seed", "operand")
+    batched_cases = [
+        ("lq", lq, BATCH_SMALL_N, BATCH_SMALL_K, T, NU, {}, 0.0, None, all_modes, {}),
+        ("lq_antithetic_5120", lq, BATCH_SMALL_N, BATCH_SMALL_K, T, NU,
+         {"antithetic": True}, 0.0, BATCH_SMALL_K // 2, all_modes, {}),
+        ("lq_abs_u_scale", lq, BATCH_SMALL_N, BATCH_SMALL_K, T, NU,
+         {"noise_abs_cost": True, "u_scale": 2.5}, 0.0, None, all_modes, {}),
+        ("main_path_full_width", lq, BATCH_N, BATCH_K, T, NU, {}, 0.0, None,
+         ("seed", "operand"), scenario_ops),
+        ("main_path_small", lq, BATCH_SMALL_N, BATCH_SMALL_K, T, NU, {}, 0.0, None,
+         ("seed", "operand"), scenario_ops),
+        ("D300_full_rho_global", lq3, 4, BATCH_SMALL_K, 100, 3, {}, 0.5, None, all_modes, {}),
+        ("pendulum", PENDULUM_MODEL, 8, 1000, 15, 1, {}, 0.0, None, all_modes, {}),
+        ("toy2d_K777", toy.kernel_model, 8, 777, 20, NU, {}, 0.0, None, all_modes, {}),
+        ("scenario_loop", lq, SCENARIO_N, SCENARIO_K, SCENARIO_T, NU, {}, 0.0, None,
+         all_modes, scenario_ops),
+    ]
+    n_batched = 0
+    for name, model, N_, K_, T_, nu, flags, rho, pb, modes, over in batched_cases:
+        D_ = T_ * nu
+        cfg = MPPIConfig(nx=model.nx, nu=nu, K=K_, T=T_, diag_sigma=not rho, noise_rho=rho,
+                         **flags)
+        op_, mu_, bnd = over.get("op", 0.8), over.get("mu", 0.05), over.get("bound", 1.5)
+        if rho:
+            op = operands("mppi", cfg, model, rho, op_, mu_, bnd, bnd, 1.0, 0.0, 1.0)[2]
+        else:
+            op = torch.full((D_,), op_, device=dev)
+        x0T = (torch.rand(model.nx, N_, generator=gen, device=dev) * 4 - 4)
+        U2T = (torch.randn(N_, D_, generator=gen, device=dev) * 0.3).T
+        aT = (torch.randn(N_, D_, generator=gen, device=dev) * 0.5).T
+        vec = lambda v: torch.full((D_,), v, device=dev)  # noqa: E731
+        rest = (x0T, U2T, op, vec(mu_), vec(-bnd), vec(bnd), aT, torch.tensor(1.0, device=dev))
+        for mode in modes:
+            solve = FS.make_transposed_batched_solve(cfg, N_, model, pair_block=pb,
+                                                     noise_operand=mode == "operand")
+            if mode == "bits":
+                lead = torch.randint(-2**31, 2**31 - 1, (D_, solve.bits_cols),
+                                     dtype=torch.int32, generator=gen, device=dev)
+            elif mode == "seed":
+                lead = tuple(int(v) for v in torch.randint(0, 2**32, (2,), generator=gen,
+                                                           device=dev))
+            else:
+                lead = (torch.randn(D_, solve.K_pad, generator=gen, device=dev) * op_ + mu_)
+            dk, msk, ck = solve(lead, *rest)
+            torch.cuda.synchronize()
+            dp, msp, cp = solve.plain(lead, *rest)
+            check(all(bool(torch.isfinite(v).all()) for v in (dk, msk, ck)),
+                  f"batched/{name}/{mode}: non-finite kernel output")
+            ok, c_err, u_err, w_tol = agree(ck, cp, dk / msk[1], dp / msp[1], 1.0, msk[0],
+                                            msp[0], msk[1], msp[1])
+            print(f"# {mode:7s} batched {name:22s} N={N_:4d} K={K_:5d} D={D_:3d} "
+                  f"tiles={solve.tiles:6s} cost err {c_err:.3e} | m err "
+                  f"{float((msk[0] - msp[0]).abs().max()):.3e} | s rel "
+                  f"{float((msk[1] / msp[1] - 1).abs().max()):.3e} (tol {w_tol:.3e}) | "
+                  f"delta/s err {u_err:.3e}" + ("" if ok else "  <-- FAIL"))
+            check(ok, f"batched kernel disagrees with its plain version: {mode}/{name}")
+            max_update_err["batched"] = max(max_update_err.get("batched", 0.0), u_err)
+            n_batched += 1
+            del dk, msk, ck, dp, msp, cp
+        torch.cuda.empty_cache()
+    print(f"# kernel vs plain: {n_batched} batched cases agreed")
+
+    # the legacy route's kernels: the rollout at K = 10,000 (shared and
+    # per-sample x0) and at K not a multiple of the block; the weighted update
+    legacy_cases = [
+        ("lq", lq, K, T, NU, True), ("lq_per_sample_x0", lq, K, T, NU, False),
+        ("lq_K777", lq, 777, T, NU, True), ("pendulum", PENDULUM_MODEL, 1000, 15, 1, True),
+        ("toy2d_K777", toy.kernel_model, 777, 20, NU, False),
+    ]
+    for name, model, K_, T_, nu, shared in legacy_cases:
+        rollout = LG.make_fused_rollout(MPPIConfig(nx=model.nx, nu=nu, K=K_, T=T_), model)
+        x0_K = (torch.randn(model.nx, device=dev)[None].expand(K_, model.nx) if shared
+                else torch.randn(K_, model.nx, generator=gen, device=dev))
+        u = torch.randn(K_, T_, nu, generator=gen, device=dev)
+        ck = rollout(x0_K, u)
+        torch.cuda.synchronize()
+        cp = rollout.plain(x0_K, u)
+        c_err = float((ck - cp).abs().max())
+        ok = bool(((ck - cp).abs() <= 1e-5 + 2e-5 * cp.abs()).all())
+        print(f"# rollout {name:18s} K={K_:5d} T={T_:3d}: cost err {c_err:.3e}"
+              + ("" if ok else "  <-- FAIL"))
+        check(ok, f"rollout kernel disagrees with its plain version: {name}")
+        max_update_err["rollout"] = max(max_update_err.get("rollout", 0.0), c_err)
+    lam_t = torch.tensor(0.8, device=dev)
+    for K_, D_ in ((K, T * NU), (777, T * NU), (1000, 15), (K, 300)):
+        cost = torch.rand(K_, generator=gen, device=dev) * 60 + 5
+        noise = torch.randn(K_, D_, generator=gen, device=dev)
+        pk, mk, sk = LG.fused_weighted_update(cost, noise, lam_t)
+        torch.cuda.synchronize()
+        pp, mp, sp = LG.fused_weighted_update.plain(cost, noise, lam_t)
+        u_err = float((pk / sk - pp / sp).abs().max())
+        ok = (abs(float(mk - mp)) <= 1e-6 * (1 + abs(float(mp)))
+              and abs(float(sk / sp - 1)) <= 1e-5
+              and bool(((pk / sk - pp / sp).abs() <= 1e-4 * float((pp / sp).abs().max())).all()))
+        print(f"# weighted_update K={K_:5d} D={D_:3d}: m err {abs(float(mk - mp)):.3e} | s rel "
+              f"{abs(float(sk / sp - 1)):.3e} | pert/s err {u_err:.3e}"
+              + ("" if ok else "  <-- FAIL"))
+        check(ok, f"weighted update kernel disagrees with its plain version: K={K_} D={D_}")
+        max_update_err["weighted_update"] = max(max_update_err.get("weighted_update", 0.0),
+                                                u_err)
+    print(f"# kernel vs plain: {len(legacy_cases)} rollout and 4 weighted-update cases agreed")
+
     # -- 4. the main paths at full width ---------------------------------------
     def lq_step(x, action):
         return lq.dynamics(x[None], action[None])[0]
@@ -435,8 +628,8 @@ def main():
         ctrl = cls(lq.dynamics, lq.running_cost, nx=NX,
                    noise_sigma=torch.eye(NU, device=dev), num_samples=K, horizon=T,
                    lambda_=1.0, seed=42, use_pallas=use_pallas, device=dev, **extra)
-        check(ctrl._fns.fused == use_pallas,
-              f"{variant} use_pallas={use_pallas} took the wrong route")
+        check(ctrl._fns.fused == bool(use_pallas),
+              f"{variant} use_pallas={use_pallas!r} took the wrong route")
         x = torch.tensor([-3.0, -2.0], device=dev)
         for _ in range(WARMUP):
             x = lq_step(x, ctrl.command(x))
@@ -464,26 +657,152 @@ def main():
                     final_dist=final_d, launches=launched, ctrl=ctrl, x=x)
 
     main = {}
-    for variant in FS.VARIANTS:
-        for path, use_pallas in (("fused", True), ("plain", False)):
-            r = closed_loop(variant, use_pallas)
-            main[variant, path] = r
-            print(f"# main path [{variant} {path}] K={K} T={T}: command median "
-                  f"{r['median_ms']:.4f} ms p90 {r['p90_ms']:.4f} ms (CUDA events) | "
-                  f"{r['solves_per_s']:.1f} solves/s (host clock) | min dist "
-                  f"{r['min_dist']:.3f} final dist {r['final_dist']:.3f} | launches "
-                  f"{r['launches']}")
-            # bench.py:184's sanity check: reached the goal region and did not diverge
-            check(r["min_dist"] < 1.0 and r["final_dist"] < 10.0,
-                  f"{variant} {path} closed loop failed bench.py's sanity check")
-            expect = {v: 0 for v in FS.VARIANTS}
-            if use_pallas:
-                expect[variant] = 2 * COMMANDS
-            check(r["launches"] == expect,
-                  f"{variant} {path} path launched {r['launches']} for {COMMANDS} "
-                  f"commands, expected {expect}")
+    paths = [(v, p, up) for v in FS.VARIANTS for p, up in (("fused", True), ("plain", False))]
+    paths.append(("mppi", "rollout", "rollout"))  # the legacy kernel pair
+    for variant, path, use_pallas in paths:
+        r = closed_loop(variant, use_pallas)
+        main[variant, path] = r
+        print(f"# main path [{variant} {path}] K={K} T={T}: command median "
+              f"{r['median_ms']:.4f} ms p90 {r['p90_ms']:.4f} ms (CUDA events) | "
+              f"{r['solves_per_s']:.1f} solves/s (host clock) | min dist "
+              f"{r['min_dist']:.3f} final dist {r['final_dist']:.3f} | launches "
+              f"{r['launches']}")
+        # bench.py:184's sanity check: reached the goal region and did not diverge
+        check(r["min_dist"] < 1.0 and r["final_dist"] < 10.0,
+              f"{variant} {path} closed loop failed bench.py's sanity check")
+        if path == "rollout":
+            expect = only(rollout=COMMANDS, weighted_update=2 * COMMANDS)
+        else:
+            expect = only(**{variant: 2 * COMMANDS}) if use_pallas else only()
+        check(r["launches"] == expect,
+              f"{variant} {path} path launched {r['launches']} for {COMMANDS} "
+              f"commands, expected {expect}")
     for (variant, path), r in main.items():
         breakdown(f"{variant} {path}", r["ctrl"], lq_step, r["x"])
+
+    # the legacy route draws the plain path's noise: on one seed its step
+    # agrees with the plain step up to the costs' summation order
+    legacy_fns, plain_fns = main["mppi", "rollout"]["ctrl"]._fns, main["mppi", "plain"]["ctrl"]._fns
+    params = main["mppi", "plain"]["ctrl"]._params
+    for i in range(3):
+        st = MPPIState(U=torch.randn(T, NU, generator=gen, device=dev) * 0.3, seed=1000 + i)
+        x0 = torch.tensor([-3.0, -2.0], device=dev) + i
+        s_l, _, art_l = legacy_fns.step(params, st, x0)
+        s_p, _, art_p = plain_fns.step(params, st, x0)
+        U0 = PS._shift_U(st.U, params.u_init)
+        ok, c_err, u_err, w_tol = agree(art_l.cost_total, art_p.cost_total,
+                                        (s_l.U - U0).reshape(-1), (s_p.U - U0).reshape(-1), 1.0)
+        print(f"# legacy step vs plain step, seed {1000 + i}: cost err {c_err:.3e} | "
+              f"update err {u_err:.3e} (tol {w_tol:.3e} of its largest element)"
+              + ("" if ok else "  <-- FAIL"))
+        check(ok, "the legacy route's step disagrees with the plain step")
+
+    # -- 4b. MPPI_Batched: examples/scenario_batch.py's problem -----------------
+    sigma_b = torch.eye(NU, device=dev) * 0.5
+    ub = torch.tensor([1.0, 1.0])
+
+    def batched_ctrl(N_, K_, T_, use_pallas):
+        return MPPI_Batched(lq.dynamics, lq.running_cost, nx=NX, noise_sigma=sigma_b,
+                            num_envs=N_, num_samples=K_, horizon=T_, lambda_=1.0,
+                            u_min=-ub, u_max=ub, seed=0, use_pallas=use_pallas, device=dev)
+
+    def batched_starts(N_):
+        g = torch.Generator(device=dev)
+        g.manual_seed(42)
+        return torch.rand(N_, NX, generator=g, device=dev) * 4 - 4  # uniform in [-4, 0]
+
+    def batched_run(N_, K_, use_pallas, commands):
+        ctrl = batched_ctrl(N_, K_, T, use_pallas)
+        check(ctrl._fns.fused == bool(use_pallas),
+              f"MPPI_Batched use_pallas={use_pallas!r} took the wrong route")
+        x = batched_starts(N_)
+        for _ in range(BATCH_WARMUP):
+            x = lq.dynamics(x, ctrl.command(x))
+        torch.cuda.synchronize()
+        reset_launches()  # count the main path's launches only
+        torch.cuda.reset_peak_memory_stats()
+        starts = [torch.cuda.Event(enable_timing=True) for _ in range(commands)]
+        ends = [torch.cuda.Event(enable_timing=True) for _ in range(commands)]
+        wall = time.perf_counter()
+        for i in range(commands):
+            starts[i].record()
+            action = ctrl.command(x)
+            ends[i].record()
+            x = lq.dynamics(x, action)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - wall
+        lat = sorted(s.elapsed_time(e) for s, e in zip(starts, ends))
+        check(action.shape == (N_, NU) and bool(torch.isfinite(ctrl.U).all()),
+              f"MPPI_Batched N={N_} gave a non-finite or misshapen action")
+        return dict(median_ms=statistics.median(lat), p90_ms=lat[int(0.9 * len(lat))],
+                    plant_solves_per_s=N_ * commands / wall, launches=dict(FS.launches),
+                    peak_gib=torch.cuda.max_memory_allocated() / 2**30, ctrl=ctrl, x=x)
+
+    batched = {}
+    for N_, K_ in ((BATCH_N, BATCH_K), (BATCH_SMALL_N, BATCH_SMALL_K)):
+        for path, use_pallas, n_cmd in (("operand", True, BATCH_COMMANDS),
+                                        ("seed", "kernel_rng", BATCH_COMMANDS),
+                                        ("plain", False, BATCH_PLAIN_COMMANDS)):
+            r = batched_run(N_, K_, use_pallas, n_cmd)
+            batched[N_, path] = r
+            print(f"# main path [batched {path}] N={N_} K={K_} T={T}: command median "
+                  f"{r['median_ms']:.4f} ms p90 {r['p90_ms']:.4f} ms (CUDA events, "
+                  f"{n_cmd} commands) | {r['plant_solves_per_s']:.1f} plant-solves/s (host "
+                  f"clock) | peak memory {r['peak_gib']:.2f} GiB | launches {r['launches']}")
+            expect = only(batched=2 * n_cmd) if use_pallas else only()
+            check(r["launches"] == expect,
+                  f"batched {path} N={N_} launched {r['launches']}, expected {expect}")
+            breakdown(f"batched {path} N={N_}", r["ctrl"], lq.dynamics, r["x"], n=20)
+        # on one seed the operand step draws the plain step's noise
+        ref = batched[N_, "plain"]["ctrl"]
+        st = BatchedState(U=ref.U.clone(), seed=2024)
+        x = batched_starts(N_)
+        s_f, _, art_f = batched[N_, "operand"]["ctrl"]._fns.step(ref._params, st, x)
+        s_p, _, art_p = ref._fns.step(ref._params, st, x)
+        U0 = torch.roll(st.U, -1, dims=1)
+        U0[:, -1] = ref._params.u_init
+        ok, c_err, u_err, w_tol = agree(art_f.cost_total, art_p.cost_total,
+                                        (s_f.U - U0).reshape(N_, -1).T,
+                                        (s_p.U - U0).reshape(N_, -1).T, 1.0)
+        print(f"# batched operand step vs plain step N={N_} K={K_}, one seed: cost err "
+              f"{c_err:.3e} | update err {u_err:.3e} (tol {w_tol:.3e} of each plant's "
+              f"largest element)" + ("" if ok else "  <-- FAIL"))
+        check(ok, f"the batched operand step disagrees with the plain step at N={N_}")
+        del s_f, s_p, art_f, art_p
+        torch.cuda.empty_cache()
+
+    # the crossover: plain, operand and seed mode per command at N = 64, in
+    # turns (plain, operand, seed, then seed, operand, plain) in this one call
+    sweep = {}
+    x64 = batched_starts(SWEEP_N)
+    for K_ in SWEEP_KS:
+        ctrls = {p: batched_ctrl(SWEEP_N, K_, T, up)
+                 for p, up in (("plain", False), ("operand", "force"), ("seed", "kernel_rng"))}
+        lat = {p: [] for p in ctrls}
+        for order in (("plain", "operand", "seed"), ("seed", "operand", "plain")):
+            for p in order:
+                for _ in range(3):
+                    ctrls[p].command(x64)
+                torch.cuda.synchronize()
+                ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                      for _ in range(SWEEP_COMMANDS)]
+                for a, b in ev:
+                    a.record()
+                    ctrls[p].command(x64)
+                    b.record()
+                torch.cuda.synchronize()
+                lat[p] += [a.elapsed_time(b) for a, b in ev]
+        sweep[K_] = {p: statistics.median(v) for p, v in lat.items()}
+        print(f"# crossover sweep N={SWEEP_N} T={T} K={K_:5d}: median ms per command plain "
+              f"{sweep[K_]['plain']:.4f} | operand {sweep[K_]['operand']:.4f} | seed "
+              f"{sweep[K_]['seed']:.4f} (CUDA events, {2 * SWEEP_COMMANDS} commands each)")
+    wins = [k for k in SWEEP_KS
+            if all(sweep[k2]["operand"] < sweep[k2]["plain"] for k2 in SWEEP_KS if k2 >= k)]
+    crossover = wins[0] if wins else None
+    print(f"# crossover: the operand-mode kernel is faster than the plain path from K = "
+          f"{crossover} on (of {list(SWEEP_KS)}); ops/solve._BATCHED_KERNEL_MIN_K = "
+          f"{PS._BATCHED_KERNEL_MIN_K}" + ("" if crossover == PS._BATCHED_KERNEL_MIN_K
+                                           else "  <-- differs (not a failure)"))
 
     # the kernels alone at the main paths' shapes and operands; the global
     # tiles at D = 300 (T = 100, nu = 3, full op) beside them
@@ -530,6 +849,65 @@ def main():
               f"{PR1_MPPI_SEED_MS} ms: ratio {mppi_seed / PR1_MPPI_SEED_MS:.4f} "
               f"(limit 1.1)")
 
+    # the batched kernel at the main paths' shapes and operands
+    for N_, K_ in ((BATCH_N, BATCH_K), (BATCH_SMALL_N, BATCH_SMALL_K)):
+        ctrl = batched[N_, "operand"]["ctrl"]
+        D_ = T * NU
+        x0T = batched[N_, "operand"]["x"].T
+        aT = torch.einsum("ntu,vu->ntv", ctrl.U,
+                          torch.linalg.inv(ctrl.noise_sigma)).reshape(N_, D_).T
+        op = torch.full((D_,), math.sqrt(0.5), device=dev)
+        rest = (x0T, ctrl.U.reshape(N_, D_).T, op, torch.zeros(D_, device=dev),
+                torch.full((D_,), -1.0, device=dev), torch.full((D_,), 1.0, device=dev), aT,
+                torch.tensor(1.0, device=dev))
+        for mode in ("operand", "seed"):
+            solve = FS.make_transposed_batched_solve(ctrl.config, N_, lq,
+                                                     noise_operand=mode == "operand")
+            lead = (torch.randn(D_, solve.K_pad, generator=gen, device=dev) * math.sqrt(0.5)
+                    if mode == "operand" else (1234, 5678))
+            dev_ms = device_ms(lambda: solve(lead, *rest), 20,
+                               ("mppi_fused_partial", "flash_merge"))
+            call_ms = events_ms(lambda: solve(lead, *rest), 50)
+            plain_ms = events_ms(lambda: solve.plain(lead, *rest), 3)
+            bound_ms, bound_by = bound(fused_work(ctrl.config, lq, lead, x0T, op,
+                                                  variant="batched", plants=N_))
+            timed["batched", N_, mode] = (dev_ms, call_ms, plain_ms, bound_ms, bound_by)
+            print(f"# kernel alone [batched {mode}] N={N_} K={K_} T={T} tiles={solve.tiles}: "
+                  f"device {dev_ms} ms (profiler) | per call {call_ms:.5f} ms (CUDA events, "
+                  f"host wrapper included) | plain version {plain_ms:.5f} ms | bound "
+                  f"{bound_ms:.3e} ms by {bound_by}")
+        torch.cuda.empty_cache()
+    op_ms, seed_ms = timed["batched", BATCH_N, "operand"][0], timed["batched", BATCH_N, "seed"][0]
+    if op_ms is not None and seed_ms is not None:
+        print(f"# batched kernel at N={BATCH_N} K={BATCH_K}: operand mode {op_ms:.5f} ms, seed "
+              f"mode {seed_ms:.5f} ms: seed / operand {seed_ms / op_ms:.3f}")
+
+    # the legacy route's kernels at the flagship shape
+    x0_K = torch.tensor([-3.0, -2.0], device=dev)[None].expand(K, NX)
+    u = torch.randn(K, T, NU, generator=gen, device=dev)
+    rollout = LG.make_fused_rollout(MPPIConfig(nx=NX, nu=NU, K=K, T=T), lq)
+    dev_ms = device_ms(lambda: rollout(x0_K, u), 200, ("fused_rollout",))
+    call_ms = events_ms(lambda: rollout(x0_K, u), 500)
+    plain_ms = events_ms(lambda: rollout.plain(x0_K, u), 50)
+    bound_ms, bound_by = bound(rollout_work(lq, x0_K, u))
+    timed["rollout"] = (dev_ms, call_ms, plain_ms, bound_ms, bound_by, None)
+    cost = rollout(x0_K, u * 0.3) / 30  # costs of the size the main path weighs
+    noise = torch.randn(K, T * NU, generator=gen, device=dev)
+    lam1 = torch.tensor(1.0, device=dev)
+    dev_wu = device_ms(lambda: LG.fused_weighted_update(cost, noise, lam1), 200,
+                       ("weighted_partial", "flash_merge"))
+    call_wu = events_ms(lambda: LG.fused_weighted_update(cost, noise, lam1), 500)
+    plain_wu = events_ms(lambda: LG.fused_weighted_update.plain(cost, noise, lam1), 200)
+    # the yardstick: one PyTorch call for the same function (the update pert / s)
+    lib_wu = events_ms(lambda: torch.softmax(-cost / lam1, 0) @ noise, 500)
+    bound_wu, by_wu = bound(weighted_update_work(K, T * NU))
+    timed["weighted_update"] = (dev_wu, call_wu, plain_wu, bound_wu, by_wu, lib_wu)
+    for name in ("rollout", "weighted_update"):
+        d_ms, c_ms, p_ms, b_ms, b_by, l_ms = timed[name]
+        print(f"# kernel alone [{name}] K={K} T={T}: device {d_ms} ms (profiler) | per call "
+              f"{c_ms:.5f} ms (CUDA events, host wrapper included) | plain version {p_ms:.5f} "
+              f"ms | library {l_ms} ms | bound {b_ms:.3e} ms by {b_by}")
+
     # -- 5. swing-up -------------------------------------------------------------
     reset_launches()
     ctrl = MPPI(pendulum_dynamics, pendulum_running_cost, nx=2,
@@ -575,8 +953,7 @@ def main():
           f"{float(torch.linalg.norm(x - goal)):.4f} | launches {FS.launches}")
     check(sum(dists) / 3 < 2.0, f"KMPPI LQ loop missed the goal: {dists}")
     check(finite, "SMPPI LQ loop went non-finite or gave a negative cost")
-    check(FS.launches == {"mppi": 0, "smppi": 40, "kmppi": 120},
-          f"LQ loops launched {FS.launches}")
+    check(FS.launches == only(smppi=40, kmppi=120), f"LQ loops launched {FS.launches}")
 
     # examples/smooth_mppi.py's comparison, without the terminal cost
     toy_common = dict(nx=2, noise_sigma=torch.eye(2, device=dev) * 0.2,
@@ -611,6 +988,39 @@ def main():
         check(in_bounds, f"toy2d {name}: actions non-finite or out of bounds")
         check(FS.launches[name] == 80, f"toy2d {name} launched {FS.launches}")
 
+    # examples/scenario_batch.py's default loop through the kernel and on the
+    # plain path, and the same loop at the north-star width through the
+    # kernel.  A plant that reached the goal keeps moving about it (the
+    # sampled update is noisy), so the share within 0.5 at the last step is
+    # a draw, for the JAX package's own loop too, while every plant comes
+    # within 0.5 during the loop (tests/test_torch_batched.py::
+    # test_scenario_loop_settles_like_jax).  So a plant converged when it
+    # came within 0.5 of the goal, and the plants' mean distance over the
+    # last 10 steps must stay below 1.0.
+    goal_b = torch.tensor([2.0, 2.0], device=dev)
+    for N_, K_, T_, use_pallas in ((SCENARIO_N, SCENARIO_K, SCENARIO_T, "force"),
+                                   (SCENARIO_N, SCENARIO_K, SCENARIO_T, False),
+                                   (BATCH_N, BATCH_K, T, True)):
+        reset_launches()
+        c = batched_ctrl(N_, K_, T_, use_pallas)
+        x = batched_starts(N_)
+        dists = []
+        for _ in range(SCENARIO_STEPS):
+            x = lq.dynamics(x, c.command(x))
+            dists.append(torch.linalg.norm(goal_b - x, dim=-1))
+        dists = torch.stack(dists)
+        converged = int((dists.amin(dim=0) < 0.5).sum())
+        settled = float(dists[-10:].mean())
+        print(f"# scenario loop N={N_} K={K_} T={T_} use_pallas={use_pallas!r}, "
+              f"{SCENARIO_STEPS} steps: {converged}/{N_} plants came within 0.5 of the goal | "
+              f"mean distance over the last 10 steps {settled:.4f} | at the last step "
+              f"{int((dists[-1] < 0.5).sum())}/{N_} within 0.5, mean {float(dists[-1].mean()):.4f}"
+              f" max {float(dists[-1].max()):.4f} | launches {FS.launches['batched']}")
+        check(converged > 0.9 * N_ and settled < 1.0, f"scenario loop N={N_} "
+              f"{use_pallas!r}: {converged}/{N_} plants converged, settled at {settled}")
+        expect = only(batched=2 * SCENARIO_STEPS) if use_pallas else only()
+        check(FS.launches == expect, f"scenario loop launched {FS.launches}, expected {expect}")
+
     # -- 7. the kernels line and the last line ---------------------------------
     sources = {"mppi": ("fused_mppi MPPI (mppi_fused_partial<..., kMPPI> + flash_merge)",
                         "pytorch_mppi_tpu/ops/pallas_rollout.py:512"),
@@ -641,6 +1051,44 @@ def main():
             "ms_bits_mode": b_ms[0] if b_ms[0] is not None else b_ms[1],
             "ms_D300_global_tiles": g_ms[0] if g_ms[0] is not None else g_ms[1],
             "bound_ms_D300_global_tiles": g_ms[3],
+        })
+    d_ms, c_ms, p_ms, b_ms, b_by = timed["batched", BATCH_N, "operand"]
+    s_ms = timed["batched", BATCH_N, "seed"]
+    small = timed["batched", BATCH_SMALL_N, "operand"]
+    kernels.append({
+        "name": "fused_mppi batched (mppi_fused_partial<..., kBatched> + flash_merge)",
+        "route": "cuda",
+        "source": "pytorch_mppi_tpu_torch/csrc/fused_mppi.cu",
+        "replaces": "pytorch_mppi_tpu/ops/pallas_rollout.py:1118",
+        "launches": batched[BATCH_N, "operand"]["launches"]["batched"],
+        "max_abs_err": max_update_err["batched"],
+        "ms": d_ms if d_ms is not None else c_ms,
+        "ms_source": "profiler" if d_ms is not None else "cuda_events_with_host",
+        "plain_ms": p_ms,
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": None,
+        "ms_seed_mode": s_ms[0] if s_ms[0] is not None else s_ms[1],
+        "bound_ms_seed_mode": s_ms[3],
+        f"ms_N{BATCH_SMALL_N}_K{BATCH_SMALL_K}": small[0] if small[0] is not None else small[1],
+    })
+    for name, line, main_key in (("rollout", 75, ("mppi", "rollout")),
+                                 ("weighted_update", 172, ("mppi", "rollout"))):
+        d_ms, c_ms, p_ms, b_ms, b_by, l_ms = timed[name]
+        kernels.append({
+            "name": {"rollout": "fused_rollout",
+                     "weighted_update": "weighted_partial + flash_merge"}[name],
+            "route": "cuda",
+            "source": "pytorch_mppi_tpu_torch/csrc/fused_mppi.cu",
+            "replaces": f"pytorch_mppi_tpu/ops/pallas_rollout.py:{line}",
+            "launches": main[main_key]["launches"][name],
+            "max_abs_err": max_update_err[name],
+            "ms": d_ms if d_ms is not None else c_ms,
+            "ms_source": "profiler" if d_ms is not None else "cuda_events_with_host",
+            "plain_ms": p_ms,
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": l_ms,
         })
     print(json.dumps({"kernels": kernels}))
     print(card)

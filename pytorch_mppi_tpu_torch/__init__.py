@@ -1,15 +1,18 @@
 """pytorch_mppi_tpu_torch — the MPPI engine of ``pytorch_mppi_tpu`` in PyTorch and CUDA.
 
 A port of the JAX package to PyTorch on an NVIDIA H100.  It runs
-``MPPI.command()``, ``SMPPI.command()`` and ``KMPPI.command()`` for one plant:
-the plain torch path, and with ``use_pallas=True`` the fused iteration of each
-as a hand-written CUDA kernel (``csrc/fused_mppi.cu``).  Entry points run on the card unless the caller
-passes ``device="cpu"``.  The package imports neither JAX nor
+``MPPI.command()``, ``SMPPI.command()`` and ``KMPPI.command()`` for one plant
+and ``MPPI_Batched.command()`` for N plants: the plain torch path, and with
+``use_pallas`` the fused iteration of each as a hand-written CUDA kernel
+(``csrc/fused_mppi.cu``); ``MPPI(use_pallas="rollout")`` runs the legacy
+rollout and weighted-update kernels.  Entry points run on the card unless
+the caller passes ``device="cpu"``.  The package imports neither JAX nor
 ``pytorch_mppi_tpu``.
 """
 
 from .config import (
     Artifacts,
+    BatchedState,
     KMPPIParams,
     KMPPIState,
     MPPIConfig,
@@ -18,7 +21,7 @@ from .config import (
     SMPPIParams,
     SMPPIState,
 )
-from .controller import KMPPI, MPPI, SMPPI
+from .controller import KMPPI, MPPI, SMPPI, MPPI_Batched
 from .ops.kernels import BSplineKernel, RBFKernel, TimeKernel
 from .ops.kernel_models import KernelModel, linear_quadratic
 from .runner import run_mppi
@@ -30,6 +33,7 @@ __all__ = [
     "MPPI",
     "SMPPI",
     "KMPPI",
+    "MPPI_Batched",
     "TimeKernel",
     "RBFKernel",
     "BSplineKernel",
@@ -46,5 +50,6 @@ __all__ = [
     "SMPPIState",
     "KMPPIParams",
     "KMPPIState",
+    "BatchedState",
     "Artifacts",
 ]

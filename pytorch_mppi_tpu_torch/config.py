@@ -123,14 +123,24 @@ class KMPPIState(NamedTuple):
     counter: int = 0
 
 
+class BatchedState(NamedTuple):
+    """MPPI_Batched's state (``pytorch_mppi_tpu/ops/solve.py:1932-1934``): the
+    N plants' nominal sequences, with the stream position of
+    :class:`MPPIState`; the plants share each solve's noise."""
+
+    U: torch.Tensor  # (N, T, nu)
+    seed: int
+    counter: int = 0
+
+
 class Artifacts(NamedTuple):
     """Per-solve introspection artifacts (reference ``mppi.py:179-184``)."""
 
-    cost_total: torch.Tensor  # (K,)
+    cost_total: torch.Tensor  # (K,); (N, K) for MPPI_Batched
     cost_total_non_zero: torch.Tensor  # (K,)
     omega: torch.Tensor  # (K,)
-    noise: Optional[torch.Tensor]  # (K, T, nu) rectified noise
-    perturbed_action: Optional[torch.Tensor]  # (K, T, nu)
+    noise: Optional[torch.Tensor]  # (K, T, nu) rectified noise; (N, K, T, nu)
+    perturbed_action: Optional[torch.Tensor]  # (K, T, nu); (N, K, T, nu)
     states: Optional[torch.Tensor] = None  # no terminal cost in this port yet
     actions: Optional[torch.Tensor] = None
 

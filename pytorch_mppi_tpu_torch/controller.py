@@ -1,8 +1,8 @@
 """The stateful MPPI controller over the functional solve.
 
-The counterpart of ``pytorch_mppi_tpu/controller.py``'s ``MPPI``, ``SMPPI``
-and ``KMPPI``, with the same constructor surface so that code moves across by
-changing its import.
+The counterpart of ``pytorch_mppi_tpu/controller.py``'s ``MPPI``, ``SMPPI``,
+``KMPPI`` and ``MPPI_Batched``, with the same constructor surface so that code
+moves across by changing its import.
 Where JAX places arrays on a device of its choosing, the port takes an
 explicit ``device``: ``None`` means ``"cuda"``, and with no CUDA device the
 constructor raises and asks for ``device="cpu"``.  Random numbers come from
@@ -12,7 +12,9 @@ the controller's own ``torch.Generator``, seeded by ``seed``.
 fused CUDA kernel (``csrc/fused_mppi.cu``) when the dynamics and running cost
 carry a kernel model (``ops/kernel_models.py``) and the configuration is
 eligible; otherwise the plain torch path runs, after a warning.  On a CPU
-device it runs the kernel's plain version.
+device it runs the kernel's plain version.  ``MPPI(use_pallas="rollout")``
+selects the legacy kernel pair (``ops/legacy.py``); ``MPPI_Batched`` takes
+``True``, ``"force"`` and ``"kernel_rng"`` (``ops/solve.make_batched_step``).
 
 Flags of the JAX controller that the port does not run yet raise
 ``NotImplementedError`` naming the ``ROADMAP.md`` item that will port them.
@@ -27,6 +29,7 @@ import numpy as np
 import torch
 
 from .config import (
+    BatchedState,
     KMPPIParams,
     KMPPIState,
     MPPIConfig,
@@ -40,7 +43,7 @@ from .ops.kernels import RBFKernel, TimeKernel, interpolation_operators
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["MPPI", "SMPPI", "KMPPI"]
+__all__ = ["MPPI", "SMPPI", "KMPPI", "MPPI_Batched"]
 
 # flag -> (value that means "off", ROADMAP.md item that ports it)
 _UNPORTED = {
@@ -60,7 +63,11 @@ _UNPORTED = {
     "num_elites": (0, "Queue 1 item 5 (elite reuse)"),
     "dynamics_params": (None, "Queue 1 item 9 (learned models)"),
     "mesh": (None, "Queue 1 item 12 (sharding)"),
+    "env_axis": ("data", "Queue 1 item 12 (sharding)"),
+    "sample_axis": (None, "Queue 1 item 12 (sharding)"),
 }
+
+MPPI_USE_PALLAS = (False, True, "rollout")
 
 
 def _reject_unported(**flags):
@@ -71,6 +78,16 @@ def _reject_unported(**flags):
                 f"{name}={value!r} is not ported to pytorch_mppi_tpu_torch yet; "
                 f"see ROADMAP.md {item}"
             )
+
+
+def _use_pallas(value, allowed):
+    """``use_pallas`` as given: a bool, or one of the mode strings in
+    ``allowed``."""
+    if isinstance(value, str):
+        if value not in allowed:
+            raise ValueError(f"use_pallas must be one of {allowed}, got {value!r}")
+        return value
+    return bool(value)
 
 
 def _resolve_device(device) -> torch.device:
@@ -141,6 +158,28 @@ def _vector(value, nu, dtype, device):
         torch.as_tensor(value, dtype=dtype).reshape(-1), (nu,)).clone().to(device)
 
 
+def _make_params(sigma, lambda_, noise_mu, u_min, u_max, u_init, device):
+    """The tunable parameters on ``device``, with the reference's defaults
+    (zero mean and u_init) and bound completion; also whether the actions
+    are bounded."""
+    nu, dtype = sigma.shape[0], sigma.dtype
+    lo, hi, bounded = _complete_bounds(u_min, u_max, nu, dtype, device)
+    params = MPPIParams(
+        noise_mu=_vector(0.0 if noise_mu is None else noise_mu, nu, dtype, device),
+        noise_sigma=sigma.to(device),
+        lambda_=torch.tensor(float(lambda_), dtype=dtype, device=device),
+        u_min=lo,
+        u_max=hi,
+        u_init=_vector(0.0 if u_init is None else u_init, nu, dtype, device),
+    )
+    return params, bounded
+
+
+def _draw_seed(generator: torch.Generator) -> int:
+    """A fresh 63-bit stream seed from a controller's generator."""
+    return int(torch.randint(0, 2**63 - 1, (), generator=generator))
+
+
 class MPPI:
     """Model Predictive Path Integral control (Williams et al. 2017, Alg. 2).
 
@@ -150,7 +189,9 @@ class MPPI:
         the dynamics step (mppi.py:314-318).
     :param device: ``None`` (the card), ``"cuda"``, ``"cuda:N"`` or ``"cpu"``.
     :param seed: seeds the controller's ``torch.Generator``.
-    :param use_pallas: run each command through the fused CUDA kernel.
+    :param use_pallas: ``True`` runs each command through the fused CUDA
+        kernel; ``"rollout"`` keeps the plain path's noise and runs the
+        rollout and the weighted update through the legacy kernels.
     """
 
     def __init__(
@@ -192,7 +233,7 @@ class MPPI:
         dynamics_params=None,
         seed: Optional[int] = 0,
         mesh=None,
-        use_pallas: bool = False,
+        use_pallas=False,
         fused_artifacts: bool = False,
     ):
         _reject_unported(
@@ -210,7 +251,7 @@ class MPPI:
             num_elites=num_elites, dynamics_params=dynamics_params, mesh=mesh,
         )
         self.d = _resolve_device(device)
-        self.use_pallas = bool(use_pallas)
+        self.use_pallas = _use_pallas(use_pallas, MPPI_USE_PALLAS)
         self.fused_artifacts = bool(fused_artifacts)
         sigma = _coerce_sigma(noise_sigma)
         self.dtype = sigma.dtype
@@ -219,12 +260,8 @@ class MPPI:
         self.nx = int(nx)
         self.nu = int(sigma.shape[0])
 
-        if noise_mu is None:
-            noise_mu = torch.zeros(self.nu, dtype=self.dtype)
-        noise_mu = _vector(noise_mu, self.nu, self.dtype, self.d)
-        u_init = _vector(0.0 if u_init is None else u_init, self.nu, self.dtype, self.d)
-        lo, hi, self._bounded = _complete_bounds(u_min, u_max, self.nu, self.dtype, self.d)
-
+        self._params, self._bounded = _make_params(sigma, lambda_, noise_mu, u_min, u_max,
+                                                   u_init, self.d)
         self.u_scale = float(u_scale)
         self.u_per_command = int(u_per_command)
         self.F = dynamics
@@ -235,15 +272,6 @@ class MPPI:
         self.antithetic_sampling = bool(antithetic_sampling)
         self.noise_rho = _validate_rho(noise_rho)
         self._diag_sigma = _is_diag(sigma)
-
-        self._params = MPPIParams(
-            noise_mu=noise_mu,
-            noise_sigma=sigma.to(self.d),
-            lambda_=torch.tensor(float(lambda_), dtype=self.dtype, device=self.d),
-            u_min=lo,
-            u_max=hi,
-            u_init=u_init,
-        )
         self._gen = torch.Generator()
         self._gen.manual_seed(0 if seed is None else int(seed))
 
@@ -309,8 +337,7 @@ class MPPI:
         return self._params
 
     def _next_seed(self) -> int:
-        """A fresh 63-bit stream seed from the controller's generator."""
-        return int(torch.randint(0, 2**63 - 1, (), generator=self._gen))
+        return _draw_seed(self._gen)
 
     def _sample_noise_eager(self, leading_shape):
         """N(mu, Sigma) draws for init/reset (mppi.py:144-145, 286-290)."""
@@ -676,3 +703,152 @@ class KMPPI(MPPI):
         """(K, nsp, nu) -> (K, T, nu) in one product (mppi.py:653-655)."""
         theta = torch.as_tensor(theta, dtype=self.dtype).to(self.d)
         return torch.einsum("ts,ksu->ktu", self._interp_full, theta), self._interp_full
+
+
+class MPPI_Batched:
+    """MPPI for N plants that share one noise draw and one dynamics and cost
+    call per step (reference mppi.py:691-873; ``pytorch_mppi_tpu/
+    controller.py:978-1175``).  The rollout runs an (N·K,) flat batch; each
+    plant has its own softmax along K.
+
+    ``use_pallas=True`` runs each command through the batched CUDA kernel in
+    operand mode (one ``sample_noise_flat`` draw passed to it) from
+    ``ops/solve._BATCHED_KERNEL_MIN_K`` samples on, and the plain path below
+    it (an info log says so); ``"force"`` keeps operand mode at any K and
+    ``"kernel_rng"`` draws the noise in the kernel.  ``device=None`` means
+    the card, as for :class:`MPPI`.
+    """
+
+    def __init__(
+        self,
+        dynamics: Callable,
+        running_cost: Callable,
+        nx: int,
+        noise_sigma,
+        num_envs: int,
+        num_samples: int = 100,
+        horizon: int = 15,
+        device=None,
+        terminal_state_cost: Optional[Callable] = None,
+        terminal_final_cost: Optional[Callable] = None,
+        lambda_: float = 1.0,
+        noise_mu=None,
+        u_min=None,
+        u_max=None,
+        u_init=None,
+        u_scale: float = 1.0,
+        u_per_command: int = 1,
+        step_dependent_dynamics: bool = False,
+        noise_abs_cost: bool = False,
+        stochastic_dynamics: bool = False,
+        antithetic_sampling: bool = False,
+        num_iterations: int = 1,
+        noise_rho: float = 0.0,
+        dynamics_params=None,
+        seed: Optional[int] = 0,
+        mesh=None,
+        env_axis: str = "data",
+        sample_axis: Optional[str] = None,
+        use_pallas=False,
+        fused_artifacts: bool = False,
+    ):
+        _reject_unported(
+            terminal_state_cost=terminal_state_cost,
+            terminal_final_cost=terminal_final_cost,
+            stochastic_dynamics=stochastic_dynamics, num_iterations=num_iterations,
+            dynamics_params=dynamics_params, mesh=mesh, env_axis=env_axis,
+            sample_axis=sample_axis,
+        )
+        self.d = _resolve_device(device)
+        self.use_pallas = _use_pallas(use_pallas, _solve.BATCHED_USE_PALLAS)
+        sigma = _coerce_sigma(noise_sigma)
+        self.dtype = sigma.dtype
+        self.N = int(num_envs)
+        self.K = int(num_samples)
+        self.T = int(horizon)
+        self.nx = int(nx)
+        self.nu = int(sigma.shape[0])
+        self.u_scale = float(u_scale)
+        self.u_per_command = int(u_per_command)
+
+        self._params, _ = _make_params(sigma, lambda_, noise_mu, u_min, u_max, u_init, self.d)
+        self.config = MPPIConfig(
+            nx=self.nx,
+            nu=self.nu,
+            K=self.K,
+            T=self.T,
+            u_scale=self.u_scale,
+            u_per_command=self.u_per_command,
+            noise_abs_cost=bool(noise_abs_cost),
+            step_dependent_dynamics=bool(step_dependent_dynamics),
+            antithetic=bool(antithetic_sampling),
+            noise_rho=_validate_rho(noise_rho),
+            diag_sigma=_is_diag(sigma),
+            fused_artifacts=bool(fused_artifacts),
+            dtype=self.dtype,
+        )
+        self.running_cost = running_cost
+        self._fns = _solve.make_batched_step(self.config, self.N, dynamics, running_cost,
+                                             use_pallas=self.use_pallas)
+        self._gen = torch.Generator()
+        self._gen.manual_seed(0 if seed is None else int(seed))
+        U0 = self._sample_noise_eager((self.N, self.T))
+        self._state = BatchedState(U=U0, seed=_draw_seed(self._gen))
+        self.cost_total = None
+        self.omega = None
+        self.states = None
+
+    def _sample_noise_eager(self, leading_shape):
+        return _solve.sample_noise(self._gen, leading_shape, self._params, self.dtype)
+
+    @property
+    def U(self):
+        return self._state.U
+
+    @U.setter
+    def U(self, value):
+        self._state = self._state._replace(
+            U=torch.as_tensor(value, dtype=self.dtype).to(self.d))
+
+    @property
+    def noise_sigma(self):
+        return self._params.noise_sigma
+
+    @property
+    def lambda_(self):
+        return float(self._params.lambda_)
+
+    @property
+    def u_min(self):
+        return self._params.u_min
+
+    @property
+    def u_max(self):
+        return self._params.u_max
+
+    def compile(self, **kwargs):
+        """Nothing to compile: PyTorch runs eagerly.  Returns self."""
+        return self
+
+    def reset(self):
+        """Resample every plant's nominal sequence (mppi.py:286-290)."""
+        self._state = self._state._replace(U=self._sample_noise_eager((self.N, self.T)))
+
+    def command(self, states, shift_nominal_trajectory: bool = True):
+        """One solve for every plant.
+
+        :param states: (N, nx) stacked plant states
+        :returns: (N, nu) actions, or (N, u_per_command, nu), on the
+            controller's device
+        """
+        x0 = torch.as_tensor(states, dtype=self.dtype, device=self.d)
+        if x0.shape != (self.N, self.nx):
+            raise ValueError(
+                f"states must have shape (num_envs={self.N}, nx={self.nx}); "
+                f"got {tuple(x0.shape)}")
+        fn = self._fns.step if shift_nominal_trajectory else self._fns.step_no_shift
+        self._state, action, artifacts = fn(self._params, self._state, x0)
+        self.cost_total = artifacts.cost_total
+        self.omega = artifacts.omega
+        self.states = artifacts.states  # None: no terminal cost in this port yet
+        return action

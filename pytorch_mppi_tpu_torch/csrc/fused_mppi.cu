@@ -1,14 +1,20 @@
-// One whole MPPI, SMPPI or KMPPI iteration for one plant, written by hand for
-// Hopper (sm_90a).
+// One whole MPPI, SMPPI or KMPPI iteration for one plant, the batched MPPI
+// iteration for N plants, and the two kernels of the legacy rollout route,
+// written by hand for Hopper (sm_90a).
 //
-// Replaces three TPU kernels of pytorch_mppi_tpu/ops/pallas_rollout.py:
-//   MPPI   make_transposed_fused_solve  (pallas_rollout.py:512)
-//   SMPPI  make_transposed_smppi_solve  (pallas_rollout.py:755)
-//   KMPPI  make_transposed_kmppi_solve  (pallas_rollout.py:940)
+// Replaces six TPU kernels of pytorch_mppi_tpu/ops/pallas_rollout.py:
+//   MPPI     make_transposed_fused_solve    (pallas_rollout.py:512)
+//   SMPPI    make_transposed_smppi_solve    (pallas_rollout.py:755)
+//   KMPPI    make_transposed_kmppi_solve    (pallas_rollout.py:940)
+//   Batched  make_transposed_batched_solve  (pallas_rollout.py:1118)
 // as one kernel template, mppi_fused_partial<Model, N, kGlobal, V>, followed by
-// flash_merge.  For K samples it computes: the normals of the R drawn rows (from
-// injected int32 bits or from Philox4x32-10), the antithetic sign, the noise
-// transform (diagonal scale or full (R, R) operator), then per variant
+// flash_merge, and
+//   make_fused_rollout     (pallas_rollout.py:75)   as fused_rollout<Model, N>
+//   fused_weighted_update  (pallas_rollout.py:172)  as weighted_partial + flash_merge.
+//
+// The iteration.  For K samples kernel A computes: the normals of the R drawn
+// rows (from injected int32 bits or from Philox4x32-10), the antithetic sign,
+// the noise transform (diagonal scale or full (R, R) operator), then per variant
 //   MPPI  (R = D = T*nu): U + noise, the null-action row, the clamp;
 //   SMPPI (R = D): the rate clamp, the integration as + rate*dt, the null row,
 //         the action clamp, the noise back-computed through both clamps as
@@ -16,21 +22,30 @@
 //   KMPPI (R = Dp = nsp*nu): theta + noise clamped at the support points, each
 //         full-horizon row interpolated in the kernel as W[d, :] . pts (fp32
 //         FMAs, no TF32), the null row and the trajectory clamp;
+//   Batched (R = D, N plants): MPPI's clamp for plant n = blockIdx.y, with no
+//         null-action row; the noise is shared by the plants (the draw depends
+//         on the sample's source column only), or read from a final (D, ld)
+//         noise operand in place of the draw and the transform;
 // the action cost of the rectified noise, the T-step rollout of a device
 // model with u_scale, and the streaming softmax statistics of the update
 // (rate-space noise for SMPPI, support-point noise for KMPPI).  The contract is
-// the JAX one: (delta (R,), m, s, cost) with the nominal + delta / s.
+// the JAX one: (delta (R,), m, s, cost) with the nominal + delta / s; for N
+// plants delta (R, N), (m, s) (2, N) and cost (N, K), one softmax per plant.
 //
 // Design.  The TPU kernel walks its K blocks in order and carries (m, s, acc)
 // in scratch; GPU blocks run at the same time.  So the work is two kernels:
-//   A. mppi_fused_partial: one thread per sample, BLOCK samples per block.  A
-//      thread keeps its R drawn rows in a (R, BLOCK) tile (a second tile holds
-//      the raw normals for a full operator), rolls the model out in registers,
-//      and writes cost[k].  The block then reduces its own max m_b, sum s_b and
-//      acc_b[r] = sum_k w_k n_k[r] and writes them to a (nblocks, R + 2)
-//      scratch.  Threads with k >= K take no part (_tp_mask_phantom).
-//   B. flash_merge: one block merges the partials,
+//   A. mppi_fused_partial: one thread per sample, BLOCK samples per block, one
+//      row of blocks per plant.  A thread keeps its R drawn rows in a
+//      (R, BLOCK) tile (a second tile holds the raw normals for a full
+//      operator), rolls the model out in registers, and writes cost[k].  The
+//      block then reduces its own max m_b, sum s_b and acc_b[r] = sum_k w_k
+//      n_k[r] and writes them to a (plants, nblocks, R + 2) scratch.  Threads
+//      with k >= K take no part (_tp_mask_phantom).
+//   B. flash_merge: one block per plant merges that plant's partials,
 //      m = max m_b, s = sum s_b e^(m_b - m), delta[r] = sum acc_b[r] e^(m_b - m).
+// The TPU kernel picks its plant's columns with a one-hot lane mask and writes
+// them at its last block; here each block finds its plant from blockIdx.y and
+// reads plant n's x0, U and action-cost columns through strides.
 // The tiles live in shared memory (row stride BLOCK + 1, so the column writes
 // and the row reads of the update are free of bank conflicts) when they fit
 // in the 227 KB a block may use; otherwise (kGlobal) in a global scratch of
@@ -38,7 +53,7 @@
 // kernel shrinks its block instead.  The device models keep state and action
 // in register arrays of N = 8 or N = 32, chosen at launch from max(nx, nu).
 // The noise never reaches device memory unless the caller asks for the
-// perturbed actions (emit_perturbed).
+// perturbed actions (emit_perturbed) or passes it as the batched operand.
 //
 // What bounds it on an H100 SXM.  At the flagship shape (K = 10,000, T = 30,
 // nu = 2, seed mode) it reads and writes about 41 KB (the cost row and the
@@ -47,7 +62,20 @@
 // 30 model steps per sample, some 4e7 operations, about 0.6 us at 67 TFLOP/s
 // (KMPPI adds D*Dp = 1,800 FMAs of interpolation per sample).  So it is bound
 // by launch latency and by how few of the 132 SMs its 79 blocks of 128
-// threads fill.  chip_smoke.py computes the exact bound from the run's shapes.
+// threads fill.  The batched iteration at N = 1024, K = 16,384 has 131,072
+// blocks and fills the card: in seed mode it is bound by the N-fold repeated
+// draw (about 7.6e10 operations, 1.13 ms); in operand mode, which reads the
+// 3.9 MB noise once from HBM and N times from L2, by its 1.9e10 operations
+// (0.28 ms) before the 64 MB cost it writes.  chip_smoke.py computes the
+// exact bound from the run's shapes.
+//
+// The legacy route.  fused_rollout: one thread per sample reads its row of
+// the (K, T*nu) scaled actions and rolls the model out from its x0 row; it is
+// bound by the bytes of those actions (2.4 MB at the flagship, 0.7 us).
+// weighted_partial: one thread per sample takes the softmax weight of its
+// cost, then the block's threads, one noise column each, sum their 128 rows
+// of the (K, D) noise (fp32 FMAs, the JAX dot's Precision.HIGHEST); bound by
+// reading the noise once (2.4 MB, 0.7 us).  flash_merge merges the blocks.
 //
 // Left for later: warp-shuffle reductions in place of the shared-memory ones,
 // several samples per thread, and one pass with a last-block merge in place
@@ -55,9 +83,11 @@
 //
 // Plain C interface (no PyTorch headers), loaded with ctypes; each entry
 // returns cudaGetLastError() after its launches.  The file builds whole, or
-// as six translation units selected by -DFUSED_MPPI_PART=0..5 (one for each
-// device model and register size, one for kernel B and the entry points),
-// which ops/_build.py compiles in parallel and links.
+// as eleven translation units selected by -DFUSED_MPPI_PART=0..10 (0-4: the
+// single-plant variants and the rollout kernel of each device model and
+// register size; 5: kernel B, the weighted update and the entry points; 6-10:
+// the batched variant of each device model and register size), which
+// ops/_build.py compiles in parallel and links.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -74,18 +104,22 @@ constexpr int BLOCK = 128;  // samples (threads) per block of kernel A
 constexpr int MAXN = 32;  // largest nx or nu of a device model
 constexpr int MERGE_THREADS = 256;
 
-enum Variant { kMPPI = 0, kSMPPI = 1, kKMPPI = 2 };
+// kRollout selects fused_rollout through the same launchers
+enum Variant { kMPPI = 0, kSMPPI = 1, kKMPPI = 2, kBatched = 3, kRollout = 4 };
 
 struct Params {
   const float* consts;
   int K, T, nx, nu, D, R, nblocks;  // R: rows drawn and updated (D, or Dp for KMPPI)
+  int num_plants;  // kBatched: N, the grid's y extent; 1 otherwise
   const int* bits;  // (R, bits_cols) int32, or null in seed mode
   int bits_cols;
   unsigned key0, key1;
   int pair_block, antithetic, null_action, abs_cost, full_op;
-  const float* x0;  // (nx, K) with the strides below (col stride 0: shared)
+  const float* x0;  // (nx, K), or (nx, N) for kBatched, with the strides below
   long long x0_row_stride, x0_col_stride;
-  const float* U;  // (D,) the nominal sequence (SMPPI: action rates)
+  const float* U;  // (D,) the nominal sequence (SMPPI: action rates); kBatched:
+                   // (D, N) with strides u_rs, u_ps; kRollout: (K, D) scaled actions
+  long long u_rs, u_ps;
   const float* base;  // (R,) SMPPI: the action sequence; KMPPI: theta; MPPI: U
   const float* op;  // (R,) diagonal or (R, R) row-major
   const float* mu;  // (R,)
@@ -93,16 +127,19 @@ struct Params {
   const float* hi;
   const float* alo;  // (D,) SMPPI: action bounds; KMPPI: trajectory bounds
   const float* ahi;
-  const float* a;  // (D,) action-cost vector
+  const float* a;  // (D,) action-cost vector; kBatched: (D, N), strides a_rs, a_ps
+  long long a_rs, a_ps;
   const float* W;  // (D, R) KMPPI: kron(interp_full, I_nu)
+  const float* noise;  // kBatched operand mode: (R, noise_ld) final noise, or null
+  long long noise_ld;
   const float* lam;  // device scalars
   const float* w_seq;
   const float* dt;
   float u_scale;
-  float* cost;  // (K,)
-  float* partial;  // (nblocks, R + 2): m_b, s_b, acc_b[0..R)
+  float* cost;  // (K,), or (N, K) for kBatched
+  float* partial;  // (N, nblocks, R + 2): m_b, s_b, acc_b[0..R)
   float* pert;  // (D, K) or null
-  float* scratch;  // kGlobal: (nblocks, tiles, R, BLOCK)
+  float* scratch;  // kGlobal: (N, nblocks, tiles, R, BLOCK)
 };
 
 // --- random numbers -------------------------------------------------------
@@ -270,13 +307,20 @@ struct Pendulum {
 template <class Model, int N, bool kGlobal, int V>
 __global__ void __launch_bounds__(BLOCK) mppi_fused_partial(Params p) {
   constexpr int LDT = kGlobal ? BLOCK : BLOCK + 1;  // row stride of the tiles
+  constexpr bool kUpdateU = V == kMPPI || V == kBatched;  // rows are U + noise, clamped
   extern __shared__ float smem[];
   const int D = p.D, R = p.R;
+  // plant n's nominal and action-cost columns; one plant with unit strides
+  const int plant = V == kBatched ? (int)blockIdx.y : 0;
+  const float* Un = V == kBatched ? p.U + plant * p.u_ps : p.U;
+  const float* an = V == kBatched ? p.a + plant * p.a_ps : p.a;
+  const long long urs = V == kBatched ? p.u_rs : 1, ars = V == kBatched ? p.a_rs : 1;
+  const size_t blk = (size_t)plant * p.nblocks + blockIdx.x;  // partials and scratch slot
   float* red = smem;  // BLOCK
   float* ws = red + BLOCK;  // BLOCK softmax weights
   float* Ws = ws + BLOCK;  // (D, R) KMPPI interpolation, shared path only
   constexpr bool kSharedW = V == kKMPPI && !kGlobal;
-  float* ps = kGlobal ? p.scratch + (size_t)blockIdx.x * (p.full_op ? 2 : 1) * R * BLOCK
+  float* ps = kGlobal ? p.scratch + blk * (p.full_op ? 2 : 1) * R * BLOCK
                       : Ws + (kSharedW ? (size_t)D * R : 0);  // (R, LDT) drawn rows
   float* zs = ps + (size_t)R * LDT;  // (R, LDT) raw normals, full op only
   const float* W = kSharedW ? Ws : p.W;
@@ -288,12 +332,14 @@ __global__ void __launch_bounds__(BLOCK) mppi_fused_partial(Params p) {
   const int tid = threadIdx.x;
   const int k = blockIdx.x * BLOCK + tid;
   const bool live = k < p.K;
+  const bool operand = V == kBatched && p.noise;  // the final noise is given
   float logit = -INFINITY;
 
   if (live) {
     // antithetic pairing inside each pairing block (pallas_rollout.py:403-404):
     // sample j of block b takes source column b*bh + j, or the mirrored
-    // draw of j - bh
+    // draw of j - bh.  The draw depends on the source column only, so the
+    // plants of a batch share it (mppi.py:837-838).
     int src = k;
     float sgn = 1.0f;
     if (p.antithetic) {
@@ -302,7 +348,9 @@ __global__ void __launch_bounds__(BLOCK) mppi_fused_partial(Params p) {
       if (j >= bh) sgn = -1.0f;
     }
     float* zdst = p.full_op ? zs : ps;
-    if (p.bits) {
+    if (operand) {
+      // nothing to draw: the operand is read row by row below
+    } else if (p.bits) {
       for (int d = 0; d < R; ++d)
         zdst[d * LDT + tid] = sgn * bits_to_normal((unsigned)p.bits[(size_t)d * p.bits_cols + src]);
     } else {
@@ -319,7 +367,9 @@ __global__ void __launch_bounds__(BLOCK) mppi_fused_partial(Params p) {
     float pc = 0.0f;  // action cost of the rectified noise
     for (int d = 0; d < R; ++d) {
       float n;
-      if (p.full_op) {
+      if (operand) {
+        n = p.noise[(size_t)d * p.noise_ld + k];
+      } else if (p.full_op) {
         float acc = 0.0f;
         const float* row = p.op + (size_t)d * R;
         for (int e = 0; e < R; ++e) acc += row[e] * zs[e * LDT + tid];
@@ -328,14 +378,14 @@ __global__ void __launch_bounds__(BLOCK) mppi_fused_partial(Params p) {
         n = ps[d * LDT + tid] * p.op[d] + p.mu[d];
       }
       float v;
-      if (V == kMPPI) {
-        const float u0 = p.U[d];
+      if (kUpdateU) {
+        const float u0 = Un[d * urs];
         v = u0 + n;
-        if (p.null_action && k == 0) v = 0.0f;
+        if (V == kMPPI && p.null_action && k == 0) v = 0.0f;
         v = fminf(fmaxf(v, p.lo[d]), p.hi[d]);
         if (p.pert) p.pert[(size_t)d * p.K + k] = v;
         const float r = v - u0;  // rectified noise (mppi.py:383-385)
-        pc += (p.abs_cost ? fabsf(r) : r) * p.a[d];
+        pc += (p.abs_cost ? fabsf(r) : r) * an[d * ars];
       } else if (V == kSMPPI) {
         // rate clamp, integrate, null row, action clamp (mppi.py:539-552)
         const float u0 = p.U[d], as = p.base[d];
@@ -353,10 +403,12 @@ __global__ void __launch_bounds__(BLOCK) mppi_fused_partial(Params p) {
       ps[d * LDT + tid] = v;
     }
 
+    // initial state: the sample's column of x0, or the plant's (pallas_rollout.py:1230)
+    const long long x0_col = V == kBatched ? plant : k;
     float x[N], u[N], prev[N];
 #pragma unroll
     for (int i = 0; i < N; ++i) {
-      x[i] = i < p.nx ? p.x0[i * p.x0_row_stride + (long long)k * p.x0_col_stride] : 0.0f;
+      x[i] = i < p.nx ? p.x0[i * p.x0_row_stride + x0_col * p.x0_col_stride] : 0.0f;
       prev[i] = 0.0f;
     }
     float total = 0.0f, smooth = 0.0f;
@@ -396,11 +448,11 @@ __global__ void __launch_bounds__(BLOCK) mppi_fused_partial(Params p) {
       total += Model::template cost<N>(p.consts, x, u, p.nx, p.nu);
     }
     const float c = (V == kSMPPI ? pc + *p.w_seq * smooth : pc) + total;
-    p.cost[k] = c;
+    p.cost[(size_t)plant * p.K + k] = c;
     logit = -c / *p.lam;
   } else {
     // phantom sample: the rows of a zero update keep the sum finite
-    for (int d = 0; d < R; ++d) ps[d * LDT + tid] = V == kMPPI ? p.U[d] : p.base[d];
+    for (int d = 0; d < R; ++d) ps[d * LDT + tid] = kUpdateU ? Un[d * urs] : p.base[d];
   }
 
   // block max of the logits
@@ -420,7 +472,7 @@ __global__ void __launch_bounds__(BLOCK) mppi_fused_partial(Params p) {
     if (tid < h) red[tid] += red[tid + h];
     __syncthreads();
   }
-  float* out = p.partial + (size_t)blockIdx.x * (R + 2);
+  float* out = p.partial + blk * (R + 2);
   if (tid == 0) {
     out[0] = m_b;
     out[1] = red[0];
@@ -434,27 +486,56 @@ __global__ void __launch_bounds__(BLOCK) mppi_fused_partial(Params p) {
       const float as = p.base[d], u0 = p.U[d];
       for (int i = 0; i < BLOCK; ++i) acc += ws[i] * ((row[i] - as) / dt - u0);
     } else {
-      const float b0 = V == kMPPI ? p.U[d] : p.base[d];
+      const float b0 = kUpdateU ? Un[d * urs] : p.base[d];
       for (int i = 0; i < BLOCK; ++i) acc += ws[i] * (row[i] - b0);
     }
     out[2 + d] = acc;
   }
 }
 
-// --- kernel B ---------------------------------------------------------------
+// --- the legacy route's rollout ------------------------------------------------
+
+// make_fused_rollout's kernel: sample k = blockIdx.x * BLOCK + threadIdx.x
+// rolls the model out from its column of x0 over its row of the (K, T*nu)
+// scaled actions p.U and writes its summed running cost; the cost is taken
+// after each step.  Samples at and beyond K are not launched work.
+template <class Model, int N>
+__global__ void __launch_bounds__(BLOCK) fused_rollout(Params p) {
+  const int k = blockIdx.x * BLOCK + threadIdx.x;
+  if (k >= p.K) return;
+  const float* row = p.U + (size_t)k * p.D;
+  float x[N], u[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    x[i] = i < p.nx ? p.x0[i * p.x0_row_stride + (long long)k * p.x0_col_stride] : 0.0f;
+  float total = 0.0f;
+  for (int t = 0; t < p.T; ++t) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) u[j] = j < p.nu ? row[t * p.nu + j] : 0.0f;
+    Model::template step<N>(p.consts, x, u, p.nx, p.nu);
+    total += Model::template cost<N>(p.consts, x, u, p.nx, p.nu);
+  }
+  p.cost[k] = total;
+}
+
+// --- kernel B and the legacy route's weighted update -----------------------------
 
 #if FUSED_MPPI_HAS(5)
+// One block per plant: plant n = blockIdx.x merges its nblocks partials and
+// writes column n of delta (R, plants) and of ms (2, plants).
 __global__ void flash_merge(const float* partial, int nblocks, int R, float* delta, float* ms) {
   __shared__ float m_sh;
+  const int plant = blockIdx.x, plants = gridDim.x;
   const int stride = R + 2;
+  partial += (size_t)plant * nblocks * stride;
   if (threadIdx.x == 0) {
     float m = -INFINITY;
     for (int b = 0; b < nblocks; ++b) m = fmaxf(m, partial[(size_t)b * stride]);
     float s = 0.0f;
     for (int b = 0; b < nblocks; ++b)
       s += partial[(size_t)b * stride + 1] * expf(partial[(size_t)b * stride] - m);
-    ms[0] = m;
-    ms[1] = s;
+    ms[plant] = m;
+    ms[plants + plant] = s;
     m_sh = m;
   }
   __syncthreads();
@@ -463,7 +544,49 @@ __global__ void flash_merge(const float* partial, int nblocks, int R, float* del
     float acc = 0.0f;
     for (int b = 0; b < nblocks; ++b)
       acc += partial[(size_t)b * stride + 2 + d] * expf(partial[(size_t)b * stride] - m);
-    delta[d] = acc;
+    delta[(size_t)d * plants + plant] = acc;
+  }
+}
+
+// fused_weighted_update's first pass: block b takes the softmax weights of
+// samples [b*BLOCK, (b+1)*BLOCK) against its own largest logit, then thread
+// d sums column d of those rows of the (K, D) noise (row stride ld) under
+// the weights; partial[b] = (m_b, s_b, acc_b[0..D)).  Rows at and beyond K
+// weigh exactly 0 and are not read.
+__global__ void __launch_bounds__(BLOCK)
+    weighted_partial(const float* cost, const float* noise, long long ld, int K, int D,
+                     const float* lam, float* partial) {
+  __shared__ float red[BLOCK], ws[BLOCK];
+  const int tid = threadIdx.x, k0 = blockIdx.x * BLOCK, k = k0 + tid;
+  const bool live = k < K;
+  const float logit = live ? -cost[k] / *lam : -INFINITY;
+  red[tid] = logit;
+  __syncthreads();
+  for (int h = BLOCK / 2; h > 0; h >>= 1) {
+    if (tid < h) red[tid] = fmaxf(red[tid], red[tid + h]);
+    __syncthreads();
+  }
+  const float m_b = red[0];
+  __syncthreads();
+  const float w = (live && m_b > -INFINITY) ? expf(logit - m_b) : 0.0f;
+  ws[tid] = w;
+  red[tid] = w;
+  __syncthreads();
+  for (int h = BLOCK / 2; h > 0; h >>= 1) {
+    if (tid < h) red[tid] += red[tid + h];
+    __syncthreads();
+  }
+  float* out = partial + (size_t)blockIdx.x * (D + 2);
+  if (tid == 0) {
+    out[0] = m_b;
+    out[1] = red[0];
+  }
+  const int rows = K - k0 < BLOCK ? K - k0 : BLOCK;
+  for (int d = tid; d < D; d += BLOCK) {
+    const float* col = noise + (size_t)k0 * ld + d;
+    float acc = 0.0f;
+    for (int i = 0; i < rows; ++i) acc += ws[i] * col[(size_t)i * ld];
+    out[2 + d] = acc;
   }
 }
 #endif
@@ -476,7 +599,7 @@ cudaError_t launch_partial(const Params& p, size_t smem, cudaStream_t stream) {
         (int)smem);
     if (e != cudaSuccess) return e;
   }
-  mppi_fused_partial<Model, N, kGlobal, V><<<p.nblocks, BLOCK, smem, stream>>>(p);
+  mppi_fused_partial<Model, N, kGlobal, V><<<dim3(p.nblocks, p.num_plants), BLOCK, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -490,50 +613,122 @@ cudaError_t launch_variant(const Params& p, int variant, size_t smem, cudaStream
   }
 }
 
+// parts 0-4: the single-plant variants and the rollout kernel
 template <class Model, int N>
 cudaError_t launch_tiles(const Params& p, int variant, size_t smem, cudaStream_t s) {
+  if (variant == kRollout) {
+    fused_rollout<Model, N><<<p.nblocks, BLOCK, 0, s>>>(p);
+    return cudaGetLastError();
+  }
   return p.scratch ? launch_variant<Model, N, true>(p, variant, smem, s)
                    : launch_variant<Model, N, false>(p, variant, smem, s);
 }
 
-// One launcher per device model and register size, each in a part of its own.
+// parts 6-10: the batched variant
+template <class Model, int N>
+cudaError_t launch_batched(const Params& p, int variant, size_t smem, cudaStream_t s) {
+  if (variant != kBatched) return cudaErrorInvalidValue;
+  return p.scratch ? launch_partial<Model, N, true, kBatched>(p, smem, s)
+                   : launch_partial<Model, N, false, kBatched>(p, smem, s);
+}
+
+// One launcher per device model, register size and part; the other parts
+// see its declaration.
 using Launcher = cudaError_t (*)(const Params&, int, size_t, cudaStream_t);
-cudaError_t launch_lq8(const Params&, int, size_t, cudaStream_t);
-cudaError_t launch_lq32(const Params&, int, size_t, cudaStream_t);
-cudaError_t launch_toy8(const Params&, int, size_t, cudaStream_t);
-cudaError_t launch_toy32(const Params&, int, size_t, cudaStream_t);
-cudaError_t launch_pendulum8(const Params&, int, size_t, cudaStream_t);
 
 #if FUSED_MPPI_HAS(0)
 cudaError_t launch_lq8(const Params& p, int v, size_t smem, cudaStream_t s) {
   return launch_tiles<LinearQuadratic, 8>(p, v, smem, s);
 }
+#else
+cudaError_t launch_lq8(const Params&, int, size_t, cudaStream_t);
 #endif
 #if FUSED_MPPI_HAS(1)
 cudaError_t launch_lq32(const Params& p, int v, size_t smem, cudaStream_t s) {
   return launch_tiles<LinearQuadratic, MAXN>(p, v, smem, s);
 }
+#else
+cudaError_t launch_lq32(const Params&, int, size_t, cudaStream_t);
 #endif
 #if FUSED_MPPI_HAS(2)
 cudaError_t launch_toy8(const Params& p, int v, size_t smem, cudaStream_t s) {
   return launch_tiles<Toy2D, 8>(p, v, smem, s);
 }
+#else
+cudaError_t launch_toy8(const Params&, int, size_t, cudaStream_t);
 #endif
 #if FUSED_MPPI_HAS(3)
 cudaError_t launch_toy32(const Params& p, int v, size_t smem, cudaStream_t s) {
   return launch_tiles<Toy2D, MAXN>(p, v, smem, s);
 }
+#else
+cudaError_t launch_toy32(const Params&, int, size_t, cudaStream_t);
 #endif
 #if FUSED_MPPI_HAS(4)
 cudaError_t launch_pendulum8(const Params& p, int v, size_t smem, cudaStream_t s) {
   return launch_tiles<Pendulum, 8>(p, v, smem, s);
 }
+#else
+cudaError_t launch_pendulum8(const Params&, int, size_t, cudaStream_t);
+#endif
+#if FUSED_MPPI_HAS(6)
+cudaError_t batched_lq8(const Params& p, int v, size_t smem, cudaStream_t s) {
+  return launch_batched<LinearQuadratic, 8>(p, v, smem, s);
+}
+#else
+cudaError_t batched_lq8(const Params&, int, size_t, cudaStream_t);
+#endif
+#if FUSED_MPPI_HAS(7)
+cudaError_t batched_lq32(const Params& p, int v, size_t smem, cudaStream_t s) {
+  return launch_batched<LinearQuadratic, MAXN>(p, v, smem, s);
+}
+#else
+cudaError_t batched_lq32(const Params&, int, size_t, cudaStream_t);
+#endif
+#if FUSED_MPPI_HAS(8)
+cudaError_t batched_toy8(const Params& p, int v, size_t smem, cudaStream_t s) {
+  return launch_batched<Toy2D, 8>(p, v, smem, s);
+}
+#else
+cudaError_t batched_toy8(const Params&, int, size_t, cudaStream_t);
+#endif
+#if FUSED_MPPI_HAS(9)
+cudaError_t batched_toy32(const Params& p, int v, size_t smem, cudaStream_t s) {
+  return launch_batched<Toy2D, MAXN>(p, v, smem, s);
+}
+#else
+cudaError_t batched_toy32(const Params&, int, size_t, cudaStream_t);
+#endif
+#if FUSED_MPPI_HAS(10)
+cudaError_t batched_pendulum8(const Params& p, int v, size_t smem, cudaStream_t s) {
+  return launch_batched<Pendulum, 8>(p, v, smem, s);
+}
+#else
+cudaError_t batched_pendulum8(const Params&, int, size_t, cudaStream_t);
 #endif
 
 }  // namespace fused_mppi
 
 #if FUSED_MPPI_HAS(5)
 using namespace fused_mppi;
+
+namespace {
+
+// The launcher of a variant for a device model (by id) and its register size
+// (8 or MAXN), or null.
+Launcher find_launcher(int variant, int model_id, int nx, int nu) {
+  const int n = nx > nu ? nx : nu;
+  const Launcher single[3][2] = {{launch_lq8, launch_lq32},
+                                 {launch_pendulum8, nullptr},
+                                 {launch_toy8, launch_toy32}};
+  const Launcher batched[3][2] = {{batched_lq8, batched_lq32},
+                                  {batched_pendulum8, nullptr},
+                                  {batched_toy8, batched_toy32}};
+  if (model_id < 0 || model_id > 2 || n > MAXN) return nullptr;
+  return (variant == kBatched ? batched : single)[model_id][n <= 8 ? 0 : 1];
+}
+
+}  // namespace
 
 extern "C" {
 
@@ -553,7 +748,10 @@ long long fused_mppi_smem_bytes(int variant, int D, int R, int full_op) {
 const char* fused_mppi_error_string(int e) { return cudaGetErrorString((cudaError_t)e); }
 
 // Launches kernel A then kernel B on `stream`; returns cudaGetLastError().
-// `scratch` is null for the shared-memory tiles, else (nblocks, tiles, R, BLOCK).
+// `scratch` is null for the shared-memory tiles, else (plants, nblocks, tiles,
+// R, BLOCK).  kBatched takes `num_plants` plants, U and a as (D, N) with the
+// strides (u_rs, u_ps) and (a_rs, a_ps), and in operand mode the final noise
+// (R, noise_ld); the other variants take one plant.
 int fused_mppi_launch(int device, void* stream, int variant, int model_id, const float* consts,
                       int K, int T, int nx, int nu, int R,
                       const int* bits, int bits_cols, unsigned key0, unsigned key1,
@@ -563,10 +761,12 @@ int fused_mppi_launch(int device, void* stream, int variant, int model_id, const
                       const float* mu, const float* lo, const float* hi, const float* alo,
                       const float* ahi, const float* a, const float* W, const float* lam,
                       const float* w_seq, const float* dt, float u_scale, float* cost,
-                      float* partial, float* delta, float* ms, float* pert, float* scratch) {
+                      float* partial, float* delta, float* ms, float* pert, float* scratch,
+                      int num_plants, long long u_rs, long long u_ps, long long a_rs,
+                      long long a_ps, const float* noise, long long noise_ld) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  Params p;
+  Params p{};
   p.consts = consts;
   p.K = K;
   p.T = T;
@@ -575,6 +775,7 @@ int fused_mppi_launch(int device, void* stream, int variant, int model_id, const
   p.D = T * nu;
   p.R = R;
   p.nblocks = (K + BLOCK - 1) / BLOCK;
+  p.num_plants = num_plants;
   p.bits = bits;
   p.bits_cols = bits_cols;
   p.key0 = key0;
@@ -588,6 +789,8 @@ int fused_mppi_launch(int device, void* stream, int variant, int model_id, const
   p.x0_row_stride = x0_row_stride;
   p.x0_col_stride = x0_col_stride;
   p.U = U;
+  p.u_rs = u_rs;
+  p.u_ps = u_ps;
   p.base = base;
   p.op = op;
   p.mu = mu;
@@ -596,7 +799,11 @@ int fused_mppi_launch(int device, void* stream, int variant, int model_id, const
   p.alo = alo;
   p.ahi = ahi;
   p.a = a;
+  p.a_rs = a_rs;
+  p.a_ps = a_ps;
   p.W = W;
+  p.noise = noise;
+  p.noise_ld = noise_ld;
   p.lam = lam;
   p.w_seq = w_seq;
   p.dt = dt;
@@ -607,17 +814,57 @@ int fused_mppi_launch(int device, void* stream, int variant, int model_id, const
   p.scratch = scratch;
   const size_t smem = scratch ? 2 * BLOCK * sizeof(float)
                               : (size_t)fused_mppi_smem_bytes(variant, p.D, R, full_op);
-  // the device model (by id) and its register size (8 or MAXN)
-  const int n = nx > nu ? nx : nu;
-  const Launcher launchers[3][2] = {{launch_lq8, launch_lq32},
-                                    {launch_pendulum8, nullptr},
-                                    {launch_toy8, launch_toy32}};
-  if (model_id < 0 || model_id > 2 || n > MAXN) return (int)cudaErrorInvalidValue;
-  const Launcher launch = launchers[model_id][n <= 8 ? 0 : 1];
+  if (variant < kMPPI || variant > kBatched || num_plants < 1 || num_plants > 65535)
+    return (int)cudaErrorInvalidValue;
+  const Launcher launch = find_launcher(variant, model_id, nx, nu);
   if (!launch) return (int)cudaErrorInvalidValue;
   e = launch(p, variant, smem, (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
-  flash_merge<<<1, MERGE_THREADS, 0, (cudaStream_t)stream>>>(partial, p.nblocks, R, delta, ms);
+  flash_merge<<<num_plants, MERGE_THREADS, 0, (cudaStream_t)stream>>>(partial, p.nblocks, R, delta,
+                                                                      ms);
+  return (int)cudaGetLastError();
+}
+
+// make_fused_rollout's kernel on `stream`: cost (K,) of the (K, T*nu) scaled
+// actions u (row-major) from x0 (nx, K) with the given strides.
+int fused_mppi_rollout(int device, void* stream, int model_id, const float* consts, int K, int T,
+                       int nx, int nu, const float* x0, long long x0_row_stride,
+                       long long x0_col_stride, const float* u, float* cost) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  Params p{};
+  p.consts = consts;
+  p.K = K;
+  p.T = T;
+  p.nx = nx;
+  p.nu = nu;
+  p.D = T * nu;
+  p.nblocks = (K + BLOCK - 1) / BLOCK;
+  p.num_plants = 1;
+  p.x0 = x0;
+  p.x0_row_stride = x0_row_stride;
+  p.x0_col_stride = x0_col_stride;
+  p.U = u;
+  p.cost = cost;
+  const Launcher launch = find_launcher(kRollout, model_id, nx, nu);
+  if (!launch) return (int)cudaErrorInvalidValue;
+  return (int)launch(p, kRollout, 0, (cudaStream_t)stream);
+}
+
+// fused_weighted_update on `stream`: weighted_partial over the (K, D) noise
+// (row stride ld) into partial (nblocks, D + 2), then flash_merge into
+// delta (D,) and ms (2,).
+int fused_mppi_weighted_update(int device, void* stream, int K, int D, const float* cost,
+                               const float* noise, long long ld, const float* lam,
+                               float* partial, float* delta, float* ms) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  const int nblocks = (K + BLOCK - 1) / BLOCK;
+  weighted_partial<<<nblocks, BLOCK, 0, (cudaStream_t)stream>>>(cost, noise, ld, K, D, lam,
+                                                                partial);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  flash_merge<<<1, MERGE_THREADS, 0, (cudaStream_t)stream>>>(partial, nblocks, D, delta, ms);
   return (int)cudaGetLastError();
 }
 

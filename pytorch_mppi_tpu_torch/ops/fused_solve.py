@@ -1,7 +1,7 @@
-"""The fused MPPI, SMPPI and KMPPI iterations: the CUDA kernel's wrappers and
-their plain versions.
+"""The fused MPPI, SMPPI, KMPPI and batched MPPI iterations: the CUDA
+kernel's wrappers and their plain versions.
 
-The counterparts of three TPU kernels of ``pytorch_mppi_tpu/ops/
+The counterparts of four TPU kernels of ``pytorch_mppi_tpu/ops/
 pallas_rollout.py`` and their helpers, each with the JAX call contract:
 
 * :func:`make_transposed_fused_solve` (``:512``) returns ``solve(seed_or_bits,
@@ -14,7 +14,11 @@ pallas_rollout.py`` and their helpers, each with the JAX call contract:
 * :func:`make_transposed_kmppi_solve` (``:940``) returns ``solve(seed_or_bits,
   x0T, U2, theta2, op, mu_p, lop, hip, lo_t, hi_t, a_flat, Wt, lambda_)``
   with ``delta`` of Dp = nsp·nu rows (``theta_new = theta + delta / s``)
-  and the full-horizon perturbed actions.
+  and the full-horizon perturbed actions;
+* :func:`make_transposed_batched_solve` (``:1118``) returns ``solve(lead,
+  x0T (nx, N), U2T (D, N), op, mu_t, lo_t, hi_t, aT (D, N), lambda_) ->
+  (delta (D, N), ms (2, N), cost (N, K))`` for N plants that share one
+  noise draw, each with its own softmax: ``U_new = U + (delta / ms[1]).T``.
 
 Each is built for a :class:`~.kernel_models.KernelModel`:
 
@@ -23,15 +27,18 @@ Each is built for a :class:`~.kernel_models.KernelModel`:
   and raises if the launch fails;
 * on CPU tensors it runs its plain version (:func:`fused_solve_plain`,
   :func:`smppi_solve_plain`, :func:`kmppi_solve_plain`), the same function in
-  plain torch ops on (rows, K) tensors; ``solve.plain`` is that version with
-  the solve's flags bound, on any device.
+  plain torch ops on (rows, K) tensors (:func:`batched_solve_plain` on
+  (N, D, K) ones); ``solve.plain`` is that version with the solve's flags
+  bound, on any device.
 
 ``seed_or_bits`` selects the noise source.  An (R, K_pad) int32 tensor —
 (R, K_pad/2) with antithetic sampling, R the drawn rows (D, or Dp for KMPPI)
 — injects the random bits, as the JAX kernel's ``rng_in_kernel=False``; a
 pair of 32-bit ints is a Philox4x32-10 key, and the kernel draws its own
 bits.  Word w of Philox counter (c, g, 0, 0) is the bits of row 4g + w of
-source column c.
+source column c.  The batched solve also takes ``noise_operand=True``: its
+``lead`` is then the final (D, ≥K) float32 noise, and the kernel draws
+nothing.
 
 Antithetic pairs sit inside pairing blocks of ``pair_block`` samples: sample
 j of block b takes source column b·pair_block/2 + j for j < pair_block/2,
@@ -56,16 +63,20 @@ import torch
 from ..config import MPPIConfig
 from .kernel_models import KernelModel
 
-MPPI, SMPPI, KMPPI = 0, 1, 2  # the kernel's variants (Variant in fused_mppi.cu)
-VARIANTS = ("mppi", "smppi", "kmppi")
+MPPI, SMPPI, KMPPI, BATCHED = 0, 1, 2, 3  # the kernel's variants (Variant in fused_mppi.cu)
+VARIANTS = ("mppi", "smppi", "kmppi")  # the single-plant variants
+# every kernel of fused_mppi.cu by the name of its launch count: the four
+# variants of kernel A (each with kernel B), and the legacy route's rollout
+# and weighted update (ops/legacy.py)
+KERNELS = VARIANTS + ("batched", "rollout", "weighted_update")
 
-# kernel launches of each variant (A and B each count one); chip_smoke.py
-# reads them
-launches = dict.fromkeys(VARIANTS, 0)
+# kernel launches (each kernel launched counts one); chip_smoke.py reads them
+launches = dict.fromkeys(KERNELS, 0)
 
 MAX_SMEM_BYTES = 232_448  # shared memory one block may use on Hopper
 _BLOCK = 128  # samples per block of kernel A (BLOCK in fused_mppi.cu)
 _MAXN = 32  # largest nx or nu of a device model (MAXN in fused_mppi.cu)
+MAX_PLANTS = 65_535  # the grid's y extent holds the plant index
 
 
 class FusedSolveUnavailable(ValueError):
@@ -317,12 +328,47 @@ def kmppi_solve_plain(seed_or_bits, x0T, U2, theta2, op, mu_p, lop, hip, lo_t,
     return out + (perturbed,) if emit_perturbed else out
 
 
+def batched_solve_plain(lead, x0T, U2T, op, mu_t, lo_t, hi_t, aT, lambda_, *,
+                        model: KernelModel, K: int, T: int, nu: int,
+                        antithetic: bool = False, abs_cost: bool = False,
+                        u_scale: float = 1.0, pair_block: int = None,
+                        noise_operand: bool = False):
+    """What the batched MPPI kernel computes (pallas_rollout.py:1218-1242),
+    on (N, D, K) tensors: one (D, K) noise shared by the N plants (drawn as
+    :func:`fused_solve_plain` draws it, or the first K columns of the
+    operand), each plant's clamp ``clip(U_n + noise, lo, hi)`` with no
+    null-action row, its rectified noise and action cost (column n of
+    ``aT``), the rollout from its column of ``x0T``, and one softmax per
+    plant.  Same arguments and results as the kernel's wrapper."""
+    D = T * nu
+    N = x0T.shape[1]
+    pair_block = pair_block or K + K % 2
+    if noise_operand:
+        noise = lead[:, :K].to(x0T.device)
+    else:
+        noise = _noise(lead, D, K, pair_block, antithetic, op, mu_t, x0T.device)
+    U_col = U2T.T[:, :, None]  # (N, D, 1)
+    perturbed = torch.clamp(U_col + noise[None], lo_t[:, None], hi_t[:, None])
+    n = perturbed - U_col
+    pc = ((torch.abs(n) if abs_cost else n) * aT.T[:, :, None]).sum(dim=1)
+    # the N·K rollouts as one flat batch, plant-major
+    flat = perturbed.permute(1, 0, 2).reshape(D, N * K)
+    x0_flat = x0T.repeat_interleave(K, dim=1)
+    cost = pc + _rollout_total(model, flat, x0_flat, T, nu, u_scale).reshape(N, K)
+    logits = -cost / lambda_
+    m = torch.amax(logits, dim=1)
+    w = torch.exp(logits - m[:, None])
+    delta = torch.einsum("ndk,nk->dn", n, w)
+    return delta, torch.stack([m, w.sum(dim=1)]), cost
+
+
 # ---------------------------------------------------------------------------
 # The kernel's wrappers
 # ---------------------------------------------------------------------------
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 
 
 def _lib():
@@ -332,11 +378,17 @@ def _lib():
     if not getattr(lib, "_argtypes_set", False):
         lib.fused_mppi_launch.argtypes = [
             _I, _P, _I, _I, _P, _I, _I, _I, _I, _I, _P, _I, ctypes.c_uint32,
-            ctypes.c_uint32, _I, _I, _I, _I, _P, ctypes.c_longlong,
-            ctypes.c_longlong, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-            _P, _P, ctypes.c_float, _P, _P, _P, _P, _P, _P,
+            ctypes.c_uint32, _I, _I, _I, _I, _P, _L, _L, _P, _P, _P, _I, _P,
+            _P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_float, _P, _P, _P,
+            _P, _P, _P, _I, _L, _L, _L, _L, _P, _L,
         ]
-        lib.fused_mppi_launch.restype = _I
+        lib.fused_mppi_rollout.argtypes = [_I, _P, _I, _P, _I, _I, _I, _I, _P, _L, _L,
+                                           _P, _P]
+        lib.fused_mppi_weighted_update.argtypes = [_I, _P, _I, _I, _P, _P, _L, _P, _P,
+                                                   _P, _P]
+        for fn in (lib.fused_mppi_launch, lib.fused_mppi_rollout,
+                   lib.fused_mppi_weighted_update):
+            fn.restype = _I
         lib.fused_mppi_error_string.argtypes = [_I]
         lib.fused_mppi_error_string.restype = ctypes.c_char_p
         lib.fused_mppi_block.restype = _I
@@ -370,21 +422,24 @@ def _ptr(t):
     return t.data_ptr() if t is not None else None
 
 
-def _make_launch(variant: int, config: MPPIConfig, model: KernelModel, R: int,
-                 pair_block, emit_perturbed: bool, null_dynamic_gate: bool,
-                 terminal_final):
-    """Checks shared by the three factories, and the launch of one variant:
-    ``launch(lead, x0T, U2, base, op, mu, lo, hi, alo, ahi, a_flat, W,
-    lambda_, w_seq, dt)`` on CUDA tensors.  Returns ``(launch, flags, info)``
-    where ``flags`` are the plain version's keyword arguments."""
-    if null_dynamic_gate:
-        raise FusedSolveUnavailable(
-            "null_dynamic_gate is not ported yet (ROADMAP.md Queue 1 item 12, sharding)")
-    if terminal_final is not None:
-        raise FusedSolveUnavailable(
-            "terminal_final is not ported yet (ROADMAP.md Queue 1 item 5, terminal costs)")
-    K, T, nx, nu = config.K, config.T, config.nx, config.nu
-    D = T * nu
+def device_index(device) -> int:
+    return device.index if device.index is not None else torch.cuda.current_device()
+
+
+def stream_of(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def raise_on_error(lib, rc, what):
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: CUDA error {rc} "
+                           f"({lib.fused_mppi_error_string(rc).decode()})")
+
+
+def check_kernel_model(config: MPPIConfig, model: KernelModel):
+    """The checks every kernel of ``fused_mppi.cu`` makes of its config and
+    device model."""
+    nx, nu = config.nx, config.nu
     if config.dtype != torch.float32:
         raise ValueError("the fused solve requires float32")
     if (model.nx, model.nu) != (nx, nu):
@@ -394,70 +449,109 @@ def _make_launch(variant: int, config: MPPIConfig, model: KernelModel, R: int,
     if max(nx, nu) > _MAXN:
         raise FusedSolveUnavailable(
             f"nx={nx}, nu={nu}: the kernel's device models hold at most {_MAXN} of each")
+
+
+def _make_launch(variant: int, config: MPPIConfig, model: KernelModel, R: int,
+                 pair_block, emit_perturbed: bool, null_dynamic_gate: bool,
+                 terminal_final, plants: int = 1, noise_operand: bool = False):
+    """Checks shared by the four factories, and the launch of one variant:
+    ``launch(lead, x0T, U2, base, op, mu, lo, hi, alo, ahi, a_flat, W,
+    lambda_, w_seq, dt)`` on CUDA tensors.  The batched variant takes
+    ``plants`` plants: x0T (nx, N), U2 and a_flat (D, N) of any strides, and
+    in operand mode the final (D, ≥K) noise as ``lead``.  Returns ``(launch,
+    flags, info)`` where ``flags`` are the plain version's keyword
+    arguments."""
+    if null_dynamic_gate:
+        raise FusedSolveUnavailable(
+            "null_dynamic_gate is not ported yet (ROADMAP.md Queue 1 item 12, sharding)")
+    if terminal_final is not None:
+        raise FusedSolveUnavailable(
+            "terminal_final is not ported yet (ROADMAP.md Queue 1 item 5, terminal costs)")
+    check_kernel_model(config, model)
+    K, T, nx, nu = config.K, config.T, config.nx, config.nu
+    D = T * nu
+    batched = variant == BATCHED
+    antithetic = config.antithetic and not noise_operand  # the operand holds the mirror
     pair_block = pair_block or K + K % 2
-    if config.antithetic and pair_block % 2:
+    if antithetic and pair_block % 2:
         raise ValueError(f"antithetic pairing needs an even pair_block, got {pair_block}")
-    full_op = not (config.diag_sigma and not config.noise_rho)
+    full_op = not (noise_operand or config.diag_sigma and not config.noise_rho)
     # tiles that do not fit in shared memory go to a global scratch of one
     # (R, BLOCK) slice per block and tile
     shared = smem_bytes(variant, D, R, full_op) <= MAX_SMEM_BYTES
     nblocks = -(-K // _BLOCK)
-    scratch_elems = 0 if shared else nblocks * (2 if full_op else 1) * R * _BLOCK
-    K_pad = padded_k(K, pair_block)
-    bits_cols = K_pad // 2 if config.antithetic else K_pad
+    scratch_elems = 0 if shared else plants * nblocks * (2 if full_op else 1) * R * _BLOCK
+    K_pad = K if noise_operand else padded_k(K, pair_block)
+    bits_cols = K_pad // 2 if antithetic else K_pad
     flags = dict(model=model, K=K, T=T, nu=nu, antithetic=config.antithetic,
-                 null_action=config.sample_null_action,
                  abs_cost=config.noise_abs_cost, u_scale=float(config.u_scale),
-                 emit_perturbed=emit_perturbed, pair_block=pair_block)
+                 pair_block=pair_block)
+    if batched:
+        flags.update(noise_operand=noise_operand)
+    else:
+        flags.update(null_action=config.sample_null_action, emit_perturbed=emit_perturbed)
+    null_action = config.sample_null_action and not batched
+    cols = plants if batched else K
 
     def launch(lead, x0T, U2, base, op, mu, lo, hi, alo, ahi, a_flat, W, lam,
                w_seq, dt):
         device = x0T.device
-        _check("x0T", x0T, device, shape=(nx, K), contiguous=False)
-        for name, t in (("U2", U2), ("a_flat", a_flat), ("alo", alo), ("ahi", ahi)):
+        _check("x0T", x0T, device, shape=(nx, cols), contiguous=False)
+        for name, t in (("U2", U2), ("a_flat", a_flat)):
+            _check(name, t, device, shape=(D, plants) if batched else (D,),
+                   contiguous=not batched)
+        for name, t in (("alo", alo), ("ahi", ahi)):
             if t is not None:
                 _check(name, t, device, shape=(D,))
         for name, t in (("base", base), ("mu", mu), ("lo", lo), ("hi", hi)):
-            _check(name, t, device, shape=(R,))
-        _check("op", op, device, shape=(R, R) if full_op else (R,))
+            if t is not None:
+                _check(name, t, device, shape=(R,))
+        if not noise_operand:
+            _check("op", op, device, shape=(R, R) if full_op else (R,))
         if W is not None:
             _check("Wt", W, device, shape=(D, R))
         for name, t in (("lambda_", lam), ("w_seq", w_seq), ("delta_t", dt)):
             if t is not None:
                 _check(name, t.reshape(1), device, shape=(1,))
-        if isinstance(lead, torch.Tensor):
+        bits = noise = None
+        key = (0, 0)
+        if noise_operand:
+            noise = _check("noise", lead, device, contiguous=False)
+            if noise.ndim != 2 or noise.shape[0] != R or noise.shape[1] < K or noise.stride(1) != 1:
+                raise ValueError(f"the noise operand must be ({R}, >= {K}) with unit column "
+                                 f"stride, got {tuple(noise.shape)} strides {noise.stride()}")
+        elif isinstance(lead, torch.Tensor):
             bits = _check("bits", lead, device, dtype=torch.int32, shape=(R, bits_cols))
-            key = (0, 0)
         else:
-            bits = None
             key = tuple(int(w) & 0xFFFFFFFF for w in lead)
         consts = model.consts_on(device)
         f32 = dict(dtype=torch.float32, device=device)
-        cost = torch.empty(K, **f32)
-        partial = torch.empty((nblocks, R + 2), **f32)
-        delta = torch.empty(R, **f32)
-        ms = torch.empty(2, **f32)
+        cost = torch.empty((plants, K) if batched else K, **f32)
+        partial = torch.empty((plants, nblocks, R + 2), **f32)
+        delta = torch.empty((R, plants) if batched else R, **f32)
+        ms = torch.empty((2, plants) if batched else 2, **f32)
         pert = torch.empty((D, K), **f32) if emit_perturbed else None
         scratch = torch.empty(scratch_elems, **f32) if scratch_elems else None
         lib = _lib()
         rc = lib.fused_mppi_launch(
-            device.index if device.index is not None else torch.cuda.current_device(),
-            torch.cuda.current_stream(device).cuda_stream,
+            device_index(device), stream_of(device),
             variant, model.model_id, consts.data_ptr(), K, T, nx, nu, R,
             _ptr(bits), bits_cols, key[0], key[1], pair_block,
-            int(config.antithetic), int(config.sample_null_action),
+            int(antithetic), int(null_action),
             int(config.noise_abs_cost), x0T.data_ptr(), x0T.stride(0), x0T.stride(1),
-            U2.data_ptr(), base.data_ptr(), op.data_ptr(), int(full_op),
-            mu.data_ptr(), lo.data_ptr(), hi.data_ptr(), _ptr(alo), _ptr(ahi),
+            U2.data_ptr(), _ptr(base), _ptr(op), int(full_op),
+            _ptr(mu), lo.data_ptr(), hi.data_ptr(), _ptr(alo), _ptr(ahi),
             a_flat.data_ptr(), _ptr(W), lam.data_ptr(), _ptr(w_seq), _ptr(dt),
             float(config.u_scale), cost.data_ptr(), partial.data_ptr(),
             delta.data_ptr(), ms.data_ptr(), _ptr(pert), _ptr(scratch),
+            plants, U2.stride(0), U2.stride(-1) if batched else 0, a_flat.stride(0),
+            a_flat.stride(-1) if batched else 0, _ptr(noise),
+            noise.stride(0) if noise is not None else 0,
         )
-        if rc != 0:
-            raise RuntimeError(
-                f"fused_mppi launch failed: CUDA error {rc} "
-                f"({lib.fused_mppi_error_string(rc).decode()})")
-        launches[VARIANTS[variant]] += 2
+        raise_on_error(lib, rc, "fused_mppi")
+        launches["batched" if batched else VARIANTS[variant]] += 2
+        if batched:
+            return delta, ms, cost
         out = (delta, ms[0], ms[1], cost)
         return out + (pert,) if emit_perturbed else out
 
@@ -466,11 +560,12 @@ def _make_launch(variant: int, config: MPPIConfig, model: KernelModel, R: int,
     return launch, flags, info
 
 
-def _finish(solve, plain, flags, info):
-    """Route by device and attach the plain version and the shapes."""
+def finish(solve, plain, flags, info, device_arg: int = 1):
+    """Route by the device of argument ``device_arg`` and attach the plain
+    version and the shapes."""
 
     def routed(*args):
-        device = args[1].device
+        device = args[device_arg].device
         if device.type == "cuda":
             return solve(*args)
         if device.type != "cpu":
@@ -504,7 +599,7 @@ def make_transposed_fused_solve(config: MPPIConfig, model: KernelModel,
         return launch(seed_or_bits, x0T, U2, U2, op, mu_t, lo_t, hi_t, None, None,
                       a_flat, None, lambda_, None, None)
 
-    return _finish(solve, fused_solve_plain, flags, info)
+    return finish(solve, fused_solve_plain, flags, info)
 
 
 def make_transposed_smppi_solve(config: MPPIConfig, model: KernelModel,
@@ -527,7 +622,7 @@ def make_transposed_smppi_solve(config: MPPIConfig, model: KernelModel,
         return launch(seed_or_bits, x0T, U2, as2, op, mu_t, lo_t, hi_t, alo_t,
                       ahi_t, a_flat, None, lambda_, w_seq, delta_t)
 
-    return _finish(solve, smppi_solve_plain, flags, info)
+    return finish(solve, smppi_solve_plain, flags, info)
 
 
 def make_transposed_kmppi_solve(config: MPPIConfig, model: KernelModel,
@@ -552,4 +647,40 @@ def make_transposed_kmppi_solve(config: MPPIConfig, model: KernelModel,
         return launch(seed_or_bits, x0T, U2, theta2, op, mu_p, lop, hip, lo_t,
                       hi_t, a_flat, Wt, lambda_, None, None)
 
-    return _finish(solve, kmppi_solve_plain, dict(flags, nsp=nsp), info)
+    return finish(solve, kmppi_solve_plain, dict(flags, nsp=nsp), info)
+
+
+def make_transposed_batched_solve(config: MPPIConfig, num_envs: int,
+                                  model: KernelModel, pair_block: int = None,
+                                  noise_operand: bool = False,
+                                  terminal_final=None):
+    """The N-plant MPPI iteration as one fused-kernel call, with the call
+    contract of ``pallas_rollout.py:1142-1149``: ``solve(lead, x0T (nx, N),
+    U2T (D, N), op, mu_t, lo_t, hi_t (D,), aT (D, N), lambda_) -> (delta
+    (D, N), ms (2, N), cost (N, K))``, ``U_new = U + (delta / ms[1]).T``.
+
+    Three sampling modes, as the JAX kernel's: a Philox key (seed mode)
+    draws the shared noise in the kernel, from counters of the sample's
+    source column only, so every plant draws the same; (D, K_pad[/2]) int32
+    bits inject it; with ``noise_operand`` ``lead`` is the final (D, ≥K)
+    float32 noise (one draw outside, already mirrored, correlated and
+    mu-shifted) and the kernel draws nothing.  There is no null-action row.
+    Raises :class:`FusedSolveUnavailable` for ``terminal_final`` and for
+    more than 65,535 plants, and as :func:`make_transposed_fused_solve`."""
+    plants = int(num_envs)
+    if plants < 1:
+        raise ValueError(f"num_envs must be >= 1, got {plants}")
+    if plants > MAX_PLANTS:
+        raise FusedSolveUnavailable(
+            f"num_envs={plants}: the kernel's grid holds at most {MAX_PLANTS} plants")
+    D = config.T * config.nu
+    launch, flags, info = _make_launch(BATCHED, config, model, D, pair_block, False,
+                                       False, terminal_final, plants=plants,
+                                       noise_operand=noise_operand)
+
+    def solve(lead, x0T, U2T, op, mu_t, lo_t, hi_t, aT, lambda_):
+        return launch(lead, x0T, U2T, None, op, mu_t, lo_t, hi_t, None, None, aT,
+                      None, lambda_, None, None)
+
+    return finish(solve, batched_solve_plain, flags,
+                  dict(info, num_envs=plants, noise_operand=noise_operand))

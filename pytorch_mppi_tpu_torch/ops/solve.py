@@ -1,8 +1,9 @@
 """The MPPI solve as plain functions on tensors.
 
-The counterpart of ``pytorch_mppi_tpu/ops/solve.py`` for one plant and one
-optimisation cycle per command.  :func:`make_mppi_step`, :func:`make_smppi_step`
-and :func:`make_kmppi_step` each build the two ways a command runs:
+The counterpart of ``pytorch_mppi_tpu/ops/solve.py`` for one optimisation
+cycle per command.  :func:`make_mppi_step`, :func:`make_smppi_step`,
+:func:`make_kmppi_step` (one plant) and :func:`make_batched_step` (N plants
+that share the noise) each build the two ways a command runs:
 
 * the plain path, ``_one_iteration``: noise in the flat ``(K, T·nu)`` layout,
   the null-action row, the clamp, the rectified noise and its action cost, a
@@ -11,6 +12,10 @@ and :func:`make_kmppi_step` each build the two ways a command runs:
   call to the fused CUDA kernel (:mod:`.fused_solve`), which keeps the noise
   out of device memory.  On a CPU tensor that call runs the kernel's plain
   version.
+
+``make_mppi_step(use_pallas="rollout")`` keeps the plain path's noise, clamp
+and action cost and runs the rollout and the weighted update through the
+legacy route's two kernels (:mod:`.legacy`).
 
 SMPPI samples in action-rate space and integrates onto the commanded
 sequence (reference mppi.py:451-570); KMPPI samples at support points and
@@ -30,6 +35,7 @@ import torch
 
 from ..config import (
     Artifacts,
+    BatchedState,
     KMPPIParams,
     KMPPIState,
     MPPIConfig,
@@ -39,6 +45,7 @@ from ..config import (
     SMPPIState,
 )
 from . import fused_solve as FS
+from . import legacy as LG
 from .kernel_models import find_kernel_model
 
 logger = logging.getLogger(__name__)
@@ -318,6 +325,32 @@ def _route_transposed_solve(config: MPPIConfig, dynamics: Callable,
     return solve
 
 
+def _route_legacy_rollout(config: MPPIConfig, dynamics: Callable,
+                          running_cost: Callable):
+    """``use_pallas="rollout"`` routing (``solve.py:1133-1157``): the legacy
+    rollout kernel, or None (the plain path) with a warning saying why."""
+    model = find_kernel_model(dynamics, running_cost)
+    why = None
+    if model is None:
+        why = "the dynamics and running cost carry no kernel model (ops/kernel_models.py)"
+    elif not LG.pallas_eligible(config):
+        why = "the configuration is ineligible (non-float32 or step-dependent)"
+    else:
+        try:
+            rollout = LG.make_fused_rollout(config, model)
+        except FS.FusedSolveUnavailable as e:
+            why = str(e)
+    if why is not None:
+        logger.warning("use_pallas='rollout' requested but %s; using the plain torch path",
+                       why)
+        return None
+    logger.warning(
+        "use_pallas='rollout' selects the legacy kernel pair (the rollout and the "
+        "weighted update around the plain path's noise, %r kernel model); "
+        "use_pallas=True runs the whole iteration in one fused kernel", model.name)
+    return rollout
+
+
 # ---------------------------------------------------------------------------
 # Step factory
 # ---------------------------------------------------------------------------
@@ -329,18 +362,20 @@ class StepFns(NamedTuple):
     step: Callable  # (params, state, x0) -> (state, action, Artifacts)  [with shift]
     step_no_shift: Callable  # same, without the nominal-trajectory shift
     get_rollouts: Callable  # (params, x0 (R, nx), U (T, nu)) -> (R, T, nx)
-    fused: bool = False  # commands run through the fused kernel
+    fused: bool = False  # commands run through the kernels of csrc/fused_mppi.cu
 
 
 def make_mppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callable,
-                   use_pallas: bool = False) -> StepFns:
+                   use_pallas=False) -> StepFns:
     """Build the MPPI solve for one configuration.
 
     With ``use_pallas`` (the JAX package's name for its fused kernel), an
     eligible configuration whose dynamics and cost carry a kernel model runs
     each command through the fused CUDA kernel; otherwise the plain path runs,
     after a warning.  The fused path draws its noise from the kernel's own
-    Philox stream, so its samples differ from the plain path's.
+    Philox stream, so its samples differ from the plain path's.  With
+    ``use_pallas="rollout"`` the plain path's noise stream is kept and the
+    rollout and the weighted update run through the legacy kernels.
     """
     dyn = wrap_dynamics(config, dynamics)
     cost = wrap_cost(config, running_cost)
@@ -348,8 +383,11 @@ def make_mppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callabl
     K, T, nu = config.K, config.T, config.nu
     D = T * nu
 
+    legacy = use_pallas == "rollout"
+    fused_rollout = (_route_legacy_rollout(config, dynamics, running_cost)
+                     if legacy else None)
     transposed_solve = (_route_transposed_solve(config, dynamics, running_cost)
-                        if use_pallas else None)
+                        if use_pallas and not legacy else None)
 
     def _one_iteration_fused(params: MPPIParams, U, x0, s: int):
         """The whole cycle as one fused-kernel call; only the tiny operands
@@ -395,9 +433,18 @@ def make_mppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callabl
         n_for_cost = torch.abs(noise2) if config.noise_abs_cost else noise2
         perturbation_cost = n_for_cost @ a_flat
         perturbed = perturbed2.reshape(K, T, nu)
-        cost_total = rollout_costs(config, dyn, cost, x0, perturbed) + perturbation_cost
-        cost_total_non_zero, omega = compute_weighting(cost_total, params.lambda_)
-        U_new = U + (omega @ noise2).reshape(T, nu)
+        if fused_rollout is None:
+            cost_total = rollout_costs(config, dyn, cost, x0, perturbed) + perturbation_cost
+            cost_total_non_zero, omega = compute_weighting(cost_total, params.lambda_)
+            U_new = U + (omega @ noise2).reshape(T, nu)
+        else:
+            # the legacy kernels (solve.py:1366-1391): x0 broadcast to (K, nx)
+            x0_K = x0 if x0.ndim == 2 else x0[None].expand(K, x0.shape[-1])
+            cost_total = fused_rollout(x0_K, perturbed * config.u_scale) + perturbation_cost
+            pert_flat, m, s_ = LG.fused_weighted_update(cost_total, noise2, params.lambda_)
+            cost_total_non_zero, omega = FS.weighting_from_stats(
+                cost_total, params.lambda_, m, s_)
+            U_new = U + (pert_flat / s_).reshape(T, nu)
         return U_new, Artifacts(cost_total, cost_total_non_zero, omega,
                                 noise2.reshape(K, T, nu), perturbed)
 
@@ -417,7 +464,7 @@ def make_mppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callabl
 
     return StepFns(step=step, step_no_shift=step_no_shift,
                    get_rollouts=make_get_rollouts(config, dyn),
-                   fused=transposed_solve is not None)
+                   fused=transposed_solve is not None or fused_rollout is not None)
 
 
 def make_smppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callable,
@@ -625,6 +672,157 @@ def make_kmppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callab
                    step_no_shift=lambda params, state, x0: _solve(params, state, x0, False),
                    get_rollouts=make_get_rollouts(config, dyn),
                    fused=transposed_solve is not None)
+
+
+# The K from which the batched kernel's command is faster than the plain
+# path's, from chip_smoke.py's crossover sweep on an NVIDIA H100 80GB HBM3 at
+# 700 W (N = 64, T = 30, K = 256, 512, 1,024, 2,048, 4,096 and 10,240; plain
+# and both kernel modes in turns in one call): the operand-mode command took
+# 0.82-1.05 ms against the plain path's 3.19-4.25 ms at every K measured, so
+# this is the smallest K measured.  PERF.md records the sweep.
+_BATCHED_KERNEL_MIN_K = 256
+BATCHED_USE_PALLAS = (False, True, "force", "kernel_rng")
+
+
+def make_batched_step(config: MPPIConfig, num_envs: int, dynamics: Callable,
+                      running_cost: Callable, use_pallas=False,
+                      transposed_solve_override=None) -> StepFns:
+    """Build the solve of N plants that share one noise draw
+    (``pytorch_mppi_tpu/ops/solve.py:1944-2273``, reference
+    ``mppi.py:691-873``): the rollout runs the (N·K,) flat batch, and each
+    plant has its own softmax along K.  The steps take :class:`MPPIParams`,
+    :class:`BatchedState` and (N, nx) states, and return (N, nu) actions, or
+    (N, u_per_command, nu).
+
+    ``use_pallas`` is decided once, here: ``True`` runs the batched kernel in
+    operand mode (one ``sample_noise_flat`` draw passed to it) from
+    ``_BATCHED_KERNEL_MIN_K`` samples on and the plain path below, with an
+    info log; ``"force"`` keeps operand mode at any K and ``"kernel_rng"``
+    the in-kernel draw (seed mode), each with a warning below that K.  A
+    configuration the kernel cannot take goes to the plain path with a
+    warning.  ``transposed_solve_override`` is a built batched solve that
+    takes the route's place (the tests drive bits mode through it).
+
+    The JAX gates on M, ``risk_alpha``, gradient refinement, elites and
+    adaptive covariance have nothing to check: the port's config has none of
+    those fields, and its controllers reject the flags.  Without ``mesh``,
+    terminal costs and ``dyn_params`` (ROADMAP.md Queue 1 items 12, 5, 9).
+    """
+    if use_pallas not in BATCHED_USE_PALLAS:
+        raise ValueError(f"use_pallas must be one of {BATCHED_USE_PALLAS}, got {use_pallas!r}")
+    dyn = wrap_dynamics(config, dynamics)
+    cost = wrap_cost(config, running_cost)
+    dtype = config.dtype
+    N, K, T, nu, nx = int(num_envs), config.K, config.T, config.nu, config.nx
+    D = T * nu
+
+    if transposed_solve_override is not None and config.fused_artifacts:
+        # the override bypasses the route's guards: fail loud rather than
+        # drop the artifacts it cannot give
+        raise ValueError(
+            "transposed_solve_override is incompatible with fused_artifacts: the "
+            "injected kernel bypasses the guards the use_pallas route applies")
+    transposed_solve = transposed_solve_override
+    if config.sample_null_action:
+        logger.warning("MPPI_Batched does not support sample_null_action (matching the "
+                       "reference); the flag is ignored")
+    if use_pallas and config.fused_artifacts:
+        logger.warning(
+            "use_pallas on MPPI_Batched with fused_artifacts: the batched kernel keeps "
+            "the (N, K, T*nu) tensors out of device memory, so it cannot give them; "
+            "using the plain torch path")
+        use_pallas = False
+    if use_pallas is True and K < _BATCHED_KERNEL_MIN_K:
+        logger.info(
+            "use_pallas=True on MPPI_Batched with K=%d: the batched kernel measured "
+            "faster only for K >= %d, so the plain torch path is used; pass "
+            "use_pallas='force' (operand mode) or 'kernel_rng' to keep the kernel",
+            K, _BATCHED_KERNEL_MIN_K)
+        use_pallas = False
+    if use_pallas and transposed_solve is None:
+        noise_operand = use_pallas != "kernel_rng"
+        transposed_solve = _route_transposed_solve(
+            config, dynamics, running_cost,
+            lambda c, model, **_: FS.make_transposed_batched_solve(
+                c, N, model, noise_operand=noise_operand),
+            "MPPI_Batched")
+        if transposed_solve is not None and K < _BATCHED_KERNEL_MIN_K:
+            logger.warning(
+                "use_pallas=%r on MPPI_Batched with K=%d: the batched kernel measured "
+                "faster only for K >= %d; the plain torch path is likely faster here",
+                use_pallas, K, _BATCHED_KERNEL_MIN_K)
+
+    def _one_iteration_fused(params: MPPIParams, U, x0, s: int):
+        """The N-plant iteration as one batched-kernel call.  In operand mode
+        the noise is the plain path's ``sample_noise_flat`` draw, padded to
+        ``K_pad`` and laid out (D, K_pad), so the two paths differ only by
+        float32 summation order."""
+        sigma_inv, op, mu_t, lo2, hi2 = _transposed_operands(
+            params.noise_sigma, params.noise_mu, params.u_min, params.u_max,
+            config, T, nu, dtype)
+        a2 = (params.lambda_ * torch.einsum("ntu,vu->ntv", U, sigma_inv)).reshape(N, D)
+        if transposed_solve.noise_operand:
+            chol, _ = _sigma_factors(params.noise_sigma, diag=config.diag_sigma)
+            noise2 = sample_noise_flat(
+                _generator(s, U.device), K, T, params, dtype,
+                antithetic=config.antithetic, chol=chol,
+                noise_rho=config.noise_rho, diag_sigma=config.diag_sigma)
+            lead = torch.nn.functional.pad(
+                noise2, (0, 0, 0, transposed_solve.K_pad - K)).T.contiguous()
+        else:
+            lead = FS.key_to_seed(s)
+        delta, ms, cost_total = transposed_solve(
+            lead, x0.T, U.reshape(N, D).T, op, mu_t, lo2, hi2, a2.T, params.lambda_)
+        m, s_ = ms[0], ms[1]
+        ctnz, omega = FS.weighting_from_stats(cost_total, params.lambda_, m[:, None],
+                                              s_[:, None])
+        U_new = U + (delta / s_[None, :]).T.reshape(N, T, nu)
+        return U_new, Artifacts(cost_total, ctnz, omega, None, None)
+
+    def _one_iteration(params: MPPIParams, U, x0, s: int):
+        if transposed_solve is not None:
+            return _one_iteration_fused(params, U, x0, s)
+        chol, sigma_inv = _sigma_factors(params.noise_sigma, diag=config.diag_sigma)
+        noise2 = sample_noise_flat(
+            _generator(s, U.device), K, T, params, dtype,
+            antithetic=config.antithetic, chol=chol,
+            noise_rho=config.noise_rho, diag_sigma=config.diag_sigma)  # (K, D), shared
+        U2 = U.reshape(N, D)
+        perturbed2 = _bound(U2[:, None] + noise2[None], _tile_bound(params.u_min, nu, T, dtype),
+                            _tile_bound(params.u_max, nu, T, dtype))  # (N, K, D)
+        del noise2
+        actual_noise2 = perturbed2 - U2[:, None]
+        # the N·K rollouts as one flat batch (mppi.py:844-853)
+        state0 = x0[:, None].expand(N, K, nx).reshape(N * K, nx)
+        cost_total = rollout_costs(config, dyn, cost, state0,
+                                   perturbed2.reshape(N * K, T, nu)).reshape(N, K)
+        a2 = (params.lambda_ * torch.einsum("ntu,vu->ntv", U, sigma_inv)).reshape(N, D)
+        n_for_cost = torch.abs(actual_noise2) if config.noise_abs_cost else actual_noise2
+        cost_total = cost_total + torch.einsum("nkd,nd->nk", n_for_cost, a2)
+        del n_for_cost
+        cost_total_non_zero, omega = compute_weighting(cost_total, params.lambda_, dim=1)
+        U_new = U + torch.einsum("nk,nkd->nd", omega, actual_noise2).reshape(N, T, nu)
+        return U_new, Artifacts(cost_total, cost_total_non_zero, omega,
+                                actual_noise2.reshape(N, K, T, nu),
+                                perturbed2.reshape(N, K, T, nu))
+
+    def _solve(params: MPPIParams, state: BatchedState, x0, shift: bool):
+        U = state.U
+        if shift:
+            U = torch.roll(U, -1, dims=1)
+            U[:, -1] = params.u_init
+        x0 = torch.as_tensor(x0, dtype=dtype, device=U.device)
+        U_new, artifacts = _one_iteration(params, U, x0,
+                                          iteration_seed(state.seed, state.counter))
+        action = U_new[:, : config.u_per_command]
+        if config.u_per_command == 1:
+            action = action[:, 0]
+        return (BatchedState(U=U_new, seed=state.seed, counter=state.counter + 1),
+                action, artifacts)
+
+    return StepFns(step=lambda params, state, x0: _solve(params, state, x0, True),
+                   step_no_shift=lambda params, state, x0: _solve(params, state, x0, False),
+                   get_rollouts=None, fused=transposed_solve is not None)
 
 
 def make_get_rollouts(config: MPPIConfig, wrapped_dynamics: Callable) -> Callable:

@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from ..config import (
+    BatchedState,
     KMPPIParams,
     KMPPIState,
     MPPIParams,
@@ -77,3 +78,9 @@ def kmppi_state_from_numpy(U, theta, seed: int, dtype=torch.float32,
     control points ``theta`` (nsp, nu), with a fresh ``seed``."""
     return KMPPIState(U=_tensor(U, dtype, device), theta=_tensor(theta, dtype, device),
                       seed=int(seed))
+
+
+def batched_state_from_numpy(U, seed: int, dtype=torch.float32, device="cpu") -> BatchedState:
+    """The port's :class:`BatchedState` with the JAX plants' nominal
+    sequences ``U`` (N, T, nu) and a fresh stream ``seed``."""
+    return BatchedState(U=_tensor(U, dtype, device), seed=int(seed))

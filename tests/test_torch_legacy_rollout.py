@@ -1,0 +1,239 @@
+"""The legacy ``use_pallas="rollout"`` route of the port against the JAX
+package on the CPU.
+
+* ``legacy.make_fused_rollout`` and ``legacy.fused_weighted_update`` (their
+  plain versions, on CPU tensors) against ``pallas_rollout.make_fused_rollout``
+  and ``fused_weighted_update`` in Pallas interpret mode, with K not a
+  multiple of 128 so that the JAX kernels pad;
+* ``make_mppi_step(use_pallas="rollout")`` against JAX's on the same normals,
+  and ``MPPI(use_pallas="rollout")`` against the port's plain ``MPPI``;
+* ``use_pallas`` keeps its value, and any other string raises.
+
+Float32 on both sides.  Costs rtol 2e-5 / atol 1e-5, the update rtol 2e-4 /
+atol 2e-6 (``tests/test_pallas_transposed.py:102-107``); the controllers at
+``tests/test_utils.py:288-310``'s tolerances.  The CUDA kernels are held
+against the plain versions on the card by ``chip_smoke.py``.
+"""
+import importlib.util
+import logging
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from pytorch_mppi_tpu.config import MPPIConfig as JConfig
+from pytorch_mppi_tpu.config import MPPIParams as JParams
+from pytorch_mppi_tpu.config import MPPIState as JState
+from pytorch_mppi_tpu.models import pendulum as jpend
+from pytorch_mppi_tpu.models.toy2d import Toy2DEnvironment as JToy2D
+from pytorch_mppi_tpu.ops import pallas_rollout as PR
+from pytorch_mppi_tpu.ops import solve as JS
+
+from pytorch_mppi_tpu_torch import MPPI
+from pytorch_mppi_tpu_torch.config import MPPIConfig, MPPIState
+from pytorch_mppi_tpu_torch.models import Toy2DEnvironment
+from pytorch_mppi_tpu_torch.models.pendulum import PENDULUM_MODEL
+from pytorch_mppi_tpu_torch.ops import fused_solve as FS
+from pytorch_mppi_tpu_torch.ops import legacy as LG
+from pytorch_mppi_tpu_torch.ops import solve as PS
+from pytorch_mppi_tpu_torch.ops.kernel_models import linear_quadratic
+from pytorch_mppi_tpu_torch.utils.convert import params_from_numpy
+
+torch.set_num_threads(1)
+
+F32 = jnp.float32
+B_NP = np.array([[1.0, 0.0], [0.0, -1.0]], np.float32)
+GOAL_NP = np.array([2.0, 2.0], np.float32)
+
+
+def _problem(name):
+    """(JAX dynamics, JAX cost, port kernel model, nu)."""
+    if name == "pendulum":
+        return jpend.pendulum_dynamics, jpend.pendulum_running_cost, PENDULUM_MODEL, 1
+    if name == "toy2d":
+        jenv = JToy2D(dtype=F32)
+        return jenv.dynamics, jenv.running_cost, Toy2DEnvironment().kernel_model, 2
+    B, goal = jnp.asarray(B_NP, F32), jnp.asarray(GOAL_NP, F32)
+    return (lambda s, a: s + a @ B.T, lambda s, a: ((goal - s) ** 2).sum(axis=-1),
+            linear_quadratic(torch.from_numpy(B_NP), torch.from_numpy(GOAL_NP)), 2)
+
+
+@pytest.mark.parametrize("problem", ["linear", "pendulum", "toy2d"])
+@pytest.mark.parametrize("shared_x0", [True, False], ids=["shared_x0", "per_sample_x0"])
+def test_rollout_plain_matches_jax_kernel(problem, shared_x0):
+    rs = np.random.RandomState(2)
+    K, T = 200, 7
+    jdyn, jcost, model, nu = _problem(problem)
+    jcfg = JConfig(nx=2, nu=nu, K=K, T=T, dtype=F32)
+    rollout_j = PR.make_fused_rollout(jcfg, JS.wrap_dynamics(jcfg, jdyn),
+                                      JS.wrap_cost(jcfg, jcost))
+    x0 = rs.randn(2).astype(np.float32)
+    x0_K = (np.broadcast_to(x0, (K, 2)) if shared_x0
+            else rs.randn(K, 2).astype(np.float32))
+    u = (rs.randn(K, T, nu) * 1.3).astype(np.float32)
+    cost_j = np.asarray(rollout_j(jnp.asarray(x0_K), jnp.asarray(u)))
+
+    rollout_p = LG.make_fused_rollout(MPPIConfig(nx=2, nu=nu, K=K, T=T), model)
+    x0_p = (torch.from_numpy(x0)[None].expand(K, 2) if shared_x0
+            else torch.from_numpy(x0_K))
+    cost_p = rollout_p(x0_p, torch.from_numpy(u))
+    assert cost_p.shape == (K,) and cost_p.dtype == torch.float32
+    np.testing.assert_allclose(cost_p.numpy(), cost_j, rtol=2e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("K,D", [(200, 12), (1100, 60)], ids=["K200", "K1100"])
+def test_weighted_update_plain_matches_jax_kernel(K, D):
+    """Padded rows weigh exactly 0 in the JAX kernel; the plain version has
+    none.  (pert, m, s) and the update pert / s agree."""
+    rs = np.random.RandomState(4)
+    cost = (rs.rand(K) * 40 + 5).astype(np.float32)
+    noise = rs.randn(K, D).astype(np.float32)
+    lam = np.float32(0.7)
+    pert_j, m_j, s_j = (np.asarray(v) for v in PR.fused_weighted_update(
+        jnp.asarray(cost), jnp.asarray(noise), jnp.asarray(lam)))
+    pert_p, m_p, s_p = (v.numpy() for v in LG.fused_weighted_update(
+        torch.from_numpy(cost), torch.from_numpy(noise), torch.tensor(lam)))
+    np.testing.assert_allclose(m_p, m_j, rtol=2e-5, atol=1e-5)
+    np.testing.assert_allclose(s_p, s_j, rtol=2e-5)
+    np.testing.assert_allclose(pert_p / s_p, pert_j / s_j, rtol=2e-4, atol=2e-6)
+    # the plain version is the reference's weighting (mppi.py:254-270)
+    _, omega = PS.compute_weighting(torch.from_numpy(cost), torch.tensor(lam))
+    np.testing.assert_allclose(pert_p / s_p, (omega @ torch.from_numpy(noise)).numpy(),
+                               rtol=2e-4, atol=2e-6)
+
+
+def _patch_normals(monkeypatch):
+    """The same N(0, 1) draws on either side, in call order."""
+    jbank, pbank = np.random.RandomState(0), np.random.RandomState(0)
+    monkeypatch.setattr(jax.random, "normal",
+                        lambda key, shape, dtype=None: jnp.asarray(jbank.randn(*shape), F32))
+    monkeypatch.setattr(PS, "standard_normal",
+                        lambda gen, shape, dtype, device: torch.tensor(
+                            pbank.randn(*shape), dtype=dtype, device=device))
+
+
+@pytest.mark.parametrize("flags", [{}, {"u_scale": 1.5, "noise_abs_cost": True}],
+                         ids=["linear", "u_scale_abs"])
+def test_rollout_step_matches_jax(monkeypatch, flags):
+    """Three chained ``use_pallas="rollout"`` steps against JAX's, which run
+    its two legacy kernels in interpret mode, on the same normals."""
+    K, T, nu = 200, 6, 2
+    jdyn, jcost, model, _ = _problem("linear")
+    fields = dict(noise_mu=np.full(nu, 0.05, np.float32), noise_sigma=np.diag([0.8, 1.2]),
+                  lambda_=np.float32(0.8), u_min=np.full(nu, -1.0, np.float32),
+                  u_max=np.full(nu, 1.0, np.float32), u_init=np.zeros(nu, np.float32))
+    U0 = (np.random.RandomState(1).randn(T, nu) * 0.3).astype(np.float32)
+    x0 = np.array([-3.0, -2.0], np.float32)
+    jcfg = JConfig(nx=2, nu=nu, K=K, T=T, dtype=F32, diag_sigma=True, **flags)
+    jfns = JS.make_mppi_step(jcfg, jdyn, jcost, jit=False, use_pallas="rollout")
+    jparams = JParams(**{k: jnp.asarray(v, F32) for k, v in fields.items()})
+    jstate = JState(U=jnp.asarray(U0), key=jax.random.PRNGKey(0))
+    cfg = MPPIConfig(nx=2, nu=nu, K=K, T=T, diag_sigma=True, **flags)
+    fns = PS.make_mppi_step(cfg, model.dynamics, model.running_cost, use_pallas="rollout")
+    assert fns.fused
+    params, state = params_from_numpy(**fields), MPPIState(U=torch.from_numpy(U0), seed=0)
+    _patch_normals(monkeypatch)
+    for _ in range(3):
+        jstate, jaction, jart = jfns.step(jparams, jstate, jnp.asarray(x0))
+        state, action, art = fns.step(params, state, torch.from_numpy(x0))
+        np.testing.assert_allclose(art.cost_total.numpy(), np.asarray(jart.cost_total),
+                                   rtol=2e-5, atol=1e-5)
+        np.testing.assert_allclose(art.omega.numpy(), np.asarray(jart.omega),
+                                   rtol=2e-4, atol=2e-6)
+        np.testing.assert_allclose(state.U.numpy(), np.asarray(jstate.U), rtol=2e-4, atol=2e-6)
+        np.testing.assert_allclose(action.numpy(), np.asarray(jaction), rtol=2e-4, atol=2e-6)
+        np.testing.assert_allclose(art.noise.numpy(), np.asarray(jart.noise),
+                                   rtol=2e-4, atol=2e-6)
+
+
+LQ = linear_quadratic(torch.tensor([[1.0, 0.0], [0.0, -1.0]]), torch.tensor([2.0, 2.0]))
+
+
+def _mppi(use_pallas, **kw):
+    return MPPI(LQ.dynamics, LQ.running_cost, 2, torch.eye(2), num_samples=256, horizon=8,
+                lambda_=1.0, seed=3, device="cpu", use_pallas=use_pallas, **kw)
+
+
+def test_controller_rollout_matches_plain():
+    """The legacy route shares the plain path's noise stream, so each
+    command's action matches it (tests/test_utils.py:288-310)."""
+    c_ref, c_leg = _mppi(False), _mppi("rollout")
+    assert c_leg.use_pallas == "rollout" and c_leg._fns.fused and not c_ref._fns.fused
+    state = torch.tensor([-3.0, -2.0])
+    for _ in range(3):
+        a1, a2 = c_ref.command(state), c_leg.command(state)
+        np.testing.assert_allclose(a1.numpy(), a2.numpy(), rtol=1e-4, atol=1e-5)
+        state = LQ.dynamics(state[None], a1[None])[0]
+    np.testing.assert_allclose(c_ref.omega.numpy(), c_leg.omega.numpy(), rtol=1e-4, atol=1e-7)
+    assert c_leg.noise is not None and c_leg.noise.shape == (256, 8, 2)
+
+
+def test_use_pallas_keeps_its_value():
+    """``"rollout"`` is not collapsed to True: it selects another solve, and
+    the step cache is keyed by the value as given."""
+    c = _mppi("rollout")
+    assert c.use_pallas == "rollout"
+    assert _mppi(True).use_pallas is True and _mppi(0).use_pallas is False
+    key = next(iter(c._fns_cache))
+    assert key[1] == "rollout"
+    with pytest.raises(ValueError, match="use_pallas"):
+        _mppi("bogus")
+    with pytest.raises(ValueError, match="use_pallas"):
+        _mppi("force")  # a batched mode, not MPPI's
+
+
+def test_ineligible_configs_warn_and_take_plain_path(caplog):
+    with caplog.at_level(logging.WARNING, logger="pytorch_mppi_tpu_torch"):
+        fns = PS.make_mppi_step(MPPIConfig(nx=2, nu=2, K=8, T=3), lambda s, a: s,
+                                lambda s, a: s.sum(-1), use_pallas="rollout")
+    assert not fns.fused and "no kernel model" in caplog.text
+    caplog.clear()
+    with caplog.at_level(logging.WARNING, logger="pytorch_mppi_tpu_torch"):
+        fns = PS.make_mppi_step(MPPIConfig(nx=2, nu=2, K=8, T=3, dtype=torch.float64),
+                                LQ.dynamics, LQ.running_cost, use_pallas="rollout")
+    assert not fns.fused and "ineligible" in caplog.text
+    assert LG.pallas_eligible(MPPIConfig(nx=2, nu=2, K=8, T=3))
+    assert not LG.pallas_eligible(MPPIConfig(nx=2, nu=2, K=8, T=3, step_dependent_dynamics=True))
+
+
+def test_wrappers_check_their_inputs():
+    rollout = LG.make_fused_rollout(MPPIConfig(nx=2, nu=2, K=8, T=3), LQ)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        rollout(torch.empty((8, 2), device="meta"), torch.empty((8, 3, 2), device="meta"))
+    with pytest.raises(FS.FusedSolveUnavailable, match="at most 32"):
+        LG.make_fused_rollout(MPPIConfig(nx=33, nu=2, K=8, T=3),
+                              linear_quadratic(torch.zeros(33, 2), torch.zeros(33)))
+    assert set(FS.launches) == {"mppi", "smppi", "kmppi", "batched", "rollout",
+                                "weighted_update"}
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def test_legacy_work_counts_inputs_once():
+    """``chip_smoke.rollout_work`` and ``weighted_update_work``, the bounds'
+    counts: a shared x0 is nx values, the actions and the noise are read
+    once, and the rollout's actions come scaled (no u_scale product)."""
+    smoke = _chip_smoke()
+    K, T, nu, D = 300, 4, 2, 8
+    u = torch.zeros(K, T, nu)
+    ops, nbytes = smoke.rollout_work(LQ, torch.zeros(2)[None].expand(K, 2), u)
+    # x' = x + u Bᵀ: nx (2 nu + 1); |goal - x'|²: 3 nx; the sum: 1
+    assert ops == K * T * (2 * (2 * nu + 1) + 3 * 2 + 1)
+    assert nbytes == 4 * (2 + K * T * nu + LQ.consts.numel() + K)
+    _, per_sample = smoke.rollout_work(LQ, torch.zeros(K, 2), u)
+    assert per_sample - nbytes == 4 * (2 * K - 2)
+    ops, nbytes = smoke.weighted_update_work(K, D)
+    assert ops == K * (5 + 2 * D) + 3 * (5 + 4 * D)
+    assert nbytes == 4 * (K + K * D + 1 + D + 2)
+    assert smoke.bound((67e9, 0)) == (1.0, "operations")
+    assert smoke.bound((0, 3.35e9)) == (1.0, "bytes")
