@@ -2,7 +2,8 @@
 """On-card smoke test of pytorch_mppi_tpu_torch: builds the CUDA kernels,
 holds each against its plain PyTorch version (the fused iteration's MPPI,
 SMPPI, KMPPI and batched variants; the legacy route's rollout and weighted
-update), and drives the port's main paths.
+update; the ops-level sampling front-end and row-major round-1 solve), and
+drives the port's main paths.
 
     python3 chip_smoke.py
 
@@ -21,7 +22,15 @@ the package is not beside it.  Phases, each fatal when it fails:
    the batched variant in bits, seed and operand mode (N = 16, K = 10,240;
    the full width N = 1,024, K = 16,384; antithetic; D = 300 with a full
    operator; the pendulum and toy2d); the legacy rollout and weighted update
-   at K = 10,000, T = 30 and at K not a multiple of the block;
+   at K = 10,000, T = 30 and at K not a multiple of the block; the sampler
+   (``ops/rowmajor.py``) in bits and seed mode at the flagship (diagonal,
+   antithetic, null row with the absolute cost, a full operator with
+   ``noise_rho``), at K = 777 and at D = 300, then the moments of its
+   seed-mode draws and its normals against the transposed kernel's; the
+   round-1 solve in bits and seed mode at the flagship, K = 130, with the
+   null row, ``u_scale`` and a full sigma, on the pendulum and at D = 300,
+   then the moments through its cost and its costs against the transposed
+   kernel's on one key;
 4. main paths: 1,000 closed-loop commands of ``MPPI``, ``SMPPI`` and
    ``KMPPI`` on ``linear_quadratic`` at K = 10,000, T = 30 (``bench.py``'s
    flagship problem), fused (``use_pallas=True``) with the launch count and
@@ -31,14 +40,18 @@ the package is not beside it.  Phases, each fatal when it fails:
    K = 16,384, T = 30 and at N = 16, K = 10,240: operand mode, seed mode and
    the plain path, the launch counts and the fused step held to the plain
    step on one seed; the crossover sweep of the batched kernel (N = 64,
-   K = 256 to 10,240); the kernels alone at the main paths' shapes;
+   K = 256 to 10,240); the ops-level kernels' loops at the flagship, 1,000
+   commands each: the round-1 solve in seed mode (2 launches a command) and
+   JAX's "psampler" solve from port kernels (the sampler, the legacy rollout
+   and weighted update: 4 launches), each held to its plain versions for one
+   command; the kernels alone at the main paths' shapes;
 5. swing-up: the pendulum with ``use_pallas=True``, 150 steps;
 6. closed loops through the kernels: the ``tests/test_mppi.py`` LQ problem
    (KMPPI reaches the goal, SMPPI stays finite), the toy2d comparison of
    ``examples/smooth_mppi.py`` (MPPI, SMPPI, KMPPI), and
    ``examples/scenario_batch.py``'s loops (N = 16 and N = 1,024: more than
    90 % of the plants end within 0.5 of the goal);
-7. the ``kernels`` line, the card line, then the last line
+7. the ``kernels`` line (eight kernels), the card line, then the last line
    ``{"ok": true, "device": ...}``.
 """
 import json
@@ -105,7 +118,10 @@ def fused_work(config, model, seed_or_bits, x0T, op, emit_perturbed=False,
     between the two kernels are not the function's.  R is the rows drawn
     and updated: D = T·nu, or Dp = nsp·nu for KMPPI.  A float32
     ``seed_or_bits`` is the batched variant's final noise operand: nothing
-    is drawn, and the operator is not read."""
+    is drawn, and the operator is not read.  The round-1 solve
+    (``variant="rowmajor"``) takes x0 (nx,), ``op`` the (nu, nu) Cholesky
+    factor applied per timestep and mu, lo, hi of nu values, and draws with
+    no antithetic sign."""
     from pytorch_mppi_tpu_torch.ops.fused_solve import _BLOCK
 
     K, T, nx, nu = config.K, config.T, config.nx, config.nu
@@ -116,9 +132,13 @@ def fused_work(config, model, seed_or_bits, x0T, op, emit_perturbed=False,
     full_op = op.ndim == 2 and not operand
     absc = int(config.noise_abs_cost)
     # per drawn row: the normal (bits -> u: 6; Giles' erfinv: 22; sqrt(2)
-    # and the antithetic sign: 2), the transform; nothing for an operand
-    draw = 0 if operand else 30 + (2 * R + 1 if full_op else 2)
-    if variant in ("mppi", "batched"):
+    # and the antithetic sign: 2), the transform; nothing for an operand.
+    # The round-1 solve: no sign, and nu multiply-adds and mu a row
+    if variant == "rowmajor":
+        draw = 29 + 2 * nu + 1
+    else:
+        draw = 0 if operand else 30 + (2 * R + 1 if full_op else 2)
+    if variant in ("mppi", "batched", "rowmajor"):
         # U + n, the clamp, the rectified noise and its action cost, the
         # weighted update (3)
         per_sample = D * (draw + 6 + absc + 3)
@@ -138,14 +158,39 @@ def fused_work(config, model, seed_or_bits, x0T, op, emit_perturbed=False,
     per_sample += philox + T * _per_step(model, nx, nu) + 7
     nblocks = -(-K // _BLOCK)
     operations = plants * (K * per_sample + nblocks * (5 + 4 * R))
-    x0_elems = nx if x0T.stride(1) == 0 else x0T.numel()
+    x0_elems = nx if x0T.ndim == 1 or x0T.stride(1) == 0 else x0T.numel()
     vectors = {"mppi": 5 * D + 1, "smppi": 8 * D + 3,
                "kmppi": 4 * D + 4 * R + D * R + 1,
-               "batched": 2 * D * plants + 3 * D + 1}[variant]
+               "batched": 2 * D * plants + 3 * D + 1,
+               "rowmajor": 2 * D + 3 * nu + 1}[variant]
     in_elems = (x0_elems + vectors + (0 if operand else op.numel())
                 + model.consts.numel() + (0 if seed_mode else seed_or_bits.numel()))
     out_elems = plants * (K + R + 2) + (D * K if emit_perturbed else 0)
     return operations, 4 * (in_elems + out_elems)
+
+
+def sampler_work(config, sample, seed_or_bits, op):
+    """``(operations, bytes)`` of the sampling front-end on these inputs.
+    One draw (30 operations, as ``fused_work``'s, plus Philox's 98 for each
+    counter of four words in seed mode) for each element of a source row
+    that a live sample reads (a mirrored row reads its partner's); per
+    output element the transform (2, or 2D + 1 with a full op), U + n, the
+    clamp, the rectified noise and its cost.  Bytes: the bits as given, the
+    five D-vectors and the op read once, perturbed (K, D) and the cost (K,)
+    written once."""
+    from pytorch_mppi_tpu_torch.ops.fused_solve import source_columns
+
+    K, D = config.K, config.T * config.nu
+    src, _ = source_columns(K, sample.block_k, config.antithetic, "cpu")
+    draws = int(src.unique().numel())
+    seed_mode = not isinstance(seed_or_bits, torch.Tensor)
+    transform = 2 * D + 1 if op.ndim == 2 else 2
+    per_elem = transform + 1 + 2 + 1 + 2 + int(config.noise_abs_cost)
+    operations = draws * D * 30 + K * D * per_elem
+    if seed_mode:
+        operations += draws * -(-D // 4) * 98
+    in_elems = (0 if seed_mode else seed_or_bits.numel()) + 5 * D + op.numel()
+    return operations, 4 * (in_elems + K * D + K)
 
 
 def rollout_work(model, x0_K, u_scaled):
@@ -293,6 +338,7 @@ def main():
     from pytorch_mppi_tpu_torch.ops import _build
     from pytorch_mppi_tpu_torch.ops import fused_solve as FS
     from pytorch_mppi_tpu_torch.ops import legacy as LG
+    from pytorch_mppi_tpu_torch.ops import rowmajor as RM
     from pytorch_mppi_tpu_torch.ops import solve as PS
     from pytorch_mppi_tpu_torch.ops.kernels import interpolation_operators
 
@@ -611,6 +657,153 @@ def main():
                                                 u_err)
     print(f"# kernel vs plain: {len(legacy_cases)} rollout and 4 weighted-update cases agreed")
 
+    # the ops-level kernels (ops/rowmajor.py).  The sampler: (name, K, T, nu,
+    # config flags, sigma); the flagship takes block 1024 and K_pad 10,240,
+    # K = 777 block 128.  The op is the config's: sigma's Cholesky diagonal
+    # tiled, or kron(A_rho^T, chol^T).
+    sig_full = torch.tensor([[1.0, 0.3], [0.3, 0.5]], device=dev)
+    sig3 = torch.eye(3, device=dev) + 0.2 * (torch.ones(3, 3, device=dev) - torch.eye(3, device=dev))
+    eye2 = torch.eye(NU, device=dev)
+
+    def sampler_op(cfg, sig):
+        z = torch.zeros(cfg.nu, device=dev)
+        op = PS._transposed_operands(sig, z, z, z, cfg, cfg.T, cfg.nu, torch.float32)[1]
+        return op.T.contiguous() if op.ndim == 2 else op
+
+    sampler_cases = [
+        ("diag", K, T, NU, {}, eye2),
+        ("antithetic", K, T, NU, {"antithetic": True}, eye2),
+        ("null_abs", K, T, NU, {"sample_null_action": True, "noise_abs_cost": True}, eye2),
+        ("full_rho", K, T, NU, {"noise_rho": 0.5}, sig_full),
+        ("K777_block128", 777, T, NU, {}, eye2),
+        ("D300_full_rho", K, 100, 3, {"noise_rho": 0.5}, sig3),
+    ]
+    print("# sampler vs plain: perturbed rtol 1e-5 atol 1e-6, cost rtol 1e-4 atol 1e-4 "
+          "(tpu_tests/test_tpu_pallas.py:497-500)")
+    n_sampler = 0
+    for name, K_, T_, nu, flags, sig in sampler_cases:
+        D_ = T_ * nu
+        cfg = MPPIConfig(nx=2, nu=nu, K=K_, T=T_, diag_sigma=not flags.get("noise_rho"), **flags)
+        sample = RM.make_fused_sampler(cfg)
+        args = (torch.randn(D_, generator=gen, device=dev) * 0.3, sampler_op(cfg, sig),
+                torch.full((D_,), 0.05, device=dev), torch.full((D_,), -1.5, device=dev),
+                torch.full((D_,), 1.5, device=dev), torch.randn(D_, generator=gen, device=dev))
+        for mode in ("bits", "seed"):
+            lead = (torch.randint(-2**31, 2**31 - 1, (sample.bits_rows, D_), dtype=torch.int32,
+                                  generator=gen, device=dev) if mode == "bits"
+                    else tuple(int(v) for v in torch.randint(0, 2**32, (2,), generator=gen,
+                                                             device=dev)))
+            pk, ck = sample(lead, *args)
+            torch.cuda.synchronize()
+            pp, cp = sample.plain(lead, *args)
+            p_err, c_err = float((pk - pp).abs().max()), float((ck - cp).abs().max())
+            ok = (bool(torch.isfinite(pk).all() and torch.isfinite(ck).all())
+                  and bool(((pk - pp).abs() <= 1e-6 + 1e-5 * pp.abs()).all())
+                  and bool(((ck - cp).abs() <= 1e-4 + 1e-4 * cp.abs()).all()))
+            print(f"# {mode:4s} sampler {name:16s} K={K_:5d} D={D_:3d} block {sample.block_k} "
+                  f"bits {sample.bits_rows}x{D_}: perturbed err {p_err:.3e} | cost err "
+                  f"{c_err:.3e}" + ("" if ok else "  <-- FAIL"))
+            check(ok, f"sampler kernel disagrees with its plain version: {mode}/{name}")
+            max_update_err["sampler"] = max(max_update_err.get("sampler", 0.0), p_err)
+            n_sampler += 1
+    # the seed-mode draws' moments (tpu_tests/test_tpu_pallas.py:501-507)
+    D = T * NU
+    zeros, ones = torch.zeros(D, device=dev), torch.ones(D, device=dev)
+    sample = RM.make_fused_sampler(MPPIConfig(nx=2, nu=NU, K=K, T=T, diag_sigma=True))
+    z = sample((0x2468ACE0, 0x13579BDF), zeros, ones, zeros, zeros - 10, zeros + 10,
+               zeros)[0].double()
+    mean, std = float(z.mean()), float(z.std())
+    print(f"# sampler seed-mode draws, sigma = I, bounds +-10: mean {mean:.5f} | std {std:.5f} "
+          f"over {z.numel()} (limits |mean| < 0.02, |std - 1| < 0.02)")
+    check(abs(mean) < 0.02 and abs(std - 1) < 0.02, "sampler seed-mode draws' moments")
+    # one key: the sampler's normals are the transpose of the transposed
+    # solve's with pair_block = block_k (ops/rowmajor.py)
+    for anti in (False, True):
+        cfg = MPPIConfig(nx=2, nu=NU, K=K, T=T, diag_sigma=True, antithetic=anti)
+        sample = RM.make_fused_sampler(cfg)
+        inf_t = torch.full((D,), math.inf, device=dev)
+        key = (0x0BADF00D, 0xFEEDFACE)
+        zs = sample(key, zeros, ones, zeros, -inf_t, inf_t, zeros)[0]
+        zt = FS.make_transposed_fused_solve(cfg, lq, pair_block=sample.block_k,
+                                            emit_perturbed=True)(
+            key, torch.zeros(2, 1, device=dev).expand(2, K), zeros, ones, zeros, -inf_t,
+            inf_t, zeros, torch.tensor(1.0, device=dev))[4]
+        same = bool(torch.equal(zs, zt.T))
+        print(f"# sampler seed mode vs the transposed kernel's normals, antithetic={anti}: "
+              f"identical {same}")
+        check(same, f"sampler seed-mode normals differ from the transposed kernel's ({anti})")
+
+    # the round-1 solve: (name, model, K, T, nu, config flags, sigma)
+    rowmajor_cases = [
+        ("flagship", lq, K, T, NU, {}, eye2),
+        ("K130_pad256", lq, 130, T, NU, {}, eye2),
+        ("null_abs_uscale2_full", lq, K, T, NU,
+         {"sample_null_action": True, "noise_abs_cost": True, "u_scale": 2.0}, sig_full),
+        ("pendulum", PENDULUM_MODEL, 1000, 15, 1, {}, torch.tensor([[10.0]], device=dev)),
+        ("D300_global", lq3, K, 100, 3, {}, sig3),
+    ]
+
+    def rowmajor_args(model, T_, nu, sig, lam=1.0, bound=1.5):
+        """x0, U, chol, mu, lo, hi, a_flat = λ·(U @ Σ⁻¹ᵀ) and λ of one case."""
+        U = torch.randn(T_, nu, generator=gen, device=dev) * 0.3
+        lam_t = torch.tensor(lam, device=dev)
+        return (torch.tensor(X0[model.name], device=dev) if model.name in X0
+                else torch.zeros(model.nx, device=dev), U, torch.linalg.cholesky(sig),
+                torch.full((nu,), 0.05, device=dev), torch.full((nu,), -bound, device=dev),
+                torch.full((nu,), bound, device=dev),
+                (lam_t * (U @ torch.linalg.inv(sig).T)).reshape(-1), lam_t)
+
+    n_rowmajor = 0
+    for name, model, K_, T_, nu, flags, sig in rowmajor_cases:
+        D_ = T_ * nu
+        solve = RM.make_fused_solve(MPPIConfig(nx=model.nx, nu=nu, K=K_, T=T_, **flags), model)
+        args = rowmajor_args(model, T_, nu, sig, bound=2.0 if model is PENDULUM_MODEL else 1.5)
+        for mode in ("bits", "seed"):
+            lead = (torch.randint(-2**31, 2**31 - 1, (solve.K_pad, D_), dtype=torch.int32,
+                                  generator=gen, device=dev) if mode == "bits"
+                    else tuple(int(v) for v in torch.randint(0, 2**32, (2,), generator=gen,
+                                                             device=dev)))
+            dk, mk, sk, ck = solve(lead, *args)
+            torch.cuda.synchronize()
+            dp, mp, sp, cp = solve.plain(lead, *args)
+            check(all(bool(torch.isfinite(v).all()) for v in (dk, mk, sk, ck)),
+                  f"rowmajor/{name}/{mode}: non-finite kernel output")
+            ok, c_err, u_err, w_tol = agree(ck, cp, dk / sk, dp / sp, 1.0, mk, mp, sk, sp)
+            print(f"# {mode:4s} rowmajor {name:22s} K={K_:5d} (K_pad {solve.K_pad}) D={D_:3d} "
+                  f"tiles={solve.tiles:6s} cost err {c_err:.3e} | m err "
+                  f"{abs(float(mk - mp)):.3e} | s rel {abs(float(sk / sp - 1)):.3e} (tol "
+                  f"{w_tol:.3e}) | delta/s err {u_err:.3e}" + ("" if ok else "  <-- FAIL"))
+            check(ok, f"round-1 solve kernel disagrees with its plain version: {mode}/{name}")
+            max_update_err["rowmajor"] = max(max_update_err.get("rowmajor", 0.0), u_err)
+            n_rowmajor += 1
+    # the moments through the cost (tpu_tests/test_tpu_pallas.py:574-596):
+    # K = 4,096, T = 1, U = 0, x0 = 0, no bounds: one step of x' = x + u B^T
+    # gives E[cost] = |goal|^2 + nu
+    solve = RM.make_fused_solve(MPPIConfig(nx=2, nu=NU, K=4096, T=1), lq)
+    free_u = torch.zeros(1, NU, device=dev)
+    cost = solve((0x0F1E2D3C, 0x4B5A6978), torch.zeros(2, device=dev), free_u, eye2,
+                 torch.zeros(NU, device=dev), -math.inf, math.inf,
+                 torch.zeros(NU, device=dev), 1.0)[3]
+    expected = float((goal ** 2).sum()) + NU
+    print(f"# rowmajor seed-mode moments: mean cost {float(cost.mean()):.4f}, expected "
+          f"{expected} (limit 0.35)")
+    check(abs(float(cost.mean()) - expected) < 0.35, "round-1 solve seed-mode moments")
+    # one key, chol = I, mu = 0, no antithetic: the round-1 kernel's costs
+    # are the transposed kernel's
+    cfg = MPPIConfig(nx=2, nu=NU, K=K, T=T, diag_sigma=True)
+    x0, U, _, _, lo, hi, a_flat, lam_t = rowmajor_args(lq, T, NU, eye2)
+    key = (0x5EED5EED, 0x00C0FFEE)
+    cost_r = RM.make_fused_solve(cfg, lq)(key, x0, U, eye2, torch.zeros(NU, device=dev), lo, hi,
+                                          a_flat, lam_t)[3]
+    cost_t = FS.make_transposed_fused_solve(cfg, lq)(
+        key, x0[:, None].expand(2, K), U.reshape(-1), ones, zeros, lo.repeat(T), hi.repeat(T),
+        a_flat, lam_t)[3]
+    x_err = float((cost_r - cost_t).abs().max())
+    print(f"# rowmajor vs transposed kernel, one key, chol = I: cost max difference {x_err:.3e}")
+    check(bool(((cost_r - cost_t).abs() <= 1e-5 + 2e-5 * cost_t.abs()).all()),
+          "round-1 kernel's costs differ from the transposed kernel's on one key")
+    print(f"# kernel vs plain: {n_sampler} sampler and {n_rowmajor} round-1 solve cases agreed")
+
     # -- 4. the main paths at full width ---------------------------------------
     def lq_step(x, action):
         return lq.dynamics(x[None], action[None])[0]
@@ -908,6 +1101,167 @@ def main():
               f"{c_ms:.5f} ms (CUDA events, host wrapper included) | plain version {p_ms:.5f} "
               f"ms | library {l_ms} ms | bound {b_ms:.3e} ms by {b_by}")
 
+    # -- 4c. the ops-level kernels' loops at the flagship ----------------------------
+    # No controller routes to them (as in JAX), so the loops are written out:
+    # the round-1 solve, and JAX's "psampler" solve
+    # (benchmarks/noise_experiments.py:139-147) built from port kernels only.
+    # sigma = I, lambda = 1, no bounds, from [-3, -2] to the goal [2, 2].
+    flag_cfg = MPPIConfig(nx=NX, nu=NU, K=K, T=T, diag_sigma=True)
+    lam1 = torch.tensor(1.0, device=dev)
+    unbounded = (torch.full((NU,), -math.inf, device=dev), torch.full((NU,), math.inf, device=dev))
+    LOOP_SEED = 7
+
+    class OpsLoop:
+        """A written-out closed loop: a fresh Philox key from the seed and a
+        counter each command (or the given bits), U += update, act with
+        U[0], shift in u_init = 0."""
+
+        def __init__(self, bits_rows):
+            self.U = torch.zeros(T, NU, device=dev)
+            self.bits_rows = bits_rows
+            self.counter = 0
+
+        def lead(self, lead):
+            if lead is None:
+                lead = FS.key_to_seed((LOOP_SEED << 32) | self.counter)
+                self.counter += 1
+            return lead
+
+        def advance(self, U):
+            self.U = torch.roll(U, -1, 0)
+            self.U[-1] = 0.0
+            return U[0]
+
+    class Round1Loop(OpsLoop):
+        """``make_fused_solve`` with the caller's a_flat = λ·(U @ Σ⁻¹ᵀ) and
+        U += delta / s."""
+
+        def __init__(self):
+            self.solve = RM.make_fused_solve(flag_cfg, lq)
+            super().__init__(self.solve.K_pad)
+
+        def command(self, x, lead=None, plain=False):
+            a_flat = (lam1 * (self.U @ eye2)).reshape(-1)  # Σ⁻¹ᵀ = I
+            fn = self.solve.plain if plain else self.solve
+            delta, _, s, self.cost = fn(self.lead(lead), x, self.U, eye2,
+                                        torch.zeros(NU, device=dev), *unbounded, a_flat, lam1)
+            return self.advance(self.U + delta / s)
+
+    class FrontEndLoop(OpsLoop):
+        """The sampler, the legacy rollout on the scaled perturbed actions
+        plus the action cost, the weighted update of perturbed − U, and
+        U += pert / s."""
+
+        def __init__(self):
+            self.sample = RM.make_fused_sampler(flag_cfg)
+            self.rollout = LG.make_fused_rollout(flag_cfg, lq)
+            self.op, self.mu = torch.ones(T * NU, device=dev), torch.zeros(T * NU, device=dev)
+            self.lo, self.hi = (b.repeat(T) for b in unbounded)
+            super().__init__(self.sample.bits_rows)
+
+        def command(self, x, lead=None, plain=False):
+            sample, rollout, update = ((self.sample.plain, self.rollout.plain,
+                                        LG.fused_weighted_update.plain) if plain else
+                                       (self.sample, self.rollout, LG.fused_weighted_update))
+            U2 = self.U.reshape(-1)
+            a_flat = lam1 * U2  # λ·(U @ Σ⁻¹ᵀ) with Σ = I
+            pert, pc = sample(self.lead(lead), U2, self.op, self.mu, self.lo, self.hi, a_flat)
+            u_scaled = pert if flag_cfg.u_scale == 1.0 else pert * flag_cfg.u_scale
+            self.cost = rollout(x[None].expand(K, NX), u_scaled.reshape(K, T, NU)) + pc
+            upd, _, s = update(self.cost, pert - U2, lam1)
+            return self.advance(self.U + (upd / s).reshape(T, NU))
+
+    def ops_loop(ctrl):
+        x = torch.tensor([-3.0, -2.0], device=dev)
+        for _ in range(WARMUP):
+            x = lq_step(x, ctrl.command(x))
+        torch.cuda.synchronize()
+        reset_launches()  # count the loop's launches only
+        starts = [torch.cuda.Event(enable_timing=True) for _ in range(COMMANDS)]
+        ends = [torch.cuda.Event(enable_timing=True) for _ in range(COMMANDS)]
+        min_d = torch.tensor(float("inf"), device=dev)
+        wall = time.perf_counter()
+        for i in range(COMMANDS):
+            starts[i].record()
+            action = ctrl.command(x)
+            ends[i].record()
+            x = lq_step(x, action)
+            min_d = torch.minimum(min_d, torch.linalg.norm(x - goal))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - wall
+        lat = sorted(s.elapsed_time(e) for s, e in zip(starts, ends))
+        check(action.shape == (NU,) and bool(torch.isfinite(action).all()),
+              "an ops-level loop gave a non-finite or misshapen action")
+        return dict(median_ms=statistics.median(lat), p90_ms=lat[int(0.9 * len(lat))],
+                    solves_per_s=COMMANDS / wall, min_dist=float(min_d),
+                    final_dist=float(torch.linalg.norm(x - goal)), launches=dict(FS.launches),
+                    ctrl=ctrl, x=x)
+
+    ops_loops = {}
+    for name, cls, expect in (("round1", Round1Loop, only(rowmajor=2 * COMMANDS)),
+                              ("sampler_front_end", FrontEndLoop,
+                               only(sampler=COMMANDS, rollout=COMMANDS,
+                                    weighted_update=2 * COMMANDS))):
+        r = ops_loop(cls())
+        ops_loops[name] = r
+        print(f"# main path [{name}] K={K} T={T}: command median {r['median_ms']:.4f} ms p90 "
+              f"{r['p90_ms']:.4f} ms (CUDA events) | {r['solves_per_s']:.1f} solves/s (host "
+              f"clock) | min dist {r['min_dist']:.3f} final dist {r['final_dist']:.3f} | "
+              f"launches {r['launches']}")
+        check(r["min_dist"] < 1.0 and r["final_dist"] < 10.0,
+              f"{name} loop failed bench.py's sanity check")
+        check(r["launches"] == expect,
+              f"{name} loop launched {r['launches']} for {COMMANDS} commands, expected {expect}")
+        breakdown(name, r["ctrl"], lq_step, r["x"])
+    # one command of each loop on the same bits through the kernels and
+    # through their plain versions
+    x = torch.tensor([-1.0, 0.5], device=dev)
+    for name, cls in (("round1", Round1Loop), ("sampler_front_end", FrontEndLoop)):
+        ctrl_k, ctrl_p = cls(), cls()
+        U0 = torch.randn(T, NU, generator=gen, device=dev) * 0.3
+        ctrl_k.U, ctrl_p.U = U0.clone(), U0.clone()
+        bits = torch.randint(-2**31, 2**31 - 1, (ctrl_k.bits_rows, T * NU), dtype=torch.int32,
+                             generator=gen, device=dev)
+        ctrl_k.command(x, bits)
+        torch.cuda.synchronize()
+        ctrl_p.command(x, bits, plain=True)
+        # the updates, shifted by one step: U[:-1] after the command less U0[1:]
+        new_k, new_p = ((c.U[:-1] - U0[1:]).reshape(-1) for c in (ctrl_k, ctrl_p))
+        ok, c_err, u_err, w_tol = agree(ctrl_k.cost, ctrl_p.cost, new_k, new_p, 1.0)
+        print(f"# {name} step, kernels vs plain versions on one set of bits: cost err "
+              f"{c_err:.3e} | update err {u_err:.3e} (tol {w_tol:.3e} of its largest element)"
+              + ("" if ok else "  <-- FAIL"))
+        check(ok, f"the {name} step through the kernels disagrees with the plain versions")
+
+    # the two kernels alone at the flagship: seed mode (the loops' mode) and
+    # bits mode, with the loops' operands
+    D = T * NU
+    sample = RM.make_fused_sampler(flag_cfg)
+    s_args = (torch.randn(D, generator=gen, device=dev) * 0.3, torch.ones(D, device=dev),
+              torch.zeros(D, device=dev), *(b.repeat(T) for b in unbounded),
+              torch.randn(D, generator=gen, device=dev))
+    solve = RM.make_fused_solve(flag_cfg, lq)
+    U = torch.randn(T, NU, generator=gen, device=dev) * 0.3
+    r_args = (torch.tensor([-3.0, -2.0], device=dev), U, eye2, torch.zeros(NU, device=dev),
+              *unbounded, (lam1 * U).reshape(-1), lam1)
+    for name, fn, args, rows, names in (
+            ("sampler", sample, s_args, sample.bits_rows, ("fused_sampler",)),
+            ("rowmajor", solve, r_args, solve.K_pad, ("mppi_fused_partial", "flash_merge"))):
+        for mode, lead in (("seed", (1234, 5678)),
+                           ("bits", torch.randint(-2**31, 2**31 - 1, (rows, D), dtype=torch.int32,
+                                                  generator=gen, device=dev))):
+            dev_ms = device_ms(lambda: fn(lead, *args), 200, names)
+            call_ms = events_ms(lambda: fn(lead, *args), 500)
+            plain_ms = events_ms(lambda: fn.plain(lead, *args), 50)
+            work = (sampler_work(flag_cfg, sample, lead, s_args[1]) if name == "sampler" else
+                    fused_work(flag_cfg, lq, lead, r_args[0], eye2, variant="rowmajor"))
+            bound_ms, bound_by = bound(work)
+            timed[name, mode] = (dev_ms, call_ms, plain_ms, bound_ms, bound_by)
+            print(f"# kernel alone [{name} {mode}] K={K} T={T}: device {dev_ms} ms (profiler) | "
+                  f"per call {call_ms:.5f} ms (CUDA events, host wrapper included) | plain "
+                  f"version {plain_ms:.5f} ms | bound {bound_ms:.3e} ms by {bound_by} "
+                  f"({work[1]} B, {work[0]} operations)")
+
     # -- 5. swing-up -------------------------------------------------------------
     reset_launches()
     ctrl = MPPI(pendulum_dynamics, pendulum_running_cost, nx=2,
@@ -1089,6 +1443,30 @@ def main():
             "bound_ms": b_ms,
             "bound_by": b_by,
             "library_ms": l_ms,
+        })
+    # no single PyTorch call samples, clamps and costs in one pass, or
+    # computes an MPPI iteration: library_ms is null
+    for name, label, line, loop in (
+            ("sampler", "fused_sampler", 1350, "sampler_front_end"),
+            ("rowmajor", "fused_mppi round-1 (mppi_fused_partial<..., kMPPI> rowmajor + "
+             "flash_merge)", 1527, "round1")):
+        d_ms, c_ms, p_ms, b_ms, b_by = timed[name, "seed"]
+        bits_ms = timed[name, "bits"]
+        kernels.append({
+            "name": label,
+            "route": "cuda",
+            "source": "pytorch_mppi_tpu_torch/csrc/fused_mppi.cu",
+            "replaces": f"pytorch_mppi_tpu/ops/pallas_rollout.py:{line}",
+            "launches": ops_loops[loop]["launches"][name],
+            "max_abs_err": max_update_err[name],
+            "ms": d_ms if d_ms is not None else c_ms,
+            "ms_source": "profiler" if d_ms is not None else "cuda_events_with_host",
+            "plain_ms": p_ms,
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": None,
+            "ms_bits_mode": bits_ms[0] if bits_ms[0] is not None else bits_ms[1],
+            "bound_ms_bits_mode": bits_ms[3],
         })
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,16 +1,19 @@
 // One whole MPPI, SMPPI or KMPPI iteration for one plant, the batched MPPI
-// iteration for N plants, and the two kernels of the legacy rollout route,
-// written by hand for Hopper (sm_90a).
+// iteration for N plants, the two kernels of the legacy rollout route, and
+// the two ops-level kernels (the sampling front-end and the row-major
+// round-1 solve), written by hand for Hopper (sm_90a).
 //
-// Replaces six TPU kernels of pytorch_mppi_tpu/ops/pallas_rollout.py:
+// Replaces the eight TPU kernels of pytorch_mppi_tpu/ops/pallas_rollout.py:
 //   MPPI     make_transposed_fused_solve    (pallas_rollout.py:512)
 //   SMPPI    make_transposed_smppi_solve    (pallas_rollout.py:755)
 //   KMPPI    make_transposed_kmppi_solve    (pallas_rollout.py:940)
 //   Batched  make_transposed_batched_solve  (pallas_rollout.py:1118)
+//   Round-1  make_fused_solve               (pallas_rollout.py:1527)
 // as one kernel template, mppi_fused_partial<Model, N, kGlobal, V>, followed by
-// flash_merge, and
+// flash_merge (the round-1 solve is kMPPI with the runtime flag `rowmajor`), and
 //   make_fused_rollout     (pallas_rollout.py:75)   as fused_rollout<Model, N>
-//   fused_weighted_update  (pallas_rollout.py:172)  as weighted_partial + flash_merge.
+//   fused_weighted_update  (pallas_rollout.py:172)  as weighted_partial + flash_merge
+//   make_fused_sampler     (pallas_rollout.py:1350) as fused_sampler.
 //
 // The iteration.  For K samples kernel A computes: the normals of the R drawn
 // rows (from injected int32 bits or from Philox4x32-10), the antithetic sign,
@@ -77,6 +80,22 @@
 // of the (K, D) noise (fp32 FMAs, the JAX dot's Precision.HIGHEST); bound by
 // reading the noise once (2.4 MB, 0.7 us).  flash_merge merges the blocks.
 //
+// The ops-level kernels, which no controller routes to (as in JAX; they
+// take K on rows, the (K, D) layout).  fused_sampler: one warp per sample
+// row.  The warp stages its row's normals in shared memory (from the
+// (K_pad[/2], D) int32 bits, lanes over d, or from Philox, lanes over
+// counters), then lane d computes n_d = z_d op_d + mu_d, or sum_j z_j
+// op[j, d] + mu_d for a full (D, D) op (row j of op is coalesced across the
+// lanes; the op stays in L2, 360 KB at D = 300), the null row, the clamp,
+// and writes perturbed[k, d]: coalesced reads of bits and writes of the
+// output, which bound it (4.9 MB at the flagship, 1.5 us at 3.35 TB/s).  The
+// action cost is a warp-shuffle sum.  The round-1 solve (rowmajor): kernel
+// A's kMPPI path with three runtime differences, so it adds no
+// instantiation: the block stages its 128 rows of the (K_pad, D) bits
+// through the tile with coalesced loads; the noise is chol @ z_t + mu per
+// timestep (T nu^2 FMAs a sample, not the D^2 of the TPU's kron(I_T,
+// chol^T)); mu, lo and hi are per-step (nu,) vectors.  No antithetic sign.
+//
 // Left for later: warp-shuffle reductions in place of the shared-memory ones,
 // several samples per thread, and one pass with a last-block merge in place
 // of kernel B.
@@ -85,9 +104,9 @@
 // returns cudaGetLastError() after its launches.  The file builds whole, or
 // as eleven translation units selected by -DFUSED_MPPI_PART=0..10 (0-4: the
 // single-plant variants and the rollout kernel of each device model and
-// register size; 5: kernel B, the weighted update and the entry points; 6-10:
-// the batched variant of each device model and register size), which
-// ops/_build.py compiles in parallel and links.
+// register size; 5: kernel B, the weighted update, the sampler and the entry
+// points; 6-10: the batched variant of each device model and register size),
+// which ops/_build.py compiles in parallel and links.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -115,6 +134,8 @@ struct Params {
   int bits_cols;
   unsigned key0, key1;
   int pair_block, antithetic, null_action, abs_cost, full_op;
+  int rowmajor;  // kMPPI as the round-1 solve: (K_pad, D) bits, op the (nu, nu)
+                 // Cholesky factor, mu/lo/hi (nu,) per step
   const float* x0;  // (nx, K), or (nx, N) for kBatched, with the strides below
   long long x0_row_stride, x0_col_stride;
   const float* U;  // (D,) the nominal sequence (SMPPI: action rates); kBatched:
@@ -333,7 +354,21 @@ __global__ void __launch_bounds__(BLOCK) mppi_fused_partial(Params p) {
   const int k = blockIdx.x * BLOCK + tid;
   const bool live = k < p.K;
   const bool operand = V == kBatched && p.noise;  // the final noise is given
+  const bool rowmajor = V == kMPPI && p.rowmajor;
+  float* zdst = p.full_op ? zs : ps;
   float logit = -INFINITY;
+
+  if (rowmajor && p.bits) {
+    // the block's BLOCK rows of the (K_pad, D) bits are contiguous: read them
+    // coalesced and store them transposed into the tile (K_pad covers every
+    // row of the last block)
+    const int* rows = p.bits + (size_t)blockIdx.x * BLOCK * D;
+    for (int i = tid; i < BLOCK * D; i += BLOCK) {
+      const int r = i / D;
+      zdst[(i - r * D) * LDT + r] = bits_to_normal((unsigned)rows[i]);
+    }
+    __syncthreads();
+  }
 
   if (live) {
     // antithetic pairing inside each pairing block (pallas_rollout.py:403-404):
@@ -347,9 +382,9 @@ __global__ void __launch_bounds__(BLOCK) mppi_fused_partial(Params p) {
       src = b * bh + (j < bh ? j : j - bh);
       if (j >= bh) sgn = -1.0f;
     }
-    float* zdst = p.full_op ? zs : ps;
-    if (operand) {
-      // nothing to draw: the operand is read row by row below
+    if (operand || (rowmajor && p.bits)) {
+      // nothing to draw: the operand is read row by row below, or the bits
+      // were staged above
     } else if (p.bits) {
       for (int d = 0; d < R; ++d)
         zdst[d * LDT + tid] = sgn * bits_to_normal((unsigned)p.bits[(size_t)d * p.bits_cols + src]);
@@ -366,9 +401,19 @@ __global__ void __launch_bounds__(BLOCK) mppi_fused_partial(Params p) {
     const float dt = V == kSMPPI ? *p.dt : 1.0f;
     float pc = 0.0f;  // action cost of the rectified noise
     for (int d = 0; d < R; ++d) {
+      // the per-step vectors of the round-1 solve are indexed by the action
+      const int dv = rowmajor ? d % p.nu : d;
       float n;
       if (operand) {
         n = p.noise[(size_t)d * p.noise_ld + k];
+      } else if (rowmajor) {
+        // chol @ z_t + mu for timestep t (pallas_rollout.py:1627-1630)
+        const int t = d / p.nu;
+        const float* crow = p.op + dv * p.nu;
+        const float* zt = zs + (size_t)t * p.nu * LDT + tid;
+        float acc = 0.0f;
+        for (int j = 0; j < p.nu; ++j) acc += crow[j] * zt[j * LDT];
+        n = acc + p.mu[dv];
       } else if (p.full_op) {
         float acc = 0.0f;
         const float* row = p.op + (size_t)d * R;
@@ -382,7 +427,7 @@ __global__ void __launch_bounds__(BLOCK) mppi_fused_partial(Params p) {
         const float u0 = Un[d * urs];
         v = u0 + n;
         if (V == kMPPI && p.null_action && k == 0) v = 0.0f;
-        v = fminf(fmaxf(v, p.lo[d]), p.hi[d]);
+        v = fminf(fmaxf(v, p.lo[dv]), p.hi[dv]);
         if (p.pert) p.pert[(size_t)d * p.K + k] = v;
         const float r = v - u0;  // rectified noise (mppi.py:383-385)
         pc += (p.abs_cost ? fabsf(r) : r) * an[d * ars];
@@ -589,6 +634,85 @@ __global__ void __launch_bounds__(BLOCK)
     out[2 + d] = acc;
   }
 }
+
+// --- the sampling front-end ------------------------------------------------------
+
+constexpr int SAMPLER_WARPS = 8;  // sample rows per block of fused_sampler
+
+struct SamplerParams {
+  int K, D;
+  const int* bits;  // (rows, D) int32, or null in seed mode
+  unsigned key0, key1;
+  int block_k, antithetic, null_action, abs_cost, full_op;
+  const float* U;  // (D,) the nominal sequence
+  const float* op;  // (D,) diagonal scale, or (D, D) row-major applied as z @ op
+  const float* mu;  // (D,)
+  const float* lo;
+  const float* hi;
+  const float* a;  // (D,) action-cost vector
+  float* pert;  // (K, D)
+  float* cost;  // (K,)
+};
+
+// make_fused_sampler's kernel: warp w of block b takes sample row
+// k = b * warps + w.  Its source row and sign are the JAX kernel's pairing
+// (rows j and j + block_k/2 of each K block mirror one draw); element d of
+// source row r is the bits' (r, d), or word d % 4 of Philox counter
+// (r, d / 4, 0, 0).  The warp stages the row's normals in shared memory, then
+// lane d writes perturbed[k, d] = clip(U_d + n_d, lo_d, hi_d) (0 before the
+// clamp on the null row k = 0) and the lanes sum the action cost of the
+// rectified noise.
+__global__ void fused_sampler(SamplerParams p) {
+  extern __shared__ float zsh[];  // (warps, D) normals
+  const int warps = blockDim.x / 32, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int k = blockIdx.x * warps + warp;
+  if (k >= p.K) return;  // the whole warp leaves: no block barrier follows
+  const int D = p.D;
+  float* z = zsh + (size_t)warp * D;
+  int src = k;
+  float sgn = 1.0f;
+  if (p.antithetic) {
+    const int b = k / p.block_k, j = k % p.block_k, bh = p.block_k / 2;
+    src = b * bh + (j < bh ? j : j - bh);
+    if (j >= bh) sgn = -1.0f;
+  }
+  if (p.bits) {
+    const int* row = p.bits + (size_t)src * D;
+    for (int d = lane; d < D; d += 32) z[d] = sgn * bits_to_normal((unsigned)row[d]);
+  } else {
+    for (int g = lane; 4 * g < D; g += 32) {
+      const uint4 r = philox4x32_10(make_uint4((unsigned)src, (unsigned)g, 0u, 0u), p.key0, p.key1);
+      const unsigned words[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+      for (int w = 0; w < 4; ++w)
+        if (4 * g + w < D) z[4 * g + w] = sgn * bits_to_normal(words[w]);
+    }
+  }
+  __syncwarp();
+  float pc = 0.0f;
+  float* out = p.pert + (size_t)k * D;
+  for (int d = lane; d < D; d += 32) {
+    float n;
+    if (p.full_op) {
+      // z @ op in fp32 FMAs (the JAX dot's Precision.HIGHEST, no TF32)
+      float acc = 0.0f;
+      for (int j = 0; j < D; ++j) acc += z[j] * p.op[(size_t)j * D + d];
+      n = acc + p.mu[d];
+    } else {
+      n = z[d] * p.op[d] + p.mu[d];
+    }
+    const float u0 = p.U[d];
+    float v = u0 + n;
+    if (p.null_action && k == 0) v = 0.0f;
+    v = fminf(fmaxf(v, p.lo[d]), p.hi[d]);
+    out[d] = v;
+    const float r = v - u0;  // rectified noise (mppi.py:383-385)
+    pc += (p.abs_cost ? fabsf(r) : r) * p.a[d];
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) pc += __shfl_down_sync(0xffffffffu, pc, off);
+  if (lane == 0) p.cost[k] = pc;
+}
 #endif
 
 template <class Model, int N, bool kGlobal, int V>
@@ -728,6 +852,17 @@ Launcher find_launcher(int variant, int model_id, int nx, int nu) {
   return (variant == kBatched ? batched : single)[model_id][n <= 8 ? 0 : 1];
 }
 
+// Kernel A for `variant`, then kernel B into delta and ms.
+cudaError_t launch_pair(const Params& p, int variant, int model_id, size_t smem,
+                        cudaStream_t stream, float* delta, float* ms) {
+  const Launcher launch = find_launcher(variant, model_id, p.nx, p.nu);
+  if (!launch) return cudaErrorInvalidValue;
+  const cudaError_t e = launch(p, variant, smem, stream);
+  if (e != cudaSuccess) return e;
+  flash_merge<<<p.num_plants, MERGE_THREADS, 0, stream>>>(p.partial, p.nblocks, p.R, delta, ms);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -816,12 +951,78 @@ int fused_mppi_launch(int device, void* stream, int variant, int model_id, const
                               : (size_t)fused_mppi_smem_bytes(variant, p.D, R, full_op);
   if (variant < kMPPI || variant > kBatched || num_plants < 1 || num_plants > 65535)
     return (int)cudaErrorInvalidValue;
-  const Launcher launch = find_launcher(variant, model_id, nx, nu);
-  if (!launch) return (int)cudaErrorInvalidValue;
-  e = launch(p, variant, smem, (cudaStream_t)stream);
+  return (int)launch_pair(p, variant, model_id, smem, (cudaStream_t)stream, delta, ms);
+}
+
+// make_fused_solve (the round-1 solve) on `stream`: kernel A's kMPPI path with
+// `rowmajor`, then kernel B.  bits (K_pad, D) row-major int32, or null with a
+// Philox key; x0 (nx,) with stride x0_stride; U and a (D,); chol (nu, nu)
+// row-major; mu, lo, hi (nu,).  `scratch` as for fused_mppi_launch (two
+// tiles).
+int fused_mppi_rowmajor_solve(int device, void* stream, int model_id, const float* consts, int K,
+                              int T, int nx, int nu, const int* bits, unsigned key0,
+                              unsigned key1, int null_action, int abs_cost, const float* x0,
+                              long long x0_stride, const float* U, const float* chol,
+                              const float* mu, const float* lo, const float* hi, const float* a,
+                              const float* lam, float u_scale, float* cost, float* partial,
+                              float* delta, float* ms, float* scratch) {
+  cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  flash_merge<<<num_plants, MERGE_THREADS, 0, (cudaStream_t)stream>>>(partial, p.nblocks, R, delta,
-                                                                      ms);
+  Params p{};
+  p.consts = consts;
+  p.K = K;
+  p.T = T;
+  p.nx = nx;
+  p.nu = nu;
+  p.D = p.R = T * nu;
+  p.nblocks = (K + BLOCK - 1) / BLOCK;
+  p.num_plants = 1;
+  p.bits = bits;
+  p.key0 = key0;
+  p.key1 = key1;
+  p.null_action = null_action;
+  p.abs_cost = abs_cost;
+  p.full_op = 1;  // the raw normals keep a tile of their own
+  p.rowmajor = 1;
+  p.x0 = x0;
+  p.x0_row_stride = x0_stride;
+  p.U = p.base = U;
+  p.op = chol;
+  p.mu = mu;
+  p.lo = lo;
+  p.hi = hi;
+  p.a = a;
+  p.lam = lam;
+  p.u_scale = u_scale;
+  p.cost = cost;
+  p.partial = partial;
+  p.scratch = scratch;
+  const size_t smem = scratch ? 2 * BLOCK * sizeof(float)
+                              : (size_t)fused_mppi_smem_bytes(kMPPI, p.D, p.R, 1);
+  return (int)launch_pair(p, kMPPI, model_id, smem, (cudaStream_t)stream, delta, ms);
+}
+
+// make_fused_sampler's kernel on `stream`: perturbed (K, D) and cost (K,)
+// from bits (rows, D) int32 or a Philox key.  Returns cudaErrorInvalidValue
+// when one row of normals does not fit in a block's shared memory.
+int fused_mppi_sampler(int device, void* stream, int K, int D, const int* bits, unsigned key0,
+                       unsigned key1, int block_k, int antithetic, int null_action, int abs_cost,
+                       int full_op, const float* U, const float* op, const float* mu,
+                       const float* lo, const float* hi, const float* a, float* pert,
+                       float* cost) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  const size_t max_smem = 232448, row = (size_t)D * sizeof(float);
+  const int warps = row * SAMPLER_WARPS <= max_smem ? SAMPLER_WARPS : (int)(max_smem / row);
+  if (warps < 1 || K < 1 || (antithetic && block_k % 2)) return (int)cudaErrorInvalidValue;
+  const size_t smem = warps * row;
+  if (smem > 48 * 1024) {
+    e = cudaFuncSetAttribute(fused_sampler, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  SamplerParams p{K, D, bits, key0, key1, block_k, antithetic, null_action, abs_cost, full_op,
+                  U, op, mu, lo, hi, a, pert, cost};
+  fused_sampler<<<(K + warps - 1) / warps, warps * 32, smem, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 

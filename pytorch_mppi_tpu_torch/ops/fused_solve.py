@@ -1,8 +1,9 @@
 """The fused MPPI, SMPPI, KMPPI and batched MPPI iterations: the CUDA
 kernel's wrappers and their plain versions.
 
-The counterparts of four TPU kernels of ``pytorch_mppi_tpu/ops/
-pallas_rollout.py`` and their helpers, each with the JAX call contract:
+The counterparts of four of the eight TPU kernels of ``pytorch_mppi_tpu/
+ops/pallas_rollout.py`` and their helpers (the other four are in
+``ops/legacy.py`` and ``ops/rowmajor.py``), each with the JAX call contract:
 
 * :func:`make_transposed_fused_solve` (``:512``) returns ``solve(seed_or_bits,
   x0T, U2, op, mu_t, lo_t, hi_t, a_flat, lambda_) -> (delta (D,), m, s,
@@ -65,10 +66,11 @@ from .kernel_models import KernelModel
 
 MPPI, SMPPI, KMPPI, BATCHED = 0, 1, 2, 3  # the kernel's variants (Variant in fused_mppi.cu)
 VARIANTS = ("mppi", "smppi", "kmppi")  # the single-plant variants
-# every kernel of fused_mppi.cu by the name of its launch count: the four
-# variants of kernel A (each with kernel B), and the legacy route's rollout
-# and weighted update (ops/legacy.py)
-KERNELS = VARIANTS + ("batched", "rollout", "weighted_update")
+# every kernel of fused_mppi.cu by the name of its launch count, one for each
+# of the eight TPU kernels: the four variants of kernel A (each with kernel
+# B), the legacy route's rollout and weighted update (ops/legacy.py), and the
+# sampling front-end and the row-major round-1 solve (ops/rowmajor.py)
+KERNELS = VARIANTS + ("batched", "rollout", "weighted_update", "sampler", "rowmajor")
 
 # kernel launches (each kernel launched counts one); chip_smoke.py reads them
 launches = dict.fromkeys(KERNELS, 0)
@@ -386,8 +388,17 @@ def _lib():
                                            _P, _P]
         lib.fused_mppi_weighted_update.argtypes = [_I, _P, _I, _I, _P, _P, _L, _P, _P,
                                                    _P, _P]
+        lib.fused_mppi_rowmajor_solve.argtypes = [
+            _I, _P, _I, _P, _I, _I, _I, _I, _P, ctypes.c_uint32, ctypes.c_uint32, _I,
+            _I, _P, _L, _P, _P, _P, _P, _P, _P, _P, ctypes.c_float, _P, _P, _P, _P, _P,
+        ]
+        lib.fused_mppi_sampler.argtypes = [
+            _I, _P, _I, _I, _P, ctypes.c_uint32, ctypes.c_uint32, _I, _I, _I, _I, _I,
+            _P, _P, _P, _P, _P, _P, _P, _P,
+        ]
         for fn in (lib.fused_mppi_launch, lib.fused_mppi_rollout,
-                   lib.fused_mppi_weighted_update):
+                   lib.fused_mppi_weighted_update, lib.fused_mppi_rowmajor_solve,
+                   lib.fused_mppi_sampler):
             fn.restype = _I
         lib.fused_mppi_error_string.argtypes = [_I]
         lib.fused_mppi_error_string.restype = ctypes.c_char_p

@@ -1,0 +1,277 @@
+"""The two ops-level kernels with K on rows: the fused sampling front-end and
+the round-1 one-kernel solve, their wrappers and their plain versions.
+
+The counterparts of ``pytorch_mppi_tpu/ops/pallas_rollout.py:45-58,
+1331-1482, 1527-1746``.  No controller routes to them, in JAX as here; they
+are utilities of the ops layer, in the (K, D) layout that
+:mod:`.legacy`'s rollout and weighted update take:
+
+* :func:`make_fused_sampler` (``:1350``) returns ``sample(seed_or_bits,
+  U2 (D,), op, mu_t, lo_t, hi_t, a_flat (D,)) -> (perturbed (K, D),
+  pert_cost (K,))``: the normals, the antithetic mirror, the noise transform
+  (``z * op + mu_t`` for a diagonal ``op`` of D values when
+  ``config.diag_sigma and not config.noise_rho``, else ``z @ op + mu_t``
+  for the (D, D) operator ``kron(A_rhoᵀ, cholᵀ)``), the null-action row, the
+  clamp, and the action cost ``Σ_d n_d a_d`` of the rectified noise
+  ``n = perturbed − U2`` (``|n|`` under ``noise_abs_cost``);
+* :func:`make_fused_solve` (``:1527``) returns ``solve(seed_or_bits, x0
+  (nx,), U (T, nu), chol (nu, nu), mu (nu,), lo, hi (nu,) or scalars,
+  a_flat (D,), lambda_) -> (delta (T, nu), m, s, cost (K,))`` with
+  ``U_new = U + delta / s``: the noise ``chol @ z_t + mu`` of each timestep
+  (JAX's ``z @ kron(I_T, cholᵀ)``), the null row, the clamp, the action
+  cost, the T-step rollout of ``u_t · u_scale`` with the running cost after
+  each step, and the softmax-weighted sum of the rectified noise.
+  ``a_flat = λ·(U @ Σ⁻¹ᵀ)`` flattened is the caller's.
+
+``seed_or_bits`` selects the noise source, as the JAX kernels'
+``rng_in_kernel``: an int32 tensor injects the random bits, (K_pad, D) —
+(K_pad/2, D) for the sampler with antithetic sampling — and a pair of
+32-bit ints (:func:`.fused_solve.key_to_seed`) is a Philox4x32-10 key.  The
+TPU's hardware stream cannot be reproduced, so seed mode takes the port's
+counter scheme with rows and columns swapped: element d of source row r is
+word d mod 4 of counter (r, d div 4, 0, 0), i.e. ``philox_bits(key, src,
+D).T``.  So for one key the sampler draws the transpose of
+:func:`.fused_solve.make_transposed_fused_solve`'s normals with
+``pair_block = block_k``, and the round-1 solve draws that solve's normals
+without antithetic sampling.
+
+On CUDA tensors each factory's function launches its kernel in
+``csrc/fused_mppi.cu`` (``fused_sampler``; kernel A's row-major round-1 path
+then ``flash_merge``) and raises if the launch fails; on CPU tensors it runs
+its plain version (:func:`fused_sampler_plain`,
+:func:`rowmajor_solve_plain`).  ``.plain`` is that version with the
+factory's flags bound, on any device.  Float32 only; the products are fp32
+FMAs, as the JAX dots' ``Precision.HIGHEST``.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..config import MPPIConfig
+from . import fused_solve as FS
+from .kernel_models import KernelModel
+
+
+def fused_solve_block_and_pad(K: int) -> tuple:
+    """The round-1 solve's K block and padded K (``pallas_rollout.py:54``):
+    block 512 from K = 512 on, else 128.  K_pad fixes the shape of the
+    bits."""
+    block = 512 if K >= 512 else 128
+    return block, -(-K // block) * block
+
+
+def sampler_eligible(config: MPPIConfig, has_specific_sampler: bool, mesh) -> bool:
+    """The sampling front-end composes with every rollout option; only a
+    specific-action sampler, sharding and non-float32 dtypes are out
+    (``pallas_rollout.py:1336``)."""
+    return not has_specific_sampler and mesh is None and config.dtype == torch.float32
+
+
+def _vec(name, v, n: int, device, scalar_ok: bool = False) -> torch.Tensor:
+    """A contiguous float32 (n,) tensor on ``device`` from a tensor of n
+    values of any shape, or, where ``scalar_ok``, from one value."""
+    if not isinstance(v, torch.Tensor):
+        if not scalar_ok:
+            raise TypeError(f"{name} must be a tensor, got {type(v).__name__}")
+        return torch.full((n,), float(v), dtype=torch.float32, device=device)
+    FS._check(name, v, device, contiguous=False)
+    if v.numel() == n:
+        return v.reshape(n).contiguous()
+    if scalar_ok and v.numel() == 1:
+        return v.reshape(1).expand(n).contiguous()
+    raise ValueError(f"{name} must hold {n} values{' or one' if scalar_ok else ''}, "
+                     f"got shape {tuple(v.shape)}")
+
+
+def _lead(seed_or_bits, shape, device):
+    """(bits, key) of the noise source: the checked int32 bits and a zero
+    key, or no bits and the Philox key's two words."""
+    if isinstance(seed_or_bits, torch.Tensor):
+        return FS._check("bits", seed_or_bits, device, dtype=torch.int32, shape=shape), (0, 0)
+    return None, tuple(int(w) & 0xFFFFFFFF for w in seed_or_bits)
+
+
+def _normals(seed_or_bits, src: torch.Tensor, D: int, shape) -> torch.Tensor:
+    """(len(src), D) normals of the source rows ``src``; the bits are
+    ``shape``."""
+    if isinstance(seed_or_bits, torch.Tensor):
+        bits = FS._check("bits", seed_or_bits, seed_or_bits.device, dtype=torch.int32,
+                         shape=shape).to(src.device)[src]
+    else:
+        bits = FS.philox_bits(seed_or_bits, src, D).T
+    return FS.bits_to_normal(bits)
+
+
+def _sampler_op(op, D: int, diag_fast: bool, device) -> torch.Tensor:
+    """The op as the config's mode takes it: D diagonal values ((D,) or
+    (1, D)), or the (D, D) operator."""
+    FS._check("op", op, device)
+    if diag_fast:
+        if op.numel() != D or op.ndim > 2 or (op.ndim == 2 and op.shape[0] != 1):
+            raise ValueError(f"a diagonal sampler (diag_sigma, no noise_rho) takes op (D,) "
+                             f"or (1, D) with D={D}, got {tuple(op.shape)}")
+        return op.reshape(D)
+    if tuple(op.shape) != (D, D):
+        raise ValueError(f"a full-op sampler takes op ({D}, {D}) = kron(A_rho^T, chol^T), "
+                         f"got {tuple(op.shape)}")
+    return op
+
+
+_SAMPLER_VECTORS = ("U2", "mu_t", "lo_t", "hi_t", "a_flat")
+
+
+def fused_sampler_plain(seed_or_bits, U2, op, mu_t, lo_t, hi_t, a_flat, *, K: int, D: int,
+                        block_k: int, antithetic: bool, diag_fast: bool,
+                        null_action: bool, abs_cost: bool):
+    """What the sampler kernel computes, in torch ops on any device.  Same
+    arguments and results as the kernel's wrapper."""
+    device = U2.device
+    rows = -(-K // block_k) * block_k // (2 if antithetic else 1)
+    src, sign = FS.source_columns(K, block_k, antithetic, device)
+    z = _normals(seed_or_bits, src, D, (rows, D))
+    if sign is not None:
+        z = z * sign[:, None]
+    op = _sampler_op(op, D, diag_fast, device)
+    U2, mu_t, lo_t, hi_t, a_flat = (_vec(name, v, D, device) for name, v in
+                                    zip(_SAMPLER_VECTORS, (U2, mu_t, lo_t, hi_t, a_flat)))
+    perturbed = U2 + ((z * op if diag_fast else z @ op) + mu_t)
+    if null_action:
+        perturbed[0] = 0.0
+    perturbed = torch.clamp(perturbed, lo_t, hi_t)
+    n = perturbed - U2
+    return perturbed, ((torch.abs(n) if abs_cost else n) * a_flat).sum(dim=1)
+
+
+def make_fused_sampler(config: MPPIConfig, block_k: int = None):
+    """The sampling front-end as one kernel call (see the module docstring
+    for the call contract).  ``block_k`` is the antithetic pairing block and
+    fixes the bits' shape: 1024 from K = 1024 on, else 128 (``K_pad`` rounds
+    K up to it).  Raises ValueError for a non-float32 config, an odd
+    ``block_k`` with antithetic sampling, or an ``op`` whose shape disagrees
+    with the config's mode, and
+    :class:`~.fused_solve.FusedSolveUnavailable` when one row of normals
+    does not fit in a block's shared memory."""
+    K, D = config.K, config.T * config.nu
+    if config.dtype != torch.float32:
+        raise ValueError("the fused sampler requires float32")
+    if block_k is None:
+        block_k = 1024 if K >= 1024 else 128
+    antithetic = bool(config.antithetic)
+    if antithetic and block_k % 2:
+        raise ValueError(f"antithetic sampling needs an even K block, got {block_k}")
+    if 4 * D > FS.MAX_SMEM_BYTES:
+        raise FS.FusedSolveUnavailable(
+            f"D={D}: one row of normals exceeds the {FS.MAX_SMEM_BYTES} bytes of shared "
+            f"memory a block may use")
+    K_pad = -(-K // block_k) * block_k
+    rows = K_pad // 2 if antithetic else K_pad
+    diag_fast = config.diag_sigma and not config.noise_rho
+    flags = dict(K=K, D=D, block_k=block_k, antithetic=antithetic, diag_fast=diag_fast,
+                 null_action=config.sample_null_action, abs_cost=config.noise_abs_cost)
+
+    def sample(seed_or_bits, U2, op, mu_t, lo_t, hi_t, a_flat):
+        device = U2.device
+        op = _sampler_op(op, D, diag_fast, device)
+        U2, mu_t, lo_t, hi_t, a_flat = (_vec(name, v, D, device) for name, v in
+                                        zip(_SAMPLER_VECTORS, (U2, mu_t, lo_t, hi_t, a_flat)))
+        bits, key = _lead(seed_or_bits, (rows, D), device)
+        f32 = dict(dtype=torch.float32, device=device)
+        perturbed = torch.empty((K, D), **f32)
+        cost = torch.empty(K, **f32)
+        lib = FS._lib()
+        rc = lib.fused_mppi_sampler(
+            FS.device_index(device), FS.stream_of(device), K, D, FS._ptr(bits), key[0],
+            key[1], block_k, int(antithetic), int(config.sample_null_action),
+            int(config.noise_abs_cost), int(not diag_fast), U2.data_ptr(), op.data_ptr(),
+            mu_t.data_ptr(), lo_t.data_ptr(), hi_t.data_ptr(), a_flat.data_ptr(),
+            perturbed.data_ptr(), cost.data_ptr())
+        FS.raise_on_error(lib, rc, "fused_sampler")
+        FS.launches["sampler"] += 1
+        return perturbed, cost
+
+    return FS.finish(sample, fused_sampler_plain, flags,
+                     dict(K_pad=K_pad, block_k=block_k, bits_rows=rows))
+
+
+def rowmajor_solve_plain(seed_or_bits, x0, U, chol, mu, lo, hi, a_flat, lambda_, *,
+                         model: KernelModel, K: int, T: int, nu: int, null_action: bool,
+                         abs_cost: bool, u_scale: float):
+    """What the round-1 solve's kernels compute, in torch ops on any device.
+    Same arguments and results as the kernel's wrapper."""
+    device = x0.device
+    D = T * nu
+    K_pad = fused_solve_block_and_pad(K)[1]
+    z = _normals(seed_or_bits, torch.arange(K, device=device), D, (K_pad, D))
+    mu = _vec("mu", mu, nu, device)
+    lo, hi = (_vec(name, v, nu, device, scalar_ok=True) for name, v in (("lo", lo), ("hi", hi)))
+    U2 = U.reshape(D)
+    perturbed = U2 + (z.reshape(K, T, nu) @ chol.T + mu).reshape(K, D)
+    if null_action:
+        perturbed[0] = 0.0
+    perturbed = torch.clamp(perturbed, lo.repeat(T), hi.repeat(T))
+    n = perturbed - U2
+    x0T = x0.reshape(-1, 1).expand(-1, K)
+    cost = FS._action_cost(n.T, a_flat.reshape(D), abs_cost) + FS._rollout_total(
+        model, perturbed.T, x0T, T, nu, u_scale)
+    delta, m, s = FS._softmax_update(cost, lambda_, n.T)
+    return delta.reshape(T, nu), m, s, cost
+
+
+def make_fused_solve(config: MPPIConfig, model: KernelModel):
+    """The round-1 MPPI solve as one fused-kernel call (see the module
+    docstring for the call contract).  The bits are (K_pad, D) with K_pad
+    from :func:`fused_solve_block_and_pad`; only rows < K count.  As the JAX
+    kernel, it ignores ``config.antithetic``, ``diag_sigma`` and
+    ``noise_rho``: the noise is always ``chol @ z_t + mu``.  Raises
+    ValueError for a non-float32 config or a model whose sizes differ from
+    the config's, and :class:`~.fused_solve.FusedSolveUnavailable` for a
+    step-dependent config (the device models take no timestep) or nx or nu
+    above 32."""
+    if config.step_dependent_dynamics:
+        raise FS.FusedSolveUnavailable(
+            "step-dependent dynamics: the kernel's device models take no timestep")
+    FS.check_kernel_model(config, model)
+    K, T, nx, nu = config.K, config.T, config.nx, config.nu
+    D = T * nu
+    block_k, K_pad = fused_solve_block_and_pad(K)
+    # the raw normals keep a tile of their own: two (D, BLOCK) tiles, in
+    # shared memory when they fit, else in a global scratch
+    shared = FS.smem_bytes(FS.MPPI, D, D, True) <= FS.MAX_SMEM_BYTES
+    nblocks = -(-K // FS._BLOCK)
+    scratch_elems = 0 if shared else nblocks * 2 * D * FS._BLOCK
+    flags = dict(model=model, K=K, T=T, nu=nu, null_action=config.sample_null_action,
+                 abs_cost=config.noise_abs_cost, u_scale=float(config.u_scale))
+
+    def solve(seed_or_bits, x0, U, chol, mu, lo, hi, a_flat, lambda_):
+        device = x0.device
+        FS._check("x0", x0, device, shape=(nx,), contiguous=False)
+        FS._check("U", U, device, shape=(T, nu))
+        # a factor of any strides (torch.linalg.cholesky's are column-major)
+        chol = FS._check("chol", chol, device, shape=(nu, nu), contiguous=False).contiguous()
+        FS._check("a_flat", a_flat, device, shape=(D,))
+        mu = _vec("mu", mu, nu, device)
+        lo, hi = (_vec(name, v, nu, device, scalar_ok=True) for name, v in (("lo", lo),
+                                                                            ("hi", hi)))
+        lam = _vec("lambda_", lambda_, 1, device, scalar_ok=True)
+        bits, key = _lead(seed_or_bits, (K_pad, D), device)
+        f32 = dict(dtype=torch.float32, device=device)
+        cost = torch.empty(K, **f32)
+        partial = torch.empty((nblocks, D + 2), **f32)
+        delta = torch.empty(D, **f32)
+        ms = torch.empty(2, **f32)
+        scratch = torch.empty(scratch_elems, **f32) if scratch_elems else None
+        lib = FS._lib()
+        rc = lib.fused_mppi_rowmajor_solve(
+            FS.device_index(device), FS.stream_of(device), model.model_id,
+            model.consts_on(device).data_ptr(), K, T, nx, nu, FS._ptr(bits), key[0], key[1],
+            int(config.sample_null_action), int(config.noise_abs_cost), x0.data_ptr(),
+            x0.stride(0), U.data_ptr(), chol.data_ptr(), mu.data_ptr(), lo.data_ptr(),
+            hi.data_ptr(), a_flat.data_ptr(), lam.data_ptr(), float(config.u_scale),
+            cost.data_ptr(), partial.data_ptr(), delta.data_ptr(), ms.data_ptr(),
+            FS._ptr(scratch))
+        FS.raise_on_error(lib, rc, "fused_mppi_rowmajor_solve")
+        FS.launches["rowmajor"] += 2
+        return delta.reshape(T, nu), ms[0], ms[1], cost
+
+    return FS.finish(solve, rowmajor_solve_plain, flags,
+                     dict(K_pad=K_pad, block_k=block_k, tiles="shared" if shared else "global"))

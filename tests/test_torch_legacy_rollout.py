@@ -208,7 +208,7 @@ def test_wrappers_check_their_inputs():
         LG.make_fused_rollout(MPPIConfig(nx=33, nu=2, K=8, T=3),
                               linear_quadratic(torch.zeros(33, 2), torch.zeros(33)))
     assert set(FS.launches) == {"mppi", "smppi", "kmppi", "batched", "rollout",
-                                "weighted_update"}
+                                "weighted_update", "sampler", "rowmajor"}
 
 
 def _chip_smoke():
