@@ -20,8 +20,11 @@ the package is not beside it.  Phases, each fatal when it fails:
    tiles; a 12-state, 4-action ``linear_quadratic``), in bits mode and in
    seed mode (Philox in both), then the statistics of the seed-mode noise;
    the batched variant in bits, seed and operand mode (N = 16, K = 10,240;
-   the full width N = 1,024, K = 16,384; antithetic; D = 300 with a full
-   operator; the pendulum and toy2d); the legacy rollout and weighted update
+   the full width N = 1,024, K = 16,384 with the rule's plant group, which
+   must be the largest P, and with P = 1; N = 1,023, not a multiple of P;
+   N = 70,000 at K = 256, T = 10, more plants than a grid row; antithetic;
+   D = 300 with a full operator; the pendulum and toy2d); the legacy rollout
+   and weighted update
    at K = 10,000, T = 30 and at K not a multiple of the block; the sampler
    (``ops/rowmajor.py``) in bits and seed mode at the flagship (diagonal,
    antithetic, null row with the absolute cost, a full operator with
@@ -44,7 +47,11 @@ the package is not beside it.  Phases, each fatal when it fails:
    commands each: the round-1 solve in seed mode (2 launches a command) and
    JAX's "psampler" solve from port kernels (the sampler, the legacy rollout
    and weighted update: 4 launches), each held to its plain versions for one
-   command; the kernels alone at the main paths' shapes;
+   command; the kernels alone at the main paths' shapes (device time per
+   call replayed from a CUDA graph of 20 calls, the profiler's beside it),
+   the batched kernel's device time for each plant group P of 1-32 at
+   N = 1,024 and N = 16, and each pair's time against its time before
+   the batched redesign;
 5. swing-up: the pendulum with ``use_pallas=True``, 150 steps;
 6. closed loops through the kernels: the ``tests/test_mppi.py`` LQ problem
    (KMPPI reaches the goal, SMPPI stays finite), the toy2d comparison of
@@ -75,12 +82,22 @@ LOOP_K = 500  # the closed loops of phase 6
 # default closed loop
 BATCH_N, BATCH_K = 1024, 16_384
 BATCH_SMALL_N, BATCH_SMALL_K = 16, 10_240
+WIDE_N, WIDE_K, WIDE_T = 70_000, 256, 10  # more plants than a grid row of 65,535
 BATCH_COMMANDS, BATCH_PLAIN_COMMANDS, BATCH_WARMUP = 200, 50, 5
 SWEEP_N, SWEEP_KS, SWEEP_COMMANDS = 64, (256, 512, 1024, 2048, 4096, 10_240), 40
 SCENARIO_N, SCENARIO_K, SCENARIO_T, SCENARIO_STEPS = 16, 256, 10, 30
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_PER_S = 67e12  # float32 outside the tensor cores, H100 SXM data sheet
-PR1_MPPI_SEED_MS = 0.04754  # the MPPI pair, seed mode, flagship (PERF.md, PR 1)
+FIRST_MPPI_SEED_MS = 0.04754  # the MPPI pair, seed mode, flagship, as first ported (PERF.md)
+# each pair's device time before the batched kernel's redesign and the
+# parallel flash_merge (PERF.md's table; NVIDIA H100 80GB HBM3, 700 W): the
+# single-plant pairs at the flagship in seed mode, the batched pair at the
+# main paths' widths
+BEFORE_MS = {"mppi": 0.046136, "smppi": 0.071593, "kmppi": 0.068152, "rowmajor": 0.053964,
+          "weighted_update": 0.015528, "batched_operand": 5.3411, "batched_seed": 8.0454,
+          "batched_small_operand": 0.077017}
+PLANT_GROUPS = (1, 2, 4, 8, 16, 32)  # the P sweep of the batched kernel
+BATCHED_NAMES = ("batched_partial", "flash_merge")
 
 
 def fail(msg):
@@ -113,12 +130,15 @@ def fused_work(config, model, seed_or_bits, x0T, op, emit_perturbed=False,
     arithmetic instruction on the data, integer or float, once (a fused
     multiply-add twice, a library function such as ``log1pf``, ``expf``,
     ``sinf`` or ``fmodf`` once), erfinv on its common branch (|z| < 2.9).
-    Bytes count each input read once (a stride-0 ``x0T`` is its nx values)
-    and each output written once; the (plants, nblocks, R + 2) partials
-    between the two kernels are not the function's.  R is the rows drawn
-    and updated: D = T·nu, or Dp = nsp·nu for KMPPI.  A float32
-    ``seed_or_bits`` is the batched variant's final noise operand: nothing
-    is drawn, and the operator is not read.  The round-1 solve
+    The draw (Philox, the normal, the transform) is counted once a sample,
+    and for the batched variant once a source column, which every plant
+    shares (K/2 columns with antithetic pairs); the rest once a sample of
+    each plant.  Bytes count each input read once (a stride-0 ``x0T`` is
+    its nx values) and each output written once; the (plants, nblocks,
+    R + 2) partials between the two kernels are not the function's.  R is
+    the rows drawn and updated: D = T·nu, or Dp = nsp·nu for KMPPI.  A
+    float32 ``seed_or_bits`` is the batched variant's final noise operand:
+    nothing is drawn, and the operator is not read.  The round-1 solve
     (``variant="rowmajor"``) takes x0 (nx,), ``op`` the (nu, nu) Cholesky
     factor applied per timestep and mu, lo, hi of nu values, and draws with
     no antithetic sign."""
@@ -138,26 +158,33 @@ def fused_work(config, model, seed_or_bits, x0T, op, emit_perturbed=False,
         draw = 29 + 2 * nu + 1
     else:
         draw = 0 if operand else 30 + (2 * R + 1 if full_op else 2)
+    # Philox4x32-10: 10 rounds of 2 mulhi, 2 mullo, 4 xor; 9 key bumps of 2
+    philox = -(-R // 4) * 98 if seed_mode else 0
     if variant in ("mppi", "batched", "rowmajor"):
         # U + n, the clamp, the rectified noise and its action cost, the
         # weighted update (3)
-        per_sample = D * (draw + 6 + absc + 3)
+        per_sample = D * (6 + absc + 3)
     elif variant == "smppi":
         # U + n, rate clamp, integrate, action clamp, (pa - as)/dt - U, the
         # action cost, the smoothness term (sub, fma, u_scale), the update
         # (sub, div, sub, fma)
-        per_sample = D * (draw + 1 + 2 + 2 + 2 + 3 + 2 + absc
+        per_sample = D * (1 + 2 + 2 + 2 + 3 + 2 + absc
                           + 2 + int(config.u_scale != 1.0) + 5) + 2
     else:
         # theta + n, the clamp, the update (3); per horizon row the
         # interpolation (Dp fmas), the clamp, the rectified noise and its cost
-        per_sample = R * (draw + 1 + 2 + 3) + D * (2 * R + 2 + 1 + 2 + absc)
-    # Philox4x32-10: 10 rounds of 2 mulhi, 2 mullo, 4 xor; 9 key bumps of 2
-    philox = -(-R // 4) * 98 if seed_mode else 0
+        per_sample = R * (1 + 2 + 3) + D * (2 * R + 2 + 1 + 2 + absc)
     # per sample: the total, the logit, the block max, exp, the block sum
-    per_sample += philox + T * _per_step(model, nx, nu) + 7
+    per_sample += T * _per_step(model, nx, nu) + 7
+    if variant != "batched":
+        draws = K
+    elif operand:
+        draws = 0
+    else:
+        draws = -(-K // 2) if config.antithetic else K
     nblocks = -(-K // _BLOCK)
-    operations = plants * (K * per_sample + nblocks * (5 + 4 * R))
+    operations = (plants * (K * per_sample + nblocks * (5 + 4 * R))
+                  + draws * (R * draw + philox))
     x0_elems = nx if x0T.ndim == 1 or x0T.stride(1) == 0 else x0T.numel()
     vectors = {"mppi": 5 * D + 1, "smppi": 8 * D + 3,
                "kmppi": 4 * D + 4 * R + D * R + 1,
@@ -258,7 +285,10 @@ def events_ms(fn, iters):
 
 def device_ms(fn, iters, names):
     """Device time per call of the kernels whose names contain ``names``,
-    from the profiler's trace; None when the trace holds no device time."""
+    from the profiler's trace; None when the trace holds no device time.
+    Late in this long process the profiler drops or misses kernels, so this
+    is a cross-check of ``graph_ms``, and the trace's kernel count is
+    returned beside the time: ``(ms or None, kernels seen)``."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -267,9 +297,32 @@ def device_ms(fn, iters, names):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if any(n in e.key for n in names))
-    return total / iters / 1e3 if total > 0 else None
+    events = [e for e in prof.key_averages() if any(n in e.key for n in names)]
+    total = sum(e.self_device_time_total for e in events)
+    return (total / iters / 1e3 if total > 0 else None), sum(e.count for e in events)
+
+
+def graph_ms(fn, iters):
+    """Device time per call of ``fn`` replayed from a CUDA graph of ``iters``
+    calls, between two CUDA events: no host time between the launches."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up outside the capture
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    graph.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / iters
 
 
 def breakdown(name, ctrl, step, x, n=50):
@@ -553,7 +606,8 @@ def main():
     # the batched variant: (name, model, N, K, T, nu, config flags, noise_rho,
     # pairing block, modes, operand overrides).  The overrides give the
     # diagonal op, mu and the bound of phase 4's and phase 6's own operands
-    # (examples/scenario_batch.py: sigma = 0.5 I, bounds +-1).
+    # (examples/scenario_batch.py: sigma = 0.5 I, bounds +-1), and the plant
+    # group P where it is forced.
     scenario_ops = dict(op=math.sqrt(0.5), mu=0.0, bound=1.0)
     all_modes = ("bits", "seed", "operand")
     batched_cases = [
@@ -571,6 +625,13 @@ def main():
         ("toy2d_K777", toy.kernel_model, 8, 777, 20, NU, {}, 0.0, None, all_modes, {}),
         ("scenario_loop", lq, SCENARIO_N, SCENARIO_K, SCENARIO_T, NU, {}, 0.0, None,
          all_modes, scenario_ops),
+        # one plant a block at the full width (where the rule takes the
+        # largest group, checked below); N not a multiple of P; more plants
+        # than a grid row of 65,535 blocks
+        ("full_width_P1", lq, BATCH_N, BATCH_K, T, NU, {}, 0.0, None, ("seed", "operand"),
+         dict(scenario_ops, group=1)),
+        ("N1023", lq, BATCH_N - 1, BATCH_K, T, NU, {}, 0.0, None, all_modes, scenario_ops),
+        (f"N{WIDE_N}", lq, WIDE_N, WIDE_K, WIDE_T, NU, {}, 0.0, None, all_modes, scenario_ops),
     ]
     n_batched = 0
     for name, model, N_, K_, T_, nu, flags, rho, pb, modes, over in batched_cases:
@@ -589,7 +650,11 @@ def main():
         rest = (x0T, U2T, op, vec(mu_), vec(-bnd), vec(bnd), aT, torch.tensor(1.0, device=dev))
         for mode in modes:
             solve = FS.make_transposed_batched_solve(cfg, N_, model, pair_block=pb,
-                                                     noise_operand=mode == "operand")
+                                                     noise_operand=mode == "operand",
+                                                     group=over.get("group"))
+            check(name != "main_path_full_width" or solve.plant_group == FS.PLANT_GROUP_MAX,
+                  f"the rule takes P={solve.plant_group} at N={N_}, K={K_}, not "
+                  f"{FS.PLANT_GROUP_MAX}")
             if mode == "bits":
                 lead = torch.randint(-2**31, 2**31 - 1, (D_, solve.bits_cols),
                                      dtype=torch.int32, generator=gen, device=dev)
@@ -605,8 +670,8 @@ def main():
                   f"batched/{name}/{mode}: non-finite kernel output")
             ok, c_err, u_err, w_tol = agree(ck, cp, dk / msk[1], dp / msp[1], 1.0, msk[0],
                                             msp[0], msk[1], msp[1])
-            print(f"# {mode:7s} batched {name:22s} N={N_:4d} K={K_:5d} D={D_:3d} "
-                  f"tiles={solve.tiles:6s} cost err {c_err:.3e} | m err "
+            print(f"# {mode:7s} batched {name:22s} N={N_:5d} K={K_:5d} D={D_:3d} "
+                  f"P={solve.plant_group:2d} tiles={solve.tiles:6s} cost err {c_err:.3e} | m err "
                   f"{float((msk[0] - msp[0]).abs().max()):.3e} | s rel "
                   f"{float((msk[1] / msp[1] - 1).abs().max()):.3e} (tol {w_tol:.3e}) | "
                   f"delta/s err {u_err:.3e}" + ("" if ok else "  <-- FAIL"))
@@ -1018,8 +1083,9 @@ def main():
             modes = (("seed", (1234, 5678)), ("bits", bits)) if shape == "flagship" else (
                 ("seed", (1234, 5678)),)
             for mode, lead in modes:
-                dev_ms = device_ms(lambda: solve(lead, *args), 200,
-                                   ("mppi_fused_partial", "flash_merge"))
+                dev_ms = graph_ms(lambda: solve(lead, *args), 20)
+                prof_ms, seen = device_ms(lambda: solve(lead, *args), 200,
+                                          ("mppi_fused_partial", "flash_merge"))
                 call_ms = events_ms(lambda: solve(lead, *args), 500)
                 plain_ms = events_ms(lambda: solve.plain(lead, *args), 50)
                 ops, nbytes = fused_work(cfg, model, lead, args[0], args[3 if variant != "mppi"
@@ -1028,19 +1094,20 @@ def main():
                 t_bytes = nbytes / H100_BYTES_PER_S * 1e3
                 t_ops = ops / H100_F32_PER_S * 1e3
                 bound_ms, bound_by = max((t_bytes, "bytes"), (t_ops, "operations"))
-                timed[variant, shape, mode] = (dev_ms, call_ms, plain_ms, bound_ms, bound_by)
+                timed[variant, shape, mode] = (dev_ms, call_ms, plain_ms, bound_ms, bound_by,
+                                               prof_ms)
                 print(f"# kernel alone [{variant} {shape} {mode}] K={K} T={T_} tiles="
-                      f"{solve.tiles}: device {dev_ms} ms (profiler) | per call "
+                      f"{solve.tiles}: device {dev_ms:.6f} ms (a CUDA graph of 20 calls) | "
+                      f"profiler {prof_ms} ms ({seen} of 400 kernels) | per call "
                       f"{call_ms:.5f} ms (CUDA events, host wrapper included) | plain "
                       f"version {plain_ms:.5f} ms (CUDA events)")
                 print(f"# bound [{variant} {shape} {mode}]: {nbytes} B -> {t_bytes:.3e} ms "
                       f"at 3.35 TB/s; {ops} operations -> {t_ops:.3e} ms at 67 TFLOP/s; "
                       f"bound by {bound_by}")
     mppi_seed = timed["mppi", "flagship", "seed"][0]
-    if mppi_seed is not None:
-        print(f"# MPPI pair, seed mode, flagship: {mppi_seed:.5f} ms against PR 1's "
-              f"{PR1_MPPI_SEED_MS} ms: ratio {mppi_seed / PR1_MPPI_SEED_MS:.4f} "
-              f"(limit 1.1)")
+    print(f"# MPPI pair, seed mode, flagship: {mppi_seed:.5f} ms against the first port's "
+          f"{FIRST_MPPI_SEED_MS} ms: ratio {mppi_seed / FIRST_MPPI_SEED_MS:.4f} (limit 1.1)")
+    single_profiled = all(timed[v, "flagship", "seed"][5] is not None for v in FS.VARIANTS)
 
     # the batched kernel at the main paths' shapes and operands
     for N_, K_ in ((BATCH_N, BATCH_K), (BATCH_SMALL_N, BATCH_SMALL_K)):
@@ -1058,46 +1125,83 @@ def main():
                                                      noise_operand=mode == "operand")
             lead = (torch.randn(D_, solve.K_pad, generator=gen, device=dev) * math.sqrt(0.5)
                     if mode == "operand" else (1234, 5678))
-            dev_ms = device_ms(lambda: solve(lead, *rest), 20,
-                               ("mppi_fused_partial", "flash_merge"))
+            dev_ms = graph_ms(lambda: solve(lead, *rest), 20)
+            prof_ms, seen = device_ms(lambda: solve(lead, *rest), 20, BATCHED_NAMES)
+            check(prof_ms is not None or not single_profiled,
+                  f"the profiler saw no batched_partial time at N={N_} ({mode}) while it "
+                  f"timed the single-plant pairs")
             call_ms = events_ms(lambda: solve(lead, *rest), 50)
             plain_ms = events_ms(lambda: solve.plain(lead, *rest), 3)
-            bound_ms, bound_by = bound(fused_work(ctrl.config, lq, lead, x0T, op,
-                                                  variant="batched", plants=N_))
-            timed["batched", N_, mode] = (dev_ms, call_ms, plain_ms, bound_ms, bound_by)
-            print(f"# kernel alone [batched {mode}] N={N_} K={K_} T={T} tiles={solve.tiles}: "
-                  f"device {dev_ms} ms (profiler) | per call {call_ms:.5f} ms (CUDA events, "
-                  f"host wrapper included) | plain version {plain_ms:.5f} ms | bound "
-                  f"{bound_ms:.3e} ms by {bound_by}")
+            work = fused_work(ctrl.config, lq, lead, x0T, op, variant="batched", plants=N_)
+            bound_ms, bound_by = bound(work)
+            timed["batched", N_, mode] = (dev_ms, call_ms, plain_ms, bound_ms, bound_by,
+                                          solve.plant_group, prof_ms)
+            print(f"# kernel alone [batched {mode}] N={N_} K={K_} T={T} P={solve.plant_group} "
+                  f"tiles={solve.tiles}: device {dev_ms:.6f} ms (a CUDA graph of 20 calls) | "
+                  f"profiler {prof_ms} ms ({seen} of 40 kernels) | per call "
+                  f"{call_ms:.5f} ms (CUDA events, host wrapper included) | plain version "
+                  f"{plain_ms:.5f} ms | bound {bound_ms:.3e} ms by {bound_by}")
+            if mode == "seed" and N_ == BATCH_N:
+                # the earlier count took the shared draw once for every plant: N
+                # times this count for one plant (the main path pairs no samples)
+                one = fused_work(ctrl.config, lq, lead, x0T, op, variant="batched", plants=1)
+                old_ms = bound((N_ * one[0], work[1]))[0]
+                timed["batched_seed_bound_draw_per_plant"] = old_ms
+                print(f"# bound [batched seed] N={N_}: {bound_ms:.4e} ms with the draw counted "
+                      f"once a source column ({work[0]} operations) | {old_ms:.4e} ms with "
+                      f"the draw counted once a plant ({N_ * one[0]} operations)")
+            # the P sweep: each plant group's device time in this mode
+            sweep_ms = {}
+            for P in PLANT_GROUPS:
+                if P <= N_:
+                    s_P = FS.make_transposed_batched_solve(ctrl.config, N_, lq,
+                                                           noise_operand=mode == "operand",
+                                                           group=P)
+                    sweep_ms[P] = graph_ms(lambda: s_P(lead, *rest), 20)
+            best = min(sweep_ms, key=sweep_ms.get)
+            print(f"# P sweep [batched {mode}] N={N_} K={K_}: " + " | ".join(
+                f"P={P} {v:.5f} ms" for P, v in sweep_ms.items()) + f" (a CUDA graph of 20 "
+                f"calls, CUDA events) | the rule's P={solve.plant_group}: "
+                f"{sweep_ms[solve.plant_group]:.5f} ms; best P={best}, "
+                f"{sweep_ms[solve.plant_group] / sweep_ms[best]:.3f} of the rule's time")
         torch.cuda.empty_cache()
     op_ms, seed_ms = timed["batched", BATCH_N, "operand"][0], timed["batched", BATCH_N, "seed"][0]
-    if op_ms is not None and seed_ms is not None:
-        print(f"# batched kernel at N={BATCH_N} K={BATCH_K}: operand mode {op_ms:.5f} ms, seed "
-              f"mode {seed_ms:.5f} ms: seed / operand {seed_ms / op_ms:.3f}")
+    print(f"# batched kernel at N={BATCH_N} K={BATCH_K}: operand mode {op_ms:.5f} ms, seed "
+          f"mode {seed_ms:.5f} ms: seed / operand {seed_ms / op_ms:.3f}")
+    for N_, mode, key in ((BATCH_N, "operand", "batched_operand"),
+                          (BATCH_N, "seed", "batched_seed"),
+                          (BATCH_SMALL_N, "operand", "batched_small_operand")):
+        ms = timed["batched", N_, mode][0]
+        ref = BEFORE_MS[key]
+        print(f"# batched pair [{mode}] N={N_}: {ms:.5f} ms against {ref} ms before: ratio "
+              f"{ms / ref:.4f}")
 
     # the legacy route's kernels at the flagship shape
     x0_K = torch.tensor([-3.0, -2.0], device=dev)[None].expand(K, NX)
     u = torch.randn(K, T, NU, generator=gen, device=dev)
     rollout = LG.make_fused_rollout(MPPIConfig(nx=NX, nu=NU, K=K, T=T), lq)
-    dev_ms = device_ms(lambda: rollout(x0_K, u), 200, ("fused_rollout",))
+    dev_ms = graph_ms(lambda: rollout(x0_K, u), 20)
+    prof_ms = device_ms(lambda: rollout(x0_K, u), 200, ("fused_rollout",))[0]
     call_ms = events_ms(lambda: rollout(x0_K, u), 500)
     plain_ms = events_ms(lambda: rollout.plain(x0_K, u), 50)
     bound_ms, bound_by = bound(rollout_work(lq, x0_K, u))
-    timed["rollout"] = (dev_ms, call_ms, plain_ms, bound_ms, bound_by, None)
+    timed["rollout"] = (dev_ms, call_ms, plain_ms, bound_ms, bound_by, None, prof_ms)
     cost = rollout(x0_K, u * 0.3) / 30  # costs of the size the main path weighs
     noise = torch.randn(K, T * NU, generator=gen, device=dev)
     lam1 = torch.tensor(1.0, device=dev)
-    dev_wu = device_ms(lambda: LG.fused_weighted_update(cost, noise, lam1), 200,
-                       ("weighted_partial", "flash_merge"))
+    dev_wu = graph_ms(lambda: LG.fused_weighted_update(cost, noise, lam1), 20)
+    prof_wu = device_ms(lambda: LG.fused_weighted_update(cost, noise, lam1), 200,
+                        ("weighted_partial", "flash_merge"))[0]
     call_wu = events_ms(lambda: LG.fused_weighted_update(cost, noise, lam1), 500)
     plain_wu = events_ms(lambda: LG.fused_weighted_update.plain(cost, noise, lam1), 200)
     # the yardstick: one PyTorch call for the same function (the update pert / s)
     lib_wu = events_ms(lambda: torch.softmax(-cost / lam1, 0) @ noise, 500)
     bound_wu, by_wu = bound(weighted_update_work(K, T * NU))
-    timed["weighted_update"] = (dev_wu, call_wu, plain_wu, bound_wu, by_wu, lib_wu)
+    timed["weighted_update"] = (dev_wu, call_wu, plain_wu, bound_wu, by_wu, lib_wu, prof_wu)
     for name in ("rollout", "weighted_update"):
-        d_ms, c_ms, p_ms, b_ms, b_by, l_ms = timed[name]
-        print(f"# kernel alone [{name}] K={K} T={T}: device {d_ms} ms (profiler) | per call "
+        d_ms, c_ms, p_ms, b_ms, b_by, l_ms, pr_ms = timed[name]
+        print(f"# kernel alone [{name}] K={K} T={T}: device {d_ms:.6f} ms (a CUDA graph of 20 "
+              f"calls) | profiler {pr_ms} ms | per call "
               f"{c_ms:.5f} ms (CUDA events, host wrapper included) | plain version {p_ms:.5f} "
               f"ms | library {l_ms} ms | bound {b_ms:.3e} ms by {b_by}")
 
@@ -1250,17 +1354,28 @@ def main():
         for mode, lead in (("seed", (1234, 5678)),
                            ("bits", torch.randint(-2**31, 2**31 - 1, (rows, D), dtype=torch.int32,
                                                   generator=gen, device=dev))):
-            dev_ms = device_ms(lambda: fn(lead, *args), 200, names)
+            dev_ms = graph_ms(lambda: fn(lead, *args), 20)
+            prof_ms = device_ms(lambda: fn(lead, *args), 200, names)[0]
             call_ms = events_ms(lambda: fn(lead, *args), 500)
             plain_ms = events_ms(lambda: fn.plain(lead, *args), 50)
             work = (sampler_work(flag_cfg, sample, lead, s_args[1]) if name == "sampler" else
                     fused_work(flag_cfg, lq, lead, r_args[0], eye2, variant="rowmajor"))
             bound_ms, bound_by = bound(work)
-            timed[name, mode] = (dev_ms, call_ms, plain_ms, bound_ms, bound_by)
-            print(f"# kernel alone [{name} {mode}] K={K} T={T}: device {dev_ms} ms (profiler) | "
+            timed[name, mode] = (dev_ms, call_ms, plain_ms, bound_ms, bound_by, prof_ms)
+            print(f"# kernel alone [{name} {mode}] K={K} T={T}: device {dev_ms:.6f} ms (a CUDA "
+                  f"graph of 20 calls) | profiler {prof_ms} ms | "
                   f"per call {call_ms:.5f} ms (CUDA events, host wrapper included) | plain "
                   f"version {plain_ms:.5f} ms | bound {bound_ms:.3e} ms by {bound_by} "
                   f"({work[1]} B, {work[0]} operations)")
+    # every pair that ends in flash_merge, against its time before
+    for name, ms in (("mppi", timed["mppi", "flagship", "seed"][0]),
+                     ("smppi", timed["smppi", "flagship", "seed"][0]),
+                     ("kmppi", timed["kmppi", "flagship", "seed"][0]),
+                     ("rowmajor", timed["rowmajor", "seed"][0]),
+                     ("weighted_update", timed["weighted_update"][0])):
+        if ms is not None:
+            print(f"# {name} pair at the flagship: {ms:.6f} ms against {BEFORE_MS[name]} ms "
+                  f"before: ratio {ms / BEFORE_MS[name]:.4f} (limit 1.1)")
 
     # -- 5. swing-up -------------------------------------------------------------
     reset_launches()
@@ -1384,7 +1499,7 @@ def main():
                          "pytorch_mppi_tpu/ops/pallas_rollout.py:940")}
     kernels = []
     for variant in FS.VARIANTS:
-        dev_ms, call_ms, plain_ms, bound_ms, bound_by = timed[variant, "flagship", "seed"]
+        dev_ms, call_ms, plain_ms, bound_ms, bound_by, prof_ms = timed[variant, "flagship", "seed"]
         g_ms = timed[variant, "D300_global", "seed"]
         b_ms = timed[variant, "flagship", "bits"]
         kernels.append({
@@ -1394,41 +1509,45 @@ def main():
             "replaces": sources[variant][1],
             "launches": main[variant, "fused"]["launches"][variant],
             "max_abs_err": max_update_err[variant],
-            "ms": dev_ms if dev_ms is not None else call_ms,
-            # the profiler's device time of both kernels, or, when its trace
-            # holds none, CUDA-event time per call with the host wrapper included
-            "ms_source": "profiler" if dev_ms is not None else "cuda_events_with_host",
+            # device time of both kernels a call, replayed from a CUDA graph;
+            # the profiler's, which may miss kernels, beside it
+            "ms": dev_ms,
+            "ms_source": "cuda_graph",
+            "ms_profiler": prof_ms,
             "plain_ms": plain_ms,
             "bound_ms": bound_ms,
             "bound_by": bound_by,
             "library_ms": None,
-            "ms_bits_mode": b_ms[0] if b_ms[0] is not None else b_ms[1],
-            "ms_D300_global_tiles": g_ms[0] if g_ms[0] is not None else g_ms[1],
+            "ms_bits_mode": b_ms[0],
+            "ms_D300_global_tiles": g_ms[0],
             "bound_ms_D300_global_tiles": g_ms[3],
         })
-    d_ms, c_ms, p_ms, b_ms, b_by = timed["batched", BATCH_N, "operand"]
+    d_ms, c_ms, p_ms, b_ms, b_by, group, pr_ms = timed["batched", BATCH_N, "operand"]
     s_ms = timed["batched", BATCH_N, "seed"]
     small = timed["batched", BATCH_SMALL_N, "operand"]
     kernels.append({
-        "name": "fused_mppi batched (mppi_fused_partial<..., kBatched> + flash_merge)",
+        "name": "fused_mppi batched (batched_partial<Model, N, kGlobal> + flash_merge)",
         "route": "cuda",
         "source": "pytorch_mppi_tpu_torch/csrc/fused_mppi.cu",
         "replaces": "pytorch_mppi_tpu/ops/pallas_rollout.py:1118",
         "launches": batched[BATCH_N, "operand"]["launches"]["batched"],
         "max_abs_err": max_update_err["batched"],
-        "ms": d_ms if d_ms is not None else c_ms,
-        "ms_source": "profiler" if d_ms is not None else "cuda_events_with_host",
+        "ms": d_ms,
+        "ms_source": "cuda_graph",
+        "ms_profiler": pr_ms,
         "plain_ms": p_ms,
         "bound_ms": b_ms,
         "bound_by": b_by,
         "library_ms": None,
-        "ms_seed_mode": s_ms[0] if s_ms[0] is not None else s_ms[1],
+        "plant_group": group,
+        "ms_seed_mode": s_ms[0],
         "bound_ms_seed_mode": s_ms[3],
-        f"ms_N{BATCH_SMALL_N}_K{BATCH_SMALL_K}": small[0] if small[0] is not None else small[1],
+        "bound_ms_seed_mode_draw_per_plant": timed["batched_seed_bound_draw_per_plant"],
+        f"ms_N{BATCH_SMALL_N}_K{BATCH_SMALL_K}": small[0],
     })
     for name, line, main_key in (("rollout", 75, ("mppi", "rollout")),
                                  ("weighted_update", 172, ("mppi", "rollout"))):
-        d_ms, c_ms, p_ms, b_ms, b_by, l_ms = timed[name]
+        d_ms, c_ms, p_ms, b_ms, b_by, l_ms, pr_ms = timed[name]
         kernels.append({
             "name": {"rollout": "fused_rollout",
                      "weighted_update": "weighted_partial + flash_merge"}[name],
@@ -1437,8 +1556,9 @@ def main():
             "replaces": f"pytorch_mppi_tpu/ops/pallas_rollout.py:{line}",
             "launches": main[main_key]["launches"][name],
             "max_abs_err": max_update_err[name],
-            "ms": d_ms if d_ms is not None else c_ms,
-            "ms_source": "profiler" if d_ms is not None else "cuda_events_with_host",
+            "ms": d_ms,
+            "ms_source": "cuda_graph",
+            "ms_profiler": pr_ms,
             "plain_ms": p_ms,
             "bound_ms": b_ms,
             "bound_by": b_by,
@@ -1450,7 +1570,7 @@ def main():
             ("sampler", "fused_sampler", 1350, "sampler_front_end"),
             ("rowmajor", "fused_mppi round-1 (mppi_fused_partial<..., kMPPI> rowmajor + "
              "flash_merge)", 1527, "round1")):
-        d_ms, c_ms, p_ms, b_ms, b_by = timed[name, "seed"]
+        d_ms, c_ms, p_ms, b_ms, b_by, pr_ms = timed[name, "seed"]
         bits_ms = timed[name, "bits"]
         kernels.append({
             "name": label,
@@ -1459,13 +1579,14 @@ def main():
             "replaces": f"pytorch_mppi_tpu/ops/pallas_rollout.py:{line}",
             "launches": ops_loops[loop]["launches"][name],
             "max_abs_err": max_update_err[name],
-            "ms": d_ms if d_ms is not None else c_ms,
-            "ms_source": "profiler" if d_ms is not None else "cuda_events_with_host",
+            "ms": d_ms,
+            "ms_source": "cuda_graph",
+            "ms_profiler": pr_ms,
             "plain_ms": p_ms,
             "bound_ms": b_ms,
             "bound_by": b_by,
             "library_ms": None,
-            "ms_bits_mode": bits_ms[0] if bits_ms[0] is not None else bits_ms[1],
+            "ms_bits_mode": bits_ms[0],
             "bound_ms_bits_mode": bits_ms[3],
         })
     print(json.dumps({"kernels": kernels}))

@@ -40,6 +40,7 @@ from .config import (
 )
 from .ops import solve as _solve
 from .ops.kernels import RBFKernel, TimeKernel, interpolation_operators
+from .utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
 
@@ -88,17 +89,6 @@ def _use_pallas(value, allowed):
             raise ValueError(f"use_pallas must be one of {allowed}, got {value!r}")
         return value
     return bool(value)
-
-
-def _resolve_device(device) -> torch.device:
-    """``None`` means the card.  Never falls back to the CPU on its own."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "MPPI runs on a CUDA device by default and none is available; "
-            "pass device='cpu' to run on the CPU"
-        )
-    return device
 
 
 def _coerce_sigma(noise_sigma, dtype=None):
@@ -250,7 +240,7 @@ class MPPI:
             gradient_refinement_lr=gradient_refinement_lr,
             num_elites=num_elites, dynamics_params=dynamics_params, mesh=mesh,
         )
-        self.d = _resolve_device(device)
+        self.d = resolve_device(device)
         self.use_pallas = _use_pallas(use_pallas, MPPI_USE_PALLAS)
         self.fused_artifacts = bool(fused_artifacts)
         sigma = _coerce_sigma(noise_sigma)
@@ -759,7 +749,7 @@ class MPPI_Batched:
             dynamics_params=dynamics_params, mesh=mesh, env_axis=env_axis,
             sample_axis=sample_axis,
         )
-        self.d = _resolve_device(device)
+        self.d = resolve_device(device)
         self.use_pallas = _use_pallas(use_pallas, _solve.BATCHED_USE_PALLAS)
         sigma = _coerce_sigma(noise_sigma)
         self.dtype = sigma.dtype

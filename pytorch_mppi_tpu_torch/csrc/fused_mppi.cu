@@ -7,10 +7,11 @@
 //   MPPI     make_transposed_fused_solve    (pallas_rollout.py:512)
 //   SMPPI    make_transposed_smppi_solve    (pallas_rollout.py:755)
 //   KMPPI    make_transposed_kmppi_solve    (pallas_rollout.py:940)
-//   Batched  make_transposed_batched_solve  (pallas_rollout.py:1118)
 //   Round-1  make_fused_solve               (pallas_rollout.py:1527)
 // as one kernel template, mppi_fused_partial<Model, N, kGlobal, V>, followed by
 // flash_merge (the round-1 solve is kMPPI with the runtime flag `rowmajor`), and
+//   make_transposed_batched_solve  (pallas_rollout.py:1118) as
+//                          batched_partial<Model, N, kGlobal> + flash_merge,
 //   make_fused_rollout     (pallas_rollout.py:75)   as fused_rollout<Model, N>
 //   fused_weighted_update  (pallas_rollout.py:172)  as weighted_partial + flash_merge
 //   make_fused_sampler     (pallas_rollout.py:1350) as fused_sampler.
@@ -25,52 +26,70 @@
 //   KMPPI (R = Dp = nsp*nu): theta + noise clamped at the support points, each
 //         full-horizon row interpolated in the kernel as W[d, :] . pts (fp32
 //         FMAs, no TF32), the null row and the trajectory clamp;
-//   Batched (R = D, N plants): MPPI's clamp for plant n = blockIdx.y, with no
-//         null-action row; the noise is shared by the plants (the draw depends
-//         on the sample's source column only), or read from a final (D, ld)
-//         noise operand in place of the draw and the transform;
 // the action cost of the rectified noise, the T-step rollout of a device
 // model with u_scale, and the streaming softmax statistics of the update
-// (rate-space noise for SMPPI, support-point noise for KMPPI).  The contract is
-// the JAX one: (delta (R,), m, s, cost) with the nominal + delta / s; for N
-// plants delta (R, N), (m, s) (2, N) and cost (N, K), one softmax per plant.
+// (rate-space noise for SMPPI, support-point noise for KMPPI).  The batched
+// iteration (R = D, N plants) draws the same noise once for all plants (it
+// depends on the sample's source column only), or reads it from a final
+// (D, ld) noise operand, and applies MPPI's clamp, with no null-action row,
+// for each plant.  The contract is the JAX one: (delta (R,), m, s, cost)
+// with the nominal + delta / s; for N plants delta (R, N), (m, s) (2, N) and
+// cost (N, K), one softmax per plant.
 //
 // Design.  The TPU kernel walks its K blocks in order and carries (m, s, acc)
 // in scratch; GPU blocks run at the same time.  So the work is two kernels:
-//   A. mppi_fused_partial: one thread per sample, BLOCK samples per block, one
-//      row of blocks per plant.  A thread keeps its R drawn rows in a
-//      (R, BLOCK) tile (a second tile holds the raw normals for a full
-//      operator), rolls the model out in registers, and writes cost[k].  The
-//      block then reduces its own max m_b, sum s_b and acc_b[r] = sum_k w_k
-//      n_k[r] and writes them to a (plants, nblocks, R + 2) scratch.  Threads
-//      with k >= K take no part (_tp_mask_phantom).
+//   A. mppi_fused_partial: one thread per sample, BLOCK samples per block.  A
+//      thread keeps its R drawn rows in a (R, BLOCK) tile (a second tile holds
+//      the raw normals for a full operator), rolls the model out in
+//      registers, and writes cost[k].  The block then reduces its own max
+//      m_b, sum s_b and acc_b[r] = sum_k w_k n_k[r] and writes them to a
+//      (nblocks, R + 2) scratch.  Threads with k >= K take no part
+//      (_tp_mask_phantom).
 //   B. flash_merge: one block per plant merges that plant's partials,
-//      m = max m_b, s = sum s_b e^(m_b - m), delta[r] = sum acc_b[r] e^(m_b - m).
-// The TPU kernel picks its plant's columns with a one-hot lane mask and writes
-// them at its last block; here each block finds its plant from blockIdx.y and
-// reads plant n's x0, U and action-cost columns through strides.
+//      m = max m_b, s = sum s_b e^(m_b - m), delta[r] = sum acc_b[r] e^(m_b - m),
+//      with each scale e^(m_b - m) taken once and the sums split over the
+//      block's threads (no serial loop over the partials).
 // The tiles live in shared memory (row stride BLOCK + 1, so the column writes
 // and the row reads of the update are free of bank conflicts) when they fit
 // in the 227 KB a block may use; otherwise (kGlobal) in a global scratch of
 // one (R, BLOCK) slice per block, which stays in the 50 MB L2.  The TPU
 // kernel shrinks its block instead.  The device models keep state and action
-// in register arrays of N = 8 or N = 32, chosen at launch from max(nx, nu).
-// The noise never reaches device memory unless the caller asks for the
-// perturbed actions (emit_perturbed) or passes it as the batched operand.
+// in register arrays of N = 8 or N = 32 (for the batched kernel also N = 2),
+// chosen at launch from max(nx, nu).  The noise never reaches device memory
+// unless the caller asks for the perturbed actions (emit_perturbed) or passes
+// it as the batched operand.
+//
+// The batched kernel, batched_partial.  The noise is the same for every
+// plant, so a block takes 128 samples for a group of P plants (chosen at
+// launch by ops/fused_solve.plant_group) on a one-dimensional grid of
+// nblocks * ceil(N / P) blocks, any N.  It stages the final noise of its
+// samples once (drawn and transformed, or copied from the operand 16 bytes a
+// load) in an (R, BLOCK + 4) tile, then for each plant of the group rolls
+// each sample out in registers (the plant's U, lo, hi and action-cost column
+// as one float4 a row, the next plant's fetched with cp.async meanwhile),
+// reduces m_b and s_b with warp shuffles, and has all 128 threads recompute
+// the clamped noise for the update (groups of threads over rows and over
+// samples, the tile read four floats at a time).  Nothing specific to a
+// plant stays in the tile, so one draw serves P plants.  Where nx = nu = 2
+// (the N = 2 arrays) the rollout is compiled with those sizes as constants,
+// which keeps the device model's constants in registers and its loops free of
+// branches: that halves the instructions of a rollout step.
 //
 // What bounds it on an H100 SXM.  At the flagship shape (K = 10,000, T = 30,
-// nu = 2, seed mode) it reads and writes about 41 KB (the cost row and the
-// small operands), which takes about 0.012 us at 3.35 TB/s.  Its float32 work
-// is about 60 normals (Philox + Giles' erfinv, about 55 operations each) and
-// 30 model steps per sample, some 4e7 operations, about 0.6 us at 67 TFLOP/s
-// (KMPPI adds D*Dp = 1,800 FMAs of interpolation per sample).  So it is bound
-// by launch latency and by how few of the 132 SMs its 79 blocks of 128
-// threads fill.  The batched iteration at N = 1024, K = 16,384 has 131,072
-// blocks and fills the card: in seed mode it is bound by the N-fold repeated
-// draw (about 7.6e10 operations, 1.13 ms); in operand mode, which reads the
-// 3.9 MB noise once from HBM and N times from L2, by its 1.9e10 operations
-// (0.28 ms) before the 64 MB cost it writes.  chip_smoke.py computes the
-// exact bound from the run's shapes.
+// nu = 2, seed mode) kernel A reads and writes about 41 KB (the cost row and
+// the small operands), which takes about 0.012 us at 3.35 TB/s.  Its float32
+// work is about 60 normals (Philox + Giles' erfinv, about 55 operations each)
+// and 30 model steps per sample, some 4e7 operations, about 0.6 us at 67
+// TFLOP/s (KMPPI adds D*Dp = 1,800 FMAs of interpolation per sample).  So it
+// is bound by launch latency and by how few of the 132 SMs its 79 blocks of
+// 128 threads fill.  The batched iteration at N = 1,024, K = 16,384 needs
+// about 1.9e10 operations (0.28 ms) in either mode: the per-plant clamp,
+// action cost, rollout and update; the shared draw, counted once a source
+// column, adds 5.6e7; the 64 MB of costs it writes take 0.02 ms.  With the
+// draw shared, the kernel is bound by issuing the per-plant instructions:
+// the rollout step, the recomputed clamp of the update and the block's
+// reductions.
+// chip_smoke.py computes the exact bounds from the run's shapes.
 //
 // The legacy route.  fused_rollout: one thread per sample reads its row of
 // the (K, T*nu) scaled actions and rolls the model out from its x0 row; it is
@@ -96,16 +115,18 @@
 // timestep (T nu^2 FMAs a sample, not the D^2 of the TPU's kron(I_T,
 // chol^T)); mu, lo and hi are per-step (nu,) vectors.  No antithetic sign.
 //
-// Left for later: warp-shuffle reductions in place of the shared-memory ones,
-// several samples per thread, and one pass with a last-block merge in place
-// of kernel B.
+// Left for later: kernel A's single-plant variants keep their shared-memory
+// tree reductions, their serial update loop and their N = 8 register arrays
+// (the batched kernel's changes, not yet carried over); two samples a thread
+// in the batched rollout; one pass with a last-block merge in place of
+// kernel B.
 //
 // Plain C interface (no PyTorch headers), loaded with ctypes; each entry
 // returns cudaGetLastError() after its launches.  The file builds whole, or
 // as eleven translation units selected by -DFUSED_MPPI_PART=0..10 (0-4: the
 // single-plant variants and the rollout kernel of each device model and
 // register size; 5: kernel B, the weighted update, the sampler and the entry
-// points; 6-10: the batched variant of each device model and register size),
+// points; 6-10: the batched kernel of each device model and register size),
 // which ops/_build.py compiles in parallel and links.
 
 #include <cuda_runtime.h>
@@ -129,7 +150,8 @@ enum Variant { kMPPI = 0, kSMPPI = 1, kKMPPI = 2, kBatched = 3, kRollout = 4 };
 struct Params {
   const float* consts;
   int K, T, nx, nu, D, R, nblocks;  // R: rows drawn and updated (D, or Dp for KMPPI)
-  int num_plants;  // kBatched: N, the grid's y extent; 1 otherwise
+  int num_plants;  // kBatched: N; 1 otherwise
+  int plant_group;  // kBatched: P, the plants of one block of batched_partial
   const int* bits;  // (R, bits_cols) int32, or null in seed mode
   int bits_cols;
   unsigned key0, key1;
@@ -160,8 +182,37 @@ struct Params {
   float* cost;  // (K,), or (N, K) for kBatched
   float* partial;  // (N, nblocks, R + 2): m_b, s_b, acc_b[0..R)
   float* pert;  // (D, K) or null
-  float* scratch;  // kGlobal: (N, nblocks, tiles, R, BLOCK)
+  float* scratch;  // kGlobal: (launched blocks, tiles, R, BLOCK)
 };
+
+// --- reductions -------------------------------------------------------------
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// The max (kMax) or sum of v over the block, returned to every thread: a
+// shuffle within each warp, then one pass over the warps' results in `red`
+// (blockDim.x / 32 floats).  Every thread of the block must call it.
+template <bool kMax>
+__device__ __forceinline__ float block_reduce(float v, float* red) {
+  v = kMax ? warp_max(v) : warp_sum(v);
+  const int warps = blockDim.x / 32;
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
+  __syncthreads();
+  float r = red[0];
+  for (int w = 1; w < warps; ++w) r = kMax ? fmaxf(r, red[w]) : r + red[w];
+  __syncthreads();  // red is free again
+  return r;
+}
 
 // --- random numbers -------------------------------------------------------
 
@@ -325,18 +376,42 @@ struct Pendulum {
 
 // --- kernel A ---------------------------------------------------------------
 
+// Sample k's R drawn rows, the antithetic sign times the normal, into z[0],
+// z[ldt], ... from the injected bits or from Philox.  Antithetic pairing
+// inside each pairing block (pallas_rollout.py:403-404): sample j of block b
+// takes source column b*bh + j, or the mirrored draw of j - bh.  The draw
+// depends on the source column only, so the plants of a batch share it
+// (mppi.py:837-838).
+__device__ __forceinline__ void draw_column(const Params& p, int k, float* z, int ldt) {
+  const int R = p.R;
+  int src = k;
+  float sgn = 1.0f;
+  if (p.antithetic) {
+    const int b = k / p.pair_block, j = k % p.pair_block, bh = p.pair_block / 2;
+    src = b * bh + (j < bh ? j : j - bh);
+    if (j >= bh) sgn = -1.0f;
+  }
+  if (p.bits) {
+    for (int d = 0; d < R; ++d)
+      z[d * ldt] = sgn * bits_to_normal((unsigned)p.bits[(size_t)d * p.bits_cols + src]);
+  } else {
+    for (int g = 0; 4 * g < R; ++g) {
+      const uint4 r = philox4x32_10(make_uint4((unsigned)src, (unsigned)g, 0u, 0u), p.key0, p.key1);
+      const unsigned words[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+      for (int w = 0; w < 4; ++w)
+        if (4 * g + w < R) z[(4 * g + w) * ldt] = sgn * bits_to_normal(words[w]);
+    }
+  }
+}
+
 template <class Model, int N, bool kGlobal, int V>
 __global__ void __launch_bounds__(BLOCK) mppi_fused_partial(Params p) {
   constexpr int LDT = kGlobal ? BLOCK : BLOCK + 1;  // row stride of the tiles
-  constexpr bool kUpdateU = V == kMPPI || V == kBatched;  // rows are U + noise, clamped
+  constexpr bool kUpdateU = V == kMPPI;  // rows are U + noise, clamped
   extern __shared__ float smem[];
   const int D = p.D, R = p.R;
-  // plant n's nominal and action-cost columns; one plant with unit strides
-  const int plant = V == kBatched ? (int)blockIdx.y : 0;
-  const float* Un = V == kBatched ? p.U + plant * p.u_ps : p.U;
-  const float* an = V == kBatched ? p.a + plant * p.a_ps : p.a;
-  const long long urs = V == kBatched ? p.u_rs : 1, ars = V == kBatched ? p.a_rs : 1;
-  const size_t blk = (size_t)plant * p.nblocks + blockIdx.x;  // partials and scratch slot
+  const size_t blk = blockIdx.x;  // partials and scratch slot
   float* red = smem;  // BLOCK
   float* ws = red + BLOCK;  // BLOCK softmax weights
   float* Ws = ws + BLOCK;  // (D, R) KMPPI interpolation, shared path only
@@ -353,7 +428,6 @@ __global__ void __launch_bounds__(BLOCK) mppi_fused_partial(Params p) {
   const int tid = threadIdx.x;
   const int k = blockIdx.x * BLOCK + tid;
   const bool live = k < p.K;
-  const bool operand = V == kBatched && p.noise;  // the final noise is given
   const bool rowmajor = V == kMPPI && p.rowmajor;
   float* zdst = p.full_op ? zs : ps;
   float logit = -INFINITY;
@@ -371,32 +445,7 @@ __global__ void __launch_bounds__(BLOCK) mppi_fused_partial(Params p) {
   }
 
   if (live) {
-    // antithetic pairing inside each pairing block (pallas_rollout.py:403-404):
-    // sample j of block b takes source column b*bh + j, or the mirrored
-    // draw of j - bh.  The draw depends on the source column only, so the
-    // plants of a batch share it (mppi.py:837-838).
-    int src = k;
-    float sgn = 1.0f;
-    if (p.antithetic) {
-      const int b = k / p.pair_block, j = k % p.pair_block, bh = p.pair_block / 2;
-      src = b * bh + (j < bh ? j : j - bh);
-      if (j >= bh) sgn = -1.0f;
-    }
-    if (operand || (rowmajor && p.bits)) {
-      // nothing to draw: the operand is read row by row below, or the bits
-      // were staged above
-    } else if (p.bits) {
-      for (int d = 0; d < R; ++d)
-        zdst[d * LDT + tid] = sgn * bits_to_normal((unsigned)p.bits[(size_t)d * p.bits_cols + src]);
-    } else {
-      for (int g = 0; 4 * g < R; ++g) {
-        const uint4 r = philox4x32_10(make_uint4((unsigned)src, (unsigned)g, 0u, 0u), p.key0, p.key1);
-        const unsigned words[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-        for (int w = 0; w < 4; ++w)
-          if (4 * g + w < R) zdst[(4 * g + w) * LDT + tid] = sgn * bits_to_normal(words[w]);
-      }
-    }
+    if (!(rowmajor && p.bits)) draw_column(p, k, zdst + tid, LDT);  // else staged above
 
     const float dt = V == kSMPPI ? *p.dt : 1.0f;
     float pc = 0.0f;  // action cost of the rectified noise
@@ -404,9 +453,7 @@ __global__ void __launch_bounds__(BLOCK) mppi_fused_partial(Params p) {
       // the per-step vectors of the round-1 solve are indexed by the action
       const int dv = rowmajor ? d % p.nu : d;
       float n;
-      if (operand) {
-        n = p.noise[(size_t)d * p.noise_ld + k];
-      } else if (rowmajor) {
+      if (rowmajor) {
         // chol @ z_t + mu for timestep t (pallas_rollout.py:1627-1630)
         const int t = d / p.nu;
         const float* crow = p.op + dv * p.nu;
@@ -424,13 +471,13 @@ __global__ void __launch_bounds__(BLOCK) mppi_fused_partial(Params p) {
       }
       float v;
       if (kUpdateU) {
-        const float u0 = Un[d * urs];
+        const float u0 = p.U[d];
         v = u0 + n;
         if (V == kMPPI && p.null_action && k == 0) v = 0.0f;
         v = fminf(fmaxf(v, p.lo[dv]), p.hi[dv]);
         if (p.pert) p.pert[(size_t)d * p.K + k] = v;
         const float r = v - u0;  // rectified noise (mppi.py:383-385)
-        pc += (p.abs_cost ? fabsf(r) : r) * an[d * ars];
+        pc += (p.abs_cost ? fabsf(r) : r) * p.a[d];
       } else if (V == kSMPPI) {
         // rate clamp, integrate, null row, action clamp (mppi.py:539-552)
         const float u0 = p.U[d], as = p.base[d];
@@ -448,12 +495,11 @@ __global__ void __launch_bounds__(BLOCK) mppi_fused_partial(Params p) {
       ps[d * LDT + tid] = v;
     }
 
-    // initial state: the sample's column of x0, or the plant's (pallas_rollout.py:1230)
-    const long long x0_col = V == kBatched ? plant : k;
+    // initial state: the sample's column of x0
     float x[N], u[N], prev[N];
 #pragma unroll
     for (int i = 0; i < N; ++i) {
-      x[i] = i < p.nx ? p.x0[i * p.x0_row_stride + x0_col * p.x0_col_stride] : 0.0f;
+      x[i] = i < p.nx ? p.x0[i * p.x0_row_stride + (long long)k * p.x0_col_stride] : 0.0f;
       prev[i] = 0.0f;
     }
     float total = 0.0f, smooth = 0.0f;
@@ -493,11 +539,11 @@ __global__ void __launch_bounds__(BLOCK) mppi_fused_partial(Params p) {
       total += Model::template cost<N>(p.consts, x, u, p.nx, p.nu);
     }
     const float c = (V == kSMPPI ? pc + *p.w_seq * smooth : pc) + total;
-    p.cost[(size_t)plant * p.K + k] = c;
+    p.cost[k] = c;
     logit = -c / *p.lam;
   } else {
     // phantom sample: the rows of a zero update keep the sum finite
-    for (int d = 0; d < R; ++d) ps[d * LDT + tid] = kUpdateU ? Un[d * urs] : p.base[d];
+    for (int d = 0; d < R; ++d) ps[d * LDT + tid] = kUpdateU ? p.U[d] : p.base[d];
   }
 
   // block max of the logits
@@ -531,10 +577,217 @@ __global__ void __launch_bounds__(BLOCK) mppi_fused_partial(Params p) {
       const float as = p.base[d], u0 = p.U[d];
       for (int i = 0; i < BLOCK; ++i) acc += ws[i] * ((row[i] - as) / dt - u0);
     } else {
-      const float b0 = kUpdateU ? Un[d * urs] : p.base[d];
+      const float b0 = kUpdateU ? p.U[d] : p.base[d];
       for (int i = 0; i < BLOCK; ++i) acc += ws[i] * (row[i] - b0);
     }
     out[2 + d] = acc;
+  }
+}
+
+// --- the batched iteration -------------------------------------------------------
+
+// Floats of batched_partial's dynamic shared memory before its tiles: the
+// softmax weights and the update's partial sums (BLOCK each), the reduction
+// slots (32), and two buffers of R float4s (U, lo, hi, a) for the current
+// and the next plant.  Its shared tiles have rows of BATCHED_LDT floats, 16
+// bytes aligned, which the update reads four floats at a time without bank
+// conflicts.
+__host__ __device__ constexpr size_t batched_head(int R) { return 2 * BLOCK + 32 + 8 * (size_t)R; }
+constexpr int BATCHED_LDT = BLOCK + 4;
+
+// A 4-byte copy from global to shared memory that completes in the
+// background (cp.async) until async_wait; a plain copy where there is none.
+__device__ __forceinline__ void copy_async(float* dst, const float* src) {
+#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 800
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+#else
+  *dst = *src;
+#endif
+}
+
+// Waits for this thread's copy_async copies.
+__device__ __forceinline__ void async_wait() {
+#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 800
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+#endif
+}
+
+// Plant `plant`'s cost of the sample in column `col` of the noise tile: the
+// clamp of U + n against lo and hi, the action cost of the rectified noise,
+// and the T-step rollout from the plant's x0.  Called with nx = nu = N as
+// constants, the device model's loops and constant offsets are fixed when it
+// is compiled, so its constants stay in registers across the steps.
+template <class Model, int N, int LDT>
+__device__ __forceinline__ float batched_cost(const Params& p, const float4* cur, const float* col,
+                                              int plant, int nx, int nu) {
+  float x[N], u[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    x[i] = i < nx ? p.x0[i * p.x0_row_stride + plant * p.x0_col_stride] : 0.0f;
+  float pc = 0.0f, total = 0.0f;  // action cost of the rectified noise, running cost
+  for (int t = 0; t < p.T; ++t) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      float act = 0.0f;
+      if (j < nu) {
+        const int d = t * nu + j;
+        const float4 c = cur[d];  // U, lo, hi, a
+        act = fminf(fmaxf(c.x + col[d * LDT], c.y), c.z);
+        const float r = act - c.x;  // rectified noise (mppi.py:383-385)
+        pc += (p.abs_cost ? fabsf(r) : r) * c.w;
+      }
+      u[j] = act * p.u_scale;
+    }
+    Model::template step<N>(p.consts, x, u, nx, nu);
+    total += Model::template cost<N>(p.consts, x, u, nx, nu);
+  }
+  return pc + total;
+}
+
+// make_transposed_batched_solve's kernel.  Block b of the grid takes the
+// BLOCK samples of K block kb = b / groups and the plants [g*P, g*P + P) of
+// group g = b % groups (P = p.plant_group, groups = ceil(N / P)).  It stages
+// the final noise n[d, k] of its samples, which no plant changes, once in an
+// (R, LDT) tile: drawn and transformed, or copied from the (R, noise_ld)
+// operand.  Then for each plant of its group (whose U and action-cost
+// columns were fetched in the background during the previous plant), thread
+// k clamps U_n + n[:, k], charges the action cost of the rectified noise,
+// rolls the model out from the plant's x0 in registers and writes
+// cost[n, k]; the block reduces m_b and s_b with warp shuffles; and for
+// acc_b[d] = sum_k w_k (clamp(U_n[d] + n[d, k]) - U_n[d]), recomputed with
+// the first pass's float operations, G groups of `rows` threads take a row
+// each and BLOCK / G samples, and group 0 adds the G sums into
+// partial[n, kb].
+template <class Model, int N, bool kGlobal>
+__global__ void __launch_bounds__(BLOCK) batched_partial(Params p) {
+  constexpr int LDT = kGlobal ? BLOCK : BATCHED_LDT;  // row stride of the tiles
+  extern __shared__ float smem[];
+  const int R = p.R, tid = threadIdx.x;
+  const int groups = (p.num_plants + p.plant_group - 1) / p.plant_group;
+  const int kb = blockIdx.x / groups, group = blockIdx.x % groups;
+  const int k0 = kb * BLOCK, k = k0 + tid;
+  const bool live = k < p.K;
+  float* ws = smem;  // BLOCK softmax weights
+  float* part = ws + BLOCK;  // BLOCK partial sums of the update
+  float* red = part + BLOCK;  // 32 reduction slots
+  float4* pk = reinterpret_cast<float4*>(red + 32);  // (2, R): U, lo, hi, a of a plant
+  float* nt = kGlobal ? p.scratch + (size_t)blockIdx.x * (p.full_op ? 2 : 1) * R * BLOCK
+                      : smem + batched_head(R);  // (R, LDT) final noise
+  float* zs = nt + (size_t)R * LDT;  // (R, LDT) raw normals, full op only
+  // the update's layout: G groups of `rows` threads (a multiple of 32)
+  const int rows = ((R + 31) / 32) * 32 < BLOCK ? ((R + 31) / 32) * 32 : BLOCK;
+  const int G = BLOCK / rows, g = tid / rows, dl = tid - g * rows, span = BLOCK / G;
+
+  const int first = group * p.plant_group;
+  const int last = first + p.plant_group < p.num_plants ? first + p.plant_group : p.num_plants;
+  const auto fetch = [&](int plant, float4* buf) {
+    for (int d = tid; d < R; d += BLOCK) {
+      float* e = reinterpret_cast<float*>(buf + d);
+      copy_async(e, p.U + d * p.u_rs + plant * p.u_ps);
+      copy_async(e + 1, p.lo + d);
+      copy_async(e + 2, p.hi + d);
+      copy_async(e + 3, p.a + d * p.a_rs + plant * p.a_ps);
+    }
+  };
+  fetch(first, pk);
+
+  if (p.noise) {
+    // the operand's (R, BLOCK) slice, 16 bytes a load where the rows allow;
+    // columns at and beyond K are 0
+    const float* src = p.noise + k0;
+    const int cols = p.K - k0 < BLOCK ? p.K - k0 : BLOCK;
+    if (p.noise_ld % 4 == 0 && reinterpret_cast<uintptr_t>(p.noise) % 16 == 0) {
+      for (int i = tid; i < R * (BLOCK / 4); i += BLOCK) {
+        const int d = i / (BLOCK / 4), c = 4 * (i % (BLOCK / 4));
+        const float* row = src + (size_t)d * p.noise_ld + c;
+        float4 q = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (c + 4 <= cols) {
+          q = *reinterpret_cast<const float4*>(row);
+        } else {
+          float* v = &q.x;
+          for (int j = 0; c + j < cols; ++j) v[j] = row[j];
+        }
+        *reinterpret_cast<float4*>(nt + d * LDT + c) = q;
+      }
+    } else {
+      for (int i = tid; i < R * BLOCK; i += BLOCK) {
+        const int d = i / BLOCK, c = i % BLOCK;
+        nt[d * LDT + c] = c < cols ? src[(size_t)d * p.noise_ld + c] : 0.0f;
+      }
+    }
+  } else if (!p.full_op) {
+    if (live) {
+      draw_column(p, k, nt + tid, LDT);
+      for (int d = 0; d < R; ++d) nt[d * LDT + tid] = nt[d * LDT + tid] * p.op[d] + p.mu[d];
+    } else {
+      for (int d = 0; d < R; ++d) nt[d * LDT + tid] = 0.0f;
+    }
+  } else {
+    // op @ z + mu on the thread's own column
+    if (live) draw_column(p, k, zs + tid, LDT);
+    for (int d = 0; d < R; ++d) {
+      float n = 0.0f;
+      if (live) {
+        float acc = 0.0f;
+        const float* row = p.op + (size_t)d * R;
+        for (int e = 0; e < R; ++e) acc += row[e] * zs[e * LDT + tid];
+        n = acc + p.mu[d];
+      }
+      nt[d * LDT + tid] = n;
+    }
+  }
+
+  const float lam = *p.lam;
+  // the N = 2 arrays also hold a rollout with nx = nu = 2 as constants (the
+  // linear and toy2d plants); the larger arrays compile only the generic one
+  bool exact = false;
+  if constexpr (N == 2) exact = p.nx == 2 && p.nu == 2;
+  for (int plant = first; plant < last; ++plant) {
+    const float4* cur = pk + ((plant - first) & 1) * R;
+    async_wait();
+    __syncthreads();  // the tile and this plant's columns are in; the previous update is done
+    if (plant + 1 < last) fetch(plant + 1, pk + ((plant - first + 1) & 1) * R);
+    float logit = -INFINITY;
+    if (live) {
+      const float c = exact ? batched_cost<Model, N, LDT>(p, cur, nt + tid, plant, N, N)
+                            : batched_cost<Model, N, LDT>(p, cur, nt + tid, plant, p.nx, p.nu);
+      p.cost[(size_t)plant * p.K + k] = c;
+      logit = -c / lam;
+    }
+    const float m_b = block_reduce<true>(logit, red);
+    const float w = (live && m_b > -INFINITY) ? expf(logit - m_b) : 0.0f;
+    ws[tid] = w;  // published by the reduction's barrier
+    const float s_b = block_reduce<false>(w, red);
+    float* out = p.partial + ((size_t)plant * p.nblocks + kb) * (R + 2);
+    if (tid == 0) {
+      out[0] = m_b;
+      out[1] = s_b;
+    }
+    for (int d0 = 0; d0 < R; d0 += rows) {
+      const int d = d0 + dl;
+      float acc = 0.0f;
+      if (g < G && d < R) {
+        const float4 c = cur[d];
+        const float4* row = reinterpret_cast<const float4*>(nt + d * LDT + g * span);
+        const float4* wg = reinterpret_cast<const float4*>(ws + g * span);
+        for (int i = 0; i < span / 4; ++i) {
+          const float4 n = row[i], w = wg[i];
+          acc = fmaf(w.x, fminf(fmaxf(c.x + n.x, c.y), c.z) - c.x, acc);
+          acc = fmaf(w.y, fminf(fmaxf(c.x + n.y, c.y), c.z) - c.x, acc);
+          acc = fmaf(w.z, fminf(fmaxf(c.x + n.z, c.y), c.z) - c.x, acc);
+          acc = fmaf(w.w, fminf(fmaxf(c.x + n.w, c.y), c.z) - c.x, acc);
+        }
+      }
+      part[tid] = acc;
+      __syncthreads();
+      if (g == 0 && d < R) {
+        float sum = part[dl];
+        for (int h = 1; h < G; ++h) sum += part[h * rows + dl];
+        out[2 + d] = sum;
+      }
+      if (d0 + rows < R) __syncthreads();  // part is read before the next rows
+    }
   }
 }
 
@@ -566,30 +819,59 @@ __global__ void __launch_bounds__(BLOCK) fused_rollout(Params p) {
 // --- kernel B and the legacy route's weighted update -----------------------------
 
 #if FUSED_MPPI_HAS(5)
+constexpr int MERGE_CHUNK = 4096;  // block scales held in shared memory at a time
+
 // One block per plant: plant n = blockIdx.x merges its nblocks partials and
-// writes column n of delta (R, plants) and of ms (2, plants).
-__global__ void flash_merge(const float* partial, int nblocks, int R, float* delta, float* ms) {
-  __shared__ float m_sh;
-  const int plant = blockIdx.x, plants = gridDim.x;
+// writes column n of delta (R, plants) and of ms (2, plants).  The threads
+// reduce m = max m_b over the blocks; each block's scale e^(m_b - m) is taken
+// once, into shared memory, a chunk of MERGE_CHUNK blocks at a time; the
+// threads reduce s = sum s_b e^(m_b - m).  For delta the threads form G
+// groups of `rows` threads: thread d of group g sums acc_b[d] times the
+// scales over the blocks b = g, g + G, ... (reading the partials coalesced
+// across d), and group 0 adds the G sums.
+__global__ void __launch_bounds__(MERGE_THREADS)
+    flash_merge(const float* partial, int nblocks, int R, float* delta, float* ms) {
+  __shared__ float scale[MERGE_CHUNK];
+  __shared__ float part[MERGE_THREADS];
+  __shared__ float red[MERGE_THREADS / 32];
+  const int plant = blockIdx.x, plants = gridDim.x, tid = threadIdx.x;
   const int stride = R + 2;
+  const int rows = R < MERGE_THREADS ? R : MERGE_THREADS;
+  const int G = MERGE_THREADS / rows, g = tid / rows, dl = tid - g * rows;
   partial += (size_t)plant * nblocks * stride;
-  if (threadIdx.x == 0) {
-    float m = -INFINITY;
-    for (int b = 0; b < nblocks; ++b) m = fmaxf(m, partial[(size_t)b * stride]);
-    float s = 0.0f;
-    for (int b = 0; b < nblocks; ++b)
-      s += partial[(size_t)b * stride + 1] * expf(partial[(size_t)b * stride] - m);
+  float m = -INFINITY;
+  for (int b = tid; b < nblocks; b += MERGE_THREADS) m = fmaxf(m, partial[(size_t)b * stride]);
+  m = block_reduce<true>(m, red);
+  float s = 0.0f;
+  for (int c0 = 0; c0 < nblocks; c0 += MERGE_CHUNK) {
+    const int n = nblocks - c0 < MERGE_CHUNK ? nblocks - c0 : MERGE_CHUNK;
+    const float* chunk = partial + (size_t)c0 * stride;
+    if (c0 > 0) __syncthreads();  // the previous chunk's scales are read
+    for (int b = tid; b < n; b += MERGE_THREADS) {
+      const float sc = expf(chunk[(size_t)b * stride] - m);
+      scale[b] = sc;
+      s += chunk[(size_t)b * stride + 1] * sc;
+    }
+    __syncthreads();
+    for (int d0 = 0; d0 < R; d0 += rows) {
+      const int d = d0 + dl;
+      float acc = 0.0f;
+      if (g < G && d < R)
+        for (int b = g; b < n; b += G) acc = fmaf(chunk[(size_t)b * stride + 2 + d], scale[b], acc);
+      part[tid] = acc;
+      __syncthreads();
+      if (g == 0 && d < R) {
+        float sum = c0 > 0 ? delta[(size_t)d * plants + plant] : 0.0f;
+        for (int h = 0; h < G; ++h) sum += part[h * rows + dl];
+        delta[(size_t)d * plants + plant] = sum;
+      }
+      __syncthreads();
+    }
+  }
+  s = block_reduce<false>(s, red);
+  if (tid == 0) {
     ms[plant] = m;
     ms[plants + plant] = s;
-    m_sh = m;
-  }
-  __syncthreads();
-  const float m = m_sh;
-  for (int d = threadIdx.x; d < R; d += blockDim.x) {
-    float acc = 0.0f;
-    for (int b = 0; b < nblocks; ++b)
-      acc += partial[(size_t)b * stride + 2 + d] * expf(partial[(size_t)b * stride] - m);
-    delta[(size_t)d * plants + plant] = acc;
   }
 }
 
@@ -723,7 +1005,7 @@ cudaError_t launch_partial(const Params& p, size_t smem, cudaStream_t stream) {
         (int)smem);
     if (e != cudaSuccess) return e;
   }
-  mppi_fused_partial<Model, N, kGlobal, V><<<dim3(p.nblocks, p.num_plants), BLOCK, smem, stream>>>(p);
+  mppi_fused_partial<Model, N, kGlobal, V><<<p.nblocks, BLOCK, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -748,12 +1030,26 @@ cudaError_t launch_tiles(const Params& p, int variant, size_t smem, cudaStream_t
                    : launch_variant<Model, N, false>(p, variant, smem, s);
 }
 
+template <class Model, int N, bool kGlobal>
+cudaError_t launch_batched_partial(const Params& p, size_t smem, cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        batched_partial<Model, N, kGlobal>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  const long long blocks =
+      (long long)p.nblocks * ((p.num_plants + p.plant_group - 1) / p.plant_group);
+  if (blocks > 0x7FFFFFFF) return cudaErrorInvalidValue;
+  batched_partial<Model, N, kGlobal><<<(unsigned)blocks, BLOCK, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
 // parts 6-10: the batched variant
 template <class Model, int N>
 cudaError_t launch_batched(const Params& p, int variant, size_t smem, cudaStream_t s) {
   if (variant != kBatched) return cudaErrorInvalidValue;
-  return p.scratch ? launch_partial<Model, N, true, kBatched>(p, smem, s)
-                   : launch_partial<Model, N, false, kBatched>(p, smem, s);
+  return p.scratch ? launch_batched_partial<Model, N, true>(p, smem, s)
+                   : launch_batched_partial<Model, N, false>(p, smem, s);
 }
 
 // One launcher per device model, register size and part; the other parts
@@ -796,10 +1092,14 @@ cudaError_t launch_pendulum8(const Params& p, int v, size_t smem, cudaStream_t s
 cudaError_t launch_pendulum8(const Params&, int, size_t, cudaStream_t);
 #endif
 #if FUSED_MPPI_HAS(6)
+cudaError_t batched_lq2(const Params& p, int v, size_t smem, cudaStream_t s) {
+  return launch_batched<LinearQuadratic, 2>(p, v, smem, s);
+}
 cudaError_t batched_lq8(const Params& p, int v, size_t smem, cudaStream_t s) {
   return launch_batched<LinearQuadratic, 8>(p, v, smem, s);
 }
 #else
+cudaError_t batched_lq2(const Params&, int, size_t, cudaStream_t);
 cudaError_t batched_lq8(const Params&, int, size_t, cudaStream_t);
 #endif
 #if FUSED_MPPI_HAS(7)
@@ -810,10 +1110,14 @@ cudaError_t batched_lq32(const Params& p, int v, size_t smem, cudaStream_t s) {
 cudaError_t batched_lq32(const Params&, int, size_t, cudaStream_t);
 #endif
 #if FUSED_MPPI_HAS(8)
+cudaError_t batched_toy2(const Params& p, int v, size_t smem, cudaStream_t s) {
+  return launch_batched<Toy2D, 2>(p, v, smem, s);
+}
 cudaError_t batched_toy8(const Params& p, int v, size_t smem, cudaStream_t s) {
   return launch_batched<Toy2D, 8>(p, v, smem, s);
 }
 #else
+cudaError_t batched_toy2(const Params&, int, size_t, cudaStream_t);
 cudaError_t batched_toy8(const Params&, int, size_t, cudaStream_t);
 #endif
 #if FUSED_MPPI_HAS(9)
@@ -824,11 +1128,11 @@ cudaError_t batched_toy32(const Params& p, int v, size_t smem, cudaStream_t s) {
 cudaError_t batched_toy32(const Params&, int, size_t, cudaStream_t);
 #endif
 #if FUSED_MPPI_HAS(10)
-cudaError_t batched_pendulum8(const Params& p, int v, size_t smem, cudaStream_t s) {
-  return launch_batched<Pendulum, 8>(p, v, smem, s);
+cudaError_t batched_pendulum2(const Params& p, int v, size_t smem, cudaStream_t s) {
+  return launch_batched<Pendulum, 2>(p, v, smem, s);
 }
 #else
-cudaError_t batched_pendulum8(const Params&, int, size_t, cudaStream_t);
+cudaError_t batched_pendulum2(const Params&, int, size_t, cudaStream_t);
 #endif
 
 }  // namespace fused_mppi
@@ -839,17 +1143,18 @@ using namespace fused_mppi;
 namespace {
 
 // The launcher of a variant for a device model (by id) and its register size
-// (8 or MAXN), or null.
+// (8 or MAXN; for the batched kernel 2, 8 or MAXN), or null.
 Launcher find_launcher(int variant, int model_id, int nx, int nu) {
   const int n = nx > nu ? nx : nu;
   const Launcher single[3][2] = {{launch_lq8, launch_lq32},
                                  {launch_pendulum8, nullptr},
                                  {launch_toy8, launch_toy32}};
-  const Launcher batched[3][2] = {{batched_lq8, batched_lq32},
-                                  {batched_pendulum8, nullptr},
-                                  {batched_toy8, batched_toy32}};
+  const Launcher batched[3][3] = {{batched_lq2, batched_lq8, batched_lq32},
+                                  {batched_pendulum2, nullptr, nullptr},
+                                  {batched_toy2, batched_toy8, batched_toy32}};
   if (model_id < 0 || model_id > 2 || n > MAXN) return nullptr;
-  return (variant == kBatched ? batched : single)[model_id][n <= 8 ? 0 : 1];
+  if (variant == kBatched) return batched[model_id][n <= 2 ? 0 : n <= 8 ? 1 : 2];
+  return single[model_id][n <= 8 ? 0 : 1];
 }
 
 // Kernel A for `variant`, then kernel B into delta and ms.
@@ -863,6 +1168,16 @@ cudaError_t launch_pair(const Params& p, int variant, int model_id, size_t smem,
   return cudaGetLastError();
 }
 
+// Dynamic shared memory of kernel A, or of batched_partial for kBatched, with
+// the tiles in shared memory or (`global`) in a global scratch.
+size_t kernel_smem(int variant, int D, int R, int full_op, bool global) {
+  const int ldt = variant == kBatched ? BATCHED_LDT : BLOCK + 1;
+  const size_t tiles = global ? 0 : (full_op ? 2 : 1) * (size_t)R * ldt;
+  if (variant == kBatched) return (batched_head(R) + tiles) * sizeof(float);
+  const size_t w = variant == kKMPPI && !global ? (size_t)D * R : 0;
+  return (2 * BLOCK + w + tiles) * sizeof(float);
+}
+
 }  // namespace
 
 extern "C" {
@@ -871,20 +1186,19 @@ int fused_mppi_block() { return BLOCK; }
 
 int fused_mppi_max_n() { return MAXN; }
 
-// Dynamic shared memory of kernel A with the tiles in shared memory (the
-// wrapper checks it against the card's 227 KB, and otherwise passes a global
-// scratch, with which kernel A needs only its 2 * BLOCK floats).
+// Dynamic shared memory of kernel A (batched_partial for kBatched) with the
+// tiles in shared memory (the wrapper checks it against the card's 227 KB,
+// and otherwise passes a global scratch).
 long long fused_mppi_smem_bytes(int variant, int D, int R, int full_op) {
-  return (long long)(2 * BLOCK + (variant == kKMPPI ? (size_t)D * R : 0) +
-                     (full_op ? 2 : 1) * (size_t)R * (BLOCK + 1)) *
-         sizeof(float);
+  return (long long)kernel_smem(variant, D, R, full_op, false);
 }
 
 const char* fused_mppi_error_string(int e) { return cudaGetErrorString((cudaError_t)e); }
 
-// Launches kernel A then kernel B on `stream`; returns cudaGetLastError().
-// `scratch` is null for the shared-memory tiles, else (plants, nblocks, tiles,
-// R, BLOCK).  kBatched takes `num_plants` plants, U and a as (D, N) with the
+// Launches kernel A (batched_partial for kBatched) then kernel B on `stream`;
+// returns cudaGetLastError().  `scratch` is null for the shared-memory tiles,
+// else (launched blocks, tiles, R, BLOCK).  kBatched takes `num_plants`
+// plants in groups of `plant_group` a block, U and a as (D, N) with the
 // strides (u_rs, u_ps) and (a_rs, a_ps), and in operand mode the final noise
 // (R, noise_ld); the other variants take one plant.
 int fused_mppi_launch(int device, void* stream, int variant, int model_id, const float* consts,
@@ -898,7 +1212,7 @@ int fused_mppi_launch(int device, void* stream, int variant, int model_id, const
                       const float* w_seq, const float* dt, float u_scale, float* cost,
                       float* partial, float* delta, float* ms, float* pert, float* scratch,
                       int num_plants, long long u_rs, long long u_ps, long long a_rs,
-                      long long a_ps, const float* noise, long long noise_ld) {
+                      long long a_ps, const float* noise, long long noise_ld, int plant_group) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   Params p{};
@@ -911,6 +1225,7 @@ int fused_mppi_launch(int device, void* stream, int variant, int model_id, const
   p.R = R;
   p.nblocks = (K + BLOCK - 1) / BLOCK;
   p.num_plants = num_plants;
+  p.plant_group = plant_group;
   p.bits = bits;
   p.bits_cols = bits_cols;
   p.key0 = key0;
@@ -947,9 +1262,9 @@ int fused_mppi_launch(int device, void* stream, int variant, int model_id, const
   p.partial = partial;
   p.pert = pert;
   p.scratch = scratch;
-  const size_t smem = scratch ? 2 * BLOCK * sizeof(float)
-                              : (size_t)fused_mppi_smem_bytes(variant, p.D, R, full_op);
-  if (variant < kMPPI || variant > kBatched || num_plants < 1 || num_plants > 65535)
+  const size_t smem = kernel_smem(variant, p.D, R, full_op, scratch != nullptr);
+  if (variant < kMPPI || variant > kBatched || num_plants < 1 ||
+      (variant == kBatched ? plant_group < 1 : num_plants != 1))
     return (int)cudaErrorInvalidValue;
   return (int)launch_pair(p, variant, model_id, smem, (cudaStream_t)stream, delta, ms);
 }
@@ -997,8 +1312,7 @@ int fused_mppi_rowmajor_solve(int device, void* stream, int model_id, const floa
   p.cost = cost;
   p.partial = partial;
   p.scratch = scratch;
-  const size_t smem = scratch ? 2 * BLOCK * sizeof(float)
-                              : (size_t)fused_mppi_smem_bytes(kMPPI, p.D, p.R, 1);
+  const size_t smem = kernel_smem(kMPPI, p.D, p.R, 1, scratch != nullptr);
   return (int)launch_pair(p, kMPPI, model_id, smem, (cudaStream_t)stream, delta, ms);
 }
 

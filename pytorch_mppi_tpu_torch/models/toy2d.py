@@ -5,7 +5,8 @@ the reference's SMPPI/KMPPI comparison, ``tests/smooth_mppi.py:30-115``).
 ``Toy2DEnvironment.dynamics`` and ``Toy2DEnvironment.running_cost`` carry the
 fused kernel's toy2d model (``env.kernel_model``), so ``SMPPI(env.dynamics,
 env.running_cost, ..., use_pallas=True)`` runs the CUDA kernel on the card.
-The drawing of the JAX environment is not ported here.
+Like the controllers, the environment lives on the card unless it is given
+``device="cpu"``.  The drawing of the JAX environment is not ported here.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import torch
 
 from ..ops.kernel_models import toy2d_model
 from ..utils.batch import batch_quadratic_product, handle_batch_input
+from ..utils.device import resolve_device
 
 
 class LinearDeltaDynamics:
@@ -62,10 +64,10 @@ class Toy2DEnvironment:
     """The 2-D navigation task (smooth_mppi.py:79-200): LQR goal cost plus a
     repulsive hill, linear-delta dynamics, a scaled terminal cost."""
 
-    def __init__(self, start=None, goal=None, dtype=torch.float32, device="cpu",
+    def __init__(self, start=None, goal=None, dtype=torch.float32, device=None,
                  terminal_scale=100.0, r=0.01):
         self.dtype = dtype
-        self.device = torch.device(device)
+        self.device = resolve_device(device, "Toy2DEnvironment")
         self.nx = 2
         self.state_ranges = [(-5, 5), (-5, 5)]
         t = dict(dtype=dtype, device=self.device)

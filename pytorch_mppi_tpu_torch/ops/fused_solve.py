@@ -24,8 +24,9 @@ ops/pallas_rollout.py`` and their helpers (the other four are in
 Each is built for a :class:`~.kernel_models.KernelModel`:
 
 * on CUDA tensors it launches ``csrc/fused_mppi.cu`` (kernel A, one thread
-  per sample, then kernel B, the merge of the per-block softmax statistics)
-  and raises if the launch fails;
+  per sample, or for N plants ``batched_partial``, one thread per sample for
+  a group of :func:`plant_group` plants; then kernel B, the merge of the
+  per-block softmax statistics) and raises if the launch fails;
 * on CPU tensors it runs its plain version (:func:`fused_solve_plain`,
   :func:`smppi_solve_plain`, :func:`kmppi_solve_plain`), the same function in
   plain torch ops on (rows, K) tensors (:func:`batched_solve_plain` on
@@ -78,7 +79,14 @@ launches = dict.fromkeys(KERNELS, 0)
 MAX_SMEM_BYTES = 232_448  # shared memory one block may use on Hopper
 _BLOCK = 128  # samples per block of kernel A (BLOCK in fused_mppi.cu)
 _MAXN = 32  # largest nx or nu of a device model (MAXN in fused_mppi.cu)
-MAX_PLANTS = 65_535  # the grid's y extent holds the plant index
+# batched_partial: at most this many plants share one block's noise tile, and
+# the grid keeps at least FILL_BLOCKS blocks (two on each of the H100's 132
+# SMs) where N and K allow.  chip_smoke.py's sweep over P = 1-32 on an NVIDIA
+# H100 80GB HBM3 at 700 W: at N = 1,024, K = 16,384 the device time falls
+# until P = 16-32; at N = 16, K = 10,240, P = 4 (320 blocks) was as fast as
+# P = 2 in operand mode and 7 % faster in seed mode (PERF.md).
+PLANT_GROUP_MAX = 32
+FILL_BLOCKS = 2 * 132
 
 
 class FusedSolveUnavailable(ValueError):
@@ -95,9 +103,28 @@ def transposed_eligible(config: MPPIConfig) -> bool:
 def smem_bytes(variant: int, D: int, R: int, full_op: bool) -> int:
     """Dynamic shared memory of kernel A with its tiles in shared memory
     (``fused_mppi_smem_bytes``): two BLOCK vectors, KMPPI's (D, R)
-    interpolation operator, and one (R, BLOCK + 1) tile, two with a full op."""
+    interpolation operator, and one (R, BLOCK + 1) tile, two with a full op.
+    The batched kernel holds two BLOCK vectors, 32 reduction slots and two
+    buffers of R (U, lo, hi, a) quadruples beside its tiles, whose rows are
+    BLOCK + 4 floats."""
+    tiles = 2 if full_op else 1
+    if variant == BATCHED:
+        return (2 * _BLOCK + 32 + 8 * R + tiles * R * (_BLOCK + 4)) * 4
     w = D * R if variant == KMPPI else 0
-    return (2 * _BLOCK + w + (2 if full_op else 1) * R * (_BLOCK + 1)) * 4
+    return (2 * _BLOCK + w + tiles * R * (_BLOCK + 1)) * 4
+
+
+def plant_group(num_plants: int, nblocks: int) -> int:
+    """P, the plants one block of the batched kernel takes: the largest P up
+    to ``PLANT_GROUP_MAX`` whose grid of ``nblocks · ceil(N / P)`` blocks
+    still holds ``FILL_BLOCKS``, then spread evenly over that many groups
+    (``ceil(N / groups)``); 1 when even one plant a block underfills the
+    card.  Each block draws or loads its noise tile once for its P plants."""
+    for P in range(min(PLANT_GROUP_MAX, num_plants), 1, -1):
+        groups = -(-num_plants // P)
+        if nblocks * groups >= FILL_BLOCKS:
+            return -(-num_plants // groups)
+    return 1
 
 
 def padded_k(K: int, pair_block: int) -> int:
@@ -382,7 +409,7 @@ def _lib():
             _I, _P, _I, _I, _P, _I, _I, _I, _I, _I, _P, _I, ctypes.c_uint32,
             ctypes.c_uint32, _I, _I, _I, _I, _P, _L, _L, _P, _P, _P, _I, _P,
             _P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_float, _P, _P, _P,
-            _P, _P, _P, _I, _L, _L, _L, _L, _P, _L,
+            _P, _P, _P, _I, _L, _L, _L, _L, _P, _L, _I,
         ]
         lib.fused_mppi_rollout.argtypes = [_I, _P, _I, _P, _I, _I, _I, _I, _P, _L, _L,
                                            _P, _P]
@@ -409,7 +436,7 @@ def _lib():
         if lib.fused_mppi_block() != _BLOCK or lib.fused_mppi_max_n() != _MAXN:
             raise RuntimeError("fused_mppi.cu BLOCK or MAXN differs from fused_solve")
         if any(lib.fused_mppi_smem_bytes(v, 60, r, f) != smem_bytes(v, 60, r, bool(f))
-               for v in (MPPI, KMPPI) for r in (30, 60) for f in (0, 1)):
+               for v in (MPPI, KMPPI, BATCHED) for r in (30, 60) for f in (0, 1)):
             raise RuntimeError("fused_mppi_smem_bytes differs from fused_solve.smem_bytes")
         lib._argtypes_set = True
     return lib
@@ -464,14 +491,15 @@ def check_kernel_model(config: MPPIConfig, model: KernelModel):
 
 def _make_launch(variant: int, config: MPPIConfig, model: KernelModel, R: int,
                  pair_block, emit_perturbed: bool, null_dynamic_gate: bool,
-                 terminal_final, plants: int = 1, noise_operand: bool = False):
+                 terminal_final, plants: int = 1, noise_operand: bool = False,
+                 group: int = 1):
     """Checks shared by the four factories, and the launch of one variant:
     ``launch(lead, x0T, U2, base, op, mu, lo, hi, alo, ahi, a_flat, W,
     lambda_, w_seq, dt)`` on CUDA tensors.  The batched variant takes
-    ``plants`` plants: x0T (nx, N), U2 and a_flat (D, N) of any strides, and
-    in operand mode the final (D, ≥K) noise as ``lead``.  Returns ``(launch,
-    flags, info)`` where ``flags`` are the plain version's keyword
-    arguments."""
+    ``plants`` plants, ``group`` of them a block: x0T (nx, N), U2 and a_flat
+    (D, N) of any strides, and in operand mode the final (D, ≥K) noise as
+    ``lead``.  Returns ``(launch, flags, info)`` where ``flags`` are the
+    plain version's keyword arguments."""
     if null_dynamic_gate:
         raise FusedSolveUnavailable(
             "null_dynamic_gate is not ported yet (ROADMAP.md Queue 1 item 12, sharding)")
@@ -488,10 +516,11 @@ def _make_launch(variant: int, config: MPPIConfig, model: KernelModel, R: int,
         raise ValueError(f"antithetic pairing needs an even pair_block, got {pair_block}")
     full_op = not (noise_operand or config.diag_sigma and not config.noise_rho)
     # tiles that do not fit in shared memory go to a global scratch of one
-    # (R, BLOCK) slice per block and tile
+    # (R, BLOCK) slice per launched block and tile
     shared = smem_bytes(variant, D, R, full_op) <= MAX_SMEM_BYTES
     nblocks = -(-K // _BLOCK)
-    scratch_elems = 0 if shared else plants * nblocks * (2 if full_op else 1) * R * _BLOCK
+    blocks = nblocks * -(-plants // group)
+    scratch_elems = 0 if shared else blocks * (2 if full_op else 1) * R * _BLOCK
     K_pad = K if noise_operand else padded_k(K, pair_block)
     bits_cols = K_pad // 2 if antithetic else K_pad
     flags = dict(model=model, K=K, T=T, nu=nu, antithetic=config.antithetic,
@@ -557,7 +586,7 @@ def _make_launch(variant: int, config: MPPIConfig, model: KernelModel, R: int,
             delta.data_ptr(), ms.data_ptr(), _ptr(pert), _ptr(scratch),
             plants, U2.stride(0), U2.stride(-1) if batched else 0, a_flat.stride(0),
             a_flat.stride(-1) if batched else 0, _ptr(noise),
-            noise.stride(0) if noise is not None else 0,
+            noise.stride(0) if noise is not None else 0, group,
         )
         raise_on_error(lib, rc, "fused_mppi")
         launches["batched" if batched else VARIANTS[variant]] += 2
@@ -567,7 +596,7 @@ def _make_launch(variant: int, config: MPPIConfig, model: KernelModel, R: int,
         return out + (pert,) if emit_perturbed else out
 
     info = dict(K_pad=K_pad, pair_block=pair_block, bits_cols=bits_cols,
-                tiles="shared" if shared else "global")
+                tiles="shared" if shared else "global", blocks=blocks)
     return launch, flags, info
 
 
@@ -664,7 +693,7 @@ def make_transposed_kmppi_solve(config: MPPIConfig, model: KernelModel,
 def make_transposed_batched_solve(config: MPPIConfig, num_envs: int,
                                   model: KernelModel, pair_block: int = None,
                                   noise_operand: bool = False,
-                                  terminal_final=None):
+                                  terminal_final=None, group: int = None):
     """The N-plant MPPI iteration as one fused-kernel call, with the call
     contract of ``pallas_rollout.py:1142-1149``: ``solve(lead, x0T (nx, N),
     U2T (D, N), op, mu_t, lo_t, hi_t (D,), aT (D, N), lambda_) -> (delta
@@ -676,22 +705,25 @@ def make_transposed_batched_solve(config: MPPIConfig, num_envs: int,
     bits inject it; with ``noise_operand`` ``lead`` is the final (D, ≥K)
     float32 noise (one draw outside, already mirrored, correlated and
     mu-shifted) and the kernel draws nothing.  There is no null-action row.
-    Raises :class:`FusedSolveUnavailable` for ``terminal_final`` and for
-    more than 65,535 plants, and as :func:`make_transposed_fused_solve`."""
+    Each block of the kernel takes ``group`` plants (default: the rule of
+    :func:`plant_group`); ``solve.plant_group`` holds it.  Raises
+    :class:`FusedSolveUnavailable` for ``terminal_final``, and as
+    :func:`make_transposed_fused_solve`."""
     plants = int(num_envs)
     if plants < 1:
         raise ValueError(f"num_envs must be >= 1, got {plants}")
-    if plants > MAX_PLANTS:
-        raise FusedSolveUnavailable(
-            f"num_envs={plants}: the kernel's grid holds at most {MAX_PLANTS} plants")
+    group = group or plant_group(plants, -(-config.K // _BLOCK))
+    if not 1 <= group <= plants:
+        raise ValueError(f"group must be in [1, num_envs={plants}], got {group}")
     D = config.T * config.nu
     launch, flags, info = _make_launch(BATCHED, config, model, D, pair_block, False,
                                        False, terminal_final, plants=plants,
-                                       noise_operand=noise_operand)
+                                       noise_operand=noise_operand, group=group)
 
     def solve(lead, x0T, U2T, op, mu_t, lo_t, hi_t, aT, lambda_):
         return launch(lead, x0T, U2T, None, op, mu_t, lo_t, hi_t, None, None, aT,
                       None, lambda_, None, None)
 
     return finish(solve, batched_solve_plain, flags,
-                  dict(info, num_envs=plants, noise_operand=noise_operand))
+                  dict(info, num_envs=plants, noise_operand=noise_operand,
+                       plant_group=group))

@@ -1,0 +1,228 @@
+#!/usr/bin/env python3
+"""Host time of the batched wrapper and of ``MPPI_Batched`` commands, for
+two checkouts of the repo, in alternating processes on one CUDA card.
+
+    python3 pytorch_mppi_tpu_torch/tools/batched_host_ab.py A_DIR B_DIR \
+        [--pairs 6] [--out FILE]
+
+Each process imports ``pytorch_mppi_tpu_torch`` from its checkout (whose
+kernels are built there first, one checkout after the other) and measures,
+on the host clock, at ``examples/scenario_batch.py``'s N = 16, K = 10,240,
+T = 30 problem:
+
+* ``issue_us``: the host time of one wrapper call
+  (``make_transposed_batched_solve``, operand and seed mode; the
+  single-plant MPPI wrapper at K = 10,000, T = 30 as a control), from loops
+  of ``--calls`` calls that issue work without waiting for the card, the
+  median over ``--repeats`` loops;
+* ``ctypes_us``: the part of it spent in the library's entry point
+  (``fused_mppi_launch`` through ctypes: argument conversion, the two kernel
+  launches and the error checks), timed around that call alone; the rest of
+  ``issue_us`` is the wrapper's Python (checks and allocations);
+* ``null_ctypes_us``: a ctypes call that does nothing (``fused_mppi_block``);
+* ``profile``: the wrapper's most expensive functions under ``cProfile``
+  (its overhead inflates them alike in both checkouts);
+* ``command_us``: the median host time of ``MPPI_Batched.command`` followed
+  by a synchronise (what a control loop waits for), operand and seed mode.
+
+The processes run A, B, B, A, A, B, ... (``--pairs`` pairs); the summary
+gives each metric's median per checkout, B / A, and in how many pairs B
+read higher.  ``--device cpu`` rehearses the script on the CPU (the plain
+versions, no ctypes metrics) at a small ``--calls``.
+"""
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+N, K, T, NU = 16, 10_240, 30, 2
+FLAG_K = 10_000
+
+
+def _loop_us(fn, calls, repeats, sync):
+    """Median host microseconds per call over ``repeats`` loops of
+    ``calls`` calls, each loop started and ended on an idle card."""
+    samples = []
+    for _ in range(repeats):
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        samples.append((time.perf_counter() - t0) / calls * 1e6)
+        sync()
+    return statistics.median(samples)
+
+
+def child(root, device, calls, repeats, commands):
+    sys.path.insert(0, root)  # this checkout's package, never an installed one
+    import cProfile
+    import pstats
+
+    import torch
+
+    import pytorch_mppi_tpu_torch as port
+    from pytorch_mppi_tpu_torch import MPPI_Batched, linear_quadratic
+    from pytorch_mppi_tpu_torch.config import MPPIConfig
+    from pytorch_mppi_tpu_torch.ops import fused_solve as FS
+
+    if not Path(port.__file__).resolve().is_relative_to(Path(root).resolve()):
+        raise SystemExit(f"imported {port.__file__}, not the package under {root}")
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2026)
+    lq = linear_quadratic(torch.tensor([[1.0, 0.0], [0.0, -1.0]], device=dev),
+                          torch.tensor([2.0, 2.0], device=dev))
+    D = T * NU
+    vec = lambda v: torch.full((D,), v, device=dev)  # noqa: E731
+    lam = torch.tensor(1.0, device=dev)
+    x0T = torch.rand(2, N, generator=gen, device=dev) * 4 - 4
+    U2T = (torch.randn(N, D, generator=gen, device=dev) * 0.3).T
+    aT = (torch.randn(N, D, generator=gen, device=dev) * 0.5).T
+    rest = (x0T, U2T, vec(0.5 ** 0.5), vec(0.0), vec(-1.0), vec(1.0), aT, lam)
+    cfg = MPPIConfig(nx=2, nu=NU, K=K, T=T, diag_sigma=True)
+    op_solve = FS.make_transposed_batched_solve(cfg, N, lq, noise_operand=True)
+    noise = torch.randn(D, op_solve.K_pad, generator=gen, device=dev) * 0.5 ** 0.5
+    seed_solve = FS.make_transposed_batched_solve(cfg, N, lq)
+    flag = MPPIConfig(nx=2, nu=NU, K=FLAG_K, T=T, diag_sigma=True)
+    mppi_solve = FS.make_transposed_fused_solve(flag, lq)
+    x0 = torch.tensor([-3.0, -2.0], device=dev)[:, None].expand(2, FLAG_K)
+    mppi_args = ((5, 6), x0, torch.zeros(D, device=dev), vec(1.0), vec(0.0),
+                 vec(-1e9), vec(1e9), vec(0.0), lam)
+    wrappers = {
+        "batched_operand": lambda: op_solve(noise, *rest),
+        "batched_seed": lambda: seed_solve((5, 6), *rest),
+        "mppi_control": lambda: mppi_solve(*mppi_args),
+    }
+    out = {"root": root, "package": port.__file__,
+           "plant_group": getattr(op_solve, "plant_group", None)}
+    for name, fn in wrappers.items():
+        for _ in range(20):
+            fn()
+        out[f"{name}.issue_us"] = _loop_us(fn, calls, repeats, sync)
+    if cuda:
+        lib = FS._lib()
+        out["null_ctypes_us"] = _loop_us(lib.fused_mppi_block, 10 * calls, repeats, sync)
+        real = lib.fused_mppi_launch
+        inner = []
+
+        def timed(*args):
+            t0 = time.perf_counter()
+            rc = real(*args)
+            inner.append(time.perf_counter() - t0)
+            return rc
+
+        lib.fused_mppi_launch = timed
+        try:
+            for name, fn in wrappers.items():
+                inner.clear()
+                _loop_us(fn, calls, repeats, sync)
+                out[f"{name}.ctypes_us"] = statistics.median(inner) * 1e6
+        finally:
+            lib.fused_mppi_launch = real
+    prof = cProfile.Profile()
+    prof.enable()
+    for _ in range(calls):
+        wrappers["batched_operand"]()
+    prof.disable()
+    sync()
+    stats = pstats.Stats(prof).stats
+    top = sorted(stats.items(), key=lambda kv: -kv[1][2])[:8]
+    out["profile"] = [f"{Path(f).name}:{line}({fn}) {v[2] / calls * 1e6:.2f} us"
+                      for (f, line, fn), v in top]
+
+    def starts():
+        g = torch.Generator(device=dev)
+        g.manual_seed(42)
+        return torch.rand(N, 2, generator=g, device=dev) * 4 - 4
+
+    for mode, use_pallas in (("operand", True), ("seed", "kernel_rng")):
+        ctrl = MPPI_Batched(lq.dynamics, lq.running_cost, nx=2,
+                            noise_sigma=torch.eye(NU, device=dev) * 0.5, num_envs=N,
+                            num_samples=K, horizon=T, lambda_=1.0,
+                            u_min=-torch.ones(NU), u_max=torch.ones(NU), seed=0,
+                            use_pallas=use_pallas, device=dev)
+        x = starts()
+        for _ in range(10):
+            x = lq.dynamics(x, ctrl.command(x))
+        sync()
+        lat = []
+        for _ in range(commands):
+            t0 = time.perf_counter()
+            action = ctrl.command(x)
+            sync()
+            lat.append((time.perf_counter() - t0) * 1e6)
+            x = lq.dynamics(x, action)
+        out[f"command_{mode}.command_us"] = statistics.median(lat)
+    print(json.dumps(out))
+    return 0
+
+
+def build(root):
+    """Build a checkout's kernels in a process of its own; returns seconds."""
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); "
+            "from pytorch_mppi_tpu_torch.ops import _build; r = _build.build(); "
+            "print(0.0 if r is None else r[0])")
+    done = subprocess.run([sys.executable, "-c", code, root], capture_output=True, text=True)
+    if done.returncode != 0:
+        raise SystemExit(f"build of {root} failed:\n{done.stdout}\n{done.stderr}")
+    return float(done.stdout.strip().splitlines()[-1])
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("a", help="checkout A (for example the parent commit)")
+    ap.add_argument("b", help="checkout B (for example this commit)")
+    ap.add_argument("--pairs", type=int, default=6)
+    ap.add_argument("--calls", type=int, default=200)
+    ap.add_argument("--repeats", type=int, default=15)
+    ap.add_argument("--commands", type=int, default=200)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--out", help="also write every process's result here (JSON lines)")
+    ap.add_argument("--child", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.child:
+        return child(args.child, args.device, args.calls, args.repeats, args.commands)
+    roots = {"A": str(Path(args.a).resolve()), "B": str(Path(args.b).resolve())}
+    if args.device == "cuda":
+        for label, root in roots.items():
+            print(f"# build {label} ({root}): {build(root):.1f} s", flush=True)
+    results = {"A": [], "B": []}
+    lines = []
+    for i in range(args.pairs):
+        for label in ("AB" if i % 2 == 0 else "BA"):
+            cmd = [sys.executable, __file__, args.a, args.b, "--child", roots[label],
+                   "--device", args.device, "--calls", str(args.calls),
+                   "--repeats", str(args.repeats), "--commands", str(args.commands)]
+            done = subprocess.run(cmd, capture_output=True, text=True)
+            if done.returncode != 0:
+                raise SystemExit(f"process for {label} failed:\n{done.stdout}\n{done.stderr}")
+            r = json.loads(done.stdout.strip().splitlines()[-1])
+            r["label"] = label
+            results[label].append(r)
+            lines.append(json.dumps(r))
+            print(f"[{label}] " + " | ".join(f"{k} {v:.2f}" for k, v in r.items()
+                                             if isinstance(v, float)), flush=True)
+            print(f"[{label}] profile: " + "; ".join(r["profile"]), flush=True)
+    if args.out:
+        Path(args.out).write_text("\n".join(lines) + "\n")
+    summary = {}
+    for key in (k for k, v in results["A"][0].items() if isinstance(v, float)):
+        a = [r[key] for r in results["A"]]
+        b = [r[key] for r in results["B"]]
+        higher = sum(y > x for x, y in zip(a, b))
+        summary[key] = dict(a=statistics.median(a), b=statistics.median(b),
+                            ratio=statistics.median(b) / statistics.median(a),
+                            b_higher_in=f"{higher}/{len(a)}")
+        print(f"# {key}: A {summary[key]['a']:.2f} | B {summary[key]['b']:.2f} | B/A "
+              f"{summary[key]['ratio']:.3f} | B higher in {higher} of {len(a)} pairs")
+    print(json.dumps({"summary": summary}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -63,7 +63,8 @@ def _problem(name):
                 1, 8, 2.0)
     if name == "toy2d":
         jenv = JToy2D(dtype=F32)
-        return jenv.dynamics, jenv.running_cost, Toy2DEnvironment().kernel_model, 2, 6, 1.0
+        model = Toy2DEnvironment(device="cpu").kernel_model
+        return jenv.dynamics, jenv.running_cost, model, 2, 6, 1.0
     B, goal = jnp.asarray(B_NP, F32), jnp.asarray(GOAL_NP, F32)
     return (lambda s, a: s + a @ B.T, lambda s, a: ((goal - s) ** 2).sum(axis=-1),
             linear_quadratic(torch.from_numpy(B_NP), torch.from_numpy(GOAL_NP)), 2, 6, 1.0)
@@ -374,8 +375,66 @@ def test_override_guard_and_bad_mode():
                              transposed_solve_override=object())
     with pytest.raises(ValueError, match="use_pallas"):
         _route(8, "rollout")
-    with pytest.raises(FS.FusedSolveUnavailable, match="65535"):
-        FS.make_transposed_batched_solve(MPPIConfig(nx=2, nu=2, K=8, T=4), 65_536, model)
+    # the grid holds blocks of plant groups on x: no 65,535-plant limit
+    solve = FS.make_transposed_batched_solve(MPPIConfig(nx=2, nu=2, K=8, T=4), 65_536, model)
+    assert solve.num_envs == 65_536 and solve.blocks == -(-65_536 // solve.plant_group)
+    with pytest.raises(ValueError, match="group"):
+        FS.make_transposed_batched_solve(MPPIConfig(nx=2, nu=2, K=8, T=4), 3, model, group=4)
+
+
+@pytest.mark.parametrize("N", [1, 16, 64, 1024, 70_000])
+@pytest.mark.parametrize("K", [256, 10_240, 16_384])
+def test_plant_group_fills_the_card(N, K):
+    """``plant_group``: at most ``PLANT_GROUP_MAX`` plants a block; one
+    plant a block where even that underfills the card; otherwise the grid
+    of ``nblocks · ceil(N / P)`` blocks holds ``FILL_BLOCKS``, with the
+    fewest groups that do, spread evenly."""
+    nblocks = -(-K // FS._BLOCK)
+    P = FS.plant_group(N, nblocks)
+    groups = -(-N // P)
+    assert 1 <= P <= min(N, FS.PLANT_GROUP_MAX)
+    if nblocks * N < FS.FILL_BLOCKS:
+        assert P == 1
+    else:
+        assert nblocks * groups >= FS.FILL_BLOCKS
+        fewest = min(-(-N // q) for q in range(1, min(N, FS.PLANT_GROUP_MAX) + 1)
+                     if nblocks * -(-N // q) >= FS.FILL_BLOCKS)
+        assert groups == fewest
+        assert P == -(-N // groups)  # the groups differ by at most one plant
+    if (N, K) == (1024, 16_384):
+        assert P == FS.PLANT_GROUP_MAX
+    if (N, K) == (16, 10_240):
+        assert 1 <= P <= 4
+
+
+def test_more_plants_than_a_grid_row():
+    """More than 65,535 plants: the factory builds, its plain version gives
+    the shapes of the contract, and ``use_pallas="force"`` routes to it."""
+    N, K, T = 70_000, 8, 2
+    D = T * 2
+    cfg = MPPIConfig(nx=2, nu=2, K=K, T=T, diag_sigma=True)
+    model = linear_quadratic(torch.from_numpy(B_NP), torch.from_numpy(GOAL_NP))
+    solve = FS.make_transposed_batched_solve(cfg, N, model)
+    assert solve.plant_group == FS.plant_group(N, 1)
+    g = torch.Generator().manual_seed(3)
+    args = (torch.randn(2, N, generator=g), torch.randn(N, D, generator=g).T * 0.3,
+            torch.ones(D), torch.zeros(D), torch.full((D,), -1.0), torch.full((D,), 1.0),
+            torch.randn(N, D, generator=g).T * 0.5, torch.tensor(1.0))
+    delta, ms, cost = solve((5, 6), *args)
+    assert delta.shape == (D, N) and ms.shape == (2, N) and cost.shape == (N, K)
+    assert all(bool(torch.isfinite(v).all()) for v in (delta, ms, cost))
+    fns = PS.make_batched_step(cfg, N, model.dynamics, model.running_cost, use_pallas="force")
+    assert fns.fused
+
+
+def test_toy2d_environment_means_the_card(monkeypatch):
+    """``Toy2DEnvironment()`` with no device means the card, as the
+    controllers do: without one it raises and asks for ``device="cpu"``."""
+    env = Toy2DEnvironment(device="cpu")
+    assert env.device.type == "cpu" and env.start.device.type == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Toy2DEnvironment()
 
 
 # ---------------------------------------------------------------------------
@@ -492,7 +551,8 @@ def _chip_smoke():
 def test_fused_work_counts_batched_inputs_once():
     """``chip_smoke.fused_work`` for the batched variant: N plants' columns
     of x0, U and a read once, the operand read in place of the operator and
-    the draw, and N times the single-plant operations."""
+    the draw; the draw counted once for the plants that share it, the rest
+    N times the single-plant operations."""
     smoke = _chip_smoke()
     N, K, T, nu = 3, 300, 4, 2
     D = T * nu
@@ -505,10 +565,16 @@ def test_fused_work_counts_batched_inputs_once():
     ops_op, b_op = smoke.fused_work(cfg, model, torch.zeros(D, K), x0T, op,
                                     variant="batched", plants=N)
     assert b_op == b_seed - 4 * D + 4 * D * K
-    # operand mode draws nothing: no normal (30), no transform (2), no Philox
-    assert ops_seed - ops_op == N * K * (D * 32 + (D // 4) * 98)
+    # operand mode draws nothing: no normal (30), no transform (2), no Philox;
+    # seed mode draws each of the K source columns once for all N plants
+    draw = K * (D * 32 + -(-D // 4) * 98)
+    assert ops_seed - ops_op == draw
     ops_one, _ = smoke.fused_work(cfg, model, (1, 2), torch.zeros(2, 1).expand(2, K), op)
-    assert ops_seed == N * ops_one
+    assert ops_seed == N * ops_one - (N - 1) * draw
+    # antithetic pairs: K/2 source columns
+    anti = MPPIConfig(nx=2, nu=nu, K=K, T=T, diag_sigma=True, antithetic=True)
+    ops_anti, _ = smoke.fused_work(anti, model, (1, 2), x0T, op, variant="batched", plants=N)
+    assert ops_anti == ops_op + draw // 2
 
 
 def test_scenario_loop_settles_like_jax():

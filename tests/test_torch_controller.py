@@ -278,7 +278,7 @@ def test_kmppi_clamps_horizon_to_support_points(caplog):
 def test_toy2d_runs_the_kernel_model(cls):
     """The 2-D navigation task carries the kernel's toy2d model, so
     ``use_pallas=True`` routes to the fused solve (its plain version here)."""
-    env = Toy2DEnvironment()
+    env = Toy2DEnvironment(device="cpu")
     ctrl = cls(env.dynamics, env.running_cost, nx=2, noise_sigma=torch.eye(2) * 0.2,
                num_samples=64, horizon=8, u_min=torch.tensor([-1.0, -1.0]),
                u_max=torch.tensor([1.0, 1.0]), device="cpu", use_pallas=True)

@@ -56,7 +56,7 @@ def _problem(name):
         return jpend.pendulum_dynamics, jpend.pendulum_running_cost, PENDULUM_MODEL, 1
     if name == "toy2d":
         jenv = JToy2D(dtype=F32)
-        return jenv.dynamics, jenv.running_cost, Toy2DEnvironment().kernel_model, 2
+        return jenv.dynamics, jenv.running_cost, Toy2DEnvironment(device="cpu").kernel_model, 2
     B, goal = jnp.asarray(B_NP, F32), jnp.asarray(GOAL_NP, F32)
     return (lambda s, a: s + a @ B.T, lambda s, a: ((goal - s) ** 2).sum(axis=-1),
             linear_quadratic(torch.from_numpy(B_NP), torch.from_numpy(GOAL_NP)), 2)
