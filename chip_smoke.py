@@ -16,9 +16,13 @@ the package is not beside it.  Phases, each fatal when it fails:
 3. kernel against plain: each variant of the fused kernel and its plain
    version on the same device inputs and bits, at the shapes of phases 4-6
    (K = 10,000, T = 30; the swing-up's K = 1,000, T = 15; the closed loops'
-   K = 500) and more (D = 300 with a full operator, on the global-memory
-   tiles; a 12-state, 4-action ``linear_quadratic``), in bits mode and in
-   seed mode (Philox in both), then the statistics of the seed-mode noise;
+   K = 500) and more (D = 300 with a full operator, on the shared-memory
+   tiles and, at 128 samples a block, on the global ones; a 12-state,
+   4-action ``linear_quadratic``; 32 and 64 samples a block forced at
+   K = 1,000 and with antithetic pairs in blocks of 128), in bits mode and in
+   seed mode (Philox in both), then the statistics of the seed-mode noise,
+   and 50 calls in a row of each variant identical to the first (kernel A's
+   merge counter resets);
    the batched variant in bits, seed and operand mode (N = 16, K = 10,240;
    the full width N = 1,024, K = 16,384 with the rule's plant group, which
    must be the largest P, and with P = 1; N = 1,023, not a multiple of P;
@@ -31,27 +35,30 @@ the package is not beside it.  Phases, each fatal when it fails:
    ``noise_rho``), at K = 777 and at D = 300, then the moments of its
    seed-mode draws and its normals against the transposed kernel's; the
    round-1 solve in bits and seed mode at the flagship, K = 130, with the
-   null row, ``u_scale`` and a full sigma, on the pendulum and at D = 300,
-   then the moments through its cost and its costs against the transposed
-   kernel's on one key;
+   null row, ``u_scale`` and a full sigma, on the pendulum, at D = 300 (both
+   tiles) and at K = 1,000 with 64 samples a block, then the moments through
+   its cost, its costs against the transposed kernel's on one key and 50
+   calls in a row;
 4. main paths: 1,000 closed-loop commands of ``MPPI``, ``SMPPI`` and
    ``KMPPI`` on ``linear_quadratic`` at K = 10,000, T = 30 (``bench.py``'s
-   flagship problem), fused (``use_pallas=True``) with the launch count and
-   the goal checked, then the same on the plain torch path, and ``MPPI``'s
+   flagship problem), fused (``use_pallas=True``, one launch a command) with
+   the launch count and the goal checked, then the same on the plain torch path, and ``MPPI``'s
    legacy route (``use_pallas="rollout"``) held to the plain step; then
    ``MPPI_Batched`` on ``examples/scenario_batch.py``'s problem at N = 1,024,
    K = 16,384, T = 30 and at N = 16, K = 10,240: operand mode, seed mode and
    the plain path, the launch counts and the fused step held to the plain
    step on one seed; the crossover sweep of the batched kernel (N = 64,
    K = 256 to 10,240); the ops-level kernels' loops at the flagship, 1,000
-   commands each: the round-1 solve in seed mode (2 launches a command) and
+   commands each: the round-1 solve in seed mode (1 launch a command) and
    JAX's "psampler" solve from port kernels (the sampler, the legacy rollout
    and weighted update: 4 launches), each held to its plain versions for one
    command; the kernels alone at the main paths' shapes (device time per
    call replayed from a CUDA graph of 20 calls, the profiler's beside it),
-   the batched kernel's device time for each plant group P of 1-32 at
-   N = 1,024 and N = 16, and each pair's time against its time before
-   the batched redesign;
+   kernel A's S sweep (32, 64 and 128 samples a block; each variant at the
+   flagship, at K = 1,000 and at D = 300, the round-1 solve at the flagship:
+   the rule's S within 10 % of the best), the batched kernel's device time
+   for each plant group P of 1-32 at N = 1,024 and N = 16, and each
+   kernel's time against its time before kernel A's redesign;
 5. swing-up: the pendulum with ``use_pallas=True``, 150 steps;
 6. closed loops through the kernels: the ``tests/test_mppi.py`` LQ problem
    (KMPPI reaches the goal, SMPPI stays finite), the toy2d comparison of
@@ -89,14 +96,17 @@ SCENARIO_N, SCENARIO_K, SCENARIO_T, SCENARIO_STEPS = 16, 256, 10, 30
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_PER_S = 67e12  # float32 outside the tensor cores, H100 SXM data sheet
 FIRST_MPPI_SEED_MS = 0.04754  # the MPPI pair, seed mode, flagship, as first ported (PERF.md)
-# each pair's device time before the batched kernel's redesign and the
-# parallel flash_merge (PERF.md's table; NVIDIA H100 80GB HBM3, 700 W): the
-# single-plant pairs at the flagship in seed mode, the batched pair at the
-# main paths' widths
-BEFORE_MS = {"mppi": 0.046136, "smppi": 0.071593, "kmppi": 0.068152, "rowmajor": 0.053964,
-          "weighted_update": 0.015528, "batched_operand": 5.3411, "batched_seed": 8.0454,
-          "batched_small_operand": 0.077017}
+# each kernel's device time before kernel A's redesign (PERF.md, the run
+# before it; NVIDIA H100 80GB HBM3, 700 W): kernel A and flash_merge at the
+# flagship in seed mode and at D = 300 with a full operator on the global
+# tiles; the batched pair at the main paths' widths; the legacy route's
+# kernels and the sampler at the flagship
+BEFORE_MS = {"mppi": 0.043462, "smppi": 0.070621, "kmppi": 0.071037, "rowmajor": 0.051706,
+             "mppi_D300": 1.6839, "smppi_D300": 1.8595, "kmppi_D300": 1.9555,
+             "weighted_update": 0.013277, "rollout": 0.020102, "sampler": 0.009128,
+             "batched_operand": 1.0274, "batched_seed": 1.1065, "batched_small_operand": 0.031331}
 PLANT_GROUPS = (1, 2, 4, 8, 16, 32)  # the P sweep of the batched kernel
+REPEATS = 50  # calls in a row of one kernel A solve: its merge counter resets
 BATCHED_NAMES = ("batched_partial", "flash_merge")
 
 
@@ -486,7 +496,8 @@ def main():
     # (name, model, K, T, nu, nsp, config flags, noise_rho, emit, pairing
     # block, operand overrides).  The overrides give the diagonal op, mu, the
     # drawn rows' bound, the action/trajectory bound, lambda, w and delta_t
-    # of the main paths' and closed loops' own operands.
+    # of the main paths' and closed loops' own operands, and kernel A's
+    # samples a block where it is forced (``tile``; else the rule's).
     inf = math.inf
     base_cases = [
         ("lq_diag", lq, K, T, NU, NSP, {}, 0.0, False, None, {}),
@@ -499,8 +510,17 @@ def main():
         ("pendulum_null", PENDULUM_MODEL, K, 15, 1, 7, {"sample_null_action": True}, 0.0,
          False, None, {}),
         ("pendulum_full_rho", PENDULUM_MODEL, K, 15, 1, 7, {}, 0.5, True, None, {}),
-        ("D300_full_rho_global", lq3, K, 100, 3, 50, {}, 0.5, False, None, {}),
+        ("D300_full_rho_global", lq3, K, 100, 3, 50, {}, 0.5, False, None, {"tile": 128}),
         ("lq12_nx12_nu4", lq12, K, T, 4, NSP, {}, 0.0, True, None, {}),
+        # the tiled operator in shared memory at D = 300; S forced at K not a
+        # multiple of S, with the perturbed (D, K) output
+        ("D300_full_rho_shared", lq3, K, 100, 3, 50, {}, 0.5, False, None, {}),
+        ("K1000_S32", lq, 1000, T, NU, NSP, {}, 0.0, True, None, {"tile": 32}),
+        ("K1000_S64", lq, 1000, T, NU, NSP, {}, 0.0, True, None, {"tile": 64}),
+        ("antithetic_128_S32", lq, K, T, NU, NSP, {"antithetic": True}, 0.0, True, 128,
+         {"tile": 32}),
+        ("antithetic_128_S64", lq, K, T, NU, NSP, {"antithetic": True}, 0.0, True, 128,
+         {"tile": 64}),
     ]
     cases = [("mppi",) + c for c in base_cases] + [
         # phase 5's operands: sigma = 10 (op sqrt(10)), mu = 0, bounds +-2
@@ -539,9 +559,11 @@ def main():
             cfg = MPPIConfig(nx=model.nx, nu=nu, K=K_, T=T_, diag_sigma=not rho,
                              noise_rho=rho, num_support_pts=nsp if variant == "kmppi" else 0,
                              smppi=variant == "smppi", **flags)
-            solve = factories[variant](cfg, model, pair_block=pb, emit_perturbed=emit)
-            if name.endswith("_global"):
-                check(solve.tiles == "global", f"{variant}/{name} did not take global tiles")
+            solve = factories[variant](cfg, model, pair_block=pb, emit_perturbed=emit,
+                                       tile_k=over.get("tile"))
+            for tiles in ("global", "shared"):
+                check(not name.endswith("_" + tiles) or solve.tiles == tiles,
+                      f"{variant}/{name} did not take {tiles} tiles")
             args = operands(variant, cfg, model, rho, over.get("op", 0.8), over.get("mu", 0.05),
                             over.get("bound", 2.0 if pend else 1.5),
                             over.get("abound", 2.0 if pend else 1.0), lam,
@@ -565,7 +587,8 @@ def main():
             m_err = abs(float(mk - mp))
             s_rel = abs(float(sk / sp - 1))
             line = (f"# {mode:4s} {variant:5s} {name:20s} K={K_:5d} D={T_ * nu:3d} "
-                    f"tiles={solve.tiles:6s} cost err {c_err:.3e} | m err {m_err:.3e} "
+                    f"S={solve.tile_k:3d} tiles={solve.tiles:6s} cost err {c_err:.3e} | m err "
+                    f"{m_err:.3e} "
                     f"| s rel {s_rel:.3e} (tol {w_tol:.3e}) | delta/s err {u_err:.3e}")
             if emit:
                 p_err = float((out_k[4] - out_p[4]).abs().max())
@@ -602,6 +625,24 @@ def main():
                   f"| var {var:.5f} (5 sigma: {5 * (2 / n) ** 0.5:.5f}) over {n}")
             check(abs(mean) <= 5 / n ** 0.5, "seed-mode noise mean is not 0")
         check(abs(var - 1) <= 5 * (2 / n) ** 0.5, "seed-mode noise variance is not 1")
+
+    # one solve REPEATS times in a row on the same inputs: the block that
+    # merges sets kernel A's counter back to 0, so every call merges, and
+    # agrees with the first bit for bit (every sum keeps a fixed order)
+    def repeats_agree(solve, lead, args):
+        first = [v.clone() for v in solve(lead, *args)]
+        outs = [solve(lead, *args) for _ in range(REPEATS)]
+        torch.cuda.synchronize()
+        return all(torch.equal(a, b) for out in outs for a, b in zip(first, out))
+
+    for variant in FS.VARIANTS:
+        cfg = MPPIConfig(nx=2, nu=NU, K=K, T=T, diag_sigma=True,
+                         num_support_pts=NSP if variant == "kmppi" else 0,
+                         smppi=variant == "smppi")
+        same = repeats_agree(factories[variant](cfg, lq), (4321, 8765),
+                             operands(variant, cfg, lq, 0.0, 0.8, 0.05, 1.5, 1.0, 1.0, 3.0, 0.5))
+        print(f"# {variant}: {REPEATS} calls in a row identical to the first: {same}")
+        check(same, f"{variant}: repeated calls differ (the merge counter did not reset)")
 
     # the batched variant: (name, model, N, K, T, nu, config flags, noise_rho,
     # pairing block, modes, operand overrides).  The overrides give the
@@ -798,14 +839,17 @@ def main():
               f"identical {same}")
         check(same, f"sampler seed-mode normals differ from the transposed kernel's ({anti})")
 
-    # the round-1 solve: (name, model, K, T, nu, config flags, sigma)
+    # the round-1 solve: (name, model, K, T, nu, config flags, sigma, kernel
+    # A's samples a block where forced)
     rowmajor_cases = [
-        ("flagship", lq, K, T, NU, {}, eye2),
-        ("K130_pad256", lq, 130, T, NU, {}, eye2),
+        ("flagship", lq, K, T, NU, {}, eye2, None),
+        ("K130_pad256", lq, 130, T, NU, {}, eye2, None),
         ("null_abs_uscale2_full", lq, K, T, NU,
-         {"sample_null_action": True, "noise_abs_cost": True, "u_scale": 2.0}, sig_full),
-        ("pendulum", PENDULUM_MODEL, 1000, 15, 1, {}, torch.tensor([[10.0]], device=dev)),
-        ("D300_global", lq3, K, 100, 3, {}, sig3),
+         {"sample_null_action": True, "noise_abs_cost": True, "u_scale": 2.0}, sig_full, None),
+        ("pendulum", PENDULUM_MODEL, 1000, 15, 1, {}, torch.tensor([[10.0]], device=dev), None),
+        ("D300_global", lq3, K, 100, 3, {}, sig3, 128),
+        ("D300_shared", lq3, K, 100, 3, {}, sig3, None),
+        ("K1000_S64", lq, 1000, T, NU, {}, sig_full, 64),
     ]
 
     def rowmajor_args(model, T_, nu, sig, lam=1.0, bound=1.5):
@@ -819,9 +863,13 @@ def main():
                 (lam_t * (U @ torch.linalg.inv(sig).T)).reshape(-1), lam_t)
 
     n_rowmajor = 0
-    for name, model, K_, T_, nu, flags, sig in rowmajor_cases:
+    for name, model, K_, T_, nu, flags, sig, tile in rowmajor_cases:
         D_ = T_ * nu
-        solve = RM.make_fused_solve(MPPIConfig(nx=model.nx, nu=nu, K=K_, T=T_, **flags), model)
+        solve = RM.make_fused_solve(MPPIConfig(nx=model.nx, nu=nu, K=K_, T=T_, **flags), model,
+                                    tile_k=tile)
+        for tiles in ("global", "shared"):
+            check(not name.endswith("_" + tiles) or solve.tiles == tiles,
+                  f"rowmajor/{name} did not take {tiles} tiles")
         args = rowmajor_args(model, T_, nu, sig, bound=2.0 if model is PENDULUM_MODEL else 1.5)
         for mode in ("bits", "seed"):
             lead = (torch.randint(-2**31, 2**31 - 1, (solve.K_pad, D_), dtype=torch.int32,
@@ -835,7 +883,7 @@ def main():
                   f"rowmajor/{name}/{mode}: non-finite kernel output")
             ok, c_err, u_err, w_tol = agree(ck, cp, dk / sk, dp / sp, 1.0, mk, mp, sk, sp)
             print(f"# {mode:4s} rowmajor {name:22s} K={K_:5d} (K_pad {solve.K_pad}) D={D_:3d} "
-                  f"tiles={solve.tiles:6s} cost err {c_err:.3e} | m err "
+                  f"S={solve.tile_k:3d} tiles={solve.tiles:6s} cost err {c_err:.3e} | m err "
                   f"{abs(float(mk - mp)):.3e} | s rel {abs(float(sk / sp - 1)):.3e} (tol "
                   f"{w_tol:.3e}) | delta/s err {u_err:.3e}" + ("" if ok else "  <-- FAIL"))
             check(ok, f"round-1 solve kernel disagrees with its plain version: {mode}/{name}")
@@ -867,6 +915,10 @@ def main():
     print(f"# rowmajor vs transposed kernel, one key, chol = I: cost max difference {x_err:.3e}")
     check(bool(((cost_r - cost_t).abs() <= 1e-5 + 2e-5 * cost_t.abs()).all()),
           "round-1 kernel's costs differ from the transposed kernel's on one key")
+    same = repeats_agree(RM.make_fused_solve(cfg, lq), key,
+                         (x0, U, eye2, torch.zeros(NU, device=dev), lo, hi, a_flat, lam_t))
+    print(f"# rowmajor: {REPEATS} calls in a row identical to the first: {same}")
+    check(same, "rowmajor: repeated calls differ (the merge counter did not reset)")
     print(f"# kernel vs plain: {n_sampler} sampler and {n_rowmajor} round-1 solve cases agreed")
 
     # -- 4. the main paths at full width ---------------------------------------
@@ -931,7 +983,7 @@ def main():
         if path == "rollout":
             expect = only(rollout=COMMANDS, weighted_update=2 * COMMANDS)
         else:
-            expect = only(**{variant: 2 * COMMANDS}) if use_pallas else only()
+            expect = only(**{variant: COMMANDS}) if use_pallas else only()  # kernel A merges
         check(r["launches"] == expect,
               f"{variant} {path} path launched {r['launches']} for {COMMANDS} "
               f"commands, expected {expect}")
@@ -1062,21 +1114,35 @@ def main():
           f"{PS._BATCHED_KERNEL_MIN_K}" + ("" if crossover == PS._BATCHED_KERNEL_MIN_K
                                            else "  <-- differs (not a failure)"))
 
-    # the kernels alone at the main paths' shapes and operands; the global
-    # tiles at D = 300 (T = 100, nu = 3, full op) beside them
-    timed = {}
+    # the kernels alone at the main paths' shapes and operands, at D = 300
+    # (T = 100, nu = 3, full op) beside them, and kernel A's S sweep: each
+    # variant's device time for S = 32, 64 and 128 at the flagship, at
+    # K = 1,000 and at D = 300 (seed mode), against the rule's S
+    timed, sweeps = {}, {}
+    SHAPES = {"flagship": (lq, K, T, NU, NSP, 0.0), "K1000": (lq, 1000, T, NU, NSP, 0.0),
+              "D300": (lq3, K, 100, 3, 50, 0.5)}
     for variant in FS.VARIANTS:
-        for shape in ("flagship", "D300_global"):
-            if shape == "flagship":
-                model, T_, nu, nsp, rho = lq, T, NU, NSP, 0.0
-            else:
-                model, T_, nu, nsp, rho = lq3, 100, 3, 50, 0.5
-            cfg = MPPIConfig(nx=2, nu=nu, K=K, T=T_, diag_sigma=not rho, noise_rho=rho,
+        for shape, (model, K_, T_, nu, nsp, rho) in SHAPES.items():
+            cfg = MPPIConfig(nx=2, nu=nu, K=K_, T=T_, diag_sigma=not rho, noise_rho=rho,
                              num_support_pts=nsp if variant == "kmppi" else 0,
                              smppi=variant == "smppi")
-            solve = factories[variant](cfg, model)
             args = operands(variant, cfg, model, rho, 1.0, 0.0, inf,
                             3.0 if variant == "smppi" else inf, 1.0, 1.0, 1.0)
+            tiled = {S: factories[variant](cfg, model, tile_k=S) for S in FS.TILES}
+            sweep = {S: graph_ms(lambda f=f: f((1234, 5678), *args), 20)
+                     for S, f in tiled.items()}
+            rule = FS.tile_samples(K_, FS.sm_count())
+            best = min(sweep, key=sweep.get)
+            sweeps[variant, shape] = dict(ms=sweep, rule=rule, best=best)
+            print(f"# S sweep [{variant} {shape} seed] K={K_} D={T_ * nu}: " + " | ".join(
+                f"S={S} {v:.6f} ms" for S, v in sweep.items()) + f" (a CUDA graph of 20 calls) | "
+                f"the rule's S={rule}: {sweep[rule] / sweep[best]:.3f} of the best (S={best}; "
+                f"limit 1.1)")
+            check(sweep[rule] <= 1.1 * sweep[best],
+                  f"{variant} {shape}: the rule's S={rule} is more than 10 % slower than S={best}")
+            if shape == "K1000":
+                continue
+            solve = factories[variant](cfg, model)
             R = (nsp if variant == "kmppi" else T_) * nu
             bits = torch.randint(-2**31, 2**31 - 1, (R, solve.bits_cols), dtype=torch.int32,
                                  generator=gen, device=dev)
@@ -1085,7 +1151,7 @@ def main():
             for mode, lead in modes:
                 dev_ms = graph_ms(lambda: solve(lead, *args), 20)
                 prof_ms, seen = device_ms(lambda: solve(lead, *args), 200,
-                                          ("mppi_fused_partial", "flash_merge"))
+                                          ("mppi_fused_partial",))
                 call_ms = events_ms(lambda: solve(lead, *args), 500)
                 plain_ms = events_ms(lambda: solve.plain(lead, *args), 50)
                 ops, nbytes = fused_work(cfg, model, lead, args[0], args[3 if variant != "mppi"
@@ -1096,17 +1162,17 @@ def main():
                 bound_ms, bound_by = max((t_bytes, "bytes"), (t_ops, "operations"))
                 timed[variant, shape, mode] = (dev_ms, call_ms, plain_ms, bound_ms, bound_by,
                                                prof_ms)
-                print(f"# kernel alone [{variant} {shape} {mode}] K={K} T={T_} tiles="
-                      f"{solve.tiles}: device {dev_ms:.6f} ms (a CUDA graph of 20 calls) | "
-                      f"profiler {prof_ms} ms ({seen} of 400 kernels) | per call "
+                print(f"# kernel alone [{variant} {shape} {mode}] K={K_} T={T_} S={solve.tile_k} "
+                      f"tiles={solve.tiles}: device {dev_ms:.6f} ms (a CUDA graph of 20 calls) | "
+                      f"profiler {prof_ms} ms ({seen} of 200 kernels) | per call "
                       f"{call_ms:.5f} ms (CUDA events, host wrapper included) | plain "
                       f"version {plain_ms:.5f} ms (CUDA events)")
                 print(f"# bound [{variant} {shape} {mode}]: {nbytes} B -> {t_bytes:.3e} ms "
                       f"at 3.35 TB/s; {ops} operations -> {t_ops:.3e} ms at 67 TFLOP/s; "
                       f"bound by {bound_by}")
     mppi_seed = timed["mppi", "flagship", "seed"][0]
-    print(f"# MPPI pair, seed mode, flagship: {mppi_seed:.5f} ms against the first port's "
-          f"{FIRST_MPPI_SEED_MS} ms: ratio {mppi_seed / FIRST_MPPI_SEED_MS:.4f} (limit 1.1)")
+    print(f"# MPPI kernel, seed mode, flagship: {mppi_seed:.5f} ms against the first port's "
+          f"pair {FIRST_MPPI_SEED_MS} ms: ratio {mppi_seed / FIRST_MPPI_SEED_MS:.4f}")
     single_profiled = all(timed[v, "flagship", "seed"][5] is not None for v in FS.VARIANTS)
 
     # the batched kernel at the main paths' shapes and operands
@@ -1302,7 +1368,7 @@ def main():
                     ctrl=ctrl, x=x)
 
     ops_loops = {}
-    for name, cls, expect in (("round1", Round1Loop, only(rowmajor=2 * COMMANDS)),
+    for name, cls, expect in (("round1", Round1Loop, only(rowmajor=COMMANDS)),
                               ("sampler_front_end", FrontEndLoop,
                                only(sampler=COMMANDS, rollout=COMMANDS,
                                     weighted_update=2 * COMMANDS))):
@@ -1350,7 +1416,7 @@ def main():
               *unbounded, (lam1 * U).reshape(-1), lam1)
     for name, fn, args, rows, names in (
             ("sampler", sample, s_args, sample.bits_rows, ("fused_sampler",)),
-            ("rowmajor", solve, r_args, solve.K_pad, ("mppi_fused_partial", "flash_merge"))):
+            ("rowmajor", solve, r_args, solve.K_pad, ("mppi_fused_partial",))):
         for mode, lead in (("seed", (1234, 5678)),
                            ("bits", torch.randint(-2**31, 2**31 - 1, (rows, D), dtype=torch.int32,
                                                   generator=gen, device=dev))):
@@ -1367,15 +1433,31 @@ def main():
                   f"per call {call_ms:.5f} ms (CUDA events, host wrapper included) | plain "
                   f"version {plain_ms:.5f} ms | bound {bound_ms:.3e} ms by {bound_by} "
                   f"({work[1]} B, {work[0]} operations)")
-    # every pair that ends in flash_merge, against its time before
+    # the round-1 solve's S sweep at the flagship
+    tiled = {S: RM.make_fused_solve(flag_cfg, lq, tile_k=S) for S in FS.TILES}
+    sweep = {S: graph_ms(lambda f=f: f((1234, 5678), *r_args), 20) for S, f in tiled.items()}
+    best = min(sweep, key=sweep.get)
+    sweeps["rowmajor", "flagship"] = dict(ms=sweep, rule=solve.tile_k, best=best)
+    print(f"# S sweep [rowmajor flagship seed] K={K} D={D}: " + " | ".join(
+        f"S={S} {v:.6f} ms" for S, v in sweep.items()) + f" (a CUDA graph of 20 calls) | the "
+        f"rule's S={solve.tile_k}: {sweep[solve.tile_k] / sweep[best]:.3f} of the best (S={best}; "
+        f"limit 1.1)")
+    check(sweep[solve.tile_k] <= 1.1 * sweep[best],
+          f"rowmajor: the rule's S={solve.tile_k} is more than 10 % slower than S={best}")
+    # every kernel against its time before kernel A's redesign (kernel A then
+    # flash_merge for the four rows of kernel A)
     for name, ms in (("mppi", timed["mppi", "flagship", "seed"][0]),
                      ("smppi", timed["smppi", "flagship", "seed"][0]),
                      ("kmppi", timed["kmppi", "flagship", "seed"][0]),
                      ("rowmajor", timed["rowmajor", "seed"][0]),
-                     ("weighted_update", timed["weighted_update"][0])):
-        if ms is not None:
-            print(f"# {name} pair at the flagship: {ms:.6f} ms against {BEFORE_MS[name]} ms "
-                  f"before: ratio {ms / BEFORE_MS[name]:.4f} (limit 1.1)")
+                     ("mppi_D300", timed["mppi", "D300", "seed"][0]),
+                     ("smppi_D300", timed["smppi", "D300", "seed"][0]),
+                     ("kmppi_D300", timed["kmppi", "D300", "seed"][0]),
+                     ("weighted_update", timed["weighted_update"][0]),
+                     ("rollout", timed["rollout"][0]),
+                     ("sampler", timed["sampler", "seed"][0])):
+        print(f"# {name}: {ms:.6f} ms against {BEFORE_MS[name]} ms before: ratio "
+              f"{ms / BEFORE_MS[name]:.4f} (limit 1.1)")
 
     # -- 5. swing-up -------------------------------------------------------------
     reset_launches()
@@ -1390,7 +1472,7 @@ def main():
     print(f"# swing-up: final |angle| {angle:.4f} after 150 steps, K=1000, T=15 | "
           f"launches {FS.launches['mppi']}")
     check(angle < 0.25, f"pendulum swing-up failed: final |angle| {angle}")
-    check(FS.launches["mppi"] == 300, f"swing-up launched {FS.launches}, expected 300")
+    check(FS.launches["mppi"] == 150, f"swing-up launched {FS.launches}, expected 150")
 
     # -- 6. closed loops through the kernels -------------------------------------
     # tests/test_mppi.py:744-771: K = 500, T = 15, sigma = I, 20 steps
@@ -1422,7 +1504,7 @@ def main():
           f"{float(torch.linalg.norm(x - goal)):.4f} | launches {FS.launches}")
     check(sum(dists) / 3 < 2.0, f"KMPPI LQ loop missed the goal: {dists}")
     check(finite, "SMPPI LQ loop went non-finite or gave a negative cost")
-    check(FS.launches == only(smppi=40, kmppi=120), f"LQ loops launched {FS.launches}")
+    check(FS.launches == only(smppi=20, kmppi=60), f"LQ loops launched {FS.launches}")
 
     # examples/smooth_mppi.py's comparison, without the terminal cost
     toy_common = dict(nx=2, noise_sigma=torch.eye(2, device=dev) * 0.2,
@@ -1455,7 +1537,7 @@ def main():
               f"{smooth:.3f} | actions finite and within +-1: {in_bounds} | launches "
               f"{FS.launches[name]}")
         check(in_bounds, f"toy2d {name}: actions non-finite or out of bounds")
-        check(FS.launches[name] == 80, f"toy2d {name} launched {FS.launches}")
+        check(FS.launches[name] == 40, f"toy2d {name} launched {FS.launches}")
 
     # examples/scenario_batch.py's default loop through the kernel and on the
     # plain path, and the same loop at the north-star width through the
@@ -1491,16 +1573,20 @@ def main():
         check(FS.launches == expect, f"scenario loop launched {FS.launches}, expected {expect}")
 
     # -- 7. the kernels line and the last line ---------------------------------
-    sources = {"mppi": ("fused_mppi MPPI (mppi_fused_partial<..., kMPPI> + flash_merge)",
+    sources = {"mppi": ("fused_mppi MPPI (mppi_fused_partial<..., kMPPI>, merged in the kernel)",
                         "pytorch_mppi_tpu/ops/pallas_rollout.py:512"),
-               "smppi": ("fused_mppi SMPPI (mppi_fused_partial<..., kSMPPI> + flash_merge)",
-                         "pytorch_mppi_tpu/ops/pallas_rollout.py:755"),
-               "kmppi": ("fused_mppi KMPPI (mppi_fused_partial<..., kKMPPI> + flash_merge)",
-                         "pytorch_mppi_tpu/ops/pallas_rollout.py:940")}
+               "smppi": ("fused_mppi SMPPI (mppi_fused_partial<..., kSMPPI>, merged in the "
+                         "kernel)", "pytorch_mppi_tpu/ops/pallas_rollout.py:755"),
+               "kmppi": ("fused_mppi KMPPI (mppi_fused_partial<..., kKMPPI>, merged in the "
+                         "kernel)", "pytorch_mppi_tpu/ops/pallas_rollout.py:940")}
+
+    def sweep_ms(key):
+        return {str(S): v for S, v in sweeps[key]["ms"].items()}
+
     kernels = []
     for variant in FS.VARIANTS:
         dev_ms, call_ms, plain_ms, bound_ms, bound_by, prof_ms = timed[variant, "flagship", "seed"]
-        g_ms = timed[variant, "D300_global", "seed"]
+        g_ms = timed[variant, "D300", "seed"]
         b_ms = timed[variant, "flagship", "bits"]
         kernels.append({
             "name": sources[variant][0],
@@ -1509,8 +1595,8 @@ def main():
             "replaces": sources[variant][1],
             "launches": main[variant, "fused"]["launches"][variant],
             "max_abs_err": max_update_err[variant],
-            # device time of both kernels a call, replayed from a CUDA graph;
-            # the profiler's, which may miss kernels, beside it
+            # device time a call, replayed from a CUDA graph; the profiler's,
+            # which may miss kernels, beside it
             "ms": dev_ms,
             "ms_source": "cuda_graph",
             "ms_profiler": prof_ms,
@@ -1519,8 +1605,12 @@ def main():
             "bound_by": bound_by,
             "library_ms": None,
             "ms_bits_mode": b_ms[0],
-            "ms_D300_global_tiles": g_ms[0],
-            "bound_ms_D300_global_tiles": g_ms[3],
+            "ms_D300": g_ms[0],
+            "bound_ms_D300": g_ms[3],
+            "tile_k": sweeps[variant, "flagship"]["rule"],
+            "ms_by_tile_k": sweep_ms((variant, "flagship")),
+            "ms_by_tile_k_K1000": sweep_ms((variant, "K1000")),
+            "ms_by_tile_k_D300": sweep_ms((variant, "D300")),
         })
     d_ms, c_ms, p_ms, b_ms, b_by, group, pr_ms = timed["batched", BATCH_N, "operand"]
     s_ms = timed["batched", BATCH_N, "seed"]
@@ -1568,8 +1658,8 @@ def main():
     # computes an MPPI iteration: library_ms is null
     for name, label, line, loop in (
             ("sampler", "fused_sampler", 1350, "sampler_front_end"),
-            ("rowmajor", "fused_mppi round-1 (mppi_fused_partial<..., kMPPI> rowmajor + "
-             "flash_merge)", 1527, "round1")):
+            ("rowmajor", "fused_mppi round-1 (mppi_fused_partial<..., kMPPI> rowmajor, merged in "
+             "the kernel)", 1527, "round1")):
         d_ms, c_ms, p_ms, b_ms, b_by, pr_ms = timed[name, "seed"]
         bits_ms = timed[name, "bits"]
         kernels.append({
@@ -1589,6 +1679,9 @@ def main():
             "ms_bits_mode": bits_ms[0],
             "bound_ms_bits_mode": bits_ms[3],
         })
+        if name == "rowmajor":
+            kernels[-1].update(tile_k=sweeps["rowmajor", "flagship"]["rule"],
+                               ms_by_tile_k=sweep_ms(("rowmajor", "flagship")))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

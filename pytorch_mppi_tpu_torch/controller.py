@@ -18,6 +18,10 @@ selects the legacy kernel pair (``ops/legacy.py``); ``MPPI_Batched`` takes
 
 Flags of the JAX controller that the port does not run yet raise
 ``NotImplementedError`` naming the ``ROADMAP.md`` item that will port them.
+The JAX keywords that pick its compiler or its random-number stream are taken
+as far as they mean something here: ``scan_unroll`` is accepted and ignored
+(it does not change results), ``prng_impl`` takes ``"auto"`` or ``None``, and
+``key`` must be ``None`` (the port seeds torch's generators from ``seed``).
 """
 from __future__ import annotations
 
@@ -69,16 +73,33 @@ _UNPORTED = {
 }
 
 MPPI_USE_PALLAS = (False, True, "rollout")
+PRNG_IMPLS = ("auto", None)  # the JAX prng_impl values that mean "the default stream"
 
 
-def _reject_unported(**flags):
+def _reject_unported(off_values=None, **flags):
+    """Raise for a flag set away from its "off" value (``_UNPORTED``, or
+    ``off_values`` where a controller's default differs)."""
     for name, value in flags.items():
         off, item = _UNPORTED[name]
+        off = (off_values or {}).get(name, off)
         if value is not off and value != off:
             raise NotImplementedError(
                 f"{name}={value!r} is not ported to pytorch_mppi_tpu_torch yet; "
                 f"see ROADMAP.md {item}"
             )
+
+
+def _check_jax_rng(key, prng_impl):
+    """The JAX controller's ``key`` and ``prng_impl``: the port cannot take a
+    JAX key without importing JAX, nor select a TPU generator."""
+    if key is not None:
+        raise ValueError(
+            "key= takes a JAX PRNG key, which pytorch_mppi_tpu_torch cannot use; pass "
+            "seed= instead (the port draws its noise from seed, with Philox on the card)")
+    if prng_impl not in PRNG_IMPLS:
+        raise ValueError(
+            f"prng_impl={prng_impl!r} selects a JAX generator; pytorch_mppi_tpu_torch draws "
+            f"its noise with Philox from seed: pass prng_impl='auto' or None")
 
 
 def _use_pallas(value, allowed):
@@ -182,6 +203,8 @@ class MPPI:
     :param use_pallas: ``True`` runs each command through the fused CUDA
         kernel; ``"rollout"`` keeps the plain path's noise and runs the
         rollout and the weighted update through the legacy kernels.
+    :param scan_unroll, key, sample_axis, prng_impl: the JAX keywords, taken
+        as the module docstring says.
     """
 
     def __init__(
@@ -220,12 +243,19 @@ class MPPI:
         gradient_refinement_lr: float = 0.05,
         num_elites: int = 0,
         noise_rho: float = 0.0,
+        scan_unroll: int = 1,
         dynamics_params=None,
         seed: Optional[int] = 0,
+        key=None,
         mesh=None,
+        sample_axis: str = "k",
         use_pallas=False,
         fused_artifacts: bool = False,
+        prng_impl: Optional[str] = "auto",
     ):
+        _check_jax_rng(key, prng_impl)
+        # MPPI's default sample axis is "k" (MPPI_Batched's None)
+        _reject_unported({"sample_axis": "k"}, sample_axis=sample_axis)
         _reject_unported(
             terminal_state_cost=terminal_state_cost,
             terminal_final_cost=terminal_final_cost,
@@ -249,6 +279,9 @@ class MPPI:
         self.T = int(horizon)
         self.nx = int(nx)
         self.nu = int(sigma.shape[0])
+        self.M = int(rollout_samples)  # rollouts a sample: 1 until Queue 1 item 5
+        self.sample_axis = sample_axis
+        self.prng_impl = prng_impl
 
         self._params, self._bounded = _make_params(sigma, lambda_, noise_mu, u_min, u_max,
                                                    u_init, self.d)
@@ -277,6 +310,7 @@ class MPPI:
 
         # per-solve artifacts (reference mppi.py:179-184)
         self.state = None
+        self.info = None
         self.cost_total = None
         self.cost_total_non_zero = None
         self.omega = None
@@ -397,10 +431,14 @@ class MPPI:
 
     def get_params(self):
         return (
-            f"K={self.K} T={self.T} M=1 lambda={self.lambda_} "
+            f"K={self.K} T={self.T} M={self.M} lambda={self.lambda_} "
             f"noise_mu={self.noise_mu.cpu().numpy()} "
             f"noise_sigma={self.noise_sigma.cpu().numpy()}"
         ).replace("\n", ",")
+
+    def compile(self, **kwargs):
+        """Nothing to compile: PyTorch runs eagerly.  Returns self."""
+        return self
 
     def get_action_sequence(self):
         return self._state.U
@@ -433,7 +471,8 @@ class MPPI:
         """One MPC solve (reference mppi.py:240-252).
 
         :param state: (nx,) or (K, nx) current state (array-like or tensor)
-        :param info: accepted for API parity; nothing in this port reads it
+        :param info: kept as ``self.info``, as JAX does; nothing in this port
+            reads it
         :returns: (nu,) action, or (u_per_command, nu) when u_per_command > 1,
             as a tensor on the controller's device
         """
@@ -445,6 +484,7 @@ class MPPI:
         fn = self._fns.step if shift_nominal_trajectory else self._fns.step_no_shift
         self._state, action, artifacts = fn(self._full_params(), self._state, x0)
         self.state = x0
+        self.info = info
         self._store_artifacts(artifacts)
         return action
 
@@ -734,14 +774,18 @@ class MPPI_Batched:
         antithetic_sampling: bool = False,
         num_iterations: int = 1,
         noise_rho: float = 0.0,
+        scan_unroll: int = 1,
         dynamics_params=None,
         seed: Optional[int] = 0,
+        key=None,
         mesh=None,
         env_axis: str = "data",
         sample_axis: Optional[str] = None,
         use_pallas=False,
         fused_artifacts: bool = False,
+        prng_impl: Optional[str] = "auto",
     ):
+        _check_jax_rng(key, prng_impl)
         _reject_unported(
             terminal_state_cost=terminal_state_cost,
             terminal_final_cost=terminal_final_cost,
@@ -760,6 +804,8 @@ class MPPI_Batched:
         self.nu = int(sigma.shape[0])
         self.u_scale = float(u_scale)
         self.u_per_command = int(u_per_command)
+        self.sample_axis = sample_axis
+        self.prng_impl = prng_impl
 
         self._params, _ = _make_params(sigma, lambda_, noise_mu, u_min, u_max, u_init, self.d)
         self.config = MPPIConfig(

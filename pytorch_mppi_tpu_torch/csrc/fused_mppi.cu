@@ -8,8 +8,9 @@
 //   SMPPI    make_transposed_smppi_solve    (pallas_rollout.py:755)
 //   KMPPI    make_transposed_kmppi_solve    (pallas_rollout.py:940)
 //   Round-1  make_fused_solve               (pallas_rollout.py:1527)
-// as one kernel template, mppi_fused_partial<Model, N, kGlobal, V>, followed by
-// flash_merge (the round-1 solve is kMPPI with the runtime flag `rowmajor`), and
+// as one kernel template, mppi_fused_partial<Model, N, kGlobal, V>, which
+// merges its own partials (the round-1 solve is kMPPI with the runtime flag
+// `rowmajor`), and
 //   make_transposed_batched_solve  (pallas_rollout.py:1118) as
 //                          batched_partial<Model, N, kGlobal> + flash_merge,
 //   make_fused_rollout     (pallas_rollout.py:75)   as fused_rollout<Model, N>
@@ -37,27 +38,41 @@
 // cost (N, K), one softmax per plant.
 //
 // Design.  The TPU kernel walks its K blocks in order and carries (m, s, acc)
-// in scratch; GPU blocks run at the same time.  So the work is two kernels:
-//   A. mppi_fused_partial: one thread per sample, BLOCK samples per block.  A
-//      thread keeps its R drawn rows in a (R, BLOCK) tile (a second tile holds
-//      the raw normals for a full operator), rolls the model out in
-//      registers, and writes cost[k].  The block then reduces its own max
-//      m_b, sum s_b and acc_b[r] = sum_k w_k n_k[r] and writes them to a
-//      (nblocks, R + 2) scratch.  Threads with k >= K take no part
-//      (_tp_mask_phantom).
-//   B. flash_merge: one block per plant merges that plant's partials,
-//      m = max m_b, s = sum s_b e^(m_b - m), delta[r] = sum acc_b[r] e^(m_b - m),
-//      with each scale e^(m_b - m) taken once and the sums split over the
-//      block's threads (no serial loop over the partials).
-// The tiles live in shared memory (row stride BLOCK + 1, so the column writes
-// and the row reads of the update are free of bank conflicts) when they fit
-// in the 227 KB a block may use; otherwise (kGlobal) in a global scratch of
-// one (R, BLOCK) slice per block, which stays in the 50 MB L2.  The TPU
-// kernel shrinks its block instead.  The device models keep state and action
-// in register arrays of N = 8 or N = 32 (for the batched kernel also N = 2),
-// chosen at launch from max(nx, nu).  The noise never reaches device memory
-// unless the caller asks for the perturbed actions (emit_perturbed) or passes
-// it as the batched operand.
+// in scratch; GPU blocks run at the same time, so each block writes its own
+// (m_b, s_b, acc_b) partial and the partials are merged:
+//   A. mppi_fused_partial: S = 32, 64 or 128 samples a block (chosen at launch
+//      by ops/fused_solve.tile_samples from K and the card's SM count), 128
+//      threads.  Thread t owns sample t % S and every (BLOCK / S)-th row of
+//      the block's (D, S) tiles, so the draw (a Philox call for four rows of
+//      one sample, or the sample's bits, coalesced over the samples), the
+//      transform, the clamps and the action cost run over all threads, each
+//      with R * S / 128 (row, sample) pairs.  A full operator (op @ z) and
+//      KMPPI's interpolation (W @ pts) are register-tiled products: a
+//      thread keeps ROW_TILE rows of one sample in registers and reads each
+//      operator element, shared by its warp, through the read-only cache
+//      (fp32 FMAs, no TF32).  SMPPI stores its rate-space noise
+//      (v - as)/dt - U when it computes it, so the update divides nothing.
+//      The rollout is one thread per sample (threads t < S) on register
+//      arrays of N = 2, 8 or 32, chosen at launch from max(nx, nu); with
+//      nx = nu = 2 as constants on the N = 2 arrays, which keeps the device
+//      model's constants in registers.  m_b and s_b are warp-shuffle
+//      reductions; acc_b[r] = sum_s w_s upd[r, s] splits over groups of
+//      threads over rows and samples.  The last block to finish (a ticket
+//      from an int32 counter, after a __threadfence) merges every partial
+//      into delta and (m, s) and sets the counter back to 0: one launch a
+//      call.  Samples at and beyond K draw zeros and weigh exactly 0.
+//   B. flash_merge (the batched iteration and the weighted update): one
+//      block per plant merges that plant's partials, m = max m_b,
+//      s = sum s_b e^(m_b - m), delta[r] = sum acc_b[r] e^(m_b - m), with each
+//      scale e^(m_b - m) taken once and the sums split over the block's
+//      threads (merge_partials, which kernel A's last block also runs).
+// The tiles live in shared memory (row stride S + 1, so that the column
+// accesses of a warp and the row reads of the update are free of bank
+// conflicts) when they fit in the 227 KB a block may use; otherwise (kGlobal)
+// in a global scratch of one (D, S) slice per block and tile, which stays in
+// the 50 MB L2.  The noise never reaches device memory unless the caller
+// asks for the perturbed actions (emit_perturbed, written coalesced over k)
+// or passes it as the batched operand.
 //
 // The batched kernel, batched_partial.  The noise is the same for every
 // plant, so a block takes 128 samples for a group of P plants (chosen at
@@ -81,9 +96,11 @@
 // work is about 60 normals (Philox + Giles' erfinv, about 55 operations each)
 // and 30 model steps per sample, some 4e7 operations, about 0.6 us at 67
 // TFLOP/s (KMPPI adds D*Dp = 1,800 FMAs of interpolation per sample).  So it
-// is bound by launch latency and by how few of the 132 SMs its 79 blocks of
-// 128 threads fill.  The batched iteration at N = 1,024, K = 16,384 needs
-// about 1.9e10 operations (0.28 ms) in either mode: the per-plant clamp,
+// is bound by latency: the launch, each block's chain of dependent passes
+// (draw, transform, rollout, reductions, update) and the last block's merge;
+// the design shortens the chain by splitting every pass but the rollout over
+// all threads, and fills the 132 SMs with blocks of fewer samples.  The
+// batched iteration at N = 1,024, K = 16,384 needs about 1.9e10 operations (0.28 ms) in either mode: the per-plant clamp,
 // action cost, rollout and update; the shared draw, counted once a source
 // column, adds 5.6e7; the 64 MB of costs it writes take 0.02 ms.  With the
 // draw shared, the kernel is bound by issuing the per-plant instructions:
@@ -115,19 +132,19 @@
 // timestep (T nu^2 FMAs a sample, not the D^2 of the TPU's kron(I_T,
 // chol^T)); mu, lo and hi are per-step (nu,) vectors.  No antithetic sign.
 //
-// Left for later: kernel A's single-plant variants keep their shared-memory
-// tree reductions, their serial update loop and their N = 8 register arrays
-// (the batched kernel's changes, not yet carried over); two samples a thread
-// in the batched rollout; one pass with a last-block merge in place of
-// kernel B.
+// Left for later: the rollout still takes one thread a sample, so during it
+// a block of S = 32 samples keeps three of its four warps idle; operator
+// panels staged in shared memory (the products read them through L1); two
+// samples a thread in the batched rollout; a last-block merge for the
+// batched kernel and the weighted update.
 //
 // Plain C interface (no PyTorch headers), loaded with ctypes; each entry
 // returns cudaGetLastError() after its launches.  The file builds whole, or
-// as eleven translation units selected by -DFUSED_MPPI_PART=0..10 (0-4: the
-// single-plant variants and the rollout kernel of each device model and
-// register size; 5: kernel B, the weighted update, the sampler and the entry
-// points; 6-10: the batched kernel of each device model and register size),
-// which ops/_build.py compiles in parallel and links.
+// as thirteen translation units selected by -DFUSED_MPPI_PART=0..12 (0-4, 11
+// and 12: the single-plant variants and the rollout kernel of each device
+// model and register size; 5: kernel B, the weighted update, the sampler and
+// the entry points; 6-10: the batched kernel of each device model and
+// register size), which ops/_build.py compiles in parallel and links.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -140,7 +157,7 @@
 
 namespace fused_mppi {
 
-constexpr int BLOCK = 128;  // samples (threads) per block of kernel A
+constexpr int BLOCK = 128;  // threads of a block; samples of a block of batched_partial
 constexpr int MAXN = 32;  // largest nx or nu of a device model
 constexpr int MERGE_THREADS = 256;
 
@@ -150,6 +167,7 @@ enum Variant { kMPPI = 0, kSMPPI = 1, kKMPPI = 2, kBatched = 3, kRollout = 4 };
 struct Params {
   const float* consts;
   int K, T, nx, nu, D, R, nblocks;  // R: rows drawn and updated (D, or Dp for KMPPI)
+  int S;  // kernel A: samples of a block (32, 64 or 128)
   int num_plants;  // kBatched: N; 1 otherwise
   int plant_group;  // kBatched: P, the plants of one block of batched_partial
   const int* bits;  // (R, bits_cols) int32, or null in seed mode
@@ -182,7 +200,10 @@ struct Params {
   float* cost;  // (K,), or (N, K) for kBatched
   float* partial;  // (N, nblocks, R + 2): m_b, s_b, acc_b[0..R)
   float* pert;  // (D, K) or null
-  float* scratch;  // kGlobal: (launched blocks, tiles, R, BLOCK)
+  float* scratch;  // kGlobal: (launched blocks, tiles, D, S) (batched: (.., R, BLOCK))
+  int* counter;  // kernel A: the blocks that finished, 0 between launches
+  float* delta;  // kernel A: (R,) the merged update
+  float* ms;  // kernel A: (2,) m and s
 };
 
 // --- reductions -------------------------------------------------------------
@@ -374,6 +395,73 @@ struct Pendulum {
   }
 };
 
+constexpr int MERGE_LOADS = 16;  // partials a thread of merge_partials reads at once
+
+// Merges `nblocks` partials (m_b, s_b, acc_b[0..R)) with the block's threads
+// into column `plant` of delta (R, plants) and ms (2, plants): m = max m_b;
+// each partial's scale e^(m_b - m) once, into `scale`, `chunk` partials at a
+// time; s = sum s_b e^(m_b - m); for delta, G groups of `rows` threads: thread
+// d of group g sums acc_b[d] times the scales over b = g, g + G, ... (reading
+// the partials coalesced across d), and group 0 adds the G sums.  `part`
+// holds blockDim.x floats and `red` blockDim.x / 32.  The partials are read
+// from L2 (another block of the same launch may have written them).  Every
+// thread of the block must call it.
+__device__ __forceinline__ void merge_partials(const float* partial, int nblocks, int R,
+                                               float* delta, float* ms, int plant, int plants,
+                                               float* scale, int chunk, float* part, float* red) {
+  const int threads = blockDim.x, tid = threadIdx.x, stride = R + 2;
+  const int rows = R < threads ? R : threads;
+  const int G = threads / rows, g = tid / rows, dl = tid - g * rows;
+  float m = -INFINITY;
+  for (int b = tid; b < nblocks; b += threads) m = fmaxf(m, __ldcg(partial + (size_t)b * stride));
+  m = block_reduce<true>(m, red);
+  float s = 0.0f;
+  for (int c0 = 0; c0 < nblocks; c0 += chunk) {
+    const int n = nblocks - c0 < chunk ? nblocks - c0 : chunk;
+    const float* part_c = partial + (size_t)c0 * stride;
+    if (c0 > 0) __syncthreads();  // the previous chunk's scales are read
+    for (int b = tid; b < n; b += threads) {
+      const float sc = expf(__ldcg(part_c + (size_t)b * stride) - m);
+      scale[b] = sc;
+      s += __ldcg(part_c + (size_t)b * stride + 1) * sc;
+    }
+    __syncthreads();
+    for (int d0 = 0; d0 < R; d0 += rows) {
+      const int d = d0 + dl;
+      float acc = 0.0f;
+      if (g < G && d < R) {
+        // MERGE_LOADS independent sums keep as many L2 loads in flight
+        const float* col = part_c + 2 + d;
+        float sums[MERGE_LOADS];
+#pragma unroll
+        for (int u = 0; u < MERGE_LOADS; ++u) sums[u] = 0.0f;
+        int b = g;
+        for (; b + (MERGE_LOADS - 1) * G < n; b += MERGE_LOADS * G) {
+#pragma unroll
+          for (int u = 0; u < MERGE_LOADS; ++u)
+            sums[u] = fmaf(__ldcg(col + (size_t)(b + u * G) * stride), scale[b + u * G], sums[u]);
+        }
+        for (; b < n; b += G) sums[0] = fmaf(__ldcg(col + (size_t)b * stride), scale[b], sums[0]);
+#pragma unroll
+        for (int u = 0; u < MERGE_LOADS; ++u) acc += sums[u];
+      }
+      part[tid] = acc;
+      __syncthreads();
+      if (g == 0 && d < R) {
+        float sum = c0 > 0 ? delta[(size_t)d * plants + plant] : 0.0f;
+        for (int h = 0; h < G; ++h) sum += part[h * rows + dl];
+        delta[(size_t)d * plants + plant] = sum;
+      }
+      __syncthreads();
+    }
+  }
+  s = block_reduce<false>(s, red);
+  if (tid == 0) {
+    ms[plant] = m;
+    ms[plants + plant] = s;
+  }
+}
+
 // --- kernel A ---------------------------------------------------------------
 
 // Sample k's R drawn rows, the antithetic sign times the normal, into z[0],
@@ -382,15 +470,21 @@ struct Pendulum {
 // takes source column b*bh + j, or the mirrored draw of j - bh.  The draw
 // depends on the source column only, so the plants of a batch share it
 // (mppi.py:837-838).
-__device__ __forceinline__ void draw_column(const Params& p, int k, float* z, int ldt) {
-  const int R = p.R;
-  int src = k;
-  float sgn = 1.0f;
+__device__ __forceinline__ void source_of(const Params& p, int k, int& src, float& sgn) {
+  src = k;
+  sgn = 1.0f;
   if (p.antithetic) {
     const int b = k / p.pair_block, j = k % p.pair_block, bh = p.pair_block / 2;
     src = b * bh + (j < bh ? j : j - bh);
     if (j >= bh) sgn = -1.0f;
   }
+}
+
+__device__ __forceinline__ void draw_column(const Params& p, int k, float* z, int ldt) {
+  const int R = p.R;
+  int src;
+  float sgn;
+  source_of(p, k, src, sgn);
   if (p.bits) {
     for (int d = 0; d < R; ++d)
       z[d * ldt] = sgn * bits_to_normal((unsigned)p.bits[(size_t)d * p.bits_cols + src]);
@@ -405,183 +499,426 @@ __device__ __forceinline__ void draw_column(const Params& p, int k, float* z, in
   }
 }
 
+constexpr int ROW_TILE = 8;  // rows of a thread's register tile in tile_product
+constexpr int MERGE_CHUNK_A = 512;  // block scales kernel A's merge holds at a time
+
+// Kernel A stages the row vectors it reads in shared memory, NVEC of D floats:
+enum RowVector { kU, kA, kOp, kMu, kLo, kHi, kBase, kAlo, kAhi, NVEC };
+
+// Floats of kernel A's dynamic shared memory before its operator panel and
+// its row vectors: the reduction slots (32), the softmax weights (BLOCK), the
+// threads' partial sums (BLOCK) and the merge's block scales.
+constexpr int PARTIAL_HEAD = 32 + 2 * BLOCK + MERGE_CHUNK_A;
+
+// Kernel A's (D, S) tiles: MPPI with a diagonal scale keeps everything in
+// one; a full operator (and the round-1 solve), SMPPI and KMPPI take two.
+__host__ __device__ constexpr int partial_tiles(int variant, int full_op) {
+  return variant == kMPPI && !full_op ? 1 : 2;
+}
+
+// Loads kStep consecutive floats (one 8- or 16-byte shared-memory load where
+// kStep is 2 or 4).
+template <int kStep>
+__device__ __forceinline__ void load_step(const float* m, float* v) {
+  if constexpr (kStep == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(m);
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+  } else if constexpr (kStep == 2) {
+    const float2 q = *reinterpret_cast<const float2*>(m);
+    v[0] = q.x;
+    v[1] = q.y;
+  } else {
+    v[0] = *m;
+  }
+}
+
+// A panel of tile_product: ROW_TILE rows for each of the BLOCK / S threads
+// of a sample, PANEL_COLS columns.
+constexpr int PANEL_COLS = 160;
+__host__ __device__ constexpr int panel_rows(int S) { return BLOCK / S * ROW_TILE; }
+
+// Floats of kernel A's operator panel: where it computes a product (a full
+// operator, or KMPPI's interpolation), panel_rows(S) rows of up to
+// PANEL_COLS of the R columns, rounded up to 16 bytes.
+__host__ __device__ constexpr size_t panel_floats(int variant, int full_op, int R, int S) {
+  return full_op || variant == kKMPPI
+             ? ((size_t)panel_rows(S) * (R < PANEL_COLS ? R : PANEL_COLS) + 3) / 4 * 4
+             : 0;
+}
+
+// acc[q] += sum_e panel[g0 + q*G, e] in[e, s] over the panel's `cols`
+// columns (row stride `cols`), kStep columns a load.
+template <int kStep>
+__device__ __forceinline__ void panel_accumulate(const float* panel, int prows, int cols,
+                                                 const float* in, int ldt, int S,
+                                                 float (&acc)[ROW_TILE]) {
+  const int s = threadIdx.x % S, G = BLOCK / S, g0 = threadIdx.x / S;
+  const float* mrow[ROW_TILE];
+#pragma unroll
+  for (int q = 0; q < ROW_TILE; ++q) {
+    const int r = g0 + q * G;
+    mrow[q] = panel + (r < prows ? r : 0) * cols;  // a row past the panel is not written
+  }
+  for (int e = 0; e < cols; e += kStep) {
+    float z[kStep];
+#pragma unroll
+    for (int j = 0; j < kStep; ++j) z[j] = in[(e + j) * ldt + s];
+#pragma unroll
+    for (int q = 0; q < ROW_TILE; ++q) {
+      float m[kStep];
+      load_step<kStep>(mrow[q] + e, m);
+#pragma unroll
+      for (int j = 0; j < kStep; ++j) acc[q] = fmaf(m[j], z[j], acc[q]);
+    }
+  }
+}
+
+// out[d, s] = sum_e M[d, e] in[e, s] (+ add[d]) for d < rows and the block's
+// S samples, fp32 FMAs in the order of e.  M (row-major, rows x cols) is
+// streamed through shared memory in panels of panel_rows(S) rows and
+// PANEL_COLS columns, each copied by all threads (16-byte loads where the
+// rows allow, all in flight together), then read as broadcasts.  Thread t
+// takes sample s = t % S and the panel's rows t / S, t / S + G, ...
+// (G = BLOCK / S), ROW_TILE of them in registers, so that each in[e, s] read
+// from the tile feeds ROW_TILE FMAs.  A thread writes only the (row, sample)
+// pairs that the other passes of kernel A give it.  Every thread of the block
+// must call it.
+__device__ __forceinline__ void tile_product(const float* __restrict__ M, int rows, int cols,
+                                             const float* in, float* out, int ldt,
+                                             const float* add, int S, float* panel) {
+  const int tid = threadIdx.x, G = BLOCK / S, g0 = tid / S, s = tid % S, per = panel_rows(S);
+  const bool vec4 = cols % 4 == 0 && reinterpret_cast<uintptr_t>(M) % 16 == 0;
+  for (int p0 = 0; p0 < rows; p0 += per) {
+    const int prows = rows - p0 < per ? rows - p0 : per;
+    float acc[ROW_TILE];
+#pragma unroll
+    for (int q = 0; q < ROW_TILE; ++q) acc[q] = 0.0f;
+    for (int e0 = 0; e0 < cols; e0 += PANEL_COLS) {
+      const int pc = cols - e0 < PANEL_COLS ? cols - e0 : PANEL_COLS;
+      const float* src = M + (size_t)p0 * cols + e0;
+      // whole rows are contiguous; a panel of part of each row walks its
+      // (row, column) pairs without dividing
+      const int w = vec4 ? 4 : 1, units = pc / w;  // loads a panel row
+      if (pc == cols) {
+        for (int i = tid; i < prows * units; i += BLOCK) {
+          if (vec4)
+            reinterpret_cast<float4*>(panel)[i] = __ldg(reinterpret_cast<const float4*>(src) + i);
+          else
+            panel[i] = __ldg(src + i);
+        }
+      } else {
+        int r = tid / units, c = tid - r * units;
+        for (int i = tid; i < prows * units; i += BLOCK) {
+          if (vec4)
+            reinterpret_cast<float4*>(panel)[i] =
+                __ldg(reinterpret_cast<const float4*>(src + (size_t)r * cols) + c);
+          else
+            panel[i] = __ldg(src + (size_t)r * cols + c);
+          for (c += BLOCK; c >= units; c -= units) ++r;
+        }
+      }
+      __syncthreads();
+      const float* in_e = in + e0 * ldt;
+      if (cols % 4 == 0)
+        panel_accumulate<4>(panel, prows, pc, in_e, ldt, S, acc);
+      else if (cols % 2 == 0)
+        panel_accumulate<2>(panel, prows, pc, in_e, ldt, S, acc);
+      else
+        panel_accumulate<1>(panel, prows, pc, in_e, ldt, S, acc);
+      __syncthreads();  // the panel is read before the next one is copied
+    }
+#pragma unroll
+    for (int q = 0; q < ROW_TILE; ++q) {
+      const int r = g0 + q * G, d = p0 + r;
+      if (r < prows) out[d * ldt + s] = add ? acc[q] + add[d] : acc[q];
+    }
+  }
+}
+
+// Sample k's cost: `pc`, the action cost of its rectified noise, plus the
+// T-step rollout of the device model over its actions (column `col` of a
+// tile with row stride ldt) from its column of x0; SMPPI adds the
+// smoothness cost on the action rows.  Called with nx = nu = N as constants,
+// the model's loops and constant offsets are fixed when it is compiled.
+template <class Model, int N, int V>
+__device__ __forceinline__ float sample_cost(const Params& p, const float* col, int ldt, int k,
+                                             float pc, int nx, int nu) {
+  float x[N], u[N], prev[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    x[i] = i < nx ? p.x0[i * p.x0_row_stride + (long long)k * p.x0_col_stride] : 0.0f;
+    prev[i] = 0.0f;
+  }
+  float total = 0.0f, smooth = 0.0f;
+  for (int t = 0; t < p.T; ++t) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      float act = 0.0f;
+      if (j < nu) {
+        act = col[(t * nu + j) * ldt];
+        if (V == kSMPPI) {
+          // smoothness on the previous action row (mppi.py:558-562)
+          if (t > 0) {
+            float df = act - prev[j];
+            if (p.u_scale != 1.0f) df *= p.u_scale;
+            smooth += df * df;
+          }
+          prev[j] = act;
+        }
+      }
+      u[j] = act * p.u_scale;
+    }
+    Model::template step<N>(p.consts, x, u, nx, nu);
+    total += Model::template cost<N>(p.consts, x, u, nx, nu);
+  }
+  return (V == kSMPPI ? pc + *p.w_seq * smooth : pc) + total;
+}
+
+// Kernel A: one MPPI, SMPPI or KMPPI iteration (or the round-1 solve, kMPPI
+// with `rowmajor`) over the S = p.S samples [k0, k0 + S) of block b, k0 = b*S,
+// with BLOCK threads.  Thread t owns sample s = t % S and the rows t / S,
+// t / S + G, ... (G = BLOCK / S) of the block's (D, S) tiles in every pass
+// but the rollout:
+//   1. the draw: the R rows of normals of the S samples (a Philox call for
+//      four rows of one sample, or the sample's bits), the antithetic sign;
+//   2. the transform: the diagonal scale in place, or op @ z + mu as a tiled
+//      product into the second tile (the round-1 solve: chol @ z_t + mu);
+//   3. the variant's clamps, the null row, the perturbed output, and the
+//      action cost of the rectified noise, summed over the thread's rows;
+//      SMPPI stores the actions in one tile and its rate-space noise
+//      (v - as)/dt - U in the other; KMPPI clamps the support points and
+//      interpolates them as a tiled product W @ pts into the second tile;
+//   4. the rollout, one thread per sample (threads t < S), which adds the
+//      G partial action costs of its sample in a fixed order;
+//   5. m_b and s_b by warp shuffles;
+//   6. acc_b[r] = sum_s w_s upd[r, s] (upd: v - U, the stored rate-space
+//      noise, or pts - theta) by groups of threads over rows and samples;
+//   7. the partial goes to (nblocks, R + 2); the last block to finish (a
+//      ticket from p.counter) merges every partial into delta and (m, s)
+//      and sets the counter back to 0.
+// Samples at and beyond K draw zeros, weigh exactly 0 and write nothing.
 template <class Model, int N, bool kGlobal, int V>
 __global__ void __launch_bounds__(BLOCK) mppi_fused_partial(Params p) {
-  constexpr int LDT = kGlobal ? BLOCK : BLOCK + 1;  // row stride of the tiles
-  constexpr bool kUpdateU = V == kMPPI;  // rows are U + noise, clamped
   extern __shared__ float smem[];
-  const int D = p.D, R = p.R;
-  const size_t blk = blockIdx.x;  // partials and scratch slot
-  float* red = smem;  // BLOCK
-  float* ws = red + BLOCK;  // BLOCK softmax weights
-  float* Ws = ws + BLOCK;  // (D, R) KMPPI interpolation, shared path only
-  constexpr bool kSharedW = V == kKMPPI && !kGlobal;
-  float* ps = kGlobal ? p.scratch + blk * (p.full_op ? 2 : 1) * R * BLOCK
-                      : Ws + (kSharedW ? (size_t)D * R : 0);  // (R, LDT) drawn rows
-  float* zs = ps + (size_t)R * LDT;  // (R, LDT) raw normals, full op only
-  const float* W = kSharedW ? Ws : p.W;
-  if (kSharedW) {
-    for (int i = threadIdx.x; i < D * R; i += BLOCK) Ws[i] = p.W[i];
-    __syncthreads();
-  }
-
-  const int tid = threadIdx.x;
-  const int k = blockIdx.x * BLOCK + tid;
+  __shared__ int ticket;
+  const int D = p.D, R = p.R, S = p.S, G = BLOCK / S, tid = threadIdx.x;
+  const int ldt = kGlobal ? S : S + 1;  // row stride of the tiles
+  const int s = tid % S, g0 = tid / S;  // the thread's sample and first row
+  const int k0 = blockIdx.x * S, k = k0 + s;
   const bool live = k < p.K;
   const bool rowmajor = V == kMPPI && p.rowmajor;
-  float* zdst = p.full_op ? zs : ps;
-  float logit = -INFINITY;
+  float* red = smem;  // 32 reduction slots
+  float* ws = red + 32;  // S softmax weights
+  float* part = ws + BLOCK;  // BLOCK partial sums: the action costs, then the update's
+  float* scale = part + BLOCK;  // MERGE_CHUNK_A
+  float* panel = smem + PARTIAL_HEAD;  // the products' operator panel, 16-byte aligned
+  float* vec = panel + panel_floats(V, p.full_op, R, S);  // (NVEC, D) row vectors
+  float* ta = kGlobal ? p.scratch + (size_t)blockIdx.x * partial_tiles(V, p.full_op) * D * S
+                      : vec + (size_t)NVEC * D;
+  float* tb = ta + (size_t)D * ldt;
+  const float *vU = vec + kU * D, *vA = vec + kA * D, *vOp = vec + kOp * D,
+              *vMu = vec + kMu * D, *vLo = vec + kLo * D, *vHi = vec + kHi * D,
+              *vBase = vec + kBase * D, *vAlo = vec + kAlo * D, *vAhi = vec + kAhi * D;
 
-  if (rowmajor && p.bits) {
-    // the block's BLOCK rows of the (K_pad, D) bits are contiguous: read them
-    // coalesced and store them transposed into the tile (K_pad covers every
-    // row of the last block)
-    const int* rows = p.bits + (size_t)blockIdx.x * BLOCK * D;
-    for (int i = tid; i < BLOCK * D; i += BLOCK) {
-      const int r = i / D;
-      zdst[(i - r * D) * LDT + r] = bits_to_normal((unsigned)rows[i]);
+  // 0. the row vectors, one load each, all in flight together (the round-1
+  // solve's per-step mu, lo and hi repeated over the steps)
+  for (int d = tid; d < D; d += BLOCK) {
+    const int dv = rowmajor ? d % p.nu : d;
+    vec[kU * D + d] = p.U[d];
+    vec[kA * D + d] = p.a[d];
+    if (d < R) {
+      if (!p.full_op) vec[kOp * D + d] = p.op[d];
+      vec[kMu * D + d] = p.mu[dv];
+      vec[kLo * D + d] = p.lo[dv];
+      vec[kHi * D + d] = p.hi[dv];
+      if (V != kMPPI) vec[kBase * D + d] = p.base[d];
     }
-    __syncthreads();
+    if (V != kMPPI) {
+      vec[kAlo * D + d] = p.alo[d];
+      vec[kAhi * D + d] = p.ahi[d];
+    }
   }
 
-  if (live) {
-    if (!(rowmajor && p.bits)) draw_column(p, k, zdst + tid, LDT);  // else staged above
-
-    const float dt = V == kSMPPI ? *p.dt : 1.0f;
-    float pc = 0.0f;  // action cost of the rectified noise
-    for (int d = 0; d < R; ++d) {
-      // the per-step vectors of the round-1 solve are indexed by the action
-      const int dv = rowmajor ? d % p.nu : d;
-      float n;
-      if (rowmajor) {
-        // chol @ z_t + mu for timestep t (pallas_rollout.py:1627-1630)
-        const int t = d / p.nu;
-        const float* crow = p.op + dv * p.nu;
-        const float* zt = zs + (size_t)t * p.nu * LDT + tid;
-        float acc = 0.0f;
-        for (int j = 0; j < p.nu; ++j) acc += crow[j] * zt[j * LDT];
-        n = acc + p.mu[dv];
-      } else if (p.full_op) {
-        float acc = 0.0f;
-        const float* row = p.op + (size_t)d * R;
-        for (int e = 0; e < R; ++e) acc += row[e] * zs[e * LDT + tid];
-        n = acc + p.mu[d];
-      } else {
-        n = ps[d * LDT + tid] * p.op[d] + p.mu[d];
-      }
-      float v;
-      if (kUpdateU) {
-        const float u0 = p.U[d];
-        v = u0 + n;
-        if (V == kMPPI && p.null_action && k == 0) v = 0.0f;
-        v = fminf(fmaxf(v, p.lo[dv]), p.hi[dv]);
-        if (p.pert) p.pert[(size_t)d * p.K + k] = v;
-        const float r = v - u0;  // rectified noise (mppi.py:383-385)
-        pc += (p.abs_cost ? fabsf(r) : r) * p.a[d];
-      } else if (V == kSMPPI) {
-        // rate clamp, integrate, null row, action clamp (mppi.py:539-552)
-        const float u0 = p.U[d], as = p.base[d];
-        const float rate = fminf(fmaxf(u0 + n, p.lo[d]), p.hi[d]);
-        v = __fadd_rn(as, __fmul_rn(rate, dt));  // two roundings, as as + rate*dt
-        if (p.null_action && k == 0) v = 0.0f;
-        v = fminf(fmaxf(v, p.alo[d]), p.ahi[d]);
-        if (p.pert) p.pert[(size_t)d * p.K + k] = v;
-        const float r = (v - as) / dt - u0;  // noise through both clamps (mppi.py:552)
-        pc += (p.abs_cost ? fabsf(r) : r) * p.a[d];
-      } else {
-        // support points, clamped (mppi.py:657-664)
-        v = fminf(fmaxf(p.base[d] + n, p.lo[d]), p.hi[d]);
-      }
-      ps[d * LDT + tid] = v;
+  // 1. the draw, into ta
+  if (rowmajor && p.bits) {
+    // the block's S rows of the (K_pad, D) bits are contiguous: read them
+    // coalesced and store them transposed into the tile
+    const int* rows = p.bits + (size_t)k0 * D;
+    for (int i = tid; i < S * D; i += BLOCK) {
+      const int r = i / D;
+      ta[(i - r * D) * ldt + r] = k0 + r < p.K ? bits_to_normal((unsigned)rows[i]) : 0.0f;
     }
-
-    // initial state: the sample's column of x0
-    float x[N], u[N], prev[N];
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      x[i] = i < p.nx ? p.x0[i * p.x0_row_stride + (long long)k * p.x0_col_stride] : 0.0f;
-      prev[i] = 0.0f;
-    }
-    float total = 0.0f, smooth = 0.0f;
-    for (int t = 0; t < p.T; ++t) {
-#pragma unroll
-      for (int j = 0; j < N; ++j) {
-        float act = 0.0f;
-        if (j < p.nu) {
-          const int d = t * p.nu + j;
-          if (V == kKMPPI) {
-            // the full-horizon row d: W[d, :] . pts, then the null row and
-            // the trajectory clamp; its rectified noise is charged here
-            float acc = 0.0f;
-            const float* wrow = W + (size_t)d * R;
-            for (int e = 0; e < R; ++e) acc = fmaf(wrow[e], ps[e * LDT + tid], acc);
-            act = (p.null_action && k == 0) ? 0.0f : acc;
-            act = fminf(fmaxf(act, p.alo[d]), p.ahi[d]);
-            if (p.pert) p.pert[(size_t)d * p.K + k] = act;
-            const float r = act - p.U[d];
-            pc += (p.abs_cost ? fabsf(r) : r) * p.a[d];
-          } else {
-            act = ps[d * LDT + tid];
-          }
-          if (V == kSMPPI) {
-            // smoothness on the previous action row (mppi.py:558-562)
-            if (t > 0) {
-              float df = act - prev[j];
-              if (p.u_scale != 1.0f) df *= p.u_scale;
-              smooth += df * df;
-            }
-            prev[j] = act;
-          }
+  } else {
+    int src;
+    float sgn;
+    source_of(p, k, src, sgn);
+    if (p.bits) {
+      for (int d = g0; d < R; d += G)
+        ta[d * ldt + s] =
+            live ? sgn * bits_to_normal((unsigned)p.bits[(size_t)d * p.bits_cols + src]) : 0.0f;
+    } else {
+      for (int q = g0; 4 * q < R; q += G) {
+        float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        if (live) {
+          const uint4 r =
+              philox4x32_10(make_uint4((unsigned)src, (unsigned)q, 0u, 0u), p.key0, p.key1);
+          v[0] = sgn * bits_to_normal(r.x);
+          v[1] = sgn * bits_to_normal(r.y);
+          v[2] = sgn * bits_to_normal(r.z);
+          v[3] = sgn * bits_to_normal(r.w);
         }
-        u[j] = act * p.u_scale;
+#pragma unroll
+        for (int w = 0; w < 4; ++w)
+          if (4 * q + w < R) ta[(4 * q + w) * ldt + s] = v[w];
       }
-      Model::template step<N>(p.consts, x, u, p.nx, p.nu);
-      total += Model::template cost<N>(p.consts, x, u, p.nx, p.nu);
     }
-    const float c = (V == kSMPPI ? pc + *p.w_seq * smooth : pc) + total;
+  }
+  __syncthreads();
+
+  // 2. the noise n, in nt
+  float* nt = ta;
+  if (rowmajor) {
+    // chol @ z_t + mu for timestep t (pallas_rollout.py:1627-1630)
+    const int nu = p.nu;
+    for (int d = g0; d < D; d += G) {
+      const int t = d / nu, dv = d - t * nu;
+      const float* crow = p.op + dv * nu;
+      const float* zt = ta + (size_t)t * nu * ldt + s;
+      float acc = 0.0f;
+      for (int j = 0; j < nu; ++j) acc += crow[j] * zt[j * ldt];
+      tb[d * ldt + s] = acc + vMu[d];
+    }
+    nt = tb;
+  } else if (p.full_op) {
+    tile_product(p.op, R, R, ta, tb, ldt, vMu, S, panel);
+    nt = tb;
+  } else {
+#pragma unroll 4
+    for (int d = g0; d < R; d += G) ta[d * ldt + s] = ta[d * ldt + s] * vOp[d] + vMu[d];
+  }
+  float* other = nt == ta ? tb : ta;
+  if (nt == tb) __syncthreads();  // the products have read ta before it is written
+
+  // 3. the variant's rows and the action cost of the rectified noise; vt
+  // holds the actions the rollout reads
+  float pc = 0.0f;
+  float* vt = nt;
+  if (V == kKMPPI) {
+    // support points, clamped (mppi.py:657-664), then each full-horizon
+    // row W[d, :] . pts, the null row and the trajectory clamp
+#pragma unroll 4
+    for (int d = g0; d < R; d += G)
+      nt[d * ldt + s] = fminf(fmaxf(vBase[d] + nt[d * ldt + s], vLo[d]), vHi[d]);
+    __syncthreads();
+    tile_product(p.W, D, R, nt, other, ldt, nullptr, S, panel);
+#pragma unroll 4
+    for (int d = g0; d < D; d += G) {
+      float act = (p.null_action && k == 0) ? 0.0f : other[d * ldt + s];
+      act = fminf(fmaxf(act, vAlo[d]), vAhi[d]);
+      if (p.pert && live) p.pert[(size_t)d * p.K + k] = act;
+      const float r = act - vU[d];
+      pc += (p.abs_cost ? fabsf(r) : r) * vA[d];
+      other[d * ldt + s] = act;
+    }
+    vt = other;
+  } else if (V == kSMPPI) {
+    // rate clamp, integrate, null row, action clamp (mppi.py:539-552); the
+    // actions go to the other tile, the noise through both clamps stays in nt
+    const float dt = *p.dt;
+#pragma unroll 4
+    for (int d = g0; d < R; d += G) {
+      const float u0 = vU[d], as = vBase[d];
+      const float rate = fminf(fmaxf(u0 + nt[d * ldt + s], vLo[d]), vHi[d]);
+      float v = __fadd_rn(as, __fmul_rn(rate, dt));  // two roundings, as as + rate*dt
+      if (p.null_action && k == 0) v = 0.0f;
+      v = fminf(fmaxf(v, vAlo[d]), vAhi[d]);
+      if (p.pert && live) p.pert[(size_t)d * p.K + k] = v;
+      const float r = (v - as) / dt - u0;  // mppi.py:552
+      pc += (p.abs_cost ? fabsf(r) : r) * vA[d];
+      other[d * ldt + s] = v;
+      nt[d * ldt + s] = r;
+    }
+    vt = other;
+  } else {
+#pragma unroll 4
+    for (int d = g0; d < R; d += G) {
+      const float u0 = vU[d];
+      float v = u0 + nt[d * ldt + s];
+      if (p.null_action && k == 0) v = 0.0f;
+      v = fminf(fmaxf(v, vLo[d]), vHi[d]);
+      if (p.pert && live) p.pert[(size_t)d * p.K + k] = v;
+      const float r = v - u0;  // rectified noise (mppi.py:383-385)
+      pc += (p.abs_cost ? fabsf(r) : r) * vA[d];
+      nt[d * ldt + s] = v;
+    }
+  }
+  part[tid] = pc;
+  __syncthreads();
+
+  // 4. the rollout, one thread per sample
+  float logit = -INFINITY;
+  if (tid < S && live) {
+    float pcs = part[tid];
+    for (int j = 1; j < G; ++j) pcs += part[j * S + tid];
+    // the N = 2 arrays also hold a rollout with nx = nu = 2 as constants
+    bool exact = false;
+    if constexpr (N == 2) exact = p.nx == 2 && p.nu == 2;
+    const float c = exact ? sample_cost<Model, N, V>(p, vt + tid, ldt, k, pcs, N, N)
+                          : sample_cost<Model, N, V>(p, vt + tid, ldt, k, pcs, p.nx, p.nu);
     p.cost[k] = c;
     logit = -c / *p.lam;
-  } else {
-    // phantom sample: the rows of a zero update keep the sum finite
-    for (int d = 0; d < R; ++d) ps[d * LDT + tid] = kUpdateU ? p.U[d] : p.base[d];
   }
 
-  // block max of the logits
-  red[tid] = logit;
-  __syncthreads();
-  for (int h = BLOCK / 2; h > 0; h >>= 1) {
-    if (tid < h) red[tid] = fmaxf(red[tid], red[tid + h]);
-    __syncthreads();
-  }
-  const float m_b = red[0];
-  __syncthreads();
-  const float w = (live && m_b > -INFINITY) ? expf(logit - m_b) : 0.0f;
-  ws[tid] = w;
-  red[tid] = w;
-  __syncthreads();
-  for (int h = BLOCK / 2; h > 0; h >>= 1) {
-    if (tid < h) red[tid] += red[tid + h];
-    __syncthreads();
-  }
-  float* out = p.partial + blk * (R + 2);
+  // 5. the block's softmax statistics
+  const float m_b = block_reduce<true>(logit, red);
+  const float w = (tid < S && live && m_b > -INFINITY) ? expf(logit - m_b) : 0.0f;
+  if (tid < S) ws[tid] = w;  // published by the reduction's barrier
+  const float s_b = block_reduce<false>(w, red);
+  float* out = p.partial + (size_t)blockIdx.x * (R + 2);
   if (tid == 0) {
     out[0] = m_b;
-    out[1] = red[0];
+    out[1] = s_b;
   }
-  const float dt = V == kSMPPI ? *p.dt : 1.0f;
-  for (int d = tid; d < R; d += BLOCK) {
-    const float* row = ps + d * LDT;
+
+  // 6. the update: GU groups of `rows` threads (a multiple of 32) take a row
+  // each and S / GU samples
+  const int rows = ((R + 31) / 32) * 32 < BLOCK ? ((R + 31) / 32) * 32 : BLOCK;
+  const int GU = BLOCK / rows, gu = tid / rows, dl = tid - gu * rows, span = S / GU;
+  for (int d0 = 0; d0 < R; d0 += rows) {
+    const int d = d0 + dl;
     float acc = 0.0f;
-    if (V == kSMPPI) {
-      // the update accumulates the rate-space noise
-      const float as = p.base[d], u0 = p.U[d];
-      for (int i = 0; i < BLOCK; ++i) acc += ws[i] * ((row[i] - as) / dt - u0);
-    } else {
-      const float b0 = kUpdateU ? p.U[d] : p.base[d];
-      for (int i = 0; i < BLOCK; ++i) acc += ws[i] * (row[i] - b0);
+    if (d < R) {
+      const float* row = nt + d * ldt + gu * span;
+      const float* wg = ws + gu * span;
+      if (V == kSMPPI) {
+        for (int i = 0; i < span; ++i) acc = fmaf(wg[i], row[i], acc);
+      } else {
+        const float b0 = V == kMPPI ? vU[d] : vBase[d];
+        for (int i = 0; i < span; ++i) acc = fmaf(wg[i], row[i] - b0, acc);
+      }
     }
-    out[2 + d] = acc;
+    part[tid] = acc;
+    __syncthreads();
+    if (gu == 0 && d < R) {
+      float sum = part[dl];
+      for (int h = 1; h < GU; ++h) sum += part[h * rows + dl];
+      out[2 + d] = sum;
+    }
+    __syncthreads();  // part is read before it is written again
   }
+
+  // 7. the last block to finish merges the partials
+  __threadfence();  // this block's partial is visible before its ticket
+  __syncthreads();
+  if (tid == 0) ticket = atomicAdd(p.counter, 1);
+  __syncthreads();
+  if (ticket != p.nblocks - 1) return;
+  __threadfence();
+  merge_partials(p.partial, p.nblocks, R, p.delta, p.ms, 0, 1, scale, MERGE_CHUNK_A, part, red);
+  if (tid == 0) *p.counter = 0;  // ready for the next launch
 }
 
 // --- the batched iteration -------------------------------------------------------
@@ -821,58 +1158,18 @@ __global__ void __launch_bounds__(BLOCK) fused_rollout(Params p) {
 #if FUSED_MPPI_HAS(5)
 constexpr int MERGE_CHUNK = 4096;  // block scales held in shared memory at a time
 
-// One block per plant: plant n = blockIdx.x merges its nblocks partials and
-// writes column n of delta (R, plants) and of ms (2, plants).  The threads
-// reduce m = max m_b over the blocks; each block's scale e^(m_b - m) is taken
-// once, into shared memory, a chunk of MERGE_CHUNK blocks at a time; the
-// threads reduce s = sum s_b e^(m_b - m).  For delta the threads form G
-// groups of `rows` threads: thread d of group g sums acc_b[d] times the
-// scales over the blocks b = g, g + G, ... (reading the partials coalesced
-// across d), and group 0 adds the G sums.
+// Kernel B of the batched iteration and of the weighted update: one block
+// per plant; plant n = blockIdx.x merges its nblocks partials into column n
+// of delta (R, plants) and of ms (2, plants) (merge_partials, MERGE_CHUNK
+// block scales at a time).
 __global__ void __launch_bounds__(MERGE_THREADS)
     flash_merge(const float* partial, int nblocks, int R, float* delta, float* ms) {
   __shared__ float scale[MERGE_CHUNK];
   __shared__ float part[MERGE_THREADS];
   __shared__ float red[MERGE_THREADS / 32];
-  const int plant = blockIdx.x, plants = gridDim.x, tid = threadIdx.x;
-  const int stride = R + 2;
-  const int rows = R < MERGE_THREADS ? R : MERGE_THREADS;
-  const int G = MERGE_THREADS / rows, g = tid / rows, dl = tid - g * rows;
-  partial += (size_t)plant * nblocks * stride;
-  float m = -INFINITY;
-  for (int b = tid; b < nblocks; b += MERGE_THREADS) m = fmaxf(m, partial[(size_t)b * stride]);
-  m = block_reduce<true>(m, red);
-  float s = 0.0f;
-  for (int c0 = 0; c0 < nblocks; c0 += MERGE_CHUNK) {
-    const int n = nblocks - c0 < MERGE_CHUNK ? nblocks - c0 : MERGE_CHUNK;
-    const float* chunk = partial + (size_t)c0 * stride;
-    if (c0 > 0) __syncthreads();  // the previous chunk's scales are read
-    for (int b = tid; b < n; b += MERGE_THREADS) {
-      const float sc = expf(chunk[(size_t)b * stride] - m);
-      scale[b] = sc;
-      s += chunk[(size_t)b * stride + 1] * sc;
-    }
-    __syncthreads();
-    for (int d0 = 0; d0 < R; d0 += rows) {
-      const int d = d0 + dl;
-      float acc = 0.0f;
-      if (g < G && d < R)
-        for (int b = g; b < n; b += G) acc = fmaf(chunk[(size_t)b * stride + 2 + d], scale[b], acc);
-      part[tid] = acc;
-      __syncthreads();
-      if (g == 0 && d < R) {
-        float sum = c0 > 0 ? delta[(size_t)d * plants + plant] : 0.0f;
-        for (int h = 0; h < G; ++h) sum += part[h * rows + dl];
-        delta[(size_t)d * plants + plant] = sum;
-      }
-      __syncthreads();
-    }
-  }
-  s = block_reduce<false>(s, red);
-  if (tid == 0) {
-    ms[plant] = m;
-    ms[plants + plant] = s;
-  }
+  const int plant = blockIdx.x, plants = gridDim.x;
+  merge_partials(partial + (size_t)plant * nblocks * (R + 2), nblocks, R, delta, ms, plant, plants,
+                 scale, MERGE_CHUNK, part, red);
 }
 
 // fused_weighted_update's first pass: block b takes the softmax weights of
@@ -1005,7 +1302,7 @@ cudaError_t launch_partial(const Params& p, size_t smem, cudaStream_t stream) {
         (int)smem);
     if (e != cudaSuccess) return e;
   }
-  mppi_fused_partial<Model, N, kGlobal, V><<<p.nblocks, BLOCK, smem, stream>>>(p);
+  mppi_fused_partial<Model, N, kGlobal, V><<<p.nblocks, BLOCK, smem, stream>>>(p);  // merges too
   return cudaGetLastError();
 }
 
@@ -1019,7 +1316,7 @@ cudaError_t launch_variant(const Params& p, int variant, size_t smem, cudaStream
   }
 }
 
-// parts 0-4: the single-plant variants and the rollout kernel
+// parts 0-4, 11, 12: the single-plant variants and the rollout kernel
 template <class Model, int N>
 cudaError_t launch_tiles(const Params& p, int variant, size_t smem, cudaStream_t s) {
   if (variant == kRollout) {
@@ -1085,11 +1382,25 @@ cudaError_t launch_toy32(const Params& p, int v, size_t smem, cudaStream_t s) {
 cudaError_t launch_toy32(const Params&, int, size_t, cudaStream_t);
 #endif
 #if FUSED_MPPI_HAS(4)
-cudaError_t launch_pendulum8(const Params& p, int v, size_t smem, cudaStream_t s) {
-  return launch_tiles<Pendulum, 8>(p, v, smem, s);
+cudaError_t launch_pendulum2(const Params& p, int v, size_t smem, cudaStream_t s) {
+  return launch_tiles<Pendulum, 2>(p, v, smem, s);
 }
 #else
-cudaError_t launch_pendulum8(const Params&, int, size_t, cudaStream_t);
+cudaError_t launch_pendulum2(const Params&, int, size_t, cudaStream_t);
+#endif
+#if FUSED_MPPI_HAS(11)
+cudaError_t launch_lq2(const Params& p, int v, size_t smem, cudaStream_t s) {
+  return launch_tiles<LinearQuadratic, 2>(p, v, smem, s);
+}
+#else
+cudaError_t launch_lq2(const Params&, int, size_t, cudaStream_t);
+#endif
+#if FUSED_MPPI_HAS(12)
+cudaError_t launch_toy2(const Params& p, int v, size_t smem, cudaStream_t s) {
+  return launch_tiles<Toy2D, 2>(p, v, smem, s);
+}
+#else
+cudaError_t launch_toy2(const Params&, int, size_t, cudaStream_t);
 #endif
 #if FUSED_MPPI_HAS(6)
 cudaError_t batched_lq2(const Params& p, int v, size_t smem, cudaStream_t s) {
@@ -1143,40 +1454,46 @@ using namespace fused_mppi;
 namespace {
 
 // The launcher of a variant for a device model (by id) and its register size
-// (8 or MAXN; for the batched kernel 2, 8 or MAXN), or null.
+// (2, 8 or MAXN), or null.
 Launcher find_launcher(int variant, int model_id, int nx, int nu) {
   const int n = nx > nu ? nx : nu;
-  const Launcher single[3][2] = {{launch_lq8, launch_lq32},
-                                 {launch_pendulum8, nullptr},
-                                 {launch_toy8, launch_toy32}};
+  const Launcher single[3][3] = {{launch_lq2, launch_lq8, launch_lq32},
+                                 {launch_pendulum2, nullptr, nullptr},
+                                 {launch_toy2, launch_toy8, launch_toy32}};
   const Launcher batched[3][3] = {{batched_lq2, batched_lq8, batched_lq32},
                                   {batched_pendulum2, nullptr, nullptr},
                                   {batched_toy2, batched_toy8, batched_toy32}};
   if (model_id < 0 || model_id > 2 || n > MAXN) return nullptr;
-  if (variant == kBatched) return batched[model_id][n <= 2 ? 0 : n <= 8 ? 1 : 2];
-  return single[model_id][n <= 8 ? 0 : 1];
+  return (variant == kBatched ? batched : single)[model_id][n <= 2 ? 0 : n <= 8 ? 1 : 2];
 }
 
-// Kernel A for `variant`, then kernel B into delta and ms.
-cudaError_t launch_pair(const Params& p, int variant, int model_id, size_t smem,
-                        cudaStream_t stream, float* delta, float* ms) {
+// Kernel A for a single-plant variant (it merges its own partials), or
+// batched_partial then kernel B into delta and ms.
+cudaError_t launch_solve(const Params& p, int variant, int model_id, size_t smem,
+                         cudaStream_t stream) {
   const Launcher launch = find_launcher(variant, model_id, p.nx, p.nu);
   if (!launch) return cudaErrorInvalidValue;
   const cudaError_t e = launch(p, variant, smem, stream);
-  if (e != cudaSuccess) return e;
-  flash_merge<<<p.num_plants, MERGE_THREADS, 0, stream>>>(p.partial, p.nblocks, p.R, delta, ms);
+  if (e != cudaSuccess || variant != kBatched) return e;
+  flash_merge<<<p.num_plants, MERGE_THREADS, 0, stream>>>(p.partial, p.nblocks, p.R, p.delta,
+                                                          p.ms);
   return cudaGetLastError();
 }
 
-// Dynamic shared memory of kernel A, or of batched_partial for kBatched, with
-// the tiles in shared memory or (`global`) in a global scratch.
-size_t kernel_smem(int variant, int D, int R, int full_op, bool global) {
-  const int ldt = variant == kBatched ? BATCHED_LDT : BLOCK + 1;
-  const size_t tiles = global ? 0 : (full_op ? 2 : 1) * (size_t)R * ldt;
-  if (variant == kBatched) return (batched_head(R) + tiles) * sizeof(float);
-  const size_t w = variant == kKMPPI && !global ? (size_t)D * R : 0;
-  return (2 * BLOCK + w + tiles) * sizeof(float);
+// Dynamic shared memory of kernel A with S samples a block, or of
+// batched_partial for kBatched, with the tiles in shared memory or
+// (`global`) in a global scratch.
+size_t kernel_smem(int variant, int D, int R, int full_op, int S, bool global) {
+  if (variant == kBatched) {
+    const size_t tiles = global ? 0 : (full_op ? 2 : 1) * (size_t)R * BATCHED_LDT;
+    return (batched_head(R) + tiles) * sizeof(float);
+  }
+  const size_t tiles = global ? 0 : partial_tiles(variant, full_op) * (size_t)D * (S + 1);
+  return (PARTIAL_HEAD + panel_floats(variant, full_op, R, S) + (size_t)NVEC * D + tiles) *
+         sizeof(float);
 }
+
+bool valid_tile(int S) { return S == 32 || S == 64 || S == BLOCK; }
 
 }  // namespace
 
@@ -1186,21 +1503,24 @@ int fused_mppi_block() { return BLOCK; }
 
 int fused_mppi_max_n() { return MAXN; }
 
-// Dynamic shared memory of kernel A (batched_partial for kBatched) with the
-// tiles in shared memory (the wrapper checks it against the card's 227 KB,
-// and otherwise passes a global scratch).
-long long fused_mppi_smem_bytes(int variant, int D, int R, int full_op) {
-  return (long long)kernel_smem(variant, D, R, full_op, false);
+// Dynamic shared memory of kernel A with S samples a block (batched_partial
+// for kBatched) with the tiles in shared memory (the wrapper checks it
+// against the card's 227 KB, and otherwise passes a global scratch).
+long long fused_mppi_smem_bytes(int variant, int D, int R, int full_op, int S) {
+  return (long long)kernel_smem(variant, D, R, full_op, S, false);
 }
 
 const char* fused_mppi_error_string(int e) { return cudaGetErrorString((cudaError_t)e); }
 
-// Launches kernel A (batched_partial for kBatched) then kernel B on `stream`;
-// returns cudaGetLastError().  `scratch` is null for the shared-memory tiles,
-// else (launched blocks, tiles, R, BLOCK).  kBatched takes `num_plants`
-// plants in groups of `plant_group` a block, U and a as (D, N) with the
-// strides (u_rs, u_ps) and (a_rs, a_ps), and in operand mode the final noise
-// (R, noise_ld); the other variants take one plant.
+// Launches kernel A with `tile_k` samples a block, which merges its partials
+// itself with the zeroed int32 `counter` (two launches with one counter must
+// not run at once), or for kBatched batched_partial then kernel B, on
+// `stream`; returns cudaGetLastError().  `scratch` is null for the
+// shared-memory tiles, else (launched blocks, tiles, D, tile_k) for kernel A,
+// (launched blocks, tiles, R, BLOCK) for kBatched.  kBatched takes
+// `num_plants` plants in groups of `plant_group` a block, U and a as (D, N)
+// with the strides (u_rs, u_ps) and (a_rs, a_ps), and in operand mode the
+// final noise (R, noise_ld); the other variants take one plant.
 int fused_mppi_launch(int device, void* stream, int variant, int model_id, const float* consts,
                       int K, int T, int nx, int nu, int R,
                       const int* bits, int bits_cols, unsigned key0, unsigned key1,
@@ -1212,7 +1532,8 @@ int fused_mppi_launch(int device, void* stream, int variant, int model_id, const
                       const float* w_seq, const float* dt, float u_scale, float* cost,
                       float* partial, float* delta, float* ms, float* pert, float* scratch,
                       int num_plants, long long u_rs, long long u_ps, long long a_rs,
-                      long long a_ps, const float* noise, long long noise_ld, int plant_group) {
+                      long long a_ps, const float* noise, long long noise_ld, int plant_group,
+                      int tile_k, int* counter) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   Params p{};
@@ -1223,7 +1544,8 @@ int fused_mppi_launch(int device, void* stream, int variant, int model_id, const
   p.nu = nu;
   p.D = T * nu;
   p.R = R;
-  p.nblocks = (K + BLOCK - 1) / BLOCK;
+  p.S = variant == kBatched ? BLOCK : tile_k;
+  p.nblocks = (K + p.S - 1) / p.S;
   p.num_plants = num_plants;
   p.plant_group = plant_group;
   p.bits = bits;
@@ -1262,25 +1584,29 @@ int fused_mppi_launch(int device, void* stream, int variant, int model_id, const
   p.partial = partial;
   p.pert = pert;
   p.scratch = scratch;
-  const size_t smem = kernel_smem(variant, p.D, R, full_op, scratch != nullptr);
+  p.counter = counter;
+  p.delta = delta;
+  p.ms = ms;
+  const size_t smem = kernel_smem(variant, p.D, R, full_op, p.S, scratch != nullptr);
   if (variant < kMPPI || variant > kBatched || num_plants < 1 ||
-      (variant == kBatched ? plant_group < 1 : num_plants != 1))
+      (variant == kBatched ? plant_group < 1 : num_plants != 1 || !valid_tile(tile_k) || !counter))
     return (int)cudaErrorInvalidValue;
-  return (int)launch_pair(p, variant, model_id, smem, (cudaStream_t)stream, delta, ms);
+  return (int)launch_solve(p, variant, model_id, smem, (cudaStream_t)stream);
 }
 
 // make_fused_solve (the round-1 solve) on `stream`: kernel A's kMPPI path with
-// `rowmajor`, then kernel B.  bits (K_pad, D) row-major int32, or null with a
-// Philox key; x0 (nx,) with stride x0_stride; U and a (D,); chol (nu, nu)
-// row-major; mu, lo, hi (nu,).  `scratch` as for fused_mppi_launch (two
-// tiles).
+// `rowmajor`, `tile_k` samples a block, merged in the kernel with `counter`.
+// bits (K_pad, D) row-major int32, or null with a Philox key; x0 (nx,) with
+// stride x0_stride; U and a (D,); chol (nu, nu) row-major; mu, lo, hi (nu,).
+// `scratch` as for fused_mppi_launch (two tiles).
 int fused_mppi_rowmajor_solve(int device, void* stream, int model_id, const float* consts, int K,
                               int T, int nx, int nu, const int* bits, unsigned key0,
                               unsigned key1, int null_action, int abs_cost, const float* x0,
                               long long x0_stride, const float* U, const float* chol,
                               const float* mu, const float* lo, const float* hi, const float* a,
                               const float* lam, float u_scale, float* cost, float* partial,
-                              float* delta, float* ms, float* scratch) {
+                              float* delta, float* ms, float* scratch, int tile_k,
+                              int* counter) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   Params p{};
@@ -1290,7 +1616,8 @@ int fused_mppi_rowmajor_solve(int device, void* stream, int model_id, const floa
   p.nx = nx;
   p.nu = nu;
   p.D = p.R = T * nu;
-  p.nblocks = (K + BLOCK - 1) / BLOCK;
+  p.S = tile_k;
+  p.nblocks = (K + tile_k - 1) / tile_k;
   p.num_plants = 1;
   p.bits = bits;
   p.key0 = key0;
@@ -1312,8 +1639,12 @@ int fused_mppi_rowmajor_solve(int device, void* stream, int model_id, const floa
   p.cost = cost;
   p.partial = partial;
   p.scratch = scratch;
-  const size_t smem = kernel_smem(kMPPI, p.D, p.R, 1, scratch != nullptr);
-  return (int)launch_pair(p, kMPPI, model_id, smem, (cudaStream_t)stream, delta, ms);
+  p.counter = counter;
+  p.delta = delta;
+  p.ms = ms;
+  if (!valid_tile(tile_k) || !counter) return (int)cudaErrorInvalidValue;
+  const size_t smem = kernel_smem(kMPPI, p.D, p.R, 1, tile_k, scratch != nullptr);
+  return (int)launch_solve(p, kMPPI, model_id, smem, (cudaStream_t)stream);
 }
 
 // make_fused_sampler's kernel on `stream`: perturbed (K, D) and cost (K,)

@@ -23,10 +23,12 @@ ops/pallas_rollout.py`` and their helpers (the other four are in
 
 Each is built for a :class:`~.kernel_models.KernelModel`:
 
-* on CUDA tensors it launches ``csrc/fused_mppi.cu`` (kernel A, one thread
-  per sample, or for N plants ``batched_partial``, one thread per sample for
-  a group of :func:`plant_group` plants; then kernel B, the merge of the
-  per-block softmax statistics) and raises if the launch fails;
+* on CUDA tensors it launches ``csrc/fused_mppi.cu`` and raises if the
+  launch fails: kernel A, whose blocks take :func:`tile_samples` samples
+  each and whose last block to finish merges the per-block softmax
+  statistics (one launch a call); or for N plants ``batched_partial``, one
+  thread per sample for a group of :func:`plant_group` plants, then kernel
+  B, the merge (two launches);
 * on CPU tensors it runs its plain version (:func:`fused_solve_plain`,
   :func:`smppi_solve_plain`, :func:`kmppi_solve_plain`), the same function in
   plain torch ops on (rows, K) tensors (:func:`batched_solve_plain` on
@@ -54,7 +56,9 @@ Float32 only.  Normals come from Giles' single-precision erfinv, the
 polynomial XLA uses for ``erf_inv``, in both the kernel and the plain version.
 The kernel keeps its per-block tiles in shared memory when they fit in
 Hopper's 227 KB, else in a global scratch; the device models hold nx and nu
-up to 32.
+up to 32.  Kernel A's merge counts its finished blocks in an int32 counter
+that each factory allocates once per device: two calls of one factory must
+not run at once on two streams.
 """
 from __future__ import annotations
 
@@ -77,16 +81,51 @@ KERNELS = VARIANTS + ("batched", "rollout", "weighted_update", "sampler", "rowma
 launches = dict.fromkeys(KERNELS, 0)
 
 MAX_SMEM_BYTES = 232_448  # shared memory one block may use on Hopper
-_BLOCK = 128  # samples per block of kernel A (BLOCK in fused_mppi.cu)
+_BLOCK = 128  # threads of a block, and samples of a block of batched_partial (BLOCK)
 _MAXN = 32  # largest nx or nu of a device model (MAXN in fused_mppi.cu)
+TILES = (32, 64, 128)  # the samples a block of kernel A may take
+_HEAD = 32 + 2 * _BLOCK + 512  # floats of kernel A's shared memory before its panel
+_NVEC = 9  # the row vectors of D floats kernel A stages in shared memory
+_ROW_TILE = 8  # rows of a thread's register tile in kernel A's products
+_PANEL_COLS = 160  # columns of a panel of the operator of kernel A's products
+H100_SMS = 132  # the SMs of an H100 SXM, where no card can be asked
 # batched_partial: at most this many plants share one block's noise tile, and
-# the grid keeps at least FILL_BLOCKS blocks (two on each of the H100's 132
-# SMs) where N and K allow.  chip_smoke.py's sweep over P = 1-32 on an NVIDIA
-# H100 80GB HBM3 at 700 W: at N = 1,024, K = 16,384 the device time falls
-# until P = 16-32; at N = 16, K = 10,240, P = 4 (320 blocks) was as fast as
-# P = 2 in operand mode and 7 % faster in seed mode (PERF.md).
+# the grid keeps at least FILL_BLOCKS blocks (two on each SM) where N and K
+# allow.  chip_smoke.py's sweep over P = 1-32 on an NVIDIA H100 80GB HBM3 at
+# 700 W: at N = 1,024, K = 16,384 the device time falls until P = 16-32; at
+# N = 16, K = 10,240, P = 4 (320 blocks) was as fast as P = 2 in operand mode
+# and 7 % faster in seed mode (PERF.md).
 PLANT_GROUP_MAX = 32
-FILL_BLOCKS = 2 * 132
+FILL_BLOCKS = 2 * H100_SMS
+
+_sm_counts = {}
+
+
+def sm_count() -> int:
+    """The streaming multiprocessors of the current CUDA device, read once
+    per device; the H100's 132 where there is no card (the factories are
+    built before they see a tensor, and the CPU tests run their plain
+    versions)."""
+    if not torch.cuda.is_available():
+        return H100_SMS
+    index = torch.cuda.current_device()
+    if index not in _sm_counts:
+        _sm_counts[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _sm_counts[index]
+
+
+def tile_samples(K: int, sms: int = H100_SMS) -> int:
+    """S, the samples one block of kernel A takes: the largest of ``TILES``
+    whose grid of ceil(K / S) blocks still gives each of the ``sms`` SMs two
+    blocks, else the smallest.  Fewer samples a block split a block's draw,
+    transform and update over more threads a sample and fill more SMs; more
+    samples a block leave fewer partials to merge.  chip_smoke.py's sweep
+    on an NVIDIA H100 80GB HBM3 at 700 W found S = 32 fastest at K = 1,000
+    and 10,000, D = 60 and D = 300 (PERF.md)."""
+    for S in TILES[:0:-1]:
+        if -(-K // S) >= 2 * sms:
+            return S
+    return TILES[0]
 
 
 class FusedSolveUnavailable(ValueError):
@@ -100,29 +139,40 @@ def transposed_eligible(config: MPPIConfig) -> bool:
     return config.dtype == torch.float32 and not config.step_dependent_dynamics
 
 
-def smem_bytes(variant: int, D: int, R: int, full_op: bool) -> int:
-    """Dynamic shared memory of kernel A with its tiles in shared memory
-    (``fused_mppi_smem_bytes``): two BLOCK vectors, KMPPI's (D, R)
-    interpolation operator, and one (R, BLOCK + 1) tile, two with a full op.
-    The batched kernel holds two BLOCK vectors, 32 reduction slots and two
-    buffers of R (U, lo, hi, a) quadruples beside its tiles, whose rows are
-    BLOCK + 4 floats."""
-    tiles = 2 if full_op else 1
+def smem_bytes(variant: int, D: int, R: int, full_op: bool, S: int = _BLOCK) -> int:
+    """Dynamic shared memory of kernel A with S samples a block and its
+    tiles in shared memory (``fused_mppi_smem_bytes``): 32 reduction slots,
+    two BLOCK vectors and 512 merge scales; an operator panel of
+    (BLOCK / S) · 8 rows of min(R, 160) floats where the kernel computes a
+    product (a full operator, KMPPI's interpolation), rounded up to four
+    floats; nine
+    row vectors of D floats; then one (D, S + 1) tile (MPPI with a diagonal
+    scale) or two.  The batched kernel holds two BLOCK
+    vectors, 32 reduction slots and two buffers of R (U, lo, hi, a)
+    quadruples beside its tiles of R rows of BLOCK + 4 floats, one, or two
+    with a full op."""
     if variant == BATCHED:
-        return (2 * _BLOCK + 32 + 8 * R + tiles * R * (_BLOCK + 4)) * 4
-    w = D * R if variant == KMPPI else 0
-    return (2 * _BLOCK + w + tiles * R * (_BLOCK + 1)) * 4
+        return (2 * _BLOCK + 32 + 8 * R + (2 if full_op else 1) * R * (_BLOCK + 4)) * 4
+    panel = (-(-(_BLOCK // S * _ROW_TILE * min(R, _PANEL_COLS)) // 4) * 4
+             if full_op or variant == KMPPI else 0)
+    return (_HEAD + panel + _NVEC * D + partial_tiles(variant, full_op) * D * (S + 1)) * 4
 
 
-def plant_group(num_plants: int, nblocks: int) -> int:
+def partial_tiles(variant: int, full_op: bool) -> int:
+    """Kernel A's (D, S) tiles: one for MPPI with a diagonal scale, else two."""
+    return 1 if variant == MPPI and not full_op else 2
+
+
+def plant_group(num_plants: int, nblocks: int, fill_blocks: int = FILL_BLOCKS) -> int:
     """P, the plants one block of the batched kernel takes: the largest P up
     to ``PLANT_GROUP_MAX`` whose grid of ``nblocks · ceil(N / P)`` blocks
-    still holds ``FILL_BLOCKS``, then spread evenly over that many groups
-    (``ceil(N / groups)``); 1 when even one plant a block underfills the
-    card.  Each block draws or loads its noise tile once for its P plants."""
+    still holds ``fill_blocks`` (two a SM), then spread evenly over that many
+    groups (``ceil(N / groups)``); 1 when even one plant a block underfills
+    the card.  Each block draws or loads its noise tile once for its P
+    plants."""
     for P in range(min(PLANT_GROUP_MAX, num_plants), 1, -1):
         groups = -(-num_plants // P)
-        if nblocks * groups >= FILL_BLOCKS:
+        if nblocks * groups >= fill_blocks:
             return -(-num_plants // groups)
     return 1
 
@@ -409,7 +459,7 @@ def _lib():
             _I, _P, _I, _I, _P, _I, _I, _I, _I, _I, _P, _I, ctypes.c_uint32,
             ctypes.c_uint32, _I, _I, _I, _I, _P, _L, _L, _P, _P, _P, _I, _P,
             _P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_float, _P, _P, _P,
-            _P, _P, _P, _I, _L, _L, _L, _L, _P, _L, _I,
+            _P, _P, _P, _I, _L, _L, _L, _L, _P, _L, _I, _I, _P,
         ]
         lib.fused_mppi_rollout.argtypes = [_I, _P, _I, _P, _I, _I, _I, _I, _P, _L, _L,
                                            _P, _P]
@@ -418,6 +468,7 @@ def _lib():
         lib.fused_mppi_rowmajor_solve.argtypes = [
             _I, _P, _I, _P, _I, _I, _I, _I, _P, ctypes.c_uint32, ctypes.c_uint32, _I,
             _I, _P, _L, _P, _P, _P, _P, _P, _P, _P, ctypes.c_float, _P, _P, _P, _P, _P,
+            _I, _P,
         ]
         lib.fused_mppi_sampler.argtypes = [
             _I, _P, _I, _I, _P, ctypes.c_uint32, ctypes.c_uint32, _I, _I, _I, _I, _I,
@@ -431,12 +482,13 @@ def _lib():
         lib.fused_mppi_error_string.restype = ctypes.c_char_p
         lib.fused_mppi_block.restype = _I
         lib.fused_mppi_max_n.restype = _I
-        lib.fused_mppi_smem_bytes.argtypes = [_I, _I, _I, _I]
+        lib.fused_mppi_smem_bytes.argtypes = [_I, _I, _I, _I, _I]
         lib.fused_mppi_smem_bytes.restype = ctypes.c_longlong
         if lib.fused_mppi_block() != _BLOCK or lib.fused_mppi_max_n() != _MAXN:
             raise RuntimeError("fused_mppi.cu BLOCK or MAXN differs from fused_solve")
-        if any(lib.fused_mppi_smem_bytes(v, 60, r, f) != smem_bytes(v, 60, r, bool(f))
-               for v in (MPPI, KMPPI, BATCHED) for r in (30, 60) for f in (0, 1)):
+        if any(lib.fused_mppi_smem_bytes(v, D, R, f, S) != smem_bytes(v, D, R, bool(f), S)
+               for v in (MPPI, SMPPI, KMPPI, BATCHED) for D, R in ((60, 30), (60, 60), (300, 300))
+               for f in (0, 1) for S in TILES):
             raise RuntimeError("fused_mppi_smem_bytes differs from fused_solve.smem_bytes")
         lib._argtypes_set = True
     return lib
@@ -489,17 +541,37 @@ def check_kernel_model(config: MPPIConfig, model: KernelModel):
             f"nx={nx}, nu={nu}: the kernel's device models hold at most {_MAXN} of each")
 
 
+def check_tile(tile_k, K: int) -> int:
+    """Kernel A's samples a block: ``tile_k`` where given (one of
+    ``TILES``), else the rule of :func:`tile_samples` on the current
+    device."""
+    S = tile_k or tile_samples(K, sm_count())
+    if S not in TILES:
+        raise ValueError(f"tile_k must be one of {TILES}, got {tile_k}")
+    return S
+
+
+def merge_counter(counters: dict, device) -> torch.Tensor:
+    """The int32 counter of kernel A's in-kernel merge for ``device``,
+    zeroed once when first used there; the kernel sets it back to 0."""
+    counter = counters.get(device)
+    if counter is None:
+        counter = counters[device] = torch.zeros(1, dtype=torch.int32, device=device)
+    return counter
+
+
 def _make_launch(variant: int, config: MPPIConfig, model: KernelModel, R: int,
                  pair_block, emit_perturbed: bool, null_dynamic_gate: bool,
                  terminal_final, plants: int = 1, noise_operand: bool = False,
-                 group: int = 1):
+                 group: int = 1, tile_k: int = None):
     """Checks shared by the four factories, and the launch of one variant:
     ``launch(lead, x0T, U2, base, op, mu, lo, hi, alo, ahi, a_flat, W,
-    lambda_, w_seq, dt)`` on CUDA tensors.  The batched variant takes
-    ``plants`` plants, ``group`` of them a block: x0T (nx, N), U2 and a_flat
-    (D, N) of any strides, and in operand mode the final (D, ≥K) noise as
-    ``lead``.  Returns ``(launch, flags, info)`` where ``flags`` are the
-    plain version's keyword arguments."""
+    lambda_, w_seq, dt)`` on CUDA tensors.  The single-plant variants take
+    ``tile_k`` samples a block (see :func:`check_tile`).  The batched variant
+    takes ``plants`` plants, ``group`` of them a block: x0T (nx, N), U2 and
+    a_flat (D, N) of any strides, and in operand mode the final (D, ≥K)
+    noise as ``lead``.  Returns ``(launch, flags, info)`` where ``flags`` are
+    the plain version's keyword arguments."""
     if null_dynamic_gate:
         raise FusedSolveUnavailable(
             "null_dynamic_gate is not ported yet (ROADMAP.md Queue 1 item 12, sharding)")
@@ -515,12 +587,17 @@ def _make_launch(variant: int, config: MPPIConfig, model: KernelModel, R: int,
     if antithetic and pair_block % 2:
         raise ValueError(f"antithetic pairing needs an even pair_block, got {pair_block}")
     full_op = not (noise_operand or config.diag_sigma and not config.noise_rho)
+    S = _BLOCK if batched else check_tile(tile_k, K)
     # tiles that do not fit in shared memory go to a global scratch of one
-    # (R, BLOCK) slice per launched block and tile
-    shared = smem_bytes(variant, D, R, full_op) <= MAX_SMEM_BYTES
-    nblocks = -(-K // _BLOCK)
+    # (rows, S) slice per launched block and tile
+    shared = smem_bytes(variant, D, R, full_op, S) <= MAX_SMEM_BYTES
+    nblocks = -(-K // S)
     blocks = nblocks * -(-plants // group)
-    scratch_elems = 0 if shared else blocks * (2 if full_op else 1) * R * _BLOCK
+    if batched:
+        scratch_elems = 0 if shared else blocks * (2 if full_op else 1) * R * _BLOCK
+    else:
+        scratch_elems = 0 if shared else blocks * partial_tiles(variant, full_op) * D * S
+    counters = {}
     K_pad = K if noise_operand else padded_k(K, pair_block)
     bits_cols = K_pad // 2 if antithetic else K_pad
     flags = dict(model=model, K=K, T=T, nu=nu, antithetic=config.antithetic,
@@ -572,6 +649,7 @@ def _make_launch(variant: int, config: MPPIConfig, model: KernelModel, R: int,
         ms = torch.empty((2, plants) if batched else 2, **f32)
         pert = torch.empty((D, K), **f32) if emit_perturbed else None
         scratch = torch.empty(scratch_elems, **f32) if scratch_elems else None
+        counter = None if batched else merge_counter(counters, device)
         lib = _lib()
         rc = lib.fused_mppi_launch(
             device_index(device), stream_of(device),
@@ -586,10 +664,13 @@ def _make_launch(variant: int, config: MPPIConfig, model: KernelModel, R: int,
             delta.data_ptr(), ms.data_ptr(), _ptr(pert), _ptr(scratch),
             plants, U2.stride(0), U2.stride(-1) if batched else 0, a_flat.stride(0),
             a_flat.stride(-1) if batched else 0, _ptr(noise),
-            noise.stride(0) if noise is not None else 0, group,
+            noise.stride(0) if noise is not None else 0, group, S, _ptr(counter),
         )
         raise_on_error(lib, rc, "fused_mppi")
-        launches["batched" if batched else VARIANTS[variant]] += 2
+        if batched:
+            launches["batched"] += 2
+        else:
+            launches[VARIANTS[variant]] += 1
         if batched:
             return delta, ms, cost
         out = (delta, ms[0], ms[1], cost)
@@ -597,6 +678,8 @@ def _make_launch(variant: int, config: MPPIConfig, model: KernelModel, R: int,
 
     info = dict(K_pad=K_pad, pair_block=pair_block, bits_cols=bits_cols,
                 tiles="shared" if shared else "global", blocks=blocks)
+    if not batched:
+        info.update(tile_k=S)
     return launch, flags, info
 
 
@@ -622,18 +705,20 @@ def make_transposed_fused_solve(config: MPPIConfig, model: KernelModel,
                                 pair_block: int = None,
                                 emit_perturbed: bool = False,
                                 null_dynamic_gate: bool = False,
-                                terminal_final=None):
+                                terminal_final=None, tile_k: int = None):
     """The whole MPPI iteration as one fused-kernel call (see the module
     docstring for the call contract).  Raises ValueError for a non-float32
     config or a model whose sizes differ from the config's, and
     :class:`FusedSolveUnavailable` when nx or nu exceeds the device models'
     registers (32), or for the JAX kernel's options this port does not run
     yet: ``null_dynamic_gate`` and ``terminal_final`` (the elites operand has
-    no config field here; the controller rejects ``num_elites``)."""
+    no config field here; the controller rejects ``num_elites``).
+    ``tile_k`` forces the samples of a block of the kernel (32, 64 or 128;
+    default :func:`tile_samples`); ``solve.tile_k`` holds it."""
     D = config.T * config.nu
     launch, flags, info = _make_launch(MPPI, config, model, D, pair_block,
                                        emit_perturbed, null_dynamic_gate,
-                                       terminal_final)
+                                       terminal_final, tile_k=tile_k)
 
     def solve(seed_or_bits, x0T, U2, op, mu_t, lo_t, hi_t, a_flat, lambda_):
         return launch(seed_or_bits, x0T, U2, U2, op, mu_t, lo_t, hi_t, None, None,
@@ -646,16 +731,17 @@ def make_transposed_smppi_solve(config: MPPIConfig, model: KernelModel,
                                 pair_block: int = None,
                                 emit_perturbed: bool = False,
                                 null_dynamic_gate: bool = False,
-                                terminal_final=None):
+                                terminal_final=None, tile_k: int = None):
     """The whole SMPPI iteration as one fused-kernel call, with the call
     contract of ``pallas_rollout.py:775-784``: ``solve(seed_or_bits, x0T,
     U2, as2, op, mu_t, lo_t, hi_t (rate bounds), alo_t, ahi_t (action
     bounds), a_flat, lambda_, w_seq, delta_t)``, the three scalars as 0-d
-    tensors.  Raises as :func:`make_transposed_fused_solve`."""
+    tensors.  Raises, and takes ``tile_k``, as
+    :func:`make_transposed_fused_solve`."""
     D = config.T * config.nu
     launch, flags, info = _make_launch(SMPPI, config, model, D, pair_block,
                                        emit_perturbed, null_dynamic_gate,
-                                       terminal_final)
+                                       terminal_final, tile_k=tile_k)
 
     def solve(seed_or_bits, x0T, U2, as2, op, mu_t, lo_t, hi_t, alo_t, ahi_t,
               a_flat, lambda_, w_seq, delta_t):
@@ -669,18 +755,18 @@ def make_transposed_kmppi_solve(config: MPPIConfig, model: KernelModel,
                                 pair_block: int = None,
                                 emit_perturbed: bool = False,
                                 null_dynamic_gate: bool = False,
-                                terminal_final=None):
+                                terminal_final=None, tile_k: int = None):
     """The whole KMPPI iteration as one fused-kernel call, with the call
     contract of ``pallas_rollout.py:958-967``: ``solve(seed_or_bits, x0T,
     U2, theta2 (Dp,), op, mu_p, lop, hip (Dp,), lo_t, hi_t (D,), a_flat,
     Wt (D, Dp), lambda_)`` with ``Dp = config.num_support_pts · nu``.
-    Raises as :func:`make_transposed_fused_solve`."""
+    Raises, and takes ``tile_k``, as :func:`make_transposed_fused_solve`."""
     nsp = config.num_support_pts
     if nsp < 1:
         raise ValueError(f"KMPPI needs num_support_pts >= 1, got {nsp}")
     launch, flags, info = _make_launch(KMPPI, config, model, nsp * config.nu,
                                        pair_block, emit_perturbed,
-                                       null_dynamic_gate, terminal_final)
+                                       null_dynamic_gate, terminal_final, tile_k=tile_k)
 
     def solve(seed_or_bits, x0T, U2, theta2, op, mu_p, lop, hip, lo_t, hi_t,
               a_flat, Wt, lambda_):
@@ -712,7 +798,7 @@ def make_transposed_batched_solve(config: MPPIConfig, num_envs: int,
     plants = int(num_envs)
     if plants < 1:
         raise ValueError(f"num_envs must be >= 1, got {plants}")
-    group = group or plant_group(plants, -(-config.K // _BLOCK))
+    group = group or plant_group(plants, -(-config.K // _BLOCK), 2 * sm_count())
     if not 1 <= group <= plants:
         raise ValueError(f"group must be in [1, num_envs={plants}], got {group}")
     D = config.T * config.nu

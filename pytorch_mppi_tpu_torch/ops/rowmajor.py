@@ -36,8 +36,8 @@ D).T``.  So for one key the sampler draws the transpose of
 without antithetic sampling.
 
 On CUDA tensors each factory's function launches its kernel in
-``csrc/fused_mppi.cu`` (``fused_sampler``; kernel A's row-major round-1 path
-then ``flash_merge``) and raises if the launch fails; on CPU tensors it runs
+``csrc/fused_mppi.cu`` (``fused_sampler``; kernel A's row-major round-1
+path, which merges its own partials) and raises if the launch fails; on CPU tensors it runs
 its plain version (:func:`fused_sampler_plain`,
 :func:`rowmajor_solve_plain`).  ``.plain`` is that version with the
 factory's flags bound, on any device.  Float32 only; the products are fp32
@@ -217,7 +217,7 @@ def rowmajor_solve_plain(seed_or_bits, x0, U, chol, mu, lo, hi, a_flat, lambda_,
     return delta.reshape(T, nu), m, s, cost
 
 
-def make_fused_solve(config: MPPIConfig, model: KernelModel):
+def make_fused_solve(config: MPPIConfig, model: KernelModel, tile_k: int = None):
     """The round-1 MPPI solve as one fused-kernel call (see the module
     docstring for the call contract).  The bits are (K_pad, D) with K_pad
     from :func:`fused_solve_block_and_pad`; only rows < K count.  As the JAX
@@ -226,7 +226,9 @@ def make_fused_solve(config: MPPIConfig, model: KernelModel):
     ValueError for a non-float32 config or a model whose sizes differ from
     the config's, and :class:`~.fused_solve.FusedSolveUnavailable` for a
     step-dependent config (the device models take no timestep) or nx or nu
-    above 32."""
+    above 32.  ``tile_k`` forces kernel A's samples a block, as for
+    :func:`~.fused_solve.make_transposed_fused_solve`; the merge counter is
+    the factory's, so two calls must not run at once on two streams."""
     if config.step_dependent_dynamics:
         raise FS.FusedSolveUnavailable(
             "step-dependent dynamics: the kernel's device models take no timestep")
@@ -234,11 +236,13 @@ def make_fused_solve(config: MPPIConfig, model: KernelModel):
     K, T, nx, nu = config.K, config.T, config.nx, config.nu
     D = T * nu
     block_k, K_pad = fused_solve_block_and_pad(K)
-    # the raw normals keep a tile of their own: two (D, BLOCK) tiles, in
-    # shared memory when they fit, else in a global scratch
-    shared = FS.smem_bytes(FS.MPPI, D, D, True) <= FS.MAX_SMEM_BYTES
-    nblocks = -(-K // FS._BLOCK)
-    scratch_elems = 0 if shared else nblocks * 2 * D * FS._BLOCK
+    S = FS.check_tile(tile_k, K)
+    # the raw normals keep a tile of their own: two (D, S) tiles, in shared
+    # memory when they fit, else in a global scratch
+    shared = FS.smem_bytes(FS.MPPI, D, D, True, S) <= FS.MAX_SMEM_BYTES
+    nblocks = -(-K // S)
+    scratch_elems = 0 if shared else nblocks * 2 * D * S
+    counters = {}
     flags = dict(model=model, K=K, T=T, nu=nu, null_action=config.sample_null_action,
                  abs_cost=config.noise_abs_cost, u_scale=float(config.u_scale))
 
@@ -268,10 +272,11 @@ def make_fused_solve(config: MPPIConfig, model: KernelModel):
             x0.stride(0), U.data_ptr(), chol.data_ptr(), mu.data_ptr(), lo.data_ptr(),
             hi.data_ptr(), a_flat.data_ptr(), lam.data_ptr(), float(config.u_scale),
             cost.data_ptr(), partial.data_ptr(), delta.data_ptr(), ms.data_ptr(),
-            FS._ptr(scratch))
+            FS._ptr(scratch), S, FS.merge_counter(counters, device).data_ptr())
         FS.raise_on_error(lib, rc, "fused_mppi_rowmajor_solve")
-        FS.launches["rowmajor"] += 2
+        FS.launches["rowmajor"] += 1
         return delta.reshape(T, nu), ms[0], ms[1], cost
 
     return FS.finish(solve, rowmajor_solve_plain, flags,
-                     dict(K_pad=K_pad, block_k=block_k, tiles="shared" if shared else "global"))
+                     dict(K_pad=K_pad, block_k=block_k, tile_k=S,
+                          tiles="shared" if shared else "global"))

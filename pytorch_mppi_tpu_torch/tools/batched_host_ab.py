@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Host time of the batched wrapper and of ``MPPI_Batched`` commands, for
-two checkouts of the repo, in alternating processes on one CUDA card.
+"""Host time of the kernel wrappers and of the controllers' commands, for two
+checkouts of the repo, in alternating processes on one CUDA card.
 
     python3 pytorch_mppi_tpu_torch/tools/batched_host_ab.py A_DIR B_DIR \
         [--pairs 6] [--out FILE]
@@ -23,7 +23,12 @@ T = 30 problem:
 * ``profile``: the wrapper's most expensive functions under ``cProfile``
   (its overhead inflates them alike in both checkouts);
 * ``command_us``: the median host time of ``MPPI_Batched.command`` followed
-  by a synchronise (what a control loop waits for), operand and seed mode.
+  by a synchronise (what a control loop waits for), operand and seed mode,
+  and of the fused ``MPPI``, ``SMPPI`` and ``KMPPI`` commands at
+  ``bench.py``'s flagship (K = 10,000, T = 30; ``chip_smoke.py``'s main
+  paths, from [-3, -2] towards the goal [2, 2]);
+* ``graph_us``: the device time of one single-plant solve (the flagship,
+  seed mode) replayed from a CUDA graph of 20 calls, for each variant.
 
 The processes run A, B, B, A, A, B, ... (``--pairs`` pairs); the summary
 gives each metric's median per checkout, B / A, and in how many pairs B
@@ -40,6 +45,30 @@ from pathlib import Path
 
 N, K, T, NU = 16, 10_240, 30, 2
 FLAG_K = 10_000
+NSP = T // 2  # KMPPI's support points at the flagship
+
+
+def _graph_us(fn, iters=20):
+    """Device microseconds per call of ``fn`` replayed from a CUDA graph."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    graph.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / iters * 1e3
 
 
 def _loop_us(fn, calls, repeats, sync):
@@ -64,7 +93,7 @@ def child(root, device, calls, repeats, commands):
     import torch
 
     import pytorch_mppi_tpu_torch as port
-    from pytorch_mppi_tpu_torch import MPPI_Batched, linear_quadratic
+    from pytorch_mppi_tpu_torch import KMPPI, MPPI, SMPPI, MPPI_Batched, RBFKernel, linear_quadratic
     from pytorch_mppi_tpu_torch.config import MPPIConfig
     from pytorch_mppi_tpu_torch.ops import fused_solve as FS
 
@@ -158,6 +187,56 @@ def child(root, device, calls, repeats, commands):
             lat.append((time.perf_counter() - t0) * 1e6)
             x = lq.dynamics(x, action)
         out[f"command_{mode}.command_us"] = statistics.median(lat)
+
+    # the single-plant fused commands at the flagship, and their solves alone
+    goal = torch.tensor([2.0, 2.0], device=dev)
+    flagship = {
+        "mppi": (MPPI, {}),
+        "smppi": (SMPPI, dict(w_action_seq_cost=1.0, delta_t=1.0,
+                              action_min=torch.tensor([-3.0, -3.0]),
+                              action_max=torch.tensor([3.0, 3.0]))),
+        "kmppi": (KMPPI, dict(num_support_pts=NSP, kernel=RBFKernel(2.0))),
+    }
+    for variant, (cls, extra) in flagship.items():
+        ctrl = cls(lq.dynamics, lq.running_cost, nx=2, noise_sigma=torch.eye(NU, device=dev),
+                   num_samples=FLAG_K, horizon=T, lambda_=1.0, seed=42, use_pallas=True,
+                   device=dev, **extra)
+        x = torch.tensor([-3.0, -2.0], device=dev)
+        for _ in range(10):
+            x = lq.dynamics(x[None], ctrl.command(x)[None])[0]
+        sync()
+        lat = []
+        for _ in range(commands):
+            t0 = time.perf_counter()
+            action = ctrl.command(x)
+            sync()
+            lat.append((time.perf_counter() - t0) * 1e6)
+            x = lq.dynamics(x[None], action[None])[0]
+        if not bool(torch.linalg.norm(x - goal) < 10.0):
+            raise SystemExit(f"{variant} flagship loop diverged: {x.tolist()}")
+        out[f"command_{variant}.command_us"] = statistics.median(lat)
+    if cuda:
+        D, R = T * NU, NSP * NU
+        x0T = torch.tensor([-3.0, -2.0], device=dev)[:, None].expand(2, FLAG_K)
+        U2 = torch.randn(D, generator=gen, device=dev) * 0.3
+        cfgs = {v: MPPIConfig(nx=2, nu=NU, K=FLAG_K, T=T, diag_sigma=True,
+                              num_support_pts=NSP if v == "kmppi" else 0, smppi=v == "smppi")
+                for v in flagship}
+        wide = (vec(-1e9), vec(1e9))
+        solves = {
+            "mppi": (FS.make_transposed_fused_solve(cfgs["mppi"], lq),
+                     (x0T, U2, vec(1.0), vec(0.0), *wide, vec(0.0), lam)),
+            "smppi": (FS.make_transposed_smppi_solve(cfgs["smppi"], lq),
+                      (x0T, U2, U2 * 0.5, vec(1.0), vec(0.0), *wide, vec(-3.0), vec(3.0),
+                       vec(0.0), lam, lam, lam)),
+            "kmppi": (FS.make_transposed_kmppi_solve(cfgs["kmppi"], lq),
+                      (x0T, U2, torch.zeros(R, device=dev), torch.ones(R, device=dev),
+                       torch.zeros(R, device=dev), torch.full((R,), -1e9, device=dev),
+                       torch.full((R,), 1e9, device=dev), *wide, vec(0.0),
+                       torch.ones(D, R, device=dev) / R, lam)),
+        }
+        for variant, (solve, args) in solves.items():
+            out[f"solve_{variant}.graph_us"] = _graph_us(lambda s=solve, a=args: s((1, 2), *a))
     print(json.dumps(out))
     return 0
 

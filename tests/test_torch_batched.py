@@ -510,6 +510,26 @@ def test_batched_compile(use_pallas):
     assert actions.shape == (2, 2) and torch.isfinite(actions).all()
 
 
+@pytest.mark.parametrize("kw", [dict(scan_unroll=0), dict(prng_impl=None),
+                                dict(prng_impl="auto"), dict(key=None)],
+                         ids=["scan_unroll", "prng_none", "prng_auto", "key_none"])
+def test_batched_jax_keywords_accepted(kw):
+    """scan_unroll, prng_impl and key (pytorch_mppi_tpu/controller.py:1024,
+    1027, 1033) at the values that mean the default: the same command as
+    without them, on the same seed."""
+    x = torch.zeros(2, 2)
+    torch.testing.assert_close(_batched(False, num_envs=2, **kw).command(x),
+                               _batched(False, num_envs=2).command(x), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("kw,match", [(dict(key=object()), "seed="),
+                                      (dict(prng_impl="rbg"), "Philox from seed")],
+                         ids=["key", "prng_rbg"])
+def test_batched_jax_rng_keywords_raise(kw, match):
+    with pytest.raises(ValueError, match=match):
+        _batched(False, num_envs=2, **kw)
+
+
 def test_batched_controller_surface(monkeypatch):
     ctrl = _batched(False, num_envs=3, u_per_command=2, u_min=-0.7)
     actions = ctrl.command(torch.zeros(3, 2))

@@ -289,3 +289,79 @@ def test_toy2d_runs_the_kernel_model(cls):
         assert bool((action.abs() <= 1.0).all())
         state = env.dynamics(state[None], action[None])[0]
     assert bool(torch.isfinite(state).all())
+
+
+# ---------------------------------------------------------------------------
+# The JAX constructor surface (pytorch_mppi_tpu/controller.py:254-262,
+# :284, :391, :560-563): compile(), scan_unroll, prng_impl, key,
+# sample_axis, M and info, on MPPI and the two variants that inherit it.
+# ---------------------------------------------------------------------------
+
+CONTROLLERS = pytest.mark.parametrize("cls", [MPPI, SMPPI, KMPPI], ids=["mppi", "smppi", "kmppi"])
+
+
+def _small(cls, **kw):
+    return cls(LQ.dynamics, LQ.running_cost, 2, torch.eye(2), num_samples=50, horizon=5,
+               device="cpu", seed=7, **kw)
+
+
+@CONTROLLERS
+def test_compile_returns_the_controller(cls):
+    ctrl = _small(cls)
+    assert ctrl.compile() is ctrl and ctrl.compile(mode="max-autotune") is ctrl
+    assert ctrl.command(np.array([0.0, 0.0])).shape == (2,)
+
+
+@CONTROLLERS
+@pytest.mark.parametrize("unroll", [0, 4])
+def test_scan_unroll_does_not_change_the_command(cls, unroll):
+    """As tests/test_extensions.py:755-774 holds for JAX: the unroll of the
+    rollout loop changes nothing of the result."""
+    state = np.array([-1.0, 0.5])
+    a = _small(cls).command(state)
+    b = _small(cls, scan_unroll=unroll).command(state)
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@CONTROLLERS
+@pytest.mark.parametrize("impl", ["auto", None])
+def test_prng_impl_default_stream_is_accepted(cls, impl):
+    ctrl = _small(cls, prng_impl=impl)
+    assert ctrl.prng_impl == impl
+    torch.testing.assert_close(ctrl.command(np.array([0.0, 0.0])),
+                               _small(cls).command(np.array([0.0, 0.0])), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("impl", ["rbg", "unsafe_rbg", "threefry2x32"])
+def test_prng_impl_tpu_kinds_raise(impl):
+    with pytest.raises(ValueError, match="Philox from seed"):
+        _small(MPPI, prng_impl=impl)
+
+
+@CONTROLLERS
+def test_key_is_rejected_for_seed(cls):
+    with pytest.raises(ValueError, match="seed="):
+        _small(cls, key=object())
+    assert _small(cls, key=None).command(np.array([0.0, 0.0])).shape == (2,)
+
+
+@pytest.mark.parametrize("axis", ["k", "data", None])
+def test_sample_axis(axis):
+    """The JAX default "k" is accepted; another axis is sharding's, which
+    raises the NotImplementedError naming its ROADMAP item."""
+    if axis == "k":
+        assert _small(MPPI, sample_axis=axis).sample_axis == "k"
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 12"):
+            _small(MPPI, sample_axis=axis)
+
+
+@CONTROLLERS
+def test_rollout_samples_and_info(cls):
+    ctrl = _small(cls)
+    assert ctrl.M == 1 and ctrl.info is None
+    assert "M=1" in ctrl.get_params()
+    ctrl.command(np.array([0.0, 0.0]), info={"step": 3})
+    assert ctrl.info == {"step": 3}
+    ctrl.command(np.array([0.0, 0.0]))
+    assert ctrl.info is None

@@ -287,7 +287,7 @@ def test_wrapper_rejects_other_devices():
             MPPIConfig(nx=2, nu=2, K=8, T=3, dtype=torch.float64), model)
     # a large D takes the global-memory tiles; nx or nu up to 32 is taken
     big = FS.make_transposed_fused_solve(
-        MPPIConfig(nx=2, nu=2, K=8, T=250, noise_rho=0.5), model)
+        MPPIConfig(nx=2, nu=2, K=8, T=250, noise_rho=0.5), model, tile_k=128)
     assert big.tiles == "global"
     FS.make_transposed_fused_solve(
         MPPIConfig(nx=32, nu=2, K=8, T=3),
@@ -381,3 +381,87 @@ def test_fused_work_counts_variant_inputs_once(variant):
     ops_bits, b_bits = smoke.fused_work(cfg, model, bits, x0, torch.ones(R), variant=variant)
     assert b_bits - b_seed == 4 * R * K
     assert ops_seed - ops_bits == K * (-(-R // 4)) * 98
+
+
+# ---------------------------------------------------------------------------
+# Kernel A's samples a block: the rule, the device's SM count, the factories
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("K,sms,S", [
+    (10_000, 132, 32), (1_000, 132, 32), (500, 132, 32), (1, 132, 32),
+    (16_384, 132, 32), (16_832, 132, 32), (16_833, 132, 64), (33_664, 132, 64),
+    (33_665, 132, 128), (10_000, 78, 64), (10_000, 39, 128), (10_000, 40, 64),
+    (100_000, 132, 128), (10_000, 160, 32),
+])
+def test_tile_samples_rule(K, sms, S):
+    """The largest S of (32, 64, 128) whose ceil(K / S) blocks give each SM
+    two blocks, else 32: a pure function of K and the SM count."""
+    assert FS.tile_samples(K, sms) == S
+    if S > FS.TILES[0]:
+        assert -(-K // S) >= 2 * sms
+    if S < FS.TILES[-1]:
+        assert -(-K // (2 * S)) < 2 * sms
+
+
+def test_sm_count_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert FS.sm_count() == FS.H100_SMS == 132
+    assert FS.FILL_BLOCKS == 2 * FS.H100_SMS
+
+
+def test_sm_count_is_read_once_per_device(monkeypatch):
+    reads = []
+
+    class Props:
+        multi_processor_count = 114
+
+    def props(index):
+        reads.append(index)
+        return Props()
+
+    monkeypatch.setattr(FS, "_sm_counts", {})
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 1)
+    monkeypatch.setattr(torch.cuda, "get_device_properties", props)
+    assert FS.sm_count() == 114 and FS.sm_count() == 114
+    assert reads == [1]
+    # the factories take the rule on the current device's count
+    cfg = MPPIConfig(nx=2, nu=2, K=10_000, T=3, diag_sigma=True)
+    model = linear_quadratic(torch.from_numpy(B_NP), torch.from_numpy(GOAL_NP))
+    assert FS.make_transposed_fused_solve(cfg, model).tile_k == FS.tile_samples(10_000, 114) == 32
+    assert FS.make_transposed_fused_solve(
+        MPPIConfig(nx=2, nu=2, K=20_000, T=3, diag_sigma=True), model).tile_k == 64
+    assert FS.make_transposed_batched_solve(cfg, 64, model).plant_group == FS.plant_group(
+        64, -(-10_000 // 128), 2 * 114)
+
+
+@pytest.mark.parametrize("factory", ["fused", "smppi", "kmppi"])
+def test_factories_take_the_rule_or_a_forced_tile(factory):
+    make = {"fused": FS.make_transposed_fused_solve, "smppi": FS.make_transposed_smppi_solve,
+            "kmppi": FS.make_transposed_kmppi_solve}[factory]
+    cfg = MPPIConfig(nx=2, nu=2, K=1000, T=6, diag_sigma=True, num_support_pts=3)
+    model = linear_quadratic(torch.from_numpy(B_NP), torch.from_numpy(GOAL_NP))
+    assert make(cfg, model).tile_k == FS.tile_samples(1000, FS.sm_count())
+    for S in FS.TILES:
+        solve = make(cfg, model, tile_k=S)
+        assert solve.tile_k == S and solve.blocks == -(-1000 // S)
+    with pytest.raises(ValueError, match="tile_k"):
+        make(cfg, model, tile_k=96)
+
+
+def test_smem_bytes_of_kernel_a():
+    """One (D, S + 1) tile for MPPI with a diagonal scale, two otherwise,
+    after 32 + 2 * 128 + 512 floats, an operator panel of (128 / S) * 8
+    rows of min(R, 160) floats where there is a product, and nine row vectors of D
+    floats; at D = 300 with a full operator two tiles of 64 samples fit in
+    the 227 KB a block may use, two of 128 do not."""
+    head = 32 + 2 * 128 + 512 + 9 * 60
+    assert FS.smem_bytes(FS.MPPI, 60, 60, False, 64) == (head + 60 * 65) * 4
+    assert FS.smem_bytes(FS.MPPI, 60, 60, True, 32) == (head + 32 * 60 + 2 * 60 * 33) * 4
+    assert FS.smem_bytes(FS.KMPPI, 60, 30, False, 32) == (head + 32 * 30 + 2 * 60 * 33) * 4
+    assert FS.smem_bytes(FS.KMPPI, 60, 15, False, 64) == (head + 16 * 15 + 2 * 60 * 65) * 4
+    assert FS.smem_bytes(FS.SMPPI, 300, 300, True, 64) <= FS.MAX_SMEM_BYTES
+    assert FS.smem_bytes(FS.MPPI, 300, 300, True, 32) == (
+        800 + 32 * 160 + 9 * 300 + 2 * 300 * 33) * 4 <= FS.MAX_SMEM_BYTES // 2
+    assert FS.smem_bytes(FS.MPPI, 300, 300, True, 128) > FS.MAX_SMEM_BYTES

@@ -215,10 +215,11 @@ def test_factory_and_wrapper_checks():
     with pytest.raises(ValueError, match="cuda or cpu"):
         solve((1, 2), torch.empty(2, device="meta"), *ops)
     assert solve((1, 2), torch.zeros(2), *ops)[3].shape == (8,)
-    # the D = 300 tiles do not fit in shared memory: the kernel takes the
-    # global scratch
+    # the D = 300 tiles of 128 samples do not fit in shared memory: the
+    # kernel takes the global scratch
     assert RM.make_fused_solve(MPPIConfig(nx=2, nu=3, K=8, T=100),
-                               linear_quadratic(torch.zeros(2, 3), torch.zeros(2))).tiles == "global"
+                               linear_quadratic(torch.zeros(2, 3), torch.zeros(2)),
+                               tile_k=128).tiles == "global"
     assert solve.tiles == "shared"
 
 
