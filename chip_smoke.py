@@ -28,12 +28,18 @@ the package is not beside it.  Phases, each fatal when it fails:
    must be the largest P, and with P = 1; N = 1,023, not a multiple of P;
    N = 70,000 at K = 256, T = 10, more plants than a grid row; antithetic;
    D = 300 with a full operator; the pendulum and toy2d); the legacy rollout
-   and weighted update
-   at K = 10,000, T = 30 and at K not a multiple of the block; the sampler
+   at K = 10,000, T = 30 and at K not a multiple of the block; the weighted
+   update at the flagship (the rule's samples a block, and 32, 64 and 128
+   forced), at K = 777, at D = 15 and D = 300, on a strided noise (16-byte
+   and scalar loads), at K below the block (one block merges itself) and at
+   K = 16,500 with 32 samples a block (more than 512 partials to merge),
+   then 50 calls in a row identical to the first; the sampler
    (``ops/rowmajor.py``) in bits and seed mode at the flagship (diagonal,
-   antithetic, null row with the absolute cost, a full operator with
-   ``noise_rho``), at K = 777 and at D = 300, then the moments of its
-   seed-mode draws and its normals against the transposed kernel's; the
+   antithetic, null row with the absolute cost, null row with antithetic
+   pairs, a full operator with ``noise_rho``), at K = 777 (also antithetic:
+   mirror rows past K), at D = 15 (diagonal and full) and at D = 300, then
+   the moments of its seed-mode draws and its normals against the
+   transposed kernel's; the
    round-1 solve in bits and seed mode at the flagship, K = 130, with the
    null row, ``u_scale`` and a full sigma, on the pendulum, at D = 300 (both
    tiles) and at K = 1,000 with 64 samples a block, then the moments through
@@ -51,14 +57,16 @@ the package is not beside it.  Phases, each fatal when it fails:
    K = 256 to 10,240); the ops-level kernels' loops at the flagship, 1,000
    commands each: the round-1 solve in seed mode (1 launch a command) and
    JAX's "psampler" solve from port kernels (the sampler, the legacy rollout
-   and weighted update: 4 launches), each held to its plain versions for one
+   and weighted update: 3 launches), each held to its plain versions for one
    command; the kernels alone at the main paths' shapes (device time per
    call replayed from a CUDA graph of 20 calls, the profiler's beside it),
    kernel A's S sweep (32, 64 and 128 samples a block; each variant at the
    flagship, at K = 1,000 and at D = 300, the round-1 solve at the flagship:
-   the rule's S within 10 % of the best), the batched kernel's device time
-   for each plant group P of 1-32 at N = 1,024 and N = 16, and each
-   kernel's time against its time before kernel A's redesign;
+   the rule's S within 10 % of the best), the weighted update's S sweep at
+   the flagship and at D = 300 (the same check) beside one PyTorch call for
+   the same function, the batched kernel's device time for each plant group
+   P of 1-32 at N = 1,024 and N = 16, and each kernel's time against its
+   time in the parent commit's run (PERF.md);
 5. swing-up: the pendulum with ``use_pallas=True``, 150 steps;
 6. closed loops through the kernels: the ``tests/test_mppi.py`` LQ problem
    (KMPPI reaches the goal, SMPPI stays finite), the toy2d comparison of
@@ -96,17 +104,18 @@ SCENARIO_N, SCENARIO_K, SCENARIO_T, SCENARIO_STEPS = 16, 256, 10, 30
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_PER_S = 67e12  # float32 outside the tensor cores, H100 SXM data sheet
 FIRST_MPPI_SEED_MS = 0.04754  # the MPPI pair, seed mode, flagship, as first ported (PERF.md)
-# each kernel's device time before kernel A's redesign (PERF.md, the run
-# before it; NVIDIA H100 80GB HBM3, 700 W): kernel A and flash_merge at the
-# flagship in seed mode and at D = 300 with a full operator on the global
-# tiles; the batched pair at the main paths' widths; the legacy route's
-# kernels and the sampler at the flagship
-BEFORE_MS = {"mppi": 0.043462, "smppi": 0.070621, "kmppi": 0.071037, "rowmajor": 0.051706,
-             "mppi_D300": 1.6839, "smppi_D300": 1.8595, "kmppi_D300": 1.9555,
-             "weighted_update": 0.013277, "rollout": 0.020102, "sampler": 0.009128,
-             "batched_operand": 1.0274, "batched_seed": 1.1065, "batched_small_operand": 0.031331}
+# each kernel's device time in the parent commit's run (PERF.md, §6 table;
+# NVIDIA H100 80GB HBM3, 700 W): kernel A at the flagship in seed mode and at
+# D = 300 with a full operator; the batched pair at the main paths' widths;
+# the legacy route's kernels and the sampler (seed and bits mode) at the
+# flagship
+BEFORE_MS = {"mppi": 0.020565, "smppi": 0.021909, "kmppi": 0.020971, "rowmajor": 0.023616,
+             "mppi_D300": 0.422435, "smppi_D300": 0.447872, "kmppi_D300": 0.319718,
+             "weighted_update": 0.013446, "rollout": 0.007467, "sampler": 0.009120,
+             "sampler_bits": 0.007389, "batched_operand": 1.036582, "batched_seed": 1.118133,
+             "batched_small_operand": 0.030938}
 PLANT_GROUPS = (1, 2, 4, 8, 16, 32)  # the P sweep of the batched kernel
-REPEATS = 50  # calls in a row of one kernel A solve: its merge counter resets
+REPEATS = 50  # calls in a row of one merging kernel: its merge counter resets
 BATCHED_NAMES = ("batched_partial", "flash_merge")
 
 
@@ -744,24 +753,49 @@ def main():
               + ("" if ok else "  <-- FAIL"))
         check(ok, f"rollout kernel disagrees with its plain version: {name}")
         max_update_err["rollout"] = max(max_update_err.get("rollout", 0.0), c_err)
+    # the weighted update: (K, D, samples a block where forced, extra columns
+    # of a strided noise: 4 keeps its rows 16-byte aligned, 3 does not)
     lam_t = torch.tensor(0.8, device=dev)
-    for K_, D_ in ((K, T * NU), (777, T * NU), (1000, 15), (K, 300)):
+    wu_cases = [(K, T * NU, None, 0), (777, T * NU, None, 0), (1000, 15, None, 0),
+                (K, 300, None, 0), (K, T * NU, 32, 0), (K, T * NU, 64, 0), (K, T * NU, 128, 0),
+                (K, T * NU, None, 4), (K, T * NU, None, 3), (20, T * NU, None, 0),
+                (16_500, T * NU, 32, 0)]
+    print("# weighted_update vs plain: |dm| <= 1e-6 (1 + |m|), s rtol 1e-5, pert/s atol "
+          "1e-4 max|pert/s|; one launch a call")
+    for K_, D_, tile, pad in wu_cases:
         cost = torch.rand(K_, generator=gen, device=dev) * 60 + 5
-        noise = torch.randn(K_, D_, generator=gen, device=dev)
-        pk, mk, sk = LG.fused_weighted_update(cost, noise, lam_t)
+        noise = torch.randn(K_, D_ + pad, generator=gen, device=dev)[:, :D_]
+        update = LG.make_weighted_update(tile)
+        before = FS.launches["weighted_update"]
+        pk, mk, sk = update(cost, noise, lam_t)
         torch.cuda.synchronize()
-        pp, mp, sp = LG.fused_weighted_update.plain(cost, noise, lam_t)
+        launched = FS.launches["weighted_update"] - before
+        pp, mp, sp = update.plain(cost, noise, lam_t)
         u_err = float((pk / sk - pp / sp).abs().max())
         ok = (abs(float(mk - mp)) <= 1e-6 * (1 + abs(float(mp)))
               and abs(float(sk / sp - 1)) <= 1e-5
-              and bool(((pk / sk - pp / sp).abs() <= 1e-4 * float((pp / sp).abs().max())).all()))
-        print(f"# weighted_update K={K_:5d} D={D_:3d}: m err {abs(float(mk - mp)):.3e} | s rel "
-              f"{abs(float(sk / sp - 1)):.3e} | pert/s err {u_err:.3e}"
+              and bool(((pk / sk - pp / sp).abs() <= 1e-4 * float((pp / sp).abs().max())).all())
+              and launched == 1)
+        S = tile or FS.tile_samples(K_, FS.sm_count())
+        print(f"# weighted_update K={K_:5d} D={D_:3d} ld={noise.stride(0):3d} S={S:3d} "
+              f"({-(-K_ // S)} blocks): m err {abs(float(mk - mp)):.3e} | s rel "
+              f"{abs(float(sk / sp - 1)):.3e} | pert/s err {u_err:.3e} | launches {launched}"
               + ("" if ok else "  <-- FAIL"))
-        check(ok, f"weighted update kernel disagrees with its plain version: K={K_} D={D_}")
+        check(ok, f"weighted update kernel disagrees with its plain version: K={K_} D={D_} "
+                  f"S={S} ld={noise.stride(0)}")
         max_update_err["weighted_update"] = max(max_update_err.get("weighted_update", 0.0),
                                                 u_err)
-    print(f"# kernel vs plain: {len(legacy_cases)} rollout and 4 weighted-update cases agreed")
+    # REPEATS calls in a row: the merging block sets the counter back to 0
+    cost = torch.rand(K, generator=gen, device=dev) * 60 + 5
+    noise = torch.randn(K, T * NU, generator=gen, device=dev)
+    first = [v.clone() for v in LG.fused_weighted_update(cost, noise, lam_t)]
+    outs = [LG.fused_weighted_update(cost, noise, lam_t) for _ in range(REPEATS)]
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for out in outs for a, b in zip(first, out))
+    print(f"# weighted_update: {REPEATS} calls in a row identical to the first: {same}")
+    check(same, "weighted_update: repeated calls differ (the merge counter did not reset)")
+    print(f"# kernel vs plain: {len(legacy_cases)} rollout and {len(wu_cases)} weighted-update "
+          f"cases agreed")
 
     # the ops-level kernels (ops/rowmajor.py).  The sampler: (name, K, T, nu,
     # config flags, sigma); the flagship takes block 1024 and K_pad 10,240,
@@ -783,6 +817,12 @@ def main():
         ("full_rho", K, T, NU, {"noise_rho": 0.5}, sig_full),
         ("K777_block128", 777, T, NU, {}, eye2),
         ("D300_full_rho", K, 100, 3, {"noise_rho": 0.5}, sig3),
+        # D not a multiple of 4 (scalar loads and stores); mirror rows past K;
+        # the null row with antithetic pairs
+        ("D15", 1000, 15, 1, {}, torch.eye(1, device=dev)),
+        ("D15_full_rho", 1000, 15, 1, {"noise_rho": 0.4}, torch.eye(1, device=dev) * 2),
+        ("K777_antithetic", 777, T, NU, {"antithetic": True}, eye2),
+        ("null_antithetic", K, T, NU, {"antithetic": True, "sample_null_action": True}, eye2),
     ]
     print("# sampler vs plain: perturbed rtol 1e-5 atol 1e-6, cost rtol 1e-4 atol 1e-4 "
           "(tpu_tests/test_tpu_pallas.py:497-500)")
@@ -807,7 +847,8 @@ def main():
                   and bool(((pk - pp).abs() <= 1e-6 + 1e-5 * pp.abs()).all())
                   and bool(((ck - cp).abs() <= 1e-4 + 1e-4 * cp.abs()).all()))
             print(f"# {mode:4s} sampler {name:16s} K={K_:5d} D={D_:3d} block {sample.block_k} "
-                  f"bits {sample.bits_rows}x{D_}: perturbed err {p_err:.3e} | cost err "
+                  f"bits {sample.bits_rows}x{D_} ({sample.blocks} blocks of "
+                  f"{sample.geometry['threads']} threads): perturbed err {p_err:.3e} | cost err "
                   f"{c_err:.3e}" + ("" if ok else "  <-- FAIL"))
             check(ok, f"sampler kernel disagrees with its plain version: {mode}/{name}")
             max_update_err["sampler"] = max(max_update_err.get("sampler", 0.0), p_err)
@@ -981,7 +1022,7 @@ def main():
         check(r["min_dist"] < 1.0 and r["final_dist"] < 10.0,
               f"{variant} {path} closed loop failed bench.py's sanity check")
         if path == "rollout":
-            expect = only(rollout=COMMANDS, weighted_update=2 * COMMANDS)
+            expect = only(rollout=COMMANDS, weighted_update=COMMANDS)
         else:
             expect = only(**{variant: COMMANDS}) if use_pallas else only()  # kernel A merges
         check(r["launches"] == expect,
@@ -1257,11 +1298,14 @@ def main():
     lam1 = torch.tensor(1.0, device=dev)
     dev_wu = graph_ms(lambda: LG.fused_weighted_update(cost, noise, lam1), 20)
     prof_wu = device_ms(lambda: LG.fused_weighted_update(cost, noise, lam1), 200,
-                        ("weighted_partial", "flash_merge"))[0]
+                        ("weighted_partial",))[0]
     call_wu = events_ms(lambda: LG.fused_weighted_update(cost, noise, lam1), 500)
     plain_wu = events_ms(lambda: LG.fused_weighted_update.plain(cost, noise, lam1), 200)
-    # the yardstick: one PyTorch call for the same function (the update pert / s)
-    lib_wu = events_ms(lambda: torch.softmax(-cost / lam1, 0) @ noise, 500)
+    # the yardstick: one PyTorch call for the same function (the update pert / s),
+    # timed as the kernel is (a CUDA graph) and with its host time (events)
+    lib_wu = graph_ms(lambda: torch.softmax(-cost / lam1, 0) @ noise, 20)
+    timed["weighted_update_library_events"] = events_ms(
+        lambda: torch.softmax(-cost / lam1, 0) @ noise, 500)
     bound_wu, by_wu = bound(weighted_update_work(K, T * NU))
     timed["weighted_update"] = (dev_wu, call_wu, plain_wu, bound_wu, by_wu, lib_wu, prof_wu)
     for name in ("rollout", "weighted_update"):
@@ -1269,7 +1313,28 @@ def main():
         print(f"# kernel alone [{name}] K={K} T={T}: device {d_ms:.6f} ms (a CUDA graph of 20 "
               f"calls) | profiler {pr_ms} ms | per call "
               f"{c_ms:.5f} ms (CUDA events, host wrapper included) | plain version {p_ms:.5f} "
-              f"ms | library {l_ms} ms | bound {b_ms:.3e} ms by {b_by}")
+              f"ms | library {l_ms} ms (a CUDA graph of 20 calls) | bound {b_ms:.3e} ms by "
+              f"{b_by}")
+    print(f"# library [torch.softmax(-cost / lam, 0) @ noise] K={K} D={T * NU}: "
+          f"{lib_wu:.6f} ms (a CUDA graph of 20 calls) | "
+          f"{timed['weighted_update_library_events']:.6f} ms (CUDA events, host included) | "
+          f"the kernel's {dev_wu:.6f} ms is {dev_wu / lib_wu:.3f} of the graph time")
+    # the weighted update's S sweep: 32, 64 and 128 samples a block at the
+    # flagship and at D = 300, against the rule's S
+    for shape, D_ in (("flagship", T * NU), ("D300", 300)):
+        noise_s = noise if D_ == T * NU else torch.randn(K, D_, generator=gen, device=dev)
+        sweep = {S: graph_ms(lambda f=LG.make_weighted_update(S): f(cost, noise_s, lam1), 20)
+                 for S in FS.TILES}
+        rule = FS.tile_samples(K, FS.sm_count())
+        best = min(sweep, key=sweep.get)
+        sweeps["weighted_update", shape] = dict(ms=sweep, rule=rule, best=best)
+        print(f"# S sweep [weighted_update {shape}] K={K} D={D_}: " + " | ".join(
+            f"S={S} {v:.6f} ms" for S, v in sweep.items()) + f" (a CUDA graph of 20 calls) | "
+            f"the rule's S={rule}: {sweep[rule] / sweep[best]:.3f} of the best (S={best}; "
+            f"limit 1.1)")
+        check(sweep[rule] <= 1.1 * sweep[best],
+              f"weighted_update {shape}: the rule's S={rule} is more than 10 % slower than "
+              f"S={best}")
 
     # -- 4c. the ops-level kernels' loops at the flagship ----------------------------
     # No controller routes to them (as in JAX), so the loops are written out:
@@ -1320,7 +1385,7 @@ def main():
     class FrontEndLoop(OpsLoop):
         """The sampler, the legacy rollout on the scaled perturbed actions
         plus the action cost, the weighted update of perturbed − U, and
-        U += pert / s."""
+        U += pert / s: three launches a command."""
 
         def __init__(self):
             self.sample = RM.make_fused_sampler(flag_cfg)
@@ -1371,7 +1436,7 @@ def main():
     for name, cls, expect in (("round1", Round1Loop, only(rowmajor=COMMANDS)),
                               ("sampler_front_end", FrontEndLoop,
                                only(sampler=COMMANDS, rollout=COMMANDS,
-                                    weighted_update=2 * COMMANDS))):
+                                    weighted_update=COMMANDS))):
         r = ops_loop(cls())
         ops_loops[name] = r
         print(f"# main path [{name}] K={K} T={T}: command median {r['median_ms']:.4f} ms p90 "
@@ -1414,6 +1479,9 @@ def main():
     U = torch.randn(T, NU, generator=gen, device=dev) * 0.3
     r_args = (torch.tensor([-3.0, -2.0], device=dev), U, eye2, torch.zeros(NU, device=dev),
               *unbounded, (lam1 * U).reshape(-1), lam1)
+    print(f"# sampler at the flagship: {sample.blocks} blocks of {sample.geometry['threads']} "
+          f"threads ({sample.geometry['lanes']} lanes a row, {sample.geometry['rows']} rows a "
+          f"block); {FS.sm_count()} SMs")
     for name, fn, args, rows, names in (
             ("sampler", sample, s_args, sample.bits_rows, ("fused_sampler",)),
             ("rowmajor", solve, r_args, solve.K_pad, ("mppi_fused_partial",))):
@@ -1433,6 +1501,26 @@ def main():
                   f"per call {call_ms:.5f} ms (CUDA events, host wrapper included) | plain "
                   f"version {plain_ms:.5f} ms | bound {bound_ms:.3e} ms by {bound_by} "
                   f"({work[1]} B, {work[0]} operations)")
+    # the sampler with antithetic pairs (one draw a pair) and with a full
+    # operator at D = 300 (T = 100, nu = 3, noise_rho = 0.5), seed mode
+    anti_cfg = MPPIConfig(nx=NX, nu=NU, K=K, T=T, diag_sigma=True, antithetic=True)
+    d300_cfg = MPPIConfig(nx=NX, nu=3, K=K, T=100, noise_rho=0.5)
+    for name, cfg in (("antithetic", anti_cfg), ("D300_full_op", d300_cfg)):
+        smp = RM.make_fused_sampler(cfg)
+        D_ = cfg.T * cfg.nu
+        op = sampler_op(cfg, eye2 if cfg.nu == NU else sig3)
+        args = (torch.randn(D_, generator=gen, device=dev) * 0.3, op,
+                torch.zeros(D_, device=dev), torch.full((D_,), -math.inf, device=dev),
+                torch.full((D_,), math.inf, device=dev), torch.randn(D_, generator=gen, device=dev))
+        dev_ms = graph_ms(lambda: smp((1234, 5678), *args), 20)
+        plain_ms = events_ms(lambda: smp.plain((1234, 5678), *args), 20)
+        work = sampler_work(cfg, smp, (1234, 5678), op)
+        bound_ms, bound_by = bound(work)
+        timed["sampler", name] = (dev_ms, None, plain_ms, bound_ms, bound_by, None)
+        print(f"# kernel alone [sampler {name} seed] K={K} D={D_}: device {dev_ms:.6f} ms (a "
+              f"CUDA graph of 20 calls; {smp.blocks} blocks of {smp.geometry['threads']} "
+              f"threads) | plain version {plain_ms:.5f} ms | bound {bound_ms:.3e} ms by "
+              f"{bound_by} ({work[1]} B, {work[0]} operations)")
     # the round-1 solve's S sweep at the flagship
     tiled = {S: RM.make_fused_solve(flag_cfg, lq, tile_k=S) for S in FS.TILES}
     sweep = {S: graph_ms(lambda f=f: f((1234, 5678), *r_args), 20) for S, f in tiled.items()}
@@ -1444,8 +1532,7 @@ def main():
         f"limit 1.1)")
     check(sweep[solve.tile_k] <= 1.1 * sweep[best],
           f"rowmajor: the rule's S={solve.tile_k} is more than 10 % slower than S={best}")
-    # every kernel against its time before kernel A's redesign (kernel A then
-    # flash_merge for the four rows of kernel A)
+    # every kernel against its time in the parent's run
     for name, ms in (("mppi", timed["mppi", "flagship", "seed"][0]),
                      ("smppi", timed["smppi", "flagship", "seed"][0]),
                      ("kmppi", timed["kmppi", "flagship", "seed"][0]),
@@ -1455,7 +1542,8 @@ def main():
                      ("kmppi_D300", timed["kmppi", "D300", "seed"][0]),
                      ("weighted_update", timed["weighted_update"][0]),
                      ("rollout", timed["rollout"][0]),
-                     ("sampler", timed["sampler", "seed"][0])):
+                     ("sampler", timed["sampler", "seed"][0]),
+                     ("sampler_bits", timed["sampler", "bits"][0])):
         print(f"# {name}: {ms:.6f} ms against {BEFORE_MS[name]} ms before: ratio "
               f"{ms / BEFORE_MS[name]:.4f} (limit 1.1)")
 
@@ -1640,7 +1728,7 @@ def main():
         d_ms, c_ms, p_ms, b_ms, b_by, l_ms, pr_ms = timed[name]
         kernels.append({
             "name": {"rollout": "fused_rollout",
-                     "weighted_update": "weighted_partial + flash_merge"}[name],
+                     "weighted_update": "weighted_partial (merged in the kernel)"}[name],
             "route": "cuda",
             "source": "pytorch_mppi_tpu_torch/csrc/fused_mppi.cu",
             "replaces": f"pytorch_mppi_tpu/ops/pallas_rollout.py:{line}",
@@ -1654,10 +1742,15 @@ def main():
             "bound_by": b_by,
             "library_ms": l_ms,
         })
+    kernels[-1].update(library_ms_events=timed["weighted_update_library_events"],
+                       tile_k=sweeps["weighted_update", "flagship"]["rule"],
+                       ms_by_tile_k=sweep_ms(("weighted_update", "flagship")),
+                       ms_by_tile_k_D300=sweep_ms(("weighted_update", "D300")))
     # no single PyTorch call samples, clamps and costs in one pass, or
     # computes an MPPI iteration: library_ms is null
     for name, label, line, loop in (
-            ("sampler", "fused_sampler", 1350, "sampler_front_end"),
+            ("sampler", "fused_sampler (fused_sampler_op<TR> for a full op)", 1350,
+             "sampler_front_end"),
             ("rowmajor", "fused_mppi round-1 (mppi_fused_partial<..., kMPPI> rowmajor, merged in "
              "the kernel)", 1527, "round1")):
         d_ms, c_ms, p_ms, b_ms, b_by, pr_ms = timed[name, "seed"]
@@ -1682,6 +1775,12 @@ def main():
         if name == "rowmajor":
             kernels[-1].update(tile_k=sweeps["rowmajor", "flagship"]["rule"],
                                ms_by_tile_k=sweep_ms(("rowmajor", "flagship")))
+        else:
+            kernels[-1].update(ms_antithetic=timed["sampler", "antithetic"][0],
+                               bound_ms_antithetic=timed["sampler", "antithetic"][3],
+                               ms_D300_full_op=timed["sampler", "D300_full_op"][0],
+                               bound_ms_D300_full_op=timed["sampler", "D300_full_op"][3],
+                               blocks=sample.blocks)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -14,8 +14,10 @@
 //   make_transposed_batched_solve  (pallas_rollout.py:1118) as
 //                          batched_partial<Model, N, kGlobal> + flash_merge,
 //   make_fused_rollout     (pallas_rollout.py:75)   as fused_rollout<Model, N>
-//   fused_weighted_update  (pallas_rollout.py:172)  as weighted_partial + flash_merge
-//   make_fused_sampler     (pallas_rollout.py:1350) as fused_sampler.
+//   fused_weighted_update  (pallas_rollout.py:172)  as weighted_partial<S>, which
+//                          merges its own partials
+//   make_fused_sampler     (pallas_rollout.py:1350) as fused_sampler (diagonal op)
+//                          and fused_sampler_op<TR> (full op).
 //
 // The iteration.  For K samples kernel A computes: the normals of the R drawn
 // rows (from injected int32 bits or from Philox4x32-10), the antithetic sign,
@@ -61,7 +63,7 @@
 //      from an int32 counter, after a __threadfence) merges every partial
 //      into delta and (m, s) and sets the counter back to 0: one launch a
 //      call.  Samples at and beyond K draw zeros and weigh exactly 0.
-//   B. flash_merge (the batched iteration and the weighted update): one
+//   B. flash_merge (the batched iteration): one
 //      block per plant merges that plant's partials, m = max m_b,
 //      s = sum s_b e^(m_b - m), delta[r] = sum acc_b[r] e^(m_b - m), with each
 //      scale e^(m_b - m) taken once and the sums split over the block's
@@ -111,32 +113,50 @@
 // The legacy route.  fused_rollout: one thread per sample reads its row of
 // the (K, T*nu) scaled actions and rolls the model out from its x0 row; it is
 // bound by the bytes of those actions (2.4 MB at the flagship, 0.7 us).
-// weighted_partial: one thread per sample takes the softmax weight of its
-// cost, then the block's threads, one noise column each, sum their 128 rows
-// of the (K, D) noise (fp32 FMAs, the JAX dot's Precision.HIGHEST); bound by
-// reading the noise once (2.4 MB, 0.7 us).  flash_merge merges the blocks.
+// weighted_partial<S> (fused_weighted_update): bound by reading the (K, D)
+// noise once (2.4 MB at the flagship, 0.7 us), so by latency at that size:
+// the launch, the block's chain (weights, reductions, the weighted sum) and
+// the merge of the blocks' partials.  The design: one launch a call; blocks
+// of S = 32 samples (tile_samples, as kernel A: 313 blocks at K = 10,000
+// fill the 132 SMs) with shuffle reductions; the weighted sum on all 128
+// threads, groups of threads over columns (16-byte loads a row) and over
+// samples, so that a thread's chain is S / groups FMAs.  The merge sets the
+// time: one block of 128 threads merging 313 partials with merge_partials
+// made the kernel slower on the card than the two launches it replaces (the
+// merge's L2 loads wait on one another, and its time grows with the
+// partials), so the partials merge in two levels of about sqrt(nblocks)
+// each (the last block of each group of blocks, then the last of those),
+// each level one pass with the loads of eight partials in flight a thread
+// (weighted_merge, over 16-byte rows).
 //
 // The ops-level kernels, which no controller routes to (as in JAX; they
-// take K on rows, the (K, D) layout).  fused_sampler: one warp per sample
-// row.  The warp stages its row's normals in shared memory (from the
-// (K_pad[/2], D) int32 bits, lanes over d, or from Philox, lanes over
-// counters), then lane d computes n_d = z_d op_d + mu_d, or sum_j z_j
-// op[j, d] + mu_d for a full (D, D) op (row j of op is coalesced across the
-// lanes; the op stays in L2, 360 KB at D = 300), the null row, the clamp,
-// and writes perturbed[k, d]: coalesced reads of bits and writes of the
-// output, which bound it (4.9 MB at the flagship, 1.5 us at 3.35 TB/s).  The
-// action cost is a warp-shuffle sum.  The round-1 solve (rowmajor): kernel
-// A's kMPPI path with three runtime differences, so it adds no
-// instantiation: the block stages its 128 rows of the (K_pad, D) bits
-// through the tile with coalesced loads; the noise is chol @ z_t + mu per
-// timestep (T nu^2 FMAs a sample, not the D^2 of the TPU's kron(I_T,
-// chol^T)); mu, lo and hi are per-step (nu,) vectors.  No antithetic sign.
+// take K on rows, the (K, D) layout).  The sampler (make_fused_sampler): per
+// element a draw (Philox, Giles' erfinv), the transform, the clamp and the
+// action cost; bound by the bytes of the (K, D) output and, in bits mode,
+// of the bits (4.9 MB at the flagship, 1.5 us), so by latency and issue.
+// fused_sampler (a diagonal op): a thread per (source row, four elements),
+// a row's groups on consecutive lanes (16 lanes at D = 60, two rows a
+// warp), one Philox call or one 16-byte load of bits for four normals,
+// 16-byte stores, the cost a segmented shuffle sum, and under antithetic
+// sampling one draw for both rows of a pair; 256 threads a block, so
+// K = 10,000 takes one wave of 625 blocks.  fused_sampler_op<TR> (a full op,
+// z @ op: D^2 FMAs a row, so bound by operations at D = 300): the block's
+// normals in shared memory, op streamed in panels through shared memory, a
+// register tile of TR rows by four columns a thread, the mirror row as
+// mu - z @ op.
+// The round-1 solve (rowmajor): kernel A's kMPPI path with three runtime
+// differences, so it adds no instantiation: the block stages its S rows of
+// the (K_pad, D) bits through the tile with coalesced loads; the noise is
+// chol @ z_t + mu per timestep (T nu^2 FMAs a sample, not the D^2 of the
+// TPU's kron(I_T, chol^T)); mu, lo and hi are per-step (nu,) vectors.  No
+// antithetic sign.
 //
 // Left for later: the rollout still takes one thread a sample, so during it
-// a block of S = 32 samples keeps three of its four warps idle; operator
-// panels staged in shared memory (the products read them through L1); two
-// samples a thread in the batched rollout; a last-block merge for the
-// batched kernel and the weighted update.
+// a block of S = 32 samples keeps three of its four warps idle; two samples
+// a thread in the batched rollout; a last-block merge for the batched
+// kernel; the legacy rollout's one strided row a thread; merge_partials'
+// dependent L2 loads (kernel A's last block, flash_merge), which
+// weighted_merge's one pass avoids.
 //
 // Plain C interface (no PyTorch headers), loaded with ctypes; each entry
 // returns cudaGetLastError() after its launches.  The file builds whole, or
@@ -1158,10 +1178,10 @@ __global__ void __launch_bounds__(BLOCK) fused_rollout(Params p) {
 #if FUSED_MPPI_HAS(5)
 constexpr int MERGE_CHUNK = 4096;  // block scales held in shared memory at a time
 
-// Kernel B of the batched iteration and of the weighted update: one block
-// per plant; plant n = blockIdx.x merges its nblocks partials into column n
-// of delta (R, plants) and of ms (2, plants) (merge_partials, MERGE_CHUNK
-// block scales at a time).
+// Kernel B of the batched iteration: one block per plant; plant
+// n = blockIdx.x merges its nblocks partials into column n of delta
+// (R, plants) and of ms (2, plants) (merge_partials, MERGE_CHUNK block
+// scales at a time).
 __global__ void __launch_bounds__(MERGE_THREADS)
     flash_merge(const float* partial, int nblocks, int R, float* delta, float* ms) {
   __shared__ float scale[MERGE_CHUNK];
@@ -1172,57 +1192,231 @@ __global__ void __launch_bounds__(MERGE_THREADS)
                  scale, MERGE_CHUNK, part, red);
 }
 
-// fused_weighted_update's first pass: block b takes the softmax weights of
-// samples [b*BLOCK, (b+1)*BLOCK) against its own largest logit, then thread
-// d sums column d of those rows of the (K, D) noise (row stride ld) under
-// the weights; partial[b] = (m_b, s_b, acc_b[0..D)).  Rows at and beyond K
-// weigh exactly 0 and are not read.
+constexpr int WEIGHTED_LOADS = 8;  // partials a thread of weighted_merge loads at once
+constexpr int WEIGHTED_COUNTERS = 8193;  // the weighted update's tickets: 1 + at most 8,192 groups
+
+// Floats of one partial of the weighted update: m_b, s_b, two unused, then
+// acc_b[0..D) padded to four, so that every row starts on 16 bytes.
+__host__ __device__ constexpr int weighted_stride(int D) { return 4 + (D + 3) / 4 * 4; }
+
+// sum_i ws[i] col[i * ld] over i = first, first + step, ... < rows, for one
+// column (x) or, where vec4, four (x, y, z, w) read as one 16-byte load; fp32
+// FMAs in the order of i.
+__device__ __forceinline__ float4 weighted_column(const float* __restrict__ col, long long ld,
+                                                  int first, int rows, int step,
+                                                  const float* ws, bool vec4) {
+  float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (vec4) {
+#pragma unroll 4
+    for (int i = first; i < rows; i += step) {
+      const float4 n = __ldg(reinterpret_cast<const float4*>(col + (size_t)i * ld));
+      const float w = ws[i];
+      acc.x = fmaf(w, n.x, acc.x);
+      acc.y = fmaf(w, n.y, acc.y);
+      acc.z = fmaf(w, n.z, acc.z);
+      acc.w = fmaf(w, n.w, acc.w);
+    }
+  } else {
+#pragma unroll 4
+    for (int i = first; i < rows; i += step) acc.x = fmaf(ws[i], __ldg(col + (size_t)i * ld), acc.x);
+  }
+  return acc;
+}
+
+// Merges n partials (rows of weighted_stride(D) floats) at src into dst[0..D),
+// *m_out and *s_out with the block's threads, in one pass over them: thread
+// (g, c) takes column unit c (four columns) and the partials g, g + G, ...
+// (G = threads / units groups), loading m_b, s_b and the four columns of
+// WEIGHTED_LOADS partials together (no load waits on another) and keeping
+// an online (m_g, s_g, acc_g) against the largest m_b it has seen; the
+// groups' results meet in shared memory and are added in the order of g,
+// each scaled by e^(m_g - m).  Deterministic: fixed orders, no atomics.
+// `part` holds blockDim.x float4s, `gm` and `gs` blockDim.x floats each.
+// Every thread of the block must call it.
+__device__ void weighted_merge(const float* src, int n, int D, float* dst, float* m_out,
+                               float* s_out, float4* part, float* gm, float* gs) {
+  const int tid = threadIdx.x, NT = blockDim.x, units = (D + 3) / 4;
+  const int cols = units < NT ? units : NT, G = NT / cols, g = tid / cols, cl = tid - g * cols;
+  const int PS4 = weighted_stride(D) / 4;
+  const float4* rows = reinterpret_cast<const float4*>(src);
+  for (int u0 = 0; u0 < units; u0 += cols) {
+    const int c = u0 + cl;
+    const bool active = g < G && c < units;
+    float m = -INFINITY, s = 0.0f;
+    float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int b0 = g; active && b0 < n; b0 += WEIGHTED_LOADS * G) {
+      float4 head[WEIGHTED_LOADS], col[WEIGHTED_LOADS];
+#pragma unroll
+      for (int u = 0; u < WEIGHTED_LOADS; ++u) {
+        const int b = b0 + u * G;
+        head[u] = make_float4(-INFINITY, 0.0f, 0.0f, 0.0f);
+        col[u] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (b < n) {
+          head[u] = __ldcg(rows + (size_t)b * PS4);
+          col[u] = __ldcg(rows + (size_t)b * PS4 + 1 + c);
+        }
+      }
+      float mb = m;
+#pragma unroll
+      for (int u = 0; u < WEIGHTED_LOADS; ++u) mb = fmaxf(mb, head[u].x);
+      if (mb == -INFINITY) continue;  // nothing weighs yet
+      const float r = expf(m - mb);  // 0 while m is -inf
+      s *= r;
+      acc.x *= r;
+      acc.y *= r;
+      acc.z *= r;
+      acc.w *= r;
+#pragma unroll
+      for (int u = 0; u < WEIGHTED_LOADS; ++u) {
+        const float e = expf(head[u].x - mb);
+        s = fmaf(head[u].y, e, s);
+        acc.x = fmaf(col[u].x, e, acc.x);
+        acc.y = fmaf(col[u].y, e, acc.y);
+        acc.z = fmaf(col[u].z, e, acc.z);
+        acc.w = fmaf(col[u].w, e, acc.w);
+      }
+      m = mb;
+    }
+    part[tid] = acc;
+    if (cl == 0) {
+      gm[g] = m;
+      gs[g] = s;
+    }
+    __syncthreads();
+    float mt = -INFINITY;
+    for (int h = 0; h < G; ++h) mt = fmaxf(mt, gm[h]);
+    if (g == 0 && c < units) {
+      float4 sum = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      for (int h = 0; h < G; ++h) {
+        const float e = gm[h] > -INFINITY ? expf(gm[h] - mt) : 0.0f;
+        const float4 a = part[h * cols + cl];
+        sum.x = fmaf(a.x, e, sum.x);
+        sum.y = fmaf(a.y, e, sum.y);
+        sum.z = fmaf(a.z, e, sum.z);
+        sum.w = fmaf(a.w, e, sum.w);
+      }
+      const float v[4] = {sum.x, sum.y, sum.z, sum.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (4 * c + j < D) dst[4 * c + j] = v[j];
+    }
+    if (u0 == 0 && tid == 0) {
+      float st = 0.0f;
+      for (int h = 0; h < G; ++h)
+        if (gm[h] > -INFINITY) st = fmaf(gs[h], expf(gm[h] - mt), st);
+      *m_out = mt;
+      *s_out = st;
+    }
+    __syncthreads();  // part, gm and gs are read before the next columns
+  }
+}
+
+// fused_weighted_update's kernel, S = 32, 64 or 128 samples a block of BLOCK
+// threads.  Block b takes samples [k0, k0 + S), k0 = b*S:
+//   1. the softmax weights of its samples against its own largest logit;
+//      m_b and s_b by warp shuffles (block_reduce);
+//   2. acc_b[d] = sum_i w_i noise[k0 + i, d] (row stride ld) on all threads:
+//      thread t takes column unit c = t % units (four columns, one 16-byte
+//      load a row, where vec4; else one column) and the samples g, g + G,
+//      ... (g = t / units, G = BLOCK / units groups); the groups' sums meet
+//      in shared memory and are added in the order of g;
+//   3. the partial (m_b, s_b, acc_b) goes to partial[b]; the merge takes two
+//      levels of tickets (after a __threadfence each): the last block of each
+//      group of `group` consecutive blocks merges the group's partials into
+//      gpart[group index] (weighted_merge), and the last of those merges the
+//      groups into out = (pert[0..D), m, s); each sets its counter back to 0
+//      (counter[1 + group index], then counter[0]): one launch a call.
+// Samples at and beyond K weigh exactly 0 and are not read.
+template <int S>
 __global__ void __launch_bounds__(BLOCK)
-    weighted_partial(const float* cost, const float* noise, long long ld, int K, int D,
-                     const float* lam, float* partial) {
-  __shared__ float red[BLOCK], ws[BLOCK];
-  const int tid = threadIdx.x, k0 = blockIdx.x * BLOCK, k = k0 + tid;
-  const bool live = k < K;
-  const float logit = live ? -cost[k] / *lam : -INFINITY;
-  red[tid] = logit;
-  __syncthreads();
-  for (int h = BLOCK / 2; h > 0; h >>= 1) {
-    if (tid < h) red[tid] = fmaxf(red[tid], red[tid + h]);
-    __syncthreads();
-  }
-  const float m_b = red[0];
-  __syncthreads();
+    weighted_partial(const float* __restrict__ cost, const float* __restrict__ noise,
+                     long long ld, int K, int D, int vec4, const float* lam, int group,
+                     float* partial, float* gpart, int* counter, float* out) {
+  __shared__ float red[32], ws[S], gm[BLOCK], gs[BLOCK];
+  __shared__ float4 part[BLOCK];
+  __shared__ int ticket;
+  const int tid = threadIdx.x, k0 = blockIdx.x * S, nblocks = gridDim.x, PS = weighted_stride(D);
+  const int rows = K - k0 < S ? K - k0 : S;
+  const bool live = tid < rows;
+  const float logit = live ? -__ldg(cost + k0 + tid) / *lam : -INFINITY;
+  const float m_b = block_reduce<true>(logit, red);
   const float w = (live && m_b > -INFINITY) ? expf(logit - m_b) : 0.0f;
-  ws[tid] = w;
-  red[tid] = w;
-  __syncthreads();
-  for (int h = BLOCK / 2; h > 0; h >>= 1) {
-    if (tid < h) red[tid] += red[tid + h];
-    __syncthreads();
-  }
-  float* out = partial + (size_t)blockIdx.x * (D + 2);
+  if (tid < S) ws[tid] = w;
+  const float s_b = block_reduce<false>(w, red);  // its barriers publish ws
+  float* row = partial + (size_t)blockIdx.x * PS;
   if (tid == 0) {
-    out[0] = m_b;
-    out[1] = red[0];
+    row[0] = m_b;
+    row[1] = s_b;
   }
-  const int rows = K - k0 < BLOCK ? K - k0 : BLOCK;
-  for (int d = tid; d < D; d += BLOCK) {
-    const float* col = noise + (size_t)k0 * ld + d;
-    float acc = 0.0f;
-    for (int i = 0; i < rows; ++i) acc += ws[i] * col[(size_t)i * ld];
-    out[2 + d] = acc;
+  float* acc_b = row + 4;
+  const int width = vec4 ? 4 : 1, units = (D + width - 1) / width;
+  const float* block_rows = noise + (size_t)k0 * ld;
+  if (units > BLOCK) {
+    // rows wider than the block: each thread sums whole columns
+    for (int c = tid; c < units; c += BLOCK) {
+      const float4 acc = weighted_column(block_rows + (size_t)c * width, ld, 0, rows, 1, ws, vec4);
+      float* dst = acc_b + c * width;
+      dst[0] = acc.x;
+      if (vec4) {
+        dst[1] = acc.y;
+        dst[2] = acc.z;
+        dst[3] = acc.w;
+      }
+    }
+  } else {
+    const int G = BLOCK / units, g = tid / units, c = tid - g * units;
+    float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (g < G) acc = weighted_column(block_rows + (size_t)c * width, ld, g, rows, G, ws, vec4);
+    part[tid] = acc;
+    __syncthreads();
+    const float* pf = reinterpret_cast<const float*>(part);
+    for (int d = tid; d < D; d += BLOCK) {
+      const int cu = d / width, j = d - cu * width;
+      float sum = pf[4 * cu + j];
+      for (int h = 1; h < G; ++h) sum += pf[4 * (h * units + cu) + j];
+      acc_b[d] = sum;
+    }
   }
+
+  // level 1: the last block of the group merges the group's partials
+  const int grp = blockIdx.x / group, first = grp * group;
+  const int size = nblocks - first < group ? nblocks - first : group;
+  const int groups = (nblocks + group - 1) / group;
+  __threadfence();  // this block's partial is visible before its ticket
+  __syncthreads();
+  if (tid == 0) ticket = atomicAdd(counter + 1 + grp, 1);
+  __syncthreads();
+  if (ticket != size - 1) return;
+  __threadfence();
+  float* grow = groups == 1 ? nullptr : gpart + (size_t)grp * PS;
+  weighted_merge(partial + (size_t)first * PS, size, D, grow ? grow + 4 : out,
+                 grow ? grow : out + D, grow ? grow + 1 : out + D + 1, part, gm, gs);
+  if (tid == 0) counter[1 + grp] = 0;  // ready for the next launch
+  if (groups == 1) return;
+  // level 2: the last group to be merged merges the groups
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) ticket = atomicAdd(counter, 1);
+  __syncthreads();
+  if (ticket != groups - 1) return;
+  __threadfence();
+  weighted_merge(gpart, groups, D, out, out + D, out + D + 1, part, gm, gs);
+  if (tid == 0) *counter = 0;
 }
 
 // --- the sampling front-end ------------------------------------------------------
 
-constexpr int SAMPLER_WARPS = 8;  // sample rows per block of fused_sampler
+constexpr int SAMPLER_THREADS = 256;  // threads of a block of the sampler's kernels
 
 struct SamplerParams {
-  int K, D;
+  int K, D, nsrc;  // nsrc: the source rows drawn
   const int* bits;  // (rows, D) int32, or null in seed mode
   unsigned key0, key1;
-  int block_k, antithetic, null_action, abs_cost, full_op;
+  int block_k, antithetic, null_action, abs_cost;
+  int rows;  // source rows of a block
+  int lanes;  // fused_sampler: threads of a row (its groups of four, padded)
+  int panel;  // fused_sampler_op: op rows of a panel
+  int vec4;  // D % 4 == 0 and every pointer 16-byte aligned: 16-byte loads and stores
   const float* U;  // (D,) the nominal sequence
   const float* op;  // (D,) diagonal scale, or (D, D) row-major applied as z @ op
   const float* mu;  // (D,)
@@ -1233,64 +1427,281 @@ struct SamplerParams {
   float* cost;  // (K,)
 };
 
-// make_fused_sampler's kernel: warp w of block b takes sample row
-// k = b * warps + w.  Its source row and sign are the JAX kernel's pairing
-// (rows j and j + block_k/2 of each K block mirror one draw); element d of
-// source row r is the bits' (r, d), or word d % 4 of Philox counter
-// (r, d / 4, 0, 0).  The warp stages the row's normals in shared memory, then
-// lane d writes perturbed[k, d] = clip(U_d + n_d, lo_d, hi_d) (0 before the
-// clamp on the null row k = 0) and the lanes sum the action cost of the
-// rectified noise.
-__global__ void fused_sampler(SamplerParams p) {
-  extern __shared__ float zsh[];  // (warps, D) normals
-  const int warps = blockDim.x / 32, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int k = blockIdx.x * warps + warp;
-  if (k >= p.K) return;  // the whole warp leaves: no block barrier follows
-  const int D = p.D;
-  float* z = zsh + (size_t)warp * D;
-  int src = k;
-  float sgn = 1.0f;
+// The output rows of source row src: k1 and, under antithetic sampling, its
+// mirror k2 (else K).  Row j of K block b draws source row b*bh + j for
+// j < bh = block_k / 2, and row j + bh the negated draw (the JAX kernel's
+// pairing).
+__device__ __forceinline__ void sampler_rows(const SamplerParams& p, int src, int& k1, int& k2) {
   if (p.antithetic) {
-    const int b = k / p.block_k, j = k % p.block_k, bh = p.block_k / 2;
-    src = b * bh + (j < bh ? j : j - bh);
-    if (j >= bh) sgn = -1.0f;
-  }
-  if (p.bits) {
-    const int* row = p.bits + (size_t)src * D;
-    for (int d = lane; d < D; d += 32) z[d] = sgn * bits_to_normal((unsigned)row[d]);
+    const int bh = p.block_k / 2, b = src / bh;
+    k1 = b * p.block_k + (src - b * bh);
+    k2 = k1 + bh;
   } else {
-    for (int g = lane; 4 * g < D; g += 32) {
-      const uint4 r = philox4x32_10(make_uint4((unsigned)src, (unsigned)g, 0u, 0u), p.key0, p.key1);
-      const unsigned words[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-      for (int w = 0; w < 4; ++w)
-        if (4 * g + w < D) z[4 * g + w] = sgn * bits_to_normal(words[w]);
-    }
+    k1 = src;
+    k2 = p.K;
   }
-  __syncwarp();
-  float pc = 0.0f;
-  float* out = p.pert + (size_t)k * D;
-  for (int d = lane; d < D; d += 32) {
-    float n;
-    if (p.full_op) {
-      // z @ op in fp32 FMAs (the JAX dot's Precision.HIGHEST, no TF32)
-      float acc = 0.0f;
-      for (int j = 0; j < D; ++j) acc += z[j] * p.op[(size_t)j * D + d];
-      n = acc + p.mu[d];
+}
+
+// Elements d0 .. d0 + 3 of v (zeros past D): one 16-byte load where vec4.
+__device__ __forceinline__ void load4(const float* v, int d0, int D, int vec4, float (&out)[4]) {
+  if (vec4) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(v + d0));
+    out[0] = q.x;
+    out[1] = q.y;
+    out[2] = q.z;
+    out[3] = q.w;
+  } else {
+#pragma unroll
+    for (int w = 0; w < 4; ++w) out[w] = d0 + w < D ? __ldg(v + d0 + w) : 0.0f;
+  }
+}
+
+// The normals of elements 4g .. 4g + 3 of source row src: element d is the
+// bits' (src, d) (one 16-byte load where vec4), or word d % 4 of Philox
+// counter (src, d / 4, 0, 0) (one call).
+__device__ __forceinline__ void draw4(const SamplerParams& p, int src, int g, float (&z)[4]) {
+  const int d0 = 4 * g;
+  unsigned w[4];
+  if (p.bits) {
+    const int* row = p.bits + (size_t)src * p.D + d0;
+    if (p.vec4) {
+      const int4 q = __ldg(reinterpret_cast<const int4*>(row));
+      w[0] = q.x;
+      w[1] = q.y;
+      w[2] = q.z;
+      w[3] = q.w;
     } else {
-      n = z[d] * p.op[d] + p.mu[d];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) w[j] = d0 + j < p.D ? (unsigned)__ldg(row + j) : 0u;
     }
-    const float u0 = p.U[d];
-    float v = u0 + n;
-    if (p.null_action && k == 0) v = 0.0f;
-    v = fminf(fmaxf(v, p.lo[d]), p.hi[d]);
-    out[d] = v;
-    const float r = v - u0;  // rectified noise (mppi.py:383-385)
-    pc += (p.abs_cost ? fabsf(r) : r) * p.a[d];
+  } else {
+    const uint4 r = philox4x32_10(make_uint4((unsigned)src, (unsigned)g, 0u, 0u), p.key0, p.key1);
+    w[0] = r.x;
+    w[1] = r.y;
+    w[2] = r.z;
+    w[3] = r.w;
   }
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) pc += __shfl_down_sync(0xffffffffu, pc, off);
-  if (lane == 0) p.cost[k] = pc;
+  for (int j = 0; j < 4; ++j) z[j] = bits_to_normal(w[j]);
+}
+
+// Row k's elements d0 .. d0 + 3 from their noise n: U + n (0 on the null row
+// k = 0), the clamp, the store (one 16-byte store where vec4); returns their
+// share of the action cost of the rectified noise.
+__device__ __forceinline__ float sampler_store(const SamplerParams& p, int k, int d0,
+                                               const float (&n)[4], const float (&u)[4],
+                                               const float (&lo)[4], const float (&hi)[4],
+                                               const float (&a)[4]) {
+  float v[4], pc = 0.0f;
+#pragma unroll
+  for (int w = 0; w < 4; ++w) {
+    v[w] = u[w] + n[w];
+    if (p.null_action && k == 0) v[w] = 0.0f;
+    v[w] = fminf(fmaxf(v[w], lo[w]), hi[w]);
+    if (d0 + w < p.D) {
+      const float r = v[w] - u[w];  // rectified noise (mppi.py:383-385)
+      pc += (p.abs_cost ? fabsf(r) : r) * a[w];
+    }
+  }
+  float* out = p.pert + (size_t)k * p.D + d0;
+  if (p.vec4) {
+    *reinterpret_cast<float4*>(out) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int w = 0; w < 4; ++w)
+      if (d0 + w < p.D) out[w] = v[w];
+  }
+  return pc;
+}
+
+// The action cost of each of the block's rows from its shares in
+// csum[(o * rows + r) * n + i] (o = 0 for k1, 1 for the mirror k2), added in
+// the order of i.
+__device__ __forceinline__ void sampler_costs(const SamplerParams& p, const float* csum, int n) {
+  for (int r = threadIdx.x; r < p.rows; r += blockDim.x) {
+    const int src = blockIdx.x * p.rows + r;
+    int k1, k2;
+    sampler_rows(p, src, k1, k2);
+    if (src >= p.nsrc || k1 >= p.K) continue;
+    float c1 = 0.0f, c2 = 0.0f;
+    for (int i = 0; i < n; ++i) {
+      c1 += csum[r * n + i];
+      c2 += csum[(p.rows + r) * n + i];
+    }
+    p.cost[k1] = c1;
+    if (k2 < p.K) p.cost[k2] = c2;
+  }
+}
+
+// make_fused_sampler's kernel with a diagonal op.  Thread (r, g) of a block
+// takes source row src = blockIdx.x * rows + r and its elements 4g .. 4g + 3
+// (a row's groups on consecutive lanes, padded to a power of two up to 32,
+// else to a multiple of 32): it draws the four normals once, computes
+// n = z op + mu, U + n, the null row and the clamp, stores the four outputs
+// and keeps their share of the action cost; under antithetic sampling it
+// writes the mirror row from -z too.  A row's cost is a shuffle sum over its
+// lanes; where a row spans warps, the warps' sums meet in shared memory and
+// are added in a fixed order.
+__global__ void __launch_bounds__(SAMPLER_THREADS, 5) fused_sampler(SamplerParams p) {
+  extern __shared__ float smem[];  // (2, rows, lanes / 32) where lanes > 32
+  const int L = p.lanes, G4 = (p.D + 3) / 4, wpr = (L + 31) / 32, seg = L < 32 ? L : 32;
+  for (int i = threadIdx.x; i < p.rows * L; i += blockDim.x) {
+    const int r = i / L, g = i - r * L, src = blockIdx.x * p.rows + r;
+    int k1, k2;
+    sampler_rows(p, src, k1, k2);
+    const bool row_live = src < p.nsrc && k1 < p.K;
+    float pc1 = 0.0f, pc2 = 0.0f;
+    if (row_live && g < G4) {
+      const int d0 = 4 * g;
+      float z[4], op[4], mu[4], u[4], lo[4], hi[4], a[4], n[4];
+      draw4(p, src, g, z);
+      load4(p.op, d0, p.D, p.vec4, op);
+      load4(p.mu, d0, p.D, p.vec4, mu);
+      load4(p.U, d0, p.D, p.vec4, u);
+      load4(p.lo, d0, p.D, p.vec4, lo);
+      load4(p.hi, d0, p.D, p.vec4, hi);
+      load4(p.a, d0, p.D, p.vec4, a);
+#pragma unroll
+      for (int w = 0; w < 4; ++w) n[w] = z[w] * op[w] + mu[w];
+      pc1 = sampler_store(p, k1, d0, n, u, lo, hi, a);
+      if (k2 < p.K) {
+#pragma unroll
+        for (int w = 0; w < 4; ++w) n[w] = -z[w] * op[w] + mu[w];
+        pc2 = sampler_store(p, k2, d0, n, u, lo, hi, a);
+      }
+    }
+    for (int off = seg / 2; off > 0; off >>= 1) {
+      pc1 += __shfl_xor_sync(0xffffffffu, pc1, off);
+      pc2 += __shfl_xor_sync(0xffffffffu, pc2, off);
+    }
+    if (L <= 32) {
+      if (g == 0 && row_live) {
+        p.cost[k1] = pc1;
+        if (k2 < p.K) p.cost[k2] = pc2;
+      }
+    } else if (g % 32 == 0) {
+      smem[r * wpr + g / 32] = pc1;
+      smem[(p.rows + r) * wpr + g / 32] = pc2;
+    }
+  }
+  if (L > 32) {
+    __syncthreads();
+    sampler_costs(p, smem, wpr);
+  }
+}
+
+// make_fused_sampler's kernel with a full (D, D) op, applied as z @ op.
+// Block b takes source rows [b*rows, b*rows + rows), rows = Q * TR.  It draws
+// their normals into an (rows, DP) tile (DP = 4 ceil(D / 4); a thread per
+// (row, group of four)), then computes z @ op as a register-tiled product:
+// thread (q, c) takes column group c (four columns) and rows q, q + Q, ...
+// (TR of them; Q = threads / groups), reading op through shared memory in
+// panels of p.panel rows, staged by all threads with 16-byte loads; four
+// panel rows at a time, each float4 of z read from the tile feeds 16 FMAs
+// (fp32, no TF32; each sum in the order of the op's rows).  The thread then
+// finishes its rows' four elements (n = z @ op + mu, and mu - z @ op on the
+// mirror row: (-z) @ op = -(z @ op) exactly) as fused_sampler does; the
+// shares of a row's cost meet in shared memory and are added in the order
+// of c.
+template <int TR>
+__global__ void __launch_bounds__(SAMPLER_THREADS) fused_sampler_op(SamplerParams p) {
+  extern __shared__ float smem[];
+  const int D = p.D, G4 = (D + 3) / 4, DP = 4 * G4, RB = p.rows, NT = blockDim.x;
+  const int tid = threadIdx.x, src0 = blockIdx.x * RB;
+  float* zt = smem;  // (RB, DP) the normals
+  float* panel = zt + (size_t)RB * DP;  // (p.panel, DP) rows of op
+  float* csum = panel + (size_t)p.panel * DP;  // (2, RB, G4) the cost shares
+  for (int i = tid; i < RB * G4; i += NT) {
+    const int r = i / G4, g = i - r * G4, src = src0 + r;
+    int k1, k2;
+    sampler_rows(p, src, k1, k2);
+    float z[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (src < p.nsrc && k1 < p.K) draw4(p, src, g, z);
+    *reinterpret_cast<float4*>(zt + (size_t)r * DP + 4 * g) = make_float4(z[0], z[1], z[2], z[3]);
+  }
+  const int Q = G4 < NT ? NT / G4 : 1, passes = (G4 + NT - 1) / NT;
+  const int q = G4 < NT ? tid / G4 : 0;
+  for (int cp = 0; cp < passes; ++cp) {
+    const int c = G4 < NT ? tid - q * G4 : tid + cp * NT;
+    const bool active = q < Q && c < G4;
+    float acc[TR][4];
+#pragma unroll
+    for (int t = 0; t < TR; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.0f;
+    for (int j0 = 0; j0 < D; j0 += p.panel) {
+      const int pj = D - j0 < p.panel ? D - j0 : p.panel;
+      __syncthreads();  // the tile is written and the previous panel read
+      for (int e = tid; e < pj * G4; e += NT) {
+        const int jj = e / G4, cc = e - jj * G4;
+        float v[4];
+        load4(p.op + (size_t)(j0 + jj) * D, 4 * cc, D, p.vec4, v);
+        *reinterpret_cast<float4*>(panel + jj * DP + 4 * cc) = make_float4(v[0], v[1], v[2], v[3]);
+      }
+      __syncthreads();
+      if (active) {
+        const float* zq = zt + (size_t)q * DP + j0;
+        int jj = 0;
+        if (j0 % 4 == 0) {
+          // four op rows at a time: each row's four normals as one
+          // 16-byte load, so a float4 of z feeds 16 FMAs
+          for (; jj + 4 <= pj; jj += 4) {
+            float4 o[4];
+#pragma unroll
+            for (int u = 0; u < 4; ++u)
+              o[u] = *reinterpret_cast<const float4*>(panel + (jj + u) * DP + 4 * c);
+#pragma unroll
+            for (int t = 0; t < TR; ++t) {
+              const float4 z = *reinterpret_cast<const float4*>(zq + (size_t)t * Q * DP + jj);
+              const float zs[4] = {z.x, z.y, z.z, z.w};
+#pragma unroll
+              for (int u = 0; u < 4; ++u) {
+                acc[t][0] = fmaf(zs[u], o[u].x, acc[t][0]);
+                acc[t][1] = fmaf(zs[u], o[u].y, acc[t][1]);
+                acc[t][2] = fmaf(zs[u], o[u].z, acc[t][2]);
+                acc[t][3] = fmaf(zs[u], o[u].w, acc[t][3]);
+              }
+            }
+          }
+        }
+        for (; jj < pj; ++jj) {
+          const float4 o = *reinterpret_cast<const float4*>(panel + jj * DP + 4 * c);
+#pragma unroll
+          for (int t = 0; t < TR; ++t) {
+            const float zj = zq[(size_t)t * Q * DP + jj];
+            acc[t][0] = fmaf(zj, o.x, acc[t][0]);
+            acc[t][1] = fmaf(zj, o.y, acc[t][1]);
+            acc[t][2] = fmaf(zj, o.z, acc[t][2]);
+            acc[t][3] = fmaf(zj, o.w, acc[t][3]);
+          }
+        }
+      }
+    }
+    if (active) {
+      const int d0 = 4 * c;
+      float mu[4], u[4], lo[4], hi[4], a[4], n[4];
+      load4(p.mu, d0, D, p.vec4, mu);
+      load4(p.U, d0, D, p.vec4, u);
+      load4(p.lo, d0, D, p.vec4, lo);
+      load4(p.hi, d0, D, p.vec4, hi);
+      load4(p.a, d0, D, p.vec4, a);
+#pragma unroll
+      for (int t = 0; t < TR; ++t) {
+        const int r = q + t * Q, src = src0 + r;
+        int k1, k2;
+        sampler_rows(p, src, k1, k2);
+        if (src >= p.nsrc || k1 >= p.K) continue;
+#pragma unroll
+        for (int w = 0; w < 4; ++w) n[w] = acc[t][w] + mu[w];
+        csum[r * G4 + c] = sampler_store(p, k1, d0, n, u, lo, hi, a);
+        if (k2 < p.K) {
+#pragma unroll
+          for (int w = 0; w < 4; ++w) n[w] = mu[w] - acc[t][w];
+          csum[(RB + r) * G4 + c] = sampler_store(p, k2, d0, n, u, lo, hi, a);
+        }
+      }
+    }
+  }
+  __syncthreads();
+  sampler_costs(p, csum, G4);
 }
 #endif
 
@@ -1647,9 +2058,48 @@ int fused_mppi_rowmajor_solve(int device, void* stream, int model_id, const floa
   return (int)launch_solve(p, kMPPI, model_id, smem, (cudaStream_t)stream);
 }
 
+// The sampler's geometry for D and the op's kind, into geo: {rows (source
+// rows a block), lanes (fused_sampler's threads a row) or TR
+// (fused_sampler_op's register rows a thread), panel (fused_sampler_op's op
+// rows a panel), threads a block, dynamic shared bytes}.  Returns 0, or
+// cudaErrorInvalidValue when the full-op tiles do not fit in the 227 KB a
+// block may use.  ops/rowmajor.sampler_geometry computes the same.
+int fused_mppi_sampler_geometry(int D, int full_op, long long* geo) {
+  const long long max_smem = 232448, NT = SAMPLER_THREADS, G4 = (D + 3) / 4;
+  if (D < 1) return (int)cudaErrorInvalidValue;
+  if (!full_op) {
+    long long lanes = 1;
+    while (lanes < G4 && lanes < 32) lanes *= 2;
+    if (G4 > 32) lanes = (G4 + 31) / 32 * 32;
+    const long long rows = lanes <= NT ? NT / lanes : 1;
+    geo[0] = rows;
+    geo[1] = lanes;
+    geo[2] = 0;
+    geo[3] = lanes <= NT ? rows * lanes : NT;
+    geo[4] = lanes > 32 ? 2 * rows * (lanes / 32) * (long long)sizeof(float) : 0;
+    return 0;
+  }
+  const long long Q = G4 < NT ? NT / G4 : 1, TR = Q >= 32 ? 1 : Q >= 16 ? 2 : Q >= 8 ? 4 : 12;
+  const long long rows = Q * TR, DP = 4 * G4;
+  for (long long panel = 16; panel >= 1; panel /= 2) {
+    const long long smem = (rows * DP + panel * DP + 2 * rows * G4) * (long long)sizeof(float);
+    if (smem <= max_smem) {
+      geo[0] = rows;
+      geo[1] = TR;
+      geo[2] = panel;
+      geo[3] = NT;
+      geo[4] = smem;
+      return 0;
+    }
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 // make_fused_sampler's kernel on `stream`: perturbed (K, D) and cost (K,)
-// from bits (rows, D) int32 or a Philox key.  Returns cudaErrorInvalidValue
-// when one row of normals does not fit in a block's shared memory.
+// from bits (rows, D) int32 or a Philox key, with a diagonal op (D,)
+// (fused_sampler) or a full one (D, D) (fused_sampler_op).  Returns
+// cudaErrorInvalidValue for a shape that does not fit
+// (fused_mppi_sampler_geometry) or an odd pairing block.
 int fused_mppi_sampler(int device, void* stream, int K, int D, const int* bits, unsigned key0,
                        unsigned key1, int block_k, int antithetic, int null_action, int abs_cost,
                        int full_op, const float* U, const float* op, const float* mu,
@@ -1657,17 +2107,55 @@ int fused_mppi_sampler(int device, void* stream, int K, int D, const int* bits, 
                        float* cost) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  const size_t max_smem = 232448, row = (size_t)D * sizeof(float);
-  const int warps = row * SAMPLER_WARPS <= max_smem ? SAMPLER_WARPS : (int)(max_smem / row);
-  if (warps < 1 || K < 1 || (antithetic && block_k % 2)) return (int)cudaErrorInvalidValue;
-  const size_t smem = warps * row;
+  long long geo[5];
+  if (K < 1 || (antithetic && (block_k < 2 || block_k % 2)) ||
+      fused_mppi_sampler_geometry(D, full_op, geo) != 0)
+    return (int)cudaErrorInvalidValue;
+  SamplerParams p{};
+  p.K = K;
+  p.D = D;
+  p.nsrc = K;
+  if (antithetic) {  // the source rows that reach a row below K
+    const int bh = block_k / 2, full = K / block_k, rem = K - full * block_k;
+    p.nsrc = full * bh + (rem < bh ? rem : bh);
+  }
+  p.bits = bits;
+  p.key0 = key0;
+  p.key1 = key1;
+  p.block_k = block_k;
+  p.antithetic = antithetic;
+  p.null_action = null_action;
+  p.abs_cost = abs_cost;
+  p.rows = (int)geo[0];
+  p.lanes = full_op ? 0 : (int)geo[1];
+  p.panel = (int)geo[2];
+  const void* ptrs[] = {bits, U, op, mu, lo, hi, a, pert};
+  p.vec4 = D % 4 == 0;
+  for (const void* q : ptrs) p.vec4 = p.vec4 && reinterpret_cast<uintptr_t>(q) % 16 == 0;
+  p.U = U;
+  p.op = op;
+  p.mu = mu;
+  p.lo = lo;
+  p.hi = hi;
+  p.a = a;
+  p.pert = pert;
+  p.cost = cost;
+  const int blocks = (p.nsrc + p.rows - 1) / p.rows, threads = (int)geo[3];
+  const size_t smem = (size_t)geo[4];
+  cudaStream_t s = (cudaStream_t)stream;
+  if (!full_op) {
+    fused_sampler<<<blocks, threads, smem, s>>>(p);
+    return (int)cudaGetLastError();
+  }
+  void (*kernel)(SamplerParams) = geo[1] == 1   ? fused_sampler_op<1>
+                                  : geo[1] == 2 ? fused_sampler_op<2>
+                                  : geo[1] == 4 ? fused_sampler_op<4>
+                                                : fused_sampler_op<12>;
   if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(fused_sampler, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  SamplerParams p{K, D, bits, key0, key1, block_k, antithetic, null_action, abs_cost, full_op,
-                  U, op, mu, lo, hi, a, pert, cost};
-  fused_sampler<<<(K + warps - 1) / warps, warps * 32, smem, (cudaStream_t)stream>>>(p);
+  kernel<<<blocks, threads, smem, s>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -1697,22 +2185,44 @@ int fused_mppi_rollout(int device, void* stream, int model_id, const float* cons
   return (int)launch(p, kRollout, 0, (cudaStream_t)stream);
 }
 
-// fused_weighted_update on `stream`: weighted_partial over the (K, D) noise
-// (row stride ld) into partial (nblocks, D + 2), then flash_merge into
-// delta (D,) and ms (2,).
-int fused_mppi_weighted_update(int device, void* stream, int K, int D, const float* cost,
-                               const float* noise, long long ld, const float* lam,
-                               float* partial, float* delta, float* ms) {
+// The weighted update's group of blocks for its first merge level: the
+// smallest g >= 8 with g * g >= nblocks, so that both levels merge about
+// sqrt(nblocks) partials (ops/legacy.weighted_group computes the same).
+int fused_mppi_weighted_group(int nblocks) {
+  long long g = 8;
+  while (g * g < nblocks) ++g;
+  return (int)g;
+}
+
+// fused_weighted_update on `stream`: weighted_partial<tile_k> over the
+// (K, D) noise (row stride ld), its partials in partial (nblocks, stride) and
+// its groups' in gpart (groups, stride) (stride = weighted_stride(D), groups
+// of fused_mppi_weighted_group(nblocks) blocks), merged in the kernel into
+// out = (pert (D,), m, s) with the zeroed int32 `counter` of
+// WEIGHTED_COUNTERS ints (two launches with one counter must not run at
+// once).
+int fused_mppi_weighted_update(int device, void* stream, int K, int D, int tile_k,
+                               const float* cost, const float* noise, long long ld,
+                               const float* lam, float* partial, float* gpart, int* counter,
+                               float* out) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  const int nblocks = (K + BLOCK - 1) / BLOCK;
-  weighted_partial<<<nblocks, BLOCK, 0, (cudaStream_t)stream>>>(cost, noise, ld, K, D, lam,
-                                                                partial);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  flash_merge<<<1, MERGE_THREADS, 0, (cudaStream_t)stream>>>(partial, nblocks, D, delta, ms);
+  if (K < 1 || D < 1 || ld < D || !valid_tile(tile_k) || !counter)
+    return (int)cudaErrorInvalidValue;
+  const int nblocks = (K + tile_k - 1) / tile_k, group = fused_mppi_weighted_group(nblocks);
+  if (1 + (nblocks + group - 1) / group > WEIGHTED_COUNTERS) return (int)cudaErrorInvalidValue;
+  const int vec4 = D % 4 == 0 && ld % 4 == 0 && reinterpret_cast<uintptr_t>(noise) % 16 == 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  void (*kernel)(const float*, const float*, long long, int, int, int, const float*, int, float*,
+                 float*, int*, float*) = tile_k == 32   ? weighted_partial<32>
+                                         : tile_k == 64 ? weighted_partial<64>
+                                                        : weighted_partial<BLOCK>;
+  kernel<<<nblocks, BLOCK, 0, s>>>(cost, noise, ld, K, D, vec4, lam, group, partial, gpart,
+                                   counter, out);
   return (int)cudaGetLastError();
 }
+
+int fused_mppi_weighted_counters() { return WEIGHTED_COUNTERS; }
 
 }  // extern "C"
 #endif

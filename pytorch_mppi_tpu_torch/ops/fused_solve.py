@@ -463,8 +463,11 @@ def _lib():
         ]
         lib.fused_mppi_rollout.argtypes = [_I, _P, _I, _P, _I, _I, _I, _I, _P, _L, _L,
                                            _P, _P]
-        lib.fused_mppi_weighted_update.argtypes = [_I, _P, _I, _I, _P, _P, _L, _P, _P,
-                                                   _P, _P]
+        lib.fused_mppi_weighted_update.argtypes = [_I, _P, _I, _I, _I, _P, _P, _L, _P, _P,
+                                                   _P, _P, _P]
+        lib.fused_mppi_weighted_group.argtypes = [_I]
+        for fn in (lib.fused_mppi_weighted_group, lib.fused_mppi_weighted_counters):
+            fn.restype = _I
         lib.fused_mppi_rowmajor_solve.argtypes = [
             _I, _P, _I, _P, _I, _I, _I, _I, _P, ctypes.c_uint32, ctypes.c_uint32, _I,
             _I, _P, _L, _P, _P, _P, _P, _P, _P, _P, ctypes.c_float, _P, _P, _P, _P, _P,
@@ -478,6 +481,8 @@ def _lib():
                    lib.fused_mppi_weighted_update, lib.fused_mppi_rowmajor_solve,
                    lib.fused_mppi_sampler):
             fn.restype = _I
+        lib.fused_mppi_sampler_geometry.argtypes = [_I, _I, _P]
+        lib.fused_mppi_sampler_geometry.restype = _I
         lib.fused_mppi_error_string.argtypes = [_I]
         lib.fused_mppi_error_string.restype = ctypes.c_char_p
         lib.fused_mppi_block.restype = _I
@@ -551,12 +556,13 @@ def check_tile(tile_k, K: int) -> int:
     return S
 
 
-def merge_counter(counters: dict, device) -> torch.Tensor:
-    """The int32 counter of kernel A's in-kernel merge for ``device``,
-    zeroed once when first used there; the kernel sets it back to 0."""
+def merge_counter(counters: dict, device, size: int = 1) -> torch.Tensor:
+    """The int32 counter (``size`` of them) of an in-kernel merge for
+    ``device``, zeroed once when first used there; the kernel sets it back
+    to 0."""
     counter = counters.get(device)
     if counter is None:
-        counter = counters[device] = torch.zeros(1, dtype=torch.int32, device=device)
+        counter = counters[device] = torch.zeros(size, dtype=torch.int32, device=device)
     return counter
 
 

@@ -16,12 +16,18 @@ clamp and action cost when ``use_pallas="rollout"`` (``solve.py:1133-1157,
   of the weights, so that the update is ``pert / s``.
 
 On CUDA tensors each launches its kernel in ``csrc/fused_mppi.cu``
-(``fused_rollout``; ``weighted_partial`` then ``flash_merge``) and raises if
-the launch fails; on CPU tensors it runs its plain version
-(:func:`fused_rollout_plain`, :func:`weighted_update_plain`).  Float32 only;
-the update's sums are fp32 FMAs, as the JAX dot's ``Precision.HIGHEST``.
+(``fused_rollout``; ``weighted_partial``, which merges its per-block
+softmax partials itself in two levels of tickets: one launch a call) and
+raises if the launch fails; on CPU tensors it runs its plain version
+(:func:`fused_rollout_plain`, :func:`weighted_update_plain`).  Float32
+only; the update's sums are fp32 FMAs, as the JAX dot's
+``Precision.HIGHEST``.  The update's merge counts the finished blocks in
+one int32 counter buffer per device (:func:`weighted_update_counter`): two
+calls must not run at once on two streams of one device.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -77,29 +83,95 @@ def weighted_update_plain(cost, noise, lambda_):
     return FS._softmax_update(cost, lambda_, noise.T)
 
 
-def _weighted_update_kernel(cost, noise, lambda_):
+_counters = {}  # the weighted update's merge counters of each device
+WEIGHTED_COUNTERS = 8193  # one ticket for the groups, one for each of up to 8,192 groups
+
+
+def weighted_update_counter(device) -> torch.Tensor:
+    """The int32 tickets of the weighted update's in-kernel merge on
+    ``device`` (``WEIGHTED_COUNTERS`` of them), the same tensor for every
+    call there."""
+    return FS.merge_counter(_counters, device, WEIGHTED_COUNTERS)
+
+
+def weighted_stride(D: int) -> int:
+    """Floats of one block's partial: m_b, s_b, two unused, then the D sums
+    padded to four, so that every row starts on 16 bytes."""
+    return 4 + -(-D // 4) * 4
+
+
+def weighted_group(nblocks: int) -> int:
+    """The blocks whose partials the first merge level takes together: the
+    smallest g ≥ 8 with g² ≥ nblocks, so that both levels merge about
+    √nblocks partials (``fused_mppi_weighted_group``)."""
+    return max(8, math.isqrt(nblocks - 1) + 1)
+
+
+def weighted_update_buffers(K: int, D: int, S: int, device):
+    """One float32 allocation a call: the partials of the kernel's
+    ceil(K / S) blocks of S samples and those of their groups (rows of
+    :func:`weighted_stride` floats), then the (D + 2,) result (pert, m, s)
+    that the wrapper returns as views."""
+    nblocks = -(-K // S)
+    groups = -(-nblocks // weighted_group(nblocks))
+    PS = weighted_stride(D)
+    buf = torch.empty((nblocks + groups) * PS + D + 2, dtype=torch.float32, device=device)
+    partial = buf[:nblocks * PS].view(nblocks, PS)
+    gpart = buf[nblocks * PS:(nblocks + groups) * PS].view(groups, PS)
+    return partial, gpart, buf[(nblocks + groups) * PS:]
+
+
+def _weighted_lib():
+    """The library, its merge groups and counter count checked once against
+    :func:`weighted_group` and ``WEIGHTED_COUNTERS``."""
+    lib = FS._lib()
+    if not getattr(lib, "_weighted_checked", False):
+        if lib.fused_mppi_weighted_counters() != WEIGHTED_COUNTERS or any(
+                lib.fused_mppi_weighted_group(n) != weighted_group(n)
+                for n in (1, 63, 64, 65, 313, 516, 10_000, 1 << 20)):
+            raise RuntimeError("fused_mppi.cu's weighted-update merge groups differ from "
+                               "ops/legacy.py's")
+        lib._weighted_checked = True
+    return lib
+
+
+def _weighted_update_kernel(cost, noise, lambda_, tile_k=None):
     device = cost.device
     K, D = noise.shape
     FS._check("cost", cost, device, shape=(K,))
     FS._check("noise", noise, device, contiguous=False)
     if noise.stride(1) != 1:
         raise ValueError(f"noise must have unit column stride, got strides {noise.stride()}")
-    lam = FS._check("lambda_", torch.as_tensor(lambda_, dtype=torch.float32, device=device)
-                    .reshape(1), device, shape=(1,))
-    f32 = dict(dtype=torch.float32, device=device)
-    partial = torch.empty((-(-K // FS._BLOCK), D + 2), **f32)
-    pert = torch.empty(D, **f32)
-    ms = torch.empty(2, **f32)
-    lib = FS._lib()
+    S = FS.check_tile(tile_k, K)
+    lam = lambda_
+    if not (isinstance(lam, torch.Tensor) and lam.dtype == torch.float32
+            and lam.device == device and lam.numel() == 1):
+        lam = FS._check("lambda_", torch.as_tensor(lambda_, dtype=torch.float32, device=device)
+                        .reshape(1), device, shape=(1,))
+    partial, gpart, out = weighted_update_buffers(K, D, S, device)
+    lib = _weighted_lib()
     rc = lib.fused_mppi_weighted_update(
-        FS.device_index(device), FS.stream_of(device), K, D, cost.data_ptr(),
+        FS.device_index(device), FS.stream_of(device), K, D, S, cost.data_ptr(),
         noise.data_ptr(), noise.stride(0), lam.data_ptr(), partial.data_ptr(),
-        pert.data_ptr(), ms.data_ptr())
+        gpart.data_ptr(), weighted_update_counter(device).data_ptr(), out.data_ptr())
     FS.raise_on_error(lib, rc, "weighted_update")
-    FS.launches["weighted_update"] += 2
-    return pert, ms[0], ms[1]
+    FS.launches["weighted_update"] += 1
+    return out[:D], out[D], out[D + 1]
+
+
+def make_weighted_update(tile_k: int = None):
+    """:func:`fused_weighted_update` with the kernel's samples a block forced
+    to ``tile_k`` (32, 64 or 128; ``.tile_k`` holds it); None takes
+    :func:`~.fused_solve.tile_samples` of K and the card's SM count at each
+    call."""
+    if tile_k is not None and tile_k not in FS.TILES:
+        raise ValueError(f"tile_k must be one of {FS.TILES}, got {tile_k}")
+
+    def update(cost, noise, lambda_):
+        return _weighted_update_kernel(cost, noise, lambda_, tile_k)
+
+    return FS.finish(update, weighted_update_plain, {}, dict(tile_k=tile_k), device_arg=0)
 
 
 # the JAX function's signature: (cost_total, noise_flat, lambda_) -> (pert, m, s)
-fused_weighted_update = FS.finish(_weighted_update_kernel, weighted_update_plain, {}, {},
-                                  device_arg=0)
+fused_weighted_update = make_weighted_update()

@@ -36,14 +36,18 @@ D).T``.  So for one key the sampler draws the transpose of
 without antithetic sampling.
 
 On CUDA tensors each factory's function launches its kernel in
-``csrc/fused_mppi.cu`` (``fused_sampler``; kernel A's row-major round-1
-path, which merges its own partials) and raises if the launch fails; on CPU tensors it runs
+``csrc/fused_mppi.cu`` (``fused_sampler`` for a diagonal op,
+``fused_sampler_op`` for a full one, in the blocks of
+:func:`sampler_geometry`; kernel A's row-major round-1 path, which merges
+its own partials) and raises if the launch fails; on CPU tensors it runs
 its plain version (:func:`fused_sampler_plain`,
 :func:`rowmajor_solve_plain`).  ``.plain`` is that version with the
 factory's flags bound, on any device.  Float32 only; the products are fp32
 FMAs, as the JAX dots' ``Precision.HIGHEST``.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -118,6 +122,77 @@ def _sampler_op(op, D: int, diag_fast: bool, device) -> torch.Tensor:
 
 
 _SAMPLER_VECTORS = ("U2", "mu_t", "lo_t", "hi_t", "a_flat")
+SAMPLER_THREADS = 256  # threads of a block of the sampler's kernels (SAMPLER_THREADS)
+_SAMPLER_PANEL = 16  # op rows of a panel of the full-op kernel, at most
+
+
+def sampler_geometry(D: int, full_op: bool) -> dict:
+    """The blocks of the sampler's kernels (``fused_mppi_sampler_geometry``
+    computes the same).  With g = ceil(D / 4) groups of four elements a row:
+
+    * a diagonal op (``fused_sampler``): a thread per (source row, group);
+      ``lanes``, the threads of a row, are g padded to a power of two up to
+      32 (16 at D = 60: two rows a warp), else to a multiple of 32; a block
+      takes ``rows`` = 256 / lanes rows (1 where a row is wider), so
+      ``threads`` = rows · lanes; ``smem`` holds the warps' cost sums where
+      a row spans warps;
+    * a full op (``fused_sampler_op``): Q = 256 // g threads share a column
+      group, each with ``tile`` register rows (1, 2, 4 or 12: the fewest
+      that give Q · tile ≥ 32), so a block takes ``rows`` = Q · tile source
+      rows; ``smem`` holds their normals, a ``panel`` of op rows (16, or
+      fewer where that does not fit) and the rows' cost shares.
+
+    Raises :class:`~.fused_solve.FusedSolveUnavailable` when the full op's
+    tiles do not fit in the shared memory a block may use."""
+    nt, groups = SAMPLER_THREADS, -(-D // 4)
+    if not full_op:
+        lanes = 1 << (groups - 1).bit_length() if groups <= 32 else -(-groups // 32) * 32
+        rows = nt // lanes if lanes <= nt else 1
+        return dict(rows=rows, lanes=lanes, tile=0, panel=0,
+                    threads=rows * lanes if lanes <= nt else nt,
+                    smem=2 * rows * (lanes // 32) * 4 if lanes > 32 else 0)
+    q = nt // groups if groups < nt else 1
+    tile = 1 if q >= 32 else 2 if q >= 16 else 4 if q >= 8 else 12
+    rows, dp = q * tile, 4 * groups
+    for panel in (16, 8, 4, 2, 1):
+        smem = (rows * dp + panel * dp + 2 * rows * groups) * 4
+        if smem <= FS.MAX_SMEM_BYTES:
+            return dict(rows=rows, lanes=0, tile=tile, panel=panel, threads=nt, smem=smem)
+    raise FS.FusedSolveUnavailable(
+        f"D={D}: a full-op sampler block's tiles ({rows} rows of normals and one op row) "
+        f"exceed the {FS.MAX_SMEM_BYTES} bytes of shared memory a block may use")
+
+
+def sampler_source_rows(K: int, block_k: int, antithetic: bool) -> int:
+    """The source rows the sampler draws: K, or under antithetic sampling
+    those whose first row lies below K (block_k / 2 in each full K block)."""
+    if not antithetic:
+        return K
+    full, rem = divmod(K, block_k)
+    return full * (block_k // 2) + min(rem, block_k // 2)
+
+
+def _sampler_lib():
+    """The library, its sampler geometry checked once against
+    :func:`sampler_geometry`."""
+    lib = FS._lib()
+    if not getattr(lib, "_sampler_geometry_checked", False):
+        geo = (ctypes.c_longlong * 5)()
+        for D in (1, 4, 15, 60, 130, 300, 1100, 3000):
+            for full in (False, True):
+                try:
+                    mine = sampler_geometry(D, full)
+                except FS.FusedSolveUnavailable:
+                    mine = None
+                rc = lib.fused_mppi_sampler_geometry(D, int(full), geo)
+                theirs = None if rc else dict(rows=geo[0], lanes=0 if full else geo[1],
+                                              tile=geo[1] if full else 0, panel=geo[2],
+                                              threads=geo[3], smem=geo[4])
+                if mine != theirs:
+                    raise RuntimeError(f"fused_mppi_sampler_geometry(D={D}, full_op={full}) "
+                                       f"gives {theirs}, sampler_geometry {mine}")
+        lib._sampler_geometry_checked = True
+    return lib
 
 
 def fused_sampler_plain(seed_or_bits, U2, op, mu_t, lo_t, hi_t, a_flat, *, K: int, D: int,
@@ -149,8 +224,9 @@ def make_fused_sampler(config: MPPIConfig, block_k: int = None):
     K up to it).  Raises ValueError for a non-float32 config, an odd
     ``block_k`` with antithetic sampling, or an ``op`` whose shape disagrees
     with the config's mode, and
-    :class:`~.fused_solve.FusedSolveUnavailable` when one row of normals
-    does not fit in a block's shared memory."""
+    :class:`~.fused_solve.FusedSolveUnavailable` when a full op's tiles do
+    not fit in a block's shared memory (:func:`sampler_geometry`).  The
+    function's ``.geometry`` and ``.blocks`` are its kernel's launch."""
     K, D = config.K, config.T * config.nu
     if config.dtype != torch.float32:
         raise ValueError("the fused sampler requires float32")
@@ -159,13 +235,10 @@ def make_fused_sampler(config: MPPIConfig, block_k: int = None):
     antithetic = bool(config.antithetic)
     if antithetic and block_k % 2:
         raise ValueError(f"antithetic sampling needs an even K block, got {block_k}")
-    if 4 * D > FS.MAX_SMEM_BYTES:
-        raise FS.FusedSolveUnavailable(
-            f"D={D}: one row of normals exceeds the {FS.MAX_SMEM_BYTES} bytes of shared "
-            f"memory a block may use")
+    diag_fast = config.diag_sigma and not config.noise_rho
+    geometry = sampler_geometry(D, not diag_fast)
     K_pad = -(-K // block_k) * block_k
     rows = K_pad // 2 if antithetic else K_pad
-    diag_fast = config.diag_sigma and not config.noise_rho
     flags = dict(K=K, D=D, block_k=block_k, antithetic=antithetic, diag_fast=diag_fast,
                  null_action=config.sample_null_action, abs_cost=config.noise_abs_cost)
 
@@ -178,7 +251,7 @@ def make_fused_sampler(config: MPPIConfig, block_k: int = None):
         f32 = dict(dtype=torch.float32, device=device)
         perturbed = torch.empty((K, D), **f32)
         cost = torch.empty(K, **f32)
-        lib = FS._lib()
+        lib = _sampler_lib()
         rc = lib.fused_mppi_sampler(
             FS.device_index(device), FS.stream_of(device), K, D, FS._ptr(bits), key[0],
             key[1], block_k, int(antithetic), int(config.sample_null_action),
@@ -189,8 +262,10 @@ def make_fused_sampler(config: MPPIConfig, block_k: int = None):
         FS.launches["sampler"] += 1
         return perturbed, cost
 
+    blocks = -(-sampler_source_rows(K, block_k, antithetic) // geometry["rows"])
     return FS.finish(sample, fused_sampler_plain, flags,
-                     dict(K_pad=K_pad, block_k=block_k, bits_rows=rows))
+                     dict(K_pad=K_pad, block_k=block_k, bits_rows=rows, geometry=geometry,
+                          blocks=blocks))
 
 
 def rowmajor_solve_plain(seed_or_bits, x0, U, chol, mu, lo, hi, a_flat, lambda_, *,

@@ -12,23 +12,28 @@ T = 30 problem:
 
 * ``issue_us``: the host time of one wrapper call
   (``make_transposed_batched_solve``, operand and seed mode; the
-  single-plant MPPI wrapper at K = 10,000, T = 30 as a control), from loops
-  of ``--calls`` calls that issue work without waiting for the card, the
+  single-plant MPPI wrapper at K = 10,000, T = 30 as a control; the legacy
+  route's weighted update and the sampler at that flagship), from loops of
+  ``--calls`` calls that issue work without waiting for the card, the
   median over ``--repeats`` loops;
-* ``ctypes_us``: the part of it spent in the library's entry point
-  (``fused_mppi_launch`` through ctypes: argument conversion, the two kernel
-  launches and the error checks), timed around that call alone; the rest of
-  ``issue_us`` is the wrapper's Python (checks and allocations);
+* ``ctypes_us``: for the first three, the part of it spent in the library's
+  entry point (``fused_mppi_launch`` through ctypes: argument conversion,
+  the kernel launches and the error checks), timed around that call alone;
+  the rest of ``issue_us`` is the wrapper's Python (checks and allocations);
 * ``null_ctypes_us``: a ctypes call that does nothing (``fused_mppi_block``);
 * ``profile``: the wrapper's most expensive functions under ``cProfile``
   (its overhead inflates them alike in both checkouts);
 * ``command_us``: the median host time of ``MPPI_Batched.command`` followed
   by a synchronise (what a control loop waits for), operand and seed mode,
-  and of the fused ``MPPI``, ``SMPPI`` and ``KMPPI`` commands at
-  ``bench.py``'s flagship (K = 10,000, T = 30; ``chip_smoke.py``'s main
-  paths, from [-3, -2] towards the goal [2, 2]);
-* ``graph_us``: the device time of one single-plant solve (the flagship,
-  seed mode) replayed from a CUDA graph of 20 calls, for each variant.
+  and of the fused ``MPPI``, ``SMPPI`` and ``KMPPI`` commands, the legacy
+  route's command (``MPPI(use_pallas="rollout")``) and the sampler loop
+  (the sampler, the legacy rollout and the weighted update written out, as
+  ``chip_smoke.py``'s ``FrontEndLoop``) at ``bench.py``'s flagship
+  (K = 10,000, T = 30; from [-3, -2] towards the goal [2, 2]);
+* ``graph_us``: the device time of one call replayed from a CUDA graph of
+  20 calls: each single-plant solve (the flagship, seed mode), the weighted
+  update, the sampler in seed and bits mode at the flagship, and the
+  sampler with a full operator at D = 300 (T = 100, nu = 3).
 
 The processes run A, B, B, A, A, B, ... (``--pairs`` pairs); the summary
 gives each metric's median per checkout, B / A, and in how many pairs B
@@ -96,6 +101,8 @@ def child(root, device, calls, repeats, commands):
     from pytorch_mppi_tpu_torch import KMPPI, MPPI, SMPPI, MPPI_Batched, RBFKernel, linear_quadratic
     from pytorch_mppi_tpu_torch.config import MPPIConfig
     from pytorch_mppi_tpu_torch.ops import fused_solve as FS
+    from pytorch_mppi_tpu_torch.ops import legacy as LG
+    from pytorch_mppi_tpu_torch.ops import rowmajor as RM
 
     if not Path(port.__file__).resolve().is_relative_to(Path(root).resolve()):
         raise SystemExit(f"imported {port.__file__}, not the package under {root}")
@@ -122,11 +129,19 @@ def child(root, device, calls, repeats, commands):
     x0 = torch.tensor([-3.0, -2.0], device=dev)[:, None].expand(2, FLAG_K)
     mppi_args = ((5, 6), x0, torch.zeros(D, device=dev), vec(1.0), vec(0.0),
                  vec(-1e9), vec(1e9), vec(0.0), lam)
+    # the legacy route's weighted update and the sampler at the flagship
+    wu_cost = torch.rand(FLAG_K, generator=gen, device=dev) * 2 + 1
+    wu_noise = torch.randn(FLAG_K, D, generator=gen, device=dev)
+    sample = RM.make_fused_sampler(flag)
+    s_args = (torch.zeros(D, device=dev), vec(1.0), vec(0.0), vec(-1e9), vec(1e9), vec(0.0))
     wrappers = {
         "batched_operand": lambda: op_solve(noise, *rest),
         "batched_seed": lambda: seed_solve((5, 6), *rest),
         "mppi_control": lambda: mppi_solve(*mppi_args),
+        "weighted_update": lambda: LG.fused_weighted_update(wu_cost, wu_noise, lam),
+        "sampler": lambda: sample((5, 6), *s_args),
     }
+    through_launch = ("batched_operand", "batched_seed", "mppi_control")
     out = {"root": root, "package": port.__file__,
            "plant_group": getattr(op_solve, "plant_group", None)}
     for name, fn in wrappers.items():
@@ -147,7 +162,8 @@ def child(root, device, calls, repeats, commands):
 
         lib.fused_mppi_launch = timed
         try:
-            for name, fn in wrappers.items():
+            for name in through_launch:
+                fn = wrappers[name]
                 inner.clear()
                 _loop_us(fn, calls, repeats, sync)
                 out[f"{name}.ctypes_us"] = statistics.median(inner) * 1e6
@@ -215,6 +231,45 @@ def child(root, device, calls, repeats, commands):
         if not bool(torch.linalg.norm(x - goal) < 10.0):
             raise SystemExit(f"{variant} flagship loop diverged: {x.tolist()}")
         out[f"command_{variant}.command_us"] = statistics.median(lat)
+
+    # the legacy route's command and the sampler loop at the flagship
+    def run_loop(command, name):
+        x = torch.tensor([-3.0, -2.0], device=dev)
+        for _ in range(10):
+            x = lq.dynamics(x[None], command(x)[None])[0]
+        sync()
+        lat = []
+        for _ in range(commands):
+            t0 = time.perf_counter()
+            action = command(x)
+            sync()
+            lat.append((time.perf_counter() - t0) * 1e6)
+            x = lq.dynamics(x[None], action[None])[0]
+        if not bool(torch.linalg.norm(x - goal) < 10.0):
+            raise SystemExit(f"{name} flagship loop diverged: {x.tolist()}")
+        out[f"command_{name}.command_us"] = statistics.median(lat)
+
+    legacy = MPPI(lq.dynamics, lq.running_cost, nx=2, noise_sigma=torch.eye(NU, device=dev),
+                  num_samples=FLAG_K, horizon=T, lambda_=1.0, seed=42, use_pallas="rollout",
+                  device=dev)
+    run_loop(legacy.command, "legacy")
+    rollout = LG.make_fused_rollout(flag, lq)
+    loop = {"U": torch.zeros(T, NU, device=dev), "count": 0}
+    unbounded = (torch.full((D,), -float("inf"), device=dev),
+                 torch.full((D,), float("inf"), device=dev))
+
+    def sampler_command(x):
+        U2 = loop["U"].reshape(-1)
+        key = FS.key_to_seed((7 << 32) | loop["count"])
+        loop["count"] += 1
+        pert, pc = sample(key, U2, vec(1.0), vec(0.0), *unbounded, lam * U2)
+        cost = rollout(x[None].expand(FLAG_K, 2), pert.reshape(FLAG_K, T, NU)) + pc
+        upd, _, s = LG.fused_weighted_update(cost, pert - U2, lam)
+        U = loop["U"] + (upd / s).reshape(T, NU)
+        loop["U"] = torch.cat([U[1:], torch.zeros(1, NU, device=dev)])
+        return U[0]
+
+    run_loop(sampler_command, "sampler_loop")
     if cuda:
         D, R = T * NU, NSP * NU
         x0T = torch.tensor([-3.0, -2.0], device=dev)[:, None].expand(2, FLAG_K)
@@ -237,6 +292,19 @@ def child(root, device, calls, repeats, commands):
         }
         for variant, (solve, args) in solves.items():
             out[f"solve_{variant}.graph_us"] = _graph_us(lambda s=solve, a=args: s((1, 2), *a))
+        bits = torch.randint(-2**31, 2**31 - 1, (sample.bits_rows, D), dtype=torch.int32,
+                             generator=gen, device=dev)
+        out["weighted_update.graph_us"] = _graph_us(wrappers["weighted_update"])
+        out["sampler.graph_us"] = _graph_us(wrappers["sampler"])
+        out["sampler_bits.graph_us"] = _graph_us(lambda: sample(bits, *s_args))
+        wide = MPPIConfig(nx=2, nu=3, K=FLAG_K, T=100, noise_rho=0.5)
+        D3 = wide.T * wide.nu
+        op3 = torch.eye(D3, device=dev) + 0.1 * torch.rand(D3, D3, generator=gen, device=dev)
+        sample3 = RM.make_fused_sampler(wide)
+        args3 = (torch.zeros(D3, device=dev), op3, torch.zeros(D3, device=dev),
+                 torch.full((D3,), -1e9, device=dev), torch.full((D3,), 1e9, device=dev),
+                 torch.zeros(D3, device=dev))
+        out["sampler_D300_full_op.graph_us"] = _graph_us(lambda: sample3((5, 6), *args3))
     print(json.dumps(out))
     return 0
 

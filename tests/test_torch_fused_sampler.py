@@ -55,6 +55,10 @@ CASES = [
     ("full_op_rho", 256, 6, 2, {"noise_rho": 0.5}, None, True),
     ("null_abs", 256, 6, 2, {"sample_null_action": True, "noise_abs_cost": True}, None, False),
     ("K1100_block1024", 1100, 5, 2, {}, None, False),
+    # D not a multiple of 4; mirror rows past K; the null row with antithetic pairs
+    ("D15_T15_nu1", 200, 15, 1, {}, None, False),
+    ("antithetic_K777_block128", 777, 6, 2, {"antithetic": True}, 128, False),
+    ("null_antithetic", 300, 6, 2, {"antithetic": True, "sample_null_action": True}, 128, False),
 ]
 
 
@@ -87,12 +91,13 @@ def test_sampler_plain_matches_jax_kernel(K, T, nu, flags, block_k, full):
         assert (pert_p[0] == torch.clamp(torch.zeros(D), -1.0, 1.2)).all()
     if flags.get("antithetic"):
         # rows j and j + block_k/2 of a block mirror one draw: with U = 0,
-        # mu = 0 and no bounds their noises sum to zero
+        # mu = 0 and no bounds their noises sum to zero (but on the null row)
         free = sample(torch.from_numpy(bits), torch.zeros(D), torch.from_numpy(op),
                       torch.zeros(D), torch.full((D,), -np.inf), torch.full((D,), np.inf),
                       torch.zeros(D))[0]
         half = sample.block_k // 2
-        assert (free[:half] + free[half:2 * half] == 0).all()
+        first = 1 if flags.get("sample_null_action") else 0
+        assert (free[first:half] + free[half + first:2 * half] == 0).all()
 
 
 @pytest.mark.parametrize("K", [1, 100, 128, 129, 511, 512, 1023, 1024, 1025, 10_000])
@@ -104,6 +109,73 @@ def test_block_and_padding_match_jax(K):
         K_pad = -(-K // block) * block
         assert (sample.block_k, sample.K_pad) == (block, K_pad)
         assert sample.bits_rows == (K_pad // 2 if anti else K_pad)
+
+
+# D, full op, expected (rows, lanes or register rows, panel, threads)
+GEOMETRY = [
+    (60, False, (16, 16, 0, 256)),  # the flagship: 15 groups on 16 lanes, two rows a warp
+    (15, False, (64, 4, 0, 256)),
+    (4, False, (256, 1, 0, 256)),
+    (300, False, (2, 96, 0, 192)),  # a row spans three warps
+    (1100, False, (1, 288, 0, 256)),  # a row wider than the block
+    (60, True, (34, 2, 16, 256)),  # 17 threads share a column group, 2 rows each
+    (15, True, (64, 1, 16, 256)),
+    (300, True, (36, 12, 16, 256)),
+    (1100, True, (12, 12, 16, 256)),
+    (3000, True, (12, 12, 1, 256)),  # the panel shrinks until the tiles fit
+]
+
+
+@pytest.mark.parametrize("D,full,expected", GEOMETRY,
+                         ids=[f"D{g[0]}_{'full' if g[1] else 'diag'}" for g in GEOMETRY])
+def test_sampler_geometry(D, full, expected):
+    """The sampler kernels' blocks (``csrc/fused_mppi.cu``
+    ``fused_mppi_sampler_geometry``, checked against this rule when the
+    library loads): a thread per (row, four elements) with a row's groups
+    padded to a power of two up to 32 lanes, else to a multiple of 32; for
+    a full op, Q = 256 // groups threads of a column group with the fewest
+    register rows that give 32 rows a block."""
+    geo = RM.sampler_geometry(D, full)
+    assert (geo["rows"], geo["tile"] if full else geo["lanes"], geo["panel"],
+            geo["threads"]) == expected
+    groups = -(-D // 4)
+    assert geo["smem"] <= FS.MAX_SMEM_BYTES
+    if full:
+        q = 256 // groups if groups < 256 else 1
+        assert geo["rows"] == q * geo["tile"] and geo["rows"] >= min(32, q * 12)
+        assert geo["smem"] == 4 * (geo["rows"] * 4 * groups + geo["panel"] * 4 * groups
+                                   + 2 * geo["rows"] * groups)
+    else:
+        assert geo["lanes"] >= groups and geo["threads"] % 32 == 0
+        assert geo["rows"] * geo["lanes"] == geo["threads"] or geo["rows"] == 1
+
+
+def test_sampler_geometry_refuses_what_does_not_fit():
+    """A full op whose tiles exceed a block's shared memory is refused when
+    the sampler is built; a diagonal op keeps no row in shared memory."""
+    with pytest.raises(FS.FusedSolveUnavailable, match="shared memory"):
+        RM.sampler_geometry(10_000, True)
+    assert RM.sampler_geometry(10_000, False)["smem"] == 2 * (2528 // 32) * 4
+    RM.make_fused_sampler(MPPIConfig(nx=2, nu=2, K=64, T=5000, diag_sigma=True))
+
+
+@pytest.mark.parametrize("K,block_k,anti,rows", [
+    (10_000, 1024, False, 10_000), (10_000, 1024, True, 5120), (777, 128, True, 393),
+    (300, 128, True, 172), (64, 128, True, 64), (1, 128, True, 1)])
+def test_sampler_source_rows_and_one_wave(K, block_k, anti, rows):
+    """The source rows the kernel draws, once for both rows of an
+    antithetic pair: those that reach a row below K, as the plain
+    version's pairing reads them; and the flagship's grid, 625 blocks of 256
+    threads (320 with antithetic pairs), fits one wave of five blocks on
+    each of the H100's 132 SMs."""
+    assert RM.sampler_source_rows(K, block_k, anti) == rows
+    src, _ = FS.source_columns(K, block_k, anti, "cpu")
+    assert int(src.unique().numel()) == rows
+    sample = RM.make_fused_sampler(MPPIConfig(nx=2, nu=2, K=K, T=30, diag_sigma=True,
+                                              antithetic=anti), block_k=block_k)
+    assert sample.blocks == -(-rows // 16)
+    if K == 10_000:
+        assert sample.blocks == (320 if anti else 625) and sample.blocks <= 5 * FS.H100_SMS
 
 
 def test_sampler_eligible_matches_jax():

@@ -106,6 +106,76 @@ def test_weighted_update_plain_matches_jax_kernel(K, D):
                                rtol=2e-4, atol=2e-6)
 
 
+@pytest.mark.parametrize("K,D,pad", [(300, 12, 4), (300, 12, 3), (500, 15, 0), (130, 60, 0)],
+                         ids=["strided_ld16", "strided_ld15", "D15", "K130"])
+def test_weighted_update_layouts_match_jax_kernel(K, D, pad):
+    """A strided noise (row stride ld > D, 16-byte rows or not) and D not a
+    multiple of 4, the layouts the kernel reads with scalar loads, through
+    the wrapper (its plain version on CPU tensors) and through the factory
+    with each forced block size, against the JAX kernel on the contiguous
+    noise."""
+    rs = np.random.RandomState(9)
+    cost = (rs.rand(K) * 40 + 5).astype(np.float32)
+    full = rs.randn(K, D + pad).astype(np.float32)
+    noise = torch.from_numpy(full)[:, :D]
+    assert noise.stride(0) == D + pad
+    lam = np.float32(0.9)
+    pert_j, m_j, s_j = (np.asarray(v) for v in PR.fused_weighted_update(
+        jnp.asarray(cost), jnp.asarray(np.ascontiguousarray(full[:, :D])), jnp.asarray(lam)))
+    for update in (LG.fused_weighted_update, *(LG.make_weighted_update(S) for S in FS.TILES)):
+        pert_p, m_p, s_p = update(torch.from_numpy(cost), noise, torch.tensor(lam))
+        assert pert_p.shape == (D,) and m_p.shape == () and s_p.shape == ()
+        np.testing.assert_allclose(m_p.numpy(), m_j, rtol=2e-5, atol=1e-5)
+        np.testing.assert_allclose(s_p.numpy(), s_j, rtol=2e-5)
+        np.testing.assert_allclose((pert_p / s_p).numpy(), pert_j / s_j, rtol=2e-4, atol=2e-6)
+
+
+@pytest.mark.parametrize("K,D,S,groups", [(10_000, 60, 32, 18), (777, 15, 64, 2),
+                                          (20, 60, 128, 1), (16_500, 60, 32, 23),
+                                          (10_000, 300, 128, 9)])
+def test_weighted_update_buffers_are_one_allocation(K, D, S, groups):
+    """The wrapper's one allocation a call: the partials of the ceil(K / S)
+    blocks and of their merge groups, rows of m, s, two unused floats and
+    the D sums padded to four (16-byte rows), then (pert, m, s), whose
+    views it returns."""
+    partial, gpart, out = LG.weighted_update_buffers(K, D, S, torch.device("cpu"))
+    PS = 4 + -(-D // 4) * 4
+    assert LG.weighted_stride(D) == PS and PS % 4 == 0
+    assert partial.shape == (-(-K // S), PS) and gpart.shape == (groups, PS)
+    assert out.shape == (D + 2,)
+    assert all(t.is_contiguous() and t.dtype == torch.float32 for t in (partial, gpart, out))
+    assert partial.untyped_storage().data_ptr() == out.untyped_storage().data_ptr()
+    assert gpart.data_ptr() == partial.data_ptr() + 4 * partial.numel()
+    assert out.data_ptr() == gpart.data_ptr() + 4 * gpart.numel()
+
+
+@pytest.mark.parametrize("nblocks,group", [(1, 8), (64, 8), (65, 9), (79, 9), (313, 18),
+                                           (516, 23), (67_108_864, 8192)])
+def test_weighted_group_balances_the_two_merge_levels(nblocks, group):
+    """The first merge level's group: the smallest g ≥ 8 with g² ≥ nblocks,
+    so that each level merges about √nblocks partials, and the groups of
+    K = 2³¹ samples at 32 a block still fit the tickets."""
+    assert LG.weighted_group(nblocks) == group
+    groups = -(-nblocks // group)
+    assert groups <= group and 1 + groups <= LG.WEIGHTED_COUNTERS
+
+
+def test_weighted_update_counter_and_tile():
+    """One buffer of merge tickets per device, the same int32 tensor on
+    every call; the factory takes only the kernel's block sizes and keeps
+    the one it was given (None: ``tile_samples`` of K at each call)."""
+    cpu = torch.device("cpu")
+    counter = LG.weighted_update_counter(cpu)
+    assert counter is LG.weighted_update_counter(cpu)
+    assert counter.dtype == torch.int32 and counter.shape == (LG.WEIGHTED_COUNTERS,)
+    assert not counter.any()
+    assert LG.fused_weighted_update.tile_k is None
+    assert LG.make_weighted_update(64).tile_k == 64
+    with pytest.raises(ValueError, match="tile_k"):
+        LG.make_weighted_update(48)
+    assert FS.tile_samples(10_000, FS.H100_SMS) == 32  # 313 blocks at the flagship
+
+
 def _patch_normals(monkeypatch):
     """The same N(0, 1) draws on either side, in call order."""
     jbank, pbank = np.random.RandomState(0), np.random.RandomState(0)
