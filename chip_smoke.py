@@ -19,16 +19,22 @@ the package is not beside it.  Phases, each fatal when it fails:
    K = 500) and more (D = 300 with a full operator, on the shared-memory
    tiles and, at 128 samples a block, on the global ones; a 12-state,
    4-action ``linear_quadratic``; 32 and 64 samples a block forced at
-   K = 1,000 and with antithetic pairs in blocks of 128), in bits mode and in
-   seed mode (Philox in both), then the statistics of the seed-mode noise,
+   K = 1,000 and with antithetic pairs in blocks of 128; the final-state
+   terminal cost ``quadratic_terminal``, with ``u_scale`` and at D = 300), in
+   bits mode and in seed mode (Philox in both), then the statistics of the
+   seed-mode noise,
    and 50 calls in a row of each variant identical to the first (kernel A's
    merge counter resets);
    the batched variant in bits, seed and operand mode (N = 16, K = 10,240;
    the full width N = 1,024, K = 16,384 with the rule's plant group, which
    must be the largest P, and with P = 1; N = 1,023, not a multiple of P;
    N = 70,000 at K = 256, T = 10, more plants than a grid row; antithetic;
-   D = 300 with a full operator; the pendulum and toy2d); the legacy rollout
-   at K = 10,000, T = 30 and at K not a multiple of the block; the weighted
+   D = 300 with a full operator; the pendulum and toy2d; the terminal cost
+   at N = 16 and N = 1,024); the legacy rollout at K = 10,000, T = 30 (the
+   rule's samples a block, and 32, 64 and 128 forced), at K not a multiple
+   of the block, at D = 15 (4-byte copies), on actions at a 4-byte offset,
+   at D = 300 (one buffer, and at 128 samples a block in chunks), then 50
+   calls in a row identical to the first; the weighted
    update at the flagship (the rule's samples a block, and 32, 64 and 128
    forced), at K = 777, at D = 15 and D = 300, on a strided noise (16-byte
    and scalar loads), at K below the block (one block merges itself) and at
@@ -48,8 +54,12 @@ the package is not beside it.  Phases, each fatal when it fails:
 4. main paths: 1,000 closed-loop commands of ``MPPI``, ``SMPPI`` and
    ``KMPPI`` on ``linear_quadratic`` at K = 10,000, T = 30 (``bench.py``'s
    flagship problem), fused (``use_pallas=True``, one launch a command) with
-   the launch count and the goal checked, then the same on the plain torch path, and ``MPPI``'s
-   legacy route (``use_pallas="rollout"``) held to the plain step; then
+   the launch count and the goal checked, then the same on the plain torch
+   path, ``MPPI``'s legacy route (``use_pallas="rollout"``) held to the plain
+   step, ``MPPI`` fused with ``terminal_final_cost=quadratic_terminal(...)``
+   (one launch a command; its step held to the plain step's arithmetic on
+   the kernel's perturbed actions) and plain with the same cost as
+   ``terminal_state_cost`` (the rollout states kept); then
    ``MPPI_Batched`` on ``examples/scenario_batch.py``'s problem at N = 1,024,
    K = 16,384, T = 30 and at N = 16, K = 10,240: operand mode, seed mode and
    the plain path, the launch counts and the fused step held to the plain
@@ -62,9 +72,12 @@ the package is not beside it.  Phases, each fatal when it fails:
    call replayed from a CUDA graph of 20 calls, the profiler's beside it),
    kernel A's S sweep (32, 64 and 128 samples a block; each variant at the
    flagship, at K = 1,000 and at D = 300, the round-1 solve at the flagship:
-   the rule's S within 10 % of the best), the weighted update's S sweep at
-   the flagship and at D = 300 (the same check) beside one PyTorch call for
-   the same function, the batched kernel's device time for each plant group
+   the rule's S within 10 % of the best), kernel A and the batched kernel
+   with the terminal cost beside their times without it, the weighted
+   update's S sweep at the flagship and at D = 300 (the same check) beside
+   one PyTorch call for the same function, the legacy rollout's S sweep at
+   the flagship and at K = 1,000 (the same check) and its time against the
+   parent's, the batched kernel's device time for each plant group
    P of 1-32 at N = 1,024 and N = 16, and each kernel's time against its
    time in the parent commit's run (PERF.md);
 5. swing-up: the pendulum with ``use_pallas=True``, 150 steps;
@@ -108,12 +121,16 @@ FIRST_MPPI_SEED_MS = 0.04754  # the MPPI pair, seed mode, flagship, as first por
 # NVIDIA H100 80GB HBM3, 700 W): kernel A at the flagship in seed mode and at
 # D = 300 with a full operator; the batched pair at the main paths' widths;
 # the legacy route's kernels and the sampler (seed and bits mode) at the
-# flagship
-BEFORE_MS = {"mppi": 0.020565, "smppi": 0.021909, "kmppi": 0.020971, "rowmajor": 0.023616,
-             "mppi_D300": 0.422435, "smppi_D300": 0.447872, "kmppi_D300": 0.319718,
-             "weighted_update": 0.013446, "rollout": 0.007467, "sampler": 0.009120,
-             "sampler_bits": 0.007389, "batched_operand": 1.036582, "batched_seed": 1.118133,
-             "batched_small_operand": 0.030938}
+# flagship; and the parent's build time
+BEFORE_MS = {"mppi": 0.019965, "smppi": 0.022325, "kmppi": 0.021173, "rowmajor": 0.022992,
+             "mppi_D300": 0.420240, "smppi_D300": 0.446238, "kmppi_D300": 0.316774,
+             "weighted_update": 0.010074, "rollout": 0.007973, "sampler": 0.006144,
+             "sampler_bits": 0.007680, "batched_operand": 1.031534, "batched_seed": 1.110970,
+             "batched_small_operand": 0.030554}
+BEFORE_BUILD_S = 162.0
+# the final-state terminal cost of the terminal cases and loops: w_state
+# |x_T - goal|^2 + w_action |u_T|^2 toward the flagship's goal
+TERMINAL_W = (1.0, 0.1)
 PLANT_GROUPS = (1, 2, 4, 8, 16, 32)  # the P sweep of the batched kernel
 REPEATS = 50  # calls in a row of one merging kernel: its merge counter resets
 BATCHED_NAMES = ("batched_partial", "flash_merge")
@@ -140,7 +157,7 @@ def _per_step(model, nx, nu):
 
 
 def fused_work(config, model, seed_or_bits, x0T, op, emit_perturbed=False,
-               variant="mppi", plants=1):
+               variant="mppi", plants=1, terminal=False):
     """``(operations, bytes)`` one fused iteration needs on these inputs,
     for the least time the card could take (the ``bound_ms`` below).
 
@@ -160,7 +177,10 @@ def fused_work(config, model, seed_or_bits, x0T, op, emit_perturbed=False,
     nothing is drawn, and the operator is not read.  The round-1 solve
     (``variant="rowmajor"``) takes x0 (nx,), ``op`` the (nu, nu) Cholesky
     factor applied per timestep and mu, lo, hi of nu values, and draws with
-    no antithetic sign."""
+    no antithetic sign.  A ``terminal`` cost (``quadratic_terminal``) adds,
+    per sample, nx subtractions and fused multiply-adds, nu fused
+    multiply-adds, two products and two sums, and reads its nx + 2
+    constants."""
     from pytorch_mppi_tpu_torch.ops.fused_solve import _BLOCK
 
     K, T, nx, nu = config.K, config.T, config.nx, config.nu
@@ -195,6 +215,8 @@ def fused_work(config, model, seed_or_bits, x0T, op, emit_perturbed=False,
         per_sample = R * (1 + 2 + 3) + D * (2 * R + 2 + 1 + 2 + absc)
     # per sample: the total, the logit, the block max, exp, the block sum
     per_sample += T * _per_step(model, nx, nu) + 7
+    if terminal:
+        per_sample += 3 * nx + 2 * nu + 4
     if variant != "batched":
         draws = K
     elif operand:
@@ -210,7 +232,8 @@ def fused_work(config, model, seed_or_bits, x0T, op, emit_perturbed=False,
                "batched": 2 * D * plants + 3 * D + 1,
                "rowmajor": 2 * D + 3 * nu + 1}[variant]
     in_elems = (x0_elems + vectors + (0 if operand else op.numel())
-                + model.consts.numel() + (0 if seed_mode else seed_or_bits.numel()))
+                + model.consts.numel() + (0 if seed_mode else seed_or_bits.numel())
+                + (nx + 2 if terminal else 0))
     out_elems = plants * (K + R + 2) + (D * K if emit_perturbed else 0)
     return operations, 4 * (in_elems + out_elems)
 
@@ -396,6 +419,7 @@ def main():
         MPPI_Batched,
         RBFKernel,
         linear_quadratic,
+        quadratic_terminal,
         run_mppi,
     )
     from pytorch_mppi_tpu_torch.config import BatchedState, MPPIConfig, MPPIState
@@ -443,7 +467,8 @@ def main():
         spills = [int(b) for b in re.findall(r"(\d+) bytes spill stores", log)]
         log_path = _build.library_path().with_suffix(".log")
         log_path.write_text(log)
-        print(f"# build {_build.SOURCE.name} ({_build.PARTS} parts in parallel): {secs:.1f} s | "
+        print(f"# build {_build.SOURCE.name} ({_build.PARTS} parts in parallel): {secs:.1f} s "
+              f"({secs / BEFORE_BUILD_S:.3f} of the parent's {BEFORE_BUILD_S} s on another call) | "
               f"{len(regs)} kernels, {min(regs, default=0)}-{max(regs, default=0)} registers | "
               f"spill stores in {sum(b > 0 for b in spills)}, up to {max(spills, default=0)} "
               f"bytes | nvcc -Xptxas -v output in {log_path}")
@@ -454,6 +479,7 @@ def main():
     B = torch.tensor([[1.0, 0.0], [0.0, -1.0]], device=dev)
     goal = torch.tensor([2.0, 2.0], device=dev)
     lq = linear_quadratic(B, goal)
+    term = quadratic_terminal(goal, *TERMINAL_W)
     g_cpu = torch.Generator().manual_seed(12)
     lq3 = linear_quadratic(torch.randn(2, 3, generator=g_cpu) * 0.5, torch.tensor([2.0, 2.0]))
     lq12 = linear_quadratic(torch.randn(12, 4, generator=g_cpu) * 0.3,
@@ -530,6 +556,11 @@ def main():
          {"tile": 32}),
         ("antithetic_128_S64", lq, K, T, NU, NSP, {"antithetic": True}, 0.0, True, 128,
          {"tile": 64}),
+        # the final-state terminal cost (the last action u_scale-scaled), and at
+        # D = 300 with a full operator
+        ("lq_terminal_u_scale", lq, K, T, NU, NSP, {"u_scale": 1.5}, 0.0, False, None,
+         {"terminal": True}),
+        ("D300_full_rho_terminal", lq3, K, 100, 3, 50, {}, 0.5, False, None, {"terminal": True}),
     ]
     cases = [("mppi",) + c for c in base_cases] + [
         # phase 5's operands: sigma = 10 (op sqrt(10)), mu = 0, bounds +-2
@@ -569,7 +600,8 @@ def main():
                              noise_rho=rho, num_support_pts=nsp if variant == "kmppi" else 0,
                              smppi=variant == "smppi", **flags)
             solve = factories[variant](cfg, model, pair_block=pb, emit_perturbed=emit,
-                                       tile_k=over.get("tile"))
+                                       tile_k=over.get("tile"),
+                                       terminal_final=term if over.get("terminal") else None)
             for tiles in ("global", "shared"):
                 check(not name.endswith("_" + tiles) or solve.tiles == tiles,
                       f"{variant}/{name} did not take {tiles} tiles")
@@ -595,7 +627,7 @@ def main():
             ok, c_err, u_err, w_tol = agree(ck, cp, dk / sk, dp / sp, lam, mk, mp, sk, sp)
             m_err = abs(float(mk - mp))
             s_rel = abs(float(sk / sp - 1))
-            line = (f"# {mode:4s} {variant:5s} {name:20s} K={K_:5d} D={T_ * nu:3d} "
+            line = (f"# {mode:4s} {variant:5s} {name:22s} K={K_:5d} D={T_ * nu:3d} "
                     f"S={solve.tile_k:3d} tiles={solve.tiles:6s} cost err {c_err:.3e} | m err "
                     f"{m_err:.3e} "
                     f"| s rel {s_rel:.3e} (tol {w_tol:.3e}) | delta/s err {u_err:.3e}")
@@ -682,6 +714,11 @@ def main():
          dict(scenario_ops, group=1)),
         ("N1023", lq, BATCH_N - 1, BATCH_K, T, NU, {}, 0.0, None, all_modes, scenario_ops),
         (f"N{WIDE_N}", lq, WIDE_N, WIDE_K, WIDE_T, NU, {}, 0.0, None, all_modes, scenario_ops),
+        # the final-state terminal cost, at the main paths' widths
+        ("terminal_u_scale", lq, BATCH_SMALL_N, BATCH_SMALL_K, T, NU, {"u_scale": 1.5}, 0.0,
+         None, ("seed", "operand"), dict(scenario_ops, terminal=True)),
+        ("terminal_full_width", lq, BATCH_N, BATCH_K, T, NU, {}, 0.0, None,
+         ("seed", "operand"), dict(scenario_ops, terminal=True)),
     ]
     n_batched = 0
     for name, model, N_, K_, T_, nu, flags, rho, pb, modes, over in batched_cases:
@@ -699,9 +736,9 @@ def main():
         vec = lambda v: torch.full((D_,), v, device=dev)  # noqa: E731
         rest = (x0T, U2T, op, vec(mu_), vec(-bnd), vec(bnd), aT, torch.tensor(1.0, device=dev))
         for mode in modes:
-            solve = FS.make_transposed_batched_solve(cfg, N_, model, pair_block=pb,
-                                                     noise_operand=mode == "operand",
-                                                     group=over.get("group"))
+            solve = FS.make_transposed_batched_solve(
+                cfg, N_, model, pair_block=pb, noise_operand=mode == "operand",
+                group=over.get("group"), terminal_final=term if over.get("terminal") else None)
             check(name != "main_path_full_width" or solve.plant_group == FS.PLANT_GROUP_MAX,
                   f"the rule takes P={solve.plant_group} at N={N_}, K={K_}, not "
                   f"{FS.PLANT_GROUP_MAX}")
@@ -732,27 +769,55 @@ def main():
         torch.cuda.empty_cache()
     print(f"# kernel vs plain: {n_batched} batched cases agreed")
 
-    # the legacy route's kernels: the rollout at K = 10,000 (shared and
-    # per-sample x0) and at K not a multiple of the block; the weighted update
+    # the legacy route's kernels.  The rollout: (name, model, K, T, nu, shared
+    # x0, samples a block where forced, a 4-byte offset of the actions): the
+    # flagship with the rule's S and with 32, 64 and 128 forced, K not a
+    # multiple of the block, D = 15 (rows not 16-byte aligned: 4-byte copies),
+    # actions at a 4-byte offset (the same), D = 300 in one buffer and, at
+    # S = 128, in chunks of two buffers
     legacy_cases = [
-        ("lq", lq, K, T, NU, True), ("lq_per_sample_x0", lq, K, T, NU, False),
-        ("lq_K777", lq, 777, T, NU, True), ("pendulum", PENDULUM_MODEL, 1000, 15, 1, True),
-        ("toy2d_K777", toy.kernel_model, 777, 20, NU, False),
+        ("lq", lq, K, T, NU, True, None, 0), ("lq_per_sample_x0", lq, K, T, NU, False, None, 0),
+        ("lq_K777", lq, 777, T, NU, True, None, 0),
+        ("pendulum", PENDULUM_MODEL, 1000, 15, 1, True, None, 0),
+        ("toy2d_K777", toy.kernel_model, 777, 20, NU, False, None, 0),
+        ("lq_S32", lq, K, T, NU, True, 32, 0), ("lq_S64", lq, K, T, NU, True, 64, 0),
+        ("lq_S128", lq, K, T, NU, False, 128, 0),
+        ("pendulum_D15_K777", PENDULUM_MODEL, 777, 15, 1, False, None, 0),
+        ("lq_offset4", lq, K, T, NU, True, None, 1),
+        ("D300", lq3, K, 100, 3, True, None, 0), ("D300_S128_chunks", lq3, K, 100, 3, False, 128, 0),
     ]
-    for name, model, K_, T_, nu, shared in legacy_cases:
-        rollout = LG.make_fused_rollout(MPPIConfig(nx=model.nx, nu=nu, K=K_, T=T_), model)
+    for name, model, K_, T_, nu, shared, tile, off in legacy_cases:
+        rollout = LG.make_fused_rollout(MPPIConfig(nx=model.nx, nu=nu, K=K_, T=T_), model,
+                                        tile_k=tile)
         x0_K = (torch.randn(model.nx, device=dev)[None].expand(K_, model.nx) if shared
                 else torch.randn(K_, model.nx, generator=gen, device=dev))
-        u = torch.randn(K_, T_, nu, generator=gen, device=dev)
+        u = torch.randn(K_ * T_ * nu + off, generator=gen, device=dev)[off:].view(K_, T_, nu)
         ck = rollout(x0_K, u)
         torch.cuda.synchronize()
         cp = rollout.plain(x0_K, u)
         c_err = float((ck - cp).abs().max())
         ok = bool(((ck - cp).abs() <= 1e-5 + 2e-5 * cp.abs()).all())
-        print(f"# rollout {name:18s} K={K_:5d} T={T_:3d}: cost err {c_err:.3e}"
+        S = tile or FS.tile_samples(K_, FS.sm_count())
+        geo = LG.rollout_geometry(T_, nu, S)
+        copies = (16 if (T_ * nu) % 4 == 0 and (geo["steps"] * nu) % 4 == 0
+                  and u.data_ptr() % 16 == 0 else 4)
+        print(f"# rollout {name:18s} K={K_:5d} T={T_:3d} D={T_ * nu:3d} S={S:3d} "
+              f"({-(-K_ // S)} blocks; {geo['chunks']} chunk(s) of {geo['steps']} steps, rows of "
+              f"{geo['ldr']} floats, {geo['smem']} B, {copies}-byte copies): cost err {c_err:.3e}"
               + ("" if ok else "  <-- FAIL"))
         check(ok, f"rollout kernel disagrees with its plain version: {name}")
         max_update_err["rollout"] = max(max_update_err.get("rollout", 0.0), c_err)
+    # REPEATS calls in a row repeat the first bit for bit (one thread a sample,
+    # sums in a fixed order)
+    rollout = LG.make_fused_rollout(MPPIConfig(nx=NX, nu=NU, K=K, T=T), lq)
+    x0_K = torch.randn(K, NX, generator=gen, device=dev)
+    u = torch.randn(K, T, NU, generator=gen, device=dev)
+    first = rollout(x0_K, u).clone()
+    outs = [rollout(x0_K, u) for _ in range(REPEATS)]
+    torch.cuda.synchronize()
+    same = all(torch.equal(first, o) for o in outs)
+    print(f"# rollout: {REPEATS} calls in a row identical to the first: {same}")
+    check(same, "rollout: repeated calls differ")
     # the weighted update: (K, D, samples a block where forced, extra columns
     # of a strided noise: 4 keeps its rows 16-byte aligned, 3 does not)
     lam_t = torch.tensor(0.8, device=dev)
@@ -974,11 +1039,21 @@ def main():
         "kmppi": (KMPPI, dict(num_support_pts=NSP, kernel=RBFKernel(2.0))),
     }
 
-    def closed_loop(variant, use_pallas):
+    def last_state_cost(states, actions):
+        """The terminal cost as a full-trajectory hook (terminal_state_cost)."""
+        return term(states[..., -1, :], actions[..., -1, :])
+
+    # the terminal loops: the kernel terminal cost on the fused path (one
+    # launch a command), the full-trajectory hook on the plain path
+    HOOKS = {"fused_terminal": dict(terminal_final_cost=term),
+             "plain_terminal_state": dict(terminal_state_cost=last_state_cost)}
+
+    def closed_loop(variant, use_pallas, path):
         cls, extra = MAIN[variant]
         ctrl = cls(lq.dynamics, lq.running_cost, nx=NX,
                    noise_sigma=torch.eye(NU, device=dev), num_samples=K, horizon=T,
-                   lambda_=1.0, seed=42, use_pallas=use_pallas, device=dev, **extra)
+                   lambda_=1.0, seed=42, use_pallas=use_pallas, device=dev, **extra,
+                   **HOOKS.get(path, {}))
         check(ctrl._fns.fused == bool(use_pallas),
               f"{variant} use_pallas={use_pallas!r} took the wrong route")
         x = torch.tensor([-3.0, -2.0], device=dev)
@@ -1010,8 +1085,9 @@ def main():
     main = {}
     paths = [(v, p, up) for v in FS.VARIANTS for p, up in (("fused", True), ("plain", False))]
     paths.append(("mppi", "rollout", "rollout"))  # the legacy kernel pair
+    paths += [("mppi", "fused_terminal", True), ("mppi", "plain_terminal_state", False)]
     for variant, path, use_pallas in paths:
-        r = closed_loop(variant, use_pallas)
+        r = closed_loop(variant, use_pallas, path)
         main[variant, path] = r
         print(f"# main path [{variant} {path}] K={K} T={T}: command median "
               f"{r['median_ms']:.4f} ms p90 {r['p90_ms']:.4f} ms (CUDA events) | "
@@ -1021,6 +1097,8 @@ def main():
         # bench.py:184's sanity check: reached the goal region and did not diverge
         check(r["min_dist"] < 1.0 and r["final_dist"] < 10.0,
               f"{variant} {path} closed loop failed bench.py's sanity check")
+        check((r["ctrl"].states is not None) == (path == "plain_terminal_state"),
+              f"{variant} {path}: the rollout states are kept only for terminal_state_cost")
         if path == "rollout":
             expect = only(rollout=COMMANDS, weighted_update=COMMANDS)
         else:
@@ -1047,6 +1125,30 @@ def main():
               f"update err {u_err:.3e} (tol {w_tol:.3e} of its largest element)"
               + ("" if ok else "  <-- FAIL"))
         check(ok, "the legacy route's step disagrees with the plain step")
+
+    # the fused step with the terminal cost against the plain step's
+    # arithmetic on the kernel's own perturbed actions (fused_artifacts) and
+    # the same terminal cost, on one seed
+    ctrl_t = MPPI(lq.dynamics, lq.running_cost, nx=NX, noise_sigma=torch.eye(NU, device=dev),
+                  num_samples=K, horizon=T, lambda_=1.0, seed=42, use_pallas=True,
+                  fused_artifacts=True, terminal_final_cost=term, device=dev)
+    cfg_t, params = ctrl_t.config, ctrl_t._params
+    st = MPPIState(U=torch.randn(T, NU, generator=gen, device=dev) * 0.3, seed=77)
+    x0 = torch.tensor([-3.0, -2.0], device=dev)
+    s_f, _, art_f = ctrl_t._fns.step(params, st, x0)
+    U0 = PS._shift_U(st.U, params.u_init)
+    noise2 = art_f.noise.reshape(K, -1)
+    a_flat = (params.lambda_ * (U0 @ torch.linalg.inv(params.noise_sigma).T)).reshape(-1)
+    cost_p = PS.rollout_costs(cfg_t, PS.wrap_dynamics(cfg_t, lq.dynamics),
+                              PS.wrap_cost(cfg_t, lq.running_cost), x0, art_f.perturbed_action,
+                              None, PS.wrap_final_cost(term))[0] + noise2 @ a_flat
+    omega = PS.compute_weighting(cost_p, params.lambda_)[1]
+    ok, c_err, u_err, w_tol = agree(art_f.cost_total, cost_p, (s_f.U - U0).reshape(-1),
+                                    omega @ noise2, 1.0)
+    print(f"# fused terminal step vs the plain step on its perturbed actions, seed 77: cost err "
+          f"{c_err:.3e} | update err {u_err:.3e} (tol {w_tol:.3e} of its largest element)"
+          + ("" if ok else "  <-- FAIL"))
+    check(ok, "the fused step with a terminal cost disagrees with the plain step")
 
     # -- 4b. MPPI_Batched: examples/scenario_batch.py's problem -----------------
     sigma_b = torch.eye(NU, device=dev) * 0.5
@@ -1211,6 +1313,18 @@ def main():
                 print(f"# bound [{variant} {shape} {mode}]: {nbytes} B -> {t_bytes:.3e} ms "
                       f"at 3.35 TB/s; {ops} operations -> {t_ops:.3e} ms at 67 TFLOP/s; "
                       f"bound by {bound_by}")
+            if shape == "flagship":
+                # with the final-state terminal cost, beside the time without it
+                solve_t = factories[variant](cfg, model, terminal_final=term)
+                t_ms = graph_ms(lambda: solve_t((1234, 5678), *args), 20)
+                t_bound = bound(fused_work(cfg, model, (1234, 5678), args[0],
+                                           args[3 if variant != "mppi" else 2], variant=variant,
+                                           terminal=True))
+                timed[variant, "terminal"] = (t_ms,) + t_bound
+                print(f"# kernel alone [{variant} flagship seed] with the terminal cost: device "
+                      f"{t_ms:.6f} ms (a CUDA graph of 20 calls) against {timed[variant, shape, 'seed'][0]:.6f}"
+                      f" ms without: ratio {t_ms / timed[variant, shape, 'seed'][0]:.4f} | bound "
+                      f"{t_bound[0]:.3e} ms by {t_bound[1]}")
     mppi_seed = timed["mppi", "flagship", "seed"][0]
     print(f"# MPPI kernel, seed mode, flagship: {mppi_seed:.5f} ms against the first port's "
           f"pair {FIRST_MPPI_SEED_MS} ms: ratio {mppi_seed / FIRST_MPPI_SEED_MS:.4f}")
@@ -1257,6 +1371,17 @@ def main():
                 print(f"# bound [batched seed] N={N_}: {bound_ms:.4e} ms with the draw counted "
                       f"once a source column ({work[0]} operations) | {old_ms:.4e} ms with "
                       f"the draw counted once a plant ({N_ * one[0]} operations)")
+            if N_ == BATCH_N and mode == "operand":
+                # with the final-state terminal cost, beside the time without it
+                solve_t = FS.make_transposed_batched_solve(ctrl.config, N_, lq, noise_operand=True,
+                                                           terminal_final=term)
+                t_ms = graph_ms(lambda: solve_t(lead, *rest), 20)
+                t_bound = bound(fused_work(ctrl.config, lq, lead, x0T, op, variant="batched",
+                                           plants=N_, terminal=True))
+                timed["batched", "terminal"] = (t_ms,) + t_bound
+                print(f"# kernel alone [batched operand] N={N_} with the terminal cost: device "
+                      f"{t_ms:.6f} ms (a CUDA graph of 20 calls) against {dev_ms:.6f} ms without: "
+                      f"ratio {t_ms / dev_ms:.4f} | bound {t_bound[0]:.3e} ms by {t_bound[1]}")
             # the P sweep: each plant group's device time in this mode
             sweep_ms = {}
             for P in PLANT_GROUPS:
@@ -1335,6 +1460,25 @@ def main():
         check(sweep[rule] <= 1.1 * sweep[best],
               f"weighted_update {shape}: the rule's S={rule} is more than 10 % slower than "
               f"S={best}")
+    # the rollout's S sweep: 32, 64 and 128 samples a block at the flagship and
+    # at K = 1,000, against the rule's S
+    for shape, K_ in (("flagship", K), ("K1000", 1000)):
+        cfg_r = MPPIConfig(nx=NX, nu=NU, K=K_, T=T)
+        sweep = {S: graph_ms(lambda f=LG.make_fused_rollout(cfg_r, lq, tile_k=S):
+                             f(x0_K[:K_], u[:K_]), 20) for S in FS.TILES}
+        rule = FS.tile_samples(K_, FS.sm_count())
+        best = min(sweep, key=sweep.get)
+        sweeps["rollout", shape] = dict(ms=sweep, rule=rule, best=best)
+        print(f"# S sweep [rollout {shape}] K={K_} D={T * NU}: " + " | ".join(
+            f"S={S} {v:.6f} ms" for S, v in sweep.items()) + f" (a CUDA graph of 20 calls) | "
+            f"the rule's S={rule}: {sweep[rule] / sweep[best]:.3f} of the best (S={best}; "
+            f"limit 1.1)")
+        check(sweep[rule] <= 1.1 * sweep[best],
+              f"rollout {shape}: the rule's S={rule} is more than 10 % slower than S={best}")
+    d_ms, b_ms, b_by = timed["rollout"][0], timed["rollout"][3], timed["rollout"][4]
+    print(f"# rollout at the flagship on {card}: {d_ms:.6f} ms (a CUDA graph of 20 calls) "
+          f"against the parent's {BEFORE_MS['rollout']} ms: ratio {d_ms / BEFORE_MS['rollout']:.4f} "
+          f"| bound {b_ms:.3e} ms by {b_by}: {d_ms / b_ms:.1f}x the bound")
 
     # -- 4c. the ops-level kernels' loops at the flagship ----------------------------
     # No controller routes to them (as in JAX), so the loops are written out:
@@ -1699,6 +1843,10 @@ def main():
             "ms_by_tile_k": sweep_ms((variant, "flagship")),
             "ms_by_tile_k_K1000": sweep_ms((variant, "K1000")),
             "ms_by_tile_k_D300": sweep_ms((variant, "D300")),
+            "ms_terminal": timed[variant, "terminal"][0],
+            "bound_ms_terminal": timed[variant, "terminal"][1],
+            "launches_terminal_loop": (main[variant, "fused_terminal"]["launches"][variant]
+                                       if variant == "mppi" else None),
         })
     d_ms, c_ms, p_ms, b_ms, b_by, group, pr_ms = timed["batched", BATCH_N, "operand"]
     s_ms = timed["batched", BATCH_N, "seed"]
@@ -1722,12 +1870,14 @@ def main():
         "bound_ms_seed_mode": s_ms[3],
         "bound_ms_seed_mode_draw_per_plant": timed["batched_seed_bound_draw_per_plant"],
         f"ms_N{BATCH_SMALL_N}_K{BATCH_SMALL_K}": small[0],
+        "ms_terminal": timed["batched", "terminal"][0],
+        "bound_ms_terminal": timed["batched", "terminal"][1],
     })
     for name, line, main_key in (("rollout", 75, ("mppi", "rollout")),
                                  ("weighted_update", 172, ("mppi", "rollout"))):
         d_ms, c_ms, p_ms, b_ms, b_by, l_ms, pr_ms = timed[name]
         kernels.append({
-            "name": {"rollout": "fused_rollout",
+            "name": {"rollout": "fused_rollout (rows staged in shared memory)",
                      "weighted_update": "weighted_partial (merged in the kernel)"}[name],
             "route": "cuda",
             "source": "pytorch_mppi_tpu_torch/csrc/fused_mppi.cu",
@@ -1742,6 +1892,9 @@ def main():
             "bound_by": b_by,
             "library_ms": l_ms,
         })
+    kernels[-2].update(tile_k=sweeps["rollout", "flagship"]["rule"],
+                       ms_by_tile_k=sweep_ms(("rollout", "flagship")),
+                       ms_by_tile_k_K1000=sweep_ms(("rollout", "K1000")))
     kernels[-1].update(library_ms_events=timed["weighted_update_library_events"],
                        tile_k=sweeps["weighted_update", "flagship"]["rule"],
                        ms_by_tile_k=sweep_ms(("weighted_update", "flagship")),

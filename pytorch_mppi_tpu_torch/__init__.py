@@ -23,7 +23,7 @@ from .config import (
 )
 from .controller import KMPPI, MPPI, SMPPI, MPPI_Batched
 from .ops.kernels import BSplineKernel, RBFKernel, TimeKernel
-from .ops.kernel_models import KernelModel, linear_quadratic
+from .ops.kernel_models import KernelModel, linear_quadratic, quadratic_terminal
 from .runner import run_mppi
 from .utils.batch import batch_quadratic_product, ensure_tensor, handle_batch_input
 
@@ -40,6 +40,7 @@ __all__ = [
     "run_mppi",
     "KernelModel",
     "linear_quadratic",
+    "quadratic_terminal",
     "handle_batch_input",
     "ensure_tensor",
     "batch_quadratic_product",

@@ -35,6 +35,8 @@ class MPPIConfig:
     u_per_command: int = 1
     sample_null_action: bool = False
     noise_abs_cost: bool = False
+    # a terminal_state_cost is set: the rollout stores its states and actions
+    has_terminal_cost: bool = False
     step_dependent_dynamics: bool = False
     # draw K/2 normals and mirror them (z, -z): rows k and K/2 + k form a pair
     antithetic: bool = False
@@ -54,6 +56,13 @@ class MPPIConfig:
     def __post_init__(self):
         if not isinstance(self.dtype, torch.dtype):
             raise TypeError(f"dtype must be a torch.dtype, got {self.dtype!r}")
+
+    @property
+    def store_rollouts(self) -> bool:
+        """Lazy storage (reference mppi.py:307-331): the rollout's states and
+        actions are kept only when a terminal cost reads them (M > 1 comes
+        with the stochastic rollouts)."""
+        return self.has_terminal_cost
 
 
 class MPPIParams(NamedTuple):
@@ -141,7 +150,9 @@ class Artifacts(NamedTuple):
     omega: torch.Tensor  # (K,)
     noise: Optional[torch.Tensor]  # (K, T, nu) rectified noise; (N, K, T, nu)
     perturbed_action: Optional[torch.Tensor]  # (K, T, nu); (N, K, T, nu)
-    states: Optional[torch.Tensor] = None  # no terminal cost in this port yet
+    # (1, K, T, nx) rollout states and (1, K, T, nu) unscaled actions under
+    # store_rollouts ((N, K, T, nx) and None for MPPI_Batched); else None
+    states: Optional[torch.Tensor] = None
     actions: Optional[torch.Tensor] = None
 
 

@@ -52,8 +52,6 @@ __all__ = ["MPPI", "SMPPI", "KMPPI", "MPPI_Batched"]
 
 # flag -> (value that means "off", ROADMAP.md item that ports it)
 _UNPORTED = {
-    "terminal_state_cost": (None, "Queue 1 item 5 (terminal costs)"),
-    "terminal_final_cost": (None, "Queue 1 item 5 (terminal costs)"),
     "rollout_samples": (1, "Queue 1 item 5 (stochastic rollouts)"),
     "rollout_var_cost": (0.0, "Queue 1 item 5 (stochastic rollouts)"),
     "rollout_var_discount": (0.95, "Queue 1 item 5 (stochastic rollouts)"),
@@ -198,6 +196,13 @@ class MPPI:
         with ``step_dependent_dynamics`` it also takes the step index.
     :param running_cost: ``(state, action) -> (K,)``, taken at the state after
         the dynamics step (mppi.py:314-318).
+    :param terminal_state_cost: ``(states (1, K, T, nx), actions (1, K, T,
+        nu)) -> (K,)``: keeps the rollout's states (``self.states``) and
+        actions; the plain path runs.
+    :param terminal_final_cost: ``(final_state (K, nx), final_action (K,
+        nu)) -> (K,)`` of the last step, the action ``u_scale``-scaled;
+        stores nothing, and a ``ops.kernel_models.quadratic_terminal`` keeps
+        the fused kernel.  The two are mutually exclusive (ValueError).
     :param device: ``None`` (the card), ``"cuda"``, ``"cuda:N"`` or ``"cpu"``.
     :param seed: seeds the controller's ``torch.Generator``.
     :param use_pallas: ``True`` runs each command through the fused CUDA
@@ -257,8 +262,6 @@ class MPPI:
         # MPPI's default sample axis is "k" (MPPI_Batched's None)
         _reject_unported({"sample_axis": "k"}, sample_axis=sample_axis)
         _reject_unported(
-            terminal_state_cost=terminal_state_cost,
-            terminal_final_cost=terminal_final_cost,
             rollout_samples=rollout_samples, rollout_var_cost=rollout_var_cost,
             rollout_var_discount=rollout_var_discount, risk_alpha=risk_alpha,
             stochastic_dynamics=stochastic_dynamics,
@@ -289,6 +292,11 @@ class MPPI:
         self.u_per_command = int(u_per_command)
         self.F = dynamics
         self.running_cost = running_cost
+        # the final-state terminal cost (state, action) -> cost of the last step
+        # keeps lazy storage and, as a kernel terminal cost, the fused kernel;
+        # mutually exclusive with terminal_state_cost (the step factory checks)
+        self.terminal_state_cost = terminal_state_cost
+        self.terminal_final_cost = terminal_final_cost
         self.step_dependency = bool(step_dependent_dynamics)
         self.sample_null_action = bool(sample_null_action)
         self.noise_abs_cost = bool(noise_abs_cost)
@@ -331,6 +339,7 @@ class MPPI:
             u_per_command=self.u_per_command,
             sample_null_action=self.sample_null_action,
             noise_abs_cost=self.noise_abs_cost,
+            has_terminal_cost=self.terminal_state_cost is not None,
             step_dependent_dynamics=self.step_dependency,
             antithetic=self.antithetic_sampling,
             noise_rho=self.noise_rho,
@@ -347,7 +356,9 @@ class MPPI:
         key = (self.config, self.use_pallas)
         if key not in cache:
             cache[key] = factory(self.config, self.F, self.running_cost,
-                                 use_pallas=self.use_pallas)
+                                 use_pallas=self.use_pallas,
+                                 terminal_state_cost=self.terminal_state_cost,
+                                 terminal_final_cost=self.terminal_final_cost)
         return cache[key]
 
     def _build_step_fns(self):
@@ -787,8 +798,6 @@ class MPPI_Batched:
     ):
         _check_jax_rng(key, prng_impl)
         _reject_unported(
-            terminal_state_cost=terminal_state_cost,
-            terminal_final_cost=terminal_final_cost,
             stochastic_dynamics=stochastic_dynamics, num_iterations=num_iterations,
             dynamics_params=dynamics_params, mesh=mesh, env_axis=env_axis,
             sample_axis=sample_axis,
@@ -816,6 +825,7 @@ class MPPI_Batched:
             u_scale=self.u_scale,
             u_per_command=self.u_per_command,
             noise_abs_cost=bool(noise_abs_cost),
+            has_terminal_cost=terminal_state_cost is not None,
             step_dependent_dynamics=bool(step_dependent_dynamics),
             antithetic=bool(antithetic_sampling),
             noise_rho=_validate_rho(noise_rho),
@@ -823,9 +833,13 @@ class MPPI_Batched:
             fused_artifacts=bool(fused_artifacts),
             dtype=self.dtype,
         )
+        self.terminal_state_cost = terminal_state_cost
+        self.terminal_final_cost = terminal_final_cost
         self.running_cost = running_cost
         self._fns = _solve.make_batched_step(self.config, self.N, dynamics, running_cost,
-                                             use_pallas=self.use_pallas)
+                                             use_pallas=self.use_pallas,
+                                             terminal_state_cost=terminal_state_cost,
+                                             terminal_final_cost=terminal_final_cost)
         self._gen = torch.Generator()
         self._gen.manual_seed(0 if seed is None else int(seed))
         U0 = self._sample_noise_eager((self.N, self.T))
@@ -886,5 +900,7 @@ class MPPI_Batched:
         self._state, action, artifacts = fn(self._params, self._state, x0)
         self.cost_total = artifacts.cost_total
         self.omega = artifacts.omega
-        self.states = artifacts.states  # None: no terminal cost in this port yet
+        # (N, K, T, nx) candidate rollouts; None without a terminal_state_cost
+        # (lazy storage, as in the single-plant controller)
+        self.states = artifacts.states
         return action

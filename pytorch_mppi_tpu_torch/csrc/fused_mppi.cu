@@ -110,9 +110,14 @@
 // reductions.
 // chip_smoke.py computes the exact bounds from the run's shapes.
 //
-// The legacy route.  fused_rollout: one thread per sample reads its row of
-// the (K, T*nu) scaled actions and rolls the model out from its x0 row; it is
-// bound by the bytes of those actions (2.4 MB at the flagship, 0.7 us).
+// The legacy route.  fused_rollout: bound by the bytes of the (K, T*nu)
+// scaled actions (2.4 MB at the flagship, 0.7 us), so by latency at that
+// size: the launch, one trip to device memory for a block's rows and a
+// 30-step chain a sample.  The design: blocks of S = 32 samples
+// (tile_samples, 313 blocks at K = 10,000), whose rows, one contiguous span,
+// all 128 threads stage in shared memory with 16-byte cp.async copies, every
+// copy in flight at once, before one thread a sample rolls its row out of
+// shared memory (rows padded so that those reads are free of bank conflicts).
 // weighted_partial<S> (fused_weighted_update): bound by reading the (K, D)
 // noise once (2.4 MB at the flagship, 0.7 us), so by latency at that size:
 // the launch, the block's chain (weights, reductions, the weighted sum) and
@@ -151,12 +156,16 @@
 // TPU's kron(I_T, chol^T)); mu, lo and hi are per-step (nu,) vectors.  No
 // antithetic sign.
 //
+// Kernel A and the batched kernel add the final-state terminal cost of
+// ops/kernel_models.quadratic_terminal when p.terminal is set (a runtime
+// branch: no instantiation of its own); the legacy rollout and the round-1
+// solve take none, as their TPU kernels take none.
+//
 // Left for later: the rollout still takes one thread a sample, so during it
 // a block of S = 32 samples keeps three of its four warps idle; two samples
 // a thread in the batched rollout; a last-block merge for the batched
-// kernel; the legacy rollout's one strided row a thread; merge_partials'
-// dependent L2 loads (kernel A's last block, flash_merge), which
-// weighted_merge's one pass avoids.
+// kernel; merge_partials' dependent L2 loads (kernel A's last block,
+// flash_merge), which weighted_merge's one pass avoids.
 //
 // Plain C interface (no PyTorch headers), loaded with ctypes; each entry
 // returns cudaGetLastError() after its launches.  The file builds whole, or
@@ -224,6 +233,10 @@ struct Params {
   int* counter;  // kernel A: the blocks that finished, 0 between launches
   float* delta;  // kernel A: (R,) the merged update
   float* ms;  // kernel A: (2,) m and s
+  const float* terminal;  // kernel A and kBatched: the quadratic terminal cost's
+                          // constants (goal (nx), w_state, w_action), or null for none
+  int chunk_steps;  // kRollout: steps of a staged chunk of the actions
+  int vec4;  // kRollout: the actions are staged 16 bytes a copy
 };
 
 // --- reductions -------------------------------------------------------------
@@ -414,6 +427,28 @@ struct Pendulum {
     return an * an + 0.1f * (x[1] * x[1]);
   }
 };
+
+// The final-state terminal cost (ops/kernel_models.quadratic_terminal):
+// w_state |x_T - goal|^2 + w_action |u_T|^2 on the final state and the last
+// u_scale-scaled action, as JAX's _tp_rollout_total (pallas_rollout.py:413-442)
+// adds it; c = goal (nx), w_state, w_action.  Kernel A and the batched kernel
+// add it when p.terminal is set, so it needs no instantiation of its own.
+template <int N>
+__device__ __forceinline__ float quadratic_terminal(const float* c, const float* x, const float* u,
+                                                    int nx, int nu) {
+  float sx = 0.0f, su = 0.0f;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    if (i < nx) {
+      const float d = x[i] - c[i];
+      sx += d * d;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+    if (j < nu) su += u[j] * u[j];
+  return c[nx] * sx + c[nx + 1] * su;
+}
 
 constexpr int MERGE_LOADS = 16;  // partials a thread of merge_partials reads at once
 
@@ -694,6 +729,7 @@ __device__ __forceinline__ float sample_cost(const Params& p, const float* col, 
     Model::template step<N>(p.consts, x, u, nx, nu);
     total += Model::template cost<N>(p.consts, x, u, nx, nu);
   }
+  if (p.terminal) total += quadratic_terminal<N>(p.terminal, x, u, nx, nu);
   return (V == kSMPPI ? pc + *p.w_seq * smooth : pc) + total;
 }
 
@@ -720,8 +756,14 @@ __device__ __forceinline__ float sample_cost(const Params& p, const float* col, 
 //      ticket from p.counter) merges every partial into delta and (m, s)
 //      and sets the counter back to 0.
 // Samples at and beyond K draw zeros, weigh exactly 0 and write nothing.
+// The launch bounds ask for two blocks an SM (the flagship's 313 blocks take
+// two or three an SM; a D = 300 tile allows two), which lets ptxas keep more
+// of the products' operands in registers.  With BLOCK alone, ptxas gave the
+// nx = 2, nu = 3 MPPI instantiation fewer registers once the terminal cost
+// was added, and its D = 300 full-operator call took 1.13x as long
+// (tools/batched_host_ab.py on an H100; PERF.md has the times).
 template <class Model, int N, bool kGlobal, int V>
-__global__ void __launch_bounds__(BLOCK) mppi_fused_partial(Params p) {
+__global__ void __launch_bounds__(BLOCK, 2) mppi_fused_partial(Params p) {
   extern __shared__ float smem[];
   __shared__ int ticket;
   const int D = p.D, R = p.R, S = p.S, G = BLOCK / S, tid = threadIdx.x;
@@ -970,6 +1012,31 @@ __device__ __forceinline__ void async_wait() {
 #endif
 }
 
+// A 16-byte copy_async (both addresses 16-byte aligned), bypassing L1.
+__device__ __forceinline__ void copy_async16(float* dst, const float* src) {
+#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 800
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+#else
+  *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
+#endif
+}
+
+// Closes this thread's group of copy_async copies issued since the last one.
+__device__ __forceinline__ void async_commit() {
+#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 800
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+#endif
+}
+
+// Waits until at most `n` of this thread's committed groups are in flight.
+template <int n>
+__device__ __forceinline__ void async_wait_group() {
+#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 800
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
+#endif
+}
+
 // Plant `plant`'s cost of the sample in column `col` of the noise tile: the
 // clamp of U + n against lo and hi, the action cost of the rectified noise,
 // and the T-step rollout from the plant's x0.  Called with nx = nu = N as
@@ -999,6 +1066,7 @@ __device__ __forceinline__ float batched_cost(const Params& p, const float4* cur
     Model::template step<N>(p.consts, x, u, nx, nu);
     total += Model::template cost<N>(p.consts, x, u, nx, nu);
   }
+  if (p.terminal) total += quadratic_terminal<N>(p.terminal, x, u, nx, nu);
   return pc + total;
 }
 
@@ -1150,27 +1218,115 @@ __global__ void __launch_bounds__(BLOCK) batched_partial(Params p) {
 
 // --- the legacy route's rollout ------------------------------------------------
 
-// make_fused_rollout's kernel: sample k = blockIdx.x * BLOCK + threadIdx.x
-// rolls the model out from its column of x0 over its row of the (K, T*nu)
-// scaled actions p.U and writes its summed running cost; the cost is taken
-// after each step.  Samples at and beyond K are not launched work.
+// Floats of a row of the rollout's staged tile for `cols` columns: cols
+// rounded up to q float4s, q odd.  A thread reads its own row four floats at
+// a time; a 16-byte shared load is served eight lanes at once, and lane s of
+// those eight hits the 16-byte bank group (s * q + g) mod 8 for the row's
+// float4 g, all eight distinct when q is odd: the reads of step t are free of
+// bank conflicts.  At D = 60 the row is its 60 floats (q = 15), and the
+// block's rows stay one contiguous span; a scalar read at that stride would
+// be a 4-way conflict (gcd(60, 32) = 4).  At D = 15 the row takes 20 floats.
+__host__ __device__ constexpr int rollout_ldr(int cols) { return (((cols + 3) / 4) | 1) * 4; }
+
+// The rollout stages at most ROLLOUT_SMEM bytes a block (no opt-in to more
+// than 48 KB, so that several blocks share an SM).
+constexpr int ROLLOUT_SMEM = 48 * 1024;
+
+// `steps` steps of one sample from its staged row: the actions of step t are
+// columns t * nu .. t * nu + nu - 1, read as the float4 that holds each (one
+// load a float4 where nu is a multiple of 4, or where the compiler merges the
+// steps of one float4).  The running cost is taken after each step.
+template <class Model, int N>
+__device__ __forceinline__ float rollout_steps(const Params& p, const float* row, int steps,
+                                               float* x, float* u, float total, int nx, int nu) {
+  const float4* row4 = reinterpret_cast<const float4*>(row);
+  for (int t = 0; t < steps; ++t) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      if (j < nu) {
+        const int e = t * nu + j, w = e & 3;
+        const float4 q = row4[e >> 2];
+        u[j] = w == 0 ? q.x : w == 1 ? q.y : w == 2 ? q.z : q.w;
+      }
+    }
+    Model::template step<N>(p.consts, x, u, nx, nu);
+    total += Model::template cost<N>(p.consts, x, u, nx, nu);
+  }
+  return total;
+}
+
+// make_fused_rollout's kernel: block b takes the S = p.S samples
+// [k0, k0 + S), k0 = b * S, with BLOCK threads.  The block's rows of the
+// (K, D) scaled actions are one contiguous span; all BLOCK threads stage it in
+// shared memory with cp.async, every copy in flight at once (16 bytes a copy
+// where p.vec4: D a multiple of 4 and the base 16-byte aligned; else 4 bytes a
+// copy), rows of rollout_ldr floats.  Rows at and beyond K are not read.  A
+// tile larger than ROLLOUT_SMEM goes through in chunks of p.chunk_steps steps,
+// two buffers, the next chunk landing while the block rolls out the current
+// one.  Meanwhile thread s < S reads its sample's x0 (one broadcast when x0 is
+// shared, stride 0); then it rolls the model out on register arrays of N,
+// the running cost taken after each step, and writes cost[k0 + s]
+// (coalesced).
 template <class Model, int N>
 __global__ void __launch_bounds__(BLOCK) fused_rollout(Params p) {
-  const int k = blockIdx.x * BLOCK + threadIdx.x;
-  if (k >= p.K) return;
-  const float* row = p.U + (size_t)k * p.D;
+  extern __shared__ float smem[];
+  const int S = p.S, D = p.D, nu = p.nu, nx = p.nx, tid = threadIdx.x;
+  const int k0 = blockIdx.x * S, k = k0 + tid;
+  const int rows = p.K - k0 < S ? p.K - k0 : S;  // the block's live rows
+  const int Ts = p.chunk_steps, nch = (p.T + Ts - 1) / Ts, cols_max = Ts * nu;
+  const int ldr = rollout_ldr(cols_max);
+  const float* span = p.U + (size_t)k0 * D;
+
+  // chunk c (columns c * Ts * nu onwards) into buffer c % 2, as one group
+  const auto stage = [&](int c) {
+    float* buf = smem + (size_t)(c & 1) * S * ldr;
+    const int c0 = c * cols_max, cols = D - c0 < cols_max ? D - c0 : cols_max;
+    if (p.vec4) {
+      const int units = cols / 4;
+      for (int i = tid; i < rows * units; i += BLOCK) {
+        const int r = i / units, g = i - r * units;
+        copy_async16(buf + r * ldr + 4 * g, span + (size_t)r * D + c0 + 4 * g);
+      }
+    } else {
+      for (int i = tid; i < rows * cols; i += BLOCK) {
+        const int r = i / cols, col = i - r * cols;
+        copy_async(buf + r * ldr + col, span + (size_t)r * D + c0 + col);
+      }
+    }
+    async_commit();
+  };
+  stage(0);
+  if (nch > 1) stage(1);
+
+  const bool live = tid < rows;
   float x[N], u[N];
 #pragma unroll
-  for (int i = 0; i < N; ++i)
-    x[i] = i < p.nx ? p.x0[i * p.x0_row_stride + (long long)k * p.x0_col_stride] : 0.0f;
-  float total = 0.0f;
-  for (int t = 0; t < p.T; ++t) {
-#pragma unroll
-    for (int j = 0; j < N; ++j) u[j] = j < p.nu ? row[t * p.nu + j] : 0.0f;
-    Model::template step<N>(p.consts, x, u, p.nx, p.nu);
-    total += Model::template cost<N>(p.consts, x, u, p.nx, p.nu);
+  for (int i = 0; i < N; ++i) {
+    x[i] = live && i < nx ? p.x0[i * p.x0_row_stride + (long long)k * p.x0_col_stride] : 0.0f;
+    u[i] = 0.0f;
   }
-  p.cost[k] = total;
+  // the N = 2 arrays also hold a rollout with nx = nu = 2 as constants
+  bool exact = false;
+  if constexpr (N == 2) exact = nx == 2 && nu == 2;
+  float total = 0.0f;
+  for (int c = 0; c < nch; ++c) {
+    if (c + 1 < nch)
+      async_wait_group<1>();
+    else
+      async_wait_group<0>();
+    __syncthreads();  // chunk c has landed, whichever thread copied it
+    if (live) {
+      const float* row = smem + (size_t)(c & 1) * S * ldr + (size_t)tid * ldr;
+      const int steps = p.T - c * Ts < Ts ? p.T - c * Ts : Ts;
+      total = exact ? rollout_steps<Model, N>(p, row, steps, x, u, total, N, N)
+                    : rollout_steps<Model, N>(p, row, steps, x, u, total, nx, nu);
+    }
+    if (c + 2 < nch) {
+      __syncthreads();  // buffer c % 2 is read before chunk c + 2 lands in it
+      stage(c + 2);
+    }
+  }
+  if (live) p.cost[k] = total;
 }
 
 // --- kernel B and the legacy route's weighted update -----------------------------
@@ -1731,7 +1887,7 @@ cudaError_t launch_variant(const Params& p, int variant, size_t smem, cudaStream
 template <class Model, int N>
 cudaError_t launch_tiles(const Params& p, int variant, size_t smem, cudaStream_t s) {
   if (variant == kRollout) {
-    fused_rollout<Model, N><<<p.nblocks, BLOCK, 0, s>>>(p);
+    fused_rollout<Model, N><<<p.nblocks, BLOCK, smem, s>>>(p);
     return cudaGetLastError();
   }
   return p.scratch ? launch_variant<Model, N, true>(p, variant, smem, s)
@@ -1931,7 +2087,9 @@ const char* fused_mppi_error_string(int e) { return cudaGetErrorString((cudaErro
 // (launched blocks, tiles, R, BLOCK) for kBatched.  kBatched takes
 // `num_plants` plants in groups of `plant_group` a block, U and a as (D, N)
 // with the strides (u_rs, u_ps) and (a_rs, a_ps), and in operand mode the
-// final noise (R, noise_ld); the other variants take one plant.
+// final noise (R, noise_ld); the other variants take one plant.  `terminal`
+// holds the quadratic terminal cost's constants (goal (nx), w_state,
+// w_action), or is null for no terminal cost.
 int fused_mppi_launch(int device, void* stream, int variant, int model_id, const float* consts,
                       int K, int T, int nx, int nu, int R,
                       const int* bits, int bits_cols, unsigned key0, unsigned key1,
@@ -1944,7 +2102,7 @@ int fused_mppi_launch(int device, void* stream, int variant, int model_id, const
                       float* partial, float* delta, float* ms, float* pert, float* scratch,
                       int num_plants, long long u_rs, long long u_ps, long long a_rs,
                       long long a_ps, const float* noise, long long noise_ld, int plant_group,
-                      int tile_k, int* counter) {
+                      int tile_k, int* counter, const float* terminal) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   Params p{};
@@ -1998,6 +2156,7 @@ int fused_mppi_launch(int device, void* stream, int variant, int model_id, const
   p.counter = counter;
   p.delta = delta;
   p.ms = ms;
+  p.terminal = terminal;
   const size_t smem = kernel_smem(variant, p.D, R, full_op, p.S, scratch != nullptr);
   if (variant < kMPPI || variant > kBatched || num_plants < 1 ||
       (variant == kBatched ? plant_group < 1 : num_plants != 1 || !valid_tile(tile_k) || !counter))
@@ -2159,13 +2318,42 @@ int fused_mppi_sampler(int device, void* stream, int K, int D, const int* bits, 
   return (int)cudaGetLastError();
 }
 
-// make_fused_rollout's kernel on `stream`: cost (K,) of the (K, T*nu) scaled
-// actions u (row-major) from x0 (nx, K) with the given strides.
+// The legacy rollout's geometry for T steps of nu actions and S samples a
+// block, into geo: {steps a chunk, floats a staged row, buffers, dynamic
+// shared bytes}.  The whole tile in one buffer when S rows of rollout_ldr(D)
+// floats fit ROLLOUT_SMEM; else two buffers of the most steps that fit, a
+// multiple of m = 4 / gcd(nu, 4) steps so that every chunk starts on 16
+// bytes (m = 1, and 4-byte copies, where m steps do not fit or T <= m).
+// ops/legacy.rollout_geometry computes the same.
+int fused_mppi_rollout_geometry(int T, int nu, int S, long long* geo) {
+  if (T < 1 || nu < 1 || S < 1) return (int)cudaErrorInvalidValue;
+  long long steps = T, bufs = 1;
+  if ((long long)S * rollout_ldr(T * nu) * 4 > ROLLOUT_SMEM) {
+    int m = nu % 4 == 0 ? 1 : nu % 2 == 0 ? 2 : 4;
+    if (m >= T || 2LL * S * rollout_ldr(m * nu) * 4 > ROLLOUT_SMEM) m = 1;  // scalar copies
+    bufs = 2;
+    steps = m;
+    while (steps + m < T && 2LL * S * rollout_ldr((int)(steps + m) * nu) * 4 <= ROLLOUT_SMEM)
+      steps += m;
+  }
+  geo[0] = steps;
+  geo[1] = rollout_ldr((int)steps * nu);
+  geo[2] = bufs;
+  geo[3] = bufs * S * geo[1] * (long long)sizeof(float);
+  return 0;
+}
+
+// make_fused_rollout's kernel on `stream`, `tile_k` samples a block: cost
+// (K,) of the (K, T*nu) scaled actions u (row-major) from x0 (nx, K) with
+// the given strides.
 int fused_mppi_rollout(int device, void* stream, int model_id, const float* consts, int K, int T,
                        int nx, int nu, const float* x0, long long x0_row_stride,
-                       long long x0_col_stride, const float* u, float* cost) {
+                       long long x0_col_stride, const float* u, float* cost, int tile_k) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
+  long long geo[4];
+  if (K < 1 || !valid_tile(tile_k) || fused_mppi_rollout_geometry(T, nu, tile_k, geo) != 0)
+    return (int)cudaErrorInvalidValue;
   Params p{};
   p.consts = consts;
   p.K = K;
@@ -2173,16 +2361,19 @@ int fused_mppi_rollout(int device, void* stream, int model_id, const float* cons
   p.nx = nx;
   p.nu = nu;
   p.D = T * nu;
-  p.nblocks = (K + BLOCK - 1) / BLOCK;
+  p.S = tile_k;
+  p.nblocks = (K + tile_k - 1) / tile_k;
   p.num_plants = 1;
   p.x0 = x0;
   p.x0_row_stride = x0_row_stride;
   p.x0_col_stride = x0_col_stride;
   p.U = u;
   p.cost = cost;
+  p.chunk_steps = (int)geo[0];
+  p.vec4 = p.D % 4 == 0 && (geo[0] * nu) % 4 == 0 && reinterpret_cast<uintptr_t>(u) % 16 == 0;
   const Launcher launch = find_launcher(kRollout, model_id, nx, nu);
   if (!launch) return (int)cudaErrorInvalidValue;
-  return (int)launch(p, kRollout, 0, (cudaStream_t)stream);
+  return (int)launch(p, kRollout, (size_t)geo[3], (cudaStream_t)stream);
 }
 
 // The weighted update's group of blocks for its first merge level: the

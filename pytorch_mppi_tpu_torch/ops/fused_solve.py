@@ -21,7 +21,9 @@ ops/pallas_rollout.py`` and their helpers (the other four are in
   (delta (D, N), ms (2, N), cost (N, K))`` for N plants that share one
   noise draw, each with its own softmax: ``U_new = U + (delta / ms[1]).T``.
 
-Each is built for a :class:`~.kernel_models.KernelModel`:
+Each is built for a :class:`~.kernel_models.KernelModel`, and optionally a
+final-state terminal cost (``terminal_final``, a
+:func:`~.kernel_models.quadratic_terminal`):
 
 * on CUDA tensors it launches ``csrc/fused_mppi.cu`` and raises if the
   launch fails: kernel A, whose blocks take :func:`tile_samples` samples
@@ -67,7 +69,7 @@ import ctypes
 import torch
 
 from ..config import MPPIConfig
-from .kernel_models import KernelModel
+from .kernel_models import KernelModel, KernelTerminal, find_kernel_terminal
 
 MPPI, SMPPI, KMPPI, BATCHED = 0, 1, 2, 3  # the kernel's variants (Variant in fused_mppi.cu)
 VARIANTS = ("mppi", "smppi", "kmppi")  # the single-plant variants
@@ -307,8 +309,11 @@ def _action_cost(n, a_flat, abs_cost: bool):
     return ((torch.abs(n) if abs_cost else n) * a_flat[:, None]).sum(dim=0)
 
 
-def _rollout_total(model: KernelModel, perturbed, x0T, T: int, nu: int, u_scale: float):
-    """(K,) running cost of the T-step rollout of the (D, K) actions."""
+def _rollout_total(model: KernelModel, perturbed, x0T, T: int, nu: int, u_scale: float,
+                   terminal: KernelTerminal = None):
+    """(K,) running cost of the T-step rollout of the (D, K) actions, plus
+    the terminal cost of the final state and the last scaled action
+    (``_tp_rollout_total``, pallas_rollout.py:413-442)."""
     state = x0T.T
     total = torch.zeros(perturbed.shape[1], dtype=torch.float32, device=perturbed.device)
     for t in range(T):
@@ -317,6 +322,8 @@ def _rollout_total(model: KernelModel, perturbed, x0T, T: int, nu: int, u_scale:
             u_t = u_t * u_scale
         state = model.dynamics(state, u_t)
         total = total + model.running_cost(state, u_t)
+    if terminal is not None:
+        total = total + terminal.cost(state, u_t)
     return total
 
 
@@ -339,7 +346,8 @@ def fused_solve_plain(seed_or_bits, x0T, U2, op, mu_t, lo_t, hi_t, a_flat,
                       lambda_, *, model: KernelModel, K: int, T: int, nu: int,
                       antithetic: bool = False, null_action: bool = False,
                       abs_cost: bool = False, u_scale: float = 1.0,
-                      emit_perturbed: bool = False, pair_block: int = None):
+                      emit_perturbed: bool = False, pair_block: int = None,
+                      terminal: KernelTerminal = None):
     """What the fused MPPI kernel computes, in torch ops on (D, K) tensors of
     any device.  Same arguments and results as the kernel's wrapper."""
     D = T * nu
@@ -350,7 +358,7 @@ def fused_solve_plain(seed_or_bits, x0T, U2, op, mu_t, lo_t, hi_t, a_flat,
     perturbed = torch.clamp(perturbed, lo_t[:, None], hi_t[:, None])
     n = perturbed - U_col
     cost = _action_cost(n, a_flat, abs_cost) + _rollout_total(
-        model, perturbed, x0T, T, nu, u_scale)
+        model, perturbed, x0T, T, nu, u_scale, terminal)
     out = _softmax_update(cost, lambda_, n) + (cost,)
     return out + (perturbed,) if emit_perturbed else out
 
@@ -360,7 +368,7 @@ def smppi_solve_plain(seed_or_bits, x0T, U2, as2, op, mu_t, lo_t, hi_t, alo_t,
                       K: int, T: int, nu: int, antithetic: bool = False,
                       null_action: bool = False, abs_cost: bool = False,
                       u_scale: float = 1.0, emit_perturbed: bool = False,
-                      pair_block: int = None):
+                      pair_block: int = None, terminal: KernelTerminal = None):
     """What the fused SMPPI kernel computes (pallas_rollout.py:829-861): the
     rate clamp, the integration, the null row, the action clamp, the noise
     back-computed through both clamps, the smoothness cost; ``delta`` is in
@@ -378,7 +386,7 @@ def smppi_solve_plain(seed_or_bits, x0T, U2, as2, op, mu_t, lo_t, hi_t, alo_t,
         diff = diff * u_scale
     smooth = w_seq * torch.sum(diff * diff, dim=0)
     cost = (_action_cost(n, a_flat, abs_cost) + smooth) + _rollout_total(
-        model, pert_act, x0T, T, nu, u_scale)
+        model, pert_act, x0T, T, nu, u_scale, terminal)
     out = _softmax_update(cost, lambda_, n) + (cost,)
     return out + (pert_act,) if emit_perturbed else out
 
@@ -388,7 +396,7 @@ def kmppi_solve_plain(seed_or_bits, x0T, U2, theta2, op, mu_p, lop, hip, lo_t,
                       T: int, nu: int, nsp: int, antithetic: bool = False,
                       null_action: bool = False, abs_cost: bool = False,
                       u_scale: float = 1.0, emit_perturbed: bool = False,
-                      pair_block: int = None):
+                      pair_block: int = None, terminal: KernelTerminal = None):
     """What the fused KMPPI kernel computes (pallas_rollout.py:1011-1040):
     support-point noise clamped there, interpolated to the full horizon by
     ``Wt`` (D, Dp) in float32, the null row, the trajectory clamp; ``delta``
@@ -402,7 +410,7 @@ def kmppi_solve_plain(seed_or_bits, x0T, U2, theta2, op, mu_p, lop, hip, lo_t,
     perturbed = torch.clamp(perturbed, lo_t[:, None], hi_t[:, None])
     n = perturbed - U2.reshape(D, 1)
     cost = _action_cost(n, a_flat, abs_cost) + _rollout_total(
-        model, perturbed, x0T, T, nu, u_scale)
+        model, perturbed, x0T, T, nu, u_scale, terminal)
     out = _softmax_update(cost, lambda_, pts - th_col) + (cost,)
     return out + (perturbed,) if emit_perturbed else out
 
@@ -411,7 +419,7 @@ def batched_solve_plain(lead, x0T, U2T, op, mu_t, lo_t, hi_t, aT, lambda_, *,
                         model: KernelModel, K: int, T: int, nu: int,
                         antithetic: bool = False, abs_cost: bool = False,
                         u_scale: float = 1.0, pair_block: int = None,
-                        noise_operand: bool = False):
+                        noise_operand: bool = False, terminal: KernelTerminal = None):
     """What the batched MPPI kernel computes (pallas_rollout.py:1218-1242),
     on (N, D, K) tensors: one (D, K) noise shared by the N plants (drawn as
     :func:`fused_solve_plain` draws it, or the first K columns of the
@@ -433,7 +441,7 @@ def batched_solve_plain(lead, x0T, U2T, op, mu_t, lo_t, hi_t, aT, lambda_, *,
     # the N·K rollouts as one flat batch, plant-major
     flat = perturbed.permute(1, 0, 2).reshape(D, N * K)
     x0_flat = x0T.repeat_interleave(K, dim=1)
-    cost = pc + _rollout_total(model, flat, x0_flat, T, nu, u_scale).reshape(N, K)
+    cost = pc + _rollout_total(model, flat, x0_flat, T, nu, u_scale, terminal).reshape(N, K)
     logits = -cost / lambda_
     m = torch.amax(logits, dim=1)
     w = torch.exp(logits - m[:, None])
@@ -459,10 +467,12 @@ def _lib():
             _I, _P, _I, _I, _P, _I, _I, _I, _I, _I, _P, _I, ctypes.c_uint32,
             ctypes.c_uint32, _I, _I, _I, _I, _P, _L, _L, _P, _P, _P, _I, _P,
             _P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_float, _P, _P, _P,
-            _P, _P, _P, _I, _L, _L, _L, _L, _P, _L, _I, _I, _P,
+            _P, _P, _P, _I, _L, _L, _L, _L, _P, _L, _I, _I, _P, _P,
         ]
         lib.fused_mppi_rollout.argtypes = [_I, _P, _I, _P, _I, _I, _I, _I, _P, _L, _L,
-                                           _P, _P]
+                                           _P, _P, _I]
+        lib.fused_mppi_rollout_geometry.argtypes = [_I, _I, _I, _P]
+        lib.fused_mppi_rollout_geometry.restype = _I
         lib.fused_mppi_weighted_update.argtypes = [_I, _P, _I, _I, _I, _P, _P, _L, _P, _P,
                                                    _P, _P, _P]
         lib.fused_mppi_weighted_group.argtypes = [_I]
@@ -581,11 +591,17 @@ def _make_launch(variant: int, config: MPPIConfig, model: KernelModel, R: int,
     if null_dynamic_gate:
         raise FusedSolveUnavailable(
             "null_dynamic_gate is not ported yet (ROADMAP.md Queue 1 item 12, sharding)")
-    if terminal_final is not None:
+    terminal = find_kernel_terminal(terminal_final)
+    if terminal_final is not None and terminal is None:
         raise FusedSolveUnavailable(
-            "terminal_final is not ported yet (ROADMAP.md Queue 1 item 5, terminal costs)")
+            f"terminal_final {getattr(terminal_final, '__name__', terminal_final)!r} is not a "
+            f"kernel terminal cost: the kernel evaluates only those it names "
+            f"(ops/kernel_models.quadratic_terminal)")
     check_kernel_model(config, model)
     K, T, nx, nu = config.K, config.T, config.nx, config.nu
+    if terminal is not None and terminal.nx != nx:  # the kernel reads goal[:nx]
+        raise ValueError(f"terminal cost {terminal.name!r} is for nx={terminal.nx}; the "
+                         f"config is nx={nx}")
     D = T * nu
     batched = variant == BATCHED
     antithetic = config.antithetic and not noise_operand  # the operand holds the mirror
@@ -608,7 +624,7 @@ def _make_launch(variant: int, config: MPPIConfig, model: KernelModel, R: int,
     bits_cols = K_pad // 2 if antithetic else K_pad
     flags = dict(model=model, K=K, T=T, nu=nu, antithetic=config.antithetic,
                  abs_cost=config.noise_abs_cost, u_scale=float(config.u_scale),
-                 pair_block=pair_block)
+                 pair_block=pair_block, terminal=terminal)
     if batched:
         flags.update(noise_operand=noise_operand)
     else:
@@ -648,6 +664,7 @@ def _make_launch(variant: int, config: MPPIConfig, model: KernelModel, R: int,
         else:
             key = tuple(int(w) & 0xFFFFFFFF for w in lead)
         consts = model.consts_on(device)
+        term = terminal.consts_on(device) if terminal is not None else None
         f32 = dict(dtype=torch.float32, device=device)
         cost = torch.empty((plants, K) if batched else K, **f32)
         partial = torch.empty((plants, nblocks, R + 2), **f32)
@@ -671,6 +688,7 @@ def _make_launch(variant: int, config: MPPIConfig, model: KernelModel, R: int,
             plants, U2.stride(0), U2.stride(-1) if batched else 0, a_flat.stride(0),
             a_flat.stride(-1) if batched else 0, _ptr(noise),
             noise.stride(0) if noise is not None else 0, group, S, _ptr(counter),
+            _ptr(term),
         )
         raise_on_error(lib, rc, "fused_mppi")
         if batched:
@@ -716,11 +734,14 @@ def make_transposed_fused_solve(config: MPPIConfig, model: KernelModel,
     docstring for the call contract).  Raises ValueError for a non-float32
     config or a model whose sizes differ from the config's, and
     :class:`FusedSolveUnavailable` when nx or nu exceeds the device models'
-    registers (32), or for the JAX kernel's options this port does not run
-    yet: ``null_dynamic_gate`` and ``terminal_final`` (the elites operand has
-    no config field here; the controller rejects ``num_elites``).
-    ``tile_k`` forces the samples of a block of the kernel (32, 64 or 128;
-    default :func:`tile_samples`); ``solve.tile_k`` holds it."""
+    registers (32), for a ``terminal_final`` that is not a kernel terminal
+    cost (:func:`~.kernel_models.quadratic_terminal`), or for
+    ``null_dynamic_gate``, which this port does not run yet (the elites
+    operand has no config field here; the controller rejects ``num_elites``).
+    ``terminal_final`` adds the terminal cost of each sample's final state and
+    last scaled action to its cost, as the JAX kernel's.  ``tile_k`` forces
+    the samples of a block of the kernel (32, 64 or 128; default
+    :func:`tile_samples`); ``solve.tile_k`` holds it."""
     D = config.T * config.nu
     launch, flags, info = _make_launch(MPPI, config, model, D, pair_block,
                                        emit_perturbed, null_dynamic_gate,
@@ -798,9 +819,8 @@ def make_transposed_batched_solve(config: MPPIConfig, num_envs: int,
     float32 noise (one draw outside, already mirrored, correlated and
     mu-shifted) and the kernel draws nothing.  There is no null-action row.
     Each block of the kernel takes ``group`` plants (default: the rule of
-    :func:`plant_group`); ``solve.plant_group`` holds it.  Raises
-    :class:`FusedSolveUnavailable` for ``terminal_final``, and as
-    :func:`make_transposed_fused_solve`."""
+    :func:`plant_group`); ``solve.plant_group`` holds it.  Takes
+    ``terminal_final`` and raises as :func:`make_transposed_fused_solve`."""
     plants = int(num_envs)
     if plants < 1:
         raise ValueError(f"num_envs must be >= 1, got {plants}")

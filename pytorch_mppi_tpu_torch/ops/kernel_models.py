@@ -12,6 +12,13 @@ plain solve path runs, and what the kernel's plain version runs on the CPU.
 :func:`find_kernel_model` recovers the model from a ``(dynamics,
 running_cost)`` pair; any other callable has no kernel model, and
 ``use_pallas`` then takes the plain path with a warning.
+
+Final-state terminal costs are named the same way: :func:`quadratic_terminal`
+returns a plain torch ``terminal_final_cost`` tagged with the
+:class:`KernelTerminal` the kernels evaluate after the last rollout step
+(JAX traces any terminal cost into its kernel, ``pallas_rollout.py:349-372``);
+:func:`find_kernel_terminal` recovers it, and any other callable takes the
+plain path with a warning.
 """
 from __future__ import annotations
 
@@ -46,12 +53,36 @@ class KernelModel:
     def consts_on(self, device) -> torch.Tensor:
         """The constants as a contiguous float32 tensor on ``device`` (copied
         once per device)."""
-        device = torch.device(device)
-        c = self._device_consts.get(device)
-        if c is None:
-            c = self.consts.to(device=device, dtype=torch.float32).contiguous()
-            self._device_consts[device] = c
-        return c
+        return _consts_on(self.consts, self._device_consts, device)
+
+
+def _consts_on(consts: torch.Tensor, cache: dict, device) -> torch.Tensor:
+    device = torch.device(device)
+    c = cache.get(device)
+    if c is None:
+        c = cache[device] = consts.to(device=device, dtype=torch.float32).contiguous()
+    return c
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class KernelTerminal:
+    """A final-state terminal cost the kernels can evaluate.
+
+    ``cost(final_state (K, nx), final_action (K, nu)) -> (K,)`` is the plain
+    torch version, given the last ``u_scale``-scaled action as JAX's
+    ``terminal_final_cost``; the kernels run ``csrc/fused_mppi.cu``'s
+    ``quadratic_terminal`` with ``consts``."""
+
+    name: str
+    nx: int
+    consts: torch.Tensor  # float32, 1-D, on the CPU
+    cost: Callable
+    _device_consts: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    def consts_on(self, device) -> torch.Tensor:
+        """The constants as a contiguous float32 tensor on ``device`` (copied
+        once per device)."""
+        return _consts_on(self.consts, self._device_consts, device)
 
 
 def _tag(model: KernelModel) -> KernelModel:
@@ -66,6 +97,34 @@ def find_kernel_model(dynamics, running_cost) -> Optional[KernelModel]:
     if m is not None and getattr(running_cost, "kernel_model", None) is m:
         return m
     return None
+
+
+def find_kernel_terminal(terminal_final_cost) -> Optional[KernelTerminal]:
+    """The kernel terminal cost a ``terminal_final_cost`` callable carries,
+    or None."""
+    return getattr(terminal_final_cost, "kernel_terminal", None)
+
+
+def quadratic_terminal(goal, w_state: float, w_action: float) -> Callable:
+    """The final-state terminal cost ``w_state·‖x_T − goal‖² +
+    w_action·‖u_T‖²`` as a plain torch ``terminal_final_cost(final_state
+    (K, nx), final_action (K, nu)) -> (K,)``, tagged with its
+    :class:`KernelTerminal` (``.kernel_terminal``) so that ``use_pallas``
+    keeps the fused kernel.  ``goal`` is (nx,) (a tensor or a numpy array);
+    ``final_action`` is the last ``u_scale``-scaled action."""
+    goal = torch.as_tensor(goal, dtype=torch.float32).cpu()
+    if goal.ndim != 1:
+        raise ValueError(f"quadratic_terminal needs goal (nx,), got {tuple(goal.shape)}")
+    w_state, w_action = float(w_state), float(w_action)
+
+    def terminal_final_cost(state, action):
+        g = goal.to(state.device, state.dtype)
+        return w_state * ((state - g) ** 2).sum(dim=-1) + w_action * (action ** 2).sum(dim=-1)
+
+    consts = torch.cat([goal, torch.tensor([w_state, w_action])])
+    terminal_final_cost.kernel_terminal = KernelTerminal(
+        "quadratic_terminal", goal.numel(), consts, terminal_final_cost)
+    return terminal_final_cost
 
 
 def linear_quadratic(B, goal) -> KernelModel:

@@ -16,9 +16,11 @@ clamp and action cost when ``use_pallas="rollout"`` (``solve.py:1133-1157,
   of the weights, so that the update is ``pert / s``.
 
 On CUDA tensors each launches its kernel in ``csrc/fused_mppi.cu``
-(``fused_rollout``; ``weighted_partial``, which merges its per-block
-softmax partials itself in two levels of tickets: one launch a call) and
-raises if the launch fails; on CPU tensors it runs its plain version
+(``fused_rollout``, whose blocks of :func:`~.fused_solve.tile_samples`
+samples stage their rows in shared memory before the rollout
+(:func:`rollout_geometry`); ``weighted_partial``, which merges its
+per-block softmax partials itself in two levels of tickets: one launch a
+call) and raises if the launch fails; on CPU tensors it runs its plain version
 (:func:`fused_rollout_plain`, :func:`weighted_update_plain`).  Float32
 only; the update's sums are fp32 FMAs, as the JAX dot's
 ``Precision.HIGHEST``.  The update's merge counts the finished blocks in
@@ -27,6 +29,7 @@ calls must not run at once on two streams of one device.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -39,9 +42,11 @@ from .kernel_models import KernelModel
 def pallas_eligible(config: MPPIConfig) -> bool:
     """Static eligibility for the legacy kernels (``pallas_rollout.py:61``):
     float32, and no step dependence (the device models take no timestep).
-    The JAX check's other conditions (M = 1, no terminal cost, no specific
-    dynamics, deterministic and unparameterized dynamics) are flags the
-    port's controllers reject before a step is built."""
+    A terminal cost sends the route to the plain path
+    (``solve._route_legacy_rollout``); the JAX check's other conditions
+    (M = 1, no specific dynamics, deterministic and unparameterized
+    dynamics) are flags the port's controllers reject before a step is
+    built."""
     return config.dtype == torch.float32 and not config.step_dependent_dynamics
 
 
@@ -52,12 +57,64 @@ def fused_rollout_plain(x0_K, u_scaled, *, model: KernelModel):
     return FS._rollout_total(model, u_scaled.reshape(K, T * nu).T, x0_K.T, T, nu, 1.0)
 
 
-def make_fused_rollout(config: MPPIConfig, model: KernelModel):
+ROLLOUT_SMEM = 48 * 1024  # the rollout's staged bytes a block at most (fused_mppi.cu)
+
+
+def rollout_ldr(cols: int) -> int:
+    """Floats of a staged row of ``cols`` actions: ceil(cols / 4) float4s
+    made odd, so that the 16-byte reads of one step are free of bank
+    conflicts (``rollout_ldr`` in fused_mppi.cu)."""
+    return (-(-cols // 4) | 1) * 4
+
+
+def rollout_geometry(T: int, nu: int, S: int) -> dict:
+    """How the rollout kernel stages a block's S rows of T·nu actions
+    (``fused_mppi_rollout_geometry``): all T steps in one buffer when the
+    tile fits ``ROLLOUT_SMEM``, else chunks of ``steps`` steps in two
+    buffers (the next chunk lands while the block rolls out the current
+    one), a multiple of 4 / gcd(nu, 4) steps so that every chunk starts on
+    16 bytes (else one step, copied 4 bytes at a time)."""
+    steps, bufs = T, 1
+    if S * rollout_ldr(T * nu) * 4 > ROLLOUT_SMEM:
+        m = 1 if nu % 4 == 0 else 2 if nu % 2 == 0 else 4
+        if m >= T or 2 * S * rollout_ldr(m * nu) * 4 > ROLLOUT_SMEM:
+            m = 1
+        bufs, steps = 2, m
+        while steps + m < T and 2 * S * rollout_ldr((steps + m) * nu) * 4 <= ROLLOUT_SMEM:
+            steps += m
+    ldr = rollout_ldr(steps * nu)
+    return dict(steps=steps, ldr=ldr, buffers=bufs, smem=bufs * S * ldr * 4,
+                chunks=-(-T // steps))
+
+
+def _rollout_lib():
+    """The library, its staging geometry checked once against
+    :func:`rollout_geometry`."""
+    lib = FS._lib()
+    if not getattr(lib, "_rollout_checked", False):
+        geo = (ctypes.c_longlong * 4)()
+        for T, nu, S in ((30, 2, 32), (15, 1, 32), (100, 3, 128), (300, 1, 128),
+                         (100, 31, 64), (3, 31, 128), (250, 32, 128)):
+            g = rollout_geometry(T, nu, S)
+            if (lib.fused_mppi_rollout_geometry(T, nu, S, geo) != 0
+                    or list(geo) != [g["steps"], g["ldr"], g["buffers"], g["smem"]]):
+                raise RuntimeError("fused_mppi.cu's rollout geometry differs from "
+                                   "ops/legacy.py's")
+        lib._rollout_checked = True
+    return lib
+
+
+def make_fused_rollout(config: MPPIConfig, model: KernelModel, tile_k: int = None):
     """The K×T rollout of ``model`` as one kernel call: ``rollout(x0_K
     (K, nx) of any strides, u_scaled (K, T, nu) contiguous) -> cost (K,)``.
-    Raises as :func:`~.fused_solve.make_transposed_fused_solve` for the
-    config and model."""
+    The kernel's blocks take ``tile_k`` samples (32, 64 or 128; ``.tile_k``
+    holds it); None takes :func:`~.fused_solve.tile_samples` of K and the
+    card's SM count at each call.  Raises as
+    :func:`~.fused_solve.make_transposed_fused_solve` for the config and
+    model."""
     FS.check_kernel_model(config, model)
+    if tile_k is not None and tile_k not in FS.TILES:
+        raise ValueError(f"tile_k must be one of {FS.TILES}, got {tile_k}")
     K, T, nx, nu = config.K, config.T, config.nx, config.nu
 
     def rollout(x0_K, u_scaled):
@@ -65,16 +122,18 @@ def make_fused_rollout(config: MPPIConfig, model: KernelModel):
         FS._check("x0_K", x0_K, device, shape=(K, nx), contiguous=False)
         FS._check("u_scaled", u_scaled, device, shape=(K, T, nu))
         cost = torch.empty(K, dtype=torch.float32, device=device)
-        lib = FS._lib()
+        lib = _rollout_lib()
         rc = lib.fused_mppi_rollout(
             FS.device_index(device), FS.stream_of(device), model.model_id,
             model.consts_on(device).data_ptr(), K, T, nx, nu, x0_K.data_ptr(),
-            x0_K.stride(1), x0_K.stride(0), u_scaled.data_ptr(), cost.data_ptr())
+            x0_K.stride(1), x0_K.stride(0), u_scaled.data_ptr(), cost.data_ptr(),
+            FS.check_tile(tile_k, K))
         FS.raise_on_error(lib, rc, "fused_rollout")
         FS.launches["rollout"] += 1
         return cost
 
-    return FS.finish(rollout, fused_rollout_plain, dict(model=model), {}, device_arg=1)
+    return FS.finish(rollout, fused_rollout_plain, dict(model=model), dict(tile_k=tile_k),
+                     device_arg=1)
 
 
 def weighted_update_plain(cost, noise, lambda_):

@@ -21,6 +21,12 @@ SMPPI samples in action-rate space and integrates onto the commanded
 sequence (reference mppi.py:451-570); KMPPI samples at support points and
 interpolates them to the horizon (reference mppi.py:593-688).
 
+Every factory takes JAX's two terminal hooks (:func:`rollout_costs`):
+``terminal_state_cost`` over the stored rollout, which only the plain path
+runs, and ``terminal_final_cost`` of the last step, which the fused kernels
+evaluate when it is a kernel terminal cost
+(:func:`~.kernel_models.quadratic_terminal`).
+
 The reference quirks stay: U is not clamped again after the update, the
 running cost is taken at the state after the dynamics step, and ``u_scale``
 is applied inside the rollout.  Tensors are not updated in place, except
@@ -208,26 +214,88 @@ def wrap_cost(config: MPPIConfig, running_cost: Callable) -> Callable:
     return _adapt_batch_rank(lambda s, u, t: running_cost(s, u))
 
 
+def wrap_final_cost(terminal_final_cost: Callable) -> Callable:
+    """Resolve the user final-state terminal cost ``(final_state (..., nx),
+    final_action (..., nu)) -> cost (...)`` with the batch-rank adaptation
+    of :func:`wrap_cost` (``pytorch_mppi_tpu/ops/solve.py:300-310``).  A
+    terminal cost of the last step only keeps lazy storage (no (K, T, nx)
+    states tensor) and, as a kernel terminal cost
+    (:func:`~.kernel_models.quadratic_terminal`), the fused kernels."""
+    return _adapt_batch_rank(terminal_final_cost)
+
+
+def _gate_terminal(terminal_state_cost, terminal_final_cost):
+    """The two terminal hooks are mutually exclusive: the full-trajectory one
+    forces rollout storage, the final-state one exists to avoid it
+    (``solve.py:313-323``)."""
+    if terminal_state_cost is not None and terminal_final_cost is not None:
+        raise ValueError(
+            "terminal_state_cost and terminal_final_cost are mutually "
+            "exclusive: use terminal_state_cost for costs over the full "
+            "(K, T, nx) trajectory, terminal_final_cost for costs of the "
+            "final state only (keeps lazy storage and fused-kernel "
+            "eligibility)"
+        )
+
+
+def _terminal_hooks(config: MPPIConfig, terminal_state_cost, terminal_final_cost):
+    """The checks every step factory makes of the terminal hooks; returns
+    the wrapped final-state cost (or None).  A ``terminal_state_cost`` needs
+    ``config.has_terminal_cost``, which turns the rollout storage on."""
+    _gate_terminal(terminal_state_cost, terminal_final_cost)
+    if (terminal_state_cost is not None) != config.has_terminal_cost:
+        raise ValueError(
+            f"config.has_terminal_cost={config.has_terminal_cost} but terminal_state_cost is "
+            f"{'set' if terminal_state_cost is not None else 'None'}: the config's flag keeps "
+            f"the rollout states the terminal cost reads")
+    return wrap_final_cost(terminal_final_cost) if terminal_final_cost is not None else None
+
+
 # ---------------------------------------------------------------------------
 # Rollout
 # ---------------------------------------------------------------------------
 
 
 def rollout_costs(config: MPPIConfig, dynamics: Callable, running_cost: Callable,
-                  x0: torch.Tensor, perturbed_actions: torch.Tensor) -> torch.Tensor:
+                  x0: torch.Tensor, perturbed_actions: torch.Tensor,
+                  terminal_state_cost: Callable = None, terminal_final_cost: Callable = None):
     """T-step rollout of K trajectories from ``x0`` ((nx,) shared or (K, nx)),
-    returning the (K,) summed running cost.  ``dynamics`` and
-    ``running_cost`` are wrapped (:func:`wrap_dynamics`); the cost is taken
-    at the state after each step, on the ``u_scale``-scaled action."""
+    returning ``(cost (K,), states, actions)``
+    (``pytorch_mppi_tpu/ops/solve.py:332-448`` at M = 1).  ``dynamics``,
+    ``running_cost`` and ``terminal_final_cost`` are wrapped
+    (:func:`wrap_dynamics`, :func:`wrap_final_cost`); the cost is taken at
+    the state after each step, on the ``u_scale``-scaled action.
+
+    Under ``config.store_rollouts`` the states (1, K, T, nx) and the scaled
+    actions (1, K, T, nu) are kept, in JAX's (M, K, T, ·) layout, and
+    ``terminal_state_cost(states, actions)`` ((K,) or (1, K)) is added;
+    otherwise both are None.  ``terminal_final_cost(final_state, last scaled
+    action)`` is added from the loop's last state, with nothing stored."""
     K, T, _ = perturbed_actions.shape
+    nx = config.nx
     state = x0 if x0.ndim == 2 else x0[None].expand(K, x0.shape[-1])
     u_scaled = perturbed_actions * config.u_scale
     cost = torch.zeros(K, dtype=config.dtype, device=perturbed_actions.device)
+    store = config.store_rollouts
+    kept = []
     for t in range(T):
         u_t = u_scaled[:, t]
         state = dynamics(state, u_t, t)
         cost = cost + running_cost(state, u_t, t)
-    return cost
+        if store:
+            kept.append(state[..., :nx])
+    states = actions = None
+    if store:
+        states = torch.stack(kept, dim=1)[None]
+        actions = u_scaled[None]
+        if terminal_state_cost is not None:
+            # a (K,) or (1, K) cost onto the (1, K) samples (mppi.py:324-328)
+            c = torch.as_tensor(terminal_state_cost(states, actions), dtype=config.dtype)
+            cost = (cost[None] + c)[0]
+    if terminal_final_cost is not None:
+        c = terminal_final_cost(state[..., :nx], u_t)
+        cost = cost + torch.as_tensor(c, dtype=config.dtype).reshape(K)
+    return cost, states, actions
 
 
 def inject_specific_actions(config: MPPIConfig, perturbed2: torch.Tensor) -> torch.Tensor:
@@ -253,6 +321,12 @@ def _shift_U(U: torch.Tensor, u_init: torch.Tensor) -> torch.Tensor:
     U = torch.roll(U, -1, dims=0)
     U[-1] = u_init
     return U
+
+
+def _unscaled(config: MPPIConfig, actions):
+    """The stored actions artifact: the rollout's scaled actions over
+    ``u_scale`` (``solve.py:1411``), or None."""
+    return None if actions is None else actions / config.u_scale
 
 
 # ---------------------------------------------------------------------------
@@ -289,10 +363,22 @@ def _x0_to_lanes(x0: torch.Tensor, K: int) -> torch.Tensor:
 def _route_transposed_solve(config: MPPIConfig, dynamics: Callable,
                             running_cost: Callable,
                             factory: Callable = FS.make_transposed_fused_solve,
-                            variant: str = "MPPI"):
+                            variant: str = "MPPI", terminal_state_cost: Callable = None,
+                            terminal_final_cost: Callable = None):
     """``use_pallas`` routing, decided once when the step is built: the fused
     solve that ``factory`` builds, or None (the plain path) with a warning
-    saying why."""
+    saying why.  A ``terminal_state_cost`` reads the rollout storage the
+    kernel keeps out of memory, so it takes the plain path, as JAX's
+    eligibility check (``solve.py:817-830``); a ``terminal_final_cost`` goes
+    into the kernel when it is a kernel terminal cost, and any other takes
+    the plain path, as a terminal cost JAX cannot trace into its kernel
+    (``solve.py:831``)."""
+    if terminal_state_cost is not None:
+        logger.warning(
+            "use_pallas requested but terminal_state_cost reads the (K, T, nx) rollout "
+            "storage the fused kernel keeps out of memory; using the plain torch path for "
+            "%s (a terminal_final_cost keeps the kernel)", variant)
+        return None
     model = find_kernel_model(dynamics, running_cost)
     if model is None:
         logger.warning(
@@ -308,7 +394,8 @@ def _route_transposed_solve(config: MPPIConfig, dynamics: Callable,
         )
         return None
     try:
-        solve = factory(config, model, emit_perturbed=config.fused_artifacts)
+        solve = factory(config, model, emit_perturbed=config.fused_artifacts,
+                        terminal_final=terminal_final_cost)
     except FS.FusedSolveUnavailable as e:
         logger.warning(
             "use_pallas: fused %s kernel unavailable for this configuration "
@@ -326,12 +413,15 @@ def _route_transposed_solve(config: MPPIConfig, dynamics: Callable,
 
 
 def _route_legacy_rollout(config: MPPIConfig, dynamics: Callable,
-                          running_cost: Callable):
+                          running_cost: Callable, has_terminal: bool = False):
     """``use_pallas="rollout"`` routing (``solve.py:1133-1157``): the legacy
-    rollout kernel, or None (the plain path) with a warning saying why."""
+    rollout kernel, or None (the plain path) with a warning saying why.  The
+    kernel takes no terminal cost, as JAX's ``pallas_eligible(has_terminal)``."""
     model = find_kernel_model(dynamics, running_cost)
     why = None
-    if model is None:
+    if has_terminal:
+        why = "a terminal cost is set, which the legacy rollout kernel does not take"
+    elif model is None:
         why = "the dynamics and running cost carry no kernel model (ops/kernel_models.py)"
     elif not LG.pallas_eligible(config):
         why = "the configuration is ineligible (non-float32 or step-dependent)"
@@ -366,7 +456,8 @@ class StepFns(NamedTuple):
 
 
 def make_mppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callable,
-                   use_pallas=False) -> StepFns:
+                   use_pallas=False, terminal_state_cost: Callable = None,
+                   terminal_final_cost: Callable = None) -> StepFns:
     """Build the MPPI solve for one configuration.
 
     With ``use_pallas`` (the JAX package's name for its fused kernel), an
@@ -376,7 +467,15 @@ def make_mppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callabl
     Philox stream, so its samples differ from the plain path's.  With
     ``use_pallas="rollout"`` the plain path's noise stream is kept and the
     rollout and the weighted update run through the legacy kernels.
+
+    ``terminal_state_cost(states (1, K, T, nx), actions (1, K, T, nu)) ->
+    (K,)`` (with ``config.has_terminal_cost``) and ``terminal_final_cost(
+    final_state (K, nx), final_action (K, nu)) -> (K,)``, mutually
+    exclusive, add a terminal cost as JAX's (:func:`rollout_costs`); only a
+    kernel terminal cost given as ``terminal_final_cost`` keeps the fused
+    kernel, and neither the legacy route.
     """
+    final_cost = _terminal_hooks(config, terminal_state_cost, terminal_final_cost)
     dyn = wrap_dynamics(config, dynamics)
     cost = wrap_cost(config, running_cost)
     dtype = config.dtype
@@ -384,9 +483,12 @@ def make_mppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callabl
     D = T * nu
 
     legacy = use_pallas == "rollout"
-    fused_rollout = (_route_legacy_rollout(config, dynamics, running_cost)
+    has_terminal = terminal_state_cost is not None or terminal_final_cost is not None
+    fused_rollout = (_route_legacy_rollout(config, dynamics, running_cost, has_terminal)
                      if legacy else None)
-    transposed_solve = (_route_transposed_solve(config, dynamics, running_cost)
+    transposed_solve = (_route_transposed_solve(config, dynamics, running_cost,
+                                                terminal_state_cost=terminal_state_cost,
+                                                terminal_final_cost=terminal_final_cost)
                         if use_pallas and not legacy else None)
 
     def _one_iteration_fused(params: MPPIParams, U, x0, s: int):
@@ -433,8 +535,11 @@ def make_mppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callabl
         n_for_cost = torch.abs(noise2) if config.noise_abs_cost else noise2
         perturbation_cost = n_for_cost @ a_flat
         perturbed = perturbed2.reshape(K, T, nu)
+        states = actions = None
         if fused_rollout is None:
-            cost_total = rollout_costs(config, dyn, cost, x0, perturbed) + perturbation_cost
+            rollout_cost, states, actions = rollout_costs(
+                config, dyn, cost, x0, perturbed, terminal_state_cost, final_cost)
+            cost_total = rollout_cost + perturbation_cost
             cost_total_non_zero, omega = compute_weighting(cost_total, params.lambda_)
             U_new = U + (omega @ noise2).reshape(T, nu)
         else:
@@ -446,7 +551,8 @@ def make_mppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callabl
                 cost_total, params.lambda_, m, s_)
             U_new = U + (pert_flat / s_).reshape(T, nu)
         return U_new, Artifacts(cost_total, cost_total_non_zero, omega,
-                                noise2.reshape(K, T, nu), perturbed)
+                                noise2.reshape(K, T, nu), perturbed, states,
+                                _unscaled(config, actions))
 
     def _solve(params: MPPIParams, state: MPPIState, x0, shift: bool):
         U = _shift_U(state.U, params.u_init) if shift else state.U
@@ -468,13 +574,15 @@ def make_mppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callabl
 
 
 def make_smppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callable,
-                    use_pallas: bool = False) -> StepFns:
+                    use_pallas: bool = False, terminal_state_cost: Callable = None,
+                    terminal_final_cost: Callable = None) -> StepFns:
     """Build the SMPPI solve (``pytorch_mppi_tpu/ops/solve.py:1469-1696``):
     noise in action-rate space, clamped to the rate bounds, integrated onto
     the commanded sequence, clamped to the action bounds, the noise
     back-computed through both clamps and a smoothness cost added.  The
     steps take :class:`SMPPIParams` and :class:`SMPPIState`; ``use_pallas``
-    routes as in :func:`make_mppi_step`."""
+    and the terminal hooks work as in :func:`make_mppi_step`."""
+    final_cost = _terminal_hooks(config, terminal_state_cost, terminal_final_cost)
     dyn = wrap_dynamics(config, dynamics)
     cost = wrap_cost(config, running_cost)
     dtype = config.dtype
@@ -483,7 +591,8 @@ def make_smppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callab
 
     transposed_solve = (
         _route_transposed_solve(config, dynamics, running_cost,
-                                FS.make_transposed_smppi_solve, "SMPPI")
+                                FS.make_transposed_smppi_solve, "SMPPI",
+                                terminal_state_cost, terminal_final_cost)
         if use_pallas else None)
 
     def _one_iteration_fused(params: SMPPIParams, U, action_sequence, x0, s: int):
@@ -540,12 +649,14 @@ def make_smppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callab
         action_diff = config.u_scale * (perturbed_action2[:, nu:] - perturbed_action2[:, :-nu])
         smoothness = params.w_action_seq_cost * torch.sum(action_diff * action_diff, dim=1)
         perturbed_action = perturbed_action2.reshape(K, T, nu)
-        cost_total = (rollout_costs(config, dyn, cost, x0, perturbed_action)
-                      + perturbation_cost + smoothness)
+        rollout_cost, states, actions = rollout_costs(
+            config, dyn, cost, x0, perturbed_action, terminal_state_cost, final_cost)
+        cost_total = rollout_cost + perturbation_cost + smoothness
         cost_total_non_zero, omega = compute_weighting(cost_total, base.lambda_)
         U_new = U + (omega @ noise2).reshape(T, nu)
         return U_new, Artifacts(cost_total, cost_total_non_zero, omega,
-                                noise2.reshape(K, T, nu), perturbed_action)
+                                noise2.reshape(K, T, nu), perturbed_action, states,
+                                _unscaled(config, actions))
 
     def _solve(params: SMPPIParams, state: SMPPIState, x0, shift: bool):
         U, action_sequence = state.U, state.action_sequence
@@ -577,13 +688,16 @@ def _shift_sequence(seq: torch.Tensor) -> torch.Tensor:
 
 
 def make_kmppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callable,
-                    use_pallas: bool = False) -> StepFns:
+                    use_pallas: bool = False, terminal_state_cost: Callable = None,
+                    terminal_final_cost: Callable = None) -> StepFns:
     """Build the KMPPI solve (``pytorch_mppi_tpu/ops/solve.py:1704-1924``):
     noise at the ``num_support_pts`` control points, clamped there,
     interpolated to the horizon by ``kron(interp_full, I_nu)``, the null row,
     the trajectory clamp; the update is taken in theta space and
     ``U = interp_full @ theta``.  The steps take :class:`KMPPIParams` and
-    :class:`KMPPIState`; ``use_pallas`` routes as in :func:`make_mppi_step`."""
+    :class:`KMPPIState`; ``use_pallas`` and the terminal hooks work as in
+    :func:`make_mppi_step`."""
+    final_cost = _terminal_hooks(config, terminal_state_cost, terminal_final_cost)
     dyn = wrap_dynamics(config, dynamics)
     cost = wrap_cost(config, running_cost)
     dtype = config.dtype
@@ -592,7 +706,8 @@ def make_kmppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callab
 
     transposed_solve = (
         _route_transposed_solve(config, dynamics, running_cost,
-                                FS.make_transposed_kmppi_solve, "KMPPI")
+                                FS.make_transposed_kmppi_solve, "KMPPI",
+                                terminal_state_cost, terminal_final_cost)
         if use_pallas else None)
 
     def _interp_rows(params: KMPPIParams):
@@ -648,13 +763,16 @@ def make_kmppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callab
         n_for_cost = torch.abs(noise2) if config.noise_abs_cost else noise2
         perturbation_cost = n_for_cost @ a_flat
         perturbed = perturbed2.reshape(K, T, nu)
-        cost_total = rollout_costs(config, dyn, cost, x0, perturbed) + perturbation_cost
+        rollout_cost, states, actions = rollout_costs(
+            config, dyn, cost, x0, perturbed, terminal_state_cost, final_cost)
+        cost_total = rollout_cost + perturbation_cost
         cost_total_non_zero, omega = compute_weighting(cost_total, base.lambda_)
         # weighted update in control-point space (mppi.py:672-682)
         theta_new = theta + (omega @ noise_theta2).reshape(nsp, nu)
         return (params.interp_full @ theta_new, theta_new,
                 Artifacts(cost_total, cost_total_non_zero, omega,
-                          noise2.reshape(K, T, nu), perturbed))
+                          noise2.reshape(K, T, nu), perturbed, states,
+                          _unscaled(config, actions)))
 
     def _solve(params: KMPPIParams, state: KMPPIState, x0, shift: bool):
         U, theta = state.U, state.theta
@@ -686,7 +804,8 @@ BATCHED_USE_PALLAS = (False, True, "force", "kernel_rng")
 
 def make_batched_step(config: MPPIConfig, num_envs: int, dynamics: Callable,
                       running_cost: Callable, use_pallas=False,
-                      transposed_solve_override=None) -> StepFns:
+                      transposed_solve_override=None, terminal_state_cost: Callable = None,
+                      terminal_final_cost: Callable = None) -> StepFns:
     """Build the solve of N plants that share one noise draw
     (``pytorch_mppi_tpu/ops/solve.py:1944-2273``, reference
     ``mppi.py:691-873``): the rollout runs the (N·K,) flat batch, and each
@@ -703,13 +822,21 @@ def make_batched_step(config: MPPIConfig, num_envs: int, dynamics: Callable,
     warning.  ``transposed_solve_override`` is a built batched solve that
     takes the route's place (the tests drive bits mode through it).
 
+    ``terminal_state_cost(states (N, K, T, nx), actions (N, K, T, nu)) ->
+    (N, K)`` (with ``config.has_terminal_cost``; the actions ``u_scale``-
+    scaled) and ``terminal_final_cost(final_state (N·K, nx), final_action
+    (N·K, nu)) -> (N·K,)`` add a terminal cost as JAX's (``solve.py:2201-
+    2237``); a kernel terminal cost given as ``terminal_final_cost`` keeps
+    the batched kernel, and a ``terminal_state_cost`` takes the plain path.
+
     The JAX gates on M, ``risk_alpha``, gradient refinement, elites and
     adaptive covariance have nothing to check: the port's config has none of
-    those fields, and its controllers reject the flags.  Without ``mesh``,
-    terminal costs and ``dyn_params`` (ROADMAP.md Queue 1 items 12, 5, 9).
+    those fields, and its controllers reject the flags.  Without ``mesh``
+    and ``dyn_params`` (ROADMAP.md Queue 1 items 12, 9).
     """
     if use_pallas not in BATCHED_USE_PALLAS:
         raise ValueError(f"use_pallas must be one of {BATCHED_USE_PALLAS}, got {use_pallas!r}")
+    final_cost = _terminal_hooks(config, terminal_state_cost, terminal_final_cost)
     dyn = wrap_dynamics(config, dynamics)
     cost = wrap_cost(config, running_cost)
     dtype = config.dtype
@@ -743,9 +870,9 @@ def make_batched_step(config: MPPIConfig, num_envs: int, dynamics: Callable,
         noise_operand = use_pallas != "kernel_rng"
         transposed_solve = _route_transposed_solve(
             config, dynamics, running_cost,
-            lambda c, model, **_: FS.make_transposed_batched_solve(
-                c, N, model, noise_operand=noise_operand),
-            "MPPI_Batched")
+            lambda c, model, terminal_final=None, **_: FS.make_transposed_batched_solve(
+                c, N, model, noise_operand=noise_operand, terminal_final=terminal_final),
+            "MPPI_Batched", terminal_state_cost, terminal_final_cost)
         if transposed_solve is not None and K < _BATCHED_KERNEL_MIN_K:
             logger.warning(
                 "use_pallas=%r on MPPI_Batched with K=%d: the batched kernel measured "
@@ -794,8 +921,15 @@ def make_batched_step(config: MPPIConfig, num_envs: int, dynamics: Callable,
         actual_noise2 = perturbed2 - U2[:, None]
         # the N·K rollouts as one flat batch (mppi.py:844-853)
         state0 = x0[:, None].expand(N, K, nx).reshape(N * K, nx)
-        cost_total = rollout_costs(config, dyn, cost, state0,
-                                   perturbed2.reshape(N * K, T, nu)).reshape(N, K)
+        rollout_cost, states, actions = rollout_costs(
+            config, dyn, cost, state0, perturbed2.reshape(N * K, T, nu),
+            terminal_final_cost=final_cost)
+        cost_total = rollout_cost.reshape(N, K)
+        if states is not None:
+            # (1, N·K, T, ·) -> (N, K, T, ·): the plants' rollouts (solve.py:2225-2237)
+            states = states.reshape(N, K, T, nx)
+            tc = terminal_state_cost(states, actions.reshape(N, K, T, nu))
+            cost_total = cost_total + torch.as_tensor(tc, dtype=dtype).reshape(N, K)
         a2 = (params.lambda_ * torch.einsum("ntu,vu->ntv", U, sigma_inv)).reshape(N, D)
         n_for_cost = torch.abs(actual_noise2) if config.noise_abs_cost else actual_noise2
         cost_total = cost_total + torch.einsum("nkd,nd->nk", n_for_cost, a2)
@@ -804,7 +938,7 @@ def make_batched_step(config: MPPIConfig, num_envs: int, dynamics: Callable,
         U_new = U + torch.einsum("nk,nkd->nd", omega, actual_noise2).reshape(N, T, nu)
         return U_new, Artifacts(cost_total, cost_total_non_zero, omega,
                                 actual_noise2.reshape(N, K, T, nu),
-                                perturbed2.reshape(N, K, T, nu))
+                                perturbed2.reshape(N, K, T, nu), states)
 
     def _solve(params: MPPIParams, state: BatchedState, x0, shift: bool):
         U = state.U

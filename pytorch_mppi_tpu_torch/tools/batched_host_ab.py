@@ -31,9 +31,11 @@ T = 30 problem:
   ``chip_smoke.py``'s ``FrontEndLoop``) at ``bench.py``'s flagship
   (K = 10,000, T = 30; from [-3, -2] towards the goal [2, 2]);
 * ``graph_us``: the device time of one call replayed from a CUDA graph of
-  20 calls: each single-plant solve (the flagship, seed mode), the weighted
-  update, the sampler in seed and bits mode at the flagship, and the
-  sampler with a full operator at D = 300 (T = 100, nu = 3).
+  20 calls: the batched pair at N = 16 (operand and seed mode), each
+  single-plant solve (the flagship, seed mode), the MPPI
+  solve with a full operator at D = 300 (T = 100, nu = 3, ``noise_rho`` =
+  0.5), the legacy rollout and the weighted update, the sampler in seed and
+  bits mode at the flagship, and the sampler with a full operator at D = 300.
 
 The processes run A, B, B, A, A, B, ... (``--pairs`` pairs); the summary
 gives each metric's median per checkout, B / A, and in how many pairs B
@@ -103,6 +105,7 @@ def child(root, device, calls, repeats, commands):
     from pytorch_mppi_tpu_torch.ops import fused_solve as FS
     from pytorch_mppi_tpu_torch.ops import legacy as LG
     from pytorch_mppi_tpu_torch.ops import rowmajor as RM
+    from pytorch_mppi_tpu_torch.ops import solve as PS
 
     if not Path(port.__file__).resolve().is_relative_to(Path(root).resolve()):
         raise SystemExit(f"imported {port.__file__}, not the package under {root}")
@@ -290,6 +293,8 @@ def child(root, device, calls, repeats, commands):
                        torch.full((R,), 1e9, device=dev), *wide, vec(0.0),
                        torch.ones(D, R, device=dev) / R, lam)),
         }
+        out["batched_operand.graph_us"] = _graph_us(lambda: op_solve(noise, *rest))
+        out["batched_seed.graph_us"] = _graph_us(lambda: seed_solve((1, 2), *rest))
         for variant, (solve, args) in solves.items():
             out[f"solve_{variant}.graph_us"] = _graph_us(lambda s=solve, a=args: s((1, 2), *a))
         bits = torch.randint(-2**31, 2**31 - 1, (sample.bits_rows, D), dtype=torch.int32,
@@ -305,6 +310,21 @@ def child(root, device, calls, repeats, commands):
                  torch.full((D3,), -1e9, device=dev), torch.full((D3,), 1e9, device=dev),
                  torch.zeros(D3, device=dev))
         out["sampler_D300_full_op.graph_us"] = _graph_us(lambda: sample3((5, 6), *args3))
+        lq3 = linear_quadratic(torch.randn(2, 3, generator=gen, device=dev) * 0.5,
+                               torch.tensor([2.0, 2.0], device=dev))
+        sig3 = torch.eye(3, device=dev) + 0.3 * (torch.ones(3, 3, device=dev)
+                                                 - torch.eye(3, device=dev))
+        z3 = torch.zeros(3, device=dev)
+        op300 = PS._transposed_operands(sig3, z3, z3, z3, wide, 100, 3, torch.float32)[1]
+        x3 = torch.tensor([-3.0, -2.0], device=dev)[:, None].expand(2, FLAG_K)
+        solve300 = FS.make_transposed_fused_solve(wide, lq3)
+        args300 = (x3, torch.zeros(D3, device=dev), op300.contiguous(), torch.zeros(D3, device=dev),
+                   torch.full((D3,), -1e9, device=dev), torch.full((D3,), 1e9, device=dev),
+                   torch.zeros(D3, device=dev), lam)
+        out["solve_mppi_D300.graph_us"] = _graph_us(lambda: solve300((5, 6), *args300))
+        u_flag = torch.randn(FLAG_K, T, NU, generator=gen, device=dev)
+        x0_K = torch.tensor([-3.0, -2.0], device=dev)[None].expand(FLAG_K, 2)
+        out["rollout.graph_us"] = _graph_us(lambda: rollout(x0_K, u_flag))
     print(json.dumps(out))
     return 0
 

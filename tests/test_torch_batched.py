@@ -342,12 +342,12 @@ def test_mode_strings_keep_the_kernel(recorder, mode, operand):
     for K in (max(1, PS._BATCHED_KERNEL_MIN_K // 2), PS._BATCHED_KERNEL_MIN_K):
         recorder.clear()
         _route(K, mode)
-        assert recorder == [{"noise_operand": operand}]
+        assert recorder == [{"noise_operand": operand, "terminal_final": None}]
 
 
 def test_true_at_crossover_takes_operand_mode(recorder):
     _route(PS._BATCHED_KERNEL_MIN_K, True)
-    assert recorder == [{"noise_operand": True}]
+    assert recorder == [{"noise_operand": True, "terminal_final": None}]
 
 
 def test_mode_strings_warn_below_crossover(caplog):
@@ -542,11 +542,15 @@ def test_batched_controller_surface(monkeypatch):
         ctrl.command(torch.zeros(2, 2))
     with pytest.raises(ValueError, match="use_pallas"):
         _batched("rollout")
-    for flag, value in (("terminal_state_cost", lambda s, a: s), ("num_iterations", 2),
+    for flag, value in (("num_iterations", 2),
                         ("stochastic_dynamics", True), ("dynamics_params", {}),
                         ("mesh", object()), ("env_axis", "plants"), ("sample_axis", "k")):
         with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
             _batched(False, **{flag: value})
+    # terminal_state_cost, ported since: taken, and the rollout states kept
+    term = _batched(False, num_envs=3, terminal_state_cost=lambda s, a: s[..., -1, :].sum(-1))
+    term.command(torch.zeros(3, 2))
+    assert term.states is not None and term.states.shape == (3, term.K, term.T, 2)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         MPPI_Batched(LQ.dynamics, LQ.running_cost, nx=2, noise_sigma=torch.eye(2), num_envs=2)

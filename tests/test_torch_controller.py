@@ -46,8 +46,6 @@ def test_default_device_needs_cuda(monkeypatch):
 
 
 UNPORTED = [
-    ("terminal_state_cost", lambda s, a: s.sum(-1)),
-    ("terminal_final_cost", lambda s, a: s.sum(-1)),
     ("rollout_samples", 2),
     ("rollout_var_cost", 0.5),
     ("risk_alpha", 0.5),
@@ -62,8 +60,24 @@ UNPORTED = [
 ]
 
 
-@pytest.mark.parametrize("flag,value", UNPORTED, ids=[u[0] for u in UNPORTED])
+# the terminal hooks, ported since: each is taken alone (the full-trajectory
+# one keeps the rollout states), and the two together raise the JAX
+# controller's ValueError (pytorch_mppi_tpu/ops/solve.py:313-323)
+PORTED = {"terminal_state_cost": lambda s, a: s[..., -1, :].sum(-1),
+          "terminal_final_cost": lambda s, a: s.sum(-1)}
+
+
+@pytest.mark.parametrize("flag,value", UNPORTED + list(PORTED.items()),
+                         ids=[u[0] for u in UNPORTED] + list(PORTED))
 def test_unported_flag_raises(flag, value):
+    if flag in PORTED:
+        ctrl = _pendulum(**{flag: value})
+        ctrl.command(np.array([np.pi, 1.0]))
+        assert torch.isfinite(ctrl.cost_total).all()
+        assert (ctrl.states is not None) == (flag == "terminal_state_cost")
+        with pytest.raises(ValueError, match="mutually exclusive"):
+            _pendulum(**PORTED)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
         _pendulum(**{flag: value})
 

@@ -33,7 +33,7 @@ from pytorch_mppi_tpu_torch.config import MPPIConfig, MPPIState
 from pytorch_mppi_tpu_torch.models.pendulum import PENDULUM_MODEL
 from pytorch_mppi_tpu_torch.ops import fused_solve as FS
 from pytorch_mppi_tpu_torch.ops import solve as PS
-from pytorch_mppi_tpu_torch.ops.kernel_models import linear_quadratic
+from pytorch_mppi_tpu_torch.ops.kernel_models import linear_quadratic, quadratic_terminal
 from pytorch_mppi_tpu_torch.utils.convert import params_from_numpy
 
 torch.set_num_threads(1)
@@ -300,7 +300,10 @@ def test_wrapper_rejects_other_devices():
         FS.make_transposed_fused_solve(MPPIConfig(nx=3, nu=2, K=8, T=3), model)
     with pytest.raises(FS.FusedSolveUnavailable, match="Queue 1 item 12"):
         FS.make_transposed_fused_solve(cfg, model, null_dynamic_gate=True)
-    with pytest.raises(FS.FusedSolveUnavailable, match="Queue 1 item 5"):
+    # a kernel terminal cost is taken; any other callable is not
+    term = quadratic_terminal(GOAL_NP, 2.0, 0.1)
+    assert FS.make_transposed_fused_solve(cfg, model, terminal_final=term).tiles == "shared"
+    with pytest.raises(FS.FusedSolveUnavailable, match="not a kernel terminal cost"):
         FS.make_transposed_fused_solve(cfg, model, terminal_final=model.running_cost)
 
 

@@ -85,6 +85,66 @@ def test_rollout_plain_matches_jax_kernel(problem, shared_x0):
     np.testing.assert_allclose(cost_p.numpy(), cost_j, rtol=2e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("problem,K,T", [("pendulum", 777, 15), ("linear", 777, 30),
+                                         ("toy2d", 1000, 20)],
+                         ids=["pendulum_D15_K777", "linear_D60_K777", "toy2d_D40_K1000"])
+def test_rollout_tiles_match_jax_kernel(problem, K, T):
+    """K not a multiple of any block size and D = 15 (rows that are not
+    16-byte aligned, which the kernel copies 4 bytes at a time), through the
+    wrapper with the rule's S and with each forced S, against the JAX
+    kernel."""
+    rs = np.random.RandomState(11)
+    jdyn, jcost, model, nu = _problem(problem)
+    jcfg = JConfig(nx=2, nu=nu, K=K, T=T, dtype=F32)
+    x0_K = rs.randn(K, 2).astype(np.float32)
+    u = (rs.randn(K, T, nu) * 1.1).astype(np.float32)
+    cost_j = np.asarray(PR.make_fused_rollout(jcfg, JS.wrap_dynamics(jcfg, jdyn),
+                                              JS.wrap_cost(jcfg, jcost))(
+        jnp.asarray(x0_K), jnp.asarray(u)))
+    cfg = MPPIConfig(nx=2, nu=nu, K=K, T=T)
+    for tile in (None,) + FS.TILES:
+        rollout = LG.make_fused_rollout(cfg, model, tile_k=tile)
+        assert rollout.tile_k == tile
+        cost_p = rollout(torch.from_numpy(x0_K), torch.from_numpy(u))
+        np.testing.assert_allclose(cost_p.numpy(), cost_j, rtol=2e-5, atol=1e-5)
+
+
+def test_rollout_tile_rule_and_override():
+    """The rollout's blocks take ``tile_samples`` samples (313 blocks of 32
+    at the flagship) unless ``tile_k`` forces 32, 64 or 128."""
+    cfg = MPPIConfig(nx=2, nu=2, K=10_000, T=30)
+    assert LG.make_fused_rollout(cfg, LQ).tile_k is None
+    assert FS.check_tile(None, 10_000) == 32 and FS.check_tile(128, 10_000) == 128
+    assert FS.tile_samples(1000, FS.H100_SMS) == 32 and FS.tile_samples(10**6, FS.H100_SMS) == 128
+    assert LG.make_fused_rollout(cfg, LQ, tile_k=64).tile_k == 64
+    with pytest.raises(ValueError, match="tile_k"):
+        LG.make_fused_rollout(cfg, LQ, tile_k=48)
+
+
+# T, nu, S -> steps a chunk, floats a row, buffers, chunks
+GEOMETRY = [
+    ((30, 2, 32), (30, 60, 1, 1)),  # the flagship: 7.5 KB, one contiguous span
+    ((30, 2, 128), (30, 60, 1, 1)),
+    ((15, 1, 32), (15, 20, 1, 1)),  # D = 15: 4 float4s, made 5
+    ((100, 3, 32), (100, 300, 1, 1)),
+    ((100, 3, 128), (12, 36, 2, 9)),  # 150 KB: chunks of 12 steps, 16-byte starts
+    ((100, 31, 64), (2, 68, 2, 50)),  # 4 steps of nu = 31 do not fit: 2 steps
+    ((3, 31, 128), (1, 36, 2, 3)),
+]
+
+
+@pytest.mark.parametrize("args,expect", GEOMETRY, ids=[str(g[0]) for g in GEOMETRY])
+def test_rollout_geometry(args, expect):
+    """The staging rule (``fused_mppi_rollout_geometry``): the whole tile in
+    one buffer when it fits 48 KB, else two buffers of the most steps that
+    fit; rows of an odd number of float4s (reads free of bank conflicts)."""
+    T, nu, S = args
+    g = LG.rollout_geometry(T, nu, S)
+    assert (g["steps"], g["ldr"], g["buffers"], g["chunks"]) == expect
+    assert g["ldr"] % 8 == 4 and g["ldr"] >= g["steps"] * nu
+    assert g["smem"] == g["buffers"] * S * g["ldr"] * 4 <= LG.ROLLOUT_SMEM
+
+
 @pytest.mark.parametrize("K,D", [(200, 12), (1100, 60)], ids=["K200", "K1100"])
 def test_weighted_update_plain_matches_jax_kernel(K, D):
     """Padded rows weigh exactly 0 in the JAX kernel; the plain version has
