@@ -24,7 +24,12 @@ the package is not beside it.  Phases, each fatal when it fails:
    bits mode and in seed mode (Philox in both), then the statistics of the
    seed-mode noise,
    and 50 calls in a row of each variant identical to the first (kernel A's
-   merge counter resets);
+   merge counter resets); one flagship step of each variant with
+   ``num_iterations = 3`` (three launches, each feeding the next one's
+   nominal) against the same step with the kernel's plain version in its
+   place, on the same bits an iteration and on the same seeds, and the
+   batched pair's step with ``num_iterations = 2`` at N = 16 in operand and
+   seed mode the same way;
    the batched variant in bits, seed and operand mode (N = 16, K = 10,240;
    the full width N = 1,024, K = 16,384 with the rule's plant group, which
    must be the largest P, and with P = 1; N = 1,023, not a multiple of P;
@@ -59,11 +64,22 @@ the package is not beside it.  Phases, each fatal when it fails:
    step, ``MPPI`` fused with ``terminal_final_cost=quadratic_terminal(...)``
    (one launch a command; its step held to the plain step's arithmetic on
    the kernel's perturbed actions) and plain with the same cost as
-   ``terminal_state_cost`` (the rollout states kept); then
+   ``terminal_state_cost`` (the rollout states kept); ``MPPI``, ``SMPPI``
+   and ``KMPPI`` fused with ``num_iterations = 3`` (three launches of kernel
+   A a command) and ``MPPI``'s legacy route with it (three of each legacy
+   kernel), plain ``MPPI`` with adaptive covariance asked for the kernel
+   (the plain path, with the warning), and plain ``MPPI`` with M = 4
+   stochastic rollouts, the variance cost and CVaR on a noisy plant model
+   (the (4, K, T, nx) states, their M slices differ, the loop comes within
+   1.0 of the goal, and two controllers on one seed give the same first ten
+   commands bit for bit); then
    ``MPPI_Batched`` on ``examples/scenario_batch.py``'s problem at N = 1,024,
    K = 16,384, T = 30 and at N = 16, K = 10,240: operand mode, seed mode and
    the plain path, the launch counts and the fused step held to the plain
-   step on one seed; the crossover sweep of the batched kernel (N = 64,
+   step on one seed; with ``num_iterations = 2`` at N = 1,024 in operand and
+   seed mode (twice the launches) and with stochastic dynamics on the plain
+   path at N = 16, each held to the scenario's goal check; the crossover
+   sweep of the batched kernel (N = 64,
    K = 256 to 10,240); the ops-level kernels' loops at the flagship, 1,000
    commands each: the round-1 solve in seed mode (1 launch a command) and
    JAX's "psampler" solve from port kernels (the sampler, the legacy rollout
@@ -90,6 +106,7 @@ the package is not beside it.  Phases, each fatal when it fails:
    ``{"ok": true, "device": ...}``.
 """
 import json
+import logging
 import math
 import re
 import statistics
@@ -122,18 +139,21 @@ FIRST_MPPI_SEED_MS = 0.04754  # the MPPI pair, seed mode, flagship, as first por
 # D = 300 with a full operator; the batched pair at the main paths' widths;
 # the legacy route's kernels and the sampler (seed and bits mode) at the
 # flagship; and the parent's build time
-BEFORE_MS = {"mppi": 0.019965, "smppi": 0.022325, "kmppi": 0.021173, "rowmajor": 0.022992,
-             "mppi_D300": 0.420240, "smppi_D300": 0.446238, "kmppi_D300": 0.316774,
-             "weighted_update": 0.010074, "rollout": 0.007973, "sampler": 0.006144,
-             "sampler_bits": 0.007680, "batched_operand": 1.031534, "batched_seed": 1.110970,
-             "batched_small_operand": 0.030554}
-BEFORE_BUILD_S = 162.0
+BEFORE_MS = {"mppi": 0.019269, "smppi": 0.019813, "kmppi": 0.021136, "rowmajor": 0.021957,
+             "mppi_D300": 0.385898, "smppi_D300": 0.429272, "kmppi_D300": 0.318739,
+             "weighted_update": 0.010419, "rollout": 0.003878, "sampler": 0.005813,
+             "sampler_bits": 0.005754, "batched_operand": 1.070091, "batched_seed": 1.158509,
+             "batched_small_operand": 0.031242}
+BEFORE_BUILD_S = 135.6
 # the final-state terminal cost of the terminal cases and loops: w_state
 # |x_T - goal|^2 + w_action |u_T|^2 toward the flagship's goal
 TERMINAL_W = (1.0, 0.1)
 PLANT_GROUPS = (1, 2, 4, 8, 16, 32)  # the P sweep of the batched kernel
 REPEATS = 50  # calls in a row of one merging kernel: its merge counter resets
 BATCHED_NAMES = ("batched_partial", "flash_merge")
+ITERS, BATCH_ITERS = 3, 2  # num_iterations of the single-plant and batched iteration loops
+M_STOCH = 4  # rollout_samples of the stochastic loop
+STOCH_SCALE = 0.05  # the stochastic loop's dynamics noise (a standard deviation)
 
 
 def fail(msg):
@@ -389,6 +409,24 @@ def breakdown(name, ctrl, step, x, n=50):
           f"{count / n:.1f} kernels | device idle {1 - busy / wall:.3f} | top: " + "; ".join(
               f"{e.key[:40]} {e.self_device_time_total / n:.1f} us x{e.count / n:.1f}"
               for e in top))
+
+
+class Captured(logging.Handler):
+    """The port's log records while it is attached (the routing warnings)."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+    def __enter__(self):
+        logging.getLogger("pytorch_mppi_tpu_torch").addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        logging.getLogger("pytorch_mppi_tpu_torch").removeHandler(self)
 
 
 def card_line():
@@ -769,6 +807,132 @@ def main():
         torch.cuda.empty_cache()
     print(f"# kernel vs plain: {n_batched} batched cases agreed")
 
+    # num_iterations: one fused step of ITERS iterations (one launch each,
+    # each launch's update feeding the next one's nominal) against the same
+    # step with the kernel's plain version in the kernel's place, on the same
+    # bits an iteration (key_to_seed fed in call order) or the same seeds;
+    # the batched pair at N = 16 with BATCH_ITERS iterations in operand and
+    # seed mode.  The plain twin is built with ops/solve's route patched to
+    # hand back the kernel's plain version.
+    def twin(build):
+        """``build()`` with the kernel, then with its plain version in its
+        place (every other line of the step the same)."""
+        route = PS._route_transposed_solve
+
+        def plain_route(*a, **kw):
+            solve = route(*a, **kw)
+            if solve is None:
+                return None
+            plain = lambda *args: solve.plain(*args)  # noqa: E731
+            plain.__dict__.update(solve.__dict__)
+            return plain
+
+        kernel = build()
+        PS._route_transposed_solve = plain_route
+        try:
+            return kernel, build()
+        finally:
+            PS._route_transposed_solve = route
+
+    def moved(variant, params, state, new):
+        """What a step's iterations added: U (rates for SMPPI) less the
+        shifted U, or for KMPPI theta less the shifted theta."""
+        if variant == "kmppi":
+            return (new.theta - params.interp_shift @ state.theta).reshape(-1)
+        base = params.base if variant != "mppi" else params
+        return (new.U - PS._shift_U(state.U, base.u_init)).reshape(-1)
+
+    ITER_MAIN = {  # the flagship controllers of phase 4
+        "mppi": (MPPI, {}),
+        "smppi": (SMPPI, dict(w_action_seq_cost=1.0, delta_t=1.0,
+                              action_min=torch.tensor([-3.0, -3.0]),
+                              action_max=torch.tensor([3.0, 3.0]))),
+        "kmppi": (KMPPI, dict(num_support_pts=NSP, kernel=RBFKernel(2.0))),
+    }
+    real_key_to_seed = FS.key_to_seed
+    n_chained = 0
+    for mode in ("bits", "seed"):
+        for variant, (cls, extra) in ITER_MAIN.items():
+            ck, cp = twin(lambda: cls(lq.dynamics, lq.running_cost, nx=NX,
+                                      noise_sigma=torch.eye(NU, device=dev), num_samples=K,
+                                      horizon=T, lambda_=1.0, seed=5, use_pallas=True,
+                                      num_iterations=ITERS, device=dev, **extra))
+            check(ck._fns.fused and cp._fns.fused, f"{variant} num_iterations twin not fused")
+            params, state = ck._full_params(), ck._state
+            x0 = torch.tensor([-3.0, -2.0], device=dev)
+            bits = None
+            if mode == "bits":
+                R = (NSP if variant == "kmppi" else T) * NU
+                cols = FS.make_transposed_fused_solve(ck.config, lq).bits_cols
+                bits = [torch.randint(-2**31, 2**31 - 1, (R, cols), dtype=torch.int32,
+                                      generator=gen, device=dev) for _ in range(ITERS)]
+            outs = []
+            for c in (ck, cp):
+                if bits is not None:
+                    fed = iter(bits)
+                    FS.key_to_seed = lambda s_, fed=fed: next(fed)
+                reset_launches()
+                try:
+                    outs.append(c._fns.step(params, state, x0))
+                finally:
+                    FS.key_to_seed = real_key_to_seed
+                torch.cuda.synchronize()
+                outs[-1] += (dict(FS.launches),)
+            (s_k, _, art_k, l_k), (s_p, _, art_p, l_p) = outs
+            ok, c_err, u_err, w_tol = agree(art_k.cost_total, art_p.cost_total,
+                                            moved(variant, params, state, s_k),
+                                            moved(variant, params, state, s_p), 1.0)
+            launches_ok = l_k == only(**{variant: ITERS}) and l_p == only()
+            print(f"# {mode:4s} {variant:5s} num_iterations={ITERS} step vs {ITERS} chained plain "
+                  f"iterations K={K} D={T * NU}: cost err {c_err:.3e} | update err {u_err:.3e} "
+                  f"(tol {w_tol:.3e} of its largest element) | launches {l_k[variant]} "
+                  f"(plain twin {sum(l_p.values())}) | counter {s_k.counter}"
+                  + ("" if ok and launches_ok else "  <-- FAIL"))
+            check(ok, f"{mode}/{variant}: the num_iterations step disagrees with its plain twin")
+            check(launches_ok, f"{mode}/{variant}: the num_iterations step launched {l_k}, "
+                               f"the plain twin {l_p}")
+            check(s_k.counter == s_p.counter == state.counter + ITERS,
+                  f"{variant}: the counter did not advance by num_iterations")
+            max_update_err[variant] = max(max_update_err[variant], u_err)
+            n_chained += 1
+    sigma_b = torch.eye(NU, device=dev) * 0.5
+    ub = torch.tensor([1.0, 1.0])
+    for mode, use_pallas in (("operand", True), ("seed", "kernel_rng")):
+        ck, cp = twin(lambda: MPPI_Batched(
+            lq.dynamics, lq.running_cost, nx=NX, noise_sigma=sigma_b, num_envs=BATCH_SMALL_N,
+            num_samples=BATCH_SMALL_K, horizon=T, lambda_=1.0, u_min=-ub, u_max=ub, seed=0,
+            use_pallas=use_pallas, num_iterations=BATCH_ITERS, device=dev))
+        check(ck._fns.fused and cp._fns.fused, f"batched {mode} num_iterations twin not fused")
+        g = torch.Generator(device=dev)
+        g.manual_seed(3)
+        x = torch.rand(BATCH_SMALL_N, NX, generator=g, device=dev) * 4 - 4
+        st = BatchedState(U=ck.U.clone(), seed=2025)
+        reset_launches()
+        s_k, _, art_k = ck._fns.step(ck._params, st, x)
+        torch.cuda.synchronize()
+        l_k = dict(FS.launches)
+        reset_launches()
+        s_p, _, art_p = cp._fns.step(ck._params, st, x)
+        l_p = dict(FS.launches)
+        U0 = torch.roll(st.U, -1, dims=1)
+        U0[:, -1] = ck._params.u_init
+        ok, c_err, u_err, w_tol = agree(art_k.cost_total, art_p.cost_total,
+                                        (s_k.U - U0).reshape(BATCH_SMALL_N, -1).T,
+                                        (s_p.U - U0).reshape(BATCH_SMALL_N, -1).T, 1.0)
+        launches_ok = l_k == only(batched=2 * BATCH_ITERS) and l_p == only()
+        print(f"# {mode:7s} batched num_iterations={BATCH_ITERS} step vs {BATCH_ITERS} chained "
+              f"plain iterations N={BATCH_SMALL_N} K={BATCH_SMALL_K}: cost err {c_err:.3e} | "
+              f"update err {u_err:.3e} (tol {w_tol:.3e} of each plant's largest element) | "
+              f"launches {l_k['batched']} (plain twin {sum(l_p.values())})"
+              + ("" if ok and launches_ok else "  <-- FAIL"))
+        check(ok, f"batched {mode}: the num_iterations step disagrees with its plain twin")
+        check(launches_ok, f"batched {mode}: the num_iterations step launched {l_k}, the "
+                           f"plain twin {l_p}")
+        max_update_err["batched"] = max(max_update_err["batched"], u_err)
+        n_chained += 1
+    print(f"# kernel vs plain: {n_chained} num_iterations steps agreed with their chained "
+          f"plain iterations")
+
     # the legacy route's kernels.  The rollout: (name, model, K, T, nu, shared
     # x0, samples a block where forced, a 4-byte offset of the actions): the
     # flagship with the rule's S and with 32, 64 and 128 forced, K not a
@@ -1043,19 +1207,44 @@ def main():
         """The terminal cost as a full-trajectory hook (terminal_state_cost)."""
         return term(states[..., -1, :], actions[..., -1, :])
 
-    # the terminal loops: the kernel terminal cost on the fused path (one
-    # launch a command), the full-trajectory hook on the plain path
-    HOOKS = {"fused_terminal": dict(terminal_final_cost=term),
-             "plain_terminal_state": dict(terminal_state_cost=last_state_cost)}
+    def noisy_lq(s_, a, rng):
+        """The flagship's plant plus N(0, STOCH_SCALE²) a step, drawn from the
+        step's generator (stochastic_dynamics)."""
+        return lq.dynamics(s_, a) + STOCH_SCALE * torch.randn(
+            s_.shape, generator=rng, device=s_.device, dtype=s_.dtype)
+
+    # the keywords of each path beyond the flagship's: the terminal loops
+    # (the kernel terminal cost on the fused path, one launch a command; the
+    # full-trajectory hook on the plain path), the iteration loops (ITERS
+    # launches of kernel A a command, or ITERS of each legacy kernel), plain
+    # MPPI with adaptive covariance (asked for the kernel: the plain path,
+    # with a warning) and the stochastic loop (M = 4, the variance cost,
+    # CVaR, the noisy plant model)
+    PATH_KW = {"fused_terminal": dict(terminal_final_cost=term),
+               "plain_terminal_state": dict(terminal_state_cost=last_state_cost),
+               "fused_iter3": dict(num_iterations=ITERS),
+               "rollout_iter3": dict(num_iterations=ITERS),
+               "plain_adaptive_iter3": dict(num_iterations=ITERS, adaptive_covariance=True),
+               "plain_stochastic": dict(dynamics=noisy_lq, rollout_samples=M_STOCH,
+                                        rollout_var_cost=0.1, risk_alpha=0.5,
+                                        stochastic_dynamics=True)}
+
+    def flagship_ctrl(variant, use_pallas, path, seed=42):
+        cls, extra = MAIN[variant]
+        kw = dict(PATH_KW.get(path, {}))
+        dynamics = kw.pop("dynamics", lq.dynamics)
+        with Captured() as cap:
+            ctrl = cls(dynamics, lq.running_cost, nx=NX,
+                       noise_sigma=torch.eye(NU, device=dev), num_samples=K, horizon=T,
+                       lambda_=1.0, seed=seed, use_pallas=use_pallas, device=dev, **extra,
+                       **kw)
+        return ctrl, cap.messages
 
     def closed_loop(variant, use_pallas, path):
-        cls, extra = MAIN[variant]
-        ctrl = cls(lq.dynamics, lq.running_cost, nx=NX,
-                   noise_sigma=torch.eye(NU, device=dev), num_samples=K, horizon=T,
-                   lambda_=1.0, seed=42, use_pallas=use_pallas, device=dev, **extra,
-                   **HOOKS.get(path, {}))
-        check(ctrl._fns.fused == bool(use_pallas),
-              f"{variant} use_pallas={use_pallas!r} took the wrong route")
+        ctrl, warned = flagship_ctrl(variant, use_pallas, path)
+        fused = bool(use_pallas) and path != "plain_adaptive_iter3"
+        check(ctrl._fns.fused == fused,
+              f"{variant} {path} use_pallas={use_pallas!r} took the wrong route")
         x = torch.tensor([-3.0, -2.0], device=dev)
         for _ in range(WARMUP):
             x = lq_step(x, ctrl.command(x))
@@ -1080,12 +1269,15 @@ def main():
               f"{variant} main path gave a non-finite or misshapen action")
         return dict(median_ms=statistics.median(lat), p90_ms=lat[int(0.9 * len(lat))],
                     solves_per_s=COMMANDS / wall, min_dist=float(min_d),
-                    final_dist=final_d, launches=launched, ctrl=ctrl, x=x)
+                    final_dist=final_d, launches=launched, ctrl=ctrl, x=x, warned=warned)
 
     main = {}
     paths = [(v, p, up) for v in FS.VARIANTS for p, up in (("fused", True), ("plain", False))]
     paths.append(("mppi", "rollout", "rollout"))  # the legacy kernel pair
     paths += [("mppi", "fused_terminal", True), ("mppi", "plain_terminal_state", False)]
+    paths += [(v, "fused_iter3", True) for v in FS.VARIANTS]
+    paths += [("mppi", "rollout_iter3", "rollout"), ("mppi", "plain_adaptive_iter3", True),
+              ("mppi", "plain_stochastic", False)]
     for variant, path, use_pallas in paths:
         r = closed_loop(variant, use_pallas, path)
         main[variant, path] = r
@@ -1097,17 +1289,51 @@ def main():
         # bench.py:184's sanity check: reached the goal region and did not diverge
         check(r["min_dist"] < 1.0 and r["final_dist"] < 10.0,
               f"{variant} {path} closed loop failed bench.py's sanity check")
-        check((r["ctrl"].states is not None) == (path == "plain_terminal_state"),
-              f"{variant} {path}: the rollout states are kept only for terminal_state_cost")
-        if path == "rollout":
-            expect = only(rollout=COMMANDS, weighted_update=COMMANDS)
+        check((r["ctrl"].states is not None) == (path in ("plain_terminal_state",
+                                                          "plain_stochastic")),
+              f"{variant} {path}: the rollout states are kept only for terminal_state_cost "
+              f"and M > 1")
+        n = r["ctrl"].config.num_iterations * COMMANDS  # iterations in the loop
+        if path.startswith("rollout"):
+            expect = only(rollout=n, weighted_update=n)
         else:
-            expect = only(**{variant: COMMANDS}) if use_pallas else only()  # kernel A merges
+            # kernel A merges its own partials: one launch an iteration
+            expect = only(**{variant: n}) if r["ctrl"]._fns.fused else only()
         check(r["launches"] == expect,
               f"{variant} {path} path launched {r['launches']} for {COMMANDS} "
               f"commands, expected {expect}")
+        if path == "plain_adaptive_iter3":
+            said = [m for m in r["warned"] if "per-iteration noise/omega artifacts" in m]
+            print(f"# [{variant} {path}] use_pallas=True took the plain path, warning: "
+                  f"{said[0] if said else None!r}")
+            check(bool(said), "adaptive_covariance with use_pallas=True did not warn")
+        if path == "plain_stochastic":
+            st = r["ctrl"].states
+            differ = not torch.equal(st[0], st[1])
+            # the flagship loops wander about the goal (sigma = I, lambda = 1):
+            # their distance at the last command is a draw, so the goal check
+            # is bench.py's, as for every flagship loop above
+            print(f"# [{variant} {path}] states {tuple(st.shape)} | M slices differ {differ} | "
+                  f"min dist {r['min_dist']:.4f}, final dist {r['final_dist']:.4f} (the "
+                  f"deterministic plain loop's: {main['mppi', 'plain']['final_dist']:.4f})")
+            check(tuple(st.shape) == (M_STOCH, K, T, NX) and differ,
+                  "the stochastic loop's (M, K, T, nx) states are misshapen or identical in M")
     for (variant, path), r in main.items():
         breakdown(f"{variant} {path}", r["ctrl"], lq_step, r["x"])
+
+    # the stochastic loop on one seed: two controllers give the same first ten
+    # commands bit for bit (each step's generator is made from the seed)
+    pair = [flagship_ctrl("mppi", False, "plain_stochastic", seed=7)[0] for _ in range(2)]
+    xs = [torch.tensor([-3.0, -2.0], device=dev) for _ in pair]
+    same = True
+    for _ in range(10):
+        acts = [c.command(x_) for c, x_ in zip(pair, xs)]
+        same = same and torch.equal(acts[0], acts[1])
+        xs = [lq_step(x_, a) for x_, a in zip(xs, acts)]
+    print(f"# [mppi plain_stochastic] two controllers, seed 7: the first ten commands "
+          f"identical {same}")
+    check(same, "the seeded stochastic commands do not repeat bit for bit")
+    del pair
 
     # the legacy route draws the plain path's noise: on one seed its step
     # agrees with the plain step up to the costs' summation order
@@ -1151,21 +1377,19 @@ def main():
     check(ok, "the fused step with a terminal cost disagrees with the plain step")
 
     # -- 4b. MPPI_Batched: examples/scenario_batch.py's problem -----------------
-    sigma_b = torch.eye(NU, device=dev) * 0.5
-    ub = torch.tensor([1.0, 1.0])
-
-    def batched_ctrl(N_, K_, T_, use_pallas):
-        return MPPI_Batched(lq.dynamics, lq.running_cost, nx=NX, noise_sigma=sigma_b,
-                            num_envs=N_, num_samples=K_, horizon=T_, lambda_=1.0,
-                            u_min=-ub, u_max=ub, seed=0, use_pallas=use_pallas, device=dev)
+    def batched_ctrl(N_, K_, T_, use_pallas, dynamics=None, **kw):
+        return MPPI_Batched(dynamics or lq.dynamics, lq.running_cost, nx=NX,
+                            noise_sigma=sigma_b, num_envs=N_, num_samples=K_, horizon=T_,
+                            lambda_=1.0, u_min=-ub, u_max=ub, seed=0, use_pallas=use_pallas,
+                            device=dev, **kw)
 
     def batched_starts(N_):
         g = torch.Generator(device=dev)
         g.manual_seed(42)
         return torch.rand(N_, NX, generator=g, device=dev) * 4 - 4  # uniform in [-4, 0]
 
-    def batched_run(N_, K_, use_pallas, commands):
-        ctrl = batched_ctrl(N_, K_, T, use_pallas)
+    def batched_run(N_, K_, use_pallas, commands, **kw):
+        ctrl = batched_ctrl(N_, K_, T, use_pallas, **kw)
         check(ctrl._fns.fused == bool(use_pallas),
               f"MPPI_Batched use_pallas={use_pallas!r} took the wrong route")
         x = batched_starts(N_)
@@ -1176,20 +1400,25 @@ def main():
         torch.cuda.reset_peak_memory_stats()
         starts = [torch.cuda.Event(enable_timing=True) for _ in range(commands)]
         ends = [torch.cuda.Event(enable_timing=True) for _ in range(commands)]
+        dists = []
         wall = time.perf_counter()
         for i in range(commands):
             starts[i].record()
             action = ctrl.command(x)
             ends[i].record()
             x = lq.dynamics(x, action)
+            dists.append(torch.linalg.norm(goal - x, dim=-1))
         torch.cuda.synchronize()
         wall = time.perf_counter() - wall
         lat = sorted(s.elapsed_time(e) for s, e in zip(starts, ends))
         check(action.shape == (N_, NU) and bool(torch.isfinite(ctrl.U).all()),
               f"MPPI_Batched N={N_} gave a non-finite or misshapen action")
+        dists = torch.stack(dists)
         return dict(median_ms=statistics.median(lat), p90_ms=lat[int(0.9 * len(lat))],
                     plant_solves_per_s=N_ * commands / wall, launches=dict(FS.launches),
-                    peak_gib=torch.cuda.max_memory_allocated() / 2**30, ctrl=ctrl, x=x)
+                    peak_gib=torch.cuda.max_memory_allocated() / 2**30, ctrl=ctrl, x=x,
+                    converged=int((dists.amin(dim=0) < 0.5).sum()),
+                    settled=float(dists[-10:].mean()))
 
     batched = {}
     for N_, K_ in ((BATCH_N, BATCH_K), (BATCH_SMALL_N, BATCH_SMALL_K)):
@@ -1223,6 +1452,40 @@ def main():
         check(ok, f"the batched operand step disagrees with the plain step at N={N_}")
         del s_f, s_p, art_f, art_p
         torch.cuda.empty_cache()
+
+    # BATCH_ITERS iterations a command at the north-star width (twice the
+    # launches), and stochastic dynamics on the plain path at N = 16; each
+    # held to the scenario's goal check (phase 6): more than 90 % of the
+    # plants come within 0.5 of the goal, and their mean distance over the
+    # last 10 commands stays below 1.0
+    for N_, K_, path, use_pallas, n_cmd, kw in (
+            (BATCH_N, BATCH_K, "operand_iter2", True, BATCH_COMMANDS,
+             dict(num_iterations=BATCH_ITERS)),
+            (BATCH_N, BATCH_K, "seed_iter2", "kernel_rng", BATCH_COMMANDS,
+             dict(num_iterations=BATCH_ITERS)),
+            (BATCH_SMALL_N, BATCH_SMALL_K, "plain_stochastic", False, BATCH_PLAIN_COMMANDS,
+             dict(dynamics=noisy_lq, stochastic_dynamics=True))):
+        r = batched_run(N_, K_, use_pallas, n_cmd, **kw)
+        batched[N_, path] = r
+        print(f"# main path [batched {path}] N={N_} K={K_} T={T}: command median "
+              f"{r['median_ms']:.4f} ms p90 {r['p90_ms']:.4f} ms (CUDA events, {n_cmd} "
+              f"commands) | {r['plant_solves_per_s']:.1f} plant-solves/s (host clock) | peak "
+              f"memory {r['peak_gib']:.2f} GiB | {r['converged']}/{N_} plants came within 0.5 "
+              f"of the goal, mean distance over the last 10 commands {r['settled']:.4f} | "
+              f"launches {r['launches']}")
+        n_it = r["ctrl"].config.num_iterations
+        expect = only(batched=2 * n_it * n_cmd) if use_pallas else only()
+        check(r["launches"] == expect,
+              f"batched {path} N={N_} launched {r['launches']}, expected {expect}")
+        check(r["converged"] > 0.9 * N_ and r["settled"] < 1.0,
+              f"batched {path} N={N_}: {r['converged']}/{N_} plants converged, settled at "
+              f"{r['settled']}")
+        breakdown(f"batched {path} N={N_}", r["ctrl"], lq.dynamics, r["x"], n=20)
+        torch.cuda.empty_cache()
+    op1 = batched[BATCH_N, "operand"]["launches"]["batched"]
+    op2 = batched[BATCH_N, "operand_iter2"]["launches"]["batched"]
+    print(f"# batched operand N={BATCH_N}: {op2} launches with num_iterations={BATCH_ITERS} "
+          f"against {op1} with 1: ratio {op2 / max(op1, 1):.1f}")
 
     # the crossover: plain, operand and seed mode per command at N = 64, in
     # turns (plain, operand, seed, then seed, operand, plain) in this one call
@@ -1847,6 +2110,7 @@ def main():
             "bound_ms_terminal": timed[variant, "terminal"][1],
             "launches_terminal_loop": (main[variant, "fused_terminal"]["launches"][variant]
                                        if variant == "mppi" else None),
+            "launches_iter3_loop": main[variant, "fused_iter3"]["launches"][variant],
         })
     d_ms, c_ms, p_ms, b_ms, b_by, group, pr_ms = timed["batched", BATCH_N, "operand"]
     s_ms = timed["batched", BATCH_N, "seed"]
@@ -1872,6 +2136,7 @@ def main():
         f"ms_N{BATCH_SMALL_N}_K{BATCH_SMALL_K}": small[0],
         "ms_terminal": timed["batched", "terminal"][0],
         "bound_ms_terminal": timed["batched", "terminal"][1],
+        "launches_iter2_loop": batched[BATCH_N, "operand_iter2"]["launches"]["batched"],
     })
     for name, line, main_key in (("rollout", 75, ("mppi", "rollout")),
                                  ("weighted_update", 172, ("mppi", "rollout"))):
@@ -1891,6 +2156,7 @@ def main():
             "bound_ms": b_ms,
             "bound_by": b_by,
             "library_ms": l_ms,
+            "launches_iter3_loop": main["mppi", "rollout_iter3"]["launches"][name],
         })
     kernels[-2].update(tile_k=sweeps["rollout", "flagship"]["rule"],
                        ms_by_tile_k=sweep_ms(("rollout", "flagship")),

@@ -7,8 +7,8 @@ code path before the first command.  :class:`MPPIParams` holds the
 hyperparameters a tuner changes between commands (tensors, so changing them
 rebuilds nothing).  :class:`MPPIState` carries the nominal sequence and the
 random-number state from one command to the next: in place of a JAX PRNG key
-it holds a 64-bit ``seed`` and a ``counter`` that every solve advances by one,
-so a run is reproducible from the seed alone.
+it holds a 64-bit ``seed`` and a ``counter`` that every iteration of a solve
+advances by one, so a run is reproducible from the seed alone.
 
 Only the fields this port runs are here; the JAX package's other flags are
 rejected by :class:`~pytorch_mppi_tpu_torch.controller.MPPI` with
@@ -52,6 +52,28 @@ class MPPIConfig:
     smppi: bool = False
     # KMPPI extras (reference mppi.py:593-688); only the KMPPI factory reads it
     num_support_pts: int = 0
+    # stochastic rollouts (reference mppi.py:333-373): M rollouts a sample,
+    # folded into the batch M outer; their running costs' variance (ddof=1,
+    # discounted per step) weighs in with rollout_var_cost
+    M: int = 1
+    rollout_var_cost: float = 0.0
+    rollout_var_discount: float = 0.95
+    # CVaR over the M rollouts: the mean of the worst ceil(risk_alpha·M)
+    # costs a sample in place of the mean (0 = the mean; needs M > 1)
+    risk_alpha: float = 0.0
+    # the dynamics take a trailing torch.Generator, one a step
+    # (ops/solve.wrap_dynamics)
+    stochastic_dynamics: bool = False
+    # sample-rollout-weight-update cycles a command, each re-centred on the
+    # last one's nominal sequence
+    num_iterations: int = 1
+    # re-estimate sigma from the omega-weighted rectified noise after each
+    # iteration but the last: sigma <- (1-lr)·sigma + lr·(cov + floor·I),
+    # reset to params.noise_sigma at the next command
+    # (ops/solve.adapt_covariance)
+    adaptive_covariance: bool = False
+    adaptive_cov_lr: float = 0.5
+    adaptive_cov_floor: float = 1e-6
 
     def __post_init__(self):
         if not isinstance(self.dtype, torch.dtype):
@@ -60,9 +82,9 @@ class MPPIConfig:
     @property
     def store_rollouts(self) -> bool:
         """Lazy storage (reference mppi.py:307-331): the rollout's states and
-        actions are kept only when a terminal cost reads them (M > 1 comes
-        with the stochastic rollouts)."""
-        return self.has_terminal_cost
+        actions are kept only when a terminal cost reads them or when M > 1
+        (mppi.py:350-351)."""
+        return self.has_terminal_cost or self.M > 1
 
 
 class MPPIParams(NamedTuple):
@@ -102,9 +124,11 @@ class KMPPIParams(NamedTuple):
 class MPPIState(NamedTuple):
     """Controller state threaded through solves: the nominal sequence and the
     random-number stream position.  ``seed`` is drawn once from the
-    controller's ``torch.Generator``; ``counter`` counts the solves taken from
-    it, and :func:`~pytorch_mppi_tpu_torch.ops.solve.iteration_seed` maps the
-    pair to the noise of one solve."""
+    controller's ``torch.Generator``; ``counter`` counts the iterations taken
+    from it (``num_iterations`` a command), and
+    :func:`~pytorch_mppi_tpu_torch.ops.solve.iteration_seed` maps the pair to
+    the noise of one iteration (:func:`~pytorch_mppi_tpu_torch.ops.solve.
+    rollout_seed` to its stochastic rollout)."""
 
     U: torch.Tensor  # (T, nu) nominal control sequence
     seed: int
@@ -150,7 +174,7 @@ class Artifacts(NamedTuple):
     omega: torch.Tensor  # (K,)
     noise: Optional[torch.Tensor]  # (K, T, nu) rectified noise; (N, K, T, nu)
     perturbed_action: Optional[torch.Tensor]  # (K, T, nu); (N, K, T, nu)
-    # (1, K, T, nx) rollout states and (1, K, T, nu) unscaled actions under
+    # (M, K, T, nx) rollout states and (M, K, T, nu) unscaled actions under
     # store_rollouts ((N, K, T, nx) and None for MPPI_Batched); else None
     states: Optional[torch.Tensor] = None
     actions: Optional[torch.Tensor] = None

@@ -52,18 +52,10 @@ __all__ = ["MPPI", "SMPPI", "KMPPI", "MPPI_Batched"]
 
 # flag -> (value that means "off", ROADMAP.md item that ports it)
 _UNPORTED = {
-    "rollout_samples": (1, "Queue 1 item 5 (stochastic rollouts)"),
-    "rollout_var_cost": (0.0, "Queue 1 item 5 (stochastic rollouts)"),
-    "rollout_var_discount": (0.95, "Queue 1 item 5 (stochastic rollouts)"),
-    "risk_alpha": (0.0, "Queue 1 item 5 (stochastic rollouts)"),
-    "stochastic_dynamics": (False, "Queue 1 item 5 (stochastic rollouts)"),
-    "specific_action_sampler": (None, "Queue 1 item 5 (SpecificActionSampler)"),
-    "num_iterations": (1, "Queue 1 item 5 (num_iterations)"),
-    "adaptive_covariance": (False, "Queue 1 item 5 (adaptive covariance)"),
-    "adaptive_cov_lr": (0.5, "Queue 1 item 5 (adaptive covariance)"),
-    "gradient_refinement_steps": (0, "Queue 1 item 5 (gradient refinement)"),
-    "gradient_refinement_lr": (0.05, "Queue 1 item 5 (gradient refinement)"),
-    "num_elites": (0, "Queue 1 item 5 (elite reuse)"),
+    "specific_action_sampler": (None, "Queue 1 item 5e (SpecificActionSampler)"),
+    "gradient_refinement_steps": (0, "Queue 1 item 5f (gradient refinement)"),
+    "gradient_refinement_lr": (0.05, "Queue 1 item 5f (gradient refinement)"),
+    "num_elites": (0, "Queue 1 item 5d (elite reuse)"),
     "dynamics_params": (None, "Queue 1 item 9 (learned models)"),
     "mesh": (None, "Queue 1 item 12 (sharding)"),
     "env_axis": ("data", "Queue 1 item 12 (sharding)"),
@@ -193,12 +185,23 @@ class MPPI:
     """Model Predictive Path Integral control (Williams et al. 2017, Alg. 2).
 
     :param dynamics: ``(state (K, nx), action (K, nu)) -> (K, nx)`` on tensors;
-        with ``step_dependent_dynamics`` it also takes the step index.
+        with ``step_dependent_dynamics`` it also takes the step index, and
+        with ``stochastic_dynamics`` a trailing ``torch.Generator`` on the
+        rollout's device, made for each step (``ops/solve.wrap_dynamics``):
+        ``(state, action[, t], rng)``.
     :param running_cost: ``(state, action) -> (K,)``, taken at the state after
         the dynamics step (mppi.py:314-318).
-    :param terminal_state_cost: ``(states (1, K, T, nx), actions (1, K, T,
-        nu)) -> (K,)``: keeps the rollout's states (``self.states``) and
-        actions; the plain path runs.
+    :param terminal_state_cost: ``(states (M, K, T, nx), actions (M, K, T,
+        nu)) -> (K,) or (M, K)``: keeps the rollout's states
+        (``self.states``) and actions; the plain path runs.
+    :param rollout_samples: M rollouts a sample (folded into the batch);
+        M > 1 keeps the (M, K, T, nx) states and adds ``rollout_var_cost``
+        times their running costs' variance, discounted by
+        ``rollout_var_discount`` a step; ``risk_alpha`` in (0, 1] takes the
+        mean of the worst ``ceil(risk_alpha·M)`` in place of the mean.
+    :param num_iterations: iterations a command, each re-centred on the
+        last; ``adaptive_covariance`` re-estimates sigma between them at
+        rate ``adaptive_cov_lr`` (the plain path).
     :param terminal_final_cost: ``(final_state (K, nx), final_action (K,
         nu)) -> (K,)`` of the last step, the action ``u_scale``-scaled;
         stores nothing, and a ``ops.kernel_models.quadratic_terminal`` keeps
@@ -262,13 +265,7 @@ class MPPI:
         # MPPI's default sample axis is "k" (MPPI_Batched's None)
         _reject_unported({"sample_axis": "k"}, sample_axis=sample_axis)
         _reject_unported(
-            rollout_samples=rollout_samples, rollout_var_cost=rollout_var_cost,
-            rollout_var_discount=rollout_var_discount, risk_alpha=risk_alpha,
-            stochastic_dynamics=stochastic_dynamics,
             specific_action_sampler=specific_action_sampler,
-            num_iterations=num_iterations,
-            adaptive_covariance=adaptive_covariance,
-            adaptive_cov_lr=adaptive_cov_lr,
             gradient_refinement_steps=gradient_refinement_steps,
             gradient_refinement_lr=gradient_refinement_lr,
             num_elites=num_elites, dynamics_params=dynamics_params, mesh=mesh,
@@ -282,7 +279,16 @@ class MPPI:
         self.T = int(horizon)
         self.nx = int(nx)
         self.nu = int(sigma.shape[0])
-        self.M = int(rollout_samples)  # rollouts a sample: 1 until Queue 1 item 5
+        # the step factories, built below, validate risk_alpha, num_iterations
+        # and adaptive_cov_lr with the JAX texts (ops/solve.py's gates)
+        self.M = int(rollout_samples)
+        self.rollout_var_cost = float(rollout_var_cost)
+        self.rollout_var_discount = float(rollout_var_discount)
+        self.risk_alpha = float(risk_alpha)
+        self.stochastic_dynamics = bool(stochastic_dynamics)
+        self.num_iterations = int(num_iterations)
+        self.adaptive_covariance = bool(adaptive_covariance)
+        self.adaptive_cov_lr = float(adaptive_cov_lr)
         self.sample_axis = sample_axis
         self.prng_impl = prng_impl
 
@@ -335,14 +341,22 @@ class MPPI:
             nu=self.nu,
             K=self.K,
             T=self.T,
+            M=self.M,
             u_scale=self.u_scale,
             u_per_command=self.u_per_command,
+            rollout_var_cost=self.rollout_var_cost,
+            rollout_var_discount=self.rollout_var_discount,
+            risk_alpha=self.risk_alpha,
             sample_null_action=self.sample_null_action,
             noise_abs_cost=self.noise_abs_cost,
             has_terminal_cost=self.terminal_state_cost is not None,
             step_dependent_dynamics=self.step_dependency,
+            stochastic_dynamics=self.stochastic_dynamics,
             antithetic=self.antithetic_sampling,
+            num_iterations=self.num_iterations,
             noise_rho=self.noise_rho,
+            adaptive_covariance=self.adaptive_covariance,
+            adaptive_cov_lr=self.adaptive_cov_lr,
             diag_sigma=self._diag_sigma,
             fused_artifacts=self.fused_artifacts,
             dtype=self.dtype,
@@ -509,13 +523,17 @@ class MPPI:
         self.actions = artifacts.actions
 
     def get_rollouts(self, state, num_rollouts: int = 1, U=None):
-        """Roll the nominal action sequence from given states (mppi.py:425-448).
+        """Roll the nominal action sequence from given states (mppi.py:425-448);
+        stochastic dynamics draw from a fresh seed each call, as JAX's
+        ``get_rollouts`` takes a fresh key.
 
         :returns: (num_rollouts, T, nx) trajectories
         """
         if U is None:
             U = self.get_action_sequence()
-        return self._fns.get_rollouts(self._params, state, U, num_rollouts=num_rollouts)
+        seed = self._next_seed() if self.stochastic_dynamics else None
+        return self._fns.get_rollouts(self._params, state, U, num_rollouts=num_rollouts,
+                                      seed=seed)
 
 
 class SMPPI(MPPI):
@@ -757,7 +775,9 @@ class MPPI_Batched:
     ``ops/solve._BATCHED_KERNEL_MIN_K`` samples on, and the plain path below
     it (an info log says so); ``"force"`` keeps operand mode at any K and
     ``"kernel_rng"`` draws the noise in the kernel.  ``device=None`` means
-    the card, as for :class:`MPPI`.
+    the card, as for :class:`MPPI`.  ``num_iterations`` and
+    ``stochastic_dynamics`` work as for :class:`MPPI` (stochastic dynamics
+    on the plain path).
     """
 
     def __init__(
@@ -798,7 +818,6 @@ class MPPI_Batched:
     ):
         _check_jax_rng(key, prng_impl)
         _reject_unported(
-            stochastic_dynamics=stochastic_dynamics, num_iterations=num_iterations,
             dynamics_params=dynamics_params, mesh=mesh, env_axis=env_axis,
             sample_axis=sample_axis,
         )
@@ -827,7 +846,9 @@ class MPPI_Batched:
             noise_abs_cost=bool(noise_abs_cost),
             has_terminal_cost=terminal_state_cost is not None,
             step_dependent_dynamics=bool(step_dependent_dynamics),
+            stochastic_dynamics=bool(stochastic_dynamics),
             antithetic=bool(antithetic_sampling),
+            num_iterations=int(num_iterations),
             noise_rho=_validate_rho(noise_rho),
             diag_sigma=_is_diag(sigma),
             fused_artifacts=bool(fused_artifacts),

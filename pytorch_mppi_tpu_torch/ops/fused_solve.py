@@ -136,9 +136,12 @@ class FusedSolveUnavailable(ValueError):
 
 
 def transposed_eligible(config: MPPIConfig) -> bool:
-    """Static eligibility for the fused kernel: float32 and no step
-    dependence (the kernel's device models take no timestep)."""
-    return config.dtype == torch.float32 and not config.step_dependent_dynamics
+    """Static eligibility for the fused kernel (``pallas_rollout.py:259-283``):
+    one deterministic rollout a sample (M = 1, no ``stochastic_dynamics``),
+    float32, and no step dependence (the kernel's device models take no
+    timestep)."""
+    return (config.M == 1 and not config.stochastic_dynamics
+            and config.dtype == torch.float32 and not config.step_dependent_dynamics)
 
 
 def smem_bytes(variant: int, D: int, R: int, full_op: bool, S: int = _BLOCK) -> int:

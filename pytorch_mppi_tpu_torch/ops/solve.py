@@ -35,6 +35,7 @@ fresh intermediates the function itself allocated.
 from __future__ import annotations
 
 import logging
+import math
 from typing import Callable, NamedTuple
 
 import torch
@@ -73,10 +74,31 @@ def iteration_seed(seed: int, counter: int) -> int:
     return z ^ (z >> 31)
 
 
+# XORed into a state's seed for the stream of the stochastic rollouts, so that
+# an iteration's rollout draws are independent of its noise draws
+_ROLLOUT_STREAM = 0xD1B54A32D192ED03
+
+
+def rollout_seed(seed: int, counter: int) -> int:
+    """The 64-bit seed of the stochastic rollout of iteration ``counter``: a
+    second stream at the same position as :func:`iteration_seed`, the
+    counterpart of JAX's ``k_roll`` from ``split(key, 3)``
+    (``pytorch_mppi_tpu/ops/solve.py:1228``)."""
+    return iteration_seed(seed ^ _ROLLOUT_STREAM, counter)
+
+
 def _generator(s: int, device) -> torch.Generator:
     g = torch.Generator(device=device)
     g.manual_seed(s)
     return g
+
+
+def step_generator(seed: int, t: int, device) -> torch.Generator:
+    """The ``torch.Generator`` stochastic dynamics take at step ``t`` of a
+    rollout seeded ``seed``, on the rollout's device: made afresh each step,
+    so a step's draws do not depend on how many numbers earlier steps drew
+    (JAX splits one key per step, ``solve.py:369``)."""
+    return _generator(iteration_seed(seed, t), device)
 
 
 def standard_normal(generator: torch.Generator, shape, dtype, device) -> torch.Tensor:
@@ -180,6 +202,88 @@ def _tile_bound(b: torch.Tensor, nu: int, reps: int, dtype) -> torch.Tensor:
     return torch.broadcast_to(b, (nu,)).to(dtype).tile(reps)
 
 
+def adapt_covariance(config: MPPIConfig, sigma: torch.Tensor, omega: torch.Tensor,
+                     noise: torch.Tensor, n_injected: int = 0) -> torch.Tensor:
+    """Within-command covariance adaptation (``pytorch_mppi_tpu/ops/solve.py:
+    189-234``): the omega-weighted second moment of the (K, T, nu) rectified
+    noise about the old mean, averaged over the horizon, plus ``floor·I``,
+    blended into ``sigma`` at ``config.adaptive_cov_lr``.  The first
+    ``n_injected`` rows (the null row) are not draws of the sampling
+    distribution: their weight is masked out and omega renormalised, and
+    when it falls on those rows alone sigma is kept.  With ``diag_sigma``
+    only the diagonal is adapted."""
+    dtype = sigma.dtype
+    T, nu = noise.shape[-2], noise.shape[-1]
+    omega = omega.to(dtype)
+    lr = torch.tensor(config.adaptive_cov_lr, dtype=dtype, device=sigma.device)
+    safe = None
+    if n_injected:
+        omega = omega.clone()
+        omega[:n_injected] = 0.0
+        w_sum = torch.sum(omega)
+        safe = w_sum > torch.tensor(1e-12, dtype=dtype, device=sigma.device)
+        omega = omega / torch.where(safe, w_sum, torch.ones_like(w_sum))
+    if config.diag_sigma:
+        cov = torch.diag(torch.einsum("k,ktu->u", omega, noise * noise) / T)
+    else:
+        cov = torch.einsum("k,ktu,ktv->uv", omega, noise, noise) / T
+    cov = cov + torch.tensor(config.adaptive_cov_floor, dtype=dtype,
+                             device=sigma.device) * torch.eye(nu, dtype=dtype, device=sigma.device)
+    blended = (1 - lr) * sigma + lr * cov
+    if safe is not None:
+        blended = torch.where(safe, blended, sigma)
+    return blended
+
+
+def _gate_iterations(config: MPPIConfig, variant: str):
+    """At least one iteration a command, with the JAX factories' texts
+    (``solve.py:1100-1104, 1482-1485``)."""
+    if config.num_iterations < 1:
+        raise ValueError(
+            f"config.num_iterations must be >= 1, got {config.num_iterations}"
+            + (" (0 would leave the solve with no update at all)" if variant == "MPPI" else ""))
+
+
+def _gate_adaptive_covariance(config: MPPIConfig, use_pallas, variant: str):
+    """Validate adaptive covariance and resolve its routing
+    (``solve.py:854-883``): it reads each iteration's noise and omega, which
+    the kernels keep out of memory, so ``use_pallas`` takes the plain path
+    with a warning; with one iteration the adapted sigma drives no draw."""
+    if not config.adaptive_covariance:
+        return use_pallas
+    if not 0.0 < config.adaptive_cov_lr <= 1.0:
+        raise ValueError(f"adaptive_cov_lr must be in (0, 1], got {config.adaptive_cov_lr}")
+    if config.num_iterations < 2:
+        logger.warning(
+            "adaptive_covariance with num_iterations=1 has no effect: the "
+            "covariance adapted after the single update cycle never drives "
+            "a sampling step; set num_iterations >= 2")
+    if use_pallas:
+        logger.warning(
+            "adaptive_covariance on %s needs the per-iteration noise/omega "
+            "artifacts, which the fused kernels keep out of device memory by "
+            "design; using the plain torch path", variant)
+        use_pallas = False
+    return use_pallas
+
+
+def _check_risk_alpha_range(config: MPPIConfig):
+    """The [0, 1] range of ``risk_alpha`` (``solve.py:886-893``)."""
+    if not 0.0 <= config.risk_alpha <= 1.0:
+        raise ValueError(f"risk_alpha must be in [0, 1], got {config.risk_alpha}")
+
+
+def _gate_risk_alpha(config: MPPIConfig):
+    """``risk_alpha`` at the ops layer (``solve.py:896-907``): CVaR exists
+    only over M > 1 rollouts, so ``risk_alpha > 0`` at M = 1 raises rather
+    than being ignored."""
+    _check_risk_alpha_range(config)
+    if config.risk_alpha > 0.0 and config.M < 2:
+        raise ValueError(
+            "risk_alpha needs rollout_samples (M) > 1: CVaR over the "
+            "stochastic rollouts is undefined with a single rollout")
+
+
 # ---------------------------------------------------------------------------
 # Dynamics / cost adapters
 # ---------------------------------------------------------------------------
@@ -201,10 +305,20 @@ def _adapt_batch_rank(call: Callable) -> Callable:
 
 
 def wrap_dynamics(config: MPPIConfig, dynamics: Callable) -> Callable:
-    """Resolve the user dynamics to ``(state, u, t) -> next_state``."""
+    """Resolve the user dynamics to ``(state, u, t, rng=None) -> next_state``
+    (``pytorch_mppi_tpu/ops/solve.py:262-289``).  The user's signature is
+    ``dynamics(state, u)``, with ``step_dependent_dynamics``
+    ``dynamics(state, u, t)``; with ``stochastic_dynamics`` a trailing
+    ``rng``, a ``torch.Generator`` on the rollout's device made for that
+    step (:func:`step_generator`), is passed too: ``dynamics(state, u, rng)``
+    or ``dynamics(state, u, t, rng)``, where JAX passes a per-step key."""
+    if config.stochastic_dynamics:
+        if config.step_dependent_dynamics:
+            return _adapt_batch_rank(lambda s, u, t, rng=None: dynamics(s, u, t, rng))
+        return _adapt_batch_rank(lambda s, u, t, rng=None: dynamics(s, u, rng))
     if config.step_dependent_dynamics:
-        return _adapt_batch_rank(dynamics)
-    return _adapt_batch_rank(lambda s, u, t: dynamics(s, u))
+        return _adapt_batch_rank(lambda s, u, t, rng=None: dynamics(s, u, t))
+    return _adapt_batch_rank(lambda s, u, t, rng=None: dynamics(s, u))
 
 
 def wrap_cost(config: MPPIConfig, running_cost: Callable) -> Callable:
@@ -258,44 +372,73 @@ def _terminal_hooks(config: MPPIConfig, terminal_state_cost, terminal_final_cost
 
 def rollout_costs(config: MPPIConfig, dynamics: Callable, running_cost: Callable,
                   x0: torch.Tensor, perturbed_actions: torch.Tensor,
-                  terminal_state_cost: Callable = None, terminal_final_cost: Callable = None):
-    """T-step rollout of K trajectories from ``x0`` ((nx,) shared or (K, nx)),
-    returning ``(cost (K,), states, actions)``
-    (``pytorch_mppi_tpu/ops/solve.py:332-448`` at M = 1).  ``dynamics``,
+                  terminal_state_cost: Callable = None, terminal_final_cost: Callable = None,
+                  seed: int = None):
+    """T-step rollout of K·M trajectories from ``x0`` ((nx,) shared or
+    (K, nx)), returning ``(cost (K,), states, actions)``
+    (``pytorch_mppi_tpu/ops/solve.py:332-448``).  ``dynamics``,
     ``running_cost`` and ``terminal_final_cost`` are wrapped
     (:func:`wrap_dynamics`, :func:`wrap_final_cost`); the cost is taken at
-    the state after each step, on the ``u_scale``-scaled action.
+    the state after each step, on the ``u_scale``-scaled action.  M
+    (``config.M``) is folded into the batch, M outer and K inner: one
+    (M·K, nx) dynamics call a step.  With ``stochastic_dynamics`` step t
+    takes ``step_generator(seed, t)``.
 
-    Under ``config.store_rollouts`` the states (1, K, T, nx) and the scaled
-    actions (1, K, T, nu) are kept, in JAX's (M, K, T, ·) layout, and
-    ``terminal_state_cost(states, actions)`` ((K,) or (1, K)) is added;
-    otherwise both are None.  ``terminal_final_cost(final_state, last scaled
-    action)`` is added from the loop's last state, with nothing stored."""
-    K, T, _ = perturbed_actions.shape
-    nx = config.nx
+    Under ``config.store_rollouts`` the states (M, K, T, nx) and the scaled
+    actions (M, K, T, nu) are kept, and ``terminal_state_cost(states,
+    actions)`` ((K,) or (M, K)) is added to each rollout; otherwise both are
+    None.  ``terminal_final_cost(final_state, last scaled action)`` is added
+    from the loop's last state, with nothing stored.  At M > 1 the cost is
+    the mean over the M rollouts (with ``risk_alpha`` the mean of the worst
+    ``ceil(risk_alpha·M)``) plus ``rollout_var_cost`` times the running
+    costs' variance over M (ddof=1), discounted by
+    ``rollout_var_discount**t``."""
+    K, T, nu = perturbed_actions.shape
+    M, nx, dtype = config.M, config.nx, config.dtype
+    device = perturbed_actions.device
     state = x0 if x0.ndim == 2 else x0[None].expand(K, x0.shape[-1])
+    if M > 1:
+        state = state[None].expand(M, K, state.shape[-1]).reshape(M * K, -1)
+        # the discount raised to t in config.dtype, as JAX casts it
+        discount = torch.tensor(config.rollout_var_discount, dtype=dtype) ** torch.arange(
+            T, dtype=dtype)
+        discount = discount.to(device)
+        cost_var = torch.zeros(K, dtype=dtype, device=device)
     u_scaled = perturbed_actions * config.u_scale
-    cost = torch.zeros(K, dtype=config.dtype, device=perturbed_actions.device)
+    cost = torch.zeros(M, K, dtype=dtype, device=device)
     store = config.store_rollouts
-    kept = []
+    kept, u_flat = [], None
     for t in range(T):
         u_t = u_scaled[:, t]
-        state = dynamics(state, u_t, t)
-        cost = cost + running_cost(state, u_t, t)
+        u_flat = u_t if M == 1 else u_t[None].expand(M, K, nu).reshape(M * K, nu)
+        rng = step_generator(seed, t, device) if config.stochastic_dynamics else None
+        state = dynamics(state, u_flat, t, rng)
+        c = running_cost(state, u_flat, t).reshape(M, K)
+        cost = cost + c
+        if M > 1:
+            cost_var = cost_var + torch.var(c, dim=0, correction=1) * discount[t]
         if store:
-            kept.append(state[..., :nx])
+            kept.append(state.reshape(M, K, -1)[..., :nx])
     states = actions = None
     if store:
-        states = torch.stack(kept, dim=1)[None]
-        actions = u_scaled[None]
+        states = torch.stack(kept, dim=2)
+        actions = u_scaled[None].expand(M, K, T, nu)
         if terminal_state_cost is not None:
-            # a (K,) or (1, K) cost onto the (1, K) samples (mppi.py:324-328)
-            c = torch.as_tensor(terminal_state_cost(states, actions), dtype=config.dtype)
-            cost = (cost[None] + c)[0]
+            # a (K,) or (M, K) cost onto the (M, K) rollouts (mppi.py:324-328, 369-370)
+            cost = cost + torch.as_tensor(terminal_state_cost(states, actions), dtype=dtype)
     if terminal_final_cost is not None:
-        c = terminal_final_cost(state[..., :nx], u_t)
-        cost = cost + torch.as_tensor(c, dtype=config.dtype).reshape(K)
-    return cost, states, actions
+        c = terminal_final_cost(state[..., :nx], u_flat)
+        cost = cost + torch.as_tensor(c, dtype=dtype).reshape(M, K)
+    if M == 1:
+        return cost[0], states, actions
+    if config.risk_alpha > 0.0:
+        # CVaR: the mean of the worst ceil(alpha·M) rollout costs a sample
+        m_w = max(1, min(M, int(math.ceil(config.risk_alpha * M))))
+        cost_total = torch.mean(torch.topk(cost.T, m_w, dim=-1).values, dim=-1)
+    else:
+        cost_total = torch.mean(cost, dim=0)
+    cost_total = cost_total + cost_var * torch.tensor(config.rollout_var_cost, dtype=dtype)
+    return cost_total, states, actions
 
 
 def inject_specific_actions(config: MPPIConfig, perturbed2: torch.Tensor) -> torch.Tensor:
@@ -327,6 +470,20 @@ def _unscaled(config: MPPIConfig, actions):
     """The stored actions artifact: the rollout's scaled actions over
     ``u_scale`` (``solve.py:1411``), or None."""
     return None if actions is None else actions / config.u_scale
+
+
+def _iteration_seeds(config: MPPIConfig) -> Callable:
+    """``(state, it) -> (noise seed, rollout seed)`` of iteration ``it`` of a
+    command: the two streams at position ``state.counter + it``; the rollout
+    seed only with stochastic dynamics (None otherwise)."""
+    stochastic = config.stochastic_dynamics
+
+    def seeds(state, it: int):
+        pos = state.counter + it
+        return (iteration_seed(state.seed, pos),
+                rollout_seed(state.seed, pos) if stochastic else None)
+
+    return seeds
 
 
 # ---------------------------------------------------------------------------
@@ -379,18 +536,18 @@ def _route_transposed_solve(config: MPPIConfig, dynamics: Callable,
             "storage the fused kernel keeps out of memory; using the plain torch path for "
             "%s (a terminal_final_cost keeps the kernel)", variant)
         return None
+    if not FS.transposed_eligible(config):
+        logger.warning(
+            "use_pallas requested but the configuration is ineligible "
+            "(M>1 / stochastic / non-float32 / step-dependent); using the plain "
+            "torch path for %s", variant,
+        )
+        return None
     model = find_kernel_model(dynamics, running_cost)
     if model is None:
         logger.warning(
             "use_pallas: the dynamics and running cost carry no kernel model "
             "(ops/kernel_models.py); using the plain torch path for %s", variant,
-        )
-        return None
-    if not FS.transposed_eligible(config):
-        logger.warning(
-            "use_pallas requested but the configuration is ineligible "
-            "(non-float32 or step-dependent); using the plain torch path for %s",
-            variant,
         )
         return None
     try:
@@ -421,10 +578,10 @@ def _route_legacy_rollout(config: MPPIConfig, dynamics: Callable,
     why = None
     if has_terminal:
         why = "a terminal cost is set, which the legacy rollout kernel does not take"
+    elif not LG.pallas_eligible(config):
+        why = "the configuration is ineligible (M>1 / stochastic / non-float32 / step-dependent)"
     elif model is None:
         why = "the dynamics and running cost carry no kernel model (ops/kernel_models.py)"
-    elif not LG.pallas_eligible(config):
-        why = "the configuration is ineligible (non-float32 or step-dependent)"
     else:
         try:
             rollout = LG.make_fused_rollout(config, model)
@@ -468,19 +625,40 @@ def make_mppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callabl
     ``use_pallas="rollout"`` the plain path's noise stream is kept and the
     rollout and the weighted update run through the legacy kernels.
 
-    ``terminal_state_cost(states (1, K, T, nx), actions (1, K, T, nu)) ->
-    (K,)`` (with ``config.has_terminal_cost``) and ``terminal_final_cost(
-    final_state (K, nx), final_action (K, nu)) -> (K,)``, mutually
-    exclusive, add a terminal cost as JAX's (:func:`rollout_costs`); only a
-    kernel terminal cost given as ``terminal_final_cost`` keeps the fused
-    kernel, and neither the legacy route.
+    ``terminal_state_cost(states (M, K, T, nx), actions (M, K, T, nu)) ->
+    (K,) or (M, K)`` (with ``config.has_terminal_cost``) and
+    ``terminal_final_cost(final_state (M·K, nx), final_action (M·K, nu)) ->
+    (M·K,)``, mutually exclusive, add a terminal cost as JAX's
+    (:func:`rollout_costs`); only a kernel terminal cost given as
+    ``terminal_final_cost`` keeps the fused kernel, and neither the legacy
+    route.
+
+    Each command runs ``config.num_iterations`` iterations, each re-centred
+    on the last one's nominal sequence (``solve.py:1219-1240``): iteration i
+    draws its noise from ``iteration_seed(seed, counter + i)`` and its
+    stochastic rollout from ``rollout_seed(seed, counter + i)``, and the
+    counter advances by ``num_iterations``.  The route holds for every
+    iteration: the fused kernel launches once an iteration, the legacy pair
+    twice.  With ``adaptive_covariance`` the sigma of each iteration after
+    the first is :func:`adapt_covariance` of the last (the plain path only);
+    the next command starts again from ``params.noise_sigma``.  M > 1 and
+    stochastic dynamics take the plain path.  The artifacts are the last
+    iteration's.
     """
+    _gate_iterations(config, "MPPI")
+    use_pallas = _gate_adaptive_covariance(config, use_pallas, "MPPI")
+    _gate_risk_alpha(config)
     final_cost = _terminal_hooks(config, terminal_state_cost, terminal_final_cost)
+    # rows left out of the adaptive-covariance estimate: the null row is not
+    # a draw of the sampling distribution
+    n_injected_rows = 1 if config.sample_null_action else 0
     dyn = wrap_dynamics(config, dynamics)
     cost = wrap_cost(config, running_cost)
     dtype = config.dtype
     K, T, nu = config.K, config.T, config.nu
     D = T * nu
+    n_iter, adaptive = config.num_iterations, config.adaptive_covariance
+    _seeds = _iteration_seeds(config)
 
     legacy = use_pallas == "rollout"
     has_terminal = terminal_state_cost is not None or terminal_final_cost is not None
@@ -514,7 +692,7 @@ def make_mppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callabl
             pert_art = perturbed2.reshape(K, T, nu)
         return U_new, Artifacts(cost_total, ctnz, omega, noise_art, pert_art)
 
-    def _one_iteration(params: MPPIParams, U, x0, s: int):
+    def _one_iteration(params: MPPIParams, U, x0, s: int, rs: int):
         if transposed_solve is not None:
             return _one_iteration_fused(params, U, x0, s)
         chol, sigma_inv = _sigma_factors(params.noise_sigma, diag=config.diag_sigma)
@@ -538,7 +716,7 @@ def make_mppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callabl
         states = actions = None
         if fused_rollout is None:
             rollout_cost, states, actions = rollout_costs(
-                config, dyn, cost, x0, perturbed, terminal_state_cost, final_cost)
+                config, dyn, cost, x0, perturbed, terminal_state_cost, final_cost, rs)
             cost_total = rollout_cost + perturbation_cost
             cost_total_non_zero, omega = compute_weighting(cost_total, params.lambda_)
             U_new = U + (omega @ noise2).reshape(T, nu)
@@ -557,10 +735,15 @@ def make_mppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callabl
     def _solve(params: MPPIParams, state: MPPIState, x0, shift: bool):
         U = _shift_U(state.U, params.u_init) if shift else state.U
         x0 = torch.as_tensor(x0, dtype=dtype, device=U.device)
-        U_new, artifacts = _one_iteration(
-            params, U, x0, iteration_seed(state.seed, state.counter))
-        new_state = MPPIState(U=U_new, seed=state.seed, counter=state.counter + 1)
-        return new_state, _select_action(config, U_new), artifacts
+        sigma = params.noise_sigma
+        for it in range(n_iter):
+            it_params = params._replace(noise_sigma=sigma) if adaptive else params
+            U, artifacts = _one_iteration(it_params, U, x0, *_seeds(state, it))
+            if adaptive and it + 1 < n_iter:
+                sigma = adapt_covariance(config, sigma, artifacts.omega, artifacts.noise,
+                                         n_injected_rows)
+        new_state = MPPIState(U=U, seed=state.seed, counter=state.counter + n_iter)
+        return new_state, _select_action(config, U), artifacts
 
     def step(params, state, x0):
         return _solve(params, state, x0, shift=True)
@@ -580,14 +763,24 @@ def make_smppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callab
     noise in action-rate space, clamped to the rate bounds, integrated onto
     the commanded sequence, clamped to the action bounds, the noise
     back-computed through both clamps and a smoothness cost added.  The
-    steps take :class:`SMPPIParams` and :class:`SMPPIState`; ``use_pallas``
-    and the terminal hooks work as in :func:`make_mppi_step`."""
+    steps take :class:`SMPPIParams` and :class:`SMPPIState`; ``use_pallas``,
+    the terminal hooks and the iterations work as in :func:`make_mppi_step`.
+    The iterations re-centre the rate-space draws on the updated ``U`` over
+    one integration base, and the commanded sequence is integrated once
+    with the final ``U`` (``solve.py:1547-1571``); adaptive covariance
+    adapts the rate-space sigma."""
+    _gate_iterations(config, "SMPPI")
+    use_pallas = _gate_adaptive_covariance(config, use_pallas, "SMPPI")
+    _gate_risk_alpha(config)
     final_cost = _terminal_hooks(config, terminal_state_cost, terminal_final_cost)
+    n_injected_rows = 1 if config.sample_null_action else 0
     dyn = wrap_dynamics(config, dynamics)
     cost = wrap_cost(config, running_cost)
     dtype = config.dtype
     K, T, nu = config.K, config.T, config.nu
     D = T * nu
+    n_iter, adaptive = config.num_iterations, config.adaptive_covariance
+    _seeds = _iteration_seeds(config)
 
     transposed_solve = (
         _route_transposed_solve(config, dynamics, running_cost,
@@ -620,7 +813,7 @@ def make_smppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callab
             pert_art = pa2.reshape(K, T, nu)
         return U_new, Artifacts(cost_total, ctnz, omega, noise_art, pert_art)
 
-    def _one_iteration(params: SMPPIParams, U, action_sequence, x0, s: int):
+    def _one_iteration(params: SMPPIParams, U, action_sequence, x0, s: int, rs: int):
         if transposed_solve is not None:
             return _one_iteration_fused(params, U, action_sequence, x0, s)
         base = params.base
@@ -650,7 +843,7 @@ def make_smppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callab
         smoothness = params.w_action_seq_cost * torch.sum(action_diff * action_diff, dim=1)
         perturbed_action = perturbed_action2.reshape(K, T, nu)
         rollout_cost, states, actions = rollout_costs(
-            config, dyn, cost, x0, perturbed_action, terminal_state_cost, final_cost)
+            config, dyn, cost, x0, perturbed_action, terminal_state_cost, final_cost, rs)
         cost_total = rollout_cost + perturbation_cost + smoothness
         cost_total_non_zero, omega = compute_weighting(cost_total, base.lambda_)
         U_new = U + (omega @ noise2).reshape(T, nu)
@@ -665,12 +858,19 @@ def make_smppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callab
             U = _shift_U(U, params.base.u_init)
             action_sequence = _shift_sequence(action_sequence)
         x0 = torch.as_tensor(x0, dtype=dtype, device=U.device)
-        U, artifacts = _one_iteration(params, U, action_sequence, x0,
-                                      iteration_seed(state.seed, state.counter))
+        sigma = params.base.noise_sigma
+        for it in range(n_iter):
+            it_params = (params._replace(base=params.base._replace(noise_sigma=sigma))
+                         if adaptive else params)
+            U, artifacts = _one_iteration(it_params, U, action_sequence, x0,
+                                          *_seeds(state, it))
+            if adaptive and it + 1 < n_iter:
+                sigma = adapt_covariance(config, sigma, artifacts.omega, artifacts.noise,
+                                         n_injected_rows)
         # integrate the lifted control (mppi.py:529-531)
         action_sequence_new = action_sequence + U * params.delta_t
         new_state = SMPPIState(U=U, action_sequence=action_sequence_new,
-                               seed=state.seed, counter=state.counter + 1)
+                               seed=state.seed, counter=state.counter + n_iter)
         return new_state, _select_action(config, action_sequence_new), artifacts
 
     return StepFns(step=lambda params, state, x0: _solve(params, state, x0, True),
@@ -695,14 +895,23 @@ def make_kmppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callab
     interpolated to the horizon by ``kron(interp_full, I_nu)``, the null row,
     the trajectory clamp; the update is taken in theta space and
     ``U = interp_full @ theta``.  The steps take :class:`KMPPIParams` and
-    :class:`KMPPIState`; ``use_pallas`` and the terminal hooks work as in
-    :func:`make_mppi_step`."""
+    :class:`KMPPIState`; ``use_pallas``, the terminal hooks and the
+    iterations work as in :func:`make_mppi_step`.  Each iteration re-centres
+    the support-point draws on the updated theta; adaptive covariance adapts
+    the theta-space sigma from the rectified support-point noise
+    (``solve.py:1780-1800``)."""
+    _gate_iterations(config, "KMPPI")
+    use_pallas = _gate_adaptive_covariance(config, use_pallas, "KMPPI")
+    _gate_risk_alpha(config)
     final_cost = _terminal_hooks(config, terminal_state_cost, terminal_final_cost)
+    n_injected_rows = 1 if config.sample_null_action else 0
     dyn = wrap_dynamics(config, dynamics)
     cost = wrap_cost(config, running_cost)
     dtype = config.dtype
     K, T, nu, nsp = config.K, config.T, config.nu, config.num_support_pts
     D, Dp = T * nu, nsp * nu
+    n_iter, adaptive = config.num_iterations, config.adaptive_covariance
+    _seeds = _iteration_seeds(config)
 
     transposed_solve = (
         _route_transposed_solve(config, dynamics, running_cost,
@@ -739,9 +948,12 @@ def make_kmppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callab
         return (params.interp_full @ theta_new, theta_new,
                 Artifacts(cost_total, ctnz, omega, noise_art, pert_art))
 
-    def _one_iteration(params: KMPPIParams, U, theta, x0, s: int):
+    def _one_iteration(params: KMPPIParams, U, theta, x0, s: int, rs: int):
+        """``(U, theta, artifacts, theta-space noise (K, Dp) or None)``: the
+        fused kernel keeps its theta-space noise, which only the plain
+        path's adaptive covariance reads."""
         if transposed_solve is not None:
-            return _one_iteration_fused(params, U, theta, x0, s)
+            return _one_iteration_fused(params, U, theta, x0, s) + (None,)
         base = params.base
         chol, sigma_inv = _sigma_factors(base.noise_sigma, diag=config.diag_sigma)
         noise_theta2 = sample_noise_flat(
@@ -764,7 +976,7 @@ def make_kmppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callab
         perturbation_cost = n_for_cost @ a_flat
         perturbed = perturbed2.reshape(K, T, nu)
         rollout_cost, states, actions = rollout_costs(
-            config, dyn, cost, x0, perturbed, terminal_state_cost, final_cost)
+            config, dyn, cost, x0, perturbed, terminal_state_cost, final_cost, rs)
         cost_total = rollout_cost + perturbation_cost
         cost_total_non_zero, omega = compute_weighting(cost_total, base.lambda_)
         # weighted update in control-point space (mppi.py:672-682)
@@ -772,7 +984,7 @@ def make_kmppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callab
         return (params.interp_full @ theta_new, theta_new,
                 Artifacts(cost_total, cost_total_non_zero, omega,
                           noise2.reshape(K, T, nu), perturbed, states,
-                          _unscaled(config, actions)))
+                          _unscaled(config, actions)), noise_theta2)
 
     def _solve(params: KMPPIParams, state: KMPPIState, x0, shift: bool):
         U, theta = state.U, state.theta
@@ -781,9 +993,17 @@ def make_kmppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callab
             # theta <- theta interpolated at Tk + 1 (mppi.py:617-619)
             theta = params.interp_shift @ theta
         x0 = torch.as_tensor(x0, dtype=dtype, device=U.device)
-        U, theta, artifacts = _one_iteration(params, U, theta, x0,
-                                             iteration_seed(state.seed, state.counter))
-        new_state = KMPPIState(U=U, theta=theta, seed=state.seed, counter=state.counter + 1)
+        sigma = params.base.noise_sigma
+        for it in range(n_iter):
+            it_params = (params._replace(base=params.base._replace(noise_sigma=sigma))
+                         if adaptive else params)
+            U, theta, artifacts, noise_theta = _one_iteration(it_params, U, theta, x0,
+                                                              *_seeds(state, it))
+            if adaptive and it + 1 < n_iter:
+                sigma = adapt_covariance(config, sigma, artifacts.omega,
+                                         noise_theta.reshape(K, nsp, nu), n_injected_rows)
+        new_state = KMPPIState(U=U, theta=theta, seed=state.seed,
+                               counter=state.counter + n_iter)
         return new_state, _select_action(config, U), artifacts
 
     return StepFns(step=lambda params, state, x0: _solve(params, state, x0, True),
@@ -829,19 +1049,41 @@ def make_batched_step(config: MPPIConfig, num_envs: int, dynamics: Callable,
     2237``); a kernel terminal cost given as ``terminal_final_cost`` keeps
     the batched kernel, and a ``terminal_state_cost`` takes the plain path.
 
-    The JAX gates on M, ``risk_alpha``, gradient refinement, elites and
-    adaptive covariance have nothing to check: the port's config has none of
-    those fields, and its controllers reject the flags.  Without ``mesh``
-    and ``dyn_params`` (ROADMAP.md Queue 1 items 12, 9).
+    ``config.num_iterations`` iterations a command, as in
+    :func:`make_mppi_step` (``solve.py:2160-2164``): the batched kernel pair
+    launches once an iteration.  ``stochastic_dynamics`` runs the plain path
+    over the (N·K,) flat batch.  M > 1, ``risk_alpha`` and adaptive
+    covariance raise JAX's ValueErrors (``solve.py:1984-2002``): the plants
+    share one noise draw and the batched rollout has no M axis.  Without
+    gradient refinement and elites (ROADMAP.md Queue 1 items 5d, 5f; the
+    controller rejects their flags), ``mesh`` and ``dyn_params`` (items 12,
+    9).
     """
     if use_pallas not in BATCHED_USE_PALLAS:
         raise ValueError(f"use_pallas must be one of {BATCHED_USE_PALLAS}, got {use_pallas!r}")
+    _gate_iterations(config, "MPPI_Batched")
+    _check_risk_alpha_range(config)
+    if config.risk_alpha > 0.0 or config.M > 1:
+        raise ValueError(
+            "rollout_samples (M) > 1 / risk_alpha are not supported on "
+            "MPPI_Batched: the batched rollout has no stochastic-rollout (M) "
+            "axis (mppi.py:844-853); fold plant-dynamics uncertainty into "
+            "extra plants instead")
+    if config.adaptive_covariance:
+        raise ValueError(
+            "adaptive_covariance is not supported on MPPI_Batched: the N "
+            "plants share ONE noise draw (mppi.py:837-838), so a per-plant "
+            "covariance would break the shared-noise design and a pooled one "
+            "would mix unrelated plants; use per-plant MPPI controllers if "
+            "you need it")
     final_cost = _terminal_hooks(config, terminal_state_cost, terminal_final_cost)
     dyn = wrap_dynamics(config, dynamics)
     cost = wrap_cost(config, running_cost)
     dtype = config.dtype
     N, K, T, nu, nx = int(num_envs), config.K, config.T, config.nu, config.nx
     D = T * nu
+    n_iter = config.num_iterations
+    _seeds = _iteration_seeds(config)
 
     if transposed_solve_override is not None and config.fused_artifacts:
         # the override bypasses the route's guards: fail loud rather than
@@ -906,7 +1148,7 @@ def make_batched_step(config: MPPIConfig, num_envs: int, dynamics: Callable,
         U_new = U + (delta / s_[None, :]).T.reshape(N, T, nu)
         return U_new, Artifacts(cost_total, ctnz, omega, None, None)
 
-    def _one_iteration(params: MPPIParams, U, x0, s: int):
+    def _one_iteration(params: MPPIParams, U, x0, s: int, rs: int):
         if transposed_solve is not None:
             return _one_iteration_fused(params, U, x0, s)
         chol, sigma_inv = _sigma_factors(params.noise_sigma, diag=config.diag_sigma)
@@ -923,7 +1165,7 @@ def make_batched_step(config: MPPIConfig, num_envs: int, dynamics: Callable,
         state0 = x0[:, None].expand(N, K, nx).reshape(N * K, nx)
         rollout_cost, states, actions = rollout_costs(
             config, dyn, cost, state0, perturbed2.reshape(N * K, T, nu),
-            terminal_final_cost=final_cost)
+            terminal_final_cost=final_cost, seed=rs)
         cost_total = rollout_cost.reshape(N, K)
         if states is not None:
             # (1, N·K, T, ·) -> (N, K, T, ·): the plants' rollouts (solve.py:2225-2237)
@@ -946,12 +1188,12 @@ def make_batched_step(config: MPPIConfig, num_envs: int, dynamics: Callable,
             U = torch.roll(U, -1, dims=1)
             U[:, -1] = params.u_init
         x0 = torch.as_tensor(x0, dtype=dtype, device=U.device)
-        U_new, artifacts = _one_iteration(params, U, x0,
-                                          iteration_seed(state.seed, state.counter))
-        action = U_new[:, : config.u_per_command]
+        for it in range(n_iter):
+            U, artifacts = _one_iteration(params, U, x0, *_seeds(state, it))
+        action = U[:, : config.u_per_command]
         if config.u_per_command == 1:
             action = action[:, 0]
-        return (BatchedState(U=U_new, seed=state.seed, counter=state.counter + 1),
+        return (BatchedState(U=U, seed=state.seed, counter=state.counter + n_iter),
                 action, artifacts)
 
     return StepFns(step=lambda params, state, x0: _solve(params, state, x0, True),
@@ -960,10 +1202,13 @@ def make_batched_step(config: MPPIConfig, num_envs: int, dynamics: Callable,
 
 
 def make_get_rollouts(config: MPPIConfig, wrapped_dynamics: Callable) -> Callable:
-    """Roll a nominal sequence from given initial states (mppi.py:425-448)."""
+    """Roll a nominal sequence from given initial states (mppi.py:425-448).
+    With stochastic dynamics step t takes ``step_generator(seed, t)``; the
+    controller passes a fresh seed each call (``pytorch_mppi_tpu/
+    controller.py:645-656``), and ``seed=None`` means the stream of 0."""
     dtype = config.dtype
 
-    def get_rollouts(params: MPPIParams, x0, U, num_rollouts: int = 1):
+    def get_rollouts(params: MPPIParams, x0, U, num_rollouts: int = 1, seed: int = None):
         x0 = torch.as_tensor(x0, dtype=dtype, device=U.device).reshape(-1, config.nx)
         if x0.shape[0] == 1:
             x0 = x0.expand(num_rollouts, config.nx)
@@ -971,7 +1216,9 @@ def make_get_rollouts(config: MPPIConfig, wrapped_dynamics: Callable) -> Callabl
         states = []
         for t in range(U.shape[0]):
             u = U[t][None].expand(x0.shape[0], config.nu) * config.u_scale
-            state = wrapped_dynamics(state, u, t)[..., : config.nx]
+            rng = (step_generator(seed or 0, t, U.device) if config.stochastic_dynamics
+                   else None)
+            state = wrapped_dynamics(state, u, t, rng)[..., : config.nx]
             states.append(state)
         return torch.stack(states, dim=1)  # (R, T, nx)
 

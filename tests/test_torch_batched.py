@@ -542,11 +542,27 @@ def test_batched_controller_surface(monkeypatch):
         ctrl.command(torch.zeros(2, 2))
     with pytest.raises(ValueError, match="use_pallas"):
         _batched("rollout")
-    for flag, value in (("num_iterations", 2),
-                        ("stochastic_dynamics", True), ("dynamics_params", {}),
-                        ("mesh", object()), ("env_axis", "plants"), ("sample_axis", "k")):
+    for flag, value in (("dynamics_params", {}), ("mesh", object()), ("env_axis", "plants"),
+                        ("sample_axis", "k")):
         with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
             _batched(False, **{flag: value})
+    # num_iterations and stochastic_dynamics, ported since: taken
+    iters = _batched(False, num_envs=3, num_iterations=2)
+    assert iters.config.num_iterations == 2
+    iters.command(torch.zeros(3, 2))
+    assert iters._state.counter == 2
+
+    def noisy(s, a, rng):
+        return LQ.dynamics(s, a) + 0.01 * torch.randn(s.shape, generator=rng)
+
+    stoch = MPPI_Batched(noisy, LQ.running_cost, nx=2, noise_sigma=torch.eye(2), num_envs=3,
+                         num_samples=16, horizon=4, device="cpu", stochastic_dynamics=True)
+    assert stoch.config.stochastic_dynamics
+    assert torch.isfinite(stoch.command(torch.zeros(3, 2))).all()
+    # the JAX factory's ValueError for M > 1 (pytorch_mppi_tpu/ops/solve.py:1985-1991)
+    with pytest.raises(ValueError, match="not supported on MPPI_Batched"):
+        PS.make_batched_step(MPPIConfig(nx=2, nu=2, K=16, T=4, M=2), 3, LQ.dynamics,
+                             LQ.running_cost)
     # terminal_state_cost, ported since: taken, and the rollout states kept
     term = _batched(False, num_envs=3, terminal_state_cost=lambda s, a: s[..., -1, :].sum(-1))
     term.command(torch.zeros(3, 2))

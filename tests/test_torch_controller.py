@@ -67,9 +67,36 @@ PORTED = {"terminal_state_cost": lambda s, a: s[..., -1, :].sum(-1),
           "terminal_final_cost": lambda s, a: s.sum(-1)}
 
 
+def _noisy_pendulum(s, a, rng):
+    return pendulum_dynamics(s, a) + 0.01 * torch.randn(s.shape, generator=rng, dtype=s.dtype)
+
+
+# the stochastic rollouts and the iterations, ported since: each flag is
+# taken (with what it needs: risk_alpha the M > 1 rollouts, stochastic
+# dynamics a generator argument), reaches the config and runs a command
+TAKEN = {"rollout_samples": {}, "rollout_var_cost": {}, "risk_alpha": {"rollout_samples": 4},
+         "stochastic_dynamics": {}, "num_iterations": {},
+         "adaptive_covariance": {"num_iterations": 2}}
+CONFIG_FIELD = {"rollout_samples": "M"}
+
+
 @pytest.mark.parametrize("flag,value", UNPORTED + list(PORTED.items()),
                          ids=[u[0] for u in UNPORTED] + list(PORTED))
 def test_unported_flag_raises(flag, value):
+    if flag in TAKEN:
+        kw = dict(TAKEN[flag], **{flag: value})
+        ctrl = (MPPI(_noisy_pendulum, pendulum_running_cost, nx=2,
+                     noise_sigma=torch.tensor([[10.0]]), num_samples=64, horizon=15,
+                     device="cpu", **kw) if flag == "stochastic_dynamics" else _pendulum(**kw))
+        assert getattr(ctrl.config, CONFIG_FIELD.get(flag, flag)) == value
+        ctrl.command(np.array([np.pi, 1.0]))
+        assert torch.isfinite(ctrl.cost_total).all()
+        M = ctrl.config.M
+        assert (ctrl.states is None) == (M == 1)
+        if M > 1:
+            assert ctrl.states.shape == (M, ctrl.K, ctrl.T, 2)
+        assert ctrl._state.counter == ctrl.config.num_iterations
+        return
     if flag in PORTED:
         ctrl = _pendulum(**{flag: value})
         ctrl.command(np.array([np.pi, 1.0]))
