@@ -29,7 +29,11 @@ the package is not beside it.  Phases, each fatal when it fails:
    nominal) against the same step with the kernel's plain version in its
    place, on the same bits an iteration and on the same seeds, and the
    batched pair's step with ``num_iterations = 2`` at N = 16 in operand and
-   seed mode the same way;
+   seed mode the same way; kernel A with the (E, D) elites operand (E = 4
+   with and without the null row, E = 127 after the null row over four
+   blocks of 32 samples, antithetic, the terminal cost) in bits and seed
+   mode, the emitted elite columns equal to the clamped elites exactly, and
+   one fused MPPI step with four elites against its plain twin;
    the batched variant in bits, seed and operand mode (N = 16, K = 10,240;
    the full width N = 1,024, K = 16,384 with the rule's plant group, which
    must be the largest P, and with P = 1; N = 1,023, not a multiple of P;
@@ -68,11 +72,21 @@ the package is not beside it.  Phases, each fatal when it fails:
    and ``KMPPI`` fused with ``num_iterations = 3`` (three launches of kernel
    A a command) and ``MPPI``'s legacy route with it (three of each legacy
    kernel), plain ``MPPI`` with adaptive covariance asked for the kernel
-   (the plain path, with the warning), and plain ``MPPI`` with M = 4
-   stochastic rollouts, the variance cost and CVaR on a noisy plant model
+   (the plain path, with the warning; 200 commands), and plain ``MPPI``
+   with M = 4 stochastic rollouts (200 commands), the variance cost and
+   CVaR on a noisy plant model
    (the (4, K, T, nx) states, their M slices differ, the loop comes within
    1.0 of the goal, and two controllers on one seed give the same first ten
-   commands bit for bit); then
+   commands bit for bit); elite reuse (``num_elites = 4``) on the fused
+   path with ``fused_artifacts`` (one launch a command, and three with
+   ``num_iterations = 3``), asked for the kernel without ``fused_artifacts``
+   (the plain path, the warning naming the flag) and on the legacy route;
+   plain ``MPPI`` with a ``SpecificActionSampler`` of two ramps, the null
+   row and two elites asked for the kernel (the plain path; rows 0-4 are
+   [null, ramps, shifted elites]), 200 commands each of ``SMPPI`` and
+   ``KMPPI`` with the sampler, 200 fused commands with five steps of
+   gradient refinement, and the refinement on JAX's small-K fixture (the
+   mean distance at least halved); then
    ``MPPI_Batched`` on ``examples/scenario_batch.py``'s problem at N = 1,024,
    K = 16,384, T = 30 and at N = 16, K = 10,240: operand mode, seed mode and
    the plain path, the launch counts and the fused step held to the plain
@@ -139,12 +153,12 @@ FIRST_MPPI_SEED_MS = 0.04754  # the MPPI pair, seed mode, flagship, as first por
 # D = 300 with a full operator; the batched pair at the main paths' widths;
 # the legacy route's kernels and the sampler (seed and bits mode) at the
 # flagship; and the parent's build time
-BEFORE_MS = {"mppi": 0.019269, "smppi": 0.019813, "kmppi": 0.021136, "rowmajor": 0.021957,
-             "mppi_D300": 0.385898, "smppi_D300": 0.429272, "kmppi_D300": 0.318739,
-             "weighted_update": 0.010419, "rollout": 0.003878, "sampler": 0.005813,
-             "sampler_bits": 0.005754, "batched_operand": 1.070091, "batched_seed": 1.158509,
-             "batched_small_operand": 0.031242}
-BEFORE_BUILD_S = 135.6
+BEFORE_MS = {"mppi": 0.018397, "smppi": 0.020019, "kmppi": 0.021307, "rowmajor": 0.021659,
+             "mppi_D300": 0.387245, "smppi_D300": 0.428394, "kmppi_D300": 0.318117,
+             "weighted_update": 0.010376, "rollout": 0.003654, "sampler": 0.005843,
+             "sampler_bits": 0.005331, "batched_operand": 1.072038, "batched_seed": 1.156552,
+             "batched_small_operand": 0.031635}
+BEFORE_BUILD_S = 171.3
 # the final-state terminal cost of the terminal cases and loops: w_state
 # |x_T - goal|^2 + w_action |u_T|^2 toward the flagship's goal
 TERMINAL_W = (1.0, 0.1)
@@ -152,6 +166,9 @@ PLANT_GROUPS = (1, 2, 4, 8, 16, 32)  # the P sweep of the batched kernel
 REPEATS = 50  # calls in a row of one merging kernel: its merge counter resets
 BATCHED_NAMES = ("batched_partial", "flash_merge")
 ITERS, BATCH_ITERS = 3, 2  # num_iterations of the single-plant and batched iteration loops
+ELITES = 4  # num_elites of the elite loops
+REFINE_STEPS = 5  # gradient_refinement_steps of the refinement loop
+SHORT_COMMANDS = 200  # the refinement loop's and SMPPI's and KMPPI's sampler loops' commands
 M_STOCH = 4  # rollout_samples of the stochastic loop
 STOCH_SCALE = 0.05  # the stochastic loop's dynamics noise (a standard deviation)
 
@@ -177,7 +194,7 @@ def _per_step(model, nx, nu):
 
 
 def fused_work(config, model, seed_or_bits, x0T, op, emit_perturbed=False,
-               variant="mppi", plants=1, terminal=False):
+               variant="mppi", plants=1, terminal=False, elites=None):
     """``(operations, bytes)`` one fused iteration needs on these inputs,
     for the least time the card could take (the ``bound_ms`` below).
 
@@ -200,7 +217,8 @@ def fused_work(config, model, seed_or_bits, x0T, op, emit_perturbed=False,
     no antithetic sign.  A ``terminal`` cost (``quadratic_terminal``) adds,
     per sample, nx subtractions and fused multiply-adds, nu fused
     multiply-adds, two products and two sums, and reads its nx + 2
-    constants."""
+    constants.  An (E, D) ``elites`` operand is read once; its rows take the
+    place of U + noise, which adds no operation."""
     from pytorch_mppi_tpu_torch.ops.fused_solve import _BLOCK
 
     K, T, nx, nu = config.K, config.T, config.nx, config.nu
@@ -253,7 +271,7 @@ def fused_work(config, model, seed_or_bits, x0T, op, emit_perturbed=False,
                "rowmajor": 2 * D + 3 * nu + 1}[variant]
     in_elems = (x0_elems + vectors + (0 if operand else op.numel())
                 + model.consts.numel() + (0 if seed_mode else seed_or_bits.numel())
-                + (nx + 2 if terminal else 0))
+                + (nx + 2 if terminal else 0) + (0 if elites is None else elites.numel()))
     out_elems = plants * (K + R + 2) + (D * K if emit_perturbed else 0)
     return operations, 4 * (in_elems + out_elems)
 
@@ -456,6 +474,7 @@ def main():
         SMPPI,
         MPPI_Batched,
         RBFKernel,
+        SpecificActionSampler,
         linear_quadratic,
         quadratic_terminal,
         run_mppi,
@@ -723,6 +742,53 @@ def main():
         print(f"# {variant}: {REPEATS} calls in a row identical to the first: {same}")
         check(same, f"{variant}: repeated calls differ (the merge counter did not reset)")
 
+    # elite reuse: kernel A with the (E, D) elites operand against its plain
+    # version at the flagship, with the perturbed set emitted: (name, E,
+    # config flags, terminal cost, samples a block where forced).  E = 127
+    # after the null row is the window's edge, samples 1-127 over four
+    # blocks of 32.  The emitted elite columns must be the clamped elites
+    # exactly.
+    elite_cases = [("E4", 4, {}, False, None),
+                   ("E4_null", 4, {"sample_null_action": True}, False, None),
+                   ("E127_null_S32", 127, {"sample_null_action": True}, False, 32),
+                   ("E4_antithetic_null", 4, {"antithetic": True, "sample_null_action": True},
+                    False, None),
+                   ("E4_terminal_u_scale", 4, {"u_scale": 1.5}, True, None)]
+    n_elite = 0
+    for mode in ("bits", "seed"):
+        for name, E, flags, with_term, tile in elite_cases:
+            cfg = MPPIConfig(nx=2, nu=NU, K=K, T=T, diag_sigma=True, num_elites=E, **flags)
+            solve = FS.make_transposed_fused_solve(cfg, lq, emit_perturbed=True, tile_k=tile,
+                                                   terminal_final=term if with_term else None)
+            args = operands("mppi", cfg, lq, 0.0, 0.8, 0.05, 1.5, 1.0, 1.0, 3.0, 0.5)
+            elites = torch.randn(E, T * NU, generator=gen, device=dev) * 2.0
+            lead = (torch.randint(-2**31, 2**31 - 1, (T * NU, solve.bits_cols), dtype=torch.int32,
+                                  generator=gen, device=dev) if mode == "bits"
+                    else tuple(int(v) for v in torch.randint(0, 2**32, (2,), generator=gen,
+                                                             device=dev)))
+            out_k = solve(lead, *args, elites)
+            torch.cuda.synchronize()
+            out_p = solve.plain(lead, *args, elites)
+            dk, mk, sk, ck, pk = out_k
+            dp, mp, sp, cp, pp = out_p
+            ok, c_err, u_err, w_tol = agree(ck, cp, dk / sk, dp / sp, 1.0, mk, mp, sk, sp)
+            ok = ok and all(bool(torch.isfinite(v).all()) for v in out_k)
+            p_err = float((pk - pp).abs().max())
+            ok = ok and bool(((pk - pp).abs() <= 1e-6 + 1e-5 * pp.abs()).all())
+            off = solve.elite_off
+            lo, hi = args[4][:, None], args[5][:, None]
+            exact = torch.equal(pk[:, off:off + E], torch.clamp(elites.T, lo, hi))
+            print(f"# {mode:4s} mppi  elites {name:20s} K={K} D={T * NU} S={solve.tile_k} "
+                  f"samples {off}-{off + E - 1}: cost err {c_err:.3e} | m err "
+                  f"{abs(float(mk - mp)):.3e} | s rel {abs(float(sk / sp - 1)):.3e} (tol "
+                  f"{w_tol:.3e}) | delta/s err {u_err:.3e} | perturbed err {p_err:.3e} | elite "
+                  f"columns exact {exact}" + ("" if ok and exact else "  <-- FAIL"))
+            check(ok, f"kernel with elites disagrees with its plain version: {mode}/{name}")
+            check(exact, f"{mode}/{name}: the emitted elite columns are not the clamped elites")
+            max_update_err["mppi"] = max(max_update_err["mppi"], u_err)
+            n_elite += 1
+    print(f"# kernel vs plain: {n_elite} elite cases agreed")
+
     # the batched variant: (name, model, N, K, T, nu, config flags, noise_rho,
     # pairing block, modes, operand overrides).  The overrides give the
     # diagonal op, mu and the bound of phase 4's and phase 6's own operands
@@ -932,6 +998,44 @@ def main():
         n_chained += 1
     print(f"# kernel vs plain: {n_chained} num_iterations steps agreed with their chained "
           f"plain iterations")
+
+    # elite reuse: one fused MPPI step with four elites (injected as the
+    # kernel's operand, refreshed from its emitted columns) against its
+    # plain twin on the same seed.  Costs summed in another order may swap
+    # near-tied ranks, so the refreshed elites are held by their costs; each
+    # side's elites are its own emitted columns of its lowest costs.
+    ck, cp = twin(lambda: MPPI(lq.dynamics, lq.running_cost, nx=NX,
+                               noise_sigma=torch.eye(NU, device=dev), num_samples=K, horizon=T,
+                               lambda_=1.0, seed=5, use_pallas=True, num_elites=4,
+                               fused_artifacts=True, device=dev))
+    check(ck._fns.fused and cp._fns.fused, "the elite twin is not fused")
+    params = ck._params
+    st = ck._state._replace(elites=torch.randn(4, T, NU, generator=gen, device=dev))
+    x0 = torch.tensor([-3.0, -2.0], device=dev)
+    outs = []
+    for c in (ck, cp):
+        reset_launches()
+        outs.append(c._fns.step(params, st, x0) + (dict(FS.launches),))
+        torch.cuda.synchronize()
+    (s_k, _, art_k, l_k), (s_p, _, art_p, l_p) = outs
+    U0 = PS._shift_U(st.U, params.u_init)
+    ok, c_err, u_err, w_tol = agree(art_k.cost_total, art_p.cost_total, (s_k.U - U0).reshape(-1),
+                                    (s_p.U - U0).reshape(-1), 1.0)
+    idx_k, idx_p = (PS._top_elites(a.cost_total, 4) for a in (art_k, art_p))
+    el_cost_err = float((art_k.cost_total[idx_k] - art_p.cost_total[idx_p]).abs().max())
+    ok = ok and el_cost_err <= 1e-5 + 2e-5 * float(art_p.cost_total[idx_p].abs().max())
+    own = torch.equal(s_k.elites, art_k.perturbed_action[idx_k]) and torch.equal(
+        s_p.elites, art_p.perturbed_action[idx_p])
+    injected = torch.equal(art_k.perturbed_action[:4], PS._shift_elites(st.elites, params.u_init))
+    launches_ok = l_k == only(mppi=1) and l_p == only()
+    print(f"# seed mppi  elites step (E=4) vs its plain twin K={K} D={T * NU}: cost err "
+          f"{c_err:.3e} | update err {u_err:.3e} (tol {w_tol:.3e} of its largest element) | "
+          f"the elites' costs err {el_cost_err:.3e} | refreshed from the emitted columns {own} | "
+          f"injected rows the shifted elites {injected} | launches {l_k['mppi']} (plain twin "
+          f"{sum(l_p.values())})" + ("" if ok and own and injected and launches_ok
+                                      else "  <-- FAIL"))
+    check(ok and own and injected, "the fused elite step disagrees with its plain twin")
+    check(launches_ok, f"the fused elite step launched {l_k}, the plain twin {l_p}")
 
     # the legacy route's kernels.  The rollout: (name, model, K, T, nu, shared
     # x0, samples a block where forced, a 4-byte offset of the actions): the
@@ -1220,6 +1324,23 @@ def main():
     # MPPI with adaptive covariance (asked for the kernel: the plain path,
     # with a warning) and the stochastic loop (M = 4, the variance cost,
     # CVaR, the noisy plant model)
+    class Ramps(SpecificActionSampler):
+        """Two ramps from the command's state toward the goal (B = diag(1,
+        -1)), the second twice as steep, decaying to 0 over the horizon."""
+
+        num_trajectories = 2
+
+        def sample_trajectories(self, state, info):
+            d = (goal - state) * torch.tensor([1.0, -1.0], device=dev)
+            w = torch.linspace(2.0 / T, 0.0, T, device=dev)
+            return torch.stack([torch.outer(w, d), torch.outer(w, 2.0 * d)])
+
+    # ... and the paths of the extensions: elite reuse on the fused kernel (with the
+    # emitted perturbed set it reads), with three iterations, asked for the
+    # kernel without fused_artifacts (the plain path, the warning naming the
+    # flag) and on the legacy route; the sampler with the null row and elites
+    # asked for the kernel (the plain path), SMPPI's and KMPPI's with the
+    # sampler; gradient refinement on the fused route
     PATH_KW = {"fused_terminal": dict(terminal_final_cost=term),
                "plain_terminal_state": dict(terminal_state_cost=last_state_cost),
                "fused_iter3": dict(num_iterations=ITERS),
@@ -1227,12 +1348,30 @@ def main():
                "plain_adaptive_iter3": dict(num_iterations=ITERS, adaptive_covariance=True),
                "plain_stochastic": dict(dynamics=noisy_lq, rollout_samples=M_STOCH,
                                         rollout_var_cost=0.1, risk_alpha=0.5,
-                                        stochastic_dynamics=True)}
+                                        stochastic_dynamics=True),
+               "fused_elites": dict(num_elites=ELITES, fused_artifacts=True),
+               "fused_elites_iter3": dict(num_elites=ELITES, fused_artifacts=True,
+                                          num_iterations=ITERS),
+               "plain_elites_no_artifacts": dict(num_elites=ELITES),
+               "rollout_elites": dict(num_elites=ELITES),
+               "plain_sampler_elites": dict(specific_action_sampler=Ramps,
+                                            sample_null_action=True, num_elites=2),
+               "plain_sampler": dict(specific_action_sampler=Ramps),
+               "fused_refine5": dict(gradient_refinement_steps=REFINE_STEPS)}
+    # the slowest plain loops (adaptive covariance, the stochastic rollouts)
+    # take SHORT_COMMANDS too, to keep the run's time
+    PATH_COMMANDS = {"plain_sampler": SHORT_COMMANDS, "fused_refine5": SHORT_COMMANDS,
+                     "plain_adaptive_iter3": SHORT_COMMANDS, "plain_stochastic": SHORT_COMMANDS}
+    PATH_WARNS = {"plain_adaptive_iter3": "per-iteration noise/omega artifacts",
+                  "plain_elites_no_artifacts": "fused_artifacts=True",
+                  "plain_sampler_elites": "specific sampler", "plain_sampler": "specific sampler"}
 
     def flagship_ctrl(variant, use_pallas, path, seed=42):
         cls, extra = MAIN[variant]
         kw = dict(PATH_KW.get(path, {}))
         dynamics = kw.pop("dynamics", lq.dynamics)
+        if "specific_action_sampler" in kw:  # a sampler of its own a controller
+            kw["specific_action_sampler"] = kw["specific_action_sampler"]()
         with Captured() as cap:
             ctrl = cls(dynamics, lq.running_cost, nx=NX,
                        noise_sigma=torch.eye(NU, device=dev), num_samples=K, horizon=T,
@@ -1242,7 +1381,8 @@ def main():
 
     def closed_loop(variant, use_pallas, path):
         ctrl, warned = flagship_ctrl(variant, use_pallas, path)
-        fused = bool(use_pallas) and path != "plain_adaptive_iter3"
+        commands = PATH_COMMANDS.get(path, COMMANDS)
+        fused = bool(use_pallas) and not path.startswith("plain")
         check(ctrl._fns.fused == fused,
               f"{variant} {path} use_pallas={use_pallas!r} took the wrong route")
         x = torch.tensor([-3.0, -2.0], device=dev)
@@ -1250,11 +1390,11 @@ def main():
             x = lq_step(x, ctrl.command(x))
         torch.cuda.synchronize()
         reset_launches()  # count the main path's launches only
-        starts = [torch.cuda.Event(enable_timing=True) for _ in range(COMMANDS)]
-        ends = [torch.cuda.Event(enable_timing=True) for _ in range(COMMANDS)]
+        starts = [torch.cuda.Event(enable_timing=True) for _ in range(commands)]
+        ends = [torch.cuda.Event(enable_timing=True) for _ in range(commands)]
         min_d = torch.tensor(float("inf"), device=dev)
         wall = time.perf_counter()
-        for i in range(COMMANDS):
+        for i in range(commands):
             starts[i].record()
             action = ctrl.command(x)
             ends[i].record()
@@ -1268,8 +1408,9 @@ def main():
         check(action.shape == (NU,) and bool(torch.isfinite(ctrl.U).all()),
               f"{variant} main path gave a non-finite or misshapen action")
         return dict(median_ms=statistics.median(lat), p90_ms=lat[int(0.9 * len(lat))],
-                    solves_per_s=COMMANDS / wall, min_dist=float(min_d),
-                    final_dist=final_d, launches=launched, ctrl=ctrl, x=x, warned=warned)
+                    solves_per_s=commands / wall, min_dist=float(min_d),
+                    final_dist=final_d, launches=launched, ctrl=ctrl, x=x, warned=warned,
+                    commands=commands)
 
     main = {}
     paths = [(v, p, up) for v in FS.VARIANTS for p, up in (("fused", True), ("plain", False))]
@@ -1278,35 +1419,57 @@ def main():
     paths += [(v, "fused_iter3", True) for v in FS.VARIANTS]
     paths += [("mppi", "rollout_iter3", "rollout"), ("mppi", "plain_adaptive_iter3", True),
               ("mppi", "plain_stochastic", False)]
+    paths += [("mppi", "fused_elites", True), ("mppi", "fused_elites_iter3", True),
+              ("mppi", "plain_elites_no_artifacts", True), ("mppi", "rollout_elites", "rollout"),
+              ("mppi", "plain_sampler_elites", True), ("smppi", "plain_sampler", True),
+              ("kmppi", "plain_sampler", True), ("mppi", "fused_refine5", True)]
     for variant, path, use_pallas in paths:
         r = closed_loop(variant, use_pallas, path)
         main[variant, path] = r
-        print(f"# main path [{variant} {path}] K={K} T={T}: command median "
+        print(f"# main path [{variant} {path}] K={K} T={T}, {r['commands']} commands: median "
               f"{r['median_ms']:.4f} ms p90 {r['p90_ms']:.4f} ms (CUDA events) | "
               f"{r['solves_per_s']:.1f} solves/s (host clock) | min dist "
               f"{r['min_dist']:.3f} final dist {r['final_dist']:.3f} | launches "
               f"{r['launches']}")
-        # bench.py:184's sanity check: reached the goal region and did not diverge
-        check(r["min_dist"] < 1.0 and r["final_dist"] < 10.0,
-              f"{variant} {path} closed loop failed bench.py's sanity check")
+        if (variant, path) == ("kmppi", "plain_sampler"):
+            # KMPPI updates theta by each row's own support-point draw, also
+            # for the rows the sampler wrote over after the interpolation
+            # (the reference's _compute_perturbed_action_and_noise, JAX's
+            # solve.py:1869-1876): when the ramps take the weight, theta
+            # moves by draws that were never rolled out, and the loop drifts
+            # in both packages.  It is held to finite actions and the rows.
+            check(math.isfinite(r["final_dist"]), "the KMPPI sampler loop went non-finite")
+            print(f"# [{variant} {path}] not held to the goal: the sampler's rows move "
+                  f"theta by draws they replaced (the reference's KMPPI)")
+        else:
+            # bench.py:184's sanity check: reached the goal region and did not diverge
+            check(r["min_dist"] < 1.0 and r["final_dist"] < 10.0,
+                  f"{variant} {path} closed loop failed bench.py's sanity check")
         check((r["ctrl"].states is not None) == (path in ("plain_terminal_state",
                                                           "plain_stochastic")),
               f"{variant} {path}: the rollout states are kept only for terminal_state_cost "
               f"and M > 1")
-        n = r["ctrl"].config.num_iterations * COMMANDS  # iterations in the loop
+        n = r["ctrl"].config.num_iterations * r["commands"]  # iterations in the loop
         if path.startswith("rollout"):
             expect = only(rollout=n, weighted_update=n)
         else:
             # kernel A merges its own partials: one launch an iteration
             expect = only(**{variant: n}) if r["ctrl"]._fns.fused else only()
         check(r["launches"] == expect,
-              f"{variant} {path} path launched {r['launches']} for {COMMANDS} "
+              f"{variant} {path} path launched {r['launches']} for {r['commands']} "
               f"commands, expected {expect}")
-        if path == "plain_adaptive_iter3":
-            said = [m for m in r["warned"] if "per-iteration noise/omega artifacts" in m]
+        if path in PATH_WARNS:
+            said = [m for m in r["warned"] if PATH_WARNS[path] in m]
             print(f"# [{variant} {path}] use_pallas=True took the plain path, warning: "
                   f"{said[0] if said else None!r}")
-            check(bool(said), "adaptive_covariance with use_pallas=True did not warn")
+            check(bool(said), f"{variant} {path} with use_pallas=True did not warn")
+        if r["ctrl"].config.num_elites:
+            el = r["ctrl"]._state.elites
+            print(f"# [{variant} {path}] stored elites {tuple(el.shape)}, finite "
+                  f"{bool(torch.isfinite(el).all())}")
+            check(tuple(el.shape) == (r["ctrl"].config.num_elites, T, NU)
+                  and bool(torch.isfinite(el).all()),
+                  f"{path}: the stored elites are misshapen or not finite")
         if path == "plain_stochastic":
             st = r["ctrl"].states
             differ = not torch.equal(st[0], st[1])
@@ -1319,7 +1482,66 @@ def main():
             check(tuple(st.shape) == (M_STOCH, K, T, NX) and differ,
                   "the stochastic loop's (M, K, T, nx) states are misshapen or identical in M")
     for (variant, path), r in main.items():
-        breakdown(f"{variant} {path}", r["ctrl"], lq_step, r["x"])
+        # the refinement loop's some 2,400 kernels a command: 10 commands
+        # keep the profiler's trace small
+        breakdown(f"{variant} {path}", r["ctrl"], lq_step, r["x"],
+                  n=10 if path == "fused_refine5" else 50)
+
+    # the sampler loop's rows on one more command: [the null row, the two
+    # ramps of this command's state, the last command's elites shifted], each
+    # clamped to the bounds (none at the flagship), as JAX's
+    # test_injection_rows_and_refresh
+    r = main["mppi", "plain_sampler_elites"]
+    c, x = r["ctrl"], r["x"]
+    prev = c._state.elites.clone()
+    c.command(x)
+    lo, hi = c.u_min, c.u_max
+    want = torch.cat([torch.zeros(1, T, NU, device=dev),
+                      torch.clamp(Ramps().sample_trajectories(x, None), lo, hi),
+                      torch.clamp(PS._shift_elites(prev, c.u_init), lo, hi)])
+    rows_ok = torch.equal(c.perturbed_action[:5], want)
+    print(f"# [mppi plain_sampler_elites] rows 0-4 are [null, ramp, ramp, elite, elite]: "
+          f"{rows_ok}")
+    check(rows_ok, "the sampler loop's leading rows are not [null, sampler rows, elites]")
+    # SMPPI's rows are actions, clamped to the action bounds; KMPPI's the
+    # full-horizon rows, clamped to the trajectory bounds
+    for variant in ("smppi", "kmppi"):
+        r = main[variant, "plain_sampler"]
+        c, x = r["ctrl"], r["x"]
+        c.command(x)
+        lo, hi = ((c.action_min, c.action_max) if variant == "smppi" else (c.u_min, c.u_max))
+        rows_ok = torch.equal(c.perturbed_action[:2],
+                              torch.clamp(Ramps().sample_trajectories(x, None), lo, hi))
+        print(f"# [{variant} plain_sampler] rows 0-1 are the clamped ramps: {rows_ok}")
+        check(rows_ok, f"{variant}: the sampler's rows are not rows 0-1")
+
+    # gradient refinement on JAX's small-K fixture (tests/test_extensions.py:
+    # 603-622): K = 8, T = 8, sigma = 0.5 I, |u| <= 1, 10 commands from
+    # [-3, -2], float64, 3 seeds; 20 descent steps must at least halve the
+    # mean distance to the goal
+    B64, G64 = B.double(), goal.double()
+
+    def small_k(steps, seed):
+        ctrl = MPPI(lambda s_, a: s_ + a @ B64.T, lambda s_, a: ((G64 - s_) ** 2).sum(-1),
+                    nx=2, noise_sigma=0.5 * torch.eye(2, dtype=torch.float64, device=dev),
+                    num_samples=8, horizon=8, lambda_=1.0, seed=seed,
+                    u_max=torch.tensor([1.0, 1.0], dtype=torch.float64),
+                    gradient_refinement_steps=steps, gradient_refinement_lr=0.1, device=dev)
+        s_ = torch.tensor([-3.0, -2.0], dtype=torch.float64, device=dev)
+        for _ in range(10):
+            s_ = s_ + ctrl.command(s_) @ B64.T
+        return float(torch.linalg.norm(G64 - s_))
+
+    wall = time.perf_counter()
+    base_d = [small_k(0, i) for i in range(3)]
+    ref_d = [small_k(20, i) for i in range(3)]
+    wall = time.perf_counter() - wall
+    ratio = statistics.mean(ref_d) / statistics.mean(base_d)
+    print(f"# small-K refinement fixture (K=8, T=8, 10 commands, float64, seeds 0-2): mean "
+          f"distance {statistics.mean(base_d):.4f} unrefined {base_d}, "
+          f"{statistics.mean(ref_d):.4f} with 20 steps {ref_d}: ratio {ratio:.4f} (limit 0.5) | "
+          f"{wall:.1f} s")
+    check(ratio < 0.5, f"gradient refinement did not halve the small-K distance: {ratio}")
 
     # the stochastic loop on one seed: two controllers give the same first ten
     # commands bit for bit (each step's generator is made from the seed)
@@ -1584,6 +1806,24 @@ def main():
                                            args[3 if variant != "mppi" else 2], variant=variant,
                                            terminal=True))
                 timed[variant, "terminal"] = (t_ms,) + t_bound
+                if variant == "mppi":
+                    # with ELITES elites (the perturbed set emitted, which
+                    # the refresh reads) beside the same call without them
+                    cfg_e = MPPIConfig(nx=2, nu=nu, K=K_, T=T_, diag_sigma=True,
+                                       num_elites=ELITES)
+                    solve_e = FS.make_transposed_fused_solve(cfg_e, model, emit_perturbed=True)
+                    solve_emit = factories[variant](cfg, model, emit_perturbed=True)
+                    el = torch.randn(ELITES, T_ * nu, generator=gen, device=dev)
+                    e_ms = graph_ms(lambda: solve_e((1234, 5678), *args, el), 20)
+                    emit_ms = graph_ms(lambda: solve_emit((1234, 5678), *args), 20)
+                    e_bound = bound(fused_work(cfg_e, model, (1234, 5678), args[0], args[2],
+                                               emit_perturbed=True, elites=el))
+                    timed["mppi", "elites"] = (e_ms, emit_ms) + e_bound
+                    print(f"# kernel alone [mppi flagship seed] with {ELITES} elites and the "
+                          f"perturbed set emitted: device {e_ms:.6f} ms against {emit_ms:.6f} ms "
+                          f"without the elites (ratio {e_ms / emit_ms:.4f}) and "
+                          f"{timed[variant, shape, 'seed'][0]:.6f} ms without either (CUDA "
+                          f"graphs of 20 calls) | bound {e_bound[0]:.3e} ms by {e_bound[1]}")
                 print(f"# kernel alone [{variant} flagship seed] with the terminal cost: device "
                       f"{t_ms:.6f} ms (a CUDA graph of 20 calls) against {timed[variant, shape, 'seed'][0]:.6f}"
                       f" ms without: ratio {t_ms / timed[variant, shape, 'seed'][0]:.4f} | bound "
@@ -2112,6 +2352,14 @@ def main():
                                        if variant == "mppi" else None),
             "launches_iter3_loop": main[variant, "fused_iter3"]["launches"][variant],
         })
+    # kernel A with the elites operand (the elite columns of the TPU kernel)
+    e_ms, emit_ms, e_bound, e_by = timed["mppi", "elites"]
+    kernels[0].update(ms_elites=e_ms, ms_emit_perturbed=emit_ms, bound_ms_elites=e_bound,
+                      bound_by_elites=e_by,
+                      launches_elites_loop=main["mppi", "fused_elites"]["launches"]["mppi"],
+                      launches_elites_iter3_loop=main["mppi", "fused_elites_iter3"][
+                          "launches"]["mppi"],
+                      launches_refine_loop=main["mppi", "fused_refine5"]["launches"]["mppi"])
     d_ms, c_ms, p_ms, b_ms, b_by, group, pr_ms = timed["batched", BATCH_N, "operand"]
     s_ms = timed["batched", BATCH_N, "seed"]
     small = timed["batched", BATCH_SMALL_N, "operand"]

@@ -21,7 +21,7 @@ from .config import (
     SMPPIParams,
     SMPPIState,
 )
-from .controller import KMPPI, MPPI, SMPPI, MPPI_Batched
+from .controller import KMPPI, MPPI, SMPPI, MPPI_Batched, SpecificActionSampler
 from .ops.kernels import BSplineKernel, RBFKernel, TimeKernel
 from .ops.kernel_models import KernelModel, linear_quadratic, quadratic_terminal
 from .runner import run_mppi
@@ -34,6 +34,7 @@ __all__ = [
     "SMPPI",
     "KMPPI",
     "MPPI_Batched",
+    "SpecificActionSampler",
     "TimeKernel",
     "RBFKernel",
     "BSplineKernel",

@@ -10,9 +10,9 @@ random-number state from one command to the next: in place of a JAX PRNG key
 it holds a 64-bit ``seed`` and a ``counter`` that every iteration of a solve
 advances by one, so a run is reproducible from the seed alone.
 
-Only the fields this port runs are here; the JAX package's other flags are
-rejected by :class:`~pytorch_mppi_tpu_torch.controller.MPPI` with
-``NotImplementedError``.
+Only the fields this port runs are here; the JAX package's other flags
+(``dynamics_params`` and the sharding flags) are rejected by
+:class:`~pytorch_mppi_tpu_torch.controller.MPPI` with ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -74,6 +74,19 @@ class MPPIConfig:
     adaptive_covariance: bool = False
     adaptive_cov_lr: float = 0.5
     adaptive_cov_floor: float = 1e-6
+    # rows a SpecificActionSampler writes after the null row (0: no sampler);
+    # the injection needs the sampler itself wired into the step
+    num_specific_trajectories: int = 0
+    # elite reuse (iCEM): the num_elites lowest-cost perturbed trajectories
+    # of each iteration, shifted one step a command, are written back as
+    # sample rows after the null and sampler rows; they ride
+    # MPPIState.elites.  MPPI only
+    num_elites: int = 0
+    # projected-Adam steps on the nominal sequence after the iterations,
+    # descending the rollout cost J(U) at this step size (action units),
+    # clamped into [u_min, u_max] after each step.  MPPI only
+    gradient_refinement_steps: int = 0
+    gradient_refinement_lr: float = 0.05
 
     def __post_init__(self):
         if not isinstance(self.dtype, torch.dtype):
@@ -128,11 +141,13 @@ class MPPIState(NamedTuple):
     from it (``num_iterations`` a command), and
     :func:`~pytorch_mppi_tpu_torch.ops.solve.iteration_seed` maps the pair to
     the noise of one iteration (:func:`~pytorch_mppi_tpu_torch.ops.solve.
-    rollout_seed` to its stochastic rollout)."""
+    rollout_seed` to its stochastic rollout).  ``elites`` holds the
+    (num_elites, T, nu) elite trajectories with elite reuse, else None."""
 
     U: torch.Tensor  # (T, nu) nominal control sequence
     seed: int
     counter: int = 0
+    elites: Optional[torch.Tensor] = None
 
 
 class SMPPIState(NamedTuple):

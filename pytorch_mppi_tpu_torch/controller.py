@@ -16,8 +16,9 @@ device it runs the kernel's plain version.  ``MPPI(use_pallas="rollout")``
 selects the legacy kernel pair (``ops/legacy.py``); ``MPPI_Batched`` takes
 ``True``, ``"force"`` and ``"kernel_rng"`` (``ops/solve.make_batched_step``).
 
-Flags of the JAX controller that the port does not run yet raise
-``NotImplementedError`` naming the ``ROADMAP.md`` item that will port them.
+Flags of the JAX controller that the port does not run yet
+(``dynamics_params`` and the sharding flags) raise ``NotImplementedError``
+naming the ``ROADMAP.md`` item that will port them.
 The JAX keywords that pick its compiler or its random-number stream are taken
 as far as they mean something here: ``scan_unroll`` is accepted and ignored
 (it does not change results), ``prng_impl`` takes ``"auto"`` or ``None``, and
@@ -48,14 +49,10 @@ from .utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["MPPI", "SMPPI", "KMPPI", "MPPI_Batched"]
+__all__ = ["MPPI", "SMPPI", "KMPPI", "MPPI_Batched", "SpecificActionSampler"]
 
 # flag -> (value that means "off", ROADMAP.md item that ports it)
 _UNPORTED = {
-    "specific_action_sampler": (None, "Queue 1 item 5e (SpecificActionSampler)"),
-    "gradient_refinement_steps": (0, "Queue 1 item 5f (gradient refinement)"),
-    "gradient_refinement_lr": (0.05, "Queue 1 item 5f (gradient refinement)"),
-    "num_elites": (0, "Queue 1 item 5d (elite reuse)"),
     "dynamics_params": (None, "Queue 1 item 9 (learned models)"),
     "mesh": (None, "Queue 1 item 12 (sharding)"),
     "env_axis": ("data", "Queue 1 item 12 (sharding)"),
@@ -181,6 +178,42 @@ def _draw_seed(generator: torch.Generator) -> int:
     return int(torch.randint(0, 2**63 - 1, (), generator=generator))
 
 
+class SpecificActionSampler:
+    """Hook to inject domain-knowledge action trajectories into the sample set
+    (reference mppi.py:16-32; ``pytorch_mppi_tpu/controller.py:51-83``).
+
+    Set ``num_trajectories`` (default 1): the controller writes that many
+    rows after the null-action row.  ``sample_trajectories(state, info)``
+    takes the command's state tensor and its ``info`` and returns anything
+    reshapeable to (num_trajectories, T, nu); the rows are then clamped
+    like every sample.  A sampler takes the plain torch path (the fused
+    kernels sample every row themselves).
+    """
+
+    num_trajectories: int = 1
+
+    def __init__(self):
+        self.start_idx = 0
+        self.end_idx = 0
+        self.slice = slice(0, 0)
+
+    def sample_trajectories(self, state, info):
+        raise NotImplementedError
+
+    def specific_dynamics(self, next_state, state, action, t):
+        """Post-process each rollout step's states; the identity by default
+        (mppi.py:25-27).  ``state`` follows the reference on each path: at
+        M = 1 it is the new state again (mppi.py:315-317), at M > 1 the
+        initial state at every step (mppi.py:349-361).  Shapes are (M, K,
+        nx); ``action`` is ``u_scale``-scaled."""
+        return next_state
+
+    def register_sample_start_end(self, start_idx, end_idx):
+        self.start_idx = start_idx
+        self.end_idx = end_idx
+        self.slice = slice(start_idx, end_idx)
+
+
 class MPPI:
     """Model Predictive Path Integral control (Williams et al. 2017, Alg. 2).
 
@@ -202,6 +235,17 @@ class MPPI:
     :param num_iterations: iterations a command, each re-centred on the
         last; ``adaptive_covariance`` re-estimates sigma between them at
         rate ``adaptive_cov_lr`` (the plain path).
+    :param specific_action_sampler: a :class:`SpecificActionSampler` whose
+        rows follow the null row; it receives ``command(..., info=)``'s
+        ``info``, and its ``specific_dynamics`` runs in the rollout (the
+        plain path).
+    :param num_elites: elite reuse (MPPI only): the lowest-cost perturbed
+        trajectories of each iteration, shifted a step a command, are
+        sampled again after the null and sampler rows; on the fused kernel
+        only with ``fused_artifacts``.
+    :param gradient_refinement_steps: projected-Adam steps on the nominal
+        sequence after the iterations, at ``gradient_refinement_lr``
+        (MPPI only; ``torch.autograd`` through the plain rollout).
     :param terminal_final_cost: ``(final_state (K, nx), final_action (K,
         nu)) -> (K,)`` of the last step, the action ``u_scale``-scaled;
         stores nothing, and a ``ops.kernel_models.quadratic_terminal`` keeps
@@ -264,12 +308,7 @@ class MPPI:
         _check_jax_rng(key, prng_impl)
         # MPPI's default sample axis is "k" (MPPI_Batched's None)
         _reject_unported({"sample_axis": "k"}, sample_axis=sample_axis)
-        _reject_unported(
-            specific_action_sampler=specific_action_sampler,
-            gradient_refinement_steps=gradient_refinement_steps,
-            gradient_refinement_lr=gradient_refinement_lr,
-            num_elites=num_elites, dynamics_params=dynamics_params, mesh=mesh,
-        )
+        _reject_unported(dynamics_params=dynamics_params, mesh=mesh)
         self.d = resolve_device(device)
         self.use_pallas = _use_pallas(use_pallas, MPPI_USE_PALLAS)
         self.fused_artifacts = bool(fused_artifacts)
@@ -289,6 +328,10 @@ class MPPI:
         self.num_iterations = int(num_iterations)
         self.adaptive_covariance = bool(adaptive_covariance)
         self.adaptive_cov_lr = float(adaptive_cov_lr)
+        # validated by the step factory (ops/solve.py's gates)
+        self.gradient_refinement_steps = int(gradient_refinement_steps)
+        self.gradient_refinement_lr = float(gradient_refinement_lr)
+        self.num_elites = int(num_elites)
         self.sample_axis = sample_axis
         self.prng_impl = prng_impl
 
@@ -311,6 +354,14 @@ class MPPI:
         self._diag_sigma = _is_diag(sigma)
         self._gen = torch.Generator()
         self._gen.manual_seed(0 if seed is None else int(seed))
+
+        self.specific_action_sampler = specific_action_sampler
+        n_specific = 0
+        if specific_action_sampler is not None:
+            n_specific = int(getattr(specific_action_sampler, "num_trajectories", 1))
+            i0 = 1 if self.sample_null_action else 0
+            specific_action_sampler.register_sample_start_end(i0, i0 + n_specific)
+        self._n_specific = n_specific
 
         self._build_config()
         self._build_step_fns()
@@ -357,6 +408,10 @@ class MPPI:
             noise_rho=self.noise_rho,
             adaptive_covariance=self.adaptive_covariance,
             adaptive_cov_lr=self.adaptive_cov_lr,
+            num_specific_trajectories=self._n_specific,
+            num_elites=self.num_elites,
+            gradient_refinement_steps=self.gradient_refinement_steps,
+            gradient_refinement_lr=self.gradient_refinement_lr,
             diag_sigma=self._diag_sigma,
             fused_artifacts=self.fused_artifacts,
             dtype=self.dtype,
@@ -369,17 +424,36 @@ class MPPI:
         cache = self.__dict__.setdefault("_fns_cache", {})
         key = (self.config, self.use_pallas)
         if key not in cache:
-            cache[key] = factory(self.config, self.F, self.running_cost,
-                                 use_pallas=self.use_pallas,
-                                 terminal_state_cost=self.terminal_state_cost,
-                                 terminal_final_cost=self.terminal_final_cost)
+            sampler = self.specific_action_sampler
+            cache[key] = factory(
+                self.config, self.F, self.running_cost, use_pallas=self.use_pallas,
+                terminal_state_cost=self.terminal_state_cost,
+                terminal_final_cost=self.terminal_final_cost,
+                sample_trajectories=None if sampler is None else sampler.sample_trajectories,
+                specific_dynamics=None if sampler is None else sampler.specific_dynamics)
         return cache[key]
 
     def _build_step_fns(self):
         self._fns = self._cached_fns(_solve.make_mppi_step)
 
     def _initial_state(self, U0):
-        return MPPIState(U=U0, seed=self._next_seed())
+        return MPPIState(U=U0, seed=self._next_seed(), elites=self._initial_elites(U0))
+
+    def _initial_elites(self, U0):
+        """Cold-start elites: copies of the nominal sequence (zero-noise rows,
+        replaced by the first iteration's best rows), or None without elite
+        reuse."""
+        if self.num_elites <= 0:
+            return None
+        return U0[None].expand(self.num_elites, *U0.shape).clone()
+
+    def _update_elites(self, compute):
+        """Recompute the stored elites where elite reuse is on: the one guard
+        of the shift, the horizon change and the reset; ``compute`` takes the
+        current (E, T, nu) elites."""
+        elites = getattr(self._state, "elites", None)
+        if elites is not None:
+            self._state = self._state._replace(elites=compute(elites))
 
     def _full_params(self):
         """The parameters one command's step takes."""
@@ -469,9 +543,11 @@ class MPPI:
         return self._state.U
 
     def shift_nominal_trajectory(self):
-        """Shift the nominal trajectory forward one step (mppi.py:232-238)."""
+        """Shift the nominal trajectory forward one step (mppi.py:232-238),
+        and the stored elites with it."""
         self._state = self._state._replace(
             U=_solve._shift_U(self._state.U, self._params.u_init))
+        self._update_elites(lambda el: _solve._shift_elites(el, self._params.u_init))
 
     def change_horizon(self, horizon: int):
         """Truncate/extend U and rebuild the solve (mppi.py:277-284)."""
@@ -487,17 +563,22 @@ class MPPI:
             self._build_config()
             self._build_step_fns()
         self._state = self._state._replace(U=U)
+        # the (E, T_old, nu) elites restart from the adjusted nominal
+        self._update_elites(lambda el: self._initial_elites(U))
 
     def reset(self):
-        """Clear controller state after a trial: resample U (mppi.py:286-290)."""
-        self._state = self._state._replace(U=self._sample_noise_eager((self.T,)))
+        """Clear controller state after a trial: resample U (mppi.py:286-290);
+        the elites restart from it."""
+        U0 = self._sample_noise_eager((self.T,))
+        self._state = self._state._replace(U=U0)
+        self._update_elites(lambda el: self._initial_elites(U0))
 
     def command(self, state, shift_nominal_trajectory: bool = True, info=None):
         """One MPC solve (reference mppi.py:240-252).
 
         :param state: (nx,) or (K, nx) current state (array-like or tensor)
-        :param info: kept as ``self.info``, as JAX does; nothing in this port
-            reads it
+        :param info: kept as ``self.info`` and passed to the specific-action
+            sampler's ``sample_trajectories(state, info)``
         :returns: (nu,) action, or (u_per_command, nu) when u_per_command > 1,
             as a tensor on the controller's device
         """
@@ -506,10 +587,10 @@ class MPPI:
             raise ValueError(
                 f"state must have trailing dimension nx={self.nx}; got shape {tuple(x0.shape)}"
             )
-        fn = self._fns.step if shift_nominal_trajectory else self._fns.step_no_shift
-        self._state, action, artifacts = fn(self._full_params(), self._state, x0)
-        self.state = x0
         self.info = info
+        fn = self._fns.step if shift_nominal_trajectory else self._fns.step_no_shift
+        self._state, action, artifacts = fn(self._full_params(), self._state, x0, info)
+        self.state = x0
         self._store_artifacts(artifacts)
         return action
 

@@ -22,7 +22,8 @@
 // The iteration.  For K samples kernel A computes: the normals of the R drawn
 // rows (from injected int32 bits or from Philox4x32-10), the antithetic sign,
 // the noise transform (diagonal scale or full (R, R) operator), then per variant
-//   MPPI  (R = D = T*nu): U + noise, the null-action row, the clamp;
+//   MPPI  (R = D = T*nu): U + noise, the null-action row, the elite rows
+//         (samples elite_off + j take row j of an (E, D) operand), the clamp;
 //   SMPPI (R = D): the rate clamp, the integration as + rate*dt, the null row,
 //         the action clamp, the noise back-computed through both clamps as
 //         (pa - as)/dt - U, and the smoothness cost w*sum ||u_scale*diff||^2;
@@ -237,6 +238,9 @@ struct Params {
                           // constants (goal (nx), w_state, w_action), or null for none
   int chunk_steps;  // kRollout: steps of a staged chunk of the actions
   int vec4;  // kRollout: the actions are staged 16 bytes a copy
+  const float* elites;  // kMPPI: (num_elites, D) row-major, or null: sample
+                        // elite_off + j takes row j before the clamp
+  int num_elites, elite_off;
 };
 
 // --- reductions -------------------------------------------------------------
@@ -742,7 +746,7 @@ __device__ __forceinline__ float sample_cost(const Params& p, const float* col, 
 //      four rows of one sample, or the sample's bits), the antithetic sign;
 //   2. the transform: the diagonal scale in place, or op @ z + mu as a tiled
 //      product into the second tile (the round-1 solve: chol @ z_t + mu);
-//   3. the variant's clamps, the null row, the perturbed output, and the
+//   3. the variant's clamps, the null row (MPPI: the elite rows), the perturbed output, and the
 //      action cost of the rectified noise, summed over the thread's rows;
 //      SMPPI stores the actions in one tile and its rate-space noise
 //      (v - as)/dt - U in the other; KMPPI clamps the support points and
@@ -905,11 +909,20 @@ __global__ void __launch_bounds__(BLOCK, 2) mppi_fused_partial(Params p) {
     }
     vt = other;
   } else {
+    // the elite row of a sample in [elite_off, elite_off + num_elites), by
+    // its global index k (the window spans blocks of S samples); it takes
+    // the place of U + noise before the clamp, the draw kept
+    const float* erow = nullptr;
+    if (p.num_elites) {
+      const int j = k - p.elite_off;
+      if (j >= 0 && j < p.num_elites) erow = p.elites + (size_t)j * D;
+    }
 #pragma unroll 4
     for (int d = g0; d < R; d += G) {
       const float u0 = vU[d];
       float v = u0 + nt[d * ldt + s];
       if (p.null_action && k == 0) v = 0.0f;
+      if (erow) v = __ldg(erow + d);
       v = fminf(fmaxf(v, vLo[d]), vHi[d]);
       if (p.pert && live) p.pert[(size_t)d * p.K + k] = v;
       const float r = v - u0;  // rectified noise (mppi.py:383-385)
@@ -2089,7 +2102,9 @@ const char* fused_mppi_error_string(int e) { return cudaGetErrorString((cudaErro
 // with the strides (u_rs, u_ps) and (a_rs, a_ps), and in operand mode the
 // final noise (R, noise_ld); the other variants take one plant.  `terminal`
 // holds the quadratic terminal cost's constants (goal (nx), w_state,
-// w_action), or is null for no terminal cost.
+// w_action), or is null for no terminal cost.  kMPPI takes `num_elites`
+// elite rows (num_elites, D) row-major in `elites`, for the samples from
+// `elite_off` on (0 and null without elite reuse).
 int fused_mppi_launch(int device, void* stream, int variant, int model_id, const float* consts,
                       int K, int T, int nx, int nu, int R,
                       const int* bits, int bits_cols, unsigned key0, unsigned key1,
@@ -2102,7 +2117,8 @@ int fused_mppi_launch(int device, void* stream, int variant, int model_id, const
                       float* partial, float* delta, float* ms, float* pert, float* scratch,
                       int num_plants, long long u_rs, long long u_ps, long long a_rs,
                       long long a_ps, const float* noise, long long noise_ld, int plant_group,
-                      int tile_k, int* counter, const float* terminal) {
+                      int tile_k, int* counter, const float* terminal, const float* elites,
+                      int num_elites, int elite_off) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   Params p{};
@@ -2157,9 +2173,14 @@ int fused_mppi_launch(int device, void* stream, int variant, int model_id, const
   p.delta = delta;
   p.ms = ms;
   p.terminal = terminal;
+  p.elites = elites;
+  p.num_elites = num_elites;
+  p.elite_off = elite_off;
   const size_t smem = kernel_smem(variant, p.D, R, full_op, p.S, scratch != nullptr);
   if (variant < kMPPI || variant > kBatched || num_plants < 1 ||
       (variant == kBatched ? plant_group < 1 : num_plants != 1 || !valid_tile(tile_k) || !counter))
+    return (int)cudaErrorInvalidValue;
+  if (num_elites < 0 || elite_off < 0 || (num_elites > 0 && (variant != kMPPI || !elites)))
     return (int)cudaErrorInvalidValue;
   return (int)launch_solve(p, variant, model_id, smem, (cudaStream_t)stream);
 }

@@ -6,8 +6,9 @@ ops/pallas_rollout.py`` and their helpers (the other four are in
 ``ops/legacy.py`` and ``ops/rowmajor.py``), each with the JAX call contract:
 
 * :func:`make_transposed_fused_solve` (``:512``) returns ``solve(seed_or_bits,
-  x0T, U2, op, mu_t, lo_t, hi_t, a_flat, lambda_) -> (delta (D,), m, s,
-  cost (K,)[, perturbed (D, K)])`` with ``U_new = U + delta / s``;
+  x0T, U2, op, mu_t, lo_t, hi_t, a_flat, lambda_[, elites (E, D)]) ->
+  (delta (D,), m, s, cost (K,)[, perturbed (D, K)])`` with ``U_new = U +
+  delta / s``, the elites with ``config.num_elites``;
 * :func:`make_transposed_smppi_solve` (``:755``) returns ``solve(seed_or_bits,
   x0T, U2, as2, op, mu_t, lo_t, hi_t, alo_t, ahi_t, a_flat, lambda_, w_seq,
   delta_t)``, the same results with ``delta`` in action-rate space and the
@@ -135,12 +136,22 @@ class FusedSolveUnavailable(ValueError):
     the plain path."""
 
 
-def transposed_eligible(config: MPPIConfig) -> bool:
+ELITE_WINDOW = 128  # the null row and the elites fit in JAX's one lane block
+
+
+def transposed_eligible(config: MPPIConfig, has_specific_sampler: bool = False) -> bool:
     """Static eligibility for the fused kernel (``pallas_rollout.py:259-283``):
     one deterministic rollout a sample (M = 1, no ``stochastic_dynamics``),
-    float32, and no step dependence (the kernel's device models take no
-    timestep)."""
-    return (config.M == 1 and not config.stochastic_dynamics
+    float32, no step dependence (the kernel's device models take no
+    timestep), no specific-action sampler (its rows or its dynamics hook),
+    and elite reuse only with ``fused_artifacts`` (the refresh reads the
+    perturbed set the kernel emits) and with the null row and the elites
+    within ``ELITE_WINDOW`` samples."""
+    elites_ok = config.num_elites == 0 or (
+        config.fused_artifacts
+        and config.num_elites + (1 if config.sample_null_action else 0) <= ELITE_WINDOW)
+    return (config.M == 1 and not has_specific_sampler and elites_ok
+            and not config.stochastic_dynamics
             and config.dtype == torch.float32 and not config.step_dependent_dynamics)
 
 
@@ -345,19 +356,31 @@ def _null_row(perturbed, null_action: bool):
     return perturbed
 
 
+def _elite_columns(perturbed, elites, null_action: bool):
+    """The (E, D) elites into the columns [off, off + E) of the fresh (D, K)
+    perturbed set, off = 1 after the null row (``pallas_rollout.py:
+    638-644``): before the clamp, each over its own draw."""
+    if elites is not None:
+        off = 1 if null_action else 0
+        perturbed[:, off:off + elites.shape[0]] = elites.to(perturbed.device).T
+    return perturbed
+
+
 def fused_solve_plain(seed_or_bits, x0T, U2, op, mu_t, lo_t, hi_t, a_flat,
-                      lambda_, *, model: KernelModel, K: int, T: int, nu: int,
+                      lambda_, elites=None, *, model: KernelModel, K: int, T: int, nu: int,
                       antithetic: bool = False, null_action: bool = False,
                       abs_cost: bool = False, u_scale: float = 1.0,
                       emit_perturbed: bool = False, pair_block: int = None,
                       terminal: KernelTerminal = None):
     """What the fused MPPI kernel computes, in torch ops on (D, K) tensors of
-    any device.  Same arguments and results as the kernel's wrapper."""
+    any device.  Same arguments and results as the kernel's wrapper; the
+    (E, D) ``elites`` take the samples after the null row before the
+    clamp."""
     D = T * nu
     pair_block = pair_block or K + K % 2
     noise = _noise(seed_or_bits, D, K, pair_block, antithetic, op, mu_t, x0T.device)
     U_col = U2.reshape(D, 1)
-    perturbed = _null_row(U_col + noise, null_action)
+    perturbed = _elite_columns(_null_row(U_col + noise, null_action), elites, null_action)
     perturbed = torch.clamp(perturbed, lo_t[:, None], hi_t[:, None])
     n = perturbed - U_col
     cost = _action_cost(n, a_flat, abs_cost) + _rollout_total(
@@ -470,7 +493,7 @@ def _lib():
             _I, _P, _I, _I, _P, _I, _I, _I, _I, _I, _P, _I, ctypes.c_uint32,
             ctypes.c_uint32, _I, _I, _I, _I, _P, _L, _L, _P, _P, _P, _I, _P,
             _P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_float, _P, _P, _P,
-            _P, _P, _P, _I, _L, _L, _L, _L, _P, _L, _I, _I, _P, _P,
+            _P, _P, _P, _I, _L, _L, _L, _L, _P, _L, _I, _I, _P, _P, _P, _I, _I,
         ]
         lib.fused_mppi_rollout.argtypes = [_I, _P, _I, _P, _I, _I, _I, _I, _P, _L, _L,
                                            _P, _P, _I]
@@ -634,9 +657,10 @@ def _make_launch(variant: int, config: MPPIConfig, model: KernelModel, R: int,
         flags.update(null_action=config.sample_null_action, emit_perturbed=emit_perturbed)
     null_action = config.sample_null_action and not batched
     cols = plants if batched else K
+    E = config.num_elites if variant == MPPI else 0
 
     def launch(lead, x0T, U2, base, op, mu, lo, hi, alo, ahi, a_flat, W, lam,
-               w_seq, dt):
+               w_seq, dt, elites=None):
         device = x0T.device
         _check("x0T", x0T, device, shape=(nx, cols), contiguous=False)
         for name, t in (("U2", U2), ("a_flat", a_flat)):
@@ -652,6 +676,8 @@ def _make_launch(variant: int, config: MPPIConfig, model: KernelModel, R: int,
             _check("op", op, device, shape=(R, R) if full_op else (R,))
         if W is not None:
             _check("Wt", W, device, shape=(D, R))
+        if E:
+            _check("elites", elites, device, shape=(E, D))
         for name, t in (("lambda_", lam), ("w_seq", w_seq), ("delta_t", dt)):
             if t is not None:
                 _check(name, t.reshape(1), device, shape=(1,))
@@ -691,7 +717,7 @@ def _make_launch(variant: int, config: MPPIConfig, model: KernelModel, R: int,
             plants, U2.stride(0), U2.stride(-1) if batched else 0, a_flat.stride(0),
             a_flat.stride(-1) if batched else 0, _ptr(noise),
             noise.stride(0) if noise is not None else 0, group, S, _ptr(counter),
-            _ptr(term),
+            _ptr(term), _ptr(elites) if E else None, E, int(null_action),
         )
         raise_on_error(lib, rc, "fused_mppi")
         if batched:
@@ -738,23 +764,56 @@ def make_transposed_fused_solve(config: MPPIConfig, model: KernelModel,
     config or a model whose sizes differ from the config's, and
     :class:`FusedSolveUnavailable` when nx or nu exceeds the device models'
     registers (32), for a ``terminal_final`` that is not a kernel terminal
-    cost (:func:`~.kernel_models.quadratic_terminal`), or for
-    ``null_dynamic_gate``, which this port does not run yet (the elites
-    operand has no config field here; the controller rejects ``num_elites``).
+    cost (:func:`~.kernel_models.quadratic_terminal`), for
+    ``null_dynamic_gate``, which this port does not run yet, and for
+    ``config.num_elites`` elites that with the null row exceed JAX's
+    injection window of min(K, 128) samples (``pallas_rollout.py:596-603``).
     ``terminal_final`` adds the terminal cost of each sample's final state and
     last scaled action to its cost, as the JAX kernel's.  ``tile_k`` forces
     the samples of a block of the kernel (32, 64 or 128; default
-    :func:`tile_samples`); ``solve.tile_k`` holds it."""
-    D = config.T * config.nu
+    :func:`tile_samples`); ``solve.tile_k`` holds it.
+
+    With ``config.num_elites`` = E the solve takes an (E, D) float32 elites
+    operand after ``lambda_``: sample off + j (off = 1 after the null row,
+    else 0) takes elite row j in place of U + noise before the clamp, as
+    JAX's (D, 128) operand with the elites at their global sample columns;
+    the emitted perturbed set holds the clamped elites."""
+    D, K, E = config.T * config.nu, config.K, config.num_elites
+    off = 1 if config.sample_null_action else 0
+    if E and E + off > min(K, ELITE_WINDOW):
+        raise FusedSolveUnavailable(
+            f"num_elites={E} (+{off} null) exceeds the kernel's one-lane-block "
+            f"injection window (min(K, {ELITE_WINDOW}))")
     launch, flags, info = _make_launch(MPPI, config, model, D, pair_block,
                                        emit_perturbed, null_dynamic_gate,
                                        terminal_final, tile_k=tile_k)
 
-    def solve(seed_or_bits, x0T, U2, op, mu_t, lo_t, hi_t, a_flat, lambda_):
-        return launch(seed_or_bits, x0T, U2, U2, op, mu_t, lo_t, hi_t, None, None,
-                      a_flat, None, lambda_, None, None)
+    def elites_of(rest):
+        """The elites operand of a call (JAX's TypeErrors,
+        ``pallas_rollout.py:706-721``), or None without elite reuse."""
+        if not E:
+            if rest:
+                raise TypeError("this fused solve was built without num_elites: it takes "
+                                "no elites operand")
+            return None
+        if not rest:
+            raise TypeError(
+                f"this fused solve was built with num_elites = {E}: pass the ({E}, D) "
+                f"elites operand (elite j goes to sample {off} + j) after lambda")
+        if len(rest) > 1 or tuple(getattr(rest[0], "shape", ())) != (E, D):
+            raise TypeError(f"elites operand must be (E, D) = ({E}, {D}), got "
+                            f"{tuple(getattr(rest[0], 'shape', ()))}")
+        return rest[0]
 
-    return finish(solve, fused_solve_plain, flags, info)
+    def solve(seed_or_bits, x0T, U2, op, mu_t, lo_t, hi_t, a_flat, lambda_, *rest):
+        return launch(seed_or_bits, x0T, U2, U2, op, mu_t, lo_t, hi_t, None, None,
+                      a_flat, None, lambda_, None, None, elites_of(rest))
+
+    def plain(seed_or_bits, x0T, U2, op, mu_t, lo_t, hi_t, a_flat, lambda_, *rest, **kw):
+        return fused_solve_plain(seed_or_bits, x0T, U2, op, mu_t, lo_t, hi_t, a_flat,
+                                 lambda_, elites_of(rest), **kw)
+
+    return finish(solve, plain, flags, dict(info, num_elites=E, elite_off=off))
 
 
 def make_transposed_smppi_solve(config: MPPIConfig, model: KernelModel,

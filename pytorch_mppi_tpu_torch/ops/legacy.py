@@ -42,10 +42,11 @@ from .kernel_models import KernelModel
 def pallas_eligible(config: MPPIConfig) -> bool:
     """Static eligibility for the legacy kernels (``pallas_rollout.py:61-72``):
     M = 1, deterministic dynamics, float32, and no step dependence (the
-    device models take no timestep).  A terminal cost sends the route to the
-    plain path (``solve._route_legacy_rollout``); the JAX check's other
-    conditions (no specific dynamics, unparameterized dynamics) are flags
-    the port's controllers reject before a step is built."""
+    device models take no timestep).  A terminal cost and a
+    ``specific_dynamics`` hook send the route to the plain path
+    (``solve._route_legacy_rollout``); the JAX check's last condition
+    (unparameterized dynamics) is a flag the port's controllers reject
+    before a step is built."""
     return (config.M == 1 and not config.stochastic_dynamics
             and config.dtype == torch.float32 and not config.step_dependent_dynamics)
 

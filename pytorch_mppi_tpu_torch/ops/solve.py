@@ -25,7 +25,12 @@ Every factory takes JAX's two terminal hooks (:func:`rollout_costs`):
 ``terminal_state_cost`` over the stored rollout, which only the plain path
 runs, and ``terminal_final_cost`` of the last step, which the fused kernels
 evaluate when it is a kernel terminal cost
-(:func:`~.kernel_models.quadratic_terminal`).
+(:func:`~.kernel_models.quadratic_terminal`).  The single-plant factories
+take a specific-action sampler's ``sample_trajectories`` and
+``specific_dynamics`` (:func:`inject_specific_actions`, the plain path);
+:func:`make_mppi_step` also runs elite reuse (``config.num_elites``; on the
+fused kernel as its elites operand) and gradient refinement of the nominal
+(:func:`make_nominal_refiner`).
 
 The reference quirks stay: U is not clamped again after the update, the
 running cost is taken at the state after the dynamics step, and ``u_scale``
@@ -34,6 +39,7 @@ fresh intermediates the function itself allocated.
 """
 from __future__ import annotations
 
+import dataclasses
 import logging
 import math
 from typing import Callable, NamedTuple
@@ -284,6 +290,61 @@ def _gate_risk_alpha(config: MPPIConfig):
             "stochastic rollouts is undefined with a single rollout")
 
 
+def _gate_gradient_refinement(config: MPPIConfig, variant: str):
+    """Gradient refinement's settings, with the JAX factories' texts
+    (``solve.py:910-936``): MPPI only."""
+    if config.gradient_refinement_steps == 0:
+        return
+    if config.gradient_refinement_steps < 0:
+        raise ValueError(
+            "gradient_refinement_steps must be >= 0, got "
+            f"{config.gradient_refinement_steps}")
+    if not (config.gradient_refinement_lr > 0.0
+            and math.isfinite(config.gradient_refinement_lr)):
+        raise ValueError(
+            "gradient_refinement_lr must be a positive finite float, got "
+            f"{config.gradient_refinement_lr}")
+    if variant != "MPPI":
+        raise ValueError(
+            f"gradient_refinement_steps is only supported on MPPI, not "
+            f"{variant}: SMPPI/KMPPI sample in lifted spaces (rates / support "
+            f"points) and MPPI_Batched shares one solve across plants; use "
+            f"plain MPPI controllers if you need the gradient stage")
+
+
+def _gate_elites(config: MPPIConfig, variant: str, has_sampler: bool = True):
+    """Elite reuse's settings, with the JAX factories' texts
+    (``solve.py:938-970``): MPPI only, and the injected rows (null,
+    sampler rows where a sampler is wired, elites) must leave fresh rows."""
+    if config.num_elites == 0:
+        return
+    if config.num_elites < 0:
+        raise ValueError(f"num_elites must be >= 0, got {config.num_elites}")
+    if variant != "MPPI":
+        raise ValueError(
+            f"num_elites is only supported on MPPI, not {variant}: SMPPI/"
+            f"KMPPI sample in lifted spaces (rates / support points) with no "
+            f"action-space rows to re-inject, and MPPI_Batched shares one "
+            f"sample set across plants; use plain MPPI controllers for "
+            f"elite reuse")
+    injected = (config.num_elites + (1 if config.sample_null_action else 0)
+                + (config.num_specific_trajectories if has_sampler else 0))
+    if injected >= config.K:
+        raise ValueError(
+            f"num_elites={config.num_elites} plus the other injected rows "
+            f"(null action + specific trajectories = {injected - config.num_elites}) "
+            f"fills all K={config.K} samples; leave room for fresh noise rows")
+
+
+def _n_injected_rows(config: MPPIConfig, sample_trajectories) -> int:
+    """The rows left out of the adaptive-covariance estimate
+    (``solve.py:1114-1118``): the null row, a wired sampler's rows and the
+    elites are not draws of the sampling distribution."""
+    return ((1 if config.sample_null_action else 0)
+            + (config.num_specific_trajectories if sample_trajectories is not None else 0)
+            + config.num_elites)
+
+
 # ---------------------------------------------------------------------------
 # Dynamics / cost adapters
 # ---------------------------------------------------------------------------
@@ -373,7 +434,7 @@ def _terminal_hooks(config: MPPIConfig, terminal_state_cost, terminal_final_cost
 def rollout_costs(config: MPPIConfig, dynamics: Callable, running_cost: Callable,
                   x0: torch.Tensor, perturbed_actions: torch.Tensor,
                   terminal_state_cost: Callable = None, terminal_final_cost: Callable = None,
-                  seed: int = None):
+                  seed: int = None, specific_dynamics: Callable = None):
     """T-step rollout of K·M trajectories from ``x0`` ((nx,) shared or
     (K, nx)), returning ``(cost (K,), states, actions)``
     (``pytorch_mppi_tpu/ops/solve.py:332-448``).  ``dynamics``,
@@ -392,7 +453,14 @@ def rollout_costs(config: MPPIConfig, dynamics: Callable, running_cost: Callable
     the mean over the M rollouts (with ``risk_alpha`` the mean of the worst
     ``ceil(risk_alpha·M)``) plus ``rollout_var_cost`` times the running
     costs' variance over M (ddof=1), discounted by
-    ``rollout_var_discount**t``."""
+    ``rollout_var_discount**t``.
+
+    ``specific_dynamics(next_state, state, action, t)`` (a
+    :class:`~pytorch_mppi_tpu_torch.controller.SpecificActionSampler`'s hook)
+    post-processes each step's states, with the reference's quirks kept
+    (``solve.py:379-392``): the shapes are (M, K, ·), ``action`` is the
+    ``u_scale``-scaled action, and ``state`` is the new state again at M = 1
+    but the initial state at every step at M > 1."""
     K, T, nu = perturbed_actions.shape
     M, nx, dtype = config.M, config.nx, config.dtype
     device = perturbed_actions.device
@@ -404,6 +472,7 @@ def rollout_costs(config: MPPIConfig, dynamics: Callable, running_cost: Callable
             T, dtype=dtype)
         discount = discount.to(device)
         cost_var = torch.zeros(K, dtype=dtype, device=device)
+    state0 = state
     u_scaled = perturbed_actions * config.u_scale
     cost = torch.zeros(M, K, dtype=dtype, device=device)
     store = config.store_rollouts
@@ -413,6 +482,10 @@ def rollout_costs(config: MPPIConfig, dynamics: Callable, running_cost: Callable
         u_flat = u_t if M == 1 else u_t[None].expand(M, K, nu).reshape(M * K, nu)
         rng = step_generator(seed, t, device) if config.stochastic_dynamics else None
         state = dynamics(state, u_flat, t, rng)
+        if specific_dynamics is not None:
+            s3 = state.reshape(M, K, -1)
+            p3 = s3 if M == 1 else state0.reshape(M, K, -1)
+            state = specific_dynamics(s3, p3, u_flat.reshape(M, K, nu), t).reshape(M * K, -1)
         c = running_cost(state, u_flat, t).reshape(M, K)
         cost = cost + c
         if M > 1:
@@ -441,14 +514,121 @@ def rollout_costs(config: MPPIConfig, dynamics: Callable, running_cost: Callable
     return cost_total, states, actions
 
 
-def inject_specific_actions(config: MPPIConfig, perturbed2: torch.Tensor) -> torch.Tensor:
-    """Zero the first sample row when ``sample_null_action`` (reference
-    ``_sample_specific_actions``, mppi.py:387-400); the JAX function's
-    specific-action sampler is not ported yet.  ``perturbed2`` is a fresh
-    tensor of the caller's, so the row is set in place."""
+def inject_specific_actions(config: MPPIConfig, perturbed2: torch.Tensor,
+                            sample_trajectories: Callable = None, x0=None, info=None,
+                            elites: torch.Tensor = None) -> torch.Tensor:
+    """Overwrite the leading rows of the flat ``(K, D)`` sample set in the
+    order [null, sampler rows, elites] (``pytorch_mppi_tpu/ops/solve.py:
+    456-485``, reference ``_sample_specific_actions``, mppi.py:387-400): a
+    zero row with ``sample_null_action``; the
+    ``config.num_specific_trajectories`` rows of ``sample_trajectories(x0,
+    info)`` (anything reshapeable to (n, T, nu)) where a sampler is wired;
+    the (num_elites, T, nu) ``elites`` where elite reuse is on.
+    ``perturbed2`` is a fresh tensor of the caller's, so the rows are set in
+    place."""
+    D = perturbed2.shape[1]
+    i = 0
     if config.sample_null_action:
         perturbed2[0] = 0.0
+        i = 1
+    n = config.num_specific_trajectories
+    if sample_trajectories is not None and n > 0:
+        acts = torch.as_tensor(sample_trajectories(x0, info), dtype=perturbed2.dtype,
+                               device=perturbed2.device)
+        perturbed2[i:i + n] = acts.reshape(n, D)
+        i += n
+    if elites is not None and config.num_elites > 0:
+        perturbed2[i:i + config.num_elites] = elites.to(perturbed2.dtype).reshape(-1, D)
     return perturbed2
+
+
+def _top_elites(cost_total: torch.Tensor, num_elites: int) -> torch.Tensor:
+    """The indices of the ``num_elites`` lowest costs, ties lowest index
+    first, as JAX's ``lax.top_k(-cost, E)``: the first E of a stable
+    ascending sort.  The next command writes elite j into row off + j, so
+    the order is state; ``torch.topk`` promises no order among ties, which
+    are real on the first command (E copies of the nominal)."""
+    return torch.sort(cost_total, stable=True).indices[:num_elites]
+
+
+def _shift_elites(elites: torch.Tensor, u_init: torch.Tensor) -> torch.Tensor:
+    """Time-shift the stored elite trajectories like the nominal sequence
+    (``solve.py:1057-1060``): the plan for [t, t+T) becomes a candidate for
+    [t+1, t+T+1)."""
+    elites = torch.roll(elites, -1, dims=1)
+    elites[:, -1] = u_init
+    return elites
+
+
+# XORed into a state's seed for the stream of gradient refinement's stochastic
+# rollouts, apart from the noise and the rollout streams
+_REFINE_STREAM = 0x6A09E667F3BCC909
+
+
+def refine_seed(seed: int, counter: int) -> int:
+    """The rollout seed that every descent step of gradient refinement takes
+    in the command that starts at stream position ``counter``: one seed for
+    the whole descent (common random numbers, as JAX holds one key,
+    ``solve.py:1244-1249``), from a stream of its own, so the command's
+    iterations and the next command draw what they draw without it."""
+    return iteration_seed(seed ^ _REFINE_STREAM, counter)
+
+
+def make_nominal_refiner(config: MPPIConfig, dynamics: Callable, running_cost: Callable,
+                         terminal_state_cost: Callable = None,
+                         specific_dynamics: Callable = None,
+                         terminal_final_cost: Callable = None) -> Callable:
+    """Projected-Adam descent of the nominal sequence on the rollout cost
+    (``pytorch_mppi_tpu/ops/solve.py:973-1041``): ``refine(params, U, x0,
+    seed) -> U``.
+
+    J(U) is the mean of :func:`rollout_costs` of the single trajectory U over
+    the rows of x0 (one row for (nx,), Kx for (Kx, nx)): the running,
+    terminal and M > 1 terms the sampling stage weighed, without the action
+    cost, which is zero at the nominal.  ``config.gradient_refinement_steps``
+    Adam steps (b1 = 0.9, b2 = 0.999, eps = 1e-8, bias correction at step
+    i + 1 in ``config.dtype``) at ``config.gradient_refinement_lr``, each
+    clamped into [u_min, u_max].  The gradient is ``torch.autograd``'s
+    through the plain rollout, under ``torch.enable_grad()`` on a detached
+    copy of U; the result is detached.  ``dynamics``, ``running_cost`` and
+    ``terminal_final_cost`` are wrapped; stochastic dynamics draw from
+    ``seed`` at every step of the descent."""
+    steps = config.gradient_refinement_steps
+    dtype = config.dtype
+    b1, b2, eps = 0.9, 0.999, 1e-8
+
+    def refine(params: MPPIParams, U: torch.Tensor, x0: torch.Tensor, seed: int = None):
+        device = U.device
+        lr = torch.tensor(config.gradient_refinement_lr, dtype=dtype, device=device)
+        lo = torch.broadcast_to(params.u_min, (config.nu,)).to(dtype)
+        hi = torch.broadcast_to(params.u_max, (config.nu,)).to(dtype)
+        Kx = x0.shape[0] if x0.ndim == 2 else 1
+        b1_t = torch.tensor(b1, dtype=dtype, device=device)
+        b2_t = torch.tensor(b2, dtype=dtype, device=device)
+
+        def J(U_):
+            pert = U_[None].expand(Kx, *U_.shape)
+            cost_total, _, _ = rollout_costs(config, dynamics, running_cost, x0, pert,
+                                             terminal_state_cost, terminal_final_cost, seed,
+                                             specific_dynamics)
+            return torch.mean(cost_total)
+
+        U_ = U.detach()
+        m = torch.zeros_like(U_)
+        v = torch.zeros_like(U_)
+        with torch.enable_grad():
+            for i in range(steps):
+                leaf = U_.detach().requires_grad_(True)
+                g, = torch.autograd.grad(J(leaf), leaf)
+                m = b1 * m + (1 - b1) * g
+                v = b2 * v + (1 - b2) * (g * g)
+                t = torch.tensor(i + 1, dtype=dtype, device=device)
+                m_hat = m / (1 - b1_t ** t)
+                v_hat = v / (1 - b2_t ** t)
+                U_ = _bound(U_ - lr * m_hat / (torch.sqrt(v_hat) + eps), lo, hi)
+        return U_.detach()
+
+    return refine
 
 
 def _select_action(config: MPPIConfig, seq: torch.Tensor) -> torch.Tensor:
@@ -521,7 +701,7 @@ def _route_transposed_solve(config: MPPIConfig, dynamics: Callable,
                             running_cost: Callable,
                             factory: Callable = FS.make_transposed_fused_solve,
                             variant: str = "MPPI", terminal_state_cost: Callable = None,
-                            terminal_final_cost: Callable = None):
+                            terminal_final_cost: Callable = None, has_sampler: bool = False):
     """``use_pallas`` routing, decided once when the step is built: the fused
     solve that ``factory`` builds, or None (the plain path) with a warning
     saying why.  A ``terminal_state_cost`` reads the rollout storage the
@@ -529,17 +709,30 @@ def _route_transposed_solve(config: MPPIConfig, dynamics: Callable,
     eligibility check (``solve.py:817-830``); a ``terminal_final_cost`` goes
     into the kernel when it is a kernel terminal cost, and any other takes
     the plain path, as a terminal cost JAX cannot trace into its kernel
-    (``solve.py:831``)."""
+    (``solve.py:831``).  A specific-action sampler (``has_sampler``: its
+    rows or its dynamics hook) takes the plain path; elite reuse keeps the
+    kernel only with ``fused_artifacts``, and without it the warning names
+    that flag (``solve.py:788-832``)."""
     if terminal_state_cost is not None:
         logger.warning(
             "use_pallas requested but terminal_state_cost reads the (K, T, nx) rollout "
             "storage the fused kernel keeps out of memory; using the plain torch path for "
             "%s (a terminal_final_cost keeps the kernel)", variant)
         return None
-    if not FS.transposed_eligible(config):
+    if (config.num_elites > 0 and not config.fused_artifacts
+            and FS.transposed_eligible(dataclasses.replace(config, fused_artifacts=True),
+                                       has_specific_sampler=has_sampler)):
+        # the one ineligibility the user can lift with a flag: say so
+        logger.warning(
+            "use_pallas with num_elites=%d needs fused_artifacts=True (the top-k elite "
+            "refresh reads the kernel's materialized perturbed set); using the plain torch "
+            "path - set fused_artifacts=True to keep the fused kernel", config.num_elites)
+        return None
+    if not FS.transposed_eligible(config, has_specific_sampler=has_sampler):
         logger.warning(
             "use_pallas requested but the configuration is ineligible "
-            "(M>1 / stochastic / non-float32 / step-dependent); using the plain "
+            "(specific sampler / elite reuse without fused_artifacts / M>1 / "
+            "stochastic / non-float32 / step-dependent); using the plain "
             "torch path for %s", variant,
         )
         return None
@@ -570,14 +763,20 @@ def _route_transposed_solve(config: MPPIConfig, dynamics: Callable,
 
 
 def _route_legacy_rollout(config: MPPIConfig, dynamics: Callable,
-                          running_cost: Callable, has_terminal: bool = False):
+                          running_cost: Callable, has_terminal: bool = False,
+                          has_specific: bool = False):
     """``use_pallas="rollout"`` routing (``solve.py:1133-1157``): the legacy
     rollout kernel, or None (the plain path) with a warning saying why.  The
-    kernel takes no terminal cost, as JAX's ``pallas_eligible(has_terminal)``."""
+    kernel takes no terminal cost and runs no ``specific_dynamics`` hook, as
+    JAX's ``pallas_eligible(has_terminal, has_specific)``; the null, sampler
+    and elite rows are written before it."""
     model = find_kernel_model(dynamics, running_cost)
     why = None
     if has_terminal:
         why = "a terminal cost is set, which the legacy rollout kernel does not take"
+    elif has_specific:
+        why = ("a specific_dynamics hook is set (a SpecificActionSampler's), which the "
+               "legacy rollout kernel does not run")
     elif not LG.pallas_eligible(config):
         why = "the configuration is ineligible (M>1 / stochastic / non-float32 / step-dependent)"
     elif model is None:
@@ -606,7 +805,7 @@ def _route_legacy_rollout(config: MPPIConfig, dynamics: Callable,
 class StepFns(NamedTuple):
     """The entry points a factory builds."""
 
-    step: Callable  # (params, state, x0) -> (state, action, Artifacts)  [with shift]
+    step: Callable  # (params, state, x0[, info]) -> (state, action, Artifacts)  [with shift]
     step_no_shift: Callable  # same, without the nominal-trajectory shift
     get_rollouts: Callable  # (params, x0 (R, nx), U (T, nu)) -> (R, T, nx)
     fused: bool = False  # commands run through the kernels of csrc/fused_mppi.cu
@@ -614,7 +813,8 @@ class StepFns(NamedTuple):
 
 def make_mppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callable,
                    use_pallas=False, terminal_state_cost: Callable = None,
-                   terminal_final_cost: Callable = None) -> StepFns:
+                   terminal_final_cost: Callable = None, sample_trajectories: Callable = None,
+                   specific_dynamics: Callable = None) -> StepFns:
     """Build the MPPI solve for one configuration.
 
     With ``use_pallas`` (the JAX package's name for its fused kernel), an
@@ -644,57 +844,85 @@ def make_mppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callabl
     the next command starts again from ``params.noise_sigma``.  M > 1 and
     stochastic dynamics take the plain path.  The artifacts are the last
     iteration's.
+
+    A specific-action sampler's ``sample_trajectories(x0, info)`` writes
+    ``config.num_specific_trajectories`` rows after the null row, and its
+    ``specific_dynamics`` runs in the rollout (:func:`rollout_costs`); either
+    takes the plain path.  With ``config.num_elites`` (elite reuse,
+    ``solve.py:1196-1415``) ``state.elites`` is shifted once a command and
+    written after those rows before the clamp, and after each iteration it
+    becomes that iteration's lowest-cost perturbed rows (:func:`_top_elites`):
+    on the fused kernel (with ``fused_artifacts``) as an operand and the
+    columns of its perturbed set, on the legacy route as the plain row write.
+    With ``config.gradient_refinement_steps`` the nominal sequence of the
+    last iteration is refined by :func:`make_nominal_refiner` on every
+    route, with stochastic dynamics on ``refine_seed(seed, counter)``.
     """
     _gate_iterations(config, "MPPI")
     use_pallas = _gate_adaptive_covariance(config, use_pallas, "MPPI")
     _gate_risk_alpha(config)
+    _gate_gradient_refinement(config, "MPPI")
+    _gate_elites(config, "MPPI", has_sampler=sample_trajectories is not None)
     final_cost = _terminal_hooks(config, terminal_state_cost, terminal_final_cost)
-    # rows left out of the adaptive-covariance estimate: the null row is not
-    # a draw of the sampling distribution
-    n_injected_rows = 1 if config.sample_null_action else 0
+    n_injected_rows = _n_injected_rows(config, sample_trajectories)
     dyn = wrap_dynamics(config, dynamics)
     cost = wrap_cost(config, running_cost)
     dtype = config.dtype
     K, T, nu = config.K, config.T, config.nu
     D = T * nu
     n_iter, adaptive = config.num_iterations, config.adaptive_covariance
+    E = config.num_elites
     _seeds = _iteration_seeds(config)
+    has_sampler = sample_trajectories is not None or specific_dynamics is not None
 
     legacy = use_pallas == "rollout"
     has_terminal = terminal_state_cost is not None or terminal_final_cost is not None
-    fused_rollout = (_route_legacy_rollout(config, dynamics, running_cost, has_terminal)
+    fused_rollout = (_route_legacy_rollout(config, dynamics, running_cost, has_terminal,
+                                           has_specific=specific_dynamics is not None)
                      if legacy else None)
     transposed_solve = (_route_transposed_solve(config, dynamics, running_cost,
                                                 terminal_state_cost=terminal_state_cost,
-                                                terminal_final_cost=terminal_final_cost)
+                                                terminal_final_cost=terminal_final_cost,
+                                                has_sampler=has_sampler)
                         if use_pallas and not legacy else None)
+    # the gradient stage after the iterations, on every route: autograd
+    # through the plain rollout
+    refine_nominal = (make_nominal_refiner(config, dyn, cost, terminal_state_cost,
+                                           specific_dynamics, final_cost)
+                      if config.gradient_refinement_steps > 0 else None)
 
-    def _one_iteration_fused(params: MPPIParams, U, x0, s: int):
+    def _one_iteration_fused(params: MPPIParams, U, elites, x0, s: int):
         """The whole cycle as one fused-kernel call; only the tiny operands
-        (sigma factors, noise operator, action-cost vector) are made here."""
+        (sigma factors, noise operator, action-cost vector, the elites) are
+        made here."""
         sigma_inv, op, mu_t, lo2, hi2 = _transposed_operands(
             params.noise_sigma, params.noise_mu, params.u_min, params.u_max,
             config, T, nu, dtype,
         )
         a_flat = (params.lambda_ * (U @ sigma_inv.T)).reshape(D)
+        elites_in = (elites.to(dtype).reshape(E, D).contiguous(),) if E else ()
         out = transposed_solve(
             FS.key_to_seed(s), _x0_to_lanes(x0, K), U.reshape(D), op, mu_t, lo2,
-            hi2, a_flat, params.lambda_,
+            hi2, a_flat, params.lambda_, *elites_in,
         )
         delta, m, s_, cost_total = out[:4]
         ctnz, omega = FS.weighting_from_stats(cost_total, params.lambda_, m, s_)
         U_new = U + (delta / s_).reshape(T, nu)
+        if E:
+            # the refresh gathers E columns of the emitted (D, K) set
+            idx = _top_elites(cost_total, E)
+            elites = out[4][:, idx].T.reshape(E, T, nu)
         noise_art = pert_art = None
         if config.fused_artifacts:
             # the rectified noise is the subtraction the kernel's update used
             perturbed2 = out[4].T
             noise_art = (perturbed2 - U.reshape(D)[None]).reshape(K, T, nu)
             pert_art = perturbed2.reshape(K, T, nu)
-        return U_new, Artifacts(cost_total, ctnz, omega, noise_art, pert_art)
+        return U_new, Artifacts(cost_total, ctnz, omega, noise_art, pert_art), elites
 
-    def _one_iteration(params: MPPIParams, U, x0, s: int, rs: int):
+    def _one_iteration(params: MPPIParams, U, elites, x0, info, s: int, rs: int):
         if transposed_solve is not None:
-            return _one_iteration_fused(params, U, x0, s)
+            return _one_iteration_fused(params, U, elites, x0, s)
         chol, sigma_inv = _sigma_factors(params.noise_sigma, diag=config.diag_sigma)
         noise2 = sample_noise_flat(
             _generator(s, U.device), K, T, params, dtype,
@@ -702,7 +930,8 @@ def make_mppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callabl
             noise_rho=config.noise_rho, diag_sigma=config.diag_sigma,
         )
         U2 = U.reshape(D)
-        perturbed2 = inject_specific_actions(config, U2[None] + noise2)
+        perturbed2 = inject_specific_actions(config, U2[None] + noise2, sample_trajectories,
+                                             x0, info, elites)
         perturbed2 = _bound(perturbed2, _tile_bound(params.u_min, nu, T, dtype),
                             _tile_bound(params.u_max, nu, T, dtype))
         # rectified noise: recomputed after the clamp so that truncated noise
@@ -716,7 +945,8 @@ def make_mppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callabl
         states = actions = None
         if fused_rollout is None:
             rollout_cost, states, actions = rollout_costs(
-                config, dyn, cost, x0, perturbed, terminal_state_cost, final_cost, rs)
+                config, dyn, cost, x0, perturbed, terminal_state_cost, final_cost, rs,
+                specific_dynamics)
             cost_total = rollout_cost + perturbation_cost
             cost_total_non_zero, omega = compute_weighting(cost_total, params.lambda_)
             U_new = U + (omega @ noise2).reshape(T, nu)
@@ -728,28 +958,46 @@ def make_mppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callabl
             cost_total_non_zero, omega = FS.weighting_from_stats(
                 cost_total, params.lambda_, m, s_)
             U_new = U + (pert_flat / s_).reshape(T, nu)
+        if E:
+            # the injected elites compete with the fresh rows on their cost
+            elites = perturbed2[_top_elites(cost_total, E)].reshape(E, T, nu)
         return U_new, Artifacts(cost_total, cost_total_non_zero, omega,
                                 noise2.reshape(K, T, nu), perturbed, states,
-                                _unscaled(config, actions))
+                                _unscaled(config, actions)), elites
 
-    def _solve(params: MPPIParams, state: MPPIState, x0, shift: bool):
-        U = _shift_U(state.U, params.u_init) if shift else state.U
+    def _solve(params: MPPIParams, state: MPPIState, x0, info, shift: bool):
+        U, elites = state.U, state.elites
+        if E and elites is None:
+            raise ValueError(
+                f"config.num_elites={E} but state.elites is None: seed MPPIState.elites "
+                f"with (num_elites, T, nu) trajectories (e.g. broadcast copies of the "
+                f"nominal, as MPPI._initial_elites does)")
+        if shift:
+            U = _shift_U(U, params.u_init)
+            if E:
+                # the elite plans advance one step with the receding horizon
+                elites = _shift_elites(elites, params.u_init)
         x0 = torch.as_tensor(x0, dtype=dtype, device=U.device)
         sigma = params.noise_sigma
         for it in range(n_iter):
             it_params = params._replace(noise_sigma=sigma) if adaptive else params
-            U, artifacts = _one_iteration(it_params, U, x0, *_seeds(state, it))
+            U, artifacts, elites = _one_iteration(it_params, U, elites, x0, info,
+                                                  *_seeds(state, it))
             if adaptive and it + 1 < n_iter:
                 sigma = adapt_covariance(config, sigma, artifacts.omega, artifacts.noise,
                                          n_injected_rows)
-        new_state = MPPIState(U=U, seed=state.seed, counter=state.counter + n_iter)
+        if refine_nominal is not None:
+            U = refine_nominal(params, U, x0, refine_seed(state.seed, state.counter)
+                               if config.stochastic_dynamics else None)
+        new_state = MPPIState(U=U, seed=state.seed, counter=state.counter + n_iter,
+                              elites=elites)
         return new_state, _select_action(config, U), artifacts
 
-    def step(params, state, x0):
-        return _solve(params, state, x0, shift=True)
+    def step(params, state, x0, info=None):
+        return _solve(params, state, x0, info, shift=True)
 
-    def step_no_shift(params, state, x0):
-        return _solve(params, state, x0, shift=False)
+    def step_no_shift(params, state, x0, info=None):
+        return _solve(params, state, x0, info, shift=False)
 
     return StepFns(step=step, step_no_shift=step_no_shift,
                    get_rollouts=make_get_rollouts(config, dyn),
@@ -758,7 +1006,8 @@ def make_mppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callabl
 
 def make_smppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callable,
                     use_pallas: bool = False, terminal_state_cost: Callable = None,
-                    terminal_final_cost: Callable = None) -> StepFns:
+                    terminal_final_cost: Callable = None, sample_trajectories: Callable = None,
+                    specific_dynamics: Callable = None) -> StepFns:
     """Build the SMPPI solve (``pytorch_mppi_tpu/ops/solve.py:1469-1696``):
     noise in action-rate space, clamped to the rate bounds, integrated onto
     the commanded sequence, clamped to the action bounds, the noise
@@ -768,12 +1017,17 @@ def make_smppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callab
     The iterations re-centre the rate-space draws on the updated ``U`` over
     one integration base, and the commanded sequence is integrated once
     with the final ``U`` (``solve.py:1547-1571``); adaptive covariance
-    adapts the rate-space sigma."""
+    adapts the rate-space sigma.  A specific-action sampler writes its rows
+    into the integrated actions before the action clamp (``solve.py:
+    1636-1646``) and takes the plain path, as in :func:`make_mppi_step`;
+    elite reuse and gradient refinement raise (MPPI only)."""
     _gate_iterations(config, "SMPPI")
     use_pallas = _gate_adaptive_covariance(config, use_pallas, "SMPPI")
     _gate_risk_alpha(config)
+    _gate_gradient_refinement(config, "SMPPI")
+    _gate_elites(config, "SMPPI")
     final_cost = _terminal_hooks(config, terminal_state_cost, terminal_final_cost)
-    n_injected_rows = 1 if config.sample_null_action else 0
+    n_injected_rows = _n_injected_rows(config, sample_trajectories)
     dyn = wrap_dynamics(config, dynamics)
     cost = wrap_cost(config, running_cost)
     dtype = config.dtype
@@ -785,7 +1039,8 @@ def make_smppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callab
     transposed_solve = (
         _route_transposed_solve(config, dynamics, running_cost,
                                 FS.make_transposed_smppi_solve, "SMPPI",
-                                terminal_state_cost, terminal_final_cost)
+                                terminal_state_cost, terminal_final_cost,
+                                sample_trajectories is not None or specific_dynamics is not None)
         if use_pallas else None)
 
     def _one_iteration_fused(params: SMPPIParams, U, action_sequence, x0, s: int):
@@ -813,7 +1068,7 @@ def make_smppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callab
             pert_art = pa2.reshape(K, T, nu)
         return U_new, Artifacts(cost_total, ctnz, omega, noise_art, pert_art)
 
-    def _one_iteration(params: SMPPIParams, U, action_sequence, x0, s: int, rs: int):
+    def _one_iteration(params: SMPPIParams, U, action_sequence, x0, info, s: int, rs: int):
         if transposed_solve is not None:
             return _one_iteration_fused(params, U, action_sequence, x0, s)
         base = params.base
@@ -828,7 +1083,8 @@ def make_smppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callab
         perturbed_control2 = _bound(U2[None] + noise2, _tile_bound(base.u_min, nu, T, dtype),
                                     _tile_bound(base.u_max, nu, T, dtype))
         perturbed_action2 = inject_specific_actions(
-            config, as2[None] + perturbed_control2 * params.delta_t)
+            config, as2[None] + perturbed_control2 * params.delta_t, sample_trajectories, x0,
+            info)
         perturbed_action2 = _bound(perturbed_action2,
                                    _tile_bound(params.action_min, nu, T, dtype),
                                    _tile_bound(params.action_max, nu, T, dtype))
@@ -843,7 +1099,8 @@ def make_smppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callab
         smoothness = params.w_action_seq_cost * torch.sum(action_diff * action_diff, dim=1)
         perturbed_action = perturbed_action2.reshape(K, T, nu)
         rollout_cost, states, actions = rollout_costs(
-            config, dyn, cost, x0, perturbed_action, terminal_state_cost, final_cost, rs)
+            config, dyn, cost, x0, perturbed_action, terminal_state_cost, final_cost, rs,
+            specific_dynamics)
         cost_total = rollout_cost + perturbation_cost + smoothness
         cost_total_non_zero, omega = compute_weighting(cost_total, base.lambda_)
         U_new = U + (omega @ noise2).reshape(T, nu)
@@ -851,7 +1108,7 @@ def make_smppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callab
                                 noise2.reshape(K, T, nu), perturbed_action, states,
                                 _unscaled(config, actions))
 
-    def _solve(params: SMPPIParams, state: SMPPIState, x0, shift: bool):
+    def _solve(params: SMPPIParams, state: SMPPIState, x0, info, shift: bool):
         U, action_sequence = state.U, state.action_sequence
         if shift:
             # roll both sequences; repeat the last commanded action (mppi.py:489-493)
@@ -862,7 +1119,7 @@ def make_smppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callab
         for it in range(n_iter):
             it_params = (params._replace(base=params.base._replace(noise_sigma=sigma))
                          if adaptive else params)
-            U, artifacts = _one_iteration(it_params, U, action_sequence, x0,
+            U, artifacts = _one_iteration(it_params, U, action_sequence, x0, info,
                                           *_seeds(state, it))
             if adaptive and it + 1 < n_iter:
                 sigma = adapt_covariance(config, sigma, artifacts.omega, artifacts.noise,
@@ -873,10 +1130,11 @@ def make_smppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callab
                                seed=state.seed, counter=state.counter + n_iter)
         return new_state, _select_action(config, action_sequence_new), artifacts
 
-    return StepFns(step=lambda params, state, x0: _solve(params, state, x0, True),
-                   step_no_shift=lambda params, state, x0: _solve(params, state, x0, False),
-                   get_rollouts=make_get_rollouts(config, dyn),
-                   fused=transposed_solve is not None)
+    return StepFns(
+        step=lambda params, state, x0, info=None: _solve(params, state, x0, info, True),
+        step_no_shift=lambda params, state, x0, info=None: _solve(params, state, x0, info,
+                                                                  False),
+        get_rollouts=make_get_rollouts(config, dyn), fused=transposed_solve is not None)
 
 
 def _shift_sequence(seq: torch.Tensor) -> torch.Tensor:
@@ -889,7 +1147,8 @@ def _shift_sequence(seq: torch.Tensor) -> torch.Tensor:
 
 def make_kmppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callable,
                     use_pallas: bool = False, terminal_state_cost: Callable = None,
-                    terminal_final_cost: Callable = None) -> StepFns:
+                    terminal_final_cost: Callable = None, sample_trajectories: Callable = None,
+                    specific_dynamics: Callable = None) -> StepFns:
     """Build the KMPPI solve (``pytorch_mppi_tpu/ops/solve.py:1704-1924``):
     noise at the ``num_support_pts`` control points, clamped there,
     interpolated to the horizon by ``kron(interp_full, I_nu)``, the null row,
@@ -899,12 +1158,16 @@ def make_kmppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callab
     iterations work as in :func:`make_mppi_step`.  Each iteration re-centres
     the support-point draws on the updated theta; adaptive covariance adapts
     the theta-space sigma from the rectified support-point noise
-    (``solve.py:1780-1800``)."""
+    (``solve.py:1780-1800``).  A specific-action sampler writes its rows into
+    the full-horizon rows after the interpolation (``solve.py:1869-1876``)
+    and takes the plain path; elite reuse and gradient refinement raise."""
     _gate_iterations(config, "KMPPI")
     use_pallas = _gate_adaptive_covariance(config, use_pallas, "KMPPI")
     _gate_risk_alpha(config)
+    _gate_gradient_refinement(config, "KMPPI")
+    _gate_elites(config, "KMPPI")
     final_cost = _terminal_hooks(config, terminal_state_cost, terminal_final_cost)
-    n_injected_rows = 1 if config.sample_null_action else 0
+    n_injected_rows = _n_injected_rows(config, sample_trajectories)
     dyn = wrap_dynamics(config, dynamics)
     cost = wrap_cost(config, running_cost)
     dtype = config.dtype
@@ -916,7 +1179,8 @@ def make_kmppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callab
     transposed_solve = (
         _route_transposed_solve(config, dynamics, running_cost,
                                 FS.make_transposed_kmppi_solve, "KMPPI",
-                                terminal_state_cost, terminal_final_cost)
+                                terminal_state_cost, terminal_final_cost,
+                                sample_trajectories is not None or specific_dynamics is not None)
         if use_pallas else None)
 
     def _interp_rows(params: KMPPIParams):
@@ -948,7 +1212,7 @@ def make_kmppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callab
         return (params.interp_full @ theta_new, theta_new,
                 Artifacts(cost_total, ctnz, omega, noise_art, pert_art))
 
-    def _one_iteration(params: KMPPIParams, U, theta, x0, s: int, rs: int):
+    def _one_iteration(params: KMPPIParams, U, theta, x0, info, s: int, rs: int):
         """``(U, theta, artifacts, theta-space noise (K, Dp) or None)``: the
         fused kernel keeps its theta-space noise, which only the plain
         path's adaptive covariance reads."""
@@ -967,7 +1231,8 @@ def make_kmppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callab
                                 _tile_bound(base.u_max, nu, nsp, dtype))
         noise_theta2 = perturbed_pts2 - theta2[None]
         # deparameterize to the full horizon: one (K, Dp) @ (Dp, D) product
-        perturbed2 = inject_specific_actions(config, perturbed_pts2 @ _interp_rows(params).T)
+        perturbed2 = inject_specific_actions(config, perturbed_pts2 @ _interp_rows(params).T,
+                                             sample_trajectories, x0, info)
         perturbed2 = _bound(perturbed2, _tile_bound(base.u_min, nu, T, dtype),
                             _tile_bound(base.u_max, nu, T, dtype))
         noise2 = perturbed2 - U.reshape(D)[None]
@@ -976,7 +1241,8 @@ def make_kmppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callab
         perturbation_cost = n_for_cost @ a_flat
         perturbed = perturbed2.reshape(K, T, nu)
         rollout_cost, states, actions = rollout_costs(
-            config, dyn, cost, x0, perturbed, terminal_state_cost, final_cost, rs)
+            config, dyn, cost, x0, perturbed, terminal_state_cost, final_cost, rs,
+            specific_dynamics)
         cost_total = rollout_cost + perturbation_cost
         cost_total_non_zero, omega = compute_weighting(cost_total, base.lambda_)
         # weighted update in control-point space (mppi.py:672-682)
@@ -986,7 +1252,7 @@ def make_kmppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callab
                           noise2.reshape(K, T, nu), perturbed, states,
                           _unscaled(config, actions)), noise_theta2)
 
-    def _solve(params: KMPPIParams, state: KMPPIState, x0, shift: bool):
+    def _solve(params: KMPPIParams, state: KMPPIState, x0, info, shift: bool):
         U, theta = state.U, state.theta
         if shift:
             U = _shift_U(U, params.base.u_init)
@@ -997,7 +1263,7 @@ def make_kmppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callab
         for it in range(n_iter):
             it_params = (params._replace(base=params.base._replace(noise_sigma=sigma))
                          if adaptive else params)
-            U, theta, artifacts, noise_theta = _one_iteration(it_params, U, theta, x0,
+            U, theta, artifacts, noise_theta = _one_iteration(it_params, U, theta, x0, info,
                                                               *_seeds(state, it))
             if adaptive and it + 1 < n_iter:
                 sigma = adapt_covariance(config, sigma, artifacts.omega,
@@ -1006,10 +1272,11 @@ def make_kmppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callab
                                counter=state.counter + n_iter)
         return new_state, _select_action(config, U), artifacts
 
-    return StepFns(step=lambda params, state, x0: _solve(params, state, x0, True),
-                   step_no_shift=lambda params, state, x0: _solve(params, state, x0, False),
-                   get_rollouts=make_get_rollouts(config, dyn),
-                   fused=transposed_solve is not None)
+    return StepFns(
+        step=lambda params, state, x0, info=None: _solve(params, state, x0, info, True),
+        step_no_shift=lambda params, state, x0, info=None: _solve(params, state, x0, info,
+                                                                  False),
+        get_rollouts=make_get_rollouts(config, dyn), fused=transposed_solve is not None)
 
 
 # The K from which the batched kernel's command is faster than the plain
@@ -1054,10 +1321,9 @@ def make_batched_step(config: MPPIConfig, num_envs: int, dynamics: Callable,
     launches once an iteration.  ``stochastic_dynamics`` runs the plain path
     over the (N·K,) flat batch.  M > 1, ``risk_alpha`` and adaptive
     covariance raise JAX's ValueErrors (``solve.py:1984-2002``): the plants
-    share one noise draw and the batched rollout has no M axis.  Without
-    gradient refinement and elites (ROADMAP.md Queue 1 items 5d, 5f; the
-    controller rejects their flags), ``mesh`` and ``dyn_params`` (items 12,
-    9).
+    share one noise draw and the batched rollout has no M axis; so do
+    gradient refinement and elite reuse (MPPI only).  Without ``mesh`` and
+    ``dyn_params`` (ROADMAP.md Queue 1 items 12, 9).
     """
     if use_pallas not in BATCHED_USE_PALLAS:
         raise ValueError(f"use_pallas must be one of {BATCHED_USE_PALLAS}, got {use_pallas!r}")
@@ -1069,6 +1335,8 @@ def make_batched_step(config: MPPIConfig, num_envs: int, dynamics: Callable,
             "MPPI_Batched: the batched rollout has no stochastic-rollout (M) "
             "axis (mppi.py:844-853); fold plant-dynamics uncertainty into "
             "extra plants instead")
+    _gate_gradient_refinement(config, "MPPI_Batched")
+    _gate_elites(config, "MPPI_Batched")
     if config.adaptive_covariance:
         raise ValueError(
             "adaptive_covariance is not supported on MPPI_Batched: the N "

@@ -37,10 +37,13 @@ def params_from_numpy(noise_mu, noise_sigma, lambda_, u_min, u_max, u_init,
                       u_max=t(u_max), u_init=t(u_init))
 
 
-def state_from_numpy(U, seed: int, dtype=torch.float32, device="cpu") -> MPPIState:
+def state_from_numpy(U, seed: int, dtype=torch.float32, device="cpu",
+                     elites=None) -> MPPIState:
     """The port's :class:`MPPIState` with the JAX nominal sequence ``U``
-    (T, nu) and a fresh stream ``seed``."""
-    return MPPIState(U=_tensor(U, dtype, device), seed=int(seed))
+    (T, nu), a fresh stream ``seed`` and, where given, the JAX state's
+    ``elites`` (num_elites, T, nu)."""
+    return MPPIState(U=_tensor(U, dtype, device), seed=int(seed),
+                     elites=None if elites is None else _tensor(elites, dtype, device))
 
 
 def smppi_params_from_numpy(base: MPPIParams, action_min, action_max,

@@ -7,7 +7,15 @@ import numpy as np
 import pytest
 import torch
 
-from pytorch_mppi_tpu_torch import KMPPI, MPPI, SMPPI, RBFKernel, linear_quadratic, run_mppi
+from pytorch_mppi_tpu_torch import (
+    KMPPI,
+    MPPI,
+    SMPPI,
+    RBFKernel,
+    SpecificActionSampler,
+    linear_quadratic,
+    run_mppi,
+)
 from pytorch_mppi_tpu_torch.models import (
     PendulumEnv,
     Toy2DEnvironment,
@@ -45,12 +53,19 @@ def test_default_device_needs_cuda(monkeypatch):
         MPPI(pendulum_dynamics, pendulum_running_cost, nx=2, noise_sigma=[[1.0]])
 
 
+class _HangingSampler(SpecificActionSampler):
+    """One row of the pendulum's horizon: no torque."""
+
+    def sample_trajectories(self, state, info):
+        return torch.zeros(1, 15, 1)
+
+
 UNPORTED = [
     ("rollout_samples", 2),
     ("rollout_var_cost", 0.5),
     ("risk_alpha", 0.5),
     ("stochastic_dynamics", True),
-    ("specific_action_sampler", object()),
+    ("specific_action_sampler", _HangingSampler()),
     ("num_iterations", 2),
     ("adaptive_covariance", True),
     ("gradient_refinement_steps", 3),
@@ -71,13 +86,15 @@ def _noisy_pendulum(s, a, rng):
     return pendulum_dynamics(s, a) + 0.01 * torch.randn(s.shape, generator=rng, dtype=s.dtype)
 
 
-# the stochastic rollouts and the iterations, ported since: each flag is
-# taken (with what it needs: risk_alpha the M > 1 rollouts, stochastic
-# dynamics a generator argument), reaches the config and runs a command
+# the stochastic rollouts, the iterations, the specific-action sampler, elite
+# reuse and gradient refinement, ported since: each flag is taken (with what
+# it needs: risk_alpha the M > 1 rollouts, stochastic dynamics a generator
+# argument), reaches the config and runs a command
 TAKEN = {"rollout_samples": {}, "rollout_var_cost": {}, "risk_alpha": {"rollout_samples": 4},
          "stochastic_dynamics": {}, "num_iterations": {},
-         "adaptive_covariance": {"num_iterations": 2}}
-CONFIG_FIELD = {"rollout_samples": "M"}
+         "adaptive_covariance": {"num_iterations": 2}, "specific_action_sampler": {},
+         "gradient_refinement_steps": {}, "num_elites": {}}
+CONFIG_FIELD = {"rollout_samples": "M", "specific_action_sampler": "num_specific_trajectories"}
 
 
 @pytest.mark.parametrize("flag,value", UNPORTED + list(PORTED.items()),
@@ -88,9 +105,14 @@ def test_unported_flag_raises(flag, value):
         ctrl = (MPPI(_noisy_pendulum, pendulum_running_cost, nx=2,
                      noise_sigma=torch.tensor([[10.0]]), num_samples=64, horizon=15,
                      device="cpu", **kw) if flag == "stochastic_dynamics" else _pendulum(**kw))
-        assert getattr(ctrl.config, CONFIG_FIELD.get(flag, flag)) == value
+        want = value.num_trajectories if flag == "specific_action_sampler" else value
+        assert getattr(ctrl.config, CONFIG_FIELD.get(flag, flag)) == want
         ctrl.command(np.array([np.pi, 1.0]))
         assert torch.isfinite(ctrl.cost_total).all()
+        if flag == "specific_action_sampler":
+            assert not ctrl.perturbed_action[0].any()
+        if flag == "num_elites":
+            assert ctrl._state.elites.shape == (value, ctrl.T, 1)
         M = ctrl.config.M
         assert (ctrl.states is None) == (M == 1)
         if M > 1:
