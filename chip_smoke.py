@@ -108,8 +108,17 @@ the package is not beside it.  Phases, each fatal when it fails:
    one PyTorch call for the same function, the legacy rollout's S sweep at
    the flagship and at K = 1,000 (the same check) and its time against the
    parent's, the batched kernel's device time for each plant group
-   P of 1-32 at N = 1,024 and N = 16, and each kernel's time against its
-   time in the parent commit's run (PERF.md);
+   P of 1-32 at N = 1,024 and N = 16, kernel A and the batched kernel in
+   seed mode with the Philox key by pointer, as the commands pass it,
+   against the key by value (the same results, and their device times in
+   turns), and each kernel's time against its time in the parent commit's
+   run (PERF.md); then ``run_mppi_jit`` (``graph_loops``): a CUDA graph of
+   one loop step replayed once a command, on every route (MPPI, SMPPI and
+   KMPPI fused and plain, the legacy route, ``MPPI_Batched`` in seed,
+   operand and plain mode at N = 16, elites, three iterations, stochastic
+   rollouts, five refinement steps), 20 steps bit for bit against a twin's
+   eager ``command()`` loop with exact launch counts, fresh noise at every
+   replay, and the graph loop timed against the eager loop at the flagship;
 5. swing-up: the pendulum with ``use_pallas=True``, 150 steps;
 6. closed loops through the kernels: the ``tests/test_mppi.py`` LQ problem
    (KMPPI reaches the goal, SMPPI stays finite), the toy2d comparison of
@@ -153,12 +162,12 @@ FIRST_MPPI_SEED_MS = 0.04754  # the MPPI pair, seed mode, flagship, as first por
 # D = 300 with a full operator; the batched pair at the main paths' widths;
 # the legacy route's kernels and the sampler (seed and bits mode) at the
 # flagship; and the parent's build time
-BEFORE_MS = {"mppi": 0.018397, "smppi": 0.020019, "kmppi": 0.021307, "rowmajor": 0.021659,
-             "mppi_D300": 0.387245, "smppi_D300": 0.428394, "kmppi_D300": 0.318117,
-             "weighted_update": 0.010376, "rollout": 0.003654, "sampler": 0.005843,
-             "sampler_bits": 0.005331, "batched_operand": 1.072038, "batched_seed": 1.156552,
-             "batched_small_operand": 0.031635}
-BEFORE_BUILD_S = 171.3
+BEFORE_MS = {"mppi": 0.018533, "smppi": 0.019565, "kmppi": 0.021486, "rowmajor": 0.021973,
+             "mppi_D300": 0.389677, "smppi_D300": 0.429486, "kmppi_D300": 0.319934,
+             "weighted_update": 0.010536, "rollout": 0.004219, "sampler": 0.005904,
+             "sampler_bits": 0.005490, "batched_operand": 1.072894, "batched_seed": 1.159131,
+             "batched_small_operand": 0.032691}
+BEFORE_BUILD_S = 266.4
 # the final-state terminal cost of the terminal cases and loops: w_state
 # |x_T - goal|^2 + w_action |u_T|^2 toward the flagship's goal
 TERMINAL_W = (1.0, 0.1)
@@ -171,6 +180,7 @@ REFINE_STEPS = 5  # gradient_refinement_steps of the refinement loop
 SHORT_COMMANDS = 200  # the refinement loop's and SMPPI's and KMPPI's sampler loops' commands
 M_STOCH = 4  # rollout_samples of the stochastic loop
 STOCH_SCALE = 0.05  # the stochastic loop's dynamics noise (a standard deviation)
+GRAPH_STEPS = 20  # plant steps of each route's graph loop held to the eager loop
 
 
 def fail(msg):
@@ -445,6 +455,273 @@ class Captured(logging.Handler):
 
     def __exit__(self, *exc):
         logging.getLogger("pytorch_mppi_tpu_torch").removeHandler(self)
+
+
+class EventGraph:
+    """A captured graph whose replays record a CUDA event first: the
+    interval between two such events is one loop step on the card's
+    timeline."""
+
+    def __init__(self, graph):
+        self.graph, self.events = graph, []
+
+    def replay(self):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        self.events.append(e)
+        self.graph.replay()
+
+
+def step_stats(events):
+    """Median and p90 ms a step from the events at each step's start (the
+    last one at the loop's end)."""
+    lat = sorted(a.elapsed_time(b) for a, b in zip(events, events[1:]))
+    return statistics.median(lat), lat[int(0.9 * len(lat))]
+
+
+def idle_share(run):
+    """The device's idle share of the host-clock window of ``run()`` (which
+    ends by synchronising), from the profiler's kernel times, and the
+    kernels it saw."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall = time.perf_counter()
+        run()
+        wall = (time.perf_counter() - wall) * 1e6
+    kern = [e for e in prof.key_averages()
+            if getattr(e, "device_type", None) == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kern)
+    return 1 - busy / wall, sum(e.count for e in kern)
+
+
+def graph_loops(dev, lq, goal):
+    """Phase 4d: ``run_mppi_jit`` on the card, a CUDA graph of one loop step
+    replayed once a command, against a twin controller's eager
+    ``command()`` loop on the same seed.
+
+    Every route runs GRAPH_STEPS plant steps: the actions, the states, the
+    total cost and the final U (and elites) must be equal bit for bit, and
+    the launch counters must read the steps times the route's launches a
+    command.  With a plant that holds its state still, the second replayed
+    command must differ from the one a repeated stream would give (the
+    counter set back), and equal the eager loop's.  Then the graph loop
+    and the eager loop are timed in turns at the flagship (fused and plain
+    MPPI, refinement, MPPI_Batched seed mode at N = 1,024): the median and
+    p90 ms a step between CUDA events at each step's start, the host clock,
+    and the device's idle share from the profiler.  Returns the rows for
+    the ``kernels`` line and ``PERF.md``."""
+    from pytorch_mppi_tpu_torch import KMPPI, MPPI, SMPPI, MPPI_Batched, RBFKernel, run_mppi_jit
+    from pytorch_mppi_tpu_torch.ops import fused_solve as FS
+    from pytorch_mppi_tpu_torch.ops import solve as PS
+
+    def reset_launches():
+        for name in FS.launches:
+            FS.launches[name] = 0
+
+    def lq_step(x, action):
+        return lq.dynamics(x[None], action[None])[0]
+
+    def noisy_lq(s_, a, rng):
+        return lq.dynamics(s_, a) + STOCH_SCALE * torch.randn(
+            s_.shape, generator=rng, device=s_.device, dtype=s_.dtype)
+
+    eye = torch.eye(NU, device=dev)
+    extra = {"mppi": (MPPI, {}),
+             "smppi": (SMPPI, dict(w_action_seq_cost=1.0, delta_t=1.0,
+                                   action_min=torch.tensor([-3.0, -3.0]),
+                                   action_max=torch.tensor([3.0, 3.0]))),
+             "kmppi": (KMPPI, dict(num_support_pts=NSP, kernel=RBFKernel(2.0)))}
+
+    def single(variant, use_pallas, dynamics=None, K_=K, **kw):
+        cls, ekw = extra[variant]
+        return lambda seed: cls(dynamics or lq.dynamics, lq.running_cost, nx=NX,
+                                noise_sigma=eye, num_samples=K_, horizon=T, lambda_=1.0,
+                                seed=seed, use_pallas=use_pallas, device=dev, **ekw, **kw)
+
+    def batched(use_pallas, N_=BATCH_SMALL_N, K_=BATCH_SMALL_K):
+        return lambda seed: MPPI_Batched(
+            lq.dynamics, lq.running_cost, nx=NX, noise_sigma=eye * 0.5, num_envs=N_,
+            num_samples=K_, horizon=T, lambda_=1.0, u_min=-torch.tensor([1.0, 1.0]),
+            u_max=torch.tensor([1.0, 1.0]), seed=seed, use_pallas=use_pallas, device=dev)
+
+    def start(ctrl):
+        if isinstance(ctrl, MPPI_Batched):
+            g = torch.Generator(device=dev)
+            g.manual_seed(42)
+            return torch.rand(ctrl.N, NX, generator=g, device=dev) * 4 - 4
+        return torch.tensor([-3.0, -2.0], device=dev)
+
+    def plant_of(ctrl):
+        return lq.dynamics if isinstance(ctrl, MPPI_Batched) else lq_step
+
+    # route -> (controller on a seed, the launches of one command)
+    routes = {
+        "mppi fused": (single("mppi", True), dict(mppi=1)),
+        "mppi plain": (single("mppi", False), {}),
+        "mppi rollout": (single("mppi", "rollout"), dict(rollout=1, weighted_update=1)),
+        "smppi fused": (single("smppi", True), dict(smppi=1)),
+        "smppi plain": (single("smppi", False), {}),
+        "kmppi fused": (single("kmppi", True), dict(kmppi=1)),
+        "kmppi plain": (single("kmppi", False), {}),
+        "batched seed": (batched("kernel_rng"), dict(batched=2)),
+        "batched operand": (batched(True), dict(batched=2)),
+        "batched plain": (batched(False), {}),
+        "mppi fused_elites": (single("mppi", True, num_elites=ELITES, fused_artifacts=True),
+                              dict(mppi=1)),
+        "mppi fused_iter3": (single("mppi", True, num_iterations=ITERS), dict(mppi=ITERS)),
+        "mppi plain_stochastic": (single("mppi", False, dynamics=noisy_lq, rollout_samples=M_STOCH,
+                                         rollout_var_cost=0.1, risk_alpha=0.5,
+                                         stochastic_dynamics=True), {}),
+        "mppi fused_refine5": (single("mppi", True, gradient_refinement_steps=REFINE_STEPS),
+                               dict(mppi=1)),
+    }
+
+    def eager(ctrl, plant, x, steps):
+        """The eager loop: the command, then each action of its block on
+        the plant and the running cost after it, as ``run_mppi_jit``."""
+        cost = PS.wrap_cost(ctrl.config, ctrl.running_cost)
+        batched_ = isinstance(ctrl, MPPI_Batched)
+        acc = torch.zeros(ctrl.N if batched_ else (), device=dev)
+        xs, acts = [], []
+        for _ in range(steps // ctrl.u_per_command):
+            a = ctrl.command(x)
+            block = (a.reshape(ctrl.N, -1, NU).transpose(0, 1) if batched_
+                     else a.reshape(-1, NU))
+            for j, a_j in enumerate(block):
+                x = plant(x, a_j)
+                acc = acc + (cost(x, a_j, j) if batched_ else cost(x[None], a_j[None], j)[0])
+                xs.append(x)
+                acts.append(a_j)
+        return torch.stack(xs), torch.stack(acts), acc
+
+    # every route: GRAPH_STEPS steps bit for bit against the eager loop
+    report = {"routes": {}, "timed": {}}
+    for name, (build, per_command) in routes.items():
+        c_graph, c_eager = build(7), build(7)
+        fused = bool(per_command)
+        check(c_graph._fns.fused == fused, f"graph loop [{name}] took the wrong route")
+        x0 = start(c_graph)
+        plant = plant_of(c_graph)
+        reset_launches()
+        states, actions, total = run_mppi_jit(c_graph, plant, x0, GRAPH_STEPS)
+        torch.cuda.synchronize()
+        launched = dict(FS.launches)
+        xs, acts, acc = eager(c_eager, plant, x0, GRAPH_STEPS)
+        torch.cuda.synchronize()
+        same = (torch.equal(states[1:], xs) and torch.equal(states[0], x0)
+                and torch.equal(actions, acts) and torch.equal(total, acc)
+                and torch.equal(c_graph.U, c_eager.U)
+                and c_graph._state.counter == c_eager._state.counter)
+        if getattr(c_graph._state, "elites", None) is not None:
+            same = same and torch.equal(c_graph._state.elites, c_eager._state.elites)
+        expect = {k: GRAPH_STEPS * per_command.get(k, 0) for k in FS.launches}
+        print(f"# graph loop [{name}] {GRAPH_STEPS} steps: equal to the eager loop bit for bit "
+              f"{same} (max |action diff| {float((actions - acts).abs().max()):.3e}, total "
+              f"{total.flatten()[:2].tolist()} vs {acc.flatten()[:2].tolist()}) | launches "
+              f"{ {k: v for k, v in launched.items() if v} }, expected "
+              f"{ {k: v for k, v in expect.items() if v} }")
+        check(same, f"graph loop [{name}] differs from the eager command() loop")
+        check(launched == expect, f"graph loop [{name}] launched {launched}, expected {expect}")
+        check(bool(torch.isfinite(states).all()) and states.shape[0] == GRAPH_STEPS + 1,
+              f"graph loop [{name}]: non-finite or misshapen states")
+        report["routes"][name] = dict(equal=same, launches=launched)
+        del c_graph, c_eager
+
+    # fresh noise at every replay: with the plant held still, the second
+    # replayed command is the eager loop's, not the one of a repeated stream
+    for name in ("mppi fused", "mppi plain", "batched seed", "mppi plain_stochastic"):
+        build = routes[name][0]
+        c_graph, c_fresh, c_rep = build(11), build(11), build(11)
+        x0 = start(c_graph)
+        _, actions, _ = run_mppi_jit(c_graph, lambda x, a: x, x0, 2)
+        fresh = [c_fresh.command(x0) for _ in range(2)]
+        first = c_rep.command(x0)
+        n_iter = c_rep.config.num_iterations
+        c_rep._state = c_rep._state._replace(counter=c_rep._state.counter - n_iter)
+        repeated = c_rep.command(x0)
+        ok = (torch.equal(actions[0], fresh[0]) and torch.equal(actions[1], fresh[1])
+              and torch.equal(first, fresh[0]) and not torch.equal(actions[1], repeated))
+        print(f"# graph loop [{name}] held still: replay 2 equals the eager loop's command 2 "
+              f"{torch.equal(actions[1], fresh[1])}, differs from a repeated stream's "
+              f"{not torch.equal(actions[1], repeated)}")
+        check(ok, f"graph loop [{name}]: a replay did not draw fresh noise")
+        del c_graph, c_fresh, c_rep
+    torch.cuda.empty_cache()
+
+    # the graph loop against the eager loop at the flagship, in turns
+    timed_routes = {"mppi fused": (routes["mppi fused"][0], COMMANDS),
+                    "mppi plain": (routes["mppi plain"][0], COMMANDS),
+                    "mppi fused_refine5": (routes["mppi fused_refine5"][0], SHORT_COMMANDS),
+                    f"batched seed N={BATCH_N}": (batched("kernel_rng", BATCH_N, BATCH_K),
+                                                  SHORT_COMMANDS)}
+    for name, (build, steps) in timed_routes.items():
+        row = {}
+        for mode in ("graph", "eager", "eager", "graph"):
+            ctrl = build(5)
+            x0 = start(ctrl)
+            plant = plant_of(ctrl)
+            if mode == "graph":
+                run_mppi_jit(ctrl, plant, x0, steps)  # capture
+                loop = next(iter(ctrl._runner_cache.values()))
+                loop.graph = EventGraph(loop.graph)
+                torch.cuda.synchronize()
+                wall = time.perf_counter()
+                _, _, total = run_mppi_jit(ctrl, plant, x0, steps)
+                end = torch.cuda.Event(enable_timing=True)
+                end.record()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - wall
+                events = loop.graph.events + [end]
+                loop.graph = loop.graph.graph
+                idle, seen = idle_share(lambda: (run_mppi_jit(ctrl, plant, x0, min(steps, 100)),
+                                                 torch.cuda.synchronize()))
+            else:
+                cost = PS.wrap_cost(ctrl.config, ctrl.running_cost)
+                batched_ = isinstance(ctrl, MPPI_Batched)
+                x = x0
+                for _ in range(WARMUP if steps > 500 else 5):
+                    x = plant(x, ctrl.command(x))
+                torch.cuda.synchronize()
+                events = []
+                acc = torch.zeros(ctrl.N if batched_ else (), device=dev)
+                wall = time.perf_counter()
+                for _ in range(steps):
+                    e = torch.cuda.Event(enable_timing=True)
+                    e.record()
+                    events.append(e)
+                    a = ctrl.command(x)
+                    x = plant(x, a)
+                    acc = acc + (cost(x, a, 0) if batched_ else cost(x[None], a[None], 0)[0])
+                end = torch.cuda.Event(enable_timing=True)
+                end.record()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - wall
+                events.append(end)
+
+                def run_eager(ctrl=ctrl, x=x):
+                    for _ in range(min(steps, 100) if steps > 500 else 20):
+                        x = plant(x, ctrl.command(x))
+                    torch.cuda.synchronize()
+
+                idle, seen = idle_share(run_eager)
+            med, p90 = step_stats(events)
+            row.setdefault(mode, []).append(dict(median_ms=med, p90_ms=p90,
+                                                 host_ms=wall / steps * 1e3, idle=idle,
+                                                 kernels_seen=seen))
+            print(f"# graph vs eager [{name}] {mode}, {steps} steps: median {med:.4f} ms p90 "
+                  f"{p90:.4f} ms a step (CUDA events at each step's start) | host clock "
+                  f"{wall / steps * 1e3:.4f} ms a step | device idle {idle:.3f} "
+                  f"({seen} kernels in the profiled window)")
+            check(math.isfinite(med), f"graph vs eager [{name}] {mode}: no time")
+            del ctrl
+            torch.cuda.empty_cache()
+        g = statistics.median(r["median_ms"] for r in row["graph"])
+        e_ = statistics.median(r["median_ms"] for r in row["eager"])
+        print(f"# graph vs eager [{name}]: graph / eager median {g / e_:.4f}")
+        report["timed"][name] = dict(row, steps=steps, ratio=g / e_)
+    return report
 
 
 def card_line():
@@ -1742,6 +2019,27 @@ def main():
           f"{PS._BATCHED_KERNEL_MIN_K}" + ("" if crossover == PS._BATCHED_KERNEL_MIN_K
                                            else "  <-- differs (not a failure)"))
 
+    def key_timing(name, solve, rest):
+        """Seed mode with the Philox key by pointer (a (2,) int32 device
+        tensor, as the commands pass it) against the key by value: the same
+        results bit for bit, and the device times of CUDA graphs of 20 calls
+        in turns (value, pointer, pointer, value).  Returns (pointer ms,
+        value ms)."""
+        key_dev = torch.tensor([1234, 5678], dtype=torch.int32, device=dev)
+        same = all(torch.equal(a, b) for a, b in zip(solve((1234, 5678), *rest),
+                                                     solve(key_dev, *rest)))
+        check(same, f"{name}: the key by pointer gives other results than by value")
+        ms = {"value": [], "pointer": []}
+        for mode in ("value", "pointer", "pointer", "value"):
+            lead = (1234, 5678) if mode == "value" else key_dev
+            ms[mode].append(graph_ms(lambda: solve(lead, *rest), 20))
+        ptr, val = statistics.mean(ms["pointer"]), statistics.mean(ms["value"])
+        print(f"# key by pointer [{name}]: results equal bit for bit {same} | device "
+              f"{ptr:.6f} ms by pointer {ms['pointer']} against {val:.6f} ms by value "
+              f"{ms['value']} (CUDA graphs of 20 calls, in turns): ratio {ptr / val:.4f} "
+              f"(expected within 1.10)")
+        return ptr, val
+
     # the kernels alone at the main paths' shapes and operands, at D = 300
     # (T = 100, nu = 3, full op) beside them, and kernel A's S sweep: each
     # variant's device time for S = 32, 64 and 128 at the flagship, at
@@ -1799,6 +2097,7 @@ def main():
                       f"at 3.35 TB/s; {ops} operations -> {t_ops:.3e} ms at 67 TFLOP/s; "
                       f"bound by {bound_by}")
             if shape == "flagship":
+                timed[variant, "key"] = key_timing(variant, solve, args)
                 # with the final-state terminal cost, beside the time without it
                 solve_t = factories[variant](cfg, model, terminal_final=term)
                 t_ms = graph_ms(lambda: solve_t((1234, 5678), *args), 20)
@@ -1866,6 +2165,7 @@ def main():
                   f"{call_ms:.5f} ms (CUDA events, host wrapper included) | plain version "
                   f"{plain_ms:.5f} ms | bound {bound_ms:.3e} ms by {bound_by}")
             if mode == "seed" and N_ == BATCH_N:
+                timed["batched", "key"] = key_timing(f"batched N={N_}", solve, rest)
                 # the earlier count took the shared draw once for every plant: N
                 # times this count for one plant (the main path pairs no samples)
                 one = fused_work(ctrl.config, lq, lead, x0T, op, variant="batched", plants=1)
@@ -2194,6 +2494,9 @@ def main():
         print(f"# {name}: {ms:.6f} ms against {BEFORE_MS[name]} ms before: ratio "
               f"{ms / BEFORE_MS[name]:.4f} (limit 1.1)")
 
+    # -- 4d. run_mppi_jit: a CUDA graph of the loop step -------------------------
+    graph_report = graph_loops(dev, lq, goal)
+
     # -- 5. swing-up -------------------------------------------------------------
     reset_launches()
     ctrl = MPPI(pendulum_dynamics, pendulum_running_cost, nx=2,
@@ -2351,6 +2654,11 @@ def main():
             "launches_terminal_loop": (main[variant, "fused_terminal"]["launches"][variant]
                                        if variant == "mppi" else None),
             "launches_iter3_loop": main[variant, "fused_iter3"]["launches"][variant],
+            # the commands pass the key by pointer (a CUDA graph of a command
+            # reads it at each replay); "ms" above is by value, as before
+            "ms_key_by_pointer": timed[variant, "key"][0],
+            "ms_key_by_value": timed[variant, "key"][1],
+            "launches_graph_loop": graph_report["routes"][f"{variant} fused"]["launches"][variant],
         })
     # kernel A with the elites operand (the elite columns of the TPU kernel)
     e_ms, emit_ms, e_bound, e_by = timed["mppi", "elites"]
@@ -2385,6 +2693,9 @@ def main():
         "ms_terminal": timed["batched", "terminal"][0],
         "bound_ms_terminal": timed["batched", "terminal"][1],
         "launches_iter2_loop": batched[BATCH_N, "operand_iter2"]["launches"]["batched"],
+        "ms_seed_mode_key_by_pointer": timed["batched", "key"][0],
+        "ms_seed_mode_key_by_value": timed["batched", "key"][1],
+        "launches_graph_loop_seed": graph_report["routes"]["batched seed"]["launches"]["batched"],
     })
     for name, line, main_key in (("rollout", 75, ("mppi", "rollout")),
                                  ("weighted_update", 172, ("mppi", "rollout"))):

@@ -10,9 +10,9 @@ random-number state from one command to the next: in place of a JAX PRNG key
 it holds a 64-bit ``seed`` and a ``counter`` that every iteration of a solve
 advances by one, so a run is reproducible from the seed alone.
 
-Only the fields this port runs are here; the JAX package's other flags
-(``dynamics_params`` and the sharding flags) are rejected by
-:class:`~pytorch_mppi_tpu_torch.controller.MPPI` with ``NotImplementedError``.
+Only the fields this port runs are here; the JAX package's sharding flags
+are rejected by :class:`~pytorch_mppi_tpu_torch.controller.MPPI` with
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -87,6 +87,10 @@ class MPPIConfig:
     # clamped into [u_min, u_max] after each step.  MPPI only
     gradient_refinement_steps: int = 0
     gradient_refinement_lr: float = 0.05
+    # the dynamics take the controller's dynamics_params first (a learned
+    # model's weights): dynamics(params, state, u[, t][, rng]); the kernels
+    # take none, so the plain path runs
+    parameterized_dynamics: bool = False
 
     def __post_init__(self):
         if not isinstance(self.dtype, torch.dtype):

@@ -16,9 +16,14 @@ device it runs the kernel's plain version.  ``MPPI(use_pallas="rollout")``
 selects the legacy kernel pair (``ops/legacy.py``); ``MPPI_Batched`` takes
 ``True``, ``"force"`` and ``"kernel_rng"`` (``ops/solve.make_batched_step``).
 
-Flags of the JAX controller that the port does not run yet
-(``dynamics_params`` and the sharding flags) raise ``NotImplementedError``
-naming the ``ROADMAP.md`` item that will port them.
+Flags of the JAX controller that the port does not run yet (the sharding
+flags) raise ``NotImplementedError`` naming the ``ROADMAP.md`` item that will
+port them.  ``dynamics_params`` works as in JAX: set at construction (a
+tensor, or a tuple, list or dict of tensors), it is passed first to the
+dynamics, ``dynamics(params, state, action[, t][, rng])``, on every command
+and rollout, and assigning a new ``mppi.dynamics_params`` takes effect at the
+next command; it takes the plain path (the kernels' device models hold
+their own constants).
 The JAX keywords that pick its compiler or its random-number stream are taken
 as far as they mean something here: ``scan_unroll`` is accepted and ignored
 (it does not change results), ``prng_impl`` takes ``"auto"`` or ``None``, and
@@ -53,7 +58,6 @@ __all__ = ["MPPI", "SMPPI", "KMPPI", "MPPI_Batched", "SpecificActionSampler"]
 
 # flag -> (value that means "off", ROADMAP.md item that ports it)
 _UNPORTED = {
-    "dynamics_params": (None, "Queue 1 item 9 (learned models)"),
     "mesh": (None, "Queue 1 item 12 (sharding)"),
     "env_axis": ("data", "Queue 1 item 12 (sharding)"),
     "sample_axis": (None, "Queue 1 item 12 (sharding)"),
@@ -250,6 +254,10 @@ class MPPI:
         nu)) -> (K,)`` of the last step, the action ``u_scale``-scaled;
         stores nothing, and a ``ops.kernel_models.quadratic_terminal`` keeps
         the fused kernel.  The two are mutually exclusive (ValueError).
+    :param dynamics_params: parameters passed first to the dynamics
+        (``dynamics(params, state, action[, t][, rng])``): a tensor, or a
+        tuple, list or dict of tensors; ``self.dynamics_params`` may be
+        reassigned between commands.  The plain path runs.
     :param device: ``None`` (the card), ``"cuda"``, ``"cuda:N"`` or ``"cpu"``.
     :param seed: seeds the controller's ``torch.Generator``.
     :param use_pallas: ``True`` runs each command through the fused CUDA
@@ -308,8 +316,11 @@ class MPPI:
         _check_jax_rng(key, prng_impl)
         # MPPI's default sample axis is "k" (MPPI_Batched's None)
         _reject_unported({"sample_axis": "k"}, sample_axis=sample_axis)
-        _reject_unported(dynamics_params=dynamics_params, mesh=mesh)
+        _reject_unported(mesh=mesh)
         self.d = resolve_device(device)
+        # a learned model's weights, passed first to the dynamics; None means
+        # the dynamics take none (the config's parameterized_dynamics)
+        self.dynamics_params = dynamics_params
         self.use_pallas = _use_pallas(use_pallas, MPPI_USE_PALLAS)
         self.fused_artifacts = bool(fused_artifacts)
         sigma = _coerce_sigma(noise_sigma)
@@ -412,6 +423,7 @@ class MPPI:
             num_elites=self.num_elites,
             gradient_refinement_steps=self.gradient_refinement_steps,
             gradient_refinement_lr=self.gradient_refinement_lr,
+            parameterized_dynamics=self.dynamics_params is not None,
             diag_sigma=self._diag_sigma,
             fused_artifacts=self.fused_artifacts,
             dtype=self.dtype,
@@ -589,7 +601,8 @@ class MPPI:
             )
         self.info = info
         fn = self._fns.step if shift_nominal_trajectory else self._fns.step_no_shift
-        self._state, action, artifacts = fn(self._full_params(), self._state, x0, info)
+        self._state, action, artifacts = fn(self._full_params(), self._state, x0, info,
+                                            self.dynamics_params)
         self.state = x0
         self._store_artifacts(artifacts)
         return action
@@ -614,7 +627,7 @@ class MPPI:
             U = self.get_action_sequence()
         seed = self._next_seed() if self.stochastic_dynamics else None
         return self._fns.get_rollouts(self._params, state, U, num_rollouts=num_rollouts,
-                                      seed=seed)
+                                      seed=seed, dyn_params=self.dynamics_params)
 
 
 class SMPPI(MPPI):
@@ -856,9 +869,9 @@ class MPPI_Batched:
     ``ops/solve._BATCHED_KERNEL_MIN_K`` samples on, and the plain path below
     it (an info log says so); ``"force"`` keeps operand mode at any K and
     ``"kernel_rng"`` draws the noise in the kernel.  ``device=None`` means
-    the card, as for :class:`MPPI`.  ``num_iterations`` and
-    ``stochastic_dynamics`` work as for :class:`MPPI` (stochastic dynamics
-    on the plain path).
+    the card, as for :class:`MPPI`.  ``num_iterations``,
+    ``stochastic_dynamics`` and ``dynamics_params`` work as for
+    :class:`MPPI` (the last two on the plain path).
     """
 
     def __init__(
@@ -898,11 +911,9 @@ class MPPI_Batched:
         prng_impl: Optional[str] = "auto",
     ):
         _check_jax_rng(key, prng_impl)
-        _reject_unported(
-            dynamics_params=dynamics_params, mesh=mesh, env_axis=env_axis,
-            sample_axis=sample_axis,
-        )
+        _reject_unported(mesh=mesh, env_axis=env_axis, sample_axis=sample_axis)
         self.d = resolve_device(device)
+        self.dynamics_params = dynamics_params
         self.use_pallas = _use_pallas(use_pallas, _solve.BATCHED_USE_PALLAS)
         sigma = _coerce_sigma(noise_sigma)
         self.dtype = sigma.dtype
@@ -933,6 +944,7 @@ class MPPI_Batched:
             noise_rho=_validate_rho(noise_rho),
             diag_sigma=_is_diag(sigma),
             fused_artifacts=bool(fused_artifacts),
+            parameterized_dynamics=dynamics_params is not None,
             dtype=self.dtype,
         )
         self.terminal_state_cost = terminal_state_cost
@@ -999,7 +1011,8 @@ class MPPI_Batched:
                 f"states must have shape (num_envs={self.N}, nx={self.nx}); "
                 f"got {tuple(x0.shape)}")
         fn = self._fns.step if shift_nominal_trajectory else self._fns.step_no_shift
-        self._state, action, artifacts = fn(self._params, self._state, x0)
+        self._state, action, artifacts = fn(self._params, self._state, x0,
+                                            self.dynamics_params)
         self.cost_total = artifacts.cost_total
         self.omega = artifacts.omega
         # (N, K, T, nx) candidate rollouts; None without a terminal_state_cost

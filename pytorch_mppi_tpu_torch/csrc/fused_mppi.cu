@@ -202,7 +202,10 @@ struct Params {
   int plant_group;  // kBatched: P, the plants of one block of batched_partial
   const int* bits;  // (R, bits_cols) int32, or null in seed mode
   int bits_cols;
-  unsigned key0, key1;
+  unsigned key0, key1;  // the Philox key in seed mode, unless `key` is set
+  const unsigned* key;  // kernel A and kBatched: the key's two words in device
+                        // memory (written before a CUDA graph replays the
+                        // launch), or null for key0/key1
   int pair_block, antithetic, null_action, abs_cost, full_op;
   int rowmajor;  // kMPPI as the round-1 solve: (K_pad, D) bits, op the (nu, nu)
                  // Cholesky factor, mu/lo/hi (nu,) per step
@@ -288,6 +291,15 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, unsigned k0, unsigned k1
     c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
   }
   return c;
+}
+
+// The Philox key of a launch in seed mode: read once by each thread from
+// device memory where p.key is set (one address for the whole grid, so one
+// load a warp from L1), else the words passed by value.  A captured launch
+// keeps its arguments, so a CUDA graph that must draw new noise at each
+// replay takes its key by pointer.
+__device__ __forceinline__ uint2 philox_key(const unsigned* key, unsigned key0, unsigned key1) {
+  return key ? make_uint2(__ldg(key), __ldg(key + 1)) : make_uint2(key0, key1);
 }
 
 // Giles' single-precision erfinv ("Approximating the erfinv function", GPU
@@ -539,7 +551,8 @@ __device__ __forceinline__ void source_of(const Params& p, int k, int& src, floa
   }
 }
 
-__device__ __forceinline__ void draw_column(const Params& p, int k, float* z, int ldt) {
+__device__ __forceinline__ void draw_column(const Params& p, uint2 key, int k, float* z,
+                                            int ldt) {
   const int R = p.R;
   int src;
   float sgn;
@@ -549,7 +562,7 @@ __device__ __forceinline__ void draw_column(const Params& p, int k, float* z, in
       z[d * ldt] = sgn * bits_to_normal((unsigned)p.bits[(size_t)d * p.bits_cols + src]);
   } else {
     for (int g = 0; 4 * g < R; ++g) {
-      const uint4 r = philox4x32_10(make_uint4((unsigned)src, (unsigned)g, 0u, 0u), p.key0, p.key1);
+      const uint4 r = philox4x32_10(make_uint4((unsigned)src, (unsigned)g, 0u, 0u), key.x, key.y);
       const unsigned words[4] = {r.x, r.y, r.z, r.w};
 #pragma unroll
       for (int w = 0; w < 4; ++w)
@@ -826,11 +839,12 @@ __global__ void __launch_bounds__(BLOCK, 2) mppi_fused_partial(Params p) {
         ta[d * ldt + s] =
             live ? sgn * bits_to_normal((unsigned)p.bits[(size_t)d * p.bits_cols + src]) : 0.0f;
     } else {
+      const uint2 key = philox_key(p.key, p.key0, p.key1);
       for (int q = g0; 4 * q < R; q += G) {
         float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
         if (live) {
           const uint4 r =
-              philox4x32_10(make_uint4((unsigned)src, (unsigned)q, 0u, 0u), p.key0, p.key1);
+              philox4x32_10(make_uint4((unsigned)src, (unsigned)q, 0u, 0u), key.x, key.y);
           v[0] = sgn * bits_to_normal(r.x);
           v[1] = sgn * bits_to_normal(r.y);
           v[2] = sgn * bits_to_normal(r.z);
@@ -1129,6 +1143,7 @@ __global__ void __launch_bounds__(BLOCK) batched_partial(Params p) {
     }
   };
   fetch(first, pk);
+  const uint2 key = philox_key(p.key, p.key0, p.key1);
 
   if (p.noise) {
     // the operand's (R, BLOCK) slice, 16 bytes a load where the rows allow;
@@ -1156,14 +1171,14 @@ __global__ void __launch_bounds__(BLOCK) batched_partial(Params p) {
     }
   } else if (!p.full_op) {
     if (live) {
-      draw_column(p, k, nt + tid, LDT);
+      draw_column(p, key, k, nt + tid, LDT);
       for (int d = 0; d < R; ++d) nt[d * LDT + tid] = nt[d * LDT + tid] * p.op[d] + p.mu[d];
     } else {
       for (int d = 0; d < R; ++d) nt[d * LDT + tid] = 0.0f;
     }
   } else {
     // op @ z + mu on the thread's own column
-    if (live) draw_column(p, k, zs + tid, LDT);
+    if (live) draw_column(p, key, k, zs + tid, LDT);
     for (int d = 0; d < R; ++d) {
       float n = 0.0f;
       if (live) {
@@ -2095,7 +2110,10 @@ const char* fused_mppi_error_string(int e) { return cudaGetErrorString((cudaErro
 // Launches kernel A with `tile_k` samples a block, which merges its partials
 // itself with the zeroed int32 `counter` (two launches with one counter must
 // not run at once), or for kBatched batched_partial then kernel B, on
-// `stream`; returns cudaGetLastError().  `scratch` is null for the
+// `stream`; returns cudaGetLastError().  In seed mode the Philox key is
+// `key0`/`key1`, or the two words at the device pointer `key` where it is
+// not null (read when the kernels run, so that a CUDA graph of the launch
+// draws with the key written before each replay).  `scratch` is null for the
 // shared-memory tiles, else (launched blocks, tiles, D, tile_k) for kernel A,
 // (launched blocks, tiles, R, BLOCK) for kBatched.  kBatched takes
 // `num_plants` plants in groups of `plant_group` a block, U and a as (D, N)
@@ -2108,7 +2126,8 @@ const char* fused_mppi_error_string(int e) { return cudaGetErrorString((cudaErro
 int fused_mppi_launch(int device, void* stream, int variant, int model_id, const float* consts,
                       int K, int T, int nx, int nu, int R,
                       const int* bits, int bits_cols, unsigned key0, unsigned key1,
-                      int pair_block, int antithetic, int null_action, int abs_cost,
+                      const unsigned* key, int pair_block, int antithetic, int null_action,
+                      int abs_cost,
                       const float* x0, long long x0_row_stride, long long x0_col_stride,
                       const float* U, const float* base, const float* op, int full_op,
                       const float* mu, const float* lo, const float* hi, const float* alo,
@@ -2137,6 +2156,7 @@ int fused_mppi_launch(int device, void* stream, int variant, int model_id, const
   p.bits_cols = bits_cols;
   p.key0 = key0;
   p.key1 = key1;
+  p.key = key;
   p.pair_block = pair_block;
   p.antithetic = antithetic;
   p.null_action = null_action;

@@ -42,7 +42,9 @@ final-state terminal cost (``terminal_final``, a
 (R, K_pad/2) with antithetic sampling, R the drawn rows (D, or Dp for KMPPI)
 — injects the random bits, as the JAX kernel's ``rng_in_kernel=False``; a
 pair of 32-bit ints is a Philox4x32-10 key, and the kernel draws its own
-bits.  Word w of Philox counter (c, g, 0, 0) is the bits of row 4g + w of
+bits; a (2,) int32 tensor on the solve's device holds such a key, which the
+kernel reads when it runs (:func:`is_device_key`: the key buffer of a
+command, which a CUDA graph of the command reads at each replay).  Word w of Philox counter (c, g, 0, 0) is the bits of row 4g + w of
 source column c.  The batched solve also takes ``noise_operand=True``: its
 ``lead`` is then the final (D, ≥K) float32 noise, and the kernel draws
 nothing.
@@ -143,7 +145,9 @@ def transposed_eligible(config: MPPIConfig, has_specific_sampler: bool = False) 
     """Static eligibility for the fused kernel (``pallas_rollout.py:259-283``):
     one deterministic rollout a sample (M = 1, no ``stochastic_dynamics``),
     float32, no step dependence (the kernel's device models take no
-    timestep), no specific-action sampler (its rows or its dynamics hook),
+    timestep), no ``parameterized_dynamics`` (a device model holds its
+    constants, not the controller's ``dynamics_params``), no specific-action
+    sampler (its rows or its dynamics hook),
     and elite reuse only with ``fused_artifacts`` (the refresh reads the
     perturbed set the kernel emits) and with the null row and the elites
     within ``ELITE_WINDOW`` samples."""
@@ -151,7 +155,7 @@ def transposed_eligible(config: MPPIConfig, has_specific_sampler: bool = False) 
         config.fused_artifacts
         and config.num_elites + (1 if config.sample_null_action else 0) <= ELITE_WINDOW)
     return (config.M == 1 and not has_specific_sampler and elites_ok
-            and not config.stochastic_dynamics
+            and not config.stochastic_dynamics and not config.parameterized_dynamics
             and config.dtype == torch.float32 and not config.step_dependent_dynamics)
 
 
@@ -217,10 +221,11 @@ def _mulhilo32(a: torch.Tensor, m: int):
 
 def philox4x32_10(counter, key):
     """Philox4x32-10 over int64 tensors: ``counter`` is four broadcastable
-    tensors of uint32 values, ``key`` two ints; returns the four output
-    words (Random123's ``philox4x32``)."""
+    tensors of uint32 values, ``key`` two ints or a (2,) int32 key tensor
+    (:func:`key_words`); returns the four output words (Random123's
+    ``philox4x32``)."""
     c0, c1, c2, c3 = counter
-    k0, k1 = key[0] & _M32, key[1] & _M32
+    k0, k1 = key_words(key)
     for r in range(10):
         if r:
             k0 = (k0 + _PHILOX_W0) & _M32
@@ -235,6 +240,22 @@ def key_to_seed(s: int) -> tuple:
     """The kernel's Philox key (two 32-bit words) from a 64-bit iteration
     seed (counterpart of ``pallas_rollout.key_to_seed``)."""
     return (s & _M32, (s >> 32) & _M32)
+
+
+def is_device_key(lead) -> bool:
+    """A Philox key held in memory: a (2,) int32 tensor of the key's words
+    (the command's key buffer, written before the kernel runs), where bits
+    are an (R, cols) int32 tensor."""
+    return isinstance(lead, torch.Tensor) and lead.dtype == torch.int32 and lead.ndim == 1
+
+
+def key_words(key):
+    """The key's two words as uint32 values (in int64): from a pair of ints,
+    or from a (2,) int32 key tensor without a copy to the host."""
+    if isinstance(key, torch.Tensor):
+        k = key.to(torch.int64) & _M32
+        return k[0], k[1]
+    return key[0] & _M32, key[1] & _M32
 
 
 def philox_bits(key, cols: torch.Tensor, D: int) -> torch.Tensor:
@@ -307,7 +328,9 @@ def _noise(seed_or_bits, R: int, K: int, pair_block: int, antithetic: bool, op,
     """(R, K) noise of the drawn rows: the normals of each sample's source
     column, the antithetic sign, then the diagonal scale or ``op @ z``."""
     src, sign = source_columns(K, pair_block, antithetic, device)
-    if isinstance(seed_or_bits, torch.Tensor):
+    if is_device_key(seed_or_bits):
+        bits = philox_bits(seed_or_bits.to(device), src, R)
+    elif isinstance(seed_or_bits, torch.Tensor):
         bits = seed_or_bits.to(device)[:, src]
     else:
         bits = philox_bits(seed_or_bits, src, R)
@@ -491,7 +514,7 @@ def _lib():
     if not getattr(lib, "_argtypes_set", False):
         lib.fused_mppi_launch.argtypes = [
             _I, _P, _I, _I, _P, _I, _I, _I, _I, _I, _P, _I, ctypes.c_uint32,
-            ctypes.c_uint32, _I, _I, _I, _I, _P, _L, _L, _P, _P, _P, _I, _P,
+            ctypes.c_uint32, _P, _I, _I, _I, _I, _P, _L, _L, _P, _P, _P, _I, _P,
             _P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_float, _P, _P, _P,
             _P, _P, _P, _I, _L, _L, _L, _L, _P, _L, _I, _I, _P, _P, _P, _I, _I,
         ]
@@ -681,13 +704,15 @@ def _make_launch(variant: int, config: MPPIConfig, model: KernelModel, R: int,
         for name, t in (("lambda_", lam), ("w_seq", w_seq), ("delta_t", dt)):
             if t is not None:
                 _check(name, t.reshape(1), device, shape=(1,))
-        bits = noise = None
+        bits = noise = key_ptr = None
         key = (0, 0)
         if noise_operand:
             noise = _check("noise", lead, device, contiguous=False)
             if noise.ndim != 2 or noise.shape[0] != R or noise.shape[1] < K or noise.stride(1) != 1:
                 raise ValueError(f"the noise operand must be ({R}, >= {K}) with unit column "
                                  f"stride, got {tuple(noise.shape)} strides {noise.stride()}")
+        elif is_device_key(lead):
+            key_ptr = _check("key", lead, device, dtype=torch.int32, shape=(2,)).data_ptr()
         elif isinstance(lead, torch.Tensor):
             bits = _check("bits", lead, device, dtype=torch.int32, shape=(R, bits_cols))
         else:
@@ -706,7 +731,7 @@ def _make_launch(variant: int, config: MPPIConfig, model: KernelModel, R: int,
         rc = lib.fused_mppi_launch(
             device_index(device), stream_of(device),
             variant, model.model_id, consts.data_ptr(), K, T, nx, nu, R,
-            _ptr(bits), bits_cols, key[0], key[1], pair_block,
+            _ptr(bits), bits_cols, key[0], key[1], key_ptr, pair_block,
             int(antithetic), int(null_action),
             int(config.noise_abs_cost), x0T.data_ptr(), x0T.stride(0), x0T.stride(1),
             U2.data_ptr(), _ptr(base), _ptr(op), int(full_op),

@@ -41,13 +41,12 @@ from .kernel_models import KernelModel
 
 def pallas_eligible(config: MPPIConfig) -> bool:
     """Static eligibility for the legacy kernels (``pallas_rollout.py:61-72``):
-    M = 1, deterministic dynamics, float32, and no step dependence (the
-    device models take no timestep).  A terminal cost and a
+    M = 1, deterministic and unparameterized dynamics, float32, and no step
+    dependence (the device models take no timestep).  A terminal cost and a
     ``specific_dynamics`` hook send the route to the plain path
-    (``solve._route_legacy_rollout``); the JAX check's last condition
-    (unparameterized dynamics) is a flag the port's controllers reject
-    before a step is built."""
+    (``solve._route_legacy_rollout``)."""
     return (config.M == 1 and not config.stochastic_dynamics
+            and not config.parameterized_dynamics
             and config.dtype == torch.float32 and not config.step_dependent_dynamics)
 
 

@@ -32,6 +32,14 @@ take a specific-action sampler's ``sample_trajectories`` and
 fused kernel as its elites operand) and gradient refinement of the nominal
 (:func:`make_nominal_refiner`).
 
+Each factory's ``step`` is a host prologue, which positions the command's
+random streams (:class:`CommandStreams`: the kernels' keys in a device
+buffer, fixed generators reseeded), then a device body that makes no host
+decision on a value, so that ``runner.run_mppi_jit`` can capture the body in
+a CUDA graph.  The steps take the controller's ``dynamics_params``, which
+go first to the dynamics with ``config.parameterized_dynamics``
+(:func:`wrap_dynamics`; the plain path, as JAX's kernels take none).
+
 The reference quirks stay: U is not clamped again after the update, the
 running cost is taken at the state after the dynamics step, and ``u_scale``
 is applied inside the rollout.  Tensors are not updated in place, except
@@ -112,6 +120,139 @@ def standard_normal(generator: torch.Generator, shape, dtype, device) -> torch.T
     return torch.randn(shape, generator=generator, dtype=dtype, device=device)
 
 
+class _DeviceStreams:
+    """The generators and the kernels' key buffer of one step on one
+    device (:class:`CommandStreams`)."""
+
+    def __init__(self, streams: "CommandStreams", device: torch.device):
+        n_iter, T = streams.n_iter, streams.T
+
+        def gens(n):
+            return [torch.Generator(device=device) for _ in range(n)]
+
+        self.device = device
+        self.keys = (torch.zeros((n_iter, 2), dtype=torch.int32, device=device)
+                     if streams.kernel_keys else None)
+        # each iteration's noise source for the kernel: a row of the key
+        # buffer, or the bits FS.key_to_seed gave in its place
+        self.leads = [None] * n_iter
+        self.noise = gens(n_iter) if streams.noise else None
+        self.rollout = [gens(T) for _ in range(n_iter)] if streams.rollout else None
+        self.refine = [gens(T) for _ in range(streams.refine_steps)]
+
+    def generators(self) -> list:
+        """Every generator a command draws from."""
+        out = list(self.noise or [])
+        for group in (self.rollout or []) + self.refine:
+            out += group
+        return out
+
+
+class CommandStreams:
+    """The random streams of one command, owned by the step that draws from
+    them, and the host prologue that positions them.
+
+    A command splits into a host prologue, :meth:`prologue`, which reads the
+    stream position ``(seed, counter)`` and writes every key the command's
+    iterations, rollouts and refinement draw from, and a device body, which
+    draws from the fixed objects here and makes no host decision on a
+    value.  So a CUDA graph of the body replays with fresh noise: the
+    prologue runs before each replay.  The streams are those of
+    :func:`iteration_seed`, :func:`rollout_seed` and :func:`refine_seed`:
+
+    * ``kernel_keys``: the kernels' Philox key of iteration ``it``,
+      ``FS.key_to_seed(iteration_seed(seed, counter + it))``, in a (n_iter,
+      2) int32 buffer on the device (one copy from the host a command),
+      which the kernels read when they run;
+    * ``noise``: the plain path's generator of iteration ``it``, seeded with
+      the same iteration seed (``manual_seed`` resets a generator, so a
+      fixed generator draws what a new one would);
+    * with stochastic dynamics one generator a rollout step ``t`` of each
+      iteration (:func:`step_generator`'s seeds) and, with gradient
+      refinement, of each descent step (all on ``refine_seed(seed,
+      counter)``: every descent step draws the same numbers).
+
+    A CUDA graph of the body registers ``on(device).generators()`` with
+    ``torch.cuda.CUDAGraph.register_generator_state``, so that a replay
+    reads the seed set by the prologue."""
+
+    def __init__(self, config: MPPIConfig, kernel_keys: bool, noise: bool,
+                 refine: bool = False):
+        self.n_iter, self.T = config.num_iterations, config.T
+        self.kernel_keys, self.noise = kernel_keys, noise
+        self.rollout = config.stochastic_dynamics
+        self.refine_steps = (config.gradient_refinement_steps
+                             if refine and config.stochastic_dynamics else 0)
+        self._on = {}
+
+    def on(self, device) -> _DeviceStreams:
+        """The streams on ``device``, made when first used there."""
+        device = torch.device(device)
+        slots = self._on.get(device)
+        if slots is None:
+            slots = self._on[device] = _DeviceStreams(self, device)
+        return slots
+
+    def prologue(self, seed: int, counter: int, device) -> _DeviceStreams:
+        """Position every stream of the command that starts at ``counter``
+        on ``device``; host work only, with at most one asynchronous copy
+        to the device (the keys, from pinned memory that the caching host
+        allocator keeps until the copy is done)."""
+        slots = self.on(device)
+        words = []
+        for it in range(self.n_iter):
+            pos = counter + it
+            s = iteration_seed(seed, pos)
+            if self.kernel_keys:
+                lead = FS.key_to_seed(s)
+                if isinstance(lead, torch.Tensor):  # bits injected in place of the key
+                    slots.leads[it] = lead
+                    lead = (0, 0)
+                else:
+                    slots.leads[it] = slots.keys[it]
+                words.append(lead)
+            if self.noise:
+                slots.noise[it].manual_seed(s)
+            if self.rollout:
+                rs = rollout_seed(seed, pos)
+                for t, g in enumerate(slots.rollout[it]):
+                    g.manual_seed(iteration_seed(rs, t))
+        if slots.refine:
+            rs = refine_seed(seed, counter)
+            for group in slots.refine:
+                for t, g in enumerate(group):
+                    g.manual_seed(iteration_seed(rs, t))
+        if words:
+            host = torch.tensor(words, dtype=torch.int64).to(torch.int32)  # wraps to 32 bits
+            if slots.device.type == "cuda":
+                slots.keys.copy_(host.pin_memory(), non_blocking=True)
+            else:
+                slots.keys.copy_(host)
+        return slots
+
+
+_CONSTANTS = {}
+
+
+def device_constant(device, key, make: Callable) -> torch.Tensor:
+    """``make()``, a CPU tensor, on ``device``: copied there when first
+    asked for and kept under ``key``, so that a command copies nothing from
+    the host in its body (a CUDA graph of the body could not hold the
+    copy).  The tensor is shared: nobody writes to it."""
+    device = torch.device(device)
+    t = _CONSTANTS.get((device, key))
+    if t is None:
+        t = _CONSTANTS[device, key] = make().to(device)
+    return t
+
+
+def device_scalar(value, dtype, device) -> torch.Tensor:
+    """The 0-d ``torch.tensor(value, dtype=dtype)`` on ``device``
+    (:func:`device_constant`)."""
+    return device_constant(device, ("scalar", value, dtype),
+                           lambda: torch.tensor(value, dtype=dtype))
+
+
 # ---------------------------------------------------------------------------
 # Small numeric helpers
 # ---------------------------------------------------------------------------
@@ -148,7 +289,7 @@ def ar1_mixing(reps: int, rho: float, dtype, device=None) -> torch.Tensor:
     per-step marginals stay N(0, 1) and the lag-1 correlation is rho."""
     t = torch.arange(reps, device=device)[:, None]
     s = torch.arange(reps, device=device)[None, :]
-    r = torch.tensor(rho, dtype=torch.float32, device=device)
+    r = device_scalar(rho, torch.float32, device)
     pw = torch.where(s <= t, r ** (t - s).to(torch.float32),
                      torch.zeros((), dtype=torch.float32, device=device))
     one = torch.ones((), dtype=torch.float32, device=device)
@@ -221,20 +362,20 @@ def adapt_covariance(config: MPPIConfig, sigma: torch.Tensor, omega: torch.Tenso
     dtype = sigma.dtype
     T, nu = noise.shape[-2], noise.shape[-1]
     omega = omega.to(dtype)
-    lr = torch.tensor(config.adaptive_cov_lr, dtype=dtype, device=sigma.device)
+    lr = device_scalar(config.adaptive_cov_lr, dtype, sigma.device)
     safe = None
     if n_injected:
         omega = omega.clone()
         omega[:n_injected] = 0.0
         w_sum = torch.sum(omega)
-        safe = w_sum > torch.tensor(1e-12, dtype=dtype, device=sigma.device)
+        safe = w_sum > device_scalar(1e-12, dtype, sigma.device)
         omega = omega / torch.where(safe, w_sum, torch.ones_like(w_sum))
     if config.diag_sigma:
         cov = torch.diag(torch.einsum("k,ktu->u", omega, noise * noise) / T)
     else:
         cov = torch.einsum("k,ktu,ktv->uv", omega, noise, noise) / T
-    cov = cov + torch.tensor(config.adaptive_cov_floor, dtype=dtype,
-                             device=sigma.device) * torch.eye(nu, dtype=dtype, device=sigma.device)
+    cov = cov + device_scalar(config.adaptive_cov_floor, dtype, sigma.device) * torch.eye(
+        nu, dtype=dtype, device=sigma.device)
     blended = (1 - lr) * sigma + lr * cov
     if safe is not None:
         blended = torch.where(safe, blended, sigma)
@@ -366,20 +507,24 @@ def _adapt_batch_rank(call: Callable) -> Callable:
 
 
 def wrap_dynamics(config: MPPIConfig, dynamics: Callable) -> Callable:
-    """Resolve the user dynamics to ``(state, u, t, rng=None) -> next_state``
-    (``pytorch_mppi_tpu/ops/solve.py:262-289``).  The user's signature is
-    ``dynamics(state, u)``, with ``step_dependent_dynamics``
+    """Resolve the user dynamics to ``(state, u, t, rng=None, params=None)
+    -> next_state`` (``pytorch_mppi_tpu/ops/solve.py:262-289``).  The user's
+    signature is ``dynamics(state, u)``, with ``step_dependent_dynamics``
     ``dynamics(state, u, t)``; with ``stochastic_dynamics`` a trailing
-    ``rng``, a ``torch.Generator`` on the rollout's device made for that
-    step (:func:`step_generator`), is passed too: ``dynamics(state, u, rng)``
-    or ``dynamics(state, u, t, rng)``, where JAX passes a per-step key."""
-    if config.stochastic_dynamics:
-        if config.step_dependent_dynamics:
-            return _adapt_batch_rank(lambda s, u, t, rng=None: dynamics(s, u, t, rng))
-        return _adapt_batch_rank(lambda s, u, t, rng=None: dynamics(s, u, rng))
-    if config.step_dependent_dynamics:
-        return _adapt_batch_rank(lambda s, u, t, rng=None: dynamics(s, u, t))
-    return _adapt_batch_rank(lambda s, u, t, rng=None: dynamics(s, u))
+    ``rng``, a ``torch.Generator`` on the rollout's device for that step
+    (:class:`CommandStreams`, :func:`step_generator`), is passed too:
+    ``dynamics(state, u, rng)`` or ``dynamics(state, u, t, rng)``, where JAX
+    passes a per-step key.  With ``parameterized_dynamics`` the dynamics
+    parameters (a tensor, or a tuple, list or dict of tensors: a learned
+    model's weights) lead: ``dynamics(params, state, u[, t][, rng])``."""
+    lead, step, stochastic = (config.parameterized_dynamics, config.step_dependent_dynamics,
+                              config.stochastic_dynamics)
+
+    def call(s, u, t, rng=None, p=None):
+        return dynamics(*((p,) if lead else ()), s, u, *((t,) if step else ()),
+                        *((rng,) if stochastic else ()))
+
+    return _adapt_batch_rank(call)
 
 
 def wrap_cost(config: MPPIConfig, running_cost: Callable) -> Callable:
@@ -434,7 +579,8 @@ def _terminal_hooks(config: MPPIConfig, terminal_state_cost, terminal_final_cost
 def rollout_costs(config: MPPIConfig, dynamics: Callable, running_cost: Callable,
                   x0: torch.Tensor, perturbed_actions: torch.Tensor,
                   terminal_state_cost: Callable = None, terminal_final_cost: Callable = None,
-                  seed: int = None, specific_dynamics: Callable = None):
+                  seed: int = None, specific_dynamics: Callable = None, rngs=None,
+                  dyn_params=None):
     """T-step rollout of K·M trajectories from ``x0`` ((nx,) shared or
     (K, nx)), returning ``(cost (K,), states, actions)``
     (``pytorch_mppi_tpu/ops/solve.py:332-448``).  ``dynamics``,
@@ -443,7 +589,10 @@ def rollout_costs(config: MPPIConfig, dynamics: Callable, running_cost: Callable
     the state after each step, on the ``u_scale``-scaled action.  M
     (``config.M``) is folded into the batch, M outer and K inner: one
     (M·K, nx) dynamics call a step.  With ``stochastic_dynamics`` step t
-    takes ``step_generator(seed, t)``.
+    takes ``rngs[t]`` where the T generators are given (a command's, seeded
+    by its prologue: :class:`CommandStreams`), else ``step_generator(seed,
+    t)``.  ``dyn_params`` goes to the dynamics (``parameterized_dynamics``,
+    :func:`wrap_dynamics`).
 
     Under ``config.store_rollouts`` the states (M, K, T, nx) and the scaled
     actions (M, K, T, nu) are kept, and ``terminal_state_cost(states,
@@ -468,20 +617,24 @@ def rollout_costs(config: MPPIConfig, dynamics: Callable, running_cost: Callable
     if M > 1:
         state = state[None].expand(M, K, state.shape[-1]).reshape(M * K, -1)
         # the discount raised to t in config.dtype, as JAX casts it
-        discount = torch.tensor(config.rollout_var_discount, dtype=dtype) ** torch.arange(
-            T, dtype=dtype)
-        discount = discount.to(device)
+        discount = device_constant(
+            device, ("discount", config.rollout_var_discount, T, dtype),
+            lambda: torch.tensor(config.rollout_var_discount, dtype=dtype) ** torch.arange(
+                T, dtype=dtype))
         cost_var = torch.zeros(K, dtype=dtype, device=device)
     state0 = state
     u_scaled = perturbed_actions * config.u_scale
     cost = torch.zeros(M, K, dtype=dtype, device=device)
     store = config.store_rollouts
     kept, u_flat = [], None
+    extra = () if dyn_params is None else (dyn_params,)
     for t in range(T):
         u_t = u_scaled[:, t]
         u_flat = u_t if M == 1 else u_t[None].expand(M, K, nu).reshape(M * K, nu)
-        rng = step_generator(seed, t, device) if config.stochastic_dynamics else None
-        state = dynamics(state, u_flat, t, rng)
+        rng = None
+        if config.stochastic_dynamics:
+            rng = rngs[t] if rngs is not None else step_generator(seed, t, device)
+        state = dynamics(state, u_flat, t, rng, *extra)
         if specific_dynamics is not None:
             s3 = state.reshape(M, K, -1)
             p3 = s3 if M == 1 else state0.reshape(M, K, -1)
@@ -510,7 +663,7 @@ def rollout_costs(config: MPPIConfig, dynamics: Callable, running_cost: Callable
         cost_total = torch.mean(torch.topk(cost.T, m_w, dim=-1).values, dim=-1)
     else:
         cost_total = torch.mean(cost, dim=0)
-    cost_total = cost_total + cost_var * torch.tensor(config.rollout_var_cost, dtype=dtype)
+    cost_total = cost_total + cost_var * device_scalar(config.rollout_var_cost, dtype, device)
     return cost_total, states, actions
 
 
@@ -592,25 +745,30 @@ def make_nominal_refiner(config: MPPIConfig, dynamics: Callable, running_cost: C
     through the plain rollout, under ``torch.enable_grad()`` on a detached
     copy of U; the result is detached.  ``dynamics``, ``running_cost`` and
     ``terminal_final_cost`` are wrapped; stochastic dynamics draw from
-    ``seed`` at every step of the descent."""
+    ``seed`` at every step of the descent, or descent step i from the T
+    generators ``rngs[i]`` (a command's, each group seeded alike by its
+    prologue).  ``dyn_params`` goes to the dynamics."""
     steps = config.gradient_refinement_steps
     dtype = config.dtype
     b1, b2, eps = 0.9, 0.999, 1e-8
 
-    def refine(params: MPPIParams, U: torch.Tensor, x0: torch.Tensor, seed: int = None):
+    def refine(params: MPPIParams, U: torch.Tensor, x0: torch.Tensor, seed: int = None,
+               rngs=None, dyn_params=None):
         device = U.device
-        lr = torch.tensor(config.gradient_refinement_lr, dtype=dtype, device=device)
+        lr = device_scalar(config.gradient_refinement_lr, dtype, device)
         lo = torch.broadcast_to(params.u_min, (config.nu,)).to(dtype)
         hi = torch.broadcast_to(params.u_max, (config.nu,)).to(dtype)
         Kx = x0.shape[0] if x0.ndim == 2 else 1
-        b1_t = torch.tensor(b1, dtype=dtype, device=device)
-        b2_t = torch.tensor(b2, dtype=dtype, device=device)
+        b1_t = device_scalar(b1, dtype, device)
+        b2_t = device_scalar(b2, dtype, device)
 
-        def J(U_):
+        def J(U_, i):
             pert = U_[None].expand(Kx, *U_.shape)
             cost_total, _, _ = rollout_costs(config, dynamics, running_cost, x0, pert,
                                              terminal_state_cost, terminal_final_cost, seed,
-                                             specific_dynamics)
+                                             specific_dynamics,
+                                             rngs=None if rngs is None else rngs[i],
+                                             dyn_params=dyn_params)
             return torch.mean(cost_total)
 
         U_ = U.detach()
@@ -619,10 +777,10 @@ def make_nominal_refiner(config: MPPIConfig, dynamics: Callable, running_cost: C
         with torch.enable_grad():
             for i in range(steps):
                 leaf = U_.detach().requires_grad_(True)
-                g, = torch.autograd.grad(J(leaf), leaf)
+                g, = torch.autograd.grad(J(leaf, i), leaf)
                 m = b1 * m + (1 - b1) * g
                 v = b2 * v + (1 - b2) * (g * g)
-                t = torch.tensor(i + 1, dtype=dtype, device=device)
+                t = device_scalar(i + 1, dtype, device)
                 m_hat = m / (1 - b1_t ** t)
                 v_hat = v / (1 - b2_t ** t)
                 U_ = _bound(U_ - lr * m_hat / (torch.sqrt(v_hat) + eps), lo, hi)
@@ -650,20 +808,6 @@ def _unscaled(config: MPPIConfig, actions):
     """The stored actions artifact: the rollout's scaled actions over
     ``u_scale`` (``solve.py:1411``), or None."""
     return None if actions is None else actions / config.u_scale
-
-
-def _iteration_seeds(config: MPPIConfig) -> Callable:
-    """``(state, it) -> (noise seed, rollout seed)`` of iteration ``it`` of a
-    command: the two streams at position ``state.counter + it``; the rollout
-    seed only with stochastic dynamics (None otherwise)."""
-    stochastic = config.stochastic_dynamics
-
-    def seeds(state, it: int):
-        pos = state.counter + it
-        return (iteration_seed(state.seed, pos),
-                rollout_seed(state.seed, pos) if stochastic else None)
-
-    return seeds
 
 
 # ---------------------------------------------------------------------------
@@ -732,8 +876,8 @@ def _route_transposed_solve(config: MPPIConfig, dynamics: Callable,
         logger.warning(
             "use_pallas requested but the configuration is ineligible "
             "(specific sampler / elite reuse without fused_artifacts / M>1 / "
-            "stochastic / non-float32 / step-dependent); using the plain "
-            "torch path for %s", variant,
+            "stochastic / parameterized dynamics / non-float32 / step-dependent); "
+            "using the plain torch path for %s", variant,
         )
         return None
     model = find_kernel_model(dynamics, running_cost)
@@ -778,7 +922,8 @@ def _route_legacy_rollout(config: MPPIConfig, dynamics: Callable,
         why = ("a specific_dynamics hook is set (a SpecificActionSampler's), which the "
                "legacy rollout kernel does not run")
     elif not LG.pallas_eligible(config):
-        why = "the configuration is ineligible (M>1 / stochastic / non-float32 / step-dependent)"
+        why = ("the configuration is ineligible (M>1 / stochastic / parameterized dynamics / "
+               "non-float32 / step-dependent)")
     elif model is None:
         why = "the dynamics and running cost carry no kernel model (ops/kernel_models.py)"
     else:
@@ -803,12 +948,43 @@ def _route_legacy_rollout(config: MPPIConfig, dynamics: Callable,
 
 
 class StepFns(NamedTuple):
-    """The entry points a factory builds."""
+    """The entry points a factory builds.  ``step`` is ``streams.prologue``
+    (host: the command's keys and generator seeds) then ``body`` (the device
+    work, which a CUDA graph can capture: ``runner.run_mppi_jit``)."""
 
-    step: Callable  # (params, state, x0[, info]) -> (state, action, Artifacts)  [with shift]
+    step: Callable  # (params, state, x0[, info], dyn_params=None) -> (state, action, Artifacts)
     step_no_shift: Callable  # same, without the nominal-trajectory shift
     get_rollouts: Callable  # (params, x0 (R, nx), U (T, nu)) -> (R, T, nx)
     fused: bool = False  # commands run through the kernels of csrc/fused_mppi.cu
+    # (params, state, x0[, info], dyn_params, shift) after streams.prologue(seed, counter, device)
+    body: Callable = None
+    streams: CommandStreams = None
+
+
+def _steps(body: Callable, streams: CommandStreams, get_rollouts, fused: bool,
+           info: bool = True) -> StepFns:
+    """The step functions of a body: the prologue at the state's stream
+    position, then the body (``info`` is False for the batched step, which
+    takes none)."""
+    if info:
+        def run(params, state, x0, info=None, dyn_params=None, shift=True):
+            streams.prologue(state.seed, state.counter, state.U.device)
+            return body(params, state, x0, info, dyn_params, shift)
+
+        step = lambda params, state, x0, info=None, dyn_params=None: run(
+            params, state, x0, info, dyn_params)
+        step_no_shift = lambda params, state, x0, info=None, dyn_params=None: run(
+            params, state, x0, info, dyn_params, False)
+    else:
+        def run(params, state, x0, dyn_params=None, shift=True):
+            streams.prologue(state.seed, state.counter, state.U.device)
+            return body(params, state, x0, dyn_params, shift)
+
+        step = lambda params, state, x0, dyn_params=None: run(params, state, x0, dyn_params)
+        step_no_shift = lambda params, state, x0, dyn_params=None: run(
+            params, state, x0, dyn_params, False)
+    return StepFns(step=step, step_no_shift=step_no_shift, get_rollouts=get_rollouts,
+                   fused=fused, body=body, streams=streams)
 
 
 def make_mppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callable,
@@ -857,6 +1033,8 @@ def make_mppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callabl
     With ``config.gradient_refinement_steps`` the nominal sequence of the
     last iteration is refined by :func:`make_nominal_refiner` on every
     route, with stochastic dynamics on ``refine_seed(seed, counter)``.
+    The steps take ``dyn_params`` after ``info``
+    (``config.parameterized_dynamics``, the plain path).
     """
     _gate_iterations(config, "MPPI")
     use_pallas = _gate_adaptive_covariance(config, use_pallas, "MPPI")
@@ -872,7 +1050,6 @@ def make_mppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callabl
     D = T * nu
     n_iter, adaptive = config.num_iterations, config.adaptive_covariance
     E = config.num_elites
-    _seeds = _iteration_seeds(config)
     has_sampler = sample_trajectories is not None or specific_dynamics is not None
 
     legacy = use_pallas == "rollout"
@@ -890,8 +1067,11 @@ def make_mppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callabl
     refine_nominal = (make_nominal_refiner(config, dyn, cost, terminal_state_cost,
                                            specific_dynamics, final_cost)
                       if config.gradient_refinement_steps > 0 else None)
+    streams = CommandStreams(config, kernel_keys=transposed_solve is not None,
+                             noise=transposed_solve is None,
+                             refine=refine_nominal is not None)
 
-    def _one_iteration_fused(params: MPPIParams, U, elites, x0, s: int):
+    def _one_iteration_fused(params: MPPIParams, U, elites, x0, lead):
         """The whole cycle as one fused-kernel call; only the tiny operands
         (sigma factors, noise operator, action-cost vector, the elites) are
         made here."""
@@ -902,7 +1082,7 @@ def make_mppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callabl
         a_flat = (params.lambda_ * (U @ sigma_inv.T)).reshape(D)
         elites_in = (elites.to(dtype).reshape(E, D).contiguous(),) if E else ()
         out = transposed_solve(
-            FS.key_to_seed(s), _x0_to_lanes(x0, K), U.reshape(D), op, mu_t, lo2,
+            lead, _x0_to_lanes(x0, K), U.reshape(D), op, mu_t, lo2,
             hi2, a_flat, params.lambda_, *elites_in,
         )
         delta, m, s_, cost_total = out[:4]
@@ -920,12 +1100,12 @@ def make_mppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callabl
             pert_art = perturbed2.reshape(K, T, nu)
         return U_new, Artifacts(cost_total, ctnz, omega, noise_art, pert_art), elites
 
-    def _one_iteration(params: MPPIParams, U, elites, x0, info, s: int, rs: int):
+    def _one_iteration(params: MPPIParams, U, elites, x0, info, slots, it: int, dyn_params):
         if transposed_solve is not None:
-            return _one_iteration_fused(params, U, elites, x0, s)
+            return _one_iteration_fused(params, U, elites, x0, slots.leads[it])
         chol, sigma_inv = _sigma_factors(params.noise_sigma, diag=config.diag_sigma)
         noise2 = sample_noise_flat(
-            _generator(s, U.device), K, T, params, dtype,
+            slots.noise[it], K, T, params, dtype,
             antithetic=config.antithetic, chol=chol,
             noise_rho=config.noise_rho, diag_sigma=config.diag_sigma,
         )
@@ -945,8 +1125,9 @@ def make_mppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callabl
         states = actions = None
         if fused_rollout is None:
             rollout_cost, states, actions = rollout_costs(
-                config, dyn, cost, x0, perturbed, terminal_state_cost, final_cost, rs,
-                specific_dynamics)
+                config, dyn, cost, x0, perturbed, terminal_state_cost, final_cost,
+                specific_dynamics=specific_dynamics, rngs=slots.rollout[it] if slots.rollout else None,
+                dyn_params=dyn_params)
             cost_total = rollout_cost + perturbation_cost
             cost_total_non_zero, omega = compute_weighting(cost_total, params.lambda_)
             U_new = U + (omega @ noise2).reshape(T, nu)
@@ -965,7 +1146,7 @@ def make_mppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callabl
                                 noise2.reshape(K, T, nu), perturbed, states,
                                 _unscaled(config, actions)), elites
 
-    def _solve(params: MPPIParams, state: MPPIState, x0, info, shift: bool):
+    def body(params: MPPIParams, state: MPPIState, x0, info, dyn_params, shift: bool):
         U, elites = state.U, state.elites
         if E and elites is None:
             raise ValueError(
@@ -978,30 +1159,23 @@ def make_mppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callabl
                 # the elite plans advance one step with the receding horizon
                 elites = _shift_elites(elites, params.u_init)
         x0 = torch.as_tensor(x0, dtype=dtype, device=U.device)
+        slots = streams.on(U.device)
         sigma = params.noise_sigma
         for it in range(n_iter):
             it_params = params._replace(noise_sigma=sigma) if adaptive else params
-            U, artifacts, elites = _one_iteration(it_params, U, elites, x0, info,
-                                                  *_seeds(state, it))
+            U, artifacts, elites = _one_iteration(it_params, U, elites, x0, info, slots, it,
+                                                  dyn_params)
             if adaptive and it + 1 < n_iter:
                 sigma = adapt_covariance(config, sigma, artifacts.omega, artifacts.noise,
                                          n_injected_rows)
         if refine_nominal is not None:
-            U = refine_nominal(params, U, x0, refine_seed(state.seed, state.counter)
-                               if config.stochastic_dynamics else None)
+            U = refine_nominal(params, U, x0, rngs=slots.refine or None, dyn_params=dyn_params)
         new_state = MPPIState(U=U, seed=state.seed, counter=state.counter + n_iter,
                               elites=elites)
         return new_state, _select_action(config, U), artifacts
 
-    def step(params, state, x0, info=None):
-        return _solve(params, state, x0, info, shift=True)
-
-    def step_no_shift(params, state, x0, info=None):
-        return _solve(params, state, x0, info, shift=False)
-
-    return StepFns(step=step, step_no_shift=step_no_shift,
-                   get_rollouts=make_get_rollouts(config, dyn),
-                   fused=transposed_solve is not None or fused_rollout is not None)
+    return _steps(body, streams, make_get_rollouts(config, dyn),
+                  fused=transposed_solve is not None or fused_rollout is not None)
 
 
 def make_smppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callable,
@@ -1034,7 +1208,6 @@ def make_smppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callab
     K, T, nu = config.K, config.T, config.nu
     D = T * nu
     n_iter, adaptive = config.num_iterations, config.adaptive_covariance
-    _seeds = _iteration_seeds(config)
 
     transposed_solve = (
         _route_transposed_solve(config, dynamics, running_cost,
@@ -1042,8 +1215,10 @@ def make_smppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callab
                                 terminal_state_cost, terminal_final_cost,
                                 sample_trajectories is not None or specific_dynamics is not None)
         if use_pallas else None)
+    streams = CommandStreams(config, kernel_keys=transposed_solve is not None,
+                             noise=transposed_solve is None)
 
-    def _one_iteration_fused(params: SMPPIParams, U, action_sequence, x0, s: int):
+    def _one_iteration_fused(params: SMPPIParams, U, action_sequence, x0, lead):
         base = params.base
         sigma_inv, op, mu_t, lo2, hi2 = _transposed_operands(
             base.noise_sigma, base.noise_mu, base.u_min, base.u_max, config, T, nu, dtype)
@@ -1051,7 +1226,7 @@ def make_smppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callab
         ahi2 = _tile_bound(params.action_max, nu, T, dtype)
         a_flat = (base.lambda_ * (U @ sigma_inv.T)).reshape(D)
         out = transposed_solve(
-            FS.key_to_seed(s), _x0_to_lanes(x0, K), U.reshape(D),
+            lead, _x0_to_lanes(x0, K), U.reshape(D),
             action_sequence.reshape(D), op, mu_t, lo2, hi2, alo2, ahi2, a_flat,
             base.lambda_, params.w_action_seq_cost, params.delta_t,
         )
@@ -1068,13 +1243,14 @@ def make_smppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callab
             pert_art = pa2.reshape(K, T, nu)
         return U_new, Artifacts(cost_total, ctnz, omega, noise_art, pert_art)
 
-    def _one_iteration(params: SMPPIParams, U, action_sequence, x0, info, s: int, rs: int):
+    def _one_iteration(params: SMPPIParams, U, action_sequence, x0, info, slots, it: int,
+                       dyn_params):
         if transposed_solve is not None:
-            return _one_iteration_fused(params, U, action_sequence, x0, s)
+            return _one_iteration_fused(params, U, action_sequence, x0, slots.leads[it])
         base = params.base
         chol, sigma_inv = _sigma_factors(base.noise_sigma, diag=config.diag_sigma)
         noise2 = sample_noise_flat(
-            _generator(s, U.device), K, T, base, dtype,
+            slots.noise[it], K, T, base, dtype,
             antithetic=config.antithetic, chol=chol,
             noise_rho=config.noise_rho, diag_sigma=config.diag_sigma,
         )
@@ -1099,8 +1275,9 @@ def make_smppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callab
         smoothness = params.w_action_seq_cost * torch.sum(action_diff * action_diff, dim=1)
         perturbed_action = perturbed_action2.reshape(K, T, nu)
         rollout_cost, states, actions = rollout_costs(
-            config, dyn, cost, x0, perturbed_action, terminal_state_cost, final_cost, rs,
-            specific_dynamics)
+            config, dyn, cost, x0, perturbed_action, terminal_state_cost, final_cost,
+            specific_dynamics=specific_dynamics,
+            rngs=slots.rollout[it] if slots.rollout else None, dyn_params=dyn_params)
         cost_total = rollout_cost + perturbation_cost + smoothness
         cost_total_non_zero, omega = compute_weighting(cost_total, base.lambda_)
         U_new = U + (omega @ noise2).reshape(T, nu)
@@ -1108,19 +1285,20 @@ def make_smppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callab
                                 noise2.reshape(K, T, nu), perturbed_action, states,
                                 _unscaled(config, actions))
 
-    def _solve(params: SMPPIParams, state: SMPPIState, x0, info, shift: bool):
+    def body(params: SMPPIParams, state: SMPPIState, x0, info, dyn_params, shift: bool):
         U, action_sequence = state.U, state.action_sequence
         if shift:
             # roll both sequences; repeat the last commanded action (mppi.py:489-493)
             U = _shift_U(U, params.base.u_init)
             action_sequence = _shift_sequence(action_sequence)
         x0 = torch.as_tensor(x0, dtype=dtype, device=U.device)
+        slots = streams.on(U.device)
         sigma = params.base.noise_sigma
         for it in range(n_iter):
             it_params = (params._replace(base=params.base._replace(noise_sigma=sigma))
                          if adaptive else params)
-            U, artifacts = _one_iteration(it_params, U, action_sequence, x0, info,
-                                          *_seeds(state, it))
+            U, artifacts = _one_iteration(it_params, U, action_sequence, x0, info, slots, it,
+                                          dyn_params)
             if adaptive and it + 1 < n_iter:
                 sigma = adapt_covariance(config, sigma, artifacts.omega, artifacts.noise,
                                          n_injected_rows)
@@ -1130,11 +1308,8 @@ def make_smppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callab
                                seed=state.seed, counter=state.counter + n_iter)
         return new_state, _select_action(config, action_sequence_new), artifacts
 
-    return StepFns(
-        step=lambda params, state, x0, info=None: _solve(params, state, x0, info, True),
-        step_no_shift=lambda params, state, x0, info=None: _solve(params, state, x0, info,
-                                                                  False),
-        get_rollouts=make_get_rollouts(config, dyn), fused=transposed_solve is not None)
+    return _steps(body, streams, make_get_rollouts(config, dyn),
+                  fused=transposed_solve is not None)
 
 
 def _shift_sequence(seq: torch.Tensor) -> torch.Tensor:
@@ -1174,7 +1349,6 @@ def make_kmppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callab
     K, T, nu, nsp = config.K, config.T, config.nu, config.num_support_pts
     D, Dp = T * nu, nsp * nu
     n_iter, adaptive = config.num_iterations, config.adaptive_covariance
-    _seeds = _iteration_seeds(config)
 
     transposed_solve = (
         _route_transposed_solve(config, dynamics, running_cost,
@@ -1182,19 +1356,21 @@ def make_kmppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callab
                                 terminal_state_cost, terminal_final_cost,
                                 sample_trajectories is not None or specific_dynamics is not None)
         if use_pallas else None)
+    streams = CommandStreams(config, kernel_keys=transposed_solve is not None,
+                             noise=transposed_solve is None)
 
     def _interp_rows(params: KMPPIParams):
         """kron(interp_full, I_nu): the (D, Dp) operator of the flat layout."""
         eye = torch.eye(nu, dtype=dtype, device=params.interp_full.device)
         return torch.kron(params.interp_full.to(dtype).contiguous(), eye)
 
-    def _one_iteration_fused(params: KMPPIParams, U, theta, x0, s: int):
+    def _one_iteration_fused(params: KMPPIParams, U, theta, x0, lead):
         base = params.base
         sigma_inv, op, mu_p, lop, hip = _transposed_operands(
             base.noise_sigma, base.noise_mu, base.u_min, base.u_max, config, nsp, nu, dtype)
         a_flat = (base.lambda_ * (U @ sigma_inv.T)).reshape(D)
         out = transposed_solve(
-            FS.key_to_seed(s), _x0_to_lanes(x0, K), U.reshape(D), theta.reshape(Dp),
+            lead, _x0_to_lanes(x0, K), U.reshape(D), theta.reshape(Dp),
             op, mu_p, lop, hip, _tile_bound(base.u_min, nu, T, dtype),
             _tile_bound(base.u_max, nu, T, dtype), a_flat, _interp_rows(params),
             base.lambda_,
@@ -1212,16 +1388,16 @@ def make_kmppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callab
         return (params.interp_full @ theta_new, theta_new,
                 Artifacts(cost_total, ctnz, omega, noise_art, pert_art))
 
-    def _one_iteration(params: KMPPIParams, U, theta, x0, info, s: int, rs: int):
+    def _one_iteration(params: KMPPIParams, U, theta, x0, info, slots, it: int, dyn_params):
         """``(U, theta, artifacts, theta-space noise (K, Dp) or None)``: the
         fused kernel keeps its theta-space noise, which only the plain
         path's adaptive covariance reads."""
         if transposed_solve is not None:
-            return _one_iteration_fused(params, U, theta, x0, s) + (None,)
+            return _one_iteration_fused(params, U, theta, x0, slots.leads[it]) + (None,)
         base = params.base
         chol, sigma_inv = _sigma_factors(base.noise_sigma, diag=config.diag_sigma)
         noise_theta2 = sample_noise_flat(
-            _generator(s, U.device), K, nsp, base, dtype,
+            slots.noise[it], K, nsp, base, dtype,
             antithetic=config.antithetic, chol=chol,
             noise_rho=config.noise_rho, diag_sigma=config.diag_sigma,
         )
@@ -1241,8 +1417,9 @@ def make_kmppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callab
         perturbation_cost = n_for_cost @ a_flat
         perturbed = perturbed2.reshape(K, T, nu)
         rollout_cost, states, actions = rollout_costs(
-            config, dyn, cost, x0, perturbed, terminal_state_cost, final_cost, rs,
-            specific_dynamics)
+            config, dyn, cost, x0, perturbed, terminal_state_cost, final_cost,
+            specific_dynamics=specific_dynamics,
+            rngs=slots.rollout[it] if slots.rollout else None, dyn_params=dyn_params)
         cost_total = rollout_cost + perturbation_cost
         cost_total_non_zero, omega = compute_weighting(cost_total, base.lambda_)
         # weighted update in control-point space (mppi.py:672-682)
@@ -1252,19 +1429,20 @@ def make_kmppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callab
                           noise2.reshape(K, T, nu), perturbed, states,
                           _unscaled(config, actions)), noise_theta2)
 
-    def _solve(params: KMPPIParams, state: KMPPIState, x0, info, shift: bool):
+    def body(params: KMPPIParams, state: KMPPIState, x0, info, dyn_params, shift: bool):
         U, theta = state.U, state.theta
         if shift:
             U = _shift_U(U, params.base.u_init)
             # theta <- theta interpolated at Tk + 1 (mppi.py:617-619)
             theta = params.interp_shift @ theta
         x0 = torch.as_tensor(x0, dtype=dtype, device=U.device)
+        slots = streams.on(U.device)
         sigma = params.base.noise_sigma
         for it in range(n_iter):
             it_params = (params._replace(base=params.base._replace(noise_sigma=sigma))
                          if adaptive else params)
             U, theta, artifacts, noise_theta = _one_iteration(it_params, U, theta, x0, info,
-                                                              *_seeds(state, it))
+                                                              slots, it, dyn_params)
             if adaptive and it + 1 < n_iter:
                 sigma = adapt_covariance(config, sigma, artifacts.omega,
                                          noise_theta.reshape(K, nsp, nu), n_injected_rows)
@@ -1272,11 +1450,8 @@ def make_kmppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callab
                                counter=state.counter + n_iter)
         return new_state, _select_action(config, U), artifacts
 
-    return StepFns(
-        step=lambda params, state, x0, info=None: _solve(params, state, x0, info, True),
-        step_no_shift=lambda params, state, x0, info=None: _solve(params, state, x0, info,
-                                                                  False),
-        get_rollouts=make_get_rollouts(config, dyn), fused=transposed_solve is not None)
+    return _steps(body, streams, make_get_rollouts(config, dyn),
+                  fused=transposed_solve is not None)
 
 
 # The K from which the batched kernel's command is faster than the plain
@@ -1322,8 +1497,9 @@ def make_batched_step(config: MPPIConfig, num_envs: int, dynamics: Callable,
     over the (N·K,) flat batch.  M > 1, ``risk_alpha`` and adaptive
     covariance raise JAX's ValueErrors (``solve.py:1984-2002``): the plants
     share one noise draw and the batched rollout has no M axis; so do
-    gradient refinement and elite reuse (MPPI only).  Without ``mesh`` and
-    ``dyn_params`` (ROADMAP.md Queue 1 items 12, 9).
+    gradient refinement and elite reuse (MPPI only).  The steps take
+    ``dyn_params`` as the single-plant steps do (``parameterized_dynamics``:
+    the plain path).  Without ``mesh`` (ROADMAP.md Queue 1 item 12).
     """
     if use_pallas not in BATCHED_USE_PALLAS:
         raise ValueError(f"use_pallas must be one of {BATCHED_USE_PALLAS}, got {use_pallas!r}")
@@ -1351,7 +1527,6 @@ def make_batched_step(config: MPPIConfig, num_envs: int, dynamics: Callable,
     N, K, T, nu, nx = int(num_envs), config.K, config.T, config.nu, config.nx
     D = T * nu
     n_iter = config.num_iterations
-    _seeds = _iteration_seeds(config)
 
     if transposed_solve_override is not None and config.fused_artifacts:
         # the override bypasses the route's guards: fail loud rather than
@@ -1389,7 +1564,11 @@ def make_batched_step(config: MPPIConfig, num_envs: int, dynamics: Callable,
                 "faster only for K >= %d; the plain torch path is likely faster here",
                 use_pallas, K, _BATCHED_KERNEL_MIN_K)
 
-    def _one_iteration_fused(params: MPPIParams, U, x0, s: int):
+    operand = transposed_solve is not None and transposed_solve.noise_operand
+    streams = CommandStreams(config, kernel_keys=transposed_solve is not None and not operand,
+                             noise=transposed_solve is None or operand)
+
+    def _one_iteration_fused(params: MPPIParams, U, x0, slots, it: int):
         """The N-plant iteration as one batched-kernel call.  In operand mode
         the noise is the plain path's ``sample_noise_flat`` draw, padded to
         ``K_pad`` and laid out (D, K_pad), so the two paths differ only by
@@ -1398,16 +1577,16 @@ def make_batched_step(config: MPPIConfig, num_envs: int, dynamics: Callable,
             params.noise_sigma, params.noise_mu, params.u_min, params.u_max,
             config, T, nu, dtype)
         a2 = (params.lambda_ * torch.einsum("ntu,vu->ntv", U, sigma_inv)).reshape(N, D)
-        if transposed_solve.noise_operand:
+        if operand:
             chol, _ = _sigma_factors(params.noise_sigma, diag=config.diag_sigma)
             noise2 = sample_noise_flat(
-                _generator(s, U.device), K, T, params, dtype,
+                slots.noise[it], K, T, params, dtype,
                 antithetic=config.antithetic, chol=chol,
                 noise_rho=config.noise_rho, diag_sigma=config.diag_sigma)
             lead = torch.nn.functional.pad(
                 noise2, (0, 0, 0, transposed_solve.K_pad - K)).T.contiguous()
         else:
-            lead = FS.key_to_seed(s)
+            lead = slots.leads[it]
         delta, ms, cost_total = transposed_solve(
             lead, x0.T, U.reshape(N, D).T, op, mu_t, lo2, hi2, a2.T, params.lambda_)
         m, s_ = ms[0], ms[1]
@@ -1416,12 +1595,12 @@ def make_batched_step(config: MPPIConfig, num_envs: int, dynamics: Callable,
         U_new = U + (delta / s_[None, :]).T.reshape(N, T, nu)
         return U_new, Artifacts(cost_total, ctnz, omega, None, None)
 
-    def _one_iteration(params: MPPIParams, U, x0, s: int, rs: int):
+    def _one_iteration(params: MPPIParams, U, x0, slots, it: int, dyn_params):
         if transposed_solve is not None:
-            return _one_iteration_fused(params, U, x0, s)
+            return _one_iteration_fused(params, U, x0, slots, it)
         chol, sigma_inv = _sigma_factors(params.noise_sigma, diag=config.diag_sigma)
         noise2 = sample_noise_flat(
-            _generator(s, U.device), K, T, params, dtype,
+            slots.noise[it], K, T, params, dtype,
             antithetic=config.antithetic, chol=chol,
             noise_rho=config.noise_rho, diag_sigma=config.diag_sigma)  # (K, D), shared
         U2 = U.reshape(N, D)
@@ -1433,7 +1612,8 @@ def make_batched_step(config: MPPIConfig, num_envs: int, dynamics: Callable,
         state0 = x0[:, None].expand(N, K, nx).reshape(N * K, nx)
         rollout_cost, states, actions = rollout_costs(
             config, dyn, cost, state0, perturbed2.reshape(N * K, T, nu),
-            terminal_final_cost=final_cost, seed=rs)
+            terminal_final_cost=final_cost, rngs=slots.rollout[it] if slots.rollout else None,
+            dyn_params=dyn_params)
         cost_total = rollout_cost.reshape(N, K)
         if states is not None:
             # (1, N·K, T, ·) -> (N, K, T, ·): the plants' rollouts (solve.py:2225-2237)
@@ -1450,33 +1630,34 @@ def make_batched_step(config: MPPIConfig, num_envs: int, dynamics: Callable,
                                 actual_noise2.reshape(N, K, T, nu),
                                 perturbed2.reshape(N, K, T, nu), states)
 
-    def _solve(params: MPPIParams, state: BatchedState, x0, shift: bool):
+    def body(params: MPPIParams, state: BatchedState, x0, dyn_params, shift: bool):
         U = state.U
         if shift:
             U = torch.roll(U, -1, dims=1)
             U[:, -1] = params.u_init
         x0 = torch.as_tensor(x0, dtype=dtype, device=U.device)
+        slots = streams.on(U.device)
         for it in range(n_iter):
-            U, artifacts = _one_iteration(params, U, x0, *_seeds(state, it))
+            U, artifacts = _one_iteration(params, U, x0, slots, it, dyn_params)
         action = U[:, : config.u_per_command]
         if config.u_per_command == 1:
             action = action[:, 0]
         return (BatchedState(U=U, seed=state.seed, counter=state.counter + n_iter),
                 action, artifacts)
 
-    return StepFns(step=lambda params, state, x0: _solve(params, state, x0, True),
-                   step_no_shift=lambda params, state, x0: _solve(params, state, x0, False),
-                   get_rollouts=None, fused=transposed_solve is not None)
+    return _steps(body, streams, None, fused=transposed_solve is not None, info=False)
 
 
 def make_get_rollouts(config: MPPIConfig, wrapped_dynamics: Callable) -> Callable:
     """Roll a nominal sequence from given initial states (mppi.py:425-448).
     With stochastic dynamics step t takes ``step_generator(seed, t)``; the
     controller passes a fresh seed each call (``pytorch_mppi_tpu/
-    controller.py:645-656``), and ``seed=None`` means the stream of 0."""
+    controller.py:645-656``), and ``seed=None`` means the stream of 0.
+    ``dyn_params`` goes to the dynamics."""
     dtype = config.dtype
 
-    def get_rollouts(params: MPPIParams, x0, U, num_rollouts: int = 1, seed: int = None):
+    def get_rollouts(params: MPPIParams, x0, U, num_rollouts: int = 1, seed: int = None,
+                     dyn_params=None):
         x0 = torch.as_tensor(x0, dtype=dtype, device=U.device).reshape(-1, config.nx)
         if x0.shape[0] == 1:
             x0 = x0.expand(num_rollouts, config.nx)
@@ -1486,7 +1667,7 @@ def make_get_rollouts(config: MPPIConfig, wrapped_dynamics: Callable) -> Callabl
             u = U[t][None].expand(x0.shape[0], config.nu) * config.u_scale
             rng = (step_generator(seed or 0, t, U.device) if config.stochastic_dynamics
                    else None)
-            state = wrapped_dynamics(state, u, t, rng)[..., : config.nx]
+            state = wrapped_dynamics(state, u, t, rng, dyn_params)[..., : config.nx]
             states.append(state)
         return torch.stack(states, dim=1)  # (R, T, nx)
 

@@ -542,10 +542,22 @@ def test_batched_controller_surface(monkeypatch):
         ctrl.command(torch.zeros(2, 2))
     with pytest.raises(ValueError, match="use_pallas"):
         _batched("rollout")
-    for flag, value in (("dynamics_params", {}), ("mesh", object()), ("env_axis", "plants"),
-                        ("sample_axis", "k")):
+    for flag, value in (("mesh", object()), ("env_axis", "plants"), ("sample_axis", "k")):
         with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
             _batched(False, **{flag: value})
+    # dynamics_params, ported since: taken, and passed first to the dynamics
+    seen = []
+    params = {"B": torch.eye(2)}
+
+    def param_lq(p, s, a):
+        seen.append(p)
+        return s + a @ p["B"].T
+
+    pc = MPPI_Batched(param_lq, LQ.running_cost, nx=2, noise_sigma=torch.eye(2), num_envs=3,
+                      num_samples=16, horizon=4, device="cpu", dynamics_params=params)
+    assert pc.config.parameterized_dynamics
+    assert torch.isfinite(pc.command(torch.zeros(3, 2))).all()
+    assert len(seen) == 4 and all(p is params for p in seen)
     # num_iterations and stochastic_dynamics, ported since: taken
     iters = _batched(False, num_envs=3, num_iterations=2)
     assert iters.config.num_iterations == 2

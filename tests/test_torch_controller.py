@@ -86,15 +86,23 @@ def _noisy_pendulum(s, a, rng):
     return pendulum_dynamics(s, a) + 0.01 * torch.randn(s.shape, generator=rng, dtype=s.dtype)
 
 
+def _weighted_pendulum(p, s, a):
+    """The pendulum with its action scaled by ``p["w"]`` (dynamics_params)."""
+    return pendulum_dynamics(s, a * p["w"])
+
+
 # the stochastic rollouts, the iterations, the specific-action sampler, elite
-# reuse and gradient refinement, ported since: each flag is taken (with what
-# it needs: risk_alpha the M > 1 rollouts, stochastic dynamics a generator
-# argument), reaches the config and runs a command
+# reuse, gradient refinement and dynamics_params, ported since: each flag is
+# taken (with what it needs: risk_alpha the M > 1 rollouts, stochastic
+# dynamics a generator argument, dynamics_params dynamics that take them),
+# reaches the config and runs a command
 TAKEN = {"rollout_samples": {}, "rollout_var_cost": {}, "risk_alpha": {"rollout_samples": 4},
          "stochastic_dynamics": {}, "num_iterations": {},
          "adaptive_covariance": {"num_iterations": 2}, "specific_action_sampler": {},
-         "gradient_refinement_steps": {}, "num_elites": {}}
-CONFIG_FIELD = {"rollout_samples": "M", "specific_action_sampler": "num_specific_trajectories"}
+         "gradient_refinement_steps": {}, "num_elites": {}, "dynamics_params": {}}
+CONFIG_FIELD = {"rollout_samples": "M", "specific_action_sampler": "num_specific_trajectories",
+                "dynamics_params": "parameterized_dynamics"}
+OWN_DYNAMICS = {"stochastic_dynamics": _noisy_pendulum, "dynamics_params": _weighted_pendulum}
 
 
 @pytest.mark.parametrize("flag,value", UNPORTED + list(PORTED.items()),
@@ -102,10 +110,11 @@ CONFIG_FIELD = {"rollout_samples": "M", "specific_action_sampler": "num_specific
 def test_unported_flag_raises(flag, value):
     if flag in TAKEN:
         kw = dict(TAKEN[flag], **{flag: value})
-        ctrl = (MPPI(_noisy_pendulum, pendulum_running_cost, nx=2,
+        ctrl = (MPPI(OWN_DYNAMICS[flag], pendulum_running_cost, nx=2,
                      noise_sigma=torch.tensor([[10.0]]), num_samples=64, horizon=15,
-                     device="cpu", **kw) if flag == "stochastic_dynamics" else _pendulum(**kw))
-        want = value.num_trajectories if flag == "specific_action_sampler" else value
+                     device="cpu", **kw) if flag in OWN_DYNAMICS else _pendulum(**kw))
+        want = {"specific_action_sampler": getattr(value, "num_trajectories", None),
+                "dynamics_params": True}.get(flag, value)
         assert getattr(ctrl.config, CONFIG_FIELD.get(flag, flag)) == want
         ctrl.command(np.array([np.pi, 1.0]))
         assert torch.isfinite(ctrl.cost_total).all()
