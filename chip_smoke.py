@@ -119,13 +119,28 @@ the package is not beside it.  Phases, each fatal when it fails:
    rollouts, five refinement steps), 20 steps bit for bit against a twin's
    eager ``command()`` loop with exact launch counts, fresh noise at every
    replay, and the graph loop timed against the eager loop at the flagship;
+   then learned dynamics (``learned_dynamics``, phase 4e,
+   ``examples/fused_kernel_demo.py``'s problem): a [3, 32, 32, 2] residual MLP
+   trained by ``make_train_step`` for 300 epochs on 8,192 pendulum
+   transitions, its ``ResidualMLP`` instantiations (kernel A's MPPI, SMPPI
+   and KMPPI in bits and seed mode, the legacy rollout) against their plain
+   versions at K = 10,000, T = 30 with the MLP's own tolerance and the count
+   of samples beyond it (each must have come within ``WRAP_EDGE`` of the
+   wrap at ±pi), each kernel alone (a CUDA graph of 20 calls) beside its
+   plain version and bound, the main path (150 commands from [pi, 1],
+   fused with one kernel A launch a command, plain and the legacy route,
+   each ending with |angle| < 0.5; SMPPI and KMPPI fused), a
+   ``run_mppi_jit`` graph loop of the fused and the plain route equal to the
+   eager loop bit for bit over 20 steps, and ``pendulum_approximate`` at its
+   JAX sizes (retraining through ``dynamics_params``, the plain path);
 5. swing-up: the pendulum with ``use_pallas=True``, 150 steps;
 6. closed loops through the kernels: the ``tests/test_mppi.py`` LQ problem
    (KMPPI reaches the goal, SMPPI stays finite), the toy2d comparison of
    ``examples/smooth_mppi.py`` (MPPI, SMPPI, KMPPI), and
    ``examples/scenario_batch.py``'s loops (N = 16 and N = 1,024: more than
    90 % of the plants end within 0.5 of the goal);
-7. the ``kernels`` line (eight kernels), the card line, then the last line
+7. the ``kernels`` line (eight kernels, and the residual MLP's four
+   instantiations), the card line, then the last line
    ``{"ok": true, "device": ...}``.
 """
 import json
@@ -162,12 +177,12 @@ FIRST_MPPI_SEED_MS = 0.04754  # the MPPI pair, seed mode, flagship, as first por
 # D = 300 with a full operator; the batched pair at the main paths' widths;
 # the legacy route's kernels and the sampler (seed and bits mode) at the
 # flagship; and the parent's build time
-BEFORE_MS = {"mppi": 0.018533, "smppi": 0.019565, "kmppi": 0.021486, "rowmajor": 0.021973,
-             "mppi_D300": 0.389677, "smppi_D300": 0.429486, "kmppi_D300": 0.319934,
-             "weighted_update": 0.010536, "rollout": 0.004219, "sampler": 0.005904,
-             "sampler_bits": 0.005490, "batched_operand": 1.072894, "batched_seed": 1.159131,
-             "batched_small_operand": 0.032691}
-BEFORE_BUILD_S = 266.4
+BEFORE_MS = {"mppi": 0.019011, "smppi": 0.019974, "kmppi": 0.021030, "rowmajor": 0.022634,
+             "mppi_D300": 0.394286, "smppi_D300": 0.426094, "kmppi_D300": 0.320075,
+             "weighted_update": 0.010016, "rollout": 0.003760, "sampler": 0.006307,
+             "sampler_bits": 0.005326, "batched_operand": 1.072622, "batched_seed": 1.158586,
+             "batched_small_operand": 0.031835}
+BEFORE_BUILD_S = 264.9
 # the final-state terminal cost of the terminal cases and loops: w_state
 # |x_T - goal|^2 + w_action |u_T|^2 toward the flagship's goal
 TERMINAL_W = (1.0, 0.1)
@@ -181,10 +196,25 @@ SHORT_COMMANDS = 200  # the refinement loop's and SMPPI's and KMPPI's sampler lo
 M_STOCH = 4  # rollout_samples of the stochastic loop
 STOCH_SCALE = 0.05  # the stochastic loop's dynamics noise (a standard deviation)
 GRAPH_STEPS = 20  # plant steps of each route's graph loop held to the eager loop
+# the residual MLP (phase 4e): examples/fused_kernel_demo.py's problem
+MLP_K, MLP_T, MLP_COMMANDS = 10_000, 30, 150
+# its cost tolerance against the plain version: 30 steps through the
+# network carry the matrix products' summation order (a CPU emulation of
+# the kernel's arithmetic differed by up to 1.1e-4 relative at this shape)
+MLP_RTOL, MLP_ATOL = 2e-4, 1e-4
+WRAP_EDGE = 1e-4  # within this of ±pi the kernel and the plain version may wrap apart
+
+
+START = time.perf_counter()
 
 
 def fail(msg):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def stamp(phase):
+    """The phase's start on the host clock, for the run's time budget."""
+    print(f"# phase {phase} starts at {time.perf_counter() - START:.1f} s")
 
 
 def check(cond, msg):
@@ -196,6 +226,21 @@ def _per_step(model, nx, nu):
     """Operations of one device-model step plus its running cost."""
     if model.name == "pendulum":  # scale 1, step 12, cost 9, sum 1
         return nu + 12 + 9 + 1
+    if model.name == "residual_mlp":
+        # scale; each layer's n_in * n_out fused multiply-adds and n_out bias
+        # additions, tanh on the hidden units; the wrap (fmodf, compare, add,
+        # two sums) on the way in and out, sin and cos of an encoded
+        # dimension, the clip, the residual; the cost (pendulum 9, or a
+        # difference and a multiply-add a state); the sum
+        from pytorch_mppi_tpu_torch.ops.kernel_models import mlp_header
+
+        head = mlp_header(model.consts)
+        w = head["widths"]
+        ops = nu + sum(2 * a * b + b for a, b in zip(w, w[1:])) + sum(w[1:-1])
+        ops += 10 * len(head["wrap"]) + 2 * len(head["encode"])
+        ops += (2 * nu if head["clip"] else 0) + nx
+        ops += 9 if head["cost"] == "pendulum" else 3 * nx
+        return ops + 1
     # scale, u Bᵀ + x, |goal - x|², sum
     ops = nu + nx * (2 * nu + 1) + 3 * nx + 1
     if model.name == "toy2d":  # hill (c - x)ᵀ Q (c - x), r|u|², exp and sums
@@ -341,14 +386,18 @@ def bound(work):
                (ops / H100_F32_PER_S * 1e3, "operations"))
 
 
-def agree(cost_k, cost_p, upd_k, upd_p, lam, m_k=None, m_p=None, s_k=None, s_p=None):
+def agree(cost_k, cost_p, upd_k, upd_p, lam, m_k=None, m_p=None, s_k=None, s_p=None,
+          rtol=2e-5, atol=1e-5, excused=None):
     """The kernel's results against the plain version's.  A cost error e
     moves each softmax weight by a factor e^(+-e/lam), so m, s and the
     update may move by that much; the update is compared on the scale of
     its largest element (of each plant's column for the batched variant).
-    Returns ``(ok, cost error, update error, weight tolerance)``."""
+    The costs are held to ``rtol``/``atol`` but for the ``excused`` samples
+    (a mask).  Returns ``(ok, cost error, update error, weight
+    tolerance)``."""
     c_err = float((cost_k - cost_p).abs().max())
-    ok = bool(((cost_k - cost_p).abs() <= 1e-5 + 2e-5 * cost_p.abs()).all())
+    within = (cost_k - cost_p).abs() <= atol + rtol * cost_p.abs()
+    ok = bool((within if excused is None else within | excused).all())
     w_tol = 2e-4 + 2 * c_err / lam
     if m_k is not None:
         ok = ok and float((m_k - m_p).abs().max()) <= c_err / lam + 1e-6
@@ -724,6 +773,315 @@ def graph_loops(dev, lq, goal):
     return report
 
 
+def ptxas_entries(log):
+    """Each kernel of ``nvcc -Xptxas -v`` output: ``{name, registers,
+    stack, spills, compile_ms}``."""
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = dict(name=m.group(1))
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", line)
+        if m:
+            cur.update(stack=int(m.group(1)), spills=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+        m = re.search(r"Compile time = ([\d.]+) ms", line)
+        if m:
+            cur["compile_ms"] = float(m.group(1))
+    return out
+
+
+def wrap_edge(model, perturbed, x0T, idx, T_, nu, u_scale=1.0):
+    """Of the samples ``idx``, those whose plain rollout over their (D, K)
+    ``perturbed`` actions came within WRAP_EDGE of ±π (the wrapped angle of
+    the residual MLP's state dimension 0) at some step: a sample there may
+    take the other branch of the wrap in the kernel, its state then differing
+    by 2π; and each sample's least distance."""
+    st = x0T.T[idx]
+    dist = torch.full((idx.numel(),), math.inf, device=st.device)
+    for t in range(T_):
+        st = model.dynamics(st, perturbed[t * nu:(t + 1) * nu, idx].T * u_scale)
+        dist = torch.minimum(dist, math.pi - st[:, 0].abs())
+    return idx[dist < WRAP_EDGE], dist
+
+
+def learned_dynamics(dev, gen):
+    """Phase 4e: the residual MLP in the kernels (``examples/
+    fused_kernel_demo.py``'s problem): its ``ResidualMLP`` instantiations
+    against their plain versions, the kernels alone, the main path, a
+    ``run_mppi_jit`` graph loop and ``pendulum_approximate``.  Returns the
+    rows for the ``kernels`` line and PERF.md."""
+    from pytorch_mppi_tpu_torch import KMPPI, MPPI, SMPPI, RBFKernel, run_mppi_jit
+    from pytorch_mppi_tpu_torch.config import MPPIConfig
+    from pytorch_mppi_tpu_torch.examples import fused_kernel_demo as FKD
+    from pytorch_mppi_tpu_torch.examples import pendulum_approximate
+    from pytorch_mppi_tpu_torch.models import pendulum_dynamics
+    from pytorch_mppi_tpu_torch.ops import _build
+    from pytorch_mppi_tpu_torch.ops import fused_solve as FS
+    from pytorch_mppi_tpu_torch.ops import legacy as LG
+    from pytorch_mppi_tpu_torch.ops import solve as PS
+    from pytorch_mppi_tpu_torch.ops.kernels import interpolation_operators
+
+    def reset_launches():
+        for name in FS.launches:
+            FS.launches[name] = 0
+
+    report = {"cases": {}, "timed": {}, "loops": {}}
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "the plain versions' float32 products must not run in TF32")
+    # the new instantiation's registers, spills and stack (its activations
+    # live in local memory) from the build's log
+    log = _build.library_path().with_suffix(".log")
+    entries = ptxas_entries(log.read_text()) if log.is_file() else []
+    mlp_entries = [e for e in entries if "ResidualMLP" in e["name"]]
+    for e in mlp_entries:
+        print(f"# ptxas [{e['name']}]: {e.get('registers')} registers, {e.get('spills')} bytes "
+              f"spill stores, {e.get('stack')} bytes stack frame, {e.get('compile_ms')} ms")
+    report["ptxas"] = mlp_entries
+
+    # the model: fused_kernel_demo's, trained by make_train_step
+    wall = time.perf_counter()
+    params, loss = FKD.train_model(device=dev)
+    torch.cuda.synchronize()
+    model = FKD.kernel_model(params)
+    print(f"# learned model [3, 32, 32, 2]: loss {loss:.5f} after 300 full-batch epochs on 8,192 "
+          f"transitions, {time.perf_counter() - wall:.1f} s on the card")
+    check(math.isfinite(loss) and loss < 0.1, f"the learned model did not train: loss {loss}")
+
+    # kernel A's three variants against their plain versions at the demo's
+    # shape, bits and seed mode, with the perturbed actions emitted
+    K_, T_, nu = MLP_K, MLP_T, 1
+    D = T_ * nu
+    nsp = T_ // 2
+    x0T = torch.tensor([math.pi, 1.0], device=dev)[:, None].expand(2, K_)
+    full = lambda v, n=D: torch.full((n,), v, device=dev)  # noqa: E731
+    lam = torch.tensor(1.0, device=dev)
+    U2 = torch.randn(D, generator=gen, device=dev) * 0.5
+    a_flat = (U2 / 10.0).contiguous()  # lambda U sigma^-1 at sigma = 10
+    interp, _ = interpolation_operators(RBFKernel(2.0), T_, nsp, torch.float32, device=dev)
+    operands = {
+        "mppi": (x0T, U2, full(math.sqrt(10.0)), full(0.0), full(-2.0), full(2.0), a_flat, lam),
+        "smppi": (x0T, U2, torch.randn(D, generator=gen, device=dev) * 0.5,
+                  full(math.sqrt(10.0)), full(0.0), full(-2.0), full(2.0), full(-2.0), full(2.0),
+                  a_flat, lam, torch.tensor(1.0, device=dev), torch.tensor(1.0, device=dev)),
+        "kmppi": (x0T, U2, torch.randn(nsp, generator=gen, device=dev) * 0.5,
+                  full(math.sqrt(10.0), nsp), full(0.0, nsp), full(-2.0, nsp), full(2.0, nsp),
+                  full(-2.0), full(2.0), a_flat, interp.contiguous(), lam),
+    }
+    factories = {"mppi": FS.make_transposed_fused_solve, "smppi": FS.make_transposed_smppi_solve,
+                 "kmppi": FS.make_transposed_kmppi_solve}
+
+    def config(variant):
+        return MPPIConfig(nx=2, nu=nu, K=K_, T=T_, diag_sigma=True,
+                          num_support_pts=nsp if variant == "kmppi" else 0,
+                          smppi=variant == "smppi")
+
+    print(f"# kernel vs plain [residual MLP]: cost rtol {MLP_RTOL} atol {MLP_ATOL} (the MLP's own: "
+          f"30 steps through the network carry the matrix products' summation order), a sample "
+          f"beyond it excused only where its plain rollout came within {WRAP_EDGE} of the wrap at "
+          f"±pi; m, s and delta/s as the other cases (agree)")
+    max_err = dict.fromkeys(FS.VARIANTS + ("rollout",), 0.0)
+    for variant in FS.VARIANTS:
+        cfg = config(variant)
+        R = nsp if variant == "kmppi" else D
+        solve = factories[variant](cfg, model, emit_perturbed=True)
+        for mode in ("bits", "seed"):
+            lead = (torch.randint(-2**31, 2**31 - 1, (R, solve.bits_cols), dtype=torch.int32,
+                                  generator=gen, device=dev) if mode == "bits"
+                    else tuple(int(v) for v in torch.randint(0, 2**32, (2,), generator=gen,
+                                                             device=dev)))
+            out_k = solve(lead, *operands[variant])
+            torch.cuda.synchronize()
+            out_p = solve.plain(lead, *operands[variant])
+            dk, mk, sk, ck, pk = out_k
+            dp, mp, sp, cp, pp = out_p
+            beyond = ((ck - cp).abs() > MLP_ATOL + MLP_RTOL * cp.abs()).nonzero().flatten()
+            edge, dist = wrap_edge(model, pp, x0T, beyond, T_, nu)
+            excused = torch.zeros(K_, dtype=torch.bool, device=dev)
+            excused[edge] = True
+            ok, c_err, u_err, w_tol = agree(ck, cp, dk / sk, dp / sp, 1.0, mk, mp, sk, sp,
+                                            rtol=MLP_RTOL, atol=MLP_ATOL, excused=excused)
+            ok = ok and all(bool(torch.isfinite(v).all()) for v in out_k)
+            p_err = float((pk - pp).abs().max())
+            ok = ok and bool(((pk - pp).abs() <= 1e-6 + 1e-5 * pp.abs()).all())
+            within = (ck - cp).abs()
+            within[beyond] = 0.0
+            print(f"# {mode:4s} {variant:5s} residual_mlp K={K_} D={D} S={solve.tile_k}: cost err "
+                  f"{c_err:.3e} (within tolerance {float(within.max()):.3e}) | samples beyond "
+                  f"tolerance {beyond.numel()}, at the wrap {edge.numel()} (least distances "
+                  f"{[round(float(v), 8) for v in dist[:5]]}) | m err {abs(float(mk - mp)):.3e} | "
+                  f"s rel {abs(float(sk / sp - 1)):.3e} (tol {w_tol:.3e}) | delta/s err "
+                  f"{u_err:.3e} | perturbed err {p_err:.3e}" + ("" if ok else "  <-- FAIL"))
+            check(ok, f"the residual-MLP kernel disagrees with its plain version: {mode}/{variant}")
+            max_err[variant] = max(max_err[variant], u_err)
+            report["cases"][variant, mode] = dict(beyond=beyond.numel(), at_wrap=edge.numel(),
+                                                  cost_err=c_err, update_err=u_err)
+    # the legacy rollout on clamped actions of the demo's scale
+    cfg_r = MPPIConfig(nx=2, nu=nu, K=K_, T=T_)
+    rollout = LG.make_fused_rollout(cfg_r, model)
+    x0_K = torch.tensor([math.pi, 1.0], device=dev)[None].expand(K_, 2)
+    u = torch.clamp(torch.randn(K_, T_, nu, generator=gen, device=dev) * math.sqrt(10.0), -2, 2)
+    ck = rollout(x0_K, u)
+    torch.cuda.synchronize()
+    cp = rollout.plain(x0_K, u)
+    beyond = ((ck - cp).abs() > MLP_ATOL + MLP_RTOL * cp.abs()).nonzero().flatten()
+    edge, dist = wrap_edge(model, u.reshape(K_, D).T, x0T, beyond, T_, nu)
+    r_err = float((ck - cp).abs().max())
+    ok = bool(torch.isfinite(ck).all()) and edge.numel() == beyond.numel()
+    print(f"# rollout residual_mlp K={K_} D={D}: cost err {r_err:.3e} | samples beyond tolerance "
+          f"{beyond.numel()}, at the wrap {edge.numel()}" + ("" if ok else "  <-- FAIL"))
+    check(ok, "the residual-MLP rollout disagrees with its plain version")
+    max_err["rollout"] = r_err
+    report["cases"]["rollout"] = dict(beyond=beyond.numel(), at_wrap=edge.numel(), cost_err=r_err)
+    report["max_err"] = max_err
+
+    # the kernels alone at the main path's shape (seed mode), a CUDA graph of
+    # 20 calls, beside the plain version and the bound
+    key = (0x2468ACE0, 0x13579BDF)
+    for variant in FS.VARIANTS:
+        cfg = config(variant)
+        solve = factories[variant](cfg, model)
+        args = operands[variant]
+        dev_ms = graph_ms(lambda: solve(key, *args), 20)
+        plain_ms = events_ms(lambda: solve.plain(key, *args), 5)
+        op = args[3] if variant != "mppi" else args[2]
+        bound_ms, bound_by = bound(fused_work(cfg, model, key, x0T, op, variant=variant))
+        report["timed"][variant] = (dev_ms, plain_ms, bound_ms, bound_by)
+        print(f"# kernel alone [{variant} residual_mlp] K={K_} T={T_} S={solve.tile_k}: device "
+              f"{dev_ms:.6f} ms (a CUDA graph of 20 calls) | plain version {plain_ms:.5f} ms | "
+              f"bound {bound_ms:.3e} ms by {bound_by}: {dev_ms / bound_ms:.1f}x | the linear "
+              f"model's flagship call before: {BEFORE_MS[variant]} ms")
+    dev_ms = graph_ms(lambda: rollout(x0_K, u), 20)
+    plain_ms = events_ms(lambda: rollout.plain(x0_K, u), 5)
+    bound_ms, bound_by = bound(rollout_work(model, x0_K, u))
+    report["timed"]["rollout"] = (dev_ms, plain_ms, bound_ms, bound_by)
+    print(f"# kernel alone [rollout residual_mlp] K={K_} T={T_}: device {dev_ms:.6f} ms (a CUDA "
+          f"graph of 20 calls) | plain version {plain_ms:.5f} ms | bound {bound_ms:.3e} ms by "
+          f"{bound_by}: {dev_ms / bound_ms:.1f}x")
+
+    # the main path: fused_kernel_demo's loop, 150 commands from [pi, 1] on
+    # the true plant, fused (one kernel A launch a command) and plain, each
+    # ending within |angle| < 0.5 (the demo's own check); the legacy route
+    # (the rollout and the weighted update a command) held to the same; and
+    # SMPPI and KMPPI on kernel A with the same model (finite actions)
+    def pend_step(x, a):
+        return pendulum_dynamics(x[None], a[None])[0]
+
+    extra = {"smppi": (SMPPI, dict(w_action_seq_cost=1.0, delta_t=1.0,
+                                   action_min=torch.tensor([-2.0]),
+                                   action_max=torch.tensor([2.0]))),
+             "kmppi": (KMPPI, dict(num_support_pts=nsp, kernel=RBFKernel(2.0)))}
+
+    def planner(variant, use_pallas, seed=42):
+        if variant == "mppi":
+            return FKD.planner(params, use_pallas, K_, T_, seed=seed, device=dev)
+        cls, kw = extra[variant]
+        return cls(model.dynamics, model.running_cost, 2, torch.eye(1, device=dev) * 10.0,
+                   num_samples=K_, horizon=T_, lambda_=1.0, u_min=torch.tensor(-2.0),
+                   u_max=torch.tensor(2.0), seed=seed, use_pallas=use_pallas, device=dev, **kw)
+
+    loops = [("mppi", "fused", True), ("mppi", "plain", False), ("mppi", "rollout", "rollout"),
+             ("smppi", "fused", True), ("kmppi", "fused", True)]
+    for variant, path, use_pallas in loops:
+        ctrl = planner(variant, use_pallas)
+        check(ctrl._fns.fused == bool(use_pallas),
+              f"residual MLP {variant} {path} took the wrong route")
+        torch.cuda.synchronize()
+        reset_launches()  # count the main path's launches only
+        r = FKD.run_closed(ctrl, MLP_COMMANDS)
+        launched = dict(FS.launches)
+        n = MLP_COMMANDS + 1  # and run_closed's warm-up command
+        expect = {name: 0 for name in FS.launches}
+        if path == "rollout":
+            expect.update(rollout=n, weighted_update=n)
+        elif use_pallas:
+            expect[variant] = n
+        print(f"# main path [residual MLP {variant} {path}] K={K_} T={T_}, {MLP_COMMANDS} commands "
+              f"from [pi, 1] after one warm-up command: {r['ms_per_command']:.4f} ms a command "
+              f"(host clock) | final |angle| "
+              f"{r['final_angle']:.4f} | launches {launched}")
+        check(launched == expect, f"residual MLP {variant} {path} launched {launched}, "
+              f"expected {expect}")
+        check(math.isfinite(r["final_angle"]) and bool(torch.isfinite(ctrl.U).all()),
+              f"residual MLP {variant} {path}: non-finite actions")
+        if variant == "mppi":
+            check(r["final_angle"] < 0.5, f"residual MLP {path} swing-up failed: final |angle| "
+                  f"{r['final_angle']}")
+        # the command's latency, as the flagship loops time it: CUDA events
+        # around each of MLP_COMMANDS more commands from where the loop ended
+        x = r["state"]
+        starts = [torch.cuda.Event(enable_timing=True) for _ in range(MLP_COMMANDS)]
+        ends = [torch.cuda.Event(enable_timing=True) for _ in range(MLP_COMMANDS)]
+        wall = time.perf_counter()
+        for i in range(MLP_COMMANDS):
+            starts[i].record()
+            a = ctrl.command(x)
+            ends[i].record()
+            x = pend_step(x, a)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - wall
+        lat = sorted(b.elapsed_time(e) for b, e in zip(starts, ends))
+        med, p90 = statistics.median(lat), lat[int(0.9 * len(lat))]
+        print(f"# main path [residual MLP {variant} {path}] latency over {MLP_COMMANDS} more "
+              f"commands: median {med:.4f} ms p90 {p90:.4f} ms (CUDA events) | "
+              f"{MLP_COMMANDS / wall:.1f} solves/s (host clock)")
+        breakdown(f"residual MLP {variant} {path}", ctrl, pend_step, x)
+        report["loops"][variant, path] = dict(r, launches=launched, median_ms=med, p90_ms=p90,
+                                              solves_per_s=MLP_COMMANDS / wall)
+        del ctrl
+
+    # run_mppi_jit with the model: the graph loop equal to the eager loop bit
+    # for bit over GRAPH_STEPS steps, with exact launch counts
+    for path, use_pallas, per_command in (("fused", True, dict(mppi=1)),
+                                          ("plain", False, {})):
+        c_graph, c_eager = planner("mppi", use_pallas, 7), planner("mppi", use_pallas, 7)
+        x0 = torch.tensor([math.pi, 1.0], device=dev)
+        reset_launches()
+        states, actions, total = run_mppi_jit(c_graph, pend_step, x0, GRAPH_STEPS)
+        torch.cuda.synchronize()
+        launched = dict(FS.launches)
+        cost = PS.wrap_cost(c_eager.config, c_eager.running_cost)
+        x, acc, xs, acts = x0, torch.zeros((), device=dev), [], []
+        for _ in range(GRAPH_STEPS):
+            a = c_eager.command(x)
+            x = pend_step(x, a)
+            acc = acc + cost(x[None], a[None], 0)[0]
+            xs.append(x)
+            acts.append(a)
+        torch.cuda.synchronize()
+        same = (torch.equal(states[1:], torch.stack(xs)) and torch.equal(actions, torch.stack(acts))
+                and torch.equal(total, acc) and torch.equal(c_graph.U, c_eager.U))
+        expect = {k: GRAPH_STEPS * per_command.get(k, 0) for k in FS.launches}
+        print(f"# graph loop [residual MLP {path}] {GRAPH_STEPS} steps: equal to the eager loop bit "
+              f"for bit {same} | launches { {k: v for k, v in launched.items() if v} }")
+        check(same, f"graph loop [residual MLP {path}] differs from the eager command() loop")
+        check(launched == expect, f"graph loop [residual MLP {path}] launched {launched}")
+        report["loops"]["graph", path] = dict(equal=same, launches=launched)
+        del c_graph, c_eager
+
+    # pendulum_approximate at its JAX sizes: online retraining through
+    # dynamics_params on the plain path (K = 1,000, T = 30, 300 steps)
+    reset_launches()
+    wall = time.perf_counter()
+    r = pendulum_approximate.main(device=dev)
+    wall = time.perf_counter() - wall
+    print(f"# pendulum_approximate (K=1000, T=30, 300 steps, a retrain every 50): final angle "
+          f"{r['final_angle']:.4f} | validation error {r['val_error']:.4f} | total reward "
+          f"{r['total_reward']:.2f} | {wall:.1f} s | launches {sum(FS.launches.values())}")
+    check(math.isfinite(r["val_error"]) and math.isfinite(r["final_angle"]),
+          "pendulum_approximate went non-finite")
+    check(sum(FS.launches.values()) == 0, "pendulum_approximate launched a kernel")
+    report["pendulum_approximate"] = dict(r, seconds=wall)
+    return report
+
+
 def card_line():
     try:
         smi = subprocess.run(
@@ -792,6 +1150,7 @@ def main():
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
     # -- 2. build ------------------------------------------------------------
+    stamp("2")
     built = _build.build()
     if built is None:
         print(f"# build: {_build.library_path().name} already built")
@@ -808,6 +1167,7 @@ def main():
               f"bytes | nvcc -Xptxas -v output in {log_path}")
 
     # -- 3. kernel against its plain version ----------------------------------
+    stamp("3")
     gen = torch.Generator(device=dev)
     gen.manual_seed(2026)
     B = torch.tensor([[1.0, 0.0], [0.0, -1.0]], device=dev)
@@ -1573,6 +1933,7 @@ def main():
     print(f"# kernel vs plain: {n_sampler} sampler and {n_rowmajor} round-1 solve cases agreed")
 
     # -- 4. the main paths at full width ---------------------------------------
+    stamp("4")
     def lq_step(x, action):
         return lq.dynamics(x[None], action[None])[0]
 
@@ -1876,6 +2237,7 @@ def main():
     check(ok, "the fused step with a terminal cost disagrees with the plain step")
 
     # -- 4b. MPPI_Batched: examples/scenario_batch.py's problem -----------------
+    stamp("4b")
     def batched_ctrl(N_, K_, T_, use_pallas, dynamics=None, **kw):
         return MPPI_Batched(dynamics or lq.dynamics, lq.running_cost, nx=NX,
                             noise_sigma=sigma_b, num_envs=N_, num_samples=K_, horizon=T_,
@@ -2284,6 +2646,7 @@ def main():
           f"| bound {b_ms:.3e} ms by {b_by}: {d_ms / b_ms:.1f}x the bound")
 
     # -- 4c. the ops-level kernels' loops at the flagship ----------------------------
+    stamp("4c")
     # No controller routes to them (as in JAX), so the loops are written out:
     # the round-1 solve, and JAX's "psampler" solve
     # (benchmarks/noise_experiments.py:139-147) built from port kernels only.
@@ -2495,9 +2858,15 @@ def main():
               f"{ms / BEFORE_MS[name]:.4f} (limit 1.1)")
 
     # -- 4d. run_mppi_jit: a CUDA graph of the loop step -------------------------
+    stamp("4d")
     graph_report = graph_loops(dev, lq, goal)
 
+    # -- 4e. learned dynamics: the residual MLP in the kernels ------------------
+    stamp("4e")
+    mlp = learned_dynamics(dev, gen)
+
     # -- 5. swing-up -------------------------------------------------------------
+    stamp("5")
     reset_launches()
     ctrl = MPPI(pendulum_dynamics, pendulum_running_cost, nx=2,
                 noise_sigma=torch.tensor([[10.0]], device=dev), num_samples=1000,
@@ -2513,6 +2882,7 @@ def main():
     check(FS.launches["mppi"] == 150, f"swing-up launched {FS.launches}, expected 150")
 
     # -- 6. closed loops through the kernels -------------------------------------
+    stamp("6")
     # tests/test_mppi.py:744-771: K = 500, T = 15, sigma = I, 20 steps
     def lq_ctrl(cls, seed, **kw):
         c = cls(lq.dynamics, lq.running_cost, nx=2, noise_sigma=torch.eye(2, device=dev),
@@ -2611,6 +2981,7 @@ def main():
         check(FS.launches == expect, f"scenario loop launched {FS.launches}, expected {expect}")
 
     # -- 7. the kernels line and the last line ---------------------------------
+    stamp("7")
     sources = {"mppi": ("fused_mppi MPPI (mppi_fused_partial<..., kMPPI>, merged in the kernel)",
                         "pytorch_mppi_tpu/ops/pallas_rollout.py:512"),
                "smppi": ("fused_mppi SMPPI (mppi_fused_partial<..., kSMPPI>, merged in the "
@@ -2759,6 +3130,37 @@ def main():
                                ms_D300_full_op=timed["sampler", "D300_full_op"][0],
                                bound_ms_D300_full_op=timed["sampler", "D300_full_op"][3],
                                blocks=sample.blocks)
+    # the residual MLP's instantiations (phase 4e): kernel A's variants and
+    # the legacy rollout, launched by fused_kernel_demo's main path
+    for key, label, line, loop in (
+            ("mppi", "fused_mppi MPPI, residual MLP (mppi_fused_partial<ResidualMLP, 2, ..., "
+             "kMPPI>, merged in the kernel)", 512, ("mppi", "fused")),
+            ("smppi", "fused_mppi SMPPI, residual MLP (mppi_fused_partial<ResidualMLP, 2, ..., "
+             "kSMPPI>)", 755, ("smppi", "fused")),
+            ("kmppi", "fused_mppi KMPPI, residual MLP (mppi_fused_partial<ResidualMLP, 2, ..., "
+             "kKMPPI>)", 940, ("kmppi", "fused")),
+            ("rollout", "fused_rollout, residual MLP (fused_rollout<ResidualMLP, 2>)", 75,
+             ("mppi", "rollout"))):
+        d_ms, p_ms, b_ms, b_by = mlp["timed"][key]
+        cases = [c for k, c in mlp["cases"].items() if (k if isinstance(k, str) else k[0]) == key]
+        kernels.append({
+            "name": label,
+            "route": "cuda",
+            "source": "pytorch_mppi_tpu_torch/csrc/fused_mppi.cu",
+            "replaces": f"pytorch_mppi_tpu/ops/pallas_rollout.py:{line}",
+            "launches": mlp["loops"][loop]["launches"][key],
+            "max_abs_err": mlp["max_err"][key],
+            "ms": d_ms,
+            "ms_source": "cuda_graph",
+            "plain_ms": p_ms,
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": None,
+            "samples_beyond_tolerance": sum(c["beyond"] for c in cases),
+            "samples_at_the_wrap": sum(c["at_wrap"] for c in cases),
+        })
+        if key == "mppi":
+            kernels[-1]["launches_graph_loop"] = mlp["loops"]["graph", "fused"]["launches"]["mppi"]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -170,11 +170,12 @@
 //
 // Plain C interface (no PyTorch headers), loaded with ctypes; each entry
 // returns cudaGetLastError() after its launches.  The file builds whole, or
-// as thirteen translation units selected by -DFUSED_MPPI_PART=0..12 (0-4, 11
-// and 12: the single-plant variants and the rollout kernel of each device
-// model and register size; 5: kernel B, the weighted update, the sampler and
-// the entry points; 6-10: the batched kernel of each device model and
-// register size), which ops/_build.py compiles in parallel and links.
+// as fourteen translation units selected by -DFUSED_MPPI_PART=0..13 (0-4, 11,
+// 12 and 13: the single-plant variants and the rollout kernel of each device
+// model and register size, 13 the residual MLP's; 5: kernel B, the weighted
+// update, the sampler and the entry points; 6-10: the batched kernel of each
+// device model and register size), which ops/_build.py compiles in parallel
+// and links.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -441,6 +442,121 @@ struct Pendulum {
   __device__ static float cost(const float*, const float* x, const float*, int, int) {
     const float an = angle_normalize(x[0]);
     return an * an + 0.1f * (x[1] * x[1]);
+  }
+};
+
+// The learned residual model (ops/kernel_models.residual_mlp_model, the JAX
+// package's models/mlp.make_residual_dynamics with its weights closed in):
+// the action clipped, the wrapped state dimensions wrapped, the features
+// (each encoded dimension as sin, cos), tanh hidden layers and a linear last
+// layer, x' = x + MLP(features), the wrapped dimensions wrapped again, then
+// the running cost on x': the gym pendulum's or |goal - x'|^2.  For nx, nu
+// <= 2 (the N = 2 arrays).  consts: a header of MLP_HEAD floats (the layers
+// L, the L + 1 widths, clip flag, lo, hi, the wrap and encode masks as bits,
+// the cost (0 pendulum, 1 quadratic), the goal), then per layer W (n_in rows
+// of p floats) and b (p floats), p = n_out rounded up to MLP_GROUP with
+// zeros, so that every row starts on 16 bytes.
+//
+// At most MLP_MAX_LAYERS layers of at most MLP_MAX_WIDTH units (every MLP
+// the JAX package and its tests build is [3|4, 32, 32, 2] or [4, 16, 2]).
+// A thread evaluates its sample's network alone: the activations of the
+// layer in and the layer out in a local array of 2 * MLP_MAX_WIDTH floats
+// (indexed at run time, so local memory, which stays in L1: 512 bytes a
+// rolling thread), MLP_GROUP outputs at a time in registers, each input
+// read once for the group and its weights as two 16-byte loads through the
+// read-only cache, at the same address for every thread of the warp.  The
+// sums run in input order with fmaf from 0, then add the bias, as x W + b;
+// tanhf is CUDA's accurate one (no -use_fast_math, no tanh.approx).
+//
+// What bounds it: operations.  At the demo's shape ([3, 32, 32, 2], K =
+// 10,000, T = 30) a sample's step is about 2,500 (1,184 multiply-adds, 64
+// tanh), 7.6e8 in all, 0.012 ms at the H100's 67 TFLOP/s of float32; its
+// bytes (at most the rollout's 1.2 MB of actions) take 0.0004 ms.  Kernel A and the rollout took about 0.26 ms there
+// on an H100 80GB HBM3 at 700 W (chip_smoke.py, PERF.md): a block's
+// rollout runs on one warp, so the card holds some 313 rolling warps for
+// its 528 schedulers, and each waits on its own loads and FMA chains.
+// Splitting a sample's layer over the block's threads is the redesign
+// left for later.
+constexpr int MLP_HEAD = 16;
+constexpr int MLP_MAX_WIDTH = 64;
+constexpr int MLP_MAX_LAYERS = 4;
+constexpr int MLP_GROUP = 8;
+
+struct ResidualMLP {
+  template <int N>
+  __device__ static void step(const float* c, float* x, const float* u, int nx, int nu) {
+    const int layers = (int)c[0], wrap = (int)c[9], encode = (int)c[10];
+    const bool clip = c[6] != 0.0f;
+    float h[2 * MLP_MAX_WIDTH];
+    float xs[N] = {};
+    int f = 0;
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      if (i < nx) {
+        xs[i] = (wrap >> i) & 1 ? Pendulum::angle_normalize(x[i]) : x[i];
+        if ((encode >> i) & 1) {
+          h[f++] = sinf(xs[i]);
+          h[f++] = cosf(xs[i]);
+        } else {
+          h[f++] = xs[i];
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+      if (j < nu) h[f++] = clip ? fminf(fmaxf(u[j], c[7]), c[8]) : u[j];
+    const float* w = c + MLP_HEAD;
+    int in = 0;  // the layer's inputs at h[in], its outputs at h[MLP_MAX_WIDTH - in]
+    for (int l = 0; l < layers; ++l) {
+      const int n_in = (int)c[1 + l], n_out = (int)c[2 + l];
+      const int p = (n_out + MLP_GROUP - 1) / MLP_GROUP * MLP_GROUP;
+      const float* b = w + n_in * p;
+      const int out = MLP_MAX_WIDTH - in;
+      for (int j = 0; j < p; j += MLP_GROUP) {
+        float acc[MLP_GROUP];
+#pragma unroll
+        for (int q = 0; q < MLP_GROUP; ++q) acc[q] = 0.0f;
+        for (int i = 0; i < n_in; ++i) {
+          const float a = h[in + i];
+          const float4* row = reinterpret_cast<const float4*>(w + i * p + j);
+#pragma unroll
+          for (int v = 0; v < MLP_GROUP / 4; ++v) {
+            const float4 wv = __ldg(row + v);
+            acc[4 * v] = fmaf(a, wv.x, acc[4 * v]);
+            acc[4 * v + 1] = fmaf(a, wv.y, acc[4 * v + 1]);
+            acc[4 * v + 2] = fmaf(a, wv.z, acc[4 * v + 2]);
+            acc[4 * v + 3] = fmaf(a, wv.w, acc[4 * v + 3]);
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < MLP_GROUP; ++q) {
+          const float z = acc[q] + __ldg(b + j + q);
+          h[out + j + q] = l + 1 < layers ? tanhf(z) : z;
+        }
+      }
+      in = out;
+      w = b + p;
+    }
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      if (i < nx) {
+        const float v = xs[i] + h[in + i];
+        x[i] = (wrap >> i) & 1 ? Pendulum::angle_normalize(v) : v;
+      }
+    }
+  }
+  template <int N>
+  __device__ static float cost(const float* c, const float* x, const float* u, int nx, int nu) {
+    if (c[11] == 0.0f) return Pendulum::cost<N>(c, x, u, nx, nu);
+    float s = 0.0f;
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      if (i < nx) {
+        const float d = c[12 + i] - x[i];
+        s += d * d;
+      }
+    }
+    return s;
   }
 };
 
@@ -1911,7 +2027,7 @@ cudaError_t launch_variant(const Params& p, int variant, size_t smem, cudaStream
   }
 }
 
-// parts 0-4, 11, 12: the single-plant variants and the rollout kernel
+// parts 0-4, 11-13: the single-plant variants and the rollout kernel
 template <class Model, int N>
 cudaError_t launch_tiles(const Params& p, int variant, size_t smem, cudaStream_t s) {
   if (variant == kRollout) {
@@ -1997,6 +2113,13 @@ cudaError_t launch_toy2(const Params& p, int v, size_t smem, cudaStream_t s) {
 #else
 cudaError_t launch_toy2(const Params&, int, size_t, cudaStream_t);
 #endif
+#if FUSED_MPPI_HAS(13)
+cudaError_t launch_mlp2(const Params& p, int v, size_t smem, cudaStream_t s) {
+  return launch_tiles<ResidualMLP, 2>(p, v, smem, s);
+}
+#else
+cudaError_t launch_mlp2(const Params&, int, size_t, cudaStream_t);
+#endif
 #if FUSED_MPPI_HAS(6)
 cudaError_t batched_lq2(const Params& p, int v, size_t smem, cudaStream_t s) {
   return launch_batched<LinearQuadratic, 2>(p, v, smem, s);
@@ -2049,16 +2172,18 @@ using namespace fused_mppi;
 namespace {
 
 // The launcher of a variant for a device model (by id) and its register size
-// (2, 8 or MAXN), or null.
+// (2, 8 or MAXN), or null.  The residual MLP has no batched instantiation.
 Launcher find_launcher(int variant, int model_id, int nx, int nu) {
   const int n = nx > nu ? nx : nu;
-  const Launcher single[3][3] = {{launch_lq2, launch_lq8, launch_lq32},
+  const Launcher single[4][3] = {{launch_lq2, launch_lq8, launch_lq32},
                                  {launch_pendulum2, nullptr, nullptr},
-                                 {launch_toy2, launch_toy8, launch_toy32}};
-  const Launcher batched[3][3] = {{batched_lq2, batched_lq8, batched_lq32},
+                                 {launch_toy2, launch_toy8, launch_toy32},
+                                 {launch_mlp2, nullptr, nullptr}};
+  const Launcher batched[4][3] = {{batched_lq2, batched_lq8, batched_lq32},
                                   {batched_pendulum2, nullptr, nullptr},
-                                  {batched_toy2, batched_toy8, batched_toy32}};
-  if (model_id < 0 || model_id > 2 || n > MAXN) return nullptr;
+                                  {batched_toy2, batched_toy8, batched_toy32},
+                                  {nullptr, nullptr, nullptr}};
+  if (model_id < 0 || model_id > 3 || n > MAXN) return nullptr;
   return (variant == kBatched ? batched : single)[model_id][n <= 2 ? 0 : n <= 8 ? 1 : 2];
 }
 
@@ -2097,6 +2222,14 @@ extern "C" {
 int fused_mppi_block() { return BLOCK; }
 
 int fused_mppi_max_n() { return MAXN; }
+
+// ResidualMLP's layout and bounds: 0 the header's floats, 1 the widest
+// layer, 2 the most layers, 3 the outputs of a group (ops/kernel_models.py
+// checks them)
+int fused_mppi_mlp_limit(int which) {
+  const int limits[4] = {MLP_HEAD, MLP_MAX_WIDTH, MLP_MAX_LAYERS, MLP_GROUP};
+  return which >= 0 && which < 4 ? limits[which] : -1;
+}
 
 // Dynamic shared memory of kernel A with S samples a block (batched_partial
 // for kBatched) with the tiles in shared memory (the wrapper checks it

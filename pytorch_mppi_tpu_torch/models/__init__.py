@@ -1,5 +1,13 @@
-"""Built-in models: the gym pendulum (true dynamics, cost, environment) and
-the 2-D navigation task of the SMPPI/KMPPI comparison."""
+"""Built-in models: the gym pendulum (true dynamics, cost, environment), the
+2-D navigation task of the SMPPI/KMPPI comparison, and the learned
+residual-dynamics MLP with its training step."""
+from .mlp import (
+    make_residual_dynamics,
+    make_train_step,
+    mlp_apply,
+    mlp_init,
+    train_epochs,
+)
 from .pendulum import (
     PENDULUM_MODEL,
     PendulumEnv,
@@ -19,4 +27,9 @@ __all__ = [
     "LQRCost",
     "HillCost",
     "Toy2DEnvironment",
+    "mlp_init",
+    "mlp_apply",
+    "make_residual_dynamics",
+    "make_train_step",
+    "train_epochs",
 ]

@@ -72,6 +72,7 @@ import ctypes
 import torch
 
 from ..config import MPPIConfig
+from . import kernel_models as KM
 from .kernel_models import KernelModel, KernelTerminal, find_kernel_terminal
 
 MPPI, SMPPI, KMPPI, BATCHED = 0, 1, 2, 3  # the kernel's variants (Variant in fused_mppi.cu)
@@ -550,6 +551,11 @@ def _lib():
         lib.fused_mppi_smem_bytes.restype = ctypes.c_longlong
         if lib.fused_mppi_block() != _BLOCK or lib.fused_mppi_max_n() != _MAXN:
             raise RuntimeError("fused_mppi.cu BLOCK or MAXN differs from fused_solve")
+        lib.fused_mppi_mlp_limit.argtypes = [_I]
+        lib.fused_mppi_mlp_limit.restype = _I
+        if [lib.fused_mppi_mlp_limit(i) for i in range(4)] != [
+                KM.MLP_HEAD, KM.MLP_MAX_WIDTH, KM.MLP_MAX_LAYERS, KM.MLP_GROUP]:
+            raise RuntimeError("fused_mppi.cu's ResidualMLP layout differs from kernel_models")
         if any(lib.fused_mppi_smem_bytes(v, D, R, f, S) != smem_bytes(v, D, R, bool(f), S)
                for v in (MPPI, SMPPI, KMPPI, BATCHED) for D, R in ((60, 30), (60, 60), (300, 300))
                for f in (0, 1) for S in TILES):
@@ -603,6 +609,14 @@ def check_kernel_model(config: MPPIConfig, model: KernelModel):
     if max(nx, nu) > _MAXN:
         raise FusedSolveUnavailable(
             f"nx={nx}, nu={nu}: the kernel's device models hold at most {_MAXN} of each")
+    if model.model_id == KM.RESIDUAL_MLP:
+        head = KM.mlp_header(model.consts)
+        if (max(nx, nu) > 2 or head["layers"] > KM.MLP_MAX_LAYERS
+                or max(head["widths"]) > KM.MLP_MAX_WIDTH):
+            raise FusedSolveUnavailable(
+                f"the residual MLP's kernel takes nx, nu <= 2 and at most "
+                f"{KM.MLP_MAX_LAYERS} layers of at most {KM.MLP_MAX_WIDTH} units; this one has "
+                f"nx={nx}, nu={nu} and {head['layers']} layers, widths {head['widths']}")
 
 
 def check_tile(tile_k, K: int) -> int:
@@ -647,6 +661,10 @@ def _make_launch(variant: int, config: MPPIConfig, model: KernelModel, R: int,
             f"kernel terminal cost: the kernel evaluates only those it names "
             f"(ops/kernel_models.quadratic_terminal)")
     check_kernel_model(config, model)
+    if variant == BATCHED and model.model_id == KM.RESIDUAL_MLP:
+        raise FusedSolveUnavailable(
+            "the batched kernel has no residual-MLP instantiation yet (ROADMAP.md Queue 2a "
+            "piece 4, the batched MLP)")
     K, T, nx, nu = config.K, config.T, config.nx, config.nu
     if terminal is not None and terminal.nx != nx:  # the kernel reads goal[:nx]
         raise ValueError(f"terminal cost {terminal.name!r} is for nx={terminal.nx}; the "

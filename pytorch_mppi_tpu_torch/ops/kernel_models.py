@@ -3,7 +3,8 @@
 The JAX package evaluates any traceable dynamics inside its fused kernel by
 interpreting the traced jaxpr batch-axis-last (``pytorch_mppi_tpu/ops/
 batch_last.py``).  A CUDA kernel cannot evaluate a Python callable, so the port
-names its models instead: a :class:`KernelModel` pairs a C++ device model
+names its models instead (the linear-quadratic, pendulum, toy2d and
+residual-MLP models): a :class:`KernelModel` pairs a C++ device model
 compiled into ``csrc/fused_mppi.cu`` (selected by ``model_id``, fed the float32
 ``consts``) with the plain torch ``dynamics`` and ``running_cost`` that compute
 the same thing.  The plain pair is what the controller is given, what the
@@ -31,6 +32,16 @@ import torch
 LINEAR_QUADRATIC = 0
 PENDULUM = 1
 TOY2D = 2
+RESIDUAL_MLP = 3
+
+# csrc/fused_mppi.cu's ResidualMLP: the floats of its constants' header, its
+# compile-time bounds on a layer's width and on the layers, and the outputs
+# a thread computes together (the padded widths of the weights' rows)
+MLP_HEAD = 16
+MLP_MAX_WIDTH = 64
+MLP_MAX_LAYERS = 4
+MLP_GROUP = 8
+MLP_COSTS = ("pendulum", "quadratic")
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -174,3 +185,121 @@ def toy2d_model(dynamics: Callable, running_cost: Callable, B, goal, r: float,
     if consts.numel() != nx * nu + 2 * nx + 2 + nx * nx:
         raise ValueError("toy2d_model needs goal (nx,), hill_Q (nx, nx) and hill_center (nx,)")
     return _tag(KernelModel("toy2d", TOY2D, nx, nu, consts, dynamics, running_cost))
+
+
+def mlp_header(consts: torch.Tensor) -> dict:
+    """What ``ResidualMLP``'s header says: the layer ``widths`` (the inputs,
+    then each layer's outputs), ``clip``, the ``wrap`` and ``encode``
+    state dimensions, and the ``cost``."""
+    layers = int(consts[0])
+
+    def bits(v):
+        return tuple(d for d in range(int(v).bit_length()) if int(v) >> d & 1)
+
+    return dict(widths=[int(w) for w in consts[1:2 + min(layers, MLP_MAX_LAYERS)]],
+                layers=layers, clip=bool(consts[6]), wrap=bits(consts[9]),
+                encode=bits(consts[10]), cost=MLP_COSTS[int(consts[11])])
+
+
+def _mlp_consts(params, nx: int, nu: int, u_clip, angle_wrap_dims, angle_encode_dims,
+                cost: str, goal) -> torch.Tensor:
+    """The float32 constants of ``ResidualMLP``: a header of ``MLP_HEAD``
+    floats (the layer count L, the L + 1 widths, the clip flag and bounds,
+    the wrap and encode masks as bits of the state dimensions, the cost, 0
+    for the pendulum's or 1 for the quadratic's, and its goal), then each
+    layer's W as (n_in, p) rows and b as p floats, p = n_out rounded up to
+    ``MLP_GROUP`` with zeros.  Fields a model beyond the kernel's bounds
+    cannot hold are left out: such a model never reaches the kernel
+    (``fused_solve.check_kernel_model``)."""
+    widths = [params[0][0].shape[0]] + [W.shape[1] for W, _ in params]
+    head = torch.zeros(MLP_HEAD)
+    head[0] = len(params)
+    for i, w in enumerate(widths[:MLP_MAX_LAYERS + 1]):
+        head[1 + i] = w
+    if u_clip is not None:
+        head[6:9] = torch.tensor([1.0, float(u_clip[0]), float(u_clip[1])])
+    head[9] = sum(1 << d for d in angle_wrap_dims)
+    head[10] = sum(1 << d for d in angle_encode_dims)
+    head[11] = MLP_COSTS.index(cost)
+    if cost == "quadratic":
+        head[12:12 + min(nx, 2)] = goal[:2]
+    blocks = [head]
+    for W, b in params:
+        n_in, n_out = W.shape
+        pad = -(-n_out // MLP_GROUP) * MLP_GROUP
+        Wp = torch.zeros(n_in, pad)
+        Wp[:, :n_out] = W.detach().float().cpu()
+        bp = torch.zeros(pad)
+        bp[:n_out] = b.detach().float().cpu()
+        blocks += [Wp.reshape(-1), bp]
+    return torch.cat(blocks)
+
+
+def residual_mlp_model(params, nx: int, nu: int, u_clip=None, angle_wrap_dims=(),
+                       angle_encode_dims=(), cost: str = "pendulum", goal=None) -> KernelModel:
+    """The learned residual model of ``models/mlp.py`` with its weights
+    closed in, as a kernel model: the plain ``dynamics(state, action)`` is
+    ``make_residual_dynamics(nx, nu, u_clip, angle_wrap_dims,
+    angle_encode_dims)`` on a snapshot of ``params`` (``[(W (n_in, n_out),
+    b (n_out,)), ...]``), as JAX bakes a closure's weights into its kernel,
+    and the kernel runs ``csrc/fused_mppi.cu``'s ``ResidualMLP`` on the
+    same weights in float32.  ``cost`` is ``"pendulum"`` (the gym
+    pendulum's running cost, ``models/pendulum.py``; nx = 2) or
+    ``"quadratic"`` (``‖goal − x'‖²``, ``goal`` (nx,)).
+
+    The kernels take up to ``MLP_MAX_LAYERS`` layers of up to
+    ``MLP_MAX_WIDTH`` units and nx, nu ≤ 2; a larger model plans on the
+    plain path with a warning.  Retraining between commands needs the
+    weights as ``dynamics_params``, which takes the plain path."""
+    from ..models.mlp import make_residual_dynamics
+
+    if cost not in MLP_COSTS:
+        raise ValueError(f"cost must be one of {MLP_COSTS}, got {cost!r}")
+    params = [(W.detach().clone(), b.detach().clone()) for W, b in params]
+    wrap, encode = tuple(angle_wrap_dims), tuple(angle_encode_dims)
+    n_in = nx + len(encode) + nu
+    widths = [params[0][0].shape[0]] + [W.shape[1] for W, _ in params] if params else []
+    if (not params or widths[0] != n_in or widths[-1] != nx
+            or any(W.shape != (a, c) or b.shape != (c,)
+                   for (W, b), a, c in zip(params, widths, widths[1:]))):
+        raise ValueError(
+            f"residual_mlp_model needs layers [(W (n_in, n_out), b (n_out,)), ...] from "
+            f"{n_in} inputs (nx + encoded dims + nu) to nx = {nx} outputs; got "
+            f"{[tuple(W.shape) for W, _ in params]}")
+    if not set(wrap + encode) <= set(range(nx)):
+        raise ValueError(f"angle dims {wrap}, {encode} must be state dims of nx = {nx}")
+    if cost == "pendulum" and nx != 2:
+        raise ValueError("the pendulum cost needs nx = 2")
+    if cost == "quadratic":
+        goal = torch.as_tensor(goal, dtype=torch.float32).cpu()
+        if goal.shape != (nx,):
+            raise ValueError(f"the quadratic cost needs goal (nx,) = ({nx},)")
+    dyn = make_residual_dynamics(nx, nu, u_clip, wrap, encode)
+    on = {}
+
+    def weights(device, dtype):
+        key = (device, dtype)
+        if key not in on:  # copied once, so that a CUDA graph captures no copy
+            on[key] = [(W.to(device, dtype), b.to(device, dtype)) for W, b in params]
+        return on[key]
+
+    def dynamics(state, action):
+        return dyn(weights(state.device, state.dtype), state, action)
+
+    if cost == "pendulum":
+        from ..models.pendulum import pendulum_running_cost
+
+        def running_cost(state, action):  # its own function: _tag marks it
+            return pendulum_running_cost(state, action)
+    else:
+        goals = {}
+
+        def running_cost(state, action):
+            key = (state.device, state.dtype)
+            if key not in goals:
+                goals[key] = goal.to(state.device, state.dtype)
+            return ((goals[key] - state) ** 2).sum(dim=-1)
+
+    consts = _mlp_consts(params, nx, nu, u_clip, wrap, encode, cost, goal)
+    return _tag(KernelModel("residual_mlp", RESIDUAL_MLP, nx, nu, consts, dynamics,
+                            running_cost))

@@ -1,4 +1,5 @@
-"""Carry a JAX controller's parameters and nominal sequences into the port.
+"""Carry a JAX controller's parameters and nominal sequences, and a JAX
+MLP's weights, into the port.
 
 Every function takes numpy arrays (``np.asarray`` of the JAX package's
 fields), so this module needs no JAX.  The PRNG key is not carried: the two
@@ -87,3 +88,11 @@ def batched_state_from_numpy(U, seed: int, dtype=torch.float32, device="cpu") ->
     """The port's :class:`BatchedState` with the JAX plants' nominal
     sequences ``U`` (N, T, nu) and a fresh stream ``seed``."""
     return BatchedState(U=_tensor(U, dtype, device), seed=int(seed))
+
+
+def mlp_params_from_numpy(params, dtype=None, device="cpu") -> list:
+    """The port's MLP parameters (``models/mlp.py``) from the JAX ``[(W,
+    b), ...]`` given as numpy arrays: the same layout, each array's own
+    dtype unless ``dtype`` is given."""
+    return [(torch.tensor(np.asarray(W), dtype=dtype, device=device),
+             torch.tensor(np.asarray(b), dtype=dtype, device=device)) for W, b in params]
