@@ -139,13 +139,29 @@ the package is not beside it.  Phases, each fatal when it fails:
    ``examples/smooth_mppi.py`` (MPPI, SMPPI, KMPPI), and
    ``examples/scenario_batch.py``'s loops (N = 16 and N = 1,024: more than
    90 % of the plants end within 0.5 of the goal);
+8. the utilities (``deployment``): the deploy artifact of fused MPPI (also
+   with four elites and the terminal cost), SMPPI and KMPPI at the
+   flagship, of MPPI's legacy route, of MPPI on the learned model and of
+   ``MPPI_Batched`` in seed mode at N = 1,024, K = 16,384, each loaded in a
+   fresh process that imports only the package and replays 20 commands bit
+   for bit against the live controller, with the launch counters read
+   there and the artifact's command median beside the live one; a
+   checkpoint of fused MPPI with four elites restored there into a
+   controller of another seed, whose next 10 commands, eager and in
+   ``run_mppi_jit``'s graph loop, are the original's bit for bit;
+   ``utils/timer.benchmark_command`` against this script's CUDA-event
+   median; and the fused command and the graph loop's step with the
+   kernels launched directly against through their ``torch.library``
+   operators (``ops/library.py``), in turns;
 7. the ``kernels`` line (eight kernels, and the residual MLP's four
    instantiations), the card line, then the last line
    ``{"ok": true, "device": ...}``.
 """
+import contextlib
 import json
 import logging
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -177,12 +193,12 @@ FIRST_MPPI_SEED_MS = 0.04754  # the MPPI pair, seed mode, flagship, as first por
 # D = 300 with a full operator; the batched pair at the main paths' widths;
 # the legacy route's kernels and the sampler (seed and bits mode) at the
 # flagship; and the parent's build time
-BEFORE_MS = {"mppi": 0.019011, "smppi": 0.019974, "kmppi": 0.021030, "rowmajor": 0.022634,
-             "mppi_D300": 0.394286, "smppi_D300": 0.426094, "kmppi_D300": 0.320075,
-             "weighted_update": 0.010016, "rollout": 0.003760, "sampler": 0.006307,
-             "sampler_bits": 0.005326, "batched_operand": 1.072622, "batched_seed": 1.158586,
-             "batched_small_operand": 0.031835}
-BEFORE_BUILD_S = 264.9
+BEFORE_MS = {"mppi": 0.019026, "smppi": 0.019557, "kmppi": 0.021437, "rowmajor": 0.021706,
+             "mppi_D300": 0.392058, "smppi_D300": 0.425274, "kmppi_D300": 0.319928,
+             "weighted_update": 0.010437, "rollout": 0.003950, "sampler": 0.005701,
+             "sampler_bits": 0.005506, "batched_operand": 1.071776, "batched_seed": 1.156416,
+             "batched_small_operand": 0.031957}
+BEFORE_BUILD_S = 161.2
 # the final-state terminal cost of the terminal cases and loops: w_state
 # |x_T - goal|^2 + w_action |u_T|^2 toward the flagship's goal
 TERMINAL_W = (1.0, 0.1)
@@ -203,6 +219,97 @@ MLP_K, MLP_T, MLP_COMMANDS = 10_000, 30, 150
 # the kernel's arithmetic differed by up to 1.1e-4 relative at this shape)
 MLP_RTOL, MLP_ATOL = 2e-4, 1e-4
 WRAP_EDGE = 1e-4  # within this of ±pi the kernel and the plain version may wrap apart
+# the deployment phase (8): commands each artifact replays in a fresh process
+# against the live controller, commands timed for the medians (after a
+# warm-up), and the commands a restored checkpoint continues for
+DEPLOY_COMMANDS, DEPLOY_TIMED, DEPLOY_WARMUP, CKPT_COMMANDS = 20, 200, 10, 10
+# the fresh process of phase 8: it imports only pytorch_mppi_tpu_torch (and
+# torch and numpy), loads each artifact and replays its commands on the
+# live controller's states, then restores the checkpoint into a controller
+# of another seed and continues it eagerly and in run_mppi_jit's graph loop
+SERVE_CHILD = r"""
+import json, statistics, sys
+import numpy as np
+import torch
+from pytorch_mppi_tpu_torch import MPPI, linear_quadratic, run_mppi_jit
+from pytorch_mppi_tpu_torch.ops import fused_solve as FS
+from pytorch_mppi_tpu_torch.utils import checkpoint, deploy
+
+torch.backends.cuda.matmul.allow_tf32 = False
+jobs = json.load(open(sys.argv[1]))
+dev = torch.device(jobs["device"])
+report = {"artifacts": {}}
+if dev.type == "cpu":  # a rehearsal without a card: the host clock for the events
+    import time
+
+    class _Event:
+        def record(self):
+            self.t = time.perf_counter()
+
+        def elapsed_time(self, end):
+            return (end.t - self.t) * 1e3
+
+    torch.cuda.Event = lambda **kw: _Event()
+    torch.cuda.synchronize = lambda *a: None
+
+
+def reset():
+    torch.cuda.synchronize()
+    for name in FS.launches:
+        FS.launches[name] = 0
+
+
+for job in jobs["artifacts"]:
+    solver = deploy.load_solver(job["path"])
+    xs = torch.from_numpy(np.load(job["states"])).to(solver.device)
+    reset()
+    acts = [solver.command(x) for x in xs]
+    torch.cuda.synchronize()
+    launched = dict(FS.launches)
+    np.save(job["actions"], torch.stack(acts).cpu().numpy())
+    lat = []
+    for i in range(jobs["warmup"] + jobs["timed"]):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        solver.command(xs[-1])
+        end.record()
+        if i >= jobs["warmup"]:
+            lat.append((start, end))
+    torch.cuda.synchronize()
+    report["artifacts"][job["name"]] = dict(
+        launches=launched, route=solver.meta["route"],
+        median_ms=statistics.median(a.elapsed_time(b) for a, b in lat))
+
+ck = jobs["checkpoint"]
+lq = linear_quadratic(torch.tensor(ck["B"], device=dev), torch.tensor(ck["goal"], device=dev))
+
+
+def restored():
+    ctrl = MPPI(lq.dynamics, lq.running_cost, 2, torch.eye(2, device=dev),
+                num_samples=ck["K"], horizon=ck["T"], lambda_=1.0, seed=ck["seed"],
+                use_pallas=True, num_elites=ck["elites"], fused_artifacts=True, device=dev)
+    return checkpoint.load_controller(ck["path"], ctrl)
+
+
+x0 = torch.tensor(ck["x"], device=dev)
+x, acts, ctrl = x0, [], restored()
+reset()
+for _ in range(ck["commands"]):
+    a = ctrl.command(x)
+    acts.append(a)
+    x = lq.dynamics(x, a)
+torch.cuda.synchronize()
+eager_launches = dict(FS.launches)
+ctrl = restored()
+reset()
+_, graph_acts, _ = run_mppi_jit(ctrl, lq.dynamics, x0, ck["commands"])
+torch.cuda.synchronize()
+np.savez(ck["actions"], eager=torch.stack(acts).cpu().numpy(), graph=graph_acts.cpu().numpy())
+report["checkpoint"] = dict(eager_launches=eager_launches, graph_launches=dict(FS.launches),
+                            counter=ctrl._state.counter)
+json.dump(report, open(sys.argv[2], "w"))
+print("SERVED OK")
+"""
 
 
 START = time.perf_counter()
@@ -851,6 +958,7 @@ def learned_dynamics(dev, gen):
     params, loss = FKD.train_model(device=dev)
     torch.cuda.synchronize()
     model = FKD.kernel_model(params)
+    report["params"] = params  # for the deployment phase
     print(f"# learned model [3, 32, 32, 2]: loss {loss:.5f} after 300 full-batch epochs on 8,192 "
           f"transitions, {time.perf_counter() - wall:.1f} s on the card")
     check(math.isfinite(loss) and loss < 0.1, f"the learned model did not train: loss {loss}")
@@ -1082,6 +1190,261 @@ def learned_dynamics(dev, gen):
     return report
 
 
+def deployment(dev, lq, goal, mlp_params):
+    """Phase 8: the utilities on the card.
+
+    * the deploy artifact: fused MPPI (also with 4 elites and the terminal
+      cost), SMPPI and KMPPI at the flagship, MPPI on the legacy route,
+      MPPI on ``fused_kernel_demo``'s learned model and ``MPPI_Batched`` in
+      seed mode at N = 1,024, K = 16,384, each exported after three
+      commands and loaded in a fresh process (``SERVE_CHILD``) that
+      replays DEPLOY_COMMANDS commands on the live controller's states: the
+      actions bit for bit the live controller's, the launch counters read
+      in the child; the artifact's command median against the live one;
+    * a checkpoint of fused MPPI with 4 elites after CKPT_COMMANDS
+      commands, restored in the fresh process into a controller of
+      another seed: its next commands, eagerly and in ``run_mppi_jit``'s
+      graph loop, bit for bit the original's;
+    * ``utils/timer.benchmark_command`` against this script's CUDA-event
+      median of the same commands;
+    * the live route through the operators against direct launches: the
+      fused flagship command median and ``run_mppi_jit``'s step, in turns.
+    """
+    from pytorch_mppi_tpu_torch import (
+        KMPPI,
+        MPPI,
+        SMPPI,
+        MPPI_Batched,
+        RBFKernel,
+        quadratic_terminal,
+        run_mppi_jit,
+    )
+    from pytorch_mppi_tpu_torch.examples import fused_kernel_demo as FKD
+    from pytorch_mppi_tpu_torch.models import pendulum_dynamics
+    from pytorch_mppi_tpu_torch.ops import fused_solve as FS
+    from pytorch_mppi_tpu_torch.ops import library
+    from pytorch_mppi_tpu_torch.utils import checkpoint, deploy, timer
+
+    import numpy as np
+
+    out_dir = Path(__file__).resolve().parent / "build" / "deploy"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    report = {"artifacts": {}}
+
+    def reset_launches():
+        torch.cuda.synchronize()
+        for name in FS.launches:
+            FS.launches[name] = 0
+
+    def only(**counts):
+        return {name: counts.get(name, 0) for name in FS.launches}
+
+    def flagship(cls=MPPI, seed=42, **kw):
+        return cls(lq.dynamics, lq.running_cost, nx=NX, noise_sigma=torch.eye(NU, device=dev),
+                   num_samples=K, horizon=T, lambda_=1.0, seed=seed, device=dev, **kw)
+
+    def lq_plant(x, a):
+        return lq.dynamics(x, a)
+
+    def pendulum_plant(x, a):
+        return pendulum_dynamics(x[None], a[None])[0]
+
+    def median_command_ms(ctrl, x, n=DEPLOY_TIMED, reset=False):
+        """Median ms of ``command(x)`` between CUDA events, after a warm-up."""
+        lat = []
+        for i in range(DEPLOY_WARMUP + n):
+            if reset:
+                ctrl.reset()
+                torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            ctrl.command(x)
+            end.record()
+            if i >= DEPLOY_WARMUP:
+                lat.append((start, end))
+        torch.cuda.synchronize()
+        return statistics.median(a.elapsed_time(b) for a, b in lat)
+
+    sigma_b = 0.5 * torch.eye(NX, device=dev)
+    ub = torch.ones(NX, device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(42)
+    batch_x0 = torch.rand(BATCH_N, NX, generator=g, device=dev) * 4 - 4
+    flag_x0 = torch.tensor([-3.0, -2.0], device=dev)
+    paths = {  # name: (controller, plant, start, launches of one command)
+        "mppi fused": (lambda: flagship(use_pallas=True), lq_plant, flag_x0, dict(mppi=1)),
+        "mppi fused, 4 elites, terminal": (
+            lambda: flagship(use_pallas=True, num_elites=ELITES, fused_artifacts=True,
+                             terminal_final_cost=quadratic_terminal(goal, *TERMINAL_W)),
+            lq_plant, flag_x0, dict(mppi=1)),
+        "smppi fused": (lambda: flagship(SMPPI, use_pallas=True, w_action_seq_cost=1.0,
+                                         delta_t=1.0, action_min=torch.tensor([-3.0, -3.0]),
+                                         action_max=torch.tensor([3.0, 3.0])),
+                        lq_plant, flag_x0, dict(smppi=1)),
+        "kmppi fused": (lambda: flagship(KMPPI, use_pallas=True, num_support_pts=NSP,
+                                         kernel=RBFKernel(2.0)), lq_plant, flag_x0,
+                        dict(kmppi=1)),
+        "mppi rollout": (lambda: flagship(use_pallas="rollout"), lq_plant, flag_x0,
+                         dict(rollout=1, weighted_update=1)),
+        "mlp mppi fused": (lambda: FKD.planner(mlp_params, True, device=dev), pendulum_plant,
+                           torch.tensor([math.pi, 1.0], device=dev), dict(mppi=1)),
+        f"batched seed N={BATCH_N}": (
+            lambda: MPPI_Batched(lq.dynamics, lq.running_cost, nx=NX, noise_sigma=sigma_b,
+                                 num_envs=BATCH_N, num_samples=BATCH_K, horizon=T, lambda_=1.0,
+                                 u_min=-ub, u_max=ub, seed=0, use_pallas="kernel_rng",
+                                 device=dev), lq_plant, batch_x0, dict(batched=2)),
+    }
+    jobs = {"artifacts": [], "warmup": DEPLOY_WARMUP, "timed": DEPLOY_TIMED, "device": str(dev)}
+    live = {}
+    for i, (name, (build, plant, x, per_command)) in enumerate(paths.items()):
+        ctrl = build()
+        check(ctrl._fns.fused, f"deploy [{name}] did not take a kernel route")
+        for _ in range(3):
+            x = plant(x, ctrl.command(x))
+        path = out_dir / f"artifact{i}.npz"
+        wall = time.perf_counter()
+        deploy.export_solver(ctrl, str(path))
+        export_s = time.perf_counter() - wall
+        xs, acts = [], []
+        reset_launches()
+        for _ in range(DEPLOY_COMMANDS):
+            xs.append(x)
+            a = ctrl.command(x)
+            acts.append(a)
+            x = plant(x, a)
+        torch.cuda.synchronize()
+        expect = only(**{k: v * DEPLOY_COMMANDS for k, v in per_command.items()})
+        check(FS.launches == expect, f"deploy [{name}] live launches {FS.launches}, expected "
+              f"{expect}")
+        np.save(out_dir / f"states{i}.npy", torch.stack(xs).cpu().numpy())
+        live[name] = dict(actions=torch.stack(acts).cpu().numpy(), expect=expect,
+                          median_ms=median_command_ms(ctrl, xs[-1]), export_s=export_s,
+                          mbytes=path.stat().st_size / 2**20)
+        jobs["artifacts"].append(dict(name=name, path=str(path),
+                                      states=str(out_dir / f"states{i}.npy"),
+                                      actions=str(out_dir / f"actions{i}.npy")))
+        del ctrl
+        torch.cuda.empty_cache()
+
+    # the checkpoint: fused MPPI with 4 elites, saved after CKPT_COMMANDS
+    # commands; the original continues eagerly, then from a snapshot of the
+    # same state in run_mppi_jit's graph loop
+    ctrl = flagship(use_pallas=True, num_elites=ELITES, fused_artifacts=True)
+    x = flag_x0
+    for _ in range(CKPT_COMMANDS):
+        x = lq.dynamics(x, ctrl.command(x))
+    ck_path = out_dir / "checkpoint.npz"
+    checkpoint.save_controller(str(ck_path), ctrl)
+    snap, x_s = checkpoint.snapshot(ctrl), x
+    acts = []
+    for _ in range(CKPT_COMMANDS):
+        a = ctrl.command(x)
+        acts.append(a)
+        x = lq.dynamics(x, a)
+    ck_eager = torch.stack(acts).cpu().numpy()
+    checkpoint.restore(ctrl, snap)
+    _, ck_graph, _ = run_mppi_jit(ctrl, lq.dynamics, x_s, CKPT_COMMANDS)
+    ck_graph = ck_graph.cpu().numpy()
+    check(np.array_equal(ck_eager, ck_graph), "checkpoint: the original's graph loop differs "
+          "from its eager loop after the restore")
+    jobs["checkpoint"] = dict(path=str(ck_path), actions=str(out_dir / "ck_actions.npz"),
+                              B=lq.consts[:NX * NU].reshape(NX, NU).tolist(),
+                              goal=goal.tolist(), K=K, T=T, seed=1234, elites=ELITES,
+                              x=x_s.tolist(), commands=CKPT_COMMANDS)
+    del ctrl
+    torch.cuda.empty_cache()
+
+    # the fresh process
+    job_file, result_file = out_dir / "jobs.json", out_dir / "served.json"
+    job_file.write_text(json.dumps(jobs))
+    root = Path(__file__).resolve().parent
+    wall = time.perf_counter()
+    child = subprocess.run([sys.executable, "-c", SERVE_CHILD, str(job_file), str(result_file)],
+                           cwd=root, env={**os.environ, "PYTHONPATH": str(root)},
+                           capture_output=True, text=True, timeout=600)
+    child_s = time.perf_counter() - wall
+    check(child.returncode == 0 and "SERVED OK" in child.stdout,
+          f"the serving process failed: {child.stdout[-3000:]} {child.stderr[-3000:]}")
+    served = json.loads(result_file.read_text())
+    print(f"# deploy: the fresh process loaded {len(paths)} artifacts and the checkpoint in "
+          f"{child_s:.1f} s")
+    for i, (name, row) in enumerate(live.items()):
+        got = np.load(out_dir / f"actions{i}.npy")
+        child_row = served["artifacts"][name]
+        same = np.array_equal(got, row["actions"])
+        print(f"# deploy [{name}] ({child_row['route']} route): {DEPLOY_COMMANDS} commands in "
+              f"the fresh process bit for bit the live controller's: {same} | launches "
+              f"{child_row['launches']} | command median artifact {child_row['median_ms']:.4f} ms "
+              f"against live {row['median_ms']:.4f} ms ({child_row['median_ms'] / row['median_ms']:.3f}x) "
+              f"| export {row['export_s']:.2f} s, {row['mbytes']:.3f} MiB")
+        check(same, f"deploy [{name}]: the artifact's actions differ from the live controller's")
+        check(child_row["launches"] == row["expect"],
+              f"deploy [{name}]: the child launched {child_row['launches']}, expected "
+              f"{row['expect']}")
+        report["artifacts"][name] = dict(child_row, live_median_ms=row["median_ms"],
+                                         export_s=row["export_s"], mbytes=row["mbytes"])
+    ck = np.load(jobs["checkpoint"]["actions"])
+    ck_report = served["checkpoint"]
+    same_eager, same_graph = np.array_equal(ck["eager"], ck_eager), np.array_equal(ck["graph"],
+                                                                                    ck_graph)
+    print(f"# checkpoint: fused MPPI with {ELITES} elites after {CKPT_COMMANDS} commands, "
+          f"restored in the fresh process into a controller of seed 1234: the next "
+          f"{CKPT_COMMANDS} commands bit for bit the original's, eager {same_eager}, graph loop "
+          f"{same_graph} | launches eager {ck_report['eager_launches']['mppi']}, graph loop "
+          f"{ck_report['graph_launches']['mppi']}")
+    check(same_eager and same_graph, "checkpoint: the restored controller did not continue bit "
+          "for bit")
+    check(ck_report["eager_launches"] == only(mppi=CKPT_COMMANDS)
+          and ck_report["graph_launches"] == only(mppi=CKPT_COMMANDS),
+          f"checkpoint: launches {ck_report}")
+    report["checkpoint"] = dict(ck_report, eager_same=same_eager, graph_same=same_graph)
+
+    # the timer against this script's CUDA-event median, same protocol
+    ctrl = flagship(use_pallas=True)
+    stats = timer.benchmark_command(ctrl, flag_x0, num_warmup=DEPLOY_WARMUP,
+                                    num_iters=DEPLOY_TIMED)
+    own = median_command_ms(ctrl, flag_x0, reset=True)
+    ratio = stats["median_s"] * 1e3 / own
+    print(f"# timer.benchmark_command [mppi fused]: median {stats['median_s'] * 1e3:.4f} ms (host "
+          f"clock, synchronised) against this script's CUDA-event median {own:.4f} ms: {ratio:.3f}x")
+    check(1 / 3 <= ratio <= 3, f"timer.benchmark_command disagrees with the CUDA events: {ratio}")
+    report["timer"] = dict(benchmark_median_ms=stats["median_s"] * 1e3, events_median_ms=own)
+    del ctrl
+
+    # the live route: direct launches against launches through the
+    # operators, in turns, at the flagship (commands and the graph loop)
+    turns = {False: [], True: []}
+    for through_op in (False, True, True, False):
+        with library.exporting() if through_op else contextlib.nullcontext():
+            ctrl = flagship(use_pallas=True)
+            cmd_ms = median_command_ms(ctrl, flag_x0, n=COMMANDS)
+            ctrl = flagship(use_pallas=True)
+            run_mppi_jit(ctrl, lq.dynamics, flag_x0, COMMANDS)  # captures
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            run_mppi_jit(ctrl, lq.dynamics, flag_x0, COMMANDS)
+            end.record()
+            torch.cuda.synchronize()
+        step_ms = start.elapsed_time(end) / COMMANDS
+        turns[through_op].append(dict(command_ms=cmd_ms, graph_step_ms=step_ms))
+        route = "through the operators" if through_op else "direct launch"
+        print(f"# live route [mppi fused] {route}: command median {cmd_ms:.4f} ms over "
+              f"{COMMANDS} commands | run_mppi_jit graph step {step_ms:.4f} ms (mean over "
+              f"{COMMANDS} steps)")
+        del ctrl
+    med = {k: {m: statistics.median(t[m] for t in v) for m in ("command_ms", "graph_step_ms")}
+           for k, v in turns.items()}
+    cost = med[True]["command_ms"] - med[False]["command_ms"]
+    print(f"# live route: the operators' dispatch costs {cost:.4f} ms a command, "
+          f"{cost / med[False]['command_ms']:.3f} of the direct command median "
+          f"{med[False]['command_ms']:.4f} ms (limit 0.10); graph step through the operators "
+          f"{med[True]['graph_step_ms']:.4f} ms against direct {med[False]['graph_step_ms']:.4f} ms"
+          f" | the live path launches directly")
+    report["live_route"] = dict(turns=turns, median=med)
+    return report
+
+
 def card_line():
     try:
         smi = subprocess.run(
@@ -1126,6 +1489,7 @@ def main():
     from pytorch_mppi_tpu_torch.ops import _build
     from pytorch_mppi_tpu_torch.ops import fused_solve as FS
     from pytorch_mppi_tpu_torch.ops import legacy as LG
+    from pytorch_mppi_tpu_torch.ops import library
     from pytorch_mppi_tpu_torch.ops import rowmajor as RM
     from pytorch_mppi_tpu_torch.ops import solve as PS
     from pytorch_mppi_tpu_torch.ops.kernels import interpolation_operators
@@ -1370,14 +1734,21 @@ def main():
         torch.cuda.synchronize()
         return all(torch.equal(a, b) for out in outs for a, b in zip(first, out))
 
-    for variant in FS.VARIANTS:
-        cfg = MPPIConfig(nx=2, nu=NU, K=K, T=T, diag_sigma=True,
-                         num_support_pts=NSP if variant == "kmppi" else 0,
-                         smppi=variant == "smppi")
-        same = repeats_agree(factories[variant](cfg, lq), (4321, 8765),
-                             operands(variant, cfg, lq, 0.0, 0.8, 0.05, 1.5, 1.0, 1.0, 3.0, 0.5))
-        print(f"# {variant}: {REPEATS} calls in a row identical to the first: {same}")
-        check(same, f"{variant}: repeated calls differ (the merge counter did not reset)")
+    # directly and through kernel A's operator (ops/library.py), whose
+    # merge counter torch.export does not see: it resets all the same
+    for through_op in (False, True):
+        for variant in FS.VARIANTS:
+            cfg = MPPIConfig(nx=2, nu=NU, K=K, T=T, diag_sigma=True,
+                             num_support_pts=NSP if variant == "kmppi" else 0,
+                             smppi=variant == "smppi")
+            with library.exporting() if through_op else contextlib.nullcontext():
+                same = repeats_agree(factories[variant](cfg, lq), (4321, 8765),
+                                     operands(variant, cfg, lq, 0.0, 0.8, 0.05, 1.5, 1.0, 1.0,
+                                              3.0, 0.5))
+            route = "through its operator" if through_op else "directly"
+            print(f"# {variant}: {REPEATS} calls in a row {route} identical to the first: {same}")
+            check(same, f"{variant}: repeated calls {route} differ (the merge counter did not "
+                  f"reset)")
 
     # elite reuse: kernel A with the (E, D) elites operand against its plain
     # version at the flagship, with the perturbed set emitted: (name, E,
@@ -2979,6 +3350,10 @@ def main():
               f"{use_pallas!r}: {converged}/{N_} plants converged, settled at {settled}")
         expect = only(batched=2 * SCENARIO_STEPS) if use_pallas else only()
         check(FS.launches == expect, f"scenario loop launched {FS.launches}, expected {expect}")
+
+    # -- 8. the utilities: deploy artifacts, checkpoints, timer -----------------
+    stamp("8")
+    deployment(dev, lq, goal, mlp["params"])
 
     # -- 7. the kernels line and the last line ---------------------------------
     stamp("7")

@@ -23,6 +23,7 @@ from .config import (
     SMPPIState,
 )
 from .controller import KMPPI, MPPI, SMPPI, MPPI_Batched, SpecificActionSampler
+from .ops import library  # noqa: F401  (registers the kernels' operators)
 from .ops.kernels import BSplineKernel, RBFKernel, TimeKernel
 from .ops.kernel_models import KernelModel, linear_quadratic, quadratic_terminal
 from .runner import run_mppi, run_mppi_jit

@@ -6,10 +6,13 @@ the reference's SMPPI/KMPPI comparison, ``tests/smooth_mppi.py:30-115``).
 fused kernel's toy2d model (``env.kernel_model``), so ``SMPPI(env.dynamics,
 env.running_cost, ..., use_pallas=True)`` runs the CUDA kernel on the card.
 Like the controllers, the environment lives on the card unless it is given
-``device="cpu"``.  The drawing of the JAX environment is not ported here.
+``device="cpu"``.  Its drawing (``start_visualization``, ``draw_costs``,
+``draw_rollouts``, ``draw_trajectory``, ``save_figure``) is the JAX
+environment's, headless (matplotlib's Agg backend).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..ops.kernel_models import toy2d_model
@@ -103,6 +106,61 @@ class Toy2DEnvironment:
     def terminal_cost(self, states, actions):
         """Scaled running cost of the last state (smooth_mppi.py pattern)."""
         return self.terminal_scale * self.running_cost(states[..., -1, :])
+
+    # -- visualization (reference smooth_mppi.py:127-235; PNG output instead of
+    #    interactive windows so it runs headless) ------------------------------
+
+    def start_visualization(self):
+        """Create the cost-landscape figure (matplotlib required)."""
+        import matplotlib
+
+        matplotlib.use("Agg")
+        from matplotlib import pyplot as plt
+
+        self.fig, self.ax = plt.subplots(figsize=(7, 7))
+        self.ax.set_aspect("equal")
+        self.ax.set(xlim=self.state_ranges[0], ylim=self.state_ranges[1])
+        self.draw_costs()
+        self.ax.scatter([float(self.start[0])], [float(self.start[1])],
+                        color="tab:blue", label="start")
+        self.ax.scatter([float(self.goal[0])], [float(self.goal[1])],
+                        color="tab:green", label="goal")
+        self.ax.legend()
+        return self.fig
+
+    def draw_costs(self, resolution=0.1):
+        """Contour plot of the running-cost landscape (smooth_mppi.py:209-235)."""
+        xs = np.arange(*self.state_ranges[0], resolution)
+        ys = np.arange(*self.state_ranges[1], resolution)
+        XX, YY = np.meshgrid(xs, ys)
+        pts = torch.as_tensor(np.stack([XX.ravel(), YY.ravel()], axis=1), dtype=self.dtype,
+                              device=self.device)
+        val = self.running_cost(pts).cpu().numpy().reshape(XX.shape)
+        c = self.ax.contourf(
+            XX, YY, val,
+            levels=[2, 4, 8, 16, 24, 32, 40, 50, 60, 80, 100, 150, 200, 250],
+            cmap="Greys",
+        )
+        self.ax.contour(XX, YY, val, levels=c.levels, colors="k",
+                        linestyles="dashed", linewidths=0.5)
+        return c
+
+    def draw_rollouts(self, rollouts, color="skyblue"):
+        """Overlay candidate rollouts (R, T, 2), tensors or arrays
+        (smooth_mppi.py:199-208)."""
+        start = self.start.cpu().numpy()[None]
+        for rollout in torch.as_tensor(rollouts).cpu().numpy():
+            r = np.concatenate([start, rollout], axis=0)
+            self.ax.plot(r[:, 0], r[:, 1], color=color, linewidth=0.8)
+            self.ax.scatter(r[-1, 0], r[-1, 1], color="tab:red", s=8)
+
+    def draw_trajectory(self, states, color="tab:orange", label=None):
+        s = torch.as_tensor(states).cpu().numpy()
+        self.ax.plot(s[:, 0], s[:, 1], color=color, linewidth=2, label=label)
+
+    def save_figure(self, path):
+        self.fig.savefig(path, dpi=120, bbox_inches="tight")
+        return path
 
     def reset(self):
         self.state = self.start

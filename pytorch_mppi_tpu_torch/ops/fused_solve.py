@@ -62,12 +62,19 @@ polynomial XLA uses for ``erf_inv``, in both the kernel and the plain version.
 The kernel keeps its per-block tiles in shared memory when they fit in
 Hopper's 227 KB, else in a global scratch; the device models hold nx and nu
 up to 32.  Kernel A's merge counts its finished blocks in an int32 counter
-that each factory allocates once per device: two calls of one factory must
-not run at once on two streams.
+allocated once per launch configuration (:class:`LaunchSpec`), device and
+stream: launches on one stream run in order, and launches on two streams
+never share a counter.
+
+The wrappers launch through :func:`launch_kernel_a`, directly or through
+the ``torch.library`` operators of ``ops/library.py`` (:func:`via_ops`),
+which ``torch.export`` records in a deployed command (``utils/deploy.py``).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -83,7 +90,11 @@ VARIANTS = ("mppi", "smppi", "kmppi")  # the single-plant variants
 # sampling front-end and the row-major round-1 solve (ops/rowmajor.py)
 KERNELS = VARIANTS + ("batched", "rollout", "weighted_update", "sampler", "rowmajor")
 
-# kernel launches (each kernel launched counts one); chip_smoke.py reads them
+# kernel launches (each kernel launched counts one); chip_smoke.py reads them.
+# Two set-up runs put the counts back as they found them, so that a count
+# is the launches of the commands a caller made: the warm-up and capture of
+# runner._GraphLoop (a replay then counts its captured launches) and the run
+# of each command before utils/deploy.export_solver traces it.
 launches = dict.fromkeys(KERNELS, 0)
 
 MAX_SMEM_BYTES = 232_448  # shared memory one block may use on Hopper
@@ -639,6 +650,177 @@ def merge_counter(counters: dict, device, size: int = 1) -> torch.Tensor:
     return counter
 
 
+# How a wrapper reaches its kernel.  The wrappers call the launch functions
+# below either directly or through their torch.library operators
+# (ops/library.py), which torch.export records: utils/deploy.py routes through
+# the operators while it exports a command (``library.exporting``, which on a
+# CPU tensor routes to the operator's plain version too).  Both call the same
+# launch function.
+_exporting = 0
+
+
+def via_ops() -> bool:
+    """Whether a launch goes through its operator."""
+    return bool(_exporting)
+
+
+class LaunchSpec(NamedTuple):
+    """The static configuration of one launch of kernel A (or of the batched
+    pair), fixed when its wrapper is built: the integers its operator takes
+    (``ops/library.py``), ``u_scale`` aside.  ``antithetic`` and
+    ``null_action`` are the config's; ``R`` is the drawn rows (D, or Dp for
+    KMPPI); ``S`` the samples a block (the batched kernel's BLOCK);
+    ``rowmajor`` selects the round-1 solve's path (``ops/rowmajor.py``)."""
+
+    variant: int
+    model_id: int
+    K: int
+    T: int
+    nx: int
+    nu: int
+    R: int
+    pair_block: int
+    antithetic: int
+    null_action: int
+    abs_cost: int
+    full_op: int
+    emit_perturbed: int
+    plants: int
+    group: int
+    S: int
+    noise_operand: int
+    E: int
+    rowmajor: int = 0
+
+
+@functools.lru_cache(maxsize=None)
+def launch_geometry(spec: LaunchSpec) -> dict:
+    """What a launch of ``spec`` derives from it: the tiles' place (shared
+    memory, or a global scratch of one (rows, S) slice per launched block and
+    tile), the blocks, the padded K and the columns of injected bits."""
+    batched = spec.variant == BATCHED
+    D = spec.T * spec.nu
+    nblocks = -(-spec.K // spec.S)
+    blocks = nblocks * -(-spec.plants // spec.group)
+    if spec.rowmajor:  # the raw normals keep a tile of their own: two (D, S) tiles
+        shared = smem_bytes(MPPI, D, D, True, spec.S) <= MAX_SMEM_BYTES
+        scratch = 0 if shared else nblocks * 2 * D * spec.S
+    else:
+        shared = smem_bytes(spec.variant, D, spec.R, bool(spec.full_op), spec.S) <= MAX_SMEM_BYTES
+        tiles = (2 if spec.full_op else 1) * spec.R * _BLOCK if batched else \
+            partial_tiles(spec.variant, bool(spec.full_op)) * D * spec.S
+        scratch = 0 if shared else blocks * tiles
+    antithetic = bool(spec.antithetic) and not spec.noise_operand  # the operand holds the mirror
+    K_pad = spec.K if spec.noise_operand or spec.rowmajor else padded_k(spec.K, spec.pair_block)
+    return dict(shared=shared, nblocks=nblocks, blocks=blocks, scratch=scratch,
+                antithetic=antithetic, K_pad=K_pad,
+                bits_cols=K_pad // 2 if antithetic else K_pad)
+
+
+_launch_counters = {}  # kernel A's merge counters, by launch spec, stream and device
+
+
+def launch_kernel_a(spec: LaunchSpec, u_scale: float, lead, key, x0T, U2, base, op, mu, lo,
+                    hi, alo, ahi, a_flat, W, lam, w_seq, dt, elites, consts, term):
+    """Launch kernel A (or the batched pair) on CUDA tensors the wrapper has
+    checked: ``lead`` is the noise operand, the (2,) int32 key buffer, the
+    int32 bits, or None with the Philox ``key`` by value.  Returns ``(delta,
+    ms (2[, N]), cost, perturbed or None)``, and counts the launches."""
+    geo = launch_geometry(spec)
+    batched = spec.variant == BATCHED
+    device = x0T.device
+    bits = noise = key_ptr = None
+    if spec.noise_operand:
+        noise = lead
+    elif lead is not None and lead.ndim == 1:
+        key_ptr = lead.data_ptr()
+    else:
+        bits = lead
+    K, plants, D = spec.K, spec.plants, spec.T * spec.nu
+    f32 = dict(dtype=torch.float32, device=device)
+    cost = torch.empty((plants, K) if batched else K, **f32)
+    partial = torch.empty((plants, geo["nblocks"], spec.R + 2), **f32)
+    delta = torch.empty((spec.R, plants) if batched else spec.R, **f32)
+    ms = torch.empty((2, plants) if batched else 2, **f32)
+    pert = torch.empty((D, K), **f32) if spec.emit_perturbed else None
+    scratch = torch.empty(geo["scratch"], **f32) if geo["scratch"] else None
+    stream = stream_of(device)
+    counter = None if batched else merge_counter(
+        _launch_counters.setdefault((spec, stream), {}), device)
+    null_action = bool(spec.null_action) and not batched
+    lib = _lib()
+    if spec.rowmajor:
+        rc = lib.fused_mppi_rowmajor_solve(
+            device_index(device), stream, spec.model_id, consts.data_ptr(), K,
+            spec.T, spec.nx, spec.nu, _ptr(bits), key[0], key[1], int(null_action),
+            spec.abs_cost, x0T.data_ptr(), x0T.stride(0), U2.data_ptr(), op.data_ptr(),
+            mu.data_ptr(), lo.data_ptr(), hi.data_ptr(), a_flat.data_ptr(), lam.data_ptr(),
+            float(u_scale), cost.data_ptr(), partial.data_ptr(), delta.data_ptr(),
+            ms.data_ptr(), _ptr(scratch), spec.S, counter.data_ptr())
+        raise_on_error(lib, rc, "fused_mppi_rowmajor_solve")
+        launches["rowmajor"] += 1
+        return delta, ms, cost, None
+    rc = lib.fused_mppi_launch(
+        device_index(device), stream,
+        spec.variant, spec.model_id, consts.data_ptr(), K, spec.T, spec.nx, spec.nu, spec.R,
+        _ptr(bits), geo["bits_cols"], key[0], key[1], key_ptr, spec.pair_block,
+        int(geo["antithetic"]), int(null_action),
+        spec.abs_cost, x0T.data_ptr(), x0T.stride(0), x0T.stride(1),
+        U2.data_ptr(), _ptr(base), _ptr(op), spec.full_op,
+        _ptr(mu), lo.data_ptr(), hi.data_ptr(), _ptr(alo), _ptr(ahi),
+        a_flat.data_ptr(), _ptr(W), lam.data_ptr(), _ptr(w_seq), _ptr(dt),
+        float(u_scale), cost.data_ptr(), partial.data_ptr(),
+        delta.data_ptr(), ms.data_ptr(), _ptr(pert), _ptr(scratch),
+        plants, U2.stride(0), U2.stride(-1) if batched else 0, a_flat.stride(0),
+        a_flat.stride(-1) if batched else 0, _ptr(noise),
+        noise.stride(0) if noise is not None else 0, spec.group, spec.S, _ptr(counter),
+        _ptr(term), _ptr(elites) if spec.E else None, spec.E, int(null_action),
+    )
+    raise_on_error(lib, rc, "fused_mppi")
+    if batched:
+        launches["batched"] += 2
+    else:
+        launches[VARIANTS[spec.variant]] += 1
+    return delta, ms, cost, pert
+
+
+def plain_kernel_a(spec: LaunchSpec, u_scale: float, lead, key, x0T, U2, base, op, mu, lo,
+                   hi, alo, ahi, a_flat, W, lam, w_seq, dt, elites, consts, term):
+    """:func:`launch_kernel_a`'s plain version, on tensors of any device: the
+    variant's plain function with the device model rebuilt from its
+    constants (:func:`~.kernel_models.plain_model`), as :func:`finish`
+    routes a CPU tensor.  Same results, the perturbed set None unless
+    emitted."""
+    model = KM.plain_model(spec.model_id, consts, spec.nx, spec.nu)
+    seed_or_bits = lead if lead is not None else tuple(key)
+    if spec.rowmajor:
+        from .rowmajor import rowmajor_solve_plain
+
+        delta, m, s, cost = rowmajor_solve_plain(
+            seed_or_bits, x0T, U2, op, mu, lo, hi, a_flat, lam, model=model, K=spec.K,
+            T=spec.T, nu=spec.nu, null_action=bool(spec.null_action),
+            abs_cost=bool(spec.abs_cost), u_scale=u_scale)
+        return delta.reshape(-1), torch.stack([m, s]), cost, None
+    flags = dict(model=model, K=spec.K, T=spec.T, nu=spec.nu,
+                 antithetic=bool(spec.antithetic), abs_cost=bool(spec.abs_cost),
+                 u_scale=u_scale, pair_block=spec.pair_block,
+                 terminal=None if term is None else KM.plain_terminal(term, spec.nx))
+    if spec.variant == BATCHED:
+        return batched_solve_plain(seed_or_bits, x0T, U2, op, mu, lo, hi, a_flat, lam,
+                                   noise_operand=bool(spec.noise_operand), **flags) + (None,)
+    flags.update(null_action=bool(spec.null_action), emit_perturbed=bool(spec.emit_perturbed))
+    if spec.variant == MPPI:
+        out = fused_solve_plain(seed_or_bits, x0T, U2, op, mu, lo, hi, a_flat, lam, elites,
+                                **flags)
+    elif spec.variant == SMPPI:
+        out = smppi_solve_plain(seed_or_bits, x0T, U2, base, op, mu, lo, hi, alo, ahi, a_flat,
+                                lam, w_seq, dt, **flags)
+    else:
+        out = kmppi_solve_plain(seed_or_bits, x0T, U2, base, op, mu, lo, hi, alo, ahi, a_flat,
+                                W, lam, nsp=spec.R // spec.nu, **flags)
+    return out[0], torch.stack([out[1], out[2]]), out[3], out[4] if len(out) > 4 else None
+
+
 def _make_launch(variant: int, config: MPPIConfig, model: KernelModel, R: int,
                  pair_block, emit_perturbed: bool, null_dynamic_gate: bool,
                  terminal_final, plants: int = 1, noise_operand: bool = False,
@@ -649,8 +831,9 @@ def _make_launch(variant: int, config: MPPIConfig, model: KernelModel, R: int,
     ``tile_k`` samples a block (see :func:`check_tile`).  The batched variant
     takes ``plants`` plants, ``group`` of them a block: x0T (nx, N), U2 and
     a_flat (D, N) of any strides, and in operand mode the final (D, ≥K)
-    noise as ``lead``.  Returns ``(launch, flags, info)`` where ``flags`` are
-    the plain version's keyword arguments."""
+    noise as ``lead``.  The launch calls :func:`launch_kernel_a`, directly
+    or through its operator (:func:`via_ops`).  Returns ``(launch, flags,
+    info)`` where ``flags`` are the plain version's keyword arguments."""
     if null_dynamic_gate:
         raise FusedSolveUnavailable(
             "null_dynamic_gate is not ported yet (ROADMAP.md Queue 1 item 12, sharding)")
@@ -671,34 +854,25 @@ def _make_launch(variant: int, config: MPPIConfig, model: KernelModel, R: int,
                          f"config is nx={nx}")
     D = T * nu
     batched = variant == BATCHED
-    antithetic = config.antithetic and not noise_operand  # the operand holds the mirror
     pair_block = pair_block or K + K % 2
-    if antithetic and pair_block % 2:
+    if config.antithetic and not noise_operand and pair_block % 2:
         raise ValueError(f"antithetic pairing needs an even pair_block, got {pair_block}")
     full_op = not (noise_operand or config.diag_sigma and not config.noise_rho)
-    S = _BLOCK if batched else check_tile(tile_k, K)
-    # tiles that do not fit in shared memory go to a global scratch of one
-    # (rows, S) slice per launched block and tile
-    shared = smem_bytes(variant, D, R, full_op, S) <= MAX_SMEM_BYTES
-    nblocks = -(-K // S)
-    blocks = nblocks * -(-plants // group)
-    if batched:
-        scratch_elems = 0 if shared else blocks * (2 if full_op else 1) * R * _BLOCK
-    else:
-        scratch_elems = 0 if shared else blocks * partial_tiles(variant, full_op) * D * S
-    counters = {}
-    K_pad = K if noise_operand else padded_k(K, pair_block)
-    bits_cols = K_pad // 2 if antithetic else K_pad
+    E = config.num_elites if variant == MPPI else 0
+    spec = LaunchSpec(variant, model.model_id, K, T, nx, nu, R, pair_block,
+                      int(config.antithetic), int(config.sample_null_action),
+                      int(config.noise_abs_cost), int(full_op), int(emit_perturbed), plants,
+                      group, _BLOCK if batched else check_tile(tile_k, K), int(noise_operand), E)
+    geo = launch_geometry(spec)
+    spec_ints, u_scale = list(spec), float(config.u_scale)
     flags = dict(model=model, K=K, T=T, nu=nu, antithetic=config.antithetic,
-                 abs_cost=config.noise_abs_cost, u_scale=float(config.u_scale),
+                 abs_cost=config.noise_abs_cost, u_scale=u_scale,
                  pair_block=pair_block, terminal=terminal)
     if batched:
         flags.update(noise_operand=noise_operand)
     else:
         flags.update(null_action=config.sample_null_action, emit_perturbed=emit_perturbed)
-    null_action = config.sample_null_action and not batched
     cols = plants if batched else K
-    E = config.num_elites if variant == MPPI else 0
 
     def launch(lead, x0T, U2, base, op, mu, lo, hi, alo, ahi, a_flat, W, lam,
                w_seq, dt, elites=None):
@@ -722,70 +896,51 @@ def _make_launch(variant: int, config: MPPIConfig, model: KernelModel, R: int,
         for name, t in (("lambda_", lam), ("w_seq", w_seq), ("delta_t", dt)):
             if t is not None:
                 _check(name, t.reshape(1), device, shape=(1,))
-        bits = noise = key_ptr = None
         key = (0, 0)
         if noise_operand:
-            noise = _check("noise", lead, device, contiguous=False)
-            if noise.ndim != 2 or noise.shape[0] != R or noise.shape[1] < K or noise.stride(1) != 1:
+            _check("noise", lead, device, contiguous=False)
+            if lead.ndim != 2 or lead.shape[0] != R or lead.shape[1] < K or lead.stride(1) != 1:
                 raise ValueError(f"the noise operand must be ({R}, >= {K}) with unit column "
-                                 f"stride, got {tuple(noise.shape)} strides {noise.stride()}")
+                                 f"stride, got {tuple(lead.shape)} strides {lead.stride()}")
         elif is_device_key(lead):
-            key_ptr = _check("key", lead, device, dtype=torch.int32, shape=(2,)).data_ptr()
+            _check("key", lead, device, dtype=torch.int32, shape=(2,))
         elif isinstance(lead, torch.Tensor):
-            bits = _check("bits", lead, device, dtype=torch.int32, shape=(R, bits_cols))
+            _check("bits", lead, device, dtype=torch.int32, shape=(R, geo["bits_cols"]))
         else:
-            key = tuple(int(w) & 0xFFFFFFFF for w in lead)
-        consts = model.consts_on(device)
-        term = terminal.consts_on(device) if terminal is not None else None
-        f32 = dict(dtype=torch.float32, device=device)
-        cost = torch.empty((plants, K) if batched else K, **f32)
-        partial = torch.empty((plants, nblocks, R + 2), **f32)
-        delta = torch.empty((R, plants) if batched else R, **f32)
-        ms = torch.empty((2, plants) if batched else 2, **f32)
-        pert = torch.empty((D, K), **f32) if emit_perturbed else None
-        scratch = torch.empty(scratch_elems, **f32) if scratch_elems else None
-        counter = None if batched else merge_counter(counters, device)
-        lib = _lib()
-        rc = lib.fused_mppi_launch(
-            device_index(device), stream_of(device),
-            variant, model.model_id, consts.data_ptr(), K, T, nx, nu, R,
-            _ptr(bits), bits_cols, key[0], key[1], key_ptr, pair_block,
-            int(antithetic), int(null_action),
-            int(config.noise_abs_cost), x0T.data_ptr(), x0T.stride(0), x0T.stride(1),
-            U2.data_ptr(), _ptr(base), _ptr(op), int(full_op),
-            _ptr(mu), lo.data_ptr(), hi.data_ptr(), _ptr(alo), _ptr(ahi),
-            a_flat.data_ptr(), _ptr(W), lam.data_ptr(), _ptr(w_seq), _ptr(dt),
-            float(config.u_scale), cost.data_ptr(), partial.data_ptr(),
-            delta.data_ptr(), ms.data_ptr(), _ptr(pert), _ptr(scratch),
-            plants, U2.stride(0), U2.stride(-1) if batched else 0, a_flat.stride(0),
-            a_flat.stride(-1) if batched else 0, _ptr(noise),
-            noise.stride(0) if noise is not None else 0, group, S, _ptr(counter),
-            _ptr(term), _ptr(elites) if E else None, E, int(null_action),
-        )
-        raise_on_error(lib, rc, "fused_mppi")
-        if batched:
-            launches["batched"] += 2
+            key, lead = tuple(int(w) & 0xFFFFFFFF for w in lead), None
+        args = (lead, key, x0T, U2, base, op, mu, lo, hi, alo, ahi, a_flat, W, lam, w_seq, dt,
+                elites if E else None, model.consts_on(device),
+                terminal.consts_on(device) if terminal is not None else None)
+        if via_ops():
+            if batched:
+                delta, ms, cost = torch.ops.mppi_torch.batched.default(
+                    *args[:4], *args[5:9], args[11], args[13], *args[17:], spec_ints, u_scale)
+            else:
+                delta, ms, cost, pert = torch.ops.mppi_torch.kernel_a.default(
+                    *args, spec_ints, u_scale)
         else:
-            launches[VARIANTS[variant]] += 1
+            delta, ms, cost, pert = launch_kernel_a(spec, u_scale, *args)
         if batched:
             return delta, ms, cost
         out = (delta, ms[0], ms[1], cost)
         return out + (pert,) if emit_perturbed else out
 
-    info = dict(K_pad=K_pad, pair_block=pair_block, bits_cols=bits_cols,
-                tiles="shared" if shared else "global", blocks=blocks)
+    info = dict(K_pad=geo["K_pad"], pair_block=pair_block, bits_cols=geo["bits_cols"],
+                tiles="shared" if geo["shared"] else "global", blocks=geo["blocks"], spec=spec)
     if not batched:
-        info.update(tile_k=S)
+        info.update(tile_k=spec.S)
     return launch, flags, info
 
 
 def finish(solve, plain, flags, info, device_arg: int = 1):
     """Route by the device of argument ``device_arg`` and attach the plain
-    version and the shapes."""
+    version and the shapes.  While a command is exported
+    (:func:`via_ops`) every device goes to ``solve``, whose operator runs
+    the plain version on the CPU."""
 
     def routed(*args):
         device = args[device_arg].device
-        if device.type == "cuda":
+        if device.type == "cuda" or via_ops():
             return solve(*args)
         if device.type != "cpu":
             raise ValueError(f"the fused solve runs on cuda or cpu tensors, not {device}")

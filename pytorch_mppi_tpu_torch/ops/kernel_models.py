@@ -303,3 +303,64 @@ def residual_mlp_model(params, nx: int, nu: int, u_clip=None, angle_wrap_dims=()
     consts = _mlp_consts(params, nx, nu, u_clip, wrap, encode, cost, goal)
     return _tag(KernelModel("residual_mlp", RESIDUAL_MLP, nx, nu, consts, dynamics,
                             running_cost))
+
+
+_PLAIN = {}  # the models plain_model rebuilt, by id, sizes and constants
+
+
+def plain_model(model_id: int, consts: torch.Tensor, nx: int, nu: int) -> KernelModel:
+    """The kernel model that ``model_id`` and its constants name, rebuilt
+    from them alone (a process that holds none of the user's code, as the
+    operators of ``ops/library.py`` run a deployed command): its plain
+    ``dynamics`` and ``running_cost`` compute what the constructors above
+    give on the same constants, in the same operations.  The pendulum's
+    constants are compiled into the kernel: it is ``models/pendulum.py``'s
+    model."""
+    consts = consts.detach().to("cpu", torch.float32)
+    key = (int(model_id), int(nx), int(nu), consts.numpy().tobytes())
+    model = _PLAIN.get(key)
+    if model is not None:
+        return model
+    c = consts.tolist()
+    if model_id == LINEAR_QUADRATIC:
+        model = linear_quadratic(consts[:nx * nu].reshape(nx, nu), consts[nx * nu:nx * nu + nx])
+    elif model_id == PENDULUM:
+        from ..models.pendulum import PENDULUM_MODEL as model
+    elif model_id == TOY2D:
+        from ..models.toy2d import HillCost, LinearDeltaDynamics, LQRCost
+
+        o = nx * nu
+        B, goal, r = consts[:o].reshape(nx, nu), consts[o:o + nx], c[o + nx]
+        Q = consts[o + nx + 1:o + nx + 1 + nx * nx].reshape(nx, nx)
+        center, hill = consts[o + nx + 1 + nx * nx:o + 2 * nx + 1 + nx * nx], c[-1]
+        eye = torch.eye(nx)
+        costs = [LQRCost(eye, eye * r, goal), HillCost(Q, center, cost_at_center=hill)]
+
+        def running_cost(state, action=None):
+            return costs[0](state, action) + costs[1](state, action)
+
+        model = toy2d_model(LinearDeltaDynamics(B), running_cost, B, goal, r, Q, center, hill)
+    elif model_id == RESIDUAL_MLP:
+        head = mlp_header(consts)
+        params, at = [], MLP_HEAD
+        for n_in, n_out in zip(head["widths"], head["widths"][1:]):
+            pad = -(-n_out // MLP_GROUP) * MLP_GROUP
+            W = consts[at:at + n_in * pad].reshape(n_in, pad)[:, :n_out].contiguous()
+            b = consts[at + n_in * pad:at + n_in * pad + n_out].clone()
+            params.append((W, b))
+            at += n_in * pad + pad
+        model = residual_mlp_model(
+            params, nx, nu, u_clip=(c[7], c[8]) if head["clip"] else None,
+            angle_wrap_dims=head["wrap"], angle_encode_dims=head["encode"], cost=head["cost"],
+            goal=consts[12:12 + nx] if head["cost"] == "quadratic" else None)
+    else:
+        raise ValueError(f"no device model has id {model_id}")
+    _PLAIN[key] = model
+    return model
+
+
+def plain_terminal(consts: torch.Tensor, nx: int) -> KernelTerminal:
+    """The kernel terminal cost its constants name (``quadratic_terminal``'s
+    goal and weights), rebuilt from them alone as :func:`plain_model`."""
+    c = consts.detach().to("cpu", torch.float32)
+    return quadratic_terminal(c[:nx], float(c[nx]), float(c[nx + 1])).kernel_terminal

@@ -104,6 +104,22 @@ def _rollout_lib():
     return lib
 
 
+def launch_rollout(x0_K, u_scaled, consts, model_id: int, tile_k: int = None):
+    """Launch the rollout kernel on checked CUDA tensors (the model's
+    ``consts`` on the device): the (K,) costs.  Counts the launch."""
+    device = u_scaled.device
+    K, T, nu = u_scaled.shape
+    cost = torch.empty(K, dtype=torch.float32, device=device)
+    lib = _rollout_lib()
+    rc = lib.fused_mppi_rollout(
+        FS.device_index(device), FS.stream_of(device), model_id, consts.data_ptr(), K, T,
+        x0_K.shape[1], nu, x0_K.data_ptr(), x0_K.stride(1), x0_K.stride(0),
+        u_scaled.data_ptr(), cost.data_ptr(), FS.check_tile(tile_k, K))
+    FS.raise_on_error(lib, rc, "fused_rollout")
+    FS.launches["rollout"] += 1
+    return cost
+
+
 def make_fused_rollout(config: MPPIConfig, model: KernelModel, tile_k: int = None):
     """The K×T rollout of ``model`` as one kernel call: ``rollout(x0_K
     (K, nx) of any strides, u_scaled (K, T, nu) contiguous) -> cost (K,)``.
@@ -111,7 +127,8 @@ def make_fused_rollout(config: MPPIConfig, model: KernelModel, tile_k: int = Non
     holds it); None takes :func:`~.fused_solve.tile_samples` of K and the
     card's SM count at each call.  Raises as
     :func:`~.fused_solve.make_transposed_fused_solve` for the config and
-    model."""
+    model.  The call reaches :func:`launch_rollout` directly or through its
+    operator (:func:`~.fused_solve.via_ops`)."""
     FS.check_kernel_model(config, model)
     if tile_k is not None and tile_k not in FS.TILES:
         raise ValueError(f"tile_k must be one of {FS.TILES}, got {tile_k}")
@@ -121,16 +138,11 @@ def make_fused_rollout(config: MPPIConfig, model: KernelModel, tile_k: int = Non
         device = u_scaled.device
         FS._check("x0_K", x0_K, device, shape=(K, nx), contiguous=False)
         FS._check("u_scaled", u_scaled, device, shape=(K, T, nu))
-        cost = torch.empty(K, dtype=torch.float32, device=device)
-        lib = _rollout_lib()
-        rc = lib.fused_mppi_rollout(
-            FS.device_index(device), FS.stream_of(device), model.model_id,
-            model.consts_on(device).data_ptr(), K, T, nx, nu, x0_K.data_ptr(),
-            x0_K.stride(1), x0_K.stride(0), u_scaled.data_ptr(), cost.data_ptr(),
-            FS.check_tile(tile_k, K))
-        FS.raise_on_error(lib, rc, "fused_rollout")
-        FS.launches["rollout"] += 1
-        return cost
+        consts = model.consts_on(device)
+        if FS.via_ops():
+            return torch.ops.mppi_torch.rollout.default(x0_K, u_scaled, consts,
+                                                        model.model_id, tile_k or 0)
+        return launch_rollout(x0_K, u_scaled, consts, model.model_id, tile_k)
 
     return FS.finish(rollout, fused_rollout_plain, dict(model=model), dict(tile_k=tile_k),
                      device_arg=1)
@@ -194,19 +206,13 @@ def _weighted_lib():
     return lib
 
 
-def _weighted_update_kernel(cost, noise, lambda_, tile_k=None):
+def launch_weighted_update(cost, noise, lam, tile_k: int = None):
+    """Launch the weighted update on checked CUDA tensors (``lam`` a float32
+    tensor of one value): the (D + 2,) result ``(pert, m, s)`` at the end
+    of the call's one allocation.  Counts the launch."""
     device = cost.device
     K, D = noise.shape
-    FS._check("cost", cost, device, shape=(K,))
-    FS._check("noise", noise, device, contiguous=False)
-    if noise.stride(1) != 1:
-        raise ValueError(f"noise must have unit column stride, got strides {noise.stride()}")
     S = FS.check_tile(tile_k, K)
-    lam = lambda_
-    if not (isinstance(lam, torch.Tensor) and lam.dtype == torch.float32
-            and lam.device == device and lam.numel() == 1):
-        lam = FS._check("lambda_", torch.as_tensor(lambda_, dtype=torch.float32, device=device)
-                        .reshape(1), device, shape=(1,))
     partial, gpart, out = weighted_update_buffers(K, D, S, device)
     lib = _weighted_lib()
     rc = lib.fused_mppi_weighted_update(
@@ -215,6 +221,25 @@ def _weighted_update_kernel(cost, noise, lambda_, tile_k=None):
         gpart.data_ptr(), weighted_update_counter(device).data_ptr(), out.data_ptr())
     FS.raise_on_error(lib, rc, "weighted_update")
     FS.launches["weighted_update"] += 1
+    return out
+
+
+def _weighted_update_kernel(cost, noise, lambda_, tile_k=None):
+    device = cost.device
+    K, D = noise.shape
+    FS._check("cost", cost, device, shape=(K,))
+    FS._check("noise", noise, device, contiguous=False)
+    if noise.stride(1) != 1:
+        raise ValueError(f"noise must have unit column stride, got strides {noise.stride()}")
+    lam = lambda_
+    if not (isinstance(lam, torch.Tensor) and lam.dtype == torch.float32
+            and lam.device == device and lam.numel() == 1):
+        lam = FS._check("lambda_", torch.as_tensor(lambda_, dtype=torch.float32, device=device)
+                        .reshape(1), device, shape=(1,))
+    if FS.via_ops():
+        out = torch.ops.mppi_torch.weighted_update.default(cost, noise, lam, tile_k or 0)
+    else:
+        out = launch_weighted_update(cost, noise, lam, tile_k)
     return out[:D], out[D], out[D + 1]
 
 
@@ -222,7 +247,8 @@ def make_weighted_update(tile_k: int = None):
     """:func:`fused_weighted_update` with the kernel's samples a block forced
     to ``tile_k`` (32, 64 or 128; ``.tile_k`` holds it); None takes
     :func:`~.fused_solve.tile_samples` of K and the card's SM count at each
-    call."""
+    call.  The call reaches :func:`launch_weighted_update` directly or
+    through its operator (:func:`~.fused_solve.via_ops`)."""
     if tile_k is not None and tile_k not in FS.TILES:
         raise ValueError(f"tile_k must be one of {FS.TILES}, got {tile_k}")
 

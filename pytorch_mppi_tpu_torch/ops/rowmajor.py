@@ -302,8 +302,9 @@ def make_fused_solve(config: MPPIConfig, model: KernelModel, tile_k: int = None)
     the config's, and :class:`~.fused_solve.FusedSolveUnavailable` for a
     step-dependent config (the device models take no timestep) or nx or nu
     above 32.  ``tile_k`` forces kernel A's samples a block, as for
-    :func:`~.fused_solve.make_transposed_fused_solve`; the merge counter is
-    the factory's, so two calls must not run at once on two streams."""
+    :func:`~.fused_solve.make_transposed_fused_solve`; kernel A's merge
+    counter is its launch spec's and stream's (``fused_solve``'s
+    docstring)."""
     if config.step_dependent_dynamics:
         raise FS.FusedSolveUnavailable(
             "step-dependent dynamics: the kernel's device models take no timestep")
@@ -311,15 +312,14 @@ def make_fused_solve(config: MPPIConfig, model: KernelModel, tile_k: int = None)
     K, T, nx, nu = config.K, config.T, config.nx, config.nu
     D = T * nu
     block_k, K_pad = fused_solve_block_and_pad(K)
-    S = FS.check_tile(tile_k, K)
-    # the raw normals keep a tile of their own: two (D, S) tiles, in shared
-    # memory when they fit, else in a global scratch
-    shared = FS.smem_bytes(FS.MPPI, D, D, True, S) <= FS.MAX_SMEM_BYTES
-    nblocks = -(-K // S)
-    scratch_elems = 0 if shared else nblocks * 2 * D * S
-    counters = {}
+    # kernel A's launch with its rowmajor flag (FS.launch_kernel_a), through
+    # the same operator
+    spec = FS.LaunchSpec(FS.MPPI, model.model_id, K, T, nx, nu, D, 0, 0,
+                         int(config.sample_null_action), int(config.noise_abs_cost), 1, 0, 1,
+                         1, FS.check_tile(tile_k, K), 0, 0, rowmajor=1)
+    spec_ints, u_scale = list(spec), float(config.u_scale)
     flags = dict(model=model, K=K, T=T, nu=nu, null_action=config.sample_null_action,
-                 abs_cost=config.noise_abs_cost, u_scale=float(config.u_scale))
+                 abs_cost=config.noise_abs_cost, u_scale=u_scale)
 
     def solve(seed_or_bits, x0, U, chol, mu, lo, hi, a_flat, lambda_):
         device = x0.device
@@ -333,25 +333,15 @@ def make_fused_solve(config: MPPIConfig, model: KernelModel, tile_k: int = None)
                                                                             ("hi", hi)))
         lam = _vec("lambda_", lambda_, 1, device, scalar_ok=True)
         bits, key = _lead(seed_or_bits, (K_pad, D), device)
-        f32 = dict(dtype=torch.float32, device=device)
-        cost = torch.empty(K, **f32)
-        partial = torch.empty((nblocks, D + 2), **f32)
-        delta = torch.empty(D, **f32)
-        ms = torch.empty(2, **f32)
-        scratch = torch.empty(scratch_elems, **f32) if scratch_elems else None
-        lib = FS._lib()
-        rc = lib.fused_mppi_rowmajor_solve(
-            FS.device_index(device), FS.stream_of(device), model.model_id,
-            model.consts_on(device).data_ptr(), K, T, nx, nu, FS._ptr(bits), key[0], key[1],
-            int(config.sample_null_action), int(config.noise_abs_cost), x0.data_ptr(),
-            x0.stride(0), U.data_ptr(), chol.data_ptr(), mu.data_ptr(), lo.data_ptr(),
-            hi.data_ptr(), a_flat.data_ptr(), lam.data_ptr(), float(config.u_scale),
-            cost.data_ptr(), partial.data_ptr(), delta.data_ptr(), ms.data_ptr(),
-            FS._ptr(scratch), S, FS.merge_counter(counters, device).data_ptr())
-        FS.raise_on_error(lib, rc, "fused_mppi_rowmajor_solve")
-        FS.launches["rowmajor"] += 1
+        args = (bits, key, x0, U, None, chol, mu, lo, hi, None, None, a_flat, None, lam, None,
+                None, None, model.consts_on(device), None)
+        if FS.via_ops():
+            delta, ms, cost, _ = torch.ops.mppi_torch.kernel_a.default(*args, spec_ints, u_scale)
+        else:
+            delta, ms, cost, _ = FS.launch_kernel_a(spec, u_scale, *args)
         return delta.reshape(T, nu), ms[0], ms[1], cost
 
+    geo = FS.launch_geometry(spec)
     return FS.finish(solve, rowmajor_solve_plain, flags,
-                     dict(K_pad=K_pad, block_k=block_k, tile_k=S,
-                          tiles="shared" if shared else "global"))
+                     dict(K_pad=K_pad, block_k=block_k, tile_k=spec.S,
+                          tiles="shared" if geo["shared"] else "global", spec=spec))

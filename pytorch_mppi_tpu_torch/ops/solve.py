@@ -47,6 +47,7 @@ fresh intermediates the function itself allocated.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import math
@@ -115,28 +116,53 @@ def step_generator(seed: int, t: int, device) -> torch.Generator:
     return _generator(iteration_seed(seed, t), device)
 
 
-def standard_normal(generator: torch.Generator, shape, dtype, device) -> torch.Tensor:
-    """N(0, 1) draws: the one place the plain path takes random numbers."""
+class FedDraws:
+    """An iteration's N(0, 1) draws given as a tensor, in place of its
+    generator, while the body of a command is exported
+    (:meth:`CommandStreams.fed`)."""
+
+    def __init__(self, draws: torch.Tensor):
+        self.draws = draws
+
+
+def standard_normal(generator, shape, dtype, device) -> torch.Tensor:
+    """N(0, 1) draws: the one place the plain path takes random numbers
+    (the tensor of a :class:`FedDraws` in place of a generator)."""
+    if isinstance(generator, FedDraws):
+        if tuple(generator.draws.shape) != tuple(shape):
+            raise ValueError(f"fed draws are {tuple(generator.draws.shape)}, the step draws "
+                             f"{tuple(shape)}")
+        return generator.draws
     return torch.randn(shape, generator=generator, dtype=dtype, device=device)
 
 
 class _DeviceStreams:
     """The generators and the kernels' key buffer of one step on one
-    device (:class:`CommandStreams`)."""
+    device (:class:`CommandStreams`), or in their place the tensors of
+    :meth:`CommandStreams.feeds` (``feeds``)."""
 
-    def __init__(self, streams: "CommandStreams", device: torch.device):
+    def __init__(self, streams: "CommandStreams", device: torch.device, feeds=None):
         n_iter, T = streams.n_iter, streams.T
 
         def gens(n):
             return [torch.Generator(device=device) for _ in range(n)]
 
         self.device = device
-        self.keys = (torch.zeros((n_iter, 2), dtype=torch.int32, device=device)
-                     if streams.kernel_keys else None)
+        feeds = None if feeds is None else list(feeds)
+        if not streams.kernel_keys:
+            self.keys = None
+        elif feeds is None:
+            self.keys = torch.zeros((n_iter, 2), dtype=torch.int32, device=device)
+        else:
+            self.keys = feeds.pop(0)
         # each iteration's noise source for the kernel: a row of the key
         # buffer, or the bits FS.key_to_seed gave in its place
-        self.leads = [None] * n_iter
-        self.noise = gens(n_iter) if streams.noise else None
+        self.leads = ([None] * n_iter if feeds is None or self.keys is None
+                      else [self.keys[it] for it in range(n_iter)])
+        if not streams.noise:
+            self.noise = None
+        else:
+            self.noise = gens(n_iter) if feeds is None else [FedDraws(d) for d in feeds]
         self.rollout = [gens(T) for _ in range(n_iter)] if streams.rollout else None
         self.refine = [gens(T) for _ in range(streams.refine_steps)]
 
@@ -183,6 +209,12 @@ class CommandStreams:
         self.rollout = config.stochastic_dynamics
         self.refine_steps = (config.gradient_refinement_steps
                              if refine and config.stochastic_dynamics else 0)
+        self.dtype = config.dtype
+        # an iteration's one draw from its noise generator: (K, reps·nu),
+        # half the rows with antithetic sampling (sample_noise_flat)
+        reps = config.num_support_pts or config.T
+        self.draw_shape = ((config.K + 1) // 2 if config.antithetic else config.K,
+                           reps * config.nu)
         self._on = {}
 
     def on(self, device) -> _DeviceStreams:
@@ -229,6 +261,39 @@ class CommandStreams:
             else:
                 slots.keys.copy_(host)
         return slots
+
+    def feeds(self, seed: int, counter: int, device) -> list:
+        """What an exported body takes in place of the streams of the
+        command at ``counter`` (``utils/deploy.py``): the (n_iter, 2) key
+        buffer, then each iteration's N(0, 1) draws, drawn here from the
+        generators the live body would draw them from.  Streams of the
+        stochastic rollouts and of refinement have no feed."""
+        if self.rollout or self.refine_steps:
+            raise NotImplementedError("the streams of stochastic dynamics have no feed")
+        slots = self.prologue(seed, counter, device)
+        out = [slots.keys] if self.kernel_keys else []
+        if self.noise:
+            out += [standard_normal(g, self.draw_shape, self.dtype, slots.device)
+                    for g in slots.noise]
+        return out
+
+    @contextlib.contextmanager
+    def fed(self, device, feeds):
+        """Run the body on ``device`` with the tensors of :meth:`feeds` in
+        place of its streams (the key buffer and its rows, and a
+        :class:`FedDraws` for each iteration's generator), so that an
+        export of the body takes them as inputs."""
+        device = torch.device(device)
+        slots = _DeviceStreams(self, device, feeds)
+        before = self._on.get(device)
+        self._on[device] = slots
+        try:
+            yield slots
+        finally:
+            if before is None:
+                del self._on[device]
+            else:
+                self._on[device] = before
 
 
 _CONSTANTS = {}
