@@ -153,6 +153,23 @@ the package is not beside it.  Phases, each fatal when it fails:
    median; and the fused command and the graph loop's step with the
    kernels launched directly against through their ``torch.library``
    operators (``ops/library.py``), in turns;
+9. sharding (``sharding``): kernel A's MPPI, SMPPI and KMPPI at the
+   flagship with the null row and the emitted actions, in bits and seed
+   mode, split into 2, 4 and 8 per-shard launches (each with its null gate
+   and its shard of the global samples) and merged by the rule of
+   ``ops/solve._merge_stats``, against the unsharded launch (JAX's
+   tolerances) and the plain version, with exactly one all-zero column
+   (column 0) and none with every gate 0; the batched pair over two halves
+   of N = 1,024 plants bit for bit the whole; then a 2-rank Gloo world on
+   the one card (``spawn``; ``initialize_multihost``, ``make_mesh``): 200
+   closed-loop commands of fused MPPI, SMPPI and KMPPI and of plain MPPI
+   with K split over "k", and 20 of ``MPPI_Batched`` at N = 1,024 with the
+   plants over "data", one kernel launch a command a rank, the actions
+   equal across the ranks and within ``SHARD_ACTION_ATOL`` of the
+   unsharded controller's from the same plant and controller state; then a 1-rank NCCL world
+   here whose sharded command is the unsharded one bit for bit; kernel A's
+   time with the gate set against the static null row, and each sharded
+   command's median against the unsharded one's;
 7. the ``kernels`` line (eight kernels, and the residual MLP's four
    instantiations), the card line, then the last line
    ``{"ok": true, "device": ...}``.
@@ -212,6 +229,16 @@ SHORT_COMMANDS = 200  # the refinement loop's and SMPPI's and KMPPI's sampler lo
 M_STOCH = 4  # rollout_samples of the stochastic loop
 STOCH_SCALE = 0.05  # the stochastic loop's dynamics noise (a standard deviation)
 GRAPH_STEPS = 20  # plant steps of each route's graph loop held to the eager loop
+# the sharding phase (9): kernel A split into SHARDS per-shard launches in one
+# process; the 2-rank Gloo world's closed loops (SHARD_COMMANDS commands a
+# single-plant route, SHARD_BATCH_COMMANDS for MPPI_Batched at N = 1,024),
+# each rank's time limit, and how far a sharded command's action may be from
+# the unsharded controller's from the same state: the float32 rounding of
+# the merge (delta/s within 1e-4 relative, JAX's tolerance, on actions of
+# magnitude up to a few units)
+SHARDS = (2, 4, 8)
+SHARD_COMMANDS, SHARD_BATCH_COMMANDS, SHARD_TIMEOUT = 200, 20, 300
+SHARD_ACTION_ATOL = 1e-4
 # the residual MLP (phase 4e): examples/fused_kernel_demo.py's problem
 MLP_K, MLP_T, MLP_COMMANDS = 10_000, 30, 150
 # its cost tolerance against the plain version: 30 steps through the
@@ -1442,6 +1469,422 @@ def deployment(dev, lq, goal, mlp_params):
           f"{med[True]['graph_step_ms']:.4f} ms against direct {med[False]['graph_step_ms']:.4f} ms"
           f" | the live path launches directly")
     report["live_route"] = dict(turns=turns, median=med)
+    return report
+
+
+def merge_shards(parts):
+    """The per-shard (delta, m, s) merged by the rule of
+    ``ops/solve._merge_stats`` (m_g = max m, s_g = sum s e^(m - m_g),
+    delta_g = sum delta e^(m - m_g)), here in one process."""
+    m = torch.stack([p[1] for p in parts])
+    m_g = m.max()
+    corr = torch.exp(m - m_g)
+    s = (torch.stack([p[2] for p in parts]) * corr).sum()
+    delta = (torch.stack([p[0] for p in parts]) * corr[:, None]).sum(0)
+    return delta, m_g, s
+
+
+def shard_operands(variant, dev, K_, nsp):
+    """Kernel A's operands at the flagship after the noise source: x0T, then
+    the variant's (bounds of +-1 straddle 0, so the null row is all zero)."""
+    from pytorch_mppi_tpu_torch import RBFKernel
+    from pytorch_mppi_tpu_torch.ops.kernels import interpolation_operators
+
+    g = torch.Generator(device=dev).manual_seed(14)
+    D = T * NU
+    R = nsp * NU if variant == "kmppi" else D
+    U2 = torch.randn(D, generator=g, device=dev) * 0.3
+    full = lambda v, n=D: torch.full((n,), v, device=dev)  # noqa: E731
+    lam, a_flat = torch.tensor(1.0, device=dev), (U2 * 0.7).contiguous()
+    x0T = torch.tensor([-3.0, -2.0], device=dev)[:, None].expand(NX, K_)
+    if variant == "mppi":
+        return x0T, (U2, full(1.0), full(0.0), full(-1.0), full(1.0), a_flat, lam)
+    if variant == "smppi":
+        as2 = torch.randn(D, generator=g, device=dev) * 0.2
+        return x0T, (U2, as2, full(1.0), full(0.0), full(-2.0), full(2.0), full(-1.0),
+                     full(1.0), a_flat, lam, torch.tensor(1.0, device=dev),
+                     torch.tensor(0.5, device=dev))
+    th = torch.randn(R, generator=g, device=dev) * 0.2
+    interp, _ = interpolation_operators(RBFKernel(2.0), T, nsp, torch.float32, device=dev)
+    Wt = torch.kron(interp, torch.eye(NU, device=dev)).contiguous()
+    return x0T, (U2, th, full(1.0, R), full(0.0, R), full(-1.0, R), full(1.0, R), full(-1.0),
+                 full(1.0), a_flat, Wt, lam)
+
+
+def shard_kernels(dev, lq):
+    """Phase 9, part 1: kernel A split into n = 2, 4, 8 per-shard launches in
+    one process (each with its null gate and its shard of the global
+    samples), merged by the documented rule, against the unsharded launch
+    on the same bits and key (JAX's tolerances, tests/test_pallas_transposed.py:
+    630-642) and against the plain version; one all-zero column, column 0,
+    and none with every gate 0; the batched pair split over two halves of
+    N = 1,024 plants against the whole, bit for bit; the gate's cost and the
+    split's on the card's timeline (CUDA graphs of 20 calls)."""
+    import dataclasses
+
+    from pytorch_mppi_tpu_torch.config import MPPIConfig
+    from pytorch_mppi_tpu_torch.ops import fused_solve as FS
+
+    factories = {"mppi": FS.make_transposed_fused_solve,
+                 "smppi": FS.make_transposed_smppi_solve,
+                 "kmppi": FS.make_transposed_kmppi_solve}
+    report = {"errors": {}, "ms": {}}
+    for variant in FS.VARIANTS:
+        nsp = NSP if variant == "kmppi" else 0
+        cfg = MPPIConfig(nx=NX, nu=NU, K=K, T=T, diag_sigma=True, sample_null_action=True,
+                         fused_artifacts=True, num_support_pts=nsp)
+        factory = factories[variant]
+        whole = factory(cfg, lq, emit_perturbed=True)
+        gated = factory(cfg, lq, emit_perturbed=True, null_dynamic_gate=True)
+        x0T, args = shard_operands(variant, dev, K, nsp)
+        R = nsp * NU if variant == "kmppi" else T * NU
+        bits = torch.randint(-2**31, 2**31 - 1, (R, whole.bits_cols), dtype=torch.int32,
+                             device=dev)
+        for mode, lead in (("bits", bits), ("seed", (0x2014, 0x5EED))):
+            d1, m1, s1, c1, p1 = whole(lead, x0T, *args)
+            dp, mp, sp, cp, pp = whole.plain(lead, x0T, *args)
+            for n in SHARDS:
+                Kl = K // n
+                shards = [factory(dataclasses.replace(cfg, K=Kl), lq, emit_perturbed=True,
+                                  null_dynamic_gate=True, shard=(r, n), tile_k=whole.tile_k)
+                          for r in range(n)]
+                gates = [torch.tensor([int(r == 0)], dtype=torch.int32, device=dev)
+                         for r in range(n)]
+
+                def launch_all(gates=gates, shards=shards, lead=lead):
+                    outs = [s_(lead, x0T[:, r * Kl:(r + 1) * Kl], *args, gates[r])
+                            for r, s_ in enumerate(shards)]
+                    return outs, merge_shards(outs)
+
+                outs, (d, m, s) = launch_all()
+                cost = torch.cat([o[3] for o in outs])
+                pert = torch.cat([o[4] for o in outs], dim=1)
+                c_err = float((cost - c1).abs().max())
+                u_err = float((d / s - d1 / s1).abs().max())
+                check(bool(((cost - c1).abs() <= 1e-6 + 1e-6 * c1.abs()).all()),
+                      f"{variant} {mode} {n} shards: costs differ from the whole launch by "
+                      f"{c_err}")
+                check(abs(float(m - m1)) <= 1e-7 * abs(float(m1)) + 1e-7
+                      and abs(float(s / s1) - 1) <= 1e-5
+                      and bool(((d / s - d1 / s1).abs() <= 1e-7 + 1e-4 * (d1 / s1).abs()).all()),
+                      f"{variant} {mode} {n} shards: the merge differs from the whole launch "
+                      f"(update error {u_err})")
+                check(bool(((pert - p1).abs() <= 1e-7 + 1e-6 * p1.abs()).all()),
+                      f"{variant} {mode} {n} shards: the perturbed actions differ")
+                zero = (pert == 0).all(dim=0)
+                check(int(zero.sum()) == 1 and bool(zero[0]),
+                      f"{variant} {mode} {n} shards: {int(zero.sum())} all-zero columns, "
+                      f"column 0 {bool(zero[0])}; the gate must null global sample 0 alone")
+                ok, pc_err, pu_err, _ = agree(cost, cp, d / s, dp / sp, 1.0, m, mp, s, sp)
+                check(ok, f"{variant} {mode} {n} shards against the plain version: cost "
+                          f"{pc_err}, update {pu_err}")
+                report["errors"][variant, mode, n] = dict(
+                    cost=c_err, update=u_err, cost_exact=bool(torch.equal(cost, c1)),
+                    pert_exact=bool(torch.equal(pert, p1)), plain_cost=pc_err,
+                    plain_update=pu_err)
+                if n == SHARDS[0]:
+                    off = [torch.zeros(1, dtype=torch.int32, device=dev)] * n
+                    p_off = torch.cat([o[4] for o in launch_all(gates=off)[0]], dim=1)
+                    check(not bool((p_off == 0).all(dim=0).any()),
+                          f"{variant} {mode}: gate 0 on every shard left an all-zero column")
+                if mode == "seed" and n == SHARDS[-1]:
+                    report["ms"][variant, "shards"] = graph_ms(launch_all, 20)
+            if mode == "seed":
+                on = torch.ones(1, dtype=torch.int32, device=dev)
+                report["ms"][variant, "whole"] = graph_ms(lambda: whole(lead, x0T, *args), 20)
+                report["ms"][variant, "gate"] = graph_ms(
+                    lambda: gated(lead, x0T, *args, on), 20)
+                check(torch.equal(gated(lead, x0T, *args, on)[3], c1),
+                      f"{variant}: the gated launch with gate 1 differs from the static null row")
+        e = report["errors"]
+        print(f"# shards [{variant}] n = {SHARDS}: cost errors "
+              f"{[e[variant, md, n]['cost'] for md in ('bits', 'seed') for n in SHARDS]}, "
+              f"update errors {[e[variant, md, n]['update'] for md in ('bits', 'seed') for n in SHARDS]} | "
+              f"device ms: whole {report['ms'][variant, 'whole']:.6f}, gate set "
+              f"{report['ms'][variant, 'gate']:.6f}, {SHARDS[-1]} shards + merge "
+              f"{report['ms'][variant, 'shards']:.6f}")
+    # the batched pair over two halves of the plants, operand and seed mode
+    cfg_b = MPPIConfig(nx=NX, nu=NU, K=BATCH_K, T=T, diag_sigma=True)
+    g = torch.Generator(device=dev).manual_seed(15)
+    D = T * NU
+    x0T = torch.rand(NX, BATCH_N, generator=g, device=dev) * 4 - 2
+    U2T = torch.randn(D, BATCH_N, generator=g, device=dev) * 0.3
+    aT = U2T * 0.7
+    ops_ = (torch.full((D,), 0.7, device=dev), torch.zeros(D, device=dev),
+            torch.full((D,), -1.0, device=dev), torch.full((D,), 1.0, device=dev))
+    lam = torch.tensor(1.0, device=dev)
+    half = BATCH_N // 2
+    for mode in ("operand", "seed"):
+        operand = mode == "operand"
+        lead = (torch.randn(D, BATCH_K, generator=g, device=dev) * 0.7 if operand
+                else (0x2014, 0x0B))
+        whole = FS.make_transposed_batched_solve(cfg_b, BATCH_N, lq, noise_operand=operand)
+        part = FS.make_transposed_batched_solve(cfg_b, half, lq, noise_operand=operand)
+        want = whole(lead, x0T, U2T, ops_[0], ops_[1], ops_[2], ops_[3], aT, lam)
+        got = [part(lead, x0T[:, sl], U2T[:, sl], *ops_, aT[:, sl], lam)
+               for sl in (slice(0, half), slice(half, BATCH_N))]
+        same = (torch.equal(torch.cat([o[0] for o in got], 1), want[0])
+                and torch.equal(torch.cat([o[1] for o in got], 1), want[1])
+                and torch.equal(torch.cat([o[2] for o in got], 0), want[2]))
+        check(same, f"batched {mode}: two halves of {BATCH_N} plants differ from the whole")
+        report["batched", mode] = dict(group_whole=whole.plant_group, group_half=part.plant_group)
+    print(f"# shards [batched] N = {BATCH_N}, K = {BATCH_K} over two halves: bit for bit in "
+          f"operand and seed mode (plant groups {report['batched', 'operand']})")
+    return report
+
+
+def shard_child(rank, init_file, out_path, root, device):
+    """One rank of phase 9's 2-rank Gloo world, both ranks on the one card:
+    the K-sharded flagship commands (fused MPPI, SMPPI and KMPPI, plain
+    MPPI) and the env-sharded ``MPPI_Batched`` at N = 1,024, each beside the
+    unsharded controller of the same seed, which takes each command from the
+    sharded controller's plant state and its own state (nominal sequence,
+    counter) before that command; writes its report as JSON to
+    ``out_path``."""
+    sys.path.insert(0, root)
+    import torch.distributed as dist
+
+    from pytorch_mppi_tpu_torch import KMPPI, MPPI, SMPPI, MPPI_Batched, RBFKernel, linear_quadratic
+    from pytorch_mppi_tpu_torch.ops import fused_solve as FS
+    from pytorch_mppi_tpu_torch.parallel import (all_gather_cat, initialize_multihost,
+                                                 make_mesh)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    # Gloo (the CPU's backend) carries the card's tensors: NCCL refuses two
+    # ranks on one card
+    initialize_multihost(f"file://{init_file}", 2, rank, device="cpu")
+    k_mesh = make_mesh((2,), ("k",), device=device)
+    d_mesh = make_mesh((2,), ("data",), device=device)
+    group = k_mesh.get_group("k")
+    lq = linear_quadratic(torch.tensor([[1.0, 0.0], [0.0, -1.0]], device=dev),
+                          torch.tensor([2.0, 2.0], device=dev))
+    goal = torch.tensor([2.0, 2.0], device=dev)
+    report = {"routes": {}}
+
+    def timed(ctrl, states, xs):
+        """``ctrl``'s commands from the sharded controller's state before
+        each of its commands (one command's difference, not the loop's)."""
+        acts, lat = [], []
+        for st, x in zip(states, xs):
+            ctrl._state = st
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            acts.append(ctrl.command(x))
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t0) * 1e3)
+        return torch.stack(acts), statistics.median(lat)
+
+    def reset():
+        torch.cuda.synchronize()
+        for name in FS.launches:
+            FS.launches[name] = 0
+
+    routes = (("mppi fused", MPPI, {}, True),
+              ("smppi fused", SMPPI, dict(w_action_seq_cost=1.0, delta_t=1.0,
+                                          action_min=torch.tensor([-3.0, -3.0]),
+                                          action_max=torch.tensor([3.0, 3.0])), True),
+              ("kmppi fused", KMPPI, dict(num_support_pts=NSP, kernel=RBFKernel(2.0)), True),
+              ("mppi plain", MPPI, {}, False))
+    for name, cls, extra, use_pallas in routes:
+        make = lambda mesh: cls(lq.dynamics, lq.running_cost, nx=NX,  # noqa: E731
+                                noise_sigma=torch.eye(NU, device=dev), num_samples=K,
+                                horizon=T, lambda_=1.0, seed=42, use_pallas=use_pallas,
+                                device=dev, mesh=mesh, **extra)
+        sh, un = make(k_mesh), make(None)
+        x = torch.tensor([-3.0, -2.0], device=dev)
+        for _ in range(WARMUP):
+            un.command(x)
+            x = lq.dynamics(x[None], sh.command(x)[None])[0]
+        reset()
+        xs, states, acts, lat, dists = [], [], [], [], []
+        for _ in range(SHARD_COMMANDS):
+            xs.append(x)
+            states.append(sh._state)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            a = sh.command(x)
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t0) * 1e3)
+            acts.append(a)
+            x = lq.dynamics(x[None], a[None])[0]
+            dists.append(float(torch.linalg.norm(x - goal)))
+        launched = dict(FS.launches)
+        acts = torch.stack(acts)
+        reset()
+        acts_un, un_ms = timed(un, states, xs)
+        both = all_gather_cat(acts[None], 0, group)
+        report["routes"][name] = dict(
+            launches=launched, twin_launches=dict(FS.launches), fused=sh._fns.fused,
+            median_ms=statistics.median(lat), unsharded_median_ms=un_ms,
+            same_across_ranks=bool(torch.equal(both[0], both[1])),
+            max_diff_unsharded=float((acts - acts_un).abs().max()),
+            exact_unsharded=bool(torch.equal(acts, acts_un)),
+            min_dist=min(dists), final_dist=dists[-1], cost_total_shape=list(sh.cost_total.shape))
+    # MPPI_Batched with the plants over "data": operand mode, N = 1,024
+    g = torch.Generator(device=dev).manual_seed(9)
+    make = lambda mesh: MPPI_Batched(lq.dynamics, lq.running_cost, nx=NX,  # noqa: E731
+                                     noise_sigma=0.5 * torch.eye(NU, device=dev),
+                                     num_envs=BATCH_N, num_samples=BATCH_K, horizon=T,
+                                     lambda_=1.0, u_min=-torch.ones(NU), u_max=torch.ones(NU),
+                                     seed=42, use_pallas=True, device=dev, mesh=mesh)
+    sh, un = make(d_mesh), make(None)
+    x = torch.rand(BATCH_N, NX, generator=g, device=dev) * 6 - 3
+    sh.command(x)
+    un.command(x)
+    reset()
+    xs, states, acts, lat = [], [], [], []
+    for _ in range(SHARD_BATCH_COMMANDS):
+        xs.append(x)
+        states.append(sh._state)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a = sh.command(x)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+        acts.append(a)
+        x = lq.dynamics(x, a)
+    launched = dict(FS.launches)
+    acts = torch.stack(acts)
+    reset()
+    acts_un, un_ms = timed(un, states, xs)
+    both = all_gather_cat(acts[None], 0, group)
+    report["routes"]["batched operand"] = dict(
+        launches=launched, twin_launches=dict(FS.launches), fused=sh._fns.fused,
+        median_ms=statistics.median(lat), unsharded_median_ms=un_ms,
+        same_across_ranks=bool(torch.equal(both[0], both[1])),
+        max_diff_unsharded=float((acts - acts_un).abs().max()),
+        exact_unsharded=bool(torch.equal(acts, acts_un)),
+        cost_total_shape=list(sh.cost_total.shape))
+    dist.destroy_process_group()
+    report["ok"] = True
+    with open(out_path, "w") as f:
+        json.dump(report, f)
+
+
+def shard_world(dev, out_dir):
+    """Phase 9, part 2: the 2-rank Gloo world on the one card (``spawn``),
+    each rank's report read back; a child that fails, hangs or writes no
+    report fails the phase."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    init = out_dir / "shard_world.init"
+    init.unlink(missing_ok=True)
+    outs = [out_dir / f"shard_world_rank{r}.json" for r in range(2)]
+    for o in outs:
+        o.unlink(missing_ok=True)
+    procs = [ctx.Process(target=shard_child, args=(r, str(init), str(outs[r]),
+                                                    str(Path(__file__).resolve().parent),
+                                                    str(dev)))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    deadline = time.perf_counter() + SHARD_TIMEOUT
+    for p in procs:
+        p.join(max(1.0, deadline - time.perf_counter()))
+    hung = [p for p in procs if p.is_alive()]
+    for p in hung:
+        p.kill()
+        p.join()
+    check(not hung, f"the 2-rank world hung past {SHARD_TIMEOUT} s")
+    check(all(p.exitcode == 0 for p in procs),
+          f"a rank of the 2-rank world failed: exit codes {[p.exitcode for p in procs]}")
+    check(all(o.is_file() for o in outs), "a rank of the 2-rank world wrote no report")
+    reports = [json.loads(o.read_text()) for o in outs]
+    check(all(r.get("ok") for r in reports), "a rank of the 2-rank world did not finish")
+    for name in reports[0]["routes"]:
+        for rank, rep in enumerate(reports):
+            r = rep["routes"][name]
+            fused = not name.endswith("plain")
+            variant = name.split()[0]
+            n = SHARD_BATCH_COMMANDS if variant == "batched" else SHARD_COMMANDS
+            want = {k: 0 for k in r["launches"]}
+            if fused:
+                want[variant] = 2 * n if variant == "batched" else n
+            check(r["fused"] == fused and r["launches"] == want,
+                  f"[{name}] rank {rank}: launched {r['launches']} in {n} commands, "
+                  f"expected {want}")
+            check(r["same_across_ranks"], f"[{name}]: the ranks' actions differ")
+            check(r["max_diff_unsharded"] <= SHARD_ACTION_ATOL,
+                  f"[{name}] rank {rank}: {r['max_diff_unsharded']} from the unsharded "
+                  f"controller's actions")
+            if "min_dist" in r:
+                check(r["min_dist"] < 1.0 and r["final_dist"] < 10.0,
+                      f"[{name}] failed bench.py's sanity check")
+        r = reports[0]["routes"][name]
+        print(f"# shards [{name}] 2-rank Gloo world on one card: median {r['median_ms']:.4f} ms "
+              f"against {r['unsharded_median_ms']:.4f} ms unsharded (host clock) | launches "
+              f"rank 0 {r['launches']} | max diff to unsharded {r['max_diff_unsharded']:.3g} "
+              f"(exact {r['exact_unsharded']}) | cost_total {r['cost_total_shape']}")
+    return reports
+
+
+def shard_nccl(dev, lq, out_dir):
+    """Phase 9, part 3: a 1-rank NCCL world in this process: the sharded
+    fused MPPI command (gate 1, offset 0) equals the unsharded one bit for
+    bit; both medians (CUDA events)."""
+    import torch.distributed as dist
+
+    from pytorch_mppi_tpu_torch import MPPI
+    from pytorch_mppi_tpu_torch.ops import fused_solve as FS
+    from pytorch_mppi_tpu_torch.parallel import initialize_multihost, make_mesh
+
+    init = out_dir / "shard_nccl.init"
+    init.unlink(missing_ok=True)
+    initialize_multihost(f"file://{init}", 1, 0, device=str(dev))
+    try:
+        backend = dist.get_backend()
+        mesh = make_mesh((1,), ("k",), device=str(dev))
+        make = lambda mesh: MPPI(lq.dynamics, lq.running_cost, nx=NX,  # noqa: E731
+                                 noise_sigma=torch.eye(NU, device=dev), num_samples=K,
+                                 horizon=T, lambda_=1.0, seed=42, use_pallas=True, device=dev,
+                                 mesh=mesh)
+        out = {}
+        for tag, ctrl in (("sharded", make(mesh)), ("unsharded", make(None))):
+            x = torch.tensor([-3.0, -2.0], device=dev)
+            for _ in range(WARMUP):
+                ctrl.command(x)
+            torch.cuda.synchronize()
+            for name in FS.launches:
+                FS.launches[name] = 0
+            acts, lat = [], []
+            for _ in range(SHARD_COMMANDS):
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                a.record()
+                act = ctrl.command(x)
+                b.record()
+                acts.append(act)
+                lat.append((a, b))
+                x = lq.dynamics(x[None], act[None])[0]
+            torch.cuda.synchronize()
+            out[tag] = dict(acts=torch.stack(acts), launches=dict(FS.launches),
+                            median_ms=statistics.median(s.elapsed_time(e) for s, e in lat))
+    finally:
+        dist.destroy_process_group()
+    check(backend == "nccl" or dev.type == "cpu", f"the 1-rank world took {backend}")
+    check(torch.equal(out["sharded"]["acts"], out["unsharded"]["acts"]),
+          "the 1-rank NCCL world's sharded commands differ from the unsharded ones")
+    want = {k: (SHARD_COMMANDS if k == "mppi" else 0) for k in FS.launches}
+    check(out["sharded"]["launches"] == want,
+          f"the 1-rank world launched {out['sharded']['launches']}, expected {want}")
+    print(f"# shards [mppi fused] 1-rank {backend} world: bit for bit the unsharded commands | "
+          f"median {out['sharded']['median_ms']:.4f} ms against "
+          f"{out['unsharded']['median_ms']:.4f} ms unsharded (CUDA events) | launches "
+          f"{out['sharded']['launches']['mppi']}")
+    return {k: dict(median_ms=v["median_ms"], launches=v["launches"]) for k, v in out.items()}
+
+
+def sharding(dev, lq):
+    """Phase 9: sharding (``parallel``), its three parts."""
+    out_dir = Path(__file__).resolve().parent / "build" / "sharding"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    report = {"kernels": shard_kernels(dev, lq)}
+    report["world"] = shard_world(dev, out_dir)
+    report["nccl"] = shard_nccl(dev, lq, out_dir)
+    report["seconds"] = time.perf_counter() - t0
+    print(f"# phase 9 took {report['seconds']:.1f} s")
     return report
 
 
@@ -3355,6 +3798,10 @@ def main():
     stamp("8")
     deployment(dev, lq, goal, mlp["params"])
 
+    # -- 9. sharding -------------------------------------------------------------
+    stamp("9")
+    shard = sharding(dev, lq)
+
     # -- 7. the kernels line and the last line ---------------------------------
     stamp("7")
     sources = {"mppi": ("fused_mppi MPPI (mppi_fused_partial<..., kMPPI>, merged in the kernel)",
@@ -3536,6 +3983,20 @@ def main():
         })
         if key == "mppi":
             kernels[-1]["launches_graph_loop"] = mlp["loops"]["graph", "fused"]["launches"]["mppi"]
+    # phase 9: kernel A with the null gate set against the static null row,
+    # split over 8 shards (launches and merge), the largest error of a
+    # merged split against the whole launch, and the launches of the
+    # sharded main paths (rank 0 of the 2-rank world; the 1-rank NCCL world)
+    sk, world = shard["kernels"], shard["world"][0]["routes"]
+    for row, variant in zip(kernels, FS.VARIANTS):
+        row.update(
+            ms_gate_set=sk["ms"][variant, "gate"], ms_static_null=sk["ms"][variant, "whole"],
+            ms_8_shards_merged=sk["ms"][variant, "shards"],
+            max_abs_err_sharded=max(e["update"] for k, e in sk["errors"].items()
+                                    if k[0] == variant),
+            launches_sharded_gloo_rank0=world[f"{variant} fused"]["launches"][variant])
+    kernels[0]["launches_sharded_nccl"] = shard["nccl"]["sharded"]["launches"]["mppi"]
+    kernels[3]["launches_sharded_gloo_rank0"] = world["batched operand"]["launches"]["batched"]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,9 @@ and ``MPPI_Batched.command()`` for N plants: the plain torch path, and with
 ``use_pallas`` the fused iteration of each as a hand-written CUDA kernel
 (``csrc/fused_mppi.cu``); ``MPPI(use_pallas="rollout")`` runs the legacy
 rollout and weighted-update kernels.  ``run_mppi_jit`` runs a closed loop
-against a torch plant, on the card as a CUDA graph of the loop step.  Entry points run on the card unless
+against a torch plant, on the card as a CUDA graph of the loop step.
+``parallel`` splits the samples or the plants of a command over the ranks
+of a ``torch.distributed`` process group (``mesh=``).  Entry points run on the card unless
 the caller passes ``device="cpu"``.  The package imports neither JAX nor
 ``pytorch_mppi_tpu``.
 """

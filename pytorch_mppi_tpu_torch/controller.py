@@ -16,9 +16,16 @@ device it runs the kernel's plain version.  ``MPPI(use_pallas="rollout")``
 selects the legacy kernel pair (``ops/legacy.py``); ``MPPI_Batched`` takes
 ``True``, ``"force"`` and ``"kernel_rng"`` (``ops/solve.make_batched_step``).
 
-Flags of the JAX controller that the port does not run yet (the sharding
-flags) raise ``NotImplementedError`` naming the ``ROADMAP.md`` item that will
-port them.  ``dynamics_params`` works as in JAX: set at construction (a
+``mesh`` (a ``DeviceMesh`` of ``parallel.make_mesh``) splits the work over
+the ranks of a process group, one rank a card, as JAX's mesh splits it over
+devices: the K samples over ``sample_axis`` for MPPI, SMPPI and KMPPI, the
+N plants over ``env_axis`` (and the samples over ``sample_axis``) for
+``MPPI_Batched``.  Every rank builds the same controller with the same seed
+and calls ``command()`` with the same state; each returns the same action.
+An artifact that a rank holds only its share of (the fused route's
+per-sample ones, the batched per-plant ones) is gathered when first read, a
+collective: every rank reads it.  ``sample_axis`` without a mesh is
+ignored, as in JAX.  ``dynamics_params`` works as in JAX: set at construction (a
 tensor, or a tuple, list or dict of tensors), it is passed first to the
 dynamics, ``dynamics(params, state, action[, t][, rng])``, on every command
 and rollout, and assigning a new ``mppi.dynamics_params`` takes effect at the
@@ -56,28 +63,27 @@ logger = logging.getLogger(__name__)
 
 __all__ = ["MPPI", "SMPPI", "KMPPI", "MPPI_Batched", "SpecificActionSampler"]
 
-# flag -> (value that means "off", ROADMAP.md item that ports it)
-_UNPORTED = {
-    "mesh": (None, "Queue 1 item 12 (sharding)"),
-    "env_axis": ("data", "Queue 1 item 12 (sharding)"),
-    "sample_axis": (None, "Queue 1 item 12 (sharding)"),
-}
-
 MPPI_USE_PALLAS = (False, True, "rollout")
 PRNG_IMPLS = ("auto", None)  # the JAX prng_impl values that mean "the default stream"
 
 
-def _reject_unported(off_values=None, **flags):
-    """Raise for a flag set away from its "off" value (``_UNPORTED``, or
-    ``off_values`` where a controller's default differs)."""
-    for name, value in flags.items():
-        off, item = _UNPORTED[name]
-        off = (off_values or {}).get(name, off)
-        if value is not off and value != off:
-            raise NotImplementedError(
-                f"{name}={value!r} is not ported to pytorch_mppi_tpu_torch yet; "
-                f"see ROADMAP.md {item}"
-            )
+class _Artifact:
+    """An artifact of the last command: its tensor, or on a mesh the rank's
+    share of it (a ``parallel.Shard``), gathered when first read."""
+
+    def __set_name__(self, owner, name):
+        self.slot = "_art_" + name
+
+    def __get__(self, obj, owner=None):
+        if obj is None:
+            return self
+        value = obj.__dict__.get(self.slot)
+        if value is not None and not isinstance(value, torch.Tensor):
+            value = obj.__dict__[self.slot] = value.gather()
+        return value
+
+    def __set__(self, obj, value):
+        obj.__dict__[self.slot] = value
 
 
 def _check_jax_rng(key, prng_impl):
@@ -263,9 +269,19 @@ class MPPI:
     :param use_pallas: ``True`` runs each command through the fused CUDA
         kernel; ``"rollout"`` keeps the plain path's noise and runs the
         rollout and the weighted update through the legacy kernels.
-    :param scan_unroll, key, sample_axis, prng_impl: the JAX keywords, taken
-        as the module docstring says.
+    :param mesh: a ``DeviceMesh`` (``parallel.make_mesh``) whose
+        ``sample_axis`` ranks split the K samples (the module docstring).
+    :param scan_unroll, key, prng_impl: the JAX keywords, taken as the
+        module docstring says.
     """
+
+    cost_total = _Artifact()
+    cost_total_non_zero = _Artifact()
+    omega = _Artifact()
+    noise = _Artifact()
+    perturbed_action = _Artifact()
+    states = _Artifact()
+    actions = _Artifact()
 
     def __init__(
         self,
@@ -314,10 +330,8 @@ class MPPI:
         prng_impl: Optional[str] = "auto",
     ):
         _check_jax_rng(key, prng_impl)
-        # MPPI's default sample axis is "k" (MPPI_Batched's None)
-        _reject_unported({"sample_axis": "k"}, sample_axis=sample_axis)
-        _reject_unported(mesh=mesh)
         self.d = resolve_device(device)
+        self.mesh = mesh
         # a learned model's weights, passed first to the dynamics; None means
         # the dynamics take none (the config's parameterized_dynamics)
         self.dynamics_params = dynamics_params
@@ -442,7 +456,8 @@ class MPPI:
                 terminal_state_cost=self.terminal_state_cost,
                 terminal_final_cost=self.terminal_final_cost,
                 sample_trajectories=None if sampler is None else sampler.sample_trajectories,
-                specific_dynamics=None if sampler is None else sampler.specific_dynamics)
+                specific_dynamics=None if sampler is None else sampler.specific_dynamics,
+                mesh=self.mesh, sample_axis=self.sample_axis)
         return cache[key]
 
     def _build_step_fns(self):
@@ -871,8 +886,14 @@ class MPPI_Batched:
     ``"kernel_rng"`` draws the noise in the kernel.  ``device=None`` means
     the card, as for :class:`MPPI`.  ``num_iterations``,
     ``stochastic_dynamics`` and ``dynamics_params`` work as for
-    :class:`MPPI` (the last two on the plain path).
+    :class:`MPPI` (the last two on the plain path).  ``mesh`` splits the
+    plants over ``env_axis`` and, with ``sample_axis``, their samples
+    (``ops/solve.make_batched_step``).
     """
+
+    cost_total = _Artifact()
+    omega = _Artifact()
+    states = _Artifact()
 
     def __init__(
         self,
@@ -911,8 +932,8 @@ class MPPI_Batched:
         prng_impl: Optional[str] = "auto",
     ):
         _check_jax_rng(key, prng_impl)
-        _reject_unported(mesh=mesh, env_axis=env_axis, sample_axis=sample_axis)
         self.d = resolve_device(device)
+        self.mesh, self.env_axis = mesh, env_axis
         self.dynamics_params = dynamics_params
         self.use_pallas = _use_pallas(use_pallas, _solve.BATCHED_USE_PALLAS)
         sigma = _coerce_sigma(noise_sigma)
@@ -953,7 +974,9 @@ class MPPI_Batched:
         self._fns = _solve.make_batched_step(self.config, self.N, dynamics, running_cost,
                                              use_pallas=self.use_pallas,
                                              terminal_state_cost=terminal_state_cost,
-                                             terminal_final_cost=terminal_final_cost)
+                                             terminal_final_cost=terminal_final_cost,
+                                             mesh=mesh, env_axis=env_axis,
+                                             sample_axis=sample_axis)
         self._gen = torch.Generator()
         self._gen.manual_seed(0 if seed is None else int(seed))
         U0 = self._sample_noise_eager((self.N, self.T))

@@ -245,6 +245,11 @@ struct Params {
   const float* elites;  // kMPPI: (num_elites, D) row-major, or null: sample
                         // elite_off + j takes row j before the clamp
   int num_elites, elite_off;
+  const int* gate;  // kernel A: the null-action gate, one int32 in device memory
+                    // (sample 0 is the null row only where it is not 0), or null
+                    // for the null row of every launch
+  int k_offset;  // kernel A: the global index of sample 0, for one shard of the
+                 // samples; the draw of sample k is that of global sample k_offset + k
 };
 
 // --- reductions -------------------------------------------------------------
@@ -301,6 +306,13 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, unsigned k0, unsigned k1
 // replay takes its key by pointer.
 __device__ __forceinline__ uint2 philox_key(const unsigned* key, unsigned key0, unsigned key1) {
   return key ? make_uint2(__ldg(key), __ldg(key + 1)) : make_uint2(key0, key1);
+}
+
+// Whether sample k of kernel A is the null row: sample 0 with sample_null_action,
+// and where the launch has a gate (one shard of the samples), only when the
+// int32 at p.gate is not 0.  The gate is read when the kernel runs, as the key.
+__device__ __forceinline__ bool null_row(const Params& p, int k) {
+  return p.null_action && k == 0 && (!p.gate || __ldg(p.gate) != 0);
 }
 
 // Giles' single-precision erfinv ("Approximating the erfinv function", GPU
@@ -658,6 +670,7 @@ __device__ __forceinline__ void merge_partials(const float* partial, int nblocks
 // depends on the source column only, so the plants of a batch share it
 // (mppi.py:837-838).
 __device__ __forceinline__ void source_of(const Params& p, int k, int& src, float& sgn) {
+  k += p.k_offset;
   src = k;
   sgn = 1.0f;
   if (p.antithetic) {
@@ -1012,7 +1025,7 @@ __global__ void __launch_bounds__(BLOCK, 2) mppi_fused_partial(Params p) {
     tile_product(p.W, D, R, nt, other, ldt, nullptr, S, panel);
 #pragma unroll 4
     for (int d = g0; d < D; d += G) {
-      float act = (p.null_action && k == 0) ? 0.0f : other[d * ldt + s];
+      float act = null_row(p, k) ? 0.0f : other[d * ldt + s];
       act = fminf(fmaxf(act, vAlo[d]), vAhi[d]);
       if (p.pert && live) p.pert[(size_t)d * p.K + k] = act;
       const float r = act - vU[d];
@@ -1029,7 +1042,7 @@ __global__ void __launch_bounds__(BLOCK, 2) mppi_fused_partial(Params p) {
       const float u0 = vU[d], as = vBase[d];
       const float rate = fminf(fmaxf(u0 + nt[d * ldt + s], vLo[d]), vHi[d]);
       float v = __fadd_rn(as, __fmul_rn(rate, dt));  // two roundings, as as + rate*dt
-      if (p.null_action && k == 0) v = 0.0f;
+      if (null_row(p, k)) v = 0.0f;
       v = fminf(fmaxf(v, vAlo[d]), vAhi[d]);
       if (p.pert && live) p.pert[(size_t)d * p.K + k] = v;
       const float r = (v - as) / dt - u0;  // mppi.py:552
@@ -1051,7 +1064,7 @@ __global__ void __launch_bounds__(BLOCK, 2) mppi_fused_partial(Params p) {
     for (int d = g0; d < R; d += G) {
       const float u0 = vU[d];
       float v = u0 + nt[d * ldt + s];
-      if (p.null_action && k == 0) v = 0.0f;
+      if (null_row(p, k)) v = 0.0f;
       if (erow) v = __ldg(erow + d);
       v = fminf(fmaxf(v, vLo[d]), vHi[d]);
       if (p.pert && live) p.pert[(size_t)d * p.K + k] = v;
@@ -2255,7 +2268,10 @@ const char* fused_mppi_error_string(int e) { return cudaGetErrorString((cudaErro
 // holds the quadratic terminal cost's constants (goal (nx), w_state,
 // w_action), or is null for no terminal cost.  kMPPI takes `num_elites`
 // elite rows (num_elites, D) row-major in `elites`, for the samples from
-// `elite_off` on (0 and null without elite reuse).
+// `elite_off` on (0 and null without elite reuse).  For one shard of the
+// samples (kernel A only), `gate` points at an int32 that must not be 0 for
+// sample 0 to be the null row (null: always, as without sharding), and
+// sample k draws the noise of global sample `k_offset` + k.
 int fused_mppi_launch(int device, void* stream, int variant, int model_id, const float* consts,
                       int K, int T, int nx, int nu, int R,
                       const int* bits, int bits_cols, unsigned key0, unsigned key1,
@@ -2270,7 +2286,7 @@ int fused_mppi_launch(int device, void* stream, int variant, int model_id, const
                       int num_plants, long long u_rs, long long u_ps, long long a_rs,
                       long long a_ps, const float* noise, long long noise_ld, int plant_group,
                       int tile_k, int* counter, const float* terminal, const float* elites,
-                      int num_elites, int elite_off) {
+                      int num_elites, int elite_off, const int* gate, int k_offset) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   Params p{};
@@ -2329,12 +2345,15 @@ int fused_mppi_launch(int device, void* stream, int variant, int model_id, const
   p.elites = elites;
   p.num_elites = num_elites;
   p.elite_off = elite_off;
+  p.gate = gate;
+  p.k_offset = k_offset;
   const size_t smem = kernel_smem(variant, p.D, R, full_op, p.S, scratch != nullptr);
   if (variant < kMPPI || variant > kBatched || num_plants < 1 ||
       (variant == kBatched ? plant_group < 1 : num_plants != 1 || !valid_tile(tile_k) || !counter))
     return (int)cudaErrorInvalidValue;
   if (num_elites < 0 || elite_off < 0 || (num_elites > 0 && (variant != kMPPI || !elites)))
     return (int)cudaErrorInvalidValue;
+  if (k_offset < 0 || ((gate || k_offset) && variant == kBatched)) return (int)cudaErrorInvalidValue;
   return (int)launch_solve(p, variant, model_id, smem, (cudaStream_t)stream);
 }
 

@@ -114,12 +114,16 @@ def make_train_step(dynamics_loss: Optional[Callable] = None,
     optax's ``adam(1e-3)``).  ``init_opt(params)`` returns the optimizer's
     initial ``state_dict``; ``train_step(params, opt_state, batch) ->
     (params, opt_state, loss)`` takes one step on copies and leaves its
-    arguments as they were.  ``mesh`` (data-parallel training) is not
-    ported yet."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "make_train_step(mesh=...) is not ported yet (ROADMAP.md Queue 1 item 12)")
-    del nx, data_axis  # the JAX signature's; the loss reads the shapes
+    arguments as they were.
+
+    With ``mesh`` (``parallel.make_mesh``) the step is data-parallel over
+    the ranks of its ``data_axis`` (JAX's sharded batch, ``mlp.py:144-160``):
+    each rank takes its equal slice of the batch's rows, and the gradients,
+    each of a mean over the rank's rows, are averaged with one
+    ``all_reduce`` before the optimizer's step, so every rank takes the step
+    one process takes on the whole batch (a loss must be a mean over the
+    rows); the returned loss is the whole batch's."""
+    del nx  # the JAX signature's; the loss reads the shapes
     build = optimizer or _default_optimizer
     diff_dims = tuple(angle_diff_dims)
     encode = tuple(angle_encode_dims)
@@ -143,13 +147,19 @@ def make_train_step(dynamics_loss: Optional[Callable] = None,
     def init_opt(params):
         return build([t for layer in working_copy(params) for t in layer]).state_dict()
 
+    rows = None if mesh is None else _DataSplit(mesh, data_axis)
+
     def train_step(params, opt_state, batch):
         work = working_copy(params)
         flat = [t for layer in work for t in layer]
         opt = build(flat)
         opt.load_state_dict(copy.deepcopy(opt_state))
+        if rows is not None:
+            batch = rows.take(batch)
         loss = loss_fn(work, batch)
         grads = torch.autograd.grad(loss, flat)
+        if rows is not None:
+            loss, grads = rows.mean(loss.detach(), grads)
         for t, g in zip(flat, grads):
             t.grad = g
         opt.step()
@@ -157,6 +167,37 @@ def make_train_step(dynamics_loss: Optional[Callable] = None,
         return new, opt.state_dict(), loss.detach()
 
     return train_step, init_opt
+
+
+class _DataSplit:
+    """The rows of a batch split over the ranks of a mesh axis, and the
+    mean of the ranks' losses and gradients (one ``all_reduce``)."""
+
+    def __init__(self, mesh, axis: str):
+        from ..parallel import mesh as PM
+
+        self.group = PM.axis_group(mesh, axis)
+        self.rank, self.n = PM.axis_rank(mesh, axis), PM.axis_size(mesh, axis)
+
+    def take(self, batch):
+        rows = batch[0].shape[0]
+        if rows % self.n:
+            raise ValueError(f"a batch of {rows} rows does not split evenly over the "
+                             f"{self.n} ranks of the data axis")
+        chunk = rows // self.n
+        return tuple(t.narrow(0, self.rank * chunk, chunk) for t in batch)
+
+    def mean(self, loss, grads):
+        import torch.distributed as dist
+
+        flat = torch.cat([loss.reshape(1)] + [g.reshape(-1) for g in grads])
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=self.group)
+        flat = flat / self.n
+        out, at = [], 1
+        for g in grads:
+            out.append(flat[at:at + g.numel()].reshape(g.shape))
+            at += g.numel()
+        return flat[0], out
 
 
 def train_epochs(train_step: Callable, params, opt_state, batch, epochs: int):

@@ -310,10 +310,11 @@ def bits_to_normal(bits: torch.Tensor) -> torch.Tensor:
     return erfinv_f32(2.0 * u - 1.0) * 1.4142135623730951
 
 
-def source_columns(K: int, pair_block: int, antithetic: bool, device):
+def source_columns(K: int, pair_block: int, antithetic: bool, device, k_offset: int = 0):
     """Source column of every sample and its antithetic sign (None without
-    antithetic sampling)."""
-    k = torch.arange(K, device=device)
+    antithetic sampling); the K samples of a shard are the global samples
+    ``k_offset`` to ``k_offset + K - 1``."""
+    k = torch.arange(k_offset, k_offset + K, device=device)
     if not antithetic:
         return k, None
     bh = pair_block // 2
@@ -336,10 +337,10 @@ def weighting_from_stats(cost_total, lambda_, m, s):
 
 
 def _noise(seed_or_bits, R: int, K: int, pair_block: int, antithetic: bool, op,
-           mu, device):
+           mu, device, k_offset: int = 0):
     """(R, K) noise of the drawn rows: the normals of each sample's source
     column, the antithetic sign, then the diagonal scale or ``op @ z``."""
-    src, sign = source_columns(K, pair_block, antithetic, device)
+    src, sign = source_columns(K, pair_block, antithetic, device, k_offset)
     if is_device_key(seed_or_bits):
         bits = philox_bits(seed_or_bits.to(device), src, R)
     elif isinstance(seed_or_bits, torch.Tensor):
@@ -385,9 +386,16 @@ def _softmax_update(cost, lambda_, upd):
     return upd @ w, m, torch.sum(w)
 
 
-def _null_row(perturbed, null_action: bool):
+def _null_row(perturbed, null_action: bool, gate=None):
+    """Sample 0 as the null action, where the (1,) int32 ``gate`` is not 0
+    if one is given (one shard of the samples); on a fresh tensor of the
+    caller's."""
     if null_action:
-        perturbed[:, 0] = 0.0  # a fresh tensor of the caller's
+        if gate is None:
+            perturbed[:, 0] = 0.0
+        else:
+            on = gate.to(perturbed.device).reshape(()) != 0
+            perturbed[:, 0] = torch.where(on, 0.0, perturbed[:, 0])
     return perturbed
 
 
@@ -402,20 +410,23 @@ def _elite_columns(perturbed, elites, null_action: bool):
 
 
 def fused_solve_plain(seed_or_bits, x0T, U2, op, mu_t, lo_t, hi_t, a_flat,
-                      lambda_, elites=None, *, model: KernelModel, K: int, T: int, nu: int,
-                      antithetic: bool = False, null_action: bool = False,
+                      lambda_, elites=None, gate=None, *, model: KernelModel, K: int, T: int,
+                      nu: int, antithetic: bool = False, null_action: bool = False,
                       abs_cost: bool = False, u_scale: float = 1.0,
                       emit_perturbed: bool = False, pair_block: int = None,
-                      terminal: KernelTerminal = None):
+                      terminal: KernelTerminal = None, k_offset: int = 0):
     """What the fused MPPI kernel computes, in torch ops on (D, K) tensors of
     any device.  Same arguments and results as the kernel's wrapper; the
     (E, D) ``elites`` take the samples after the null row before the
-    clamp."""
+    clamp, the null row only where the (1,) int32 ``gate`` is not 0 if one
+    is given, and sample k draws the noise of global sample ``k_offset`` +
+    k (one shard of the samples)."""
     D = T * nu
     pair_block = pair_block or K + K % 2
-    noise = _noise(seed_or_bits, D, K, pair_block, antithetic, op, mu_t, x0T.device)
+    noise = _noise(seed_or_bits, D, K, pair_block, antithetic, op, mu_t, x0T.device, k_offset)
     U_col = U2.reshape(D, 1)
-    perturbed = _elite_columns(_null_row(U_col + noise, null_action), elites, null_action)
+    perturbed = _elite_columns(_null_row(U_col + noise, null_action, gate), elites,
+                               null_action)
     perturbed = torch.clamp(perturbed, lo_t[:, None], hi_t[:, None])
     n = perturbed - U_col
     cost = _action_cost(n, a_flat, abs_cost) + _rollout_total(
@@ -425,21 +436,23 @@ def fused_solve_plain(seed_or_bits, x0T, U2, op, mu_t, lo_t, hi_t, a_flat,
 
 
 def smppi_solve_plain(seed_or_bits, x0T, U2, as2, op, mu_t, lo_t, hi_t, alo_t,
-                      ahi_t, a_flat, lambda_, w_seq, delta_t, *, model: KernelModel,
-                      K: int, T: int, nu: int, antithetic: bool = False,
+                      ahi_t, a_flat, lambda_, w_seq, delta_t, gate=None, *,
+                      model: KernelModel, K: int, T: int, nu: int, antithetic: bool = False,
                       null_action: bool = False, abs_cost: bool = False,
                       u_scale: float = 1.0, emit_perturbed: bool = False,
-                      pair_block: int = None, terminal: KernelTerminal = None):
+                      pair_block: int = None, terminal: KernelTerminal = None,
+                      k_offset: int = 0):
     """What the fused SMPPI kernel computes (pallas_rollout.py:829-861): the
     rate clamp, the integration, the null row, the action clamp, the noise
     back-computed through both clamps, the smoothness cost; ``delta`` is in
-    rate space and the perturbed actions are the action-space ones."""
+    rate space and the perturbed actions are the action-space ones.
+    ``gate`` and ``k_offset`` as for :func:`fused_solve_plain`."""
     D = T * nu
     pair_block = pair_block or K + K % 2
-    noise = _noise(seed_or_bits, D, K, pair_block, antithetic, op, mu_t, x0T.device)
+    noise = _noise(seed_or_bits, D, K, pair_block, antithetic, op, mu_t, x0T.device, k_offset)
     U_col, as_col = U2.reshape(D, 1), as2.reshape(D, 1)
     rate = torch.clamp(U_col + noise, lo_t[:, None], hi_t[:, None])
-    pert_act = _null_row(as_col + rate * delta_t, null_action)
+    pert_act = _null_row(as_col + rate * delta_t, null_action, gate)
     pert_act = torch.clamp(pert_act, alo_t[:, None], ahi_t[:, None])
     n = (pert_act - as_col) / delta_t - U_col  # mppi.py:552
     diff = pert_act[nu:] - pert_act[:-nu]
@@ -453,21 +466,23 @@ def smppi_solve_plain(seed_or_bits, x0T, U2, as2, op, mu_t, lo_t, hi_t, alo_t,
 
 
 def kmppi_solve_plain(seed_or_bits, x0T, U2, theta2, op, mu_p, lop, hip, lo_t,
-                      hi_t, a_flat, Wt, lambda_, *, model: KernelModel, K: int,
+                      hi_t, a_flat, Wt, lambda_, gate=None, *, model: KernelModel, K: int,
                       T: int, nu: int, nsp: int, antithetic: bool = False,
                       null_action: bool = False, abs_cost: bool = False,
                       u_scale: float = 1.0, emit_perturbed: bool = False,
-                      pair_block: int = None, terminal: KernelTerminal = None):
+                      pair_block: int = None, terminal: KernelTerminal = None,
+                      k_offset: int = 0):
     """What the fused KMPPI kernel computes (pallas_rollout.py:1011-1040):
     support-point noise clamped there, interpolated to the full horizon by
     ``Wt`` (D, Dp) in float32, the null row, the trajectory clamp; ``delta``
-    has Dp rows (theta space)."""
+    has Dp rows (theta space).  ``gate`` and ``k_offset`` as for
+    :func:`fused_solve_plain`."""
     D, Dp = T * nu, nsp * nu
     pair_block = pair_block or K + K % 2
-    noise = _noise(seed_or_bits, Dp, K, pair_block, antithetic, op, mu_p, x0T.device)
+    noise = _noise(seed_or_bits, Dp, K, pair_block, antithetic, op, mu_p, x0T.device, k_offset)
     th_col = theta2.reshape(Dp, 1)
     pts = torch.clamp(th_col + noise, lop[:, None], hip[:, None])
-    perturbed = _null_row(Wt @ pts, null_action)
+    perturbed = _null_row(Wt @ pts, null_action, gate)
     perturbed = torch.clamp(perturbed, lo_t[:, None], hi_t[:, None])
     n = perturbed - U2.reshape(D, 1)
     cost = _action_cost(n, a_flat, abs_cost) + _rollout_total(
@@ -528,7 +543,7 @@ def _lib():
             _I, _P, _I, _I, _P, _I, _I, _I, _I, _I, _P, _I, ctypes.c_uint32,
             ctypes.c_uint32, _P, _I, _I, _I, _I, _P, _L, _L, _P, _P, _P, _I, _P,
             _P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_float, _P, _P, _P,
-            _P, _P, _P, _I, _L, _L, _L, _L, _P, _L, _I, _I, _P, _P, _P, _I, _I,
+            _P, _P, _P, _I, _L, _L, _L, _L, _P, _L, _I, _I, _P, _P, _P, _I, _I, _P, _I,
         ]
         lib.fused_mppi_rollout.argtypes = [_I, _P, _I, _P, _I, _I, _I, _I, _P, _L, _L,
                                            _P, _P, _I]
@@ -670,7 +685,10 @@ class LaunchSpec(NamedTuple):
     (``ops/library.py``), ``u_scale`` aside.  ``antithetic`` and
     ``null_action`` are the config's; ``R`` is the drawn rows (D, or Dp for
     KMPPI); ``S`` the samples a block (the batched kernel's BLOCK);
-    ``rowmajor`` selects the round-1 solve's path (``ops/rowmajor.py``)."""
+    ``rowmajor`` selects the round-1 solve's path (``ops/rowmajor.py``).
+    A shard of the samples, ``shard`` of ``shards`` equal shards of the
+    global K = K · shards, draws the noise of the global samples ``shard``
+    · K to (``shard`` + 1) · K - 1 (``ops/solve.make_sharded_transposed_solve``)."""
 
     variant: int
     model_id: int
@@ -691,13 +709,17 @@ class LaunchSpec(NamedTuple):
     noise_operand: int
     E: int
     rowmajor: int = 0
+    shard: int = 0
+    shards: int = 1
 
 
 @functools.lru_cache(maxsize=None)
 def launch_geometry(spec: LaunchSpec) -> dict:
     """What a launch of ``spec`` derives from it: the tiles' place (shared
     memory, or a global scratch of one (rows, S) slice per launched block and
-    tile), the blocks, the padded K and the columns of injected bits."""
+    tile), the blocks, the padded K (a shard's own K where the launch is one
+    shard of the samples) and the columns of injected bits (of the global K
+    for a shard)."""
     batched = spec.variant == BATCHED
     D = spec.T * spec.nu
     nblocks = -(-spec.K // spec.S)
@@ -711,21 +733,26 @@ def launch_geometry(spec: LaunchSpec) -> dict:
             partial_tiles(spec.variant, bool(spec.full_op)) * D * spec.S
         scratch = 0 if shared else blocks * tiles
     antithetic = bool(spec.antithetic) and not spec.noise_operand  # the operand holds the mirror
-    K_pad = spec.K if spec.noise_operand or spec.rowmajor else padded_k(spec.K, spec.pair_block)
+    if spec.shards > 1:  # the shard's own samples; the padding is the global bits'
+        K_pad, bits_pad = spec.K, padded_k(spec.K * spec.shards, spec.pair_block)
+    else:
+        K_pad = spec.K if spec.noise_operand or spec.rowmajor else padded_k(spec.K, spec.pair_block)
+        bits_pad = K_pad
     return dict(shared=shared, nblocks=nblocks, blocks=blocks, scratch=scratch,
                 antithetic=antithetic, K_pad=K_pad,
-                bits_cols=K_pad // 2 if antithetic else K_pad)
+                bits_cols=bits_pad // 2 if antithetic else bits_pad)
 
 
 _launch_counters = {}  # kernel A's merge counters, by launch spec, stream and device
 
 
 def launch_kernel_a(spec: LaunchSpec, u_scale: float, lead, key, x0T, U2, base, op, mu, lo,
-                    hi, alo, ahi, a_flat, W, lam, w_seq, dt, elites, consts, term):
+                    hi, alo, ahi, a_flat, W, lam, w_seq, dt, elites, consts, term, gate=None):
     """Launch kernel A (or the batched pair) on CUDA tensors the wrapper has
     checked: ``lead`` is the noise operand, the (2,) int32 key buffer, the
-    int32 bits, or None with the Philox ``key`` by value.  Returns ``(delta,
-    ms (2[, N]), cost, perturbed or None)``, and counts the launches."""
+    int32 bits, or None with the Philox ``key`` by value; ``gate`` the (1,)
+    int32 null-action gate or None.  Returns ``(delta, ms (2[, N]), cost,
+    perturbed or None)``, and counts the launches."""
     geo = launch_geometry(spec)
     batched = spec.variant == BATCHED
     device = x0T.device
@@ -775,6 +802,7 @@ def launch_kernel_a(spec: LaunchSpec, u_scale: float, lead, key, x0T, U2, base, 
         a_flat.stride(-1) if batched else 0, _ptr(noise),
         noise.stride(0) if noise is not None else 0, spec.group, spec.S, _ptr(counter),
         _ptr(term), _ptr(elites) if spec.E else None, spec.E, int(null_action),
+        _ptr(gate), spec.shard * K,
     )
     raise_on_error(lib, rc, "fused_mppi")
     if batched:
@@ -785,7 +813,7 @@ def launch_kernel_a(spec: LaunchSpec, u_scale: float, lead, key, x0T, U2, base, 
 
 
 def plain_kernel_a(spec: LaunchSpec, u_scale: float, lead, key, x0T, U2, base, op, mu, lo,
-                   hi, alo, ahi, a_flat, W, lam, w_seq, dt, elites, consts, term):
+                   hi, alo, ahi, a_flat, W, lam, w_seq, dt, elites, consts, term, gate=None):
     """:func:`launch_kernel_a`'s plain version, on tensors of any device: the
     variant's plain function with the device model rebuilt from its
     constants (:func:`~.kernel_models.plain_model`), as :func:`finish`
@@ -808,35 +836,52 @@ def plain_kernel_a(spec: LaunchSpec, u_scale: float, lead, key, x0T, U2, base, o
     if spec.variant == BATCHED:
         return batched_solve_plain(seed_or_bits, x0T, U2, op, mu, lo, hi, a_flat, lam,
                                    noise_operand=bool(spec.noise_operand), **flags) + (None,)
-    flags.update(null_action=bool(spec.null_action), emit_perturbed=bool(spec.emit_perturbed))
+    flags.update(null_action=bool(spec.null_action), emit_perturbed=bool(spec.emit_perturbed),
+                 k_offset=spec.shard * spec.K)
     if spec.variant == MPPI:
         out = fused_solve_plain(seed_or_bits, x0T, U2, op, mu, lo, hi, a_flat, lam, elites,
-                                **flags)
+                                gate, **flags)
     elif spec.variant == SMPPI:
         out = smppi_solve_plain(seed_or_bits, x0T, U2, base, op, mu, lo, hi, alo, ahi, a_flat,
-                                lam, w_seq, dt, **flags)
+                                lam, w_seq, dt, gate, **flags)
     else:
         out = kmppi_solve_plain(seed_or_bits, x0T, U2, base, op, mu, lo, hi, alo, ahi, a_flat,
-                                W, lam, nsp=spec.R // spec.nu, **flags)
+                                W, lam, gate, nsp=spec.R // spec.nu, **flags)
     return out[0], torch.stack([out[1], out[2]]), out[3], out[4] if len(out) > 4 else None
 
 
+def gate_operand(rest, null_gate: bool, device, also: str = ""):
+    """The trailing null-gate argument of a call, as a (1,) int32 tensor on
+    ``device``, or None for a solve built without it (JAX's
+    ``_tp_gate_operand``, ``pallas_rollout.py:496-509``).  Loud on arity:
+    a gate passed to a solve built without one would otherwise leave every
+    shard its own null row."""
+    if len(rest) != (1 if null_gate else 0):
+        raise TypeError(
+            f"this fused solve takes {int(null_gate)} trailing null-gate argument(s) but was "
+            f"called with {len(rest)}{also}; the gate exists only when BOTH "
+            f"config.sample_null_action is set and the kernel was built with "
+            f"null_dynamic_gate=True")
+    if not null_gate:
+        return None
+    return torch.as_tensor(rest[0], dtype=torch.int32, device=device).reshape(1)
+
+
 def _make_launch(variant: int, config: MPPIConfig, model: KernelModel, R: int,
-                 pair_block, emit_perturbed: bool, null_dynamic_gate: bool,
-                 terminal_final, plants: int = 1, noise_operand: bool = False,
-                 group: int = 1, tile_k: int = None):
+                 pair_block, emit_perturbed: bool, terminal_final, plants: int = 1, noise_operand: bool = False,
+                 group: int = 1, tile_k: int = None, shard=(0, 1)):
     """Checks shared by the four factories, and the launch of one variant:
     ``launch(lead, x0T, U2, base, op, mu, lo, hi, alo, ahi, a_flat, W,
-    lambda_, w_seq, dt)`` on CUDA tensors.  The single-plant variants take
-    ``tile_k`` samples a block (see :func:`check_tile`).  The batched variant
+    lambda_, w_seq, dt[, elites][, gate])`` on CUDA tensors.  The single-plant
+    variants take ``tile_k`` samples a block (see :func:`check_tile`), the
+    (1,) int32 null-action ``gate`` of a solve built with it, and are
+    ``shard`` = (i, n), shard i of n of the global samples (K · n of
+    them).  The batched variant
     takes ``plants`` plants, ``group`` of them a block: x0T (nx, N), U2 and
     a_flat (D, N) of any strides, and in operand mode the final (D, ≥K)
     noise as ``lead``.  The launch calls :func:`launch_kernel_a`, directly
     or through its operator (:func:`via_ops`).  Returns ``(launch, flags,
     info)`` where ``flags`` are the plain version's keyword arguments."""
-    if null_dynamic_gate:
-        raise FusedSolveUnavailable(
-            "null_dynamic_gate is not ported yet (ROADMAP.md Queue 1 item 12, sharding)")
     terminal = find_kernel_terminal(terminal_final)
     if terminal_final is not None and terminal is None:
         raise FusedSolveUnavailable(
@@ -854,7 +899,12 @@ def _make_launch(variant: int, config: MPPIConfig, model: KernelModel, R: int,
                          f"config is nx={nx}")
     D = T * nu
     batched = variant == BATCHED
-    pair_block = pair_block or K + K % 2
+    if batched:
+        shard = (0, 1)
+    if not 0 <= shard[0] < shard[1]:
+        raise ValueError(f"shard must be (i, n) with 0 <= i < n, got {shard}")
+    K_all = K * shard[1]  # the samples of every shard
+    pair_block = pair_block or K_all + K_all % 2
     if config.antithetic and not noise_operand and pair_block % 2:
         raise ValueError(f"antithetic pairing needs an even pair_block, got {pair_block}")
     full_op = not (noise_operand or config.diag_sigma and not config.noise_rho)
@@ -862,7 +912,8 @@ def _make_launch(variant: int, config: MPPIConfig, model: KernelModel, R: int,
     spec = LaunchSpec(variant, model.model_id, K, T, nx, nu, R, pair_block,
                       int(config.antithetic), int(config.sample_null_action),
                       int(config.noise_abs_cost), int(full_op), int(emit_perturbed), plants,
-                      group, _BLOCK if batched else check_tile(tile_k, K), int(noise_operand), E)
+                      group, _BLOCK if batched else check_tile(tile_k, K), int(noise_operand), E,
+                      0, *shard)
     geo = launch_geometry(spec)
     spec_ints, u_scale = list(spec), float(config.u_scale)
     flags = dict(model=model, K=K, T=T, nu=nu, antithetic=config.antithetic,
@@ -871,11 +922,12 @@ def _make_launch(variant: int, config: MPPIConfig, model: KernelModel, R: int,
     if batched:
         flags.update(noise_operand=noise_operand)
     else:
-        flags.update(null_action=config.sample_null_action, emit_perturbed=emit_perturbed)
+        flags.update(null_action=config.sample_null_action, emit_perturbed=emit_perturbed,
+                     k_offset=spec.shard * K)
     cols = plants if batched else K
 
     def launch(lead, x0T, U2, base, op, mu, lo, hi, alo, ahi, a_flat, W, lam,
-               w_seq, dt, elites=None):
+               w_seq, dt, elites=None, gate=None):
         device = x0T.device
         _check("x0T", x0T, device, shape=(nx, cols), contiguous=False)
         for name, t in (("U2", U2), ("a_flat", a_flat)):
@@ -893,6 +945,8 @@ def _make_launch(variant: int, config: MPPIConfig, model: KernelModel, R: int,
             _check("Wt", W, device, shape=(D, R))
         if E:
             _check("elites", elites, device, shape=(E, D))
+        if gate is not None:
+            _check("gate", gate, device, dtype=torch.int32, shape=(1,))
         for name, t in (("lambda_", lam), ("w_seq", w_seq), ("delta_t", dt)):
             if t is not None:
                 _check(name, t.reshape(1), device, shape=(1,))
@@ -917,9 +971,9 @@ def _make_launch(variant: int, config: MPPIConfig, model: KernelModel, R: int,
                     *args[:4], *args[5:9], args[11], args[13], *args[17:], spec_ints, u_scale)
             else:
                 delta, ms, cost, pert = torch.ops.mppi_torch.kernel_a.default(
-                    *args, spec_ints, u_scale)
+                    *args, gate, spec_ints, u_scale)
         else:
-            delta, ms, cost, pert = launch_kernel_a(spec, u_scale, *args)
+            delta, ms, cost, pert = launch_kernel_a(spec, u_scale, *args, gate)
         if batched:
             return delta, ms, cost
         out = (delta, ms[0], ms[1], cost)
@@ -956,16 +1010,28 @@ def make_transposed_fused_solve(config: MPPIConfig, model: KernelModel,
                                 pair_block: int = None,
                                 emit_perturbed: bool = False,
                                 null_dynamic_gate: bool = False,
-                                terminal_final=None, tile_k: int = None):
+                                terminal_final=None, tile_k: int = None,
+                                shard=(0, 1)):
     """The whole MPPI iteration as one fused-kernel call (see the module
     docstring for the call contract).  Raises ValueError for a non-float32
     config or a model whose sizes differ from the config's, and
     :class:`FusedSolveUnavailable` when nx or nu exceeds the device models'
     registers (32), for a ``terminal_final`` that is not a kernel terminal
-    cost (:func:`~.kernel_models.quadratic_terminal`), for
-    ``null_dynamic_gate``, which this port does not run yet, and for
+    cost (:func:`~.kernel_models.quadratic_terminal`), and for
     ``config.num_elites`` elites that with the null row exceed JAX's
     injection window of min(K, 128) samples (``pallas_rollout.py:596-603``).
+
+    With ``null_dynamic_gate`` and ``config.sample_null_action`` the solve
+    takes one more trailing argument, the null-action gate (a (1,) int32
+    tensor, or an int): sample 0 is the null row only where it is not 0,
+    which the kernel reads when it runs (JAX's ``null_dynamic_gate``,
+    ``pallas_rollout.py:585, 633-636``).  A gate passed to a solve built
+    without one, or missing from one built with it, raises TypeError.
+    ``shard`` = (i, n) builds the solve of shard i of n of the samples:
+    ``config.K`` is the shard's, and sample k draws the noise of global
+    sample i · K + k, so that n shards draw what one solve of K · n samples
+    with the same ``pair_block`` draws; injected bits are then the global
+    (R, bits_cols) tensor (``ops/solve.make_sharded_transposed_solve``).
     ``terminal_final`` adds the terminal cost of each sample's final state and
     last scaled action to its cost, as the JAX kernel's.  ``tile_k`` forces
     the samples of a block of the kernel (32, 64 or 128; default
@@ -982,85 +1048,101 @@ def make_transposed_fused_solve(config: MPPIConfig, model: KernelModel,
         raise FusedSolveUnavailable(
             f"num_elites={E} (+{off} null) exceeds the kernel's one-lane-block "
             f"injection window (min(K, {ELITE_WINDOW}))")
-    launch, flags, info = _make_launch(MPPI, config, model, D, pair_block,
-                                       emit_perturbed, null_dynamic_gate,
-                                       terminal_final, tile_k=tile_k)
+    null_gate = null_dynamic_gate and config.sample_null_action
+    launch, flags, info = _make_launch(MPPI, config, model, D, pair_block, emit_perturbed,
+                                       terminal_final, tile_k=tile_k, shard=shard)
 
-    def elites_of(rest):
-        """The elites operand of a call (JAX's TypeErrors,
-        ``pallas_rollout.py:706-721``), or None without elite reuse."""
-        if not E:
-            if rest:
-                raise TypeError("this fused solve was built without num_elites: it takes "
-                                "no elites operand")
-            return None
-        if not rest:
-            raise TypeError(
-                f"this fused solve was built with num_elites = {E}: pass the ({E}, D) "
-                f"elites operand (elite j goes to sample {off} + j) after lambda")
-        if len(rest) > 1 or tuple(getattr(rest[0], "shape", ())) != (E, D):
-            raise TypeError(f"elites operand must be (E, D) = ({E}, {D}), got "
-                            f"{tuple(getattr(rest[0], 'shape', ()))}")
-        return rest[0]
+    def operands_of(rest, device):
+        """The elites operand (JAX's TypeErrors, ``pallas_rollout.py:706-
+        721``), or None without elite reuse, and the gate of a call."""
+        rest = list(rest)
+        elites = None
+        if E:
+            if not rest:
+                raise TypeError(
+                    f"this fused solve was built with num_elites = {E}: pass the ({E}, D) "
+                    f"elites operand (elite j goes to sample {off} + j) after lambda")
+            elites = rest.pop(0)
+            if tuple(getattr(elites, "shape", ())) != (E, D):
+                raise TypeError(f"elites operand must be (E, D) = ({E}, {D}), got "
+                                f"{tuple(getattr(elites, 'shape', ()))}")
+        also = "" if E else " (built without num_elites, it takes no elites operand)"
+        return elites, gate_operand(rest, null_gate, device, also)
 
     def solve(seed_or_bits, x0T, U2, op, mu_t, lo_t, hi_t, a_flat, lambda_, *rest):
+        elites, gate = operands_of(rest, x0T.device)
         return launch(seed_or_bits, x0T, U2, U2, op, mu_t, lo_t, hi_t, None, None,
-                      a_flat, None, lambda_, None, None, elites_of(rest))
+                      a_flat, None, lambda_, None, None, elites, gate)
 
     def plain(seed_or_bits, x0T, U2, op, mu_t, lo_t, hi_t, a_flat, lambda_, *rest, **kw):
         return fused_solve_plain(seed_or_bits, x0T, U2, op, mu_t, lo_t, hi_t, a_flat,
-                                 lambda_, elites_of(rest), **kw)
+                                 lambda_, *operands_of(rest, x0T.device), **kw)
 
-    return finish(solve, plain, flags, dict(info, num_elites=E, elite_off=off))
+    return finish(solve, plain, flags, dict(info, num_elites=E, elite_off=off,
+                                            null_gate=null_gate))
 
 
 def make_transposed_smppi_solve(config: MPPIConfig, model: KernelModel,
                                 pair_block: int = None,
                                 emit_perturbed: bool = False,
                                 null_dynamic_gate: bool = False,
-                                terminal_final=None, tile_k: int = None):
+                                terminal_final=None, tile_k: int = None,
+                                shard=(0, 1)):
     """The whole SMPPI iteration as one fused-kernel call, with the call
     contract of ``pallas_rollout.py:775-784``: ``solve(seed_or_bits, x0T,
     U2, as2, op, mu_t, lo_t, hi_t (rate bounds), alo_t, ahi_t (action
-    bounds), a_flat, lambda_, w_seq, delta_t)``, the three scalars as 0-d
-    tensors.  Raises, and takes ``tile_k``, as
-    :func:`make_transposed_fused_solve`."""
+    bounds), a_flat, lambda_, w_seq, delta_t[, gate])``, the three scalars
+    as 0-d tensors.  Raises, and takes ``tile_k``, the gate and ``shard``,
+    as :func:`make_transposed_fused_solve`."""
     D = config.T * config.nu
-    launch, flags, info = _make_launch(SMPPI, config, model, D, pair_block,
-                                       emit_perturbed, null_dynamic_gate,
-                                       terminal_final, tile_k=tile_k)
+    null_gate = null_dynamic_gate and config.sample_null_action
+    launch, flags, info = _make_launch(SMPPI, config, model, D, pair_block, emit_perturbed,
+                                       terminal_final, tile_k=tile_k, shard=shard)
 
     def solve(seed_or_bits, x0T, U2, as2, op, mu_t, lo_t, hi_t, alo_t, ahi_t,
-              a_flat, lambda_, w_seq, delta_t):
+              a_flat, lambda_, w_seq, delta_t, *gate):
         return launch(seed_or_bits, x0T, U2, as2, op, mu_t, lo_t, hi_t, alo_t,
-                      ahi_t, a_flat, None, lambda_, w_seq, delta_t)
+                      ahi_t, a_flat, None, lambda_, w_seq, delta_t, None,
+                      gate_operand(gate, null_gate, x0T.device))
 
-    return finish(solve, smppi_solve_plain, flags, info)
+    def plain(*args, **kw):
+        args, gate = args[:14], args[14:]
+        return smppi_solve_plain(*args, gate_operand(gate, null_gate, args[1].device), **kw)
+
+    return finish(solve, plain, flags, dict(info, null_gate=null_gate))
 
 
 def make_transposed_kmppi_solve(config: MPPIConfig, model: KernelModel,
                                 pair_block: int = None,
                                 emit_perturbed: bool = False,
                                 null_dynamic_gate: bool = False,
-                                terminal_final=None, tile_k: int = None):
+                                terminal_final=None, tile_k: int = None,
+                                shard=(0, 1)):
     """The whole KMPPI iteration as one fused-kernel call, with the call
     contract of ``pallas_rollout.py:958-967``: ``solve(seed_or_bits, x0T,
     U2, theta2 (Dp,), op, mu_p, lop, hip (Dp,), lo_t, hi_t (D,), a_flat,
-    Wt (D, Dp), lambda_)`` with ``Dp = config.num_support_pts · nu``.
-    Raises, and takes ``tile_k``, as :func:`make_transposed_fused_solve`."""
+    Wt (D, Dp), lambda_[, gate])`` with ``Dp = config.num_support_pts ·
+    nu``.  Raises, and takes ``tile_k``, the gate and ``shard``, as
+    :func:`make_transposed_fused_solve`."""
     nsp = config.num_support_pts
     if nsp < 1:
         raise ValueError(f"KMPPI needs num_support_pts >= 1, got {nsp}")
-    launch, flags, info = _make_launch(KMPPI, config, model, nsp * config.nu,
-                                       pair_block, emit_perturbed,
-                                       null_dynamic_gate, terminal_final, tile_k=tile_k)
+    null_gate = null_dynamic_gate and config.sample_null_action
+    launch, flags, info = _make_launch(KMPPI, config, model, nsp * config.nu, pair_block,
+                                       emit_perturbed, terminal_final, tile_k=tile_k,
+                                       shard=shard)
 
     def solve(seed_or_bits, x0T, U2, theta2, op, mu_p, lop, hip, lo_t, hi_t,
-              a_flat, Wt, lambda_):
+              a_flat, Wt, lambda_, *gate):
         return launch(seed_or_bits, x0T, U2, theta2, op, mu_p, lop, hip, lo_t,
-                      hi_t, a_flat, Wt, lambda_, None, None)
+                      hi_t, a_flat, Wt, lambda_, None, None, None,
+                      gate_operand(gate, null_gate, x0T.device))
 
-    return finish(solve, kmppi_solve_plain, dict(flags, nsp=nsp), info)
+    def plain(*args, **kw):
+        args, gate = args[:13], args[13:]
+        return kmppi_solve_plain(*args, gate_operand(gate, null_gate, args[1].device), **kw)
+
+    return finish(solve, plain, dict(flags, nsp=nsp), dict(info, null_gate=null_gate))
 
 
 def make_transposed_batched_solve(config: MPPIConfig, num_envs: int,
@@ -1089,7 +1171,7 @@ def make_transposed_batched_solve(config: MPPIConfig, num_envs: int,
         raise ValueError(f"group must be in [1, num_envs={plants}], got {group}")
     D = config.T * config.nu
     launch, flags, info = _make_launch(BATCHED, config, model, D, pair_block, False,
-                                       False, terminal_final, plants=plants,
+                                       terminal_final, plants=plants,
                                        noise_operand=noise_operand, group=group)
 
     def solve(lead, x0T, U2T, op, mu_t, lo_t, hi_t, aT, lambda_):

@@ -64,25 +64,26 @@ def kernel_a(lead: Optional[Tensor], key: Sequence[int], x0T: Tensor, U2: Tensor
              hi: Tensor, alo: Optional[Tensor], ahi: Optional[Tensor], a_flat: Tensor,
              W: Optional[Tensor], lam: Tensor, w_seq: Optional[Tensor], dt: Optional[Tensor],
              elites: Optional[Tensor], consts: Tensor, term: Optional[Tensor],
-             spec: Sequence[int], u_scale: float) -> tuple[Tensor, Tensor, Tensor, Tensor]:
+             gate: Optional[Tensor], spec: Sequence[int],
+             u_scale: float) -> tuple[Tensor, Tensor, Tensor, Tensor]:
     delta, ms, cost, pert = FS.launch_kernel_a(
         FS.LaunchSpec(*spec), u_scale, lead, tuple(key), x0T, U2, base, op, mu, lo, hi, alo,
-        ahi, a_flat, W, lam, w_seq, dt, elites, consts, term)
+        ahi, a_flat, W, lam, w_seq, dt, elites, consts, term, gate)
     return delta, ms, cost, _empty(cost) if pert is None else pert
 
 
 @kernel_a.register_kernel("cpu")
 def _kernel_a_plain(lead, key, x0T, U2, base, op, mu, lo, hi, alo, ahi, a_flat, W, lam,
-                    w_seq, dt, elites, consts, term, spec, u_scale):
+                    w_seq, dt, elites, consts, term, gate, spec, u_scale):
     delta, ms, cost, pert = FS.plain_kernel_a(
         FS.LaunchSpec(*spec), u_scale, lead, tuple(key), x0T, U2, base, op, mu, lo, hi, alo,
-        ahi, a_flat, W, lam, w_seq, dt, elites, consts, term)
+        ahi, a_flat, W, lam, w_seq, dt, elites, consts, term, gate)
     return delta, ms, cost, _empty(cost) if pert is None else pert
 
 
 @kernel_a.register_fake
 def _kernel_a_shapes(lead, key, x0T, U2, base, op, mu, lo, hi, alo, ahi, a_flat, W, lam,
-                     w_seq, dt, elites, consts, term, spec, u_scale):
+                     w_seq, dt, elites, consts, term, gate, spec, u_scale):
     s = FS.LaunchSpec(*spec)
     return (_empty(x0T, s.R), _empty(x0T, 2), _empty(x0T, s.K),
             _empty(x0T, (s.T * s.nu, s.K) if s.emit_perturbed else 0))

@@ -336,7 +336,8 @@ def make_fused_solve(config: MPPIConfig, model: KernelModel, tile_k: int = None)
         args = (bits, key, x0, U, None, chol, mu, lo, hi, None, None, a_flat, None, lam, None,
                 None, None, model.consts_on(device), None)
         if FS.via_ops():
-            delta, ms, cost, _ = torch.ops.mppi_torch.kernel_a.default(*args, spec_ints, u_scale)
+            delta, ms, cost, _ = torch.ops.mppi_torch.kernel_a.default(*args, None, spec_ints,
+                                                                       u_scale)
         else:
             delta, ms, cost, _ = FS.launch_kernel_a(spec, u_scale, *args)
         return delta.reshape(T, nu), ms[0], ms[1], cost

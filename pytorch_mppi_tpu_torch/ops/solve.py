@@ -871,8 +871,12 @@ def _shift_U(U: torch.Tensor, u_init: torch.Tensor) -> torch.Tensor:
 
 def _unscaled(config: MPPIConfig, actions):
     """The stored actions artifact: the rollout's scaled actions over
-    ``u_scale`` (``solve.py:1411``), or None."""
-    return None if actions is None else actions / config.u_scale
+    ``u_scale`` (``solve.py:1411``), or None; a rank's share stays one."""
+    if actions is None:
+        return None
+    if not isinstance(actions, torch.Tensor):  # a parallel.Shard
+        return actions._replace(local=actions.local / config.u_scale)
+    return actions / config.u_scale
 
 
 # ---------------------------------------------------------------------------
@@ -906,11 +910,221 @@ def _x0_to_lanes(x0: torch.Tensor, K: int) -> torch.Tensor:
     return x0[:, None].expand(x0.shape[-1], K)
 
 
+# ---------------------------------------------------------------------------
+# Sharding over a mesh axis (the counterpart of JAX's shard_map and sharding
+# constraints, ``solve.py:536-760``)
+# ---------------------------------------------------------------------------
+
+
+class Split:
+    """This rank's share of ``size`` items (samples or plants) split over
+    the ranks of the mesh axis ``axis``: chunks of ``ceil(size / n)`` in
+    rank order, the last one padded with copies of the last item so that
+    every rank holds as many.  :meth:`take` cuts the share out of a
+    replicated tensor, :meth:`join` gathers every rank's share back (a
+    collective over the axis's process group), :meth:`shard` defers that
+    gather to the first read of an artifact (``parallel.Shard``)."""
+
+    def __init__(self, mesh, axis: str, size: int):
+        from ..parallel import mesh as PM
+
+        self.size = int(size)
+        self.group, self.rank, self.n = (PM.axis_group(mesh, axis), PM.axis_rank(mesh, axis),
+                                         PM.axis_size(mesh, axis))
+        self.chunk = -(-self.size // self.n)
+        self.start = self.rank * self.chunk
+        self.even = self.size % self.n == 0
+        self._index = {}
+
+    def take(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        if self.even:
+            return t.narrow(dim, self.start, self.chunk)
+        idx = self._index.get(t.device)
+        if idx is None:
+            idx = self._index[t.device] = torch.arange(
+                self.start, self.start + self.chunk, device=t.device).clamp_(max=self.size - 1)
+        return t.index_select(dim, idx)
+
+    def join(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        from ..parallel.mesh import all_gather_cat
+
+        return all_gather_cat(t, dim, self.group).narrow(dim, 0, self.size)
+
+    def shard(self, t, dim: int = 0):
+        from ..parallel.mesh import Shard
+
+        return None if t is None else Shard(t, dim, self.group, self.size)
+
+
+def _sample_split(mesh, sample_axis, K: int):
+    """The split of the K samples over ``sample_axis``, or None without a
+    mesh or an axis: ``sample_axis`` without a mesh is ignored, as JAX's
+    ``make_constrainer`` is the identity there (``solve.py:51-66``)."""
+    if mesh is None or sample_axis is None:
+        return None
+    return Split(mesh, sample_axis, K)
+
+
+_SAMPLE_ARTIFACTS = ("cost_total", "cost_total_non_zero", "omega", "noise", "perturbed_action")
+
+
+def _shard_artifacts(split, art: Artifacts) -> Artifacts:
+    """A fused command's artifacts where each rank holds its share of the
+    samples (dim 0 of the per-sample fields), gathered when read."""
+    if split is None:
+        return art
+    return art._replace(**{f: split.shard(getattr(art, f)) for f in _SAMPLE_ARTIFACTS})
+
+
+def _split_rollouts(split, config: MPPIConfig) -> Callable:
+    """:func:`rollout_costs` on a mesh (the plain path's counterpart of
+    JAX's sharding constraint on the noise and the cost, ``solve.py:1328,
+    1380``): every rank holds the whole noise draw, rolls out its share of
+    the K samples and gathers the (K,) costs, so the softmax and the update
+    are the same on every rank and equal those of one process; the stored
+    states and actions stay the rank's share until read.  Stochastic
+    dynamics draw over the whole batch they are given, so with them every
+    rank rolls out all K samples (one process's draws)."""
+    if split is None or config.stochastic_dynamics:
+        return rollout_costs
+
+    def run(config, dynamics, running_cost, x0, perturbed_actions, *args, **kw):
+        cost, states, actions = rollout_costs(
+            config, dynamics, running_cost, split.take(x0) if x0.ndim == 2 else x0,
+            split.take(perturbed_actions), *args, **kw)
+        return split.join(cost), split.shard(states, 1), split.shard(actions, 1)
+
+    return run
+
+
+def _merge_stats(delta, m, s, group):
+    """The flash-softmax merge of the ranks' statistics (``solve.py:609-
+    614``): m_g = max m, s_g = Σ s · e^(m − m_g), delta_g = Σ delta ·
+    e^(m − m_g), three collectives over ``group``."""
+    import torch.distributed as dist
+
+    m_g = m.reshape(1).clone()
+    dist.all_reduce(m_g, op=dist.ReduceOp.MAX, group=group)
+    corr = torch.exp(m - m_g[0])
+    s_g = (s * corr).reshape(1)
+    dist.all_reduce(s_g, op=dist.ReduceOp.SUM, group=group)
+    delta_g = delta * corr
+    dist.all_reduce(delta_g, op=dist.ReduceOp.SUM, group=group)
+    return delta_g, m_g[0], s_g[0]
+
+
+def _make_sharded_solve(config: MPPIConfig, factory: Callable, model, mesh, sample_axis: str,
+                        pair_block: int = None, emit_perturbed: bool = None,
+                        terminal_final=None, tile_k: int = None):
+    """A single-plant fused solve with K split over ``sample_axis``: each
+    rank runs kernel A over its K/n samples, and the ranks' statistics merge
+    with three collectives (:func:`_merge_stats`; JAX's
+    ``_make_sharded_solve``, ``solve.py:536-639``).  Same call contract as
+    ``factory``'s solve (the injected bits, if any, are the global tensor);
+    ``cost`` and the emitted perturbed set (by default with
+    ``config.fused_artifacts``, as JAX's) come back as the rank's (K/n,) and
+    (D, K/n) slices, in rank order (``solve.split.join`` gathers them).
+
+    The noise: rank r builds its kernel as shard (r, n) of the samples
+    (``FS.make_transposed_fused_solve``'s ``shard``): its sample k draws
+    the Philox counters (or the injected bits) of global sample r·K/n + k,
+    with the global antithetic pairing, so the n ranks draw exactly what
+    one solve of K samples draws, and no two ranks draw the same noise.
+    The null row: every rank's kernel takes the null-action gate, 1 on the
+    rank holding global sample 0 (``rank == 0`` on the axis) and 0
+    elsewhere.  K not divisible by n raises :class:`FS.FusedSolveUnavailable`
+    (``solve.py:576-581``)."""
+    split = Split(mesh, sample_axis, config.K)
+    if not split.even:
+        raise FS.FusedSolveUnavailable(
+            f"K={config.K} must divide evenly over the {split.n}-way {sample_axis!r} mesh "
+            f"axis for the sharded fused solve")
+    local = factory(dataclasses.replace(config, K=split.chunk), model,
+                    pair_block=pair_block,
+                    emit_perturbed=(config.fused_artifacts if emit_perturbed is None
+                                    else emit_perturbed),
+                    null_dynamic_gate=True, terminal_final=terminal_final, tile_k=tile_k,
+                    shard=(split.rank, split.n))
+    gated = config.sample_null_action
+    on = int(split.rank == 0)
+
+    def solve(lead, x0T, *rest):
+        device = x0T.device
+        gate = (device_constant(device, ("null_gate", on), lambda: torch.tensor(
+            [on], dtype=torch.int32)),) if gated else ()
+        out = local(lead, split.take(x0T, 1), *rest, *gate)
+        delta, m, s_ = _merge_stats(out[0], out[1], out[2], split.group)
+        return (delta, m, s_) + tuple(out[3:])
+
+    solve.tiles, solve.tile_k, solve.local, solve.split = local.tiles, local.tile_k, local, split
+    return solve
+
+
+def make_sharded_transposed_solve(config: MPPIConfig, model, mesh, sample_axis: str = "k",
+                                  **kw):
+    """K-sharded MPPI fused solve (:func:`_make_sharded_solve`); the call
+    contract of ``FS.make_transposed_fused_solve``'s solve, without the
+    elites operand."""
+    return _make_sharded_solve(config, FS.make_transposed_fused_solve, model, mesh,
+                               sample_axis, **kw)
+
+
+def make_sharded_smppi_solve(config: MPPIConfig, model, mesh, sample_axis: str = "k", **kw):
+    """K-sharded SMPPI fused solve; the rate-space delta merges across the
+    ranks as the plain one."""
+    return _make_sharded_solve(config, FS.make_transposed_smppi_solve, model, mesh,
+                               sample_axis, **kw)
+
+
+def make_sharded_kmppi_solve(config: MPPIConfig, model, mesh, sample_axis: str = "k", **kw):
+    """K-sharded KMPPI fused solve; the theta-space delta merges across the
+    ranks as the plain one."""
+    return _make_sharded_solve(config, FS.make_transposed_kmppi_solve, model, mesh,
+                               sample_axis, **kw)
+
+
+def make_sharded_batched_solve(config: MPPIConfig, num_envs: int, model, mesh,
+                               env_axis: str = "data", **kw):
+    """The batched fused solve with the N plants split over ``env_axis``
+    (JAX's ``make_sharded_batched_solve``, ``solve.py:704-760``): each rank
+    runs ``batched_partial`` and ``flash_merge`` over its N/n plants, with no
+    collective.  The lead operand (the key, the bits or the noise operand)
+    is the same on every rank, so the plants share the noise across the
+    ranks as on one card.  Takes the global x0T (nx, N), U2T and aT (D, N);
+    returns the rank's delta (D, N/n), ms (2, N/n) and cost (N/n, K).  N not
+    divisible by n raises :class:`FS.FusedSolveUnavailable`; ``kw`` go to
+    ``FS.make_transposed_batched_solve``."""
+    split = Split(mesh, env_axis, num_envs)
+    if not split.even:
+        raise FS.FusedSolveUnavailable(
+            f"num_envs={num_envs} must divide evenly over the {split.n}-way {env_axis!r} "
+            f"mesh axis for the sharded batched fused solve")
+    local = FS.make_transposed_batched_solve(config, split.chunk, model, **kw)
+
+    def solve(lead, x0T, U2T, op, mu_t, lo_t, hi_t, aT, lambda_):
+        return local(lead, split.take(x0T, 1), split.take(U2T, 1), op, mu_t, lo_t, hi_t,
+                     split.take(aT, 1), lambda_)
+
+    for name in ("tiles", "K_pad", "noise_operand", "plant_group"):
+        setattr(solve, name, getattr(local, name))
+    solve.local, solve.split = local, split
+    return solve
+
+
+def _fused_factory(factory: Callable, sharded_factory: Callable, mesh, split, sample_axis):
+    """The fused solve's factory: ``factory``, or on a mesh the sharded one
+    bound to it (``solve.py:1157-1168``)."""
+    if split is None:
+        return factory
+    return lambda config, model, **kw: sharded_factory(config, model, mesh, sample_axis, **kw)
+
+
 def _route_transposed_solve(config: MPPIConfig, dynamics: Callable,
                             running_cost: Callable,
                             factory: Callable = FS.make_transposed_fused_solve,
                             variant: str = "MPPI", terminal_state_cost: Callable = None,
-                            terminal_final_cost: Callable = None, has_sampler: bool = False):
+                            terminal_final_cost: Callable = None, has_sampler: bool = False,
+                            sharded: bool = False):
     """``use_pallas`` routing, decided once when the step is built: the fused
     solve that ``factory`` builds, or None (the plain path) with a warning
     saying why.  A ``terminal_state_cost`` reads the rollout storage the
@@ -921,7 +1135,14 @@ def _route_transposed_solve(config: MPPIConfig, dynamics: Callable,
     (``solve.py:831``).  A specific-action sampler (``has_sampler``: its
     rows or its dynamics hook) takes the plain path; elite reuse keeps the
     kernel only with ``fused_artifacts``, and without it the warning names
-    that flag (``solve.py:788-832``)."""
+    that flag (``solve.py:788-832``).  ``sharded``: the factory builds a
+    K-sharded solve, which takes no elites operand (``solve.py:790-797``)."""
+    if sharded and config.num_elites > 0:
+        logger.warning(
+            "use_pallas with num_elites on a K-sharded mesh is not supported by the fused "
+            "kernels (the elites would have to reach the one rank holding their samples); "
+            "using the plain torch path for %s", variant)
+        return None
     if terminal_state_cost is not None:
         logger.warning(
             "use_pallas requested but terminal_state_cost reads the (K, T, nx) rollout "
@@ -973,15 +1194,18 @@ def _route_transposed_solve(config: MPPIConfig, dynamics: Callable,
 
 def _route_legacy_rollout(config: MPPIConfig, dynamics: Callable,
                           running_cost: Callable, has_terminal: bool = False,
-                          has_specific: bool = False):
+                          has_specific: bool = False, sharded: bool = False):
     """``use_pallas="rollout"`` routing (``solve.py:1133-1157``): the legacy
     rollout kernel, or None (the plain path) with a warning saying why.  The
     kernel takes no terminal cost and runs no ``specific_dynamics`` hook, as
-    JAX's ``pallas_eligible(has_terminal, has_specific)``; the null, sampler
-    and elite rows are written before it."""
+    JAX's ``pallas_eligible(has_terminal, has_specific)``, and does not
+    shard (``sharded``: a mesh, ``solve.py:1138``); the null, sampler and
+    elite rows are written before it."""
     model = find_kernel_model(dynamics, running_cost)
     why = None
-    if has_terminal:
+    if sharded:
+        why = "a mesh is set, and the legacy kernels do not shard"
+    elif has_terminal:
         why = "a terminal cost is set, which the legacy rollout kernel does not take"
     elif has_specific:
         why = ("a specific_dynamics hook is set (a SpecificActionSampler's), which the "
@@ -1055,7 +1279,8 @@ def _steps(body: Callable, streams: CommandStreams, get_rollouts, fused: bool,
 def make_mppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callable,
                    use_pallas=False, terminal_state_cost: Callable = None,
                    terminal_final_cost: Callable = None, sample_trajectories: Callable = None,
-                   specific_dynamics: Callable = None) -> StepFns:
+                   specific_dynamics: Callable = None, mesh=None,
+                   sample_axis: str = "k") -> StepFns:
     """Build the MPPI solve for one configuration.
 
     With ``use_pallas`` (the JAX package's name for its fused kernel), an
@@ -1100,6 +1325,14 @@ def make_mppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callabl
     route, with stochastic dynamics on ``refine_seed(seed, counter)``.
     The steps take ``dyn_params`` after ``info``
     (``config.parameterized_dynamics``, the plain path).
+
+    With a ``mesh`` (``parallel.make_mesh``) the K samples split over its
+    ``sample_axis`` ranks (``solve.py:1081-1180``): the fused kernel as
+    :func:`make_sharded_transposed_solve` (elite reuse takes the plain path,
+    with a warning), the plain path through :func:`_split_rollouts`, and
+    the legacy route takes the plain path.  Every rank returns the same
+    action; the per-sample artifacts of the fused route are the rank's
+    share until read (``parallel.Shard``).
     """
     _gate_iterations(config, "MPPI")
     use_pallas = _gate_adaptive_covariance(config, use_pallas, "MPPI")
@@ -1119,14 +1352,21 @@ def make_mppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callabl
 
     legacy = use_pallas == "rollout"
     has_terminal = terminal_state_cost is not None or terminal_final_cost is not None
+    split = _sample_split(mesh, sample_axis, K)
     fused_rollout = (_route_legacy_rollout(config, dynamics, running_cost, has_terminal,
-                                           has_specific=specific_dynamics is not None)
+                                           has_specific=specific_dynamics is not None,
+                                           sharded=split is not None)
                      if legacy else None)
     transposed_solve = (_route_transposed_solve(config, dynamics, running_cost,
+                                                _fused_factory(FS.make_transposed_fused_solve,
+                                                               make_sharded_transposed_solve,
+                                                               mesh, split, sample_axis),
                                                 terminal_state_cost=terminal_state_cost,
                                                 terminal_final_cost=terminal_final_cost,
-                                                has_sampler=has_sampler)
+                                                has_sampler=has_sampler,
+                                                sharded=split is not None)
                         if use_pallas and not legacy else None)
+    rollouts = _split_rollouts(split, config)
     # the gradient stage after the iterations, on every route: autograd
     # through the plain rollout
     refine_nominal = (make_nominal_refiner(config, dyn, cost, terminal_state_cost,
@@ -1161,9 +1401,10 @@ def make_mppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callabl
         if config.fused_artifacts:
             # the rectified noise is the subtraction the kernel's update used
             perturbed2 = out[4].T
-            noise_art = (perturbed2 - U.reshape(D)[None]).reshape(K, T, nu)
-            pert_art = perturbed2.reshape(K, T, nu)
-        return U_new, Artifacts(cost_total, ctnz, omega, noise_art, pert_art), elites
+            noise_art = (perturbed2 - U.reshape(D)[None]).reshape(-1, T, nu)
+            pert_art = perturbed2.reshape(-1, T, nu)
+        return U_new, _shard_artifacts(split, Artifacts(cost_total, ctnz, omega, noise_art,
+                                                        pert_art)), elites
 
     def _one_iteration(params: MPPIParams, U, elites, x0, info, slots, it: int, dyn_params):
         if transposed_solve is not None:
@@ -1189,7 +1430,7 @@ def make_mppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callabl
         perturbed = perturbed2.reshape(K, T, nu)
         states = actions = None
         if fused_rollout is None:
-            rollout_cost, states, actions = rollout_costs(
+            rollout_cost, states, actions = rollouts(
                 config, dyn, cost, x0, perturbed, terminal_state_cost, final_cost,
                 specific_dynamics=specific_dynamics, rngs=slots.rollout[it] if slots.rollout else None,
                 dyn_params=dyn_params)
@@ -1246,7 +1487,8 @@ def make_mppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callabl
 def make_smppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callable,
                     use_pallas: bool = False, terminal_state_cost: Callable = None,
                     terminal_final_cost: Callable = None, sample_trajectories: Callable = None,
-                    specific_dynamics: Callable = None) -> StepFns:
+                    specific_dynamics: Callable = None, mesh=None,
+                    sample_axis: str = "k") -> StepFns:
     """Build the SMPPI solve (``pytorch_mppi_tpu/ops/solve.py:1469-1696``):
     noise in action-rate space, clamped to the rate bounds, integrated onto
     the commanded sequence, clamped to the action bounds, the noise
@@ -1259,7 +1501,8 @@ def make_smppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callab
     adapts the rate-space sigma.  A specific-action sampler writes its rows
     into the integrated actions before the action clamp (``solve.py:
     1636-1646``) and takes the plain path, as in :func:`make_mppi_step`;
-    elite reuse and gradient refinement raise (MPPI only)."""
+    elite reuse and gradient refinement raise (MPPI only).  ``mesh`` and
+    ``sample_axis`` split the K samples as in :func:`make_mppi_step`."""
     _gate_iterations(config, "SMPPI")
     use_pallas = _gate_adaptive_covariance(config, use_pallas, "SMPPI")
     _gate_risk_alpha(config)
@@ -1274,12 +1517,17 @@ def make_smppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callab
     D = T * nu
     n_iter, adaptive = config.num_iterations, config.adaptive_covariance
 
+    split = _sample_split(mesh, sample_axis, K)
     transposed_solve = (
         _route_transposed_solve(config, dynamics, running_cost,
-                                FS.make_transposed_smppi_solve, "SMPPI",
+                                _fused_factory(FS.make_transposed_smppi_solve,
+                                               make_sharded_smppi_solve, mesh, split,
+                                               sample_axis), "SMPPI",
                                 terminal_state_cost, terminal_final_cost,
-                                sample_trajectories is not None or specific_dynamics is not None)
+                                sample_trajectories is not None or specific_dynamics is not None,
+                                sharded=split is not None)
         if use_pallas else None)
+    rollouts = _split_rollouts(split, config)
     streams = CommandStreams(config, kernel_keys=transposed_solve is not None,
                              noise=transposed_solve is None)
 
@@ -1304,9 +1552,10 @@ def make_smppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callab
             # the kernel's own back-computation through both clamps
             pa2 = out[4].T
             noise_art = ((pa2 - action_sequence.reshape(D)[None]) / params.delta_t
-                         - U.reshape(D)[None]).reshape(K, T, nu)
-            pert_art = pa2.reshape(K, T, nu)
-        return U_new, Artifacts(cost_total, ctnz, omega, noise_art, pert_art)
+                         - U.reshape(D)[None]).reshape(-1, T, nu)
+            pert_art = pa2.reshape(-1, T, nu)
+        return U_new, _shard_artifacts(split, Artifacts(cost_total, ctnz, omega, noise_art,
+                                                        pert_art))
 
     def _one_iteration(params: SMPPIParams, U, action_sequence, x0, info, slots, it: int,
                        dyn_params):
@@ -1339,7 +1588,7 @@ def make_smppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callab
         action_diff = config.u_scale * (perturbed_action2[:, nu:] - perturbed_action2[:, :-nu])
         smoothness = params.w_action_seq_cost * torch.sum(action_diff * action_diff, dim=1)
         perturbed_action = perturbed_action2.reshape(K, T, nu)
-        rollout_cost, states, actions = rollout_costs(
+        rollout_cost, states, actions = rollouts(
             config, dyn, cost, x0, perturbed_action, terminal_state_cost, final_cost,
             specific_dynamics=specific_dynamics,
             rngs=slots.rollout[it] if slots.rollout else None, dyn_params=dyn_params)
@@ -1388,7 +1637,8 @@ def _shift_sequence(seq: torch.Tensor) -> torch.Tensor:
 def make_kmppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callable,
                     use_pallas: bool = False, terminal_state_cost: Callable = None,
                     terminal_final_cost: Callable = None, sample_trajectories: Callable = None,
-                    specific_dynamics: Callable = None) -> StepFns:
+                    specific_dynamics: Callable = None, mesh=None,
+                    sample_axis: str = "k") -> StepFns:
     """Build the KMPPI solve (``pytorch_mppi_tpu/ops/solve.py:1704-1924``):
     noise at the ``num_support_pts`` control points, clamped there,
     interpolated to the horizon by ``kron(interp_full, I_nu)``, the null row,
@@ -1400,7 +1650,9 @@ def make_kmppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callab
     the theta-space sigma from the rectified support-point noise
     (``solve.py:1780-1800``).  A specific-action sampler writes its rows into
     the full-horizon rows after the interpolation (``solve.py:1869-1876``)
-    and takes the plain path; elite reuse and gradient refinement raise."""
+    and takes the plain path; elite reuse and gradient refinement raise.
+    ``mesh`` and ``sample_axis`` split the K samples as in
+    :func:`make_mppi_step`."""
     _gate_iterations(config, "KMPPI")
     use_pallas = _gate_adaptive_covariance(config, use_pallas, "KMPPI")
     _gate_risk_alpha(config)
@@ -1414,13 +1666,18 @@ def make_kmppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callab
     K, T, nu, nsp = config.K, config.T, config.nu, config.num_support_pts
     D, Dp = T * nu, nsp * nu
     n_iter, adaptive = config.num_iterations, config.adaptive_covariance
+    split = _sample_split(mesh, sample_axis, K)
 
     transposed_solve = (
         _route_transposed_solve(config, dynamics, running_cost,
-                                FS.make_transposed_kmppi_solve, "KMPPI",
+                                _fused_factory(FS.make_transposed_kmppi_solve,
+                                               make_sharded_kmppi_solve, mesh, split,
+                                               sample_axis), "KMPPI",
                                 terminal_state_cost, terminal_final_cost,
-                                sample_trajectories is not None or specific_dynamics is not None)
+                                sample_trajectories is not None or specific_dynamics is not None,
+                                sharded=split is not None)
         if use_pallas else None)
+    rollouts = _split_rollouts(split, config)
     streams = CommandStreams(config, kernel_keys=transposed_solve is not None,
                              noise=transposed_solve is None)
 
@@ -1448,10 +1705,10 @@ def make_kmppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callab
             # full-horizon perturbed trajectories come back (D, K); the noise
             # artifact is the full-horizon noise, as on the plain path
             perturbed2 = out[4].T
-            noise_art = (perturbed2 - U.reshape(D)[None]).reshape(K, T, nu)
-            pert_art = perturbed2.reshape(K, T, nu)
+            noise_art = (perturbed2 - U.reshape(D)[None]).reshape(-1, T, nu)
+            pert_art = perturbed2.reshape(-1, T, nu)
         return (params.interp_full @ theta_new, theta_new,
-                Artifacts(cost_total, ctnz, omega, noise_art, pert_art))
+                _shard_artifacts(split, Artifacts(cost_total, ctnz, omega, noise_art, pert_art)))
 
     def _one_iteration(params: KMPPIParams, U, theta, x0, info, slots, it: int, dyn_params):
         """``(U, theta, artifacts, theta-space noise (K, Dp) or None)``: the
@@ -1481,7 +1738,7 @@ def make_kmppi_step(config: MPPIConfig, dynamics: Callable, running_cost: Callab
         n_for_cost = torch.abs(noise2) if config.noise_abs_cost else noise2
         perturbation_cost = n_for_cost @ a_flat
         perturbed = perturbed2.reshape(K, T, nu)
-        rollout_cost, states, actions = rollout_costs(
+        rollout_cost, states, actions = rollouts(
             config, dyn, cost, x0, perturbed, terminal_state_cost, final_cost,
             specific_dynamics=specific_dynamics,
             rngs=slots.rollout[it] if slots.rollout else None, dyn_params=dyn_params)
@@ -1532,7 +1789,8 @@ BATCHED_USE_PALLAS = (False, True, "force", "kernel_rng")
 def make_batched_step(config: MPPIConfig, num_envs: int, dynamics: Callable,
                       running_cost: Callable, use_pallas=False,
                       transposed_solve_override=None, terminal_state_cost: Callable = None,
-                      terminal_final_cost: Callable = None) -> StepFns:
+                      terminal_final_cost: Callable = None, mesh=None,
+                      env_axis: str = "data", sample_axis: str = None) -> StepFns:
     """Build the solve of N plants that share one noise draw
     (``pytorch_mppi_tpu/ops/solve.py:1944-2273``, reference
     ``mppi.py:691-873``): the rollout runs the (N·K,) flat batch, and each
@@ -1564,7 +1822,20 @@ def make_batched_step(config: MPPIConfig, num_envs: int, dynamics: Callable,
     share one noise draw and the batched rollout has no M axis; so do
     gradient refinement and elite reuse (MPPI only).  The steps take
     ``dyn_params`` as the single-plant steps do (``parameterized_dynamics``:
-    the plain path).  Without ``mesh`` (ROADMAP.md Queue 1 item 12).
+    the plain path).
+
+    With a ``mesh`` the N plants split over its ``env_axis`` ranks, and
+    with ``sample_axis`` the K samples of each over those ranks too
+    (``solve.py:1951-2243``): every rank draws the shared noise, solves its
+    plants (the plain path splitting their rollouts over ``sample_axis``
+    as :func:`_split_rollouts` does, the fused route as
+    :func:`make_sharded_batched_solve` where only ``env_axis`` splits; both
+    axes take the plain path, with a warning) and gathers the updated
+    nominal sequences over ``env_axis``, so every rank holds every plant's
+    sequence and returns every plant's action.  The per-plant artifacts are
+    the rank's plants until read (``parallel.Shard``).  Stochastic dynamics
+    draw over the whole batch they are given, so with them every rank
+    solves all N plants on all K samples: one process's draws and results.
     """
     if use_pallas not in BATCHED_USE_PALLAS:
         raise ValueError(f"use_pallas must be one of {BATCHED_USE_PALLAS}, got {use_pallas!r}")
@@ -1593,12 +1864,19 @@ def make_batched_step(config: MPPIConfig, num_envs: int, dynamics: Callable,
     D = T * nu
     n_iter = config.num_iterations
 
-    if transposed_solve_override is not None and config.fused_artifacts:
+    if transposed_solve_override is not None and (config.fused_artifacts or mesh is not None):
         # the override bypasses the route's guards: fail loud rather than
-        # drop the artifacts it cannot give
+        # drop the artifacts it cannot give or the sharding
         raise ValueError(
-            "transposed_solve_override is incompatible with fused_artifacts: the "
-            "injected kernel bypasses the guards the use_pallas route applies")
+            "transposed_solve_override is incompatible with fused_artifacts and with a "
+            "mesh: the injected kernel bypasses the guards the use_pallas route applies")
+    plants = None if mesh is None else Split(mesh, env_axis, N)  # this rank's plants
+    samples = _sample_split(mesh, sample_axis, K)
+    # stochastic dynamics draw over the whole batch they are given, so with
+    # them the plain path solves every plant on all K samples on every rank
+    # (one process's draws), as _split_rollouts does for one plant
+    plain_plants, plain_samples = ((None, None) if config.stochastic_dynamics
+                                   else (plants, samples))
     transposed_solve = transposed_solve_override
     if config.sample_null_action:
         logger.warning("MPPI_Batched does not support sample_null_action (matching the "
@@ -1616,11 +1894,22 @@ def make_batched_step(config: MPPIConfig, num_envs: int, dynamics: Callable,
             "use_pallas='force' (operand mode) or 'kernel_rng' to keep the kernel",
             K, _BATCHED_KERNEL_MIN_K)
         use_pallas = False
+    if use_pallas and samples is not None:
+        logger.warning(
+            "use_pallas on MPPI_Batched with both the env and the sample axes sharded is "
+            "not supported by the fused kernels; using the plain torch path")
+        use_pallas = False
     if use_pallas and transposed_solve is None:
         noise_operand = use_pallas != "kernel_rng"
+
+        def batched_factory(c, n, model, **kw):
+            if plants is None:
+                return FS.make_transposed_batched_solve(c, n, model, **kw)
+            return make_sharded_batched_solve(c, n, model, mesh, env_axis, **kw)
+
         transposed_solve = _route_transposed_solve(
             config, dynamics, running_cost,
-            lambda c, model, terminal_final=None, **_: FS.make_transposed_batched_solve(
+            lambda c, model, terminal_final=None, **_: batched_factory(
                 c, N, model, noise_operand=noise_operand, terminal_final=terminal_final),
             "MPPI_Batched", terminal_state_cost, terminal_final_cost)
         if transposed_solve is not None and K < _BATCHED_KERNEL_MIN_K:
@@ -1657,8 +1946,12 @@ def make_batched_step(config: MPPIConfig, num_envs: int, dynamics: Callable,
         m, s_ = ms[0], ms[1]
         ctnz, omega = FS.weighting_from_stats(cost_total, params.lambda_, m[:, None],
                                               s_[:, None])
-        U_new = U + (delta / s_[None, :]).T.reshape(N, T, nu)
-        return U_new, Artifacts(cost_total, ctnz, omega, None, None)
+        if plants is None:
+            return U + (delta / s_[None, :]).T.reshape(N, T, nu), Artifacts(
+                cost_total, ctnz, omega, None, None)
+        U_mine = plants.take(U) + (delta / s_[None, :]).T.reshape(-1, T, nu)
+        return plants.join(U_mine), _shard_artifacts(plants, Artifacts(cost_total, ctnz, omega,
+                                                                       None, None))
 
     def _one_iteration(params: MPPIParams, U, x0, slots, it: int, dyn_params):
         if transposed_solve is not None:
@@ -1668,32 +1961,45 @@ def make_batched_step(config: MPPIConfig, num_envs: int, dynamics: Callable,
             slots.noise[it], K, T, params, dtype,
             antithetic=config.antithetic, chol=chol,
             noise_rho=config.noise_rho, diag_sigma=config.diag_sigma)  # (K, D), shared
-        U2 = U.reshape(N, D)
+        if plain_plants is not None:  # this rank's plants
+            U, x0 = plain_plants.take(U), plain_plants.take(x0)
+        Nr = U.shape[0]
+        U2 = U.reshape(Nr, D)
         perturbed2 = _bound(U2[:, None] + noise2[None], _tile_bound(params.u_min, nu, T, dtype),
                             _tile_bound(params.u_max, nu, T, dtype))  # (N, K, D)
         del noise2
         actual_noise2 = perturbed2 - U2[:, None]
-        # the N·K rollouts as one flat batch (mppi.py:844-853)
-        state0 = x0[:, None].expand(N, K, nx).reshape(N * K, nx)
+        # the N·K rollouts as one flat batch (mppi.py:844-853), of this rank's
+        # samples where they split
+        rolled = perturbed2 if plain_samples is None else plain_samples.take(perturbed2, 1)
+        Kr = rolled.shape[1]
+        state0 = x0[:, None].expand(Nr, Kr, nx).reshape(Nr * Kr, nx)
         rollout_cost, states, actions = rollout_costs(
-            config, dyn, cost, state0, perturbed2.reshape(N * K, T, nu),
+            config, dyn, cost, state0, rolled.reshape(Nr * Kr, T, nu),
             terminal_final_cost=final_cost, rngs=slots.rollout[it] if slots.rollout else None,
             dyn_params=dyn_params)
-        cost_total = rollout_cost.reshape(N, K)
+        cost_total = rollout_cost.reshape(Nr, Kr)
         if states is not None:
             # (1, N·K, T, ·) -> (N, K, T, ·): the plants' rollouts (solve.py:2225-2237)
-            states = states.reshape(N, K, T, nx)
-            tc = terminal_state_cost(states, actions.reshape(N, K, T, nu))
-            cost_total = cost_total + torch.as_tensor(tc, dtype=dtype).reshape(N, K)
-        a2 = (params.lambda_ * torch.einsum("ntu,vu->ntv", U, sigma_inv)).reshape(N, D)
+            states = states.reshape(Nr, Kr, T, nx)
+            tc = terminal_state_cost(states, actions.reshape(Nr, Kr, T, nu))
+            cost_total = cost_total + torch.as_tensor(tc, dtype=dtype).reshape(Nr, Kr)
+        if plain_samples is not None:
+            cost_total = plain_samples.join(cost_total, 1)
+            states = plain_samples.shard(states, 1)
+        a2 = (params.lambda_ * torch.einsum("ntu,vu->ntv", U, sigma_inv)).reshape(Nr, D)
         n_for_cost = torch.abs(actual_noise2) if config.noise_abs_cost else actual_noise2
         cost_total = cost_total + torch.einsum("nkd,nd->nk", n_for_cost, a2)
         del n_for_cost
         cost_total_non_zero, omega = compute_weighting(cost_total, params.lambda_, dim=1)
-        U_new = U + torch.einsum("nk,nkd->nd", omega, actual_noise2).reshape(N, T, nu)
-        return U_new, Artifacts(cost_total, cost_total_non_zero, omega,
-                                actual_noise2.reshape(N, K, T, nu),
-                                perturbed2.reshape(N, K, T, nu), states)
+        U_new = U + torch.einsum("nk,nkd->nd", omega, actual_noise2).reshape(Nr, T, nu)
+        art = Artifacts(cost_total, cost_total_non_zero, omega,
+                        actual_noise2.reshape(Nr, K, T, nu),
+                        perturbed2.reshape(Nr, K, T, nu), states)
+        if plain_plants is None:
+            return U_new, art
+        return plain_plants.join(U_new), _shard_artifacts(plain_plants, art)._replace(
+            states=plain_plants.shard(states))
 
     def body(params: MPPIParams, state: BatchedState, x0, dyn_params, shift: bool):
         U = state.U

@@ -237,7 +237,8 @@ def run_mppi_jit(mppi, plant_dynamics, x0, steps: int, running_cost=None):
     is applied to the plant in order (reference mppi.py:271-275); ``steps``
     counts plant steps and must be a multiple of ``u_per_command``.
 
-    On the CPU the loop runs eagerly.  On the card it runs as a CUDA graph
+    On the CPU, and for a controller with a mesh, the loop runs eagerly.
+    On the card it runs as a CUDA graph
     of one loop step (the command's device body, ``u_per_command`` plant
     steps and the cost), captured once and replayed once a command after
     the command's host prologue (``ops/solve.CommandStreams``), so every
@@ -280,7 +281,10 @@ def run_mppi_jit(mppi, plant_dynamics, x0, steps: int, running_cost=None):
             cost = wrap_cost(mppi.config, mppi.running_cost)
         else:
             cost = lambda s, u, t: running_cost(s, u)
-        loop_cls = _GraphLoop if mppi.d.type == "cuda" else _EagerLoop
+        # a sharded command's collectives run eagerly (ROADMAP.md Queue 1
+        # item 12b: its CUDA graph)
+        graph = mppi.d.type == "cuda" and getattr(mppi, "mesh", None) is None
+        loop_cls = _GraphLoop if graph else _EagerLoop
         loop = cache[key] = loop_cls(mppi, plant_dynamics, cost, int(steps))
     params = mppi._full_params() if hasattr(mppi, "_full_params") else mppi._params
     x0 = torch.as_tensor(x0, dtype=mppi.dtype, device=mppi.d)

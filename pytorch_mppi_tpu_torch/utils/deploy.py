@@ -183,6 +183,10 @@ def export_solver(ctrl, path: Optional[str] = None, x0_example=None) -> ServingS
             "export_solver freezes info=None into the artifact, but this "
             "controller carries a live info payload; serving-side samplers "
             "cannot receive per-call info through an exported program")
+    if getattr(ctrl, "mesh", None) is not None:
+        raise NotImplementedError(
+            "export_solver cannot export a controller with a mesh yet (its command calls "
+            "collectives); see ROADMAP.md Queue 1 item 12b")
     config = ctrl.config
     if config.stochastic_dynamics or config.gradient_refinement_steps:
         what = ("stochastic dynamics (their per-step generators are arguments of the "

@@ -530,7 +530,22 @@ def test_batched_jax_rng_keywords_raise(kw, match):
         _batched(False, num_envs=2, **kw)
 
 
-def test_batched_controller_surface(monkeypatch):
+@pytest.fixture
+def gloo_mesh(tmp_path):
+    """A Gloo world of this one process and its ("data", "k") mesh of one
+    rank, taken down after the test."""
+    import torch.distributed as dist
+
+    from pytorch_mppi_tpu_torch.parallel import initialize_multihost, make_mesh
+
+    initialize_multihost(f"file://{tmp_path / 'group'}", 1, 0, device="cpu")
+    try:
+        yield make_mesh((1, 1), ("data", "k"), device="cpu")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_batched_controller_surface(monkeypatch, gloo_mesh):
     ctrl = _batched(False, num_envs=3, u_per_command=2, u_min=-0.7)
     actions = ctrl.command(torch.zeros(3, 2))
     assert actions.shape == (3, 2, 2)
@@ -542,9 +557,16 @@ def test_batched_controller_surface(monkeypatch):
         ctrl.command(torch.zeros(2, 2))
     with pytest.raises(ValueError, match="use_pallas"):
         _batched("rollout")
-    for flag, value in (("mesh", object()), ("env_axis", "plants"), ("sample_axis", "k")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
-            _batched(False, **{flag: value})
+    # the sharding flags, ported since: the axes alone are ignored without a
+    # mesh, as JAX's; a mesh of one rank splits the plants (and with
+    # sample_axis their samples) over that rank: the unsharded command
+    x = torch.randn(3, 2, generator=torch.Generator().manual_seed(0))
+    want = _batched(False, num_envs=3).command(x)
+    for kw in (dict(env_axis="plants"), dict(sample_axis="k"), dict(mesh=gloo_mesh),
+               dict(mesh=gloo_mesh, sample_axis="k")):
+        flagged = _batched(False, num_envs=3, **kw)
+        torch.testing.assert_close(flagged.command(x), want, rtol=0, atol=0)
+        assert flagged.cost_total.shape == (3, 100)
     # dynamics_params, ported since: taken, and passed first to the dynamics
     seen = []
     params = {"B": torch.eye(2)}

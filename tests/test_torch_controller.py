@@ -71,7 +71,7 @@ UNPORTED = [
     ("gradient_refinement_steps", 3),
     ("num_elites", 4),
     ("dynamics_params", {"w": 1.0}),
-    ("mesh", object()),
+    ("mesh", "a 1-rank mesh"),  # made in the test (gloo_mesh)
 ]
 
 
@@ -80,6 +80,21 @@ UNPORTED = [
 # controller's ValueError (pytorch_mppi_tpu/ops/solve.py:313-323)
 PORTED = {"terminal_state_cost": lambda s, a: s[..., -1, :].sum(-1),
           "terminal_final_cost": lambda s, a: s.sum(-1)}
+
+
+@pytest.fixture
+def gloo_mesh(tmp_path):
+    """A Gloo world of this one process and its mesh (a "k" axis of one
+    rank), taken down after the test."""
+    import torch.distributed as dist
+
+    from pytorch_mppi_tpu_torch.parallel import initialize_multihost, make_mesh
+
+    initialize_multihost(f"file://{tmp_path / 'group'}", 1, 0, device="cpu")
+    try:
+        yield make_mesh((1,), ("k",), device="cpu")
+    finally:
+        dist.destroy_process_group()
 
 
 def _noisy_pendulum(s, a, rng):
@@ -107,7 +122,18 @@ OWN_DYNAMICS = {"stochastic_dynamics": _noisy_pendulum, "dynamics_params": _weig
 
 @pytest.mark.parametrize("flag,value", UNPORTED + list(PORTED.items()),
                          ids=[u[0] for u in UNPORTED] + list(PORTED))
-def test_unported_flag_raises(flag, value):
+def test_unported_flag_raises(request, flag, value):
+    if flag == "mesh":
+        # the sharding, ported since: a mesh of one rank splits the samples
+        # over one rank, and the command is the unsharded one
+        mesh = request.getfixturevalue("gloo_mesh")
+        ctrl = _pendulum(mesh=mesh)
+        assert ctrl.mesh is mesh
+        a = ctrl.command(np.array([np.pi, 1.0]))
+        torch.testing.assert_close(a, _pendulum().command(np.array([np.pi, 1.0])),
+                                   rtol=0, atol=0)
+        assert ctrl.cost_total.shape == (ctrl.K,) and torch.isfinite(ctrl.cost_total).all()
+        return
     if flag in TAKEN:
         kw = dict(TAKEN[flag], **{flag: value})
         ctrl = (MPPI(OWN_DYNAMICS[flag], pendulum_running_cost, nx=2,
@@ -419,13 +445,13 @@ def test_key_is_rejected_for_seed(cls):
 
 @pytest.mark.parametrize("axis", ["k", "data", None])
 def test_sample_axis(axis):
-    """The JAX default "k" is accepted; another axis is sharding's, which
-    raises the NotImplementedError naming its ROADMAP item."""
-    if axis == "k":
-        assert _small(MPPI, sample_axis=axis).sample_axis == "k"
-    else:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 12"):
-            _small(MPPI, sample_axis=axis)
+    """Without a mesh ``sample_axis`` is kept and ignored, as JAX's (its
+    sharding constraint is the identity there): the same command as the
+    default's."""
+    ctrl = _small(MPPI, sample_axis=axis)
+    assert ctrl.sample_axis == axis and ctrl.mesh is None
+    x = np.array([0.5, -0.5])
+    torch.testing.assert_close(ctrl.command(x), _small(MPPI).command(x), rtol=0, atol=0)
 
 
 @CONTROLLERS

@@ -13,6 +13,7 @@ below).  Costs and the update then differ by float32 summation order, as in
 ``tests/test_pallas_transposed.py:102-107``: costs rtol 2e-5 / atol 1e-5,
 the update delta/s rtol 2e-4 / atol 2e-6, s rtol 2e-5.
 """
+import dataclasses
 import importlib.util
 import logging
 from pathlib import Path
@@ -298,8 +299,16 @@ def test_wrapper_rejects_other_devices():
             linear_quadratic(torch.zeros(33, 2), torch.zeros(33)))
     with pytest.raises(ValueError, match="the config is"):
         FS.make_transposed_fused_solve(MPPIConfig(nx=3, nu=2, K=8, T=3), model)
-    with pytest.raises(FS.FusedSolveUnavailable, match="Queue 1 item 12"):
-        FS.make_transposed_fused_solve(cfg, model, null_dynamic_gate=True)
+    # the null-action gate, ported since: it builds, and its trailing
+    # argument exists only with sample_null_action (JAX's TypeError both ways)
+    gated = FS.make_transposed_fused_solve(
+        dataclasses.replace(cfg, sample_null_action=True), model, null_dynamic_gate=True)
+    assert gated.null_gate and not FS.make_transposed_fused_solve(
+        cfg, model, null_dynamic_gate=True).null_gate
+    args = ((1, 2), torch.zeros(2, 8), *([torch.zeros(6)] * 6), torch.tensor(1.0))
+    assert gated(*args, 1)[3].shape == (8,)
+    with pytest.raises(TypeError, match="null_dynamic_gate"):
+        gated(*args)
     # a kernel terminal cost is taken; any other callable is not
     term = quadratic_terminal(GOAL_NP, 2.0, 0.1)
     assert FS.make_transposed_fused_solve(cfg, model, terminal_final=term).tiles == "shared"

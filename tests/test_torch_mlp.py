@@ -166,9 +166,29 @@ def test_custom_loss_and_optimizer():
     assert l0.item() == pytest.approx(loss(pp, pb).item(), rel=1e-12)
 
 
-def test_mesh_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 12"):
-        PM.make_train_step(mesh=object())
+def test_mesh_is_not_ported(tmp_path):
+    """Data-parallel training, ported since: on a mesh of one rank the step
+    is the single-process step (float64; the several-rank case is in
+    tests/test_torch_distributed.py)."""
+    import torch.distributed as dist
+
+    from pytorch_mppi_tpu_torch.parallel import initialize_multihost, make_mesh
+
+    params = PM.mlp_init((4, 8, 2), torch.Generator().manual_seed(1), dtype=torch.float64,
+                         device="cpu")
+    batch = tuple(torch.randn(6, n, dtype=torch.float64) for n in (2, 2, 2))
+    step, init = PM.make_train_step()
+    want, _, want_loss = step(params, init(params), batch)
+    initialize_multihost(f"file://{tmp_path / 'group'}", 1, 0, device="cpu")
+    try:
+        dstep, dinit = PM.make_train_step(mesh=make_mesh((1,), ("data",), device="cpu"))
+        got, _, loss = dstep(params, dinit(params), batch)
+    finally:
+        dist.destroy_process_group()
+    assert loss.item() == want_loss.item()
+    for (W, b), (Ww, bw) in zip(got, want):
+        torch.testing.assert_close(W, Ww, rtol=0, atol=0)
+        torch.testing.assert_close(b, bw, rtol=0, atol=0)
 
 
 def test_mlp_init_scheme():
