@@ -170,6 +170,15 @@ the package is not beside it.  Phases, each fatal when it fails:
    here whose sharded command is the unsharded one bit for bit; kernel A's
    time with the gate set against the static null row, and each sharded
    command's median against the unsharded one's;
+10. the tuners (``tuning``), at benchmarks/tuning.py's sizes on a fused
+   toy2d ``MPPI``: one generation of 16 candidates through
+   ``autotune.PopulationEvaluator`` (a ``torch.func.vmap`` of the plain
+   body, no kernel launched) within 1e-4 of a loop over its candidates of
+   ``step_no_shift`` calls on the same seeds, both timed; ``CMAESOpt``,
+   ``GlobalSearchOpt`` with horizon groups and ``CMAMEOpt`` on the
+   population path; ``CMAESOpt`` on the sequential path with exactly
+   (lambda + 1)·M·R launches of kernel A a step; ``GradientOpt`` on JAX's
+   ``TestGradientOpt`` problem to below 0.3 of its start;
 7. the ``kernels`` line (eight kernels, and the residual MLP's four
    instantiations), the card line, then the last line
    ``{"ok": true, "device": ...}``.
@@ -250,6 +259,17 @@ WRAP_EDGE = 1e-4  # within this of ±pi the kernel and the plain version may wra
 # against the live controller, commands timed for the medians (after a
 # warm-up), and the commands a restored checkpoint continues for
 DEPLOY_COMMANDS, DEPLOY_TIMED, DEPLOY_WARMUP, CKPT_COMMANDS = 20, 200, 10, 10
+# the tuning phase (10): benchmarks/tuning.py's sizes (toy2d, K = 1,024,
+# T = 15, R = 10 no-shift commands in each of M = 5 streams a candidate,
+# populations of 16, float32); TUNE_STEPS optimize_steps a tuner; the
+# vmapped generation held to the loop over its candidates at TUNE_RTOL (a
+# float32 rounding of batched against single products over R refinements);
+# GradientOpt on JAX's TestGradientOpt problem (tests/test_autotune.py:898-
+# 912: sigma 0.05, lambda 20, K = 256, T = 10, R = 5, M = 2), GRAD_STEPS
+# optimize_steps of GRAD_ADAM Adam updates, to below GRAD_RATIO of its start
+TUNE_K, TUNE_T, TUNE_R, TUNE_M, TUNE_POP, TUNE_STEPS = 1024, 15, 10, 5, 16, 3
+TUNE_RTOL = 1e-4
+GRAD_K, GRAD_T, GRAD_R, GRAD_M, GRAD_STEPS, GRAD_ADAM, GRAD_RATIO = 256, 10, 5, 2, 6, 10, 0.3
 # the fresh process of phase 8: it imports only pytorch_mppi_tpu_torch (and
 # torch and numpy), loads each artifact and replays its commands on the
 # live controller's states, then restores the checkpoint into a controller
@@ -1885,6 +1905,234 @@ def sharding(dev, lq):
     report["nccl"] = shard_nccl(dev, lq, out_dir)
     report["seconds"] = time.perf_counter() - t0
     print(f"# phase 9 took {report['seconds']:.1f} s")
+    return report
+
+
+def tuning(dev):
+    """Phase 10: the tuners (``autotune``, ``autotune_global``,
+    ``autotune_qd``) at benchmarks/tuning.py's sizes, on a fused toy2d
+    ``MPPI`` (``use_pallas=True``, no terminal cost, so that its commands
+    launch kernel A).
+
+    a. one generation of TUNE_POP candidates through ``PopulationEvaluator``
+       (one ``torch.func.vmap`` of the plain body, no kernel launched)
+       against a loop over the candidates of R ``step_no_shift`` calls in
+       each of M streams on the same seeds, within TUNE_RTOL; the seconds
+       a generation of each (median of 3, host clock after a synchronise)
+       and the vmapped generation's peak device memory;
+    b. ``CMAESOpt``, ``GlobalSearchOpt`` with the horizon in RandInt(5, 30)
+       (the horizon groups) and ``CMAMEOpt`` on the population path,
+       TUNE_STEPS steps each: a finite best, CMA-ES's best no worse than its
+       first result, a non-empty archive, no kernel launched;
+    c. ``CMAESOpt`` on the sequential path, whose evaluation runs M x R
+       no-shift commands of the fused controller: exactly (lambda + 1) M R
+       launches of kernel A a step, the + 1 the re-evaluation of the best;
+    d. ``GradientOpt`` on JAX's TestGradientOpt problem: the best cost below
+       GRAD_RATIO of the first; the ms an Adam step.
+    """
+    import numpy as np
+
+    from pytorch_mppi_tpu_torch import MPPI, autotune, autotune_global, autotune_qd
+    from pytorch_mppi_tpu_torch.models import Toy2DEnvironment
+    from pytorch_mppi_tpu_torch.ops import fused_solve as FS
+
+    t0 = time.perf_counter()
+    report = {}
+    env = Toy2DEnvironment(terminal_scale=10.0, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+
+    def toy_mppi():
+        return MPPI(env.dynamics, env.running_cost, 2,
+                    noise_sigma=torch.diag(torch.tensor([5.0, 5.0], **f32)),
+                    num_samples=TUNE_K, horizon=TUNE_T, u_max=torch.tensor([2.0, 2.0], **f32),
+                    lambda_=1.0, seed=1, use_pallas=True, device=dev)
+
+    def launched():
+        torch.cuda.synchronize()
+        return {k: v for k, v in FS.launches.items() if v}
+
+    def reset():
+        torch.cuda.synchronize()
+        for name in FS.launches:
+            FS.launches[name] = 0
+
+    def clock(fn):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - start, out
+
+    # -- a. the vmapped generation against the loop ----------------------------
+    mppi = toy_mppi()
+    check(mppi._fns.fused, "phase 10: the fused toy2d MPPI does not take kernel A")
+    rng = np.random.RandomState(10)
+    cands = [{"sigma": torch.tensor(np.exp(rng.uniform(np.log(0.5), np.log(10.0), 2)), **f32),
+              "lambda": float(np.exp(rng.uniform(np.log(0.1), np.log(5.0)))),
+              "mu": torch.tensor(rng.uniform(-0.2, 0.2, 2), **f32)} for _ in range(TUNE_POP)]
+    ev = autotune.PopulationEvaluator(mppi, env.start, num_refinement_steps=TUNE_R,
+                                      num_trajectories=TUNE_M, seed=3)
+    seeds = autotune.PopulationEvaluator(mppi, env.start, seed=3)._stream_seeds(
+        TUNE_POP * TUNE_M)
+    fns = ev._planning_fns()
+    own_fns = mppi._fns
+    score = ev._default_cost_fn()
+    reset()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # what earlier phases still hold
+    vm_s, res = clock(lambda: ev(cands))
+    peak_mib = (torch.cuda.max_memory_allocated() - held) / 2**20
+    check(not launched(), f"phase 10a: the population evaluation launched {launched()}")
+    check(mppi._fns is own_fns and mppi.use_pallas is True,
+          "phase 10a: the evaluator changed the controller's route")
+
+    def loop(seeds_):
+        costs = []
+        for p, cand in enumerate(cands):
+            params = mppi._params._replace(
+                noise_sigma=torch.diag(cand["sigma"]), noise_mu=cand["mu"],
+                lambda_=torch.tensor(cand["lambda"], **f32))
+            per = []
+            for m in range(TUNE_M):
+                state = mppi._state._replace(seed=seeds_[p * TUNE_M + m])
+                for _ in range(TUNE_R):
+                    state, _, _ = fns.step_no_shift(params, state, env.start)
+                rollout = fns.get_rollouts(params, env.start, state.U)[0]
+                per.append(score(rollout, state.U))
+            costs.append(torch.stack(per).mean())
+        return torch.stack(costs)
+
+    loop_s, loop_costs = clock(lambda: loop(seeds))
+    check(not launched(), f"phase 10a: the loop launched {launched()}")
+    rel = float(((res.costs - loop_costs).abs() / loop_costs.abs()).max())
+    finite = bool(torch.isfinite(res.costs).all()) and tuple(res.rollouts.shape) == (
+        TUNE_POP, TUNE_T, 2)
+    check(finite and rel <= TUNE_RTOL,
+          f"phase 10a: the vmapped generation against the loop: {rel:.3g} relative "
+          f"(limit {TUNE_RTOL}), finite and shaped {finite}")
+    vm_times, loop_times = [vm_s], [loop_s]
+    for _ in range(2):
+        vm_times.append(clock(lambda: ev(cands))[0])
+        loop_times.append(clock(lambda: loop(
+            autotune.PopulationEvaluator(mppi, env.start)._stream_seeds(TUNE_POP * TUNE_M)))[0])
+    report["generation"] = dict(vmapped_s=statistics.median(vm_times),
+                                loop_s=statistics.median(loop_times), max_rel=rel,
+                                peak_mib=peak_mib, vmapped_all_s=vm_times,
+                                loop_all_s=loop_times)
+    print(f"# tuning generation ({TUNE_POP} candidates x {TUNE_M} streams x {TUNE_R} "
+          f"refinements, K={TUNE_K} T={TUNE_T}): vmapped {report['generation']['vmapped_s']:.4f}"
+          f" s, loop {report['generation']['loop_s']:.4f} s (medians of 3; "
+          f"{vm_times} / {loop_times}), max relative difference {rel:.3g}, "
+          f"peak {peak_mib:.1f} MiB above what was held before it, 0 launches")
+
+    # -- b. the three optimisers on the population path ----------------------
+    G = autotune_global
+    optimizers = {
+        "cmaes": (lambda m: [G.SigmaGlobalParameter(m), G.LambdaGlobalParameter(m)],
+                  lambda: autotune.CMAESOpt(population=TUNE_POP, sigma=0.5, seed=0)),
+        "global_horizon": (lambda m: [G.SigmaGlobalParameter(m), G.HorizonGlobalParameter(
+            m, search_space=G.RandInt(5, 30)), G.LambdaGlobalParameter(m)],
+                           lambda: G.GlobalSearchOpt(batch_size=TUNE_POP, seed=0)),
+        "cmame": (lambda m: [G.SigmaGlobalParameter(m), G.LambdaGlobalParameter(m)],
+                  lambda: autotune_qd.CMAMEOpt(population=TUNE_POP, sigma=1.0, bins=10,
+                                               seed=0)),
+    }
+    report["population"] = {}
+    for name, (params, make_opt) in optimizers.items():
+        mppi = toy_mppi()
+        ev = autotune.PopulationEvaluator(mppi, env.start, num_refinement_steps=TUNE_R,
+                                          num_trajectories=TUNE_M)
+
+        def must_not_run():
+            fail(f"phase 10b: {name} called the sequential evaluate_fn")
+
+        tuner = G.AutotuneGlobal(params(mppi), evaluate_fn=must_not_run, optimizer=make_opt(),
+                                 population_evaluate_fn=ev)
+        reset()
+        times, costs = [], []
+        for _ in range(TUNE_STEPS):
+            secs, res = clock(tuner.optimize_step)
+            times.append(secs)
+            costs.append(autotune.mean_cost(res.costs))
+        best = autotune.mean_cost(tuner.get_best_result().costs)
+        check(not launched(), f"phase 10b: {name} launched {launched()}")
+        check(math.isfinite(best), f"phase 10b: {name}'s best cost is {best}")
+        if name == "cmaes":
+            check(best <= costs[0], f"phase 10b: CMA-ES's best {best} above its first {costs[0]}")
+        if name == "cmame":
+            check(len(tuner.optim.archive) > 0, "phase 10b: CMA-ME's archive is empty")
+        report["population"][name] = dict(step_s=statistics.median(times), all_s=times,
+                                          costs=costs, best=best)
+        print(f"# tuning {name} population path: {statistics.median(times):.4f} s a step "
+              f"({times}), costs {costs}, best {best:.4f}"
+              + (f", archive {len(tuner.optim.archive)}" if name == "cmame" else "")
+              + f", horizon now {mppi.T}")
+
+    # -- c. CMA-ES on the sequential path through kernel A ---------------------
+    mppi = toy_mppi()
+    nominal = mppi.U.clone()
+
+    def evaluate():
+        costs, rollouts = [], []
+        for _ in range(TUNE_M):
+            mppi.U = nominal
+            for _ in range(TUNE_R):
+                mppi.command(env.start, shift_nominal_trajectory=False)
+            rollout = mppi.get_rollouts(env.start)[0]
+            costs.append(env.running_cost(rollout, mppi.U).sum())
+            rollouts.append(rollout)
+        return autotune.EvaluationResult(torch.stack(costs), torch.stack(rollouts))
+
+    tuner = autotune.Autotune([autotune.SigmaParameter(mppi), autotune.LambdaParameter(mppi)],
+                              evaluate_fn=evaluate,
+                              optimizer=autotune.CMAESOpt(population=TUNE_POP, sigma=0.5, seed=0))
+    lam = tuner.optim.optim.lam
+    want = {"mppi": (lam + 1) * TUNE_M * TUNE_R}
+    times = []
+    for i in range(TUNE_STEPS):
+        reset()
+        secs, res = clock(tuner.optimize_step)
+        times.append(secs)
+        check(launched() == want, f"phase 10c: step {i} launched {launched()}, expected {want} "
+              f"((lambda + 1) M R with lambda = {lam})")
+        check(bool(torch.isfinite(res.costs).all()), "phase 10c: a non-finite cost")
+    report["sequential"] = dict(step_s=statistics.median(times), all_s=times, lam=lam,
+                                launches_per_step=want["mppi"])
+    pop_s = report["population"]["cmaes"]["step_s"]
+    print(f"# tuning cmaes sequential path: {statistics.median(times):.4f} s a step ({times}), "
+          f"{want['mppi']} kernel A launches a step (lambda = {lam}), "
+          f"{statistics.median(times) / pop_s:.2f}x the population path's {pop_s:.4f} s")
+
+    # -- d. GradientOpt ----------------------------------------------------------
+    B = torch.tensor([[1.0, 0.0], [0.0, -1.0]], **f32)
+    goal = torch.tensor([2.0, 2.0], **f32)
+    ctrl = MPPI(lambda s, a: s + a @ B.T, lambda s, a: ((goal - s) ** 2).sum(dim=-1), 2,
+                noise_sigma=torch.eye(2, **f32) * 0.05, num_samples=GRAD_K, horizon=GRAD_T,
+                lambda_=20.0, seed=0, device=dev)
+    ev = autotune.PopulationEvaluator(ctrl, torch.tensor([-3.0, -2.0], **f32),
+                                      num_refinement_steps=GRAD_R, num_trajectories=GRAD_M,
+                                      seed=1)
+    tuner = autotune.Autotune([autotune.SigmaParameter(ctrl), autotune.LambdaParameter(ctrl)],
+                              evaluate_fn=lambda: ev([{}]),
+                              optimizer=autotune.GradientOpt(lr=0.2,
+                                                             steps_per_iteration=GRAD_ADAM),
+                              population_evaluate_fn=ev)
+    c0 = autotune.mean_cost(ev([{}]).costs)
+    times = []
+    for _ in range(GRAD_STEPS):
+        times.append(clock(tuner.optimize_step)[0])
+    best = autotune.mean_cost(tuner.get_best_result().costs)
+    check(best < GRAD_RATIO * c0, f"phase 10d: GradientOpt's best {best} not below "
+          f"{GRAD_RATIO} x its first {c0}")
+    adam_ms = [1e3 * s / GRAD_ADAM for s in times]
+    report["gradient"] = dict(first=c0, best=best, adam_ms=statistics.median(adam_ms),
+                              all_adam_ms=adam_ms)
+    print(f"# tuning GradientOpt: first {c0:.4f}, best {best:.4f} ({best / c0:.4f} of it); "
+          f"{statistics.median(adam_ms):.3f} ms an Adam step (an optimize_step over "
+          f"{GRAD_ADAM}, its scoring included; {adam_ms})")
+    report["seconds"] = time.perf_counter() - t0
+    print(f"# phase 10 took {report['seconds']:.1f} s")
+    print("# tuning " + json.dumps(report))
     return report
 
 
@@ -3801,6 +4049,10 @@ def main():
     # -- 9. sharding -------------------------------------------------------------
     stamp("9")
     shard = sharding(dev, lq)
+
+    # -- 10. the tuners ----------------------------------------------------------
+    stamp("10")
+    tuning(dev)
 
     # -- 7. the kernels line and the last line ---------------------------------
     stamp("7")

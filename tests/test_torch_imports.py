@@ -1,5 +1,5 @@
 """Import hygiene of the port: no module of ``pytorch_mppi_tpu_torch`` and
-not ``chip_smoke.py`` imports JAX or the JAX package."""
+not ``chip_smoke.py`` imports JAX, optax or the JAX package."""
 import ast
 from pathlib import Path
 
@@ -19,7 +19,8 @@ def _imported_modules(path):
 
 
 def _forbidden(name):
-    return any(name == p or name.startswith(p + ".") for p in ("jax", "pytorch_mppi_tpu"))
+    return any(name == p or name.startswith(p + ".")
+               for p in ("jax", "optax", "pytorch_mppi_tpu"))
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=[str(p.relative_to(ROOT)) for p in SOURCES])
@@ -32,3 +33,4 @@ def test_port_package_is_allowed():
     assert not _forbidden("pytorch_mppi_tpu_torch")
     assert not _forbidden("pytorch_mppi_tpu_torch.ops.solve")
     assert _forbidden("jax.numpy") and _forbidden("pytorch_mppi_tpu.ops")
+    assert _forbidden("optax")
