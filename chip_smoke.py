@@ -60,7 +60,7 @@ the package is not beside it.  Phases, each fatal when it fails:
    tiles) and at K = 1,000 with 64 samples a block, then the moments through
    its cost, its costs against the transposed kernel's on one key and 50
    calls in a row;
-4. main paths: 1,000 closed-loop commands of ``MPPI``, ``SMPPI`` and
+4. main paths: 500 closed-loop commands of ``MPPI``, ``SMPPI`` and
    ``KMPPI`` on ``linear_quadratic`` at K = 10,000, T = 30 (``bench.py``'s
    flagship problem), fused (``use_pallas=True``, one launch a command) with
    the launch count and the goal checked, then the same on the plain torch
@@ -84,7 +84,7 @@ the package is not beside it.  Phases, each fatal when it fails:
    plain ``MPPI`` with a ``SpecificActionSampler`` of two ramps, the null
    row and two elites asked for the kernel (the plain path; rows 0-4 are
    [null, ramps, shifted elites]), 200 commands each of ``SMPPI`` and
-   ``KMPPI`` with the sampler, 200 fused commands with five steps of
+   ``KMPPI`` with the sampler, 50 fused commands with five steps of
    gradient refinement, and the refinement on JAX's small-K fixture (the
    mean distance at least halved); then
    ``MPPI_Batched`` on ``examples/scenario_batch.py``'s problem at N = 1,024,
@@ -94,7 +94,7 @@ the package is not beside it.  Phases, each fatal when it fails:
    seed mode (twice the launches) and with stochastic dynamics on the plain
    path at N = 16, each held to the scenario's goal check; the crossover
    sweep of the batched kernel (N = 64,
-   K = 256 to 10,240); the ops-level kernels' loops at the flagship, 1,000
+   K = 256 to 10,240); the ops-level kernels' loops at the flagship, 500
    commands each: the round-1 solve in seed mode (1 launch a command) and
    JAX's "psampler" solve from port kernels (the sampler, the legacy rollout
    and weighted update: 3 launches), each held to its plain versions for one
@@ -179,11 +179,27 @@ the package is not beside it.  Phases, each fatal when it fails:
    population path; ``CMAESOpt`` on the sequential path with exactly
    (lambda + 1)·M·R launches of kernel A a step; ``GradientOpt`` on JAX's
    ``TestGradientOpt`` problem to below 0.3 of its start;
-7. the ``kernels`` line (eight kernels, and the residual MLP's four
-   instantiations), the card line, then the last line
-   ``{"ok": true, "device": ...}``.
+11. the dynamics bridge (``generated_models``, ``ops/batch_last.py``): the
+   user's own callables passed untagged, traced into generated device
+   models whose libraries (one ``nvcc`` for each model and variant) build
+   beside the named library in phase 2: the flagship written as plain
+   lambdas (bench.py's problem) through kernel A against the named
+   ``linear_quadratic`` on the same seed, both timed from a CUDA graph of
+   20 calls, and 100 commands of each route with their latency; the
+   swing-up from [pi, 1] with ``models/pendulum.py``'s functions wrapped
+   untagged (150 commands, |angle| < 0.25), its kernel A beside the named
+   ``Pendulum``'s; JAX's ``test_step_dependent`` plant (B (1 + 0.01 t),
+   cost (1 + 0.005 t)) through kernel A's three variants and the legacy
+   rollout at the flagship, and the batched pair at N = 16, K = 10,240, each
+   against its plain version (the traced program's evaluator) in bits mode,
+   with exact launch counts of each route's loop; a traced terminal cost
+   that is not ``quadratic_terminal`` in kernel A against its plain version;
+7. the ``kernels`` line (eight kernels, the residual MLP's four
+   instantiations and the generated models' eight), the card line, then the
+   last line ``{"ok": true, "device": ...}``.
 """
 import contextlib
+import dataclasses
 import json
 import logging
 import math
@@ -192,6 +208,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -200,7 +217,11 @@ import torch
 DEVICE = "cuda"
 K, T, NX, NU = 10_000, 30, 2, 2
 NSP = T // 2  # KMPPI's default support points at the flagship
-COMMANDS = 1000
+# the flagship loops' commands, and the refinement loops' (REFINE_COMMANDS),
+# cut from 1,000 and 200 to keep the run inside its time limit with phase 11
+# on a slow host (a run at those depths took 1,135 s of the 1,200 s there)
+COMMANDS = 500
+REFINE_COMMANDS = 50
 WARMUP = 20
 LOOP_K = 500  # the closed loops of phase 6
 # MPPI_Batched: examples/scenario_batch.py's north-star width, and its
@@ -274,6 +295,14 @@ GRAD_K, GRAD_T, GRAD_R, GRAD_M, GRAD_STEPS, GRAD_ADAM, GRAD_RATIO = 256, 10, 5, 
 # torch and numpy), loads each artifact and replays its commands on the
 # live controller's states, then restores the checkpoint into a controller
 # of another seed and continues it eagerly and in run_mppi_jit's graph loop
+# the dynamics bridge (phase 11): commands of each generated route's loop,
+# calls a CUDA graph replays for the kernel-alone times, the plain lambdas'
+# plant (the flagship's), the swing-up (phase 5's sizes), the batched width,
+# and the traced terminal cost's state weights
+GEN_COMMANDS = 100
+GEN_GRAPH_CALLS = 20
+GEN_B, GEN_GOAL, GEN_TERM_W = ((1.0, 0.0), (0.0, -1.0)), (2.0, 2.0), (3.0, 1.0)
+GEN_PEND_K, GEN_PEND_T, GEN_PEND_COMMANDS = 1000, 15, 150
 SERVE_CHILD = r"""
 import json, statistics, sys
 import numpy as np
@@ -378,6 +407,10 @@ def check(cond, msg):
 
 def _per_step(model, nx, nu):
     """Operations of one device-model step plus its running cost."""
+    if getattr(model, "program", None) is not None:  # a generated model: scale, nodes, sum
+        from pytorch_mppi_tpu_torch.ops.batch_last import _count_ops
+
+        return nu + _count_ops(model.program, model.outputs) + 1
     if model.name == "pendulum":  # scale 1, step 12, cost 9, sum 1
         return nu + 12 + 9 + 1
     if model.name == "residual_mlp":
@@ -423,7 +456,9 @@ def fused_work(config, model, seed_or_bits, x0T, op, emit_perturbed=False,
     nothing is drawn, and the operator is not read.  The round-1 solve
     (``variant="rowmajor"``) takes x0 (nx,), ``op`` the (nu, nu) Cholesky
     factor applied per timestep and mu, lo, hi of nu values, and draws with
-    no antithetic sign.  A ``terminal`` cost (``quadratic_terminal``) adds,
+    no antithetic sign.  A traced ``terminal`` cost (``ops/batch_last.py``)
+    adds its program's operations and reads its constants; any other
+    ``terminal`` cost (``quadratic_terminal``) adds,
     per sample, nx subtractions and fused multiply-adds, nu fused
     multiply-adds, two products and two sums, and reads its nx + 2
     constants.  An (E, D) ``elites`` operand is read once; its rows take the
@@ -462,7 +497,13 @@ def fused_work(config, model, seed_or_bits, x0T, op, emit_perturbed=False,
         per_sample = R * (1 + 2 + 3) + D * (2 * R + 2 + 1 + 2 + absc)
     # per sample: the total, the logit, the block max, exp, the block sum
     per_sample += T * _per_step(model, nx, nu) + 7
-    if terminal:
+    term_consts = nx + 2
+    if getattr(terminal, "program", None) is not None:  # a traced terminal cost
+        from pytorch_mppi_tpu_torch.ops.batch_last import _count_ops
+
+        per_sample += _count_ops(terminal.program, [terminal.output]) + 1
+        term_consts = terminal.consts.numel()
+    elif terminal:
         per_sample += 3 * nx + 2 * nu + 4
     if variant != "batched":
         draws = K
@@ -480,7 +521,7 @@ def fused_work(config, model, seed_or_bits, x0T, op, emit_perturbed=False,
                "rowmajor": 2 * D + 3 * nu + 1}[variant]
     in_elems = (x0_elems + vectors + (0 if operand else op.numel())
                 + model.consts.numel() + (0 if seed_mode else seed_or_bits.numel())
-                + (nx + 2 if terminal else 0) + (0 if elites is None else elites.numel()))
+                + (term_consts if terminal else 0) + (0 if elites is None else elites.numel()))
     out_elems = plants * (K + R + 2) + (D * K if emit_perturbed else 0)
     return operations, 4 * (in_elems + out_elems)
 
@@ -856,7 +897,7 @@ def graph_loops(dev, lq, goal):
     # the graph loop against the eager loop at the flagship, in turns
     timed_routes = {"mppi fused": (routes["mppi fused"][0], COMMANDS),
                     "mppi plain": (routes["mppi plain"][0], COMMANDS),
-                    "mppi fused_refine5": (routes["mppi fused_refine5"][0], SHORT_COMMANDS),
+                    "mppi fused_refine5": (routes["mppi fused_refine5"][0], REFINE_COMMANDS),
                     f"batched seed N={BATCH_N}": (batched("kernel_rng", BATCH_N, BATCH_K),
                                                   SHORT_COMMANDS)}
     for name, (build, steps) in timed_routes.items():
@@ -884,7 +925,7 @@ def graph_loops(dev, lq, goal):
                 cost = PS.wrap_cost(ctrl.config, ctrl.running_cost)
                 batched_ = isinstance(ctrl, MPPI_Batched)
                 x = x0
-                for _ in range(WARMUP if steps > 500 else 5):
+                for _ in range(WARMUP if steps >= COMMANDS else 5):
                     x = plant(x, ctrl.command(x))
                 torch.cuda.synchronize()
                 events = []
@@ -904,7 +945,7 @@ def graph_loops(dev, lq, goal):
                 events.append(end)
 
                 def run_eager(ctrl=ctrl, x=x):
-                    for _ in range(min(steps, 100) if steps > 500 else 20):
+                    for _ in range(min(steps, 100) if steps >= COMMANDS else 20):
                         x = plant(x, ctrl.command(x))
                     torch.cuda.synchronize()
 
@@ -2010,18 +2051,18 @@ def tuning(dev):
     check(finite and rel <= TUNE_RTOL,
           f"phase 10a: the vmapped generation against the loop: {rel:.3g} relative "
           f"(limit {TUNE_RTOL}), finite and shaped {finite}")
+    # the loop (800 plain commands, 10-14 s) is timed once, to keep the run
+    # inside its time with phase 11; the vmapped generation three times
     vm_times, loop_times = [vm_s], [loop_s]
     for _ in range(2):
         vm_times.append(clock(lambda: ev(cands))[0])
-        loop_times.append(clock(lambda: loop(
-            autotune.PopulationEvaluator(mppi, env.start)._stream_seeds(TUNE_POP * TUNE_M)))[0])
     report["generation"] = dict(vmapped_s=statistics.median(vm_times),
                                 loop_s=statistics.median(loop_times), max_rel=rel,
                                 peak_mib=peak_mib, vmapped_all_s=vm_times,
                                 loop_all_s=loop_times)
     print(f"# tuning generation ({TUNE_POP} candidates x {TUNE_M} streams x {TUNE_R} "
           f"refinements, K={TUNE_K} T={TUNE_T}): vmapped {report['generation']['vmapped_s']:.4f}"
-          f" s, loop {report['generation']['loop_s']:.4f} s (medians of 3; "
+          f" s (median of 3), loop {report['generation']['loop_s']:.4f} s (once; "
           f"{vm_times} / {loop_times}), max relative difference {rel:.3g}, "
           f"peak {peak_mib:.1f} MiB above what was held before it, 0 launches")
 
@@ -2135,6 +2176,419 @@ def tuning(dev):
     print("# tuning " + json.dumps(report))
     return report
 
+def generated_callables(dev):
+    """Phase 11's user callables, untagged, so that no named device model
+    applies: bench.py's flagship as plain lambdas, ``models/pendulum.py``'s
+    functions wrapped, JAX's ``test_step_dependent`` plant, and a terminal
+    cost that is not ``quadratic_terminal`` (its weights a closure)."""
+    from pytorch_mppi_tpu_torch.models import pendulum_dynamics, pendulum_running_cost
+
+    B = torch.tensor(GEN_B, device=dev)
+    goal = torch.tensor(GEN_GOAL, device=dev)
+    w = torch.tensor(GEN_TERM_W, device=dev)
+    return dict(
+        lq=(lambda s, u: s + u @ B.T, lambda s, u: ((goal - s) ** 2).sum(-1)),
+        pendulum=(lambda s, u: pendulum_dynamics(s, u), lambda s, u: pendulum_running_cost(s, u)),
+        step=(lambda s, u, t: s + u @ B.T * (1.0 + 0.01 * t),
+              lambda s, u, t: ((goal - s) ** 2).sum(-1) * (1.0 + 0.005 * t)),
+        terminal=lambda s, u: (w * (s - goal) ** 2).sum(-1) + 0.2 * (u ** 2).sum(-1))
+
+
+def generated_builds(dev):
+    """Trace phase 11's models and start each generated library's build (one
+    ``nvcc`` a model and variant, in a thread), to run beside the named
+    library's build.  Returns the plan: the callables, the traced models and
+    ``builds``, label -> (thread, kernel, variant, result)."""
+    from pytorch_mppi_tpu_torch.config import MPPIConfig
+    from pytorch_mppi_tpu_torch.ops import batch_last as BL
+    from pytorch_mppi_tpu_torch.ops import fused_solve as FS
+
+    fns = generated_callables(dev)
+    cfg = MPPIConfig(nx=NX, nu=NU, K=K, T=T)
+    cfg_sd = dataclasses.replace(cfg, step_dependent_dynamics=True)
+    models = dict(lq=BL.kernel_model(cfg, *fns["lq"]),
+                  pendulum=BL.kernel_model(MPPIConfig(nx=2, nu=1, K=GEN_PEND_K, T=GEN_PEND_T),
+                                           *fns["pendulum"]),
+                  step=BL.kernel_model(cfg_sd, *fns["step"]),
+                  terminal=BL.trace_terminal(cfg, fns["terminal"]))
+    step = BL.generated_kernel(models["step"], None)
+    plan = {"lq mppi": (BL.generated_kernel(models["lq"], None), FS.MPPI),
+            "pendulum mppi": (BL.generated_kernel(models["pendulum"], None), FS.MPPI),
+            "step mppi": (step, FS.MPPI), "step smppi": (step, FS.SMPPI),
+            "step kmppi": (step, FS.KMPPI), "step rollout": (step, FS.ROLLOUT),
+            "step batched": (step, FS.BATCHED),
+            "terminal mppi": (BL.generated_kernel(models["lq"], models["terminal"]), FS.MPPI)}
+    builds = {}
+    for label, (kernel, variant) in plan.items():
+        result = {}
+
+        def run(kernel=kernel, variant=variant, result=result):
+            start = time.perf_counter()
+            try:
+                kernel.library(variant)
+            except BaseException as e:  # reported, with nvcc's output, after the join
+                result["error"] = e
+            result["wall_s"] = time.perf_counter() - start
+
+        thread = threading.Thread(target=run, name=f"nvcc {label}")
+        thread.start()
+        builds[label] = (thread, kernel, variant, result)
+    return dict(fns=fns, models=models, builds=builds)
+
+
+def join_generated_builds(plan):
+    """Wait for phase 11's builds; fail with nvcc's output on the first that
+    failed; print each build's seconds."""
+    secs = {}
+    for label, (thread, kernel, variant, result) in plan["builds"].items():
+        thread.join()
+        if "error" in result:
+            fail(f"generated library [{label}] did not build: {result['error']}")
+        secs[label] = kernel.build_seconds.get(variant)
+        print(f"# build generated [{label}]: {secs[label]} s of nvcc (None: already built), "
+              f"{result['wall_s']:.1f} s wall from the script's build start")
+    plan["build_s"] = secs
+    return secs
+
+
+def generated_models(dev, plan, lq_named):
+    """Phase 11: the dynamics bridge on the card (see the module
+    docstring).  Returns the report phase 7's kernel rows read."""
+    from pytorch_mppi_tpu_torch import MPPI, KMPPI, SMPPI, MPPI_Batched, run_mppi, run_mppi_jit
+    from pytorch_mppi_tpu_torch.config import MPPIConfig
+    from pytorch_mppi_tpu_torch.models import PENDULUM_MODEL, PendulumEnv, angle_normalize
+    from pytorch_mppi_tpu_torch.ops import batch_last as BL
+    from pytorch_mppi_tpu_torch.ops import fused_solve as FS
+    from pytorch_mppi_tpu_torch.ops import legacy as LG
+    from pytorch_mppi_tpu_torch.ops.kernels import interpolation_operators
+    from pytorch_mppi_tpu_torch import RBFKernel
+
+    fns, models = plan["fns"], plan["models"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2027)
+    rows, loops = {}, {}
+
+    def reset():
+        for name in FS.launches:
+            FS.launches[name] = 0
+
+    def only(**counts):
+        return {name: counts.get(name, 0) for name in FS.launches}
+
+    def full(n, v):
+        return torch.full((n,), float(v), device=dev)
+
+    def operands(variant, cfg, op_diag=0.8, bound=1.0):
+        """One call's device operands after the noise source."""
+        nu, T_, K_ = cfg.nu, cfg.T, cfg.K
+        D = T_ * nu
+        R = cfg.num_support_pts * nu if variant == "kmppi" else D
+        x0T = torch.tensor([-3.0, -2.0], device=dev)[:cfg.nx, None].expand(cfg.nx, K_)
+        U2 = torch.randn(D, generator=gen, device=dev) * 0.3
+        a_flat = (U2 * 0.7).contiguous()
+        lam = torch.tensor(1.0, device=dev)
+        if variant == "mppi":
+            return (x0T, U2, full(R, op_diag), full(R, 0.05), full(D, -bound), full(D, bound),
+                    a_flat, lam)
+        if variant == "smppi":
+            as2 = torch.randn(D, generator=gen, device=dev) * 0.2
+            return (x0T, U2, as2, full(D, op_diag), full(D, 0.0), full(D, -bound),
+                    full(D, bound), full(D, -2.0), full(D, 2.0), a_flat, lam,
+                    torch.tensor(2.0, device=dev), torch.tensor(0.5, device=dev))
+        th = torch.randn(R, generator=gen, device=dev) * 0.2
+        interp, _ = interpolation_operators(RBFKernel(2.0), T_, cfg.num_support_pts,
+                                            torch.float32, device=dev)
+        Wt = torch.kron(interp, torch.eye(nu, device=dev)).contiguous()
+        return (x0T, U2, th, full(R, op_diag), full(R, 0.0), full(R, -bound), full(R, bound),
+                full(D, -1.5), full(D, 1.5), a_flat, Wt, lam)
+
+    def bits_for(solve, R, K_pad):
+        return torch.randint(-2**31, 2**31 - 1, (R, K_pad), generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    def held(label, solve, lead, ops, variant, cfg, model, terminal=None, plants=1):
+        """The kernel against its plain version on the same inputs: agree,
+        the update's error, both times and the bound."""
+        out_k = solve(lead, *ops)
+        out_p = solve.plain(lead, *ops)
+        torch.cuda.synchronize()
+        if plants > 1:
+            (dk, msk, ck), (dp, msp, cp) = out_k, out_p
+            ok, c_err, u_err, w_tol = agree(ck, cp, dk / msk[1], dp / msp[1], 1.0, msk[0],
+                                            msp[0], msk[1], msp[1])
+        else:
+            ok, c_err, u_err, w_tol = agree(out_k[3], out_p[3], out_k[0] / out_k[2],
+                                            out_p[0] / out_p[2], 1.0, out_k[1], out_p[1],
+                                            out_k[2], out_p[2])
+        print(f"# generated [{label}] kernel vs plain: cost err {c_err:.3g}, update err "
+              f"{u_err:.3g} (tol {w_tol:.3g})")
+        check(ok, f"generated [{label}] disagrees with its plain version: cost {c_err}, "
+              f"update {u_err}")
+        ms = graph_ms(lambda: solve(lead, *ops), GEN_GRAPH_CALLS)
+        plain_ms = events_ms(lambda: solve.plain(lead, *ops), 2)
+        b_ms, b_by = bound(fused_work(cfg, model, lead, ops[0], ops[3 if variant == "smppi"
+                                                                  else 2 if variant != "kmppi"
+                                                                  else 3],
+                                      variant=variant, plants=plants, terminal=terminal))
+        print(f"# generated [{label}] {ms:.6f} ms a call (CUDA graph of {GEN_GRAPH_CALLS}), "
+              f"plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+        return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=u_err)
+
+    def loop(label, ctrl, x, step, n, expect):
+        """``n`` commands from ``x`` after one warm-up, the launches counted
+        and held to ``expect``; the command latency by CUDA events.  Returns
+        the last state and the closest approach to the flagship's goal."""
+        check(ctrl._fns.fused, f"generated [{label}] did not route to the kernels")
+        a = ctrl.command(x)
+        torch.cuda.synchronize()
+        reset()
+        starts = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
+        ends = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
+        dists = []
+        for i in range(n):
+            starts[i].record()
+            a = ctrl.command(x)
+            ends[i].record()
+            x = step(x, a)
+            dists.append((x - goal).norm(dim=-1).max())
+        torch.cuda.synchronize()
+        closest = float(torch.stack(dists).min())
+        launched = {k: v for k, v in FS.launches.items() if v}
+        lat = sorted(b.elapsed_time(e) for b, e in zip(starts, ends))
+        med, p90 = statistics.median(lat), lat[int(0.9 * len(lat))]
+        print(f"# generated loop [{label}] {n} commands: median {med:.4f} ms p90 {p90:.4f} ms "
+              f"(CUDA events) | launches {launched}")
+        check(FS.launches == only(**expect), f"generated [{label}] launched {launched}, "
+              f"expected {expect}")
+        check(bool(torch.isfinite(x).all()), f"generated [{label}]: non-finite state")
+        loops[label] = dict(median_ms=med, p90_ms=p90, launches=launched, closest=closest)
+        return x, closest
+
+    B = torch.tensor(GEN_B, device=dev)
+    goal = torch.tensor(GEN_GOAL, device=dev)
+
+    def lq_step(x, a):
+        return x + a @ B.T
+
+    # 1. the flagship as plain lambdas against the named linear_quadratic
+    cfg = MPPIConfig(nx=NX, nu=NU, K=K, T=T, diag_sigma=True)
+    check(isinstance(models["lq"], BL.GeneratedModel), "the lambdas did not trace")
+    solve_g = FS.make_transposed_fused_solve(cfg, models["lq"])
+    solve_n = FS.make_transposed_fused_solve(cfg, lq_named)
+    ops = operands("mppi", cfg)
+    key = (7, 11)
+    out_g, out_n = solve_g(key, *ops), solve_n(key, *ops)
+    ok, c_err, u_err, _ = agree(out_g[3], out_n[3], out_g[0] / out_g[2], out_n[0] / out_n[2],
+                                1.0, out_g[1], out_n[1], out_g[2], out_n[2])
+    print(f"# generated [lq] kernel A, generated model vs named LinearQuadratic, same seed: "
+          f"cost err {c_err:.3g}, update err {u_err:.3g}")
+    check(ok, f"generated LQ disagrees with the named LinearQuadratic: {c_err}, {u_err}")
+    rows["lq mppi"] = held("lq mppi", solve_g, key, ops, "mppi", cfg, models["lq"])
+    rows["lq mppi"]["ms_named"] = graph_ms(lambda: solve_n(key, *ops), GEN_GRAPH_CALLS)
+    rows["lq mppi"]["max_abs_err_named"] = u_err
+    print(f"# generated [lq] kernel A: generated {rows['lq mppi']['ms']:.6f} ms, named "
+          f"{rows['lq mppi']['ms_named']:.6f} ms (ratio "
+          f"{rows['lq mppi']['ms'] / rows['lq mppi']['ms_named']:.4f})")
+    for label, dyn, cost in (("lq fused", *fns["lq"]),
+                             ("lq named fused", lq_named.dynamics, lq_named.running_cost)):
+        ctrl = MPPI(dyn, cost, nx=NX, noise_sigma=torch.eye(NU, device=dev), num_samples=K,
+                    horizon=T, lambda_=1.0, use_pallas=True, device=dev)
+        x, closest = loop(label, ctrl, torch.tensor([-3.0, -2.0], device=dev), lq_step,
+                          GEN_COMMANDS,
+                          {"generated_mppi" if label == "lq fused" else "mppi": GEN_COMMANDS})
+        # bench.py's check, as every flagship loop's: within 1.0 at some
+        # command, within 10 at the last (the loop wanders about the goal)
+        dist = float((x - goal).norm())
+        check(closest < 1.0 and dist < 10.0, f"generated [{label}] did not reach the goal: "
+              f"closest {closest}, last {dist}")
+        del ctrl
+
+    # run_mppi_jit's CUDA graph of the loop step with the generated kernel A:
+    # bit for bit the eager loop of commands from the same seed
+    steps = 20
+    c_graph, c_eager = (MPPI(*fns["lq"], nx=NX, noise_sigma=torch.eye(NU, device=dev),
+                             num_samples=K, horizon=T, lambda_=1.0, use_pallas=True, seed=7,
+                             device=dev) for _ in range(2))
+    x0 = torch.tensor([-3.0, -2.0], device=dev)
+    reset()
+    _, acts_g, _ = run_mppi_jit(c_graph, lq_step, x0, steps)
+    launched = {k: v for k, v in FS.launches.items() if v}
+    check(FS.launches == only(generated_mppi=steps),
+          f"the generated graph loop launched {launched}, expected {steps}")
+    x, acts_e = x0, []
+    for _ in range(steps):
+        acts_e.append(c_eager.command(x))
+        x = lq_step(x, acts_e[-1])
+    same = bool(torch.equal(acts_g, torch.stack(acts_e)))
+    print(f"# generated [lq graph loop] run_mppi_jit {steps} steps bit for bit the eager loop: "
+          f"{same} | launches {launched}")
+    check(same, "the generated graph loop differs from the eager loop")
+    loops["lq graph"] = dict(equal=same, launches=launched)
+    del c_graph, c_eager
+
+    # 2. the swing-up with the pendulum's functions wrapped untagged
+    cfg_p = MPPIConfig(nx=2, nu=1, K=GEN_PEND_K, T=GEN_PEND_T, diag_sigma=True)
+    sp_g = FS.make_transposed_fused_solve(cfg_p, models["pendulum"])
+    sp_n = FS.make_transposed_fused_solve(cfg_p, PENDULUM_MODEL)
+    ops_p = operands("mppi", cfg_p, op_diag=math.sqrt(10.0), bound=2.0)
+    rows["pendulum mppi"] = held("pendulum mppi", sp_g, key, ops_p, "mppi", cfg_p,
+                                 models["pendulum"])
+    rows["pendulum mppi"]["ms_named"] = graph_ms(lambda: sp_n(key, *ops_p), GEN_GRAPH_CALLS)
+    print(f"# generated [pendulum] kernel A: generated {rows['pendulum mppi']['ms']:.6f} ms, "
+          f"named {rows['pendulum mppi']['ms_named']:.6f} ms")
+    ctrl = MPPI(*fns["pendulum"], nx=2, noise_sigma=torch.tensor([[10.0]], device=dev),
+                num_samples=GEN_PEND_K, horizon=GEN_PEND_T, lambda_=1.0,
+                u_min=torch.tensor([-2.0]), u_max=torch.tensor([2.0]), use_pallas=True,
+                device=dev)
+    check(ctrl._fns.fused, "the wrapped pendulum did not route to the kernels")
+    reset()
+    env = PendulumEnv(downward_start=True)
+    run_mppi(ctrl, env, lambda dataset: None, iter=GEN_PEND_COMMANDS, render=False)
+    angle = abs(float(angle_normalize(env.state[0])))
+    launched = {k: v for k, v in FS.launches.items() if v}
+    print(f"# generated loop [pendulum swing-up] final |angle| {angle:.4f} after "
+          f"{GEN_PEND_COMMANDS} commands | launches {launched}")
+    check(angle < 0.25, f"generated pendulum swing-up failed: final |angle| {angle}")
+    check(FS.launches == only(generated_mppi=GEN_PEND_COMMANDS),
+          f"generated swing-up launched {launched}")
+    loops["pendulum swing-up"] = dict(final_angle=angle, launches=launched)
+    del ctrl
+
+    # 3. the step-dependent plant through kernel A's variants, bits mode
+    cfg_sd = MPPIConfig(nx=NX, nu=NU, K=K, T=T, diag_sigma=True, step_dependent_dynamics=True)
+    sd = models["step"]
+    factories = {"mppi": FS.make_transposed_fused_solve,
+                 "smppi": FS.make_transposed_smppi_solve,
+                 "kmppi": FS.make_transposed_kmppi_solve}
+    for variant, factory in factories.items():
+        c = cfg_sd if variant != "kmppi" else dataclasses.replace(cfg_sd, num_support_pts=NSP)
+        solve = factory(c, sd)
+        R = NSP * NU if variant == "kmppi" else T * NU
+        bits = bits_for(solve, R, solve.bits_cols)
+        rows[f"step {variant}"] = held(f"step {variant}", solve, bits,
+                                       operands(variant, c), variant, c, sd)
+    cls = {"mppi": MPPI, "smppi": SMPPI, "kmppi": KMPPI}
+    for variant in ("mppi", "smppi", "kmppi"):
+        kw = dict(num_support_pts=NSP, kernel=RBFKernel(2.0)) if variant == "kmppi" else {}
+        ctrl = cls[variant](*fns["step"], nx=NX, noise_sigma=torch.eye(NU, device=dev),
+                            num_samples=K, horizon=T, lambda_=1.0, use_pallas=True, device=dev,
+                            step_dependent_dynamics=True, **kw)
+        loop(f"step {variant}", ctrl, torch.tensor([-3.0, -2.0], device=dev), lq_step,
+             GEN_COMMANDS, {f"generated_{variant}": GEN_COMMANDS})
+        del ctrl
+    # the legacy rollout
+    rollout = LG.make_fused_rollout(cfg_sd, sd)
+    x0_K = torch.tensor([-3.0, -2.0], device=dev)[None].expand(K, NX)
+    u_sc = torch.randn(K, T, NU, generator=gen, device=dev) * 0.5
+    c_k, c_p = rollout(x0_K, u_sc), rollout.plain(x0_K, u_sc)
+    r_err = float((c_k - c_p).abs().max())
+    check(bool(((c_k - c_p).abs() <= 1e-5 + 2e-5 * c_p.abs()).all()),
+          f"generated rollout disagrees with its plain version: {r_err}")
+    b_ms, b_by = bound(rollout_work(sd, x0_K, u_sc))
+    rows["step rollout"] = dict(ms=graph_ms(lambda: rollout(x0_K, u_sc), GEN_GRAPH_CALLS),
+                                plain_ms=events_ms(lambda: rollout.plain(x0_K, u_sc), 2),
+                                bound_ms=b_ms, bound_by=b_by, max_abs_err=r_err)
+    print(f"# generated [step rollout] cost err {r_err:.3g} | {rows['step rollout']}")
+    ctrl = MPPI(*fns["step"], nx=NX, noise_sigma=torch.eye(NU, device=dev), num_samples=K,
+                horizon=T, lambda_=1.0, use_pallas="rollout", device=dev,
+                step_dependent_dynamics=True)
+    loop("step rollout", ctrl, torch.tensor([-3.0, -2.0], device=dev), lq_step, GEN_COMMANDS,
+         {"generated_rollout": GEN_COMMANDS, "weighted_update": GEN_COMMANDS})
+    del ctrl
+
+    # 4. the batched pair at N = 16, K = 10,240
+    cfg_b = MPPIConfig(nx=NX, nu=NU, K=BATCH_SMALL_K, T=T, diag_sigma=True,
+                       step_dependent_dynamics=True)
+    N_ = BATCH_SMALL_N
+    solve_b = FS.make_transposed_batched_solve(cfg_b, N_, sd)
+    x0N = torch.randn(NX, N_, generator=gen, device=dev)
+    UN = torch.randn(T * NU, N_, generator=gen, device=dev) * 0.3
+    ops_b = (x0N, UN, full(T * NU, 0.8), full(T * NU, 0.0), full(T * NU, -1.0),
+             full(T * NU, 1.0), (UN * 0.7).contiguous(), torch.tensor(1.0, device=dev))
+    bits_b = bits_for(solve_b, T * NU, solve_b.bits_cols)
+    rows["step batched"] = held("step batched", solve_b, bits_b, ops_b, "batched", cfg_b, sd,
+                                plants=N_)
+    ctrl = MPPI_Batched(*fns["step"], nx=NX, noise_sigma=torch.eye(NU, device=dev),
+                        num_envs=N_, num_samples=BATCH_SMALL_K, horizon=T, lambda_=1.0,
+                        use_pallas="force", device=dev, step_dependent_dynamics=True)
+    xb = torch.randn(N_, NX, generator=gen, device=dev)
+    loop("step batched", ctrl, xb, lq_step, GEN_COMMANDS,
+         {"generated_batched": 2 * GEN_COMMANDS})
+    del ctrl
+
+    # 5. a traced terminal cost that is not quadratic_terminal
+    solve_t = FS.make_transposed_fused_solve(cfg, models["lq"], terminal_final=fns["terminal"])
+    rows["terminal mppi"] = held("terminal mppi", solve_t, key, ops, "mppi", cfg, models["lq"],
+                                 terminal=models["terminal"])
+    ctrl = MPPI(*fns["lq"], nx=NX, noise_sigma=torch.eye(NU, device=dev), num_samples=K,
+                horizon=T, lambda_=1.0, use_pallas=True, device=dev,
+                terminal_final_cost=fns["terminal"])
+    loop("terminal fused", ctrl, torch.tensor([-3.0, -2.0], device=dev), lq_step, GEN_COMMANDS,
+         {"generated_mppi": GEN_COMMANDS})
+    del ctrl
+    return dict(rows=rows, loops=loops)
+
+
+def generated_kernel_rows(report, build_s):
+    """Phase 7's rows for the generated instantiations (phase 11)."""
+    rows = []
+    names = {
+        "lq mppi": ("fused_mppi MPPI, generated model: bench.py's flagship as plain lambdas "
+                    "(mppi_fused_partial<Generated, 2, ..., kMPPI>)", 512, "lq fused",
+                    "generated_mppi"),
+        "pendulum mppi": ("fused_mppi MPPI, generated model: the pendulum's functions "
+                          "untagged (mppi_fused_partial<Generated, 2, ..., kMPPI>)", 512,
+                          "pendulum swing-up", "generated_mppi"),
+        "step mppi": ("fused_mppi MPPI, generated step-dependent model "
+                      "(mppi_fused_partial<Generated, 2, ..., kMPPI>)", 512, "step mppi",
+                      "generated_mppi"),
+        "step smppi": ("fused_mppi SMPPI, generated step-dependent model "
+                       "(mppi_fused_partial<Generated, 2, ..., kSMPPI>)", 755, "step smppi",
+                       "generated_smppi"),
+        "step kmppi": ("fused_mppi KMPPI, generated step-dependent model "
+                       "(mppi_fused_partial<Generated, 2, ..., kKMPPI>)", 940, "step kmppi",
+                       "generated_kmppi"),
+        "step batched": ("fused_mppi batched, generated step-dependent model "
+                         "(batched_partial<Generated, 2, kGlobal> + flash_merge)", 1118,
+                         "step batched", "generated_batched"),
+        "step rollout": ("fused_rollout, generated step-dependent model "
+                         "(fused_rollout<Generated, 2>)", 75, "step rollout",
+                         "generated_rollout"),
+        "terminal mppi": ("fused_mppi MPPI, generated model and traced terminal cost "
+                          "(mppi_fused_partial<Generated, 2, ..., kMPPI>, Generated::terminal)",
+                          512, "terminal fused", "generated_mppi"),
+    }
+    for key, (label, line, loop, count) in names.items():
+        r = report["rows"][key]
+        row = {
+            "name": label,
+            "route": "cuda",
+            "source": "pytorch_mppi_tpu_torch/csrc/fused_mppi.cu",
+            # the struct Generated that fused_mppi.cu includes, emitted from
+            # the traced callables
+            "model_source": "pytorch_mppi_tpu_torch/ops/batch_last.py",
+            "replaces": f"pytorch_mppi_tpu/ops/pallas_rollout.py:{line}",
+            "launches": report["loops"][loop]["launches"].get(count, 0),
+            "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"],
+            "ms_source": "cuda_graph",
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            "library_ms": None,
+            "build_s": build_s.get(key),
+        }
+        if "ms_named" in r:
+            row["ms_named_model"] = r["ms_named"]
+        if key in report["loops"] and "median_ms" in report["loops"][key]:
+            row["command_median_ms"] = report["loops"][key]["median_ms"]
+        rows.append(row)
+    graph = report["loops"]["lq graph"]["launches"]
+    rows[0]["launches_graph_loop"] = graph.get("generated_mppi", 0)
+    rows[0]["command_median_ms"] = report["loops"]["lq fused"]["median_ms"]
+    rows[0]["command_median_ms_named"] = report["loops"]["lq named fused"]["median_ms"]
+    return rows
+
 
 def card_line():
     try:
@@ -2206,6 +2660,7 @@ def main():
 
     # -- 2. build ------------------------------------------------------------
     stamp("2")
+    gen_plan = generated_builds(dev)  # phase 11's libraries, beside the named one
     built = _build.build()
     if built is None:
         print(f"# build: {_build.library_path().name} already built")
@@ -2220,6 +2675,9 @@ def main():
               f"{len(regs)} kernels, {min(regs, default=0)}-{max(regs, default=0)} registers | "
               f"spill stores in {sum(b > 0 for b in spills)}, up to {max(spills, default=0)} "
               f"bytes | nvcc -Xptxas -v output in {log_path}")
+    join_generated_builds(gen_plan)
+    print(f"# build phase (the named library and phase 11's generated ones): "
+          f"{time.perf_counter() - START:.1f} s from the script's start")
 
     # -- 3. kernel against its plain version ----------------------------------
     stamp("3")
@@ -3060,7 +3518,7 @@ def main():
                "fused_refine5": dict(gradient_refinement_steps=REFINE_STEPS)}
     # the slowest plain loops (adaptive covariance, the stochastic rollouts)
     # take SHORT_COMMANDS too, to keep the run's time
-    PATH_COMMANDS = {"plain_sampler": SHORT_COMMANDS, "fused_refine5": SHORT_COMMANDS,
+    PATH_COMMANDS = {"plain_sampler": SHORT_COMMANDS, "fused_refine5": REFINE_COMMANDS,
                      "plain_adaptive_iter3": SHORT_COMMANDS, "plain_stochastic": SHORT_COMMANDS}
     PATH_WARNS = {"plain_adaptive_iter3": "per-iteration noise/omega artifacts",
                   "plain_elites_no_artifacts": "fused_artifacts=True",
@@ -4054,6 +4512,10 @@ def main():
     stamp("10")
     tuning(dev)
 
+    # -- 11. the dynamics bridge: the user's own callables in the kernels --------
+    stamp("11")
+    gen_report = generated_models(dev, gen_plan, lq)
+
     # -- 7. the kernels line and the last line ---------------------------------
     stamp("7")
     sources = {"mppi": ("fused_mppi MPPI (mppi_fused_partial<..., kMPPI>, merged in the kernel)",
@@ -4249,6 +4711,8 @@ def main():
             launches_sharded_gloo_rank0=world[f"{variant} fused"]["launches"][variant])
     kernels[0]["launches_sharded_nccl"] = shard["nccl"]["sharded"]["launches"]["mppi"]
     kernels[3]["launches_sharded_gloo_rank0"] = world["batched operand"]["launches"]["batched"]
+    kernels += generated_kernel_rows(gen_report, gen_plan["build_s"])
+    print(f"# chip_smoke total: {time.perf_counter() - START:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -127,9 +127,17 @@ def _coerce_sigma(noise_sigma, dtype=None):
             f"noise_sigma must be a scalar, (nu,) diagonal, or (nu, nu) covariance; "
             f"got shape {tuple(sigma.shape)}"
         )
-    if torch.linalg.cholesky_ex(sigma.detach().cpu()).info != 0:
+    # factored in float32 at least: torch.linalg has no bfloat16 or float16 kernels
+    if torch.linalg.cholesky_ex(_linalg_dtype(sigma.detach().cpu())).info != 0:
         raise ValueError("noise_sigma must be symmetric positive definite")
     return sigma
+
+
+def _linalg_dtype(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in float32 where its dtype is narrower (bfloat16, float16), for
+    the torch.linalg calls that have no kernels for those types (JAX's
+    ``ops/solve._sigma_factors`` upcasts the same way)."""
+    return t.float() if t.dtype in (torch.bfloat16, torch.float16) else t
 
 
 def _validate_rho(noise_rho):
@@ -140,8 +148,8 @@ def _validate_rho(noise_rho):
 
 def _is_diag(sigma) -> bool:
     """Diagonality, checked when sigma is set (reference mppi.py:131-139)."""
-    s = sigma.detach().cpu().numpy()
-    return bool(np.all(s == np.diag(np.diagonal(s))))
+    s = sigma.detach().cpu()
+    return bool(torch.equal(s, torch.diag(torch.diagonal(s))))
 
 
 def _complete_bounds(u_min, u_max, nu, dtype, device):
@@ -970,6 +978,7 @@ class MPPI_Batched:
         )
         self.terminal_state_cost = terminal_state_cost
         self.terminal_final_cost = terminal_final_cost
+        self.F = dynamics
         self.running_cost = running_cost
         self._fns = _solve.make_batched_step(self.config, self.N, dynamics, running_cost,
                                              use_pallas=self.use_pallas,

@@ -175,7 +175,14 @@
 // model and register size, 13 the residual MLP's; 5: kernel B, the weighted
 // update, the sampler and the entry points; 6-10: the batched kernel of each
 // device model and register size), which ops/_build.py compiles in parallel
-// and links.
+// and links.  A device model generated from the user's torch callables
+// (ops/batch_last.py: the struct Generated, one statement a traced node,
+// reading the timestep t) builds into a library of its own: this file with
+// -DFUSED_MPPI_GENERATED=<mask of variants> -DFUSED_MPPI_MODEL_HEADER=<its
+// header>, one nvcc call, which instantiates only the kernels of the variants
+// the mask asks for, kernel B and the launch entries (find_launcher takes
+// its one model), and neither the named models' kernels nor the weighted
+// update and the sampler.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -184,7 +191,17 @@
 #ifndef FUSED_MPPI_PART
 #define FUSED_MPPI_PART -1  // the whole library in one translation unit
 #endif
+#ifdef FUSED_MPPI_GENERATED
+// A generated model's library (ops/batch_last.py): the struct Generated of
+// the header FUSED_MPPI_MODEL_HEADER, the kernels of the variants whose bits
+// FUSED_MPPI_GENERATED sets (1 << Variant), kernel B and the launch entries;
+// no named model's kernels, and neither the weighted update nor the sampler.
+#define FUSED_MPPI_HAS(k) 0
+#define FUSED_MPPI_ENTRY 1
+#else
 #define FUSED_MPPI_HAS(k) (FUSED_MPPI_PART == -1 || FUSED_MPPI_PART == (k))
+#define FUSED_MPPI_ENTRY FUSED_MPPI_HAS(5)
+#endif
 
 namespace fused_mppi {
 
@@ -356,7 +373,11 @@ __device__ __forceinline__ float bits_to_normal(unsigned b) {
 
 // --- device models (ops/kernel_models.py) ---------------------------------
 // State x and action u are register arrays of N; entries at and beyond nx
-// (nu) are not read.
+// (nu) are not read.  step and cost take the step index t (0 .. T - 1),
+// which the named models ignore and a generated model may read
+// (step_dependent_dynamics).  kTerminal: the model brings its own
+// final-state terminal cost (a generated one), which the kernels call in
+// place of quadratic_terminal.
 
 // x' = x + u B^T; consts = B (nx, nu) row-major, goal (nx).
 template <int N>
@@ -376,12 +397,13 @@ __device__ __forceinline__ void linear_delta(const float* B, float* x, const flo
 
 // |goal - x'|^2
 struct LinearQuadratic {
+  static constexpr bool kTerminal = false;
   template <int N>
-  __device__ static void step(const float* c, float* x, const float* u, int nx, int nu) {
+  __device__ static void step(const float* c, float* x, const float* u, int nx, int nu, int) {
     linear_delta<N>(c, x, u, nx, nu);
   }
   template <int N>
-  __device__ static float cost(const float* c, const float* x, const float*, int nx, int nu) {
+  __device__ static float cost(const float* c, const float* x, const float*, int nx, int nu, int) {
     const float* goal = c + nx * nu;
     float s = 0.0f;
 #pragma unroll
@@ -399,12 +421,13 @@ struct LinearQuadratic {
 // Q = I, R = r I) + c0 exp(-(c - x')^T Qh (c - x')) (HillCost).  consts = B
 // (nx, nu), goal (nx), r, Qh (nx, nx), c (nx), c0.
 struct Toy2D {
+  static constexpr bool kTerminal = false;
   template <int N>
-  __device__ static void step(const float* c, float* x, const float* u, int nx, int nu) {
+  __device__ static void step(const float* c, float* x, const float* u, int nx, int nu, int) {
     linear_delta<N>(c, x, u, nx, nu);
   }
   template <int N>
-  __device__ static float cost(const float* c, const float* x, const float* u, int nx, int nu) {
+  __device__ static float cost(const float* c, const float* x, const float* u, int nx, int nu, int) {
     const float* goal = c + nx * nu;
     const float r = goal[nx];
     const float* Qh = goal + nx + 1;
@@ -434,6 +457,7 @@ struct Toy2D {
 // gym Pendulum-v1 (models/pendulum.py): g = 10, m = l = 1, dt = 0.05, the
 // action clipped to +-2 and the speed to +-8 inside the dynamics.
 struct Pendulum {
+  static constexpr bool kTerminal = false;
   __device__ static float angle_normalize(float x) {
     // floored modulo, as Python's % (fmodf keeps the dividend's sign)
     const float two_pi = 6.28318548f;
@@ -442,7 +466,7 @@ struct Pendulum {
     return r - 3.14159274f;
   }
   template <int N>
-  __device__ static void step(const float*, float* x, const float* u, int, int) {
+  __device__ static void step(const float*, float* x, const float* u, int, int, int) {
     const float th = x[0], thdot = x[1];
     const float uc = fminf(fmaxf(u[0], -2.0f), 2.0f);
     float nthdot = thdot + (15.0f * sinf(th) + 3.0f * uc) * 0.05f;
@@ -451,7 +475,7 @@ struct Pendulum {
     x[1] = nthdot;
   }
   template <int N>
-  __device__ static float cost(const float*, const float* x, const float*, int, int) {
+  __device__ static float cost(const float*, const float* x, const float*, int, int, int) {
     const float an = angle_normalize(x[0]);
     return an * an + 0.1f * (x[1] * x[1]);
   }
@@ -495,8 +519,9 @@ constexpr int MLP_MAX_LAYERS = 4;
 constexpr int MLP_GROUP = 8;
 
 struct ResidualMLP {
+  static constexpr bool kTerminal = false;
   template <int N>
-  __device__ static void step(const float* c, float* x, const float* u, int nx, int nu) {
+  __device__ static void step(const float* c, float* x, const float* u, int nx, int nu, int) {
     const int layers = (int)c[0], wrap = (int)c[9], encode = (int)c[10];
     const bool clip = c[6] != 0.0f;
     float h[2 * MLP_MAX_WIDTH];
@@ -558,8 +583,9 @@ struct ResidualMLP {
     }
   }
   template <int N>
-  __device__ static float cost(const float* c, const float* x, const float* u, int nx, int nu) {
-    if (c[11] == 0.0f) return Pendulum::cost<N>(c, x, u, nx, nu);
+  __device__ static float cost(const float* c, const float* x, const float* u, int nx, int nu,
+                               int t) {
+    if (c[11] == 0.0f) return Pendulum::cost<N>(c, x, u, nx, nu, t);
     float s = 0.0f;
 #pragma unroll
     for (int i = 0; i < N; ++i) {
@@ -592,6 +618,20 @@ __device__ __forceinline__ float quadratic_terminal(const float* c, const float*
   for (int j = 0; j < N; ++j)
     if (j < nu) su += u[j] * u[j];
   return c[nx] * sx + c[nx + 1] * su;
+}
+
+#ifdef FUSED_MPPI_GENERATED
+#include FUSED_MPPI_MODEL_HEADER
+#endif
+
+// The final-state terminal cost of a rollout: the model's own (kTerminal,
+// with the constants at p.terminal) or quadratic_terminal where p.terminal
+// is set; 0 otherwise.
+template <class Model, int N>
+__device__ __forceinline__ float final_cost(const Params& p, const float* x, const float* u,
+                                            int nx, int nu) {
+  if constexpr (Model::kTerminal) return Model::template terminal<N>(p.terminal, x, u, nx, nu);
+  return p.terminal ? quadratic_terminal<N>(p.terminal, x, u, nx, nu) : 0.0f;
 }
 
 constexpr int MERGE_LOADS = 16;  // partials a thread of merge_partials reads at once
@@ -872,10 +912,10 @@ __device__ __forceinline__ float sample_cost(const Params& p, const float* col, 
       }
       u[j] = act * p.u_scale;
     }
-    Model::template step<N>(p.consts, x, u, nx, nu);
-    total += Model::template cost<N>(p.consts, x, u, nx, nu);
+    Model::template step<N>(p.consts, x, u, nx, nu, t);
+    total += Model::template cost<N>(p.consts, x, u, nx, nu, t);
   }
-  if (p.terminal) total += quadratic_terminal<N>(p.terminal, x, u, nx, nu);
+  if (Model::kTerminal || p.terminal) total += final_cost<Model, N>(p, x, u, nx, nu);
   return (V == kSMPPI ? pc + *p.w_seq * smooth : pc) + total;
 }
 
@@ -1219,10 +1259,10 @@ __device__ __forceinline__ float batched_cost(const Params& p, const float4* cur
       }
       u[j] = act * p.u_scale;
     }
-    Model::template step<N>(p.consts, x, u, nx, nu);
-    total += Model::template cost<N>(p.consts, x, u, nx, nu);
+    Model::template step<N>(p.consts, x, u, nx, nu, t);
+    total += Model::template cost<N>(p.consts, x, u, nx, nu, t);
   }
-  if (p.terminal) total += quadratic_terminal<N>(p.terminal, x, u, nx, nu);
+  if (Model::kTerminal || p.terminal) total += final_cost<Model, N>(p, x, u, nx, nu);
   return pc + total;
 }
 
@@ -1389,13 +1429,15 @@ __host__ __device__ constexpr int rollout_ldr(int cols) { return (((cols + 3) / 
 // than 48 KB, so that several blocks share an SM).
 constexpr int ROLLOUT_SMEM = 48 * 1024;
 
-// `steps` steps of one sample from its staged row: the actions of step t are
-// columns t * nu .. t * nu + nu - 1, read as the float4 that holds each (one
-// load a float4 where nu is a multiple of 4, or where the compiler merges the
-// steps of one float4).  The running cost is taken after each step.
+// `steps` steps of one sample from its staged row, the first of them step
+// t0 of the rollout: the actions of step t are columns t * nu .. t * nu +
+// nu - 1 of the row, read as the float4 that holds each (one load a float4
+// where nu is a multiple of 4, or where the compiler merges the steps of one
+// float4).  The running cost is taken after each step.
 template <class Model, int N>
 __device__ __forceinline__ float rollout_steps(const Params& p, const float* row, int steps,
-                                               float* x, float* u, float total, int nx, int nu) {
+                                               int t0, float* x, float* u, float total, int nx,
+                                               int nu) {
   const float4* row4 = reinterpret_cast<const float4*>(row);
   for (int t = 0; t < steps; ++t) {
 #pragma unroll
@@ -1406,8 +1448,8 @@ __device__ __forceinline__ float rollout_steps(const Params& p, const float* row
         u[j] = w == 0 ? q.x : w == 1 ? q.y : w == 2 ? q.z : q.w;
       }
     }
-    Model::template step<N>(p.consts, x, u, nx, nu);
-    total += Model::template cost<N>(p.consts, x, u, nx, nu);
+    Model::template step<N>(p.consts, x, u, nx, nu, t0 + t);
+    total += Model::template cost<N>(p.consts, x, u, nx, nu, t0 + t);
   }
   return total;
 }
@@ -1475,8 +1517,8 @@ __global__ void __launch_bounds__(BLOCK) fused_rollout(Params p) {
     if (live) {
       const float* row = smem + (size_t)(c & 1) * S * ldr + (size_t)tid * ldr;
       const int steps = p.T - c * Ts < Ts ? p.T - c * Ts : Ts;
-      total = exact ? rollout_steps<Model, N>(p, row, steps, x, u, total, N, N)
-                    : rollout_steps<Model, N>(p, row, steps, x, u, total, nx, nu);
+      total = exact ? rollout_steps<Model, N>(p, row, steps, c * Ts, x, u, total, N, N)
+                    : rollout_steps<Model, N>(p, row, steps, c * Ts, x, u, total, nx, nu);
     }
     if (c + 2 < nch) {
       __syncthreads();  // buffer c % 2 is read before chunk c + 2 lands in it
@@ -1488,7 +1530,7 @@ __global__ void __launch_bounds__(BLOCK) fused_rollout(Params p) {
 
 // --- kernel B and the legacy route's weighted update -----------------------------
 
-#if FUSED_MPPI_HAS(5)
+#if FUSED_MPPI_ENTRY
 constexpr int MERGE_CHUNK = 4096;  // block scales held in shared memory at a time
 
 // Kernel B of the batched iteration: one block per plant; plant
@@ -1505,6 +1547,9 @@ __global__ void __launch_bounds__(MERGE_THREADS)
                  scale, MERGE_CHUNK, part, red);
 }
 
+#endif
+
+#if FUSED_MPPI_HAS(5)
 constexpr int WEIGHTED_LOADS = 8;  // partials a thread of weighted_merge loads at once
 constexpr int WEIGHTED_COUNTERS = 8193;  // the weighted update's tickets: 1 + at most 8,192 groups
 
@@ -2077,6 +2122,41 @@ cudaError_t launch_batched(const Params& p, int variant, size_t smem, cudaStream
 // see its declaration.
 using Launcher = cudaError_t (*)(const Params&, int, size_t, cudaStream_t);
 
+#ifdef FUSED_MPPI_GENERATED
+// The generated model's launcher: the variants of the mask
+// FUSED_MPPI_GENERATED only, on register arrays of Generated::kN.
+cudaError_t launch_generated(const Params& p, int v, size_t smem, cudaStream_t s) {
+  constexpr int mask = FUSED_MPPI_GENERATED, N = Generated::kN;
+  static_assert(N >= 1 && N <= MAXN, "a generated model holds at most MAXN states and actions");
+  if (v < kMPPI || v > kRollout || !((mask >> v) & 1)) return cudaErrorInvalidValue;
+  if constexpr (((mask >> kRollout) & 1) != 0) {
+    if (v == kRollout) {
+      fused_rollout<Generated, N><<<p.nblocks, BLOCK, smem, s>>>(p);
+      return cudaGetLastError();
+    }
+  }
+  if constexpr (((mask >> kBatched) & 1) != 0) {
+    if (v == kBatched) return launch_batched<Generated, N>(p, v, smem, s);
+  }
+  if constexpr (((mask >> kMPPI) & 1) != 0) {
+    if (v == kMPPI)
+      return p.scratch ? launch_partial<Generated, N, true, kMPPI>(p, smem, s)
+                       : launch_partial<Generated, N, false, kMPPI>(p, smem, s);
+  }
+  if constexpr (((mask >> kSMPPI) & 1) != 0) {
+    if (v == kSMPPI)
+      return p.scratch ? launch_partial<Generated, N, true, kSMPPI>(p, smem, s)
+                       : launch_partial<Generated, N, false, kSMPPI>(p, smem, s);
+  }
+  if constexpr (((mask >> kKMPPI) & 1) != 0) {
+    if (v == kKMPPI)
+      return p.scratch ? launch_partial<Generated, N, true, kKMPPI>(p, smem, s)
+                       : launch_partial<Generated, N, false, kKMPPI>(p, smem, s);
+  }
+  return cudaErrorInvalidValue;
+}
+#endif
+
 #if FUSED_MPPI_HAS(0)
 cudaError_t launch_lq8(const Params& p, int v, size_t smem, cudaStream_t s) {
   return launch_tiles<LinearQuadratic, 8>(p, v, smem, s);
@@ -2179,11 +2259,17 @@ cudaError_t batched_pendulum2(const Params&, int, size_t, cudaStream_t);
 
 }  // namespace fused_mppi
 
-#if FUSED_MPPI_HAS(5)
+#if FUSED_MPPI_ENTRY
 using namespace fused_mppi;
 
 namespace {
 
+#ifdef FUSED_MPPI_GENERATED
+// A generated model's library holds one model: model_id is not read.
+Launcher find_launcher(int, int, int nx, int nu) {
+  return nx <= Generated::kN && nu <= Generated::kN ? launch_generated : nullptr;
+}
+#else
 // The launcher of a variant for a device model (by id) and its register size
 // (2, 8 or MAXN), or null.  The residual MLP has no batched instantiation.
 Launcher find_launcher(int variant, int model_id, int nx, int nu) {
@@ -2199,6 +2285,7 @@ Launcher find_launcher(int variant, int model_id, int nx, int nu) {
   if (model_id < 0 || model_id > 3 || n > MAXN) return nullptr;
   return (variant == kBatched ? batched : single)[model_id][n <= 2 ? 0 : n <= 8 ? 1 : 2];
 }
+#endif
 
 // Kernel A for a single-plant variant (it merges its own partials), or
 // batched_partial then kernel B into delta and ms.
@@ -2410,6 +2497,7 @@ int fused_mppi_rowmajor_solve(int device, void* stream, int model_id, const floa
   return (int)launch_solve(p, kMPPI, model_id, smem, (cudaStream_t)stream);
 }
 
+#ifndef FUSED_MPPI_GENERATED
 // The sampler's geometry for D and the op's kind, into geo: {rows (source
 // rows a block), lanes (fused_sampler's threads a row) or TR
 // (fused_sampler_op's register rows a thread), panel (fused_sampler_op's op
@@ -2510,6 +2598,7 @@ int fused_mppi_sampler(int device, void* stream, int K, int D, const int* bits, 
   kernel<<<blocks, threads, smem, s>>>(p);
   return (int)cudaGetLastError();
 }
+#endif
 
 // The legacy rollout's geometry for T steps of nu actions and S samples a
 // block, into geo: {steps a chunk, floats a staged row, buffers, dynamic
@@ -2569,6 +2658,7 @@ int fused_mppi_rollout(int device, void* stream, int model_id, const float* cons
   return (int)launch(p, kRollout, (size_t)geo[3], (cudaStream_t)stream);
 }
 
+#ifndef FUSED_MPPI_GENERATED
 // The weighted update's group of blocks for its first merge level: the
 // smallest g >= 8 with g * g >= nblocks, so that both levels merge about
 // sqrt(nblocks) partials (ops/legacy.weighted_group computes the same).
@@ -2607,6 +2697,7 @@ int fused_mppi_weighted_update(int device, void* stream, int K, int D, int tile_
 }
 
 int fused_mppi_weighted_counters() { return WEIGHTED_COUNTERS; }
+#endif
 
 }  // extern "C"
 #endif

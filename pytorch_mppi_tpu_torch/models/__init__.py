@@ -15,7 +15,7 @@ from .pendulum import (
     pendulum_dynamics,
     pendulum_running_cost,
 )
-from .toy2d import HillCost, LinearDeltaDynamics, LQRCost, Toy2DEnvironment
+from .toy2d import HillCost, LinearDeltaDynamics, LQRCost, ScaledLinearDynamics, Toy2DEnvironment
 
 __all__ = [
     "PENDULUM_MODEL",
@@ -25,6 +25,7 @@ __all__ = [
     "angle_normalize",
     "LinearDeltaDynamics",
     "LQRCost",
+    "ScaledLinearDynamics",
     "HillCost",
     "Toy2DEnvironment",
     "mlp_init",

@@ -31,6 +31,19 @@ class LinearDeltaDynamics:
         return state + action @ self.B.to(state.device, state.dtype).T
 
 
+class ScaledLinearDynamics:
+    """x' = x + B u / log(cost(x) + 1e-8) · 2  (smooth_mppi.py:40-47)."""
+
+    def __init__(self, cost, B):
+        self.B = torch.as_tensor(B)
+        self.cost = cost
+
+    @handle_batch_input(n=2)
+    def __call__(self, state, action):
+        scale = torch.log(self.cost(state) + 1e-8).reshape(-1, 1)
+        return state + action @ self.B.to(state.device, state.dtype).T / scale * 2
+
+
 class LQRCost:
     """dxᵀ Q dx + uᵀ R u toward a goal (smooth_mppi.py:50-62)."""
 

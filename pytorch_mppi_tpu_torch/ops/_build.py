@@ -91,3 +91,46 @@ def load() -> ctypes.CDLL:
         build()
         _lib = ctypes.CDLL(str(library_path()))
     return _lib
+
+
+def generated_path(header: str, mask: int) -> Path:
+    """The library of a generated model (``ops/batch_last.py``): named by a
+    hash of its header, the variants' mask, ``fused_mppi.cu`` and the flags.
+    The header holds no weights, so models that differ only in them share
+    it."""
+    digest = hashlib.sha256(header.encode() + str(mask).encode() + SOURCE.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"generated-{digest.hexdigest()[:16]}.so"
+
+
+def build_generated(header: str, mask: int):
+    """Compile ``fused_mppi.cu`` with a generated model's ``header`` (the
+    struct ``Generated``) and the kernels of the variants of ``mask`` (bits
+    ``1 << Variant``) into its own library, if it is missing: one ``nvcc``
+    call.  Returns ``(seconds, compiler output)``, or None when it was
+    already built; raises with the compiler's output if ``nvcc`` fails."""
+    out = generated_path(header, mask)
+    if out.is_file():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        model = Path(tmpdir) / "generated_model.cuh"
+        model.write_text(header)
+        tmp = Path(tmpdir) / out.name
+        log = _run([subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, f"-DFUSED_MPPI_GENERATED={int(mask)}",
+             f'-DFUSED_MPPI_MODEL_HEADER="{model}"', "-shared", "-o", str(tmp), str(SOURCE)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)])
+        out.with_suffix(".cuh").write_text(header)
+        out.with_suffix(".log").write_text("".join(log))
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    return time.perf_counter() - start, "".join(log)
+
+
+def load_generated(header: str, mask: int):
+    """``(library, build seconds or None)`` of a generated model, built
+    first if needed."""
+    built = build_generated(header, mask)
+    return ctypes.CDLL(str(generated_path(header, mask))), None if built is None else built[0]

@@ -22,9 +22,12 @@ ops/pallas_rollout.py`` and their helpers (the other four are in
   (delta (D, N), ms (2, N), cost (N, K))`` for N plants that share one
   noise draw, each with its own softmax: ``U_new = U + (delta / ms[1]).T``.
 
-Each is built for a :class:`~.kernel_models.KernelModel`, and optionally a
-final-state terminal cost (``terminal_final``, a
-:func:`~.kernel_models.quadratic_terminal`):
+Each is built for a :class:`~.kernel_models.KernelModel` (a named one, or
+one traced from the user's callables, ``ops/batch_last.py``, whose kernels
+come from a library of its own: :func:`library_of`), and optionally a
+final-state terminal cost (``terminal_final``: a
+:func:`~.kernel_models.quadratic_terminal`, or any callable the tracer
+takes):
 
 * on CUDA tensors it launches ``csrc/fused_mppi.cu`` and raises if the
   launch fails: kernel A, whose blocks take :func:`tile_samples` samples
@@ -79,8 +82,9 @@ from typing import NamedTuple
 import torch
 
 from ..config import MPPIConfig
+from . import batch_last as BL
 from . import kernel_models as KM
-from .kernel_models import KernelModel, KernelTerminal, find_kernel_terminal
+from .kernel_models import KernelModel, KernelTerminal
 
 MPPI, SMPPI, KMPPI, BATCHED = 0, 1, 2, 3  # the kernel's variants (Variant in fused_mppi.cu)
 VARIANTS = ("mppi", "smppi", "kmppi")  # the single-plant variants
@@ -89,13 +93,17 @@ VARIANTS = ("mppi", "smppi", "kmppi")  # the single-plant variants
 # B), the legacy route's rollout and weighted update (ops/legacy.py), and the
 # sampling front-end and the row-major round-1 solve (ops/rowmajor.py)
 KERNELS = VARIANTS + ("batched", "rollout", "weighted_update", "sampler", "rowmajor")
+ROLLOUT = 4  # the legacy rollout's Variant (kRollout in fused_mppi.cu)
+# the kernels of a generated model's library (ops/batch_last.py), by the name of
+# their launch count: kernel A's variants, the batched pair and the legacy rollout
+GENERATED_KERNELS = tuple(f"generated_{k}" for k in VARIANTS + ("batched", "rollout"))
 
 # kernel launches (each kernel launched counts one); chip_smoke.py reads them.
 # Two set-up runs put the counts back as they found them, so that a count
 # is the launches of the commands a caller made: the warm-up and capture of
 # runner._GraphLoop (a replay then counts its captured launches) and the run
 # of each command before utils/deploy.export_solver traces it.
-launches = dict.fromkeys(KERNELS, 0)
+launches = dict.fromkeys(KERNELS + GENERATED_KERNELS, 0)
 
 MAX_SMEM_BYTES = 232_448  # shared memory one block may use on Hopper
 _BLOCK = 128  # threads of a block, and samples of a block of batched_partial (BLOCK)
@@ -156,8 +164,7 @@ ELITE_WINDOW = 128  # the null row and the elites fit in JAX's one lane block
 def transposed_eligible(config: MPPIConfig, has_specific_sampler: bool = False) -> bool:
     """Static eligibility for the fused kernel (``pallas_rollout.py:259-283``):
     one deterministic rollout a sample (M = 1, no ``stochastic_dynamics``),
-    float32, no step dependence (the kernel's device models take no
-    timestep), no ``parameterized_dynamics`` (a device model holds its
+    float32, no ``parameterized_dynamics`` (a device model holds its
     constants, not the controller's ``dynamics_params``), no specific-action
     sampler (its rows or its dynamics hook),
     and elite reuse only with ``fused_artifacts`` (the refresh reads the
@@ -168,7 +175,7 @@ def transposed_eligible(config: MPPIConfig, has_specific_sampler: bool = False) 
         and config.num_elites + (1 if config.sample_null_action else 0) <= ELITE_WINDOW)
     return (config.M == 1 and not has_specific_sampler and elites_ok
             and not config.stochastic_dynamics and not config.parameterized_dynamics
-            and config.dtype == torch.float32 and not config.step_dependent_dynamics)
+            and config.dtype == torch.float32)
 
 
 def smem_bytes(variant: int, D: int, R: int, full_op: bool, S: int = _BLOCK) -> int:
@@ -370,8 +377,8 @@ def _rollout_total(model: KernelModel, perturbed, x0T, T: int, nu: int, u_scale:
         u_t = perturbed[t * nu:(t + 1) * nu].T
         if u_scale != 1.0:
             u_t = u_t * u_scale
-        state = model.dynamics(state, u_t)
-        total = total + model.running_cost(state, u_t)
+        state, c = model.rollout_step(state, u_t, t)
+        total = total + c
     if terminal is not None:
         total = total + terminal.cost(state, u_t)
     return total
@@ -534,60 +541,88 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 
 
+def _set_argtypes(lib, generated: bool = False):
+    """Declare the C entries of a loaded library: the named library's all,
+    a generated one's launch, round-1 solve and rollout entries."""
+    lib.fused_mppi_launch.argtypes = [
+        _I, _P, _I, _I, _P, _I, _I, _I, _I, _I, _P, _I, ctypes.c_uint32,
+        ctypes.c_uint32, _P, _I, _I, _I, _I, _P, _L, _L, _P, _P, _P, _I, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_float, _P, _P, _P,
+        _P, _P, _P, _I, _L, _L, _L, _L, _P, _L, _I, _I, _P, _P, _P, _I, _I, _P, _I,
+    ]
+    lib.fused_mppi_rollout.argtypes = [_I, _P, _I, _P, _I, _I, _I, _I, _P, _L, _L,
+                                       _P, _P, _I]
+    lib.fused_mppi_rollout_geometry.argtypes = [_I, _I, _I, _P]
+    lib.fused_mppi_rollout_geometry.restype = _I
+    lib.fused_mppi_rowmajor_solve.argtypes = [
+        _I, _P, _I, _P, _I, _I, _I, _I, _P, ctypes.c_uint32, ctypes.c_uint32, _I,
+        _I, _P, _L, _P, _P, _P, _P, _P, _P, _P, ctypes.c_float, _P, _P, _P, _P, _P,
+        _I, _P,
+    ]
+    for fn in (lib.fused_mppi_launch, lib.fused_mppi_rollout, lib.fused_mppi_rowmajor_solve):
+        fn.restype = _I
+    lib.fused_mppi_error_string.argtypes = [_I]
+    lib.fused_mppi_error_string.restype = ctypes.c_char_p
+    if generated:
+        return
+    lib.fused_mppi_weighted_update.argtypes = [_I, _P, _I, _I, _I, _P, _P, _L, _P, _P,
+                                               _P, _P, _P]
+    lib.fused_mppi_weighted_group.argtypes = [_I]
+    for fn in (lib.fused_mppi_weighted_group, lib.fused_mppi_weighted_counters):
+        fn.restype = _I
+    lib.fused_mppi_sampler.argtypes = [
+        _I, _P, _I, _I, _P, ctypes.c_uint32, ctypes.c_uint32, _I, _I, _I, _I, _I,
+        _P, _P, _P, _P, _P, _P, _P, _P,
+    ]
+    for fn in (lib.fused_mppi_weighted_update, lib.fused_mppi_sampler):
+        fn.restype = _I
+    lib.fused_mppi_sampler_geometry.argtypes = [_I, _I, _P]
+    lib.fused_mppi_sampler_geometry.restype = _I
+    lib.fused_mppi_block.restype = _I
+    lib.fused_mppi_max_n.restype = _I
+    lib.fused_mppi_smem_bytes.argtypes = [_I, _I, _I, _I, _I]
+    lib.fused_mppi_smem_bytes.restype = ctypes.c_longlong
+    if lib.fused_mppi_block() != _BLOCK or lib.fused_mppi_max_n() != _MAXN:
+        raise RuntimeError("fused_mppi.cu BLOCK or MAXN differs from fused_solve")
+    lib.fused_mppi_mlp_limit.argtypes = [_I]
+    lib.fused_mppi_mlp_limit.restype = _I
+    if [lib.fused_mppi_mlp_limit(i) for i in range(4)] != [
+            KM.MLP_HEAD, KM.MLP_MAX_WIDTH, KM.MLP_MAX_LAYERS, KM.MLP_GROUP]:
+        raise RuntimeError("fused_mppi.cu's ResidualMLP layout differs from kernel_models")
+    if any(lib.fused_mppi_smem_bytes(v, D, R, f, S) != smem_bytes(v, D, R, bool(f), S)
+           for v in (MPPI, SMPPI, KMPPI, BATCHED) for D, R in ((60, 30), (60, 60), (300, 300))
+           for f in (0, 1) for S in TILES):
+        raise RuntimeError("fused_mppi_smem_bytes differs from fused_solve.smem_bytes")
+
+
 def _lib():
+    """The named models' library, built and declared on first use."""
     from . import _build
 
     lib = _build.load()
     if not getattr(lib, "_argtypes_set", False):
-        lib.fused_mppi_launch.argtypes = [
-            _I, _P, _I, _I, _P, _I, _I, _I, _I, _I, _P, _I, ctypes.c_uint32,
-            ctypes.c_uint32, _P, _I, _I, _I, _I, _P, _L, _L, _P, _P, _P, _I, _P,
-            _P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_float, _P, _P, _P,
-            _P, _P, _P, _I, _L, _L, _L, _L, _P, _L, _I, _I, _P, _P, _P, _I, _I, _P, _I,
-        ]
-        lib.fused_mppi_rollout.argtypes = [_I, _P, _I, _P, _I, _I, _I, _I, _P, _L, _L,
-                                           _P, _P, _I]
-        lib.fused_mppi_rollout_geometry.argtypes = [_I, _I, _I, _P]
-        lib.fused_mppi_rollout_geometry.restype = _I
-        lib.fused_mppi_weighted_update.argtypes = [_I, _P, _I, _I, _I, _P, _P, _L, _P, _P,
-                                                   _P, _P, _P]
-        lib.fused_mppi_weighted_group.argtypes = [_I]
-        for fn in (lib.fused_mppi_weighted_group, lib.fused_mppi_weighted_counters):
-            fn.restype = _I
-        lib.fused_mppi_rowmajor_solve.argtypes = [
-            _I, _P, _I, _P, _I, _I, _I, _I, _P, ctypes.c_uint32, ctypes.c_uint32, _I,
-            _I, _P, _L, _P, _P, _P, _P, _P, _P, _P, ctypes.c_float, _P, _P, _P, _P, _P,
-            _I, _P,
-        ]
-        lib.fused_mppi_sampler.argtypes = [
-            _I, _P, _I, _I, _P, ctypes.c_uint32, ctypes.c_uint32, _I, _I, _I, _I, _I,
-            _P, _P, _P, _P, _P, _P, _P, _P,
-        ]
-        for fn in (lib.fused_mppi_launch, lib.fused_mppi_rollout,
-                   lib.fused_mppi_weighted_update, lib.fused_mppi_rowmajor_solve,
-                   lib.fused_mppi_sampler):
-            fn.restype = _I
-        lib.fused_mppi_sampler_geometry.argtypes = [_I, _I, _P]
-        lib.fused_mppi_sampler_geometry.restype = _I
-        lib.fused_mppi_error_string.argtypes = [_I]
-        lib.fused_mppi_error_string.restype = ctypes.c_char_p
-        lib.fused_mppi_block.restype = _I
-        lib.fused_mppi_max_n.restype = _I
-        lib.fused_mppi_smem_bytes.argtypes = [_I, _I, _I, _I, _I]
-        lib.fused_mppi_smem_bytes.restype = ctypes.c_longlong
-        if lib.fused_mppi_block() != _BLOCK or lib.fused_mppi_max_n() != _MAXN:
-            raise RuntimeError("fused_mppi.cu BLOCK or MAXN differs from fused_solve")
-        lib.fused_mppi_mlp_limit.argtypes = [_I]
-        lib.fused_mppi_mlp_limit.restype = _I
-        if [lib.fused_mppi_mlp_limit(i) for i in range(4)] != [
-                KM.MLP_HEAD, KM.MLP_MAX_WIDTH, KM.MLP_MAX_LAYERS, KM.MLP_GROUP]:
-            raise RuntimeError("fused_mppi.cu's ResidualMLP layout differs from kernel_models")
-        if any(lib.fused_mppi_smem_bytes(v, D, R, f, S) != smem_bytes(v, D, R, bool(f), S)
-               for v in (MPPI, SMPPI, KMPPI, BATCHED) for D, R in ((60, 30), (60, 60), (300, 300))
-               for f in (0, 1) for S in TILES):
-            raise RuntimeError("fused_mppi_smem_bytes differs from fused_solve.smem_bytes")
+        _set_argtypes(lib)
         lib._argtypes_set = True
     return lib
+
+
+def library_of(model_id: int, variant: int):
+    """The library whose kernels run ``model_id``'s ``variant``: the named
+    library, or a generated model's own (``ops/batch_last.py``), built on
+    first use."""
+    if model_id < BL.GENERATED:
+        return _lib()
+    lib = BL.kernel_of(model_id).library(variant)
+    if not getattr(lib, "_argtypes_set", False):
+        _set_argtypes(lib, generated=True)
+        lib._argtypes_set = True
+    return lib
+
+
+def launch_name(model_id: int, kernel: str) -> str:
+    """The launch count of ``kernel`` (a name of :data:`KERNELS`) for
+    ``model_id``: its own, or its generated counterpart's."""
+    return kernel if model_id < BL.GENERATED else f"generated_{kernel}"
 
 
 def _check(name, t, device, dtype=torch.float32, shape=None, contiguous=True):
@@ -622,6 +657,17 @@ def raise_on_error(lib, rc, what):
                            f"({lib.fused_mppi_error_string(rc).decode()})")
 
 
+def as_kernel_model(config: MPPIConfig, model) -> KernelModel:
+    """A factory's ``model``: a :class:`~.kernel_models.KernelModel`, or a
+    ``(dynamics, running_cost)`` pair of the user's callables, which keeps
+    the named model it carries or is traced into a generated one
+    (:func:`~.batch_last.kernel_model`; UnsupportedPrimitive where it
+    cannot be)."""
+    if isinstance(model, tuple):
+        return BL.kernel_model(config, *model)
+    return model
+
+
 def check_kernel_model(config: MPPIConfig, model: KernelModel):
     """The checks every kernel of ``fused_mppi.cu`` makes of its config and
     device model."""
@@ -635,6 +681,10 @@ def check_kernel_model(config: MPPIConfig, model: KernelModel):
     if max(nx, nu) > _MAXN:
         raise FusedSolveUnavailable(
             f"nx={nx}, nu={nu}: the kernel's device models hold at most {_MAXN} of each")
+    if config.step_dependent_dynamics and not isinstance(model, BL.GeneratedModel):
+        raise FusedSolveUnavailable(
+            f"step_dependent_dynamics with the named kernel model {model.name!r}, which takes "
+            f"no timestep (only a traced model does: ops/batch_last.py)")
     if model.model_id == KM.RESIDUAL_MLP:
         head = KM.mlp_header(model.consts)
         if (max(nx, nu) > 2 or head["layers"] > KM.MLP_MAX_LAYERS
@@ -775,7 +825,7 @@ def launch_kernel_a(spec: LaunchSpec, u_scale: float, lead, key, x0T, U2, base, 
     counter = None if batched else merge_counter(
         _launch_counters.setdefault((spec, stream), {}), device)
     null_action = bool(spec.null_action) and not batched
-    lib = _lib()
+    lib = library_of(spec.model_id, MPPI if spec.rowmajor else spec.variant)
     if spec.rowmajor:
         rc = lib.fused_mppi_rowmajor_solve(
             device_index(device), stream, spec.model_id, consts.data_ptr(), K,
@@ -785,7 +835,7 @@ def launch_kernel_a(spec: LaunchSpec, u_scale: float, lead, key, x0T, U2, base, 
             float(u_scale), cost.data_ptr(), partial.data_ptr(), delta.data_ptr(),
             ms.data_ptr(), _ptr(scratch), spec.S, counter.data_ptr())
         raise_on_error(lib, rc, "fused_mppi_rowmajor_solve")
-        launches["rowmajor"] += 1
+        launches["rowmajor" if spec.model_id < BL.GENERATED else "generated_mppi"] += 1
         return delta, ms, cost, None
     rc = lib.fused_mppi_launch(
         device_index(device), stream,
@@ -806,9 +856,9 @@ def launch_kernel_a(spec: LaunchSpec, u_scale: float, lead, key, x0T, U2, base, 
     )
     raise_on_error(lib, rc, "fused_mppi")
     if batched:
-        launches["batched"] += 2
+        launches[launch_name(spec.model_id, "batched")] += 2
     else:
-        launches[VARIANTS[spec.variant]] += 1
+        launches[launch_name(spec.model_id, VARIANTS[spec.variant])] += 1
     return delta, ms, cost, pert
 
 
@@ -820,6 +870,9 @@ def plain_kernel_a(spec: LaunchSpec, u_scale: float, lead, key, x0T, U2, base, o
     routes a CPU tensor.  Same results, the perturbed set None unless
     emitted."""
     model = KM.plain_model(spec.model_id, consts, spec.nx, spec.nu)
+    terminal = None if term is None else KM.plain_terminal(term, spec.nx)
+    if spec.model_id >= BL.GENERATED:
+        terminal = BL.kernel_of(spec.model_id).terminal or terminal
     seed_or_bits = lead if lead is not None else tuple(key)
     if spec.rowmajor:
         from .rowmajor import rowmajor_solve_plain
@@ -831,8 +884,7 @@ def plain_kernel_a(spec: LaunchSpec, u_scale: float, lead, key, x0T, U2, base, o
         return delta.reshape(-1), torch.stack([m, s]), cost, None
     flags = dict(model=model, K=spec.K, T=spec.T, nu=spec.nu,
                  antithetic=bool(spec.antithetic), abs_cost=bool(spec.abs_cost),
-                 u_scale=u_scale, pair_block=spec.pair_block,
-                 terminal=None if term is None else KM.plain_terminal(term, spec.nx))
+                 u_scale=u_scale, pair_block=spec.pair_block, terminal=terminal)
     if spec.variant == BATCHED:
         return batched_solve_plain(seed_or_bits, x0T, U2, op, mu, lo, hi, a_flat, lam,
                                    noise_operand=bool(spec.noise_operand), **flags) + (None,)
@@ -882,13 +934,12 @@ def _make_launch(variant: int, config: MPPIConfig, model: KernelModel, R: int,
     noise as ``lead``.  The launch calls :func:`launch_kernel_a`, directly
     or through its operator (:func:`via_ops`).  Returns ``(launch, flags,
     info)`` where ``flags`` are the plain version's keyword arguments."""
-    terminal = find_kernel_terminal(terminal_final)
-    if terminal_final is not None and terminal is None:
-        raise FusedSolveUnavailable(
-            f"terminal_final {getattr(terminal_final, '__name__', terminal_final)!r} is not a "
-            f"kernel terminal cost: the kernel evaluates only those it names "
-            f"(ops/kernel_models.quadratic_terminal)")
+    # a named terminal cost, or the trace of any other (UnsupportedPrimitive
+    # where it cannot be traced, which the routing takes to the plain path)
+    terminal = BL.kernel_terminal(config, terminal_final)
+    model = as_kernel_model(config, model)
     check_kernel_model(config, model)
+    model_id = BL.launch_id(model, terminal)
     if variant == BATCHED and model.model_id == KM.RESIDUAL_MLP:
         raise FusedSolveUnavailable(
             "the batched kernel has no residual-MLP instantiation yet (ROADMAP.md Queue 2a "
@@ -909,7 +960,7 @@ def _make_launch(variant: int, config: MPPIConfig, model: KernelModel, R: int,
         raise ValueError(f"antithetic pairing needs an even pair_block, got {pair_block}")
     full_op = not (noise_operand or config.diag_sigma and not config.noise_rho)
     E = config.num_elites if variant == MPPI else 0
-    spec = LaunchSpec(variant, model.model_id, K, T, nx, nu, R, pair_block,
+    spec = LaunchSpec(variant, model_id, K, T, nx, nu, R, pair_block,
                       int(config.antithetic), int(config.sample_null_action),
                       int(config.noise_abs_cost), int(full_op), int(emit_perturbed), plants,
                       group, _BLOCK if batched else check_tile(tile_k, K), int(noise_operand), E,
@@ -980,7 +1031,8 @@ def _make_launch(variant: int, config: MPPIConfig, model: KernelModel, R: int,
         return out + (pert,) if emit_perturbed else out
 
     info = dict(K_pad=geo["K_pad"], pair_block=pair_block, bits_cols=geo["bits_cols"],
-                tiles="shared" if geo["shared"] else "global", blocks=geo["blocks"], spec=spec)
+                tiles="shared" if geo["shared"] else "global", blocks=geo["blocks"], spec=spec,
+                model=model)
     if not batched:
         info.update(tile_k=spec.S)
     return launch, flags, info
@@ -1013,13 +1065,18 @@ def make_transposed_fused_solve(config: MPPIConfig, model: KernelModel,
                                 terminal_final=None, tile_k: int = None,
                                 shard=(0, 1)):
     """The whole MPPI iteration as one fused-kernel call (see the module
-    docstring for the call contract).  Raises ValueError for a non-float32
+    docstring for the call contract).  ``model`` is a kernel model or the
+    user's ``(dynamics, running_cost)`` pair (:func:`as_kernel_model`; so
+    for the other factories); ``solve.model`` holds the one it runs.
+    Raises ValueError for a non-float32
     config or a model whose sizes differ from the config's, and
     :class:`FusedSolveUnavailable` when nx or nu exceeds the device models'
-    registers (32), for a ``terminal_final`` that is not a kernel terminal
-    cost (:func:`~.kernel_models.quadratic_terminal`), and for
+    registers (32), for a step-dependent config with a named model, and for
     ``config.num_elites`` elites that with the null row exceed JAX's
-    injection window of min(K, 128) samples (``pallas_rollout.py:596-603``).
+    injection window of min(K, 128) samples (``pallas_rollout.py:596-603``);
+    :class:`~.batch_last.UnsupportedPrimitive` for a ``terminal_final`` that
+    is neither a kernel terminal cost
+    (:func:`~.kernel_models.quadratic_terminal`) nor traceable.
 
     With ``null_dynamic_gate`` and ``config.sample_null_action`` the solve
     takes one more trailing argument, the null-action gate (a (1,) int32

@@ -3,7 +3,7 @@
 The JAX package evaluates any traceable dynamics inside its fused kernel by
 interpreting the traced jaxpr batch-axis-last (``pytorch_mppi_tpu/ops/
 batch_last.py``).  A CUDA kernel cannot evaluate a Python callable, so the port
-names its models instead (the linear-quadratic, pendulum, toy2d and
+names these models (the linear-quadratic, pendulum, toy2d and
 residual-MLP models): a :class:`KernelModel` pairs a C++ device model
 compiled into ``csrc/fused_mppi.cu`` (selected by ``model_id``, fed the float32
 ``consts``) with the plain torch ``dynamics`` and ``running_cost`` that compute
@@ -11,15 +11,18 @@ the same thing.  The plain pair is what the controller is given, what the
 plain solve path runs, and what the kernel's plain version runs on the CPU.
 
 :func:`find_kernel_model` recovers the model from a ``(dynamics,
-running_cost)`` pair; any other callable has no kernel model, and
-``use_pallas`` then takes the plain path with a warning.
+running_cost)`` pair; any other pair is traced into a generated device
+model by ``ops/batch_last.py`` (the port's counterpart of JAX's
+``batch_last.py``), and one the tracer refuses takes the plain path with a
+warning.
 
 Final-state terminal costs are named the same way: :func:`quadratic_terminal`
 returns a plain torch ``terminal_final_cost`` tagged with the
 :class:`KernelTerminal` the kernels evaluate after the last rollout step
 (JAX traces any terminal cost into its kernel, ``pallas_rollout.py:349-372``);
-:func:`find_kernel_terminal` recovers it, and any other callable takes the
-plain path with a warning.
+:func:`find_kernel_terminal` recovers it; any other callable is traced by
+``ops/batch_last.py``, and one the tracer refuses takes the plain path
+with a warning.
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ LINEAR_QUADRATIC = 0
 PENDULUM = 1
 TOY2D = 2
 RESIDUAL_MLP = 3
+GENERATED = 1000  # and above: the generated kernels of ops/batch_last.py
 
 # csrc/fused_mppi.cu's ResidualMLP: the floats of its constants' header, its
 # compile-time bounds on a layer's width and on the layers, and the outputs
@@ -65,6 +69,12 @@ class KernelModel:
         """The constants as a contiguous float32 tensor on ``device`` (copied
         once per device)."""
         return _consts_on(self.consts, self._device_consts, device)
+
+    def rollout_step(self, state, action, t: int):
+        """One step of the plain rollout: ``(next state, its running cost)``
+        at step ``t``, which a named model does not read."""
+        state = self.dynamics(state, action)
+        return state, self.running_cost(state, action)
 
 
 def _consts_on(consts: torch.Tensor, cache: dict, device) -> torch.Tensor:
@@ -316,6 +326,10 @@ def plain_model(model_id: int, consts: torch.Tensor, nx: int, nu: int) -> Kernel
     give on the same constants, in the same operations.  The pendulum's
     constants are compiled into the kernel: it is ``models/pendulum.py``'s
     model."""
+    if model_id >= GENERATED:  # a traced model of this process (ops/batch_last.py)
+        from .batch_last import kernel_of
+
+        return kernel_of(model_id).model
     consts = consts.detach().to("cpu", torch.float32)
     key = (int(model_id), int(nx), int(nu), consts.numpy().tobytes())
     model = _PLAIN.get(key)

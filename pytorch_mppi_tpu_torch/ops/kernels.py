@@ -77,8 +77,9 @@ def interpolation_operators(kernel: TimeKernel, T: int, num_support_pts: int, dt
     Khs = kernel(hs_c, tk_c)  # (T, nsp)
     Kshift = kernel(tk_c + 1.0, tk_c)  # (nsp, nsp)
     # right-division: X @ Ktktk^-1 == solve(Ktktk^T, X^T)^T
-    K64 = Ktktk.numpy().astype(np.float64)
-    interp_full = np.linalg.solve(K64.T, Khs.numpy().astype(np.float64).T).T
-    interp_shift = np.linalg.solve(K64.T, Kshift.numpy().astype(np.float64).T).T
+    # through float64 tensors: numpy takes no bfloat16
+    K64 = Ktktk.to(torch.float64).numpy()
+    interp_full = np.linalg.solve(K64.T, Khs.to(torch.float64).numpy().T).T
+    interp_shift = np.linalg.solve(K64.T, Kshift.to(torch.float64).numpy().T).T
     return (torch.as_tensor(np.ascontiguousarray(interp_full), dtype=dtype, device=device),
             torch.as_tensor(np.ascontiguousarray(interp_shift), dtype=dtype, device=device))

@@ -35,19 +35,20 @@ import math
 import torch
 
 from ..config import MPPIConfig
+from . import batch_last as BL
 from . import fused_solve as FS
 from .kernel_models import KernelModel
 
 
 def pallas_eligible(config: MPPIConfig) -> bool:
     """Static eligibility for the legacy kernels (``pallas_rollout.py:61-72``):
-    M = 1, deterministic and unparameterized dynamics, float32, and no step
-    dependence (the device models take no timestep).  A terminal cost and a
-    ``specific_dynamics`` hook send the route to the plain path
+    M = 1, deterministic and unparameterized dynamics, and float32.  A step
+    dependence needs a traced model (``ops/batch_last.py``; a named model
+    takes no timestep: :func:`~.fused_solve.check_kernel_model`).  A terminal
+    cost and a ``specific_dynamics`` hook send the route to the plain path
     (``solve._route_legacy_rollout``)."""
     return (config.M == 1 and not config.stochastic_dynamics
-            and not config.parameterized_dynamics
-            and config.dtype == torch.float32 and not config.step_dependent_dynamics)
+            and not config.parameterized_dynamics and config.dtype == torch.float32)
 
 
 def fused_rollout_plain(x0_K, u_scaled, *, model: KernelModel):
@@ -87,10 +88,11 @@ def rollout_geometry(T: int, nu: int, S: int) -> dict:
                 chunks=-(-T // steps))
 
 
-def _rollout_lib():
-    """The library, its staging geometry checked once against
+def _rollout_lib(model_id: int):
+    """The library of ``model_id``'s rollout kernel (the named one or a
+    generated model's), its staging geometry checked once against
     :func:`rollout_geometry`."""
-    lib = FS._lib()
+    lib = FS.library_of(model_id, FS.ROLLOUT)
     if not getattr(lib, "_rollout_checked", False):
         geo = (ctypes.c_longlong * 4)()
         for T, nu, S in ((30, 2, 32), (15, 1, 32), (100, 3, 128), (300, 1, 128),
@@ -110,13 +112,13 @@ def launch_rollout(x0_K, u_scaled, consts, model_id: int, tile_k: int = None):
     device = u_scaled.device
     K, T, nu = u_scaled.shape
     cost = torch.empty(K, dtype=torch.float32, device=device)
-    lib = _rollout_lib()
+    lib = _rollout_lib(model_id)
     rc = lib.fused_mppi_rollout(
         FS.device_index(device), FS.stream_of(device), model_id, consts.data_ptr(), K, T,
         x0_K.shape[1], nu, x0_K.data_ptr(), x0_K.stride(1), x0_K.stride(0),
         u_scaled.data_ptr(), cost.data_ptr(), FS.check_tile(tile_k, K))
     FS.raise_on_error(lib, rc, "fused_rollout")
-    FS.launches["rollout"] += 1
+    FS.launches[FS.launch_name(model_id, "rollout")] += 1
     return cost
 
 
@@ -127,9 +129,12 @@ def make_fused_rollout(config: MPPIConfig, model: KernelModel, tile_k: int = Non
     holds it); None takes :func:`~.fused_solve.tile_samples` of K and the
     card's SM count at each call.  Raises as
     :func:`~.fused_solve.make_transposed_fused_solve` for the config and
-    model.  The call reaches :func:`launch_rollout` directly or through its
-    operator (:func:`~.fused_solve.via_ops`)."""
+    model; a traced model (:func:`~.batch_last.kernel_model`) runs in its
+    own library, with the timestep.  The call reaches :func:`launch_rollout`
+    directly or through its operator (:func:`~.fused_solve.via_ops`)."""
+    model = FS.as_kernel_model(config, model)
     FS.check_kernel_model(config, model)
+    model_id = BL.launch_id(model)
     if tile_k is not None and tile_k not in FS.TILES:
         raise ValueError(f"tile_k must be one of {FS.TILES}, got {tile_k}")
     K, T, nx, nu = config.K, config.T, config.nx, config.nu
@@ -140,9 +145,9 @@ def make_fused_rollout(config: MPPIConfig, model: KernelModel, tile_k: int = Non
         FS._check("u_scaled", u_scaled, device, shape=(K, T, nu))
         consts = model.consts_on(device)
         if FS.via_ops():
-            return torch.ops.mppi_torch.rollout.default(x0_K, u_scaled, consts,
-                                                        model.model_id, tile_k or 0)
-        return launch_rollout(x0_K, u_scaled, consts, model.model_id, tile_k)
+            return torch.ops.mppi_torch.rollout.default(x0_K, u_scaled, consts, model_id,
+                                                        tile_k or 0)
+        return launch_rollout(x0_K, u_scaled, consts, model_id, tile_k)
 
     return FS.finish(rollout, fused_rollout_plain, dict(model=model), dict(tile_k=tile_k),
                      device_arg=1)

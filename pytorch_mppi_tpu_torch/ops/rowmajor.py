@@ -52,6 +52,7 @@ import ctypes
 import torch
 
 from ..config import MPPIConfig
+from . import batch_last as BL
 from . import fused_solve as FS
 from .kernel_models import KernelModel
 
@@ -300,21 +301,21 @@ def make_fused_solve(config: MPPIConfig, model: KernelModel, tile_k: int = None)
     ``noise_rho``: the noise is always ``chol @ z_t + mu``.  Raises
     ValueError for a non-float32 config or a model whose sizes differ from
     the config's, and :class:`~.fused_solve.FusedSolveUnavailable` for a
-    step-dependent config (the device models take no timestep) or nx or nu
-    above 32.  ``tile_k`` forces kernel A's samples a block, as for
+    step-dependent config with a named model (only a traced model,
+    ``ops/batch_last.py``, takes the timestep) or nx or nu above 32.  A
+    traced model (:func:`~.batch_last.kernel_model`) runs in its own
+    library's kernel A.  ``tile_k`` forces kernel A's samples a block, as for
     :func:`~.fused_solve.make_transposed_fused_solve`; kernel A's merge
     counter is its launch spec's and stream's (``fused_solve``'s
     docstring)."""
-    if config.step_dependent_dynamics:
-        raise FS.FusedSolveUnavailable(
-            "step-dependent dynamics: the kernel's device models take no timestep")
+    model = FS.as_kernel_model(config, model)
     FS.check_kernel_model(config, model)
     K, T, nx, nu = config.K, config.T, config.nx, config.nu
     D = T * nu
     block_k, K_pad = fused_solve_block_and_pad(K)
     # kernel A's launch with its rowmajor flag (FS.launch_kernel_a), through
     # the same operator
-    spec = FS.LaunchSpec(FS.MPPI, model.model_id, K, T, nx, nu, D, 0, 0,
+    spec = FS.LaunchSpec(FS.MPPI, BL.launch_id(model), K, T, nx, nu, D, 0, 0,
                          int(config.sample_null_action), int(config.noise_abs_cost), 1, 0, 1,
                          1, FS.check_tile(tile_k, K), 0, 0, rowmajor=1)
     spec_ints, u_scale = list(spec), float(config.u_scale)

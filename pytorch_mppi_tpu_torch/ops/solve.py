@@ -66,9 +66,9 @@ from ..config import (
     SMPPIParams,
     SMPPIState,
 )
+from . import batch_last as BL
 from . import fused_solve as FS
 from . import legacy as LG
-from .kernel_models import find_kernel_model
 
 logger = logging.getLogger(__name__)
 
@@ -332,9 +332,14 @@ def _sigma_factors(noise_sigma: torch.Tensor, diag: bool = False):
     if diag:
         d = torch.diagonal(noise_sigma)
         return torch.diag(torch.sqrt(d)), torch.diag(1.0 / d)
+    dtype = noise_sigma.dtype
+    if dtype in (torch.bfloat16, torch.float16):
+        # torch.linalg has no bfloat16 or float16 kernels; nu is tiny, so
+        # factor in float32 and cast back (JAX's _sigma_factors, solve.py:92-96)
+        noise_sigma = noise_sigma.float()
     chol, _ = torch.linalg.cholesky_ex(noise_sigma)
     sigma_inv, _ = torch.linalg.inv_ex(noise_sigma)
-    return chol, sigma_inv
+    return chol.to(dtype), sigma_inv.to(dtype)
 
 
 def sample_noise(generator: torch.Generator, leading_shape, params: MPPIParams,
@@ -1119,6 +1124,17 @@ def _fused_factory(factory: Callable, sharded_factory: Callable, mesh, split, sa
     return lambda config, model, **kw: sharded_factory(config, model, mesh, sample_axis, **kw)
 
 
+def _kernel_model(config: MPPIConfig, dynamics: Callable, running_cost: Callable):
+    """``(model, None)``: the pair's named kernel model, else its trace
+    (:func:`~.batch_last.kernel_model`); or ``(None, why)`` with the op the
+    tracer refused.  A ValueError or TypeError of the user's code while it
+    is traced surfaces."""
+    try:
+        return BL.kernel_model(config, dynamics, running_cost), None
+    except BL.UnsupportedPrimitive as e:
+        return None, str(e)
+
+
 def _route_transposed_solve(config: MPPIConfig, dynamics: Callable,
                             running_cost: Callable,
                             factory: Callable = FS.make_transposed_fused_solve,
@@ -1162,21 +1178,22 @@ def _route_transposed_solve(config: MPPIConfig, dynamics: Callable,
         logger.warning(
             "use_pallas requested but the configuration is ineligible "
             "(specific sampler / elite reuse without fused_artifacts / M>1 / "
-            "stochastic / parameterized dynamics / non-float32 / step-dependent); "
+            "stochastic / parameterized dynamics / non-float32); "
             "using the plain torch path for %s", variant,
         )
         return None
-    model = find_kernel_model(dynamics, running_cost)
+    model, why = _kernel_model(config, dynamics, running_cost)
     if model is None:
         logger.warning(
             "use_pallas: the dynamics and running cost carry no kernel model "
-            "(ops/kernel_models.py); using the plain torch path for %s", variant,
+            "(ops/kernel_models.py) and cannot be traced into one (ops/batch_last.py: %s); "
+            "using the plain torch path for %s", why, variant,
         )
         return None
     try:
         solve = factory(config, model, emit_perturbed=config.fused_artifacts,
                         terminal_final=terminal_final_cost)
-    except FS.FusedSolveUnavailable as e:
+    except (FS.FusedSolveUnavailable, BL.UnsupportedPrimitive) as e:
         logger.warning(
             "use_pallas: fused %s kernel unavailable for this configuration "
             "(%s); using the plain torch path", variant, e,
@@ -1201,8 +1218,7 @@ def _route_legacy_rollout(config: MPPIConfig, dynamics: Callable,
     JAX's ``pallas_eligible(has_terminal, has_specific)``, and does not
     shard (``sharded``: a mesh, ``solve.py:1138``); the null, sampler and
     elite rows are written before it."""
-    model = find_kernel_model(dynamics, running_cost)
-    why = None
+    why = model = None
     if sharded:
         why = "a mesh is set, and the legacy kernels do not shard"
     elif has_terminal:
@@ -1212,10 +1228,12 @@ def _route_legacy_rollout(config: MPPIConfig, dynamics: Callable,
                "legacy rollout kernel does not run")
     elif not LG.pallas_eligible(config):
         why = ("the configuration is ineligible (M>1 / stochastic / parameterized dynamics / "
-               "non-float32 / step-dependent)")
-    elif model is None:
-        why = "the dynamics and running cost carry no kernel model (ops/kernel_models.py)"
+               "non-float32)")
+    elif (traced := _kernel_model(config, dynamics, running_cost))[0] is None:
+        why = ("the dynamics and running cost carry no kernel model (ops/kernel_models.py) "
+               f"and cannot be traced into one (ops/batch_last.py: {traced[1]})")
     else:
+        model = traced[0]
         try:
             rollout = LG.make_fused_rollout(config, model)
         except FS.FusedSolveUnavailable as e:

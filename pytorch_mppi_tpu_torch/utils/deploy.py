@@ -163,6 +163,19 @@ def _route(ctrl) -> str:
     return "rollout" if ctrl.use_pallas == "rollout" else "fused"
 
 
+def _generated(ctrl) -> bool:
+    """Whether ``ctrl``'s kernels run a traced model or terminal cost: a
+    kernel route whose callables carry no named kernel model, or whose
+    ``terminal_final_cost`` is not a named kernel terminal cost."""
+    if not ctrl._fns.fused:
+        return False
+    from ..ops.kernel_models import find_kernel_model, find_kernel_terminal
+
+    term = getattr(ctrl, "terminal_final_cost", None)
+    return (find_kernel_model(ctrl.F, ctrl.running_cost) is None
+            or (term is not None and find_kernel_terminal(term) is None))
+
+
 def export_solver(ctrl, path: Optional[str] = None, x0_example=None) -> ServingSolver:
     """Export ``ctrl``'s command (+ current params/state) for serving.
 
@@ -187,6 +200,12 @@ def export_solver(ctrl, path: Optional[str] = None, x0_example=None) -> ServingS
         raise NotImplementedError(
             "export_solver cannot export a controller with a mesh yet (its command calls "
             "collectives); see ROADMAP.md Queue 1 item 12b")
+    if _generated(ctrl):
+        raise NotImplementedError(
+            "export_solver cannot export a controller whose kernels run a device model traced "
+            "from its callables (ops/batch_last.py) yet: the exported operators rebuild a "
+            "model from its id and constants alone, and a traced model also needs its "
+            "program; see ROADMAP.md Queue 1 item 10c")
     config = ctrl.config
     if config.stochastic_dynamics or config.gradient_refinement_steps:
         what = ("stochastic dynamics (their per-step generators are arguments of the "

@@ -167,15 +167,33 @@ def test_unported_flag_raises(request, flag, value):
 
 
 def test_plain_callable_routes_to_plain_path(caplog):
+    """A callable the tracer refuses (JAX's ``bad_dyn``: a mean over the
+    batch axis) takes the plain path, with a warning naming the op."""
     model = linear_quadratic(torch.eye(2), torch.tensor([2.0, 2.0]))
     with caplog.at_level(logging.WARNING, logger="pytorch_mppi_tpu_torch"):
-        ctrl = MPPI(lambda s, a: model.dynamics(s, a), model.running_cost, nx=2,
-                    noise_sigma=torch.eye(2), num_samples=32, horizon=5,
+        ctrl = MPPI(lambda s, a: s - s.mean(dim=0, keepdim=True) + a, model.running_cost,
+                    nx=2, noise_sigma=torch.eye(2), num_samples=32, horizon=5,
                     device="cpu", use_pallas=True)
-    assert "no kernel model" in caplog.text
+    assert "no kernel model" in caplog.text and "mean over the batch axis" in caplog.text
     assert not ctrl._fns.fused
     ctrl.command(np.array([0.0, 0.0]))
     assert ctrl.noise.shape == (32, 5, 2)
+
+
+def test_untagged_callable_takes_the_kernel_route():
+    """An untagged callable within the tracer's vocabulary reaches the fused
+    route (on the CPU the kernel's plain version with the traced program as
+    its model), and its command equals the named model's on the same
+    seed."""
+    model = linear_quadratic(torch.eye(2), torch.tensor([2.0, 2.0]))
+    kw = dict(nx=2, noise_sigma=torch.eye(2), num_samples=32, horizon=5, device="cpu",
+              use_pallas=True, seed=4)
+    ctrl = MPPI(lambda s, a: model.dynamics(s, a), lambda s, a: model.running_cost(s, a), **kw)
+    named = MPPI(model.dynamics, model.running_cost, **kw)
+    assert ctrl._fns.fused and named._fns.fused
+    x = np.array([0.5, -1.0])
+    torch.testing.assert_close(ctrl.command(x), named.command(x), rtol=0, atol=0)
+    assert ctrl.noise is None
 
 
 def test_fused_artifacts_on_fused_path():
@@ -463,3 +481,67 @@ def test_rollout_samples_and_info(cls):
     assert ctrl.info == {"step": 3}
     ctrl.command(np.array([0.0, 0.0]))
     assert ctrl.info is None
+
+
+class TestBfloat16:
+    """JAX's ``TestBfloat16`` (``tests/test_extensions.py:209-234``) on the
+    port, with float16 beside bfloat16: the dtype flows from
+    ``noise_sigma``, and the covariance is factored in float32 and cast back
+    (torch.linalg has no bfloat16 or float16 kernels, as jnp.linalg has
+    none).  MPPI and KMPPI keep JAX's floor: within 1.5 of the goal after 12
+    commands.  JAX's SMPPI floor (< 4.0 at the last command) is a draw in
+    JAX too (2.77, 5.63, 0.70, 8.76, 11.08 and 5.73 at seeds 0-5), so the
+    SMPPI case holds a draw-free criterion instead: every action of the
+    dtype and finite, and a closest approach over the loop within half the
+    starting distance (the port's closest approach over seeds 0-5 is at
+    most 2.11 of the 5.66 it starts at, in both dtypes)."""
+
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "f16"])
+    @pytest.mark.parametrize("cls", [MPPI, SMPPI, KMPPI], ids=["MPPI", "SMPPI", "KMPPI"])
+    def test_half_solves_and_converges(self, cls, dtype):
+        B16 = torch.tensor([[1.0, 0.0], [0.0, -1.0]], dtype=dtype)
+        goal16 = torch.tensor([2.0, 2.0], dtype=dtype)
+
+        def dyn16(s, u):
+            return s + u @ B16.T
+
+        def cost16(s, u):
+            return ((goal16 - s) ** 2).sum(-1)
+
+        ctrl = cls(dyn16, cost16, 2, torch.eye(2, dtype=dtype), num_samples=128, horizon=8,
+                   lambda_=1.0, seed=0, device="cpu")
+        s = torch.tensor([-2.0, -2.0], dtype=dtype)
+        start = float(torch.linalg.norm((goal16 - s).float()))
+        closest = start
+        for _ in range(12):
+            a = ctrl.command(s)
+            assert a.dtype == dtype and bool(torch.isfinite(a.float()).all())
+            s = dyn16(s, a)
+            closest = min(closest, float(torch.linalg.norm((goal16 - s).float())))
+        d = float(torch.linalg.norm((goal16 - s).float()))
+        if cls is SMPPI:
+            assert closest <= 0.5 * start
+        else:
+            assert d < 1.5
+
+
+def test_scaled_linear_dynamics_matches_jax():
+    """JAX's ``TestToy2D::test_scaled_linear_dynamics``
+    (``tests/test_models.py:190-197``), with the values held against JAX's
+    in float64 at the test's input and at random states."""
+    import jax.numpy as jnp
+
+    from pytorch_mppi_tpu.models import ScaledLinearDynamics as JScaled
+    from pytorch_mppi_tpu.models import Toy2DEnvironment as JToy
+    from pytorch_mppi_tpu_torch.models import ScaledLinearDynamics
+
+    B = np.array([[0.5, 0.0], [0.0, -0.5]])
+    jdyn = JScaled(JToy(dtype=jnp.float64).running_cost, jnp.asarray(B))
+    pdyn = ScaledLinearDynamics(Toy2DEnvironment(dtype=torch.float64, device="cpu").running_cost,
+                                torch.from_numpy(B))
+    rs = np.random.RandomState(0)
+    for s, u in ((np.zeros((4, 2)), np.ones((4, 2))), (rs.randn(6, 2), rs.randn(6, 2))):
+        out = pdyn(torch.from_numpy(s), torch.from_numpy(u))
+        assert out.shape == s.shape and bool(torch.isfinite(out).all())
+        np.testing.assert_allclose(out.numpy(), np.asarray(jdyn(jnp.asarray(s), jnp.asarray(u))),
+                                   rtol=1e-12)

@@ -32,6 +32,7 @@ from pytorch_mppi_tpu.ops import solve as JS
 
 from pytorch_mppi_tpu_torch.config import MPPIConfig, MPPIState
 from pytorch_mppi_tpu_torch.models.pendulum import PENDULUM_MODEL
+from pytorch_mppi_tpu_torch.ops import batch_last as BL
 from pytorch_mppi_tpu_torch.ops import fused_solve as FS
 from pytorch_mppi_tpu_torch.ops import solve as PS
 from pytorch_mppi_tpu_torch.ops.kernel_models import linear_quadratic, quadratic_terminal
@@ -309,11 +310,14 @@ def test_wrapper_rejects_other_devices():
     assert gated(*args, 1)[3].shape == (8,)
     with pytest.raises(TypeError, match="null_dynamic_gate"):
         gated(*args)
-    # a kernel terminal cost is taken; any other callable is not
+    # a kernel terminal cost is taken, and any other callable the tracer
+    # takes; one it refuses raises, naming the callable and the op
     term = quadratic_terminal(GOAL_NP, 2.0, 0.1)
     assert FS.make_transposed_fused_solve(cfg, model, terminal_final=term).tiles == "shared"
-    with pytest.raises(FS.FusedSolveUnavailable, match="not a kernel terminal cost"):
-        FS.make_transposed_fused_solve(cfg, model, terminal_final=model.running_cost)
+    assert FS.make_transposed_fused_solve(cfg, model, terminal_final=model.running_cost)
+    with pytest.raises(BL.UnsupportedPrimitive, match="cannot be traced.*sort"):
+        FS.make_transposed_fused_solve(
+            cfg, model, terminal_final=lambda s, a: torch.sort(s, dim=-1).values[:, 0])
 
 
 def test_fused_work_counts_inputs_once():

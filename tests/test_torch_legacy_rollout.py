@@ -37,6 +37,7 @@ from pytorch_mppi_tpu_torch import MPPI
 from pytorch_mppi_tpu_torch.config import MPPIConfig, MPPIState
 from pytorch_mppi_tpu_torch.models import Toy2DEnvironment
 from pytorch_mppi_tpu_torch.models.pendulum import PENDULUM_MODEL
+from pytorch_mppi_tpu_torch.ops import batch_last as BL
 from pytorch_mppi_tpu_torch.ops import fused_solve as FS
 from pytorch_mppi_tpu_torch.ops import legacy as LG
 from pytorch_mppi_tpu_torch.ops import solve as PS
@@ -317,17 +318,49 @@ def test_use_pallas_keeps_its_value():
 
 
 def test_ineligible_configs_warn_and_take_plain_path(caplog):
+    """A callable the tracer refuses (JAX's ``bad_dyn``), a float64 config,
+    and a step dependence with a named model (which takes no timestep) take
+    the plain path with a warning saying why."""
     with caplog.at_level(logging.WARNING, logger="pytorch_mppi_tpu_torch"):
-        fns = PS.make_mppi_step(MPPIConfig(nx=2, nu=2, K=8, T=3), lambda s, a: s,
+        fns = PS.make_mppi_step(MPPIConfig(nx=2, nu=2, K=8, T=3),
+                                lambda s, a: s - s.mean(dim=0, keepdim=True) + a,
                                 lambda s, a: s.sum(-1), use_pallas="rollout")
     assert not fns.fused and "no kernel model" in caplog.text
+    assert "mean over the batch axis" in caplog.text
     caplog.clear()
     with caplog.at_level(logging.WARNING, logger="pytorch_mppi_tpu_torch"):
         fns = PS.make_mppi_step(MPPIConfig(nx=2, nu=2, K=8, T=3, dtype=torch.float64),
                                 LQ.dynamics, LQ.running_cost, use_pallas="rollout")
     assert not fns.fused and "ineligible" in caplog.text
     assert LG.pallas_eligible(MPPIConfig(nx=2, nu=2, K=8, T=3))
-    assert not LG.pallas_eligible(MPPIConfig(nx=2, nu=2, K=8, T=3, step_dependent_dynamics=True))
+    step_dependent = MPPIConfig(nx=2, nu=2, K=8, T=3, step_dependent_dynamics=True)
+    assert LG.pallas_eligible(step_dependent)  # a traced model takes the timestep
+    with pytest.raises(FS.FusedSolveUnavailable, match="takes no timestep"):
+        LG.make_fused_rollout(step_dependent, LQ)
+
+
+@pytest.mark.parametrize("step_dependent", [False, True], ids=["plain", "step_dependent"])
+def test_untagged_callables_take_the_rollout_kernel(step_dependent):
+    """Untagged callables within the tracer's vocabulary reach the legacy
+    rollout kernel (on the CPU its plain version with the traced program),
+    step-dependent ones too: its costs equal the plain rollout's."""
+    B = torch.from_numpy(B_NP)
+    goal = torch.from_numpy(GOAL_NP)
+    if step_dependent:
+        dyn = lambda s, a, t: s + a @ B.T * (1.0 + 0.01 * t)  # noqa: E731
+        cost = lambda s, a, t: ((goal - s) ** 2).sum(-1) * (1.0 + 0.005 * t)  # noqa: E731
+    else:
+        dyn = lambda s, a: s + a @ B.T  # noqa: E731
+        cost = lambda s, a: ((goal - s) ** 2).sum(-1)  # noqa: E731
+    cfg = MPPIConfig(nx=2, nu=2, K=64, T=6, step_dependent_dynamics=step_dependent)
+    fns = PS.make_mppi_step(cfg, dyn, cost, use_pallas="rollout")
+    assert fns.fused
+    rollout = LG.make_fused_rollout(cfg, BL.kernel_model(cfg, dyn, cost))
+    g = torch.Generator().manual_seed(0)
+    u = torch.randn(64, 6, 2, generator=g)
+    x0 = torch.randn(64, 2, generator=g)
+    want, _, _ = PS.rollout_costs(cfg, PS.wrap_dynamics(cfg, dyn), PS.wrap_cost(cfg, cost), x0, u)
+    torch.testing.assert_close(rollout(x0, u), want, rtol=2e-5, atol=1e-5)
 
 
 def test_wrappers_check_their_inputs():
@@ -338,7 +371,9 @@ def test_wrappers_check_their_inputs():
         LG.make_fused_rollout(MPPIConfig(nx=33, nu=2, K=8, T=3),
                               linear_quadratic(torch.zeros(33, 2), torch.zeros(33)))
     assert set(FS.launches) == {"mppi", "smppi", "kmppi", "batched", "rollout",
-                                "weighted_update", "sampler", "rowmajor"}
+                                "weighted_update", "sampler", "rowmajor",
+                                "generated_mppi", "generated_smppi", "generated_kmppi",
+                                "generated_batched", "generated_rollout"}
 
 
 def _chip_smoke():

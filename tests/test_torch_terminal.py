@@ -347,20 +347,44 @@ def test_legacy_route_takes_no_terminal_cost(caplog, hook):
 
 
 @pytest.mark.parametrize("name", VARIANTS)
-def test_other_final_cost_takes_the_plain_path_naming_it(caplog, name):
-    """A terminal callable that is not a kernel terminal cost: the plain
-    path, with a warning that names it; a kernel terminal cost keeps the
-    kernel (on the CPU its plain version), with no states stored."""
+def test_traced_final_cost_keeps_the_kernel(name):
+    """A terminal callable that is not a kernel terminal cost but traces
+    (``ops/batch_last.py``) keeps the kernel; its plain version's costs
+    equal the same cost given as ``terminal_state_cost`` on the plain
+    path's rollout of the kernel's actions."""
     _, pcls, _, pkw, _ = _variant(name)
+    goal = torch.from_numpy(TERM_GOAL)
 
     def my_terminal(s, a):
-        return (s ** 2).sum(-1)
+        return W_STATE * ((s - goal) ** 2).sum(-1) + W_ACTION * (a ** 2).sum(-1)
+
+    c = pcls(LQ.dynamics, LQ.running_cost, 2, torch.eye(2), terminal_final_cost=my_terminal,
+             use_pallas=_use_pallas(name), **pkw)
+    named = pcls(LQ.dynamics, LQ.running_cost, 2, torch.eye(2), terminal_final_cost=P_FTERM,
+                 use_pallas=_use_pallas(name), **pkw)
+    assert c._fns.fused and named._fns.fused
+    x = torch.from_numpy(_start(name))
+    a, b = c.command(x), named.command(x)
+    torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-6)
+    torch.testing.assert_close(c.cost_total, named.cost_total, rtol=2e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("name", VARIANTS)
+def test_other_final_cost_takes_the_plain_path_naming_it(caplog, name):
+    """A terminal callable that is not a kernel terminal cost and that the
+    tracer refuses: the plain path, with a warning that names it and the
+    op; a kernel terminal cost keeps the kernel (on the CPU its plain
+    version), with no states stored."""
+    _, pcls, _, pkw, _ = _variant(name)
+
+    def my_terminal(s, a):  # a sort: outside the tracer's vocabulary
+        return torch.sort(s, dim=-1).values[:, 0]
 
     with caplog.at_level(logging.WARNING, logger="pytorch_mppi_tpu_torch"):
         c = pcls(LQ.dynamics, LQ.running_cost, 2, torch.eye(2), terminal_final_cost=my_terminal,
                  use_pallas=_use_pallas(name), **pkw)
     assert not c._fns.fused
-    assert "'my_terminal' is not a kernel terminal cost" in caplog.text
+    assert "'my_terminal' cannot be traced" in caplog.text and "sort" in caplog.text
     fused = pcls(LQ.dynamics, LQ.running_cost, 2, torch.eye(2), terminal_final_cost=P_FTERM,
                  use_pallas=_use_pallas(name), **pkw)
     assert fused._fns.fused
