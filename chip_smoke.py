@@ -194,9 +194,27 @@ the package is not beside it.  Phases, each fatal when it fails:
    against its plain version (the traced program's evaluator) in bits mode,
    with exact launch counts of each route's loop; a traced terminal cost
    that is not ``quadratic_terminal`` in kernel A against its plain version;
+12. the examples (``example_phase``, ``pytorch_mppi_tpu_torch/examples/``):
+   the generated batched pair of ``scenario_batch``'s plant (the flagship
+   lambdas' program, whose library builds in phase 2) at N = 1,024,
+   K = 16,384, T = 30 in operand mode against its plain version and against
+   the named ``LinearQuadratic`` pair, both timed from a CUDA graph of 20
+   calls; ``scenario_batch --pod-scale --pallas`` eager and with
+   ``--jit-loop`` (run_mppi_jit's CUDA graph), each with exactly 2 × 30
+   ``generated_batched`` launches and no other, held to phase 6's goal
+   check (more than 90 % of the plants come within 0.5 during the loop, the
+   mean distance over the last 10 steps below 1.0), the same counts in
+   both, the command median and plant-solves/s printed;
+   ``differentiable_mpc`` at its JAX test's 15 Adam steps (the task loss
+   lower) and its loss's gradient through a 2-command loop in float64 on
+   the card against the CPU's on the same weights and draws;
+   ``elite_reuse`` and ``deploy_serving`` at their JAX tests' sizes and
+   ``gradient_refinement`` at one seed of its test's two, with those tests'
+   checks; ``smooth_mppi``'s three rows finite after 20 steps;
 7. the ``kernels`` line (eight kernels, the residual MLP's four
-   instantiations and the generated models' eight), the card line, then the
-   last line ``{"ok": true, "device": ...}``.
+   instantiations, the generated models' eight and phase 12's generated
+   batched pair), the card line, then the last line
+   ``{"ok": true, "device": ...}``.
 """
 import contextlib
 import dataclasses
@@ -303,6 +321,13 @@ GEN_COMMANDS = 100
 GEN_GRAPH_CALLS = 20
 GEN_B, GEN_GOAL, GEN_TERM_W = ((1.0, 0.0), (0.0, -1.0)), (2.0, 2.0), (3.0, 1.0)
 GEN_PEND_K, GEN_PEND_T, GEN_PEND_COMMANDS = 1000, 15, 150
+# the examples (phase 12): scenario_batch's closed-loop steps (its default);
+# cut, to keep the phase near 40 s (a slow host takes up to 1.9x): the
+# Adam steps of differentiable_mpc (25, JAX's example, to 15, JAX's test),
+# gradient_refinement's seeds (2, JAX's test, to 1) and smooth_mppi's steps
+# (40 to 20)
+EX_STEPS = 30
+EX_TRAIN_STEPS, EX_REFINE_SEEDS, EX_SMOOTH_STEPS = 15, 1, 20
 SERVE_CHILD = r"""
 import json, statistics, sys
 import numpy as np
@@ -2217,6 +2242,9 @@ def generated_builds(dev):
             "step mppi": (step, FS.MPPI), "step smppi": (step, FS.SMPPI),
             "step kmppi": (step, FS.KMPPI), "step rollout": (step, FS.ROLLOUT),
             "step batched": (step, FS.BATCHED),
+            # phase 12's: scenario_batch's plant is the flagship lambdas' program,
+            # so its batched library is this one (the same header)
+            "lq batched": (BL.generated_kernel(models["lq"], None), FS.BATCHED),
             "terminal mppi": (BL.generated_kernel(models["lq"], models["terminal"]), FS.MPPI)}
     builds = {}
     for label, (kernel, variant) in plan.items():
@@ -2590,6 +2618,213 @@ def generated_kernel_rows(report, build_s):
     return rows
 
 
+def example_phase(dev, plan, lq_named):
+    """Phase 12: the port's examples on the card (see the module
+    docstring).  Returns the report phase 7's kernel row reads."""
+    from pytorch_mppi_tpu_torch.config import MPPIConfig
+    from pytorch_mppi_tpu_torch.examples import (deploy_serving, differentiable_mpc,
+                                                 elite_reuse, gradient_refinement,
+                                                 scenario_batch, smooth_mppi)
+    from pytorch_mppi_tpu_torch.ops import batch_last as BL
+    from pytorch_mppi_tpu_torch.ops import fused_solve as FS
+
+    start = time.perf_counter()
+    report = {"seconds": {}}
+
+    def reset():
+        torch.cuda.synchronize()
+        for name in FS.launches:
+            FS.launches[name] = 0
+
+    def only(**counts):
+        return {name: counts.get(name, 0) for name in FS.launches}
+
+    # (a) the generated batched pair at scenario_batch --pod-scale's shape,
+    # operand mode (use_pallas=True), against its plain version and against
+    # the named LinearQuadratic pair on the same operands, both timed
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2028)
+    N_, K_, T_ = BATCH_N, BATCH_K, T
+    D = T_ * NU
+    cfg = MPPIConfig(nx=NX, nu=NU, K=K_, T=T_, diag_sigma=True)
+    sigma = math.sqrt(0.5)  # the example's noise_sigma = 0.5 I
+    solve_g = FS.make_transposed_batched_solve(cfg, N_, plan["models"]["lq"], noise_operand=True)
+    solve_n = FS.make_transposed_batched_solve(cfg, N_, lq_named, noise_operand=True)
+    x0N = torch.rand(NX, N_, generator=gen, device=dev) * 4 - 4
+    UN = torch.randn(D, N_, generator=gen, device=dev) * 0.3
+    full = lambda v: torch.full((D,), float(v), device=dev)  # noqa: E731
+    rest = (x0N, UN, full(sigma), full(0.0), full(-1.0), full(1.0), (UN / 0.5).contiguous(),
+            torch.tensor(1.0, device=dev))
+    lead = torch.randn(D, solve_g.K_pad, generator=gen, device=dev) * sigma
+    row = {}
+    for label, solve in (("plain", None), ("named", solve_n)):
+        dk, msk, ck = solve_g(lead, *rest)
+        torch.cuda.synchronize()
+        dp, msp, cp = solve_g.plain(lead, *rest) if solve is None else solve(lead, *rest)
+        ok, c_err, u_err, w_tol = agree(ck, cp, dk / msk[1], dp / msp[1], 1.0, msk[0], msp[0],
+                                        msk[1], msp[1])
+        print(f"# example [generated batched] N={N_} K={K_} T={T_} operand, kernel vs {label}: "
+              f"cost err {c_err:.3g}, delta/s err {u_err:.3g} (tol {w_tol:.3g})")
+        check(ok, f"phase 12: the generated batched pair disagrees with the {label} version: "
+              f"cost {c_err}, update {u_err}")
+        row["max_abs_err" if solve is None else "max_abs_err_named"] = u_err
+        del dk, msk, ck, dp, msp, cp
+    torch.cuda.empty_cache()
+    row["ms"] = graph_ms(lambda: solve_g(lead, *rest), GEN_GRAPH_CALLS)
+    row["ms_named"] = graph_ms(lambda: solve_n(lead, *rest), GEN_GRAPH_CALLS)
+    row["plain_ms"] = events_ms(lambda: solve_g.plain(lead, *rest), 2)
+    row["bound_ms"], row["bound_by"] = bound(fused_work(cfg, plan["models"]["lq"], lead, x0N,
+                                                        rest[2], variant="batched",
+                                                        plants=N_))
+    print(f"# example [generated batched] {row['ms']:.6f} ms a call against the named "
+          f"LinearQuadratic's {row['ms_named']:.6f} ms (ratio {row['ms'] / row['ms_named']:.4f}; "
+          f"CUDA graph of {GEN_GRAPH_CALLS} calls) | plain {row['plain_ms']:.4f} ms | bound "
+          f"{row['bound_ms']:.6f} ms ({row['bound_by']})")
+    torch.cuda.empty_cache()
+
+    # (b) scenario_batch --pod-scale --pallas: the user's own plant in the
+    # generated batched pair, eager and through run_mppi_jit's CUDA graph
+    lib = _build_path_of(plan["models"]["lq"])
+    runs = {}
+    for name, extra in (("eager", []), ("jit-loop", ["--jit-loop"])):
+        before = len(BL._KERNELS)
+        stats = {}
+        reset()
+        converged, N = scenario_batch.main(["--pod-scale", "--pallas"] + extra, device=dev,
+                                           stats=stats)
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in FS.launches.items() if v}
+        new = BL._KERNELS[before:]
+        reused = bool(new) and all(not k.build_seconds and _build_path_of(k.model) == lib
+                                   for k in new)
+        print(f"# example [scenario_batch --pod-scale --pallas {name}] {converged}/{N} plants "
+              f"within 0.5 after {EX_STEPS} steps, {stats['reached']}/{N} came within 0.5 "
+              f"during the loop, mean distance over the last 10 steps {stats['settled']:.4f} "
+              f"| command median {stats['command_ms']:.4f} ms "
+              f"({'CUDA events' if name == 'eager' else 'the loop wall time a step'}) | "
+              f"{stats['plant_solves_per_s']:.1f} plant-solves/s (host clock, "
+              f"{stats['wall_s']:.3f} s) | launches {launched} | the generated library built in phase 2 reused: "
+              f"{reused}")
+        check(FS.launches == only(generated_batched=2 * EX_STEPS),
+              f"phase 12: scenario_batch {name} launched {launched}, expected "
+              f"{2 * EX_STEPS} generated_batched")
+        # phase 6's goal check: the share within 0.5 at the last step, which
+        # the JAX example asserts above 90 %, is 19-47 % at this K and T in
+        # both packages (the example's __main__)
+        check(stats["reached"] > 0.9 * N and stats["settled"] < 1.0,
+              f"phase 12: scenario_batch {name}: {stats['reached']}/{N} plants came within "
+              f"0.5, settled at {stats['settled']}")
+        runs[name] = dict(stats, converged=converged, launches=launched, reused=reused)
+    counts = {name: (r["converged"], r["reached"]) for name, r in runs.items()}
+    check(counts["jit-loop"] == counts["eager"],
+          f"phase 12: the jit loop's counts {counts['jit-loop']} differ from the eager loop's "
+          f"{counts['eager']}")
+    report["seconds"]["scenario_batch"] = time.perf_counter() - start  # (a) and (b)
+
+    # (c) the other examples, each at its JAX test's sizes with its check
+    t = time.perf_counter()
+    # JAX's "below half its start" is a draw in both packages (the
+    # example's __main__): hold the loss's fall, and the gradient on the card
+    # to the CPU's on the same weights and draws
+    l0, l1 = differentiable_mpc.main(train_steps=EX_TRAIN_STEPS, device=dev)
+    print(f"# example [differentiable_mpc] task loss {l0:.4f} -> {l1:.4f} (ratio "
+          f"{l1 / l0:.4f}) after {EX_TRAIN_STEPS} Adam steps")
+    check(l1 < l0, f"phase 12: differentiable_mpc {l0} -> {l1}")
+    (lc, gc), (lg, gg) = (closed_loop_grad(differentiable_mpc, d)
+                          for d in (torch.device("cpu"), dev))
+    g_err = max(float((a - b.cpu()).abs().max()) for a, b in zip(gc, gg))
+    g_scale = max(float(a.abs().max()) for a in gc)
+    print(f"# example [differentiable_mpc] float64 2-command loop on the card against the CPU: "
+          f"loss {lg:.12g} / {lc:.12g}, gradient err {g_err:.3g} of its largest {g_scale:.4g}")
+    check(abs(lg - lc) <= 1e-9 * abs(lc) and g_err <= 1e-9 * g_scale,
+          f"phase 12: the closed loop's gradient on the card differs from the CPU's: {g_err}")
+    report["differentiable_mpc"] = (l0, l1)
+    lap = time.perf_counter()
+    print(f"# example [differentiable_mpc] {lap - t:.1f} s")
+    rows = elite_reuse.main(["--samples", "16", "--elites", "4", "--steps", "60", "--seeds",
+                             "2"], device=dev)
+    print(f"# example [elite_reuse] {rows} | {time.perf_counter() - lap:.1f} s")
+    check(rows[1][1] < rows[0][1], f"phase 12: elite_reuse {rows}")
+    lap = time.perf_counter()
+    rows = gradient_refinement.main(["--samples", "5", "--steps", "60", "--seeds",
+                                     str(EX_REFINE_SEEDS)], device=dev)
+    print(f"# example [gradient_refinement] {rows} | {time.perf_counter() - lap:.1f} s")
+    check(rows[1][2] < rows[0][2] and math.isfinite(rows[1][1]),
+          f"phase 12: gradient_refinement {rows}")
+    lap = time.perf_counter()
+    rows = smooth_mppi.main(steps=EX_SMOOTH_STEPS, device=dev)
+    print(f"# example [smooth_mppi] {time.perf_counter() - lap:.1f} s")
+    check(len(rows) == 3 and all(math.isfinite(v) for r in rows for v in r[1:]),
+          f"phase 12: smooth_mppi {rows}")
+    lap = time.perf_counter()
+    served = deploy_serving.main(["--steps", "8", "--samples", "64"], device=dev)
+    print(f"# example [deploy_serving] {served} | {time.perf_counter() - lap:.1f} s")
+    check(served["steps"] == 8 and math.isfinite(served["final_angle"])
+          and served["device"].startswith("cuda"), f"phase 12: deploy_serving {served}")
+    report["seconds"]["others"] = time.perf_counter() - t
+    report.update(row=row, runs=runs, seconds_total=time.perf_counter() - start)
+    print(f"# phase 12 took {report['seconds_total']:.1f} s (the generated pair and "
+          f"scenario_batch {report['seconds']['scenario_batch']:.1f} s, the other examples "
+          f"{report['seconds']['others']:.1f} s)")
+    return report
+
+
+def closed_loop_grad(differentiable_mpc, dev):
+    """``differentiable_mpc``'s task loss of a 2-command loop in float64 and
+    its gradient with respect to seeded weights, on ``dev``, with the
+    solve's N(0, 1) draws fed from one seeded CPU stream (the same on every
+    device): ``(loss, [gradients])``."""
+    from pytorch_mppi_tpu_torch.models import mlp_init
+    from pytorch_mppi_tpu_torch.ops import solve as PS
+
+    g = torch.Generator().manual_seed(3)
+    w = mlp_init([4, 16, 2], g, torch.float64, dev)
+    leaves = [p.requires_grad_() for layer in w for p in layer]
+    draws = [torch.randn(128, 16, generator=g, dtype=torch.float64) for _ in range(2)]
+    fed = iter(draws)
+    standard_normal = PS.standard_normal
+    PS.standard_normal = lambda gen, shape, dtype, device: next(fed).to(device, dtype)
+    try:
+        loss = differentiable_mpc.make_task_loss(2, dev, torch.float64)(w)
+        grads = torch.autograd.grad(loss, leaves)
+    finally:
+        PS.standard_normal = standard_normal
+    return float(loss.detach()), [t.detach() for t in grads]
+
+
+def _build_path_of(model):
+    """The library file of ``model``'s batched kernels (``ops/_build``)."""
+    from pytorch_mppi_tpu_torch.ops import _build
+    from pytorch_mppi_tpu_torch.ops import batch_last as BL
+    from pytorch_mppi_tpu_torch.ops import fused_solve as FS
+
+    return _build.generated_path(BL.generated_kernel(model, None).header(), 1 << FS.BATCHED)
+
+
+def example_kernel_row(report):
+    """Phase 7's row for the generated batched pair of phase 12."""
+    row, runs = report["row"], report["runs"]
+    return {
+        "name": "fused_mppi batched, generated model: scenario_batch's plant at N = 1,024, "
+                "K = 16,384 (batched_partial<Generated, 2, kGlobal> + flash_merge)",
+        "route": "cuda",
+        "source": "pytorch_mppi_tpu_torch/csrc/fused_mppi.cu",
+        "model_source": "pytorch_mppi_tpu_torch/ops/batch_last.py",
+        "replaces": "pytorch_mppi_tpu/ops/pallas_rollout.py:1118",
+        "launches": runs["eager"]["launches"].get("generated_batched", 0),
+        "max_abs_err": row["max_abs_err"],
+        "ms": row["ms"],
+        "ms_source": "cuda_graph",
+        "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"],
+        "library_ms": None,
+        "ms_named_model": row["ms_named"],
+        "launches_graph_loop": runs["jit-loop"]["launches"].get("generated_batched", 0),
+        "command_median_ms": runs["eager"]["command_ms"],
+    }
+
+
 def card_line():
     try:
         smi = subprocess.run(
@@ -2676,7 +2911,7 @@ def main():
               f"spill stores in {sum(b > 0 for b in spills)}, up to {max(spills, default=0)} "
               f"bytes | nvcc -Xptxas -v output in {log_path}")
     join_generated_builds(gen_plan)
-    print(f"# build phase (the named library and phase 11's generated ones): "
+    print(f"# build phase (the named library and phases 11's and 12's generated ones): "
           f"{time.perf_counter() - START:.1f} s from the script's start")
 
     # -- 3. kernel against its plain version ----------------------------------
@@ -4516,6 +4751,10 @@ def main():
     stamp("11")
     gen_report = generated_models(dev, gen_plan, lq)
 
+    # -- 12. the examples --------------------------------------------------------
+    stamp("12")
+    example_report = example_phase(dev, gen_plan, lq)
+
     # -- 7. the kernels line and the last line ---------------------------------
     stamp("7")
     sources = {"mppi": ("fused_mppi MPPI (mppi_fused_partial<..., kMPPI>, merged in the kernel)",
@@ -4712,6 +4951,8 @@ def main():
     kernels[0]["launches_sharded_nccl"] = shard["nccl"]["sharded"]["launches"]["mppi"]
     kernels[3]["launches_sharded_gloo_rank0"] = world["batched operand"]["launches"]["batched"]
     kernels += generated_kernel_rows(gen_report, gen_plan["build_s"])
+    kernels.append(example_kernel_row(example_report))
+    kernels[-1]["build_s"] = gen_plan["build_s"].get("lq batched")
     print(f"# chip_smoke total: {time.perf_counter() - START:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
