@@ -60,7 +60,7 @@ the package is not beside it.  Phases, each fatal when it fails:
    tiles) and at K = 1,000 with 64 samples a block, then the moments through
    its cost, its costs against the transposed kernel's on one key and 50
    calls in a row;
-4. main paths: 500 closed-loop commands of ``MPPI``, ``SMPPI`` and
+4. main paths: 300 closed-loop commands of ``MPPI``, ``SMPPI`` and
    ``KMPPI`` on ``linear_quadratic`` at K = 10,000, T = 30 (``bench.py``'s
    flagship problem), fused (``use_pallas=True``, one launch a command) with
    the launch count and the goal checked, then the same on the plain torch
@@ -94,7 +94,7 @@ the package is not beside it.  Phases, each fatal when it fails:
    seed mode (twice the launches) and with stochastic dynamics on the plain
    path at N = 16, each held to the scenario's goal check; the crossover
    sweep of the batched kernel (N = 64,
-   K = 256 to 10,240); the ops-level kernels' loops at the flagship, 500
+   K = 256 to 10,240); the ops-level kernels' loops at the flagship, 300
    commands each: the round-1 solve in seed mode (1 launch a command) and
    JAX's "psampler" solve from port kernels (the sampler, the legacy rollout
    and weighted update: 3 launches), each held to its plain versions for one
@@ -142,10 +142,16 @@ the package is not beside it.  Phases, each fatal when it fails:
 8. the utilities (``deployment``): the deploy artifact of fused MPPI (also
    with four elites and the terminal cost), SMPPI and KMPPI at the
    flagship, of MPPI's legacy route, of MPPI on the learned model and of
-   ``MPPI_Batched`` in seed mode at N = 1,024, K = 16,384, each loaded in a
-   fresh process that imports only the package and replays 20 commands bit
-   for bit against the live controller, with the launch counters read
-   there and the artifact's command median beside the live one; a
+   ``MPPI_Batched`` in seed mode at N = 1,024, K = 16,384; with phase 11's
+   traced models in the kernels, of fused MPPI with the traced terminal
+   cost at the flagship, of ``MPPI_Batched`` in seed mode at N = 1,024, K =
+   16,384 on ``scenario_batch``'s plant and of the legacy route on the
+   step-dependent plant; and of fused MPPI with gradient refinement. Each
+   is loaded in a fresh process that imports only the package and replays
+   20 commands bit for bit against the live controller, with the launch
+   counters read there and the artifact's command median beside the live
+   one; a second fresh process with an empty kernel cache builds the traced
+   fused artifact's library from its program alone and replays it too; a
    checkpoint of fused MPPI with four elites restored there into a
    controller of another seed, whose next 10 commands, eager and in
    ``run_mppi_jit``'s graph loop, are the original's bit for bit;
@@ -216,6 +222,7 @@ the package is not beside it.  Phases, each fatal when it fails:
    batched pair), the card line, then the last line
    ``{"ok": true, "device": ...}``.
 """
+import atexit
 import contextlib
 import dataclasses
 import json
@@ -237,8 +244,10 @@ K, T, NX, NU = 10_000, 30, 2, 2
 NSP = T // 2  # KMPPI's default support points at the flagship
 # the flagship loops' commands, and the refinement loops' (REFINE_COMMANDS),
 # cut from 1,000 and 200 to keep the run inside its time limit with phase 11
-# on a slow host (a run at those depths took 1,135 s of the 1,200 s there)
-COMMANDS = 500
+# on a slow host (a run at those depths took 1,135 s of the 1,200 s there),
+# then from 500 to 300 to give back the time phase 8's traced artifacts take
+# (a run of 861 s at 500, about 1,145 s at a slow host's 1.33x)
+COMMANDS = 300
 REFINE_COMMANDS = 50
 WARMUP = 20
 LOOP_K = 500  # the closed loops of phase 6
@@ -298,6 +307,10 @@ WRAP_EDGE = 1e-4  # within this of ±pi the kernel and the plain version may wra
 # against the live controller, commands timed for the medians (after a
 # warm-up), and the commands a restored checkpoint continues for
 DEPLOY_COMMANDS, DEPLOY_TIMED, DEPLOY_WARMUP, CKPT_COMMANDS = 20, 200, 10, 10
+# the refinement artifact's steps and timed commands: its export traces the
+# refiner's backward pass through T steps (about 10 s a step count on a host
+# core), and a command runs some hundreds of kernels
+DEPLOY_REFINE_STEPS, DEPLOY_REFINE_TIMED = 1, 20
 # the tuning phase (10): benchmarks/tuning.py's sizes (toy2d, K = 1,024,
 # T = 15, R = 10 no-shift commands in each of M = 5 streams a candidate,
 # populations of 16, float32); TUNE_STEPS optimize_steps a tuner; the
@@ -369,7 +382,7 @@ for job in jobs["artifacts"]:
     launched = dict(FS.launches)
     np.save(job["actions"], torch.stack(acts).cpu().numpy())
     lat = []
-    for i in range(jobs["warmup"] + jobs["timed"]):
+    for i in range(jobs["warmup"] + job.get("timed", jobs["timed"])):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         solver.command(xs[-1])
@@ -408,6 +421,39 @@ torch.cuda.synchronize()
 np.savez(ck["actions"], eager=torch.stack(acts).cpu().numpy(), graph=graph_acts.cpu().numpy())
 report["checkpoint"] = dict(eager_launches=eager_launches, graph_launches=dict(FS.launches),
                             counter=ctrl._state.counter)
+json.dump(report, open(sys.argv[2], "w"))
+print("SERVED OK")
+"""
+
+
+# a serving host with a cold kernel cache (phase 8): it loads the traced fused
+# artifact with _build.BUILD_DIR pointed at an empty directory of its own, so
+# nvcc builds the generated library from the artifact's program alone, and
+# replays the live controller's commands
+COLD_CHILD = r"""
+import json, shutil, sys, tempfile, time
+from pathlib import Path
+import numpy as np
+import torch
+from pytorch_mppi_tpu_torch.ops import _build
+from pytorch_mppi_tpu_torch.ops import fused_solve as FS
+from pytorch_mppi_tpu_torch.utils import deploy
+
+job = json.load(open(sys.argv[1]))
+_build.BUILD_DIR = Path(tempfile.mkdtemp(prefix="cold-kernels-", dir=job["scratch"]))
+start = time.perf_counter()
+solver = deploy.load_solver(job["path"])
+xs = torch.from_numpy(np.load(job["states"])).to(solver.device)
+for name in FS.launches:
+    FS.launches[name] = 0
+acts = [solver.command(x) for x in xs]
+if solver.device.type == "cuda":
+    torch.cuda.synchronize()
+np.save(job["actions"], torch.stack(acts).cpu().numpy())
+report = dict(launches=dict(FS.launches), wall_s=time.perf_counter() - start,
+              build_s={str(k.id): k.build_seconds for k in solver.kernels},
+              built=sorted(p.name for p in _build.BUILD_DIR.iterdir()))
+shutil.rmtree(_build.BUILD_DIR)
 json.dump(report, open(sys.argv[2], "w"))
 print("SERVED OK")
 """
@@ -1303,17 +1349,28 @@ def learned_dynamics(dev, gen):
     return report
 
 
-def deployment(dev, lq, goal, mlp_params):
+def deployment(dev, lq, goal, mlp_params, plan):
     """Phase 8: the utilities on the card.
 
     * the deploy artifact: fused MPPI (also with 4 elites and the terminal
       cost), SMPPI and KMPPI at the flagship, MPPI on the legacy route,
       MPPI on ``fused_kernel_demo``'s learned model and ``MPPI_Batched`` in
-      seed mode at N = 1,024, K = 16,384, each exported after three
-      commands and loaded in a fresh process (``SERVE_CHILD``) that
-      replays DEPLOY_COMMANDS commands on the live controller's states: the
-      actions bit for bit the live controller's, the launch counters read
-      in the child; the artifact's command median against the live one;
+      seed mode at N = 1,024, K = 16,384; with the user's own code in the
+      kernels (phase 11's callables, whose generated libraries phase 2
+      built): fused MPPI at the flagship with its traced terminal cost,
+      ``MPPI_Batched`` in seed mode at N = 1,024, K = 16,384 on
+      ``scenario_batch``'s plant and the legacy route on the step-dependent
+      plant; and fused MPPI on the named model with gradient refinement.
+      Each is exported after three commands and loaded in a fresh process
+      (``SERVE_CHILD``) that replays DEPLOY_COMMANDS commands on the live
+      controller's states: the actions bit for bit the live controller's,
+      the launch counters read in the child (the generated ones move by
+      exactly the launches expected, no other); the artifact's command
+      median against the live one;
+    * a serving host with a cold kernel cache (``COLD_CHILD``), started in
+      the background as soon as the traced fused artifact exists and
+      joined at the end: it builds the generated library from the
+      artifact's program alone and replays the same commands bit for bit;
     * a checkpoint of fused MPPI with 4 elites after CKPT_COMMANDS
       commands, restored in the fresh process into a controller of
       another seed: its next commands, eagerly and in ``run_mppi_jit``'s
@@ -1340,8 +1397,11 @@ def deployment(dev, lq, goal, mlp_params):
 
     import numpy as np
 
+    phase_start = time.perf_counter()
     out_dir = Path(__file__).resolve().parent / "build" / "deploy"
     out_dir.mkdir(parents=True, exist_ok=True)
+    root = Path(__file__).resolve().parent
+    child_env = {**os.environ, "PYTHONPATH": str(root)}
     report = {"artifacts": {}}
 
     def reset_launches():
@@ -1352,8 +1412,8 @@ def deployment(dev, lq, goal, mlp_params):
     def only(**counts):
         return {name: counts.get(name, 0) for name in FS.launches}
 
-    def flagship(cls=MPPI, seed=42, **kw):
-        return cls(lq.dynamics, lq.running_cost, nx=NX, noise_sigma=torch.eye(NU, device=dev),
+    def flagship(cls=MPPI, seed=42, fns=(lq.dynamics, lq.running_cost), **kw):
+        return cls(*fns, nx=NX, noise_sigma=torch.eye(NU, device=dev),
                    num_samples=K, horizon=T, lambda_=1.0, seed=seed, device=dev, **kw)
 
     def lq_plant(x, a):
@@ -1384,7 +1444,12 @@ def deployment(dev, lq, goal, mlp_params):
     g.manual_seed(42)
     batch_x0 = torch.rand(BATCH_N, NX, generator=g, device=dev) * 4 - 4
     flag_x0 = torch.tensor([-3.0, -2.0], device=dev)
+    fns = plan["fns"]  # phase 11's callables, untagged: their kernels are generated
+    cold_name = "generated mppi fused, traced terminal"
     paths = {  # name: (controller, plant, start, launches of one command)
+        cold_name: (lambda: flagship(fns=fns["lq"], use_pallas=True,
+                                     terminal_final_cost=fns["terminal"]),
+                    lq_plant, flag_x0, dict(generated_mppi=1)),
         "mppi fused": (lambda: flagship(use_pallas=True), lq_plant, flag_x0, dict(mppi=1)),
         "mppi fused, 4 elites, terminal": (
             lambda: flagship(use_pallas=True, num_elites=ELITES, fused_artifacts=True,
@@ -1406,7 +1471,20 @@ def deployment(dev, lq, goal, mlp_params):
                                  num_envs=BATCH_N, num_samples=BATCH_K, horizon=T, lambda_=1.0,
                                  u_min=-ub, u_max=ub, seed=0, use_pallas="kernel_rng",
                                  device=dev), lq_plant, batch_x0, dict(batched=2)),
+        f"generated batched seed N={BATCH_N}": (
+            lambda: MPPI_Batched(*fns["lq"], nx=NX, noise_sigma=sigma_b, num_envs=BATCH_N,
+                                 num_samples=BATCH_K, horizon=T, lambda_=1.0, u_min=-ub,
+                                 u_max=ub, seed=0, use_pallas="kernel_rng", device=dev),
+            lq_plant, batch_x0, dict(generated_batched=2)),
+        "generated rollout, step-dependent": (
+            lambda: flagship(fns=fns["step"], use_pallas="rollout",
+                             step_dependent_dynamics=True),
+            lq_plant, flag_x0, dict(generated_rollout=1, weighted_update=1)),
+        "mppi fused, refinement": (
+            lambda: flagship(use_pallas=True, gradient_refinement_steps=DEPLOY_REFINE_STEPS),
+            lq_plant, flag_x0, dict(mppi=1)),
     }
+    cold = None
     jobs = {"artifacts": [], "warmup": DEPLOY_WARMUP, "timed": DEPLOY_TIMED, "device": str(dev)}
     live = {}
     for i, (name, (build, plant, x, per_command)) in enumerate(paths.items()):
@@ -1430,10 +1508,22 @@ def deployment(dev, lq, goal, mlp_params):
         check(FS.launches == expect, f"deploy [{name}] live launches {FS.launches}, expected "
               f"{expect}")
         np.save(out_dir / f"states{i}.npy", torch.stack(xs).cpu().numpy())
+        timed = DEPLOY_REFINE_TIMED if ctrl.config.gradient_refinement_steps else DEPLOY_TIMED
+        if name == cold_name:  # the cold-cache host builds beside the rest of the phase
+            cold_job = out_dir / "cold_job.json"
+            cold_job.write_text(json.dumps(dict(
+                path=str(path), states=str(out_dir / f"states{i}.npy"),
+                actions=str(out_dir / "cold_actions.npy"), scratch=str(out_dir))))
+            cold_log = open(out_dir / "cold.log", "w")
+            cold_start = time.perf_counter()
+            cold = subprocess.Popen([sys.executable, "-c", COLD_CHILD, str(cold_job),
+                                     str(out_dir / "cold.json")], cwd=root, env=child_env,
+                                    stdout=cold_log, stderr=subprocess.STDOUT, text=True)
+            atexit.register(lambda: cold.poll() is None and cold.kill())
         live[name] = dict(actions=torch.stack(acts).cpu().numpy(), expect=expect,
-                          median_ms=median_command_ms(ctrl, xs[-1]), export_s=export_s,
-                          mbytes=path.stat().st_size / 2**20)
-        jobs["artifacts"].append(dict(name=name, path=str(path),
+                          median_ms=median_command_ms(ctrl, xs[-1], n=timed),
+                          export_s=export_s, mbytes=path.stat().st_size / 2**20)
+        jobs["artifacts"].append(dict(name=name, path=str(path), timed=timed,
                                       states=str(out_dir / f"states{i}.npy"),
                                       actions=str(out_dir / f"actions{i}.npy")))
         del ctrl
@@ -1470,11 +1560,9 @@ def deployment(dev, lq, goal, mlp_params):
     # the fresh process
     job_file, result_file = out_dir / "jobs.json", out_dir / "served.json"
     job_file.write_text(json.dumps(jobs))
-    root = Path(__file__).resolve().parent
     wall = time.perf_counter()
     child = subprocess.run([sys.executable, "-c", SERVE_CHILD, str(job_file), str(result_file)],
-                           cwd=root, env={**os.environ, "PYTHONPATH": str(root)},
-                           capture_output=True, text=True, timeout=600)
+                           cwd=root, env=child_env, capture_output=True, text=True, timeout=600)
     child_s = time.perf_counter() - wall
     check(child.returncode == 0 and "SERVED OK" in child.stdout,
           f"the serving process failed: {child.stdout[-3000:]} {child.stderr[-3000:]}")
@@ -1555,6 +1643,32 @@ def deployment(dev, lq, goal, mlp_params):
           f"{med[True]['graph_step_ms']:.4f} ms against direct {med[False]['graph_step_ms']:.4f} ms"
           f" | the live path launches directly")
     report["live_route"] = dict(turns=turns, median=med)
+
+    # the cold-cache serving host, joined
+    cold_rc = cold.wait(timeout=600)
+    cold_log.close()
+    cold_out = (out_dir / "cold.log").read_text()
+    check(cold_rc == 0 and "SERVED OK" in cold_out,
+          f"the cold-cache serving process failed: {cold_out[-3000:]}")
+    cold_rep = json.loads((out_dir / "cold.json").read_text())
+    same = np.array_equal(np.load(out_dir / "cold_actions.npy"), live[cold_name]["actions"])
+    nvcc_s = [s for v in cold_rep["build_s"].values() for s in v.values()]
+    libs = [f for f in cold_rep["built"] if f.endswith(".so")]
+    print(f"# deploy cold cache [{cold_name}]: a fresh process with an empty kernel cache "
+          f"built {libs} from the artifact's program in {nvcc_s} s of nvcc; "
+          f"{DEPLOY_COMMANDS} commands bit for bit the live controller's: {same} | launches "
+          f"{ {k: v for k, v in cold_rep['launches'].items() if v} } | its wall "
+          f"{cold_rep['wall_s']:.1f} s (load, build, commands), joined "
+          f"{time.perf_counter() - cold_start:.1f} s after its start")
+    check(same, "deploy cold cache: the actions differ from the live controller's")
+    check(cold_rep["launches"] == live[cold_name]["expect"],
+          f"deploy cold cache: launched {cold_rep['launches']}")
+    check(len(nvcc_s) == 1 and len(libs) == 1 and all(
+        f.startswith("generated-") for f in cold_rep["built"]),
+          f"deploy cold cache: expected one generated library built, got {cold_rep}")
+    report["cold"] = dict(cold_rep, same=same, nvcc_s=nvcc_s[0] if nvcc_s else None)
+    report["phase_s"] = time.perf_counter() - phase_start
+    print(f"# phase 8 (deployment): {report['phase_s']:.1f} s")
     return report
 
 
@@ -2687,16 +2801,17 @@ def example_phase(dev, plan, lq_named):
     lib = _build_path_of(plan["models"]["lq"])
     runs = {}
     for name, extra in (("eager", []), ("jit-loop", ["--jit-loop"])):
-        before = len(BL._KERNELS)
+        before = set(BL._KERNELS)
         stats = {}
         reset()
         converged, N = scenario_batch.main(["--pod-scale", "--pallas"] + extra, device=dev,
                                            stats=stats)
         torch.cuda.synchronize()
         launched = {k: v for k, v in FS.launches.items() if v}
-        new = BL._KERNELS[before:]
-        reused = bool(new) and all(not k.build_seconds and _build_path_of(k.model) == lib
-                                   for k in new)
+        # the example's trace names phase 2's kernel (the same program and
+        # constants, so the same id) or a new one of the same header
+        new = [k for i, k in BL._KERNELS.items() if i not in before]
+        reused = all(not k.build_seconds and _build_path_of(k.model) == lib for k in new)
         print(f"# example [scenario_batch --pod-scale --pallas {name}] {converged}/{N} plants "
               f"within 0.5 after {EX_STEPS} steps, {stats['reached']}/{N} came within 0.5 "
               f"during the loop, mean distance over the last 10 steps {stats['settled']:.4f} "
@@ -4737,7 +4852,7 @@ def main():
 
     # -- 8. the utilities: deploy artifacts, checkpoints, timer -----------------
     stamp("8")
-    deployment(dev, lq, goal, mlp["params"])
+    deploy_report = deployment(dev, lq, goal, mlp["params"], gen_plan)
 
     # -- 9. sharding -------------------------------------------------------------
     stamp("9")
@@ -4953,6 +5068,22 @@ def main():
     kernels += generated_kernel_rows(gen_report, gen_plan["build_s"])
     kernels.append(example_kernel_row(example_report))
     kernels[-1]["build_s"] = gen_plan["build_s"].get("lq batched")
+    # the launches of phase 8's served artifacts whose kernels run the user's
+    # code (and refinement's kernel A), counted in the fresh process
+    served = {k: v["launches"] for k, v in deploy_report["artifacts"].items()}
+    by_name = {row["name"].split(" (")[0]: row for row in kernels}
+    kernels[0]["launches_served_refinement"] = served["mppi fused, refinement"]["mppi"]
+    by_name["weighted_partial"]["launches_served_generated_rollout"] = served[
+        "generated rollout, step-dependent"]["weighted_update"]
+    by_name["fused_rollout, generated step-dependent model"]["launches_served"] = served[
+        "generated rollout, step-dependent"]["generated_rollout"]
+    terminal_row = by_name["fused_mppi MPPI, generated model and traced terminal cost"]
+    terminal_row.update(
+        launches_served=served["generated mppi fused, traced terminal"]["generated_mppi"],
+        launches_served_cold_cache=deploy_report["cold"]["launches"]["generated_mppi"],
+        build_s_cold_cache=deploy_report["cold"]["nvcc_s"])
+    kernels[-1]["launches_served_seed_mode"] = served[
+        f"generated batched seed N={BATCH_N}"]["generated_batched"]
     print(f"# chip_smoke total: {time.perf_counter() - START:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -56,6 +56,22 @@ is dropped, and the traced program becomes a per-sample scalar program.
    with that header and the variants a route asks for (``ops/_build.
    build_generated``), on first use, into ``build/kernels/``; a failed
    build raises with the compiler's output.
+6. **Ids.** A launch names its kernel by ``LaunchSpec.model_id``, and a
+   deploy artifact's exported programs carry that integer
+   (``utils/deploy.py``).  So a generated kernel's id is derived from its
+   content: ``GENERATED`` plus a hash of its header and its float32
+   constants (:class:`GeneratedKernel`), and :func:`kernel_of` looks it
+   up in a registry of the process.  An id written at export then names
+   the same kernel in any process that registers the artifact's kernels
+   (:func:`load_kernel`, from :meth:`GeneratedKernel.describe`), with no
+   rewriting of the loaded programs: two artifacts, and a process's own
+   traces, share the registry without clashing, and loading an artifact
+   again finds every entry present.  The constants are part of the id
+   because the operators' CPU implementations evaluate the registered
+   entry's own program and constants (``kernel_models.plain_model``); the
+   library is named by the header alone (``ops/_build.generated_path``),
+   so kernels that differ only in their weights share it.  Two sources
+   that hash to one id raise, and never share an entry.
 
 A pair of callables that carries a named kernel model
 (:func:`~.kernel_models.find_kernel_model`) keeps it (:func:`kernel_model`);
@@ -64,6 +80,7 @@ the tracer is tried only where there is none.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import itertools
 import math
 import operator
@@ -180,6 +197,16 @@ class Program:
     def __init__(self):
         self.nodes: list = []
         self._ids: dict = {}
+
+    @classmethod
+    def from_nodes(cls, nodes) -> "Program":
+        """The program of ``nodes`` as :attr:`nodes` lists them (lists or
+        tuples: a deploy artifact carries them as JSON)."""
+        prog = cls()
+        for node in nodes:
+            prog._ids[tuple(node)] = len(prog.nodes)
+            prog.nodes.append(tuple(node))
+        return prog
 
     def add(self, op: str, kind: str, *args) -> int:
         key = (op, kind, *args)
@@ -1531,9 +1558,17 @@ def trace_model(config, dynamics: Callable, running_cost: Callable) -> Generated
     if n_ops > MAX_OPS:
         raise UnsupportedPrimitive(f"a program of {n_ops} scalar operations a step (the "
                                    f"bound is {MAX_OPS})")
-    consts = torch.tensor(pool or [0.0], dtype=torch.float64)
-    on = _evaluation_consts(consts)
-    nx = config.nx
+    return generated_model(prog, outputs, config.nx, config.nu,
+                           torch.tensor(pool or [0.0], dtype=torch.float64))
+
+
+def generated_model(prog: Program, outputs, nx: int, nu: int,
+                    consts64: torch.Tensor) -> GeneratedModel:
+    """The :class:`GeneratedModel` of a traced program: ``outputs`` the nx
+    next-state nodes, then the cost node; ``consts64`` its constants in
+    float64 (the kernels read them in float32)."""
+    outputs = tuple(outputs)
+    on = _evaluation_consts(consts64)
 
     def plain_dynamics(state, action, t=0):
         return _stack(prog.evaluate(list(outputs[:nx]), on(state), state, action, t), state)
@@ -1541,9 +1576,9 @@ def trace_model(config, dynamics: Callable, running_cost: Callable) -> Generated
     def plain_cost(state, action, t=0):
         return _broadcast(prog.evaluate([outputs[nx]], on(state), state, action, t)[0], state)
 
-    return GeneratedModel("generated", -1, nx, config.nu, consts.to(torch.float32),
+    return GeneratedModel("generated", -1, nx, nu, consts64.to(torch.float32),
                           plain_dynamics, plain_cost, program=prog, outputs=outputs,
-                          consts64=consts)
+                          consts64=consts64)
 
 
 def _evaluation_consts(consts64: torch.Tensor) -> Callable:
@@ -1577,14 +1612,20 @@ def trace_terminal(config, terminal_final_cost: Callable) -> GeneratedTerminal:
     if n_ops > MAX_OPS:
         raise UnsupportedPrimitive(f"a terminal cost of {n_ops} scalar operations (the bound "
                                    f"is {MAX_OPS})")
-    consts = torch.tensor(pool or [0.0], dtype=torch.float64)
-    on = _evaluation_consts(consts)
+    return generated_terminal(prog, out[0], nx, torch.tensor(pool or [0.0], dtype=torch.float64))
+
+
+def generated_terminal(prog: Program, output: int, nx: int,
+                       consts64: torch.Tensor) -> GeneratedTerminal:
+    """The :class:`GeneratedTerminal` of a traced program whose node
+    ``output`` is the cost; ``consts64`` as :func:`generated_model`."""
+    on = _evaluation_consts(consts64)
 
     def cost(state, action):
-        return _broadcast(prog.evaluate([out[0]], on(state), state, action, 0)[0], state)
+        return _broadcast(prog.evaluate([output], on(state), state, action, 0)[0], state)
 
-    return GeneratedTerminal("generated_terminal", nx, consts.to(torch.float32), cost,
-                             program=prog, output=out[0], consts64=consts)
+    return GeneratedTerminal("generated_terminal", nx, consts64.to(torch.float32), cost,
+                             program=prog, output=output, consts64=consts64)
 
 
 def supports_batch_last(fn: Callable, nx: int, nu: int, want: list, dtype=torch.float32,
@@ -1634,8 +1675,48 @@ def kernel_terminal(config, terminal_final_cost: Callable) -> Optional[KernelTer
 # ---------------------------------------------------------------------------
 
 _NAMED_STRUCTS = {0: "LinearQuadratic", 1: "Pendulum", 2: "Toy2D", 3: "ResidualMLP"}
-_KERNELS: list = []  # every GeneratedKernel of the process; its id is GENERATED + index
+ID_SPACE = 1 << 30  # a generated id is GENERATED + a 30-bit hash: an int32, as the kernels take it
+_KERNELS: dict = {}  # id -> the GeneratedKernel registered under it, in the order registered
 _BY_SOURCE: dict = {}
+
+
+def _header(model: KernelModel, terminal: Optional[GeneratedTerminal]) -> str:
+    """The C++ struct ``Generated`` of a model and a traced terminal cost
+    (or None) for ``csrc/fused_mppi.cu``."""
+    generated = isinstance(model, GeneratedModel)
+    n = max(model.nx, model.nu)
+    base = "" if generated else f" : {_NAMED_STRUCTS[model.model_id]}"
+    lines = [
+        "// A device model generated by pytorch_mppi_tpu_torch/ops/batch_last.py from",
+        "// the user's torch callables: one statement a node of the traced program.",
+        f"struct Generated{base} {{",
+        f"  static constexpr bool kTerminal = {'true' if terminal else 'false'};",
+        f"  static constexpr int kN = {n};  // the register arrays: max(nx, nu)",
+        _HELPERS,
+    ]
+    if generated:
+        prog = model.program
+        body, names = prog.emit(list(model.outputs[:model.nx]))
+        lines += ["  template <int N>",
+                  "  __device__ static void step(const float* c, float* x, const float* u, "
+                  "int, int, int t) {", *body,
+                  *[f"    x[{i}] = {nm};" for i, nm in enumerate(names)], "  }"]
+        body, names = prog.emit([model.outputs[model.nx]])
+        lines += ["  template <int N>",
+                  "  __device__ static float cost(const float* c, const float* x, "
+                  "const float* u, int, int, int t) {", *body,
+                  f"    return {names[0]};", "  }"]
+    if terminal:
+        body, names = terminal.program.emit([terminal.output])
+        lines += ["  template <int N>",
+                  "  __device__ static float terminal(const float* c, const float* x, "
+                  "const float* u, int, int) {", *body, f"    return {names[0]};", "  }"]
+    lines.append("};")
+    return "\n".join(lines) + "\n"
+
+
+def _f32_bytes(consts: torch.Tensor) -> bytes:
+    return consts.detach().to("cpu", torch.float32).contiguous().numpy().tobytes()
 
 
 class GeneratedKernel:
@@ -1643,14 +1724,22 @@ class GeneratedKernel:
     either is generated: the named model's struct or the generated
     model's program, and the generated terminal cost or the named
     ``quadratic_terminal`` (by ``p.terminal``) or none.  ``id`` is the
-    ``LaunchSpec.model_id`` its launches carry; :meth:`library` builds the
-    kernels of a variant."""
+    ``LaunchSpec.model_id`` its launches carry, a hash of its source and
+    its float32 constants (see the module docstring); :meth:`library`
+    builds the kernels of a variant."""
 
     def __init__(self, model: KernelModel, terminal: Optional[KernelTerminal]):
         self.model = model
         self.terminal = terminal if isinstance(terminal, GeneratedTerminal) else None
-        self.id = GENERATED + len(_KERNELS)
-        _KERNELS.append(self)
+        self._header = _header(model, self.terminal)
+        consts = [_f32_bytes(model.consts)]
+        if self.terminal is not None:
+            consts.append(_f32_bytes(self.terminal.consts))
+        self.source = (self._header, *consts)
+        digest = hashlib.sha256()
+        for part in (self._header.encode(), *consts):
+            digest.update(len(part).to_bytes(8, "little") + part)
+        self.id = GENERATED + int.from_bytes(digest.digest()[:8], "little") % ID_SPACE
         self._libraries: dict = {}
         self.build_seconds: dict = {}
 
@@ -1660,36 +1749,7 @@ class GeneratedKernel:
 
     def header(self) -> str:
         """The C++ struct ``Generated`` for ``csrc/fused_mppi.cu``."""
-        m = self.model
-        n = max(m.nx, m.nu)
-        base = "" if self.generated_model else f" : {_NAMED_STRUCTS[m.model_id]}"
-        lines = [
-            "// A device model generated by pytorch_mppi_tpu_torch/ops/batch_last.py from",
-            "// the user's torch callables: one statement a node of the traced program.",
-            f"struct Generated{base} {{",
-            f"  static constexpr bool kTerminal = {'true' if self.terminal else 'false'};",
-            f"  static constexpr int kN = {n};  // the register arrays: max(nx, nu)",
-            _HELPERS,
-        ]
-        if self.generated_model:
-            prog = m.program
-            body, names = prog.emit(list(m.outputs[:m.nx]))
-            lines += ["  template <int N>",
-                      "  __device__ static void step(const float* c, float* x, const float* u, "
-                      "int, int, int t) {", *body,
-                      *[f"    x[{i}] = {nm};" for i, nm in enumerate(names)], "  }"]
-            body, names = prog.emit([m.outputs[m.nx]])
-            lines += ["  template <int N>",
-                      "  __device__ static float cost(const float* c, const float* x, "
-                      "const float* u, int, int, int t) {", *body,
-                      f"    return {names[0]};", "  }"]
-        if self.terminal:
-            body, names = self.terminal.program.emit([self.terminal.output])
-            lines += ["  template <int N>",
-                      "  __device__ static float terminal(const float* c, const float* x, "
-                      "const float* u, int, int) {", *body, f"    return {names[0]};", "  }"]
-        lines.append("};")
-        return "\n".join(lines) + "\n"
+        return self._header
 
     def library(self, variant: int):
         """The loaded library of ``variant``'s kernels (``fused_solve``'s
@@ -1706,11 +1766,39 @@ class GeneratedKernel:
             self._libraries[variant] = lib
         return lib
 
+    def describe(self) -> dict:
+        """What rebuilds this kernel without the user's code, as JSON
+        values (:func:`load_kernel`): the generated model's program (its
+        nodes, the outputs, nx, nu, whether it reads the timestep, its
+        float64 constants), or the named model's id, sizes and float32
+        constants; and the traced terminal cost's program, or None."""
+        m, term = self.model, self.terminal
+        if self.generated_model:
+            uses_t = any(m.program.nodes[n][0] == "t" for n in m.program.live(m.outputs))
+            model = dict(nodes=[list(n) for n in m.program.nodes], outputs=list(m.outputs),
+                         nx=m.nx, nu=m.nu, uses_t=uses_t, consts64=m.consts64.tolist())
+        else:
+            model = dict(named=m.model_id, nx=m.nx, nu=m.nu, consts=m.consts.tolist())
+        terminal = None if term is None else dict(
+            nodes=[list(n) for n in term.program.nodes], output=term.output, nx=term.nx,
+            consts64=term.consts64.tolist())
+        return dict(id=self.id, model=model, terminal=terminal)
+
+
+def _register(kernel: GeneratedKernel) -> GeneratedKernel:
+    """The kernel registered under ``kernel.id``: ``kernel`` itself where
+    the id is new, else the one of the same source registered before."""
+    hit = _KERNELS.setdefault(kernel.id, kernel)
+    if hit.source != kernel.source:
+        raise RuntimeError(f"two generated kernels of different sources hash to the id "
+                           f"{kernel.id}; trace one of them again with other constants")
+    return hit
+
 
 def generated_kernel(model: KernelModel, terminal: Optional[KernelTerminal]):
     """The :class:`GeneratedKernel` of a model and a terminal cost where
-    either is generated, made once for the pair; None where both are named
-    (the named library runs them)."""
+    either is generated, made once for the pair and registered under its
+    id; None where both are named (the named library runs them)."""
     traced = terminal if isinstance(terminal, GeneratedTerminal) else None
     if not isinstance(model, GeneratedModel) and traced is None:
         return None
@@ -1719,6 +1807,7 @@ def generated_kernel(model: KernelModel, terminal: Optional[KernelTerminal]):
     hit = _BY_SOURCE.get(key)
     if hit is None or hit.model is not model or hit.terminal is not traced:
         hit = _BY_SOURCE[key] = GeneratedKernel(model, traced)
+        _register(hit)
     return hit
 
 
@@ -1730,10 +1819,36 @@ def launch_id(model: KernelModel, terminal: Optional[KernelTerminal] = None) -> 
 
 
 def kernel_of(model_id: int) -> GeneratedKernel:
-    """The generated kernel a launch's ``model_id`` names."""
-    i = model_id - GENERATED
-    if not 0 <= i < len(_KERNELS):
-        raise ValueError(f"no generated kernel has id {model_id}")
-    return _KERNELS[i]
+    """The generated kernel a launch's ``model_id`` names: traced in this
+    process, or loaded from a deploy artifact (:func:`load_kernel`)."""
+    kernel = _KERNELS.get(model_id)
+    if kernel is None:
+        raise ValueError(f"no generated kernel has id {model_id} (a deploy artifact's are "
+                         f"registered when utils/deploy.load_solver loads it)")
+    return kernel
 
 
+def load_kernel(desc: dict) -> GeneratedKernel:
+    """Register the kernel that :meth:`GeneratedKernel.describe` wrote, in a
+    process that holds none of the user's code, and return the kernel
+    registered under its id (one of the same source registered before is
+    kept: nothing new is registered).  Raises ValueError where the
+    description rebuilds to another id: this build emits another source
+    for the program than the exporter's did."""
+    from .kernel_models import plain_model
+
+    m, t = desc["model"], desc.get("terminal")
+    if "named" in m:
+        model = plain_model(int(m["named"]), torch.tensor(m["consts"], dtype=torch.float32),
+                            int(m["nx"]), int(m["nu"]))
+    else:
+        model = generated_model(Program.from_nodes(m["nodes"]), m["outputs"], int(m["nx"]),
+                                int(m["nu"]), torch.tensor(m["consts64"], dtype=torch.float64))
+    terminal = None if t is None else generated_terminal(
+        Program.from_nodes(t["nodes"]), int(t["output"]), int(t["nx"]),
+        torch.tensor(t["consts64"], dtype=torch.float64))
+    kernel = GeneratedKernel(model, terminal)
+    if kernel.id != desc["id"]:
+        raise ValueError(f"the generated kernel {desc['id']} rebuilds to the id {kernel.id}: "
+                         f"this build emits another source for its program (export it again)")
+    return _register(kernel)

@@ -870,9 +870,9 @@ def plain_kernel_a(spec: LaunchSpec, u_scale: float, lead, key, x0T, U2, base, o
     routes a CPU tensor.  Same results, the perturbed set None unless
     emitted."""
     model = KM.plain_model(spec.model_id, consts, spec.nx, spec.nu)
-    terminal = None if term is None else KM.plain_terminal(term, spec.nx)
-    if spec.model_id >= BL.GENERATED:
-        terminal = BL.kernel_of(spec.model_id).terminal or terminal
+    # a traced terminal cost is its kernel's; a named one is rebuilt from its constants
+    traced = BL.kernel_of(spec.model_id).terminal if spec.model_id >= BL.GENERATED else None
+    terminal = traced or (None if term is None else KM.plain_terminal(term, spec.nx))
     seed_or_bits = lead if lead is not None else tuple(key)
     if spec.rowmajor:
         from .rowmajor import rowmajor_solve_plain

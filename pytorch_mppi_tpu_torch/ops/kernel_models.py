@@ -325,8 +325,11 @@ def plain_model(model_id: int, consts: torch.Tensor, nx: int, nu: int) -> Kernel
     ``dynamics`` and ``running_cost`` compute what the constructors above
     give on the same constants, in the same operations.  The pendulum's
     constants are compiled into the kernel: it is ``models/pendulum.py``'s
-    model."""
-    if model_id >= GENERATED:  # a traced model of this process (ops/batch_last.py)
+    model.  A generated id (``GENERATED`` and above) names an entry of
+    ``ops/batch_last.py``'s registry: a model this process traced, or one
+    a loaded deploy artifact carried (``batch_last.load_kernel``); its
+    constants are part of the id, so ``consts`` is not read."""
+    if model_id >= GENERATED:  # a traced or loaded model (ops/batch_last.py)
         from .batch_last import kernel_of
 
         return kernel_of(model_id).model

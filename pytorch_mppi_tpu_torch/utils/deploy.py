@@ -33,14 +33,29 @@ Guarantees and limits:
 - shapes, dtypes, the route and every configuration flag are fixed at
   export (the kernel's tile and plant group too); the parameters,
   ``dynamics_params`` and the state stay runtime inputs, each settable;
+- kernels that run the user's own code (a device model or a terminal cost
+  traced by ``ops/batch_last.py``) travel as their programs: the file
+  lists every generated kernel the two programs launch
+  (``GeneratedKernel.describe``), and :func:`load_solver` registers each
+  in the serving process (``batch_last.load_kernel``).  A generated id is
+  a hash of the kernel's source and constants, so the ids the loaded
+  programs carry name these entries with no rewriting; on the CPU the
+  operators evaluate the rebuilt program, on the card ``nvcc`` builds its
+  library from it at the first launch (a warm ``build/kernels/`` reuses
+  the exporter's, named by the same header).  No compiled code goes into
+  the file, as JAX's serving host compiles the StableHLO it loads;
+- gradient refinement exports: ``torch.export`` records the
+  ``torch.autograd.grad`` of the refiner in the body;
 - an artifact exported on the card runs on the card, and loading it where
   there is no card raises: it is never moved to the CPU;
 - a live ``info`` payload raises a ValueError (the exported body takes
-  ``info=None``), a file of another version a ValueError;
-- stochastic dynamics (their per-step generators are arguments of the
-  user's code) and gradient refinement (``torch.autograd`` inside the body)
-  cannot be exported yet: :func:`export_solver` raises
-  ``NotImplementedError`` (ROADMAP.md Queue 1 item 10).
+  ``info=None``), a file of a version this build does not read a
+  ValueError (it reads versions 1, without kernels, and 2);
+- stochastic dynamics cannot be exported yet (their per-step generators
+  are arguments of the user's code, which ``torch.export`` can neither take
+  as inputs nor replay; ROADMAP.md Queue 1 item 10), nor a controller with
+  a mesh (its command calls collectives; item 12b): :func:`export_solver`
+  raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -53,6 +68,7 @@ import numpy as np
 import torch
 
 from ..config import Artifacts, MPPIConfig
+from ..ops import batch_last as BL
 from ..ops import fused_solve as FS
 from ..ops import library as _library
 from ..ops.solve import CommandStreams
@@ -60,8 +76,10 @@ from . import checkpoint as _ckpt
 
 logger = logging.getLogger(__name__)
 
-_FORMAT_VERSION = 1
-_UNEXPORTABLE = "ROADMAP.md Queue 1 item 10"
+_FORMAT_VERSION = 2
+_READS = (1, 2)  # version 1 carries no generated kernels
+# the operators whose launches name a device model, and the argument that does
+_MODEL_ARG = {"kernel_a": "spec", "batched": "spec", "rollout": "model_id"}
 
 
 def _rebuild(tree, tensors):
@@ -134,6 +152,13 @@ class ServingSolver:
         """The two ``torch.export.ExportedProgram``s: with the shift, without."""
         return self._programs[True], self._programs[False]
 
+    @property
+    def kernels(self) -> tuple:
+        """The generated kernels the programs launch, as registered in this
+        process (``ops/batch_last.GeneratedKernel``; none for an artifact of
+        named models)."""
+        return tuple(BL.kernel_of(d["id"]) for d in self.meta.get("kernels", ()))
+
     def command(self, x0, shift_nominal_trajectory: bool = True):
         """One MPC solve; threads the state exactly as the live controller
         does."""
@@ -163,25 +188,37 @@ def _route(ctrl) -> str:
     return "rollout" if ctrl.use_pallas == "rollout" else "fused"
 
 
-def _generated(ctrl) -> bool:
-    """Whether ``ctrl``'s kernels run a traced model or terminal cost: a
-    kernel route whose callables carry no named kernel model, or whose
-    ``terminal_final_cost`` is not a named kernel terminal cost."""
-    if not ctrl._fns.fused:
-        return False
-    from ..ops.kernel_models import find_kernel_model, find_kernel_terminal
-
-    term = getattr(ctrl, "terminal_final_cost", None)
-    return (find_kernel_model(ctrl.F, ctrl.running_cost) is None
-            or (term is not None and find_kernel_terminal(term) is None))
+def _launched_kernels(programs) -> list:
+    """The generated kernels (``ops/batch_last.py``) that the programs'
+    operator nodes launch, by id: the ``LaunchSpec.model_id`` of kernel A's
+    and the batched pair's, the rollout's ``model_id``."""
+    ids = set()
+    for program in programs:
+        for node in program.graph.nodes:
+            name = str(node.target).split(".")
+            if node.op != "call_function" or name[0] != _library.NAMESPACE \
+                    or name[1] not in _MODEL_ARG:
+                continue
+            arg = _MODEL_ARG[name[1]]
+            at = [a.name for a in node.target._schema.arguments].index(arg)
+            value = node.args[at] if at < len(node.args) else node.kwargs[arg]
+            # a spec is LaunchSpec(variant, model_id, ...)
+            model_id = int(value[1] if arg == "spec" else value)
+            if model_id >= BL.GENERATED:
+                ids.add(model_id)
+    return sorted(ids)
 
 
 def export_solver(ctrl, path: Optional[str] = None, x0_example=None) -> ServingSolver:
     """Export ``ctrl``'s command (+ current params/state) for serving.
 
-    :param ctrl: a live ``MPPI``/``SMPPI``/``KMPPI``/``MPPI_Batched``, on
-        any route (the plain path, the fused kernel, the legacy pair, the
-        batched pair).
+    :param ctrl: a live ``MPPI``/``SMPPI``/``KMPPI``/``MPPI_Batched`` on
+        the plain path or a kernel route (the fused kernel, the legacy
+        pair, the batched pair), with a named device model or one traced
+        from its callables, a traced terminal cost, elites, iterations or
+        gradient refinement.  Stochastic dynamics (ROADMAP.md Queue 1 item
+        10) and a mesh (item 12b) raise ``NotImplementedError``; a live
+        ``info`` payload a ValueError.
     :param path: optional ``.npz`` destination (written with the same
         self-describing format as ``utils.checkpoint``).
     :param x0_example: example state for the shapes; default zeros of
@@ -200,18 +237,11 @@ def export_solver(ctrl, path: Optional[str] = None, x0_example=None) -> ServingS
         raise NotImplementedError(
             "export_solver cannot export a controller with a mesh yet (its command calls "
             "collectives); see ROADMAP.md Queue 1 item 12b")
-    if _generated(ctrl):
-        raise NotImplementedError(
-            "export_solver cannot export a controller whose kernels run a device model traced "
-            "from its callables (ops/batch_last.py) yet: the exported operators rebuild a "
-            "model from its id and constants alone, and a traced model also needs its "
-            "program; see ROADMAP.md Queue 1 item 10c")
     config = ctrl.config
-    if config.stochastic_dynamics or config.gradient_refinement_steps:
-        what = ("stochastic dynamics (their per-step generators are arguments of the "
-                "dynamics)" if config.stochastic_dynamics else
-                "gradient refinement (torch.autograd runs inside the command)")
-        raise NotImplementedError(f"export_solver cannot export {what} yet; see {_UNEXPORTABLE}")
+    if config.stochastic_dynamics:
+        raise NotImplementedError(
+            "export_solver cannot export stochastic dynamics yet (their per-step generators "
+            "are arguments of the dynamics); see ROADMAP.md Queue 1 item 10")
     batched = isinstance(ctrl, _c.MPPI_Batched)
     takes_info = not batched
     fns, device = ctrl._fns, ctrl.d
@@ -246,6 +276,7 @@ def export_solver(ctrl, path: Optional[str] = None, x0_example=None) -> ServingS
         "takes_info": takes_info,
         "torch_version": torch.__version__,
         "artifacts": module.artifacts,
+        "kernels": [BL.kernel_of(i).describe() for i in _launched_kernels(programs.values())],
         "kernel_keys": fns.streams.kernel_keys,
         "noise": fns.streams.noise,
         "streams": dict(nx=config.nx, nu=config.nu, K=config.K, T=config.T,
@@ -270,19 +301,22 @@ def export_solver(ctrl, path: Optional[str] = None, x0_example=None) -> ServingS
 def load_solver(path: str) -> ServingSolver:
     """Load an :func:`export_solver` artifact.  Requires no user code: the
     dynamics and costs are operations of the programs, the kernels
-    operators that importing this package registered.  An artifact
-    exported on the card needs a card."""
+    operators that importing this package registered, and the generated
+    kernels the file carries are registered here (``batch_last.
+    load_kernel``).  An artifact exported on the card needs a card."""
     tree = _ckpt.load(path)
     meta = json.loads(tree["meta"])
-    if meta.get("version") != _FORMAT_VERSION:
+    if meta.get("version") not in _READS:
         raise ValueError(
             f"unsupported deploy-artifact version {meta.get('version')!r} "
-            f"(this build reads version {_FORMAT_VERSION})")
+            f"(this build reads versions {', '.join(map(str, _READS))})")
     device = torch.device(meta["device"])
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"this artifact was exported on {device} and runs there; no CUDA device is "
             f"available (it is never moved to the CPU: export it on the CPU to serve there)")
+    for desc in meta.get("kernels", ()):
+        BL.load_kernel(desc)
     programs = [torch.export.load(io.BytesIO(tree[name].numpy().tobytes()))
                 for name in ("blob_shift", "blob_no_shift")]
     on = (_ckpt.map_tensors(tree[k], lambda t: t.to(device))

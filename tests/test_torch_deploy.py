@@ -443,13 +443,9 @@ class TestOperators:
 
 
 class TestRefusals:
-    @pytest.mark.parametrize("what", ["stochastic", "refinement"])
+    @pytest.mark.parametrize("what", ["stochastic"])
     def test_not_exportable_yet(self, tmp_path, what):
-        if what == "stochastic":
-            ctrl = _mk(dynamics=lambda s, a, rng: linear_dynamics(s, a),
-                       stochastic_dynamics=True)
-        else:
-            ctrl = _mk(gradient_refinement_steps=2)
+        ctrl = _mk(dynamics=lambda s, a, rng: linear_dynamics(s, a), stochastic_dynamics=True)
         with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 10"):
             deploy.export_solver(ctrl, str(tmp_path / "x.npz"))
 

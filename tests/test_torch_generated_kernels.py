@@ -410,13 +410,25 @@ class TestRouting:
         with pytest.raises(RuntimeError, match="the compiler refused it"):
             FS.library_of(kernel.id, FS.MPPI)
 
-    def test_export_refuses_a_generated_model(self):
+    def test_export_refuses_a_generated_model(self, tmp_path):
+        """The controller whose kernel runs a traced model, once refused,
+        exports: the file carries the traced program, and the loaded
+        artifact replays the live controller bit for bit (a fresh process
+        does too: ``tests/test_torch_deploy_traced.py``)."""
         from pytorch_mppi_tpu_torch.utils import deploy
 
         ctrl = P.MPPI(t_lin, t_quad, NX, torch.eye(NU), num_samples=32, horizon=4,
                       device="cpu", use_pallas=True)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 10c"):
-            deploy.export_solver(ctrl)
+        path = str(tmp_path / "generated.npz")
+        deploy.export_solver(ctrl, path)
+        solver = deploy.load_solver(path)
+        (kernel,) = solver.kernels
+        assert kernel.generated_model and kernel.id >= BL.GENERATED
+        x = torch.tensor([-3.0, -2.0])
+        for _ in range(3):
+            a, b = ctrl.command(x), solver.command(x)
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+            x = t_lin(x[None], a[None])[0]
 
 
 # ---------------------------------------------------------------------------
