@@ -132,7 +132,22 @@ the package is not beside it.  Phases, each fatal when it fails:
    each ending with |angle| < 0.5; SMPPI and KMPPI fused), a
    ``run_mppi_jit`` graph loop of the fused and the plain route equal to the
    eager loop bit for bit over 20 steps, and ``pendulum_approximate`` at its
-   JAX sizes (retraining through ``dynamics_params``, the plain path);
+   JAX sizes (retraining through ``dynamics_params``, the plain path); the
+   batched pair with the model (``batched_partial<ResidualMLP, 2, ...>``)
+   against its plain version at N = 16, K = 10,240 in bits and seed mode
+   and at N = 256, K = 4,096 in operand mode (the same tolerance and
+   count), alone at the main path's shape, and on ``MPPI_Batched``'s main
+   path (64 pendulums from angles pi ± 0.5, K = 10,000, 150 commands with
+   one pair a command and no warning, at least 90 % ending with |angle| <
+   0.5; its graph loop bit for bit); the N = 8 instantiations with a
+   learned car's network ([9, 32, 32, 7], nx = 7, nu = 2, seeded random
+   weights) against their plain versions (kernel A's three variants and
+   the rollout at K = 10,000, the batched pair at N = 16), timed beside the
+   nx = 2 model's, and 30 commands of each of its five routes with exact
+   launch counts; and the trained network passed untagged, traced by the
+   dynamics bridge into kernel A and the batched pair (their libraries
+   built in phase 2), against their plain versions and timed beside the
+   named instantiations in turns;
 5. swing-up: the pendulum with ``use_pallas=True``, 150 steps;
 6. closed loops through the kernels: the ``tests/test_mppi.py`` LQ problem
    (KMPPI reaches the goal, SMPPI stays finite), the toy2d comparison of
@@ -217,9 +232,10 @@ the package is not beside it.  Phases, each fatal when it fails:
    ``elite_reuse`` and ``deploy_serving`` at their JAX tests' sizes and
    ``gradient_refinement`` at one seed of its test's two, with those tests'
    checks; ``smooth_mppi``'s three rows finite after 20 steps;
-7. the ``kernels`` line (eight kernels, the residual MLP's four
-   instantiations, the generated models' eight and phase 12's generated
-   batched pair), the card line, then the last line
+7. the ``kernels`` line (eight kernels, the residual MLP's ten
+   instantiations with each build part's ``nvcc`` seconds and the traced
+   network's times beside them, the generated models' eight and phase 12's
+   generated batched pair), the card line, then the last line
    ``{"ok": true, "device": ...}``.
 """
 import atexit
@@ -246,8 +262,10 @@ NSP = T // 2  # KMPPI's default support points at the flagship
 # cut from 1,000 and 200 to keep the run inside its time limit with phase 11
 # on a slow host (a run at those depths took 1,135 s of the 1,200 s there),
 # then from 500 to 300 to give back the time phase 8's traced artifacts take
-# (a run of 861 s at 500, about 1,145 s at a slow host's 1.33x)
-COMMANDS = 300
+# (a run of 861 s at 500, about 1,145 s at a slow host's 1.33x), then to 200
+# for phase 4e's batched and nx = 7 MLP checks and the traced network's two
+# libraries (a run of 869 s at 300, about 1,156 s at 1.33x)
+COMMANDS = 200
 REFINE_COMMANDS = 50
 WARMUP = 20
 LOOP_K = 500  # the closed loops of phase 6
@@ -303,6 +321,24 @@ MLP_K, MLP_T, MLP_COMMANDS = 10_000, 30, 150
 # the kernel's arithmetic differed by up to 1.1e-4 relative at this shape)
 MLP_RTOL, MLP_ATOL = 2e-4, 1e-4
 WRAP_EDGE = 1e-4  # within this of ±pi the kernel and the plain version may wrap apart
+# the residual MLP in the batched pair (phase 4e): against its plain version
+# at N = 16, K = 10,240 (bits and seed mode) and N = 256, K = 4,096 (operand
+# mode); the batched main path, MLP_MAIN_N pendulums from angles spread over
+# pi ± 0.5, MLP_COMMANDS commands, of which at least MLP_MAIN_FRACTION must
+# end with |angle| < 0.5
+MLP_BATCH_N, MLP_BATCH_K = 16, 10_240
+MLP_WIDE_N, MLP_WIDE_K = 256, 4096
+MLP_MAIN_N, MLP_MAIN_FRACTION = 64, 0.9
+# the residual MLP at nx = 7 (phase 4e): a learned car's network, [9, 32, 32,
+# 7] (nu = 2, the heading, dimension 2, wrapped; the quadratic cost toward
+# CAR_GOAL), with seeded random weights whose last layer is scaled by
+# CAR_STEP (a learned model's step is small); CAR_COMMANDS commands of each
+# route on the model as its own plant count its N = 8 instantiations'
+# launches
+CAR_SIZES, CAR_NX, CAR_NU, CAR_STEP = [9, 32, 32, 7], 7, 2, 0.1
+CAR_GOAL = (1.0, -1.0, 3.0, 0.5, 1.5, -0.5, 0.25)
+CAR_X0 = (0.5, -0.3, 2.9, 0.1, 1.0, -0.2, 0.4)
+CAR_COMMANDS = 30
 # the deployment phase (8): commands each artifact replays in a fresh process
 # against the live controller, commands timed for the medians (after a
 # warm-up), and the commands a restored checkpoint continues for
@@ -730,6 +766,18 @@ def graph_ms(fn, iters):
     return a.elapsed_time(b) / iters
 
 
+def in_turns(fns, iters=20):
+    """Each callable's ``graph_ms``, read in turns forward then backward and
+    averaged: the S sweeps hold the rule's S within 10 % of the best, and one
+    reading of a kernel of a few µs moves by more than that (the rollout at
+    K = 1,000 once read 0.004138 ms at S = 32 on an H100 80GB HBM3 at 700 W,
+    in a run where every S read 15-29 % above the run before)."""
+    ms = {k: [] for k in fns}
+    for k in [*fns, *reversed(fns)]:
+        ms[k].append(graph_ms(fns[k], iters))
+    return {k: statistics.mean(v) for k, v in ms.items()}
+
+
 def breakdown(name, ctrl, step, x, n=50):
     """Where a command's time goes: device kernels per command from the
     profiler, and the device's idle share of the host-clock window."""
@@ -1065,30 +1113,91 @@ def ptxas_entries(log):
 
 def wrap_edge(model, perturbed, x0T, idx, T_, nu, u_scale=1.0):
     """Of the samples ``idx``, those whose plain rollout over their (D, K)
-    ``perturbed`` actions came within WRAP_EDGE of ±π (the wrapped angle of
-    the residual MLP's state dimension 0) at some step: a sample there may
-    take the other branch of the wrap in the kernel, its state then differing
+    ``perturbed`` actions came within WRAP_EDGE of ±π (a wrapped state
+    dimension of the residual MLP) at some step: a sample there may take
+    the other branch of the wrap in the kernel, its state then differing
     by 2π; and each sample's least distance."""
+    from pytorch_mppi_tpu_torch.ops.kernel_models import mlp_header
+
+    dims = list(mlp_header(model.consts)["wrap"])
     st = x0T.T[idx]
     dist = torch.full((idx.numel(),), math.inf, device=st.device)
-    for t in range(T_):
+    for t in range(T_ if dims else 0):
         st = model.dynamics(st, perturbed[t * nu:(t + 1) * nu, idx].T * u_scale)
-        dist = torch.minimum(dist, math.pi - st[:, 0].abs())
+        dist = torch.minimum(dist, (math.pi - st[:, dims].abs()).amin(dim=1))
     return idx[dist < WRAP_EDGE], dist
+
+
+def batched_mlp_agree(model, solve, lead, rest, T_, nu):
+    """The batched pair with a residual MLP against its plain version on the
+    same inputs, under the MLP's tolerance: a sample of a plant beyond it
+    is excused only where its plain rollout came within WRAP_EDGE of the
+    wrap (the plant's perturbed actions rebuilt as the plain version draws
+    them); m, s and delta/s as ``agree``.  Returns ``(ok, cost error,
+    update error, samples beyond, of them at the wrap)``."""
+    from pytorch_mppi_tpu_torch.ops import fused_solve as FS
+
+    x0T, U2T, op, mu, lo, hi, aT, lam = rest
+    dk, msk, ck = solve(lead, *rest)
+    torch.cuda.synchronize()
+    dp, msp, cp = solve.plain(lead, *rest)
+    N_, K_ = cp.shape
+    beyond = (ck - cp).abs() > MLP_ATOL + MLP_RTOL * cp.abs()
+    excused = torch.zeros_like(beyond)
+    if bool(beyond.any()):
+        noise = (lead[:, :K_] if solve.noise_operand else
+                 FS._noise(lead, T_ * nu, K_, solve.pair_block, bool(solve.spec.antithetic), op,
+                           mu, x0T.device))
+        for n in beyond.any(dim=1).nonzero().flatten().tolist():
+            pert = torch.clamp(U2T[:, n, None] + noise, lo[:, None], hi[:, None])
+            edge, _ = wrap_edge(model, pert, x0T[:, n, None].expand(-1, K_),
+                                beyond[n].nonzero().flatten(), T_, nu)
+            excused[n, edge] = True
+    ok, c_err, u_err, _ = agree(ck, cp, dk / msk[1], dp / msp[1], float(lam), msk[0], msp[0],
+                                msk[1], msp[1], rtol=MLP_RTOL, atol=MLP_ATOL, excused=excused)
+    ok = ok and all(bool(torch.isfinite(v).all()) for v in (dk, msk, ck))
+    return ok, c_err, u_err, int(beyond.sum()), int(excused.sum())
+
+
+def learned_car(dev):
+    """Phase 4e's residual MLP at nx = 7: ``CAR_SIZES`` with seeded random
+    weights (``mlp_init``), the last layer scaled by ``CAR_STEP``, the
+    heading (dimension 2) wrapped, the quadratic cost toward ``CAR_GOAL``."""
+    from pytorch_mppi_tpu_torch.models import mlp_init
+    from pytorch_mppi_tpu_torch.ops.kernel_models import residual_mlp_model
+
+    params = mlp_init(CAR_SIZES, torch.Generator().manual_seed(19), torch.float32, dev)
+    W, b = params[-1]
+    params[-1] = (W * CAR_STEP, b * CAR_STEP)
+    return residual_mlp_model(params, CAR_NX, CAR_NU, angle_wrap_dims=(2,), cost="quadratic",
+                              goal=CAR_GOAL)
+
+
+def untagged(model):
+    """A kernel model's plain functions as the user's own callables, which
+    carry no kernel model: the dynamics bridge traces them."""
+    return (lambda s, u: model.dynamics(s, u), lambda s, u: model.running_cost(s, u))
 
 
 def learned_dynamics(dev, gen):
     """Phase 4e: the residual MLP in the kernels (``examples/
     fused_kernel_demo.py``'s problem): its ``ResidualMLP`` instantiations
     against their plain versions, the kernels alone, the main path, a
-    ``run_mppi_jit`` graph loop and ``pendulum_approximate``.  Returns the
-    rows for the ``kernels`` line and PERF.md."""
-    from pytorch_mppi_tpu_torch import KMPPI, MPPI, SMPPI, RBFKernel, run_mppi_jit
+    ``run_mppi_jit`` graph loop and ``pendulum_approximate``; the batched
+    pair with the model against its plain version, alone and on
+    ``MPPI_Batched``'s main path with its graph loop; the N = 8
+    instantiations with a learned car's network (``learned_car``) against
+    their plain versions, alone and in short loops; and the trained network
+    passed untagged, traced by the dynamics bridge into kernel A and the
+    batched pair, beside the named instantiations.  Returns the rows for the
+    ``kernels`` line and PERF.md."""
+    from pytorch_mppi_tpu_torch import KMPPI, MPPI, SMPPI, MPPI_Batched, RBFKernel, run_mppi_jit
     from pytorch_mppi_tpu_torch.config import MPPIConfig
     from pytorch_mppi_tpu_torch.examples import fused_kernel_demo as FKD
     from pytorch_mppi_tpu_torch.examples import pendulum_approximate
-    from pytorch_mppi_tpu_torch.models import pendulum_dynamics
+    from pytorch_mppi_tpu_torch.models import angle_normalize, pendulum_dynamics
     from pytorch_mppi_tpu_torch.ops import _build
+    from pytorch_mppi_tpu_torch.ops import batch_last as BL
     from pytorch_mppi_tpu_torch.ops import fused_solve as FS
     from pytorch_mppi_tpu_torch.ops import legacy as LG
     from pytorch_mppi_tpu_torch.ops import solve as PS
@@ -1098,11 +1207,12 @@ def learned_dynamics(dev, gen):
         for name in FS.launches:
             FS.launches[name] = 0
 
-    report = {"cases": {}, "timed": {}, "loops": {}}
+    report = {"cases": {}, "timed": {}, "loops": {}, "max_err": {},
+              "car": {"cases": {}, "timed": {}, "loops": {}, "max_err": {}}}
     check(not torch.backends.cuda.matmul.allow_tf32
           and torch.get_float32_matmul_precision() == "highest",
           "the plain versions' float32 products must not run in TF32")
-    # the new instantiation's registers, spills and stack (its activations
+    # the instantiations' registers, spills and stack (their activations
     # live in local memory) from the build's log
     log = _build.library_path().with_suffix(".log")
     entries = ptxas_entries(log.read_text()) if log.is_file() else []
@@ -1117,121 +1227,290 @@ def learned_dynamics(dev, gen):
     params, loss = FKD.train_model(device=dev)
     torch.cuda.synchronize()
     model = FKD.kernel_model(params)
+    car = learned_car(dev)
     report["params"] = params  # for the deployment phase
     print(f"# learned model [3, 32, 32, 2]: loss {loss:.5f} after 300 full-batch epochs on 8,192 "
           f"transitions, {time.perf_counter() - wall:.1f} s on the card")
     check(math.isfinite(loss) and loss < 0.1, f"the learned model did not train: loss {loss}")
 
-    # kernel A's three variants against their plain versions at the demo's
-    # shape, bits and seed mode, with the perturbed actions emitted
-    K_, T_, nu = MLP_K, MLP_T, 1
-    D = T_ * nu
+    K_, T_ = MLP_K, MLP_T
     nsp = T_ // 2
-    x0T = torch.tensor([math.pi, 1.0], device=dev)[:, None].expand(2, K_)
-    full = lambda v, n=D: torch.full((n,), v, device=dev)  # noqa: E731
-    lam = torch.tensor(1.0, device=dev)
-    U2 = torch.randn(D, generator=gen, device=dev) * 0.5
-    a_flat = (U2 / 10.0).contiguous()  # lambda U sigma^-1 at sigma = 10
-    interp, _ = interpolation_operators(RBFKernel(2.0), T_, nsp, torch.float32, device=dev)
-    operands = {
-        "mppi": (x0T, U2, full(math.sqrt(10.0)), full(0.0), full(-2.0), full(2.0), a_flat, lam),
-        "smppi": (x0T, U2, torch.randn(D, generator=gen, device=dev) * 0.5,
-                  full(math.sqrt(10.0)), full(0.0), full(-2.0), full(2.0), full(-2.0), full(2.0),
-                  a_flat, lam, torch.tensor(1.0, device=dev), torch.tensor(1.0, device=dev)),
-        "kmppi": (x0T, U2, torch.randn(nsp, generator=gen, device=dev) * 0.5,
-                  full(math.sqrt(10.0), nsp), full(0.0, nsp), full(-2.0, nsp), full(2.0, nsp),
-                  full(-2.0), full(2.0), a_flat, interp.contiguous(), lam),
-    }
     factories = {"mppi": FS.make_transposed_fused_solve, "smppi": FS.make_transposed_smppi_solve,
                  "kmppi": FS.make_transposed_kmppi_solve}
 
-    def config(variant):
-        return MPPIConfig(nx=2, nu=nu, K=K_, T=T_, diag_sigma=True,
+    def config(variant, nx=2, nu=1):
+        return MPPIConfig(nx=nx, nu=nu, K=K_, T=T_, diag_sigma=True,
                           num_support_pts=nsp if variant == "kmppi" else 0,
                           smppi=variant == "smppi")
 
+    def operands_of(nx, nu, x0, sigma):
+        """Kernel A's operands for each variant at the demo's shape: every
+        sample from ``x0``, a nominal U of scale 0.5, the action cost
+        lambda U sigma^-2 (lambda = 1), the drawn rows' and the actions'
+        bounds ±2."""
+        D, R_k = T_ * nu, nsp * nu
+        x0T = torch.tensor(x0, device=dev)[:, None].expand(nx, K_)
+        full = lambda v, n=D: torch.full((n,), v, device=dev)  # noqa: E731
+        lam = torch.tensor(1.0, device=dev)
+        U2 = torch.randn(D, generator=gen, device=dev) * 0.5
+        a_flat = (U2 / sigma ** 2).contiguous()
+        interp, _ = interpolation_operators(RBFKernel(2.0), T_, nsp, torch.float32, device=dev)
+        Wt = torch.kron(interp, torch.eye(nu, device=dev)).contiguous()
+        one = torch.tensor(1.0, device=dev)
+        return x0T, {
+            "mppi": (x0T, U2, full(sigma), full(0.0), full(-2.0), full(2.0), a_flat, lam),
+            "smppi": (x0T, U2, torch.randn(D, generator=gen, device=dev) * 0.5, full(sigma),
+                      full(0.0), full(-2.0), full(2.0), full(-2.0), full(2.0), a_flat, lam, one,
+                      one),
+            "kmppi": (x0T, U2, torch.randn(R_k, generator=gen, device=dev) * 0.5,
+                      full(sigma, R_k), full(0.0, R_k), full(-2.0, R_k), full(2.0, R_k),
+                      full(-2.0), full(2.0), a_flat, Wt, lam),
+        }
+
+    shapes = {"residual_mlp": (model, 2, 1, [math.pi, 1.0], math.sqrt(10.0), report),
+              "car [9, 32, 32, 7]": (car, CAR_NX, CAR_NU, list(CAR_X0), 1.0, report["car"])}
+    ops_of = {label: operands_of(nx, nu, x0, sig)
+              for label, (_, nx, nu, x0, sig, _) in shapes.items()}
+
+    # kernel A's three variants against their plain versions at the demo's
+    # shape, bits and seed mode, with the perturbed actions emitted; the
+    # legacy rollout on clamped actions of the demo's scale
     print(f"# kernel vs plain [residual MLP]: cost rtol {MLP_RTOL} atol {MLP_ATOL} (the MLP's own: "
           f"30 steps through the network carry the matrix products' summation order), a sample "
           f"beyond it excused only where its plain rollout came within {WRAP_EDGE} of the wrap at "
           f"±pi; m, s and delta/s as the other cases (agree)")
-    max_err = dict.fromkeys(FS.VARIANTS + ("rollout",), 0.0)
-    for variant in FS.VARIANTS:
-        cfg = config(variant)
-        R = nsp if variant == "kmppi" else D
-        solve = factories[variant](cfg, model, emit_perturbed=True)
-        for mode in ("bits", "seed"):
-            lead = (torch.randint(-2**31, 2**31 - 1, (R, solve.bits_cols), dtype=torch.int32,
-                                  generator=gen, device=dev) if mode == "bits"
-                    else tuple(int(v) for v in torch.randint(0, 2**32, (2,), generator=gen,
-                                                             device=dev)))
-            out_k = solve(lead, *operands[variant])
-            torch.cuda.synchronize()
-            out_p = solve.plain(lead, *operands[variant])
-            dk, mk, sk, ck, pk = out_k
-            dp, mp, sp, cp, pp = out_p
-            beyond = ((ck - cp).abs() > MLP_ATOL + MLP_RTOL * cp.abs()).nonzero().flatten()
-            edge, dist = wrap_edge(model, pp, x0T, beyond, T_, nu)
-            excused = torch.zeros(K_, dtype=torch.bool, device=dev)
-            excused[edge] = True
-            ok, c_err, u_err, w_tol = agree(ck, cp, dk / sk, dp / sp, 1.0, mk, mp, sk, sp,
-                                            rtol=MLP_RTOL, atol=MLP_ATOL, excused=excused)
-            ok = ok and all(bool(torch.isfinite(v).all()) for v in out_k)
-            p_err = float((pk - pp).abs().max())
-            ok = ok and bool(((pk - pp).abs() <= 1e-6 + 1e-5 * pp.abs()).all())
-            within = (ck - cp).abs()
-            within[beyond] = 0.0
-            print(f"# {mode:4s} {variant:5s} residual_mlp K={K_} D={D} S={solve.tile_k}: cost err "
-                  f"{c_err:.3e} (within tolerance {float(within.max()):.3e}) | samples beyond "
-                  f"tolerance {beyond.numel()}, at the wrap {edge.numel()} (least distances "
-                  f"{[round(float(v), 8) for v in dist[:5]]}) | m err {abs(float(mk - mp)):.3e} | "
-                  f"s rel {abs(float(sk / sp - 1)):.3e} (tol {w_tol:.3e}) | delta/s err "
-                  f"{u_err:.3e} | perturbed err {p_err:.3e}" + ("" if ok else "  <-- FAIL"))
-            check(ok, f"the residual-MLP kernel disagrees with its plain version: {mode}/{variant}")
-            max_err[variant] = max(max_err[variant], u_err)
-            report["cases"][variant, mode] = dict(beyond=beyond.numel(), at_wrap=edge.numel(),
-                                                  cost_err=c_err, update_err=u_err)
-    # the legacy rollout on clamped actions of the demo's scale
-    cfg_r = MPPIConfig(nx=2, nu=nu, K=K_, T=T_)
-    rollout = LG.make_fused_rollout(cfg_r, model)
-    x0_K = torch.tensor([math.pi, 1.0], device=dev)[None].expand(K_, 2)
-    u = torch.clamp(torch.randn(K_, T_, nu, generator=gen, device=dev) * math.sqrt(10.0), -2, 2)
-    ck = rollout(x0_K, u)
-    torch.cuda.synchronize()
-    cp = rollout.plain(x0_K, u)
-    beyond = ((ck - cp).abs() > MLP_ATOL + MLP_RTOL * cp.abs()).nonzero().flatten()
-    edge, dist = wrap_edge(model, u.reshape(K_, D).T, x0T, beyond, T_, nu)
-    r_err = float((ck - cp).abs().max())
-    ok = bool(torch.isfinite(ck).all()) and edge.numel() == beyond.numel()
-    print(f"# rollout residual_mlp K={K_} D={D}: cost err {r_err:.3e} | samples beyond tolerance "
-          f"{beyond.numel()}, at the wrap {edge.numel()}" + ("" if ok else "  <-- FAIL"))
-    check(ok, "the residual-MLP rollout disagrees with its plain version")
-    max_err["rollout"] = r_err
-    report["cases"]["rollout"] = dict(beyond=beyond.numel(), at_wrap=edge.numel(), cost_err=r_err)
-    report["max_err"] = max_err
+    for label, (m, nx, nu, x0, sigma, out) in shapes.items():
+        x0T, operands = ops_of[label]
+        D = T_ * nu
+        out["max_err"].update(dict.fromkeys(FS.VARIANTS + ("rollout",), 0.0))
+        for variant in FS.VARIANTS:
+            cfg = config(variant, nx, nu)
+            R = nsp * nu if variant == "kmppi" else D
+            solve = factories[variant](cfg, m, emit_perturbed=True)
+            for mode in ("bits", "seed"):
+                lead = (torch.randint(-2**31, 2**31 - 1, (R, solve.bits_cols), dtype=torch.int32,
+                                      generator=gen, device=dev) if mode == "bits"
+                        else tuple(int(v) for v in torch.randint(0, 2**32, (2,), generator=gen,
+                                                                 device=dev)))
+                out_k = solve(lead, *operands[variant])
+                torch.cuda.synchronize()
+                out_p = solve.plain(lead, *operands[variant])
+                dk, mk, sk, ck, pk = out_k
+                dp, mp, sp, cp, pp = out_p
+                beyond = ((ck - cp).abs() > MLP_ATOL + MLP_RTOL * cp.abs()).nonzero().flatten()
+                edge, dist = wrap_edge(m, pp, x0T, beyond, T_, nu)
+                excused = torch.zeros(K_, dtype=torch.bool, device=dev)
+                excused[edge] = True
+                ok, c_err, u_err, w_tol = agree(ck, cp, dk / sk, dp / sp, 1.0, mk, mp, sk, sp,
+                                                rtol=MLP_RTOL, atol=MLP_ATOL, excused=excused)
+                ok = ok and all(bool(torch.isfinite(v).all()) for v in out_k)
+                p_err = float((pk - pp).abs().max())
+                ok = ok and bool(((pk - pp).abs() <= 1e-6 + 1e-5 * pp.abs()).all())
+                within = (ck - cp).abs()
+                within[beyond] = 0.0
+                print(f"# {mode:4s} {variant:5s} {label} K={K_} D={D} S={solve.tile_k}: cost err "
+                      f"{c_err:.3e} (within tolerance {float(within.max()):.3e}) | samples beyond "
+                      f"tolerance {beyond.numel()}, at the wrap {edge.numel()} (least distances "
+                      f"{[round(float(v), 8) for v in dist[:5]]}) | m err {abs(float(mk - mp)):.3e}"
+                      f" | s rel {abs(float(sk / sp - 1)):.3e} (tol {w_tol:.3e}) | delta/s err "
+                      f"{u_err:.3e} | perturbed err {p_err:.3e}" + ("" if ok else "  <-- FAIL"))
+                check(ok, f"the residual-MLP kernel disagrees with its plain version: "
+                      f"{label}/{mode}/{variant}")
+                out["max_err"][variant] = max(out["max_err"][variant], u_err)
+                out["cases"][variant, mode] = dict(beyond=beyond.numel(), at_wrap=edge.numel(),
+                                                   cost_err=c_err, update_err=u_err)
+        rollout = LG.make_fused_rollout(MPPIConfig(nx=nx, nu=nu, K=K_, T=T_), m)
+        x0_K = torch.tensor(x0, device=dev)[None].expand(K_, nx)
+        u = torch.clamp(torch.randn(K_, T_, nu, generator=gen, device=dev) * sigma, -2, 2)
+        ck = rollout(x0_K, u)
+        torch.cuda.synchronize()
+        cp = rollout.plain(x0_K, u)
+        beyond = ((ck - cp).abs() > MLP_ATOL + MLP_RTOL * cp.abs()).nonzero().flatten()
+        edge, dist = wrap_edge(m, u.reshape(K_, D).T, x0T, beyond, T_, nu)
+        r_err = float((ck - cp).abs().max())
+        ok = bool(torch.isfinite(ck).all()) and edge.numel() == beyond.numel()
+        print(f"# rollout {label} K={K_} D={D}: cost err {r_err:.3e} | samples beyond tolerance "
+              f"{beyond.numel()}, at the wrap {edge.numel()}" + ("" if ok else "  <-- FAIL"))
+        check(ok, f"the residual-MLP rollout disagrees with its plain version: {label}")
+        out["max_err"]["rollout"] = r_err
+        out["cases"]["rollout"] = dict(beyond=beyond.numel(), at_wrap=edge.numel(),
+                                       cost_err=r_err)
+        out["rollout_args"] = (rollout, x0_K, u)
 
-    # the kernels alone at the main path's shape (seed mode), a CUDA graph of
-    # 20 calls, beside the plain version and the bound
+    # the batched pair (batched_partial<ResidualMLP, N, kGlobal> + flash_merge)
+    # against its plain version: the trained model at N = 16, K = 10,240 in
+    # bits and seed mode and at N = 256, K = 4,096 in operand mode, the car
+    # at N = 16 in bits and seed mode; one pair a call
+    def batched_rest(nx, nu, N_, x0, spread, sigma):
+        """The batched operands: the plants from ``x0`` ± ``spread`` (uniform),
+        a nominal U of scale 0.5 each, the action cost lambda U sigma^-2,
+        the bounds ±2."""
+        D = T_ * nu
+        x0T = (torch.tensor(x0, device=dev)[:, None] + torch.tensor(spread, device=dev)[:, None]
+               * (torch.rand(nx, N_, generator=gen, device=dev) * 2 - 1))
+        U2T = (torch.randn(N_, D, generator=gen, device=dev) * 0.5).T
+        vec = lambda v: torch.full((D,), v, device=dev)  # noqa: E731
+        return (x0T, U2T, vec(sigma), vec(0.0), vec(-2.0), vec(2.0), U2T / sigma ** 2,
+                torch.tensor(1.0, device=dev))
+
+    def lead_of(solve, mode, D, sigma):
+        if mode == "bits":
+            return torch.randint(-2**31, 2**31 - 1, (D, solve.bits_cols), dtype=torch.int32,
+                                 generator=gen, device=dev)
+        if mode == "seed":
+            return tuple(int(v) for v in torch.randint(0, 2**32, (2,), generator=gen,
+                                                       device=dev))
+        return torch.randn(D, solve.K_pad, generator=gen, device=dev) * sigma
+
+    spreads = {"residual_mlp": (0.5, 1.0), "car [9, 32, 32, 7]": (0.2,) * CAR_NX}
+    batched_cases = [("residual_mlp", "bits", MLP_BATCH_N, MLP_BATCH_K),
+                     ("residual_mlp", "seed", MLP_BATCH_N, MLP_BATCH_K),
+                     ("residual_mlp", "operand", MLP_WIDE_N, MLP_WIDE_K),
+                     ("car [9, 32, 32, 7]", "bits", MLP_BATCH_N, MLP_BATCH_K),
+                     ("car [9, 32, 32, 7]", "seed", MLP_BATCH_N, MLP_BATCH_K)]
+    for label, mode, N_, Kb in batched_cases:
+        m, nx, nu, x0, sigma, out = shapes[label]
+        cfg = MPPIConfig(nx=nx, nu=nu, K=Kb, T=T_, diag_sigma=True)
+        solve = FS.make_transposed_batched_solve(cfg, N_, m, noise_operand=mode == "operand")
+        rest = batched_rest(nx, nu, N_, x0, spreads[label], sigma)
+        lead = lead_of(solve, mode, T_ * nu, sigma)
+        reset_launches()
+        ok, c_err, u_err, n_beyond, n_wrap = batched_mlp_agree(m, solve, lead, rest, T_, nu)
+        pairs = dict(FS.launches)
+        ok = ok and n_beyond == n_wrap and pairs == {k: 2 * (k == "batched") for k in pairs}
+        print(f"# {mode:7s} batched {label} N={N_} K={Kb} D={T_ * nu} P={solve.plant_group} "
+              f"tiles={solve.tiles}: cost err {c_err:.3e} | samples beyond tolerance {n_beyond}, "
+              f"at the wrap {n_wrap} | delta/s err {u_err:.3e} | launches "
+              f"{ {k: v for k, v in pairs.items() if v} }" + ("" if ok else "  <-- FAIL"))
+        check(ok, f"the residual-MLP batched pair disagrees with its plain version: "
+              f"{label}/{mode}")
+        out["max_err"]["batched"] = max(out["max_err"].get("batched", 0.0), u_err)
+        out["cases"]["batched", mode] = dict(beyond=n_beyond, at_wrap=n_wrap, cost_err=c_err,
+                                             update_err=u_err)
+
+    # the kernels alone (seed mode; the batched pair also at the main path's
+    # shape in operand mode), a CUDA graph of 20 calls, beside the plain
+    # version and the bound; the car's beside the trained model's
     key = (0x2468ACE0, 0x13579BDF)
-    for variant in FS.VARIANTS:
-        cfg = config(variant)
-        solve = factories[variant](cfg, model)
-        args = operands[variant]
-        dev_ms = graph_ms(lambda: solve(key, *args), 20)
-        plain_ms = events_ms(lambda: solve.plain(key, *args), 5)
-        op = args[3] if variant != "mppi" else args[2]
-        bound_ms, bound_by = bound(fused_work(cfg, model, key, x0T, op, variant=variant))
-        report["timed"][variant] = (dev_ms, plain_ms, bound_ms, bound_by)
-        print(f"# kernel alone [{variant} residual_mlp] K={K_} T={T_} S={solve.tile_k}: device "
-              f"{dev_ms:.6f} ms (a CUDA graph of 20 calls) | plain version {plain_ms:.5f} ms | "
-              f"bound {bound_ms:.3e} ms by {bound_by}: {dev_ms / bound_ms:.1f}x | the linear "
-              f"model's flagship call before: {BEFORE_MS[variant]} ms")
-    dev_ms = graph_ms(lambda: rollout(x0_K, u), 20)
-    plain_ms = events_ms(lambda: rollout.plain(x0_K, u), 5)
-    bound_ms, bound_by = bound(rollout_work(model, x0_K, u))
-    report["timed"]["rollout"] = (dev_ms, plain_ms, bound_ms, bound_by)
-    print(f"# kernel alone [rollout residual_mlp] K={K_} T={T_}: device {dev_ms:.6f} ms (a CUDA "
-          f"graph of 20 calls) | plain version {plain_ms:.5f} ms | bound {bound_ms:.3e} ms by "
-          f"{bound_by}: {dev_ms / bound_ms:.1f}x")
+    for label, (m, nx, nu, x0, sigma, out) in shapes.items():
+        x0T, operands = ops_of[label]
+        beside = "" if out is report else " | the nx = 2 model's {:.6f} ms"
+        for variant in FS.VARIANTS:
+            cfg = config(variant, nx, nu)
+            solve = factories[variant](cfg, m)
+            args = operands[variant]
+            dev_ms = graph_ms(lambda: solve(key, *args), 20)
+            plain_ms = events_ms(lambda: solve.plain(key, *args), 5)
+            op = args[3] if variant != "mppi" else args[2]
+            bound_ms, bound_by = bound(fused_work(cfg, m, key, x0T, op, variant=variant))
+            out["timed"][variant] = (dev_ms, plain_ms, bound_ms, bound_by)
+            print(f"# kernel alone [{variant} {label}] K={K_} T={T_} S={solve.tile_k}: device "
+                  f"{dev_ms:.6f} ms (a CUDA graph of 20 calls) | plain version {plain_ms:.5f} ms | "
+                  f"bound {bound_ms:.3e} ms by {bound_by}: {dev_ms / bound_ms:.1f}x | the linear "
+                  f"model's flagship call before: {BEFORE_MS[variant]} ms"
+                  + beside.format(report["timed"].get(variant, (math.nan,))[0]))
+        rollout, x0_K, u = out["rollout_args"]
+        dev_ms = graph_ms(lambda: rollout(x0_K, u), 20)
+        plain_ms = events_ms(lambda: rollout.plain(x0_K, u), 5)
+        bound_ms, bound_by = bound(rollout_work(m, x0_K, u))
+        out["timed"]["rollout"] = (dev_ms, plain_ms, bound_ms, bound_by)
+        print(f"# kernel alone [rollout {label}] K={K_} T={T_}: device {dev_ms:.6f} ms (a CUDA "
+              f"graph of 20 calls) | plain version {plain_ms:.5f} ms | bound {bound_ms:.3e} ms by "
+              f"{bound_by}: {dev_ms / bound_ms:.1f}x"
+              + beside.format(report["timed"].get("rollout", (math.nan,))[0]))
+        timed_batched = [("seed", MLP_BATCH_N, MLP_BATCH_K, "batched_N16_seed")]
+        if out is report:
+            timed_batched.insert(0, ("operand", MLP_MAIN_N, K_, "batched"))
+        for mode, N_, Kb, name in timed_batched:
+            cfg = MPPIConfig(nx=nx, nu=nu, K=Kb, T=T_, diag_sigma=True)
+            solve = FS.make_transposed_batched_solve(cfg, N_, m, noise_operand=mode == "operand")
+            rest = batched_rest(nx, nu, N_, x0, spreads[label], sigma)
+            lead = lead_of(solve, mode, T_ * nu, sigma)
+            dev_ms = graph_ms(lambda: solve(lead, *rest), 20)
+            plain_ms = events_ms(lambda: solve.plain(lead, *rest), 3)
+            bound_ms, bound_by = bound(fused_work(cfg, m, lead, rest[0], rest[2],
+                                                  variant="batched", plants=N_))
+            out["timed"][name] = (dev_ms, plain_ms, bound_ms, bound_by)
+            print(f"# kernel alone [batched {label}] {mode} N={N_} K={Kb} T={T_} "
+                  f"P={solve.plant_group}: device {dev_ms:.6f} ms (a CUDA graph of 20 calls) | "
+                  f"plain version {plain_ms:.5f} ms | bound {bound_ms:.3e} ms by {bound_by}: "
+                  f"{dev_ms / bound_ms:.1f}x"
+                  + beside.format(report["timed"].get(name, (math.nan,))[0]))
+        out.pop("rollout_args")
+
+    # the traced MLP: the trained network's functions passed untagged, traced
+    # by the dynamics bridge (its libraries built in phase 2 from a network of
+    # the same shape: the header holds no weights), into kernel A (MPPI, seed
+    # mode) and the batched pair (N = 16, K = 10,240, seed mode), against
+    # their plain versions (the traced program's evaluator) and timed beside
+    # the named instantiations in turns
+    report["traced"] = {}
+    try:
+        traced = BL.kernel_model(config("mppi"), *untagged(model))
+    except BL.UnsupportedPrimitive as e:
+        traced = None
+        report["traced"]["refused"] = str(e)
+        print(f"# traced MLP: the tracer refuses the untagged network ({e}); the named "
+              f"instantiations only")
+    if traced is not None:
+        x0T, operands = ops_of["residual_mlp"]
+        cfg_b = MPPIConfig(nx=2, nu=1, K=MLP_BATCH_K, T=T_, diag_sigma=True)
+        rest_b = batched_rest(2, 1, MLP_BATCH_N, [math.pi, 1.0], spreads["residual_mlp"],
+                              math.sqrt(10.0))
+        pairs = {"mppi": (FS.make_transposed_fused_solve(config("mppi"), traced),
+                          FS.make_transposed_fused_solve(config("mppi"), model),
+                          operands["mppi"], "generated_mppi", 1, config("mppi"), "mppi", 1),
+                 "batched": (FS.make_transposed_batched_solve(cfg_b, MLP_BATCH_N, traced),
+                             FS.make_transposed_batched_solve(cfg_b, MLP_BATCH_N, model),
+                             rest_b, "generated_batched", 2, cfg_b, "batched", MLP_BATCH_N)}
+        for name, (t_solve, n_solve, args, counter, per_call, cfg, variant, N_) in pairs.items():
+            reset_launches()
+            if name == "mppi":
+                dk, mk, sk, ck = t_solve(key, *args)
+                torch.cuda.synchronize()
+                launched = dict(FS.launches)
+                dp, mp, sp, cp = t_solve.plain(key, *args)
+                emitted = FS.make_transposed_fused_solve(config("mppi"), model,
+                                                         emit_perturbed=True)
+                pp = emitted.plain(key, *args)[4]  # the same draw: the wrap-edge rebuild
+                beyond = ((ck - cp).abs() > MLP_ATOL + MLP_RTOL * cp.abs()).nonzero().flatten()
+                edge, _ = wrap_edge(model, pp, x0T, beyond, T_, 1)
+                excused = torch.zeros(K_, dtype=torch.bool, device=dev)
+                excused[edge] = True
+                ok, c_err, u_err, _ = agree(ck, cp, dk / sk, dp / sp, 1.0, mk, mp, sk, sp,
+                                            rtol=MLP_RTOL, atol=MLP_ATOL, excused=excused)
+                n_beyond, n_wrap = beyond.numel(), edge.numel()
+            else:
+                ok, c_err, u_err, n_beyond, n_wrap = batched_mlp_agree(model, t_solve, key, args,
+                                                                       T_, 1)
+                launched = dict(FS.launches)
+            expect = {k: per_call * (k == counter) for k in launched}
+            ok = ok and n_beyond == n_wrap and launched == expect
+            times = {"traced": [], "named": []}
+            for which in ("named", "traced", "traced", "named"):
+                f = t_solve if which == "traced" else n_solve
+                times[which].append(graph_ms(lambda f=f: f(key, *args), 20))
+            plain_ms = events_ms(lambda: t_solve.plain(key, *args), 1)  # about 1 s a call
+            bound_ms, bound_by = bound(fused_work(cfg, traced, key, args[0], args[2],
+                                                  variant=variant, plants=N_))
+            t_ms, n_ms = statistics.mean(times["traced"]), statistics.mean(times["named"])
+            report["traced"][name] = dict(ms=t_ms, named_ms=n_ms, ms_turns=times,
+                                          plain_ms=plain_ms, bound_ms=bound_ms,
+                                          bound_by=bound_by, launches=launched[counter],
+                                          max_abs_err=u_err, beyond=n_beyond, at_wrap=n_wrap)
+            print(f"# traced MLP [{name}] seed K={cfg.K}" + (f" N={N_}" if N_ > 1 else "")
+                  + f": {BL._count_ops(traced.program, traced.outputs)} scalar operations a "
+                  f"step | cost err {c_err:.3e}, samples beyond tolerance {n_beyond}, at the wrap "
+                  f"{n_wrap} | delta/s err {u_err:.3e} | launches "
+                  f"{ {k: v for k, v in launched.items() if v} } | device {t_ms:.6f} ms against "
+                  f"the named ResidualMLP's {n_ms:.6f} ms ({t_ms / n_ms:.3f}x; turns named, "
+                  f"traced, traced, named: {[round(v, 6) for v in times['named'][:1]]}, "
+                  f"{[round(v, 6) for v in times['traced']]}, "
+                  f"{[round(v, 6) for v in times['named'][1:]]}) | plain version "
+                  f"{plain_ms:.5f} ms | bound {bound_ms:.3e} ms by {bound_by}"
+                  + ("" if ok else "  <-- FAIL"))
+            check(ok, f"the traced MLP [{name}] disagrees with its plain version or launched "
+                  f"{launched}")
 
     # the main path: fused_kernel_demo's loop, 150 commands from [pi, 1] on
     # the true plant, fused (one kernel A launch a command) and plain, each
@@ -1304,22 +1583,82 @@ def learned_dynamics(dev, gen):
                                               solves_per_s=MLP_COMMANDS / wall)
         del ctrl
 
+    # the batched main path: MPPI_Batched on the model (use_pallas=True, the
+    # operand mode at this K), MLP_MAIN_N pendulums from angles spread over
+    # pi ± 0.5, one warm-up command then MLP_COMMANDS on the true plant, one
+    # pair a command and no other launch, no warning when it is built, CUDA
+    # events around each command
+    def batched_planner(seed=42):
+        return MPPI_Batched(model.dynamics, model.running_cost, 2,
+                            torch.eye(1, device=dev) * 10.0, num_envs=MLP_MAIN_N,
+                            num_samples=K_, horizon=T_, lambda_=1.0, u_min=torch.tensor(-2.0),
+                            u_max=torch.tensor(2.0), seed=seed, use_pallas=True, device=dev)
+
+    g_start = torch.Generator(device=dev)
+    g_start.manual_seed(64)
+    x_start = torch.stack([math.pi + torch.linspace(-0.5, 0.5, MLP_MAIN_N, device=dev),
+                           torch.rand(MLP_MAIN_N, generator=g_start, device=dev) * 2 - 1], dim=1)
+    with Captured() as warned:
+        ctrl = batched_planner()
+    check(ctrl._fns.fused and not warned.messages, f"MPPI_Batched with the residual MLP did not "
+          f"take the batched kernel without a warning: fused {ctrl._fns.fused}, warnings "
+          f"{warned.messages}")
+    x = x_start
+    reset_launches()
+    ctrl.command(x)  # builds and warms up
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(MLP_COMMANDS)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(MLP_COMMANDS)]
+    wall = time.perf_counter()
+    for i in range(MLP_COMMANDS):
+        starts[i].record()
+        a = ctrl.command(x)
+        ends[i].record()
+        x = pendulum_dynamics(x, a)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - wall
+    launched = dict(FS.launches)
+    expect = {k: 2 * (MLP_COMMANDS + 1) * (k == "batched") for k in launched}
+    angles = angle_normalize(x[:, 0]).abs()
+    frac = float((angles < 0.5).float().mean())
+    lat = sorted(b.elapsed_time(e) for b, e in zip(starts, ends))
+    med, p90 = statistics.median(lat), lat[int(0.9 * len(lat))]
+    print(f"# main path [residual MLP batched operand] N={MLP_MAIN_N} K={K_} T={T_}, "
+          f"{MLP_COMMANDS} commands from angles pi ± 0.5 after one warm-up command: median "
+          f"{med:.4f} ms p90 {p90:.4f} ms a command (CUDA events) | "
+          f"{MLP_MAIN_N * MLP_COMMANDS / wall:.1f} plant-solves/s (host clock) | plants with "
+          f"|angle| < 0.5 at the end {frac:.3f} (limit {MLP_MAIN_FRACTION}; largest |angle| "
+          f"{float(angles.max()):.4f}) | launches { {k: v for k, v in launched.items() if v} }")
+    check(launched == expect, f"residual MLP batched launched {launched}, expected {expect}")
+    check(bool(torch.isfinite(x).all()) and frac >= MLP_MAIN_FRACTION,
+          f"residual MLP batched: {frac:.3f} of the plants end with |angle| < 0.5")
+    breakdown("residual MLP batched operand", ctrl, pendulum_dynamics, x, n=20)
+    report["loops"]["batched", "fused"] = dict(launches=launched, median_ms=med, p90_ms=p90,
+                                               fraction=frac,
+                                               plant_solves_per_s=MLP_MAIN_N * MLP_COMMANDS / wall)
+    del ctrl
+
     # run_mppi_jit with the model: the graph loop equal to the eager loop bit
-    # for bit over GRAPH_STEPS steps, with exact launch counts
-    for path, use_pallas, per_command in (("fused", True, dict(mppi=1)),
-                                          ("plain", False, {})):
-        c_graph, c_eager = planner("mppi", use_pallas, 7), planner("mppi", use_pallas, 7)
-        x0 = torch.tensor([math.pi, 1.0], device=dev)
+    # for bit over GRAPH_STEPS steps, with exact launch counts; MPPI fused and
+    # plain, and MPPI_Batched's pair
+    graph_routes = (("fused", lambda: planner("mppi", True, 7), dict(mppi=1), torch.tensor(
+                        [math.pi, 1.0], device=dev), pend_step),
+                    ("plain", lambda: planner("mppi", False, 7), {}, torch.tensor(
+                        [math.pi, 1.0], device=dev), pend_step),
+                    ("batched", lambda: batched_planner(7), dict(batched=2), x_start,
+                     pendulum_dynamics))
+    for path, build, per_command, x0, plant in graph_routes:
+        c_graph, c_eager = build(), build()
         reset_launches()
-        states, actions, total = run_mppi_jit(c_graph, pend_step, x0, GRAPH_STEPS)
+        states, actions, total = run_mppi_jit(c_graph, plant, x0, GRAPH_STEPS)
         torch.cuda.synchronize()
         launched = dict(FS.launches)
         cost = PS.wrap_cost(c_eager.config, c_eager.running_cost)
-        x, acc, xs, acts = x0, torch.zeros((), device=dev), [], []
+        batched_ = path == "batched"
+        x, acc, xs, acts = x0, torch.zeros(MLP_MAIN_N if batched_ else (), device=dev), [], []
         for _ in range(GRAPH_STEPS):
             a = c_eager.command(x)
-            x = pend_step(x, a)
-            acc = acc + cost(x[None], a[None], 0)[0]
+            x = plant(x, a)
+            acc = acc + (cost(x, a, 0) if batched_ else cost(x[None], a[None], 0)[0])
             xs.append(x)
             acts.append(a)
         torch.cuda.synchronize()
@@ -1332,6 +1671,50 @@ def learned_dynamics(dev, gen):
         check(launched == expect, f"graph loop [residual MLP {path}] launched {launched}")
         report["loops"]["graph", path] = dict(equal=same, launches=launched)
         del c_graph, c_eager
+
+    # the car's routes (its N = 8 instantiations): CAR_COMMANDS commands of
+    # MPPI, SMPPI and KMPPI fused, MPPI's legacy route and MPPI_Batched's
+    # pair (N = 16, seed mode) on the model as its own plant, exact launch
+    # counts, finite actions, the distance to the goal printed
+    lim = torch.full((CAR_NU,), 2.0)
+    car_routes = [
+        ("mppi", "fused", MPPI, True, {}, dict(mppi=1)),
+        ("mppi", "rollout", MPPI, "rollout", {}, dict(rollout=1, weighted_update=1)),
+        ("smppi", "fused", SMPPI, True, dict(w_action_seq_cost=1.0, delta_t=1.0,
+                                             action_min=-lim, action_max=lim), dict(smppi=1)),
+        ("kmppi", "fused", KMPPI, True, dict(num_support_pts=nsp, kernel=RBFKernel(2.0)),
+         dict(kmppi=1)),
+        ("batched", "fused", MPPI_Batched, "kernel_rng", dict(num_envs=MLP_BATCH_N),
+         dict(batched=2)),
+    ]
+    goal = torch.tensor(CAR_GOAL, device=dev)
+    for variant, path, cls, use_pallas, kw, per_command in car_routes:
+        ctrl = cls(car.dynamics, car.running_cost, CAR_NX, torch.eye(CAR_NU, device=dev),
+                   num_samples=K_, horizon=T_, lambda_=1.0, u_min=-lim, u_max=lim, seed=42,
+                   use_pallas=use_pallas, device=dev, **kw)
+        check(ctrl._fns.fused, f"car {variant} {path} took the plain path")
+        batched_ = variant == "batched"
+        x = torch.tensor(CAR_X0, device=dev)
+        if batched_:
+            x = x[None] + 0.2 * (torch.rand(MLP_BATCH_N, CAR_NX, generator=gen, device=dev) * 2
+                                 - 1)
+        start = (x - goal).norm(dim=-1).max()
+        reset_launches()
+        for _ in range(CAR_COMMANDS):
+            a = ctrl.command(x)
+            x = car.dynamics(x, a) if batched_ else car.dynamics(x[None], a[None])[0]
+        torch.cuda.synchronize()
+        launched = dict(FS.launches)
+        expect = {k: CAR_COMMANDS * per_command.get(k, 0) for k in launched}
+        print(f"# car loop [{variant} {path}] K={K_} T={T_}, {CAR_COMMANDS} commands on the model "
+              f"as its plant: distance to the goal {float(start):.3f} -> "
+              f"{float((x - goal).norm(dim=-1).max()):.3f} (largest) | launches "
+              f"{ {k: v for k, v in launched.items() if v} }")
+        check(launched == expect, f"car {variant} {path} launched {launched}, expected {expect}")
+        check(bool(torch.isfinite(x).all()) and bool(torch.isfinite(ctrl.U).all()),
+              f"car {variant} {path}: non-finite states or actions")
+        report["car"]["loops"][variant, path] = dict(launches=launched)
+        del ctrl
 
     # pendulum_approximate at its JAX sizes: online retraining through
     # dynamics_params on the plain path (K = 1,000, T = 30, 300 steps)
@@ -2351,7 +2734,24 @@ def generated_builds(dev):
                   step=BL.kernel_model(cfg_sd, *fns["step"]),
                   terminal=BL.trace_terminal(cfg, fns["terminal"]))
     step = BL.generated_kernel(models["step"], None)
-    plan = {"lq mppi": (BL.generated_kernel(models["lq"], None), FS.MPPI),
+    plan = {}
+    # phase 4e's traced MLP: fused_kernel_demo's network with random weights
+    # (the header holds no weights, so the trained model's trace reuses it)
+    from pytorch_mppi_tpu_torch.examples import fused_kernel_demo as FKD
+    from pytorch_mppi_tpu_torch.models import mlp_init
+
+    mlp = FKD.kernel_model(mlp_init(FKD.SIZES, torch.Generator().manual_seed(1), torch.float32,
+                                    dev))
+    try:
+        models["mlp"] = BL.kernel_model(MPPIConfig(nx=2, nu=1, K=MLP_K, T=MLP_T), *untagged(mlp))
+        mlp_kernel = BL.generated_kernel(models["mlp"], None)
+        plan.update({"mlp mppi": (mlp_kernel, FS.MPPI), "mlp batched": (mlp_kernel, FS.BATCHED)})
+        print(f"# traced MLP {FKD.SIZES}: {BL._count_ops(models['mlp'].program, models['mlp'].outputs)} "
+              f"scalar operations a step (the bound MAX_OPS {BL.MAX_OPS}), header "
+              f"{len(mlp_kernel.header())} characters")
+    except BL.UnsupportedPrimitive as e:
+        print(f"# traced MLP {FKD.SIZES}: the tracer refuses it: {e}")
+    plan.update({"lq mppi": (BL.generated_kernel(models["lq"], None), FS.MPPI),
             "pendulum mppi": (BL.generated_kernel(models["pendulum"], None), FS.MPPI),
             "step mppi": (step, FS.MPPI), "step smppi": (step, FS.SMPPI),
             "step kmppi": (step, FS.KMPPI), "step rollout": (step, FS.ROLLOUT),
@@ -2359,7 +2759,7 @@ def generated_builds(dev):
             # phase 12's: scenario_batch's plant is the flagship lambdas' program,
             # so its batched library is this one (the same header)
             "lq batched": (BL.generated_kernel(models["lq"], None), FS.BATCHED),
-            "terminal mppi": (BL.generated_kernel(models["lq"], models["terminal"]), FS.MPPI)}
+            "terminal mppi": (BL.generated_kernel(models["lq"], models["terminal"]), FS.MPPI)})
     builds = {}
     for label, (kernel, variant) in plan.items():
         result = {}
@@ -3012,10 +3412,11 @@ def main():
     stamp("2")
     gen_plan = generated_builds(dev)  # phase 11's libraries, beside the named one
     built = _build.build()
+    build_parts = {}  # each part's nvcc seconds, where this run built the library
     if built is None:
         print(f"# build: {_build.library_path().name} already built")
     else:
-        secs, log = built
+        secs, log, part_s = built
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
         spills = [int(b) for b in re.findall(r"(\d+) bytes spill stores", log)]
         log_path = _build.library_path().with_suffix(".log")
@@ -3025,6 +3426,9 @@ def main():
               f"{len(regs)} kernels, {min(regs, default=0)}-{max(regs, default=0)} registers | "
               f"spill stores in {sum(b > 0 for b in spills)}, up to {max(spills, default=0)} "
               f"bytes | nvcc -Xptxas -v output in {log_path}")
+        print("# build parts (nvcc seconds from the start, all together): " + " | ".join(
+            f"{k}: {v:.1f}" for k, v in enumerate(part_s)))
+        build_parts = dict(enumerate(part_s))
     join_generated_builds(gen_plan)
     print(f"# build phase (the named library and phases 11's and 12's generated ones): "
           f"{time.perf_counter() - START:.1f} s from the script's start")
@@ -4287,13 +4691,12 @@ def main():
             args = operands(variant, cfg, model, rho, 1.0, 0.0, inf,
                             3.0 if variant == "smppi" else inf, 1.0, 1.0, 1.0)
             tiled = {S: factories[variant](cfg, model, tile_k=S) for S in FS.TILES}
-            sweep = {S: graph_ms(lambda f=f: f((1234, 5678), *args), 20)
-                     for S, f in tiled.items()}
+            sweep = in_turns({S: lambda f=f: f((1234, 5678), *args) for S, f in tiled.items()})
             rule = FS.tile_samples(K_, FS.sm_count())
             best = min(sweep, key=sweep.get)
             sweeps[variant, shape] = dict(ms=sweep, rule=rule, best=best)
             print(f"# S sweep [{variant} {shape} seed] K={K_} D={T_ * nu}: " + " | ".join(
-                f"S={S} {v:.6f} ms" for S, v in sweep.items()) + f" (a CUDA graph of 20 calls) | "
+                f"S={S} {v:.6f} ms" for S, v in sweep.items()) + f" (CUDA graphs of 20 calls, in turns, mean of 2) | "
                 f"the rule's S={rule}: {sweep[rule] / sweep[best]:.3f} of the best (S={best}; "
                 f"limit 1.1)")
             check(sweep[rule] <= 1.1 * sweep[best],
@@ -4483,13 +4886,13 @@ def main():
     # flagship and at D = 300, against the rule's S
     for shape, D_ in (("flagship", T * NU), ("D300", 300)):
         noise_s = noise if D_ == T * NU else torch.randn(K, D_, generator=gen, device=dev)
-        sweep = {S: graph_ms(lambda f=LG.make_weighted_update(S): f(cost, noise_s, lam1), 20)
-                 for S in FS.TILES}
+        sweep = in_turns({S: lambda f=LG.make_weighted_update(S): f(cost, noise_s, lam1)
+                          for S in FS.TILES})
         rule = FS.tile_samples(K, FS.sm_count())
         best = min(sweep, key=sweep.get)
         sweeps["weighted_update", shape] = dict(ms=sweep, rule=rule, best=best)
         print(f"# S sweep [weighted_update {shape}] K={K} D={D_}: " + " | ".join(
-            f"S={S} {v:.6f} ms" for S, v in sweep.items()) + f" (a CUDA graph of 20 calls) | "
+            f"S={S} {v:.6f} ms" for S, v in sweep.items()) + f" (CUDA graphs of 20 calls, in turns, mean of 2) | "
             f"the rule's S={rule}: {sweep[rule] / sweep[best]:.3f} of the best (S={best}; "
             f"limit 1.1)")
         check(sweep[rule] <= 1.1 * sweep[best],
@@ -4499,13 +4902,13 @@ def main():
     # at K = 1,000, against the rule's S
     for shape, K_ in (("flagship", K), ("K1000", 1000)):
         cfg_r = MPPIConfig(nx=NX, nu=NU, K=K_, T=T)
-        sweep = {S: graph_ms(lambda f=LG.make_fused_rollout(cfg_r, lq, tile_k=S):
-                             f(x0_K[:K_], u[:K_]), 20) for S in FS.TILES}
+        sweep = in_turns({S: lambda f=LG.make_fused_rollout(cfg_r, lq, tile_k=S):
+                          f(x0_K[:K_], u[:K_]) for S in FS.TILES})
         rule = FS.tile_samples(K_, FS.sm_count())
         best = min(sweep, key=sweep.get)
         sweeps["rollout", shape] = dict(ms=sweep, rule=rule, best=best)
         print(f"# S sweep [rollout {shape}] K={K_} D={T * NU}: " + " | ".join(
-            f"S={S} {v:.6f} ms" for S, v in sweep.items()) + f" (a CUDA graph of 20 calls) | "
+            f"S={S} {v:.6f} ms" for S, v in sweep.items()) + f" (CUDA graphs of 20 calls, in turns, mean of 2) | "
             f"the rule's S={rule}: {sweep[rule] / sweep[best]:.3f} of the best (S={best}; "
             f"limit 1.1)")
         check(sweep[rule] <= 1.1 * sweep[best],
@@ -4703,11 +5106,11 @@ def main():
               f"{bound_by} ({work[1]} B, {work[0]} operations)")
     # the round-1 solve's S sweep at the flagship
     tiled = {S: RM.make_fused_solve(flag_cfg, lq, tile_k=S) for S in FS.TILES}
-    sweep = {S: graph_ms(lambda f=f: f((1234, 5678), *r_args), 20) for S, f in tiled.items()}
+    sweep = in_turns({S: lambda f=f: f((1234, 5678), *r_args) for S, f in tiled.items()})
     best = min(sweep, key=sweep.get)
     sweeps["rowmajor", "flagship"] = dict(ms=sweep, rule=solve.tile_k, best=best)
     print(f"# S sweep [rowmajor flagship seed] K={K} D={D}: " + " | ".join(
-        f"S={S} {v:.6f} ms" for S, v in sweep.items()) + f" (a CUDA graph of 20 calls) | the "
+        f"S={S} {v:.6f} ms" for S, v in sweep.items()) + f" (CUDA graphs of 20 calls, in turns, mean of 2) | the "
         f"rule's S={solve.tile_k}: {sweep[solve.tile_k] / sweep[best]:.3f} of the best (S={best}; "
         f"limit 1.1)")
     check(sweep[solve.tile_k] <= 1.1 * sweep[best],
@@ -5020,37 +5423,61 @@ def main():
                                ms_D300_full_op=timed["sampler", "D300_full_op"][0],
                                bound_ms_D300_full_op=timed["sampler", "D300_full_op"][3],
                                blocks=sample.blocks)
-    # the residual MLP's instantiations (phase 4e): kernel A's variants and
-    # the legacy rollout, launched by fused_kernel_demo's main path
-    for key, label, line, loop in (
-            ("mppi", "fused_mppi MPPI, residual MLP (mppi_fused_partial<ResidualMLP, 2, ..., "
-             "kMPPI>, merged in the kernel)", 512, ("mppi", "fused")),
-            ("smppi", "fused_mppi SMPPI, residual MLP (mppi_fused_partial<ResidualMLP, 2, ..., "
-             "kSMPPI>)", 755, ("smppi", "fused")),
-            ("kmppi", "fused_mppi KMPPI, residual MLP (mppi_fused_partial<ResidualMLP, 2, ..., "
-             "kKMPPI>)", 940, ("kmppi", "fused")),
-            ("rollout", "fused_rollout, residual MLP (fused_rollout<ResidualMLP, 2>)", 75,
-             ("mppi", "rollout"))):
-        d_ms, p_ms, b_ms, b_by = mlp["timed"][key]
-        cases = [c for k, c in mlp["cases"].items() if (k if isinstance(k, str) else k[0]) == key]
-        kernels.append({
-            "name": label,
-            "route": "cuda",
-            "source": "pytorch_mppi_tpu_torch/csrc/fused_mppi.cu",
-            "replaces": f"pytorch_mppi_tpu/ops/pallas_rollout.py:{line}",
-            "launches": mlp["loops"][loop]["launches"][key],
-            "max_abs_err": mlp["max_err"][key],
-            "ms": d_ms,
-            "ms_source": "cuda_graph",
-            "plain_ms": p_ms,
-            "bound_ms": b_ms,
-            "bound_by": b_by,
-            "library_ms": None,
-            "samples_beyond_tolerance": sum(c["beyond"] for c in cases),
-            "samples_at_the_wrap": sum(c["at_wrap"] for c in cases),
-        })
-        if key == "mppi":
-            kernels[-1]["launches_graph_loop"] = mlp["loops"]["graph", "fused"]["launches"]["mppi"]
+    # the residual MLP's instantiations (phase 4e): kernel A's variants, the
+    # legacy rollout and the batched pair at N = 2, launched by
+    # fused_kernel_demo's main paths (the batched one at N = 64), and at
+    # N = 8 with the car's network, launched by its short loops; each with
+    # its build part's nvcc seconds where this run built the library
+    for n, rep, part_a, part_b, loop_of in (
+            (2, mlp, 13, 15, lambda k: {"rollout": ("mppi", "rollout"),
+                                        "batched": ("batched", "fused")}.get(k, (k, "fused"))),
+            (8, mlp["car"], 14, 16, lambda k: {"rollout": ("mppi", "rollout")}.get(
+                k, (k, "fused")))):
+        model_name = "residual MLP" if n == 2 else "residual MLP nx = 7, nu = 2"
+        for key, label, line in (
+                ("mppi", f"fused_mppi MPPI, {model_name} (mppi_fused_partial<ResidualMLP, {n}, ..., "
+                 f"kMPPI>, merged in the kernel)", 512),
+                ("smppi", f"fused_mppi SMPPI, {model_name} (mppi_fused_partial<ResidualMLP, {n}, "
+                 f"..., kSMPPI>)", 755),
+                ("kmppi", f"fused_mppi KMPPI, {model_name} (mppi_fused_partial<ResidualMLP, {n}, "
+                 f"..., kKMPPI>)", 940),
+                ("rollout", f"fused_rollout, {model_name} (fused_rollout<ResidualMLP, {n}>)", 75),
+                ("batched", f"fused_mppi batched, {model_name} (batched_partial<ResidualMLP, {n}, "
+                 f"kGlobal> + flash_merge)", 1118)):
+            d_ms, p_ms, b_ms, b_by = rep["timed"][key if key != "batched" or n == 2
+                                                  else "batched_N16_seed"]
+            cases = [c for k, c in rep["cases"].items()
+                     if (k if isinstance(k, str) else k[0]) == key]
+            kernels.append({
+                "name": label,
+                "route": "cuda",
+                "source": "pytorch_mppi_tpu_torch/csrc/fused_mppi.cu",
+                "replaces": f"pytorch_mppi_tpu/ops/pallas_rollout.py:{line}",
+                "launches": rep["loops"][loop_of(key)]["launches"][key],
+                "max_abs_err": rep["max_err"][key],
+                "ms": d_ms,
+                "ms_source": "cuda_graph",
+                "plain_ms": p_ms,
+                "bound_ms": b_ms,
+                "bound_by": b_by,
+                "library_ms": None,
+                "samples_beyond_tolerance": sum(c["beyond"] for c in cases),
+                "samples_at_the_wrap": sum(c["at_wrap"] for c in cases),
+                "nvcc_s": build_parts.get(part_b if key == "batched" else part_a),
+            })
+            if n == 2 and key in ("mppi", "batched"):
+                kernels[-1]["launches_graph_loop"] = mlp["loops"]["graph", key if key == "batched"
+                                                                  else "fused"]["launches"][key]
+                traced = mlp["traced"].get(key)
+                if traced is not None:  # the same network traced by the dynamics bridge
+                    kernels[-1].update(
+                        ms_traced=traced["ms"], ms_named_beside_traced=traced["named_ms"],
+                        plain_ms_traced=traced["plain_ms"], bound_ms_traced=traced["bound_ms"],
+                        launches_traced_check=traced["launches"],
+                        nvcc_s_traced=gen_plan["build_s"].get(f"mlp {key}"))
+            if n == 2 and key == "batched":
+                kernels[-1].update(ms_N16_seed=rep["timed"]["batched_N16_seed"][0],
+                                   bound_ms_N16_seed=rep["timed"]["batched_N16_seed"][2])
     # phase 9: kernel A with the null gate set against the static null row,
     # split over 8 shards (launches and merge), the largest error of a
     # merged split against the whole launch, and the launches of the

@@ -170,12 +170,13 @@
 //
 // Plain C interface (no PyTorch headers), loaded with ctypes; each entry
 // returns cudaGetLastError() after its launches.  The file builds whole, or
-// as fourteen translation units selected by -DFUSED_MPPI_PART=0..13 (0-4, 11,
-// 12 and 13: the single-plant variants and the rollout kernel of each device
-// model and register size, 13 the residual MLP's; 5: kernel B, the weighted
-// update, the sampler and the entry points; 6-10: the batched kernel of each
-// device model and register size), which ops/_build.py compiles in parallel
-// and links.  A device model generated from the user's torch callables
+// as seventeen translation units selected by -DFUSED_MPPI_PART=0..16 (0-4,
+// 11-14: the single-plant variants and the rollout kernel of each device
+// model and register size, 13 and 14 the residual MLP's at N = 2 and 8; 5:
+// kernel B, the weighted update, the sampler and the entry points; 6-10, 15
+// and 16: the batched kernel of each device model and register size, 15 and
+// 16 the residual MLP's), which ops/_build.py compiles in parallel and
+// links.  A device model generated from the user's torch callables
 // (ops/batch_last.py: the struct Generated, one statement a traced node,
 // reading the timestep t) builds into a library of its own: this file with
 // -DFUSED_MPPI_GENERATED=<mask of variants> -DFUSED_MPPI_MODEL_HEADER=<its
@@ -487,14 +488,18 @@ struct Pendulum {
 // (each encoded dimension as sin, cos), tanh hidden layers and a linear last
 // layer, x' = x + MLP(features), the wrapped dimensions wrapped again, then
 // the running cost on x': the gym pendulum's or |goal - x'|^2.  For nx, nu
-// <= 2 (the N = 2 arrays).  consts: a header of MLP_HEAD floats (the layers
-// L, the L + 1 widths, clip flag, lo, hi, the wrap and encode masks as bits,
-// the cost (0 pendulum, 1 quadratic), the goal), then per layer W (n_in rows
-// of p floats) and b (p floats), p = n_out rounded up to MLP_GROUP with
-// zeros, so that every row starts on 16 bytes.
+// <= MLP_MAX_N (the N = 2 and N = 8 arrays).  consts: a header of MLP_HEAD
+// floats (0: the layers L; 1-5: the L + 1 widths; 6-8: clip flag, lo, hi;
+// 9, 10: the wrap and encode masks as bits; 11: the cost, 0 pendulum or 1
+// quadratic; 12-19: the quadratic cost's goal, nx floats), then per layer W
+// (n_in rows of p floats) and b (p floats), p = n_out rounded up to
+// MLP_GROUP with zeros, so that every row starts on 16 bytes (the header's
+// 80 bytes too).
 //
 // At most MLP_MAX_LAYERS layers of at most MLP_MAX_WIDTH units (every MLP
-// the JAX package and its tests build is [3|4, 32, 32, 2] or [4, 16, 2]).
+// the JAX package and its tests build is [3|4, 32, 32, 2] or [4, 16, 2]; a
+// learned car, nx = 7, nu = 2, is [9|10, 32, 32, 7]): the features, at most
+// 3 MLP_MAX_N, fit the activations' array.
 // A thread evaluates its sample's network alone: the activations of the
 // layer in and the layer out in a local array of 2 * MLP_MAX_WIDTH floats
 // (indexed at run time, so local memory, which stays in L1: 512 bytes a
@@ -513,10 +518,15 @@ struct Pendulum {
 // its 528 schedulers, and each waits on its own loads and FMA chains.
 // Splitting a sample's layer over the block's threads is the redesign
 // left for later.
-constexpr int MLP_HEAD = 16;
+constexpr int MLP_HEAD = 20;
+constexpr int MLP_GOAL = 12;  // the goal's first float in the header
 constexpr int MLP_MAX_WIDTH = 64;
 constexpr int MLP_MAX_LAYERS = 4;
 constexpr int MLP_GROUP = 8;
+constexpr int MLP_MAX_N = 8;  // the largest nx, nu: the N = 8 instantiations
+static_assert(MLP_GOAL + MLP_MAX_N <= MLP_HEAD && MLP_HEAD % 4 == 0,
+              "the goal fits the header, and the weights start on 16 bytes");
+static_assert(3 * MLP_MAX_N <= MLP_MAX_WIDTH, "the features fit the activations");
 
 struct ResidualMLP {
   static constexpr bool kTerminal = false;
@@ -590,7 +600,7 @@ struct ResidualMLP {
 #pragma unroll
     for (int i = 0; i < N; ++i) {
       if (i < nx) {
-        const float d = c[12 + i] - x[i];
+        const float d = c[MLP_GOAL + i] - x[i];
         s += d * d;
       }
     }
@@ -2085,7 +2095,7 @@ cudaError_t launch_variant(const Params& p, int variant, size_t smem, cudaStream
   }
 }
 
-// parts 0-4, 11-13: the single-plant variants and the rollout kernel
+// parts 0-4, 11-14: the single-plant variants and the rollout kernel
 template <class Model, int N>
 cudaError_t launch_tiles(const Params& p, int variant, size_t smem, cudaStream_t s) {
   if (variant == kRollout) {
@@ -2110,7 +2120,7 @@ cudaError_t launch_batched_partial(const Params& p, size_t smem, cudaStream_t st
   return cudaGetLastError();
 }
 
-// parts 6-10: the batched variant
+// parts 6-10, 15, 16: the batched variant
 template <class Model, int N>
 cudaError_t launch_batched(const Params& p, int variant, size_t smem, cudaStream_t s) {
   if (variant != kBatched) return cudaErrorInvalidValue;
@@ -2213,6 +2223,27 @@ cudaError_t launch_mlp2(const Params& p, int v, size_t smem, cudaStream_t s) {
 #else
 cudaError_t launch_mlp2(const Params&, int, size_t, cudaStream_t);
 #endif
+#if FUSED_MPPI_HAS(14)
+cudaError_t launch_mlp8(const Params& p, int v, size_t smem, cudaStream_t s) {
+  return launch_tiles<ResidualMLP, 8>(p, v, smem, s);
+}
+#else
+cudaError_t launch_mlp8(const Params&, int, size_t, cudaStream_t);
+#endif
+#if FUSED_MPPI_HAS(15)
+cudaError_t batched_mlp2(const Params& p, int v, size_t smem, cudaStream_t s) {
+  return launch_batched<ResidualMLP, 2>(p, v, smem, s);
+}
+#else
+cudaError_t batched_mlp2(const Params&, int, size_t, cudaStream_t);
+#endif
+#if FUSED_MPPI_HAS(16)
+cudaError_t batched_mlp8(const Params& p, int v, size_t smem, cudaStream_t s) {
+  return launch_batched<ResidualMLP, 8>(p, v, smem, s);
+}
+#else
+cudaError_t batched_mlp8(const Params&, int, size_t, cudaStream_t);
+#endif
 #if FUSED_MPPI_HAS(6)
 cudaError_t batched_lq2(const Params& p, int v, size_t smem, cudaStream_t s) {
   return launch_batched<LinearQuadratic, 2>(p, v, smem, s);
@@ -2271,17 +2302,17 @@ Launcher find_launcher(int, int, int nx, int nu) {
 }
 #else
 // The launcher of a variant for a device model (by id) and its register size
-// (2, 8 or MAXN), or null.  The residual MLP has no batched instantiation.
+// (2, 8 or MAXN), or null.  The residual MLP takes nx, nu <= MLP_MAX_N.
 Launcher find_launcher(int variant, int model_id, int nx, int nu) {
   const int n = nx > nu ? nx : nu;
   const Launcher single[4][3] = {{launch_lq2, launch_lq8, launch_lq32},
                                  {launch_pendulum2, nullptr, nullptr},
                                  {launch_toy2, launch_toy8, launch_toy32},
-                                 {launch_mlp2, nullptr, nullptr}};
+                                 {launch_mlp2, launch_mlp8, nullptr}};
   const Launcher batched[4][3] = {{batched_lq2, batched_lq8, batched_lq32},
                                   {batched_pendulum2, nullptr, nullptr},
                                   {batched_toy2, batched_toy8, batched_toy32},
-                                  {nullptr, nullptr, nullptr}};
+                                  {batched_mlp2, batched_mlp8, nullptr}};
   if (model_id < 0 || model_id > 3 || n > MAXN) return nullptr;
   return (variant == kBatched ? batched : single)[model_id][n <= 2 ? 0 : n <= 8 ? 1 : 2];
 }
@@ -2324,11 +2355,13 @@ int fused_mppi_block() { return BLOCK; }
 int fused_mppi_max_n() { return MAXN; }
 
 // ResidualMLP's layout and bounds: 0 the header's floats, 1 the widest
-// layer, 2 the most layers, 3 the outputs of a group (ops/kernel_models.py
-// checks them)
+// layer, 2 the most layers, 3 the outputs of a group, 4 the goal's offset in
+// the header, 5 the largest nx or nu (ops/fused_solve.py checks them against
+// ops/kernel_models.py)
 int fused_mppi_mlp_limit(int which) {
-  const int limits[4] = {MLP_HEAD, MLP_MAX_WIDTH, MLP_MAX_LAYERS, MLP_GROUP};
-  return which >= 0 && which < 4 ? limits[which] : -1;
+  const int limits[6] = {MLP_HEAD, MLP_MAX_WIDTH, MLP_MAX_LAYERS, MLP_GROUP, MLP_GOAL,
+                         MLP_MAX_N};
+  return which >= 0 && which < 6 ? limits[which] : -1;
 }
 
 // Dynamic shared memory of kernel A with S samples a block (batched_partial

@@ -18,12 +18,13 @@ import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 SOURCE = _PKG / "csrc" / "fused_mppi.cu"
-PARTS = 14  # FUSED_MPPI_PART = 0 .. PARTS - 1 in fused_mppi.cu
+PARTS = 17  # FUSED_MPPI_PART = 0 .. PARTS - 1 in fused_mppi.cu
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -49,39 +50,51 @@ def library_path() -> Path:
     return BUILD_DIR / f"fused_mppi-{digest.hexdigest()[:16]}.so"
 
 
-def _run(procs):
-    """Wait for every process; raise with the first failure's output."""
-    outs = [p.communicate()[0] for p in procs]
-    for p, out in zip(procs, outs):
+def _run(procs, seconds=None):
+    """Wait for every process; raise with the first failure's output.  With
+    a list ``seconds``, append each process's seconds from now to its end
+    (the processes run together; each is drained in a thread of its own)."""
+    start = time.perf_counter()
+
+    def wait(p):
+        out = p.communicate()[0]
+        return out, time.perf_counter() - start
+
+    with ThreadPoolExecutor(max_workers=len(procs)) as pool:
+        done = list(pool.map(wait, procs))
+    for p, (out, _) in zip(procs, done):
         if p.returncode != 0:
             raise RuntimeError(f"kernel build failed: {p.args[0]} exited "
                                f"{p.returncode}\n{out}")
-    return outs
+    if seconds is not None:
+        seconds += [s for _, s in done]
+    return [out for out, _ in done]
 
 
 def build():
     """Compile the library if it is missing.  Returns ``(seconds, compiler
-    output)``, or None when it was already built; raises with the
-    compiler's output if ``nvcc`` fails."""
+    output, each part's seconds)``, or None when it was already built;
+    raises with the compiler's output if ``nvcc`` fails."""
     out = library_path()
     if out.is_file():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     start = time.perf_counter()
+    parts = []
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
         objs = [Path(tmpdir) / f"part{k}.o" for k in range(PARTS)]
         procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, f"-DFUSED_MPPI_PART={k}", "-c",
                                    "-o", str(obj), str(SOURCE)],
                                   stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
                  for k, obj in enumerate(objs)]
-        logs = _run(procs)
+        logs = _run(procs, parts)
         tmp = Path(tmpdir) / out.name
         logs += _run([subprocess.Popen([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
                                        stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                        text=True)])
         os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
-    return time.perf_counter() - start, "".join(logs)
+    return time.perf_counter() - start, "".join(logs), parts
 
 
 def load() -> ctypes.CDLL:

@@ -586,8 +586,9 @@ def _set_argtypes(lib, generated: bool = False):
         raise RuntimeError("fused_mppi.cu BLOCK or MAXN differs from fused_solve")
     lib.fused_mppi_mlp_limit.argtypes = [_I]
     lib.fused_mppi_mlp_limit.restype = _I
-    if [lib.fused_mppi_mlp_limit(i) for i in range(4)] != [
-            KM.MLP_HEAD, KM.MLP_MAX_WIDTH, KM.MLP_MAX_LAYERS, KM.MLP_GROUP]:
+    if [lib.fused_mppi_mlp_limit(i) for i in range(6)] != [
+            KM.MLP_HEAD, KM.MLP_MAX_WIDTH, KM.MLP_MAX_LAYERS, KM.MLP_GROUP, KM.MLP_GOAL,
+            KM.MLP_MAX_N]:
         raise RuntimeError("fused_mppi.cu's ResidualMLP layout differs from kernel_models")
     if any(lib.fused_mppi_smem_bytes(v, D, R, f, S) != smem_bytes(v, D, R, bool(f), S)
            for v in (MPPI, SMPPI, KMPPI, BATCHED) for D, R in ((60, 30), (60, 60), (300, 300))
@@ -687,10 +688,10 @@ def check_kernel_model(config: MPPIConfig, model: KernelModel):
             f"no timestep (only a traced model does: ops/batch_last.py)")
     if model.model_id == KM.RESIDUAL_MLP:
         head = KM.mlp_header(model.consts)
-        if (max(nx, nu) > 2 or head["layers"] > KM.MLP_MAX_LAYERS
+        if (max(nx, nu) > KM.MLP_MAX_N or head["layers"] > KM.MLP_MAX_LAYERS
                 or max(head["widths"]) > KM.MLP_MAX_WIDTH):
             raise FusedSolveUnavailable(
-                f"the residual MLP's kernel takes nx, nu <= 2 and at most "
+                f"the residual MLP's kernel takes nx, nu <= {KM.MLP_MAX_N} and at most "
                 f"{KM.MLP_MAX_LAYERS} layers of at most {KM.MLP_MAX_WIDTH} units; this one has "
                 f"nx={nx}, nu={nu} and {head['layers']} layers, widths {head['widths']}")
 
@@ -940,10 +941,6 @@ def _make_launch(variant: int, config: MPPIConfig, model: KernelModel, R: int,
     model = as_kernel_model(config, model)
     check_kernel_model(config, model)
     model_id = BL.launch_id(model, terminal)
-    if variant == BATCHED and model.model_id == KM.RESIDUAL_MLP:
-        raise FusedSolveUnavailable(
-            "the batched kernel has no residual-MLP instantiation yet (ROADMAP.md Queue 2a "
-            "piece 4, the batched MLP)")
     K, T, nx, nu = config.K, config.T, config.nx, config.nu
     if terminal is not None and terminal.nx != nx:  # the kernel reads goal[:nx]
         raise ValueError(f"terminal cost {terminal.name!r} is for nx={terminal.nx}; the "
@@ -1071,7 +1068,9 @@ def make_transposed_fused_solve(config: MPPIConfig, model: KernelModel,
     Raises ValueError for a non-float32
     config or a model whose sizes differ from the config's, and
     :class:`FusedSolveUnavailable` when nx or nu exceeds the device models'
-    registers (32), for a step-dependent config with a named model, and for
+    registers (32), for a residual MLP beyond its kernel's bounds (nx, nu
+    ≤ 8, four layers of 64 units: :func:`check_kernel_model`), for a
+    step-dependent config with a named model, and for
     ``config.num_elites`` elites that with the null row exceed JAX's
     injection window of min(K, 128) samples (``pallas_rollout.py:596-603``);
     :class:`~.batch_last.UnsupportedPrimitive` for a ``terminal_final`` that

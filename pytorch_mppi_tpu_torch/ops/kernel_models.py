@@ -38,12 +38,15 @@ TOY2D = 2
 RESIDUAL_MLP = 3
 GENERATED = 1000  # and above: the generated kernels of ops/batch_last.py
 
-# csrc/fused_mppi.cu's ResidualMLP: the floats of its constants' header, its
-# compile-time bounds on a layer's width and on the layers, and the outputs
-# a thread computes together (the padded widths of the weights' rows)
-MLP_HEAD = 16
+# csrc/fused_mppi.cu's ResidualMLP: the floats of its constants' header and
+# the goal's offset in it, its compile-time bounds on a layer's width, on
+# the layers and on nx and nu, and the outputs a thread computes together
+# (the padded widths of the weights' rows)
+MLP_HEAD = 20
+MLP_GOAL = 12
 MLP_MAX_WIDTH = 64
 MLP_MAX_LAYERS = 4
+MLP_MAX_N = 8
 MLP_GROUP = 8
 MLP_COSTS = ("pendulum", "quadratic")
 
@@ -216,11 +219,11 @@ def _mlp_consts(params, nx: int, nu: int, u_clip, angle_wrap_dims, angle_encode_
     """The float32 constants of ``ResidualMLP``: a header of ``MLP_HEAD``
     floats (the layer count L, the L + 1 widths, the clip flag and bounds,
     the wrap and encode masks as bits of the state dimensions, the cost, 0
-    for the pendulum's or 1 for the quadratic's, and its goal), then each
-    layer's W as (n_in, p) rows and b as p floats, p = n_out rounded up to
-    ``MLP_GROUP`` with zeros.  Fields a model beyond the kernel's bounds
-    cannot hold are left out: such a model never reaches the kernel
-    (``fused_solve.check_kernel_model``)."""
+    for the pendulum's or 1 for the quadratic's, and from ``MLP_GOAL`` on
+    its goal's nx floats), then each layer's W as (n_in, p) rows and b as p
+    floats, p = n_out rounded up to ``MLP_GROUP`` with zeros.  Fields a
+    model beyond the kernel's bounds cannot hold are left out: such a model
+    never reaches the kernel (``fused_solve.check_kernel_model``)."""
     widths = [params[0][0].shape[0]] + [W.shape[1] for W, _ in params]
     head = torch.zeros(MLP_HEAD)
     head[0] = len(params)
@@ -232,7 +235,8 @@ def _mlp_consts(params, nx: int, nu: int, u_clip, angle_wrap_dims, angle_encode_
     head[10] = sum(1 << d for d in angle_encode_dims)
     head[11] = MLP_COSTS.index(cost)
     if cost == "quadratic":
-        head[12:12 + min(nx, 2)] = goal[:2]
+        n = min(nx, MLP_MAX_N)
+        head[MLP_GOAL:MLP_GOAL + n] = goal[:n]
     blocks = [head]
     for W, b in params:
         n_in, n_out = W.shape
@@ -258,9 +262,9 @@ def residual_mlp_model(params, nx: int, nu: int, u_clip=None, angle_wrap_dims=()
     ``"quadratic"`` (``‖goal − x'‖²``, ``goal`` (nx,)).
 
     The kernels take up to ``MLP_MAX_LAYERS`` layers of up to
-    ``MLP_MAX_WIDTH`` units and nx, nu ≤ 2; a larger model plans on the
-    plain path with a warning.  Retraining between commands needs the
-    weights as ``dynamics_params``, which takes the plain path."""
+    ``MLP_MAX_WIDTH`` units and nx, nu ≤ ``MLP_MAX_N`` (8); a larger model
+    plans on the plain path with a warning.  Retraining between commands
+    needs the weights as ``dynamics_params``, which takes the plain path."""
     from ..models.mlp import make_residual_dynamics
 
     if cost not in MLP_COSTS:
@@ -287,14 +291,10 @@ def residual_mlp_model(params, nx: int, nu: int, u_clip=None, angle_wrap_dims=()
     dyn = make_residual_dynamics(nx, nu, u_clip, wrap, encode)
     on = {}
 
-    def weights(device, dtype):
-        key = (device, dtype)
-        if key not in on:  # copied once, so that a CUDA graph captures no copy
-            on[key] = [(W.to(device, dtype), b.to(device, dtype)) for W, b in params]
-        return on[key]
-
     def dynamics(state, action):
-        return dyn(weights(state.device, state.dtype), state, action)
+        weights = _on_device(on, state, lambda *key: [(W.to(*key), b.to(*key))
+                                                      for W, b in params])
+        return dyn(weights, state, action)
 
     if cost == "pendulum":
         from ..models.pendulum import pendulum_running_cost
@@ -305,14 +305,28 @@ def residual_mlp_model(params, nx: int, nu: int, u_clip=None, angle_wrap_dims=()
         goals = {}
 
         def running_cost(state, action):
-            key = (state.device, state.dtype)
-            if key not in goals:
-                goals[key] = goal.to(state.device, state.dtype)
-            return ((goals[key] - state) ** 2).sum(dim=-1)
+            return ((_on_device(goals, state, goal.to) - state) ** 2).sum(dim=-1)
 
     consts = _mlp_consts(params, nx, nu, u_clip, wrap, encode, cost, goal)
     return _tag(KernelModel("residual_mlp", RESIDUAL_MLP, nx, nu, consts, dynamics,
                             running_cost))
+
+
+def _on_device(cache: dict, state: torch.Tensor, make: Callable):
+    """``make(device, dtype)`` for ``state``'s device and dtype, made once
+    and kept in ``cache`` (so that a CUDA graph captures no copy), or made
+    anew while ``state`` belongs to a trace (``ops/batch_last.py`` traces the
+    user's callables with ``make_fx`` over ``functionalize``;
+    ``torch.export`` runs on fake tensors): a tensor of the trace must not
+    outlive it in the cache."""
+    key = (state.device, state.dtype)
+    hit = cache.get(key)
+    if hit is None:
+        hit = make(*key)
+        if not (torch._C._functorch.is_functorch_wrapped_tensor(state)
+                or isinstance(state, torch._subclasses.fake_tensor.FakeTensor)):
+            cache[key] = hit
+    return hit
 
 
 _PLAIN = {}  # the models plain_model rebuilt, by id, sizes and constants
@@ -369,7 +383,7 @@ def plain_model(model_id: int, consts: torch.Tensor, nx: int, nu: int) -> Kernel
         model = residual_mlp_model(
             params, nx, nu, u_clip=(c[7], c[8]) if head["clip"] else None,
             angle_wrap_dims=head["wrap"], angle_encode_dims=head["encode"], cost=head["cost"],
-            goal=consts[12:12 + nx] if head["cost"] == "quadratic" else None)
+            goal=consts[MLP_GOAL:MLP_GOAL + nx] if head["cost"] == "quadratic" else None)
     else:
         raise ValueError(f"no device model has id {model_id}")
     _PLAIN[key] = model

@@ -129,7 +129,8 @@ def make_fused_rollout(config: MPPIConfig, model: KernelModel, tile_k: int = Non
     holds it); None takes :func:`~.fused_solve.tile_samples` of K and the
     card's SM count at each call.  Raises as
     :func:`~.fused_solve.make_transposed_fused_solve` for the config and
-    model; a traced model (:func:`~.batch_last.kernel_model`) runs in its
+    model (:func:`~.fused_solve.check_kernel_model`: a residual MLP takes
+    nx, nu ≤ 8 here too); a traced model (:func:`~.batch_last.kernel_model`) runs in its
     own library, with the timestep.  The call reaches :func:`launch_rollout`
     directly or through its operator (:func:`~.fused_solve.via_ops`)."""
     model = FS.as_kernel_model(config, model)

@@ -1820,9 +1820,12 @@ def make_batched_step(config: MPPIConfig, num_envs: int, dynamics: Callable,
     operand mode (one ``sample_noise_flat`` draw passed to it) from
     ``_BATCHED_KERNEL_MIN_K`` samples on and the plain path below, with an
     info log; ``"force"`` keeps operand mode at any K and ``"kernel_rng"``
-    the in-kernel draw (seed mode), each with a warning below that K.  A
-    configuration the kernel cannot take goes to the plain path with a
-    warning.  ``transposed_solve_override`` is a built batched solve that
+    the in-kernel draw (seed mode), each with a warning below that K.  The
+    kernel takes the named device models (the learned residual MLP of
+    ``kernel_models.residual_mlp_model`` up to nx, nu = 8 included) and the
+    user's own traced ones; a configuration or model the kernel cannot
+    take goes to the plain path with a warning that says why.
+    ``transposed_solve_override`` is a built batched solve that
     takes the route's place (the tests drive bits mode through it).
 
     ``terminal_state_cost(states (N, K, T, nx), actions (N, K, T, nu)) ->

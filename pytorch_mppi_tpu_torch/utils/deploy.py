@@ -50,7 +50,10 @@ Guarantees and limits:
   there is no card raises: it is never moved to the CPU;
 - a live ``info`` payload raises a ValueError (the exported body takes
   ``info=None``), a file of a version this build does not read a
-  ValueError (it reads versions 1, without kernels, and 2);
+  ValueError (it reads versions 1, without kernels, 2 and 3).  A file of
+  version 1 or 2 whose programs run the residual MLP's device model
+  raises a ValueError too: its constants hold the goal in the 16-float
+  header of before, which the kernels no longer read (export it again);
 - stochastic dynamics cannot be exported yet (their per-step generators
   are arguments of the user's code, which ``torch.export`` can neither take
   as inputs nor replay; ROADMAP.md Queue 1 item 10), nor a controller with
@@ -70,14 +73,18 @@ import torch
 from ..config import Artifacts, MPPIConfig
 from ..ops import batch_last as BL
 from ..ops import fused_solve as FS
+from ..ops import kernel_models as KM
 from ..ops import library as _library
 from ..ops.solve import CommandStreams
 from . import checkpoint as _ckpt
 
 logger = logging.getLogger(__name__)
 
-_FORMAT_VERSION = 2
-_READS = (1, 2)  # version 1 carries no generated kernels
+_FORMAT_VERSION = 3
+_READS = (1, 2, 3)  # version 1 carries no generated kernels
+# the first version whose residual-MLP constants have the header of
+# kernel_models.MLP_HEAD floats (20, the goal's nx <= 8 floats from 12 on)
+_MLP_LAYOUT = 3
 # the operators whose launches name a device model, and the argument that does
 _MODEL_ARG = {"kernel_a": "spec", "batched": "spec", "rollout": "model_id"}
 
@@ -188,10 +195,10 @@ def _route(ctrl) -> str:
     return "rollout" if ctrl.use_pallas == "rollout" else "fused"
 
 
-def _launched_kernels(programs) -> list:
-    """The generated kernels (``ops/batch_last.py``) that the programs'
-    operator nodes launch, by id: the ``LaunchSpec.model_id`` of kernel A's
-    and the batched pair's, the rollout's ``model_id``."""
+def _launched_models(programs) -> list:
+    """The device models that the programs' operator nodes launch, by id:
+    the ``LaunchSpec.model_id`` of kernel A's and the batched pair's, the
+    rollout's ``model_id``."""
     ids = set()
     for program in programs:
         for node in program.graph.nodes:
@@ -203,10 +210,14 @@ def _launched_kernels(programs) -> list:
             at = [a.name for a in node.target._schema.arguments].index(arg)
             value = node.args[at] if at < len(node.args) else node.kwargs[arg]
             # a spec is LaunchSpec(variant, model_id, ...)
-            model_id = int(value[1] if arg == "spec" else value)
-            if model_id >= BL.GENERATED:
-                ids.add(model_id)
+            ids.add(int(value[1] if arg == "spec" else value))
     return sorted(ids)
+
+
+def _launched_kernels(programs) -> list:
+    """The generated kernels (``ops/batch_last.py``) that the programs
+    launch, by id."""
+    return [i for i in _launched_models(programs) if i >= BL.GENERATED]
 
 
 def export_solver(ctrl, path: Optional[str] = None, x0_example=None) -> ServingSolver:
@@ -319,6 +330,13 @@ def load_solver(path: str) -> ServingSolver:
         BL.load_kernel(desc)
     programs = [torch.export.load(io.BytesIO(tree[name].numpy().tobytes()))
                 for name in ("blob_shift", "blob_no_shift")]
+    if meta["version"] < _MLP_LAYOUT and (
+            KM.RESIDUAL_MLP in _launched_models(programs)
+            or any(d["model"].get("named") == KM.RESIDUAL_MLP for d in meta.get("kernels", ()))):
+        raise ValueError(
+            f"this version-{meta['version']} artifact runs the residual MLP's device model with "
+            f"the constants' layout of before version {_MLP_LAYOUT} (the goal in a 16-float "
+            f"header); export it again with this build")
     on = (_ckpt.map_tensors(tree[k], lambda t: t.to(device))
           for k in ("params", "state", "dyn_params"))
     return ServingSolver(*programs, *on, meta)

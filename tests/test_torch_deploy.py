@@ -196,6 +196,30 @@ class TestExportRoundtrip:
         with pytest.raises(ValueError, match="version"):
             deploy.load_solver(path)
 
+    @pytest.mark.parametrize("version", [2, 3])
+    def test_old_mlp_layout_refused(self, tmp_path, version):
+        """A file of version 2 or before holds the residual MLP's constants
+        with the goal in the header of 16 floats, which the kernels no
+        longer read: loading one raises; the same file as version 3 loads."""
+        model = _learned_car()
+        ctrl = P.MPPI(model.dynamics, model.running_cost, 4, torch.eye(1), num_samples=32,
+                      horizon=4, seed=SEED, use_pallas=True, device="cpu")
+        path = str(tmp_path / "mlp.npz")
+        deploy.export_solver(ctrl, path)
+        tree = ckpt.load(path)
+        meta = json.loads(tree["meta"])
+        assert meta["version"] == 3
+        meta["version"] = version
+        tree["meta"] = json.dumps(meta)
+        ckpt.save(path, tree)
+        if version < 3:
+            with pytest.raises(ValueError, match="export it again"):
+                deploy.load_solver(path)
+        else:
+            x = torch.tensor([0.5, -0.3, 2.9, 0.1])
+            torch.testing.assert_close(deploy.load_solver(path).command(x), ctrl.command(x),
+                                       rtol=0, atol=0)
+
 
 def _serve_in_child(path, out, steps=2, x=(-3.0, -2.0)):
     """Drive an artifact in a fresh interpreter that imports only the port
@@ -368,6 +392,29 @@ class TestKernelRoutes:
         for _ in range(3):
             torch.testing.assert_close(ctrl.command(x), solver.command(x), rtol=0, atol=0)
 
+    def test_batched_learned_model(self, tmp_path):
+        """MPPI_Batched on the batched pair with a learned residual MLP of
+        four states (its goal past the header's old two floats), in seed
+        mode: on the CPU the operator rebuilds the model from its constants
+        (``plain_model``, through ``fused_solve.plain_kernel_a``), and the
+        loaded artifact replays the live controller bit for bit over five
+        commands."""
+        model = _learned_car()
+        ctrl = P.MPPI_Batched(model.dynamics, model.running_cost, 4, torch.eye(1), num_envs=3,
+                              num_samples=64, horizon=6, seed=SEED, use_pallas="kernel_rng",
+                              device="cpu")
+        assert ctrl._fns.fused
+        path = str(tmp_path / "batched_mlp.npz")
+        deploy.export_solver(ctrl, path)
+        solver = deploy.load_solver(path)
+        assert _port_ops(solver) == {"batched"} and solver.meta["kernel_keys"]
+        x0 = torch.tensor([[0.5, -0.3, 2.9, 0.1], [0.0, 0.0, -3.0, 0.0], [1.0, 1.0, 0.0, 1.0]])
+        for _ in range(5):
+            a = ctrl.command(x0)
+            torch.testing.assert_close(a, solver.command(x0), rtol=0, atol=0)
+            torch.testing.assert_close(ctrl.cost_total, solver.cost_total, rtol=0, atol=0)
+            x0 = model.dynamics(x0, a)
+
     def test_per_sample_states(self, tmp_path):
         """A (K, nx) ``x0_example`` exports the per-sample-state entry
         point."""
@@ -377,6 +424,17 @@ class TestKernelRoutes:
         g = torch.Generator().manual_seed(5)
         xs = torch.randn(64, 2, generator=g)
         torch.testing.assert_close(ctrl.command(xs), solver.command(xs), rtol=0, atol=0)
+
+
+def _learned_car():
+    """A residual MLP of four states and one action, dimension 2 wrapped,
+    with the quadratic cost toward a goal of four values."""
+    rng = np.random.default_rng(4)
+    params = [(torch.tensor(rng.standard_normal((a, c)) * 0.3, dtype=DTYPE),
+               torch.tensor(rng.standard_normal(c) * 0.1, dtype=DTYPE))
+              for a, c in ((5, 16), (16, 16), (16, 4))]
+    return residual_mlp_model(params, 4, 1, angle_wrap_dims=(2,), cost="quadratic",
+                              goal=[1.0, -1.0, 3.0, 0.5])
 
 
 class TestOperators:

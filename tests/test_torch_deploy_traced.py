@@ -281,11 +281,13 @@ def test_serves_bit_for_bit_in_a_fresh_process(served, name):
 
 
 def test_artifact_format(served):
-    """Version 2 lists each generated kernel's program (JSON, no compiled
-    code): a traced model's nodes, outputs, sizes, timestep use and float64
-    constants; a named model's id; the traced terminal cost's program."""
+    """Version 2 and later list each generated kernel's program (JSON, no
+    compiled code): a traced model's nodes, outputs, sizes, timestep use
+    and float64 constants; a named model's id; the traced terminal cost's
+    program.  Version 3 (the residual MLP's constants with a header of 20
+    floats) is written today."""
     meta = served["solvers"]["fused_traced_terminal"].meta
-    assert meta["version"] == 2
+    assert meta["version"] == 3
     (desc,) = meta["kernels"]
     assert set(desc["model"]) == {"nodes", "outputs", "nx", "nu", "uses_t", "consts64"}
     assert not desc["model"]["uses_t"] and desc["terminal"]["nx"] == 2
@@ -400,11 +402,11 @@ class TestRegistry:
 
 
 def test_unreadable_version_raises(tmp_path):
-    path = str(tmp_path / "v3.npz")
+    path = str(tmp_path / "v4.npz")
     deploy.export_solver(ROUTES["version_1"][0](), path)
     tree = ckpt.load(path)
     meta = json.loads(tree["meta"])
-    meta["version"] = 3
+    meta["version"] = 4
     tree["meta"] = json.dumps(meta)
     ckpt.save(path, tree)
     with pytest.raises(ValueError, match="reads versions 1, 2"):
