@@ -60,7 +60,7 @@ the package is not beside it.  Phases, each fatal when it fails:
    tiles) and at K = 1,000 with 64 samples a block, then the moments through
    its cost, its costs against the transposed kernel's on one key and 50
    calls in a row;
-4. main paths: 300 closed-loop commands of ``MPPI``, ``SMPPI`` and
+4. main paths: 150 closed-loop commands (``COMMANDS``) of ``MPPI``, ``SMPPI`` and
    ``KMPPI`` on ``linear_quadratic`` at K = 10,000, T = 30 (``bench.py``'s
    flagship problem), fused (``use_pallas=True``, one launch a command) with
    the launch count and the goal checked, then the same on the plain torch
@@ -143,11 +143,30 @@ the package is not beside it.  Phases, each fatal when it fails:
    learned car's network ([9, 32, 32, 7], nx = 7, nu = 2, seeded random
    weights) against their plain versions (kernel A's three variants and
    the rollout at K = 10,000, the batched pair at N = 16), timed beside the
-   nx = 2 model's, and 30 commands of each of its five routes with exact
+   nx = 2 model's, and 10 commands (``CAR_COMMANDS``) of each of its five routes with exact
    launch counts; and the trained network passed untagged, traced by the
    dynamics bridge into kernel A and the batched pair (their libraries
    built in phase 2), against their plain versions and timed beside the
-   named instantiations in turns;
+   named instantiations in turns; then learned dynamics of any width
+   (``wide_dynamics``): ``ResidualMLPBlock``, whose layers a block's threads
+   compute together, forced onto the trained [3, 32, 32, 2] and the car's
+   [9, 32, 32, 7] networks, bit for bit equal to ``ResidualMLP`` in kernel
+   A's three variants (bits and seed mode), the legacy rollout and the
+   batched pair (bits, seed and operand mode), both timed in turns; a
+   learned quadrotor's [16, 256, 256, 12] (nx = 12, nu = 4, beyond the
+   per-thread bounds) at K = 10,000, T = 30 in kernel A's three variants
+   and the rollout and at N = 16, K = 10,240 in the batched pair, and an
+   untagged ``nn.Sequential`` of MBPO's shape, [16, 200, 200, 200, 200, 12]
+   with SiLU, traced into dense layers (its two libraries built in phase
+   2), in kernel A and the batched pair, each against its plain version on
+   the kernel's draws with each cost's error against a float64 rollout
+   within ``F64_FACTOR`` times the float32 plain version's, timed beside
+   its bound and its plain version; 10 commands of each route on the
+   quadrotor (MPPI, SMPPI, KMPPI fused, the legacy route, ``MPPI_Batched``)
+   and of MPPI and ``MPPI_Batched`` on the MBPO network (no plain-path
+   warning), each as its own plant, with exact ``*_block`` launch counts,
+   and a ``run_mppi_jit`` graph loop of the quadrotor's fused MPPI bit for
+   bit against the eager loop;
 5. swing-up: the pendulum with ``use_pallas=True``, 150 steps;
 6. closed loops through the kernels: the ``tests/test_mppi.py`` LQ problem
    (KMPPI reaches the goal, SMPPI stays finite), the toy2d comparison of
@@ -234,8 +253,9 @@ the package is not beside it.  Phases, each fatal when it fails:
    checks; ``smooth_mppi``'s three rows finite after 20 steps;
 7. the ``kernels`` line (eight kernels, the residual MLP's ten
    instantiations with each build part's ``nvcc`` seconds and the traced
-   network's times beside them, the generated models' eight and phase 12's
-   generated batched pair), the card line, then the last line
+   network's times beside them, the block models' seven rows, the
+   generated models' eight and phase 12's generated batched pair), the
+   card line, then the last line
    ``{"ok": true, "device": ...}``.
 """
 import atexit
@@ -264,8 +284,10 @@ NSP = T // 2  # KMPPI's default support points at the flagship
 # then from 500 to 300 to give back the time phase 8's traced artifacts take
 # (a run of 861 s at 500, about 1,145 s at a slow host's 1.33x), then to 200
 # for phase 4e's batched and nx = 7 MLP checks and the traced network's two
-# libraries (a run of 869 s at 300, about 1,156 s at 1.33x)
-COMMANDS = 200
+# libraries (a run of 869 s at 300, about 1,156 s at 1.33x), then to 150 for
+# phase 4e's wide models and their two libraries (a run of 1,103.5 s at 200 on
+# a host 1.5x slower in every phase than the one before)
+COMMANDS = 150
 REFINE_COMMANDS = 50
 WARMUP = 20
 LOOP_K = 500  # the closed loops of phase 6
@@ -338,7 +360,31 @@ MLP_MAIN_N, MLP_MAIN_FRACTION = 64, 0.9
 CAR_SIZES, CAR_NX, CAR_NU, CAR_STEP = [9, 32, 32, 7], 7, 2, 0.1
 CAR_GOAL = (1.0, -1.0, 3.0, 0.5, 1.5, -0.5, 0.25)
 CAR_X0 = (0.5, -0.3, 2.9, 0.1, 1.0, -0.2, 0.4)
-CAR_COMMANDS = 30
+# (cut from 30 to 10 with the wide models' loops, whose batched commands
+# take 0.3 s each)
+CAR_COMMANDS = 10
+# learned dynamics of any width (phase 4e, wide_dynamics): a learned
+# quadrotor, nx = 12, nu = 4 (position, velocity, attitude and body rates;
+# the four rotor commands), [16, 256, 256, 12] tanh with seeded random
+# weights, the last layer scaled by QUAD_STEP, the quadratic cost toward
+# QUAD_GOAL (a hover point), beyond the per-thread model's bounds, so on
+# ResidualMLPBlock; a user's own nn.Sequential of MBPO's shape (Janner et
+# al., NeurIPS 2019: four hidden layers of 200 SiLU units) on (state,
+# action), a residual on the same plant, traced untagged into dense layers;
+# their kernels against the plain versions on the kernel's draws, each
+# cost's error against a float64 rollout of the same actions within
+# F64_FACTOR times the float32 plain version's (the kernel sums each unit
+# in input order, 256 products, the plain version's products in blocks:
+# its rounding grows with the sum's length, up to sqrt(256) / sqrt(32) =
+# 2.8 times a blocked sum's for random signs; the factor leaves room for
+# the sums' tails), then CAR_COMMANDS closed-loop commands of every route
+# on the model as its own plant
+QUAD_SIZES, QUAD_NX, QUAD_NU, QUAD_STEP = [16, 256, 256, 12], 12, 4, 0.1
+QUAD_GOAL = (1.0, -1.0, 2.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0)
+QUAD_X0 = (0.0, 0.0, 1.0, 0.2, -0.1, 0.0, 0.05, -0.05, 0.1, 0.0, 0.0, 0.0)
+MBPO_SIZES = [16, 200, 200, 200, 200, 12]
+F64_FACTOR = 8
+WIDE_CALLS = 5  # calls in the CUDA graph that times the wide batched pairs
 # the deployment phase (8): commands each artifact replays in a fresh process
 # against the live controller, commands timed for the medians (after a
 # warm-up), and the commands a restored checkpoint continues for
@@ -514,21 +560,24 @@ def check(cond, msg):
 
 def _per_step(model, nx, nu):
     """Operations of one device-model step plus its running cost."""
-    if getattr(model, "program", None) is not None:  # a generated model: scale, nodes, sum
-        from pytorch_mppi_tpu_torch.ops.batch_last import _count_ops
+    if getattr(model, "program", None) is not None:
+        # a generated model: scale, scalar nodes, dense layers (two a
+        # multiply-add, one a bias), sum
+        from pytorch_mppi_tpu_torch.ops.batch_last import _count_ops, dense_ops
 
-        return nu + _count_ops(model.program, model.outputs) + 1
+        return (nu + _count_ops(model.program, model.outputs)
+                + dense_ops(model.program, model.outputs) + 1)
     if model.name == "pendulum":  # scale 1, step 12, cost 9, sum 1
         return nu + 12 + 9 + 1
-    if model.name == "residual_mlp":
+    if model.name in ("residual_mlp", "residual_mlp_block"):
         # scale; each layer's n_in * n_out fused multiply-adds and n_out bias
         # additions, tanh on the hidden units; the wrap (fmodf, compare, add,
         # two sums) on the way in and out, sin and cos of an encoded
         # dimension, the clip, the residual; the cost (pendulum 9, or a
         # difference and a multiply-add a state); the sum
-        from pytorch_mppi_tpu_torch.ops.kernel_models import mlp_header
+        from pytorch_mppi_tpu_torch.ops.kernel_models import mlp_layout
 
-        head = mlp_header(model.consts)
+        head = mlp_layout(model)
         w = head["widths"]
         ops = nu + sum(2 * a * b + b for a, b in zip(w, w[1:])) + sum(w[1:-1])
         ops += 10 * len(head["wrap"]) + 2 * len(head["encode"])
@@ -778,7 +827,11 @@ def in_turns(fns, iters=20):
     return {k: statistics.mean(v) for k, v in ms.items()}
 
 
-def breakdown(name, ctrl, step, x, n=50):
+# commands a breakdown profiles (cut from 50 to keep the run inside its time)
+BREAKDOWN_COMMANDS = 25
+
+
+def breakdown(name, ctrl, step, x, n=BREAKDOWN_COMMANDS):
     """Where a command's time goes: device kernels per command from the
     profiler, and the device's idle share of the host-clock window."""
     from torch.autograd import DeviceType
@@ -1117,9 +1170,9 @@ def wrap_edge(model, perturbed, x0T, idx, T_, nu, u_scale=1.0):
     dimension of the residual MLP) at some step: a sample there may take
     the other branch of the wrap in the kernel, its state then differing
     by 2π; and each sample's least distance."""
-    from pytorch_mppi_tpu_torch.ops.kernel_models import mlp_header
+    from pytorch_mppi_tpu_torch.ops.kernel_models import mlp_layout
 
-    dims = list(mlp_header(model.consts)["wrap"])
+    dims = list(mlp_layout(model)["wrap"])
     st = x0T.T[idx]
     dist = torch.full((idx.numel(),), math.inf, device=st.device)
     for t in range(T_ if dims else 0):
@@ -1159,18 +1212,25 @@ def batched_mlp_agree(model, solve, lead, rest, T_, nu):
     return ok, c_err, u_err, int(beyond.sum()), int(excused.sum())
 
 
-def learned_car(dev):
-    """Phase 4e's residual MLP at nx = 7: ``CAR_SIZES`` with seeded random
-    weights (``mlp_init``), the last layer scaled by ``CAR_STEP``, the
-    heading (dimension 2) wrapped, the quadratic cost toward ``CAR_GOAL``."""
+def learned_car_params(dev):
+    """The car's weights: ``CAR_SIZES`` seeded (``mlp_init``), the last layer
+    scaled by ``CAR_STEP``."""
     from pytorch_mppi_tpu_torch.models import mlp_init
-    from pytorch_mppi_tpu_torch.ops.kernel_models import residual_mlp_model
 
     params = mlp_init(CAR_SIZES, torch.Generator().manual_seed(19), torch.float32, dev)
     W, b = params[-1]
     params[-1] = (W * CAR_STEP, b * CAR_STEP)
-    return residual_mlp_model(params, CAR_NX, CAR_NU, angle_wrap_dims=(2,), cost="quadratic",
-                              goal=CAR_GOAL)
+    return params
+
+
+def learned_car(dev):
+    """Phase 4e's residual MLP at nx = 7: ``CAR_SIZES`` with seeded random
+    weights (``learned_car_params``), the heading (dimension 2) wrapped, the
+    quadratic cost toward ``CAR_GOAL``."""
+    from pytorch_mppi_tpu_torch.ops.kernel_models import residual_mlp_model
+
+    return residual_mlp_model(learned_car_params(dev), CAR_NX, CAR_NU, angle_wrap_dims=(2,),
+                              cost="quadratic", goal=CAR_GOAL)
 
 
 def untagged(model):
@@ -1201,7 +1261,6 @@ def learned_dynamics(dev, gen):
     from pytorch_mppi_tpu_torch.ops import fused_solve as FS
     from pytorch_mppi_tpu_torch.ops import legacy as LG
     from pytorch_mppi_tpu_torch.ops import solve as PS
-    from pytorch_mppi_tpu_torch.ops.kernels import interpolation_operators
 
     def reset_launches():
         for name in FS.launches:
@@ -1243,33 +1302,9 @@ def learned_dynamics(dev, gen):
                           num_support_pts=nsp if variant == "kmppi" else 0,
                           smppi=variant == "smppi")
 
-    def operands_of(nx, nu, x0, sigma):
-        """Kernel A's operands for each variant at the demo's shape: every
-        sample from ``x0``, a nominal U of scale 0.5, the action cost
-        lambda U sigma^-2 (lambda = 1), the drawn rows' and the actions'
-        bounds ±2."""
-        D, R_k = T_ * nu, nsp * nu
-        x0T = torch.tensor(x0, device=dev)[:, None].expand(nx, K_)
-        full = lambda v, n=D: torch.full((n,), v, device=dev)  # noqa: E731
-        lam = torch.tensor(1.0, device=dev)
-        U2 = torch.randn(D, generator=gen, device=dev) * 0.5
-        a_flat = (U2 / sigma ** 2).contiguous()
-        interp, _ = interpolation_operators(RBFKernel(2.0), T_, nsp, torch.float32, device=dev)
-        Wt = torch.kron(interp, torch.eye(nu, device=dev)).contiguous()
-        one = torch.tensor(1.0, device=dev)
-        return x0T, {
-            "mppi": (x0T, U2, full(sigma), full(0.0), full(-2.0), full(2.0), a_flat, lam),
-            "smppi": (x0T, U2, torch.randn(D, generator=gen, device=dev) * 0.5, full(sigma),
-                      full(0.0), full(-2.0), full(2.0), full(-2.0), full(2.0), a_flat, lam, one,
-                      one),
-            "kmppi": (x0T, U2, torch.randn(R_k, generator=gen, device=dev) * 0.5,
-                      full(sigma, R_k), full(0.0, R_k), full(-2.0, R_k), full(2.0, R_k),
-                      full(-2.0), full(2.0), a_flat, Wt, lam),
-        }
-
     shapes = {"residual_mlp": (model, 2, 1, [math.pi, 1.0], math.sqrt(10.0), report),
               "car [9, 32, 32, 7]": (car, CAR_NX, CAR_NU, list(CAR_X0), 1.0, report["car"])}
-    ops_of = {label: operands_of(nx, nu, x0, sig)
+    ops_of = {label: mlp_operands(dev, gen, nx, nu, x0, sig)
               for label, (_, nx, nu, x0, sig, _) in shapes.items()}
 
     # kernel A's three variants against their plain versions at the demo's
@@ -1341,18 +1376,6 @@ def learned_dynamics(dev, gen):
     # against its plain version: the trained model at N = 16, K = 10,240 in
     # bits and seed mode and at N = 256, K = 4,096 in operand mode, the car
     # at N = 16 in bits and seed mode; one pair a call
-    def batched_rest(nx, nu, N_, x0, spread, sigma):
-        """The batched operands: the plants from ``x0`` ± ``spread`` (uniform),
-        a nominal U of scale 0.5 each, the action cost lambda U sigma^-2,
-        the bounds ±2."""
-        D = T_ * nu
-        x0T = (torch.tensor(x0, device=dev)[:, None] + torch.tensor(spread, device=dev)[:, None]
-               * (torch.rand(nx, N_, generator=gen, device=dev) * 2 - 1))
-        U2T = (torch.randn(N_, D, generator=gen, device=dev) * 0.5).T
-        vec = lambda v: torch.full((D,), v, device=dev)  # noqa: E731
-        return (x0T, U2T, vec(sigma), vec(0.0), vec(-2.0), vec(2.0), U2T / sigma ** 2,
-                torch.tensor(1.0, device=dev))
-
     def lead_of(solve, mode, D, sigma):
         if mode == "bits":
             return torch.randint(-2**31, 2**31 - 1, (D, solve.bits_cols), dtype=torch.int32,
@@ -1372,7 +1395,7 @@ def learned_dynamics(dev, gen):
         m, nx, nu, x0, sigma, out = shapes[label]
         cfg = MPPIConfig(nx=nx, nu=nu, K=Kb, T=T_, diag_sigma=True)
         solve = FS.make_transposed_batched_solve(cfg, N_, m, noise_operand=mode == "operand")
-        rest = batched_rest(nx, nu, N_, x0, spreads[label], sigma)
+        rest = mlp_batched_rest(dev, gen, nx, nu, N_, x0, spreads[label], sigma)
         lead = lead_of(solve, mode, T_ * nu, sigma)
         reset_launches()
         ok, c_err, u_err, n_beyond, n_wrap = batched_mlp_agree(m, solve, lead, rest, T_, nu)
@@ -1424,7 +1447,7 @@ def learned_dynamics(dev, gen):
         for mode, N_, Kb, name in timed_batched:
             cfg = MPPIConfig(nx=nx, nu=nu, K=Kb, T=T_, diag_sigma=True)
             solve = FS.make_transposed_batched_solve(cfg, N_, m, noise_operand=mode == "operand")
-            rest = batched_rest(nx, nu, N_, x0, spreads[label], sigma)
+            rest = mlp_batched_rest(dev, gen, nx, nu, N_, x0, spreads[label], sigma)
             lead = lead_of(solve, mode, T_ * nu, sigma)
             dev_ms = graph_ms(lambda: solve(lead, *rest), 20)
             plain_ms = events_ms(lambda: solve.plain(lead, *rest), 3)
@@ -1455,7 +1478,8 @@ def learned_dynamics(dev, gen):
     if traced is not None:
         x0T, operands = ops_of["residual_mlp"]
         cfg_b = MPPIConfig(nx=2, nu=1, K=MLP_BATCH_K, T=T_, diag_sigma=True)
-        rest_b = batched_rest(2, 1, MLP_BATCH_N, [math.pi, 1.0], spreads["residual_mlp"],
+        rest_b = mlp_batched_rest(dev, gen, 2, 1, MLP_BATCH_N, [math.pi, 1.0],
+                                  spreads["residual_mlp"],
                               math.sqrt(10.0))
         pairs = {"mppi": (FS.make_transposed_fused_solve(config("mppi"), traced),
                           FS.make_transposed_fused_solve(config("mppi"), model),
@@ -1729,6 +1753,413 @@ def learned_dynamics(dev, gen):
           "pendulum_approximate went non-finite")
     check(sum(FS.launches.values()) == 0, "pendulum_approximate launched a kernel")
     report["pendulum_approximate"] = dict(r, seconds=wall)
+    return report
+
+
+def mlp_operands(dev, gen, nx, nu, x0, sigma):
+    """Kernel A's operands for each variant at phase 4e's shape, K = MLP_K,
+    T = MLP_T: every sample from ``x0``, a nominal U of scale 0.5, the
+    action cost lambda U sigma^-2 (lambda = 1), the drawn rows' and the
+    actions' bounds ±2."""
+    from pytorch_mppi_tpu_torch import RBFKernel
+    from pytorch_mppi_tpu_torch.ops.kernels import interpolation_operators
+
+    K_, T_ = MLP_K, MLP_T
+    nsp = T_ // 2
+    D, R_k = T_ * nu, nsp * nu
+    x0T = torch.tensor(x0, device=dev)[:, None].expand(nx, K_)
+    full = lambda v, n=D: torch.full((n,), v, device=dev)  # noqa: E731
+    lam, one = torch.tensor(1.0, device=dev), torch.tensor(1.0, device=dev)
+    U2 = torch.randn(D, generator=gen, device=dev) * 0.5
+    a_flat = (U2 / sigma ** 2).contiguous()
+    interp, _ = interpolation_operators(RBFKernel(2.0), T_, nsp, torch.float32, device=dev)
+    Wt = torch.kron(interp, torch.eye(nu, device=dev)).contiguous()
+    return x0T, {
+        "mppi": (x0T, U2, full(sigma), full(0.0), full(-2.0), full(2.0), a_flat, lam),
+        "smppi": (x0T, U2, torch.randn(D, generator=gen, device=dev) * 0.5, full(sigma),
+                  full(0.0), full(-2.0), full(2.0), full(-2.0), full(2.0), a_flat, lam, one, one),
+        "kmppi": (x0T, U2, torch.randn(R_k, generator=gen, device=dev) * 0.5, full(sigma, R_k),
+                  full(0.0, R_k), full(-2.0, R_k), full(2.0, R_k), full(-2.0), full(2.0), a_flat,
+                  Wt, lam),
+    }
+
+
+def mlp_batched_rest(dev, gen, nx, nu, N_, x0, spread, sigma):
+    """The batched operands at T = MLP_T: the plants from ``x0`` ± ``spread``
+    (uniform; one value, or one a state dimension), a nominal U of scale 0.5
+    each, the action cost lambda U sigma^-2, the bounds ±2."""
+    D = MLP_T * nu
+    spread = torch.as_tensor(spread, dtype=torch.float32, device=dev)
+    x0T = torch.tensor(x0, device=dev)[:, None] + (spread[:, None] if spread.ndim else spread) * (
+        torch.rand(nx, N_, generator=gen, device=dev) * 2 - 1)
+    U2T = (torch.randn(N_, D, generator=gen, device=dev) * 0.5).T
+    vec = lambda v: torch.full((D,), v, device=dev)  # noqa: E731
+    return (x0T, U2T, vec(sigma), vec(0.0), vec(-2.0), vec(2.0), U2T / sigma ** 2,
+            torch.tensor(1.0, device=dev))
+
+
+def f64_agree(model, c_k, c_p, pert, x0T, T_, nu):
+    """The kernel's costs ``c_k`` and the plain version's ``c_p`` against a
+    float64 reference on the plain version's (D, K) actions ``pert`` from
+    the (nx, K) ``x0T``: the plain cost with its float32 rollout replaced by
+    a float64 one of the same model.  ``(ok, kernel's error, plain's
+    error, limit)``: ok where the kernel's largest error is within the
+    limit, F64_FACTOR times the plain version's (and never below 1e-6 of the
+    largest cost: the float32 rounding of the totals, whose sums kernel and
+    plain version take in other orders)."""
+    from pytorch_mppi_tpu_torch.ops import fused_solve as FS
+
+    r32 = FS._rollout_total(model, pert, x0T, T_, nu, 1.0)
+    r64 = FS._rollout_total(model, pert.double(), x0T.double(), T_, nu, 1.0)
+    ref = c_p.double() - r32.double() + r64
+    e_k = float((c_k.double() - ref).abs().max())
+    e_p = float((c_p.double() - ref).abs().max())
+    limit = F64_FACTOR * max(e_p, 1e-6 * float(ref.abs().max()))
+    return bool(torch.isfinite(c_k).all()) and e_k <= limit, e_k, e_p, limit
+
+
+def wide_dynamics(dev, gen, params, car, plan):
+    """Phase 4e, learned dynamics of any width: (i) ``ResidualMLPBlock``
+    forced onto the per-thread model's networks (the trained demo's [3, 32,
+    32, 2], the car's [9, 32, 32, 7]) bit for bit equal to ``ResidualMLP``
+    in kernel A's three variants (bits and seed mode), the batched pair
+    (bits, seed, operand) and the legacy rollout, both timed in turns; (ii)
+    the quadrotor's ``QUAD_SIZES`` on ``ResidualMLPBlock`` against its plain
+    version (``f64_agree``) at K = 10,000, T = 30 in kernel A's three
+    variants and the rollout and at N = 16, K = 10,240 in the batched pair,
+    each timed beside its bound and its plain version, then CAR_COMMANDS
+    commands of each route with exact block launch counts; (iii) the
+    untagged ``MBPO_SIZES`` network, traced into dense layers (its
+    libraries built in phase 2), in kernel A (MPPI) and the batched pair
+    against the program's evaluator, timed, and CAR_COMMANDS commands of
+    MPPI and ``MPPI_Batched`` on it with no plain-path warning.  Returns
+    the rows' numbers."""
+    from pytorch_mppi_tpu_torch import KMPPI, MPPI, SMPPI, MPPI_Batched, RBFKernel, run_mppi_jit
+    from pytorch_mppi_tpu_torch.config import MPPIConfig
+    from pytorch_mppi_tpu_torch.models import mlp_init
+    from pytorch_mppi_tpu_torch.ops import fused_solve as FS
+    from pytorch_mppi_tpu_torch.ops import legacy as LG
+    from pytorch_mppi_tpu_torch.ops.kernel_models import activation_ld, residual_mlp_model
+
+    phase_start = time.perf_counter()
+    K_, T_ = MLP_K, MLP_T
+    nsp = T_ // 2
+    factories = {"mppi": FS.make_transposed_fused_solve, "smppi": FS.make_transposed_smppi_solve,
+                 "kmppi": FS.make_transposed_kmppi_solve}
+
+    def reset_launches():
+        for name in FS.launches:
+            FS.launches[name] = 0
+
+    def launched():
+        return {k: v for k, v in FS.launches.items() if v}
+
+    def config(variant, nx, nu):
+        return MPPIConfig(nx=nx, nu=nu, K=K_, T=T_, diag_sigma=True,
+                          num_support_pts=nsp if variant == "kmppi" else 0,
+                          smppi=variant == "smppi")
+
+    def bits_or_key(mode, R, cols):
+        if mode == "bits":
+            return torch.randint(-2**31, 2**31 - 1, (R, cols), dtype=torch.int32, generator=gen,
+                                 device=dev)
+        return tuple(int(v) for v in torch.randint(0, 2**32, (2,), generator=gen, device=dev))
+
+    report = {"same": {}, "turns": {}, "quad": {"timed": {}, "err": {}, "loops": {}},
+              "mbpo": {"timed": {}, "err": {}, "loops": {}}}
+
+    # (i) ResidualMLPBlock forced onto the per-thread networks, bit for bit
+    nets = {"demo [3, 32, 32, 2]": (params, 2, 1, dict(u_clip=(-2.0, 2.0), angle_wrap_dims=(0,)),
+                                    [math.pi, 1.0], math.sqrt(10.0), (0.5, 1.0)),
+            "car [9, 32, 32, 7]": (None, CAR_NX, CAR_NU, None, list(CAR_X0), 1.0,
+                                   (0.2,) * CAR_NX)}
+    for label, (w, nx, nu, kw, x0, sigma, spread) in nets.items():
+        if w is None:  # the car: its model's own weights and flags
+            per_thread = car
+            block = residual_mlp_model(learned_car_params(dev), nx, nu, angle_wrap_dims=(2,),
+                                       cost="quadratic", goal=CAR_GOAL, block=True)
+        else:
+            per_thread = residual_mlp_model(w, nx, nu, **kw)
+            block = residual_mlp_model(w, nx, nu, block=True, **kw)
+        check(per_thread.model_id == 3 and block.model_id == 4, f"{label}: the wrong models")
+        x0T, ops = mlp_operands(dev, gen, nx, nu, x0, sigma)
+        same_all = True
+        for variant in FS.VARIANTS:
+            cfg = config(variant, nx, nu)
+            s_p = factories[variant](cfg, per_thread, emit_perturbed=True)
+            s_b = factories[variant](cfg, block, emit_perturbed=True)
+            for mode in ("bits", "seed"):
+                lead = bits_or_key(mode, s_b.spec.R, s_b.bits_cols)
+                reset_launches()
+                out_b = s_b(lead, *ops[variant])
+                torch.cuda.synchronize()
+                n_b = launched()
+                out_p = s_p(lead, *ops[variant])
+                same = all(torch.equal(a, b) for a, b in zip(out_b, out_p))
+                ok = same and n_b == {f"{variant}_block": 1}
+                same_all = same_all and ok
+                print(f"# block vs per-thread [{label} {variant} {mode}] K={K_} T={T_} "
+                      f"S={s_b.tile_k} group {s_b.act_rows} tiles {s_b.tiles}: bit for bit "
+                      f"{same} (largest cost difference "
+                      f"{float((out_b[3] - out_p[3]).abs().max()):.3e}) | launches {n_b}"
+                      + ("" if ok else "  <-- FAIL"))
+                check(ok, f"the block MLP differs from the per-thread MLP: {label}/{variant}/{mode}")
+            key = bits_or_key("seed", 0, 0)
+            turns = in_turns({"per-thread": lambda: s_p(key, *ops[variant]),
+                              "block": lambda: s_b(key, *ops[variant])})
+            report["turns"][label, variant] = turns
+            print(f"# block vs per-thread [{label} {variant}] seed, in turns (CUDA graph of 20 "
+                  f"calls): ResidualMLP {turns['per-thread']:.6f} ms | ResidualMLPBlock "
+                  f"{turns['block']:.6f} ms ({turns['block'] / turns['per-thread']:.3f}x)")
+        r_cfg = MPPIConfig(nx=nx, nu=nu, K=K_, T=T_)
+        r_p, r_b = LG.make_fused_rollout(r_cfg, per_thread), LG.make_fused_rollout(r_cfg, block)
+        x0_K = torch.tensor(x0, device=dev)[None].expand(K_, nx)
+        u = torch.clamp(torch.randn(K_, T_, nu, generator=gen, device=dev) * sigma, -2, 2)
+        reset_launches()
+        c_b = r_b(x0_K, u)
+        torch.cuda.synchronize()
+        n_b = launched()
+        same = torch.equal(c_b, r_p(x0_K, u))
+        ok = same and n_b == {"rollout_block": 1}
+        same_all = same_all and ok
+        turns = in_turns({"per-thread": lambda: r_p(x0_K, u), "block": lambda: r_b(x0_K, u)})
+        report["turns"][label, "rollout"] = turns
+        print(f"# block vs per-thread [{label} rollout] K={K_}: bit for bit {same} | launches "
+              f"{n_b} | in turns: ResidualMLP {turns['per-thread']:.6f} ms, ResidualMLPBlock "
+              f"{turns['block']:.6f} ms ({turns['block'] / turns['per-thread']:.3f}x)"
+              + ("" if ok else "  <-- FAIL"))
+        check(ok, f"the block MLP's rollout differs from the per-thread MLP's: {label}")
+        b_cfg = MPPIConfig(nx=nx, nu=nu, K=MLP_BATCH_K, T=T_, diag_sigma=True)
+        for mode in ("bits", "seed", "operand"):
+            operand = mode == "operand"
+            b_p = FS.make_transposed_batched_solve(b_cfg, MLP_BATCH_N, per_thread,
+                                                   noise_operand=operand)
+            b_b = FS.make_transposed_batched_solve(b_cfg, MLP_BATCH_N, block, noise_operand=operand)
+            rest = mlp_batched_rest(dev, gen, nx, nu, MLP_BATCH_N, x0, spread, sigma)
+            lead = (torch.randn(T_ * nu, b_b.K_pad, generator=gen, device=dev) * sigma if operand
+                    else bits_or_key(mode, T_ * nu, b_b.bits_cols))
+            reset_launches()
+            out_b = b_b(lead, *rest)
+            torch.cuda.synchronize()
+            n_b = launched()
+            same = all(torch.equal(a, b) for a, b in zip(out_b, b_p(lead, *rest)))
+            ok = same and n_b == {"batched_block": 2}
+            same_all = same_all and ok
+            print(f"# block vs per-thread [{label} batched {mode}] N={MLP_BATCH_N} "
+                  f"K={MLP_BATCH_K} P={b_b.plant_group} group {b_b.act_rows} tiles {b_b.tiles}: "
+                  f"bit for bit {same} | launches {n_b}" + ("" if ok else "  <-- FAIL"))
+            check(ok, f"the block MLP's batched pair differs from the per-thread MLP's: "
+                  f"{label}/{mode}")
+            if mode == "seed":
+                turns = in_turns({"per-thread": lambda: b_p(lead, *rest),
+                                  "block": lambda: b_b(lead, *rest)})
+                report["turns"][label, "batched"] = turns
+                print(f"# block vs per-thread [{label} batched seed] in turns: ResidualMLP "
+                      f"{turns['per-thread']:.6f} ms, ResidualMLPBlock {turns['block']:.6f} ms "
+                      f"({turns['block'] / turns['per-thread']:.3f}x)")
+        report["same"][label] = same_all
+
+    # (ii) the quadrotor on ResidualMLPBlock against its plain version
+    qp = mlp_init(QUAD_SIZES, torch.Generator().manual_seed(29), torch.float32, dev)
+    Wq, bq = qp[-1]
+    qp[-1] = (Wq * QUAD_STEP, bq * QUAD_STEP)
+    quad = residual_mlp_model(qp, QUAD_NX, QUAD_NU, cost="quadratic", goal=QUAD_GOAL)
+    check(quad.model_id == 4 and activation_ld(quad) == 256, "the quadrotor is not a block model")
+    mbpo = plan["models"]["mbpo"]
+    print(f"# kernel vs plain [wide models]: each cost's error against a float64 rollout of the "
+          f"same actions within {F64_FACTOR}x the float32 plain version's (f64_agree); m, s and "
+          f"delta/s as the other cases (agree), the costs at that error")
+    for label, m, out, variants in (("quadrotor " + str(QUAD_SIZES), quad, report["quad"],
+                                     FS.VARIANTS),
+                                    ("MBPO " + str(MBPO_SIZES), mbpo, report["mbpo"], ("mppi",))):
+        x0T, ops = mlp_operands(dev, gen, QUAD_NX, QUAD_NU, list(QUAD_X0), 1.0)
+        for variant in variants:
+            cfg = config(variant, QUAD_NX, QUAD_NU)
+            solve = factories[variant](cfg, m, emit_perturbed=True)
+            name = f"{variant}_block" if m is quad else f"generated_{variant}_block"
+            for mode in ("bits", "seed"):
+                lead = bits_or_key(mode, solve.spec.R, solve.bits_cols)
+                reset_launches()
+                dk, mk, sk, ck, pk = solve(lead, *ops[variant])
+                torch.cuda.synchronize()
+                n_k = launched()
+                dp, mp, sp, cp, pp = solve.plain(lead, *ops[variant])
+                ok, e_k, e_p, lim_f64 = f64_agree(m, ck, cp, pp, x0T, T_, QUAD_NU)
+                ok2, c_err, u_err, w_tol = agree(ck, cp, dk / sk, dp / sp, 1.0, mk, mp, sk, sp,
+                                                 rtol=0.0, atol=(F64_FACTOR + 1) * max(e_p, 1e-6))
+                ok = ok and ok2 and n_k == {name: 1}
+                out["err"][variant, mode] = dict(kernel_f64=e_k, plain_f64=e_p, update=u_err)
+                print(f"# wide [{label} {variant} {mode}] K={K_} T={T_} S={solve.tile_k} group "
+                      f"{solve.act_rows} tiles {solve.tiles}: cost error against float64 kernel "
+                      f"{e_k:.3e}, plain {e_p:.3e} ({e_k / max(e_p, 1e-30):.2f}x; limit "
+                      f"{lim_f64:.3e}) | kernel against plain {c_err:.3e} | delta/s err "
+                      f"{u_err:.3e} (tol {w_tol:.3e}) | launches {n_k}" + ("" if ok else "  <-- FAIL"))
+                check(ok, f"the wide model's kernel disagrees with its plain version: "
+                      f"{label}/{variant}/{mode}")
+            key = bits_or_key("seed", 0, 0)
+            args = ops[variant]
+            dev_ms = graph_ms(lambda: solve(key, *args), 20)
+            plain_ms = events_ms(lambda: solve.plain(key, *args), 1)  # MBPO's: 1.6 s a call
+            op = args[3] if variant != "mppi" else args[2]
+            bound_ms, bound_by = bound(fused_work(cfg, m, key, x0T, op, variant=variant))
+            out["timed"][variant] = (dev_ms, plain_ms, bound_ms, bound_by)
+            print(f"# kernel alone [{variant} {label}] K={K_} T={T_} S={solve.tile_k}: device "
+                  f"{dev_ms:.6f} ms (a CUDA graph of 20 calls) | plain version {plain_ms:.5f} ms "
+                  f"| bound {bound_ms:.6f} ms by {bound_by}: {dev_ms / bound_ms:.1f}x")
+        if m is quad:
+            r = LG.make_fused_rollout(MPPIConfig(nx=QUAD_NX, nu=QUAD_NU, K=K_, T=T_), m)
+            x0_K = torch.tensor(QUAD_X0, device=dev)[None].expand(K_, QUAD_NX)
+            u = torch.clamp(torch.randn(K_, T_, QUAD_NU, generator=gen, device=dev), -2, 2)
+            reset_launches()
+            ck = r(x0_K, u)
+            torch.cuda.synchronize()
+            n_k = launched()
+            cp = r.plain(x0_K, u)
+            ok, e_k, e_p, lim_f64 = f64_agree(m, ck, cp, u.reshape(K_, -1).T, x0T, T_, QUAD_NU)
+            ok = ok and n_k == {"rollout_block": 1}
+            out["err"]["rollout"] = dict(kernel_f64=e_k, plain_f64=e_p)
+            dev_ms = graph_ms(lambda: r(x0_K, u), 20)
+            plain_ms = events_ms(lambda: r.plain(x0_K, u), 1)
+            bound_ms, bound_by = bound(rollout_work(m, x0_K, u))
+            out["timed"]["rollout"] = (dev_ms, plain_ms, bound_ms, bound_by)
+            print(f"# wide [{label} rollout] K={K_}: cost error against float64 kernel {e_k:.3e}, "
+                  f"plain {e_p:.3e} (limit {lim_f64:.3e}) | launches {n_k} | device "
+                  f"{dev_ms:.6f} ms | plain version {plain_ms:.5f} ms | bound {bound_ms:.6f} ms by "
+                  f"{bound_by}: {dev_ms / bound_ms:.1f}x" + ("" if ok else "  <-- FAIL"))
+            check(ok, f"the wide model's rollout disagrees with its plain version: {label}")
+        b_cfg = MPPIConfig(nx=QUAD_NX, nu=QUAD_NU, K=MLP_BATCH_K, T=T_, diag_sigma=True)
+        solve = FS.make_transposed_batched_solve(b_cfg, MLP_BATCH_N, m)
+        rest = mlp_batched_rest(dev, gen, QUAD_NX, QUAD_NU, MLP_BATCH_N, list(QUAD_X0), 0.2, 1.0)
+        name = "batched_block" if m is quad else "generated_batched_block"
+        for mode in ("seed",):  # the batched routes' mode; kernel A takes bits too
+            lead = bits_or_key(mode, T_ * QUAD_NU, solve.bits_cols)
+            reset_launches()
+            dk, msk, ck = solve(lead, *rest)
+            torch.cuda.synchronize()
+            n_k = launched()
+            dp, msp, cp = solve.plain(lead, *rest)
+            x0b, U2T, op, mu, lo, hi = rest[:6]
+            noise = FS._noise(lead, T_ * QUAD_NU, MLP_BATCH_K, solve.pair_block,
+                              bool(solve.spec.antithetic), op, mu, dev)
+            pert = torch.clamp(U2T.T[:, :, None] + noise[None], lo[None, :, None],
+                               hi[None, :, None])  # (N, D, K)
+            pert = pert.permute(1, 0, 2).reshape(T_ * QUAD_NU, -1)
+            x0_all = x0b[:, :, None].expand(-1, -1, MLP_BATCH_K).reshape(QUAD_NX, -1)
+            ok, e_k, e_p, lim_f64 = f64_agree(m, ck.reshape(-1), cp.reshape(-1), pert, x0_all, T_,
+                                              QUAD_NU)
+            ok2, c_err, u_err, _ = agree(ck, cp, dk / msk[1], dp / msp[1], 1.0, msk[0], msp[0],
+                                         msk[1], msp[1], rtol=0.0,
+                                         atol=(F64_FACTOR + 1) * max(e_p, 1e-6))
+            ok = ok and ok2 and n_k == {name: 2}
+            out["err"]["batched", mode] = dict(kernel_f64=e_k, plain_f64=e_p, update=u_err)
+            print(f"# wide [{label} batched {mode}] N={MLP_BATCH_N} K={MLP_BATCH_K} "
+                  f"P={solve.plant_group} group {solve.act_rows} tiles {solve.tiles}: cost error "
+                  f"against float64 kernel {e_k:.3e}, plain {e_p:.3e} (limit {lim_f64:.3e}) | "
+                  f"delta/s err {u_err:.3e} | launches {n_k}"
+                  + ("" if ok else "  <-- FAIL"))
+            check(ok, f"the wide model's batched pair disagrees with its plain version: "
+                  f"{label}/{mode}")
+        # a call takes about 0.3 s (measured on one H100): a graph of WIDE_CALLS
+        key = bits_or_key("seed", 0, 0)
+        dev_ms = graph_ms(lambda: solve(key, *rest), WIDE_CALLS)
+        plain_ms = events_ms(lambda: solve.plain(key, *rest), 1)
+        bound_ms, bound_by = bound(fused_work(b_cfg, m, key, rest[0], rest[2], variant="batched",
+                                              plants=MLP_BATCH_N))
+        out["timed"]["batched"] = (dev_ms, plain_ms, bound_ms, bound_by)
+        print(f"# kernel alone [batched {label}] seed N={MLP_BATCH_N} K={MLP_BATCH_K}: device "
+              f"{dev_ms:.6f} ms (a CUDA graph of {WIDE_CALLS} calls) | plain version {plain_ms:.5f} ms | "
+              f"bound {bound_ms:.6f} ms by {bound_by}: {dev_ms / bound_ms:.1f}x")
+
+    # the closed loops: CAR_COMMANDS commands of each route on the model as
+    # its own plant, exact block launch counts, finite actions; the MBPO
+    # network's controllers built from the untagged callables, with no
+    # plain-path warning
+    lim = torch.full((QUAD_NU,), 2.0)
+    routes = [
+        ("quad", "mppi", "fused", MPPI, True, {}, dict(mppi_block=1)),
+        ("quad", "mppi", "rollout", MPPI, "rollout", {},
+         dict(rollout_block=1, weighted_update=1)),
+        ("quad", "smppi", "fused", SMPPI, True, dict(w_action_seq_cost=1.0, delta_t=1.0,
+                                                     action_min=-lim, action_max=lim),
+         dict(smppi_block=1)),
+        ("quad", "kmppi", "fused", KMPPI, True, dict(num_support_pts=nsp, kernel=RBFKernel(2.0)),
+         dict(kmppi_block=1)),
+        ("quad", "batched", "fused", MPPI_Batched, "kernel_rng", dict(num_envs=MLP_BATCH_N),
+         dict(batched_block=2)),
+        ("mbpo", "mppi", "fused", MPPI, True, {}, dict(generated_mppi_block=1)),
+        ("mbpo", "batched", "fused", MPPI_Batched, "kernel_rng", dict(num_envs=MLP_BATCH_N),
+         dict(generated_batched_block=2)),
+    ]
+    goal = torch.tensor(QUAD_GOAL, device=dev)
+    for which, variant, path, cls, use_pallas, kw, per_command in routes:
+        dyn, cost = ((quad.dynamics, quad.running_cost) if which == "quad"
+                     else plan["fns"]["mbpo"])
+        with Captured() as warned:
+            ctrl = cls(dyn, cost, QUAD_NX, torch.eye(QUAD_NU, device=dev), num_samples=K_,
+                       horizon=T_, lambda_=1.0, u_min=-lim, u_max=lim, seed=42,
+                       use_pallas=use_pallas, device=dev, **kw)
+        fallback = [m for m in warned.messages if "plain torch path" in m]
+        check(ctrl._fns.fused and not fallback, f"{which} {variant} {path} took the plain path: "
+              f"{warned.messages}")
+        batched_ = variant == "batched"
+        x = torch.tensor(QUAD_X0, device=dev)
+        if batched_:
+            x = x[None] + 0.2 * (torch.rand(MLP_BATCH_N, QUAD_NX, generator=gen, device=dev) * 2
+                                 - 1)
+        start = (x - goal).norm(dim=-1).max()
+        step = quad.dynamics if which == "quad" else plan["models"]["mbpo"].dynamics
+        reset_launches()
+        wall = time.perf_counter()
+        with torch.no_grad():
+            for _ in range(CAR_COMMANDS):
+                a = ctrl.command(x)
+                check(bool(torch.isfinite(a).all()), f"{which} {variant} {path}: a non-finite action")
+                x = step(x, a) if batched_ else step(x[None], a[None])[0]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - wall
+        n = dict(FS.launches)
+        expect = {k: CAR_COMMANDS * per_command.get(k, 0) for k in n}
+        out = report["quad" if which == "quad" else "mbpo"]
+        out["loops"][variant, path] = dict(launches=n, ms_per_command=wall / CAR_COMMANDS * 1e3)
+        print(f"# wide loop [{which} {variant} {path}] K={K_} T={T_}, {CAR_COMMANDS} commands on "
+              f"the model as its plant: distance to the goal {float(start):.3f} -> "
+              f"{float((x - goal).norm(dim=-1).max()):.3f} (largest) | "
+              f"{wall / CAR_COMMANDS * 1e3:.3f} ms a command (host clock) | launches "
+              f"{ {k: v for k, v in n.items() if v} }")
+        check(n == expect, f"{which} {variant} {path} launched {n}, expected {expect}")
+        check(bool(torch.isfinite(x).all()) and bool(torch.isfinite(ctrl.U).all()),
+              f"{which} {variant} {path}: non-finite states or actions")
+        del ctrl
+
+    # run_mppi_jit's CUDA graph of the loop step captures the block kernel:
+    # GRAPH_STEPS steps bit for bit against the eager loop, one launch a step
+    def quad_mppi():
+        return MPPI(quad.dynamics, quad.running_cost, QUAD_NX, torch.eye(QUAD_NU, device=dev),
+                    num_samples=K_, horizon=T_, lambda_=1.0, u_min=-lim, u_max=lim, seed=7,
+                    use_pallas=True, device=dev)
+
+    def quad_plant(x, a):
+        return quad.dynamics(x[None], a[None])[0]
+
+    c_graph, c_eager = quad_mppi(), quad_mppi()
+    x0 = torch.tensor(QUAD_X0, device=dev)
+    reset_launches()
+    states, actions, _ = run_mppi_jit(c_graph, quad_plant, x0, GRAPH_STEPS)
+    torch.cuda.synchronize()
+    n = launched()
+    x, acts = x0, []
+    for _ in range(GRAPH_STEPS):
+        acts.append(c_eager.command(x))
+        x = quad_plant(x, acts[-1])
+    torch.cuda.synchronize()
+    same = torch.equal(actions, torch.stack(acts)) and torch.equal(c_graph.U, c_eager.U)
+    print(f"# graph loop [quadrotor mppi fused] {GRAPH_STEPS} steps: equal to the eager loop bit "
+          f"for bit {same} | launches {n}")
+    check(same and n == {"mppi_block": GRAPH_STEPS}, f"graph loop [quadrotor]: equal {same}, "
+          f"launches {n}")
+    report["quad"]["loops"]["graph", "fused"] = dict(equal=same, launches=n)
+    report["seconds"] = time.perf_counter() - phase_start
+    print(f"# phase 4e, wide dynamics: {report['seconds']:.1f} s")
     return report
 
 
@@ -2709,11 +3140,35 @@ def generated_callables(dev):
     goal = torch.tensor(GEN_GOAL, device=dev)
     w = torch.tensor(GEN_TERM_W, device=dev)
     return dict(
+        mbpo=mbpo_callables(dev),
         lq=(lambda s, u: s + u @ B.T, lambda s, u: ((goal - s) ** 2).sum(-1)),
         pendulum=(lambda s, u: pendulum_dynamics(s, u), lambda s, u: pendulum_running_cost(s, u)),
         step=(lambda s, u, t: s + u @ B.T * (1.0 + 0.01 * t),
               lambda s, u, t: ((goal - s) ** 2).sum(-1) * (1.0 + 0.005 * t)),
         terminal=lambda s, u: (w * (s - goal) ** 2).sum(-1) + 0.2 * (u ** 2).sum(-1))
+
+
+def mbpo_callables(dev):
+    """Phase 4e's untagged network: an ``nn.Sequential`` of ``MBPO_SIZES``
+    (Linear layers with SiLU between them; seeded weights of scale
+    1/sqrt(fan-in), the last layer's scaled by QUAD_STEP) on (state,
+    action), a residual model of the quadrotor's plant, with the quadratic
+    cost toward QUAD_GOAL."""
+    g = torch.Generator().manual_seed(23)
+    layers = []
+    for a, b in zip(MBPO_SIZES[:-1], MBPO_SIZES[1:]):
+        lin = torch.nn.Linear(a, b)
+        with torch.no_grad():
+            lin.weight.copy_(torch.randn(b, a, generator=g) / math.sqrt(a))
+            lin.bias.copy_(torch.randn(b, generator=g) * 0.1)
+        layers += [lin, torch.nn.SiLU()]
+    net = torch.nn.Sequential(*layers[:-1]).to(dev)
+    with torch.no_grad():
+        net[-1].weight.mul_(QUAD_STEP)
+        net[-1].bias.mul_(QUAD_STEP)
+    goal = torch.tensor(QUAD_GOAL, device=dev)
+    return (lambda s, u: s + net(torch.cat([s, u], dim=-1)),
+            lambda s, u: ((goal - s) ** 2).sum(-1))
 
 
 def generated_builds(dev):
@@ -2751,6 +3206,19 @@ def generated_builds(dev):
               f"{len(mlp_kernel.header())} characters")
     except BL.UnsupportedPrimitive as e:
         print(f"# traced MLP {FKD.SIZES}: the tracer refuses it: {e}")
+    # phase 4e's MBPO-shape network, beyond MAX_OPS: dense layers
+    start = time.perf_counter()
+    models["mbpo"] = BL.kernel_model(MPPIConfig(nx=QUAD_NX, nu=QUAD_NU, K=MLP_K, T=MLP_T),
+                                     *fns["mbpo"])
+    mbpo = BL.generated_kernel(models["mbpo"], None)
+    plan.update({"mbpo mppi": (mbpo, FS.MPPI), "mbpo batched": (mbpo, FS.BATCHED)})
+    print(f"# traced MBPO network {MBPO_SIZES}: {time.perf_counter() - start:.1f} s to trace, "
+          f"{len(models['mbpo'].program.dense_layers(models['mbpo'].outputs))} dense layers of "
+          f"{BL.dense_ops(models['mbpo'].program, models['mbpo'].outputs)} operations and "
+          f"{BL._count_ops(models['mbpo'].program, models['mbpo'].outputs)} scalar operations a "
+          f"step (the bound MAX_OPS {BL.MAX_OPS} counts the scalar ones), header "
+          f"{len(mbpo.header())} characters, activation rows of "
+          f"{models['mbpo'].activation_ld()} floats")
     plan.update({"lq mppi": (BL.generated_kernel(models["lq"], None), FS.MPPI),
             "pendulum mppi": (BL.generated_kernel(models["pendulum"], None), FS.MPPI),
             "step mppi": (step, FS.MPPI), "step smppi": (step, FS.SMPPI),
@@ -3338,6 +3806,74 @@ def example_kernel_row(report):
         "launches_graph_loop": runs["jit-loop"]["launches"].get("generated_batched", 0),
         "command_median_ms": runs["eager"]["command_ms"],
     }
+
+
+def wide_kernel_rows(report, build_parts, gen_build_s):
+    """Phase 7's rows for the block models (phase 4e, ``wide_dynamics``):
+    ``ResidualMLPBlock``'s instantiations with the quadrotor's numbers (its
+    loops' launches, its kernels' times; the forced [3, 32, 32, 2] and [9,
+    32, 32, 7] networks' times in turns beside ``ResidualMLP``'s), and the
+    MBPO network's dense-node generated kernel A and batched pair."""
+    rows = []
+    quad, mbpo, turns = report["quad"], report["mbpo"], report["turns"]
+    loop_of = {"rollout": ("mppi", "rollout")}
+    for key, line, inst in (
+            ("mppi", 512, "mppi_fused_partial<ResidualMLPBlock, 32, ..., kMPPI>"),
+            ("smppi", 755, "mppi_fused_partial<ResidualMLPBlock, 32, ..., kSMPPI>"),
+            ("kmppi", 940, "mppi_fused_partial<ResidualMLPBlock, 32, ..., kKMPPI>"),
+            ("rollout", 75, "fused_rollout<ResidualMLPBlock, 32>"),
+            ("batched", 1118, "batched_partial<ResidualMLPBlock, 32, kGlobal> + flash_merge")):
+        d_ms, p_ms, b_ms, b_by = quad["timed"][key]
+        errs = [e for k, e in quad["err"].items() if (k if isinstance(k, str) else k[0]) == key]
+        row = {
+            "name": f"fused_mppi {key}, block residual MLP: the quadrotor {QUAD_SIZES} ({inst})",
+            "route": "cuda",
+            "source": "pytorch_mppi_tpu_torch/csrc/fused_mppi.cu",
+            "replaces": f"pytorch_mppi_tpu/ops/pallas_rollout.py:{line}",
+            "launches": quad["loops"][loop_of.get(key, (key, "fused"))]["launches"][
+                f"{key}_block"],
+            "max_abs_err": max(e["kernel_f64"] for e in errs),
+            "max_abs_err_plain_f32": max(e["plain_f64"] for e in errs),
+            "ms": d_ms,
+            "ms_source": "cuda_graph",
+            "plain_ms": p_ms,
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": None,
+            "nvcc_s": build_parts.get(18 if key == "batched" else 17),
+        }
+        for label, short in (("demo [3, 32, 32, 2]", "demo"), ("car [9, 32, 32, 7]", "car")):
+            t = turns.get((label, key))
+            if t is not None:
+                row[f"ms_{short}_block"] = t["block"]
+                row[f"ms_{short}_per_thread"] = t["per-thread"]
+        row["bit_for_bit_per_thread"] = all(report["same"].values())
+        rows.append(row)
+    for key, line, inst, count in (
+            ("mppi", 512, "mppi_fused_partial<Generated, 12, ..., kMPPI>", "generated_mppi_block"),
+            ("batched", 1118, "batched_partial<Generated, 12, kGlobal> + flash_merge",
+             "generated_batched_block")):
+        d_ms, p_ms, b_ms, b_by = mbpo["timed"][key]
+        errs = [e for k, e in mbpo["err"].items() if (k if isinstance(k, str) else k[0]) == key]
+        rows.append({
+            "name": f"fused_mppi {key}, generated model with dense layers: an untagged "
+                    f"nn.Sequential {MBPO_SIZES} SiLU ({inst}, Generated::kBlock)",
+            "route": "cuda",
+            "source": "pytorch_mppi_tpu_torch/csrc/fused_mppi.cu",
+            "model_source": "pytorch_mppi_tpu_torch/ops/batch_last.py",
+            "replaces": f"pytorch_mppi_tpu/ops/pallas_rollout.py:{line}",
+            "launches": mbpo["loops"][key, "fused"]["launches"][count],
+            "max_abs_err": max(e["kernel_f64"] for e in errs),
+            "max_abs_err_plain_f32": max(e["plain_f64"] for e in errs),
+            "ms": d_ms,
+            "ms_source": "cuda_graph",
+            "plain_ms": p_ms,
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": None,
+            "build_s": gen_build_s.get(f"mbpo {key}"),
+        })
+    return rows
 
 
 def card_line():
@@ -4397,7 +4933,7 @@ def main():
         # the refinement loop's some 2,400 kernels a command: 10 commands
         # keep the profiler's trace small
         breakdown(f"{variant} {path}", r["ctrl"], lq_step, r["x"],
-                  n=10 if path == "fused_refine5" else 50)
+                  n=10 if path == "fused_refine5" else BREAKDOWN_COMMANDS)
 
     # the sampler loop's rows on one more command: [the null row, the two
     # ramps of this command's state, the last command's elites shifted], each
@@ -5137,6 +5673,7 @@ def main():
     # -- 4e. learned dynamics: the residual MLP in the kernels ------------------
     stamp("4e")
     mlp = learned_dynamics(dev, gen)
+    wide = wide_dynamics(dev, gen, mlp["params"], learned_car(dev), gen_plan)
 
     # -- 5. swing-up -------------------------------------------------------------
     stamp("5")
@@ -5478,6 +6015,7 @@ def main():
             if n == 2 and key == "batched":
                 kernels[-1].update(ms_N16_seed=rep["timed"]["batched_N16_seed"][0],
                                    bound_ms_N16_seed=rep["timed"]["batched_N16_seed"][2])
+    kernels += wide_kernel_rows(wide, build_parts, gen_plan["build_s"])
     # phase 9: kernel A with the null gate set against the static null row,
     # split over 8 shards (launches and merge), the largest error of a
     # merged split against the whole launch, and the launches of the

@@ -162,20 +162,33 @@
 // branch: no instantiation of its own); the legacy rollout and the round-1
 // solve take none, as their TPU kernels take none.
 //
-// Left for later: the rollout still takes one thread a sample, so during it
-// a block of S = 32 samples keeps three of its four warps idle; two samples
-// a thread in the batched rollout; a last-block merge for the batched
-// kernel; merge_partials' dependent L2 loads (kernel A's last block,
-// flash_merge), which weighted_merge's one pass avoids.
+// Block models (ResidualMLPBlock, and a generated model with dense layers):
+// kernel A, the batched kernel and the rollout run every thread of the
+// block through the step loop, the owners of the samples run the
+// per-sample segments, and all threads compute each dense layer
+// (block_dense, block_step), its activations in shared memory after the
+// kernel's own; the batched kernel's 128 samples, and kernel A's where
+// S = 64 or 128 do not fit, go through the layers in groups (the host
+// picks the largest group that fits).  Selected with if constexpr, so that
+// no per-sample instantiation changes.
+//
+// Left for later: a per-sample model's rollout still takes one thread a
+// sample, so during it a block of S = 32 samples keeps three of its four
+// warps idle; two samples a thread in the batched rollout; a last-block
+// merge for the batched kernel; merge_partials' dependent L2 loads (kernel
+// A's last block, flash_merge), which weighted_merge's one pass avoids;
+// block_dense on the tensor cores, and its elementwise segments on all
+// threads.
 //
 // Plain C interface (no PyTorch headers), loaded with ctypes; each entry
 // returns cudaGetLastError() after its launches.  The file builds whole, or
-// as seventeen translation units selected by -DFUSED_MPPI_PART=0..16 (0-4,
-// 11-14: the single-plant variants and the rollout kernel of each device
-// model and register size, 13 and 14 the residual MLP's at N = 2 and 8; 5:
-// kernel B, the weighted update, the sampler and the entry points; 6-10, 15
-// and 16: the batched kernel of each device model and register size, 15 and
-// 16 the residual MLP's), which ops/_build.py compiles in parallel and
+// as nineteen translation units selected by -DFUSED_MPPI_PART=0..18 (0-4,
+// 11-14, 17: the single-plant variants and the rollout kernel of each device
+// model and register size, 13 and 14 the residual MLP's at N = 2 and 8, 17
+// ResidualMLPBlock's at N = MAXN; 5: kernel B, the weighted update, the
+// sampler and the entry points; 6-10, 15, 16 and 18: the batched kernel of
+// each device model and register size, 15 and 16 the residual MLP's, 18
+// ResidualMLPBlock's), which ops/_build.py compiles in parallel and
 // links.  A device model generated from the user's torch callables
 // (ops/batch_last.py: the struct Generated, one statement a traced node,
 // reading the timestep t) builds into a library of its own: this file with
@@ -268,6 +281,8 @@ struct Params {
                     // for the null row of every launch
   int k_offset;  // kernel A: the global index of sample 0, for one shard of the
                  // samples; the draw of sample k is that of global sample k_offset + k
+  int act_rows, act_ld;  // a block model (kBlockOf): the samples of a group whose layers
+                         // the block computes together, and the floats of an activation row
 };
 
 // --- reductions -------------------------------------------------------------
@@ -487,19 +502,23 @@ struct Pendulum {
 // the action clipped, the wrapped state dimensions wrapped, the features
 // (each encoded dimension as sin, cos), tanh hidden layers and a linear last
 // layer, x' = x + MLP(features), the wrapped dimensions wrapped again, then
-// the running cost on x': the gym pendulum's or |goal - x'|^2.  For nx, nu
-// <= MLP_MAX_N (the N = 2 and N = 8 arrays).  consts: a header of MLP_HEAD
-// floats (0: the layers L; 1-5: the L + 1 widths; 6-8: clip flag, lo, hi;
-// 9, 10: the wrap and encode masks as bits; 11: the cost, 0 pendulum or 1
-// quadratic; 12-19: the quadratic cost's goal, nx floats), then per layer W
-// (n_in rows of p floats) and b (p floats), p = n_out rounded up to
-// MLP_GROUP with zeros, so that every row starts on 16 bytes (the header's
-// 80 bytes too).
+// the running cost on x': the gym pendulum's or |goal - x'|^2.  Two device
+// models compute it: ResidualMLP, one thread a sample, and ResidualMLPBlock
+// (below), whose layers a block's threads compute together.
 //
-// At most MLP_MAX_LAYERS layers of at most MLP_MAX_WIDTH units (every MLP
-// the JAX package and its tests build is [3|4, 32, 32, 2] or [4, 16, 2]; a
-// learned car, nx = 7, nu = 2, is [9|10, 32, 32, 7]): the features, at most
-// 3 MLP_MAX_N, fit the activations' array.
+// ResidualMLP, for nx, nu <= MLP_MAX_N (the N = 2 and N = 8 arrays).
+// consts: a header of MLP_HEAD floats (0: the layers L; 1-5: the L + 1
+// widths; 6-8: clip flag, lo, hi; 9, 10: the wrap and encode masks as bits;
+// 11: the cost, 0 pendulum or 1 quadratic; 12-19: the quadratic cost's
+// goal, nx floats), then per layer W (n_in rows of p floats) and b (p
+// floats), p = n_out rounded up to MLP_GROUP with zeros, so that every row
+// starts on 16 bytes (the header's 80 bytes too).
+//
+// At most MLP_MAX_LAYERS layers of at most MLP_MAX_WIDTH units (the MLPs
+// the JAX package and its tests build, [3|4, 32, 32, 2] or [4, 16, 2], and a
+// learned car, nx = 7, nu = 2, [9|10, 32, 32, 7]; ops/kernel_models routes
+// a wider or deeper network, or nx or nu above 8, to ResidualMLPBlock): the
+// features, at most 3 MLP_MAX_N, fit the activations' array.
 // A thread evaluates its sample's network alone: the activations of the
 // layer in and the layer out in a local array of 2 * MLP_MAX_WIDTH floats
 // (indexed at run time, so local memory, which stays in L1: 512 bytes a
@@ -516,8 +535,7 @@ struct Pendulum {
 // on an H100 80GB HBM3 at 700 W (chip_smoke.py, PERF.md): a block's
 // rollout runs on one warp, so the card holds some 313 rolling warps for
 // its 528 schedulers, and each waits on its own loads and FMA chains.
-// Splitting a sample's layer over the block's threads is the redesign
-// left for later.
+// ResidualMLPBlock splits each layer over the block's threads.
 constexpr int MLP_HEAD = 20;
 constexpr int MLP_GOAL = 12;  // the goal's first float in the header
 constexpr int MLP_MAX_WIDTH = 64;
@@ -601,6 +619,221 @@ struct ResidualMLP {
     for (int i = 0; i < N; ++i) {
       if (i < nx) {
         const float d = c[MLP_GOAL + i] - x[i];
+        s += d * d;
+      }
+    }
+    return s;
+  }
+};
+
+// --- block models: one dense layer shared by a block's threads --------------
+//
+// A block model (kBlockOf<Model>: ResidualMLPBlock, or a generated model
+// with dense layers, ops/batch_last.py) splits its step into per-sample
+// segments and dense layers y = x W (+ b) that all the block's threads
+// compute together, the counterpart of the JAX package's batched @ constant
+// (pytorch_mppi_tpu/ops/batch_last.py:_dot_general_batch_last) inside the
+// Pallas kernels.  Its interface: layers(c), the dense layers of a step;
+// begin<N>(...), the owner thread's first segment, which writes the first
+// layer's inputs into its sample's activation row; dense(l, ...), layer l
+// for a group of samples, on every thread; after<N>(l, ...), the owner's
+// segment after layer l (the last one steps the state); a Carry, the
+// per-sample values a later segment reads, in the owner's registers.  The
+// activations: two halves of `rows` rows of `ld` floats each in shared
+// memory, one row a sample of the group; block_step runs the block's
+// samples through them in groups.
+
+// Whether Model is a block model: its kBlock, false where it has none (the
+// per-sample models, whose structs are unchanged).
+template <class M>
+__host__ __device__ constexpr auto block_model(int) -> decltype(M::kBlock) {
+  return M::kBlock;
+}
+template <class M>
+__host__ __device__ constexpr bool block_model(long) {
+  return false;
+}
+template <class M>
+constexpr bool kBlockOf = block_model<M>(0);
+
+constexpr int DENSE_ROWS = 8;  // samples of a thread's register tile; the least group
+
+// out[s * ld + j] = f(sum_i in[s * ld + i] W[i * p + j] + b[j]) for the `rows`
+// samples s of a group and the n_out units j (f = tanhf where `hidden`, else
+// the identity; no b where b is null), with all BLOCK threads: thread t takes
+// unit t % U of each pass of U units (U = 32, 64 or BLOCK, the units rounded
+// up) and the tiles of DENSE_ROWS samples from (t / U) * DENSE_ROWS on, a
+// tile's sums in registers.  Each weight is read once a tile through the
+// read-only cache, a warp's 32 consecutive units coalesced, and feeds
+// DENSE_ROWS FMAs; each input is read by every thread of the warp at one
+// address (a broadcast), four at a time.  Each output is summed by one
+// thread in input order with fmaf from 0, then the bias is added: the
+// arithmetic of ResidualMLP::step.  `rows` is a multiple of DENSE_ROWS, `ld`
+// of four, and `in` 16-byte aligned.  No barrier inside.
+__device__ __forceinline__ void block_dense(const float* __restrict__ W,
+                                            const float* __restrict__ b, int n_in, int n_out,
+                                            int p, const float* in, float* out, int ld, int rows,
+                                            bool hidden) {
+  const int units = n_out <= 32 ? 32 : n_out <= 64 ? 64 : BLOCK;
+  const int groups = BLOCK / units, ju = threadIdx.x % units, g = threadIdx.x / units;
+  for (int j = ju; j < n_out; j += units) {
+    const float bj = b ? __ldg(b + j) : 0.0f;
+    const float* w = W + j;
+    for (int s0 = g * DENSE_ROWS; s0 < rows; s0 += groups * DENSE_ROWS) {
+      const float* a = in + (size_t)s0 * ld;
+      float acc[DENSE_ROWS];
+#pragma unroll
+      for (int m = 0; m < DENSE_ROWS; ++m) acc[m] = 0.0f;
+      int i = 0;
+      for (; i + 4 <= n_in; i += 4) {
+        const float w0 = __ldg(w + (size_t)i * p), w1 = __ldg(w + (size_t)(i + 1) * p);
+        const float w2 = __ldg(w + (size_t)(i + 2) * p), w3 = __ldg(w + (size_t)(i + 3) * p);
+#pragma unroll
+        for (int m = 0; m < DENSE_ROWS; ++m) {
+          const float4 v = *reinterpret_cast<const float4*>(a + m * ld + i);
+          acc[m] = fmaf(v.x, w0, acc[m]);
+          acc[m] = fmaf(v.y, w1, acc[m]);
+          acc[m] = fmaf(v.z, w2, acc[m]);
+          acc[m] = fmaf(v.w, w3, acc[m]);
+        }
+      }
+      for (; i < n_in; ++i) {
+        const float wi = __ldg(w + (size_t)i * p);
+#pragma unroll
+        for (int m = 0; m < DENSE_ROWS; ++m) acc[m] = fmaf(a[m * ld + i], wi, acc[m]);
+      }
+#pragma unroll
+      for (int m = 0; m < DENSE_ROWS; ++m) {
+        const float z = acc[m] + bj;
+        out[(size_t)(s0 + m) * ld + j] = hidden ? tanhf(z) : z;
+      }
+    }
+  }
+}
+
+// One step of a block model for every sample of the block: every thread
+// calls it at once (it holds barriers), thread `slot` (0 <= slot < slots;
+// -1 for a thread that owns no sample) with its sample's state x and action
+// u.  The samples go through the layers in groups of `rows` (the slots a
+// multiple of it): the group's owners write their first inputs, the block
+// computes each layer, the owners run the segments between and after them.
+template <class Model, int N>
+__device__ __forceinline__ void block_step(const float* c, float* x, const float* u, int nx,
+                                           int nu, int t, int slot, int slots, int rows, int ld,
+                                           float* act) {
+  const int layers = Model::layers(c), half = rows * ld;
+  for (int r0 = 0; r0 < slots; r0 += rows) {
+    const bool mine = slot >= r0 && slot < r0 + rows;
+    float* row = act + (size_t)(mine ? slot - r0 : 0) * ld;
+    typename Model::Carry carry;
+    __syncthreads();  // the previous group's rows are read
+    if (mine) Model::template begin<N>(c, x, u, nx, nu, t, carry, row, half);
+    for (int l = 0; l < layers; ++l) {
+      __syncthreads();  // the layer's inputs are written
+      Model::dense(l, c, act, ld, rows, nx);
+      __syncthreads();  // its outputs are written
+      if (mine) Model::template after<N>(l, c, x, u, nx, nu, t, carry, row, half);
+    }
+  }
+}
+
+// The activations of a block model in kernel A, the batched kernel and the
+// rollout: from `base`, rounded up to 16 bytes (the host counts the same).
+__device__ __forceinline__ float* block_act(float* base) {
+  return reinterpret_cast<float*>((reinterpret_cast<uintptr_t>(base) + 15) & ~uintptr_t(15));
+}
+
+// ResidualMLPBlock: the residual MLP of ResidualMLP with its layers split
+// over the block's threads (block_dense), for nx, nu <= MAXN, any number of
+// layers and widths bounded by shared memory (the host picks the group,
+// ops/fused_solve.launch_geometry).  The same arithmetic as ResidualMLP: on
+// a network within ResidualMLP's bounds the two give the same bits.
+// consts: a header of BMLP_FIXED floats (0: the layers L; 1-3: clip flag, lo,
+// hi; 4: the cost, 0 pendulum or 1 quadratic; 5-7: 0), the L + 1 widths, nx
+// flags (bit 0: wrap the dimension, bit 1: encode it as sin, cos), the
+// quadratic cost's goal (nx floats, zeros for the pendulum's), zeros to a
+// multiple of four floats (bmlp_head), then per layer W (n_in rows of p
+// floats) and b (p floats), p = n_out rounded up to four with zeros.
+constexpr int BMLP_FIXED = 8;
+
+__host__ __device__ constexpr int bmlp_head(int layers, int nx) {
+  return (BMLP_FIXED + layers + 1 + 2 * nx + 3) / 4 * 4;
+}
+
+struct ResidualMLPBlock {
+  static constexpr bool kTerminal = false;
+  static constexpr bool kBlock = true;
+  struct Carry {};
+  __device__ static int layers(const float* c) { return (int)c[0]; }
+  __device__ static const float* dims(const float* c) { return c + BMLP_FIXED + (int)c[0] + 1; }
+
+  template <int N>
+  __device__ static void begin(const float* c, const float* x, const float* u, int nx, int nu,
+                               int, Carry&, float* row, int) {
+    const float* flag = dims(c);
+    const bool clip = c[1] != 0.0f;
+    int f = 0;
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      if (i < nx) {
+        const int kind = (int)flag[i];
+        const float xs = kind & 1 ? Pendulum::angle_normalize(x[i]) : x[i];
+        if (kind & 2) {
+          row[f++] = sinf(xs);
+          row[f++] = cosf(xs);
+        } else {
+          row[f++] = xs;
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+      if (j < nu) row[f++] = clip ? fminf(fmaxf(u[j], c[2]), c[3]) : u[j];
+  }
+
+  // layer l reads half l % 2 of the activations and writes the other
+  __device__ static void dense(int l, const float* c, float* act, int ld, int rows, int nx) {
+    const int L = (int)c[0];
+    const float* widths = c + BMLP_FIXED;
+    const float* w = c + bmlp_head(L, nx);
+    for (int m = 0; m < l; ++m) {
+      const int p = ((int)widths[m + 1] + 3) / 4 * 4;
+      w += ((int)widths[m] + 1) * p;
+    }
+    const int n_in = (int)widths[l], n_out = (int)widths[l + 1], p = (n_out + 3) / 4 * 4;
+    const int half = rows * ld;
+    block_dense(w, w + n_in * p, n_in, n_out, p, act + (l & 1) * half,
+                act + ((l + 1) & 1) * half, ld, rows, l + 1 < L);
+  }
+
+  template <int N>
+  __device__ static void after(int l, const float* c, float* x, const float*, int nx, int, int,
+                               Carry&, float* row, int half) {
+    const int L = (int)c[0];
+    if (l + 1 < L) return;
+    const float* h = row + (L & 1) * half;
+    const float* flag = dims(c);
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      if (i < nx) {
+        const bool wrap = (int)flag[i] & 1;
+        const float xs = wrap ? Pendulum::angle_normalize(x[i]) : x[i];
+        const float v = xs + h[i];
+        x[i] = wrap ? Pendulum::angle_normalize(v) : v;
+      }
+    }
+  }
+
+  template <int N>
+  __device__ static float cost(const float* c, const float* x, const float* u, int nx, int nu,
+                               int t) {
+    if (c[4] == 0.0f) return Pendulum::cost<N>(c, x, u, nx, nu, t);
+    const float* goal = dims(c) + nx;
+    float s = 0.0f;
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      if (i < nx) {
+        const float d = goal[i] - x[i];
         s += d * d;
       }
     }
@@ -893,14 +1126,19 @@ __device__ __forceinline__ void tile_product(const float* __restrict__ M, int ro
 // T-step rollout of the device model over its actions (column `col` of a
 // tile with row stride ldt) from its column of x0; SMPPI adds the
 // smoothness cost on the action rows.  Called with nx = nu = N as constants,
-// the model's loops and constant offsets are fixed when it is compiled.
+// the model's loops and constant offsets are fixed when it is compiled.  A
+// block model's (kBlockOf) is called by every thread of the block, thread
+// `slot` owning sample k (slot -1: none), with the activations at `act`; a
+// thread without a live sample steps zeros, and its result is not used.
 template <class Model, int N, int V>
 __device__ __forceinline__ float sample_cost(const Params& p, const float* col, int ldt, int k,
-                                             float pc, int nx, int nu) {
+                                             float pc, int nx, int nu, int slot = 0,
+                                             float* act = nullptr) {
+  const bool own = !kBlockOf<Model> || (slot >= 0 && k < p.K);
   float x[N], u[N], prev[N];
 #pragma unroll
   for (int i = 0; i < N; ++i) {
-    x[i] = i < nx ? p.x0[i * p.x0_row_stride + (long long)k * p.x0_col_stride] : 0.0f;
+    x[i] = i < nx && own ? p.x0[i * p.x0_row_stride + (long long)k * p.x0_col_stride] : 0.0f;
     prev[i] = 0.0f;
   }
   float total = 0.0f, smooth = 0.0f;
@@ -908,7 +1146,7 @@ __device__ __forceinline__ float sample_cost(const Params& p, const float* col, 
 #pragma unroll
     for (int j = 0; j < N; ++j) {
       float act = 0.0f;
-      if (j < nu) {
+      if (j < nu && own) {
         act = col[(t * nu + j) * ldt];
         if (V == kSMPPI) {
           // smoothness on the previous action row (mppi.py:558-562)
@@ -922,7 +1160,10 @@ __device__ __forceinline__ float sample_cost(const Params& p, const float* col, 
       }
       u[j] = act * p.u_scale;
     }
-    Model::template step<N>(p.consts, x, u, nx, nu, t);
+    if constexpr (kBlockOf<Model>)
+      block_step<Model, N>(p.consts, x, u, nx, nu, t, slot, p.S, p.act_rows, p.act_ld, act);
+    else
+      Model::template step<N>(p.consts, x, u, nx, nu, t);
     total += Model::template cost<N>(p.consts, x, u, nx, nu, t);
   }
   if (Model::kTerminal || p.terminal) total += final_cost<Model, N>(p, x, u, nx, nu);
@@ -1128,7 +1369,25 @@ __global__ void __launch_bounds__(BLOCK, 2) mppi_fused_partial(Params p) {
 
   // 4. the rollout, one thread per sample
   float logit = -INFINITY;
-  if (tid < S && live) {
+  if constexpr (kBlockOf<Model>) {
+    // a block model: every thread enters the step loop and computes the
+    // layers; thread t < S owns sample t, and its activations follow the
+    // tiles (block_act)
+    const bool own = tid < S && live;
+    float pcs = 0.0f;
+    if (own) {
+      pcs = part[tid];
+      for (int j = 1; j < G; ++j) pcs += part[j * S + tid];
+    }
+    float* act = block_act(vec + (size_t)NVEC * D +
+                           (kGlobal ? 0 : (size_t)partial_tiles(V, p.full_op) * D * ldt));
+    const float c = sample_cost<Model, N, V>(p, vt + (tid < S ? tid : 0), ldt, k, pcs, p.nx,
+                                             p.nu, tid < S ? tid : -1, act);
+    if (own) {
+      p.cost[k] = c;
+      logit = -c / *p.lam;
+    }
+  } else if (tid < S && live) {
     float pcs = part[tid];
     for (int j = 1; j < G; ++j) pcs += part[j * S + tid];
     // the N = 2 arrays also hold a rollout with nx = nu = 2 as constants
@@ -1247,10 +1506,14 @@ __device__ __forceinline__ void async_wait_group() {
 // clamp of U + n against lo and hi, the action cost of the rectified noise,
 // and the T-step rollout from the plant's x0.  Called with nx = nu = N as
 // constants, the device model's loops and constant offsets are fixed when it
-// is compiled, so its constants stay in registers across the steps.
+// is compiled, so its constants stay in registers across the steps.  A
+// block model's (kBlockOf) is called by every thread of the block, thread
+// `slot` owning the sample of its column, with the activations at `act` (a
+// column at or beyond K holds zero noise; its result is not used).
 template <class Model, int N, int LDT>
 __device__ __forceinline__ float batched_cost(const Params& p, const float4* cur, const float* col,
-                                              int plant, int nx, int nu) {
+                                              int plant, int nx, int nu, int slot = 0,
+                                              float* act = nullptr) {
   float x[N], u[N];
 #pragma unroll
   for (int i = 0; i < N; ++i)
@@ -1269,7 +1532,10 @@ __device__ __forceinline__ float batched_cost(const Params& p, const float4* cur
       }
       u[j] = act * p.u_scale;
     }
-    Model::template step<N>(p.consts, x, u, nx, nu, t);
+    if constexpr (kBlockOf<Model>)
+      block_step<Model, N>(p.consts, x, u, nx, nu, t, slot, BLOCK, p.act_rows, p.act_ld, act);
+    else
+      Model::template step<N>(p.consts, x, u, nx, nu, t);
     total += Model::template cost<N>(p.consts, x, u, nx, nu, t);
   }
   if (Model::kTerminal || p.terminal) total += final_cost<Model, N>(p, x, u, nx, nu);
@@ -1381,7 +1647,18 @@ __global__ void __launch_bounds__(BLOCK) batched_partial(Params p) {
     __syncthreads();  // the tile and this plant's columns are in; the previous update is done
     if (plant + 1 < last) fetch(plant + 1, pk + ((plant - first + 1) & 1) * R);
     float logit = -INFINITY;
-    if (live) {
+    if constexpr (kBlockOf<Model>) {
+      // a block model: every thread steps its column, the layers together;
+      // the activations follow the tiles
+      float* act = block_act(smem + batched_head(R) +
+                             (kGlobal ? 0 : (size_t)(p.full_op ? 2 : 1) * R * LDT));
+      const float c =
+          batched_cost<Model, N, LDT>(p, cur, nt + tid, plant, p.nx, p.nu, tid, act);
+      if (live) {
+        p.cost[(size_t)plant * p.K + k] = c;
+        logit = -c / lam;
+      }
+    } else if (live) {
       const float c = exact ? batched_cost<Model, N, LDT>(p, cur, nt + tid, plant, N, N)
                             : batched_cost<Model, N, LDT>(p, cur, nt + tid, plant, p.nx, p.nu);
       p.cost[(size_t)plant * p.K + k] = c;
@@ -1443,22 +1720,34 @@ constexpr int ROLLOUT_SMEM = 48 * 1024;
 // t0 of the rollout: the actions of step t are columns t * nu .. t * nu +
 // nu - 1 of the row, read as the float4 that holds each (one load a float4
 // where nu is a multiple of 4, or where the compiler merges the steps of one
-// float4).  The running cost is taken after each step.
+// float4).  The running cost is taken after each step.  A block model's
+// (kBlockOf) is called by every thread of the block, thread `slot` owning
+// the sample of its row where `own` (a thread without one steps zeros, and
+// reads no row), with the activations at `act`.
 template <class Model, int N>
 __device__ __forceinline__ float rollout_steps(const Params& p, const float* row, int steps,
                                                int t0, float* x, float* u, float total, int nx,
-                                               int nu) {
+                                               int nu, int slot = 0, float* act = nullptr,
+                                               bool own = true) {
   const float4* row4 = reinterpret_cast<const float4*>(row);
   for (int t = 0; t < steps; ++t) {
 #pragma unroll
     for (int j = 0; j < N; ++j) {
       if (j < nu) {
         const int e = t * nu + j, w = e & 3;
+        if (kBlockOf<Model> && !own) {
+          u[j] = 0.0f;
+          continue;
+        }
         const float4 q = row4[e >> 2];
         u[j] = w == 0 ? q.x : w == 1 ? q.y : w == 2 ? q.z : q.w;
       }
     }
-    Model::template step<N>(p.consts, x, u, nx, nu, t0 + t);
+    if constexpr (kBlockOf<Model>)
+      block_step<Model, N>(p.consts, x, u, nx, nu, t0 + t, slot, p.S, p.act_rows, p.act_ld,
+                           act);
+    else
+      Model::template step<N>(p.consts, x, u, nx, nu, t0 + t);
     total += Model::template cost<N>(p.consts, x, u, nx, nu, t0 + t);
   }
   return total;
@@ -1524,7 +1813,16 @@ __global__ void __launch_bounds__(BLOCK) fused_rollout(Params p) {
     else
       async_wait_group<0>();
     __syncthreads();  // chunk c has landed, whichever thread copied it
-    if (live) {
+    if constexpr (kBlockOf<Model>) {
+      // a block model: every thread enters the steps and computes the
+      // layers; thread t < S owns row t, and the activations follow the
+      // staged buffers
+      const float* row = smem + (size_t)(c & 1) * S * ldr + (size_t)(live ? tid : 0) * ldr;
+      const int steps = p.T - c * Ts < Ts ? p.T - c * Ts : Ts;
+      float* act = block_act(smem + (size_t)(nch > 1 ? 2 : 1) * S * ldr);
+      total = rollout_steps<Model, N>(p, row, steps, c * Ts, x, u, total, nx, nu,
+                                      tid < S ? tid : -1, act, live);
+    } else if (live) {
       const float* row = smem + (size_t)(c & 1) * S * ldr + (size_t)tid * ldr;
       const int steps = p.T - c * Ts < Ts ? p.T - c * Ts : Ts;
       total = exact ? rollout_steps<Model, N>(p, row, steps, c * Ts, x, u, total, N, N)
@@ -2095,13 +2393,24 @@ cudaError_t launch_variant(const Params& p, int variant, size_t smem, cudaStream
   }
 }
 
-// parts 0-4, 11-14: the single-plant variants and the rollout kernel
+// the rollout kernel (a block model's activations may take it past 48 KB)
+template <class Model, int N>
+cudaError_t launch_rollout(const Params& p, size_t smem, cudaStream_t s) {
+  if constexpr (kBlockOf<Model>) {  // the activations beside the staged rows
+    if (smem > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          fused_rollout<Model, N>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) return e;
+    }
+  }
+  fused_rollout<Model, N><<<p.nblocks, BLOCK, smem, s>>>(p);
+  return cudaGetLastError();
+}
+
+// parts 0-4, 11-14, 17: the single-plant variants and the rollout kernel
 template <class Model, int N>
 cudaError_t launch_tiles(const Params& p, int variant, size_t smem, cudaStream_t s) {
-  if (variant == kRollout) {
-    fused_rollout<Model, N><<<p.nblocks, BLOCK, smem, s>>>(p);
-    return cudaGetLastError();
-  }
+  if (variant == kRollout) return launch_rollout<Model, N>(p, smem, s);
   return p.scratch ? launch_variant<Model, N, true>(p, variant, smem, s)
                    : launch_variant<Model, N, false>(p, variant, smem, s);
 }
@@ -2120,7 +2429,7 @@ cudaError_t launch_batched_partial(const Params& p, size_t smem, cudaStream_t st
   return cudaGetLastError();
 }
 
-// parts 6-10, 15, 16: the batched variant
+// parts 6-10, 15, 16, 18: the batched variant
 template <class Model, int N>
 cudaError_t launch_batched(const Params& p, int variant, size_t smem, cudaStream_t s) {
   if (variant != kBatched) return cudaErrorInvalidValue;
@@ -2140,10 +2449,7 @@ cudaError_t launch_generated(const Params& p, int v, size_t smem, cudaStream_t s
   static_assert(N >= 1 && N <= MAXN, "a generated model holds at most MAXN states and actions");
   if (v < kMPPI || v > kRollout || !((mask >> v) & 1)) return cudaErrorInvalidValue;
   if constexpr (((mask >> kRollout) & 1) != 0) {
-    if (v == kRollout) {
-      fused_rollout<Generated, N><<<p.nblocks, BLOCK, smem, s>>>(p);
-      return cudaGetLastError();
-    }
+    if (v == kRollout) return launch_rollout<Generated, N>(p, smem, s);
   }
   if constexpr (((mask >> kBatched) & 1) != 0) {
     if (v == kBatched) return launch_batched<Generated, N>(p, v, smem, s);
@@ -2244,6 +2550,20 @@ cudaError_t batched_mlp8(const Params& p, int v, size_t smem, cudaStream_t s) {
 #else
 cudaError_t batched_mlp8(const Params&, int, size_t, cudaStream_t);
 #endif
+#if FUSED_MPPI_HAS(17)
+cudaError_t launch_bmlp32(const Params& p, int v, size_t smem, cudaStream_t s) {
+  return launch_tiles<ResidualMLPBlock, MAXN>(p, v, smem, s);
+}
+#else
+cudaError_t launch_bmlp32(const Params&, int, size_t, cudaStream_t);
+#endif
+#if FUSED_MPPI_HAS(18)
+cudaError_t batched_bmlp32(const Params& p, int v, size_t smem, cudaStream_t s) {
+  return launch_batched<ResidualMLPBlock, MAXN>(p, v, smem, s);
+}
+#else
+cudaError_t batched_bmlp32(const Params&, int, size_t, cudaStream_t);
+#endif
 #if FUSED_MPPI_HAS(6)
 cudaError_t batched_lq2(const Params& p, int v, size_t smem, cudaStream_t s) {
   return launch_batched<LinearQuadratic, 2>(p, v, smem, s);
@@ -2300,11 +2620,18 @@ namespace {
 Launcher find_launcher(int, int, int nx, int nu) {
   return nx <= Generated::kN && nu <= Generated::kN ? launch_generated : nullptr;
 }
+
+bool is_block(int) { return kBlockOf<Generated>; }
 #else
+constexpr int RESIDUAL_MLP_BLOCK = 4;  // ResidualMLPBlock's model id
+
 // The launcher of a variant for a device model (by id) and its register size
-// (2, 8 or MAXN), or null.  The residual MLP takes nx, nu <= MLP_MAX_N.
+// (2, 8 or MAXN), or null.  The residual MLP takes nx, nu <= MLP_MAX_N;
+// ResidualMLPBlock runs on the MAXN arrays.
 Launcher find_launcher(int variant, int model_id, int nx, int nu) {
   const int n = nx > nu ? nx : nu;
+  if (model_id == RESIDUAL_MLP_BLOCK)
+    return n > MAXN ? nullptr : variant == kBatched ? batched_bmlp32 : launch_bmlp32;
   const Launcher single[4][3] = {{launch_lq2, launch_lq8, launch_lq32},
                                  {launch_pendulum2, nullptr, nullptr},
                                  {launch_toy2, launch_toy8, launch_toy32},
@@ -2316,7 +2643,18 @@ Launcher find_launcher(int variant, int model_id, int nx, int nu) {
   if (model_id < 0 || model_id > 3 || n > MAXN) return nullptr;
   return (variant == kBatched ? batched : single)[model_id][n <= 2 ? 0 : n <= 8 ? 1 : 2];
 }
+
+bool is_block(int model_id) { return model_id == RESIDUAL_MLP_BLOCK; }
 #endif
+
+// Whether a block model's activations are laid out as its kernels read them:
+// groups of a multiple of DENSE_ROWS samples that divide the block's
+// `slots`, rows of a multiple of four floats; none for another model.
+bool valid_activations(int model_id, int slots, int rows, int ld) {
+  if (!is_block(model_id)) return rows == 0 && ld == 0;
+  return rows >= DENSE_ROWS && rows % DENSE_ROWS == 0 && slots % rows == 0 && ld >= 4 &&
+         ld % 4 == 0;
+}
 
 // Kernel A for a single-plant variant (it merges its own partials), or
 // batched_partial then kernel B into delta and ms.
@@ -2333,15 +2671,20 @@ cudaError_t launch_solve(const Params& p, int variant, int model_id, size_t smem
 
 // Dynamic shared memory of kernel A with S samples a block, or of
 // batched_partial for kBatched, with the tiles in shared memory or
-// (`global`) in a global scratch.
-size_t kernel_smem(int variant, int D, int R, int full_op, int S, bool global) {
+// (`global`) in a global scratch; a block model's activations (two halves of
+// act_rows rows of act_ld floats) follow, 16-byte aligned (block_act).
+size_t kernel_smem(int variant, int D, int R, int full_op, int S, bool global, int act_rows = 0,
+                   int act_ld = 0) {
+  size_t floats;
   if (variant == kBatched) {
     const size_t tiles = global ? 0 : (full_op ? 2 : 1) * (size_t)R * BATCHED_LDT;
-    return (batched_head(R) + tiles) * sizeof(float);
+    floats = batched_head(R) + tiles;
+  } else {
+    const size_t tiles = global ? 0 : partial_tiles(variant, full_op) * (size_t)D * (S + 1);
+    floats = PARTIAL_HEAD + panel_floats(variant, full_op, R, S) + (size_t)NVEC * D + tiles;
   }
-  const size_t tiles = global ? 0 : partial_tiles(variant, full_op) * (size_t)D * (S + 1);
-  return (PARTIAL_HEAD + panel_floats(variant, full_op, R, S) + (size_t)NVEC * D + tiles) *
-         sizeof(float);
+  if (act_rows) floats = (floats + 3) / 4 * 4 + 2 * (size_t)act_rows * act_ld;
+  return floats * sizeof(float);
 }
 
 bool valid_tile(int S) { return S == 32 || S == 64 || S == BLOCK; }
@@ -2356,12 +2699,13 @@ int fused_mppi_max_n() { return MAXN; }
 
 // ResidualMLP's layout and bounds: 0 the header's floats, 1 the widest
 // layer, 2 the most layers, 3 the outputs of a group, 4 the goal's offset in
-// the header, 5 the largest nx or nu (ops/fused_solve.py checks them against
-// ops/kernel_models.py)
+// the header, 5 the largest nx or nu; ResidualMLPBlock's: 6 the fixed floats
+// of its header, 7 the least group of a block model's samples (DENSE_ROWS)
+// (ops/fused_solve.py checks them against ops/kernel_models.py)
 int fused_mppi_mlp_limit(int which) {
-  const int limits[6] = {MLP_HEAD, MLP_MAX_WIDTH, MLP_MAX_LAYERS, MLP_GROUP, MLP_GOAL,
-                         MLP_MAX_N};
-  return which >= 0 && which < 6 ? limits[which] : -1;
+  const int limits[8] = {MLP_HEAD, MLP_MAX_WIDTH, MLP_MAX_LAYERS, MLP_GROUP, MLP_GOAL,
+                         MLP_MAX_N, BMLP_FIXED, DENSE_ROWS};
+  return which >= 0 && which < 8 ? limits[which] : -1;
 }
 
 // Dynamic shared memory of kernel A with S samples a block (batched_partial
@@ -2406,7 +2750,8 @@ int fused_mppi_launch(int device, void* stream, int variant, int model_id, const
                       int num_plants, long long u_rs, long long u_ps, long long a_rs,
                       long long a_ps, const float* noise, long long noise_ld, int plant_group,
                       int tile_k, int* counter, const float* terminal, const float* elites,
-                      int num_elites, int elite_off, const int* gate, int k_offset) {
+                      int num_elites, int elite_off, const int* gate, int k_offset,
+                      int act_rows, int act_ld) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   Params p{};
@@ -2467,7 +2812,11 @@ int fused_mppi_launch(int device, void* stream, int variant, int model_id, const
   p.elite_off = elite_off;
   p.gate = gate;
   p.k_offset = k_offset;
-  const size_t smem = kernel_smem(variant, p.D, R, full_op, p.S, scratch != nullptr);
+  p.act_rows = act_rows;
+  p.act_ld = act_ld;
+  const size_t smem =
+      kernel_smem(variant, p.D, R, full_op, p.S, scratch != nullptr, act_rows, act_ld);
+  if (!valid_activations(model_id, p.S, act_rows, act_ld)) return (int)cudaErrorInvalidValue;
   if (variant < kMPPI || variant > kBatched || num_plants < 1 ||
       (variant == kBatched ? plant_group < 1 : num_plants != 1 || !valid_tile(tile_k) || !counter))
     return (int)cudaErrorInvalidValue;
@@ -2525,7 +2874,8 @@ int fused_mppi_rowmajor_solve(int device, void* stream, int model_id, const floa
   p.counter = counter;
   p.delta = delta;
   p.ms = ms;
-  if (!valid_tile(tile_k) || !counter) return (int)cudaErrorInvalidValue;
+  // a block model's round-1 solve is not ported (ops/rowmajor.make_fused_solve refuses it)
+  if (!valid_tile(tile_k) || !counter || is_block(model_id)) return (int)cudaErrorInvalidValue;
   const size_t smem = kernel_smem(kMPPI, p.D, p.R, 1, tile_k, scratch != nullptr);
   return (int)launch_solve(p, kMPPI, model_id, smem, (cudaStream_t)stream);
 }
@@ -2660,14 +3010,17 @@ int fused_mppi_rollout_geometry(int T, int nu, int S, long long* geo) {
 
 // make_fused_rollout's kernel on `stream`, `tile_k` samples a block: cost
 // (K,) of the (K, T*nu) scaled actions u (row-major) from x0 (nx, K) with
-// the given strides.
+// the given strides; a block model's activations in groups of act_rows
+// samples, rows of act_ld floats, after the staged rows.
 int fused_mppi_rollout(int device, void* stream, int model_id, const float* consts, int K, int T,
                        int nx, int nu, const float* x0, long long x0_row_stride,
-                       long long x0_col_stride, const float* u, float* cost, int tile_k) {
+                       long long x0_col_stride, const float* u, float* cost, int tile_k,
+                       int act_rows, int act_ld) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   long long geo[4];
-  if (K < 1 || !valid_tile(tile_k) || fused_mppi_rollout_geometry(T, nu, tile_k, geo) != 0)
+  if (K < 1 || !valid_tile(tile_k) || fused_mppi_rollout_geometry(T, nu, tile_k, geo) != 0 ||
+      !valid_activations(model_id, tile_k, act_rows, act_ld))
     return (int)cudaErrorInvalidValue;
   Params p{};
   p.consts = consts;
@@ -2686,9 +3039,12 @@ int fused_mppi_rollout(int device, void* stream, int model_id, const float* cons
   p.cost = cost;
   p.chunk_steps = (int)geo[0];
   p.vec4 = p.D % 4 == 0 && (geo[0] * nu) % 4 == 0 && reinterpret_cast<uintptr_t>(u) % 16 == 0;
+  p.act_rows = act_rows;
+  p.act_ld = act_ld;
   const Launcher launch = find_launcher(kRollout, model_id, nx, nu);
   if (!launch) return (int)cudaErrorInvalidValue;
-  return (int)launch(p, kRollout, (size_t)geo[3], (cudaStream_t)stream);
+  const size_t smem = (size_t)geo[3] + 2 * (size_t)act_rows * act_ld * sizeof(float);
+  return (int)launch(p, kRollout, smem, (cudaStream_t)stream);
 }
 
 #ifndef FUSED_MPPI_GENERATED

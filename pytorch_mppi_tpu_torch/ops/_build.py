@@ -24,7 +24,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 SOURCE = _PKG / "csrc" / "fused_mppi.cu"
-PARTS = 17  # FUSED_MPPI_PART = 0 .. PARTS - 1 in fused_mppi.cu
+PARTS = 19  # FUSED_MPPI_PART = 0 .. PARTS - 1 in fused_mppi.cu
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

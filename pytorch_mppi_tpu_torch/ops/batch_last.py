@@ -6,7 +6,10 @@ traces the user's callables to a jaxpr and re-derives every equation with
 the batch axis moved last (K on the TPU's lanes), so that the Pallas kernels
 can evaluate them on whole blocks of samples.  In a CUDA kernel one thread
 rolls one sample out, so there is no batch axis to move: here the batch axis
-is dropped, and the traced program becomes a per-sample scalar program.
+is dropped, and the traced program becomes a per-sample scalar program;
+where that program would be too long, each product with a constant matrix
+becomes one dense layer that a block's threads compute for its samples
+together, JAX's batched @ constant (``_dot_general_batch_last``).
 
 1. **Trace.** :func:`trace_model` traces ``dynamics(state (B, nx), action
    (B, nu)[, t])`` and ``running_cost(next_state, action[, t])`` through the
@@ -23,7 +26,13 @@ is dropped, and the traced program becomes a per-sample scalar program.
    folded; every other value is held as an array of scalar nodes of its
    per-sample shape.  The nodes (:class:`Program`) are elementwise
    arithmetic, transcendentals, comparisons, selects and casts, in three
-   kinds: float, integer and bool.  The vocabulary, in aten terms:
+   kinds: float, integer and bool, and dense layers: where the program's
+   scalar lowering would exceed ``MAX_OPS`` operations a step, each ``mm``
+   or ``addmm`` (what ``nn.Linear`` lowers to) of a batched (B, n_in)
+   value with a constant (n_in, n_out) matrix (and a constant bias) is one
+   ``dense`` node with n_out outputs, whose weights stay in the constants
+   (the dynamics only: the costs stay scalar).  The vocabulary, in aten
+   terms:
    elementwise arithmetic and transcendentals, comparisons, ``where`` /
    ``clamp`` / ``remainder`` / ``fmod`` / ``atan2`` and casts; reductions
    over feature axes (``sum``, ``mean``, ``amax``, ``amin``, ``prod``,
@@ -37,17 +46,22 @@ is dropped, and the traced program becomes a per-sample scalar program.
    axis.  Anything that reduces, indexes, sorts, contracts or concatenates
    along the batch axis raises :class:`UnsupportedPrimitive` naming the op,
    as JAX's interpreter does; so does any other op with a batched operand, a
-   random op, and a program of more than ``MAX_OPS`` scalar operations a
-   step (dynamics, running cost and terminal cost together).
+   random op, and a program whose scalar operations a step, besides its
+   dense layers' multiply-adds, exceed ``MAX_OPS`` (the dynamics and the
+   running cost together; the terminal cost alone).  A program within
+   ``MAX_OPS`` as scalars is emitted as scalars.
 3. **Plain version.** :meth:`Program.evaluate` runs the nodes on
-   ``(K,)``-batched torch tensors, one torch op a node.  It is the generated
+   ``(K,)``-batched torch tensors, one torch op a node (a dense node one
+   product plus its bias).  It is the generated
    device model's plain ``dynamics`` / ``running_cost``, so the CPU tests
    exercise the translation and not the user's callable.
 4. **Emit.** :meth:`GeneratedKernel.header` writes the nodes as the C++
    struct ``Generated`` with the interface of ``csrc/fused_mppi.cu``'s named
    device models, plus the timestep: one statement a node, standard C math
    functions only (no intrinsics, no fast math), so the same text compiles
-   as host C++.  Tensor constants are read from the model's float32
+   as host C++; a program with dense layers as a block model
+   (:meth:`Program.emit_block`: its segments between the layers, the
+   ``block_dense`` calls, ``kBlock``).  Tensor constants are read from the model's float32
    ``consts`` buffer (the terminal cost's from its own), never written as
    literals, so two models that differ only in their weights give the same
    source and share one library; Python numbers in the callables are code,
@@ -93,7 +107,7 @@ import torch
 from .kernel_models import GENERATED, KernelModel, KernelTerminal, find_kernel_model
 
 PROBE_BATCH = 509  # the batch the callables are traced at (a prime no feature axis is)
-MAX_OPS = 16_384  # scalar operations of one step: dynamics, running cost and terminal
+MAX_OPS = 16_384  # scalar operations of one step besides dense layers: dynamics and running cost
 MAXN = 32  # the largest nx or nu of a device model (MAXN in fused_mppi.cu)
 
 F, I, B = "f", "i", "b"  # the kinds of a scalar node: float, integer, bool
@@ -185,14 +199,21 @@ def _float_literal(v: float) -> str:
     return f"{f.hex()}f" if f >= 0 else f"(-{(-f).hex()}f)"
 
 
+_LEAVES = ("x", "u", "t", "const", "lit")
+
+
 class Program:
     """A straight-line program of scalar nodes over the inputs ``x`` (nx
     states), ``u`` (nu actions) and the timestep ``t``.  A node is a tuple
     ``(op, kind, *args)``: ``("x", F, i)``, ``("u", F, j)``, ``("t", I)``,
     ``("const", F, k)`` (entry k of the constants buffer), ``("lit", kind,
     value)``, ``("cast", kind, a)``, ``("where", kind, c, a, b)`` and the
-    unary and binary ops of the tables above, whose args are node ids.
-    Equal nodes are one node (common subexpressions are shared)."""
+    unary and binary ops of the tables above, whose args are node ids; and a
+    dense layer, ``("dense", F, w, b, n_out, *inputs)``, the product of its
+    n_in input nodes with the (n_in, n_out) row-major matrix at entry ``w``
+    of the constants, plus the n_out floats at ``b`` (none where ``b`` is
+    -1), whose outputs are the nodes ``("dout", F, dense, j)``.  Equal nodes
+    are one node (common subexpressions are shared)."""
 
     def __init__(self):
         self.nodes: list = []
@@ -229,9 +250,18 @@ class Program:
                 continue
             need.add(n)
             op = self.nodes[n][0]
-            if op not in ("x", "u", "t", "const", "lit"):
+            if op == "dense":
+                stack.extend(self.nodes[n][5:])
+            elif op == "dout":
+                stack.append(self.nodes[n][2])
+            elif op not in _LEAVES:
                 stack.extend(self.nodes[n][2:])
         return sorted(need)
+
+    def dense_layers(self, outputs) -> list:
+        """The live dense nodes, in order, as ``(id, w, b, n_in, n_out)``."""
+        return [(n, node[2], node[3], len(node) - 5, node[4])
+                for n in self.live(outputs) for node in (self.nodes[n],) if node[0] == "dense"]
 
     def evaluate(self, outputs, consts: torch.Tensor, x: torch.Tensor, u: torch.Tensor, t):
         """The outputs' values on ``(K, nx)`` states and ``(K, nu)`` actions
@@ -257,6 +287,13 @@ class Program:
                 v = vals[a[0]].to(dtypes[kind])
             elif op == "where":
                 v = torch.where(vals[a[0]], vals[a[1]], vals[a[2]])
+            elif op == "dense":  # one product plus the bias
+                w, b, n_out, *ins = a
+                X = torch.stack([_broadcast(vals[i], x[:, 0]) for i in ins], dim=1)
+                W = consts[w:w + len(ins) * n_out].reshape(len(ins), n_out)
+                v = X @ W if b < 0 else torch.addmm(consts[b:b + n_out], X, W)
+            elif op == "dout":
+                v = vals[a[0]][:, a[1]]
             elif op == "neg":
                 v = -vals[a[0]]
             elif len(a) == 1:
@@ -268,51 +305,143 @@ class Program:
 
     def emit(self, outputs, indent: str = "    ") -> tuple:
         """(statements, names): one C statement a live node, and the C names
-        of the outputs."""
+        of the outputs.  A program with dense layers is emitted by
+        :meth:`emit_block`."""
         lines = []
         for n in self.live(outputs):
-            op, kind, *a = self.nodes[n]
-            ty = _C_TYPE[kind]
-            v = [f"v{i}" for i in a] if op not in ("x", "u", "const", "lit") else []
-            if op == "x":
-                e = f"x[{a[0]}]"
-            elif op == "u":
-                e = f"u[{a[0]}]"
-            elif op == "t":
-                e = "(long long)t"
-            elif op == "const":
-                e = f"c[{a[0]}]"
-            elif op == "lit":
-                e = (_float_literal(a[0]) if kind == F else
-                     ("true" if a[0] else "false") if kind == B else f"{int(a[0])}LL")
-            elif op == "cast":
-                e = f"(({ty})(v{a[0]}))" if kind != B else f"(v{a[0]} != 0)"
-            elif op == "where":
-                e = f"({v[0]} ? {v[1]} : {v[2]})"
-            elif op == "neg":
-                e = f"(-{v[0]})"
-            elif op == "not":
-                e = f"(!{v[0]})"
-            elif op in ("isnan", "isinf", "isfinite"):
-                e = f"{op}({v[0]})"
-            elif len(a) == 1:
-                if self.kind(a[0]) == F:
-                    e = _UNARY_F[op].format(*v)
-                elif op == "abs":
-                    e = f"llabs({v[0]})"
-                elif op == "sign":
-                    e = f"(long long)(({v[0]} > 0) - ({v[0]} < 0))"
-                else:
-                    raise UnsupportedPrimitive(f"{op} of an integer value")
-            elif op in _BINARY_C:
-                e = _BINARY_C[op].format(*v)
-            else:
-                table = _BINARY_F if self.kind(a[0]) == F else _BINARY_I
-                if op not in table:
-                    raise UnsupportedPrimitive(f"{op} of integer values")
-                e = table[op].format(*v)
-            lines.append(f"{indent}const {ty} v{n} = {e};")
+            if self.nodes[n][0] in ("dense", "dout"):
+                raise ValueError("a program with dense layers is emitted by emit_block")
+            lines.append(f"{indent}const {_C_TYPE[self.kind(n)]} v{n} = "
+                         f"{self._expr(n, lambda i: f'v{i}')};")
         return lines, [f"v{o}" for o in outputs]
+
+    def _expr(self, n: int, name) -> str:
+        """Node ``n``'s C expression, its arguments named by ``name(id)``."""
+        op, kind, *a = self.nodes[n]
+        ty = _C_TYPE[kind]
+        v = [name(i) for i in a] if op not in ("x", "u", "const", "lit") else []
+        if op == "x":
+            e = f"x[{a[0]}]"
+        elif op == "u":
+            e = f"u[{a[0]}]"
+        elif op == "t":
+            e = "(long long)t"
+        elif op == "const":
+            e = f"c[{a[0]}]"
+        elif op == "lit":
+            e = (_float_literal(a[0]) if kind == F else
+                 ("true" if a[0] else "false") if kind == B else f"{int(a[0])}LL")
+        elif op == "cast":
+            e = f"(({ty})({v[0]}))" if kind != B else f"({v[0]} != 0)"
+        elif op == "where":
+            e = f"({v[0]} ? {v[1]} : {v[2]})"
+        elif op == "neg":
+            e = f"(-{v[0]})"
+        elif op == "not":
+            e = f"(!{v[0]})"
+        elif op in ("isnan", "isinf", "isfinite"):
+            e = f"{op}({v[0]})"
+        elif len(a) == 1:
+            if self.kind(a[0]) == F:
+                e = _UNARY_F[op].format(*v)
+            elif op == "abs":
+                e = f"llabs({v[0]})"
+            elif op == "sign":
+                e = f"(long long)(({v[0]} > 0) - ({v[0]} < 0))"
+            else:
+                raise UnsupportedPrimitive(f"{op} of an integer value")
+        elif op in _BINARY_C:
+            e = _BINARY_C[op].format(*v)
+        else:
+            table = _BINARY_F if self.kind(a[0]) == F else _BINARY_I
+            if op not in table:
+                raise UnsupportedPrimitive(f"{op} of integer values")
+            e = table[op].format(*v)
+        return e
+
+    def emit_block(self, outputs) -> list:
+        """The members of a block model's struct ``Generated`` (the
+        interface of ``csrc/fused_mppi.cu``'s block models) for the step
+        whose next-state nodes are ``outputs``: the live dense nodes run in
+        order, layer l after segment l; segment 0 (``begin``) and segment l
+        + 1 (``after``'s case l) hold the scalar nodes whose latest input is
+        layer l's output (segment 0: none), each segment ends by writing the
+        next layer's inputs into the sample's activation row, and the last
+        one by writing x.  A node that a later segment reads stays in the
+        owner's registers in ``Carry``; a leaf is read where it is used."""
+        live = self.live(outputs)
+        dense = [n for n in live if self.nodes[n][0] == "dense"]
+        phase = {d: i for i, d in enumerate(dense)}
+        last = len(dense)
+        seg = {}
+        for n in live:
+            op = self.nodes[n][0]
+            if op in _LEAVES or op == "dense":
+                continue
+            seg[n] = (phase[self.nodes[n][2]] + 1 if op == "dout" else
+                      max((seg.get(a, 0) for a in self.nodes[n][2:]), default=0))
+        uses = {}  # node -> the segments that read it
+        for n in live:
+            op = self.nodes[n][0]
+            if op in _LEAVES:
+                continue
+            args, at = ((self.nodes[n][5:], phase[n]) if op == "dense"
+                        else ((), 0) if op == "dout" else (self.nodes[n][2:], seg[n]))
+            for a in args:
+                uses.setdefault(a, set()).add(at)
+        for o in outputs:
+            uses.setdefault(o, set()).add(last)
+        carried = [n for n in live if n in seg and max(uses.get(n, {0})) > seg[n]]
+
+        def segment(s: int) -> list:
+            mine = [n for n in live if seg.get(n) == s]
+            ins = list(self.nodes[dense[s]][5:]) if s < last else list(outputs)
+            leaves = sorted({a for n in mine if self.nodes[n][0] != "dout"
+                             for a in self.nodes[n][2:] if self.nodes[a][0] in _LEAVES}
+                            | {a for a in ins if self.nodes[a][0] in _LEAVES})
+
+            def name(a):
+                return f"v{a}" if a not in seg or seg[a] == s else f"k.v{a}"
+
+            body = [f"    const {_C_TYPE[self.kind(a)]} v{a} = {self._expr(a, name)};"
+                    for a in leaves]
+            for n in mine:
+                node = self.nodes[n]
+                e = f"out[{node[3]}]" if node[0] == "dout" else self._expr(n, name)
+                body.append(f"    const {_C_TYPE[self.kind(n)]} v{n} = {e};")
+                if n in carried:
+                    body.append(f"    k.v{n} = v{n};")
+            if s < last:
+                body += [f"    row[{i}] = {name(a)};" for i, a in enumerate(ins)]
+            else:
+                body += [f"    x[{i}] = {name(a)};" for i, a in enumerate(ins)]
+            return body
+
+        members = [f"    {_C_TYPE[self.kind(n)]} v{n};" for n in carried]
+        lines = ["  static constexpr bool kBlock = true;",
+                 "  struct Carry {", *members, "  };",
+                 f"  __device__ static int layers(const float*) {{ return {last}; }}",
+                 "  __device__ static void dense(int l, const float* c, float* act, int ld, "
+                 "int rows, int) {",
+                 "    switch (l) {"]
+        for i, (_, w, b, n_in, n_out) in enumerate(self.dense_layers(outputs)):
+            lines.append(f"      case {i}: block_dense(c + {w}, {f'c + {b}' if b >= 0 else 'nullptr'}"
+                         f", {n_in}, {n_out}, {n_out}, act, act + rows * ld, ld, rows, false); "
+                         "break;")
+        lines += ["    }", "  }",
+                  "  template <int N>",
+                  "  __device__ static void begin(const float* c, const float* x, const float* u, "
+                  "int, int, int t, Carry& k, float* row, int) {", *segment(0), "  }",
+                  "  template <int N>",
+                  "  __device__ static void after(int l, const float* c, float* x, const float* u, "
+                  "int, int, int t, Carry& k, float* row, int half) {",
+                  "    const float* out = row + half;",
+                  "    switch (l) {"]
+        for s in range(1, last + 1):
+            lines += [f"      case {s - 1}: {{", *[f"    {b}" for b in segment(s)],
+                      "        break;", "      }"]
+        lines += ["    }", "  }"]
+        return lines
 
 
 # ---------------------------------------------------------------------------
@@ -368,12 +497,16 @@ _RANDOM = ("rand", "randn", "randint", "randperm", "normal", "bernoulli", "unifo
 
 class _Lowering:
     """Lowers one traced graph into a :class:`Program`, registering the
-    tensor constants it reads in ``pool`` (a list of float values)."""
+    tensor constants it reads in ``pool`` (a list of float values).  With
+    ``dense``, each product of a batched (B, n_in) value with a constant
+    (n_in, n_out) matrix becomes one dense node (:meth:`dense`) instead of
+    n_out scalar dot products."""
 
-    def __init__(self, prog: Program, pool: list, batch: int):
+    def __init__(self, prog: Program, pool: list, batch: int, dense: bool = False):
         self.p = prog
         self.pool = pool
         self.batch = batch
+        self.dense_products = dense
         self._consts: dict = {}
 
     # -- leaves --------------------------------------------------------------
@@ -385,19 +518,24 @@ class _Lowering:
             return self.p.add("lit", I, int(value))
         return self.p.add("lit", B, bool(value))
 
+    def const_offset(self, t: torch.Tensor) -> int:
+        """The offset in the constants buffer of a float tensor's elements
+        (row-major), registered once for the tensor."""
+        key = (id(t), t.data_ptr() if t.numel() else 0)
+        hit = self._consts.get(key)
+        if hit is None:
+            off = len(self.pool)
+            self.pool.extend(t.detach().reshape(-1).cpu().to(torch.float64).tolist())
+            hit = self._consts[key] = (off, t)  # keep t alive: the key holds its id
+        return hit[0]
+
     def const_elems(self, t: torch.Tensor) -> np.ndarray:
         """The node ids of a constant tensor's elements: float tensors from
         the constants buffer, integer and bool tensors as literals."""
         kind = _kind_of(t.dtype)
         flat = t.detach().reshape(-1).cpu()
         if kind == F:
-            key = (id(t), t.data_ptr() if t.numel() else 0)
-            hit = self._consts.get(key)
-            if hit is None:
-                off = len(self.pool)
-                self.pool.extend(flat.to(torch.float64).tolist())
-                hit = self._consts[key] = (off, t)  # keep t alive: the key holds its id
-            off = hit[0]
+            off = self.const_offset(t)
             ids = [self.p.add("const", F, off + i) for i in range(flat.numel())]
         else:
             ids = [self.lit(v, kind) for v in flat.tolist()]
@@ -542,6 +680,15 @@ class _Lowering:
         prods = [self.binary("mul", self.cast(x, kind), self.cast(y, kind))
                  for x, y in zip(a_ids, b_ids)]
         return self.chain("add", prods, kind, 0)
+
+    def dense(self, ins, W: torch.Tensor, bias: Optional[torch.Tensor]) -> list:
+        """The n_out output nodes of one dense node: the inputs ``ins`` (n_in
+        node ids) times the constant (n_in, n_out) ``W``, plus the constant
+        (n_out,) ``bias`` where given."""
+        w = self.const_offset(W)
+        b = -1 if bias is None else self.const_offset(bias)
+        d = self.p.add("dense", F, w, b, int(W.shape[1]), *(self.cast(i, F) for i in ins))
+        return [self.p.add("dout", F, d, j) for j in range(int(W.shape[1]))]
 
 
 def _is_sym(v) -> bool:
@@ -1329,7 +1476,27 @@ class _Tracer:
             out[idx] = self.L.dot(row, col, k)
         return _Sym(out_shape, q, np.squeeze(out, q), k)
 
+    def _dense(self, meta, a, b, bias=None):
+        """``a @ b (+ bias)`` as one dense node where the lowering takes
+        products as dense nodes and ``a`` is a batched (B, n_in) value, ``b``
+        a constant float (n_in, n_out) matrix and ``bias`` a constant of
+        n_out floats or None; else None."""
+        if not (self.L.dense_products and _is_sym(a) and a.bdim == 0 and len(a.shape) == 2
+                and isinstance(b, torch.Tensor) and b.ndim == 2 and b.dtype.is_floating_point
+                and b.shape[0] == a.shape[1] and meta.dtype.is_floating_point):
+            return None
+        if bias is not None and not (isinstance(bias, torch.Tensor)
+                                     and bias.dtype.is_floating_point
+                                     and tuple(bias.shape) in ((b.shape[1],), (1, b.shape[1]))):
+            return None
+        outs = self.L.dense(list(a.elems.reshape(-1)), b,
+                            None if bias is None else bias.reshape(-1))
+        return self.finish(meta, _Sym(tuple(meta.shape), 0, np.array(outs, dtype=object), F))
+
     def op_mm(self, meta, a, b):
+        dense = self._dense(meta, a, b)
+        if dense is not None:
+            return dense
         return self.finish(meta, self._matmul(meta, a, b))
 
     op_bmm = op_mm
@@ -1360,7 +1527,11 @@ class _Tracer:
                                        dtype=object), k)
 
     def op_addmm(self, meta, bias, a, b, beta=1, alpha=1):
-        prod = self._matmul(meta, a, b)
+        if beta == 1 and alpha == 1:
+            dense = self._dense(meta, a, b, bias)
+            if dense is not None:
+                return dense
+        prod = self._dense(meta, a, b) or self._matmul(meta, a, b)
         L = self.L
 
         def f(c, m):
@@ -1464,6 +1635,13 @@ class GeneratedModel(KernelModel):
         ns = self.dynamics(state, action, t)
         return ns, self.running_cost(ns, action, t)
 
+    def activation_ld(self) -> int:
+        """Floats of an activation row of its dense layers (the widest, in or
+        out, rounded up to four); 0 for a program without dense layers."""
+        widest = max((max(n_in, n_out) for *_, n_in, n_out
+                      in self.program.dense_layers(self.outputs[:self.nx])), default=0)
+        return -(-widest // 4) * 4
+
 
 def _stack(vals, like: torch.Tensor) -> torch.Tensor:
     return torch.stack([_broadcast(v, like) for v in vals], dim=1)
@@ -1493,17 +1671,52 @@ def _inputs(prog: Program, nx: int, nu: int) -> tuple:
 
 
 def _trace_into(prog: Program, pool: list, fn: Callable, nx: int, nu: int, want: list,
-                dtype, with_t: bool, seed: int = 0, state=None) -> list:
+                dtype, with_t: bool, seed: int = 0, state=None, dense: bool = False) -> list:
     """Trace ``fn(state (B, nx), action (B, nu)[, t])`` into ``prog``, its
-    constants into ``pool``; ``want`` is each output's elements a sample.
-    Returns each output's node ids and the device the trace ran on."""
+    constants into ``pool`` (its products as dense nodes where ``dense``);
+    ``want`` is each output's elements a sample.  Returns each output's node
+    ids and the device the trace ran on."""
     s = _probe(nx, dtype, seed) if state is None else state
     u = _probe(nu, dtype, seed + 1).to(s.device)
     args = (s, u, torch.tensor(0, dtype=torch.int64, device=s.device)) if with_t else (s, u)
     gm, device = _make_fx(fn, args)
     names = [n.target for n in gm.graph.nodes if n.op == "placeholder"]
-    return _lower_outputs(_Lowering(prog, pool, PROBE_BATCH), gm,
+    return _lower_outputs(_Lowering(prog, pool, PROBE_BATCH, dense), gm,
                           dict(zip(names, _inputs(prog, nx, nu))), want), device
+
+
+def _lower(trace: Callable, what: str):
+    """``trace(dense) -> (program, pool, outputs, ...)`` lowered as the
+    kernels take it: the scalar program where it has at most ``MAX_OPS``
+    operations, as without dense nodes; else with each product of a batched
+    value and a constant matrix as one dense node, whose multiply-adds
+    ``MAX_OPS`` does not count (the scalar operations left must fit it).
+    The scalar lowering is tried only where the dense one's operations,
+    with the products counted as their scalar dot products, come within
+    twice the bound (sharing common subexpressions, a scalar lowering only
+    shrinks that count)."""
+    dense = trace(True)
+    prog, outs = dense[0], dense[2]
+    n_ops = _count_ops(prog, outs)
+    layers = prog.dense_layers(outs)
+    if not layers:
+        out, n_scalar = dense, n_ops
+    else:
+        out = None
+        if n_ops + sum(n_out * (2 * n_in - 1 + (b >= 0)) for _, _, b, n_in, n_out in layers) \
+                <= 2 * MAX_OPS:
+            scalar = trace(False)
+            n_scalar = _count_ops(scalar[0], scalar[2])
+            if n_scalar <= MAX_OPS:
+                out = scalar
+        if out is None:
+            out, n_scalar = dense, n_ops
+    if n_scalar > MAX_OPS:
+        raise UnsupportedPrimitive(f"{what} of {n_scalar} scalar operations beside its dense "
+                                   f"layers (the bound is {MAX_OPS})" if out is dense and layers
+                                   else f"{what} of {n_scalar} scalar operations (the bound "
+                                   f"is {MAX_OPS})")
+    return out
 
 
 def trace_program(fn: Callable, nx: int, nu: int, want: list, dtype=torch.float32,
@@ -1513,16 +1726,19 @@ def trace_program(fn: Callable, nx: int, nu: int, want: list, dtype=torch.float3
     ``want`` lists each output's elements a sample and ``outputs`` their
     node ids; :meth:`Program.evaluate` computes them.  Raises
     :class:`UnsupportedPrimitive` as :func:`trace_model`."""
-    prog, pool = Program(), []
-    outs, _ = _trace_into(prog, pool, fn, nx, nu, want, dtype, with_t)
-    n_ops = _count_ops(prog, [i for o in outs for i in o])
-    if n_ops > MAX_OPS:
-        raise UnsupportedPrimitive(f"a program of {n_ops} scalar operations (the bound is "
-                                   f"{MAX_OPS})")
+    def trace(dense):
+        prog, pool = Program(), []
+        outs, _ = _trace_into(prog, pool, fn, nx, nu, want, dtype, with_t, dense=dense)
+        return prog, pool, [i for o in outs for i in o], outs
+
+    prog, pool, _, outs = _lower(trace, "a program")
     return prog, torch.tensor(pool or [0.0], dtype=torch.float64), outs
 
 
-def _trace_pair(config, dynamics: Callable, running_cost: Callable):
+def _trace_pair(config, dynamics: Callable, running_cost: Callable, dense: bool = False):
+    """The program of the dynamics (its products as dense nodes where
+    ``dense``) and then of the running cost (always scalar), ``(program,
+    pool, next-state nodes + (cost node,))``."""
     from .solve import wrap_cost, wrap_dynamics
 
     nx, nu, dtype = config.nx, config.nu, config.dtype
@@ -1532,17 +1748,26 @@ def _trace_pair(config, dynamics: Callable, running_cost: Callable):
     cost = wrap_cost(config, running_cost)
     prog, pool = Program(), []
     (step_out,), device = _trace_into(prog, pool, lambda s_, u_, t_: dyn(s_, u_, t_), nx, nu,
-                                      [nx], dtype, True)
+                                      [nx], dtype, True, dense=dense)
     with torch.no_grad():  # the cost is traced at states the dynamics give
         ns = dyn(_probe(nx, dtype, 0).to(device), _probe(nu, dtype, 1).to(device), 0)
     (cost_out,), _ = _trace_into(prog, pool, lambda s_, u_, t_: cost(s_, u_, t_), nx, nu, [1],
                                  dtype, True, state=ns.detach())
-    return prog, pool, tuple(step_out), cost_out[0]
+    return prog, pool, tuple(step_out) + (cost_out[0],)
 
 
 def _count_ops(prog: Program, outputs) -> int:
+    """The scalar operations of the program's live nodes: every node but the
+    leaves and the dense layers (:func:`dense_ops` counts those)."""
     return sum(1 for n in prog.live(outputs)
-               if prog.nodes[n][0] not in ("x", "u", "t", "const", "lit"))
+               if prog.nodes[n][0] not in _LEAVES + ("dense", "dout"))
+
+
+def dense_ops(prog: Program, outputs) -> int:
+    """The operations of the program's dense layers: two for each
+    multiply-add, and one for each bias."""
+    return sum(n_out * (2 * n_in + (b >= 0))
+               for _, _, b, n_in, n_out in prog.dense_layers(outputs))
 
 
 def trace_model(config, dynamics: Callable, running_cost: Callable) -> GeneratedModel:
@@ -1552,12 +1777,8 @@ def trace_model(config, dynamics: Callable, running_cost: Callable) -> Generated
     :class:`UnsupportedPrimitive` for a program outside the vocabulary (see
     the module docstring), and lets a ValueError or TypeError of the user's
     code through."""
-    prog, pool, step_out, cost_out = _trace_pair(config, dynamics, running_cost)
-    outputs = step_out + (cost_out,)
-    n_ops = _count_ops(prog, outputs)
-    if n_ops > MAX_OPS:
-        raise UnsupportedPrimitive(f"a program of {n_ops} scalar operations a step (the "
-                                   f"bound is {MAX_OPS})")
+    prog, pool, outputs = _lower(
+        lambda dense: _trace_pair(config, dynamics, running_cost, dense), "a program")[:3]
     return generated_model(prog, outputs, config.nx, config.nu,
                            torch.tensor(pool or [0.0], dtype=torch.float64))
 
@@ -1674,7 +1895,8 @@ def kernel_terminal(config, terminal_final_cost: Callable) -> Optional[KernelTer
 # The generated kernels: emission, registry, build
 # ---------------------------------------------------------------------------
 
-_NAMED_STRUCTS = {0: "LinearQuadratic", 1: "Pendulum", 2: "Toy2D", 3: "ResidualMLP"}
+_NAMED_STRUCTS = {0: "LinearQuadratic", 1: "Pendulum", 2: "Toy2D", 3: "ResidualMLP",
+                  4: "ResidualMLPBlock"}
 ID_SPACE = 1 << 30  # a generated id is GENERATED + a 30-bit hash: an int32, as the kernels take it
 _KERNELS: dict = {}  # id -> the GeneratedKernel registered under it, in the order registered
 _BY_SOURCE: dict = {}
@@ -1696,11 +1918,14 @@ def _header(model: KernelModel, terminal: Optional[GeneratedTerminal]) -> str:
     ]
     if generated:
         prog = model.program
-        body, names = prog.emit(list(model.outputs[:model.nx]))
-        lines += ["  template <int N>",
-                  "  __device__ static void step(const float* c, float* x, const float* u, "
-                  "int, int, int t) {", *body,
-                  *[f"    x[{i}] = {nm};" for i, nm in enumerate(names)], "  }"]
+        if prog.dense_layers(model.outputs[:model.nx]):  # a block model (fused_mppi.cu)
+            lines += prog.emit_block(list(model.outputs[:model.nx]))
+        else:
+            body, names = prog.emit(list(model.outputs[:model.nx]))
+            lines += ["  template <int N>",
+                      "  __device__ static void step(const float* c, float* x, const float* u, "
+                      "int, int, int t) {", *body,
+                      *[f"    x[{i}] = {nm};" for i, nm in enumerate(names)], "  }"]
         body, names = prog.emit([model.outputs[model.nx]])
         lines += ["  template <int N>",
                   "  __device__ static float cost(const float* c, const float* x, "
@@ -1746,6 +1971,14 @@ class GeneratedKernel:
     @property
     def generated_model(self) -> bool:
         return isinstance(self.model, GeneratedModel)
+
+    @property
+    def block(self) -> bool:
+        """Whether its kernels run a block model (dense layers, or the named
+        ``ResidualMLPBlock``): their launches count under ``*_block``."""
+        from .kernel_models import activation_ld
+
+        return activation_ld(self.model) > 0
 
     def header(self) -> str:
         """The C++ struct ``Generated`` for ``csrc/fused_mppi.cu``."""

@@ -97,13 +97,19 @@ ROLLOUT = 4  # the legacy rollout's Variant (kRollout in fused_mppi.cu)
 # the kernels of a generated model's library (ops/batch_last.py), by the name of
 # their launch count: kernel A's variants, the batched pair and the legacy rollout
 GENERATED_KERNELS = tuple(f"generated_{k}" for k in VARIANTS + ("batched", "rollout"))
+# the same kernels with a block model (kernel_models.RESIDUAL_MLP_BLOCK, or a
+# generated model with dense layers), whose layers a block's threads compute
+# together: their launches count apart (launch_name)
+BLOCK_KERNELS = tuple(f"{k}_block" for k in VARIANTS + ("batched", "rollout"))
+GENERATED_BLOCK_KERNELS = tuple(f"generated_{k}" for k in BLOCK_KERNELS)
 
 # kernel launches (each kernel launched counts one); chip_smoke.py reads them.
 # Two set-up runs put the counts back as they found them, so that a count
 # is the launches of the commands a caller made: the warm-up and capture of
 # runner._GraphLoop (a replay then counts its captured launches) and the run
 # of each command before utils/deploy.export_solver traces it.
-launches = dict.fromkeys(KERNELS + GENERATED_KERNELS, 0)
+launches = dict.fromkeys(KERNELS + GENERATED_KERNELS + BLOCK_KERNELS + GENERATED_BLOCK_KERNELS,
+                         0)
 
 MAX_SMEM_BYTES = 232_448  # shared memory one block may use on Hopper
 _BLOCK = 128  # threads of a block, and samples of a block of batched_partial (BLOCK)
@@ -195,6 +201,38 @@ def smem_bytes(variant: int, D: int, R: int, full_op: bool, S: int = _BLOCK) -> 
     panel = (-(-(_BLOCK // S * _ROW_TILE * min(R, _PANEL_COLS)) // 4) * 4
              if full_op or variant == KMPPI else 0)
     return (_HEAD + panel + _NVEC * D + partial_tiles(variant, full_op) * D * (S + 1)) * 4
+
+
+def base_smem_bytes(variant: int, D: int, R: int, full_op: bool, S: int, shared: bool) -> int:
+    """:func:`smem_bytes` with the tiles in shared memory (``shared``) or in
+    a global scratch (none of them in shared memory)."""
+    if shared:
+        return smem_bytes(variant, D, R, full_op, S)
+    tiles = ((2 if full_op else 1) * R * (_BLOCK + 4) if variant == BATCHED
+             else partial_tiles(variant, full_op) * D * (S + 1))
+    return smem_bytes(variant, D, R, full_op, S) - 4 * tiles
+
+
+def activation_bytes(base: int, rows: int, ld: int) -> int:
+    """A block model's kernel's dynamic shared memory: ``base`` bytes of the
+    kernel's own, rounded up to 16, then two halves of ``rows`` activation
+    rows of ``ld`` floats (``kernel_smem`` in fused_mppi.cu)."""
+    return -(-base // 16) * 16 + 2 * rows * ld * 4
+
+
+def activation_rows(slots: int, ld: int, bases) -> tuple:
+    """``(rows, index)``: the largest group of a block model's samples whose
+    activations fit beside the kernel's own shared memory, of the ``slots``
+    samples of a block halved down to ``kernel_models.DENSE_ROWS``, and the
+    index of the first of the ``bases`` (bytes of the kernel's own, in the
+    order preferred) with which it fits; ``(0, None)`` where none does."""
+    rows = slots
+    while rows >= KM.DENSE_ROWS:
+        for i, base in enumerate(bases):
+            if activation_bytes(base, rows, ld) <= MAX_SMEM_BYTES:
+                return rows, i
+        rows //= 2
+    return 0, None
 
 
 def partial_tiles(variant: int, full_op: bool) -> int:
@@ -549,9 +587,10 @@ def _set_argtypes(lib, generated: bool = False):
         ctypes.c_uint32, _P, _I, _I, _I, _I, _P, _L, _L, _P, _P, _P, _I, _P,
         _P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_float, _P, _P, _P,
         _P, _P, _P, _I, _L, _L, _L, _L, _P, _L, _I, _I, _P, _P, _P, _I, _I, _P, _I,
+        _I, _I,
     ]
     lib.fused_mppi_rollout.argtypes = [_I, _P, _I, _P, _I, _I, _I, _I, _P, _L, _L,
-                                       _P, _P, _I]
+                                       _P, _P, _I, _I, _I]
     lib.fused_mppi_rollout_geometry.argtypes = [_I, _I, _I, _P]
     lib.fused_mppi_rollout_geometry.restype = _I
     lib.fused_mppi_rowmajor_solve.argtypes = [
@@ -586,9 +625,9 @@ def _set_argtypes(lib, generated: bool = False):
         raise RuntimeError("fused_mppi.cu BLOCK or MAXN differs from fused_solve")
     lib.fused_mppi_mlp_limit.argtypes = [_I]
     lib.fused_mppi_mlp_limit.restype = _I
-    if [lib.fused_mppi_mlp_limit(i) for i in range(6)] != [
+    if [lib.fused_mppi_mlp_limit(i) for i in range(8)] != [
             KM.MLP_HEAD, KM.MLP_MAX_WIDTH, KM.MLP_MAX_LAYERS, KM.MLP_GROUP, KM.MLP_GOAL,
-            KM.MLP_MAX_N]:
+            KM.MLP_MAX_N, KM.BMLP_FIXED, KM.DENSE_ROWS]:
         raise RuntimeError("fused_mppi.cu's ResidualMLP layout differs from kernel_models")
     if any(lib.fused_mppi_smem_bytes(v, D, R, f, S) != smem_bytes(v, D, R, bool(f), S)
            for v in (MPPI, SMPPI, KMPPI, BATCHED) for D, R in ((60, 30), (60, 60), (300, 300))
@@ -620,9 +659,21 @@ def library_of(model_id: int, variant: int):
     return lib
 
 
+def is_block(model_id: int) -> bool:
+    """Whether ``model_id``'s kernels run a block model: the named
+    ``ResidualMLPBlock``, or a generated kernel with dense layers (or on
+    ``ResidualMLPBlock``)."""
+    if model_id >= BL.GENERATED:
+        return BL.kernel_of(model_id).block
+    return model_id == KM.RESIDUAL_MLP_BLOCK
+
+
 def launch_name(model_id: int, kernel: str) -> str:
     """The launch count of ``kernel`` (a name of :data:`KERNELS`) for
-    ``model_id``: its own, or its generated counterpart's."""
+    ``model_id``: its own, or its generated counterpart's, each with
+    ``_block`` for a block model (:func:`is_block`)."""
+    if kernel in VARIANTS + ("batched", "rollout") and is_block(model_id):
+        kernel = f"{kernel}_block"
     return kernel if model_id < BL.GENERATED else f"generated_{kernel}"
 
 
@@ -679,6 +730,9 @@ def check_kernel_model(config: MPPIConfig, model: KernelModel):
         raise ValueError(
             f"kernel model {model.name!r} is (nx={model.nx}, nu={model.nu}); "
             f"the config is (nx={nx}, nu={nu})")
+    if model.model_id == KM.RESIDUAL_MLP_BLOCK and max(nx, nu) > _MAXN:
+        raise FusedSolveUnavailable(
+            f"the residual MLP's kernels take nx, nu <= {_MAXN}; this one has nx={nx}, nu={nu}")
     if max(nx, nu) > _MAXN:
         raise FusedSolveUnavailable(
             f"nx={nx}, nu={nu}: the kernel's device models hold at most {_MAXN} of each")
@@ -686,6 +740,16 @@ def check_kernel_model(config: MPPIConfig, model: KernelModel):
         raise FusedSolveUnavailable(
             f"step_dependent_dynamics with the named kernel model {model.name!r}, which takes "
             f"no timestep (only a traced model does: ops/batch_last.py)")
+    ld = KM.activation_ld(model)
+    if ld and activation_bytes(0, KM.DENSE_ROWS, ld) > MAX_SMEM_BYTES - 4 * _HEAD:
+        what = ("the residual MLP's block kernels" if model.model_id == KM.RESIDUAL_MLP_BLOCK
+                else "a block model's kernels")
+        raise FusedSolveUnavailable(
+            f"{what} keep two activation rows of the widest layer for each of at least "
+            f"{KM.DENSE_ROWS} samples in shared memory beside their own, of the "
+            f"{MAX_SMEM_BYTES} bytes a block may use: widths up to about "
+            f"{(MAX_SMEM_BYTES - 4 * _HEAD) // (8 * KM.DENSE_ROWS)}; the widest layer here "
+            f"needs {ld} floats a row ({activation_bytes(0, KM.DENSE_ROWS, ld)} bytes)")
     if model.model_id == KM.RESIDUAL_MLP:
         head = KM.mlp_header(model.consts)
         if (max(nx, nu) > KM.MLP_MAX_N or head["layers"] > KM.MLP_MAX_LAYERS
@@ -739,7 +803,10 @@ class LaunchSpec(NamedTuple):
     ``rowmajor`` selects the round-1 solve's path (``ops/rowmajor.py``).
     A shard of the samples, ``shard`` of ``shards`` equal shards of the
     global K = K · shards, draws the noise of the global samples ``shard``
-    · K to (``shard`` + 1) · K - 1 (``ops/solve.make_sharded_transposed_solve``)."""
+    · K to (``shard`` + 1) · K - 1 (``ops/solve.make_sharded_transposed_solve``).
+    ``act_ld`` is a block model's activation row in floats
+    (:func:`~.kernel_models.activation_ld`), 0 for a per-sample model (and
+    in a deploy artifact of before it)."""
 
     variant: int
     model_id: int
@@ -762,6 +829,7 @@ class LaunchSpec(NamedTuple):
     rowmajor: int = 0
     shard: int = 0
     shards: int = 1
+    act_ld: int = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -769,19 +837,34 @@ def launch_geometry(spec: LaunchSpec) -> dict:
     """What a launch of ``spec`` derives from it: the tiles' place (shared
     memory, or a global scratch of one (rows, S) slice per launched block and
     tile), the blocks, the padded K (a shard's own K where the launch is one
-    shard of the samples) and the columns of injected bits (of the global K
-    for a shard)."""
+    shard of the samples), the columns of injected bits (of the global K
+    for a shard), and a block model's group of samples ``act_rows``: the
+    largest (of the block's samples, halved) whose activations fit beside
+    the tiles in shared memory, else beside the tiles in the global scratch
+    (:func:`activation_rows`); FusedSolveUnavailable where none fits."""
     batched = spec.variant == BATCHED
     D = spec.T * spec.nu
     nblocks = -(-spec.K // spec.S)
     blocks = nblocks * -(-spec.plants // spec.group)
+    act_rows = 0
     if spec.rowmajor:  # the raw normals keep a tile of their own: two (D, S) tiles
         shared = smem_bytes(MPPI, D, D, True, spec.S) <= MAX_SMEM_BYTES
         scratch = 0 if shared else nblocks * 2 * D * spec.S
     else:
-        shared = smem_bytes(spec.variant, D, spec.R, bool(spec.full_op), spec.S) <= MAX_SMEM_BYTES
-        tiles = (2 if spec.full_op else 1) * spec.R * _BLOCK if batched else \
-            partial_tiles(spec.variant, bool(spec.full_op)) * D * spec.S
+        full_op = bool(spec.full_op)
+        shared = smem_bytes(spec.variant, D, spec.R, full_op, spec.S) <= MAX_SMEM_BYTES
+        if spec.act_ld:
+            bases = [base_smem_bytes(spec.variant, D, spec.R, full_op, spec.S, place)
+                     for place in (True, False)]
+            act_rows, place = activation_rows(spec.S, spec.act_ld, bases)
+            if not act_rows:
+                raise FusedSolveUnavailable(
+                    f"a block model's activations ({KM.DENSE_ROWS} samples of two rows of "
+                    f"{spec.act_ld} floats) do not fit in shared memory beside the kernel's own "
+                    f"{bases[1]} bytes, of the {MAX_SMEM_BYTES} a block may use")
+            shared = place == 0
+        tiles = (2 if full_op else 1) * spec.R * _BLOCK if batched else \
+            partial_tiles(spec.variant, full_op) * D * spec.S
         scratch = 0 if shared else blocks * tiles
     antithetic = bool(spec.antithetic) and not spec.noise_operand  # the operand holds the mirror
     if spec.shards > 1:  # the shard's own samples; the padding is the global bits'
@@ -791,7 +874,7 @@ def launch_geometry(spec: LaunchSpec) -> dict:
         bits_pad = K_pad
     return dict(shared=shared, nblocks=nblocks, blocks=blocks, scratch=scratch,
                 antithetic=antithetic, K_pad=K_pad,
-                bits_cols=bits_pad // 2 if antithetic else bits_pad)
+                bits_cols=bits_pad // 2 if antithetic else bits_pad, act_rows=act_rows)
 
 
 _launch_counters = {}  # kernel A's merge counters, by launch spec, stream and device
@@ -853,7 +936,7 @@ def launch_kernel_a(spec: LaunchSpec, u_scale: float, lead, key, x0T, U2, base, 
         a_flat.stride(-1) if batched else 0, _ptr(noise),
         noise.stride(0) if noise is not None else 0, spec.group, spec.S, _ptr(counter),
         _ptr(term), _ptr(elites) if spec.E else None, spec.E, int(null_action),
-        _ptr(gate), spec.shard * K,
+        _ptr(gate), spec.shard * K, geo["act_rows"], spec.act_ld,
     )
     raise_on_error(lib, rc, "fused_mppi")
     if batched:
@@ -961,7 +1044,7 @@ def _make_launch(variant: int, config: MPPIConfig, model: KernelModel, R: int,
                       int(config.antithetic), int(config.sample_null_action),
                       int(config.noise_abs_cost), int(full_op), int(emit_perturbed), plants,
                       group, _BLOCK if batched else check_tile(tile_k, K), int(noise_operand), E,
-                      0, *shard)
+                      0, *shard, KM.activation_ld(model))
     geo = launch_geometry(spec)
     spec_ints, u_scale = list(spec), float(config.u_scale)
     flags = dict(model=model, K=K, T=T, nu=nu, antithetic=config.antithetic,
@@ -1029,7 +1112,7 @@ def _make_launch(variant: int, config: MPPIConfig, model: KernelModel, R: int,
 
     info = dict(K_pad=geo["K_pad"], pair_block=pair_block, bits_cols=geo["bits_cols"],
                 tiles="shared" if geo["shared"] else "global", blocks=geo["blocks"], spec=spec,
-                model=model)
+                model=model, act_rows=geo["act_rows"])
     if not batched:
         info.update(tile_k=spec.S)
     return launch, flags, info
@@ -1068,9 +1151,11 @@ def make_transposed_fused_solve(config: MPPIConfig, model: KernelModel,
     Raises ValueError for a non-float32
     config or a model whose sizes differ from the config's, and
     :class:`FusedSolveUnavailable` when nx or nu exceeds the device models'
-    registers (32), for a residual MLP beyond its kernel's bounds (nx, nu
-    ≤ 8, four layers of 64 units: :func:`check_kernel_model`), for a
-    step-dependent config with a named model, and for
+    registers (32), for a block model (a residual MLP beyond nx, nu ≤ 8 and
+    four layers of 64 units, or a traced one with dense layers) whose
+    activations do not fit in shared memory (:func:`check_kernel_model`,
+    :func:`launch_geometry`), for a step-dependent config with a named
+    model, and for
     ``config.num_elites`` elites that with the null row exceed JAX's
     injection window of min(K, 128) samples (``pallas_rollout.py:596-603``);
     :class:`~.batch_last.UnsupportedPrimitive` for a ``terminal_final`` that

@@ -4,7 +4,8 @@ The JAX package evaluates any traceable dynamics inside its fused kernel by
 interpreting the traced jaxpr batch-axis-last (``pytorch_mppi_tpu/ops/
 batch_last.py``).  A CUDA kernel cannot evaluate a Python callable, so the port
 names these models (the linear-quadratic, pendulum, toy2d and
-residual-MLP models): a :class:`KernelModel` pairs a C++ device model
+residual-MLP models, the last in two forms: one thread a sample, or its
+layers split over a block's threads): a :class:`KernelModel` pairs a C++ device model
 compiled into ``csrc/fused_mppi.cu`` (selected by ``model_id``, fed the float32
 ``consts``) with the plain torch ``dynamics`` and ``running_cost`` that compute
 the same thing.  The plain pair is what the controller is given, what the
@@ -36,6 +37,7 @@ LINEAR_QUADRATIC = 0
 PENDULUM = 1
 TOY2D = 2
 RESIDUAL_MLP = 3
+RESIDUAL_MLP_BLOCK = 4  # the residual MLP with its layers split over a block's threads
 GENERATED = 1000  # and above: the generated kernels of ops/batch_last.py
 
 # csrc/fused_mppi.cu's ResidualMLP: the floats of its constants' header and
@@ -49,6 +51,11 @@ MLP_MAX_LAYERS = 4
 MLP_MAX_N = 8
 MLP_GROUP = 8
 MLP_COSTS = ("pendulum", "quadratic")
+# csrc/fused_mppi.cu's ResidualMLPBlock: the fixed floats of its constants'
+# header, and the least group of a block model's samples whose layers the
+# block computes together (its activations' rows; DENSE_ROWS)
+BMLP_FIXED = 8
+DENSE_ROWS = 8
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -250,7 +257,8 @@ def _mlp_consts(params, nx: int, nu: int, u_clip, angle_wrap_dims, angle_encode_
 
 
 def residual_mlp_model(params, nx: int, nu: int, u_clip=None, angle_wrap_dims=(),
-                       angle_encode_dims=(), cost: str = "pendulum", goal=None) -> KernelModel:
+                       angle_encode_dims=(), cost: str = "pendulum", goal=None,
+                       block: bool = None) -> KernelModel:
     """The learned residual model of ``models/mlp.py`` with its weights
     closed in, as a kernel model: the plain ``dynamics(state, action)`` is
     ``make_residual_dynamics(nx, nu, u_clip, angle_wrap_dims,
@@ -261,10 +269,19 @@ def residual_mlp_model(params, nx: int, nu: int, u_clip=None, angle_wrap_dims=()
     pendulum's running cost, ``models/pendulum.py``; nx = 2) or
     ``"quadratic"`` (``‖goal − x'‖²``, ``goal`` (nx,)).
 
-    The kernels take up to ``MLP_MAX_LAYERS`` layers of up to
-    ``MLP_MAX_WIDTH`` units and nx, nu ≤ ``MLP_MAX_N`` (8); a larger model
-    plans on the plain path with a warning.  Retraining between commands
-    needs the weights as ``dynamics_params``, which takes the plain path."""
+    Two device models run it.  Within ``MLP_MAX_LAYERS`` layers of at
+    most ``MLP_MAX_WIDTH`` units and nx, nu ≤ ``MLP_MAX_N`` (8)
+    (:func:`per_thread_bounds`) it is ``ResidualMLP``, one thread a sample
+    (``model_id`` ``RESIDUAL_MLP``); beyond them ``ResidualMLPBlock``
+    (``RESIDUAL_MLP_BLOCK``), whose layers a block's threads compute
+    together: nx, nu ≤ 32, any number of layers, and widths bounded only by
+    shared memory (two activation rows of the widest layer for each of at
+    least ``DENSE_ROWS`` samples beside the kernel's own use,
+    ``fused_solve.check_kernel_model``, which names the bound).  The two
+    give the same bits on a network both take; ``block=True`` forces the
+    block model on a small one (to compare them).  A larger model plans on
+    the plain path with a warning.  Retraining between commands needs the
+    weights as ``dynamics_params``, which takes the plain path."""
     from ..models.mlp import make_residual_dynamics
 
     if cost not in MLP_COSTS:
@@ -291,7 +308,10 @@ def residual_mlp_model(params, nx: int, nu: int, u_clip=None, angle_wrap_dims=()
     dyn = make_residual_dynamics(nx, nu, u_clip, wrap, encode)
     on = {}
 
-    def dynamics(state, action):
+    # ``t``: a step_dependent_dynamics config passes the timestep, which the
+    # model does not read (and which keeps it off the kernels: a named model
+    # takes none, fused_solve.check_kernel_model)
+    def dynamics(state, action, t=None):
         weights = _on_device(on, state, lambda *key: [(W.to(*key), b.to(*key))
                                                       for W, b in params])
         return dyn(weights, state, action)
@@ -299,17 +319,112 @@ def residual_mlp_model(params, nx: int, nu: int, u_clip=None, angle_wrap_dims=()
     if cost == "pendulum":
         from ..models.pendulum import pendulum_running_cost
 
-        def running_cost(state, action):  # its own function: _tag marks it
+        def running_cost(state, action, t=None):  # its own function: _tag marks it
             return pendulum_running_cost(state, action)
     else:
         goals = {}
 
-        def running_cost(state, action):
+        def running_cost(state, action, t=None):
             return ((_on_device(goals, state, goal.to) - state) ** 2).sum(dim=-1)
 
+    if block is None:
+        block = not per_thread_bounds(widths, nx, nu)
+    if block:
+        consts = _block_mlp_consts(params, nx, u_clip, wrap, encode, cost, goal)
+        return _tag(KernelModel("residual_mlp_block", RESIDUAL_MLP_BLOCK, nx, nu, consts,
+                                dynamics, running_cost))
     consts = _mlp_consts(params, nx, nu, u_clip, wrap, encode, cost, goal)
     return _tag(KernelModel("residual_mlp", RESIDUAL_MLP, nx, nu, consts, dynamics,
                             running_cost))
+
+
+def per_thread_bounds(widths, nx: int, nu: int) -> bool:
+    """Whether ``ResidualMLP`` (one thread a sample) takes a network of these
+    layer ``widths`` (the inputs, then each layer's outputs): at most
+    ``MLP_MAX_LAYERS`` layers of at most ``MLP_MAX_WIDTH`` units, nx, nu ≤
+    ``MLP_MAX_N``."""
+    return (len(widths) - 1 <= MLP_MAX_LAYERS and max(widths) <= MLP_MAX_WIDTH
+            and max(nx, nu) <= MLP_MAX_N)
+
+
+def _pad4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def block_mlp_head(layers: int, nx: int) -> int:
+    """Floats of ``ResidualMLPBlock``'s constants before the first layer's
+    weights (``bmlp_head`` in fused_mppi.cu)."""
+    return _pad4(BMLP_FIXED + layers + 1 + 2 * nx)
+
+
+def _block_mlp_consts(params, nx: int, u_clip, angle_wrap_dims, angle_encode_dims, cost: str,
+                      goal) -> torch.Tensor:
+    """The float32 constants of ``ResidualMLPBlock``: a header of
+    ``BMLP_FIXED`` floats (the layer count L, the clip flag and bounds, the
+    cost, 0 for the pendulum's or 1 for the quadratic's, three zeros), the
+    L + 1 widths, a flag for each state dimension (bit 0: wrapped, bit 1:
+    encoded as sin, cos), the quadratic cost's goal (nx floats; zeros for
+    the pendulum's), zeros to :func:`block_mlp_head`, then each layer's W as
+    (n_in, p) rows and b as p floats, p = n_out rounded up to four with
+    zeros."""
+    widths = [params[0][0].shape[0]] + [W.shape[1] for W, _ in params]
+    L = len(params)
+    head = torch.zeros(block_mlp_head(L, nx))
+    head[0] = L
+    if u_clip is not None:
+        head[1:4] = torch.tensor([1.0, float(u_clip[0]), float(u_clip[1])])
+    head[4] = MLP_COSTS.index(cost)
+    at = BMLP_FIXED
+    head[at:at + L + 1] = torch.tensor(widths, dtype=torch.float32)
+    at += L + 1
+    for d in range(nx):
+        head[at + d] = (1 if d in angle_wrap_dims else 0) + (2 if d in angle_encode_dims else 0)
+    if cost == "quadratic":
+        head[at + nx:at + 2 * nx] = goal
+    blocks = [head]
+    for W, b in params:
+        n_in, n_out = W.shape
+        pad = _pad4(n_out)
+        Wp = torch.zeros(n_in, pad)
+        Wp[:, :n_out] = W.detach().float().cpu()
+        bp = torch.zeros(pad)
+        bp[:n_out] = b.detach().float().cpu()
+        blocks += [Wp.reshape(-1), bp]
+    return torch.cat(blocks)
+
+
+def block_mlp_header(consts: torch.Tensor, nx: int) -> dict:
+    """What ``ResidualMLPBlock``'s constants say (the keys of
+    :func:`mlp_header`, the clip's bounds, the goal, the offset of the
+    first layer's weights)."""
+    c = consts.detach().to("cpu", torch.float32)
+    L = int(c[0])
+    widths = [int(w) for w in c[BMLP_FIXED:BMLP_FIXED + L + 1]]
+    flags = [int(f) for f in c[BMLP_FIXED + L + 1:BMLP_FIXED + L + 1 + nx]]
+    at = BMLP_FIXED + L + 1 + nx
+    return dict(widths=widths, layers=L, clip=bool(c[1]), lo=float(c[2]), hi=float(c[3]),
+                wrap=tuple(d for d, f in enumerate(flags) if f & 1),
+                encode=tuple(d for d, f in enumerate(flags) if f & 2),
+                cost=MLP_COSTS[int(c[4])], goal=c[at:at + nx].clone(),
+                weights=block_mlp_head(L, nx))
+
+
+def mlp_layout(model: KernelModel) -> dict:
+    """The layer ``widths``, ``layers``, ``clip``, ``wrap``, ``encode`` and
+    ``cost`` of either residual-MLP device model."""
+    if model.model_id == RESIDUAL_MLP_BLOCK:
+        return block_mlp_header(model.consts, model.nx)
+    return mlp_header(model.consts)
+
+
+def activation_ld(model: KernelModel) -> int:
+    """Floats of an activation row of a block model (its widest layer,
+    rounded up to four): ``ResidualMLPBlock``'s, or a generated model's
+    with dense layers (``ops/batch_last.py``); 0 for a per-sample model."""
+    if model.model_id == RESIDUAL_MLP_BLOCK:
+        return _pad4(max(block_mlp_header(model.consts, model.nx)["widths"]))
+    ld = getattr(model, "activation_ld", None)
+    return ld() if callable(ld) else 0
 
 
 def _on_device(cache: dict, state: torch.Tensor, make: Callable):
@@ -371,6 +486,19 @@ def plain_model(model_id: int, consts: torch.Tensor, nx: int, nu: int) -> Kernel
             return costs[0](state, action) + costs[1](state, action)
 
         model = toy2d_model(LinearDeltaDynamics(B), running_cost, B, goal, r, Q, center, hill)
+    elif model_id == RESIDUAL_MLP_BLOCK:
+        head = block_mlp_header(consts, nx)
+        params, at = [], head["weights"]
+        for n_in, n_out in zip(head["widths"], head["widths"][1:]):
+            pad = _pad4(n_out)
+            W = consts[at:at + n_in * pad].reshape(n_in, pad)[:, :n_out].contiguous()
+            b = consts[at + n_in * pad:at + n_in * pad + n_out].clone()
+            params.append((W, b))
+            at += n_in * pad + pad
+        model = residual_mlp_model(
+            params, nx, nu, u_clip=(head["lo"], head["hi"]) if head["clip"] else None,
+            angle_wrap_dims=head["wrap"], angle_encode_dims=head["encode"], cost=head["cost"],
+            goal=head["goal"] if head["cost"] == "quadratic" else None, block=True)
     elif model_id == RESIDUAL_MLP:
         head = mlp_header(consts)
         params, at = [], MLP_HEAD
@@ -383,7 +511,8 @@ def plain_model(model_id: int, consts: torch.Tensor, nx: int, nu: int) -> Kernel
         model = residual_mlp_model(
             params, nx, nu, u_clip=(c[7], c[8]) if head["clip"] else None,
             angle_wrap_dims=head["wrap"], angle_encode_dims=head["encode"], cost=head["cost"],
-            goal=consts[MLP_GOAL:MLP_GOAL + nx] if head["cost"] == "quadratic" else None)
+            goal=consts[MLP_GOAL:MLP_GOAL + nx] if head["cost"] == "quadratic" else None,
+            block=False)
     else:
         raise ValueError(f"no device model has id {model_id}")
     _PLAIN[key] = model

@@ -37,6 +37,7 @@ import torch
 from ..config import MPPIConfig
 from . import batch_last as BL
 from . import fused_solve as FS
+from . import kernel_models as KM
 from .kernel_models import KernelModel
 
 
@@ -106,17 +107,34 @@ def _rollout_lib(model_id: int):
     return lib
 
 
-def launch_rollout(x0_K, u_scaled, consts, model_id: int, tile_k: int = None):
+def rollout_act_rows(T: int, nu: int, S: int, act_ld: int) -> int:
+    """A block model's group of samples in the rollout kernel: the largest
+    of S halved whose activations (rows of ``act_ld`` floats) fit beside the
+    staged rows (:func:`~.fused_solve.activation_rows`); 0 for a per-sample
+    model (``act_ld`` 0).  Raises FusedSolveUnavailable where none fits."""
+    if not act_ld:
+        return 0
+    rows, _ = FS.activation_rows(S, act_ld, [rollout_geometry(T, nu, S)["smem"]])
+    if not rows:
+        raise FS.FusedSolveUnavailable(
+            f"a block model's activations (two rows of {act_ld} floats a sample) do not fit "
+            f"in shared memory beside the rollout's staged rows")
+    return rows
+
+
+def launch_rollout(x0_K, u_scaled, consts, model_id: int, tile_k: int = None, act_ld: int = 0):
     """Launch the rollout kernel on checked CUDA tensors (the model's
-    ``consts`` on the device): the (K,) costs.  Counts the launch."""
+    ``consts`` on the device; a block model's activation row of ``act_ld``
+    floats): the (K,) costs.  Counts the launch."""
     device = u_scaled.device
     K, T, nu = u_scaled.shape
+    S = FS.check_tile(tile_k, K)
     cost = torch.empty(K, dtype=torch.float32, device=device)
     lib = _rollout_lib(model_id)
     rc = lib.fused_mppi_rollout(
         FS.device_index(device), FS.stream_of(device), model_id, consts.data_ptr(), K, T,
         x0_K.shape[1], nu, x0_K.data_ptr(), x0_K.stride(1), x0_K.stride(0),
-        u_scaled.data_ptr(), cost.data_ptr(), FS.check_tile(tile_k, K))
+        u_scaled.data_ptr(), cost.data_ptr(), S, rollout_act_rows(T, nu, S, act_ld), act_ld)
     FS.raise_on_error(lib, rc, "fused_rollout")
     FS.launches[FS.launch_name(model_id, "rollout")] += 1
     return cost
@@ -129,9 +147,10 @@ def make_fused_rollout(config: MPPIConfig, model: KernelModel, tile_k: int = Non
     holds it); None takes :func:`~.fused_solve.tile_samples` of K and the
     card's SM count at each call.  Raises as
     :func:`~.fused_solve.make_transposed_fused_solve` for the config and
-    model (:func:`~.fused_solve.check_kernel_model`: a residual MLP takes
-    nx, nu ≤ 8 here too); a traced model (:func:`~.batch_last.kernel_model`) runs in its
-    own library, with the timestep.  The call reaches :func:`launch_rollout`
+    model (:func:`~.fused_solve.check_kernel_model`; a block model's
+    activations must fit beside the staged rows, :func:`rollout_act_rows`);
+    a traced model (:func:`~.batch_last.kernel_model`) runs in its own
+    library, with the timestep.  The call reaches :func:`launch_rollout`
     directly or through its operator (:func:`~.fused_solve.via_ops`)."""
     model = FS.as_kernel_model(config, model)
     FS.check_kernel_model(config, model)
@@ -139,6 +158,9 @@ def make_fused_rollout(config: MPPIConfig, model: KernelModel, tile_k: int = Non
     if tile_k is not None and tile_k not in FS.TILES:
         raise ValueError(f"tile_k must be one of {FS.TILES}, got {tile_k}")
     K, T, nx, nu = config.K, config.T, config.nx, config.nu
+    act_ld = KM.activation_ld(model)
+    for S in (tile_k,) if tile_k else FS.TILES:  # the rule's S is the card's, at the call
+        rollout_act_rows(T, nu, S, act_ld)
 
     def rollout(x0_K, u_scaled):
         device = u_scaled.device
@@ -147,8 +169,8 @@ def make_fused_rollout(config: MPPIConfig, model: KernelModel, tile_k: int = Non
         consts = model.consts_on(device)
         if FS.via_ops():
             return torch.ops.mppi_torch.rollout.default(x0_K, u_scaled, consts, model_id,
-                                                        tile_k or 0)
-        return launch_rollout(x0_K, u_scaled, consts, model_id, tile_k)
+                                                        tile_k or 0, act_ld)
+        return launch_rollout(x0_K, u_scaled, consts, model_id, tile_k, act_ld)
 
     return FS.finish(rollout, fused_rollout_plain, dict(model=model), dict(tile_k=tile_k),
                      device_arg=1)

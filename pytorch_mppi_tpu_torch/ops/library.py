@@ -113,20 +113,22 @@ def _batched_shapes(lead, key, x0T, U2T, op, mu, lo, hi, aT, lam, consts, term, 
             _empty(x0T, (s.plants, s.K)))
 
 
+# act_ld: a block model's activation row; its default keeps the calls of an
+# artifact exported before it loading
 @torch.library.custom_op("mppi_torch::rollout", mutates_args=(), device_types="cuda")
 def rollout(x0_K: Tensor, u_scaled: Tensor, consts: Tensor, model_id: int,
-            tile_k: int) -> Tensor:
-    return LG.launch_rollout(x0_K, u_scaled, consts, model_id, tile_k or None)
+            tile_k: int, act_ld: int = 0) -> Tensor:
+    return LG.launch_rollout(x0_K, u_scaled, consts, model_id, tile_k or None, act_ld)
 
 
 @rollout.register_kernel("cpu")
-def _rollout_plain(x0_K, u_scaled, consts, model_id, tile_k):
+def _rollout_plain(x0_K, u_scaled, consts, model_id, tile_k, act_ld=0):
     model = plain_model(model_id, consts, x0_K.shape[1], u_scaled.shape[2])
     return LG.fused_rollout_plain(x0_K, u_scaled, model=model)
 
 
 @rollout.register_fake
-def _rollout_shapes(x0_K, u_scaled, consts, model_id, tile_k):
+def _rollout_shapes(x0_K, u_scaled, consts, model_id, tile_k, act_ld=0):
     return _empty(u_scaled, u_scaled.shape[0])
 
 

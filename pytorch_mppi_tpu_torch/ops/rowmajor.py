@@ -54,6 +54,7 @@ import torch
 from ..config import MPPIConfig
 from . import batch_last as BL
 from . import fused_solve as FS
+from . import kernel_models as KM
 from .kernel_models import KernelModel
 
 
@@ -302,14 +303,20 @@ def make_fused_solve(config: MPPIConfig, model: KernelModel, tile_k: int = None)
     ValueError for a non-float32 config or a model whose sizes differ from
     the config's, and :class:`~.fused_solve.FusedSolveUnavailable` for a
     step-dependent config with a named model (only a traced model,
-    ``ops/batch_last.py``, takes the timestep) or nx or nu above 32.  A
-    traced model (:func:`~.batch_last.kernel_model`) runs in its own
-    library's kernel A.  ``tile_k`` forces kernel A's samples a block, as for
+    ``ops/batch_last.py``, takes the timestep), nx or nu above 32, or a
+    block model (the residual MLP beyond its per-thread bounds, or a traced
+    model with dense layers), whose round-1 solve is not ported.  A traced
+    model (:func:`~.batch_last.kernel_model`) runs in its own library's
+    kernel A.  ``tile_k`` forces kernel A's samples a block, as for
     :func:`~.fused_solve.make_transposed_fused_solve`; kernel A's merge
     counter is its launch spec's and stream's (``fused_solve``'s
     docstring)."""
     model = FS.as_kernel_model(config, model)
     FS.check_kernel_model(config, model)
+    if KM.activation_ld(model):
+        raise FS.FusedSolveUnavailable(
+            f"the round-1 solve of a block model ({model.name!r}, whose layers a block's "
+            f"threads compute together) is not ported: the transposed kernels take it")
     K, T, nx, nu = config.K, config.T, config.nx, config.nu
     D = T * nu
     block_k, K_pad = fused_solve_block_and_pad(K)

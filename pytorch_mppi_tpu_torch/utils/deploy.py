@@ -50,7 +50,10 @@ Guarantees and limits:
   there is no card raises: it is never moved to the CPU;
 - a live ``info`` payload raises a ValueError (the exported body takes
   ``info=None``), a file of a version this build does not read a
-  ValueError (it reads versions 1, without kernels, 2 and 3).  A file of
+  ValueError (it reads versions 1, without kernels, 2, 3 and 4; version 4
+  adds the block models, the residual MLP beyond its per-thread bounds
+  and traced programs with dense layers, which a build before it does not
+  run, so it refuses their files by their version).  A file of
   version 1 or 2 whose programs run the residual MLP's device model
   raises a ValueError too: its constants hold the goal in the 16-float
   header of before, which the kernels no longer read (export it again);
@@ -80,8 +83,11 @@ from . import checkpoint as _ckpt
 
 logger = logging.getLogger(__name__)
 
-_FORMAT_VERSION = 3
-_READS = (1, 2, 3)  # version 1 carries no generated kernels
+# version 4: block models (kernel_models.RESIDUAL_MLP_BLOCK, generated programs
+# with dense layers), the launch spec's act_ld and the rollout's; a build before
+# it refuses such a file by its version
+_FORMAT_VERSION = 4
+_READS = (1, 2, 3, 4)  # version 1 carries no generated kernels
 # the first version whose residual-MLP constants have the header of
 # kernel_models.MLP_HEAD floats (20, the goal's nx <= 8 floats from 12 on)
 _MLP_LAYOUT = 3

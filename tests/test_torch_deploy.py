@@ -200,7 +200,9 @@ class TestExportRoundtrip:
     def test_old_mlp_layout_refused(self, tmp_path, version):
         """A file of version 2 or before holds the residual MLP's constants
         with the goal in the header of 16 floats, which the kernels no
-        longer read: loading one raises; the same file as version 3 loads."""
+        longer read: loading one raises; the same file as version 3 loads
+        (the per-thread MLP's constants and launches are version 3's; the
+        file is written as version 4)."""
         model = _learned_car()
         ctrl = P.MPPI(model.dynamics, model.running_cost, 4, torch.eye(1), num_samples=32,
                       horizon=4, seed=SEED, use_pallas=True, device="cpu")
@@ -208,7 +210,7 @@ class TestExportRoundtrip:
         deploy.export_solver(ctrl, path)
         tree = ckpt.load(path)
         meta = json.loads(tree["meta"])
-        assert meta["version"] == 3
+        assert meta["version"] == 4
         meta["version"] = version
         tree["meta"] = json.dumps(meta)
         ckpt.save(path, tree)
@@ -219,6 +221,31 @@ class TestExportRoundtrip:
             x = torch.tensor([0.5, -0.3, 2.9, 0.1])
             torch.testing.assert_close(deploy.load_solver(path).command(x), ctrl.command(x),
                                        rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("route", ["fused", "rollout"])
+def test_version_3_per_thread_mlp_loads(route):
+    """A version-3 artifact written by the build before the block models
+    (``tests/data/v3_residual_mlp_*.artifact``: ``_learned_car``'s network
+    on the per-thread ``ResidualMLP``, K = 32, T = 4, seed 5, exported after
+    one command from x0; its launch spec and its rollout call have no
+    ``act_ld``) loads, and replays a live controller of this build in the
+    same state bit for bit."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                        f"v3_residual_mlp_{route}.artifact")
+    solver = deploy.load_solver(path)
+    assert solver.meta["version"] == 3
+    model = _learned_car()
+    assert model.model_id == 3
+    ctrl = P.MPPI(model.dynamics, model.running_cost, 4, torch.eye(1), num_samples=32,
+                  horizon=4, seed=5, use_pallas=True if route == "fused" else "rollout",
+                  device="cpu")
+    x = torch.tensor([0.5, -0.3, 2.9, 0.1])
+    ctrl.command(x)
+    for _ in range(3):
+        a = ctrl.command(x)
+        torch.testing.assert_close(solver.command(x), a, rtol=0, atol=0)
+        x = model.dynamics(x[None], a[None])[0]
 
 
 def _serve_in_child(path, out, steps=2, x=(-3.0, -2.0)):

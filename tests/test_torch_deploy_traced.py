@@ -8,8 +8,10 @@ fresh process with none of the user's code registers them
 (``batch_last.load_kernel``) and serves the live controller's commands bit
 for bit: the fused route (with a traced terminal cost, and a named model
 with one), SMPPI and KMPPI on a step-dependent plant, ``MPPI_Batched`` in
-seed and operand mode, the legacy route, and gradient refinement on the
-plain and the fused route.  Two artifacts of different traced models serve
+seed and operand mode, the legacy route, gradient refinement on the plain
+and the fused route, and the block models: a residual MLP beyond the
+per-thread bounds (``ResidualMLPBlock``, a named model) and a traced
+network beyond ``MAX_OPS`` (a program with dense layers).  Two artifacts of different traced models serve
 side by side, a process that traced its own models first still serves
 them, loading an artifact again registers nothing, and a version-1 file
 (no kernels) still loads.  The rebuilt programs are held against the JAX
@@ -32,7 +34,7 @@ import pytorch_mppi_tpu_torch as P
 from pytorch_mppi_tpu_torch.config import MPPIConfig
 from pytorch_mppi_tpu_torch.ops import _build
 from pytorch_mppi_tpu_torch.ops import batch_last as BL
-from pytorch_mppi_tpu_torch.ops.kernel_models import linear_quadratic
+from pytorch_mppi_tpu_torch.ops.kernel_models import linear_quadratic, residual_mlp_model
 from pytorch_mppi_tpu_torch.utils import checkpoint as ckpt
 from pytorch_mppi_tpu_torch.utils import deploy
 
@@ -71,6 +73,29 @@ def term(s, u):
     return (W_TERM * (s - GOAL) ** 2).sum(-1) + 0.2 * (u ** 2).sum(-1)
 
 
+def _wide_weights():
+    """A [4, 128, 128, 2] network: about 17,000 multiply-adds a step, beyond
+    MAX_OPS as scalar operations, so traced with dense layers."""
+    g = torch.Generator().manual_seed(31)
+    sizes = [4, 128, 128, 2]
+    w = [(torch.randn(a, b, generator=g) / a ** 0.5, torch.randn(b, generator=g) * 0.1)
+         for a, b in zip(sizes, sizes[1:])]
+    w[-1] = (w[-1][0] * 0.1, w[-1][1] * 0.1)
+    return w
+
+
+WIDE = _wide_weights()
+
+
+def wide(s, u):
+    h = torch.cat([s, u], dim=-1)
+    for i, (W, b) in enumerate(WIDE):
+        h = h @ W + b
+        if i + 1 < len(WIDE):
+            h = torch.tanh(h)
+    return s + h
+
+
 def j_step(s, u, t):
     return s + u @ jnp.asarray(B.numpy()).T * (1.0 + 0.01 * t)
 
@@ -93,6 +118,15 @@ def j_term(s, u):
 
 
 LQ = linear_quadratic(B, GOAL)
+# a residual MLP of 80 units, beyond the per-thread model's 64: ResidualMLPBlock
+BLOCK_MLP = residual_mlp_model(
+    [(torch.randn(4, 80, generator=torch.Generator().manual_seed(37)) * 0.5, torch.zeros(80)),
+     (torch.randn(80, 2, generator=torch.Generator().manual_seed(41)) * 0.01, torch.zeros(2))],
+    2, 2, cost="quadratic", goal=GOAL)
+
+
+def block_plant(s, u):
+    return BLOCK_MLP.dynamics(s[None], u[None])[0]
 KW = dict(num_samples=48, horizon=6, lambda_=1.0, seed=7, u_max=torch.tensor([0.8, 0.8]),
           device="cpu")
 SD = dict(step_dependent_dynamics=True)
@@ -131,6 +165,10 @@ ROUTES = {
     "version_1": (
         lambda: P.MPPI(LQ.dynamics, LQ.running_cost, 2, torch.eye(2), use_pallas=True, **KW),
         lin),
+    "fused_block_mlp": (
+        lambda: P.MPPI(BLOCK_MLP.dynamics, BLOCK_MLP.running_cost, 2, torch.eye(2),
+                       use_pallas=True, **KW), block_plant),
+    "fused_dense": (lambda: P.MPPI(wide, quad, 2, torch.eye(2), use_pallas=True, **KW), wide),
 }
 # the operators of each route's programs
 OPS = {"rollout_step": {"rollout", "weighted_update"}, "refine_plain": set(),
@@ -273,7 +311,7 @@ def test_serves_bit_for_bit_in_a_fresh_process(served, name):
            if n.op == "call_function" and str(n.target).startswith("mppi_torch.")}
     assert ops == OPS.get(name, {"kernel_a"})
     assert served["live"][name]["fused"] == (name != "refine_plain")
-    traced = name not in ("refine_plain", "version_1")
+    traced = name not in ("refine_plain", "version_1", "fused_block_mlp")
     assert len(solver.meta["kernels"]) == (1 if traced else 0)
     assert served["report"]["artifacts"][name]["ids"] == [k["id"] for k in
                                                           solver.meta["kernels"]]
@@ -284,10 +322,10 @@ def test_artifact_format(served):
     """Version 2 and later list each generated kernel's program (JSON, no
     compiled code): a traced model's nodes, outputs, sizes, timestep use
     and float64 constants; a named model's id; the traced terminal cost's
-    program.  Version 3 (the residual MLP's constants with a header of 20
-    floats) is written today."""
+    program.  Version 4 (version 3's residual-MLP constants with a header
+    of 20 floats, and the block models) is written today."""
     meta = served["solvers"]["fused_traced_terminal"].meta
-    assert meta["version"] == 3
+    assert meta["version"] == 4
     (desc,) = meta["kernels"]
     assert set(desc["model"]) == {"nodes", "outputs", "nx", "nu", "uses_t", "consts64"}
     assert not desc["model"]["uses_t"] and desc["terminal"]["nx"] == 2
@@ -402,11 +440,11 @@ class TestRegistry:
 
 
 def test_unreadable_version_raises(tmp_path):
-    path = str(tmp_path / "v4.npz")
+    path = str(tmp_path / "v5.npz")
     deploy.export_solver(ROUTES["version_1"][0](), path)
     tree = ckpt.load(path)
     meta = json.loads(tree["meta"])
-    meta["version"] = 4
+    meta["version"] = 5
     tree["meta"] = json.dumps(meta)
     ckpt.save(path, tree)
     with pytest.raises(ValueError, match="reads versions 1, 2"):

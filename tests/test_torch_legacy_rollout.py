@@ -373,7 +373,11 @@ def test_wrappers_check_their_inputs():
     assert set(FS.launches) == {"mppi", "smppi", "kmppi", "batched", "rollout",
                                 "weighted_update", "sampler", "rowmajor",
                                 "generated_mppi", "generated_smppi", "generated_kmppi",
-                                "generated_batched", "generated_rollout"}
+                                "generated_batched", "generated_rollout",
+                                "mppi_block", "smppi_block", "kmppi_block", "batched_block",
+                                "rollout_block", "generated_mppi_block",
+                                "generated_smppi_block", "generated_kmppi_block",
+                                "generated_batched_block", "generated_rollout_block"}
 
 
 def _chip_smoke():

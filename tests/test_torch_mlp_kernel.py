@@ -19,8 +19,11 @@ routing.
 * the constants' layout: ``plain_model`` rebuilds a quadratic cost's goal
   exactly for nx = 1 to 8;
 * routing: ``dynamics_params`` takes the plain path, ``MPPI_Batched``
-  the batched kernel, and an MLP beyond the kernel's bounds (above 64
-  units, four layers, or 8 states or actions) raises
+  the batched kernel, an MLP beyond the per-thread model's bounds (above
+  64 units, four layers, or 8 states or actions) the block model's
+  kernels (``tests/test_torch_block_mlp.py`` holds those against JAX),
+  and one beyond the block model's (33 states or actions, activations
+  wider than shared memory, a step-dependent config) raises
   ``FusedSolveUnavailable`` and plans on the plain path, each with its
   warning.
 
@@ -415,28 +418,58 @@ def test_batched_takes_the_plain_path(use_pallas, caplog):
     assert a.shape == (3, 2) and bool(torch.isfinite(a).all())
 
 
-@pytest.mark.parametrize("beyond", ["width", "layers", "nu", "nx"])
+# the networks beyond the per-thread bounds of before the block model: a hidden
+# width above 64, more than four layers, nu = 9, nx = 9 (beyond the N = 8 arrays)
+OLD_BEYOND = {"width": ([3, 65, 2], 2, 1), "layers": ([3, 8, 8, 8, 8, 2], 2, 1),
+              "nu": ([11, 8, 2], 2, 9), "nx": ([10, 8, 9], 9, 1)}
+
+
+@pytest.mark.parametrize("beyond", ["nx", "nu", "width", "step_dependent"])
 def test_beyond_the_bound_falls_back(beyond, caplog):
-    """A hidden width above 64, more than four layers, nu = 9 or nx = 9
-    (beyond the N = 8 arrays): the factories, the batched one too, raise
-    ``FusedSolveUnavailable`` and ``use_pallas`` plans on the plain path
-    with the warning."""
-    nx = 9 if beyond == "nx" else 2
-    nu = 9 if beyond == "nu" else 1
-    sizes = {"width": [3, 65, 2], "layers": [3, 8, 8, 8, 8, 2], "nu": [11, 8, 2],
-             "nx": [10, 8, 9]}[beyond]
+    """Beyond the block model's bounds: nx = 33 or nu = 33 (beyond the
+    MAXN = 32 arrays), a width whose activations exceed shared memory (two
+    rows of 8 samples of 3,600 floats), and a step-dependent config (a
+    named model takes no timestep): the factories, the batched one too,
+    raise ``FusedSolveUnavailable`` and ``use_pallas`` plans on the plain
+    path with the warning."""
+    nx = 33 if beyond == "nx" else 2
+    nu = 33 if beyond == "nu" else 1
+    sizes = {"nx": [34, 8, 33], "nu": [35, 8, 2], "width": [3, 3600, 2],
+             "step_dependent": [3, 80, 2]}[beyond]
     goal = np.linspace(-1.0, 1.0, nx).astype(np.float32)
     model = KM.residual_mlp_model(mlp_params_from_numpy(_weights(sizes, 0)), nx, nu,
                                   cost="quadratic", goal=goal)
-    cfg = MPPIConfig(nx=nx, nu=nu, K=32, T=5)
+    assert model.model_id == KM.RESIDUAL_MLP_BLOCK
+    step = beyond == "step_dependent"
+    what = "step_dependent_dynamics" if step else "residual MLP"
+    cfg = MPPIConfig(nx=nx, nu=nu, K=32, T=5, step_dependent_dynamics=step)
     for make in (FS.make_transposed_fused_solve, LG.make_fused_rollout,
                  lambda c, m: FS.make_transposed_batched_solve(c, 3, m)):
-        with pytest.raises(FS.FusedSolveUnavailable, match="residual MLP"):
+        with pytest.raises(FS.FusedSolveUnavailable, match=what):
             make(cfg, model)
     for use_pallas in (True, "rollout"):
         caplog.clear()
         with caplog.at_level(logging.WARNING, logger="pytorch_mppi_tpu_torch"):
-            ctrl = _ctrl(model, use_pallas, nu=nu, nx=nx)
+            ctrl = _ctrl(model, use_pallas, nu=nu, nx=nx, step_dependent_dynamics=step)
         assert not ctrl._fns.fused
-        assert "residual MLP" in caplog.text
+        assert what in caplog.text
+        assert ctrl.command(torch.from_numpy(goal) * 0.5).shape == (nu,)
+
+
+@pytest.mark.parametrize("beyond", list(OLD_BEYOND))
+def test_beyond_the_per_thread_bound_takes_the_block_model(beyond, caplog):
+    """The networks that took the plain path before the block model now
+    take the block model's kernels (kernel A and the legacy rollout; on CPU
+    tensors their plain versions), with no warning."""
+    sizes, nx, nu = OLD_BEYOND[beyond]
+    goal = np.linspace(-1.0, 1.0, nx).astype(np.float32)
+    model = KM.residual_mlp_model(mlp_params_from_numpy(_weights(sizes, 0)), nx, nu,
+                                  cost="quadratic", goal=goal)
+    assert model.model_id == KM.RESIDUAL_MLP_BLOCK
+    for use_pallas in (True, "rollout"):
+        caplog.clear()
+        with caplog.at_level(logging.WARNING, logger="pytorch_mppi_tpu_torch"):
+            ctrl = _ctrl(model, use_pallas, nu=nu, nx=nx)
+        assert ctrl._fns.fused
+        assert "plain torch path" not in caplog.text and "residual MLP" not in caplog.text
         assert ctrl.command(torch.from_numpy(goal) * 0.5).shape == (nu,)
