@@ -60,7 +60,7 @@ the package is not beside it.  Phases, each fatal when it fails:
    tiles) and at K = 1,000 with 64 samples a block, then the moments through
    its cost, its costs against the transposed kernel's on one key and 50
    calls in a row;
-4. main paths: 150 closed-loop commands (``COMMANDS``) of ``MPPI``, ``SMPPI`` and
+4. main paths: 100 closed-loop commands (``COMMANDS``) of ``MPPI``, ``SMPPI`` and
    ``KMPPI`` on ``linear_quadratic`` at K = 10,000, T = 30 (``bench.py``'s
    flagship problem), fused (``use_pallas=True``, one launch a command) with
    the launch count and the goal checked, then the same on the plain torch
@@ -72,8 +72,8 @@ the package is not beside it.  Phases, each fatal when it fails:
    and ``KMPPI`` fused with ``num_iterations = 3`` (three launches of kernel
    A a command) and ``MPPI``'s legacy route with it (three of each legacy
    kernel), plain ``MPPI`` with adaptive covariance asked for the kernel
-   (the plain path, with the warning; 200 commands), and plain ``MPPI``
-   with M = 4 stochastic rollouts (200 commands), the variance cost and
+   (the plain path, with the warning; 100 commands), and plain ``MPPI``
+   with M = 4 stochastic rollouts (100 commands), the variance cost and
    CVaR on a noisy plant model
    (the (4, K, T, nx) states, their M slices differ, the loop comes within
    1.0 of the goal, and two controllers on one seed give the same first ten
@@ -83,8 +83,8 @@ the package is not beside it.  Phases, each fatal when it fails:
    (the plain path, the warning naming the flag) and on the legacy route;
    plain ``MPPI`` with a ``SpecificActionSampler`` of two ramps, the null
    row and two elites asked for the kernel (the plain path; rows 0-4 are
-   [null, ramps, shifted elites]), 200 commands each of ``SMPPI`` and
-   ``KMPPI`` with the sampler, 50 fused commands with five steps of
+   [null, ramps, shifted elites]), 100 commands (``SHORT_COMMANDS``) each of
+   ``SMPPI`` and ``KMPPI`` with the sampler, 50 fused commands with five steps of
    gradient refinement, and the refinement on JAX's small-K fixture (the
    mean distance at least halved); then
    ``MPPI_Batched`` on ``examples/scenario_batch.py``'s problem at N = 1,024,
@@ -149,10 +149,14 @@ the package is not beside it.  Phases, each fatal when it fails:
    built in phase 2), against their plain versions and timed beside the
    named instantiations in turns; then learned dynamics of any width
    (``wide_dynamics``): ``ResidualMLPBlock``, whose layers a block's threads
-   compute together, forced onto the trained [3, 32, 32, 2] and the car's
-   [9, 32, 32, 7] networks, bit for bit equal to ``ResidualMLP`` in kernel
-   A's three variants (bits and seed mode), the legacy rollout and the
-   batched pair (bits, seed and operand mode), both timed in turns; a
+   compute together (on the tensor cores in 3xTF32), with each kernel's
+   registers, spill stores and blocks an SM from the build logs, forced onto
+   the trained [3, 32, 32, 2] and the car's [9, 32, 32, 7] networks in
+   kernel A's three variants (bits and seed mode), the legacy rollout and
+   the batched pair (bits, seed and operand mode), each cost within
+   ``F64_FACTOR`` of the float32 plain version's error against a float64
+   rollout (a sample at the angle's wrap excused), beside ``ResidualMLP``
+   and timed with it in turns; a
    learned quadrotor's [16, 256, 256, 12] (nx = 12, nu = 4, beyond the
    per-thread bounds) at K = 10,000, T = 30 in kernel A's three variants
    and the rollout and at N = 16, K = 10,240 in the batched pair, and an
@@ -161,12 +165,16 @@ the package is not beside it.  Phases, each fatal when it fails:
    2), in kernel A and the batched pair, each against its plain version on
    the kernel's draws with each cost's error against a float64 rollout
    within ``F64_FACTOR`` times the float32 plain version's, timed beside
-   its bound and its plain version; 10 commands of each route on the
+   its two bounds (float32, and its dense layers on the tensor cores), its
+   plain version and its time before the redesign (the rollout within 1.1x
+   of it); 10 commands of each route on the
    quadrotor (MPPI, SMPPI, KMPPI fused, the legacy route, ``MPPI_Batched``)
    and of MPPI and ``MPPI_Batched`` on the MBPO network (no plain-path
    warning), each as its own plant, with exact ``*_block`` launch counts,
-   and a ``run_mppi_jit`` graph loop of the quadrotor's fused MPPI bit for
-   bit against the eager loop;
+   a ``run_mppi_jit`` graph loop of the quadrotor's fused MPPI bit for
+   bit against the eager loop, and a [16, 2048, 12] network in groups of 8
+   samples (half an m16 tile) in kernel A, the batched pair and the
+   rollout against their plain versions;
 5. swing-up: the pendulum with ``use_pallas=True``, 150 steps;
 6. closed loops through the kernels: the ``tests/test_mppi.py`` LQ problem
    (KMPPI reaches the goal, SMPPI stays finite), the toy2d comparison of
@@ -286,8 +294,10 @@ NSP = T // 2  # KMPPI's default support points at the flagship
 # for phase 4e's batched and nx = 7 MLP checks and the traced network's two
 # libraries (a run of 869 s at 300, about 1,156 s at 1.33x), then to 150 for
 # phase 4e's wide models and their two libraries (a run of 1,103.5 s at 200 on
-# a host 1.5x slower in every phase than the one before)
-COMMANDS = 150
+# a host 1.5x slower in every phase than the one before), then to 100 so that
+# the whole run stays under the limit on a host SLOW_HOST times slower (a run
+# of 756.5 s at 150, phases 4 and 4d 110.7 and 170.9 s of it)
+COMMANDS = 100
 REFINE_COMMANDS = 50
 WARMUP = 20
 LOOP_K = 500  # the closed loops of phase 6
@@ -301,6 +311,7 @@ SWEEP_N, SWEEP_KS, SWEEP_COMMANDS = 64, (256, 512, 1024, 2048, 4096, 10_240), 40
 SCENARIO_N, SCENARIO_K, SCENARIO_T, SCENARIO_STEPS = 16, 256, 10, 30
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_PER_S = 67e12  # float32 outside the tensor cores, H100 SXM data sheet
+H100_TF32_PER_S = 495e12  # TF32 on the tensor cores, dense, H100 SXM data sheet
 FIRST_MPPI_SEED_MS = 0.04754  # the MPPI pair, seed mode, flagship, as first ported (PERF.md)
 # each kernel's device time in the parent commit's run (PERF.md, §6 table;
 # NVIDIA H100 80GB HBM3, 700 W): kernel A at the flagship in seed mode and at
@@ -313,6 +324,20 @@ BEFORE_MS = {"mppi": 0.019026, "smppi": 0.019557, "kmppi": 0.021437, "rowmajor":
              "sampler_bits": 0.005506, "batched_operand": 1.071776, "batched_seed": 1.156416,
              "batched_small_operand": 0.031957}
 BEFORE_BUILD_S = 161.2
+# the time limit this script runs under, and the slowdown of the slowest
+# host seen against a typical one (a run of 1,076.0 s against 756.5 s, and
+# build phases of 310.6 s against 197.8 s): the total times SLOW_HOST must
+# stay under the limit
+TIME_LIMIT_S, SLOW_HOST = 1200, 1.65
+# the block models' kernels at phase 4e's shapes before their redesign for
+# Hopper (PERF.md §6; NVIDIA H100 80GB HBM3, 700 W): the quadrotor's kernel A
+# (three variants), batched pair and rollout, the MBPO network's kernel A and
+# batched pair
+BLOCK_BEFORE_MS = {("quad", "mppi"): 7.652802, ("quad", "smppi"): 7.897862,
+                   ("quad", "kmppi"): 7.587165, ("quad", "batched"): 285.254248,
+                   ("quad", "rollout"): 12.790965, ("mbpo", "mppi"): 18.045525,
+                   ("mbpo", "batched"): 296.280444}
+ROLLOUT_BLOCK_BEFORE_MS = BLOCK_BEFORE_MS["quad", "rollout"]
 # the final-state terminal cost of the terminal cases and loops: w_state
 # |x_T - goal|^2 + w_action |u_T|^2 toward the flagship's goal
 TERMINAL_W = (1.0, 0.1)
@@ -322,7 +347,7 @@ BATCHED_NAMES = ("batched_partial", "flash_merge")
 ITERS, BATCH_ITERS = 3, 2  # num_iterations of the single-plant and batched iteration loops
 ELITES = 4  # num_elites of the elite loops
 REFINE_STEPS = 5  # gradient_refinement_steps of the refinement loop
-SHORT_COMMANDS = 200  # the refinement loop's and SMPPI's and KMPPI's sampler loops' commands
+SHORT_COMMANDS = 100  # the refinement loop's and SMPPI's and KMPPI's sampler loops' commands
 M_STOCH = 4  # rollout_samples of the stochastic loop
 STOCH_SCALE = 0.05  # the stochastic loop's dynamics noise (a standard deviation)
 GRAPH_STEPS = 20  # plant steps of each route's graph loop held to the eager loop
@@ -385,6 +410,10 @@ QUAD_X0 = (0.0, 0.0, 1.0, 0.2, -0.1, 0.0, 0.05, -0.05, 0.1, 0.0, 0.0, 0.0)
 MBPO_SIZES = [16, 200, 200, 200, 200, 12]
 F64_FACTOR = 8
 WIDE_CALLS = 5  # calls in the CUDA graph that times the wide batched pairs
+# phase 4e (iv): a residual MLP whose hidden layer is too wide for 16
+# samples' activations in shared memory, so that the block kernels take
+# groups of 8 (half an m16 tile)
+HALF_TILE_SIZES = [16, 2048, 12]
 # the deployment phase (8): commands each artifact replays in a fresh process
 # against the live controller, commands timed for the medians (after a
 # warm-up), and the commands a restored checkpoint continues for
@@ -735,6 +764,34 @@ def bound(work):
     ops, nbytes = work
     return max((nbytes / H100_BYTES_PER_S * 1e3, "bytes"),
                (ops / H100_F32_PER_S * 1e3, "operations"))
+
+
+def _dense_macs(model):
+    """The multiply-adds of a block model's dense layers a step, which its
+    kernels run on the tensor cores (``block_dense`` in fused_mppi.cu); 0
+    for a per-sample model, whose step runs in float32 on the SM's cores.
+    ``_per_step`` counts them too, as two float32 operations each."""
+    if getattr(model, "program", None) is not None:
+        return sum(n_in * n_out for *_, n_in, n_out in model.program.dense_layers(model.outputs))
+    if model.name == "residual_mlp_block":
+        from pytorch_mppi_tpu_torch.ops.kernel_models import mlp_layout
+
+        w = mlp_layout(model)["widths"]
+        return sum(a * b for a, b in zip(w, w[1:]))
+    return 0
+
+
+def tc_bound(work, macs):
+    """The least time (ms) of a block model's kernel, and what bounds it:
+    its ``macs`` dense multiply-adds on the tensor cores in 3xTF32 (three
+    TF32 products of two flops each a multiply-add, at H100_TF32_PER_S),
+    beside its other operations in float32 (``work``'s operations less two
+    a multiply-add) and its bytes, whichever takes longest (the tensor
+    cores and the float32 cores work at once)."""
+    ops, nbytes = work
+    return max((nbytes / H100_BYTES_PER_S * 1e3, "bytes"),
+               ((ops - 2 * macs) / H100_F32_PER_S * 1e3, "operations"),
+               (6 * macs / H100_TF32_PER_S * 1e3, "operations"))
 
 
 def agree(cost_k, cost_p, upd_k, upd_p, lam, m_k=None, m_p=None, s_k=None, s_p=None,
@@ -1798,42 +1855,96 @@ def mlp_batched_rest(dev, gen, nx, nu, N_, x0, spread, sigma):
             torch.tensor(1.0, device=dev))
 
 
-def f64_agree(model, c_k, c_p, pert, x0T, T_, nu):
+def f64_agree(model, c_k, c_p, pert, x0T, T_, nu, wrap=False):
     """The kernel's costs ``c_k`` and the plain version's ``c_p`` against a
     float64 reference on the plain version's (D, K) actions ``pert`` from
     the (nx, K) ``x0T``: the plain cost with its float32 rollout replaced by
     a float64 one of the same model.  ``(ok, kernel's error, plain's
-    error, limit)``: ok where the kernel's largest error is within the
-    limit, F64_FACTOR times the plain version's (and never below 1e-6 of the
-    largest cost: the float32 rounding of the totals, whose sums kernel and
-    plain version take in other orders)."""
+    error, limit, excused)``: ok where the kernel's largest error is within
+    the limit, F64_FACTOR times the plain version's (and never below 1e-6 of
+    the largest cost: the float32 rounding of the totals, whose sums kernel and
+    plain version take in other orders).  Where ``wrap`` (a residual MLP that
+    wraps a state dimension), a sample beyond the limit is excused (the
+    ``excused`` mask) where its plain rollout came within WRAP_EDGE of ±π
+    (``wrap_edge``): the kernel may take the other branch of the wrap there,
+    its state then differing by 2π."""
     from pytorch_mppi_tpu_torch.ops import fused_solve as FS
+    from pytorch_mppi_tpu_torch.ops.kernel_models import mlp_layout
 
     r32 = FS._rollout_total(model, pert, x0T, T_, nu, 1.0)
     r64 = FS._rollout_total(model, pert.double(), x0T.double(), T_, nu, 1.0)
     ref = c_p.double() - r32.double() + r64
-    e_k = float((c_k.double() - ref).abs().max())
+    err = (c_k.double() - ref).abs()
     e_p = float((c_p.double() - ref).abs().max())
     limit = F64_FACTOR * max(e_p, 1e-6 * float(ref.abs().max()))
-    return bool(torch.isfinite(c_k).all()) and e_k <= limit, e_k, e_p, limit
+    excused = torch.zeros_like(err, dtype=torch.bool)
+    beyond = (err > limit).nonzero().flatten()
+    if wrap and beyond.numel() and mlp_layout(model)["wrap"]:
+        edge, _ = wrap_edge(model, pert, x0T, beyond, T_, nu)
+        excused[edge] = True
+    e_k = float(err.masked_fill(excused, 0.0).max())
+    return bool(torch.isfinite(c_k).all()) and e_k <= limit, e_k, e_p, limit, excused
+
+
+def batched_pert(solve, lead, rest, T_, nu, K_):
+    """The batched pair's (D, N·K) perturbed actions as its plain version
+    draws them (each plant's clamp of U + the shared noise), and the plants'
+    (nx, N·K) initial states, for ``f64_agree``."""
+    from pytorch_mppi_tpu_torch.ops import fused_solve as FS
+
+    x0b, U2T, op, mu, lo, hi = rest[:6]
+    noise = (lead[:, :K_] if solve.noise_operand else
+             FS._noise(lead, T_ * nu, K_, solve.pair_block, bool(solve.spec.antithetic), op, mu,
+                       x0b.device))
+    pert = torch.clamp(U2T.T[:, :, None] + noise[None], lo[None, :, None], hi[None, :, None])
+    pert = pert.permute(1, 0, 2).reshape(T_ * nu, -1)
+    return pert, x0b[:, :, None].expand(-1, -1, K_).reshape(x0b.shape[0], -1)
+
+
+def block_ptxas(plan):
+    """The block models' kernels in the build logs (``-Xptxas -v``): each
+    ``ResidualMLPBlock`` instantiation of the named library and the MBPO
+    network's generated kernel A and batched pair, with its registers,
+    spill stores and the blocks an SM its registers allow (four warps a
+    block; registers allocated eight a thread)."""
+    from pytorch_mppi_tpu_torch.ops import _build
+
+    logs = [_build.library_path().with_suffix(".log")]
+    for label in ("mbpo mppi", "mbpo batched"):
+        _, kernel, variant, _ = plan["builds"][label]
+        logs.append(_build.generated_path(kernel.header(), 1 << variant).with_suffix(".log"))
+    out = []
+    for log in logs:
+        for e in ptxas_entries(log.read_text()) if log.is_file() else []:
+            if "ResidualMLPBlock" in e["name"] or "Generated" in e["name"]:
+                regs = -(-e.get("registers", 255) // 8) * 8
+                e["blocks_by_registers"] = 65536 // (regs * 128)
+                out.append(e)
+    return out
 
 
 def wide_dynamics(dev, gen, params, car, plan):
-    """Phase 4e, learned dynamics of any width: (i) ``ResidualMLPBlock``
-    forced onto the per-thread model's networks (the trained demo's [3, 32,
-    32, 2], the car's [9, 32, 32, 7]) bit for bit equal to ``ResidualMLP``
-    in kernel A's three variants (bits and seed mode), the batched pair
-    (bits, seed, operand) and the legacy rollout, both timed in turns; (ii)
-    the quadrotor's ``QUAD_SIZES`` on ``ResidualMLPBlock`` against its plain
-    version (``f64_agree``) at K = 10,000, T = 30 in kernel A's three
-    variants and the rollout and at N = 16, K = 10,240 in the batched pair,
-    each timed beside its bound and its plain version, then CAR_COMMANDS
+    """Phase 4e, learned dynamics of any width: the block kernels'
+    registers, spill stores (none) and blocks an SM (``block_ptxas``); (i)
+    ``ResidualMLPBlock`` forced onto the per-thread model's networks (the
+    trained demo's [3, 32, 32, 2], the car's [9, 32, 32, 7]) against its
+    plain version (``f64_agree``, the wrap's samples excused) in kernel A's
+    three variants (bits and seed mode), the batched pair (bits, seed,
+    operand) and the legacy rollout, beside ``ResidualMLP`` and timed with
+    it in turns; (ii) the quadrotor's ``QUAD_SIZES`` on ``ResidualMLPBlock``
+    against its plain version (``f64_agree``) at K = 10,000, T = 30 in
+    kernel A's three variants and the rollout and at N = 16, K = 10,240 in
+    the batched pair, each timed beside its two bounds (``bound``,
+    ``tc_bound``) and its plain version, then CAR_COMMANDS
     commands of each route with exact block launch counts; (iii) the
     untagged ``MBPO_SIZES`` network, traced into dense layers (its
     libraries built in phase 2), in kernel A (MPPI) and the batched pair
     against the program's evaluator, timed, and CAR_COMMANDS commands of
-    MPPI and ``MPPI_Batched`` on it with no plain-path warning.  Returns
-    the rows' numbers."""
+    MPPI and ``MPPI_Batched`` on it with no plain-path warning; (iv)
+    ``HALF_TILE_SIZES``, too wide for 16 samples' activations, in groups of
+    8 (half an m16 tile) in kernel A, the batched pair and the rollout
+    against their plain versions (``f64_agree``).  Returns the rows'
+    numbers."""
     from pytorch_mppi_tpu_torch import KMPPI, MPPI, SMPPI, MPPI_Batched, RBFKernel, run_mppi_jit
     from pytorch_mppi_tpu_torch.config import MPPIConfig
     from pytorch_mppi_tpu_torch.models import mlp_init
@@ -1865,10 +1976,24 @@ def wide_dynamics(dev, gen, params, car, plan):
                                  device=dev)
         return tuple(int(v) for v in torch.randint(0, 2**32, (2,), generator=gen, device=dev))
 
-    report = {"same": {}, "turns": {}, "quad": {"timed": {}, "err": {}, "loops": {}},
+    report = {"agree": {}, "turns": {}, "quad": {"timed": {}, "err": {}, "loops": {}},
               "mbpo": {"timed": {}, "err": {}, "loops": {}}}
 
-    # (i) ResidualMLPBlock forced onto the per-thread networks, bit for bit
+    # the block kernels' registers, spill stores and blocks an SM
+    report["ptxas"] = block_ptxas(plan)
+    for e in report["ptxas"]:
+        print(f"# ptxas [{e['name']}]: {e.get('registers')} registers, {e.get('spills')} bytes "
+              f"spill stores, {e.get('stack')} bytes stack frame, "
+              f"{e['blocks_by_registers']} blocks an SM by registers")
+    check(report["ptxas"] and all(e.get("spills") == 0 for e in report["ptxas"]),
+          "a block model's kernel spills (or none was found in the build logs)")
+
+    # (i) ResidualMLPBlock forced onto the per-thread networks.  Its dense
+    # layers run on the tensor cores (3xTF32), whose sums take another order
+    # and rounding than ResidualMLP's chain of fmaf: each cost is held to a
+    # float64 rollout within F64_FACTOR of the float32 plain version's error
+    # (f64_agree; a sample at the wrap excused), m, s and delta/s as agree;
+    # the per-thread kernel's costs printed beside them, and both timed in turns
     nets = {"demo [3, 32, 32, 2]": (params, 2, 1, dict(u_clip=(-2.0, 2.0), angle_wrap_dims=(0,)),
                                     [math.pi, 1.0], math.sqrt(10.0), (0.5, 1.0)),
             "car [9, 32, 32, 7]": (None, CAR_NX, CAR_NU, None, list(CAR_X0), 1.0,
@@ -1883,7 +2008,7 @@ def wide_dynamics(dev, gen, params, car, plan):
             block = residual_mlp_model(w, nx, nu, block=True, **kw)
         check(per_thread.model_id == 3 and block.model_id == 4, f"{label}: the wrong models")
         x0T, ops = mlp_operands(dev, gen, nx, nu, x0, sigma)
-        same_all = True
+        agree_all = True
         for variant in FS.VARIANTS:
             cfg = config(variant, nx, nu)
             s_p = factories[variant](cfg, per_thread, emit_perturbed=True)
@@ -1891,19 +2016,25 @@ def wide_dynamics(dev, gen, params, car, plan):
             for mode in ("bits", "seed"):
                 lead = bits_or_key(mode, s_b.spec.R, s_b.bits_cols)
                 reset_launches()
-                out_b = s_b(lead, *ops[variant])
+                dk, mk, sk, ck, _ = s_b(lead, *ops[variant])
                 torch.cuda.synchronize()
                 n_b = launched()
-                out_p = s_p(lead, *ops[variant])
-                same = all(torch.equal(a, b) for a, b in zip(out_b, out_p))
-                ok = same and n_b == {f"{variant}_block": 1}
-                same_all = same_all and ok
+                c_t = s_p(lead, *ops[variant])[3]
+                dp, mp, sp, cp, pp = s_b.plain(lead, *ops[variant])
+                ok, e_k, e_p, lim, exc = f64_agree(block, ck, cp, pp, x0T, T_, nu, wrap=True)
+                ok2, c_err, u_err, _ = agree(ck, cp, dk / sk, dp / sp, 1.0, mk, mp, sk, sp,
+                                             rtol=0.0, atol=(F64_FACTOR + 1) * max(e_p, 1e-6),
+                                             excused=exc)
+                ok = ok and ok2 and n_b == {f"{variant}_block": 1}
+                agree_all = agree_all and ok
                 print(f"# block vs per-thread [{label} {variant} {mode}] K={K_} T={T_} "
-                      f"S={s_b.tile_k} group {s_b.act_rows} tiles {s_b.tiles}: bit for bit "
-                      f"{same} (largest cost difference "
-                      f"{float((out_b[3] - out_p[3]).abs().max()):.3e}) | launches {n_b}"
-                      + ("" if ok else "  <-- FAIL"))
-                check(ok, f"the block MLP differs from the per-thread MLP: {label}/{variant}/{mode}")
+                      f"S={s_b.tile_k} group {s_b.act_rows} tiles {s_b.tiles}: cost error against "
+                      f"float64 block {e_k:.3e}, plain {e_p:.3e} (limit {lim:.3e}; at the wrap "
+                      f"{int(exc.sum())}) | block against plain {c_err:.3e}, against "
+                      f"ResidualMLP {float((ck - c_t).abs().max()):.3e} | delta/s err "
+                      f"{u_err:.3e} | launches {n_b}" + ("" if ok else "  <-- FAIL"))
+                check(ok, f"the block MLP disagrees with its plain version: "
+                      f"{label}/{variant}/{mode}")
             key = bits_or_key("seed", 0, 0)
             turns = in_turns({"per-thread": lambda: s_p(key, *ops[variant]),
                               "block": lambda: s_b(key, *ops[variant])})
@@ -1919,16 +2050,20 @@ def wide_dynamics(dev, gen, params, car, plan):
         c_b = r_b(x0_K, u)
         torch.cuda.synchronize()
         n_b = launched()
-        same = torch.equal(c_b, r_p(x0_K, u))
-        ok = same and n_b == {"rollout_block": 1}
-        same_all = same_all and ok
+        c_pl = r_b.plain(x0_K, u)
+        ok, e_k, e_p, lim, exc = f64_agree(block, c_b, c_pl, u.reshape(K_, -1).T,
+                                           x0_K.T.contiguous(), T_, nu, wrap=True)
+        ok = ok and n_b == {"rollout_block": 1}
+        agree_all = agree_all and ok
         turns = in_turns({"per-thread": lambda: r_p(x0_K, u), "block": lambda: r_b(x0_K, u)})
         report["turns"][label, "rollout"] = turns
-        print(f"# block vs per-thread [{label} rollout] K={K_}: bit for bit {same} | launches "
+        print(f"# block vs per-thread [{label} rollout] K={K_}: cost error against float64 block "
+              f"{e_k:.3e}, plain {e_p:.3e} (limit {lim:.3e}; at the wrap {int(exc.sum())}) | "
+              f"against ResidualMLP {float((c_b - r_p(x0_K, u)).abs().max()):.3e} | launches "
               f"{n_b} | in turns: ResidualMLP {turns['per-thread']:.6f} ms, ResidualMLPBlock "
               f"{turns['block']:.6f} ms ({turns['block'] / turns['per-thread']:.3f}x)"
               + ("" if ok else "  <-- FAIL"))
-        check(ok, f"the block MLP's rollout differs from the per-thread MLP's: {label}")
+        check(ok, f"the block MLP's rollout disagrees with its plain version: {label}")
         b_cfg = MPPIConfig(nx=nx, nu=nu, K=MLP_BATCH_K, T=T_, diag_sigma=True)
         for mode in ("bits", "seed", "operand"):
             operand = mode == "operand"
@@ -1939,16 +2074,27 @@ def wide_dynamics(dev, gen, params, car, plan):
             lead = (torch.randn(T_ * nu, b_b.K_pad, generator=gen, device=dev) * sigma if operand
                     else bits_or_key(mode, T_ * nu, b_b.bits_cols))
             reset_launches()
-            out_b = b_b(lead, *rest)
+            dk, msk, ck = b_b(lead, *rest)
             torch.cuda.synchronize()
             n_b = launched()
-            same = all(torch.equal(a, b) for a, b in zip(out_b, b_p(lead, *rest)))
-            ok = same and n_b == {"batched_block": 2}
-            same_all = same_all and ok
+            c_t = b_p(lead, *rest)[2]
+            dp, msp, cp = b_b.plain(lead, *rest)
+            pert, x0_all = batched_pert(b_b, lead, rest, T_, nu, MLP_BATCH_K)
+            ok, e_k, e_p, lim, exc = f64_agree(block, ck.reshape(-1), cp.reshape(-1), pert,
+                                               x0_all, T_, nu, wrap=True)
+            ok2, c_err, u_err, _ = agree(ck, cp, dk / msk[1], dp / msp[1], 1.0, msk[0], msp[0],
+                                         msk[1], msp[1], rtol=0.0,
+                                         atol=(F64_FACTOR + 1) * max(e_p, 1e-6),
+                                         excused=exc.reshape(ck.shape))
+            ok = ok and ok2 and n_b == {"batched_block": 2}
+            agree_all = agree_all and ok
             print(f"# block vs per-thread [{label} batched {mode}] N={MLP_BATCH_N} "
                   f"K={MLP_BATCH_K} P={b_b.plant_group} group {b_b.act_rows} tiles {b_b.tiles}: "
-                  f"bit for bit {same} | launches {n_b}" + ("" if ok else "  <-- FAIL"))
-            check(ok, f"the block MLP's batched pair differs from the per-thread MLP's: "
+                  f"cost error against float64 block {e_k:.3e}, plain {e_p:.3e} (limit "
+                  f"{lim:.3e}; at the wrap {int(exc.sum())}) | against ResidualMLP "
+                  f"{float((ck - c_t).abs().max()):.3e} | delta/s err {u_err:.3e} | launches "
+                  f"{n_b}" + ("" if ok else "  <-- FAIL"))
+            check(ok, f"the block MLP's batched pair disagrees with its plain version: "
                   f"{label}/{mode}")
             if mode == "seed":
                 turns = in_turns({"per-thread": lambda: b_p(lead, *rest),
@@ -1957,7 +2103,7 @@ def wide_dynamics(dev, gen, params, car, plan):
                 print(f"# block vs per-thread [{label} batched seed] in turns: ResidualMLP "
                       f"{turns['per-thread']:.6f} ms, ResidualMLPBlock {turns['block']:.6f} ms "
                       f"({turns['block'] / turns['per-thread']:.3f}x)")
-        report["same"][label] = same_all
+        report["agree"][label] = agree_all
 
     # (ii) the quadrotor on ResidualMLPBlock against its plain version
     qp = mlp_init(QUAD_SIZES, torch.Generator().manual_seed(29), torch.float32, dev)
@@ -1972,6 +2118,7 @@ def wide_dynamics(dev, gen, params, car, plan):
     for label, m, out, variants in (("quadrotor " + str(QUAD_SIZES), quad, report["quad"],
                                      FS.VARIANTS),
                                     ("MBPO " + str(MBPO_SIZES), mbpo, report["mbpo"], ("mppi",))):
+        net = "quad" if m is quad else "mbpo"
         x0T, ops = mlp_operands(dev, gen, QUAD_NX, QUAD_NU, list(QUAD_X0), 1.0)
         for variant in variants:
             cfg = config(variant, QUAD_NX, QUAD_NU)
@@ -1984,7 +2131,7 @@ def wide_dynamics(dev, gen, params, car, plan):
                 torch.cuda.synchronize()
                 n_k = launched()
                 dp, mp, sp, cp, pp = solve.plain(lead, *ops[variant])
-                ok, e_k, e_p, lim_f64 = f64_agree(m, ck, cp, pp, x0T, T_, QUAD_NU)
+                ok, e_k, e_p, lim_f64, _ = f64_agree(m, ck, cp, pp, x0T, T_, QUAD_NU)
                 ok2, c_err, u_err, w_tol = agree(ck, cp, dk / sk, dp / sp, 1.0, mk, mp, sk, sp,
                                                  rtol=0.0, atol=(F64_FACTOR + 1) * max(e_p, 1e-6))
                 ok = ok and ok2 and n_k == {name: 1}
@@ -2001,11 +2148,18 @@ def wide_dynamics(dev, gen, params, car, plan):
             dev_ms = graph_ms(lambda: solve(key, *args), 20)
             plain_ms = events_ms(lambda: solve.plain(key, *args), 1)  # MBPO's: 1.6 s a call
             op = args[3] if variant != "mppi" else args[2]
-            bound_ms, bound_by = bound(fused_work(cfg, m, key, x0T, op, variant=variant))
-            out["timed"][variant] = (dev_ms, plain_ms, bound_ms, bound_by)
+            work = fused_work(cfg, m, key, x0T, op, variant=variant)
+            f32_ms, _ = bound(work)
+            bound_ms, bound_by = tc_bound(work, K_ * T_ * _dense_macs(m))
+            out["timed"][variant] = (dev_ms, plain_ms, bound_ms, bound_by, f32_ms)
+            smem = FS.launch_geometry(solve.spec)["block_smem"]
             print(f"# kernel alone [{variant} {label}] K={K_} T={T_} S={solve.tile_k}: device "
-                  f"{dev_ms:.6f} ms (a CUDA graph of 20 calls) | plain version {plain_ms:.5f} ms "
-                  f"| bound {bound_ms:.6f} ms by {bound_by}: {dev_ms / bound_ms:.1f}x")
+                  f"{dev_ms:.6f} ms (a CUDA graph of 20 calls; {FS.blocks_per_sm(smem)} blocks "
+                  f"an SM by its {smem} bytes of shared memory) | plain version {plain_ms:.5f} ms "
+                  f"| bound {bound_ms:.6f} ms by {bound_by} with the dense layers on the tensor "
+                  f"cores (3xTF32): {dev_ms / bound_ms:.1f}x | float32 bound {f32_ms:.6f} ms: "
+                  f"{dev_ms / f32_ms:.1f}x | before the redesign (recorded, PERF.md) "
+                  f"{BLOCK_BEFORE_MS[net, variant]} ms | {card_line()}")
         if m is quad:
             r = LG.make_fused_rollout(MPPIConfig(nx=QUAD_NX, nu=QUAD_NU, K=K_, T=T_), m)
             x0_K = torch.tensor(QUAD_X0, device=dev)[None].expand(K_, QUAD_NX)
@@ -2015,18 +2169,28 @@ def wide_dynamics(dev, gen, params, car, plan):
             torch.cuda.synchronize()
             n_k = launched()
             cp = r.plain(x0_K, u)
-            ok, e_k, e_p, lim_f64 = f64_agree(m, ck, cp, u.reshape(K_, -1).T, x0T, T_, QUAD_NU)
+            ok, e_k, e_p, lim_f64, _ = f64_agree(m, ck, cp, u.reshape(K_, -1).T, x0T, T_,
+                                                 QUAD_NU)
             ok = ok and n_k == {"rollout_block": 1}
             out["err"]["rollout"] = dict(kernel_f64=e_k, plain_f64=e_p)
             dev_ms = graph_ms(lambda: r(x0_K, u), 20)
             plain_ms = events_ms(lambda: r.plain(x0_K, u), 1)
-            bound_ms, bound_by = bound(rollout_work(m, x0_K, u))
-            out["timed"]["rollout"] = (dev_ms, plain_ms, bound_ms, bound_by)
+            work = rollout_work(m, x0_K, u)
+            f32_ms, _ = bound(work)
+            bound_ms, bound_by = tc_bound(work, K_ * T_ * _dense_macs(m))
+            out["timed"]["rollout"] = (dev_ms, plain_ms, bound_ms, bound_by, f32_ms)
             print(f"# wide [{label} rollout] K={K_}: cost error against float64 kernel {e_k:.3e}, "
                   f"plain {e_p:.3e} (limit {lim_f64:.3e}) | launches {n_k} | device "
-                  f"{dev_ms:.6f} ms | plain version {plain_ms:.5f} ms | bound {bound_ms:.6f} ms by "
-                  f"{bound_by}: {dev_ms / bound_ms:.1f}x" + ("" if ok else "  <-- FAIL"))
+                  f"{dev_ms:.6f} ms ({dev_ms / ROLLOUT_BLOCK_BEFORE_MS:.3f} of its "
+                  f"{ROLLOUT_BLOCK_BEFORE_MS} ms before the redesign) | plain version "
+                  f"{plain_ms:.5f} ms | bound "
+                  f"{bound_ms:.6f} ms by {bound_by} (tensor cores): {dev_ms / bound_ms:.1f}x | "
+                  f"float32 bound {f32_ms:.6f} ms: {dev_ms / f32_ms:.1f}x"
+                  + ("" if ok else "  <-- FAIL"))
             check(ok, f"the wide model's rollout disagrees with its plain version: {label}")
+            check(dev_ms <= 1.1 * ROLLOUT_BLOCK_BEFORE_MS,
+                  f"the block rollout took {dev_ms:.3f} ms, more than 1.1x its "
+                  f"{ROLLOUT_BLOCK_BEFORE_MS} ms before the redesign")
         b_cfg = MPPIConfig(nx=QUAD_NX, nu=QUAD_NU, K=MLP_BATCH_K, T=T_, diag_sigma=True)
         solve = FS.make_transposed_batched_solve(b_cfg, MLP_BATCH_N, m)
         rest = mlp_batched_rest(dev, gen, QUAD_NX, QUAD_NU, MLP_BATCH_N, list(QUAD_X0), 0.2, 1.0)
@@ -2038,15 +2202,9 @@ def wide_dynamics(dev, gen, params, car, plan):
             torch.cuda.synchronize()
             n_k = launched()
             dp, msp, cp = solve.plain(lead, *rest)
-            x0b, U2T, op, mu, lo, hi = rest[:6]
-            noise = FS._noise(lead, T_ * QUAD_NU, MLP_BATCH_K, solve.pair_block,
-                              bool(solve.spec.antithetic), op, mu, dev)
-            pert = torch.clamp(U2T.T[:, :, None] + noise[None], lo[None, :, None],
-                               hi[None, :, None])  # (N, D, K)
-            pert = pert.permute(1, 0, 2).reshape(T_ * QUAD_NU, -1)
-            x0_all = x0b[:, :, None].expand(-1, -1, MLP_BATCH_K).reshape(QUAD_NX, -1)
-            ok, e_k, e_p, lim_f64 = f64_agree(m, ck.reshape(-1), cp.reshape(-1), pert, x0_all, T_,
-                                              QUAD_NU)
+            pert, x0_all = batched_pert(solve, lead, rest, T_, QUAD_NU, MLP_BATCH_K)
+            ok, e_k, e_p, lim_f64, _ = f64_agree(m, ck.reshape(-1), cp.reshape(-1), pert, x0_all,
+                                                 T_, QUAD_NU)
             ok2, c_err, u_err, _ = agree(ck, cp, dk / msk[1], dp / msp[1], 1.0, msk[0], msp[0],
                                          msk[1], msp[1], rtol=0.0,
                                          atol=(F64_FACTOR + 1) * max(e_p, 1e-6))
@@ -2063,12 +2221,19 @@ def wide_dynamics(dev, gen, params, car, plan):
         key = bits_or_key("seed", 0, 0)
         dev_ms = graph_ms(lambda: solve(key, *rest), WIDE_CALLS)
         plain_ms = events_ms(lambda: solve.plain(key, *rest), 1)
-        bound_ms, bound_by = bound(fused_work(b_cfg, m, key, rest[0], rest[2], variant="batched",
-                                              plants=MLP_BATCH_N))
-        out["timed"]["batched"] = (dev_ms, plain_ms, bound_ms, bound_by)
+        work = fused_work(b_cfg, m, key, rest[0], rest[2], variant="batched", plants=MLP_BATCH_N)
+        f32_ms, _ = bound(work)
+        bound_ms, bound_by = tc_bound(work, MLP_BATCH_N * MLP_BATCH_K * T_ * _dense_macs(m))
+        out["timed"]["batched"] = (dev_ms, plain_ms, bound_ms, bound_by, f32_ms)
+        smem = FS.launch_geometry(solve.spec)["block_smem"]
         print(f"# kernel alone [batched {label}] seed N={MLP_BATCH_N} K={MLP_BATCH_K}: device "
-              f"{dev_ms:.6f} ms (a CUDA graph of {WIDE_CALLS} calls) | plain version {plain_ms:.5f} ms | "
-              f"bound {bound_ms:.6f} ms by {bound_by}: {dev_ms / bound_ms:.1f}x")
+              f"{dev_ms:.6f} ms (a CUDA graph of {WIDE_CALLS} calls; {FS.blocks_per_sm(smem)} "
+              f"blocks an SM by its {smem} bytes of shared memory) | plain version "
+              f"{plain_ms:.5f} ms | "
+              f"bound {bound_ms:.6f} ms by {bound_by} with the dense layers on the tensor cores "
+              f"(3xTF32): {dev_ms / bound_ms:.1f}x | float32 bound {f32_ms:.6f} ms: "
+              f"{dev_ms / f32_ms:.1f}x | before the redesign (recorded, PERF.md) "
+              f"{BLOCK_BEFORE_MS[net, 'batched']} ms | {card_line()}")
 
     # the closed loops: CAR_COMMANDS commands of each route on the model as
     # its own plant, exact block launch counts, finite actions; the MBPO
@@ -2158,6 +2323,64 @@ def wide_dynamics(dev, gen, params, car, plan):
     check(same and n == {"mppi_block": GRAPH_STEPS}, f"graph loop [quadrotor]: equal {same}, "
           f"launches {n}")
     report["quad"]["loops"]["graph", "fused"] = dict(equal=same, launches=n)
+
+    # (iv) a layer too wide for a whole m16 tile of 16 samples' activations:
+    # groups of DENSE_ROWS = 8 (half a tile, the other half zeros) in kernel
+    # A, the batched pair and the rollout, each against its plain version
+    # (f64_agree) with exact launch counts
+    hp = mlp_init(HALF_TILE_SIZES, torch.Generator().manual_seed(31), torch.float32, dev)
+    Wh, bh = hp[-1]
+    hp[-1] = (Wh * QUAD_STEP, bh * QUAD_STEP)
+    half = residual_mlp_model(hp, QUAD_NX, QUAD_NU, cost="quadratic", goal=QUAD_GOAL)
+    solve = FS.make_transposed_fused_solve(config("mppi", QUAD_NX, QUAD_NU), half,
+                                           emit_perturbed=True)
+    b_solve = FS.make_transposed_batched_solve(
+        MPPIConfig(nx=QUAD_NX, nu=QUAD_NU, K=MLP_BATCH_K, T=T_, diag_sigma=True), 2, half)
+    r = LG.make_fused_rollout(MPPIConfig(nx=QUAD_NX, nu=QUAD_NU, K=K_, T=T_), half)
+    groups = (solve.act_rows, b_solve.act_rows,
+              LG.rollout_act_rows(T_, QUAD_NU, solve.tile_k, activation_ld(half), QUAD_NX))
+    x0T, ops = mlp_operands(dev, gen, QUAD_NX, QUAD_NU, list(QUAD_X0), 1.0)
+    lead = bits_or_key("seed", 0, 0)
+    reset_launches()
+    dk, mk, sk, ck, _ = solve(lead, *ops["mppi"])
+    torch.cuda.synchronize()
+    n_k = launched()
+    dp, mp, sp, cp, pp = solve.plain(lead, *ops["mppi"])
+    ok_a, e_a, e_ap, lim_a, _ = f64_agree(half, ck, cp, pp, x0T, T_, QUAD_NU)
+    ok2, _, u_err, _ = agree(ck, cp, dk / sk, dp / sp, 1.0, mk, mp, sk, sp, rtol=0.0,
+                             atol=(F64_FACTOR + 1) * max(e_ap, 1e-6))
+    ok_a = ok_a and ok2 and n_k == {"mppi_block": 1}
+    rest = mlp_batched_rest(dev, gen, QUAD_NX, QUAD_NU, 2, list(QUAD_X0), 0.2, 1.0)
+    reset_launches()
+    dk, msk, cbk = b_solve(lead, *rest)
+    torch.cuda.synchronize()
+    n_b = launched()
+    dp, msp, cbp = b_solve.plain(lead, *rest)
+    pert, x0_all = batched_pert(b_solve, lead, rest, T_, QUAD_NU, MLP_BATCH_K)
+    ok_b, e_b, e_bp, lim_b, _ = f64_agree(half, cbk.reshape(-1), cbp.reshape(-1), pert, x0_all,
+                                          T_, QUAD_NU)
+    ok2, _, ub_err, _ = agree(cbk, cbp, dk / msk[1], dp / msp[1], 1.0, msk[0], msp[0], msk[1],
+                              msp[1], rtol=0.0, atol=(F64_FACTOR + 1) * max(e_bp, 1e-6))
+    ok_b = ok_b and ok2 and n_b == {"batched_block": 2}
+    x0_K = torch.tensor(QUAD_X0, device=dev)[None].expand(K_, QUAD_NX)
+    u = torch.clamp(torch.randn(K_, T_, QUAD_NU, generator=gen, device=dev), -2, 2)
+    reset_launches()
+    crk = r(x0_K, u)
+    torch.cuda.synchronize()
+    n_r = launched()
+    ok_r, e_r, e_rp, lim_r, _ = f64_agree(half, crk, r.plain(x0_K, u), u.reshape(K_, -1).T, x0T,
+                                          T_, QUAD_NU)
+    ok_r = ok_r and n_r == {"rollout_block": 1}
+    ok = ok_a and ok_b and ok_r and groups == (8, 8, 8)
+    report["half_tile"] = dict(groups=groups, kernel_a=e_a, batched=e_b, rollout=e_r, ok=ok)
+    print(f"# half tile [{HALF_TILE_SIZES}] groups (kernel A, batched, rollout) {groups}: cost "
+          f"error against float64, kernel A {e_a:.3e} (plain {e_ap:.3e}, limit {lim_a:.3e}; "
+          f"delta/s err {u_err:.3e}; launches {n_k}) | batched N=2 K={MLP_BATCH_K} {e_b:.3e} "
+          f"(plain {e_bp:.3e}, limit {lim_b:.3e}; delta/s err {ub_err:.3e}; launches {n_b}) | "
+          f"rollout {e_r:.3e} (plain {e_rp:.3e}, limit {lim_r:.3e}; launches {n_r})"
+          + ("" if ok else "  <-- FAIL"))
+    check(ok, f"the half-tile groups of {HALF_TILE_SIZES} disagree with their plain versions or "
+          f"took other groups: {groups}")
     report["seconds"] = time.perf_counter() - phase_start
     print(f"# phase 4e, wide dynamics: {report['seconds']:.1f} s")
     return report
@@ -3823,7 +4046,7 @@ def wide_kernel_rows(report, build_parts, gen_build_s):
             ("kmppi", 940, "mppi_fused_partial<ResidualMLPBlock, 32, ..., kKMPPI>"),
             ("rollout", 75, "fused_rollout<ResidualMLPBlock, 32>"),
             ("batched", 1118, "batched_partial<ResidualMLPBlock, 32, kGlobal> + flash_merge")):
-        d_ms, p_ms, b_ms, b_by = quad["timed"][key]
+        d_ms, p_ms, b_ms, b_by, f32_ms = quad["timed"][key]
         errs = [e for k, e in quad["err"].items() if (k if isinstance(k, str) else k[0]) == key]
         row = {
             "name": f"fused_mppi {key}, block residual MLP: the quadrotor {QUAD_SIZES} ({inst})",
@@ -3839,6 +4062,7 @@ def wide_kernel_rows(report, build_parts, gen_build_s):
             "plain_ms": p_ms,
             "bound_ms": b_ms,
             "bound_by": b_by,
+            "bound_ms_float32": f32_ms,
             "library_ms": None,
             "nvcc_s": build_parts.get(18 if key == "batched" else 17),
         }
@@ -3847,13 +4071,13 @@ def wide_kernel_rows(report, build_parts, gen_build_s):
             if t is not None:
                 row[f"ms_{short}_block"] = t["block"]
                 row[f"ms_{short}_per_thread"] = t["per-thread"]
-        row["bit_for_bit_per_thread"] = all(report["same"].values())
+        row["forced_networks_agree_f64"] = all(report["agree"].values())
         rows.append(row)
     for key, line, inst, count in (
             ("mppi", 512, "mppi_fused_partial<Generated, 12, ..., kMPPI>", "generated_mppi_block"),
             ("batched", 1118, "batched_partial<Generated, 12, kGlobal> + flash_merge",
              "generated_batched_block")):
-        d_ms, p_ms, b_ms, b_by = mbpo["timed"][key]
+        d_ms, p_ms, b_ms, b_by, f32_ms = mbpo["timed"][key]
         errs = [e for k, e in mbpo["err"].items() if (k if isinstance(k, str) else k[0]) == key]
         rows.append({
             "name": f"fused_mppi {key}, generated model with dense layers: an untagged "
@@ -3870,6 +4094,7 @@ def wide_kernel_rows(report, build_parts, gen_build_s):
             "plain_ms": p_ms,
             "bound_ms": b_ms,
             "bound_by": b_by,
+            "bound_ms_float32": f32_ms,
             "library_ms": None,
             "build_s": gen_build_s.get(f"mbpo {key}"),
         })
@@ -6049,7 +6274,9 @@ def main():
         build_s_cold_cache=deploy_report["cold"]["nvcc_s"])
     kernels[-1]["launches_served_seed_mode"] = served[
         f"generated batched seed N={BATCH_N}"]["generated_batched"]
-    print(f"# chip_smoke total: {time.perf_counter() - START:.1f} s")
+    total = time.perf_counter() - START
+    print(f"# chip_smoke total: {total:.1f} s; on a host {SLOW_HOST}x slower in every phase "
+          f"about {SLOW_HOST * total:.1f} s, of the {TIME_LIMIT_S} s limit")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -366,7 +366,9 @@ class MPPI:
         self.gradient_refinement_lr = float(gradient_refinement_lr)
         self.num_elites = int(num_elites)
         self.sample_axis = sample_axis
-        self.prng_impl = prng_impl
+        # "auto" resolves to the default stream, as JAX's _resolve_prng_impl
+        # does off a TPU: both accepted values store None
+        self.prng_impl = None
 
         self._params, self._bounded = _make_params(sigma, lambda_, noise_mu, u_min, u_max,
                                                    u_init, self.d)
@@ -954,7 +956,9 @@ class MPPI_Batched:
         self.u_scale = float(u_scale)
         self.u_per_command = int(u_per_command)
         self.sample_axis = sample_axis
-        self.prng_impl = prng_impl
+        # "auto" resolves to the default stream, as JAX's _resolve_prng_impl
+        # does off a TPU: both accepted values store None
+        self.prng_impl = None
 
         self._params, _ = _make_params(sigma, lambda_, noise_mu, u_min, u_max, u_init, self.d)
         self.config = MPPIConfig(

@@ -165,11 +165,18 @@
 // Block models (ResidualMLPBlock, and a generated model with dense layers):
 // kernel A, the batched kernel and the rollout run every thread of the
 // block through the step loop, the owners of the samples run the
-// per-sample segments, and all threads compute each dense layer
-// (block_dense, block_step), its activations in shared memory after the
-// kernel's own; the batched kernel's 128 samples, and kernel A's where
-// S = 64 or 128 do not fit, go through the layers in groups (the host
-// picks the largest group that fits).  Selected with if constexpr, so that
+// per-sample segments on their rows of per-sample values in shared memory,
+// and all threads compute each dense layer (block_dense, block_step) with
+// its unit-wise epilogue (a tanh, a generated model's SiLU), its
+// activations in shared memory after the kernel's own; the samples go
+// through the layers in groups.  What bounds them: the dense layers'
+// multiply-adds (72,704 a sample-step for a [16, 256, 256, 12] network), so
+// block_dense runs them on the tensor cores, mma.sync m16n8k8 in 3xTF32
+// (float32's accuracy), a warp's task 32 rows by up to 64 units, its
+// weights read once a task through the read-only cache.  The host picks
+// the group and the tiles' place (shared memory or the global scratch) by
+// occupancy, at least two blocks an SM where shared memory allows
+// (ops/fused_solve.activation_rows).  Selected with if constexpr, so that
 // no per-sample instantiation changes.
 //
 // Left for later: a per-sample model's rollout still takes one thread a
@@ -177,8 +184,8 @@
 // warps idle; two samples a thread in the batched rollout; a last-block
 // merge for the batched kernel; merge_partials' dependent L2 loads (kernel
 // A's last block, flash_merge), which weighted_merge's one pass avoids;
-// block_dense on the tensor cores, and its elementwise segments on all
-// threads.
+// block_dense with wgmma on a warpgroup of the block's 128 threads, which
+// for TF32 needs W K-major (transposed weights, a new deploy format).
 //
 // Plain C interface (no PyTorch headers), loaded with ctypes; each entry
 // returns cudaGetLastError() after its launches.  The file builds whole, or
@@ -630,18 +637,22 @@ struct ResidualMLP {
 //
 // A block model (kBlockOf<Model>: ResidualMLPBlock, or a generated model
 // with dense layers, ops/batch_last.py) splits its step into per-sample
-// segments and dense layers y = x W (+ b) that all the block's threads
+// segments and dense layers y = f(x W + b) that all the block's threads
 // compute together, the counterpart of the JAX package's batched @ constant
 // (pytorch_mppi_tpu/ops/batch_last.py:_dot_general_batch_last) inside the
 // Pallas kernels.  Its interface: layers(c), the dense layers of a step;
 // begin<N>(...), the owner thread's first segment, which writes the first
 // layer's inputs into its sample's activation row; dense(l, ...), layer l
-// for a group of samples, on every thread; after<N>(l, ...), the owner's
-// segment after layer l (the last one steps the state); a Carry, the
-// per-sample values a later segment reads, in the owner's registers.  The
-// activations: two halves of `rows` rows of `ld` floats each in shared
+// for a group of samples, on every thread, with its unit-wise epilogue f
+// (ResidualMLPBlock's tanh; a generated model's scalar nodes that read one
+// unit of the layer, such as a SiLU); after<N>(l, ...), the owner's segment
+// after layer l (the last one steps the state); a Carry, the per-sample
+// values a later segment reads, in the owner's registers.  The activations:
+// two halves of `rows` rows of act_stride(act_ld) floats each in shared
 // memory, one row a sample of the group; block_step runs the block's
-// samples through them in groups.
+// samples through them in groups.  A sample's state, action (and SMPPI's
+// previous action) live in a row of shared memory beside them (state_ld),
+// not in register arrays of MAXN, which spilled.
 
 // Whether Model is a block model: its kBlock, false where it has none (the
 // per-sample models, whose structs are unchanged).
@@ -656,67 +667,286 @@ __host__ __device__ constexpr bool block_model(long) {
 template <class M>
 constexpr bool kBlockOf = block_model<M>(0);
 
-constexpr int DENSE_ROWS = 8;  // samples of a thread's register tile; the least group
+// The least group of samples: half an m16 tile of rows, whose other half
+// reads as zeros and is not stored (taken only where a whole tile does not
+// fit: ops/fused_solve.activation_rows); every larger group is whole tiles.
+constexpr int DENSE_ROWS = 8;
+// Kernel A's blocks an SM with a block model: its registers are held to
+// 168 a thread for three (ops/fused_solve.KERNEL_A_BLOCK_BLOCKS), with its
+// shared memory chosen to allow them where it can, so that the 313 blocks
+// of K = 10,000 run in one wave of 396, not two of 264.
+constexpr int BLOCK_MODEL_BLOCKS = 3;
+constexpr int DENSE_WARPS = BLOCK / 32;
+constexpr int DENSE_NT = 8;  // n8 tiles of a warp's task at most: 64 units
+// The most inputs of a layer whose products the tensor cores sum into one
+// float32 accumulator.  Their accumulation is not rounded to nearest, so
+// its error grows with the inputs it sums (a [16, 2048, 12] network's
+// costs went 26x the float32 plain version's error from float64); a layer
+// of more inputs sums each k-step of eight apart and adds it rounded to
+// nearest (dense_step<MT, true>).  The quadrotor's and MBPO's layers, up to
+// 256 inputs, stay one sum.
+constexpr int DENSE_ONE_SUM = 256;
 
-// out[s * ld + j] = f(sum_i in[s * ld + i] W[i * p + j] + b[j]) for the `rows`
-// samples s of a group and the n_out units j (f = tanhf where `hidden`, else
-// the identity; no b where b is null), with all BLOCK threads: thread t takes
-// unit t % U of each pass of U units (U = 32, 64 or BLOCK, the units rounded
-// up) and the tiles of DENSE_ROWS samples from (t / U) * DENSE_ROWS on, a
-// tile's sums in registers.  Each weight is read once a tile through the
-// read-only cache, a warp's 32 consecutive units coalesced, and feeds
-// DENSE_ROWS FMAs; each input is read by every thread of the warp at one
-// address (a broadcast), four at a time.  Each output is summed by one
-// thread in input order with fmaf from 0, then the bias is added: the
-// arithmetic of ResidualMLP::step.  `rows` is a multiple of DENSE_ROWS, `ld`
-// of four, and `in` 16-byte aligned.  No barrier inside.
+// Floats between two activation rows in shared memory: the row's ld floats
+// rounded up to eight (an mma's depth), then to 8 mod 32, so that each half
+// of a warp's 8-byte A-fragment loads (4 rows by 4 pairs of columns) and of
+// its epilogue's 8-byte stores hit 32 distinct banks.
+__host__ __device__ constexpr int act_stride(int ld) {
+  return (ld + 7) / 8 * 8 + (40 - (ld + 7) / 8 * 8 % 32) % 32;
+}
+
+// Floats of a sample's row of per-sample values: its state (nx), action
+// (nu) and SMPPI's previous action (nu), an odd count, so that the owners'
+// accesses (one row a thread) are free of bank conflicts.
+__host__ __device__ constexpr int state_ld(int nx, int nu) { return (nx + 2 * nu) | 1; }
+
+// Floats of a block model's shared memory after the kernel's own: two halves
+// of `rows` activation rows, then `slots` rows of per-sample values.
+__host__ __device__ constexpr size_t block_floats(int slots, int rows, int ld, int nx, int nu) {
+  return 2 * (size_t)rows * act_stride(ld) + (size_t)slots * state_ld(nx, nu);
+}
+
+// v rounded to TF32 as cvt.rna.tf32.f32 rounds it (to nearest, ties away
+// from zero: the weight of the highest of the 13 dropped bits, 0x1000, added
+// to the magnitude, then those bits cleared), written on the bits: two
+// integer operations, where ptxas expands the cvt to four.
+__device__ __forceinline__ unsigned tf32_rna(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+}
+
+// v = hi + lo, each rounded to TF32, the operands of the 3xTF32 products.
+__device__ __forceinline__ void split_tf32(float v, unsigned& hi, unsigned& lo) {
+  hi = tf32_rna(v);
+  lo = tf32_rna(v - __uint_as_float(hi));
+}
+
+// The epilogue of a dense layer with none (block_dense skips its pass).
+struct DenseLinear {
+  __device__ float operator()(int, float v) const { return v; }
+};
+template <class Epi>
+constexpr bool kLinear = false;
+template <>
+constexpr bool kLinear<DenseLinear> = true;
+
+// d += A B for one m16n8k8 tile, TF32 operands, float32 accumulators.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One k-step of a warp task: the A fragments of its MT m16 tiles from the
+// activation rows at `a` (the lane's row g of tile 0 at the step's column
+// 2t: lane (g, t) holds the step's columns 2t and 2t + 1 in the fragment's
+// slots t and t + 4, one 8-byte load a row, and B the same rows of W, so
+// that the product sums the same eight inputs), split; the B values b0, b1
+// (rows 2t and 2t + 1, the lane's column of each tile), split; then three
+// products a tile.  `ka`, `kb`: whether the lane's columns 2t, 2t + 1 are
+// inputs of the layer (false only in the last step of a depth not a
+// multiple of 8, whose A and B values then read as 0).  `hi8`: whether rows
+// g + 8 are rows of the group (false in a group of DENSE_ROWS = 8, whose
+// tile's rows 8-15 then read as 0).  kRN: the step's three products summed
+// apart and added to acc rounded to nearest (a layer of more than
+// DENSE_ONE_SUM inputs), else into acc on the tensor cores.
+template <int MT, bool kRN>
+__device__ __forceinline__ void dense_step(float (&acc)[MT][DENSE_NT][4], const float* a, int ld,
+                                           const float (&b0)[DENSE_NT],
+                                           const float (&b1)[DENSE_NT], int nt, bool ka,
+                                           bool kb, bool hi8) {
+  unsigned ah[MT][4], al[MT][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    const float2 r0 = *reinterpret_cast<const float2*>(a + (size_t)(16 * m) * ld);
+    const float2 r8 = hi8 ? *reinterpret_cast<const float2*>(a + (size_t)(16 * m + 8) * ld)
+                          : make_float2(0.0f, 0.0f);
+    split_tf32(ka ? r0.x : 0.0f, ah[m][0], al[m][0]);  // row g, slot t
+    split_tf32(ka ? r8.x : 0.0f, ah[m][1], al[m][1]);  // row g + 8, slot t
+    split_tf32(kb ? r0.y : 0.0f, ah[m][2], al[m][2]);  // row g, slot t + 4
+    split_tf32(kb ? r8.y : 0.0f, ah[m][3], al[m][3]);  // row g + 8, slot t + 4
+  }
+#pragma unroll
+  for (int j = 0; j < DENSE_NT; ++j) {
+    if (j < nt) {
+      unsigned bh0, bl0, bh1, bl1;
+      split_tf32(b0[j], bh0, bl0);
+      split_tf32(b1[j], bh1, bl1);
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        if constexpr (kRN) {  // the k-step's sum apart, added rounded to nearest
+          float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          mma_tf32(d, al[m], bh0, bh1);
+          mma_tf32(d, ah[m], bl0, bl1);
+          mma_tf32(d, ah[m], bh0, bh1);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[m][j][q] += d[q];
+        } else {
+          mma_tf32(acc[m][j], al[m], bh0, bh1);
+          mma_tf32(acc[m][j], ah[m], bl0, bl1);
+          mma_tf32(acc[m][j], ah[m], bh0, bh1);
+        }
+      }
+    }
+  }
+}
+
+// One warp's task of block_dense: rows r0 .. r0 + 16 MT - 1 of the group
+// (r0 .. r0 + 7 where `hi8` is false: a group of DENSE_ROWS = 8 rows)
+// and the n8 tiles t0 .. t0 + nt - 1 (nt <= DENSE_NT), a k-step of eight
+// inputs at a time (dense_step<MT, kRN>), then the epilogue: out = epi(j,
+// acc + b[j]).  The weights are loaded in the step that uses them: with three
+// blocks an SM the other warps hide their latency, and a step ahead in
+// registers made the kernels spill (and no faster).
+template <int MT, bool kRN, class Epi>
+__device__ __forceinline__ void dense_task(const float* __restrict__ W,
+                                           const float* __restrict__ b, int n_in, int n_out,
+                                           int p, const float* in, float* out, int ld, int r0,
+                                           int t0, int nt, bool hi8, Epi epi) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  float acc[MT][DENSE_NT][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < DENSE_NT; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[m][j][q] = 0.0f;
+  // the lane's B column in tile j: c0 + 8j, read where it is a unit of the
+  // layer (a column past n_out is computed from zeros and not stored)
+  const int c0 = 8 * t0 + g;
+  const int nv = min(nt, (n_out - c0 + 7) / 8);  // the tiles whose column is a unit
+  const float* a = in + (size_t)(r0 + g) * ld + 2 * t;
+  const int full = n_in / 8;  // k-steps of eight inputs; a shorter one follows
+  const float* w = W + (size_t)(2 * t) * p + c0;  // row 2t of k-step s
+  for (int s = 0; s < full; ++s, w += (size_t)8 * p) {
+    float b0[DENSE_NT], b1[DENSE_NT];
+#pragma unroll
+    for (int j = 0; j < DENSE_NT; ++j) {
+      b0[j] = j < nv ? __ldg(w + 8 * j) : 0.0f;
+      b1[j] = j < nv ? __ldg(w + p + 8 * j) : 0.0f;
+    }
+    dense_step<MT, kRN>(acc, a + 8 * s, ld, b0, b1, nt, true, true, hi8);
+  }
+  if (full * 8 < n_in) {  // the last, shorter k-step
+    const int k = full * 8 + 2 * t;
+    const bool ka = k < n_in, kb = k + 1 < n_in;
+    const float* wl = W + (size_t)(ka ? k : 0) * p + c0;
+    float b0[DENSE_NT], b1[DENSE_NT];
+#pragma unroll
+    for (int j = 0; j < DENSE_NT; ++j) {
+      b0[j] = j < nv && ka ? __ldg(wl + 8 * j) : 0.0f;
+      b1[j] = j < nv && kb ? __ldg(wl + p + 8 * j) : 0.0f;
+    }
+    dense_step<MT, kRN>(acc, a + 8 * full, ld, b0, b1, nt, ka, kb, hi8);
+  }
+  // C fragment: rows g and g + 8 of each m16 tile, units 2t and 2t + 1;
+  // acc + b stored, then the epilogue over the same elements a tile at a
+  // time (a loop: one tile's code and registers, not DENSE_NT tiles')
+#pragma unroll
+  for (int j = 0; j < DENSE_NT; ++j) {
+    const int u = 8 * (t0 + j) + 2 * t;
+    if (j < nt && u < n_out) {
+      const bool pair = u + 1 < n_out;
+      const float bu0 = b ? __ldg(b + u) : 0.0f, bu1 = b && pair ? __ldg(b + u + 1) : 0.0f;
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {  // rows g and g + 8
+          if (h && !hi8) continue;
+          float* o = out + (size_t)(r0 + 16 * m + 8 * h + g) * ld + u;
+          if (pair)
+            *reinterpret_cast<float2*>(o) =
+                make_float2(acc[m][j][2 * h] + bu0, acc[m][j][2 * h + 1] + bu1);
+          else
+            o[0] = acc[m][j][2 * h] + bu0;
+        }
+      }
+    }
+  }
+  if constexpr (!kLinear<Epi>) {
+#pragma unroll 1
+    for (int j = 0; j < nt; ++j) {
+      const int u = 8 * (t0 + j) + 2 * t;
+      if (u < n_out) {
+        const bool pair = u + 1 < n_out;
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            if (h && !hi8) continue;
+            float* o = out + (size_t)(r0 + 16 * m + 8 * h + g) * ld + u;
+            if (pair) {
+              const float2 z = *reinterpret_cast<const float2*>(o);
+              *reinterpret_cast<float2*>(o) = make_float2(epi(u, z.x), epi(u + 1, z.y));
+            } else {
+              o[0] = epi(u, o[0]);
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+// out[s * ld + j] = epi(j, sum_i in[s * ld + i] W[i * p + j] + b[j]) for the
+// `rows` samples s of a group and the n_out units j (no b where b is null),
+// on the tensor cores in 3xTF32 (each operand split as hi + lo in TF32,
+// three products a multiply-add: float32's accuracy, not TF32's).  The
+// group's rows go in m-blocks of 32 (16 where rows is not a multiple of
+// 32, half of 16 in a group of DENSE_ROWS = 8), the units in chunks of at
+// most DENSE_NT n8 tiles, spread so that the
+// four warps have one task each where the group has one m-block; task i is
+// m-block i % mblocks of chunk i / mblocks, so that warps working at once
+// read the same columns of W.  A operands come from the activation rows in
+// shared memory, B operands (W as it lies, rows of p floats) through the
+// read-only cache, each weight read once a task: at groups of 32 rows each
+// warp reads its own columns of W, so a chunk of W staged in shared memory
+// serves one warp only (staged a k-step ahead with cp.async, the kernels
+// took 1.5-3.3x as long: tools/block_dense_staged.patch, PERF.md).  The
+// sums run in the tensor cores' order (a layer of more than DENSE_ONE_SUM
+// inputs: each k-step's apart, on m-blocks of 16 rows), then the bias is
+// added.  `rows` is DENSE_ROWS or a
+// multiple of 16, `ld` an act_stride.  Every thread of the block calls it
+// (mma.sync needs whole warps); no barrier inside.  A later design: wgmma on
+// a warpgroup, which needs W K-major for TF32 (transposed weights, a new
+// deploy format).
+template <class Epi>
 __device__ __forceinline__ void block_dense(const float* __restrict__ W,
                                             const float* __restrict__ b, int n_in, int n_out,
                                             int p, const float* in, float* out, int ld, int rows,
-                                            bool hidden) {
-  const int units = n_out <= 32 ? 32 : n_out <= 64 ? 64 : BLOCK;
-  const int groups = BLOCK / units, ju = threadIdx.x % units, g = threadIdx.x / units;
-  for (int j = ju; j < n_out; j += units) {
-    const float bj = b ? __ldg(b + j) : 0.0f;
-    const float* w = W + j;
-    for (int s0 = g * DENSE_ROWS; s0 < rows; s0 += groups * DENSE_ROWS) {
-      const float* a = in + (size_t)s0 * ld;
-      float acc[DENSE_ROWS];
-#pragma unroll
-      for (int m = 0; m < DENSE_ROWS; ++m) acc[m] = 0.0f;
-      int i = 0;
-      for (; i + 4 <= n_in; i += 4) {
-        const float w0 = __ldg(w + (size_t)i * p), w1 = __ldg(w + (size_t)(i + 1) * p);
-        const float w2 = __ldg(w + (size_t)(i + 2) * p), w3 = __ldg(w + (size_t)(i + 3) * p);
-#pragma unroll
-        for (int m = 0; m < DENSE_ROWS; ++m) {
-          const float4 v = *reinterpret_cast<const float4*>(a + m * ld + i);
-          acc[m] = fmaf(v.x, w0, acc[m]);
-          acc[m] = fmaf(v.y, w1, acc[m]);
-          acc[m] = fmaf(v.z, w2, acc[m]);
-          acc[m] = fmaf(v.w, w3, acc[m]);
-        }
-      }
-      for (; i < n_in; ++i) {
-        const float wi = __ldg(w + (size_t)i * p);
-#pragma unroll
-        for (int m = 0; m < DENSE_ROWS; ++m) acc[m] = fmaf(a[m * ld + i], wi, acc[m]);
-      }
-#pragma unroll
-      for (int m = 0; m < DENSE_ROWS; ++m) {
-        const float z = acc[m] + bj;
-        out[(size_t)(s0 + m) * ld + j] = hidden ? tanhf(z) : z;
-      }
-    }
+                                            Epi epi) {
+  const int warp = threadIdx.x >> 5;
+  // more than DENSE_ONE_SUM inputs: each k-step's sum added rounded to
+  // nearest (dense_step<1, true>), on m-blocks of 16 rows
+  const bool wide = n_in > DENSE_ONE_SUM;
+  const int mt = !wide && rows % 32 == 0 ? 2 : 1, mblocks = (rows + 16 * mt - 1) / (16 * mt);
+  const bool hi8 = rows >= 16;  // else a group of DENSE_ROWS = 8: half an m16 tile
+  const int ntiles = (n_out + 7) / 8;
+  const int wpm = mblocks >= DENSE_WARPS ? 1 : DENSE_WARPS / mblocks;  // warps an m-block
+  const int per = (ntiles + DENSE_NT * wpm - 1) / (DENSE_NT * wpm) * wpm;  // chunks an m-block
+  const int chunk = (ntiles + per - 1) / per;  // n8 tiles a chunk, at most DENSE_NT
+  for (int task = warp; task < mblocks * per; task += DENSE_WARPS) {
+    const int mb = task % mblocks, t0 = task / mblocks * chunk;
+    const int nt = ntiles - t0 < chunk ? ntiles - t0 : chunk;
+    if (nt <= 0) continue;
+    if (mt == 2)
+      dense_task<2, false>(W, b, n_in, n_out, p, in, out, ld, 32 * mb, t0, nt, true, epi);
+    else if (!wide)
+      dense_task<1, false>(W, b, n_in, n_out, p, in, out, ld, 16 * mb, t0, nt, hi8, epi);
+    else
+      dense_task<1, true>(W, b, n_in, n_out, p, in, out, ld, 16 * mb, t0, nt, hi8, epi);
   }
 }
 
 // One step of a block model for every sample of the block: every thread
 // calls it at once (it holds barriers), thread `slot` (0 <= slot < slots;
 // -1 for a thread that owns no sample) with its sample's state x and action
-// u.  The samples go through the layers in groups of `rows` (the slots a
-// multiple of it): the group's owners write their first inputs, the block
-// computes each layer, the owners run the segments between and after them.
+// u (its row of per-sample values).  The samples go through the layers in
+// groups of `rows` (the slots a multiple of it), activation rows of `ld`
+// floats (an act_stride): the group's owners write their first inputs, the
+// block computes each layer, the owners run the segments between and after
+// them.
 template <class Model, int N>
 __device__ __forceinline__ void block_step(const float* c, float* x, const float* u, int nx,
                                            int nu, int t, int slot, int slots, int rows, int ld,
@@ -738,16 +968,28 @@ __device__ __forceinline__ void block_step(const float* c, float* x, const float
 }
 
 // The activations of a block model in kernel A, the batched kernel and the
-// rollout: from `base`, rounded up to 16 bytes (the host counts the same).
-__device__ __forceinline__ float* block_act(float* base) {
-  return reinterpret_cast<float*>((reinterpret_cast<uintptr_t>(base) + 15) & ~uintptr_t(15));
+// rollout: `floats` into the kernel's shared memory `smem`, rounded up to 16
+// bytes (the host counts the same); the rows of per-sample values follow
+// them (block_state).  Offset from `smem` itself, so that the compiler
+// keeps the shared-memory loads (an address rounded as an integer would
+// make them generic).
+__device__ __forceinline__ float* block_act(float* smem, size_t floats) {
+  return smem + (floats + 3) / 4 * 4;
+}
+
+// Row `slot` of a block model's per-sample values (slot 0 for a thread that
+// owns none: it never writes there), after the activations at `act`.
+__device__ __forceinline__ float* block_state(const Params& p, float* act, int slot) {
+  return act + 2 * (size_t)p.act_rows * act_stride(p.act_ld) +
+         (size_t)(slot > 0 ? slot : 0) * state_ld(p.nx, p.nu);
 }
 
 // ResidualMLPBlock: the residual MLP of ResidualMLP with its layers split
 // over the block's threads (block_dense), for nx, nu <= MAXN, any number of
 // layers and widths bounded by shared memory (the host picks the group,
-// ops/fused_solve.launch_geometry).  The same arithmetic as ResidualMLP: on
-// a network within ResidualMLP's bounds the two give the same bits.
+// ops/fused_solve.launch_geometry).  The function of ResidualMLP, its layers
+// on the tensor cores in 3xTF32 (float32's accuracy, the sums in another
+// order), its tanh as the layers' epilogue.
 // consts: a header of BMLP_FIXED floats (0: the layers L; 1-3: clip flag, lo,
 // hi; 4: the cost, 0 pendulum or 1 quadratic; 5-7: 0), the L + 1 widths, nx
 // flags (bit 0: wrap the dimension, bit 1: encode it as sin, cos), the
@@ -802,8 +1044,10 @@ struct ResidualMLPBlock {
     }
     const int n_in = (int)widths[l], n_out = (int)widths[l + 1], p = (n_out + 3) / 4 * 4;
     const int half = rows * ld;
+    const bool hidden = l + 1 < L;
     block_dense(w, w + n_in * p, n_in, n_out, p, act + (l & 1) * half,
-                act + ((l + 1) & 1) * half, ld, rows, l + 1 < L);
+                act + ((l + 1) & 1) * half, ld, rows,
+                [hidden](int, float z) { return hidden ? tanhf(z) : z; });
   }
 
   template <int N>
@@ -994,6 +1238,13 @@ enum RowVector { kU, kA, kOp, kMu, kLo, kHi, kBase, kAlo, kAhi, NVEC };
 // threads' partial sums (BLOCK) and the merge's block scales.
 constexpr int PARTIAL_HEAD = 32 + 2 * BLOCK + MERGE_CHUNK_A;
 
+// PARTIAL_HEAD, or for a block model (`block`) the head without the merge's
+// block scales, which its last block takes in its activations: the 2 KB that
+// let three blocks of the quadrotor's [16, 256, 256, 12] share an SM.
+__host__ __device__ constexpr int block_head(bool block) {
+  return block ? PARTIAL_HEAD - MERGE_CHUNK_A : PARTIAL_HEAD;
+}
+
 // Kernel A's (D, S) tiles: MPPI with a diagonal scale keeps everything in
 // one; a full operator (and the round-1 solve), SMPPI and KMPPI take two.
 __host__ __device__ constexpr int partial_tiles(int variant, int full_op) {
@@ -1122,23 +1373,34 @@ __device__ __forceinline__ void tile_product(const float* __restrict__ M, int ro
   }
 }
 
+// SMPPI's smoothness cost on the previous action row (mppi.py:558-562):
+// action `act` of step t adds its squared rate to `smooth` after the first
+// step, then becomes `prev`.  Shared by sample_cost and block_sample_cost;
+// a macro, not a function, so that sample_cost's machine code stays that
+// of its inline text (an inlined function changed the SASS of the
+// per-sample kernels: tools/sass_ab.py).
+#define SMPPI_SMOOTH_TERM(act, prev)        \
+  {                                          \
+    if (t > 0) {                             \
+      float df = (act) - (prev);             \
+      if (p.u_scale != 1.0f) df *= p.u_scale; \
+      smooth += df * df;                     \
+    }                                        \
+    (prev) = (act);                          \
+  }
+
 // Sample k's cost: `pc`, the action cost of its rectified noise, plus the
 // T-step rollout of the device model over its actions (column `col` of a
 // tile with row stride ldt) from its column of x0; SMPPI adds the
 // smoothness cost on the action rows.  Called with nx = nu = N as constants,
-// the model's loops and constant offsets are fixed when it is compiled.  A
-// block model's (kBlockOf) is called by every thread of the block, thread
-// `slot` owning sample k (slot -1: none), with the activations at `act`; a
-// thread without a live sample steps zeros, and its result is not used.
+// the model's loops and constant offsets are fixed when it is compiled.
 template <class Model, int N, int V>
 __device__ __forceinline__ float sample_cost(const Params& p, const float* col, int ldt, int k,
-                                             float pc, int nx, int nu, int slot = 0,
-                                             float* act = nullptr) {
-  const bool own = !kBlockOf<Model> || (slot >= 0 && k < p.K);
+                                             float pc, int nx, int nu) {
   float x[N], u[N], prev[N];
 #pragma unroll
   for (int i = 0; i < N; ++i) {
-    x[i] = i < nx && own ? p.x0[i * p.x0_row_stride + (long long)k * p.x0_col_stride] : 0.0f;
+    x[i] = i < nx ? p.x0[i * p.x0_row_stride + (long long)k * p.x0_col_stride] : 0.0f;
     prev[i] = 0.0f;
   }
   float total = 0.0f, smooth = 0.0f;
@@ -1146,27 +1408,54 @@ __device__ __forceinline__ float sample_cost(const Params& p, const float* col, 
 #pragma unroll
     for (int j = 0; j < N; ++j) {
       float act = 0.0f;
-      if (j < nu && own) {
+      if (j < nu) {
         act = col[(t * nu + j) * ldt];
-        if (V == kSMPPI) {
-          // smoothness on the previous action row (mppi.py:558-562)
-          if (t > 0) {
-            float df = act - prev[j];
-            if (p.u_scale != 1.0f) df *= p.u_scale;
-            smooth += df * df;
-          }
-          prev[j] = act;
-        }
+        if (V == kSMPPI) SMPPI_SMOOTH_TERM(act, prev[j])
       }
       u[j] = act * p.u_scale;
     }
-    if constexpr (kBlockOf<Model>)
-      block_step<Model, N>(p.consts, x, u, nx, nu, t, slot, p.S, p.act_rows, p.act_ld, act);
-    else
-      Model::template step<N>(p.consts, x, u, nx, nu, t);
+    Model::template step<N>(p.consts, x, u, nx, nu, t);
     total += Model::template cost<N>(p.consts, x, u, nx, nu, t);
   }
   if (Model::kTerminal || p.terminal) total += final_cost<Model, N>(p, x, u, nx, nu);
+  return (V == kSMPPI ? pc + *p.w_seq * smooth : pc) + total;
+}
+
+// sample_cost for a block model (kBlockOf): every thread of the block calls
+// it, thread `slot` (0 <= slot < S; -1: none) owning sample k, its state,
+// action and previous action in its row of per-sample values beside the
+// activations at `act`.  A dead sample (k >= K) steps zeros; the result of a
+// thread without a live sample is not used.
+template <class Model, int N, int V>
+__device__ __forceinline__ float block_sample_cost(const Params& p, const float* col, int ldt,
+                                                   int k, float pc, int slot, float* act) {
+  const int nx = p.nx, nu = p.nu;
+  const bool own = slot >= 0 && k < p.K;
+  float* x = block_state(p, act, slot);
+  float* u = x + nx;
+  float* prev = u + nu;
+  if (slot >= 0) {
+    for (int i = 0; i < nx; ++i)
+      x[i] = own ? p.x0[i * p.x0_row_stride + (long long)k * p.x0_col_stride] : 0.0f;
+    for (int j = 0; j < nu; ++j) prev[j] = 0.0f;
+  }
+  float total = 0.0f, smooth = 0.0f;
+  for (int t = 0; t < p.T; ++t) {
+    if (slot >= 0) {
+      for (int j = 0; j < nu; ++j) {
+        float a = 0.0f;
+        if (own) {
+          a = col[(t * nu + j) * ldt];
+          if (V == kSMPPI) SMPPI_SMOOTH_TERM(a, prev[j])
+        }
+        u[j] = a * p.u_scale;
+      }
+    }
+    block_step<Model, N>(p.consts, x, u, nx, nu, t, slot, p.S, p.act_rows,
+                         act_stride(p.act_ld), act);
+    if (own) total += Model::template cost<N>(p.consts, x, u, nx, nu, t);
+  }
+  if (own && (Model::kTerminal || p.terminal)) total += final_cost<Model, N>(p, x, u, nx, nu);
   return (V == kSMPPI ? pc + *p.w_seq * smooth : pc) + total;
 }
 
@@ -1200,7 +1489,8 @@ __device__ __forceinline__ float sample_cost(const Params& p, const float* col, 
 // was added, and its D = 300 full-operator call took 1.13x as long
 // (tools/batched_host_ab.py on an H100; PERF.md has the times).
 template <class Model, int N, bool kGlobal, int V>
-__global__ void __launch_bounds__(BLOCK, 2) mppi_fused_partial(Params p) {
+__global__ void __launch_bounds__(BLOCK, kBlockOf<Model> ? BLOCK_MODEL_BLOCKS : 2)
+    mppi_fused_partial(Params p) {
   extern __shared__ float smem[];
   __shared__ int ticket;
   const int D = p.D, R = p.R, S = p.S, G = BLOCK / S, tid = threadIdx.x;
@@ -1212,12 +1502,18 @@ __global__ void __launch_bounds__(BLOCK, 2) mppi_fused_partial(Params p) {
   float* red = smem;  // 32 reduction slots
   float* ws = red + 32;  // S softmax weights
   float* part = ws + BLOCK;  // BLOCK partial sums: the action costs, then the update's
-  float* scale = part + BLOCK;  // MERGE_CHUNK_A
-  float* panel = smem + PARTIAL_HEAD;  // the products' operator panel, 16-byte aligned
-  float* vec = panel + panel_floats(V, p.full_op, R, S);  // (NVEC, D) row vectors
+  float* scale = part + BLOCK;  // MERGE_CHUNK_A (a block model's: its activations, below)
+  // the products' operator panel, 16-byte aligned (block_head); a block
+  // model's lies in its activations, which the layers take only after the
+  // products, so that its row vectors follow the head
+  float* panel = smem + block_head(kBlockOf<Model>);
+  float* vec = panel + (kBlockOf<Model> ? 0 : panel_floats(V, p.full_op, R, S));  // (NVEC, D)
   float* ta = kGlobal ? p.scratch + (size_t)blockIdx.x * partial_tiles(V, p.full_op) * D * S
                       : vec + (size_t)NVEC * D;
   float* tb = ta + (size_t)D * ldt;
+  if constexpr (kBlockOf<Model>)
+    panel = block_act(smem, (size_t)(vec - smem) + (size_t)NVEC * D +
+                                (kGlobal ? 0 : (size_t)partial_tiles(V, p.full_op) * D * ldt));
   const float *vU = vec + kU * D, *vA = vec + kA * D, *vOp = vec + kOp * D,
               *vMu = vec + kMu * D, *vLo = vec + kLo * D, *vHi = vec + kHi * D,
               *vBase = vec + kBase * D, *vAlo = vec + kAlo * D, *vAhi = vec + kAhi * D;
@@ -1379,10 +1675,11 @@ __global__ void __launch_bounds__(BLOCK, 2) mppi_fused_partial(Params p) {
       pcs = part[tid];
       for (int j = 1; j < G; ++j) pcs += part[j * S + tid];
     }
-    float* act = block_act(vec + (size_t)NVEC * D +
-                           (kGlobal ? 0 : (size_t)partial_tiles(V, p.full_op) * D * ldt));
-    const float c = sample_cost<Model, N, V>(p, vt + (tid < S ? tid : 0), ldt, k, pcs, p.nx,
-                                             p.nu, tid < S ? tid : -1, act);
+    float* act = block_act(smem, (size_t)(vec - smem) + (size_t)NVEC * D +
+                                     (kGlobal ? 0 : (size_t)partial_tiles(V, p.full_op) * D * ldt));
+    scale = act;  // the merge's block scales, once the layers are done
+    const float c = block_sample_cost<Model, N, V>(p, vt + (tid < S ? tid : 0), ldt, k, pcs,
+                                                   tid < S ? tid : -1, act);
     if (own) {
       p.cost[k] = c;
       logit = -c / *p.lam;
@@ -1444,7 +1741,9 @@ __global__ void __launch_bounds__(BLOCK, 2) mppi_fused_partial(Params p) {
   __syncthreads();
   if (ticket != p.nblocks - 1) return;
   __threadfence();
-  merge_partials(p.partial, p.nblocks, R, p.delta, p.ms, 0, 1, scale, MERGE_CHUNK_A, part, red);
+  int chunk = MERGE_CHUNK_A;  // a block model's activations may hold fewer
+  if constexpr (kBlockOf<Model>) chunk = min(chunk, 2 * p.act_rows * act_stride(p.act_ld));
+  merge_partials(p.partial, p.nblocks, R, p.delta, p.ms, 0, 1, scale, chunk, part, red);
   if (tid == 0) *p.counter = 0;  // ready for the next launch
 }
 
@@ -1502,18 +1801,25 @@ __device__ __forceinline__ void async_wait_group() {
 #endif
 }
 
+// Action d of a plant's sample: U + n clamped to [lo, hi] (c = U, lo, hi, a
+// of the plant's row d; n its noise), the action cost of its rectified
+// noise added to `pc` (mppi.py:383-385).  Shared by batched_cost and
+// block_batched_cost.
+__device__ __forceinline__ float clamped_action(const Params& p, float4 c, float n, float& pc) {
+  const float act = fminf(fmaxf(c.x + n, c.y), c.z);
+  const float r = act - c.x;
+  pc += (p.abs_cost ? fabsf(r) : r) * c.w;
+  return act;
+}
+
 // Plant `plant`'s cost of the sample in column `col` of the noise tile: the
 // clamp of U + n against lo and hi, the action cost of the rectified noise,
 // and the T-step rollout from the plant's x0.  Called with nx = nu = N as
 // constants, the device model's loops and constant offsets are fixed when it
-// is compiled, so its constants stay in registers across the steps.  A
-// block model's (kBlockOf) is called by every thread of the block, thread
-// `slot` owning the sample of its column, with the activations at `act` (a
-// column at or beyond K holds zero noise; its result is not used).
+// is compiled, so its constants stay in registers across the steps.
 template <class Model, int N, int LDT>
 __device__ __forceinline__ float batched_cost(const Params& p, const float4* cur, const float* col,
-                                              int plant, int nx, int nu, int slot = 0,
-                                              float* act = nullptr) {
+                                              int plant, int nx, int nu) {
   float x[N], u[N];
 #pragma unroll
   for (int i = 0; i < N; ++i)
@@ -1525,17 +1831,36 @@ __device__ __forceinline__ float batched_cost(const Params& p, const float4* cur
       float act = 0.0f;
       if (j < nu) {
         const int d = t * nu + j;
-        const float4 c = cur[d];  // U, lo, hi, a
-        act = fminf(fmaxf(c.x + col[d * LDT], c.y), c.z);
-        const float r = act - c.x;  // rectified noise (mppi.py:383-385)
-        pc += (p.abs_cost ? fabsf(r) : r) * c.w;
+        act = clamped_action(p, cur[d], col[d * LDT], pc);
       }
       u[j] = act * p.u_scale;
     }
-    if constexpr (kBlockOf<Model>)
-      block_step<Model, N>(p.consts, x, u, nx, nu, t, slot, BLOCK, p.act_rows, p.act_ld, act);
-    else
-      Model::template step<N>(p.consts, x, u, nx, nu, t);
+    Model::template step<N>(p.consts, x, u, nx, nu, t);
+    total += Model::template cost<N>(p.consts, x, u, nx, nu, t);
+  }
+  if (Model::kTerminal || p.terminal) total += final_cost<Model, N>(p, x, u, nx, nu);
+  return pc + total;
+}
+
+// batched_cost for a block model (kBlockOf): every thread of the block calls
+// it and owns the sample of its column (slot threadIdx.x), its state and
+// action in its row of per-sample values beside the activations at `act` (a
+// column at or beyond K holds zero noise; its result is not used).
+template <class Model, int N, int LDT>
+__device__ __forceinline__ float block_batched_cost(const Params& p, const float4* cur,
+                                                    const float* col, int plant, float* act) {
+  const int nx = p.nx, nu = p.nu, slot = threadIdx.x;
+  float* x = block_state(p, act, slot);
+  float* u = x + nx;
+  for (int i = 0; i < nx; ++i) x[i] = p.x0[i * p.x0_row_stride + plant * p.x0_col_stride];
+  float pc = 0.0f, total = 0.0f;
+  for (int t = 0; t < p.T; ++t) {
+    for (int j = 0; j < nu; ++j) {
+      const int d = t * nu + j;
+      u[j] = clamped_action(p, cur[d], col[d * LDT], pc) * p.u_scale;
+    }
+    block_step<Model, N>(p.consts, x, u, nx, nu, t, slot, BLOCK, p.act_rows,
+                         act_stride(p.act_ld), act);
     total += Model::template cost<N>(p.consts, x, u, nx, nu, t);
   }
   if (Model::kTerminal || p.terminal) total += final_cost<Model, N>(p, x, u, nx, nu);
@@ -1650,10 +1975,9 @@ __global__ void __launch_bounds__(BLOCK) batched_partial(Params p) {
     if constexpr (kBlockOf<Model>) {
       // a block model: every thread steps its column, the layers together;
       // the activations follow the tiles
-      float* act = block_act(smem + batched_head(R) +
-                             (kGlobal ? 0 : (size_t)(p.full_op ? 2 : 1) * R * LDT));
-      const float c =
-          batched_cost<Model, N, LDT>(p, cur, nt + tid, plant, p.nx, p.nu, tid, act);
+      float* act = block_act(smem, batched_head(R) +
+                                       (kGlobal ? 0 : (size_t)(p.full_op ? 2 : 1) * R * LDT));
+      const float c = block_batched_cost<Model, N, LDT>(p, cur, nt + tid, plant, act);
       if (live) {
         p.cost[(size_t)plant * p.K + k] = c;
         logit = -c / lam;
@@ -1720,35 +2044,45 @@ constexpr int ROLLOUT_SMEM = 48 * 1024;
 // t0 of the rollout: the actions of step t are columns t * nu .. t * nu +
 // nu - 1 of the row, read as the float4 that holds each (one load a float4
 // where nu is a multiple of 4, or where the compiler merges the steps of one
-// float4).  The running cost is taken after each step.  A block model's
-// (kBlockOf) is called by every thread of the block, thread `slot` owning
-// the sample of its row where `own` (a thread without one steps zeros, and
-// reads no row), with the activations at `act`.
+// float4).  The running cost is taken after each step.
 template <class Model, int N>
 __device__ __forceinline__ float rollout_steps(const Params& p, const float* row, int steps,
                                                int t0, float* x, float* u, float total, int nx,
-                                               int nu, int slot = 0, float* act = nullptr,
-                                               bool own = true) {
+                                               int nu) {
   const float4* row4 = reinterpret_cast<const float4*>(row);
   for (int t = 0; t < steps; ++t) {
 #pragma unroll
     for (int j = 0; j < N; ++j) {
       if (j < nu) {
         const int e = t * nu + j, w = e & 3;
-        if (kBlockOf<Model> && !own) {
-          u[j] = 0.0f;
-          continue;
-        }
         const float4 q = row4[e >> 2];
         u[j] = w == 0 ? q.x : w == 1 ? q.y : w == 2 ? q.z : q.w;
       }
     }
-    if constexpr (kBlockOf<Model>)
-      block_step<Model, N>(p.consts, x, u, nx, nu, t0 + t, slot, p.S, p.act_rows, p.act_ld,
-                           act);
-    else
-      Model::template step<N>(p.consts, x, u, nx, nu, t0 + t);
+    Model::template step<N>(p.consts, x, u, nx, nu, t0 + t);
     total += Model::template cost<N>(p.consts, x, u, nx, nu, t0 + t);
+  }
+  return total;
+}
+
+// rollout_steps for a block model (kBlockOf): every thread of the block
+// calls it, thread `slot` (0 <= slot < S; -1: none) owning the sample of its
+// row where `own` (a thread without one steps zeros and reads no row), its
+// state and action in its row of per-sample values beside the activations at
+// `act`.
+template <class Model, int N>
+__device__ __forceinline__ float block_rollout_steps(const Params& p, const float* row,
+                                                     int steps, int t0, float total, int slot,
+                                                     float* act, bool own) {
+  const int nx = p.nx, nu = p.nu;
+  float* x = block_state(p, act, slot);
+  float* u = x + nx;
+  for (int t = 0; t < steps; ++t) {
+    if (slot >= 0)
+      for (int j = 0; j < nu; ++j) u[j] = own ? row[t * nu + j] : 0.0f;
+    block_step<Model, N>(p.consts, x, u, nx, nu, t0 + t, slot, p.S, p.act_rows,
+                         act_stride(p.act_ld), act);
+    if (own) total += Model::template cost<N>(p.consts, x, u, nx, nu, t0 + t);
   }
   return total;
 }
@@ -1806,6 +2140,15 @@ __global__ void __launch_bounds__(BLOCK) fused_rollout(Params p) {
   // the N = 2 arrays also hold a rollout with nx = nu = 2 as constants
   bool exact = false;
   if constexpr (N == 2) exact = nx == 2 && nu == 2;
+  if constexpr (kBlockOf<Model>) {
+    // a block model: thread t < S owns row t, its state in its row of
+    // per-sample values; the activations follow the staged buffers
+    if (tid < S) {
+      float* xs = block_state(p, block_act(smem, (size_t)(nch > 1 ? 2 : 1) * S * ldr), tid);
+      for (int i = 0; i < nx; ++i)
+        xs[i] = live ? p.x0[i * p.x0_row_stride + (long long)k * p.x0_col_stride] : 0.0f;
+    }
+  }
   float total = 0.0f;
   for (int c = 0; c < nch; ++c) {
     if (c + 1 < nch)
@@ -1814,14 +2157,12 @@ __global__ void __launch_bounds__(BLOCK) fused_rollout(Params p) {
       async_wait_group<0>();
     __syncthreads();  // chunk c has landed, whichever thread copied it
     if constexpr (kBlockOf<Model>) {
-      // a block model: every thread enters the steps and computes the
-      // layers; thread t < S owns row t, and the activations follow the
-      // staged buffers
+      // every thread enters the steps and computes the layers
       const float* row = smem + (size_t)(c & 1) * S * ldr + (size_t)(live ? tid : 0) * ldr;
       const int steps = p.T - c * Ts < Ts ? p.T - c * Ts : Ts;
-      float* act = block_act(smem + (size_t)(nch > 1 ? 2 : 1) * S * ldr);
-      total = rollout_steps<Model, N>(p, row, steps, c * Ts, x, u, total, nx, nu,
-                                      tid < S ? tid : -1, act, live);
+      float* act = block_act(smem, (size_t)(nch > 1 ? 2 : 1) * S * ldr);
+      total = block_rollout_steps<Model, N>(p, row, steps, c * Ts, total, tid < S ? tid : -1,
+                                            act, live);
     } else if (live) {
       const float* row = smem + (size_t)(c & 1) * S * ldr + (size_t)tid * ldr;
       const int steps = p.T - c * Ts < Ts ? p.T - c * Ts : Ts;
@@ -2648,11 +2989,12 @@ bool is_block(int model_id) { return model_id == RESIDUAL_MLP_BLOCK; }
 #endif
 
 // Whether a block model's activations are laid out as its kernels read them:
-// groups of a multiple of DENSE_ROWS samples that divide the block's
-// `slots`, rows of a multiple of four floats; none for another model.
+// groups of DENSE_ROWS samples or of a multiple of 16 (whole m16 tiles)
+// that divide the block's `slots`, rows of a multiple of four floats; none
+// for another model.
 bool valid_activations(int model_id, int slots, int rows, int ld) {
   if (!is_block(model_id)) return rows == 0 && ld == 0;
-  return rows >= DENSE_ROWS && rows % DENSE_ROWS == 0 && slots % rows == 0 && ld >= 4 &&
+  return (rows == DENSE_ROWS || (rows > 0 && rows % 16 == 0)) && slots % rows == 0 && ld >= 4 &&
          ld % 4 == 0;
 }
 
@@ -2672,18 +3014,26 @@ cudaError_t launch_solve(const Params& p, int variant, int model_id, size_t smem
 // Dynamic shared memory of kernel A with S samples a block, or of
 // batched_partial for kBatched, with the tiles in shared memory or
 // (`global`) in a global scratch; a block model's activations (two halves of
-// act_rows rows of act_ld floats) follow, 16-byte aligned (block_act).
+// act_rows rows of act_stride(act_ld) floats) and its rows of per-sample
+// values (block_floats) follow, 16-byte aligned (block_act), at least as
+// many floats as kernel A's operator panel, which they hold before the
+// layers run.
 size_t kernel_smem(int variant, int D, int R, int full_op, int S, bool global, int act_rows = 0,
-                   int act_ld = 0) {
+                   int act_ld = 0, int nx = 0, int nu = 0) {
   size_t floats;
+  size_t panel = 0;  // kernel A's operator panel; a block model's in its activations
   if (variant == kBatched) {
     const size_t tiles = global ? 0 : (full_op ? 2 : 1) * (size_t)R * BATCHED_LDT;
     floats = batched_head(R) + tiles;
   } else {
     const size_t tiles = global ? 0 : partial_tiles(variant, full_op) * (size_t)D * (S + 1);
-    floats = PARTIAL_HEAD + panel_floats(variant, full_op, R, S) + (size_t)NVEC * D + tiles;
+    panel = panel_floats(variant, full_op, R, S);
+    floats = block_head(act_rows > 0) + (act_rows ? 0 : panel) + (size_t)NVEC * D + tiles;
   }
-  if (act_rows) floats = (floats + 3) / 4 * 4 + 2 * (size_t)act_rows * act_ld;
+  if (act_rows) {
+    const size_t block = block_floats(variant == kBatched ? BLOCK : S, act_rows, act_ld, nx, nu);
+    floats = (floats + 3) / 4 * 4 + (block > panel ? block : panel);
+  }
   return floats * sizeof(float);
 }
 
@@ -2815,7 +3165,7 @@ int fused_mppi_launch(int device, void* stream, int variant, int model_id, const
   p.act_rows = act_rows;
   p.act_ld = act_ld;
   const size_t smem =
-      kernel_smem(variant, p.D, R, full_op, p.S, scratch != nullptr, act_rows, act_ld);
+      kernel_smem(variant, p.D, R, full_op, p.S, scratch != nullptr, act_rows, act_ld, nx, nu);
   if (!valid_activations(model_id, p.S, act_rows, act_ld)) return (int)cudaErrorInvalidValue;
   if (variant < kMPPI || variant > kBatched || num_plants < 1 ||
       (variant == kBatched ? plant_group < 1 : num_plants != 1 || !valid_tile(tile_k) || !counter))
@@ -3011,7 +3361,8 @@ int fused_mppi_rollout_geometry(int T, int nu, int S, long long* geo) {
 // make_fused_rollout's kernel on `stream`, `tile_k` samples a block: cost
 // (K,) of the (K, T*nu) scaled actions u (row-major) from x0 (nx, K) with
 // the given strides; a block model's activations in groups of act_rows
-// samples, rows of act_ld floats, after the staged rows.
+// samples (rows of act_stride(act_ld) floats) and its rows of per-sample
+// values after the staged rows.
 int fused_mppi_rollout(int device, void* stream, int model_id, const float* consts, int K, int T,
                        int nx, int nu, const float* x0, long long x0_row_stride,
                        long long x0_col_stride, const float* u, float* cost, int tile_k,
@@ -3043,7 +3394,8 @@ int fused_mppi_rollout(int device, void* stream, int model_id, const float* cons
   p.act_ld = act_ld;
   const Launcher launch = find_launcher(kRollout, model_id, nx, nu);
   if (!launch) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)geo[3] + 2 * (size_t)act_rows * act_ld * sizeof(float);
+  const size_t block = act_rows ? block_floats(tile_k, act_rows, act_ld, nx, nu) : 0;
+  const size_t smem = (size_t)geo[3] + block * sizeof(float);
   return (int)launch(p, kRollout, smem, (cudaStream_t)stream);
 }
 

@@ -359,20 +359,115 @@ class Program:
             e = table[op].format(*v)
         return e
 
+    def unit_wise(self, outputs) -> list:
+        """Each live dense layer's unit-wise epilogue, in order, or None: the
+        scalar nodes that read one unit j of the layer's output and
+        constants only (a bias, a scale, a SiLU), the same expression for
+        every unit, with constants at offsets affine in j.  An epilogue is a
+        dict: ``nodes``, each unit-wise node -> its unit (the layer's
+        outputs among them); ``results``, unit j -> the one node of unit j
+        that anything else reads (the epilogue leaves its value in unit j's
+        activation);
+        ``stride``, a constant node of unit 0 -> its offset's step a unit.
+        None where a unit has no such node or two, where the units'
+        expressions differ, or where the result is the output itself."""
+        live = self.live(outputs)
+        dense = [n for n in live if self.nodes[n][0] == "dense"]
+        users = {}
+        for n in live:
+            op = self.nodes[n][0]
+            if op in _LEAVES:
+                continue
+            args = (self.nodes[n][5:] if op == "dense" else (self.nodes[n][2],) if op == "dout"
+                    else self.nodes[n][2:])
+            for arg in args:
+                users.setdefault(arg, []).append(n)
+        out_set = set(outputs)
+        epilogues = []
+        for d in dense:
+            n_out = self.nodes[d][4]
+            unit = {n: self.nodes[n][3] for n in live
+                    if self.nodes[n][0] == "dout" and self.nodes[n][2] == d}
+            for n in live:
+                op = self.nodes[n][0]
+                if op in _LEAVES or op in ("dense", "dout"):
+                    continue
+                js = {unit.get(a) for a in self.nodes[n][2:]
+                      if self.nodes[a][0] not in ("const", "lit")}
+                if len(js) == 1 and None not in js:
+                    unit[n] = js.pop()
+            results = {}
+            for n, j in unit.items():
+                if n in out_set or any(u not in unit for u in users.get(n, ())):
+                    results.setdefault(j, []).append(n)
+            if (sorted(results) != list(range(n_out)) or any(len(r) != 1 for r in results.values())
+                    or any(self.kind(r[0]) != F for r in results.values())):
+                epilogues.append(None)
+                continue
+            results = {j: r[0] for j, r in results.items()}
+
+            def sig(n, idx):
+                node = self.nodes[n]
+                if node[0] == "dout":
+                    return ("v",)
+                if node[0] == "const":
+                    idx.append((n, node[2]))
+                    return ("c",)
+                if node[0] == "lit":
+                    return node
+                return (node[0], node[1], *(sig(a, idx) for a in node[2:]))
+
+            idx0 = []
+            shape = sig(results[0], idx0)
+            stride, ok = {}, shape != ("v",)
+            for j in range(1, n_out) if ok else ():
+                idx = []
+                if sig(results[j], idx) != shape:
+                    ok = False
+                    break
+                for (n0, i0), (_, ij) in zip(idx0, idx):
+                    step = stride.setdefault(n0, ij - i0)
+                    if ij != i0 + step * j:
+                        ok = False
+                if not ok:
+                    break
+            epilogues.append(dict(nodes=unit, results=results, stride=stride) if ok else None)
+        return epilogues
+
     def emit_block(self, outputs) -> list:
         """The members of a block model's struct ``Generated`` (the
         interface of ``csrc/fused_mppi.cu``'s block models) for the step
         whose next-state nodes are ``outputs``: the live dense nodes run in
-        order, layer l after segment l; segment 0 (``begin``) and segment l
-        + 1 (``after``'s case l) hold the scalar nodes whose latest input is
-        layer l's output (segment 0: none), each segment ends by writing the
-        next layer's inputs into the sample's activation row, and the last
-        one by writing x.  A node that a later segment reads stays in the
-        owner's registers in ``Carry``; a leaf is read where it is used."""
+        order, layer l after segment l, each with its unit-wise epilogue
+        (:meth:`unit_wise`; a functor ``Unit<i>`` for each distinct one) on
+        all the block's threads; segment 0 (``begin``) and segment l + 1 (``after``'s case
+        l) hold the per-sample rest, the scalar nodes whose latest input is
+        layer l's output (segment 0: none), run by each sample's owner; each
+        segment ends by writing the next layer's inputs into the sample's
+        activation row, unless they are the previous layer's results in
+        order (the next layer then reads them where the epilogue left them),
+        and the last one by writing x.  Layer l reads half h_l of the
+        activations and writes the other.  A node that a later segment reads
+        stays in the owner's registers in ``Carry``; a leaf is read where it
+        is used."""
         live = self.live(outputs)
         dense = [n for n in live if self.nodes[n][0] == "dense"]
         phase = {d: i for i, d in enumerate(dense)}
         last = len(dense)
+        epi = self.unit_wise(outputs)
+        hidden = set().union(*(set(e["nodes"]) - set(e["results"].values()) for e in epi if e))
+        result_at = {r: j for e in epi if e for j, r in e["results"].items()}
+        # a layer reads its inputs where the previous layer left them: direct
+        direct = [False]
+        for l in range(1, last):
+            ins, prev = list(self.nodes[dense[l]][5:]), dense[l - 1]
+            res = (epi[l - 1]["results"] if epi[l - 1] else
+                   {self.nodes[n][3]: n for n in live
+                    if self.nodes[n][0] == "dout" and self.nodes[n][2] == prev})
+            direct.append(ins == [res.get(j) for j in range(self.nodes[prev][4])])
+        half = [0]
+        for l in range(1, last):
+            half.append(1 - half[-1] if direct[l] else half[-1])
         seg = {}
         for n in live:
             op = self.nodes[n][0]
@@ -383,20 +478,29 @@ class Program:
         uses = {}  # node -> the segments that read it
         for n in live:
             op = self.nodes[n][0]
-            if op in _LEAVES:
+            if op in _LEAVES or n in hidden:
                 continue
-            args, at = ((self.nodes[n][5:], phase[n]) if op == "dense"
-                        else ((), 0) if op == "dout" else (self.nodes[n][2:], seg[n]))
+            if op == "dense":
+                args, at = ((), 0) if direct[phase[n]] else (self.nodes[n][5:], phase[n])
+            elif op == "dout" or n in result_at:
+                args, at = (), 0
+            else:
+                args, at = self.nodes[n][2:], seg[n]
             for a in args:
                 uses.setdefault(a, set()).add(at)
         for o in outputs:
             uses.setdefault(o, set()).add(last)
         carried = [n for n in live if n in seg and max(uses.get(n, {0})) > seg[n]]
+        # an activation read (a layer's output or result) only where something reads it
+        loads = {n for n in live if self.nodes[n][0] == "dout"} | set(result_at)
 
         def segment(s: int) -> list:
-            mine = [n for n in live if seg.get(n) == s]
-            ins = list(self.nodes[dense[s]][5:]) if s < last else list(outputs)
-            leaves = sorted({a for n in mine if self.nodes[n][0] != "dout"
+            mine = [n for n in live if seg.get(n) == s and n not in hidden
+                    and (n in uses or n not in loads)]
+            writes = s < last and not direct[s]
+            ins = (list(self.nodes[dense[s]][5:]) if writes else [] if s < last
+                   else list(outputs))
+            leaves = sorted({a for n in mine if self.nodes[n][0] != "dout" and n not in result_at
                              for a in self.nodes[n][2:] if self.nodes[a][0] in _LEAVES}
                             | {a for a in ins if self.nodes[a][0] in _LEAVES})
 
@@ -407,39 +511,83 @@ class Program:
                     for a in leaves]
             for n in mine:
                 node = self.nodes[n]
-                e = f"out[{node[3]}]" if node[0] == "dout" else self._expr(n, name)
+                e = (f"out[{node[3]}]" if node[0] == "dout" else
+                     f"out[{result_at[n]}]" if n in result_at else self._expr(n, name))
                 body.append(f"    const {_C_TYPE[self.kind(n)]} v{n} = {e};")
                 if n in carried:
                     body.append(f"    k.v{n} = v{n};")
             if s < last:
-                body += [f"    row[{i}] = {name(a)};" for i, a in enumerate(ins)]
+                body += [f"    row[{half[s]} * half + {i}] = {name(a)};" for i, a in enumerate(ins)]
             else:
                 body += [f"    x[{i}] = {name(a)};" for i, a in enumerate(ins)]
             return body
 
+        def unit(l: int) -> list:
+            """Layer l's epilogue as statements of unit j's output ``v``, its
+            nodes renamed in order (so that layers with the same expression
+            give the same text)."""
+            e = epi[l]
+            d0 = next(n for n, j in e["nodes"].items() if j == 0 and self.nodes[n][0] == "dout")
+            mine = [n for n in live if e["nodes"].get(n) == 0 and n != d0]
+            local = {n: f"w{i}" for i, n in enumerate(mine)}
+
+            def name(a):
+                node = self.nodes[a]
+                if a == d0:
+                    return "v"
+                if node[0] == "const":
+                    return f"c[{node[2]} + {e['stride'][a]} * j]"
+                return self._expr(a, None) if node[0] == "lit" else local[a]
+
+            body = [f"      const {_C_TYPE[self.kind(n)]} {local[n]} = {self._expr(n, name)};"
+                    for n in mine]
+            return body + [f"      return {local[e['results'][0]]};"]
+
+        # one functor a distinct epilogue, so that block_dense is inlined
+        # once for each and its elements branch on nothing
+        units, functor = [], []
+        for l in range(last):
+            body = unit(l) if epi[l] else None
+            if body is not None and body not in units:
+                units.append(body)
+            functor.append(units.index(body) if body is not None else -1)
         members = [f"    {_C_TYPE[self.kind(n)]} v{n};" for n in carried]
         lines = ["  static constexpr bool kBlock = true;",
                  "  struct Carry {", *members, "  };",
-                 f"  __device__ static int layers(const float*) {{ return {last}; }}",
-                 "  __device__ static void dense(int l, const float* c, float* act, int ld, "
-                 "int rows, int) {",
-                 "    switch (l) {"]
+                 f"  __device__ static int layers(const float*) {{ return {last}; }}"]
+        for i, body in enumerate(units):
+            lines += [f"  // a layer's unit-wise epilogue on unit j's output v (block_dense)",
+                      f"  struct Unit{i} {{",
+                      "    const float* c;",
+                      "    __device__ float operator()(int j, float v) const {", *body, "    }",
+                      "  };"]
+        lines += ["  __device__ static void dense(int l, const float* c, float* act, int ld, "
+                  "int rows, int) {",
+                  "    int w = 0, b = -1, n_in = 0, n_out = 0, h = 0, f = -1;",
+                  "    switch (l) {"]
         for i, (_, w, b, n_in, n_out) in enumerate(self.dense_layers(outputs)):
-            lines.append(f"      case {i}: block_dense(c + {w}, {f'c + {b}' if b >= 0 else 'nullptr'}"
-                         f", {n_in}, {n_out}, {n_out}, act, act + rows * ld, ld, rows, false); "
-                         "break;")
-        lines += ["    }", "  }",
+            lines.append(f"      case {i}: w = {w}; b = {b}; n_in = {n_in}; n_out = {n_out}; "
+                         f"h = {half[i]}; f = {functor[i]}; break;")
+        call = ("block_dense(c + w, b >= 0 ? c + b : nullptr, n_in, n_out, n_out, act + h * half, "
+                "act + (1 - h) * half, ld, rows, ")
+        lines += ["    }", "    const int half = rows * ld;"]
+        for i in range(len(units)):
+            lines.append(f"    {'if' if i == 0 else 'else if'} (f == {i}) {call}Unit{i}{{c}});")
+        lines.append(f"    {'else ' if units else ''}{call}DenseLinear{{}});")
+        lines += ["  }",
                   "  template <int N>",
                   "  __device__ static void begin(const float* c, const float* x, const float* u, "
-                  "int, int, int t, Carry& k, float* row, int) {", *segment(0), "  }",
+                  "int, int, int t, Carry& k, float* row, int half) {", *segment(0), "  }",
                   "  template <int N>",
                   "  __device__ static void after(int l, const float* c, float* x, const float* u, "
                   "int, int, int t, Carry& k, float* row, int half) {",
-                  "    const float* out = row + half;",
                   "    switch (l) {"]
         for s in range(1, last + 1):
-            lines += [f"      case {s - 1}: {{", *[f"    {b}" for b in segment(s)],
-                      "        break;", "      }"]
+            body = segment(s)
+            if any("out[" in line for line in body):
+                body.insert(0, f"    const float* out = row + {1 - half[s - 1]} * half;")
+            lines += [f"      case {s - 1}: {{", *[f"    {b}" for b in body], "        break;",
+                      "      }"]
         lines += ["    }", "  }"]
         return lines
 

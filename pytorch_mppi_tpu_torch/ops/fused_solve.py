@@ -112,10 +112,20 @@ launches = dict.fromkeys(KERNELS + GENERATED_KERNELS + BLOCK_KERNELS + GENERATED
                          0)
 
 MAX_SMEM_BYTES = 232_448  # shared memory one block may use on Hopper
+SM_SMEM_BYTES = 233_472  # shared memory of an SM on Hopper (228 KB)
+BLOCK_SMEM_RESERVED = 1024  # shared memory the runtime keeps for each block
+# a block model's kernels take at least this many blocks an SM where shared
+# memory allows (activation_rows): with two, one block's layers run while
+# the other waits at a barrier; kernel A takes three (its registers are held
+# to three blocks' worth, BLOCK_MODEL_BLOCKS in fused_mppi.cu), so that its
+# 313 blocks of K = 10,000 run in one wave on 132 SMs
+OCCUPANCY_TARGET = 2
+KERNEL_A_BLOCK_BLOCKS = 3
 _BLOCK = 128  # threads of a block, and samples of a block of batched_partial (BLOCK)
 _MAXN = 32  # largest nx or nu of a device model (MAXN in fused_mppi.cu)
 TILES = (32, 64, 128)  # the samples a block of kernel A may take
-_HEAD = 32 + 2 * _BLOCK + 512  # floats of kernel A's shared memory before its panel
+_MERGE_CHUNK_A = 512  # block scales kernel A's merge holds at a time
+_HEAD = 32 + 2 * _BLOCK + _MERGE_CHUNK_A  # floats of kernel A's shared memory before its panel
 _NVEC = 9  # the row vectors of D floats kernel A stages in shared memory
 _ROW_TILE = 8  # rows of a thread's register tile in kernel A's products
 _PANEL_COLS = 160  # columns of a panel of the operator of kernel A's products
@@ -198,9 +208,16 @@ def smem_bytes(variant: int, D: int, R: int, full_op: bool, S: int = _BLOCK) -> 
     with a full op."""
     if variant == BATCHED:
         return (2 * _BLOCK + 32 + 8 * R + (2 if full_op else 1) * R * (_BLOCK + 4)) * 4
-    panel = (-(-(_BLOCK // S * _ROW_TILE * min(R, _PANEL_COLS)) // 4) * 4
-             if full_op or variant == KMPPI else 0)
-    return (_HEAD + panel + _NVEC * D + partial_tiles(variant, full_op) * D * (S + 1)) * 4
+    return (_HEAD + panel_floats(variant, full_op, R, S) + _NVEC * D
+            + partial_tiles(variant, full_op) * D * (S + 1)) * 4
+
+
+def panel_floats(variant: int, full_op: bool, R: int, S: int) -> int:
+    """Kernel A's operator panel (``panel_floats`` in fused_mppi.cu): (BLOCK
+    / S) · 8 rows of min(R, 160) floats, rounded up to four, where it
+    computes a product (a full operator, KMPPI's interpolation); else 0."""
+    return (-(-(_BLOCK // S * _ROW_TILE * min(R, _PANEL_COLS)) // 4) * 4
+            if full_op or variant == KMPPI else 0)
 
 
 def base_smem_bytes(variant: int, D: int, R: int, full_op: bool, S: int, shared: bool) -> int:
@@ -213,26 +230,64 @@ def base_smem_bytes(variant: int, D: int, R: int, full_op: bool, S: int, shared:
     return smem_bytes(variant, D, R, full_op, S) - 4 * tiles
 
 
-def activation_bytes(base: int, rows: int, ld: int) -> int:
+def act_stride(ld: int) -> int:
+    """Floats between two activation rows of a block model in shared memory
+    (``act_stride`` in fused_mppi.cu): ``ld`` rounded up to eight (an mma's
+    depth), then to 8 mod 32, so that a warp's 8-byte A-fragment loads and
+    epilogue stores are free of bank conflicts."""
+    r = -(-ld // 8) * 8
+    return r + (40 - r % 32) % 32
+
+
+def state_ld(nx: int, nu: int) -> int:
+    """Floats of a block model's row of per-sample values (state, action,
+    SMPPI's previous action), an odd count (``state_ld`` in fused_mppi.cu)."""
+    return (nx + 2 * nu) | 1
+
+
+def activation_bytes(base: int, rows: int, ld: int, slots: int = 0, nx: int = 0,
+                     nu: int = 0, least: int = 0) -> int:
     """A block model's kernel's dynamic shared memory: ``base`` bytes of the
     kernel's own, rounded up to 16, then two halves of ``rows`` activation
-    rows of ``ld`` floats (``kernel_smem`` in fused_mppi.cu)."""
-    return -(-base // 16) * 16 + 2 * rows * ld * 4
+    rows of :func:`act_stride` floats and ``slots`` rows of per-sample values,
+    at least ``least`` floats (kernel A's operator panel, which they hold
+    before the layers run; ``kernel_smem`` in fused_mppi.cu)."""
+    block = 2 * rows * act_stride(ld) + slots * state_ld(nx, nu)
+    return -(-base // 16) * 16 + 4 * max(block, least)
 
 
-def activation_rows(slots: int, ld: int, bases) -> tuple:
-    """``(rows, index)``: the largest group of a block model's samples whose
-    activations fit beside the kernel's own shared memory, of the ``slots``
-    samples of a block halved down to ``kernel_models.DENSE_ROWS``, and the
-    index of the first of the ``bases`` (bytes of the kernel's own, in the
-    order preferred) with which it fits; ``(0, None)`` where none does."""
+def blocks_per_sm(smem: int) -> int:
+    """The blocks of ``smem`` bytes of dynamic shared memory an H100's SM
+    holds: its 228 KB, less 1 KB the runtime keeps for each block."""
+    return SM_SMEM_BYTES // (smem + BLOCK_SMEM_RESERVED)
+
+
+def activation_rows(slots: int, ld: int, bases, nx: int = 0, nu: int = 0,
+                    target: int = None, least: int = 0) -> tuple:
+    """``(rows, index)``: a block model's group of samples, of the ``slots``
+    samples of a block halved down to ``kernel_models.DENSE_TILE`` (one m16
+    tile), and the index of the one of the ``bases`` (bytes of the kernel's
+    own: its tiles in shared memory, or in a global scratch) it runs
+    beside, chosen by occupancy: the most blocks an SM up to ``target``
+    (``OCCUPANCY_TARGET`` by default; :func:`blocks_per_sm`), then the
+    larger group (fewer barriers, and each weight read for more samples),
+    then the earlier base (each with at least ``least`` floats after it:
+    :func:`activation_bytes`); a group of ``kernel_models.DENSE_ROWS`` (half
+    a tile, whose other half the tensor cores compute from zeros) only
+    where no whole tile fits, for the widest layers; ``(0, None)`` where
+    none fits in a block's shared memory."""
+    target = target or OCCUPANCY_TARGET
+    best, pick = None, (0, None)
     rows = slots
-    while rows >= KM.DENSE_ROWS:
+    while rows >= KM.DENSE_TILE or (rows >= KM.DENSE_ROWS and not pick[0]):
         for i, base in enumerate(bases):
-            if activation_bytes(base, rows, ld) <= MAX_SMEM_BYTES:
-                return rows, i
+            smem = activation_bytes(base, rows, ld, slots, nx, nu, least)
+            if smem <= MAX_SMEM_BYTES:
+                key = (min(blocks_per_sm(smem), target), rows, -i)
+                if best is None or key > best:
+                    best, pick = key, (rows, i)
         rows //= 2
-    return 0, None
+    return pick
 
 
 def partial_tiles(variant: int, full_op: bool) -> int:
@@ -741,15 +796,18 @@ def check_kernel_model(config: MPPIConfig, model: KernelModel):
             f"step_dependent_dynamics with the named kernel model {model.name!r}, which takes "
             f"no timestep (only a traced model does: ops/batch_last.py)")
     ld = KM.activation_ld(model)
-    if ld and activation_bytes(0, KM.DENSE_ROWS, ld) > MAX_SMEM_BYTES - 4 * _HEAD:
+    if ld and (activation_bytes(0, KM.DENSE_ROWS, ld, _BLOCK, nx, nu)
+               > MAX_SMEM_BYTES - 4 * _HEAD):
         what = ("the residual MLP's block kernels" if model.model_id == KM.RESIDUAL_MLP_BLOCK
                 else "a block model's kernels")
+        room = MAX_SMEM_BYTES - 4 * (_HEAD + _BLOCK * state_ld(nx, nu))
         raise FusedSolveUnavailable(
             f"{what} keep two activation rows of the widest layer for each of at least "
-            f"{KM.DENSE_ROWS} samples in shared memory beside their own, of the "
-            f"{MAX_SMEM_BYTES} bytes a block may use: widths up to about "
-            f"{(MAX_SMEM_BYTES - 4 * _HEAD) // (8 * KM.DENSE_ROWS)}; the widest layer here "
-            f"needs {ld} floats a row ({activation_bytes(0, KM.DENSE_ROWS, ld)} bytes)")
+            f"{KM.DENSE_ROWS} samples, and a row of state and action for each of "
+            f"{_BLOCK}, in shared memory beside their own, of the {MAX_SMEM_BYTES} bytes a "
+            f"block may use: widths up to about {room // (8 * KM.DENSE_ROWS) - 32} here; the "
+            f"widest layer here needs {ld} floats a row "
+            f"({activation_bytes(0, KM.DENSE_ROWS, ld)} bytes)")
     if model.model_id == KM.RESIDUAL_MLP:
         head = KM.mlp_header(model.consts)
         if (max(nx, nu) > KM.MLP_MAX_N or head["layers"] > KM.MLP_MAX_LAYERS
@@ -838,15 +896,15 @@ def launch_geometry(spec: LaunchSpec) -> dict:
     memory, or a global scratch of one (rows, S) slice per launched block and
     tile), the blocks, the padded K (a shard's own K where the launch is one
     shard of the samples), the columns of injected bits (of the global K
-    for a shard), and a block model's group of samples ``act_rows``: the
-    largest (of the block's samples, halved) whose activations fit beside
-    the tiles in shared memory, else beside the tiles in the global scratch
-    (:func:`activation_rows`); FusedSolveUnavailable where none fits."""
+    for a shard), and a block model's group of samples ``act_rows`` and the
+    tiles' place, chosen together by occupancy (:func:`activation_rows`),
+    with the dynamic shared memory they take, ``block_smem`` (0 for a
+    per-sample model); FusedSolveUnavailable where none fits."""
     batched = spec.variant == BATCHED
     D = spec.T * spec.nu
     nblocks = -(-spec.K // spec.S)
     blocks = nblocks * -(-spec.plants // spec.group)
-    act_rows = 0
+    act_rows = block_smem = 0
     if spec.rowmajor:  # the raw normals keep a tile of their own: two (D, S) tiles
         shared = smem_bytes(MPPI, D, D, True, spec.S) <= MAX_SMEM_BYTES
         scratch = 0 if shared else nblocks * 2 * D * spec.S
@@ -854,15 +912,24 @@ def launch_geometry(spec: LaunchSpec) -> dict:
         full_op = bool(spec.full_op)
         shared = smem_bytes(spec.variant, D, spec.R, full_op, spec.S) <= MAX_SMEM_BYTES
         if spec.act_ld:
-            bases = [base_smem_bytes(spec.variant, D, spec.R, full_op, spec.S, place)
+            # kernel A's merge takes its block scales, and its products
+            # their operator panel, in a block model's activations
+            # (fused_mppi.cu's block_head, kernel_smem)
+            panel = 0 if batched else panel_floats(spec.variant, full_op, spec.R, spec.S)
+            head = 0 if batched else 4 * (_MERGE_CHUNK_A + panel)
+            bases = [base_smem_bytes(spec.variant, D, spec.R, full_op, spec.S, place) - head
                      for place in (True, False)]
-            act_rows, place = activation_rows(spec.S, spec.act_ld, bases)
+            act_rows, place = activation_rows(
+                spec.S, spec.act_ld, bases, spec.nx, spec.nu,
+                OCCUPANCY_TARGET if batched else KERNEL_A_BLOCK_BLOCKS, panel)
             if not act_rows:
                 raise FusedSolveUnavailable(
                     f"a block model's activations ({KM.DENSE_ROWS} samples of two rows of "
                     f"{spec.act_ld} floats) do not fit in shared memory beside the kernel's own "
                     f"{bases[1]} bytes, of the {MAX_SMEM_BYTES} a block may use")
             shared = place == 0
+            block_smem = activation_bytes(bases[place], act_rows, spec.act_ld, spec.S, spec.nx,
+                                          spec.nu, panel)
         tiles = (2 if full_op else 1) * spec.R * _BLOCK if batched else \
             partial_tiles(spec.variant, full_op) * D * spec.S
         scratch = 0 if shared else blocks * tiles
@@ -874,7 +941,8 @@ def launch_geometry(spec: LaunchSpec) -> dict:
         bits_pad = K_pad
     return dict(shared=shared, nblocks=nblocks, blocks=blocks, scratch=scratch,
                 antithetic=antithetic, K_pad=K_pad,
-                bits_cols=bits_pad // 2 if antithetic else bits_pad, act_rows=act_rows)
+                bits_cols=bits_pad // 2 if antithetic else bits_pad, act_rows=act_rows,
+                block_smem=block_smem)
 
 
 _launch_counters = {}  # kernel A's merge counters, by launch spec, stream and device
@@ -1302,12 +1370,17 @@ def make_transposed_batched_solve(config: MPPIConfig, num_envs: int,
     float32 noise (one draw outside, already mirrored, correlated and
     mu-shifted) and the kernel draws nothing.  There is no null-action row.
     Each block of the kernel takes ``group`` plants (default: the rule of
-    :func:`plant_group`); ``solve.plant_group`` holds it.  Takes
+    :func:`plant_group`, one for a block model); ``solve.plant_group``
+    holds it.  Takes
     ``terminal_final`` and raises as :func:`make_transposed_fused_solve`."""
     plants = int(num_envs)
     if plants < 1:
         raise ValueError(f"num_envs must be >= 1, got {plants}")
-    group = group or plant_group(plants, -(-config.K // _BLOCK), 2 * sm_count())
+    # a block model's plant takes its block alone: its layers outweigh the
+    # shared draw, and 1,280 blocks at N = 16, K = 10,240 fill the waves
+    # that 320 leave a fifth full
+    group = group or (1 if KM.activation_ld(as_kernel_model(config, model)) else
+                      plant_group(plants, -(-config.K // _BLOCK), 2 * sm_count()))
     if not 1 <= group <= plants:
         raise ValueError(f"group must be in [1, num_envs={plants}], got {group}")
     D = config.T * config.nu

@@ -53,9 +53,12 @@ MLP_GROUP = 8
 MLP_COSTS = ("pendulum", "quadratic")
 # csrc/fused_mppi.cu's ResidualMLPBlock: the fixed floats of its constants'
 # header, and the least group of a block model's samples whose layers the
-# block computes together (its activations' rows; DENSE_ROWS)
+# block computes together (its activations' rows; DENSE_ROWS): half an m16
+# tile of the tensor cores' products, taken only where a whole tile,
+# DENSE_TILE rows, does not fit (fused_solve.activation_rows)
 BMLP_FIXED = 8
 DENSE_ROWS = 8
+DENSE_TILE = 16
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -278,7 +281,8 @@ def residual_mlp_model(params, nx: int, nu: int, u_clip=None, angle_wrap_dims=()
     shared memory (two activation rows of the widest layer for each of at
     least ``DENSE_ROWS`` samples beside the kernel's own use,
     ``fused_solve.check_kernel_model``, which names the bound).  The two
-    give the same bits on a network both take; ``block=True`` forces the
+    compute the same function (the block model's layers on the tensor
+    cores in 3xTF32, its sums in another order); ``block=True`` forces the
     block model on a small one (to compare them).  A larger model plans on
     the plain path with a warning.  Retraining between commands needs the
     weights as ``dynamics_params``, which takes the plain path."""

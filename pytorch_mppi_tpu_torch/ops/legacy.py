@@ -107,14 +107,15 @@ def _rollout_lib(model_id: int):
     return lib
 
 
-def rollout_act_rows(T: int, nu: int, S: int, act_ld: int) -> int:
-    """A block model's group of samples in the rollout kernel: the largest
-    of S halved whose activations (rows of ``act_ld`` floats) fit beside the
-    staged rows (:func:`~.fused_solve.activation_rows`); 0 for a per-sample
-    model (``act_ld`` 0).  Raises FusedSolveUnavailable where none fits."""
+def rollout_act_rows(T: int, nu: int, S: int, act_ld: int, nx: int) -> int:
+    """A block model's group of samples in the rollout kernel, of S halved,
+    whose activations (rows of ``act_ld`` floats) and rows of per-sample
+    values fit beside the staged rows (:func:`~.fused_solve.activation_rows`,
+    by occupancy); 0 for a per-sample model (``act_ld`` 0).  Raises
+    FusedSolveUnavailable where none fits."""
     if not act_ld:
         return 0
-    rows, _ = FS.activation_rows(S, act_ld, [rollout_geometry(T, nu, S)["smem"]])
+    rows, _ = FS.activation_rows(S, act_ld, [rollout_geometry(T, nu, S)["smem"]], nx, nu)
     if not rows:
         raise FS.FusedSolveUnavailable(
             f"a block model's activations (two rows of {act_ld} floats a sample) do not fit "
@@ -134,7 +135,8 @@ def launch_rollout(x0_K, u_scaled, consts, model_id: int, tile_k: int = None, ac
     rc = lib.fused_mppi_rollout(
         FS.device_index(device), FS.stream_of(device), model_id, consts.data_ptr(), K, T,
         x0_K.shape[1], nu, x0_K.data_ptr(), x0_K.stride(1), x0_K.stride(0),
-        u_scaled.data_ptr(), cost.data_ptr(), S, rollout_act_rows(T, nu, S, act_ld), act_ld)
+        u_scaled.data_ptr(), cost.data_ptr(), S,
+        rollout_act_rows(T, nu, S, act_ld, x0_K.shape[1]), act_ld)
     FS.raise_on_error(lib, rc, "fused_rollout")
     FS.launches[FS.launch_name(model_id, "rollout")] += 1
     return cost
@@ -160,7 +162,7 @@ def make_fused_rollout(config: MPPIConfig, model: KernelModel, tile_k: int = Non
     K, T, nx, nu = config.K, config.T, config.nx, config.nu
     act_ld = KM.activation_ld(model)
     for S in (tile_k,) if tile_k else FS.TILES:  # the rule's S is the card's, at the call
-        rollout_act_rows(T, nu, S, act_ld)
+        rollout_act_rows(T, nu, S, act_ld, config.nx)
 
     def rollout(x0_K, u_scaled):
         device = u_scaled.device

@@ -6,7 +6,7 @@ checkouts of the repo, in alternating processes on one CUDA card.
         [--pairs 6] [--out FILE]
 
 Each process imports ``pytorch_mppi_tpu_torch`` from its checkout (whose
-kernels are built there first, one checkout after the other) and measures,
+kernels are built there first) and measures,
 on the host clock, at ``examples/scenario_batch.py``'s N = 16, K = 10,240,
 T = 30 problem:
 
@@ -37,18 +37,20 @@ T = 30 problem:
   0.5), the legacy rollout and the weighted update, the sampler in seed and
   bits mode at the flagship, and the sampler with a full operator at D = 300.
 
-The processes run A, B, B, A, A, B, ... (``--pairs`` pairs); the summary
-gives each metric's median per checkout, B / A, and in how many pairs B
-read higher.  ``--device cpu`` rehearses the script on the CPU (the plain
-versions, no ctypes metrics) at a small ``--calls``.
+Both checkouts' kernels are built at once; the processes run A, B, B, A, A,
+B, ... (``--pairs`` pairs; ``ab_turns.py``); the summary gives each
+metric's median per checkout, B / A, and in how many pairs B read higher.
+``--device cpu`` rehearses the script on the CPU (the plain versions, no
+ctypes metrics) at a small ``--calls``.
 """
 import argparse
 import json
 import statistics
-import subprocess
 import sys
 import time
 from pathlib import Path
+
+import ab_turns  # this folder's: the build, the turns and the summary
 
 N, K, T, NU = 16, 10_240, 30, 2
 FLAG_K = 10_000
@@ -329,15 +331,14 @@ def child(root, device, calls, repeats, commands):
     return 0
 
 
-def build(root):
-    """Build a checkout's kernels in a process of its own; returns seconds."""
-    code = ("import sys; sys.path.insert(0, sys.argv[1]); "
-            "from pytorch_mppi_tpu_torch.ops import _build; r = _build.build(); "
-            "print(0.0 if r is None else r[0])")
-    done = subprocess.run([sys.executable, "-c", code, root], capture_output=True, text=True)
-    if done.returncode != 0:
-        raise SystemExit(f"build of {root} failed:\n{done.stdout}\n{done.stderr}")
-    return float(done.stdout.strip().splitlines()[-1])
+def build_child(root):
+    """Build a checkout's kernels; prints the seconds it took."""
+    sys.path.insert(0, root)  # this checkout's package, never an installed one
+    from pytorch_mppi_tpu_torch.ops import _build
+
+    r = _build.build()
+    print(0.0 if r is None else r[0])
+    return 0
 
 
 def main():
@@ -351,43 +352,29 @@ def main():
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", help="also write every process's result here (JSON lines)")
     ap.add_argument("--child", help=argparse.SUPPRESS)
+    ap.add_argument("--build", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:
+        if args.build:
+            return build_child(args.child)
         return child(args.child, args.device, args.calls, args.repeats, args.commands)
-    roots = {"A": str(Path(args.a).resolve()), "B": str(Path(args.b).resolve())}
+    roots = [str(Path(args.a).resolve()), str(Path(args.b).resolve())]
     if args.device == "cuda":
-        for label, root in roots.items():
-            print(f"# build {label} ({root}): {build(root):.1f} s", flush=True)
-    results = {"A": [], "B": []}
-    lines = []
-    for i in range(args.pairs):
-        for label in ("AB" if i % 2 == 0 else "BA"):
-            cmd = [sys.executable, __file__, args.a, args.b, "--child", roots[label],
-                   "--device", args.device, "--calls", str(args.calls),
-                   "--repeats", str(args.repeats), "--commands", str(args.commands)]
-            done = subprocess.run(cmd, capture_output=True, text=True)
-            if done.returncode != 0:
-                raise SystemExit(f"process for {label} failed:\n{done.stdout}\n{done.stderr}")
-            r = json.loads(done.stdout.strip().splitlines()[-1])
-            r["label"] = label
-            results[label].append(r)
-            lines.append(json.dumps(r))
-            print(f"[{label}] " + " | ".join(f"{k} {v:.2f}" for k, v in r.items()
-                                             if isinstance(v, float)), flush=True)
-            print(f"[{label}] profile: " + "; ".join(r["profile"]), flush=True)
-    if args.out:
-        Path(args.out).write_text("\n".join(lines) + "\n")
-    summary = {}
-    for key in (k for k, v in results["A"][0].items() if isinstance(v, float)):
-        a = [r[key] for r in results["A"]]
-        b = [r[key] for r in results["B"]]
-        higher = sum(y > x for x, y in zip(a, b))
-        summary[key] = dict(a=statistics.median(a), b=statistics.median(b),
-                            ratio=statistics.median(b) / statistics.median(a),
-                            b_higher_in=f"{higher}/{len(a)}")
-        print(f"# {key}: A {summary[key]['a']:.2f} | B {summary[key]['b']:.2f} | B/A "
-              f"{summary[key]['ratio']:.3f} | B higher in {higher} of {len(a)} pairs")
-    print(json.dumps({"summary": summary}))
+        ab_turns.build(dict.fromkeys(roots), lambda root: [
+            sys.executable, __file__, args.a, args.b, "--child", root, "--build"])
+
+    def show(i, r):
+        print(f"[{'AB'[i]}] " + " | ".join(f"{k} {v:.2f}" for k, v in r.items()
+                                            if isinstance(v, float)))
+        print(f"[{'AB'[i]}] profile: " + "; ".join(r["profile"]))
+
+    results = ab_turns.run_turns(
+        roots, lambda root: [sys.executable, __file__, args.a, args.b, "--child", root,
+                             "--device", args.device, "--calls", str(args.calls),
+                             "--repeats", str(args.repeats), "--commands", str(args.commands)],
+        args.pairs, show, args.out)
+    ab_turns.summarize(results, [k for k, v in results[0][0].items() if isinstance(v, float)],
+                       "AB")
     return 0
 
 

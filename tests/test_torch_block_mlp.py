@@ -22,9 +22,20 @@
   dot products), and its block header compiled with the host ``g++``
   (``block_dense`` and ``block_step`` written out for one thread) computes
   what the evaluator does.
+* A traced network of MBPO's shape ([16, 200 x 4, 12], SiLU) splits each
+  segment into a unit-wise part, the SiLU, which the kernels run as the
+  dense layer's epilogue on all threads, and the per-sample rest (the
+  residual state update); its header, compiled with the host ``g++``, too.
+* The kernels' dense layers run on the tensor cores in 3xTF32: a plain
+  mirror of that arithmetic (each operand split into two TF32 values,
+  rounded to nearest with 10 mantissa bits, three products a multiply-add,
+  float32 sums a k-step of eight) stays within ``chip_smoke.F64_FACTOR``
+  times the float32 product's error against float64 on the quadrotor's and
+  MBPO's layer shapes, where one TF32 product does not.
 * The block model's constants, ``plain_model``'s rebuild, the launch
-  geometry (the group of samples whose activations fit), the launch
-  counters' names, and the refusals (the round-1 solve; activations beyond
+  geometry (the group of samples and the tiles' place, by occupancy), the
+  launch counters' names, the widest layers' groups of 8 samples (half an
+  m16 tile), and the refusals (the round-1 solve; activations beyond
   shared memory).
 
 Tolerances.  Float32 on both sides.  Costs rtol 2e-5 / atol 1e-5, m the
@@ -289,7 +300,8 @@ def test_traced_network_kernel_a_matches_jax_kernel():
 def test_traced_network_batched_matches_jax_kernel():
     jdyn, jcost, tdyn, tcost = _traced_pair(seed=6)
     solve = _batched_against_jax("bits", jdyn, jcost, (tdyn, tcost), T_NX, T_NU, T_GOAL, 19)
-    assert isinstance(solve.model, BL.GeneratedModel) and solve.act_rows == 128
+    # groups of 64 by occupancy: 128 rows of 104 floats would leave one block an SM
+    assert isinstance(solve.model, BL.GeneratedModel) and solve.act_rows == 64
 
 
 def _small_net():
@@ -337,15 +349,19 @@ _BLOCK_HARNESS = r"""
 #define __device__
 #define __forceinline__ inline
 namespace fused_mppi {
-// block_dense for one thread: every unit and sample, the kernel's order
+// block_dense for one thread: every unit and sample, in input order, then
+// the bias and the unit-wise epilogue
+struct DenseLinear {
+  float operator()(int, float v) const { return v; }
+};
+template <class Epi>
 inline void block_dense(const float* W, const float* b, int n_in, int n_out, int p,
-                        const float* in, float* out, int ld, int rows, bool hidden) {
+                        const float* in, float* out, int ld, int rows, Epi epi) {
   for (int j = 0; j < n_out; ++j)
     for (int s = 0; s < rows; ++s) {
       float acc = 0.0f;
       for (int i = 0; i < n_in; ++i) acc = fmaf(in[s * ld + i], W[i * p + j], acc);
-      const float z = acc + (b ? b[j] : 0.0f);
-      out[s * ld + j] = hidden ? tanhf(z) : z;
+      out[s * ld + j] = epi(j, acc + (b ? b[j] : 0.0f));
     }
 }
 #include "model.cuh"
@@ -383,7 +399,46 @@ int main() {
 """
 
 
-@pytest.mark.parametrize("net", ["traced", "small_forced_dense"])
+class _Gain(torch.nn.Module):
+    """A per-unit scale: a unit-wise node that reads a constant of its own
+    unit (an epilogue whose constants lie at offsets affine in the unit)."""
+
+    def __init__(self, gain):
+        super().__init__()
+        self.gain = gain
+
+    def forward(self, h):
+        return h * self.gain
+
+
+def _mbpo_shape(sizes=(16, 200, 200, 200, 200, 12), nx=12, nu=4, gain=False):
+    """A user's ``nn.Sequential`` of MBPO's shape (Linear layers with SiLU
+    between them, with ``gain`` each scaled by a vector of its own) on
+    (state, action), a residual model, untagged, and its traced kernel
+    model."""
+    g = torch.Generator().manual_seed(23)
+    layers = []
+    for a, b in zip(sizes[:-1], sizes[1:]):
+        lin = torch.nn.Linear(a, b)
+        with torch.no_grad():
+            lin.weight.copy_(torch.randn(b, a, generator=g) / np.sqrt(a))
+            lin.bias.copy_(torch.randn(b, generator=g) * 0.1)
+        layers += [lin, torch.nn.SiLU()]
+        if gain:
+            layers.append(_Gain(torch.rand(b, generator=g) + 0.5))
+    net = torch.nn.Sequential(*layers[:-2 if gain else -1])
+    goal = torch.linspace(-1.0, 1.0, nx)
+
+    def dyn(s, a):
+        return s + 0.1 * net(torch.cat([s, a], dim=-1))
+
+    def cost(s, a):
+        return ((goal - s) ** 2).sum(-1)
+
+    return BL.kernel_model(MPPIConfig(nx=nx, nu=nu, K=64, T=5), dyn, cost), dyn, cost
+
+
+@pytest.mark.parametrize("net", ["traced", "small_forced_dense", "mbpo_shape", "mbpo_gain"])
 def test_block_header_on_the_host(tmp_path, net):
     """The emitted block struct (segments, carries, dense layers) compiled
     with the host ``g++`` and stepped by a one-thread ``block_step``, held
@@ -395,6 +450,13 @@ def test_block_header_on_the_host(tmp_path, net):
         _, _, dyn, cost = _traced_pair()
         nx, nu = T_NX, T_NU
         model = BL.kernel_model(MPPIConfig(nx=nx, nu=nu, K=64, T=5), dyn, cost)
+    elif net.startswith("mbpo"):
+        nx, nu = 12, 4
+        model = _mbpo_shape((16, 96, 96, 12), gain=net == "mbpo_gain")[0]
+        # each layer's epilogue: the SiLU (with the gain, its constant a unit)
+        # and the last layer's scale by 0.1
+        strides = [set(e["stride"].values()) for e in model.program.unit_wise(model.outputs[:nx])]
+        assert strides == [{1} if net == "mbpo_gain" else set()] * 2 + [set()], strides
     else:
         dyn, cost = _small_net()
         nx, nu = 4, 2
@@ -418,6 +480,94 @@ def test_block_header_on_the_host(tmp_path, net):
     ns, c = model.rollout_step(x, u, 0)
     np.testing.assert_allclose(res[:, :nx], ns.numpy(), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(res[:, nx], c.numpy(), rtol=1e-5, atol=1e-5)
+
+
+def test_unit_wise_split_of_the_mbpo_shape_network():
+    """``emit_block`` splits the MBPO-shape network: each hidden layer's
+    SiLU (``x * sigmoid(x)``, its bias inside the dense node) is unit-wise,
+    the same expression for every unit, and runs in the kernels as the
+    layer's epilogue (the struct's ``unit``), the next layer reading the
+    epilogue's results where it left them (no owner segment between the
+    hidden layers); the last layer's scale by 0.1 is its epilogue, and the
+    residual state update x + 0.1 out stays per-sample, in the owner's last
+    segment."""
+    model, _, _ = _mbpo_shape()
+    prog, outs = model.program, model.outputs[:12]
+    epi = prog.unit_wise(outs)
+    assert len(epi) == 5 and all(e is not None for e in epi)
+    for e in epi[:4]:
+        ops = {prog.nodes[n][0] for n in e["nodes"]}
+        assert ops == {"dout", "sigmoid", "mul"}, ops
+        assert len(e["nodes"]) == 3 * 200 and sorted(e["results"]) == list(range(200))
+        assert all(prog.nodes[r][0] == "mul" for r in e["results"].values())
+        assert e["stride"] == {}  # no constant beside the unit's output
+    assert {prog.nodes[n][0] for n in epi[4]["nodes"]} == {"dout", "mul"}
+    assert sorted(epi[4]["results"]) == list(range(12))
+    header = BL.generated_kernel(model, None).header()
+    # one functor a distinct epilogue: the four SiLUs share one, the scale has its own
+    unit = header[header.index("struct Unit0"):header.index("static void dense(")]
+    assert unit.count("expf(-v)") == 1 and "struct Unit1" in unit and "x[" not in unit
+    assert "(v * 0x1.99999a0000000p-4f)" in unit.split("struct Unit1")[1]  # 0.1
+    after = header[header.index("static void after("):header.index("static float cost(")]
+    cases = after.split("case ")[1:]
+    assert len(cases) == 5 and all("out[" not in c and "row[" not in c for c in cases[:4])
+    assert "x[11] = " in cases[4] and "out[11]" in cases[4] and "expf" not in cases[4]
+    # layer l reads half h_l and writes the other: 0, 1, 0, 1, 0
+    assert [f"h = {h};" in header for h in (0, 1)] == [True, True]
+    dense = header[header.index("static void dense("):header.index("static void begin(")]
+    cases = [line for line in dense.splitlines() if "case" in line]
+    assert [c.split("h = ")[1][0] for c in cases] == ["0", "1", "0", "1", "0"]
+    assert [c.split("f = ")[1].split(";")[0] for c in cases] == ["0", "0", "0", "0", "1"]
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 as ``cvt.rna.tf32.f32`` does: to nearest,
+    ties away from zero, keeping 10 mantissa bits."""
+    bits = x.view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mma_3xtf32(x: torch.Tensor, w: torch.Tensor, products=3) -> torch.Tensor:
+    """x @ w as ``block_dense`` computes it on the tensor cores: each
+    operand split as hi + lo in TF32, a k-step of eight inputs at a time,
+    each of its products (a_lo b_hi, a_hi b_lo, a_hi b_hi; or a_hi b_hi
+    alone, ``products=1``) summed exactly and added to the float32
+    accumulator."""
+    xh, wh = _tf32(x), _tf32(w)
+    xl, wl = _tf32(x - xh), _tf32(w - wh)
+    terms = ((xl, wh), (xh, wl), (xh, wh)) if products == 3 else ((xh, wh),)
+    acc = torch.zeros(x.shape[0], w.shape[1], dtype=torch.float32)
+    for k0 in range(0, x.shape[1], 8):
+        for a, b in terms:
+            acc = (acc.double() + a[:, k0:k0 + 8].double() @ b[k0:k0 + 8].double()).float()
+    return acc
+
+
+@pytest.mark.parametrize("shapes", [[16, 256, 256, 12], [16, 200, 200, 200, 200, 12]],
+                         ids=["quadrotor", "mbpo"])
+def test_3xtf32_keeps_float32_accuracy(shapes):
+    """On each layer shape, 256 rows of inputs of a hidden layer's scale and
+    weights of scale 1/sqrt(fan-in): the 3xTF32 mirror's largest error
+    against float64 is within F64_FACTOR times the float32 product's (the
+    criterion phase 4e holds the kernels to), and one TF32 product's is
+    not."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    g = torch.Generator().manual_seed(21)
+    for n_in, n_out in zip(shapes, shapes[1:]):
+        x = torch.randn(256, n_in, generator=g)
+        w = torch.randn(n_in, n_out, generator=g) / n_in ** 0.5
+        ref = x.double() @ w.double()
+        e_f32 = float(((x @ w).double() - ref).abs().max())
+        e_3x = float((_mma_3xtf32(x, w).double() - ref).abs().max())
+        e_1x = float((_mma_3xtf32(x, w, products=1).double() - ref).abs().max())
+        assert e_3x <= smoke.F64_FACTOR * e_f32, (n_in, n_out, e_3x, e_f32)
+        assert e_1x > smoke.F64_FACTOR * e_f32, (n_in, n_out, e_1x, e_f32)
 
 
 # ---------------------------------------------------------------------------
@@ -464,8 +614,9 @@ def test_block_constants_and_rebuild(nx):
 
 def test_forced_block_model_computes_the_per_thread_model():
     """``block=True`` on a network within the per-thread bounds: another
-    device model and layout, the same plain functions; the kernels give
-    the same bits on the card (``chip_smoke.py`` phase 4e)."""
+    device model and layout, the same plain functions; on the card the
+    kernels agree within ``chip_smoke.F64_FACTOR`` of the plain version's
+    error against float64 (``chip_smoke.py`` phase 4e)."""
     w = mlp_params_from_numpy(_weights([3, 32, 32, 2], 0, 1.0))
     kw = dict(u_clip=(-2.0, 2.0), angle_wrap_dims=(0,))
     per_thread = KM.residual_mlp_model(w, 2, 1, **kw)
@@ -478,24 +629,81 @@ def test_forced_block_model_computes_the_per_thread_model():
 
 
 def test_activation_groups():
-    """The group of samples whose activations fit: kernel A's S = 32
-    samples at 256 units; the batched kernel's 128 at 64 units but 64 at
-    256 (two halves of 128 rows of 256 floats are 256 KiB); S = 128 at
-    1,000 units takes groups of 16; the rollout beside its staged rows."""
-    ld256, ld64, ld1000 = 256, 64, 1000
-    assert FS.activation_bytes(4000, 32, ld256) == 4000 + 2 * 32 * 256 * 4
-    assert FS.activation_bytes(4001, 8, 4) == 4016 + 256
-    for variant, S, ld, rows in ((FS.MPPI, 32, ld256, 32), (FS.BATCHED, 128, ld64, 128),
-                                 (FS.BATCHED, 128, ld256, 64), (FS.MPPI, 128, ld1000, 16)):
+    """A block model's group of samples and the tiles' place, by occupancy
+    (the most blocks an SM up to a target, then the larger group): kernel
+    A's S = 32 samples at 256 units (MPPI, and KMPPI with its operator
+    panel) with its tiles in the global scratch and three blocks an SM
+    (``KERNEL_A_BLOCK_BLOCKS``; the merge's block scales and the products'
+    panel lie in its activations, which hold neither while the layers
+    run); the batched
+    kernel's 128 at 64 units and 32 at 256, each with its noise tile in the
+    global scratch and two blocks an SM (``OCCUPANCY_TARGET``; one before:
+    a shared tile and 64 rows of 256 floats took 199 KB); S = 128 at 1,000
+    units takes groups of 16; the rollout beside its staged rows.  Rows of
+    activations are padded to 8 mod 32 floats, and the per-sample values
+    take an odd row each."""
+    assert [FS.act_stride(ld) for ld in (4, 72, 200, 256, 1000)] == [8, 72, 200, 264, 1000]
+    assert all(FS.act_stride(ld) % 32 == 8 and FS.act_stride(ld) >= -(-ld // 8) * 8
+               for ld in range(4, 1100, 4))
+    assert FS.state_ld(12, 4) == 21 and FS.state_ld(2, 1) == 5
+    assert FS.activation_bytes(4000, 32, 256) == 4000 + 2 * 32 * 264 * 4
+    assert FS.activation_bytes(4000, 32, 256, 32, 12, 4) == 4000 + (2 * 32 * 264 + 32 * 21) * 4
+    assert FS.activation_bytes(4001, 16, 4) == 4016 + 2 * 16 * 8 * 4
+    # kernel A's operator panel lies in a block model's activations
+    assert FS.activation_bytes(4000, 16, 4, least=5000) == 4000 + 5000 * 4
+    assert FS.panel_floats(FS.KMPPI, False, 60, 32) == 32 * 60
+    assert FS.panel_floats(FS.MPPI, False, 120, 32) == 0
+    assert FS.blocks_per_sm(FS.MAX_SMEM_BYTES) == 1 and FS.blocks_per_sm(100_000) == 2
+    for variant, S, ld, rows, shared, blocks in ((FS.MPPI, 32, 256, 32, False, 3),
+                                                 (FS.KMPPI, 32, 256, 32, False, 3),
+                                                 (FS.BATCHED, 128, 64, 128, False, 2),
+                                                 (FS.BATCHED, 128, 256, 32, False, 2),
+                                                 (FS.MPPI, 128, 1000, 16, True, 1)):
         spec = FS.LaunchSpec(variant, KM.RESIDUAL_MLP_BLOCK, 10_000, 30, 12, 4, 120, 10_000, 0,
                              0, 0, 0, 0, 16 if variant == FS.BATCHED else 1, 4, S, 0, 0,
                              act_ld=ld)
         geo = FS.launch_geometry(spec)
-        assert geo["act_rows"] == rows, (variant, S, ld)
-        assert geo["shared"]
-    assert LG.rollout_act_rows(30, 4, 32, ld256) == 32
-    assert LG.rollout_act_rows(30, 4, 128, ld256) == 64
-    assert LG.rollout_act_rows(30, 4, 32, 0) == 0
+        assert (geo["act_rows"], geo["shared"]) == (rows, shared), (variant, S, ld)
+        # kernel A's merge scales and operator panel lie in the activations
+        panel = 0 if variant == FS.BATCHED else FS.panel_floats(variant, False, 120, S)
+        head = 0 if variant == FS.BATCHED else 4 * (512 + panel)
+        base = FS.base_smem_bytes(variant, 120, 120, False, S, shared) - head
+        smem = FS.activation_bytes(base, rows, ld, S, 12, 4, panel)
+        assert smem == geo["block_smem"] <= FS.MAX_SMEM_BYTES
+        assert FS.blocks_per_sm(smem) >= blocks, (ld, smem)
+    assert LG.rollout_act_rows(30, 4, 32, 256, 12) == 32
+    assert LG.rollout_act_rows(30, 4, 128, 256, 12) == 16
+    assert LG.rollout_act_rows(30, 4, 32, 0, 12) == 0
+
+
+@pytest.mark.parametrize("width, rows", [(1_000, 16), (2_048, 8), (3_300, 8), (3_600, 0)])
+def test_widest_layers_take_half_tile_groups(width, rows):
+    """Where no whole m16 tile of a layer's activations fits, a group of
+    ``DENSE_ROWS`` = 8 samples (half a tile) does: a [16, width, 12]
+    residual MLP at nx = 12, nu = 4 runs in kernel A, the batched pair and
+    the rollout up to about 3,380 units (``check_kernel_model``'s bound; in
+    groups of 8 beyond about 1,700-1,770), and beyond it (3,600) their
+    factories refuse it, naming the bound."""
+    model = KM.residual_mlp_model(mlp_params_from_numpy(_weights([16, width, 12], 0)), 12, 4,
+                                  cost="quadratic", goal=np.zeros(12, np.float32))
+    assert model.model_id == KM.RESIDUAL_MLP_BLOCK and KM.activation_ld(model) == width
+    cfg = MPPIConfig(nx=12, nu=4, K=256, T=5)
+    makes = (FS.make_transposed_fused_solve, LG.make_fused_rollout,
+             lambda c, m: FS.make_transposed_batched_solve(c, 3, m))
+    if not rows:
+        for make in makes:
+            with pytest.raises(FS.FusedSolveUnavailable, match="widths up to about 33"):
+                make(cfg, model)
+        return
+    FS.check_kernel_model(cfg, model)
+    for make in makes:
+        make(cfg, model)
+    for variant, S, group in ((FS.MPPI, 32, 1), (FS.BATCHED, 128, 3)):
+        spec = FS.LaunchSpec(variant, KM.RESIDUAL_MLP_BLOCK, 256, 5, 12, 4, 20, 256, 0, 0, 0, 0,
+                             0, group, group, S, 0, 0, act_ld=width)
+        geo = FS.launch_geometry(spec)
+        assert geo["act_rows"] == rows and geo["block_smem"] <= FS.MAX_SMEM_BYTES, variant
+    assert LG.rollout_act_rows(5, 4, 32, width, 12) == rows
 
 
 def test_launch_counters_name_the_block_kernels():
@@ -558,9 +766,18 @@ def test_bound_counts_the_block_models():
     per_thread = KM.residual_mlp_model(w, 2, 1, **kw)
     block = KM.residual_mlp_model(w, 2, 1, block=True, **kw)
     assert smoke._per_step(block, 2, 1) == smoke._per_step(per_thread, 2, 1) > 2 * 32 * 32
+    # the dense / scalar split: the block model's layers run on the tensor
+    # cores, the per-thread model's in float32
+    assert smoke._dense_macs(block) == 3 * 32 + 32 * 32 + 32 * 2
+    assert smoke._dense_macs(per_thread) == 0
+    ops, macs = 10 ** 9, 10 ** 8
+    assert smoke.tc_bound((ops, 0), macs)[0] == pytest.approx(
+        max((ops - 2 * macs) / smoke.H100_F32_PER_S, 6 * macs / smoke.H100_TF32_PER_S) * 1e3)
+    assert smoke.tc_bound((ops, 0), 0) == smoke.bound((ops, 0))
     _, _, tdyn, tcost = _traced_pair()
     model = BL.kernel_model(MPPIConfig(nx=T_NX, nu=T_NU, K=64, T=5), tdyn, tcost)
     macs = sum(a * b for a, b in zip(T_SIZES, T_SIZES[1:]))
     assert BL.dense_ops(model.program, model.outputs) == 2 * macs  # the biases add as nodes
     assert smoke._per_step(model, T_NX, T_NU) == (
         T_NU + BL._count_ops(model.program, model.outputs) + 2 * macs + 1)
+    assert smoke._dense_macs(model) == macs

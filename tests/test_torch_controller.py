@@ -443,7 +443,7 @@ def test_scan_unroll_does_not_change_the_command(cls, unroll):
 @pytest.mark.parametrize("impl", ["auto", None])
 def test_prng_impl_default_stream_is_accepted(cls, impl):
     ctrl = _small(cls, prng_impl=impl)
-    assert ctrl.prng_impl == impl
+    assert ctrl.prng_impl is None  # "auto" resolves to None off a TPU
     torch.testing.assert_close(ctrl.command(np.array([0.0, 0.0])),
                                _small(cls).command(np.array([0.0, 0.0])), rtol=0, atol=0)
 

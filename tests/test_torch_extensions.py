@@ -1,7 +1,8 @@
 """JAX's ``tests/test_extensions.py`` classes ``TestGradientRefinement``
-(:595-722), ``TestRunMppiJit`` (:1019-1148) and ``TestEliteReuse``
-(:1149-1357) on the port, on the CPU: each JAX test translated to the
-port's API with JAX's floors, in float64 as JAX's file.
+(:595-722), ``TestPrngAutoDefault`` (:724-741), ``TestRunMppiJit``
+(:1019-1148) and ``TestEliteReuse`` (:1149-1357) on the port, on the CPU:
+each JAX test translated to the port's API with JAX's floors, in float64
+as JAX's file.
 
 The port's draws are its own (``torch.Generator``), so a floor that compares
 two runs compares two runs of the port.  Some of these checks also stand,
@@ -134,6 +135,25 @@ class TestGradientRefinement:
         d, ctrl = self._run(10, u_scale=2.0)
         assert np.isfinite(d)
         assert float(ctrl.U.abs().max()) <= float(self.U_MAX[0]) + 1e-9
+
+
+class TestPrngAutoDefault:
+    """``prng_impl="auto"``, the default, resolves to None off a TPU (JAX's
+    ``_resolve_prng_impl``); the port draws with Philox from ``seed`` and
+    refuses a JAX generator such as ``"rbg"``."""
+
+    def test_auto_resolves_to_threefry_on_cpu(self):
+        ctrl = P.MPPI(linear_dynamics, quadratic_cost, 2, eye(), num_samples=16, horizon=4,
+                      seed=0, device="cpu")
+        assert ctrl.prng_impl is None
+        with pytest.raises(ValueError, match="prng_impl='rbg' selects a JAX generator"):
+            P.MPPI(linear_dynamics, quadratic_cost, 2, eye(), num_samples=16, horizon=4, seed=0,
+                   prng_impl="rbg", device="cpu")
+
+    def test_batched_auto_default(self):
+        ctrl = P.MPPI_Batched(linear_dynamics, quadratic_cost, 2, eye(), num_envs=2,
+                              num_samples=16, horizon=4, seed=0, device="cpu")
+        assert ctrl.prng_impl is None
 
 
 class TestRunMppiJit:
