@@ -60,7 +60,7 @@ the package is not beside it.  Phases, each fatal when it fails:
    tiles) and at K = 1,000 with 64 samples a block, then the moments through
    its cost, its costs against the transposed kernel's on one key and 50
    calls in a row;
-4. main paths: 100 closed-loop commands (``COMMANDS``) of ``MPPI``, ``SMPPI`` and
+4. main paths: 70 closed-loop commands (``COMMANDS``) of ``MPPI``, ``SMPPI`` and
    ``KMPPI`` on ``linear_quadratic`` at K = 10,000, T = 30 (``bench.py``'s
    flagship problem), fused (``use_pallas=True``, one launch a command) with
    the launch count and the goal checked, then the same on the plain torch
@@ -83,7 +83,7 @@ the package is not beside it.  Phases, each fatal when it fails:
    (the plain path, the warning naming the flag) and on the legacy route;
    plain ``MPPI`` with a ``SpecificActionSampler`` of two ramps, the null
    row and two elites asked for the kernel (the plain path; rows 0-4 are
-   [null, ramps, shifted elites]), 100 commands (``SHORT_COMMANDS``) each of
+   [null, ramps, shifted elites]), 70 commands (``SHORT_COMMANDS``) each of
    ``SMPPI`` and ``KMPPI`` with the sampler, 50 fused commands with five steps of
    gradient refinement, and the refinement on JAX's small-K fixture (the
    mean distance at least halved); then
@@ -296,8 +296,9 @@ NSP = T // 2  # KMPPI's default support points at the flagship
 # phase 4e's wide models and their two libraries (a run of 1,103.5 s at 200 on
 # a host 1.5x slower in every phase than the one before), then to 100 so that
 # the whole run stays under the limit on a host SLOW_HOST times slower (a run
-# of 756.5 s at 150, phases 4 and 4d 110.7 and 170.9 s of it)
-COMMANDS = 100
+# of 756.5 s at 150, phases 4 and 4d 110.7 and 170.9 s of it), then to 70 (and
+# SHORT_COMMANDS with it) for phase 4f's world model and its six libraries
+COMMANDS = 70
 REFINE_COMMANDS = 50
 WARMUP = 20
 LOOP_K = 500  # the closed loops of phase 6
@@ -347,7 +348,7 @@ BATCHED_NAMES = ("batched_partial", "flash_merge")
 ITERS, BATCH_ITERS = 3, 2  # num_iterations of the single-plant and batched iteration loops
 ELITES = 4  # num_elites of the elite loops
 REFINE_STEPS = 5  # gradient_refinement_steps of the refinement loop
-SHORT_COMMANDS = 100  # the refinement loop's and SMPPI's and KMPPI's sampler loops' commands
+SHORT_COMMANDS = 70  # the refinement loop's and SMPPI's and KMPPI's sampler loops' commands
 M_STOCH = 4  # rollout_samples of the stochastic loop
 STOCH_SCALE = 0.05  # the stochastic loop's dynamics noise (a standard deviation)
 GRAPH_STEPS = 20  # plant steps of each route's graph loop held to the eager loop
@@ -414,6 +415,21 @@ WIDE_CALLS = 5  # calls in the CUDA graph that times the wide batched pairs
 # samples' activations in shared memory, so that the block kernels take
 # groups of 8 (half an m16 tile)
 HALF_TILE_SIZES = [16, 2048, 12]
+# phase 4f (world_model): a TD-MPC world model (Hansen, Wang & Su, ICML 2022;
+# github.com/nicklashansen/tdmpc, cfgs/default.yaml: latent_dim 50, mlp_dim
+# 512, horizon 5, num_samples 512, iterations 6; src/algorithm/helper.py's
+# mlp and q, tdmpc.py's TOLD) for the DMControl humanoid's 21 actions, its
+# weights seeded (uniform within 1/sqrt(fan-in), nn.Linear's scale): the
+# latent dynamics mlp [71, 512, 512, 50] (ELU), the running cost -gamma^t
+# r(z', u) with the reward mlp [71, 512, 512, 1], the terminal cost -gamma^T
+# min(Q1, Q2)(z_T, u_T), each q [71, 512 (LayerNorm, Tanh), 512 (ELU), 1];
+# TD-MPC's planner sizes: sigma 0.25, actions in [-1, 1], lambda 0.5 (its
+# temperature); the batched pair at TD_BATCH_N agents; kernel A once more at
+# the DMControl dog's 38 actions (nu beyond 32); TD_COMMANDS commands of the
+# closed loop in the latent space, TD_SHORT of every other route
+TD_NX, TD_NU, TD_H, TD_K, TD_T, TD_ITERS = 50, 21, 512, 512, 5, 6
+TD_GAMMA, TD_LAMBDA, TD_SIGMA = 0.99, 0.5, 0.25
+TD_DOG_NU, TD_BATCH_N, TD_COMMANDS, TD_SHORT = 38, 16, 20, 5
 # the deployment phase (8): commands each artifact replays in a fresh process
 # against the live controller, commands timed for the medians (after a
 # warm-up), and the commands a restored checkpoint continues for
@@ -646,7 +662,8 @@ def fused_work(config, model, seed_or_bits, x0T, op, emit_perturbed=False,
     ``terminal`` cost (``quadratic_terminal``) adds,
     per sample, nx subtractions and fused multiply-adds, nu fused
     multiply-adds, two products and two sums, and reads its nx + 2
-    constants.  An (E, D) ``elites`` operand is read once; its rows take the
+    constants (a traced one's dense layers, two operations a multiply-add
+    and one a bias, once a sample).  An (E, D) ``elites`` operand is read once; its rows take the
     place of U + noise, which adds no operation."""
     from pytorch_mppi_tpu_torch.ops.fused_solve import _BLOCK
 
@@ -684,9 +701,10 @@ def fused_work(config, model, seed_or_bits, x0T, op, emit_perturbed=False,
     per_sample += T * _per_step(model, nx, nu) + 7
     term_consts = nx + 2
     if getattr(terminal, "program", None) is not None:  # a traced terminal cost
-        from pytorch_mppi_tpu_torch.ops.batch_last import _count_ops
+        from pytorch_mppi_tpu_torch.ops.batch_last import _count_ops, dense_ops
 
-        per_sample += _count_ops(terminal.program, [terminal.output]) + 1
+        per_sample += (_count_ops(terminal.program, [terminal.output])
+                       + dense_ops(terminal.program, [terminal.output]) + 1)
         term_consts = terminal.consts.numel()
     elif terminal:
         per_sample += 3 * nx + 2 * nu + 4
@@ -767,10 +785,15 @@ def bound(work):
 
 
 def _dense_macs(model):
-    """The multiply-adds of a block model's dense layers a step, which its
-    kernels run on the tensor cores (``block_dense`` in fused_mppi.cu); 0
-    for a per-sample model, whose step runs in float32 on the SM's cores.
-    ``_per_step`` counts them too, as two float32 operations each."""
+    """The multiply-adds of a block model's dense layers a step (a traced
+    model's dynamics and running cost: its ``outputs``), which its kernels
+    run on the tensor cores (``block_dense`` in fused_mppi.cu); of a traced
+    terminal cost's, once a sample; 0 for a per-sample model, whose step
+    runs in float32 on the SM's cores.  ``_per_step`` and ``fused_work``
+    count them too, as two float32 operations each."""
+    if getattr(model, "output", None) is not None and getattr(model, "program", None):
+        return sum(n_in * n_out for *_, n_in, n_out
+                   in model.program.dense_layers([model.output]))
     if getattr(model, "program", None) is not None:
         return sum(n_in * n_out for *_, n_in, n_out in model.program.dense_layers(model.outputs))
     if model.name == "residual_mlp_block":
@@ -816,9 +839,11 @@ def agree(cost_k, cost_p, upd_k, upd_p, lam, m_k=None, m_p=None, s_k=None, s_p=N
     return ok, c_err, u_err, w_tol
 
 
-def events_ms(fn, iters):
-    """Mean time per call on the card's timeline, between two CUDA events."""
-    for _ in range(3):
+def events_ms(fn, iters, warmup=3):
+    """Mean time per call on the card's timeline, between two CUDA events,
+    after ``warmup`` calls (none for a plain version just called, whose
+    calls take seconds)."""
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -849,9 +874,8 @@ def device_ms(fn, iters, names):
     return (total / iters / 1e3 if total > 0 else None), sum(e.count for e in events)
 
 
-def graph_ms(fn, iters):
-    """Device time per call of ``fn`` replayed from a CUDA graph of ``iters``
-    calls, between two CUDA events: no host time between the launches."""
+def captured(fn, iters):
+    """A CUDA graph of ``iters`` calls of ``fn``, warmed up and replayed once."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):  # warm up outside the capture
@@ -864,28 +888,66 @@ def graph_ms(fn, iters):
             fn()
     graph.replay()
     torch.cuda.synchronize()
+    return graph
+
+
+def replay_ms(graph, iters, replays=1):
+    """Device time per call of a graph of ``iters`` calls, replayed
+    ``replays`` times back to back between two CUDA events."""
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     a.record()
-    graph.replay()
+    for _ in range(replays):
+        graph.replay()
     b.record()
     torch.cuda.synchronize()
-    return a.elapsed_time(b) / iters
+    return a.elapsed_time(b) / (iters * replays)
 
 
-def in_turns(fns, iters=20):
-    """Each callable's ``graph_ms``, read in turns forward then backward and
-    averaged: the S sweeps hold the rule's S within 10 % of the best, and one
-    reading of a kernel of a few µs moves by more than that (the rollout at
-    K = 1,000 once read 0.004138 ms at S = 32 on an H100 80GB HBM3 at 700 W,
-    in a run where every S read 15-29 % above the run before)."""
+def graph_ms(fn, iters):
+    """Device time per call of ``fn`` replayed from a CUDA graph of ``iters``
+    calls, between two CUDA events: no host time between the launches."""
+    return replay_ms(captured(fn, iters), iters)
+
+
+# the S sweeps' readings: three round trips over the S values, each reading
+# as many back-to-back replays of a graph of 20 calls as fill SWEEP_WINDOW_MS
+# of device time, and the median of the six.  A mean of one round trip of
+# single replays let the rollout at K = 1,000 (about 3.5 µs a call) read
+# S = 32 more than 10 % slower than S = 64 in one run and 7 % faster in
+# another (NVIDIA H100 80GB HBM3, 700 W)
+SWEEP_ROUNDS, SWEEP_WINDOW_MS = 3, 2.0
+SWEEP_NOTE = (f"CUDA graphs of 20 calls replayed for {SWEEP_WINDOW_MS} ms a reading, in turns, "
+              f"median of {2 * SWEEP_ROUNDS}")
+
+
+def in_turns(fns, iters=20, rounds=1, window_ms=0.0):
+    """Each callable's device time a call from a CUDA graph of ``iters``
+    calls, read ``rounds`` times in turns forward then backward, and the
+    median of the readings: one reading of a kernel of a few µs moves by
+    more than the 10 % the S sweeps allow (the rollout at K = 1,000 once
+    read 0.004138 ms at S = 32 on an H100 80GB HBM3 at 700 W, in a run where
+    every S read 15-29 % above the run before).  Each graph is captured
+    once; a reading replays it back to back until ``window_ms`` of device
+    time is filled (at least once)."""
+    graphs = {k: captured(fn, iters) for k, fn in fns.items()}
+    replays = {k: max(1, math.ceil(window_ms / replay_ms(g, iters) / iters))
+               for k, g in graphs.items()}
     ms = {k: [] for k in fns}
-    for k in [*fns, *reversed(fns)]:
-        ms[k].append(graph_ms(fns[k], iters))
-    return {k: statistics.mean(v) for k, v in ms.items()}
+    for _ in range(rounds):
+        for k in [*fns, *reversed(fns)]:
+            ms[k].append(replay_ms(graphs[k], iters, replays[k]))
+    del graphs
+    return {k: statistics.median(v) for k, v in ms.items()}
 
 
-# commands a breakdown profiles (cut from 50 to keep the run inside its time)
-BREAKDOWN_COMMANDS = 25
+def sweep_turns(fns):
+    """``in_turns`` as the S sweeps read it (``SWEEP_NOTE``)."""
+    return in_turns(fns, rounds=SWEEP_ROUNDS, window_ms=SWEEP_WINDOW_MS)
+
+
+# commands a breakdown profiles (cut from 50 to keep the run inside its time,
+# which gave back 82.6 s of phase 4, then from 25 for phase 4f's world model)
+BREAKDOWN_COMMANDS = 15
 
 
 def breakdown(name, ctrl, step, x, n=BREAKDOWN_COMMANDS):
@@ -1855,7 +1917,7 @@ def mlp_batched_rest(dev, gen, nx, nu, N_, x0, spread, sigma):
             torch.tensor(1.0, device=dev))
 
 
-def f64_agree(model, c_k, c_p, pert, x0T, T_, nu, wrap=False):
+def f64_agree(model, c_k, c_p, pert, x0T, T_, nu, wrap=False, terminal=None):
     """The kernel's costs ``c_k`` and the plain version's ``c_p`` against a
     float64 reference on the plain version's (D, K) actions ``pert`` from
     the (nx, K) ``x0T``: the plain cost with its float32 rollout replaced by
@@ -1867,12 +1929,13 @@ def f64_agree(model, c_k, c_p, pert, x0T, T_, nu, wrap=False):
     wraps a state dimension), a sample beyond the limit is excused (the
     ``excused`` mask) where its plain rollout came within WRAP_EDGE of ±π
     (``wrap_edge``): the kernel may take the other branch of the wrap there,
-    its state then differing by 2π."""
+    its state then differing by 2π.  A ``terminal`` cost (on the final state
+    and the last action) is in both rollouts."""
     from pytorch_mppi_tpu_torch.ops import fused_solve as FS
     from pytorch_mppi_tpu_torch.ops.kernel_models import mlp_layout
 
-    r32 = FS._rollout_total(model, pert, x0T, T_, nu, 1.0)
-    r64 = FS._rollout_total(model, pert.double(), x0T.double(), T_, nu, 1.0)
+    r32 = FS._rollout_total(model, pert, x0T, T_, nu, 1.0, terminal)
+    r64 = FS._rollout_total(model, pert.double(), x0T.double(), T_, nu, 1.0, terminal)
     ref = c_p.double() - r32.double() + r64
     err = (c_k.double() - ref).abs()
     e_p = float((c_p.double() - ref).abs().max())
@@ -1901,16 +1964,17 @@ def batched_pert(solve, lead, rest, T_, nu, K_):
     return pert, x0b[:, :, None].expand(-1, -1, K_).reshape(x0b.shape[0], -1)
 
 
-def block_ptxas(plan):
+def block_ptxas(plan, labels=("mbpo mppi", "mbpo batched"), named=True):
     """The block models' kernels in the build logs (``-Xptxas -v``): each
-    ``ResidualMLPBlock`` instantiation of the named library and the MBPO
-    network's generated kernel A and batched pair, with its registers,
-    spill stores and the blocks an SM its registers allow (four warps a
-    block; registers allocated eight a thread)."""
+    ``ResidualMLPBlock`` instantiation of the named library (where
+    ``named``) and the generated kernels of the builds ``labels`` (the MBPO
+    network's kernel A and batched pair), with its registers, spill stores
+    and the blocks an SM its registers allow (four warps a block; registers
+    allocated eight a thread)."""
     from pytorch_mppi_tpu_torch.ops import _build
 
-    logs = [_build.library_path().with_suffix(".log")]
-    for label in ("mbpo mppi", "mbpo batched"):
+    logs = [_build.library_path().with_suffix(".log")] if named else []
+    for label in labels:
         _, kernel, variant, _ = plan["builds"][label]
         logs.append(_build.generated_path(kernel.header(), 1 << variant).with_suffix(".log"))
     out = []
@@ -1919,6 +1983,7 @@ def block_ptxas(plan):
             if "ResidualMLPBlock" in e["name"] or "Generated" in e["name"]:
                 regs = -(-e.get("registers", 255) // 8) * 8
                 e["blocks_by_registers"] = 65536 // (regs * 128)
+                e["log"] = log.name
                 out.append(e)
     return out
 
@@ -3394,11 +3459,486 @@ def mbpo_callables(dev):
             lambda s, u: ((goal - s) ** 2).sum(-1))
 
 
+def tdmpc_callables(dev, nu=TD_NU, seed=47):
+    """Phase 4f's world model, untagged: TD-MPC's ``mlp`` (Linear, ELU,
+    Linear, ELU, Linear) for the latent dynamics and the reward, and its
+    two ``q`` networks (Linear, LayerNorm, Tanh, Linear, ELU, Linear), on
+    (z, u), weights seeded from ``seed``, on ``dev``.  Returns (dynamics(z,
+    u, t), running_cost(z, u, t), terminal_final_cost(z, u)); the running
+    cost discounts the reward by gamma^t, written exp(t log gamma) (t a 0-d
+    tensor in the trace, an int on the plain path), and the terminal cost
+    values the last latent with the last action (TD-MPC feeds its policy's
+    action there)."""
+    g = torch.Generator().manual_seed(seed)
+    n_in = TD_NX + nu
+
+    def linear(a, b):
+        lin = torch.nn.Linear(a, b)
+        k = 1.0 / math.sqrt(a)
+        with torch.no_grad():
+            lin.weight.copy_(torch.rand(b, a, generator=g) * 2 * k - k)
+            lin.bias.copy_(torch.rand(b, generator=g) * 2 * k - k)
+        return lin
+
+    def mlp(out):
+        return torch.nn.Sequential(linear(n_in, TD_H), torch.nn.ELU(), linear(TD_H, TD_H),
+                                   torch.nn.ELU(), linear(TD_H, out)).to(dev)
+
+    def q():
+        return torch.nn.Sequential(linear(n_in, TD_H), torch.nn.LayerNorm(TD_H), torch.nn.Tanh(),
+                                   linear(TD_H, TD_H), torch.nn.ELU(), linear(TD_H, 1)).to(dev)
+
+    dyn_net, rew_net, q1, q2 = mlp(TD_NX), mlp(1), q(), q()
+    log_gamma = math.log(TD_GAMMA)
+
+    def dynamics(z, u, t):
+        return dyn_net(torch.cat([z, u], dim=-1))
+
+    def running_cost(z, u, t):
+        discount = torch.exp(torch.as_tensor(t, device=z.device) * log_gamma)
+        return -discount * rew_net(torch.cat([z, u], dim=-1))[..., 0]
+
+    def terminal_cost(z, u):
+        zu = torch.cat([z, u], dim=-1)
+        return -(TD_GAMMA ** TD_T) * torch.minimum(q1(zu), q2(zu))[..., 0]
+
+    return dynamics, running_cost, terminal_cost
+
+
+def tdmpc_plan(dev):
+    """Phase 4f's traced models and the libraries phase 2 builds for them:
+    the humanoid's world model with its terminal cost (kernel A's three
+    variants and the batched pair) and without (the legacy rollout, which
+    takes none), and the dog's (kernel A).  Returns (callables, models,
+    plan of label -> (kernel, variant))."""
+    from pytorch_mppi_tpu_torch.config import MPPIConfig
+    from pytorch_mppi_tpu_torch.ops import batch_last as BL
+    from pytorch_mppi_tpu_torch.ops import fused_solve as FS
+
+    fns, models, plan = {}, {}, {}
+    for name, nu in (("tdmpc", TD_NU), ("dog", TD_DOG_NU)):
+        start = time.perf_counter()
+        fns[name] = tdmpc_callables(dev, nu)
+        cfg = MPPIConfig(nx=TD_NX, nu=nu, K=TD_K, T=TD_T, step_dependent_dynamics=True)
+        model = BL.kernel_model(cfg, *fns[name][:2])
+        terminal = BL.kernel_terminal(cfg, fns[name][2])
+        models[name] = (model, terminal)
+        kernel = BL.generated_kernel(model, terminal)
+        print(f"# traced world model [{name}] nx={TD_NX} nu={nu}: "
+              f"{time.perf_counter() - start:.1f} s to trace; dense layers (dynamics, running "
+              f"cost; terminal cost) {_dense_layer_shapes(model, terminal)}; "
+              f"{BL._count_ops(model.program, model.outputs)} scalar operations a step; "
+              f"activation rows of {BL.kernel_act_ld(model, terminal)} floats; header "
+              f"{len(kernel.header())} characters")
+        if name == "dog":
+            plan["dog mppi"] = (kernel, FS.MPPI)
+            continue
+        plan.update({f"tdmpc {v}": (kernel, getattr(FS, v.upper()))
+                     for v in ("mppi", "smppi", "kmppi", "batched")})
+        plan["tdmpc rollout"] = (BL.generated_kernel(model, None), FS.ROLLOUT)
+    return fns, models, plan
+
+
+def _dense_layer_shapes(model, terminal):
+    prog, outs = model.program, model.outputs
+    shapes = lambda p, o: [(a, b) for *_, a, b in p.dense_layers(o)]  # noqa: E731
+    return (shapes(prog, outs[:model.nx]), shapes(prog, outs[model.nx:]),
+            shapes(terminal.program, [terminal.output]))
+
+
+def start_builds(plan):
+    """Each (kernel, variant) of ``plan`` built in a thread of its own (one
+    ``nvcc`` each): label -> (thread, kernel, variant, result)."""
+    builds = {}
+    for label, (kernel, variant) in plan.items():
+        result = {}
+
+        def run(kernel=kernel, variant=variant, result=result):
+            start = time.perf_counter()
+            try:
+                kernel.library(variant)
+            except BaseException as e:  # reported, with nvcc's output, after the join
+                result["error"] = e
+            result["wall_s"] = time.perf_counter() - start
+
+        thread = threading.Thread(target=run, name=f"nvcc {label}")
+        thread.start()
+        builds[label] = (thread, kernel, variant, result)
+    return builds
+
+
+def td_operands(dev, gen, nu, x0):
+    """Kernel A's operands for each variant at phase 4f's shape (K = TD_K,
+    T = TD_T): every sample from the latent ``x0``, a nominal U of scale
+    0.3, sigma TD_SIGMA, the drawn rows' and the actions' bounds [-1, 1],
+    the action cost lambda U sigma^-2, lambda TD_LAMBDA."""
+    from pytorch_mppi_tpu_torch import RBFKernel
+    from pytorch_mppi_tpu_torch.ops.kernels import interpolation_operators
+
+    nsp = TD_T // 2
+    D, R_k = TD_T * nu, nsp * nu
+    x0T = x0[:, None].expand(TD_NX, TD_K)
+    full = lambda v, n=D: torch.full((n,), v, device=dev)  # noqa: E731
+    lam, one = torch.tensor(TD_LAMBDA, device=dev), torch.tensor(1.0, device=dev)
+    U2 = torch.randn(D, generator=gen, device=dev) * 0.3
+    a_flat = (TD_LAMBDA * U2 / TD_SIGMA ** 2).contiguous()
+    interp, _ = interpolation_operators(RBFKernel(2.0), TD_T, nsp, torch.float32, device=dev)
+    Wt = torch.kron(interp, torch.eye(nu, device=dev)).contiguous()
+    return x0T, {
+        "mppi": (x0T, U2, full(TD_SIGMA), full(0.0), full(-1.0), full(1.0), a_flat, lam),
+        "smppi": (x0T, U2, torch.randn(D, generator=gen, device=dev) * 0.3, full(TD_SIGMA),
+                  full(0.0), full(-1.0), full(1.0), full(-1.0), full(1.0), a_flat, lam, one, one),
+        "kmppi": (x0T, U2, torch.randn(R_k, generator=gen, device=dev) * 0.3,
+                  full(TD_SIGMA, R_k), full(0.0, R_k), full(-1.0, R_k), full(1.0, R_k),
+                  full(-1.0), full(1.0), a_flat, Wt, lam),
+    }
+
+
+def world_model(dev, gen, plan):
+    """Phase 4f, a TD-MPC world model in the kernels (``TD_*``; traced in
+    phase 2, ``tdmpc_plan``, its libraries built there): its kernels'
+    registers, spill stores (none) and blocks an SM (``block_ptxas``) and
+    each library's ``nvcc`` seconds; kernel A's three variants with the
+    terminal cost, the batched pair (``TD_BATCH_N`` agents) and the legacy
+    rollout (no terminal cost) against their plain versions in bits mode,
+    each cost's error against a float64 rollout within ``F64_FACTOR`` of
+    the float32 plain version's (``f64_agree``, its limit ``lim``), and so
+    each cost within lim + the plain version's error of the plain version's,
+    m, s and delta/s as ``agree``; kernel A again at the dog's ``TD_DOG_NU`` actions; each
+    kernel's device time (a CUDA graph of 20 calls) beside its bounds
+    (``bound``, ``tc_bound``) and its plain version; then the main path,
+    ``TD_COMMANDS`` closed-loop commands of MPPI (``TD_ITERS`` iterations a
+    command, the world model as the plant, in the latent space) with the
+    launch counters showing kernel A's block kernel and no plain path,
+    against the plain route's median, and ``TD_SHORT`` commands of every
+    other route with exact launch counts.  Returns the rows' numbers."""
+    from pytorch_mppi_tpu_torch import KMPPI, MPPI, SMPPI, MPPI_Batched, RBFKernel
+    from pytorch_mppi_tpu_torch.config import MPPIConfig
+    from pytorch_mppi_tpu_torch.ops import _build
+    from pytorch_mppi_tpu_torch.ops import fused_solve as FS
+    from pytorch_mppi_tpu_torch.ops import legacy as LG
+
+    phase_start = time.perf_counter()
+    fns, models = plan["tdmpc_fns"], plan["tdmpc_models"]
+    factories = {"mppi": FS.make_transposed_fused_solve, "smppi": FS.make_transposed_smppi_solve,
+                 "kmppi": FS.make_transposed_kmppi_solve}
+    report = {"timed": {}, "err": {}, "loops": {}, "build_s": {}}
+
+    def reset_launches():
+        for name in FS.launches:
+            FS.launches[name] = 0
+
+    def launched():
+        return {k: v for k, v in FS.launches.items() if v}
+
+    def mark(what):
+        print(f"# phase 4f: {what} done at {time.perf_counter() - phase_start:.1f} s")
+
+    def bits(R, cols):
+        return torch.randint(-2**31, 2**31 - 1, (R, cols), dtype=torch.int32, generator=gen,
+                             device=dev)
+
+    def seed():
+        return tuple(int(v) for v in torch.randint(0, 2**32, (2,), generator=gen, device=dev))
+
+    report["ptxas"] = block_ptxas(plan, [k for k in plan["builds"] if k.split()[0] in
+                                         ("tdmpc", "dog")], named=False)
+    for e in report["ptxas"]:
+        print(f"# ptxas [{e['log']}: {e['name']}]: {e.get('registers')} registers, "
+              f"{e.get('spills')} bytes spill stores, {e.get('stack')} bytes stack frame, "
+              f"{e['blocks_by_registers']} blocks an SM by registers")
+    check(report["ptxas"] and all(e.get("spills") == 0 for e in report["ptxas"]),
+          "a world model's kernel spills (or none was found in the build logs)")
+    report["ptxas_of"] = {}
+    for label, (_, kernel, variant, _) in plan["builds"].items():
+        if label.split()[0] in ("tdmpc", "dog"):
+            report["build_s"][label] = plan["build_s"].get(label)
+            log = _build.generated_path(kernel.header(), 1 << variant).with_suffix(".log").name
+            entries = [e for e in report["ptxas"] if e["log"] == log]
+            if entries:  # the kernel's instantiations, tiles in shared and in global memory
+                report["ptxas_of"][label] = dict(
+                    registers=max(e.get("registers", 0) for e in entries),
+                    spills=max(e.get("spills", 0) for e in entries),
+                    blocks_by_registers=min(e["blocks_by_registers"] for e in entries))
+    print(f"# world model libraries, nvcc seconds: {report['build_s']}")
+
+    def check_kernel_a(variant, name, nu):
+        model, terminal = models[name]
+        cfg = MPPIConfig(nx=TD_NX, nu=nu, K=TD_K, T=TD_T, diag_sigma=True,
+                         step_dependent_dynamics=True, smppi=variant == "smppi",
+                         num_support_pts=TD_T // 2 if variant == "kmppi" else 0)
+        solve = factories[variant](cfg, model, emit_perturbed=True, terminal_final=fns[name][2])
+        x0 = torch.randn(TD_NX, generator=gen, device=dev) * 0.5
+        x0T, ops = td_operands(dev, gen, nu, x0)
+        lead, out = bits(solve.spec.R, solve.bits_cols), []
+        reset_launches()
+        dk, mk, sk, ck, _ = solve(lead, *ops[variant])
+        torch.cuda.synchronize()
+        n_k = launched()
+        plain_ms = events_ms(lambda: out.append(solve.plain(lead, *ops[variant])), 1, warmup=0)
+        dp, mp, sp, cp, pp = out.pop()
+        ok, e_k, e_p, lim, _ = f64_agree(model, ck, cp, pp, x0T, TD_T, nu, terminal=terminal)
+        ok2, c_err, u_err, w_tol = agree(ck, cp, dk / sk, dp / sp, TD_LAMBDA, mk, mp, sk, sp,
+                                         rtol=0.0, atol=lim + e_p)
+        ok = ok and ok2 and n_k == {f"generated_{variant}_block": 1}
+        key = f"{variant}" if name == "tdmpc" else f"{variant} {name}"
+        report["err"][key] = dict(kernel_f64=e_k, plain_f64=e_p, update=u_err)
+        print(f"# world model [{name} {variant} bits] nx={TD_NX} nu={nu} K={TD_K} T={TD_T} "
+              f"S={solve.tile_k} group {solve.act_rows} tiles {solve.tiles}: cost error against "
+              f"float64 kernel {e_k:.3e}, plain {e_p:.3e} ({e_k / max(e_p, 1e-30):.2f}x; limit "
+              f"{lim:.3e}) | kernel against plain {c_err:.3e} | delta/s err {u_err:.3e} (tol "
+              f"{w_tol:.3e}) | launches {n_k}" + ("" if ok else "  <-- FAIL"))
+        check(ok, f"the world model's kernel A disagrees with its plain version: {name}/{variant}")
+        k = seed()
+        args = ops[variant]
+        dev_ms = graph_ms(lambda: solve(k, *args), 20)
+        op = args[3] if variant != "mppi" else args[2]
+        work = fused_work(cfg, model, k, x0T, op, variant=variant, terminal=terminal)
+        f32_ms, _ = bound(work)
+        macs = TD_K * (TD_T * _dense_macs(model) + _dense_macs(terminal))
+        bound_ms, bound_by = tc_bound(work, macs)
+        smem = FS.launch_geometry(solve.spec)["block_smem"]
+        report["timed"][key] = (dev_ms, plain_ms, bound_ms, bound_by, f32_ms)
+        print(f"# kernel alone [{variant} world model {name}] K={TD_K} T={TD_T} seed: device "
+              f"{dev_ms:.6f} ms (a CUDA graph of 20 calls; {-(-TD_K // solve.tile_k)} blocks, "
+              f"{FS.blocks_per_sm(smem)} an SM by its {smem} bytes of shared memory) | plain "
+              f"version {plain_ms:.5f} ms | bound {bound_ms:.6f} ms by {bound_by} with the dense "
+              f"layers on the tensor cores (3xTF32, {macs} multiply-adds): "
+              f"{dev_ms / bound_ms:.1f}x | float32 bound {f32_ms:.6f} ms: {dev_ms / f32_ms:.1f}x "
+              f"| {card_line()}")
+        mark(f"kernel A {name} {variant}")
+
+    print(f"# kernel vs plain [world model]: each cost's error against a float64 rollout of the "
+          f"same actions (its terminal cost too) within {F64_FACTOR}x the float32 plain "
+          f"version's (f64_agree); m, s and delta/s as the other cases (agree)")
+    for variant in FS.VARIANTS:
+        check_kernel_a(variant, "tdmpc", TD_NU)
+    check_kernel_a("mppi", "dog", TD_DOG_NU)
+
+    # the batched pair: TD_BATCH_N agents, each its own latent
+    model, terminal = models["tdmpc"]
+    D = TD_T * TD_NU
+    b_cfg = MPPIConfig(nx=TD_NX, nu=TD_NU, K=TD_K, T=TD_T, diag_sigma=True,
+                       step_dependent_dynamics=True)
+    solve = FS.make_transposed_batched_solve(b_cfg, TD_BATCH_N, model,
+                                             terminal_final=fns["tdmpc"][2])
+    vec = lambda v: torch.full((D,), v, device=dev)  # noqa: E731
+    U2T = (torch.randn(TD_BATCH_N, D, generator=gen, device=dev) * 0.3).T
+    rest = (torch.randn(TD_NX, TD_BATCH_N, generator=gen, device=dev) * 0.5, U2T, vec(TD_SIGMA),
+            vec(0.0), vec(-1.0), vec(1.0), TD_LAMBDA * U2T / TD_SIGMA ** 2,
+            torch.tensor(TD_LAMBDA, device=dev))
+    lead, out = bits(D, solve.bits_cols), []
+    reset_launches()
+    dk, msk, ck = solve(lead, *rest)
+    torch.cuda.synchronize()
+    n_k = launched()
+    plain_ms = events_ms(lambda: out.append(solve.plain(lead, *rest)), 1, warmup=0)
+    dp, msp, cp = out.pop()
+    pert, x0_all = batched_pert(solve, lead, rest, TD_T, TD_NU, TD_K)
+    ok, e_k, e_p, lim, _ = f64_agree(model, ck.reshape(-1), cp.reshape(-1), pert, x0_all, TD_T,
+                                     TD_NU, terminal=terminal)
+    ok2, c_err, u_err, _ = agree(ck, cp, dk / msk[1], dp / msp[1], TD_LAMBDA, msk[0], msp[0],
+                                 msk[1], msp[1], rtol=0.0, atol=lim + e_p)
+    ok = ok and ok2 and n_k == {"generated_batched_block": 2}
+    report["err"]["batched"] = dict(kernel_f64=e_k, plain_f64=e_p, update=u_err)
+    print(f"# world model [batched bits] N={TD_BATCH_N} K={TD_K} P={solve.plant_group} group "
+          f"{solve.act_rows} tiles {solve.tiles}: cost error against float64 kernel {e_k:.3e}, "
+          f"plain {e_p:.3e} (limit {lim:.3e}) | kernel against plain {c_err:.3e} | delta/s err "
+          f"{u_err:.3e} | launches {n_k}" + ("" if ok else "  <-- FAIL"))
+    check(ok, "the world model's batched pair disagrees with its plain version")
+    mark("the batched pair's check")
+    k = seed()
+    dev_ms = graph_ms(lambda: solve(k, *rest), 20)
+    work = fused_work(b_cfg, model, k, rest[0], rest[2], variant="batched", plants=TD_BATCH_N,
+                      terminal=terminal)
+    f32_ms, _ = bound(work)
+    bound_ms, bound_by = tc_bound(work, TD_BATCH_N * TD_K * (TD_T * _dense_macs(model)
+                                                             + _dense_macs(terminal)))
+    report["timed"]["batched"] = (dev_ms, plain_ms, bound_ms, bound_by, f32_ms)
+    print(f"# kernel alone [batched world model] N={TD_BATCH_N} K={TD_K} seed: device "
+          f"{dev_ms:.6f} ms (a CUDA graph of 20 calls) | plain version {plain_ms:.5f} ms | bound "
+          f"{bound_ms:.6f} ms by {bound_by} (tensor cores): {dev_ms / bound_ms:.1f}x | float32 "
+          f"bound {f32_ms:.6f} ms: {dev_ms / f32_ms:.1f}x | {card_line()}")
+
+    # the legacy rollout: the dynamics' and the reward's layers, no terminal cost
+    r = LG.make_fused_rollout(MPPIConfig(nx=TD_NX, nu=TD_NU, K=TD_K, T=TD_T,
+                                         step_dependent_dynamics=True), model)
+    x0 = torch.randn(TD_NX, generator=gen, device=dev) * 0.5
+    x0_K = x0[None].expand(TD_K, TD_NX)
+    u = torch.clamp(torch.randn(TD_K, TD_T, TD_NU, generator=gen, device=dev) * TD_SIGMA, -1, 1)
+    reset_launches()
+    ck = r(x0_K, u)
+    torch.cuda.synchronize()
+    n_k = launched()
+    out = []
+    plain_ms = events_ms(lambda: out.append(r.plain(x0_K, u)), 1, warmup=0)
+    cp = out.pop()
+    ok, e_k, e_p, lim, _ = f64_agree(model, ck, cp, u.reshape(TD_K, -1).T, x0_K.T.contiguous(),
+                                     TD_T, TD_NU)
+    ok = ok and n_k == {"generated_rollout_block": 1}
+    report["err"]["rollout"] = dict(kernel_f64=e_k, plain_f64=e_p)
+    dev_ms = graph_ms(lambda: r(x0_K, u), 20)
+    work = rollout_work(model, x0_K, u)
+    f32_ms, _ = bound(work)
+    bound_ms, bound_by = tc_bound(work, TD_K * TD_T * _dense_macs(model))
+    report["timed"]["rollout"] = (dev_ms, plain_ms, bound_ms, bound_by, f32_ms)
+    print(f"# world model [rollout] K={TD_K} T={TD_T}: cost error against float64 kernel "
+          f"{e_k:.3e}, plain {e_p:.3e} (limit {lim:.3e}) | launches {n_k} | device "
+          f"{dev_ms:.6f} ms | plain version {plain_ms:.5f} ms | bound {bound_ms:.6f} ms by "
+          f"{bound_by} (tensor cores): {dev_ms / bound_ms:.1f}x | float32 bound {f32_ms:.6f} ms"
+          + ("" if ok else "  <-- FAIL"))
+    check(ok, "the world model's rollout disagrees with its plain version")
+    mark("the rollout")
+
+    # the main path: MPPI planning in the latent space, the world model the plant
+    dyn, _, term = fns["tdmpc"]
+
+    def plant(z, a):
+        with torch.no_grad():
+            return dyn(z, a, 0)
+
+    def controller(cls, use_pallas, nu=TD_NU, fn=None, **kw):
+        d, c, t = fn or fns["tdmpc"]
+        built = time.perf_counter()
+        with Captured() as warned:
+            ctrl = cls(d, c, TD_NX, TD_SIGMA ** 2 * torch.eye(nu, device=dev),
+                       num_samples=TD_K, horizon=TD_T, lambda_=TD_LAMBDA,
+                       u_min=-torch.ones(nu, device=dev), u_max=torch.ones(nu, device=dev),
+                       num_iterations=TD_ITERS, step_dependent_dynamics=True, seed=3,
+                       use_pallas=use_pallas, device=dev, **kw)
+        print(f"# phase 4f: {cls.__name__}(use_pallas={use_pallas!r}) built in "
+              f"{time.perf_counter() - built:.1f} s (its trace)")
+        return ctrl, warned.messages
+
+    def loop(ctrl, z, commands, batched=False, step=plant):
+        """``commands`` commands from latent z, the plant ``step``;
+        (per-command host ms, final z)."""
+        times = []
+        with torch.no_grad():
+            for _ in range(commands):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                a = ctrl.command(z)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                check(bool(torch.isfinite(a).all()) and float(a.abs().max()) <= 1.0,
+                      "a world-model command is not finite or out of its bounds")
+                z = step(z, a) if batched else step(z[None], a[None])[0]
+        return times, z
+
+    z0 = torch.randn(TD_NX, generator=gen, device=dev) * 0.5
+    fused, warned = controller(MPPI, True, terminal_final_cost=term)
+    check(fused._fns.fused and not [m for m in warned if "plain torch path" in m],
+          f"the world model's MPPI took the plain path: {warned}")
+    reset_launches()
+    times, z = loop(fused, z0, TD_COMMANDS)
+    n = launched()
+    plain, warned = controller(MPPI, False, terminal_final_cost=term)
+    plain_times, z_p = loop(plain, z0, TD_COMMANDS)
+    med, p_med = statistics.median(times), statistics.median(plain_times)
+    report["loops"]["mppi", "fused"] = dict(launches=n, median_ms=med, plain_median_ms=p_med,
+                                            times_ms=times)
+    print(f"# world model main path [MPPI, {TD_ITERS} iterations a command] {TD_COMMANDS} "
+          f"commands in the latent space: command median {med:.4f} ms (p90 "
+          f"{sorted(times)[int(0.9 * len(times))]:.4f}) against the plain route's "
+          f"{p_med:.4f} ms ({p_med / med:.2f}x) | launches {n} | |z| {float(z0.norm()):.3f} -> "
+          f"{float(z.norm()):.3f} (plain route {float(z_p.norm()):.3f}) | {card_line()}")
+    check(n == {"generated_mppi_block": TD_COMMANDS * TD_ITERS},
+          f"the world model's main path launched {n}, expected generated_mppi_block "
+          f"{TD_COMMANDS * TD_ITERS} and nothing else")
+    del fused, plain
+    mark("the main path")
+
+    # every other route: TD_SHORT commands each, exact launch counts
+    dlim = torch.ones(TD_NU, device=dev)
+    routes = [
+        ("smppi", SMPPI, True, dict(terminal_final_cost=term, w_action_seq_cost=0.1, delta_t=1.0,
+                                    action_min=-dlim, action_max=dlim),
+         dict(generated_smppi_block=TD_ITERS)),
+        ("kmppi", KMPPI, True, dict(terminal_final_cost=term, num_support_pts=TD_T // 2,
+                                    kernel=RBFKernel(2.0)), dict(generated_kmppi_block=TD_ITERS)),
+        ("batched", MPPI_Batched, "kernel_rng", dict(terminal_final_cost=term,
+                                                     num_envs=TD_BATCH_N),
+         dict(generated_batched_block=2 * TD_ITERS)),
+        ("rollout", MPPI, "rollout", {},
+         dict(generated_rollout_block=TD_ITERS, weighted_update=TD_ITERS)),
+        ("dog", MPPI, True, dict(terminal_final_cost=fns["dog"][2]),
+         dict(generated_mppi_block=TD_ITERS)),
+    ]
+    for name, cls, use_pallas, kw, per_command in routes:
+        nu = TD_DOG_NU if name == "dog" else TD_NU
+        ctrl, warned = controller(cls, use_pallas, nu, fns["dog"] if name == "dog" else None,
+                                  **kw)
+        check(ctrl._fns.fused and not [m for m in warned if "plain torch path" in m],
+              f"the world model's {name} route took the plain path: {warned}")
+        zs = z0[None] + 0.3 * torch.randn(TD_BATCH_N, TD_NX, generator=gen, device=dev)
+        step = plant
+        if name == "dog":  # the dog's own latent dynamics
+            def step(z, a, d_dyn=fns["dog"][0]):
+                with torch.no_grad():
+                    return d_dyn(z, a, 0)
+        reset_launches()
+        times, _ = loop(ctrl, zs if name == "batched" else z0, TD_SHORT, name == "batched", step)
+        n = launched()
+        expect = {k: TD_SHORT * v for k, v in per_command.items()}
+        report["loops"][name] = dict(launches=n, median_ms=statistics.median(times))
+        print(f"# world model loop [{name}] {TD_SHORT} commands: median "
+              f"{statistics.median(times):.4f} ms a command (host clock) | launches {n}")
+        check(n == expect, f"the world model's {name} route launched {n}, expected {expect}")
+        del ctrl
+        mark(f"the {name} loop")
+    report["seconds"] = time.perf_counter() - phase_start
+    print(f"# phase 4f, the world model: {report['seconds']:.1f} s")
+    return report
+
+
+def world_kernel_rows(report):
+    """Phase 7's rows for the world model (phase 4f): the generated block
+    kernels of TD-MPC's networks, each with its numbers."""
+    rows = []
+    insts = {"mppi": ("mppi_fused_partial<Generated, 32, ..., kMPPI>", 512, "mppi"),
+             "smppi": ("mppi_fused_partial<Generated, 32, ..., kSMPPI>", 755, "smppi"),
+             "kmppi": ("mppi_fused_partial<Generated, 32, ..., kKMPPI>", 940, "kmppi"),
+             "batched": ("batched_partial<Generated, 32, kGlobal> + flash_merge", 1118, "batched"),
+             "rollout": ("fused_rollout<Generated, 32>", 75, "rollout"),
+             "mppi dog": ("mppi_fused_partial<Generated, 32, ..., kMPPI>", 512, "mppi")}
+    for key, (inst, line, variant) in insts.items():
+        d_ms, p_ms, b_ms, b_by, f32_ms = report["timed"][key]
+        loop = report["loops"]["mppi", "fused"] if key == "mppi" else report["loops"][
+            "dog" if key == "mppi dog" else key]
+        nu = TD_DOG_NU if key == "mppi dog" else TD_NU
+        label = "dog mppi" if key == "mppi dog" else f"tdmpc {variant}"
+        rows.append({
+            "name": f"fused_mppi {key}, TD-MPC world model nx={TD_NX} nu={nu} ({inst}, "
+                    f"Generated::kBlock)",
+            "route": "cuda",
+            "source": "pytorch_mppi_tpu_torch/csrc/fused_mppi.cu",
+            "model_source": "pytorch_mppi_tpu_torch/ops/batch_last.py",
+            "replaces": f"pytorch_mppi_tpu/ops/pallas_rollout.py:{line}",
+            "launches": loop["launches"].get(f"generated_{variant}_block", 0),
+            "max_abs_err": report["err"][key]["kernel_f64"],
+            "max_abs_err_plain_f32": report["err"][key]["plain_f64"],
+            "ms": d_ms,
+            "ms_source": "cuda_graph",
+            "plain_ms": p_ms,
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "bound_ms_float32": f32_ms,
+            "library_ms": None,
+            "build_s": report["build_s"].get(label),
+            **report["ptxas_of"].get(label, {}),
+        })
+    rows[0].update(command_median_ms=report["loops"]["mppi", "fused"]["median_ms"],
+                   plain_command_median_ms=report["loops"]["mppi", "fused"]["plain_median_ms"])
+    return rows
+
+
 def generated_builds(dev):
-    """Trace phase 11's models and start each generated library's build (one
-    ``nvcc`` a model and variant, in a thread), to run beside the named
-    library's build.  Returns the plan: the callables, the traced models and
-    ``builds``, label -> (thread, kernel, variant, result)."""
+    """Trace phase 11's models (and phase 4e's and 4f's) and start each
+    generated library's build (one ``nvcc`` a model and variant, in a
+    thread), to run beside the named library's build.  Returns the plan:
+    the callables, the traced models and ``builds``, label -> (thread,
+    kernel, variant, result)."""
     from pytorch_mppi_tpu_torch.config import MPPIConfig
     from pytorch_mppi_tpu_torch.ops import batch_last as BL
     from pytorch_mppi_tpu_torch.ops import fused_solve as FS
@@ -3451,22 +3991,11 @@ def generated_builds(dev):
             # so its batched library is this one (the same header)
             "lq batched": (BL.generated_kernel(models["lq"], None), FS.BATCHED),
             "terminal mppi": (BL.generated_kernel(models["lq"], models["terminal"]), FS.MPPI)})
-    builds = {}
-    for label, (kernel, variant) in plan.items():
-        result = {}
-
-        def run(kernel=kernel, variant=variant, result=result):
-            start = time.perf_counter()
-            try:
-                kernel.library(variant)
-            except BaseException as e:  # reported, with nvcc's output, after the join
-                result["error"] = e
-            result["wall_s"] = time.perf_counter() - start
-
-        thread = threading.Thread(target=run, name=f"nvcc {label}")
-        thread.start()
-        builds[label] = (thread, kernel, variant, result)
-    return dict(fns=fns, models=models, builds=builds)
+    # phase 4f's world models (the humanoid's and the dog's)
+    td_fns, td_models, td_plan = tdmpc_plan(dev)
+    plan.update(td_plan)
+    return dict(fns=fns, models=models, builds=start_builds(plan), tdmpc_fns=td_fns,
+                tdmpc_models=td_models)
 
 
 def join_generated_builds(plan):
@@ -4171,8 +4700,17 @@ def main():
 
     # -- 2. build ------------------------------------------------------------
     stamp("2")
+    # the named library's build starts first, then the traced models' (their
+    # traces, about 20 s on the host, run while it compiles)
+    named = {}
+    named_build = threading.Thread(target=lambda: named.update(built=_build.build()),
+                                   name="nvcc named")
+    named_build.start()
     gen_plan = generated_builds(dev)  # phase 11's libraries, beside the named one
-    built = _build.build()
+    named_build.join()
+    if "built" not in named:
+        fail("the named library did not build (the nvcc thread's error is above)")
+    built = named["built"]
     build_parts = {}  # each part's nvcc seconds, where this run built the library
     if built is None:
         print(f"# build: {_build.library_path().name} already built")
@@ -5452,12 +5990,12 @@ def main():
             args = operands(variant, cfg, model, rho, 1.0, 0.0, inf,
                             3.0 if variant == "smppi" else inf, 1.0, 1.0, 1.0)
             tiled = {S: factories[variant](cfg, model, tile_k=S) for S in FS.TILES}
-            sweep = in_turns({S: lambda f=f: f((1234, 5678), *args) for S, f in tiled.items()})
+            sweep = sweep_turns({S: lambda f=f: f((1234, 5678), *args) for S, f in tiled.items()})
             rule = FS.tile_samples(K_, FS.sm_count())
             best = min(sweep, key=sweep.get)
             sweeps[variant, shape] = dict(ms=sweep, rule=rule, best=best)
             print(f"# S sweep [{variant} {shape} seed] K={K_} D={T_ * nu}: " + " | ".join(
-                f"S={S} {v:.6f} ms" for S, v in sweep.items()) + f" (CUDA graphs of 20 calls, in turns, mean of 2) | "
+                f"S={S} {v:.6f} ms" for S, v in sweep.items()) + f" ({SWEEP_NOTE}) | "
                 f"the rule's S={rule}: {sweep[rule] / sweep[best]:.3f} of the best (S={best}; "
                 f"limit 1.1)")
             check(sweep[rule] <= 1.1 * sweep[best],
@@ -5647,13 +6185,13 @@ def main():
     # flagship and at D = 300, against the rule's S
     for shape, D_ in (("flagship", T * NU), ("D300", 300)):
         noise_s = noise if D_ == T * NU else torch.randn(K, D_, generator=gen, device=dev)
-        sweep = in_turns({S: lambda f=LG.make_weighted_update(S): f(cost, noise_s, lam1)
+        sweep = sweep_turns({S: lambda f=LG.make_weighted_update(S): f(cost, noise_s, lam1)
                           for S in FS.TILES})
         rule = FS.tile_samples(K, FS.sm_count())
         best = min(sweep, key=sweep.get)
         sweeps["weighted_update", shape] = dict(ms=sweep, rule=rule, best=best)
         print(f"# S sweep [weighted_update {shape}] K={K} D={D_}: " + " | ".join(
-            f"S={S} {v:.6f} ms" for S, v in sweep.items()) + f" (CUDA graphs of 20 calls, in turns, mean of 2) | "
+            f"S={S} {v:.6f} ms" for S, v in sweep.items()) + f" ({SWEEP_NOTE}) | "
             f"the rule's S={rule}: {sweep[rule] / sweep[best]:.3f} of the best (S={best}; "
             f"limit 1.1)")
         check(sweep[rule] <= 1.1 * sweep[best],
@@ -5663,13 +6201,13 @@ def main():
     # at K = 1,000, against the rule's S
     for shape, K_ in (("flagship", K), ("K1000", 1000)):
         cfg_r = MPPIConfig(nx=NX, nu=NU, K=K_, T=T)
-        sweep = in_turns({S: lambda f=LG.make_fused_rollout(cfg_r, lq, tile_k=S):
+        sweep = sweep_turns({S: lambda f=LG.make_fused_rollout(cfg_r, lq, tile_k=S):
                           f(x0_K[:K_], u[:K_]) for S in FS.TILES})
         rule = FS.tile_samples(K_, FS.sm_count())
         best = min(sweep, key=sweep.get)
         sweeps["rollout", shape] = dict(ms=sweep, rule=rule, best=best)
         print(f"# S sweep [rollout {shape}] K={K_} D={T * NU}: " + " | ".join(
-            f"S={S} {v:.6f} ms" for S, v in sweep.items()) + f" (CUDA graphs of 20 calls, in turns, mean of 2) | "
+            f"S={S} {v:.6f} ms" for S, v in sweep.items()) + f" ({SWEEP_NOTE}) | "
             f"the rule's S={rule}: {sweep[rule] / sweep[best]:.3f} of the best (S={best}; "
             f"limit 1.1)")
         check(sweep[rule] <= 1.1 * sweep[best],
@@ -5867,11 +6405,11 @@ def main():
               f"{bound_by} ({work[1]} B, {work[0]} operations)")
     # the round-1 solve's S sweep at the flagship
     tiled = {S: RM.make_fused_solve(flag_cfg, lq, tile_k=S) for S in FS.TILES}
-    sweep = in_turns({S: lambda f=f: f((1234, 5678), *r_args) for S, f in tiled.items()})
+    sweep = sweep_turns({S: lambda f=f: f((1234, 5678), *r_args) for S, f in tiled.items()})
     best = min(sweep, key=sweep.get)
     sweeps["rowmajor", "flagship"] = dict(ms=sweep, rule=solve.tile_k, best=best)
     print(f"# S sweep [rowmajor flagship seed] K={K} D={D}: " + " | ".join(
-        f"S={S} {v:.6f} ms" for S, v in sweep.items()) + f" (CUDA graphs of 20 calls, in turns, mean of 2) | the "
+        f"S={S} {v:.6f} ms" for S, v in sweep.items()) + f" ({SWEEP_NOTE}) | the "
         f"rule's S={solve.tile_k}: {sweep[solve.tile_k] / sweep[best]:.3f} of the best (S={best}; "
         f"limit 1.1)")
     check(sweep[solve.tile_k] <= 1.1 * sweep[best],
@@ -5899,6 +6437,10 @@ def main():
     stamp("4e")
     mlp = learned_dynamics(dev, gen)
     wide = wide_dynamics(dev, gen, mlp["params"], learned_car(dev), gen_plan)
+
+    # -- 4f. a TD-MPC world model in the kernels ----------------------------------
+    stamp("4f")
+    world = world_model(dev, gen, gen_plan)
 
     # -- 5. swing-up -------------------------------------------------------------
     stamp("5")
@@ -6241,6 +6783,7 @@ def main():
                 kernels[-1].update(ms_N16_seed=rep["timed"]["batched_N16_seed"][0],
                                    bound_ms_N16_seed=rep["timed"]["batched_N16_seed"][2])
     kernels += wide_kernel_rows(wide, build_parts, gen_plan["build_s"])
+    kernels += world_kernel_rows(world)
     # phase 9: kernel A with the null gate set against the static null row,
     # split over 8 shards (launches and merge), the largest error of a
     # merged split against the whole launch, and the launches of the

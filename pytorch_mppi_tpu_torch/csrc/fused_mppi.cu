@@ -169,7 +169,15 @@
 // and all threads compute each dense layer (block_dense, block_step) with
 // its unit-wise epilogue (a tanh, a generated model's SiLU), its
 // activations in shared memory after the kernel's own; the samples go
-// through the layers in groups.  What bounds them: the dense layers'
+// through the layers in groups.  A generated block model's running cost
+// may hold dense layers too, which run in the step after the dynamics'
+// (kStepCost), and its traced terminal cost, whose layers every thread runs
+// once after the last step (kBlockTerminal: Model::Terminal through
+// block_step); a LayerNorm of a layer's units runs on its row (block_norm)
+// with the normalisation and what follows it as a unit-wise epilogue.  A
+// block model keeps its state and action in shared memory, so it takes any
+// nx, nu that fit there beside the activations (MAXN bounds the per-sample
+// models' register arrays only).  What bounds them: the dense layers'
 // multiply-adds (72,704 a sample-step for a [16, 256, 256, 12] network), so
 // block_dense runs them on the tensor cores, mma.sync m16n8k8 in 3xTF32
 // (float32's accuracy), a warp's task 32 rows by up to 64 units, its
@@ -676,6 +684,20 @@ constexpr int DENSE_ROWS = 8;
 // shared memory chosen to allow them where it can, so that the 313 blocks
 // of K = 10,000 run in one wave of 396, not two of 264.
 constexpr int BLOCK_MODEL_BLOCKS = 3;
+// ... or Model::kBlocks where the model says so: a generated model whose
+// activations leave room for two blocks an SM only (ops/fused_solve.
+// kernel_a_blocks: TD-MPC's 512 units), whose kernel A spilled at 168
+// registers and takes 255 at two.
+template <class M>
+__host__ __device__ constexpr auto model_blocks(int) -> decltype(M::kBlocks) {
+  return M::kBlocks;
+}
+template <class M>
+__host__ __device__ constexpr int model_blocks(long) {
+  return BLOCK_MODEL_BLOCKS;
+}
+template <class M>
+constexpr int kBlocksOf = model_blocks<M>(0);
 constexpr int DENSE_WARPS = BLOCK / 32;
 constexpr int DENSE_NT = 8;  // n8 tiles of a warp's task at most: 64 units
 // The most inputs of a layer whose products the tensor cores sum into one
@@ -939,19 +961,71 @@ __device__ __forceinline__ void block_dense(const float* __restrict__ W,
   }
 }
 
-// One step of a block model for every sample of the block: every thread
-// calls it at once (it holds barriers), thread `slot` (0 <= slot < slots;
-// -1 for a thread that owns no sample) with its sample's state x and action
-// u (its row of per-sample values).  The samples go through the layers in
-// groups of `rows` (the slots a multiple of it), activation rows of `ld`
-// floats (an act_stride): the group's owners write their first inputs, the
-// block computes each layer, the owners run the segments between and after
-// them.
+// A LayerNorm between two dense layers (a generated model's lnmean and
+// lnrstd of a layer's units, ops/batch_last.py): for each of the `rows` rows
+// of the n units at `out` (rows of ld floats), one warp sums the row for its
+// mean, then the squares of the differences for its biased variance, and
+// rewrites each unit j as post(j, v, mean, 1 / sqrtf(var + eps)) (the
+// normalisation, the affine and what follows it, unit-wise).  Every thread
+// of the block calls it; no barrier inside.
+template <class Post>
+__device__ __forceinline__ void block_norm(float* out, int ld, int rows, int n, float eps,
+                                           Post post) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = warp; r < rows; r += DENSE_WARPS) {
+    float* v = out + (size_t)r * ld;
+    float sum = 0.0f;
+    for (int j = lane; j < n; j += 32) sum += v[j];
+    const float mean = warp_sum(sum) / (float)n;
+    float sq = 0.0f;
+    for (int j = lane; j < n; j += 32) sq += (v[j] - mean) * (v[j] - mean);
+    const float rstd = 1.0f / sqrtf(warp_sum(sq) / (float)n + eps);
+    for (int j = lane; j < n; j += 32) v[j] = post(j, v[j], mean, rstd);
+  }
+}
+
+// Whether a block program leaves its cost in its carry (kStepCost: a
+// generated model whose running cost has dense layers, which run in the
+// step after the dynamics'; a traced terminal cost's program), and whether
+// a model runs its terminal cost as such a program (kBlockTerminal: the
+// struct Model::Terminal, over the terminal's constants); false where the
+// struct says nothing.
+template <class M>
+__host__ __device__ constexpr auto step_cost(int) -> decltype(M::kStepCost) {
+  return M::kStepCost;
+}
+template <class M>
+__host__ __device__ constexpr bool step_cost(long) {
+  return false;
+}
+template <class M>
+constexpr bool kStepCostOf = step_cost<M>(0);
+template <class M>
+__host__ __device__ constexpr auto block_terminal(int) -> decltype(M::kBlockTerminal) {
+  return M::kBlockTerminal;
+}
+template <class M>
+__host__ __device__ constexpr bool block_terminal(long) {
+  return false;
+}
+template <class M>
+constexpr bool kBlockTerminalOf = block_terminal<M>(0);
+
+// One step of a block program (Model: a block model's step, or its
+// Model::Terminal) for every sample of the block: every thread calls it at
+// once (it holds barriers), thread `slot` (0 <= slot < slots; -1 for a
+// thread that owns no sample) with its sample's state x and action u (its
+// row of per-sample values).  The samples go through the layers in groups
+// of `rows` (the slots a multiple of it), activation rows of `ld` floats (an
+// act_stride): the group's owners write their first inputs, the block
+// computes each layer, the owners run the segments between and after them.
+// Returns the owner's cost where the program leaves one (kStepCost), else 0.
 template <class Model, int N>
-__device__ __forceinline__ void block_step(const float* c, float* x, const float* u, int nx,
-                                           int nu, int t, int slot, int slots, int rows, int ld,
-                                           float* act) {
+__device__ __forceinline__ float block_step(const float* c, float* x, const float* u, int nx,
+                                            int nu, int t, int slot, int slots, int rows, int ld,
+                                            float* act) {
   const int layers = Model::layers(c), half = rows * ld;
+  float cost = 0.0f;
   for (int r0 = 0; r0 < slots; r0 += rows) {
     const bool mine = slot >= r0 && slot < r0 + rows;
     float* row = act + (size_t)(mine ? slot - r0 : 0) * ld;
@@ -964,7 +1038,11 @@ __device__ __forceinline__ void block_step(const float* c, float* x, const float
       __syncthreads();  // its outputs are written
       if (mine) Model::template after<N>(l, c, x, u, nx, nu, t, carry, row, half);
     }
+    if constexpr (kStepCostOf<Model>) {
+      if (mine) cost = carry.cost;
+    }
   }
+  return cost;
 }
 
 // The activations of a block model in kernel A, the batched kernel and the
@@ -985,11 +1063,13 @@ __device__ __forceinline__ float* block_state(const Params& p, float* act, int s
 }
 
 // ResidualMLPBlock: the residual MLP of ResidualMLP with its layers split
-// over the block's threads (block_dense), for nx, nu <= MAXN, any number of
-// layers and widths bounded by shared memory (the host picks the group,
-// ops/fused_solve.launch_geometry).  The function of ResidualMLP, its layers
-// on the tensor cores in 3xTF32 (float32's accuracy, the sums in another
-// order), its tanh as the layers' epilogue.
+// over the block's threads (block_dense), for any nx, nu, number of layers
+// and widths that shared memory holds (the host picks the group,
+// ops/fused_solve.launch_geometry; the state and action in a row of
+// shared memory, read with loops over nx and nu, not MAXN arrays).  The
+// function of ResidualMLP, its layers on the tensor cores in 3xTF32
+// (float32's accuracy, the sums in another order), its tanh as the layers'
+// epilogue.
 // consts: a header of BMLP_FIXED floats (0: the layers L; 1-3: clip flag, lo,
 // hi; 4: the cost, 0 pendulum or 1 quadratic; 5-7: 0), the L + 1 widths, nx
 // flags (bit 0: wrap the dimension, bit 1: encode it as sin, cos), the
@@ -1015,22 +1095,17 @@ struct ResidualMLPBlock {
     const float* flag = dims(c);
     const bool clip = c[1] != 0.0f;
     int f = 0;
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      if (i < nx) {
-        const int kind = (int)flag[i];
-        const float xs = kind & 1 ? Pendulum::angle_normalize(x[i]) : x[i];
-        if (kind & 2) {
-          row[f++] = sinf(xs);
-          row[f++] = cosf(xs);
-        } else {
-          row[f++] = xs;
-        }
+    for (int i = 0; i < nx; ++i) {
+      const int kind = (int)flag[i];
+      const float xs = kind & 1 ? Pendulum::angle_normalize(x[i]) : x[i];
+      if (kind & 2) {
+        row[f++] = sinf(xs);
+        row[f++] = cosf(xs);
+      } else {
+        row[f++] = xs;
       }
     }
-#pragma unroll
-    for (int j = 0; j < N; ++j)
-      if (j < nu) row[f++] = clip ? fminf(fmaxf(u[j], c[2]), c[3]) : u[j];
+    for (int j = 0; j < nu; ++j) row[f++] = clip ? fminf(fmaxf(u[j], c[2]), c[3]) : u[j];
   }
 
   // layer l reads half l % 2 of the activations and writes the other
@@ -1057,14 +1132,11 @@ struct ResidualMLPBlock {
     if (l + 1 < L) return;
     const float* h = row + (L & 1) * half;
     const float* flag = dims(c);
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      if (i < nx) {
-        const bool wrap = (int)flag[i] & 1;
-        const float xs = wrap ? Pendulum::angle_normalize(x[i]) : x[i];
-        const float v = xs + h[i];
-        x[i] = wrap ? Pendulum::angle_normalize(v) : v;
-      }
+    for (int i = 0; i < nx; ++i) {
+      const bool wrap = (int)flag[i] & 1;
+      const float xs = wrap ? Pendulum::angle_normalize(x[i]) : x[i];
+      const float v = xs + h[i];
+      x[i] = wrap ? Pendulum::angle_normalize(v) : v;
     }
   }
 
@@ -1074,12 +1146,9 @@ struct ResidualMLPBlock {
     if (c[4] == 0.0f) return Pendulum::cost<N>(c, x, u, nx, nu, t);
     const float* goal = dims(c) + nx;
     float s = 0.0f;
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      if (i < nx) {
-        const float d = goal[i] - x[i];
-        s += d * d;
-      }
+    for (int i = 0; i < nx; ++i) {
+      const float d = goal[i] - x[i];
+      s += d * d;
     }
     return s;
   }
@@ -1111,13 +1180,30 @@ __device__ __forceinline__ float quadratic_terminal(const float* c, const float*
 #include FUSED_MPPI_MODEL_HEADER
 #endif
 
+// quadratic_terminal for a block model, whose state and action lie in
+// shared memory (any nx, nu): the same sums in the same order, in loops
+// over nx and nu.
+__device__ __forceinline__ float quadratic_terminal_rows(const float* c, const float* x,
+                                                         const float* u, int nx, int nu) {
+  float sx = 0.0f, su = 0.0f;
+  for (int i = 0; i < nx; ++i) {
+    const float d = x[i] - c[i];
+    sx += d * d;
+  }
+  for (int j = 0; j < nu; ++j) su += u[j] * u[j];
+  return c[nx] * sx + c[nx + 1] * su;
+}
+
 // The final-state terminal cost of a rollout: the model's own (kTerminal,
 // with the constants at p.terminal) or quadratic_terminal where p.terminal
-// is set; 0 otherwise.
+// is set; 0 otherwise.  (A block model's traced terminal cost with dense
+// layers, kBlockTerminal, runs as a block program instead: block_step.)
 template <class Model, int N>
 __device__ __forceinline__ float final_cost(const Params& p, const float* x, const float* u,
                                             int nx, int nu) {
   if constexpr (Model::kTerminal) return Model::template terminal<N>(p.terminal, x, u, nx, nu);
+  if constexpr (kBlockOf<Model>)
+    return p.terminal ? quadratic_terminal_rows(p.terminal, x, u, nx, nu) : 0.0f;
   return p.terminal ? quadratic_terminal<N>(p.terminal, x, u, nx, nu) : 0.0f;
 }
 
@@ -1451,11 +1537,21 @@ __device__ __forceinline__ float block_sample_cost(const Params& p, const float*
         u[j] = a * p.u_scale;
       }
     }
-    block_step<Model, N>(p.consts, x, u, nx, nu, t, slot, p.S, p.act_rows,
-                         act_stride(p.act_ld), act);
-    if (own) total += Model::template cost<N>(p.consts, x, u, nx, nu, t);
+    const float sc = block_step<Model, N>(p.consts, x, u, nx, nu, t, slot, p.S, p.act_rows,
+                                          act_stride(p.act_ld), act);
+    if constexpr (kStepCostOf<Model>) {
+      if (own) total += sc;
+    } else {
+      if (own) total += Model::template cost<N>(p.consts, x, u, nx, nu, t);
+    }
   }
-  if (own && (Model::kTerminal || p.terminal)) total += final_cost<Model, N>(p, x, u, nx, nu);
+  if constexpr (kBlockTerminalOf<Model>) {  // its layers on every thread
+    const float tc = block_step<typename Model::Terminal, N>(
+        p.terminal, x, u, nx, nu, p.T, slot, p.S, p.act_rows, act_stride(p.act_ld), act);
+    if (own) total += tc;
+  } else if (own && (Model::kTerminal || p.terminal)) {
+    total += final_cost<Model, N>(p, x, u, nx, nu);
+  }
   return (V == kSMPPI ? pc + *p.w_seq * smooth : pc) + total;
 }
 
@@ -1489,7 +1585,7 @@ __device__ __forceinline__ float block_sample_cost(const Params& p, const float*
 // was added, and its D = 300 full-operator call took 1.13x as long
 // (tools/batched_host_ab.py on an H100; PERF.md has the times).
 template <class Model, int N, bool kGlobal, int V>
-__global__ void __launch_bounds__(BLOCK, kBlockOf<Model> ? BLOCK_MODEL_BLOCKS : 2)
+__global__ void __launch_bounds__(BLOCK, kBlockOf<Model> ? kBlocksOf<Model> : 2)
     mppi_fused_partial(Params p) {
   extern __shared__ float smem[];
   __shared__ int ticket;
@@ -1859,11 +1955,18 @@ __device__ __forceinline__ float block_batched_cost(const Params& p, const float
       const int d = t * nu + j;
       u[j] = clamped_action(p, cur[d], col[d * LDT], pc) * p.u_scale;
     }
-    block_step<Model, N>(p.consts, x, u, nx, nu, t, slot, BLOCK, p.act_rows,
-                         act_stride(p.act_ld), act);
-    total += Model::template cost<N>(p.consts, x, u, nx, nu, t);
+    const float sc = block_step<Model, N>(p.consts, x, u, nx, nu, t, slot, BLOCK, p.act_rows,
+                                          act_stride(p.act_ld), act);
+    if constexpr (kStepCostOf<Model>)
+      total += sc;
+    else
+      total += Model::template cost<N>(p.consts, x, u, nx, nu, t);
   }
-  if (Model::kTerminal || p.terminal) total += final_cost<Model, N>(p, x, u, nx, nu);
+  if constexpr (kBlockTerminalOf<Model>)  // its layers on every thread
+    total += block_step<typename Model::Terminal, N>(p.terminal, x, u, nx, nu, p.T, slot, BLOCK,
+                                                     p.act_rows, act_stride(p.act_ld), act);
+  else if (Model::kTerminal || p.terminal)
+    total += final_cost<Model, N>(p, x, u, nx, nu);
   return pc + total;
 }
 
@@ -2080,9 +2183,13 @@ __device__ __forceinline__ float block_rollout_steps(const Params& p, const floa
   for (int t = 0; t < steps; ++t) {
     if (slot >= 0)
       for (int j = 0; j < nu; ++j) u[j] = own ? row[t * nu + j] : 0.0f;
-    block_step<Model, N>(p.consts, x, u, nx, nu, t0 + t, slot, p.S, p.act_rows,
-                         act_stride(p.act_ld), act);
-    if (own) total += Model::template cost<N>(p.consts, x, u, nx, nu, t0 + t);
+    const float sc = block_step<Model, N>(p.consts, x, u, nx, nu, t0 + t, slot, p.S,
+                                          p.act_rows, act_stride(p.act_ld), act);
+    if constexpr (kStepCostOf<Model>) {
+      if (own) total += sc;
+    } else {
+      if (own) total += Model::template cost<N>(p.consts, x, u, nx, nu, t0 + t);
+    }
   }
   return total;
 }
@@ -2784,10 +2891,15 @@ using Launcher = cudaError_t (*)(const Params&, int, size_t, cudaStream_t);
 
 #ifdef FUSED_MPPI_GENERATED
 // The generated model's launcher: the variants of the mask
-// FUSED_MPPI_GENERATED only, on register arrays of Generated::kN.
+// FUSED_MPPI_GENERATED only, on register arrays of Generated::kN; a block
+// model's kernels keep its state and action in shared memory and read no
+// array of N (instantiated at MAXN, as ResidualMLPBlock's), so it may hold
+// more than MAXN.
 cudaError_t launch_generated(const Params& p, int v, size_t smem, cudaStream_t s) {
-  constexpr int mask = FUSED_MPPI_GENERATED, N = Generated::kN;
-  static_assert(N >= 1 && N <= MAXN, "a generated model holds at most MAXN states and actions");
+  constexpr int mask = FUSED_MPPI_GENERATED;
+  constexpr int N = kBlockOf<Generated> ? MAXN : Generated::kN;
+  static_assert(kBlockOf<Generated> || (N >= 1 && N <= MAXN),
+                "a per-sample generated model holds at most MAXN states and actions");
   if (v < kMPPI || v > kRollout || !((mask >> v) & 1)) return cudaErrorInvalidValue;
   if constexpr (((mask >> kRollout) & 1) != 0) {
     if (v == kRollout) return launch_rollout<Generated, N>(p, smem, s);
@@ -2968,11 +3080,11 @@ constexpr int RESIDUAL_MLP_BLOCK = 4;  // ResidualMLPBlock's model id
 
 // The launcher of a variant for a device model (by id) and its register size
 // (2, 8 or MAXN), or null.  The residual MLP takes nx, nu <= MLP_MAX_N;
-// ResidualMLPBlock runs on the MAXN arrays.
+// ResidualMLPBlock any nx, nu (its kernels, instantiated at MAXN, keep them
+// in shared memory).
 Launcher find_launcher(int variant, int model_id, int nx, int nu) {
   const int n = nx > nu ? nx : nu;
-  if (model_id == RESIDUAL_MLP_BLOCK)
-    return n > MAXN ? nullptr : variant == kBatched ? batched_bmlp32 : launch_bmlp32;
+  if (model_id == RESIDUAL_MLP_BLOCK) return variant == kBatched ? batched_bmlp32 : launch_bmlp32;
   const Launcher single[4][3] = {{launch_lq2, launch_lq8, launch_lq32},
                                  {launch_pendulum2, nullptr, nullptr},
                                  {launch_toy2, launch_toy8, launch_toy32},

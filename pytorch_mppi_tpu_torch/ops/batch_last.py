@@ -31,12 +31,16 @@ together, JAX's batched @ constant (``_dot_general_batch_last``).
    or ``addmm`` (what ``nn.Linear`` lowers to) of a batched (B, n_in)
    value with a constant (n_in, n_out) matrix (and a constant bias) is one
    ``dense`` node with n_out outputs, whose weights stay in the constants
-   (the dynamics only: the costs stay scalar).  The vocabulary, in aten
-   terms:
-   elementwise arithmetic and transcendentals, comparisons, ``where`` /
-   ``clamp`` / ``remainder`` / ``fmod`` / ``atan2`` and casts; reductions
-   over feature axes (``sum``, ``mean``, ``amax``, ``amin``, ``prod``,
-   ``any``, ``all``, vector norms, ``softmax``); ``mm`` / ``bmm`` /
+   (in the dynamics, the running cost and the terminal cost alike; beyond
+   ``MAXN`` states or actions always, where only a block model runs).  The
+   vocabulary, in aten terms:
+   elementwise arithmetic and transcendentals (``elu``, ``silu``,
+   ``gelu``, ``softplus``, ``leaky_relu`` among them), comparisons,
+   ``where`` / ``clamp`` / ``remainder`` / ``fmod`` / ``atan2`` and casts;
+   reductions over feature axes (``sum``, ``mean``, ``amax``, ``amin``,
+   ``prod``, ``any``, ``all``, vector norms, ``softmax``), and
+   ``native_layer_norm`` over trailing feature axes (its row's statistics,
+   ``lnmean`` and ``lnrstd`` nodes, then elementwise); ``mm`` / ``bmm`` /
    ``addmm`` / ``mv`` / ``dot`` of a batched value with a constant on either
    side and the per-sample contractions that ``einsum`` quadratic forms
    lower to; ``expand``, ``view`` / ``reshape`` on feature axes, ``permute``,
@@ -52,7 +56,7 @@ together, JAX's batched @ constant (``_dot_general_batch_last``).
    ``MAX_OPS`` as scalars is emitted as scalars.
 3. **Plain version.** :meth:`Program.evaluate` runs the nodes on
    ``(K,)``-batched torch tensors, one torch op a node (a dense node one
-   product plus its bias).  It is the generated
+   product plus its bias, a statistic one reduction).  It is the generated
    device model's plain ``dynamics`` / ``running_cost``, so the CPU tests
    exercise the translation and not the user's callable.
 4. **Emit.** :meth:`GeneratedKernel.header` writes the nodes as the C++
@@ -61,7 +65,13 @@ together, JAX's batched @ constant (``_dot_general_batch_last``).
    functions only (no intrinsics, no fast math), so the same text compiles
    as host C++; a program with dense layers as a block model
    (:meth:`Program.emit_block`: its segments between the layers, the
-   ``block_dense`` calls, ``kBlock``).  Tensor constants are read from the model's float32
+   ``block_dense`` calls, a LayerNorm between two layers as ``block_norm``
+   with its unit-wise epilogue, ``kBlock``; a running cost with dense
+   layers runs in the step after the dynamics, ``kStepCost``, and a
+   terminal cost with them as ``struct Terminal``, ``kBlockTerminal``).  A
+   program without dense layers holds at most ``MAXN`` states and actions
+   (the per-sample models' register arrays); a block model keeps them in
+   shared memory.  Tensor constants are read from the model's float32
    ``consts`` buffer (the terminal cost's from its own), never written as
    literals, so two models that differ only in their weights give the same
    source and share one library; Python numbers in the callables are code,
@@ -99,6 +109,7 @@ import itertools
 import math
 import operator
 import struct
+import types
 from typing import Callable, Optional
 
 import numpy as np
@@ -108,7 +119,7 @@ from .kernel_models import GENERATED, KernelModel, KernelTerminal, find_kernel_m
 
 PROBE_BATCH = 509  # the batch the callables are traced at (a prime no feature axis is)
 MAX_OPS = 16_384  # scalar operations of one step besides dense layers: dynamics and running cost
-MAXN = 32  # the largest nx or nu of a device model (MAXN in fused_mppi.cu)
+MAXN = 32  # the largest nx or nu of a per-sample device model (MAXN in fused_mppi.cu)
 
 F, I, B = "f", "i", "b"  # the kinds of a scalar node: float, integer, bool
 
@@ -200,6 +211,7 @@ def _float_literal(v: float) -> str:
 
 
 _LEAVES = ("x", "u", "t", "const", "lit")
+_STATS = ("lnmean", "lnrstd")  # a LayerNorm's statistics of a row of nodes
 
 
 class Program:
@@ -212,8 +224,11 @@ class Program:
     dense layer, ``("dense", F, w, b, n_out, *inputs)``, the product of its
     n_in input nodes with the (n_in, n_out) row-major matrix at entry ``w``
     of the constants, plus the n_out floats at ``b`` (none where ``b`` is
-    -1), whose outputs are the nodes ``("dout", F, dense, j)``.  Equal nodes
-    are one node (common subexpressions are shared)."""
+    -1), whose outputs are the nodes ``("dout", F, dense, j)``; and a
+    LayerNorm's statistics of a row of nodes, ``("lnmean", F, *row)``, its
+    mean, and ``("lnrstd", F, eps, mean, *row)``, 1 / sqrt(the biased
+    variance + eps), ``eps`` a literal node.  Equal nodes are one node
+    (common subexpressions are shared)."""
 
     def __init__(self):
         self.nodes: list = []
@@ -294,6 +309,11 @@ class Program:
                 v = X @ W if b < 0 else torch.addmm(consts[b:b + n_out], X, W)
             elif op == "dout":
                 v = vals[a[0]][:, a[1]]
+            elif op in _STATS:  # a row's mean, or 1 / sqrt(its biased variance + eps)
+                rows = a[2:] if op == "lnrstd" else a
+                X = torch.stack([_broadcast(vals[i], x[:, 0]) for i in rows], dim=1)
+                v = X.mean(1) if op == "lnmean" else torch.rsqrt(
+                    ((X - vals[a[1]][..., None]) ** 2).mean(1) + vals[a[0]])
             elif op == "neg":
                 v = -vals[a[0]]
             elif len(a) == 1:
@@ -335,6 +355,11 @@ class Program:
             e = f"(({ty})({v[0]}))" if kind != B else f"({v[0]} != 0)"
         elif op == "where":
             e = f"({v[0]} ? {v[1]} : {v[2]})"
+        elif op == "lnmean":
+            e = f"(({' + '.join(v)}) / {_float_literal(len(v))})"
+        elif op == "lnrstd":
+            sq = " + ".join(f"({r} - {v[1]}) * ({r} - {v[1]})" for r in v[2:])
+            e = f"(1.0f / sqrtf(({sq}) / {_float_literal(len(v) - 2)} + {v[0]}))"
         elif op == "neg":
             e = f"(-{v[0]})"
         elif op == "not":
@@ -370,7 +395,16 @@ class Program:
         activation);
         ``stride``, a constant node of unit 0 -> its offset's step a unit.
         None where a unit has no such node or two, where the units'
-        expressions differ, or where the result is the output itself."""
+        expressions differ, or where the result is the output itself.
+
+        A layer whose results a LayerNorm reads (:meth:`_norm_epilogue`:
+        ``lnmean`` and ``lnrstd`` of one result a unit, in order) has a
+        ``norm`` (its statistics ``mean`` and ``rstd``, either None, and
+        ``eps``): its ``nodes``, ``results`` and ``stride`` are then the
+        epilogue after the norm, whose nodes read one unit's result, the
+        statistics and constants, and ``pre`` the epilogue before it (its
+        ``results`` and ``stride``; None where the norm reads the layer's
+        outputs themselves)."""
         live = self.live(outputs)
         dense = [n for n in live if self.nodes[n][0] == "dense"]
         users = {}
@@ -396,6 +430,10 @@ class Program:
                       if self.nodes[a][0] not in ("const", "lit")}
                 if len(js) == 1 and None not in js:
                     unit[n] = js.pop()
+            norm = self._norm_epilogue(live, unit, n_out, users, out_set)
+            if norm is not None:
+                epilogues.append(norm)
+                continue
             results = {}
             for n, j in unit.items():
                 if n in out_set or any(u not in unit for u in users.get(n, ())):
@@ -405,57 +443,133 @@ class Program:
                 epilogues.append(None)
                 continue
             results = {j: r[0] for j, r in results.items()}
-
-            def sig(n, idx):
-                node = self.nodes[n]
-                if node[0] == "dout":
-                    return ("v",)
-                if node[0] == "const":
-                    idx.append((n, node[2]))
-                    return ("c",)
-                if node[0] == "lit":
-                    return node
-                return (node[0], node[1], *(sig(a, idx) for a in node[2:]))
-
-            idx0 = []
-            shape = sig(results[0], idx0)
-            stride, ok = {}, shape != ("v",)
-            for j in range(1, n_out) if ok else ():
-                idx = []
-                if sig(results[j], idx) != shape:
-                    ok = False
-                    break
-                for (n0, i0), (_, ij) in zip(idx0, idx):
-                    step = stride.setdefault(n0, ij - i0)
-                    if ij != i0 + step * j:
-                        ok = False
-                if not ok:
-                    break
-            epilogues.append(dict(nodes=unit, results=results, stride=stride) if ok else None)
+            stride = self._uniform(results, n_out, self._dout_leaf)
+            epilogues.append(None if stride is None else
+                             dict(nodes=unit, results=results, stride=stride))
         return epilogues
 
-    def emit_block(self, outputs) -> list:
-        """The members of a block model's struct ``Generated`` (the
-        interface of ``csrc/fused_mppi.cu``'s block models) for the step
-        whose next-state nodes are ``outputs``: the live dense nodes run in
-        order, layer l after segment l, each with its unit-wise epilogue
-        (:meth:`unit_wise`; a functor ``Unit<i>`` for each distinct one) on
-        all the block's threads; segment 0 (``begin``) and segment l + 1 (``after``'s case
-        l) hold the per-sample rest, the scalar nodes whose latest input is
-        layer l's output (segment 0: none), run by each sample's owner; each
+    def _dout_leaf(self, n):
+        return ("v",) if self.nodes[n][0] == "dout" else None
+
+    def _uniform(self, results, n_out: int, leaf):
+        """The strides of the constants of ``results`` (unit j -> node): a
+        constant node of unit 0 -> its offset's step a unit, where every
+        unit's result is the same expression of its unit's leaf
+        (``leaf(node)``: its signature, or None for an inner node) with
+        constants at offsets affine in j; None where they differ, or where
+        the result is the leaf itself."""
+        def sig(n, idx):
+            s = leaf(n)
+            if s is not None:
+                return s
+            node = self.nodes[n]
+            if node[0] == "const":
+                idx.append((n, node[2]))
+                return ("c",)
+            if node[0] == "lit":
+                return node
+            return (node[0], node[1], *(sig(a, idx) for a in node[2:]))
+
+        idx0 = []
+        shape = sig(results[0], idx0)
+        if leaf(results[0]) is not None:
+            return None
+        stride = {}
+        for j in range(1, n_out):
+            idx = []
+            if sig(results[j], idx) != shape:
+                return None
+            for (n0, i0), (_, ij) in zip(idx0, idx):
+                step = stride.setdefault(n0, ij - i0)
+                if ij != i0 + step * j:
+                    return None
+        return stride
+
+    def _norm_epilogue(self, live, unit: dict, n_out: int, users: dict, out_set: set):
+        """A dense layer's epilogue around a LayerNorm of its units (see
+        :meth:`unit_wise`), or None where there is none or where it is not
+        unit-wise: the statistics must read one result of each unit in
+        order and be read by the post-norm nodes alone, and no node before
+        the norm may be read beyond it but the results."""
+        stats = {}
+        for n in live:
+            node = self.nodes[n]
+            if node[0] in _STATS:
+                row = node[2:] if node[0] == "lnmean" else node[4:]
+                if len(row) == n_out and all(unit.get(i) == j for j, i in enumerate(row)):
+                    stats[n] = tuple(row)
+        if not stats or len(set(stats.values())) != 1:
+            return None
+        row = next(iter(stats.values()))
+        mean = [n for n in stats if self.nodes[n][0] == "lnmean"]
+        rstd = [n for n in stats if self.nodes[n][0] == "lnrstd"]
+        if len(mean) > 1 or len(rstd) > 1 or (rstd and mean != [self.nodes[rstd[0]][3]]):
+            return None
+        at = {r: j for j, r in enumerate(row)}
+        post = {}
+        for n in live:
+            op = self.nodes[n][0]
+            if op in _LEAVES or op in ("dense", "dout") or n in unit or n in stats:
+                continue
+            args = [a for a in self.nodes[n][2:]
+                    if self.nodes[a][0] not in ("const", "lit") and a not in stats]
+            js = {post[a] if a in post else at.get(a) for a in args}
+            if len(js) == 1 and None not in js:
+                post[n] = js.pop()
+        inside = set(unit) | set(post) | set(stats)
+        if any(u not in inside for s in stats for u in users.get(s, ())):
+            return None
+        if any(n in out_set or any(u not in inside for u in users.get(n, ()))
+               for n in unit if n not in at):
+            return None
+        results = {}
+        for n, j in post.items():
+            if n in out_set or any(u not in inside for u in users.get(n, ())):
+                results.setdefault(j, []).append(n)
+        if (sorted(results) != list(range(n_out)) or any(len(r) != 1 for r in results.values())
+                or any(self.kind(r[0]) != F for r in results.values())
+                or any(r in out_set or any(u not in inside for u in users.get(r, ()))
+                       for r in row)):
+            return None
+        results = {j: r[0] for j, r in results.items()}
+        stride = self._uniform(results, n_out, lambda n: ("v",) if n in at else
+                               ("s", self.nodes[n][0]) if n in stats else None)
+        if stride is None:
+            return None
+        pre = None
+        if any(self.nodes[r][0] != "dout" for r in row):
+            pre_stride = self._uniform(dict(enumerate(row)), n_out, self._dout_leaf)
+            if pre_stride is None:
+                return None
+            pre = dict(results=dict(enumerate(row)), stride=pre_stride)
+        eps = self.nodes[self.nodes[rstd[0]][2]][2] if rstd else 0.0
+        return dict(nodes={**unit, **post}, results=results, stride=stride, pre=pre,
+                    norm=dict(mean=mean[0] if mean else None, rstd=rstd[0] if rstd else None,
+                              eps=eps, stats=sorted(stats)), post=post)
+
+    def _block_phase(self, outputs, final: str, prefix: str):
+        """One program of a block model's struct (:meth:`emit_block`): the
+        live dense nodes of ``outputs`` in order, layer l after segment l,
+        each with its unit-wise epilogue (:meth:`unit_wise`) on all the
+        block's threads; segment 0 and segment l + 1 (after layer l) hold
+        the per-sample rest, the scalar nodes whose latest input is layer
+        l's output (segment 0: none), run by each sample's owner; each
         segment ends by writing the next layer's inputs into the sample's
         activation row, unless they are the previous layer's results in
         order (the next layer then reads them where the epilogue left them),
-        and the last one by writing x.  Layer l reads half h_l of the
-        activations and writes the other.  A node that a later segment reads
-        stays in the owner's registers in ``Carry``; a leaf is read where it
-        is used."""
+        and the last one by writing x (``final`` "x": the next state) or the
+        carry's ``cost`` (``final`` "cost").  Layer l reads half h_l of the
+        activations and writes the other.  A node that a later segment
+        reads stays in the owner's registers in ``Carry``, as ``prefix`` and
+        its id; a leaf is read where it is used."""
         live = self.live(outputs)
         dense = [n for n in live if self.nodes[n][0] == "dense"]
         phase = {d: i for i, d in enumerate(dense)}
         last = len(dense)
         epi = self.unit_wise(outputs)
-        hidden = set().union(*(set(e["nodes"]) - set(e["results"].values()) for e in epi if e))
+        hidden = set().union(*(set(e["nodes"]) - set(e["results"].values())
+                               | set(e["norm"]["stats"] if "norm" in e else ())
+                               for e in epi if e))
         result_at = {r: j for e in epi if e for j, r in e["results"].items()}
         # a layer reads its inputs where the previous layer left them: direct
         direct = [False]
@@ -505,7 +619,7 @@ class Program:
                             | {a for a in ins if self.nodes[a][0] in _LEAVES})
 
             def name(a):
-                return f"v{a}" if a not in seg or seg[a] == s else f"k.v{a}"
+                return f"v{a}" if a not in seg or seg[a] == s else f"k.{prefix}{a}"
 
             body = [f"    const {_C_TYPE[self.kind(a)]} v{a} = {self._expr(a, name)};"
                     for a in leaves]
@@ -515,79 +629,179 @@ class Program:
                      f"out[{result_at[n]}]" if n in result_at else self._expr(n, name))
                 body.append(f"    const {_C_TYPE[self.kind(n)]} v{n} = {e};")
                 if n in carried:
-                    body.append(f"    k.v{n} = v{n};")
+                    body.append(f"    k.{prefix}{n} = v{n};")
             if s < last:
                 body += [f"    row[{half[s]} * half + {i}] = {name(a)};" for i, a in enumerate(ins)]
-            else:
+            elif final == "x":
                 body += [f"    x[{i}] = {name(a)};" for i, a in enumerate(ins)]
+            else:
+                body.append(f"    k.cost = {name(ins[0])};")
+            if s > 0 and any("out[" in line for line in body):
+                body.insert(0, f"    const float* out = row + {1 - half[s - 1]} * half;")
             return body
 
-        def unit(l: int) -> list:
-            """Layer l's epilogue as statements of unit j's output ``v``, its
-            nodes renamed in order (so that layers with the same expression
-            give the same text)."""
-            e = epi[l]
-            d0 = next(n for n, j in e["nodes"].items() if j == 0 and self.nodes[n][0] == "dout")
-            mine = [n for n in live if e["nodes"].get(n) == 0 and n != d0]
+        def functor(nodes, v0, result0, stride, named) -> list:
+            """An epilogue as statements of unit j's input ``v`` (the
+            node ``v0`` of unit 0), its nodes of unit 0 renamed in order (so
+            that layers with the same expression give the same text)."""
+            mine = [n for n in live if nodes.get(n) == 0 and n != v0]
             local = {n: f"w{i}" for i, n in enumerate(mine)}
 
             def name(a):
                 node = self.nodes[a]
-                if a == d0:
+                if a == v0:
                     return "v"
+                if a in named:
+                    return named[a]
                 if node[0] == "const":
-                    return f"c[{node[2]} + {e['stride'][a]} * j]"
+                    return f"c[{node[2]} + {stride.get(a, 0)} * j]"
                 return self._expr(a, None) if node[0] == "lit" else local[a]
 
             body = [f"      const {_C_TYPE[self.kind(n)]} {local[n]} = {self._expr(n, name)};"
                     for n in mine]
-            return body + [f"      return {local[e['results'][0]]};"]
+            return body + [f"      return {local[result0]};"]
 
-        # one functor a distinct epilogue, so that block_dense is inlined
-        # once for each and its elements branch on nothing
-        units, functor = [], []
-        for l in range(last):
-            body = unit(l) if epi[l] else None
-            if body is not None and body not in units:
-                units.append(body)
-            functor.append(units.index(body) if body is not None else -1)
-        members = [f"    {_C_TYPE[self.kind(n)]} v{n};" for n in carried]
-        lines = ["  static constexpr bool kBlock = true;",
-                 "  struct Carry {", *members, "  };",
-                 f"  __device__ static int layers(const float*) {{ return {last}; }}"]
+        def pre_unit(l: int):
+            """Layer l's epilogue before any norm (``block_dense``'s), or None."""
+            e = epi[l]
+            if e is None:
+                return None
+            if "norm" in e:
+                e = e["pre"]
+                if e is None:
+                    return None
+            d0 = next(n for n in live if self.nodes[n][0] == "dout"
+                      and self.nodes[n][2] == dense[l] and self.nodes[n][3] == 0)
+            nodes = {n: j for n, j in epi[l]["nodes"].items() if n not in epi[l].get("post", {})}
+            return functor(nodes, d0, e["results"][0], e["stride"], {})
+
+        def post_unit(l: int):
+            """Layer l's epilogue after its norm (``block_norm``'s), or None."""
+            e = epi[l]
+            if e is None or "norm" not in e:
+                return None
+            nm = e["norm"]
+            r0 = e["pre"]["results"][0] if e["pre"] else next(
+                n for n in live if self.nodes[n][0] == "dout"
+                and self.nodes[n][2] == dense[l] and self.nodes[n][3] == 0)
+            named = {nm["mean"]: "mean", nm["rstd"]: "rstd"}
+            return functor(e["post"], r0, e["results"][0], e["stride"], named), nm["eps"]
+
+        return types.SimpleNamespace(layers=self.dense_layers(outputs), half=half, last=last,
+                                     carried=carried, prefix=prefix, final=final,
+                                     segment=segment, pre=pre_unit, post=post_unit)
+
+    def emit_block(self, outputs, cost=None) -> list:
+        """The members of a block model's struct ``Generated`` (the
+        interface of ``csrc/fused_mppi.cu``'s block models) for the step
+        whose next-state nodes are ``outputs`` (:meth:`_block_phase`), and
+        where ``cost`` is given (a running cost with dense layers) the
+        cost's program after it, its layers after the dynamics' and its
+        first segment after their last, leaving the cost in the carry
+        (``kStepCost``)."""
+        phases = [self._block_phase(list(outputs), "x", "v")]
+        head = ["  static constexpr bool kBlock = true;"]
+        if cost is not None:
+            phases.append(self._block_phase([cost], "cost", "c"))
+            head.append("  static constexpr bool kStepCost = true;")
+        return self._emit_phases(phases, head)
+
+    def emit_terminal(self, output) -> list:
+        """The members of ``Generated`` for a terminal cost with dense
+        layers: the struct ``Terminal``, a block program
+        (:meth:`_block_phase`) over the terminal's own constants that leaves
+        the cost in its carry, which the kernels run on every thread once
+        after the last step."""
+        body = self._emit_phases([self._block_phase([output], "cost", "v")],
+                                 ["  static constexpr bool kStepCost = true;"])
+        return ["  static constexpr bool kBlockTerminal = true;",
+                "  // the terminal cost's program: block_step over its own constants",
+                "  struct Terminal {", *[f"  {line}" for line in body], "  };"]
+
+    def _emit_phases(self, phases, head) -> list:
+        """The struct members of block programs run one after the other in
+        one step (``layers``, ``dense``, ``begin``, ``after``, ``Carry``):
+        program i's layers after program i - 1's, its first segment joined
+        to the last segment of the one before."""
+        units, norms, rows = [], [], []
+        for ph in phases:
+            for l, (_, w, b, n_in, n_out) in enumerate(ph.layers):
+                body, post = ph.pre(l), ph.post(l)
+                if body is not None and body not in units:
+                    units.append(body)
+                f = units.index(body) if body is not None else -1
+                g = eps = None
+                if post is not None:
+                    if post[0] not in norms:
+                        norms.append(post[0])
+                    g, eps = norms.index(post[0]), post[1]
+                rows.append((w, b, n_in, n_out, ph.half[l], f, g, eps))
+        members = [f"    {_C_TYPE[self.kind(n)]} {ph.prefix}{n};" for ph in phases
+                   for n in ph.carried]
+        if any(ph.final == "cost" for ph in phases):
+            members.append("    float cost;")
+        total = len(rows)
+        lines = [*head, "  struct Carry {", *members, "  };",
+                 f"  __device__ static int layers(const float*) {{ return {total}; }}"]
         for i, body in enumerate(units):
             lines += [f"  // a layer's unit-wise epilogue on unit j's output v (block_dense)",
                       f"  struct Unit{i} {{",
                       "    const float* c;",
                       "    __device__ float operator()(int j, float v) const {", *body, "    }",
                       "  };"]
+        for i, body in enumerate(norms):
+            lines += ["  // a LayerNorm's epilogue on unit j's output v and its row's statistics "
+                      "(block_norm)",
+                      f"  struct Norm{i} {{",
+                      "    const float* c;",
+                      "    __device__ float operator()(int j, float v, float mean, float rstd) "
+                      "const {", *body, "    }",
+                      "  };"]
         lines += ["  __device__ static void dense(int l, const float* c, float* act, int ld, "
                   "int rows, int) {",
-                  "    int w = 0, b = -1, n_in = 0, n_out = 0, h = 0, f = -1;",
-                  "    switch (l) {"]
-        for i, (_, w, b, n_in, n_out) in enumerate(self.dense_layers(outputs)):
+                  "    int w = 0, b = -1, n_in = 0, n_out = 0, h = 0, f = -1;"]
+        if norms:
+            lines += ["    int g = -1;", "    float eps = 0.0f;"]
+        lines.append("    switch (l) {")
+        for i, (w, b, n_in, n_out, h, f, g, eps) in enumerate(rows):
+            norm = "" if g is None else f" g = {g}; eps = {_float_literal(eps)};"
             lines.append(f"      case {i}: w = {w}; b = {b}; n_in = {n_in}; n_out = {n_out}; "
-                         f"h = {half[i]}; f = {functor[i]}; break;")
+                         f"h = {h}; f = {f};{norm} break;")
         call = ("block_dense(c + w, b >= 0 ? c + b : nullptr, n_in, n_out, n_out, act + h * half, "
                 "act + (1 - h) * half, ld, rows, ")
         lines += ["    }", "    const int half = rows * ld;"]
         for i in range(len(units)):
             lines.append(f"    {'if' if i == 0 else 'else if'} (f == {i}) {call}Unit{i}{{c}});")
         lines.append(f"    {'else ' if units else ''}{call}DenseLinear{{}});")
-        lines += ["  }",
-                  "  template <int N>",
+        if norms:
+            lines.append("    if (g >= 0) __syncthreads();  // the layer's outputs are written")
+            for i in range(len(norms)):
+                lines.append(f"    {'if' if i == 0 else 'else if'} (g == {i}) block_norm("
+                             f"act + (1 - h) * half, ld, rows, n_out, eps, Norm{i}{{c}});")
+        lines.append("  }")
+
+        def combined(s: int) -> list:
+            """Segment s of the programs together: each program's own."""
+            parts, at = [], 0
+            for ph in phases:
+                if at <= s <= at + ph.last:
+                    parts.append(ph.segment(s - at))
+                at += ph.last
+            if len(parts) == 1:
+                return parts[0]
+            return [line for part in parts for line in ("    {", *[f"  {x}" for x in part],
+                                                        "    }")]
+
+        lines += ["  template <int N>",
                   "  __device__ static void begin(const float* c, const float* x, const float* u, "
-                  "int, int, int t, Carry& k, float* row, int half) {", *segment(0), "  }",
+                  "int, int, int t, Carry& k, float* row, int half) {", *combined(0), "  }",
                   "  template <int N>",
                   "  __device__ static void after(int l, const float* c, float* x, const float* u, "
                   "int, int, int t, Carry& k, float* row, int half) {",
                   "    switch (l) {"]
-        for s in range(1, last + 1):
-            body = segment(s)
-            if any("out[" in line for line in body):
-                body.insert(0, f"    const float* out = row + {1 - half[s - 1]} * half;")
-            lines += [f"      case {s - 1}: {{", *[f"    {b}" for b in body], "        break;",
-                      "      }"]
+        for s in range(1, total + 1):
+            lines += [f"      case {s - 1}: {{", *[f"    {b}" for b in combined(s)],
+                      "        break;", "      }"]
         lines += ["    }", "  }"]
         return lines
 
@@ -1047,6 +1261,58 @@ class _Tracer:
         return self.finish(meta, self.ew(meta, lambda x: self.L.where(
             self.L.binary("gt", x, self.L.lit(0.0, F)), x,
             self.L.binary("mul", x, self.L.lit(negative_slope, F))), a))
+
+    def op_elu(self, meta, a, alpha=1.0, scale=1.0, input_scale=1.0):
+        # torch's elu: x > 0 ? scale x : alpha scale (exp(input_scale x) - 1)
+        L = self.L
+
+        def f(x):
+            pos = x if scale == 1 else L.binary("mul", x, L.lit(scale, F))
+            neg = L.unary("expm1", x if input_scale == 1 else
+                          L.binary("mul", x, L.lit(input_scale, F)))
+            if alpha * scale != 1:
+                neg = L.binary("mul", neg, L.lit(alpha * scale, F))
+            return L.where(L.binary("gt", x, L.lit(0.0, F)), pos, neg)
+        return self.finish(meta, self.ew(meta, f, a))
+
+    def op_native_layer_norm(self, meta, a, normalized_shape, weight=None, bias=None, eps=1e-5):
+        """LayerNorm over the trailing ``normalized_shape`` feature axes:
+        per row the statistics ``lnmean`` and ``lnrstd`` (1 / sqrt(var +
+        eps), the biased variance), then (x - mean) rstd (times the weight,
+        plus the bias) elementwise; also the (.., 1) mean and rstd."""
+        a = self.sym(a)
+        nd, r = len(normalized_shape), len(a.shape)
+        if a.bdim is not None and a.bdim >= r - nd:
+            raise UnsupportedPrimitive("layer_norm over the batch axis")
+        if any(_is_sym(v) and v.bdim is not None for v in (weight, bias)):
+            raise UnsupportedPrimitive("layer_norm with a batched weight or bias")
+        L = self.L
+        e = a.elems
+        lead = e.shape[:e.ndim - nd]
+        flat = e.reshape(lead + (-1,))
+        n = flat.shape[-1]
+        w, b = (None if v is None else L.full_elems(v).reshape(-1) for v in (weight, bias))
+        out = np.empty(flat.shape, dtype=object)
+        mean = np.empty(lead, dtype=object)
+        rstd = np.empty(lead, dtype=object)
+        for idx in itertools.product(*(range(k) for k in lead)):
+            row = [L.cast(i, F) for i in flat[idx]]
+            m = self.L.p.add("lnmean", F, *row)
+            s = self.L.p.add("lnrstd", F, L.lit(eps, F), m, *row)
+            mean[idx], rstd[idx] = m, s
+            for j, x in enumerate(row):
+                y = L.binary("mul", L.binary("sub", x, m), s)
+                if w is not None:
+                    y = L.binary("mul", y, w[j])
+                if b is not None:
+                    y = L.binary("add", y, b[j])
+                out[idx + (j,)] = y
+        stat_shape = lead + (1,) * nd
+        return (self.finish(meta[0], _Sym(tuple(meta[0].shape), a.bdim, out.reshape(e.shape), F)),
+                self.finish(meta[1], _Sym(tuple(meta[1].shape), a.bdim,
+                                          mean.reshape(stat_shape), F)),
+                self.finish(meta[2], _Sym(tuple(meta[2].shape), a.bdim,
+                                          rstd.reshape(stat_shape), F)))
 
     def op_where(self, meta, c, a, b):
         return self.finish(meta, self.ew(meta, self.L.where, c, a, b))
@@ -1784,11 +2050,18 @@ class GeneratedModel(KernelModel):
         return ns, self.running_cost(ns, action, t)
 
     def activation_ld(self) -> int:
-        """Floats of an activation row of its dense layers (the widest, in or
-        out, rounded up to four); 0 for a program without dense layers."""
-        widest = max((max(n_in, n_out) for *_, n_in, n_out
-                      in self.program.dense_layers(self.outputs[:self.nx])), default=0)
-        return -(-widest // 4) * 4
+        """Floats of an activation row of its dense layers, the dynamics' and
+        the running cost's (the widest, in or out, rounded up to four); 0 for
+        a program without dense layers."""
+        return _widest(self.program, self.outputs)
+
+
+def _widest(prog: Program, outputs) -> int:
+    """The widest dense layer of the outputs, in or out, rounded up to four
+    floats; 0 for none."""
+    widest = max((max(n_in, n_out) for *_, n_in, n_out in prog.dense_layers(outputs)),
+                 default=0)
+    return -(-widest // 4) * 4
 
 
 def _stack(vals, like: torch.Tensor) -> torch.Tensor:
@@ -1807,6 +2080,12 @@ class GeneratedTerminal(KernelTerminal):
     program: Program = None
     output: int = -1
     consts64: torch.Tensor = None
+
+    def activation_ld(self) -> int:
+        """Floats of an activation row of its dense layers (0 for none): a
+        terminal cost with dense layers runs as a block program after the
+        last step (``struct Terminal``)."""
+        return _widest(self.program, [self.output])
 
 
 def _inputs(prog: Program, nx: int, nu: int) -> tuple:
@@ -1833,7 +2112,7 @@ def _trace_into(prog: Program, pool: list, fn: Callable, nx: int, nu: int, want:
                           dict(zip(names, _inputs(prog, nx, nu))), want), device
 
 
-def _lower(trace: Callable, what: str):
+def _lower(trace: Callable, what: str, wide: bool = False):
     """``trace(dense) -> (program, pool, outputs, ...)`` lowered as the
     kernels take it: the scalar program where it has at most ``MAX_OPS``
     operations, as without dense nodes; else with each product of a batched
@@ -1842,12 +2121,13 @@ def _lower(trace: Callable, what: str):
     The scalar lowering is tried only where the dense one's operations,
     with the products counted as their scalar dot products, come within
     twice the bound (sharing common subexpressions, a scalar lowering only
-    shrinks that count)."""
+    shrinks that count), and never for a model ``wide`` beyond ``MAXN``
+    states or actions, which only a block model holds."""
     dense = trace(True)
     prog, outs = dense[0], dense[2]
     n_ops = _count_ops(prog, outs)
     layers = prog.dense_layers(outs)
-    if not layers:
+    if not layers or wide:
         out, n_scalar = dense, n_ops
     else:
         out = None
@@ -1884,14 +2164,12 @@ def trace_program(fn: Callable, nx: int, nu: int, want: list, dtype=torch.float3
 
 
 def _trace_pair(config, dynamics: Callable, running_cost: Callable, dense: bool = False):
-    """The program of the dynamics (its products as dense nodes where
-    ``dense``) and then of the running cost (always scalar), ``(program,
-    pool, next-state nodes + (cost node,))``."""
+    """The program of the dynamics and then of the running cost (their
+    products as dense nodes where ``dense``), ``(program, pool, next-state
+    nodes + (cost node,))``."""
     from .solve import wrap_cost, wrap_dynamics
 
     nx, nu, dtype = config.nx, config.nu, config.dtype
-    if max(nx, nu) > MAXN:
-        raise UnsupportedPrimitive(f"nx={nx}, nu={nu}: the device models hold at most {MAXN}")
     dyn = wrap_dynamics(config, dynamics)
     cost = wrap_cost(config, running_cost)
     prog, pool = Program(), []
@@ -1900,14 +2178,18 @@ def _trace_pair(config, dynamics: Callable, running_cost: Callable, dense: bool 
     with torch.no_grad():  # the cost is traced at states the dynamics give
         ns = dyn(_probe(nx, dtype, 0).to(device), _probe(nu, dtype, 1).to(device), 0)
     (cost_out,), _ = _trace_into(prog, pool, lambda s_, u_, t_: cost(s_, u_, t_), nx, nu, [1],
-                                 dtype, True, state=ns.detach())
+                                 dtype, True, state=ns.detach(), dense=dense)
     return prog, pool, tuple(step_out) + (cost_out[0],)
 
 
 def _count_ops(prog: Program, outputs) -> int:
     """The scalar operations of the program's live nodes: every node but the
-    leaves and the dense layers (:func:`dense_ops` counts those)."""
-    return sum(1 for n in prog.live(outputs)
+    leaves and the dense layers (:func:`dense_ops` counts those), a
+    LayerNorm's statistics of n values as n (the mean) and 3n + 2 (the
+    rstd)."""
+    ops = {"lnmean": lambda n: n, "lnrstd": lambda n: 3 * (n - 2) + 2}
+    return sum(ops[prog.nodes[n][0]](len(prog.nodes[n]) - 2) if prog.nodes[n][0] in ops else 1
+               for n in prog.live(outputs)
                if prog.nodes[n][0] not in _LEAVES + ("dense", "dout"))
 
 
@@ -1925,10 +2207,16 @@ def trace_model(config, dynamics: Callable, running_cost: Callable) -> Generated
     :class:`UnsupportedPrimitive` for a program outside the vocabulary (see
     the module docstring), and lets a ValueError or TypeError of the user's
     code through."""
+    nx, nu = config.nx, config.nu
+    wide = max(nx, nu) > MAXN
     prog, pool, outputs = _lower(
-        lambda dense: _trace_pair(config, dynamics, running_cost, dense), "a program")[:3]
-    return generated_model(prog, outputs, config.nx, config.nu,
-                           torch.tensor(pool or [0.0], dtype=torch.float64))
+        lambda dense: _trace_pair(config, dynamics, running_cost, dense), "a program", wide)[:3]
+    if wide and not prog.dense_layers(outputs):
+        raise UnsupportedPrimitive(
+            f"nx={nx}, nu={nu}: a program without dense layers runs on the per-sample device "
+            f"models, which hold at most {MAXN} states and actions (ROADMAP.md Queue 2a step 3b; "
+            f"a block model, with dense layers, holds more)")
+    return generated_model(prog, outputs, nx, nu, torch.tensor(pool or [0.0], dtype=torch.float64))
 
 
 def generated_model(prog: Program, outputs, nx: int, nu: int,
@@ -1974,13 +2262,14 @@ def trace_terminal(config, terminal_final_cost: Callable) -> GeneratedTerminal:
 
     nx, nu, dtype = config.nx, config.nu, config.dtype
     term = wrap_final_cost(terminal_final_cost)
-    prog, pool = Program(), []
-    (out,), _ = _trace_into(prog, pool, lambda s_, u_: term(s_, u_), nx, nu, [1], dtype,
-                            False, seed=2)
-    n_ops = _count_ops(prog, out)
-    if n_ops > MAX_OPS:
-        raise UnsupportedPrimitive(f"a terminal cost of {n_ops} scalar operations (the bound "
-                                   f"is {MAX_OPS})")
+
+    def trace(dense):
+        prog, pool = Program(), []
+        (out,), _ = _trace_into(prog, pool, lambda s_, u_: term(s_, u_), nx, nu, [1], dtype,
+                                False, seed=2, dense=dense)
+        return prog, pool, out
+
+    prog, pool, out = _lower(trace, "a terminal cost", max(nx, nu) > MAXN)
     return generated_terminal(prog, out[0], nx, torch.tensor(pool or [0.0], dtype=torch.float64))
 
 
@@ -2021,6 +2310,24 @@ def kernel_model(config, dynamics: Callable, running_cost: Callable) -> KernelMo
     return model if model is not None else trace_model(config, dynamics, running_cost)
 
 
+def kernel_act_ld(model: KernelModel, terminal: Optional[KernelTerminal]) -> int:
+    """Floats of an activation row of the kernel of a model and a terminal
+    cost: the widest of their dense layers (``kernel_models.
+    activation_ld``; a traced terminal cost's run after the last step,
+    :meth:`Program.emit_terminal`), 0 for a per-sample kernel.  Raises
+    :class:`UnsupportedPrimitive` for a terminal cost with dense layers
+    beside a named per-sample model, whose kernels hold no activations."""
+    from .kernel_models import activation_ld
+
+    ld = activation_ld(model)
+    term = terminal.activation_ld() if isinstance(terminal, GeneratedTerminal) else 0
+    if term and not ld and not isinstance(model, GeneratedModel):
+        raise UnsupportedPrimitive(
+            f"a traced terminal cost with dense layers beside the per-sample kernel model "
+            f"{model.name!r} (the kernels of a traced or a block model run its layers)")
+    return max(ld, term)
+
+
 def kernel_terminal(config, terminal_final_cost: Callable) -> Optional[KernelTerminal]:
     """The kernel terminal cost of a ``terminal_final_cost``: the named one it
     carries (:func:`~.kernel_models.quadratic_terminal`), else its trace
@@ -2056,6 +2363,7 @@ def _header(model: KernelModel, terminal: Optional[GeneratedTerminal]) -> str:
     generated = isinstance(model, GeneratedModel)
     n = max(model.nx, model.nu)
     base = "" if generated else f" : {_NAMED_STRUCTS[model.model_id]}"
+    dense_terminal = terminal is not None and terminal.activation_ld() > 0
     lines = [
         "// A device model generated by pytorch_mppi_tpu_torch/ops/batch_last.py from",
         "// the user's torch callables: one statement a node of the traced program.",
@@ -2065,21 +2373,34 @@ def _header(model: KernelModel, terminal: Optional[GeneratedTerminal]) -> str:
         _HELPERS,
     ]
     if generated:
-        prog = model.program
-        if prog.dense_layers(model.outputs[:model.nx]):  # a block model (fused_mppi.cu)
-            lines += prog.emit_block(list(model.outputs[:model.nx]))
+        prog, nx = model.program, model.nx
+        cost = model.outputs[nx]
+        dense_cost = bool(prog.dense_layers([cost]))
+        if prog.dense_layers(model.outputs) or dense_terminal:  # a block model (fused_mppi.cu)
+            # a running cost with dense layers runs in the step, after the dynamics
+            lines += prog.emit_block(list(model.outputs[:nx]), cost if dense_cost else None)
         else:
-            body, names = prog.emit(list(model.outputs[:model.nx]))
+            body, names = prog.emit(list(model.outputs[:nx]))
             lines += ["  template <int N>",
                       "  __device__ static void step(const float* c, float* x, const float* u, "
                       "int, int, int t) {", *body,
                       *[f"    x[{i}] = {nm};" for i, nm in enumerate(names)], "  }"]
-        body, names = prog.emit([model.outputs[model.nx]])
-        lines += ["  template <int N>",
-                  "  __device__ static float cost(const float* c, const float* x, "
-                  "const float* u, int, int, int t) {", *body,
-                  f"    return {names[0]};", "  }"]
-    if terminal:
+        if not dense_cost:
+            body, names = prog.emit([cost])
+            lines += ["  template <int N>",
+                      "  __device__ static float cost(const float* c, const float* x, "
+                      "const float* u, int, int, int t) {", *body,
+                      f"    return {names[0]};", "  }"]
+    ld = kernel_act_ld(model, terminal) if dense_terminal or generated else 0
+    if ld:
+        from .fused_solve import KERNEL_A_BLOCK_BLOCKS, kernel_a_blocks
+
+        blocks = kernel_a_blocks(ld, model.nx, model.nu)
+        if blocks != KERNEL_A_BLOCK_BLOCKS:
+            lines.append(f"  static constexpr int kBlocks = {blocks};  // kernel A's blocks an SM")
+    if dense_terminal:
+        lines += terminal.program.emit_terminal(terminal.output)
+    elif terminal:
         body, names = terminal.program.emit([terminal.output])
         lines += ["  template <int N>",
                   "  __device__ static float terminal(const float* c, const float* x, "
@@ -2124,9 +2445,7 @@ class GeneratedKernel:
     def block(self) -> bool:
         """Whether its kernels run a block model (dense layers, or the named
         ``ResidualMLPBlock``): their launches count under ``*_block``."""
-        from .kernel_models import activation_ld
-
-        return activation_ld(self.model) > 0
+        return kernel_act_ld(self.model, self.terminal) > 0
 
     def header(self) -> str:
         """The C++ struct ``Generated`` for ``csrc/fused_mppi.cu``."""

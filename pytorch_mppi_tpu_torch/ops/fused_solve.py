@@ -290,6 +290,18 @@ def activation_rows(slots: int, ld: int, bases, nx: int = 0, nu: int = 0,
     return pick
 
 
+def kernel_a_blocks(act_ld: int, nx: int, nu: int) -> int:
+    """Kernel A's blocks an SM for a block model, to which its launch
+    bounds hold its registers (``kBlocks`` in a generated model's struct,
+    fused_mppi.cu's ``kBlocksOf``): ``KERNEL_A_BLOCK_BLOCKS`` where a whole
+    m16 tile of samples' activations and the rows of 32 samples' state,
+    beside kernel A's head, let that many blocks share an SM; else two (at
+    TD-MPC's 512 units shared memory holds two, and at three blocks' 168
+    registers a thread its kernel A spilled)."""
+    smem = activation_bytes(4 * (_HEAD - _MERGE_CHUNK_A), KM.DENSE_TILE, act_ld, TILES[0], nx, nu)
+    return KERNEL_A_BLOCK_BLOCKS if blocks_per_sm(smem) >= KERNEL_A_BLOCK_BLOCKS else 2
+
+
 def partial_tiles(variant: int, full_op: bool) -> int:
     """Kernel A's (D, S) tiles: one for MPPI with a diagonal scale, else two."""
     return 1 if variant == MPPI and not full_op else 2
@@ -775,9 +787,13 @@ def as_kernel_model(config: MPPIConfig, model) -> KernelModel:
     return model
 
 
-def check_kernel_model(config: MPPIConfig, model: KernelModel):
+def check_kernel_model(config: MPPIConfig, model: KernelModel, act_ld: int = None):
     """The checks every kernel of ``fused_mppi.cu`` makes of its config and
-    device model."""
+    device model; ``act_ld`` the kernel's activation row where a traced
+    terminal cost's layers widen it (``batch_last.kernel_act_ld``), else
+    the model's.  A per-sample model holds at most ``MAXN`` states and
+    actions (register arrays); a block model keeps them in shared memory,
+    bounded, with its activations, by a block's."""
     nx, nu = config.nx, config.nu
     if config.dtype != torch.float32:
         raise ValueError("the fused solve requires float32")
@@ -785,29 +801,29 @@ def check_kernel_model(config: MPPIConfig, model: KernelModel):
         raise ValueError(
             f"kernel model {model.name!r} is (nx={model.nx}, nu={model.nu}); "
             f"the config is (nx={nx}, nu={nu})")
-    if model.model_id == KM.RESIDUAL_MLP_BLOCK and max(nx, nu) > _MAXN:
+    ld = KM.activation_ld(model) if act_ld is None else act_ld
+    if not ld and max(nx, nu) > _MAXN:
         raise FusedSolveUnavailable(
-            f"the residual MLP's kernels take nx, nu <= {_MAXN}; this one has nx={nx}, nu={nu}")
-    if max(nx, nu) > _MAXN:
-        raise FusedSolveUnavailable(
-            f"nx={nx}, nu={nu}: the kernel's device models hold at most {_MAXN} of each")
+            f"nx={nx}, nu={nu}: the kernel's per-sample device models hold at most {_MAXN} of "
+            f"each (ROADMAP.md Queue 2a step 3b; a block model, with dense layers, holds more)")
     if config.step_dependent_dynamics and not isinstance(model, BL.GeneratedModel):
         raise FusedSolveUnavailable(
             f"step_dependent_dynamics with the named kernel model {model.name!r}, which takes "
             f"no timestep (only a traced model does: ops/batch_last.py)")
-    ld = KM.activation_ld(model)
-    if ld and (activation_bytes(0, KM.DENSE_ROWS, ld, _BLOCK, nx, nu)
-               > MAX_SMEM_BYTES - 4 * _HEAD):
+    room = MAX_SMEM_BYTES - 4 * _HEAD
+    if ld and activation_bytes(0, KM.DENSE_ROWS, ld, _BLOCK, nx, nu) > room:
         what = ("the residual MLP's block kernels" if model.model_id == KM.RESIDUAL_MLP_BLOCK
                 else "a block model's kernels")
-        room = MAX_SMEM_BYTES - 4 * (_HEAD + _BLOCK * state_ld(nx, nu))
+        rows = room - 4 * _BLOCK * state_ld(nx, nu)
+        states = (room - activation_bytes(0, KM.DENSE_ROWS, ld)) // (4 * _BLOCK)
         raise FusedSolveUnavailable(
             f"{what} keep two activation rows of the widest layer for each of at least "
-            f"{KM.DENSE_ROWS} samples, and a row of state and action for each of "
-            f"{_BLOCK}, in shared memory beside their own, of the {MAX_SMEM_BYTES} bytes a "
-            f"block may use: widths up to about {room // (8 * KM.DENSE_ROWS) - 32} here; the "
-            f"widest layer here needs {ld} floats a row "
-            f"({activation_bytes(0, KM.DENSE_ROWS, ld)} bytes)")
+            f"{KM.DENSE_ROWS} samples, and a row of state and action (nx + 2 nu floats) for "
+            f"each of {_BLOCK}, in shared memory beside their own, of the {MAX_SMEM_BYTES} "
+            f"bytes a block may use: widths up to about {rows // (8 * KM.DENSE_ROWS) - 32} and "
+            f"nx + 2 nu up to about {max(states - 1, 0)} here; the widest layer here needs {ld} "
+            f"floats a row ({activation_bytes(0, KM.DENSE_ROWS, ld)} bytes), and nx + 2 nu is "
+            f"{nx + 2 * nu}")
     if model.model_id == KM.RESIDUAL_MLP:
         head = KM.mlp_header(model.consts)
         if (max(nx, nu) > KM.MLP_MAX_N or head["layers"] > KM.MLP_MAX_LAYERS
@@ -1090,7 +1106,8 @@ def _make_launch(variant: int, config: MPPIConfig, model: KernelModel, R: int,
     # where it cannot be traced, which the routing takes to the plain path)
     terminal = BL.kernel_terminal(config, terminal_final)
     model = as_kernel_model(config, model)
-    check_kernel_model(config, model)
+    act_ld = BL.kernel_act_ld(model, terminal)
+    check_kernel_model(config, model, act_ld)
     model_id = BL.launch_id(model, terminal)
     K, T, nx, nu = config.K, config.T, config.nx, config.nu
     if terminal is not None and terminal.nx != nx:  # the kernel reads goal[:nx]
@@ -1112,7 +1129,7 @@ def _make_launch(variant: int, config: MPPIConfig, model: KernelModel, R: int,
                       int(config.antithetic), int(config.sample_null_action),
                       int(config.noise_abs_cost), int(full_op), int(emit_perturbed), plants,
                       group, _BLOCK if batched else check_tile(tile_k, K), int(noise_operand), E,
-                      0, *shard, KM.activation_ld(model))
+                      0, *shard, act_ld)
     geo = launch_geometry(spec)
     spec_ints, u_scale = list(spec), float(config.u_scale)
     flags = dict(model=model, K=K, T=T, nu=nu, antithetic=config.antithetic,

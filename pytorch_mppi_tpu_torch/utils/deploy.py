@@ -50,10 +50,12 @@ Guarantees and limits:
   there is no card raises: it is never moved to the CPU;
 - a live ``info`` payload raises a ValueError (the exported body takes
   ``info=None``), a file of a version this build does not read a
-  ValueError (it reads versions 1, without kernels, 2, 3 and 4; version 4
+  ValueError (it reads versions 1, without kernels, 2, 3, 4 and 5; version 4
   adds the block models, the residual MLP beyond its per-thread bounds
-  and traced programs with dense layers, which a build before it does not
-  run, so it refuses their files by their version).  A file of
+  and traced programs with dense layers, version 5 traced programs with a
+  LayerNorm's statistics, dense layers in a running or terminal cost and
+  more than 32 states or actions, which a build before each does not run,
+  so it refuses their files by their version).  A file of
   version 1 or 2 whose programs run the residual MLP's device model
   raises a ValueError too: its constants hold the goal in the 16-float
   header of before, which the kernels no longer read (export it again);
@@ -84,10 +86,12 @@ from . import checkpoint as _ckpt
 logger = logging.getLogger(__name__)
 
 # version 4: block models (kernel_models.RESIDUAL_MLP_BLOCK, generated programs
-# with dense layers), the launch spec's act_ld and the rollout's; a build before
-# it refuses such a file by its version
-_FORMAT_VERSION = 4
-_READS = (1, 2, 3, 4)  # version 1 carries no generated kernels
+# with dense layers), the launch spec's act_ld and the rollout's; version 5:
+# programs with the nodes lnmean and lnrstd (a LayerNorm), dense layers in a
+# running or terminal cost (struct Terminal) and block models beyond 32 states
+# or actions; a build before each refuses such a file by its version
+_FORMAT_VERSION = 5
+_READS = (1, 2, 3, 4, 5)  # version 1 carries no generated kernels
 # the first version whose residual-MLP constants have the header of
 # kernel_models.MLP_HEAD floats (20, the goal's nx <= 8 floats from 12 on)
 _MLP_LAYOUT = 3

@@ -202,7 +202,7 @@ class TestExportRoundtrip:
         with the goal in the header of 16 floats, which the kernels no
         longer read: loading one raises; the same file as version 3 loads
         (the per-thread MLP's constants and launches are version 3's; the
-        file is written as version 4)."""
+        file is written as version 5)."""
         model = _learned_car()
         ctrl = P.MPPI(model.dynamics, model.running_cost, 4, torch.eye(1), num_samples=32,
                       horizon=4, seed=SEED, use_pallas=True, device="cpu")
@@ -210,7 +210,7 @@ class TestExportRoundtrip:
         deploy.export_solver(ctrl, path)
         tree = ckpt.load(path)
         meta = json.loads(tree["meta"])
-        assert meta["version"] == 4
+        assert meta["version"] == 5
         meta["version"] = version
         tree["meta"] = json.dumps(meta)
         ckpt.save(path, tree)

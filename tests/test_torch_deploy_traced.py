@@ -11,7 +11,9 @@ with one), SMPPI and KMPPI on a step-dependent plant, ``MPPI_Batched`` in
 seed and operand mode, the legacy route, gradient refinement on the plain
 and the fused route, and the block models: a residual MLP beyond the
 per-thread bounds (``ResidualMLPBlock``, a named model) and a traced
-network beyond ``MAX_OPS`` (a program with dense layers).  Two artifacts of different traced models serve
+network beyond ``MAX_OPS`` (a program with dense layers); and a TD-MPC
+world model, whose running cost and terminal cost have dense layers (the
+terminal's with a LayerNorm).  Two artifacts of different traced models serve
 side by side, a process that traced its own models first still serves
 them, loading an artifact again registers nothing, and a version-1 file
 (no kernels) still loads.  The rebuilt programs are held against the JAX
@@ -127,6 +129,53 @@ BLOCK_MLP = residual_mlp_model(
 
 def block_plant(s, u):
     return BLOCK_MLP.dynamics(s[None], u[None])[0]
+
+
+def _world_model():
+    """TD-MPC's networks at nx = nu = 2 and 128 units (beyond MAX_OPS as
+    scalar operations, so traced with dense layers): a residual latent
+    ``mlp`` (ELU), a reward ``mlp`` in the running cost with a discount of
+    the timestep, and the minimum of two ``q`` networks (LayerNorm, Tanh,
+    ELU) as the terminal cost."""
+    g = torch.Generator().manual_seed(43)
+
+    def linear(a, b):
+        lin = torch.nn.Linear(a, b)
+        with torch.no_grad():
+            lin.weight.copy_(torch.randn(b, a, generator=g) / a ** 0.5)
+            lin.bias.copy_(torch.randn(b, generator=g) * 0.1)
+        return lin
+
+    def mlp(out):
+        return torch.nn.Sequential(linear(4, 128), torch.nn.ELU(), linear(128, 128),
+                                   torch.nn.ELU(), linear(128, out))
+
+    def q():
+        return torch.nn.Sequential(linear(4, 128), torch.nn.LayerNorm(128), torch.nn.Tanh(),
+                                   linear(128, 128), torch.nn.ELU(), linear(128, 1))
+
+    dyn_net, rew_net, q1, q2 = mlp(2), mlp(1), q(), q()
+
+    def dyn(s, u, t):
+        return s + 0.1 * dyn_net(torch.cat([s, u], -1))
+
+    def cost(s, u, t):
+        discount = torch.exp(torch.as_tensor(t) * -0.01)
+        return -discount * rew_net(torch.cat([s, u], -1))[..., 0]
+
+    def terminal(s, u):
+        su = torch.cat([s, u], -1)
+        return -torch.minimum(q1(su), q2(su))[..., 0]
+
+    return dyn, cost, terminal
+
+
+WORLD = _world_model()
+
+
+def world_plant(s, u):
+    with torch.no_grad():
+        return WORLD[0](s, u, 0)
 KW = dict(num_samples=48, horizon=6, lambda_=1.0, seed=7, u_max=torch.tensor([0.8, 0.8]),
           device="cpu")
 SD = dict(step_dependent_dynamics=True)
@@ -169,6 +218,9 @@ ROUTES = {
         lambda: P.MPPI(BLOCK_MLP.dynamics, BLOCK_MLP.running_cost, 2, torch.eye(2),
                        use_pallas=True, **KW), block_plant),
     "fused_dense": (lambda: P.MPPI(wide, quad, 2, torch.eye(2), use_pallas=True, **KW), wide),
+    "fused_world_model": (
+        lambda: P.MPPI(WORLD[0], WORLD[1], 2, torch.eye(2), use_pallas=True,
+                       terminal_final_cost=WORLD[2], **SD, **KW), world_plant),
 }
 # the operators of each route's programs
 OPS = {"rollout_step": {"rollout", "weighted_update"}, "refine_plain": set(),
@@ -322,10 +374,11 @@ def test_artifact_format(served):
     """Version 2 and later list each generated kernel's program (JSON, no
     compiled code): a traced model's nodes, outputs, sizes, timestep use
     and float64 constants; a named model's id; the traced terminal cost's
-    program.  Version 4 (version 3's residual-MLP constants with a header
-    of 20 floats, and the block models) is written today."""
+    program.  Version 5 (version 3's residual-MLP constants with a header
+    of 20 floats, version 4's block models, and programs with a LayerNorm's
+    statistics and dense layers in their costs) is written today."""
     meta = served["solvers"]["fused_traced_terminal"].meta
-    assert meta["version"] == 4
+    assert meta["version"] == 5
     (desc,) = meta["kernels"]
     assert set(desc["model"]) == {"nodes", "outputs", "nx", "nu", "uses_t", "consts64"}
     assert not desc["model"]["uses_t"] and desc["terminal"]["nx"] == 2
@@ -387,6 +440,33 @@ def test_rebuilt_program_matches_jax(served, name):
     np.testing.assert_allclose(row["cost"], np.asarray(c), rtol=JAX_RTOL, atol=JAX_ATOL)
 
 
+def test_world_model_round_trip(served, monkeypatch):
+    """The artifact of a traced program with dense layers in its running
+    cost and its terminal cost (a LayerNorm's statistics among the
+    terminal's nodes) rebuilds, from its description alone, the same
+    header under the same id: a block struct that runs the cost's layers
+    in the step and the terminal's in ``struct Terminal``; its plain
+    versions compute what the traced model's do."""
+    solver = served["solvers"]["fused_world_model"]
+    (desc,) = solver.meta["kernels"]
+    assert desc["model"]["uses_t"] and solver.meta["version"] == 5
+    assert {n[0] for n in desc["terminal"]["nodes"]} >= {"dense", "lnmean", "lnrstd"}
+    (kernel,) = solver.kernels
+    monkeypatch.setattr(BL, "_KERNELS", {})
+    rebuilt = BL.load_kernel(json.loads(json.dumps(desc)))
+    assert (rebuilt.id, rebuilt.header()) == (kernel.id, kernel.header())
+    assert rebuilt.block and "kStepCost = true" in rebuilt.header()
+    assert "kBlockTerminal = true" in rebuilt.header()
+    g = torch.Generator().manual_seed(5)
+    x, u = torch.randn(9, 2, generator=g), torch.randn(9, 2, generator=g)
+    ns, c = rebuilt.model.rollout_step(x, u, 2)
+    with torch.no_grad():
+        torch.testing.assert_close(ns, WORLD[0](x, u, 2), rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(c, WORLD[1](ns, u, torch.tensor(2)), rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(rebuilt.terminal.cost(x, u), WORLD[2](x, u), rtol=1e-5,
+                                   atol=1e-6)
+
+
 class TestRegistry:
     CFG = MPPIConfig(nx=2, nu=2, K=8, T=3)
 
@@ -440,11 +520,11 @@ class TestRegistry:
 
 
 def test_unreadable_version_raises(tmp_path):
-    path = str(tmp_path / "v5.npz")
+    path = str(tmp_path / "v6.npz")
     deploy.export_solver(ROUTES["version_1"][0](), path)
     tree = ckpt.load(path)
     meta = json.loads(tree["meta"])
-    meta["version"] = 5
+    meta["version"] = 6  # the first version this build does not read
     tree["meta"] = json.dumps(meta)
     ckpt.save(path, tree)
     with pytest.raises(ValueError, match="reads versions 1, 2"):

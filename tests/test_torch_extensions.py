@@ -1,6 +1,7 @@
 """JAX's ``tests/test_extensions.py`` classes ``TestGradientRefinement``
 (:595-722), ``TestPrngAutoDefault`` (:724-741), ``TestRunMppiJit``
-(:1019-1148) and ``TestEliteReuse`` (:1149-1357) on the port, on the CPU:
+(:1019-1148), ``TestEliteReuse`` (:1149-1357) and ``TestTerminalFinalCost``
+(:1358-1494, but its mesh test) on the port, on the CPU:
 each JAX test translated to the port's API with JAX's floors, in float64
 as JAX's file.
 
@@ -412,3 +413,122 @@ class TestEliteReuse:
         with pytest.raises(ValueError, match="fills all K"):
             P.MPPI(linear_dynamics, quadratic_cost, 2, eye(), num_samples=4, horizon=5,
                    num_elites=4, device="cpu")
+
+
+class TestTerminalFinalCost:
+    """Final-state terminal cost (``terminal_final_cost``): a terminal cost
+    declared as a function of the LAST state/action evaluates on the final
+    state of the rollout, keeping the rollout storage off (no (M, K, T, nx)
+    tensor) and the fused kernels eligible.  JAX's ``tests/test_extensions.py``
+    class of that name (:1358-1494) on the port, its mesh test aside (the
+    port's sharding is held by ``test_torch_sharding.py``)."""
+
+    GOAL = torch.tensor([1.5, -0.5], dtype=DTYPE)
+
+    @classmethod
+    def _fterm(cls, s, a):
+        return 10.0 * ((s - cls.GOAL) ** 2).sum(-1) + 0.1 * (a ** 2).sum(-1)
+
+    @classmethod
+    def _full_term(cls, states, actions):
+        return cls._fterm(states[..., -1, :], actions[..., -1, :])
+
+    def _pair(self, **extra):
+        kw = dict(num_samples=64, horizon=8, lambda_=1.0, seed=11,
+                  u_min=-torch.ones(2, dtype=DTYPE), u_max=torch.ones(2, dtype=DTYPE),
+                  u_scale=0.7, device="cpu")
+        kw.update(extra)
+        full = P.MPPI(linear_dynamics, quadratic_cost, 2, eye(0.5),
+                      terminal_state_cost=self._full_term, **kw)
+        fin = P.MPPI(linear_dynamics, quadratic_cost, 2, eye(0.5),
+                     terminal_final_cost=self._fterm, **kw)
+        return full, fin
+
+    def test_bit_identical_to_full_terminal(self):
+        """Same seed => same noise stream; the identical cost through the
+        final-state hook reproduces the full-trajectory hook bit for bit,
+        while the final-state variant keeps rollout storage off."""
+        full, fin = self._pair()
+        x = torch.tensor([-2.0, 1.0], dtype=DTYPE)
+        for _ in range(3):
+            a1, a2 = full.command(x), fin.command(x)
+            torch.testing.assert_close(a1, a2, rtol=0, atol=0)
+            torch.testing.assert_close(full.cost_total, fin.cost_total, rtol=0, atol=0)
+            x = linear_dynamics(x, a1)
+        assert full.states is not None  # the full hook forces storage
+        assert fin.states is None  # the final hook keeps the lazy contract
+
+    def test_multi_rollout_m(self):
+        """M > 1: the final hook sees the (M·K,)-flat final states and its
+        (M, K) cost broadcasts exactly like the full hook's."""
+        full, fin = self._pair(rollout_samples=3, rollout_var_cost=0.5)
+        x = torch.tensor([-2.0, 1.0], dtype=DTYPE)
+        torch.testing.assert_close(full.command(x), fin.command(x), rtol=0, atol=0)
+
+    def test_mutually_exclusive(self):
+        with pytest.raises(ValueError, match="mutually exclusive"):
+            P.MPPI(linear_dynamics, quadratic_cost, 2, eye(), num_samples=8, horizon=4,
+                   terminal_state_cost=self._full_term, terminal_final_cost=self._fterm,
+                   device="cpu").command(torch.zeros(2, dtype=DTYPE))
+
+    def test_smppi_kmppi(self):
+        kw = dict(num_samples=64, horizon=8, lambda_=1.0, seed=11,
+                  u_min=-torch.ones(2, dtype=DTYPE), u_max=torch.ones(2, dtype=DTYPE),
+                  device="cpu")
+        x = torch.tensor([-2.0, 1.0], dtype=DTYPE)
+        bounds = dict(action_min=-torch.ones(2, dtype=DTYPE), action_max=torch.ones(2, dtype=DTYPE))
+        s_full = P.SMPPI(linear_dynamics, quadratic_cost, 2, eye(0.5),
+                         terminal_state_cost=self._full_term, **bounds, **kw)
+        s_fin = P.SMPPI(linear_dynamics, quadratic_cost, 2, eye(0.5),
+                        terminal_final_cost=self._fterm, **bounds, **kw)
+        torch.testing.assert_close(s_full.command(x), s_fin.command(x), rtol=0, atol=0)
+        k_full = P.KMPPI(linear_dynamics, quadratic_cost, 2, eye(0.5),
+                         terminal_state_cost=self._full_term, num_support_pts=4, **kw)
+        k_fin = P.KMPPI(linear_dynamics, quadratic_cost, 2, eye(0.5),
+                        terminal_final_cost=self._fterm, num_support_pts=4, **kw)
+        torch.testing.assert_close(k_full.command(x), k_fin.command(x), rtol=0, atol=0)
+
+    def test_batched(self):
+        def dyn_n(s, a):
+            return s + a
+
+        def cost_n(s, a):
+            return (s ** 2).sum(-1)
+
+        full = P.MPPI_Batched(dyn_n, cost_n, 2, eye(0.4), num_envs=3,
+                              terminal_state_cost=self._full_term, num_samples=32, horizon=6,
+                              seed=5, device="cpu")
+        fin = P.MPPI_Batched(dyn_n, cost_n, 2, eye(0.4), num_envs=3,
+                             terminal_final_cost=self._fterm, num_samples=32, horizon=6, seed=5,
+                             device="cpu")
+        X = torch.tensor([[-2.0, 1.0], [2.0, -1.0], [-1.0, 0.5]], dtype=DTYPE)
+        torch.testing.assert_close(full.command(X), fin.command(X), rtol=0, atol=0)
+        with pytest.raises(ValueError, match="mutually exclusive"):
+            P.MPPI_Batched(dyn_n, cost_n, 2, eye(), num_envs=2,
+                           terminal_state_cost=self._full_term, terminal_final_cost=self._fterm,
+                           num_samples=8, horizon=4, device="cpu")
+
+    def test_gradient_refinement_descends_terminal(self):
+        """The refiner's objective includes the final-state terminal cost:
+        with a pure-terminal task (zero running cost) the refined nominal
+        reaches a lower terminal cost than the unrefined one."""
+        def zero_cost(s, a):
+            return torch.zeros(s.shape[:-1], dtype=DTYPE)
+
+        kw = dict(num_samples=16, horizon=8, lambda_=1.0, seed=2,
+                  u_min=-torch.ones(2, dtype=DTYPE), u_max=torch.ones(2, dtype=DTYPE),
+                  device="cpu")
+        base = P.MPPI(linear_dynamics, zero_cost, 2, eye(), terminal_final_cost=self._fterm,
+                      **kw)
+        ref = P.MPPI(linear_dynamics, zero_cost, 2, eye(), terminal_final_cost=self._fterm,
+                     gradient_refinement_steps=8, gradient_refinement_lr=0.2, **kw)
+        x = torch.tensor([-2.0, 1.0], dtype=DTYPE)
+
+        def final_cost_of(ctrl):
+            ctrl.command(x)
+            s = x
+            for t in range(ctrl.T):
+                s = linear_dynamics(s, ctrl.U[t])
+            return float(self._fterm(s, ctrl.U[-1]))
+
+        assert final_cost_of(ref) < final_cost_of(base)

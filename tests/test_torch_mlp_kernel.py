@@ -426,15 +426,17 @@ OLD_BEYOND = {"width": ([3, 65, 2], 2, 1), "layers": ([3, 8, 8, 8, 8, 2], 2, 1),
 
 @pytest.mark.parametrize("beyond", ["nx", "nu", "width", "step_dependent"])
 def test_beyond_the_bound_falls_back(beyond, caplog):
-    """Beyond the block model's bounds: nx = 33 or nu = 33 (beyond the
+    """Beyond the block model's bounds: nx = 392 or nu = 208 (128 rows of
+    state and action, nx + 2 nu floats each, beyond shared memory beside 8
+    samples' activations; the block model keeps them there, not in the
     MAXN = 32 arrays), a width whose activations exceed shared memory (two
     rows of 8 samples of 3,600 floats), and a step-dependent config (a
     named model takes no timestep): the factories, the batched one too,
     raise ``FusedSolveUnavailable`` and ``use_pallas`` plans on the plain
     path with the warning."""
-    nx = 33 if beyond == "nx" else 2
-    nu = 33 if beyond == "nu" else 1
-    sizes = {"nx": [34, 8, 33], "nu": [35, 8, 2], "width": [3, 3600, 2],
+    nx = 392 if beyond == "nx" else 2
+    nu = 208 if beyond == "nu" else 1
+    sizes = {"nx": [393, 8, 392], "nu": [210, 8, 2], "width": [3, 3600, 2],
              "step_dependent": [3, 80, 2]}[beyond]
     goal = np.linspace(-1.0, 1.0, nx).astype(np.float32)
     model = KM.residual_mlp_model(mlp_params_from_numpy(_weights(sizes, 0)), nx, nu,
