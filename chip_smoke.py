@@ -60,7 +60,7 @@ the package is not beside it.  Phases, each fatal when it fails:
    tiles) and at K = 1,000 with 64 samples a block, then the moments through
    its cost, its costs against the transposed kernel's on one key and 50
    calls in a row;
-4. main paths: 70 closed-loop commands (``COMMANDS``) of ``MPPI``, ``SMPPI`` and
+4. main paths: 40 closed-loop commands (``COMMANDS``) of ``MPPI``, ``SMPPI`` and
    ``KMPPI`` on ``linear_quadratic`` at K = 10,000, T = 30 (``bench.py``'s
    flagship problem), fused (``use_pallas=True``, one launch a command) with
    the launch count and the goal checked, then the same on the plain torch
@@ -72,8 +72,8 @@ the package is not beside it.  Phases, each fatal when it fails:
    and ``KMPPI`` fused with ``num_iterations = 3`` (three launches of kernel
    A a command) and ``MPPI``'s legacy route with it (three of each legacy
    kernel), plain ``MPPI`` with adaptive covariance asked for the kernel
-   (the plain path, with the warning; 100 commands), and plain ``MPPI``
-   with M = 4 stochastic rollouts (100 commands), the variance cost and
+   (the plain path, with the warning; ``SHORT_COMMANDS``), and plain ``MPPI``
+   with M = 4 stochastic rollouts (``SHORT_COMMANDS``), the variance cost and
    CVaR on a noisy plant model
    (the (4, K, T, nx) states, their M slices differ, the loop comes within
    1.0 of the goal, and two controllers on one seed give the same first ten
@@ -83,8 +83,8 @@ the package is not beside it.  Phases, each fatal when it fails:
    (the plain path, the warning naming the flag) and on the legacy route;
    plain ``MPPI`` with a ``SpecificActionSampler`` of two ramps, the null
    row and two elites asked for the kernel (the plain path; rows 0-4 are
-   [null, ramps, shifted elites]), 70 commands (``SHORT_COMMANDS``) each of
-   ``SMPPI`` and ``KMPPI`` with the sampler, 50 fused commands with five steps of
+   [null, ramps, shifted elites]), 40 commands (``SHORT_COMMANDS``) each of
+   ``SMPPI`` and ``KMPPI`` with the sampler, 30 fused commands with five steps of
    gradient refinement, and the refinement on JAX's small-K fixture (the
    mean distance at least halved); then
    ``MPPI_Batched`` on ``examples/scenario_batch.py``'s problem at N = 1,024,
@@ -297,9 +297,13 @@ NSP = T // 2  # KMPPI's default support points at the flagship
 # a host 1.5x slower in every phase than the one before), then to 100 so that
 # the whole run stays under the limit on a host SLOW_HOST times slower (a run
 # of 756.5 s at 150, phases 4 and 4d 110.7 and 170.9 s of it), then to 70 (and
-# SHORT_COMMANDS with it) for phase 4f's world model and its six libraries
-COMMANDS = 70
-REFINE_COMMANDS = 50
+# SHORT_COMMANDS with it) for phase 4f's world model and its six libraries,
+# then to 50 (and SHORT_COMMANDS with it, REFINE_COMMANDS to 40, below it) for
+# phase 8's stochastic artifacts and phase 10e (a run at 70 took 1,085.7 s on
+# a host with a 353.7 s build phase), then to 40 (SHORT_COMMANDS with it,
+# REFINE_COMMANDS to 30) for breakdowns of 10 commands in place of 3
+COMMANDS = 40
+REFINE_COMMANDS = 30
 WARMUP = 20
 LOOP_K = 500  # the closed loops of phase 6
 # MPPI_Batched: examples/scenario_batch.py's north-star width, and its
@@ -348,7 +352,7 @@ BATCHED_NAMES = ("batched_partial", "flash_merge")
 ITERS, BATCH_ITERS = 3, 2  # num_iterations of the single-plant and batched iteration loops
 ELITES = 4  # num_elites of the elite loops
 REFINE_STEPS = 5  # gradient_refinement_steps of the refinement loop
-SHORT_COMMANDS = 70  # the refinement loop's and SMPPI's and KMPPI's sampler loops' commands
+SHORT_COMMANDS = 40  # the refinement loop's and SMPPI's and KMPPI's sampler loops' commands
 M_STOCH = 4  # rollout_samples of the stochastic loop
 STOCH_SCALE = 0.05  # the stochastic loop's dynamics noise (a standard deviation)
 GRAPH_STEPS = 20  # plant steps of each route's graph loop held to the eager loop
@@ -434,9 +438,10 @@ TD_DOG_NU, TD_BATCH_N, TD_COMMANDS, TD_SHORT = 38, 16, 20, 5
 # against the live controller, commands timed for the medians (after a
 # warm-up), and the commands a restored checkpoint continues for
 DEPLOY_COMMANDS, DEPLOY_TIMED, DEPLOY_WARMUP, CKPT_COMMANDS = 20, 200, 10, 10
-# the refinement artifact's steps and timed commands: its export traces the
-# refiner's backward pass through T steps (about 10 s a step count on a host
-# core), and a command runs some hundreds of kernels
+# the refinement artifact's steps, and the timed commands of the artifacts
+# whose commands run some hundreds of kernels (refinement, the plain path of
+# stochastic dynamics): an export traces the refiner's backward pass through
+# T steps (about 10 s a step count on a host core at M = 1, 40 s at M = 4)
 DEPLOY_REFINE_STEPS, DEPLOY_REFINE_TIMED = 1, 20
 # the tuning phase (10): benchmarks/tuning.py's sizes (toy2d, K = 1,024,
 # T = 15, R = 10 no-shift commands in each of M = 5 streams a candidate,
@@ -448,6 +453,15 @@ DEPLOY_REFINE_STEPS, DEPLOY_REFINE_TIMED = 1, 20
 # optimize_steps of GRAD_ADAM Adam updates, to below GRAD_RATIO of its start
 TUNE_K, TUNE_T, TUNE_R, TUNE_M, TUNE_POP, TUNE_STEPS = 1024, 15, 10, 5, 16, 3
 TUNE_RTOL = 1e-4
+# phase 10e: the generations with stochastic toy2d dynamics (N(0, TUNE_NOISE²)
+# a step from each step's generator), without and with TUNE_REFINE_STEPS of
+# gradient refinement, each held to the loop over the candidates TUNE_LOOPED,
+# the first and the last, so that a fault of index or stride over the
+# population shows (a candidate's streams are its own, so a subset checks
+# those candidates; the whole loop of phase 10a takes 10-14 s, and a command
+# with refinement about 90 ms on the host)
+TUNE_NOISE, TUNE_REFINE_STEPS = 0.05, 1
+TUNE_LOOPED = (0, TUNE_POP - 1)
 GRAD_K, GRAD_T, GRAD_R, GRAD_M, GRAD_STEPS, GRAD_ADAM, GRAD_RATIO = 256, 10, 5, 2, 6, 10, 0.3
 # the fresh process of phase 8: it imports only pytorch_mppi_tpu_torch (and
 # torch and numpy), loads each artifact and replays its commands on the
@@ -945,17 +959,24 @@ def sweep_turns(fns):
     return in_turns(fns, rounds=SWEEP_ROUNDS, window_ms=SWEEP_WINDOW_MS)
 
 
-# commands a breakdown profiles (cut from 50 to keep the run inside its time,
-# which gave back 82.6 s of phase 4, then from 25 for phase 4f's world model)
-BREAKDOWN_COMMANDS = 15
+# commands a breakdown profiles, after one it does not (cut from 50 to keep
+# the run inside its time, which gave back 82.6 s of phase 4, then from 25 for
+# phase 4f's world model, then from 15 to 10 for phase 8's stochastic
+# artifacts and phase 10e; COMMANDS and SHORT_COMMANDS paid for the rest)
+BREAKDOWN_COMMANDS = 10
 
 
 def breakdown(name, ctrl, step, x, n=BREAKDOWN_COMMANDS):
     """Where a command's time goes: device kernels per command from the
-    profiler, and the device's idle share of the host-clock window."""
+    profiler, and the device's idle share of the host-clock window, over
+    ``n`` commands after one unprofiled command; and the seconds the
+    breakdown took."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    took = time.perf_counter()
+    x = step(x, ctrl.command(x))
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall = time.perf_counter()
         for _ in range(n):
@@ -971,7 +992,7 @@ def breakdown(name, ctrl, step, x, n=BREAKDOWN_COMMANDS):
           f"{wall / n:.1f} us/command | device busy {busy / n:.1f} us/command in "
           f"{count / n:.1f} kernels | device idle {1 - busy / wall:.3f} | top: " + "; ".join(
               f"{e.key[:40]} {e.self_device_time_total / n:.1f} us x{e.count / n:.1f}"
-              for e in top))
+              for e in top) + f" | took {time.perf_counter() - took:.1f} s")
 
 
 class Captured(logging.Handler):
@@ -2462,13 +2483,20 @@ def deployment(dev, lq, goal, mlp_params, plan):
       built): fused MPPI at the flagship with its traced terminal cost,
       ``MPPI_Batched`` in seed mode at N = 1,024, K = 16,384 on
       ``scenario_batch``'s plant and the legacy route on the step-dependent
-      plant; and fused MPPI on the named model with gradient refinement.
+      plant; and fused MPPI on the named model with gradient refinement;
+      with stochastic dynamics, which take the plain path (no kernel, as in
+      JAX), MPPI at the flagship with M = 4 rollouts of ``torch.randn`` from
+      each step's generator, and SMPPI at the flagship with step-dependent
+      dynamics that draw with ``Tensor.normal_``: the programs take the
+      draws as inputs (the bytes fed a command printed; refinement on
+      stochastic dynamics, whose export traces its backward pass for about
+      50 s at M = 4, is phase 10e's and the CPU tests');
       Each is exported after three commands and loaded in a fresh process
       (``SERVE_CHILD``) that replays DEPLOY_COMMANDS commands on the live
       controller's states: the actions bit for bit the live controller's,
       the launch counters read in the child (the generated ones move by
       exactly the launches expected, no other); the artifact's command
-      median against the live one;
+      median against the live one, and the export's seconds;
     * a serving host with a cold kernel cache (``COLD_CHILD``), started in
       the background as soon as the traced fused artifact exists and
       joined at the end: it builds the generated library from the
@@ -2523,6 +2551,21 @@ def deployment(dev, lq, goal, mlp_params, plan):
 
     def pendulum_plant(x, a):
         return pendulum_dynamics(x[None], a[None])[0]
+
+    def noisy_lq(s_, a, rng):
+        """The flagship's plant plus N(0, STOCH_SCALE²) a step, drawn from the
+        step's generator (stochastic_dynamics)."""
+        return lq.dynamics(s_, a) + STOCH_SCALE * torch.randn(
+            s_.shape, generator=rng, device=s_.device, dtype=s_.dtype)
+
+    def noisy_lq_step(s_, a, t, rng):
+        """The same drawn in place with ``Tensor.normal_``, its scale
+        growing with the step (step_dependent_dynamics)."""
+        return lq.dynamics(s_, a) + STOCH_SCALE * (1.0 + 0.02 * t) * torch.empty_like(
+            s_).normal_(generator=rng)
+
+    def lq_cost_step(s_, a, t):
+        return lq.running_cost(s_, a)
 
     def median_command_ms(ctrl, x, n=DEPLOY_TIMED, reset=False):
         """Median ms of ``command(x)`` between CUDA events, after a warm-up."""
@@ -2585,19 +2628,36 @@ def deployment(dev, lq, goal, mlp_params, plan):
         "mppi fused, refinement": (
             lambda: flagship(use_pallas=True, gradient_refinement_steps=DEPLOY_REFINE_STEPS),
             lq_plant, flag_x0, dict(mppi=1)),
+        # stochastic dynamics: the plain path, whose commands launch no kernel
+        f"mppi plain, stochastic M={M_STOCH}": (
+            lambda: flagship(fns=(noisy_lq, lq.running_cost), use_pallas=True,
+                             stochastic_dynamics=True, rollout_samples=M_STOCH,
+                             rollout_var_cost=0.1),
+            lq_plant, flag_x0, {}),
+        "smppi plain, stochastic, step-dependent": (
+            lambda: flagship(SMPPI, fns=(noisy_lq_step, lq_cost_step), stochastic_dynamics=True,
+                             step_dependent_dynamics=True, w_action_seq_cost=1.0, delta_t=1.0,
+                             action_min=torch.tensor([-3.0, -3.0]),
+                             action_max=torch.tensor([3.0, 3.0])),
+            lq_plant, flag_x0, {}),
     }
     cold = None
     jobs = {"artifacts": [], "warmup": DEPLOY_WARMUP, "timed": DEPLOY_TIMED, "device": str(dev)}
     live = {}
     for i, (name, (build, plant, x, per_command)) in enumerate(paths.items()):
         ctrl = build()
-        check(ctrl._fns.fused, f"deploy [{name}] did not take a kernel route")
+        check(ctrl._fns.fused == bool(per_command), f"deploy [{name}] did not take "
+              f"{'a kernel route' if per_command else 'the plain path'}")
         for _ in range(3):
             x = plant(x, ctrl.command(x))
         path = out_dir / f"artifact{i}.npz"
         wall = time.perf_counter()
-        deploy.export_solver(ctrl, str(path))
+        solver = deploy.export_solver(ctrl, str(path))
         export_s = time.perf_counter() - wall
+        # the bytes a command feeds the programs (keys or noise, and the
+        # draws of stochastic dynamics)
+        fed_bytes = sum(z.numel() * z.element_size() for z in solver.feeds())
+        del solver
         xs, acts = [], []
         reset_launches()
         for _ in range(DEPLOY_COMMANDS):
@@ -2610,7 +2670,8 @@ def deployment(dev, lq, goal, mlp_params, plan):
         check(FS.launches == expect, f"deploy [{name}] live launches {FS.launches}, expected "
               f"{expect}")
         np.save(out_dir / f"states{i}.npy", torch.stack(xs).cpu().numpy())
-        timed = DEPLOY_REFINE_TIMED if ctrl.config.gradient_refinement_steps else DEPLOY_TIMED
+        slow = ctrl.config.gradient_refinement_steps or ctrl.config.stochastic_dynamics
+        timed = DEPLOY_REFINE_TIMED if slow else DEPLOY_TIMED
         if name == cold_name:  # the cold-cache host builds beside the rest of the phase
             cold_job = out_dir / "cold_job.json"
             cold_job.write_text(json.dumps(dict(
@@ -2624,7 +2685,8 @@ def deployment(dev, lq, goal, mlp_params, plan):
             atexit.register(lambda: cold.poll() is None and cold.kill())
         live[name] = dict(actions=torch.stack(acts).cpu().numpy(), expect=expect,
                           median_ms=median_command_ms(ctrl, xs[-1], n=timed),
-                          export_s=export_s, mbytes=path.stat().st_size / 2**20)
+                          export_s=export_s, mbytes=path.stat().st_size / 2**20,
+                          fed_bytes=fed_bytes)
         jobs["artifacts"].append(dict(name=name, path=str(path), timed=timed,
                                       states=str(out_dir / f"states{i}.npy"),
                                       actions=str(out_dir / f"actions{i}.npy")))
@@ -2679,13 +2741,15 @@ def deployment(dev, lq, goal, mlp_params, plan):
               f"the fresh process bit for bit the live controller's: {same} | launches "
               f"{child_row['launches']} | command median artifact {child_row['median_ms']:.4f} ms "
               f"against live {row['median_ms']:.4f} ms ({child_row['median_ms'] / row['median_ms']:.3f}x) "
-              f"| export {row['export_s']:.2f} s, {row['mbytes']:.3f} MiB")
+              f"| export {row['export_s']:.2f} s, {row['mbytes']:.3f} MiB | fed "
+              f"{row['fed_bytes']} bytes a command")
         check(same, f"deploy [{name}]: the artifact's actions differ from the live controller's")
         check(child_row["launches"] == row["expect"],
               f"deploy [{name}]: the child launched {child_row['launches']}, expected "
               f"{row['expect']}")
         report["artifacts"][name] = dict(child_row, live_median_ms=row["median_ms"],
-                                         export_s=row["export_s"], mbytes=row["mbytes"])
+                                         export_s=row["export_s"], mbytes=row["mbytes"],
+                                         fed_bytes=row["fed_bytes"])
     ck = np.load(jobs["checkpoint"]["actions"])
     ck_report = served["checkpoint"]
     same_eager, same_graph = np.array_equal(ck["eager"], ck_eager), np.array_equal(ck["graph"],
@@ -3210,7 +3274,8 @@ def tuning(dev):
        no-shift commands of the fused controller: exactly (lambda + 1) M R
        launches of kernel A a step, the + 1 the re-evaluation of the best;
     d. ``GradientOpt`` on JAX's TestGradientOpt problem: the best cost below
-       GRAD_RATIO of the first; the ms an Adam step.
+       GRAD_RATIO of the first; the ms an Adam step;
+    e. stochastic dynamics and gradient refinement (``tuning_drawing``).
     """
     import numpy as np
 
@@ -3412,9 +3477,126 @@ def tuning(dev):
     print(f"# tuning GradientOpt: first {c0:.4f}, best {best:.4f} ({best / c0:.4f} of it); "
           f"{statistics.median(adam_ms):.3f} ms an Adam step (an optimize_step over "
           f"{GRAD_ADAM}, its scoring included; {adam_ms})")
+    # -- e. stochastic dynamics and gradient refinement --------------------------
+    report["drawing"] = tuning_drawing(dev, env, cands, clock, launched, reset)
     report["seconds"] = time.perf_counter() - t0
     print(f"# phase 10 took {report['seconds']:.1f} s")
     print("# tuning " + json.dumps(report))
+    return report
+
+
+def tuning_drawing(dev, env, cands, clock, launched, reset):
+    """Phase 10e: what the population evaluator refused before, at phase
+    10a's sizes and candidates.
+
+    * one generation with stochastic toy2d dynamics (``torch.randn`` from
+      each step's generator; the evaluator feeds each stream its draws, a
+      plan recorded once on a live command) and one with TUNE_REFINE_STEPS
+      of gradient refinement on them too (``torch.func.grad`` under the
+      vmap; its descent fed the draws of the ``refine_seed`` streams), each
+      held to the loop of live ``step_no_shift`` calls (``torch.autograd.
+      grad`` in the refinement) on the same state seeds for the candidates
+      TUNE_LOOPED (the first and the last), within TUNE_RTOL; no kernel
+      launched;
+    * one ``GradientOpt`` step with TUNE_REFINE_STEPS of refinement on
+      phase 10d's problem: the gradient goes through the refinement's
+      descent, and the cost it reaches is finite and below its start.
+
+    Each prints its seconds and its peak device memory above what was held
+    before it (the fed draws of the stochastic generation are TUNE_POP x
+    TUNE_M x TUNE_R x TUNE_T x TUNE_K x 2 floats)."""
+    from pytorch_mppi_tpu_torch import MPPI, autotune
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    report = {}
+
+    def noisy_toy(s_, a, rng):
+        return env.dynamics(s_, a) + TUNE_NOISE * torch.randn(
+            s_.shape, generator=rng, device=s_.device, dtype=s_.dtype)
+
+    def peaked(fn):
+        """``clock(fn)`` and the peak device memory in MiB above what was
+        held before it."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        secs, out = clock(fn)
+        return secs, out, (torch.cuda.max_memory_allocated() - held) / 2**20
+
+    for name, steps in (("stochastic", 0), ("refinement", TUNE_REFINE_STEPS)):
+        mppi = MPPI(noisy_toy, env.running_cost, 2,
+                    noise_sigma=torch.diag(torch.tensor([5.0, 5.0], **f32)),
+                    num_samples=TUNE_K, horizon=TUNE_T, u_max=torch.tensor([2.0, 2.0], **f32),
+                    lambda_=1.0, seed=1, stochastic_dynamics=True,
+                    gradient_refinement_steps=steps, device=dev)
+        ev = autotune.PopulationEvaluator(mppi, env.start, num_refinement_steps=TUNE_R,
+                                          num_trajectories=TUNE_M, seed=3)
+        seeds = autotune.PopulationEvaluator(mppi, env.start, seed=3)._stream_seeds(
+            TUNE_POP * TUNE_M)
+        reset()
+        secs, res, peak_mib = peaked(lambda: ev(cands))
+        check(not launched(), f"phase 10e [{name}]: the generation launched {launched()}")
+        fns, score = ev._planning_fns(), ev._default_cost_fn()
+        draws = sum(z.numel() * z.element_size()
+                    for z in ev._draws(fns, seeds[:1], mppi._state.counter)) * TUNE_POP * TUNE_M
+
+        def loop():
+            costs = []
+            for p in TUNE_LOOPED:
+                cand = cands[p]
+                params = mppi._params._replace(
+                    noise_sigma=torch.diag(cand["sigma"]), noise_mu=cand["mu"],
+                    lambda_=torch.tensor(cand["lambda"], **f32))
+                per = []
+                for m in range(TUNE_M):
+                    state = mppi._state._replace(seed=seeds[p * TUNE_M + m])
+                    for _ in range(TUNE_R):
+                        state, _, _ = fns.step_no_shift(params, state, env.start)
+                    per.append(score(fns.get_rollouts(params, env.start, state.U)[0], state.U))
+                costs.append(torch.stack(per).mean())
+            return torch.stack(costs)
+
+        loop_s, loop_costs = clock(loop)
+        got = res.costs[list(TUNE_LOOPED)]
+        rel = float(((got - loop_costs).abs() / loop_costs.abs()).max())
+        finite = bool(torch.isfinite(res.costs).all()) and tuple(res.costs.shape) == (TUNE_POP,)
+        check(finite and rel <= TUNE_RTOL,
+              f"phase 10e [{name}]: the vmapped generation against the loop: {rel:.3g} "
+              f"relative (limit {TUNE_RTOL}), finite and shaped {finite}")
+        report[name] = dict(vmapped_s=secs, loop_s=loop_s, looped=list(TUNE_LOOPED), max_rel=rel,
+                            peak_mib=peak_mib, fed_mib=draws / 2**20)
+        print(f"# tuning {name} generation ({TUNE_POP} candidates x {TUNE_M} streams x "
+              f"{TUNE_R} refinements, K={TUNE_K} T={TUNE_T}"
+              + (f", {TUNE_REFINE_STEPS} refinement steps" if name == "refinement" else "")
+              + f"): vmapped {secs:.4f} s, peak {peak_mib:.1f} MiB above what was held before "
+              f"it, fed {draws / 2**20:.1f} MiB; the loop over candidates "
+              f"{list(TUNE_LOOPED)} {loop_s:.4f} s, max relative difference {rel:.3g}, 0 launches")
+        del mppi, ev, res
+
+    B = torch.tensor([[1.0, 0.0], [0.0, -1.0]], **f32)
+    goal = torch.tensor([2.0, 2.0], **f32)
+    ctrl = MPPI(lambda s, a: s + a @ B.T, lambda s, a: ((goal - s) ** 2).sum(dim=-1), 2,
+                noise_sigma=torch.eye(2, **f32) * 0.05, num_samples=GRAD_K, horizon=GRAD_T,
+                lambda_=20.0, seed=0, gradient_refinement_steps=TUNE_REFINE_STEPS, device=dev)
+    ev = autotune.PopulationEvaluator(ctrl, torch.tensor([-3.0, -2.0], **f32),
+                                      num_refinement_steps=GRAD_R, num_trajectories=GRAD_M,
+                                      seed=1)
+    tuner = autotune.Autotune([autotune.SigmaParameter(ctrl), autotune.LambdaParameter(ctrl)],
+                              evaluate_fn=lambda: ev([{}]),
+                              optimizer=autotune.GradientOpt(lr=0.2,
+                                                             steps_per_iteration=GRAD_ADAM),
+                              population_evaluate_fn=ev)
+    c0 = autotune.mean_cost(ev([{}]).costs)
+    secs, res, peak_mib = peaked(tuner.optimize_step)
+    cost = autotune.mean_cost(res.costs)
+    check(math.isfinite(cost) and cost < c0,
+          f"phase 10e: GradientOpt with refinement reached {cost} from {c0}")
+    report["gradient"] = dict(first=c0, cost=cost, step_s=secs, adam_ms=1e3 * secs / GRAD_ADAM,
+                              peak_mib=peak_mib)
+    print(f"# tuning GradientOpt with {TUNE_REFINE_STEPS} refinement steps: first {c0:.4f}, "
+          f"after one optimize_step of {GRAD_ADAM} Adam updates {cost:.4f} "
+          f"({cost / c0:.4f} of it); {secs:.4f} s ({1e3 * secs / GRAD_ADAM:.3f} ms an Adam "
+          f"step, its scoring included), peak {peak_mib:.1f} MiB above what was held before it")
     return report
 
 def generated_callables(dev):

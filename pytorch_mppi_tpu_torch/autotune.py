@@ -15,13 +15,16 @@ device of their own, so a tuner of a default controller runs on the card.
 one ``torch.func.vmap`` of the controller's plain command body
 (``ops/solve.StepFns.body``) over the candidates and then the trajectories,
 with each trajectory's draws fed to the body (``CommandStreams.fed``) in
-place of its generators.  It launches no kernel: a ``use_pallas``
-controller's command keeps its kernel, and the evaluator takes the plain
-bundle of the same configuration.
+place of its generators: the noise's and, with stochastic dynamics, the
+draws the dynamics make; gradient refinement takes ``torch.func.grad``
+there (inside a ``torch.func`` transform).  It launches no kernel: a
+``use_pallas`` controller's command keeps its kernel, and the evaluator
+takes the plain bundle of the same configuration.
 """
 from __future__ import annotations
 
 import abc
+import contextlib
 import logging
 import typing
 
@@ -35,7 +38,8 @@ from .utils.batch import ensure_tensor
 
 logger = logging.getLogger(__name__)
 
-# what the population evaluator cannot run yet; its refusals name this item
+# what the population evaluator cannot run yet (a mesh); its refusal names
+# this item
 _NOT_YET = "ROADMAP.md Queue 1 item 11b"
 
 
@@ -512,16 +516,21 @@ class PopulationEvaluator:
     Streams: candidate p, trajectory m draws a state seed ``seed_pm`` from
     the evaluator's own ``torch.Generator`` on the controller's device
     (seeded with ``seed``), and its refinement step r is fed the draws that
-    ``CommandStreams.feeds(seed_pm, counter + r·num_iterations)`` makes.  So
-    it computes exactly what R ``step_no_shift`` calls of a controller with
-    p's parameters compute from a state seeded ``seed_pm``.
+    ``CommandStreams.feeds(seed_pm, counter + r·num_iterations)`` makes:
+    the noise and, with stochastic dynamics, the draws the dynamics make at
+    each rollout and descent step, whose plan (``CommandStreams.record``)
+    a live command of the controller gives once per bundle.  The scoring
+    rollout's dynamics draw what ``get_rollouts`` draws on the stream of 0,
+    the same for every candidate, as JAX's take one key.  So it computes
+    what R ``step_no_shift`` calls of a controller with p's parameters
+    compute from a state seeded ``seed_pm``, gradient refinement with
+    ``torch.func.grad`` in place of ``torch.autograd.grad``.
 
     The solver bundle (the plain one of the controller's configuration:
     ``use_pallas`` controllers keep their kernel in ``command()``), the
     nominal trajectory and ``dynamics_params`` are read at every call, so a
     ``change_horizon`` or ``mppi.U = ...`` between generations is honoured.
-    Stochastic dynamics, gradient refinement and a mesh have no fed body
-    yet and raise ``NotImplementedError``.
+    A mesh has no vmapped body yet and raises ``NotImplementedError``.
 
     Pass it as ``Autotune(..., population_evaluate_fn=evaluator)``.
     """
@@ -539,6 +548,8 @@ class PopulationEvaluator:
         # one population evaluation per solver bundle: a horizon sweep
         # toggles between the controller's cached bundles
         self._eval_cache: dict = {}
+        # the draw plans of stochastic dynamics per bundle (_plans)
+        self._plan_cache: dict = {}
 
     def _default_cost_fn(self):
         rc = _solve.wrap_cost(self.mppi.config, self.mppi.running_cost)
@@ -552,8 +563,8 @@ class PopulationEvaluator:
     def _planning_fns(self):
         """The plain solver bundle of the controller's configuration, from
         its cache; the controller's own ``_fns`` and ``use_pallas`` are left
-        as they were, so its ``command()`` keeps its kernel.  Raises where
-        the body has no fed form."""
+        as they were, so its ``command()`` keeps its kernel.  Raises for a
+        mesh, whose body calls collectives."""
         mppi = self.mppi
         if mppi.use_pallas is False:
             fns = mppi._fns
@@ -565,58 +576,95 @@ class PopulationEvaluator:
                 fns = mppi._fns
             finally:
                 mppi.use_pallas, mppi._fns = saved, saved_fns
-        config = mppi.config
-        for refused, what in ((config.stochastic_dynamics, "stochastic dynamics"),
-                              (config.gradient_refinement_steps > 0, "gradient refinement"),
-                              (getattr(mppi, "mesh", None) is not None, "a mesh")):
-            if refused:
-                raise NotImplementedError(
-                    f"PopulationEvaluator cannot vmap the command body of a controller with "
-                    f"{what} yet ({_NOT_YET}); tune it through Autotune's sequential "
-                    f"evaluate_fn")
+        if getattr(mppi, "mesh", None) is not None:
+            raise NotImplementedError(
+                f"PopulationEvaluator cannot vmap the command body of a controller with a "
+                f"mesh yet ({_NOT_YET}); tune it through Autotune's sequential evaluate_fn")
         return fns
 
     def _stream_seeds(self, n: int) -> list:
         """``n`` state seeds, one per stream, from the evaluator's generator."""
         return _draw_seeds(self._gen, n)
 
-    def _draws(self, fns, seeds, counter: int) -> torch.Tensor:
+    def _plans(self, fns):
+        """With stochastic dynamics, the plan of one command's draws
+        (``CommandStreams.record``, on a live no-shift command of the
+        controller's parameters and state from ``start``), and the scoring
+        rollout's plan and draws on ``get_rollouts``' stream of 0; else
+        Nones.  Once per bundle."""
+        if fns in self._plan_cache:
+            return self._plan_cache[fns]
+        mppi, d = self.mppi, self.mppi.d
+        out = (None, None, None)
+        if mppi.config.stochastic_dynamics:
+            state, dyn_params = mppi._state, mppi.dynamics_params
+            params = mppi._full_params()
+            plan = fns.streams.record(
+                lambda: fns.body(params, state, self.start, None, dyn_params, False),
+                state.seed, state.counter, d)
+            base = params.base if hasattr(params, "base") else params
+
+            def gens():
+                return [_solve.step_generator(0, t, d) for t in range(state.U.shape[0])]
+
+            score_gens = gens()
+            score_plan = _solve.record_draws(score_gens, lambda: fns.get_rollouts(
+                base, self.start, state.U, dyn_params=dyn_params, rngs=score_gens))
+            out = (plan, score_plan, _solve.replay_draws(score_plan, gens()))
+        self._plan_cache[fns] = out
+        return out
+
+    def _draws(self, fns, seeds, counter: int) -> list:
         """The fed draws of each stream seed's R no-shift commands from
-        ``counter``: a (len(seeds), R, num_iterations, *draw shape) tensor."""
+        ``counter``: for each tensor a command is fed
+        (``CommandStreams.feeds``), a (len(seeds), R, ...) stack."""
         streams, d = fns.streams, self.mppi.d
-        n_iter = streams.n_iter
-        shape = (len(seeds), self.R, n_iter, *streams.draw_shape)
-        draws = [z for s in seeds for r in range(self.R)
-                 for z in streams.feeds(s, counter + r * n_iter, d)]
-        if not draws:
-            return torch.empty(shape, dtype=streams.dtype, device=d)
-        return torch.stack(draws).reshape(shape)
+        plan = self._plans(fns)[0]
+        per = [[streams.feeds(s, counter + r * streams.n_iter, d, plan) for r in range(self.R)]
+               for s in seeds]
+        if not self.R:  # the shapes of one command's, R = 0 of them
+            return [torch.empty((len(seeds), 0, *z.shape), dtype=z.dtype, device=d)
+                    for z in streams.feeds(seeds[0], counter, d, plan)]
+        return [torch.stack([torch.stack([cmd[j] for cmd in seed]) for seed in per])
+                for j in range(len(per[0][0]))]
 
     def _candidate_evaluator(self, fns):
-        """The evaluation of one candidate, ``(params, draws (M, R, n_iter,
-        ...), U_nom, state_template, dyn_params) -> (mean cost, first
-        rollout)``: vmapped over the M streams.  Shared by the population
-        path and :class:`GradientOpt` (autograd through it)."""
+        """The evaluation of one candidate, ``(params, draws (for each fed
+        tensor an (M, R, ...) stack), U_nom, state_template, dyn_params,
+        start=None) -> (mean cost, first rollout)``: vmapped over the M
+        streams, each from its own copy of ``start`` (the evaluator's start
+        state; a (P, nx) stack over the population's vmap), so that a tensor
+        the dynamics make like their state (``torch.empty_like(s)``) is
+        batched like the fed draws and an in-place draw writes them into it.
+        Shared by the population path and :class:`GradientOpt` (autograd
+        through it)."""
         cost_fn = self._rollout_cost_fn or self._default_cost_fn()
         start, R = self.start, self.R
+        plan, score_plan, score_draws = self._plans(fns)
+        score_gens = ([torch.Generator(device=start.device) for _ in score_plan]
+                      if score_plan is not None else None)
 
-        def one_traj(params, draws, U_nom, state_template, dyn_params):
+        def one_traj(params, draws, start, U_nom, state_template, dyn_params):
             state = state_template._replace(U=U_nom)
             for r in range(R):
                 # the body takes its streams from the device its U is on
                 # ("cuda:0", where the controller may say "cuda")
-                with fns.streams.fed(U_nom.device, list(draws[r].unbind(0))):
+                with fns.streams.fed(U_nom.device, [z[r] for z in draws], plan):
                     state, _, _ = fns.body(params, state, start, None, dyn_params, False)
             base = params.base if hasattr(params, "base") else params
             # the executed plan: SMPPI commands its integrated action_sequence,
             # not the rate-space U (reference mppi.py:520-537)
             seq = getattr(state, "action_sequence", state.U)
-            rollout = fns.get_rollouts(base, start, seq, dyn_params=dyn_params)[0]
+            with (contextlib.nullcontext() if score_gens is None
+                  else _solve.fed_draws(score_gens, score_plan, score_draws)):
+                rollout = fns.get_rollouts(base, start, seq, dyn_params=dyn_params,
+                                           rngs=score_gens)[0]
             return cost_fn(rollout, seq), rollout
 
-        def eval_candidate(params, draws, U_nom, state_template, dyn_params):
+        def eval_candidate(params, draws, U_nom, state_template, dyn_params, start=start):
             costs, rollouts = torch.func.vmap(
-                lambda d: one_traj(params, d, U_nom, state_template, dyn_params))(draws)
+                lambda d, x: one_traj(params, d, x, U_nom, state_template, dyn_params))(
+                    draws, start.expand(self.M, *start.shape))
             return torch.mean(costs), rollouts[0]
 
         return eval_candidate
@@ -626,13 +674,16 @@ class PopulationEvaluator:
 
         def eval_pop(base, variant, draws, full, U_nom, state_template, dyn_params):
             # candidates on axis 0 of the batched base leaves, of the batched
-            # variant fields and of the draws; the rest of ``full`` unbatched
-            def one(base_p, variant_p, draws_p):
+            # variant fields, of the draws and of the start states; the rest
+            # of ``full`` unbatched
+            def one(base_p, variant_p, draws_p, start_p):
                 params = (full._replace(base=base_p, **variant_p) if hasattr(full, "base")
                           else base_p)
-                return eval_candidate(params, draws_p, U_nom, state_template, dyn_params)
+                return eval_candidate(params, draws_p, U_nom, state_template, dyn_params,
+                                      start_p)
 
-            return torch.func.vmap(one)(base, variant, draws)
+            starts = self.start.expand(base.lambda_.shape[0], *self.start.shape)
+            return torch.func.vmap(one)(base, variant, draws, starts)
 
         self._eval_cache[fns] = eval_pop
         return eval_pop
@@ -712,7 +763,7 @@ class PopulationEvaluator:
         P = len(param_dicts)
         state = mppi._state
         draws = self._draws(fns, self._stream_seeds(P * self.M), state.counter)
-        draws = draws.reshape(P, self.M, *draws.shape[1:])
+        draws = [z.reshape(P, self.M, *z.shape[1:]) for z in draws]
         costs, rollouts = eval_pop(self._batch_params(param_dicts),
                                    self._batch_variant_fields(param_dicts), draws,
                                    mppi._full_params(), mppi.U, state, mppi.dynamics_params)

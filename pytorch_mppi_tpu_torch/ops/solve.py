@@ -118,7 +118,7 @@ def step_generator(seed: int, t: int, device) -> torch.Generator:
 
 class FedDraws:
     """An iteration's N(0, 1) draws given as a tensor, in place of its
-    generator, while the body of a command is exported
+    generator, while the body of a command is exported or vmapped
     (:meth:`CommandStreams.fed`)."""
 
     def __init__(self, draws: torch.Tensor):
@@ -136,10 +136,216 @@ def standard_normal(generator, shape, dtype, device) -> torch.Tensor:
     return torch.randn(shape, generator=generator, dtype=dtype, device=device)
 
 
+# ---------------------------------------------------------------------------
+# The draws of user code as inputs
+# ---------------------------------------------------------------------------
+
+_ITEM_10 = "ROADMAP.md Queue 1 item 10"
+# the draws whose values depend only on the generator and on the arguments
+# recorded (Draw)
+_VOCABULARY = ("torch.randn", "torch.rand", "torch.randint", "torch.normal",
+               "Tensor.normal_", "Tensor.uniform_")
+# the scalar arguments of the in-place draws, after their tensor, with defaults
+_METHOD_ARGS = {"Tensor.normal_": (("mean", 0.0), ("std", 1.0)),
+                "Tensor.uniform_": (("from", 0.0), ("to", 1.0))}
+
+
+class Draw(NamedTuple):
+    """One draw that user code makes from a generator: the op, the shape
+    and dtype of its result and its scalar arguments, which with the
+    generator's state fix its values.  A plan (:func:`record_draws`) is a
+    tuple of these for each generator, in call order."""
+
+    op: str
+    shape: tuple
+    dtype: str
+    scalars: tuple
+
+
+def plan_from_json(plan) -> tuple:
+    """A plan read back from JSON, where each :class:`Draw` is a list."""
+    return tuple(tuple(Draw(op, tuple(shape), dtype, tuple(scalars))
+                       for op, shape, dtype, scalars in slot) for slot in plan)
+
+
+def _op_name(func) -> str:
+    name = getattr(func, "__name__", repr(func))
+    method = getattr(func, "__qualname__", "").startswith(("TensorBase.", "Tensor."))
+    return f"Tensor.{name}" if method else f"torch.{name}"
+
+
+def _draw_of(func, args, kwargs) -> Draw:
+    """The :class:`Draw` of a call to ``func`` that takes a fed generator;
+    ``NotImplementedError`` for an op outside the vocabulary, or with an
+    argument whose value is a tensor's."""
+    op = _op_name(func)
+    if op not in _VOCABULARY or kwargs.get("out") is not None:
+        raise NotImplementedError(
+            f"{op} draws from the generator of stochastic dynamics, and only "
+            f"{', '.join(_VOCABULARY)} with scalar arguments and no out= have a fed form "
+            f"(the deploy artifact and the population evaluator take the draws as inputs); "
+            f"see {_ITEM_10}")
+
+    def scalar(value):
+        if isinstance(value, torch.Tensor):
+            raise NotImplementedError(
+                f"{op} takes a tensor argument: its draws have no fed form; see {_ITEM_10}")
+        return value
+
+    def size(value):
+        if len(value) == 1 and isinstance(value[0], (tuple, list, torch.Size)):
+            value = value[0]
+        return tuple(int(n) for n in value)
+
+    if op in _METHOD_ARGS:
+        self, rest = args[0], args[1:]
+        scalars = tuple(scalar(rest[i] if i < len(rest) else kwargs.get(n, d))
+                        for i, (n, d) in enumerate(_METHOD_ARGS[op]))
+        return Draw(op, tuple(self.shape), str(self.dtype).removeprefix("torch."), scalars)
+    rest = list(args)
+    if op == "torch.randint":
+        shape = kwargs["size"] if "size" in kwargs else rest.pop()
+        high = kwargs["high"] if "high" in kwargs else rest.pop()
+        low = kwargs["low"] if "low" in kwargs else (rest.pop() if rest else 0)
+        scalars, shape, dtype = (scalar(low), scalar(high)), size((shape,)), torch.int64
+    elif op == "torch.normal":
+        named = dict(zip(("mean", "std", "size"), rest))
+        named.update({k: kwargs[k] for k in ("mean", "std", "size") if k in kwargs})
+        if "size" not in named:
+            raise NotImplementedError(
+                f"{op} with tensor mean or std: its draws have no fed form; see {_ITEM_10}")
+        scalars = (scalar(named["mean"]), scalar(named["std"]))
+        shape, dtype = size((named["size"],)), torch.get_default_dtype()
+    else:
+        scalars = ()
+        shape, dtype = size((kwargs["size"],) if "size" in kwargs else rest), \
+            torch.get_default_dtype()
+    dtype = kwargs.get("dtype") or dtype
+    return Draw(op, shape, str(dtype).removeprefix("torch."), scalars)
+
+
+def _replay(draw: Draw, generator: torch.Generator) -> torch.Tensor:
+    """The values of ``draw`` from ``generator``: the call that made it,
+    on the generator's device."""
+    dtype = getattr(torch, draw.dtype)
+    kw = dict(dtype=dtype, device=generator.device, generator=generator)
+    if draw.op == "torch.randn":
+        return torch.randn(draw.shape, **kw)
+    if draw.op == "torch.rand":
+        return torch.rand(draw.shape, **kw)
+    if draw.op == "torch.randint":
+        return torch.randint(*draw.scalars, draw.shape, **kw)
+    if draw.op == "torch.normal":
+        return torch.normal(*draw.scalars, draw.shape, **kw)
+    out = torch.empty(draw.shape, dtype=dtype, device=generator.device)
+    method = out.normal_ if draw.op == "Tensor.normal_" else out.uniform_
+    return method(*draw.scalars, generator=generator)
+
+
+def _transformed() -> bool:
+    """Whether the caller runs inside a ``torch.func`` transform (the
+    population evaluator's and ``GradientOpt``'s ``torch.func.vmap``)."""
+    return torch._C._functorch.maybe_current_level() is not None
+
+
+def _drawn_into(target: torch.Tensor, tensor: torch.Tensor) -> torch.Tensor:
+    """An in-place draw answered with its fed ``tensor``: written into its
+    ``target``, which it returns.  Under ``torch.func.vmap`` a target that
+    is not batched like the draws (made with ``torch.empty``, where
+    ``torch.empty_like`` of the state batches it) cannot hold them: it is
+    filled with NaN and ``tensor`` returned, so code that reads the draw's
+    result reads the draws, and code that reads the target reads NaN."""
+    try:
+        return target.copy_(tensor)
+    except RuntimeError:
+        if not _transformed():
+            raise
+        target.fill_(float("nan"))
+        return tensor
+
+
+class _Draws(torch.overrides.TorchFunctionMode):
+    """Records each draw made from one of ``generators`` (``plan`` None),
+    or answers it with its tensor of ``fed``, after checking it against the
+    plan's; any other call runs as it is."""
+
+    def __init__(self, generators, plan=None, fed=()):
+        super().__init__()
+        self.generators = list(generators)  # alive, so their ids stay theirs
+        self.slot = {id(g): i for i, g in enumerate(self.generators)}
+        self.plan = [[] for _ in self.generators] if plan is None else None
+        self.queues = None
+        if plan is not None:
+            fed = list(fed)
+            if len(plan) != len(self.generators) or sum(map(len, plan)) != len(fed):
+                raise ValueError(
+                    f"{len(fed)} draws fed to {len(self.generators)} generators, whose plan "
+                    f"has {sum(map(len, plan))} draws from {len(plan)}")
+            it = iter(fed)
+            self.queues = [[(d, next(it)) for d in slot][::-1] for slot in plan]
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        slot = next((self.slot[id(a)] for a in (*args, *kwargs.values())
+                     if isinstance(a, torch.Generator) and id(a) in self.slot), None)
+        if slot is None:
+            return func(*args, **kwargs)
+        draw = _draw_of(func, args, kwargs)
+        if self.queues is None:
+            self.plan[slot].append(draw)
+            return func(*args, **kwargs)
+        if not self.queues[slot]:
+            raise ValueError(f"the body draws {draw} from a fed generator beyond its plan")
+        want, tensor = self.queues[slot].pop()
+        if draw != want:
+            raise ValueError(f"the body draws {draw} where its plan has {want}")
+        if draw.op in _METHOD_ARGS:
+            return _drawn_into(args[0], tensor)
+        return tensor
+
+    def check_consumed(self):
+        left = sum(map(len, self.queues))
+        if left:
+            raise ValueError(f"{left} fed draws were not drawn: the body draws less than its "
+                             f"plan")
+
+
+def record_draws(generators, run: Callable) -> tuple:
+    """Run ``run()`` and return the plan of the draws it made from each of
+    ``generators``: a tuple of :class:`Draw` for each, in call order.  A
+    draw outside the vocabulary raises ``NotImplementedError``."""
+    mode = _Draws(generators)
+    with mode:
+        run()
+    return tuple(tuple(slot) for slot in mode.plan)
+
+
+def replay_draws(plan, generators) -> list:
+    """The draws of ``plan`` made from ``generators``, flat in the plan's
+    order: the same calls on the same generators as the recorded code, so
+    bit for bit its values where the generators are positioned alike."""
+    return [_replay(d, g) for slot, g in zip(plan, generators) for d in slot]
+
+
+@contextlib.contextmanager
+def fed_draws(generators, plan, fed):
+    """Within, a draw from one of ``generators`` returns its next tensor
+    of ``fed`` (:func:`replay_draws`' order; an in-place draw writes it
+    into its tensor, :func:`_drawn_into`) and draws nothing, so that
+    an export or a ``torch.func.vmap`` of the code takes them as inputs.
+    A draw that is not the plan's next raises, and so does a fed tensor
+    left undrawn."""
+    mode = _Draws(generators, plan, fed)
+    with mode:
+        yield
+    mode.check_consumed()
+
+
 class _DeviceStreams:
     """The generators and the kernels' key buffer of one step on one
     device (:class:`CommandStreams`), or in their place the tensors of
-    :meth:`CommandStreams.feeds` (``feeds``)."""
+    :meth:`CommandStreams.feeds` (``feeds``; the draws of the rollout and
+    refinement generators in ``draws``)."""
 
     def __init__(self, streams: "CommandStreams", device: torch.device, feeds=None):
         n_iter, T = streams.n_iter, streams.T
@@ -162,16 +368,31 @@ class _DeviceStreams:
         if not streams.noise:
             self.noise = None
         else:
-            self.noise = gens(n_iter) if feeds is None else [FedDraws(d) for d in feeds]
+            self.noise = gens(n_iter) if feeds is None else [FedDraws(d) for d in
+                                                             feeds[:n_iter]]
+            feeds = None if feeds is None else feeds[n_iter:]
+        self.draws = feeds
         self.rollout = [gens(T) for _ in range(n_iter)] if streams.rollout else None
         self.refine = [gens(T) for _ in range(streams.refine_steps)]
 
+    def drawn(self) -> list:
+        """The generators the user's dynamics draw from: each iteration's
+        rollout steps, then each descent step's."""
+        return [g for group in (self.rollout or []) + self.refine for g in group]
+
     def generators(self) -> list:
         """Every generator a command draws from."""
-        out = list(self.noise or [])
-        for group in (self.rollout or []) + self.refine:
-            out += group
-        return out
+        return list(self.noise or []) + self.drawn()
+
+
+def _indexed(device) -> torch.device:
+    """``device`` with its index: the body takes its streams from the
+    device its tensors are on ("cuda:0", where a controller may say
+    "cuda"), so a prologue must position those."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 class CommandStreams:
@@ -200,7 +421,13 @@ class CommandStreams:
 
     A CUDA graph of the body registers ``on(device).generators()`` with
     ``torch.cuda.CUDAGraph.register_generator_state``, so that a replay
-    reads the seed set by the prologue."""
+    reads the seed set by the prologue.
+
+    The draws the user's dynamics make from the rollout and refinement
+    generators have a fed form too: :meth:`record` takes their plan (op,
+    shape, dtype and scalar arguments of each, :class:`Draw`) on a live
+    run of the body, :meth:`feeds` replays it on the seeded generators, and
+    :meth:`fed` answers each draw with its tensor (:func:`fed_draws`)."""
 
     def __init__(self, config: MPPIConfig, kernel_keys: bool, noise: bool,
                  refine: bool = False):
@@ -219,7 +446,7 @@ class CommandStreams:
 
     def on(self, device) -> _DeviceStreams:
         """The streams on ``device``, made when first used there."""
-        device = torch.device(device)
+        device = _indexed(device)
         slots = self._on.get(device)
         if slots is None:
             slots = self._on[device] = _DeviceStreams(self, device)
@@ -262,33 +489,58 @@ class CommandStreams:
                 slots.keys.copy_(host)
         return slots
 
-    def feeds(self, seed: int, counter: int, device) -> list:
-        """What an exported body takes in place of the streams of the
-        command at ``counter`` (``utils/deploy.py``): the (n_iter, 2) key
-        buffer, then each iteration's N(0, 1) draws, drawn here from the
-        generators the live body would draw them from.  Streams of the
-        stochastic rollouts and of refinement have no feed."""
-        if self.rollout or self.refine_steps:
-            raise NotImplementedError("the streams of stochastic dynamics have no feed")
+    @property
+    def stochastic(self) -> bool:
+        """Whether the user's dynamics draw from the command's generators
+        (the rollout's or refinement's): then :meth:`feeds` and :meth:`fed`
+        need a plan."""
+        return bool(self.rollout or self.refine_steps)
+
+    def _check_plan(self, plan):
+        if self.stochastic and plan is None:
+            raise ValueError("the streams of stochastic dynamics are fed from the plan of "
+                             "their draws (CommandStreams.record)")
+
+    def record(self, run: Callable, seed: int, counter: int, device) -> tuple:
+        """The plan of the draws that ``run()``, a live run of the body of
+        the command at ``counter``, makes from the rollout and refinement
+        generators (:func:`record_draws`)."""
+        return record_draws(self.prologue(seed, counter, device).drawn(), run)
+
+    def feeds(self, seed: int, counter: int, device, plan=None) -> list:
+        """What an exported or vmapped body takes in place of the streams
+        of the command at ``counter`` (``utils/deploy.py``, ``autotune.
+        PopulationEvaluator``): the (n_iter, 2) key buffer, then each
+        iteration's N(0, 1) draws, then with stochastic dynamics the draws
+        of ``plan`` (:meth:`record`) from each rollout step's and descent
+        step's generator, all drawn here from the generators the live body
+        would draw them from."""
+        self._check_plan(plan)
         slots = self.prologue(seed, counter, device)
         out = [slots.keys] if self.kernel_keys else []
         if self.noise:
             out += [standard_normal(g, self.draw_shape, self.dtype, slots.device)
                     for g in slots.noise]
+        if self.stochastic:
+            out += replay_draws(plan, slots.drawn())
         return out
 
     @contextlib.contextmanager
-    def fed(self, device, feeds):
+    def fed(self, device, feeds, plan=None):
         """Run the body on ``device`` with the tensors of :meth:`feeds` in
-        place of its streams (the key buffer and its rows, and a
-        :class:`FedDraws` for each iteration's generator), so that an
-        export of the body takes them as inputs."""
-        device = torch.device(device)
+        place of its streams (the key buffer and its rows, a
+        :class:`FedDraws` for each iteration's generator, and the draws of
+        ``plan`` answered from the rest: :func:`fed_draws`), so that an
+        export or a ``torch.func.vmap`` of the body takes them as inputs."""
+        self._check_plan(plan)
+        device = _indexed(device)
         slots = _DeviceStreams(self, device, feeds)
         before = self._on.get(device)
         self._on[device] = slots
         try:
-            yield slots
+            with (fed_draws(slots.drawn(), plan, slots.draws) if self.stochastic
+                  else contextlib.nullcontext()):
+                yield slots
         finally:
             if before is None:
                 del self._on[device]
@@ -813,7 +1065,11 @@ def make_nominal_refiner(config: MPPIConfig, dynamics: Callable, running_cost: C
     i + 1 in ``config.dtype``) at ``config.gradient_refinement_lr``, each
     clamped into [u_min, u_max].  The gradient is ``torch.autograd``'s
     through the plain rollout, under ``torch.enable_grad()`` on a detached
-    copy of U; the result is detached.  ``dynamics``, ``running_cost`` and
+    copy of U, and the result is detached: the form that ``torch.export``
+    records (it mistraces ``torch.func.grad``).  Inside a ``torch.func``
+    transform it is ``torch.func.grad`` of J on U itself, the same numbers
+    in a form that ``torch.func.vmap`` batches and an outer gradient goes
+    through.  ``dynamics``, ``running_cost`` and
     ``terminal_final_cost`` are wrapped; stochastic dynamics draw from
     ``seed`` at every step of the descent, or descent step i from the T
     generators ``rngs[i]`` (a command's, each group seeded alike by its
@@ -841,20 +1097,28 @@ def make_nominal_refiner(config: MPPIConfig, dynamics: Callable, running_cost: C
                                              dyn_params=dyn_params)
             return torch.mean(cost_total)
 
-        U_ = U.detach()
-        m = torch.zeros_like(U_)
-        v = torch.zeros_like(U_)
-        with torch.enable_grad():
-            for i in range(steps):
+        functional = _transformed()
+
+        def gradient(U_, i):
+            if functional:
+                return torch.func.grad(J)(U_, i)
+            with torch.enable_grad():
                 leaf = U_.detach().requires_grad_(True)
                 g, = torch.autograd.grad(J(leaf, i), leaf)
-                m = b1 * m + (1 - b1) * g
-                v = b2 * v + (1 - b2) * (g * g)
-                t = device_scalar(i + 1, dtype, device)
-                m_hat = m / (1 - b1_t ** t)
-                v_hat = v / (1 - b2_t ** t)
-                U_ = _bound(U_ - lr * m_hat / (torch.sqrt(v_hat) + eps), lo, hi)
-        return U_.detach()
+            return g
+
+        U_ = U if functional else U.detach()
+        m = torch.zeros_like(U_)
+        v = torch.zeros_like(U_)
+        for i in range(steps):
+            g = gradient(U_, i)
+            m = b1 * m + (1 - b1) * g
+            v = b2 * v + (1 - b2) * (g * g)
+            t = device_scalar(i + 1, dtype, device)
+            m_hat = m / (1 - b1_t ** t)
+            v_hat = v / (1 - b2_t ** t)
+            U_ = _bound(U_ - lr * m_hat / (torch.sqrt(v_hat) + eps), lo, hi)
+        return U_ if functional else U_.detach()
 
     return refine
 
@@ -2044,12 +2308,13 @@ def make_get_rollouts(config: MPPIConfig, wrapped_dynamics: Callable) -> Callabl
     """Roll a nominal sequence from given initial states (mppi.py:425-448).
     With stochastic dynamics step t takes ``step_generator(seed, t)``; the
     controller passes a fresh seed each call (``pytorch_mppi_tpu/
-    controller.py:645-656``), and ``seed=None`` means the stream of 0.
-    ``dyn_params`` goes to the dynamics."""
+    controller.py:645-656``), and ``seed=None`` means the stream of 0; or
+    the T generators ``rngs`` where they are given.  ``dyn_params`` goes to
+    the dynamics."""
     dtype = config.dtype
 
     def get_rollouts(params: MPPIParams, x0, U, num_rollouts: int = 1, seed: int = None,
-                     dyn_params=None):
+                     dyn_params=None, rngs=None):
         x0 = torch.as_tensor(x0, dtype=dtype, device=U.device).reshape(-1, config.nx)
         if x0.shape[0] == 1:
             x0 = x0.expand(num_rollouts, config.nx)
@@ -2057,8 +2322,9 @@ def make_get_rollouts(config: MPPIConfig, wrapped_dynamics: Callable) -> Callabl
         states = []
         for t in range(U.shape[0]):
             u = U[t][None].expand(x0.shape[0], config.nu) * config.u_scale
-            rng = (step_generator(seed or 0, t, U.device) if config.stochastic_dynamics
-                   else None)
+            rng = None
+            if config.stochastic_dynamics:
+                rng = rngs[t] if rngs is not None else step_generator(seed or 0, t, U.device)
             state = wrapped_dynamics(state, u, t, rng, dyn_params)[..., : config.nx]
             states.append(state)
         return torch.stack(states, dim=1)  # (R, T, nx)

@@ -24,8 +24,10 @@ Guarantees and limits:
   ``elites``, ``action_sequence``, ``theta``), ``x0`` and the
   ``dynamics_params`` tensors, then what the prologue made: on a kernel
   route the (n_iter, 2) int32 key buffer, on the plain path each
-  iteration's N(0, 1) draws (what ``solve.standard_normal`` returns).  It
-  returns the new state's tensors, the action and the artifacts;
+  iteration's N(0, 1) draws (what ``solve.standard_normal`` returns), and
+  with stochastic dynamics the draws the dynamics make at each rollout
+  step and descent step (``CommandStreams.feeds``).  It returns the new
+  state's tensors, the action and the artifacts;
 - the state's ``seed`` and ``counter`` stay host ints: the
   :class:`ServingSolver` runs the port's own prologue on them, so its draws
   come in the live controller's order and it replays the live controller
@@ -46,24 +48,32 @@ Guarantees and limits:
   the file, as JAX's serving host compiles the StableHLO it loads;
 - gradient refinement exports: ``torch.export`` records the
   ``torch.autograd.grad`` of the refiner in the body;
+- stochastic dynamics export (version 6): the set-up run records the plan
+  of the draws the dynamics make from their per-step generators (op,
+  shape, dtype and scalar arguments of each ``torch.randn``,
+  ``torch.rand``, ``torch.randint``, ``torch.normal`` with scalar mean and
+  std, ``Tensor.normal_`` and ``Tensor.uniform_``: ``solve.Draw``), the
+  programs take those draws as inputs, and the file keeps the plan, from
+  which the :class:`ServingSolver` draws them on the seeded generators in
+  the live order, with no user code.  Another draw from the generator
+  raises ``NotImplementedError`` naming ROADMAP.md Queue 1 item 10;
 - an artifact exported on the card runs on the card, and loading it where
   there is no card raises: it is never moved to the CPU;
 - a live ``info`` payload raises a ValueError (the exported body takes
   ``info=None``), a file of a version this build does not read a
-  ValueError (it reads versions 1, without kernels, 2, 3, 4 and 5; version 4
-  adds the block models, the residual MLP beyond its per-thread bounds
-  and traced programs with dense layers, version 5 traced programs with a
-  LayerNorm's statistics, dense layers in a running or terminal cost and
-  more than 32 states or actions, which a build before each does not run,
-  so it refuses their files by their version).  A file of
-  version 1 or 2 whose programs run the residual MLP's device model
-  raises a ValueError too: its constants hold the goal in the 16-float
-  header of before, which the kernels no longer read (export it again);
-- stochastic dynamics cannot be exported yet (their per-step generators
-  are arguments of the user's code, which ``torch.export`` can neither take
-  as inputs nor replay; ROADMAP.md Queue 1 item 10), nor a controller with
-  a mesh (its command calls collectives; item 12b): :func:`export_solver`
-  raises ``NotImplementedError``.
+  ValueError (it reads versions 1, without kernels, 2, 3, 4, 5 and 6;
+  version 4 adds the block models, the residual MLP beyond its per-thread
+  bounds and traced programs with dense layers, version 5 traced programs
+  with a LayerNorm's statistics, dense layers in a running or terminal
+  cost and more than 32 states or actions, version 6 stochastic dynamics,
+  which a build before each does not run, so it refuses their files by
+  their version).  A file of version 1 or 2 whose programs run the
+  residual MLP's device model raises a ValueError too: its constants hold
+  the goal in the 16-float header of before, which the kernels no longer
+  read (export it again);
+- a controller with a mesh cannot be exported yet (its command calls
+  collectives; ROADMAP.md Queue 1 item 12b): :func:`export_solver` raises
+  ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -80,7 +90,7 @@ from ..ops import batch_last as BL
 from ..ops import fused_solve as FS
 from ..ops import kernel_models as KM
 from ..ops import library as _library
-from ..ops.solve import CommandStreams
+from ..ops.solve import CommandStreams, plan_from_json
 from . import checkpoint as _ckpt
 
 logger = logging.getLogger(__name__)
@@ -89,9 +99,10 @@ logger = logging.getLogger(__name__)
 # with dense layers), the launch spec's act_ld and the rollout's; version 5:
 # programs with the nodes lnmean and lnrstd (a LayerNorm), dense layers in a
 # running or terminal cost (struct Terminal) and block models beyond 32 states
-# or actions; a build before each refuses such a file by its version
-_FORMAT_VERSION = 5
-_READS = (1, 2, 3, 4, 5)  # version 1 carries no generated kernels
+# or actions; version 6: stochastic dynamics (the plan of their draws, fed to
+# the programs); a build before each refuses such a file by its version
+_FORMAT_VERSION = 6
+_READS = (1, 2, 3, 4, 5, 6)  # version 1 carries no generated kernels
 # the first version whose residual-MLP constants have the header of
 # kernel_models.MLP_HEAD floats (20, the goal's nx <= 8 floats from 12 on)
 _MLP_LAYOUT = 3
@@ -108,15 +119,22 @@ def _rebuild(tree, tensors):
 class _Command(torch.nn.Module):
     """One command's device body on a flat list of tensors: the parameters',
     the state's, ``x0``, the ``dynamics_params``' and the prologue's feeds
-    (``CommandStreams.feeds``).  Returns the new state's tensors, the action
-    and the artifacts that are not None, and records which are
-    (``artifacts``)."""
+    (``CommandStreams.feeds``, with the draws of ``plan``).  Returns the
+    new state's tensors, the action and the artifacts that are not None, and
+    records which are (``artifacts``)."""
 
-    def __init__(self, fns, params, state, dyn_params, shift: bool, takes_info: bool):
+    def __init__(self, fns, params, state, dyn_params, shift: bool, takes_info: bool,
+                 plan=None):
         super().__init__()
         self.fns, self.shift, self.takes_info = fns, shift, takes_info
         self.params, self.state, self.dyn_params = params, state, dyn_params
+        self.plan = plan
         self.artifacts = None
+
+    def body(self, params, state, x0, dyn_params):
+        if self.takes_info:
+            return self.fns.body(params, state, x0, None, dyn_params, self.shift)
+        return self.fns.body(params, state, x0, dyn_params, self.shift)
 
     def forward(self, flat):
         it = iter(flat)
@@ -124,13 +142,8 @@ class _Command(torch.nn.Module):
         state = _rebuild(self.state, it)
         x0 = next(it)
         dyn_params = _rebuild(self.dyn_params, it)
-        with self.fns.streams.fed(x0.device, list(it)):
-            if self.takes_info:
-                new_state, action, artifacts = self.fns.body(params, state, x0, None,
-                                                             dyn_params, self.shift)
-            else:
-                new_state, action, artifacts = self.fns.body(params, state, x0, dyn_params,
-                                                             self.shift)
+        with self.fns.streams.fed(x0.device, list(it), self.plan):
+            new_state, action, artifacts = self.body(params, state, x0, dyn_params)
         self.artifacts = [a is not None for a in artifacts]
         return (*_ckpt.tensors(new_state), action, *(a for a in artifacts if a is not None))
 
@@ -152,8 +165,12 @@ class ServingSolver:
         self.meta = dict(meta)
         self.device = torch.device(meta["device"])
         self.dtype = getattr(torch, meta["dtype"])
+        # version 6 adds the stochastic streams (the streams' refinement
+        # steps are those of stochastic dynamics) and the plan of their draws
         self._streams = CommandStreams(MPPIConfig(**meta["streams"], dtype=self.dtype),
-                                       kernel_keys=meta["kernel_keys"], noise=meta["noise"])
+                                       kernel_keys=meta["kernel_keys"], noise=meta["noise"],
+                                       refine=True)
+        self._plan = plan_from_json(meta["draws"]) if "draws" in meta else None
         self.params, self.state, self.dyn_params = params, state, dyn_params
         # per-solve artifact surface, same names as the controller
         self.cost_total = None
@@ -176,14 +193,20 @@ class ServingSolver:
         named models)."""
         return tuple(BL.kernel_of(d["id"]) for d in self.meta.get("kernels", ()))
 
+    def feeds(self) -> list:
+        """What the next command's program takes in place of its random
+        streams (``CommandStreams.feeds`` at the state's position): the key
+        buffer or the noise, and the draws of stochastic dynamics."""
+        return self._streams.feeds(self.state.seed, self.state.counter, self.device,
+                                   self._plan)
+
     def command(self, x0, shift_nominal_trajectory: bool = True):
         """One MPC solve; threads the state exactly as the live controller
         does."""
         x0 = torch.as_tensor(x0, dtype=self.dtype, device=self.device)
         state = self.state
-        feeds = self._streams.feeds(state.seed, state.counter, self.device)
         flat = [*_ckpt.tensors(self.params), *_ckpt.tensors(state), x0,
-                *_ckpt.tensors(self.dyn_params), *feeds]
+                *_ckpt.tensors(self.dyn_params), *self.feeds()]
         out = iter(self._modules[bool(shift_nominal_trajectory)](flat))
         self.state = _rebuild(state, out)._replace(
             counter=state.counter + self.meta["streams"]["num_iterations"])
@@ -236,10 +259,12 @@ def export_solver(ctrl, path: Optional[str] = None, x0_example=None) -> ServingS
     :param ctrl: a live ``MPPI``/``SMPPI``/``KMPPI``/``MPPI_Batched`` on
         the plain path or a kernel route (the fused kernel, the legacy
         pair, the batched pair), with a named device model or one traced
-        from its callables, a traced terminal cost, elites, iterations or
-        gradient refinement.  Stochastic dynamics (ROADMAP.md Queue 1 item
-        10) and a mesh (item 12b) raise ``NotImplementedError``; a live
-        ``info`` payload a ValueError.
+        from its callables, a traced terminal cost, elites, iterations,
+        gradient refinement or stochastic dynamics (the plain path; the
+        draws of the dynamics become inputs).  A mesh (ROADMAP.md Queue 1
+        item 12b), or a draw outside ``solve.Draw``'s vocabulary (item 10),
+        raises ``NotImplementedError``; a live ``info`` payload a
+        ValueError.
     :param path: optional ``.npz`` destination (written with the same
         self-describing format as ``utils.checkpoint``).
     :param x0_example: example state for the shapes; default zeros of
@@ -259,10 +284,6 @@ def export_solver(ctrl, path: Optional[str] = None, x0_example=None) -> ServingS
             "export_solver cannot export a controller with a mesh yet (its command calls "
             "collectives); see ROADMAP.md Queue 1 item 12b")
     config = ctrl.config
-    if config.stochastic_dynamics:
-        raise NotImplementedError(
-            "export_solver cannot export stochastic dynamics yet (their per-step generators "
-            "are arguments of the dynamics); see ROADMAP.md Queue 1 item 10")
     batched = isinstance(ctrl, _c.MPPI_Batched)
     takes_info = not batched
     fns, device = ctrl._fns, ctrl.d
@@ -271,13 +292,19 @@ def export_solver(ctrl, path: Optional[str] = None, x0_example=None) -> ServingS
           else torch.as_tensor(x0_example, dtype=ctrl.dtype, device=device))
     params = ctrl._full_params() if hasattr(ctrl, "_full_params") else ctrl._params
     state, dyn_params = ctrl._state, ctrl.dynamics_params
-    flat = [*_ckpt.tensors(params), *_ckpt.tensors(state), x0, *_ckpt.tensors(dyn_params),
-            *fns.streams.feeds(state.seed, state.counter, device)]
+    streams, plan = fns.streams, None
     programs, launched = {}, dict(FS.launches)  # put back after the set-up runs
     try:
+        if streams.stochastic:
+            # the draws of the dynamics, on a live run of the command
+            module = _Command(fns, params, state, dyn_params, True, takes_info)
+            plan = streams.record(lambda: module.body(params, state, x0, dyn_params),
+                                  state.seed, state.counter, device)
+        flat = [*_ckpt.tensors(params), *_ckpt.tensors(state), x0, *_ckpt.tensors(dyn_params),
+                *streams.feeds(state.seed, state.counter, device, plan)]
         with _library.exporting():
             for shift in (True, False):
-                module = _Command(fns, params, state, dyn_params, shift, takes_info)
+                module = _Command(fns, params, state, dyn_params, shift, takes_info, plan)
                 # a run on the real tensors first: it fills every cache of
                 # device constants with real tensors, which the trace then
                 # takes as the program's constants
@@ -298,13 +325,17 @@ def export_solver(ctrl, path: Optional[str] = None, x0_example=None) -> ServingS
         "torch_version": torch.__version__,
         "artifacts": module.artifacts,
         "kernels": [BL.kernel_of(i).describe() for i in _launched_kernels(programs.values())],
-        "kernel_keys": fns.streams.kernel_keys,
-        "noise": fns.streams.noise,
+        "kernel_keys": streams.kernel_keys,
+        "noise": streams.noise,
         "streams": dict(nx=config.nx, nu=config.nu, K=config.K, T=config.T,
                         antithetic=config.antithetic,
                         num_support_pts=config.num_support_pts,
-                        num_iterations=config.num_iterations),
+                        num_iterations=config.num_iterations,
+                        stochastic_dynamics=config.stochastic_dynamics,
+                        gradient_refinement_steps=streams.refine_steps),
     }
+    if plan is not None:
+        meta["draws"] = plan
     solver = ServingSolver(programs[True], programs[False], params, state, dyn_params, meta)
     if path is not None:
         blobs = {}

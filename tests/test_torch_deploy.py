@@ -16,9 +16,11 @@ CPU.
   kernels' plain versions, and the loaded artifact replays the live
   controller bit for bit, in a fresh process too;
 * the operators' CPU implementations equal the wrappers' plain versions,
-  and what cannot be exported yet raises ``NotImplementedError`` naming
-  its ROADMAP item; an artifact exported on the card does not load where
-  there is no card.
+  and what cannot be exported yet (stochastic dynamics whose draws have no
+  fed form) raises ``NotImplementedError`` naming its ROADMAP item; an
+  artifact exported on the card does not load where there is no card.
+  Stochastic dynamics that draw what has a fed form are exported in
+  ``test_torch_deploy_stochastic.py``.
 """
 import json
 import os
@@ -202,7 +204,7 @@ class TestExportRoundtrip:
         with the goal in the header of 16 floats, which the kernels no
         longer read: loading one raises; the same file as version 3 loads
         (the per-thread MLP's constants and launches are version 3's; the
-        file is written as version 5)."""
+        file is written as version 6)."""
         model = _learned_car()
         ctrl = P.MPPI(model.dynamics, model.running_cost, 4, torch.eye(1), num_samples=32,
                       horizon=4, seed=SEED, use_pallas=True, device="cpu")
@@ -210,7 +212,7 @@ class TestExportRoundtrip:
         deploy.export_solver(ctrl, path)
         tree = ckpt.load(path)
         meta = json.loads(tree["meta"])
-        assert meta["version"] == 5
+        assert meta["version"] == 6
         meta["version"] = version
         tree["meta"] = json.dumps(meta)
         ckpt.save(path, tree)
@@ -527,12 +529,28 @@ class TestOperators:
             plain_model(99, LQ.consts, 2, 2)
 
 
+# stochastic dynamics whose draws have no fed form: the draw of an op
+# outside the vocabulary of ops/solve.Draw, and torch.normal with a tensor mean
+UNFED = {
+    "stochastic": lambda s, a, rng: linear_dynamics(s, a) + 0.1 * torch.bernoulli(
+        torch.full_like(s, 0.5), generator=rng),
+    "tensor_mean": lambda s, a, rng: linear_dynamics(s, a) + torch.normal(
+        torch.zeros_like(s), 0.1, generator=rng),
+}
+
+
 class TestRefusals:
-    @pytest.mark.parametrize("what", ["stochastic"])
+    @pytest.mark.parametrize("what", sorted(UNFED))
     def test_not_exportable_yet(self, tmp_path, what):
-        ctrl = _mk(dynamics=lambda s, a, rng: linear_dynamics(s, a), stochastic_dynamics=True)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 10"):
+        """Stochastic dynamics export (``tests/test_torch_deploy_stochastic.py``)
+        unless they draw what has no fed form: that raises, naming the op and
+        ROADMAP.md Queue 1 item 10, and no file is written."""
+        ctrl = _mk(dynamics=UNFED[what], stochastic_dynamics=True)
+        ctrl.command(torch.zeros(2))
+        op = "torch.bernoulli" if what == "stochastic" else "torch.normal"
+        with pytest.raises(NotImplementedError, match=f"{op}.*ROADMAP.md Queue 1 item 10"):
             deploy.export_solver(ctrl, str(tmp_path / "x.npz"))
+        assert not (tmp_path / "x.npz").exists()
 
     def test_card_artifact_does_not_load_without_a_card(self, tmp_path):
         """An artifact exported on the card is never moved to the CPU: where

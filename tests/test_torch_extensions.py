@@ -1,9 +1,11 @@
-"""JAX's ``tests/test_extensions.py`` classes ``TestGradientRefinement``
-(:595-722), ``TestPrngAutoDefault`` (:724-741), ``TestRunMppiJit``
-(:1019-1148), ``TestEliteReuse`` (:1149-1357) and ``TestTerminalFinalCost``
-(:1358-1494, but its mesh test) on the port, on the CPU:
-each JAX test translated to the port's API with JAX's floors, in float64
-as JAX's file.
+"""JAX's ``tests/test_extensions.py`` classes ``TestStochasticDynamics``
+(:27-73), ``TestDynamicsParams`` (:141-158), ``TestRiskSensitiveCVaR``
+(:311-428), ``TestGradientRefinement`` (:595-722), ``TestPrngAutoDefault``
+(:724-741), ``TestRunMppiJit`` (:1019-1148), ``TestEliteReuse``
+(:1149-1357) and ``TestTerminalFinalCost`` (:1358-1494, but its mesh test)
+on the port, on the CPU: each JAX test translated to the port's API with
+JAX's floors, in float64 as JAX's file.  Stochastic dynamics take a
+trailing ``torch.Generator`` where JAX's take a key.
 
 The port's draws are its own (``torch.Generator``), so a floor that compares
 two runs compares two runs of the port.  Some of these checks also stand,
@@ -38,6 +40,170 @@ def quadratic_cost(state, action):
 
 def eye(scale=1.0):
     return scale * torch.eye(2, dtype=DTYPE)
+
+
+class TestStochasticDynamics:
+    def test_m_gt_1_with_keys(self):
+        """stochastic_dynamics=True passes a per-step generator; with M > 1
+        the M rollouts see different noise draws."""
+
+        def noisy_dynamics(state, action, rng):
+            noise = 0.05 * torch.randn(state.shape, generator=rng, dtype=DTYPE)
+            return state + action @ B.T + noise
+
+        ctrl = P.MPPI(noisy_dynamics, quadratic_cost, 2, eye(), num_samples=64, horizon=8,
+                      lambda_=1.0, seed=SEED, stochastic_dynamics=True, rollout_samples=4,
+                      rollout_var_cost=0.1, terminal_state_cost=None, device="cpu")
+        a = ctrl.command(torch.tensor([-1.0, -1.0], dtype=DTYPE))
+        assert a.shape == (2,)
+        assert torch.isfinite(a).all()
+        # M > 1 stores rollouts; the M axis must differ (different draws)
+        assert ctrl.states.shape[0] == 4
+        assert not torch.allclose(ctrl.states[0], ctrl.states[1])
+
+    def test_stochastic_step_dependent(self):
+        def noisy_step_dynamics(state, action, t, rng):
+            noise = 0.01 * torch.randn(state.shape, generator=rng, dtype=DTYPE)
+            return state + action @ B.T + noise
+
+        def cost_step(state, action, t):
+            return quadratic_cost(state, action)
+
+        ctrl = P.MPPI(noisy_step_dynamics, cost_step, 2, eye(), num_samples=32, horizon=5,
+                      lambda_=1.0, seed=SEED, stochastic_dynamics=True,
+                      step_dependent_dynamics=True, device="cpu")
+        a = ctrl.command(torch.tensor([0.0, 0.0], dtype=DTYPE))
+        assert torch.isfinite(a).all()
+
+    def test_get_rollouts_stochastic(self):
+        def noisy_dynamics(state, action, rng):
+            return state + action @ B.T + 0.01 * torch.randn(state.shape, generator=rng,
+                                                              dtype=DTYPE)
+
+        ctrl = P.MPPI(noisy_dynamics, quadratic_cost, 2, eye(), num_samples=32, horizon=5,
+                      lambda_=1.0, seed=SEED, stochastic_dynamics=True, device="cpu")
+        ctrl.command(torch.tensor([0.0, 0.0], dtype=DTYPE))
+        r = ctrl.get_rollouts(torch.tensor([0.0, 0.0], dtype=DTYPE), num_rollouts=3)
+        assert r.shape == (3, 5, 2)
+
+
+class TestDynamicsParams:
+    def test_params_are_traced_not_baked(self):
+        """Swapping dynamics_params must change the result WITHOUT
+        rebuilding (the weights are arguments, not constants of the
+        bundle)."""
+
+        def dyn(p, state, action):
+            return state + action @ B.T * p["gain"]
+
+        ctrl = P.MPPI(dyn, quadratic_cost, 2, eye(), num_samples=64, horizon=5, lambda_=1.0,
+                      seed=SEED, dynamics_params={"gain": torch.tensor(1.0, dtype=DTYPE)},
+                      device="cpu")
+        state = torch.tensor([-2.0, -2.0], dtype=DTYPE)
+        a1 = ctrl.command(state, shift_nominal_trajectory=False)
+        fns_before = ctrl._fns
+        ctrl.dynamics_params = {"gain": torch.tensor(-1.0, dtype=DTYPE)}
+        a2 = ctrl.command(state, shift_nominal_trajectory=False)
+        assert ctrl._fns is fns_before  # no rebuild
+        assert not torch.allclose(a1, a2)
+
+
+class TestRiskSensitiveCVaR:
+    """risk_alpha: CVaR aggregation over the M stochastic rollouts: the
+    cost is the mean of the worst ceil(alpha·M) rollout costs a sample
+    instead of the mean over all M."""
+
+    @staticmethod
+    def _stoch_dyn(state, action, rng):
+        # multiplicative noise: bigger actions are riskier
+        eps = torch.randn(state.shape, generator=rng, dtype=state.dtype)
+        return state + action @ B.T * (1.0 + 0.5 * eps)
+
+    def _rollout(self, risk_alpha, M=4, K=16, T=5):
+        config = MPPIConfig(nx=2, nu=2, K=K, T=T, M=M, dtype=DTYPE, stochastic_dynamics=True,
+                            risk_alpha=risk_alpha)
+        dyn_w = PS.wrap_dynamics(config, self._stoch_dyn)
+        cost_w = PS.wrap_cost(config, quadratic_cost)
+        acts = torch.randn(K, T, 2, generator=torch.Generator().manual_seed(1), dtype=DTYPE)
+        x0 = torch.tensor([-3.0, -2.0], dtype=DTYPE)
+        return PS.rollout_costs(config, dyn_w, cost_w, x0, acts, seed=2)
+
+    def test_exact_worst_case_aggregation(self):
+        """CVaR_0.5 with M = 4 equals the mean of each trajectory's two
+        worst rollout costs, recomputed from the stored per-rollout states
+        and actions (which M > 1 always keeps)."""
+        cost_cvar, states, actions = self._rollout(0.5)
+        per_m = quadratic_cost(states, actions).sum(-1)  # (M, K)
+        worst2 = torch.sort(per_m, dim=0, descending=True).values[:2]
+        np.testing.assert_allclose(cost_cvar.numpy(), worst2.mean(0).numpy(), rtol=1e-12)
+
+    def test_alpha_one_recovers_mean(self):
+        c_mean, _, _ = self._rollout(0.0)
+        c_all, _, _ = self._rollout(1.0)
+        np.testing.assert_allclose(c_mean.numpy(), c_all.numpy(), rtol=1e-12)
+
+    def test_cvar_upper_bounds_mean(self):
+        c_mean, _, _ = self._rollout(0.0)
+        c_cvar, _, _ = self._rollout(0.25)
+        assert (c_cvar.numpy() >= c_mean.numpy() - 1e-12).all()
+
+    def test_risk_averse_controller_backs_off_the_cliff(self):
+        """A cliff: reward for moving right, a large penalty past x = 2, and
+        multiplicative dynamics noise (the risk grows with the commanded
+        speed).  The CVaR planner, optimising the worst quarter of its
+        stochastic rollouts, picks a markedly smaller action than the
+        risk-neutral planner (JAX's floor, 0.75)."""
+        def cliff_dyn(s, u, rng):
+            eps = torch.randn(s.shape, generator=rng, dtype=s.dtype)
+            return s + u * (1.0 + 0.7 * eps)
+
+        def cliff_cost(s, u):
+            x = s[..., 0]
+            return -x + 100.0 * torch.clamp(x - 2.0, min=0.0)
+
+        def first_action(risk_alpha):
+            ctrl = P.MPPI(cliff_dyn, cliff_cost, 1, torch.eye(1, dtype=DTYPE), num_samples=512,
+                          horizon=1, lambda_=0.3, seed=SEED, stochastic_dynamics=True,
+                          rollout_samples=16, risk_alpha=risk_alpha,
+                          u_min=torch.tensor([0.0], dtype=DTYPE),
+                          u_max=torch.tensor([3.0], dtype=DTYPE), device="cpu")
+            return float(ctrl.command(torch.zeros(1, dtype=DTYPE)).reshape(-1)[0])
+
+        neutral = first_action(0.0)
+        averse = first_action(0.25)
+        assert averse < 0.75 * neutral, (averse, neutral)
+
+    def test_validation(self):
+        with pytest.raises(ValueError, match="risk_alpha"):
+            P.MPPI(linear_dynamics, quadratic_cost, 2, eye(), num_samples=16, horizon=4, seed=0,
+                   risk_alpha=1.5, device="cpu")
+        with pytest.raises(ValueError, match="rollout_samples"):
+            P.MPPI(linear_dynamics, quadratic_cost, 2, eye(), num_samples=16, horizon=4, seed=0,
+                   risk_alpha=0.5, device="cpu")
+
+    def test_ops_layer_validation(self):
+        """A hand-built MPPIConfig gets the controller's errors from the
+        step factories: risk_alpha > 0 at M = 1 would otherwise be ignored."""
+        import dataclasses
+
+        factories = (
+            lambda c: PS.make_mppi_step(c, linear_dynamics, quadratic_cost),
+            lambda c: PS.make_smppi_step(c, linear_dynamics, quadratic_cost),
+            lambda c: PS.make_kmppi_step(dataclasses.replace(c, num_support_pts=3),
+                                         linear_dynamics, quadratic_cost),
+        )
+        for make in factories:
+            with pytest.raises(ValueError, match="rollout_samples"):
+                make(MPPIConfig(nx=2, nu=2, K=16, T=5, dtype=DTYPE, risk_alpha=0.5))
+            with pytest.raises(ValueError, match="risk_alpha"):
+                make(MPPIConfig(nx=2, nu=2, K=16, T=5, M=4, dtype=DTYPE,
+                                stochastic_dynamics=True, risk_alpha=1.5))
+        # the batched rollout has no M axis at all: loud, not silent
+        with pytest.raises(ValueError, match="MPPI_Batched"):
+            PS.make_batched_step(
+                MPPIConfig(nx=2, nu=2, K=16, T=5, M=4, dtype=DTYPE, stochastic_dynamics=True,
+                           risk_alpha=0.5),
+                2, linear_dynamics, quadratic_cost)
 
 
 class TestGradientRefinement:

@@ -12,8 +12,15 @@ autotune.py``) on the CPU.
   calls on the port's own streams, and the controller's route left as it
   was;
 * ``GradientOpt``'s gradients against ``jax.value_and_grad`` within rtol
-  1e-8, and its theta after 5 Adam steps against optax's within 1e-8;
-* the refusals, which name ROADMAP.md Queue 1 item 11b;
+  1e-8, and its theta after 5 Adam steps against optax's within 1e-8,
+  also through gradient refinement;
+* stochastic dynamics (M = 3 rollouts) and gradient refinement against
+  JAX's evaluator within ``TOL_EVAL``, on dynamics that add a seeded numpy
+  table and ignore the key or generator (``tests/test_torch_stochastic.py``'s
+  table dynamics) and the injected noise; with dynamics that really draw,
+  the vmapped generation against the loop over candidates, streams and
+  candidates drawing apart and a second generation drawing afresh;
+* the refusal of a mesh, which names ROADMAP.md Queue 1 item 11b;
 * JAX's ``TestPopulationEvaluator`` and ``TestGradientOpt``
   (``tests/test_autotune.py:603-1035``) on the port, with their thresholds.
 """
@@ -60,7 +67,9 @@ def injected(monkeypatch):
             return jnp.asarray(_draw(shape), dtype)
         return real(key, shape, dtype)
 
-    def feeds(self, seed, counter, device):
+    def feeds(self, seed, counter, device, plan=None):
+        # the dynamics of these tests draw nothing: a plan of no draws
+        assert plan is None or not any(plan)
         return [torch.tensor(_draw(self.draw_shape), dtype=self.dtype, device=device)
                 for _ in range(self.n_iter)]
 
@@ -196,6 +205,54 @@ def _candidate_params(pc, cand):
     return full._replace(base=base, **var)
 
 
+def _drawing_ctrl(variant, in_place="result", **kw):
+    """A float64 controller on the linear plant whose dynamics draw from
+    their generator at each step: ``torch.randn`` and ``Tensor.normal_``,
+    by step (step-dependent), as a user's would.  ``in_place`` says how the
+    ``Tensor.normal_`` steps read their draw: "result" the method's result,
+    "target" the tensor drawn into (``torch.empty_like`` of the state), and
+    "unbatched" the tensor drawn into, made with ``torch.empty``."""
+    B = torch.tensor([[1.0, 0.0], [0.0, -1.0]], dtype=F64)
+    goal = torch.tensor([2.0, 2.0], dtype=F64)
+    stochastic = kw.setdefault("stochastic_dynamics", True)
+
+    def dyn(s, a, t, rng=None):
+        nxt = s + a @ B.T
+        if not stochastic:
+            return nxt
+        if t % 2:
+            return nxt + 0.05 * torch.randn(s.shape, generator=rng, dtype=s.dtype)
+        if in_place == "result":
+            return nxt + 0.05 * torch.empty_like(s).normal_(0.0, 1.0, generator=rng)
+        eps = torch.empty_like(s) if in_place == "target" else torch.empty(s.shape, dtype=F64)
+        eps.normal_(0.0, 1.0, generator=rng)
+        return nxt + 0.05 * eps
+
+    cost = lambda s, a, t: ((goal - s) ** 2).sum(-1)  # noqa: E731
+    extra = {"smppi": dict(w_action_seq_cost=1.0, delta_t=0.5),
+             "kmppi": dict(num_support_pts=3)}.get(variant, {})
+    cls = {"mppi": P.MPPI, "smppi": P.SMPPI, "kmppi": P.KMPPI}[variant]
+    ctrl = cls(dyn, cost, 2, torch.eye(2, dtype=F64), num_samples=32, horizon=5, seed=3,
+               u_max=torch.tensor([2.0, 2.0], dtype=F64), step_dependent_dynamics=True,
+               device="cpu", **extra, **kw)
+    return ctrl, torch.tensor([-3.0, -2.0], dtype=F64)
+
+
+# case: (variant, controller flags) of the loop tests with drawing dynamics
+DRAWING = {
+    "mppi_M3": ("mppi", dict(rollout_samples=3, rollout_var_cost=0.1)),
+    "mppi_refine2": ("mppi", dict(stochastic_dynamics=False, gradient_refinement_steps=2)),
+    "mppi_M3_refine2_iter2": ("mppi", dict(rollout_samples=3, gradient_refinement_steps=2,
+                                           num_iterations=2)),
+    "smppi": ("smppi", {}),
+    "kmppi_M3": ("kmppi", dict(rollout_samples=3)),
+    # the draw read from the tensor drawn into, its result discarded
+    "mppi_M3_target": ("mppi", dict(rollout_samples=3, in_place="target")),
+    "mppi_M3_refine2_target": ("mppi", dict(rollout_samples=3, gradient_refinement_steps=2,
+                                            in_place="target")),
+}
+
+
 class TestAgainstTheLoop:
     """Candidate p, trajectory m computes what R ``step_no_shift`` calls
     of a controller with p's parameters compute from state seed
@@ -233,6 +290,73 @@ class TestAgainstTheLoop:
             loop.append(torch.stack(costs).mean())
         torch.testing.assert_close(res.costs, torch.stack(loop), rtol=1e-12, atol=1e-12)
 
+    @pytest.mark.parametrize("case", sorted(DRAWING))
+    def test_drawing_dynamics_equal_the_loop(self, case):
+        """Dynamics that draw from their generator (``torch.randn`` and
+        ``Tensor.normal_``), gradient refinement, or both: the vmapped
+        generation, fed each stream's draws, computes what the loop of live
+        ``step_no_shift`` calls computes on the same state seeds, the
+        refinement's ``torch.func.grad`` against its ``torch.autograd.grad``
+        (float64, rtol 1e-12)."""
+        variant, kw = DRAWING[case]
+        pc, start = _drawing_ctrl(variant, **kw)
+        R, M = 2, 2
+        cands = [{"sigma": [1.0, 2.0]}, {"lambda": 0.5}, {}]
+        ev = autotune.PopulationEvaluator(pc, start, num_refinement_steps=R,
+                                          num_trajectories=M, seed=7)
+        res = ev(_both(cands)[1])
+        seeds = autotune.PopulationEvaluator(pc, start, seed=7)._stream_seeds(len(cands) * M)
+        fns = ev._planning_fns()
+        score = ev._default_cost_fn()
+        loop = []
+        for p, cand in enumerate(cands):
+            params = _candidate_params(pc, cand)
+            base = params.base if hasattr(params, "base") else params
+            costs = []
+            for m in range(M):
+                state = pc._state._replace(seed=seeds[p * M + m])
+                for _ in range(R):
+                    state, _, _ = fns.step_no_shift(params, state, start)
+                seq = getattr(state, "action_sequence", state.U)
+                costs.append(score(fns.get_rollouts(base, start, seq)[0], seq))
+            loop.append(torch.stack(costs).mean())
+        assert torch.isfinite(res.costs).all()
+        torch.testing.assert_close(res.costs, torch.stack(loop), rtol=1e-12, atol=1e-12)
+
+    def test_streams_candidates_and_generations_draw_apart(self):
+        """The dynamics' fed draws differ between the streams of one
+        generation (so between candidates, whose streams are their own, as
+        JAX's split keys), and a second generation draws afresh: its costs
+        on the same candidates differ too."""
+        pc, start = _drawing_ctrl("mppi", rollout_samples=3)
+        ev = autotune.PopulationEvaluator(pc, start, num_refinement_steps=2,
+                                          num_trajectories=2, seed=7)
+        fed = []
+        real = ev._draws
+        ev._draws = lambda *a: fed.append(real(*a)) or fed[-1]
+        cands = [{"sigma": torch.tensor([1.0, 1.0], dtype=F64)}] * 2
+        first, second = ev(cands).costs, ev(cands).costs
+        n_noise = pc._fns.streams.n_iter
+        for draws in fed:
+            rollout = draws[n_noise:]  # the dynamics' draws, after the noise
+            assert rollout and all(z.shape[:2] == (4, 2) for z in rollout)
+            flat = torch.cat([z.reshape(4, -1) for z in rollout], 1)
+            assert len({tuple(row.tolist()) for row in flat}) == 4
+        assert not torch.equal(torch.cat([z.reshape(-1) for z in fed[0][n_noise:]]),
+                               torch.cat([z.reshape(-1) for z in fed[1][n_noise:]]))
+        assert first[0] != first[1] and not torch.equal(first, second)
+
+    def test_unbatched_in_place_target_reads_nan(self):
+        """An in-place draw into a tensor made with ``torch.empty`` cannot
+        hold the draws a vmap feeds each stream: code that reads the tensor
+        and discards the draw's result reads NaN, so its costs are NaN
+        rather than numbers of another sum; the same dynamics run live."""
+        pc, start = _drawing_ctrl("mppi", in_place="unbatched")
+        ev = autotune.PopulationEvaluator(pc, start, num_refinement_steps=2,
+                                          num_trajectories=2, seed=7)
+        assert torch.isnan(ev([{}, {"lambda": 0.5}]).costs).all()
+        assert torch.isfinite(pc.command(start)).all()
+
     def test_fresh_streams_each_generation(self):
         _, env, _, pc = _pair("mppi", u_max=[2.0, 2.0])
         ev = autotune.PopulationEvaluator(pc, env.start, num_refinement_steps=2,
@@ -242,30 +366,95 @@ class TestAgainstTheLoop:
         assert a[0] != a[1] and not torch.equal(a, b)
 
 
-def _jax_linear(sigma0, lambda0, dtype=jnp.float64, variant="mppi"):
+def _table_pair(variant, flags, K=64, T=8):
+    """A JAX controller and the port's twin on toy2d in float64 with
+    step-dependent stochastic dynamics that add ``table[t]`` (its first
+    rows: the rollouts have M·K, refinement M and the scoring one) and
+    ignore the key or generator, as ``tests/test_torch_stochastic.py``'s."""
+    M = flags.get("rollout_samples", 1)
+    table = np.random.RandomState(5).randn(T, M * K, 2) * 0.1
+    jenv = JToy2D(terminal_scale=10.0, dtype=jnp.float64)
+    env = Toy2DEnvironment(terminal_scale=10.0, dtype=F64, device="cpu")
+    jt, pt = jnp.asarray(table), torch.tensor(table)
+    common = dict(num_samples=K, horizon=T, lambda_=1.0, seed=SEED, stochastic_dynamics=True,
+                  step_dependent_dynamics=True, **flags)
+    extra_j, extra_p = {}, {}
+    if variant == "smppi":
+        extra_j = dict(w_action_seq_cost=3.0, delta_t=0.5,
+                       action_max=jnp.asarray([2.0, 2.0], jnp.float64))
+        extra_p = dict(w_action_seq_cost=3.0, delta_t=0.5,
+                       action_max=torch.tensor([2.0, 2.0], dtype=F64))
+    elif variant == "kmppi":
+        extra_j = extra_p = dict(num_support_pts=4)
+    else:
+        extra_j = dict(u_max=jnp.asarray([2.0, 2.0], jnp.float64))
+        extra_p = dict(u_max=torch.tensor([2.0, 2.0], dtype=F64))
+    jcls, pcls = {"mppi": (J.MPPI, P.MPPI), "smppi": (J.SMPPI, P.SMPPI),
+                  "kmppi": (J.KMPPI, P.KMPPI)}[variant]
+    jc = jcls(lambda s, a, t, key: jenv.dynamics(s, a) + jt[t][:s.shape[0]],
+              lambda s, a, t: jenv.running_cost(s, a), 2,
+              noise_sigma=jnp.diag(jnp.array([5.0, 5.0])), **common, **extra_j)
+    pc = pcls(lambda s, a, t, rng: env.dynamics(s, a) + pt[t][:s.shape[0]],
+              lambda s, a, t: env.running_cost(s, a), 2,
+              noise_sigma=torch.diag(torch.tensor([5.0, 5.0], dtype=F64)), device="cpu",
+              **common, **extra_p)
+    pc.U = torch.from_numpy(np.array(jc.U))
+    return jenv, env, jc, pc
+
+
+# case: (variant, controller flags) of the parity with JAX's evaluator
+TABLE = {
+    "mppi_M3": ("mppi", dict(rollout_samples=3, rollout_var_cost=0.2)),
+    "mppi_M3_cvar": ("mppi", dict(rollout_samples=3, risk_alpha=0.5)),
+    "smppi_M3": ("smppi", dict(rollout_samples=3)),
+    "kmppi_M3": ("kmppi", dict(rollout_samples=3)),
+    "mppi_refine2": ("mppi", dict(gradient_refinement_steps=2)),
+    "mppi_M3_refine2": ("mppi", dict(rollout_samples=3, gradient_refinement_steps=2)),
+}
+
+
+class TestStochasticParityWithJax:
+    @pytest.mark.parametrize("case", sorted(TABLE))
+    def test_costs_and_rollouts(self, injected, case):
+        """Stochastic dynamics at M = 3 (the variance cost, CVaR), gradient
+        refinement on them: the port's evaluator against JAX's within
+        ``TOL_EVAL``, every candidate, stream and refinement step on the
+        injected noise."""
+        variant, flags = TABLE[case]
+        jenv, env, jc, pc = _table_pair(variant, flags)
+        jd, pd = _both(BASE_CANDS)
+        jev = JA.PopulationEvaluator(jc, jenv.start, num_refinement_steps=3, num_trajectories=2)
+        pev = autotune.PopulationEvaluator(pc, env.start, num_refinement_steps=3,
+                                           num_trajectories=2)
+        jres, pres = jev(jd), pev(pd)
+        np.testing.assert_allclose(pres.costs.numpy(), np.asarray(jres.costs), **TOL_EVAL)
+        np.testing.assert_allclose(pres.rollouts.numpy(), np.asarray(jres.rollouts), **TOL_EVAL)
+
+
+def _jax_linear(sigma0, lambda0, dtype=jnp.float64, variant="mppi", **flags):
     B = jnp.array([[1.0, 0.0], [0.0, -1.0]], dtype)
     goal = jnp.array([2.0, 2.0], dtype)
-    dyn = lambda s, a: s + a @ B.T  # noqa: E731
+    dyn = lambda s, a, *key: s + a @ B.T  # noqa: E731 (a key ignored if stochastic)
     cost = lambda s, a: ((goal - s) ** 2).sum(axis=-1)  # noqa: E731
     kw = dict(w_action_seq_cost=2.0, delta_t=0.7) if variant == "smppi" else {}
     cls = J.SMPPI if variant == "smppi" else J.MPPI
     ctrl = cls(dyn, cost, nx=2, noise_sigma=jnp.eye(2, dtype=dtype) * sigma0,
-               num_samples=64, horizon=8, lambda_=lambda0, seed=0, **kw)
+               num_samples=64, horizon=8, lambda_=lambda0, seed=0, **kw, **flags)
     ev = JA.PopulationEvaluator(ctrl, start_state=jnp.array([-3.0, -2.0], dtype),
                                 num_refinement_steps=3, num_trajectories=2, seed=1)
     return ctrl, ev
 
 
 def _linear(sigma0, lambda0, dtype=torch.float32, variant="mppi", K=256, T=10, R=5, M=2,
-            start=(-3.0, -2.0)):
+            start=(-3.0, -2.0), **flags):
     B = torch.tensor([[1.0, 0.0], [0.0, -1.0]], dtype=dtype)
     goal = torch.tensor([2.0, 2.0], dtype=dtype)
-    dyn = lambda s, a: s + a @ B.T  # noqa: E731
+    dyn = lambda s, a, *rng: s + a @ B.T  # noqa: E731 (a generator ignored if stochastic)
     cost = lambda s, a: ((goal - s) ** 2).sum(dim=-1)  # noqa: E731
     kw = dict(w_action_seq_cost=2.0, delta_t=0.7) if variant == "smppi" else {}
     cls = P.SMPPI if variant == "smppi" else P.MPPI
     ctrl = cls(dyn, cost, nx=2, noise_sigma=torch.eye(2, dtype=dtype) * sigma0,
-               num_samples=K, horizon=T, lambda_=lambda0, seed=0, device="cpu", **kw)
+               num_samples=K, horizon=T, lambda_=lambda0, seed=0, device="cpu", **kw, **flags)
     ev = autotune.PopulationEvaluator(ctrl, start_state=torch.tensor(start, dtype=dtype),
                                       num_refinement_steps=R, num_trajectories=M, seed=1)
     return ctrl, ev
@@ -278,14 +467,24 @@ GRAD_PARAMS = {
 }
 
 
+REFINE = dict(gradient_refinement_steps=2)
+
+
 class TestGradientParity:
-    @pytest.mark.parametrize("variant", sorted(GRAD_PARAMS))
-    def test_gradients_and_adam_against_jax(self, injected, variant):
+    @pytest.mark.parametrize("variant,flags", [
+        ("mppi", {}), ("smppi", {}), ("mppi", REFINE),
+        ("mppi", dict(REFINE, stochastic_dynamics=True, rollout_samples=3))],
+        ids=["mppi", "smppi", "mppi_refine2", "mppi_stochastic_M3_refine2"])
+    def test_gradients_and_adam_against_jax(self, injected, variant, flags):
         """The cost and its gradient with respect to each log-space theta
         against ``jax.value_and_grad``; then theta after one optimize_step
-        of 5 Adam updates against optax's, and the applied parameters."""
-        jc, jev = _jax_linear(0.8, 2.0, variant=variant)
-        pc, pev = _linear(0.8, 2.0, F64, variant, K=64, T=8, R=3, M=2)
+        of 5 Adam updates against optax's, and the applied parameters.  With
+        gradient refinement in every command (also on stochastic dynamics
+        at M = 3 that ignore their key or generator) the gradient goes
+        through the refinement's Adam descent: ``torch.autograd`` over
+        ``torch.func.grad`` against JAX's grad of grad."""
+        jc, jev = _jax_linear(0.8, 2.0, variant=variant, **flags)
+        pc, pev = _linear(0.8, 2.0, F64, variant, K=64, T=8, R=3, M=2, **flags)
         pc.U = torch.from_numpy(np.array(jc.U))
         jt = JA.Autotune(GRAD_PARAMS[variant](JA, jc), evaluate_fn=lambda: None,
                          optimizer=JA.GradientOpt(lr=0.1, steps_per_iteration=5),
@@ -312,25 +511,34 @@ class TestGradientParity:
                                    np.diag(np.asarray(jc.noise_sigma)), rtol=1e-8)
 
 
-class TestRefusals:
+class TestStochasticAndRefinement:
     @pytest.mark.parametrize("flags", [dict(stochastic_dynamics=True),
                                        dict(gradient_refinement_steps=2)])
-    def test_no_fed_body_yet(self, flags):
+    def test_evaluator_and_gradient_opt_run(self, flags):
+        """What the evaluator refused before (ROADMAP.md Queue 1 item 11b's
+        first two bullets): stochastic dynamics that draw, and gradient
+        refinement, evaluate in float32 to finite costs, and GradientOpt
+        takes a finite, non-zero gradient and steps."""
         B = torch.tensor([[1.0, 0.0], [0.0, -1.0]])
         if flags.get("stochastic_dynamics"):
-            dyn = lambda s, a, rng: s + a @ B.T  # noqa: E731
+            dyn = lambda s, a, rng: s + a @ B.T + 0.01 * torch.randn(  # noqa: E731
+                s.shape, generator=rng)
         else:
             dyn = lambda s, a: s + a @ B.T  # noqa: E731
         ctrl = P.MPPI(dyn, lambda s, a: (s ** 2).sum(-1), 2, torch.eye(2), num_samples=16,
                       horizon=4, device="cpu", **flags)
-        ev = autotune.PopulationEvaluator(ctrl, torch.zeros(2), num_refinement_steps=1)
-        with pytest.raises(NotImplementedError, match=ITEM):
-            ev([{}])
+        ev = autotune.PopulationEvaluator(ctrl, torch.ones(2), num_refinement_steps=1)
+        assert torch.isfinite(ev([{}, {"lambda": 0.5}]).costs).all()
         tuner = autotune.Autotune([autotune.SigmaParameter(ctrl)], evaluate_fn=lambda: None,
-                                  optimizer=autotune.GradientOpt(),
+                                  optimizer=autotune.GradientOpt(steps_per_iteration=2),
                                   population_evaluate_fn=ev)
-        with pytest.raises(NotImplementedError, match=ITEM):
-            tuner.optimize_step()
+        cost, grads = tuner.optim.value_and_grad()
+        assert torch.isfinite(cost) and torch.isfinite(grads["sigma"]).all()
+        assert bool((grads["sigma"] != 0).any())
+        assert torch.isfinite(tuner.optimize_step().costs).all()
+
+
+class TestRefusals:
 
     def test_mesh(self, tmp_path):
         import torch.distributed as dist

@@ -149,6 +149,46 @@ def test_refiner_runs_under_no_grad():
     assert not torch.equal(out, U.detach())
 
 
+def test_refiner_under_vmap_equals_the_eager_form():
+    """Inside ``torch.func.vmap`` the descent takes ``torch.func.grad`` of J
+    (the population evaluator's form), outside ``torch.autograd.grad`` on a
+    detached copy (the command's and the artifact's): the same numbers,
+    float64 at 1e-12."""
+    cfg = MPPIConfig(nx=2, nu=2, K=8, T=5, gradient_refinement_steps=3,
+                     dtype=torch.float64)
+    refine = PS.make_nominal_refiner(cfg, PS.wrap_dynamics(cfg, LQ.dynamics),
+                                     PS.wrap_cost(cfg, LQ.running_cost))
+    _, pp = _params("f64")
+    Us = torch.tensor(np.random.RandomState(5).uniform(-1, 1, (3, 5, 2)))
+    x0 = torch.tensor([-1.0, 0.5], dtype=torch.float64)
+    vmapped = torch.func.vmap(lambda U: refine(pp, U, x0))(Us)
+    torch.testing.assert_close(vmapped, torch.stack([refine(pp, U, x0) for U in Us]),
+                               rtol=1e-12, atol=1e-12)
+
+
+def test_export_still_mistraces_func_grad():
+    """Why the command keeps the eager form of the refiner's gradient: a
+    non-strict ``torch.export`` of ``torch.func.grad`` lifts the grad's
+    input as a constant, and the loaded program does not return the
+    gradient at a new input.  When this test fails, ``torch.export``
+    records ``torch.func.grad``, and ``make_nominal_refiner`` can take the
+    functional form everywhere."""
+
+    class Grad(torch.nn.Module):
+        def forward(self, u):
+            return torch.func.grad(lambda v: (v * v).sum())(u)
+
+    program = torch.export.export(Grad(), (torch.tensor([1.0, 2.0, 3.0]),), strict=False)
+    u = torch.tensor([5.0, 6.0, 7.0])
+    try:
+        got = program.module()(u)
+    except Exception:  # noqa: BLE001 - any refusal is a mistrace too
+        return
+    right = (type(got) is torch.Tensor
+             and torch.equal(got, 2 * u))
+    assert not right
+
+
 # -- the controller over chained commands --------------------------------------
 
 K, T = 32, 5
