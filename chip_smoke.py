@@ -174,7 +174,22 @@ the package is not beside it.  Phases, each fatal when it fails:
    a ``run_mppi_jit`` graph loop of the quadrotor's fused MPPI bit for
    bit against the eager loop, and a [16, 2048, 12] network in groups of 8
    samples (half an m16 tile) in kernel A, the batched pair and the
-   rollout against their plain versions;
+   rollout against their plain versions; then a TD-MPC world model
+   (``world_model``, phase 4f); then the dynamics bridge's last refusals
+   (``wide_programs``, phase 4g): a 16-agent planar swarm (nx = 64, nu =
+   32, pairwise collision costs, no dense layer: a block program without
+   layers), its five kernels built in one library, in kernel A's three
+   variants and the rollout at K = 10,000, T = 30 and the batched pair at
+   N = 16, K = 10,240; a program of the tracer's last primitives
+   (``erfinv``, ``nextafter``, the shifts, ``cummax``, ``cummin``,
+   ``logcumsumexp``, interior padding); the named ``linear_quadratic`` at
+   nx = 64 (the trace of its callables); the flagship's named model beside
+   a traced terminal cost with dense layers; and the quadrotor's
+   ``ResidualMLPBlock`` in the round-1 solve; each against its plain
+   version and a float64 rollout, timed beside its bound with its
+   registers and spills, then 10 swarm commands of ``MPPI(...,
+   use_pallas=True)`` with exactly 10 ``generated_mppi_block`` launches
+   against the plain route;
 5. swing-up: the pendulum with ``use_pallas=True``, 150 steps;
 6. closed loops through the kernels: the ``tests/test_mppi.py`` LQ problem
    (KMPPI reaches the goal, SMPPI stays finite), the toy2d comparison of
@@ -261,8 +276,9 @@ the package is not beside it.  Phases, each fatal when it fails:
    checks; ``smooth_mppi``'s three rows finite after 20 steps;
 7. the ``kernels`` line (eight kernels, the residual MLP's ten
    instantiations with each build part's ``nvcc`` seconds and the traced
-   network's times beside them, the block models' seven rows, the
-   generated models' eight and phase 12's generated batched pair), the
+   network's times beside them, the block models' seven rows, the world
+   model's six, phase 4g's nine, the generated models' eight and phase
+   12's generated batched pair), the
    card line, then the last line
    ``{"ok": true, "device": ...}``.
 """
@@ -434,6 +450,16 @@ HALF_TILE_SIZES = [16, 2048, 12]
 TD_NX, TD_NU, TD_H, TD_K, TD_T, TD_ITERS = 50, 21, 512, 512, 5, 6
 TD_GAMMA, TD_LAMBDA, TD_SIGMA = 0.99, 0.5, 0.25
 TD_DOG_NU, TD_BATCH_N, TD_COMMANDS, TD_SHORT = 38, 16, 20, 5
+# phase 4g (wide_programs): a planar swarm, a user's elementwise multi-body
+# dynamics with pairwise collision costs (SWARM_AGENTS double integrators: nx
+# their positions and velocities, nu their accelerations, SWARM_DT a step,
+# actions within ±SWARM_U), sampled as bench.py's flagship (K = 10,000, T =
+# 30, sigma I, lambda 1), its batched pair at BATCH_SMALL_N swarms of
+# BATCH_SMALL_K samples, SWARM_COMMANDS closed-loop commands of the main path;
+# the program of the tracer's last primitives at STEP4_NX, STEP4_NU
+SWARM_AGENTS, SWARM_DT, SWARM_U, SWARM_COMMANDS = 16, 0.05, 2.0, 10
+SWARM_NX, SWARM_NU = 4 * SWARM_AGENTS, 2 * SWARM_AGENTS
+STEP4_NX, STEP4_NU = 8, 4
 # the deployment phase (8): commands each artifact replays in a fresh process
 # against the live controller, commands timed for the medians (after a
 # warm-up), and the commands a restored checkpoint continues for
@@ -1997,7 +2023,8 @@ def block_ptxas(plan, labels=("mbpo mppi", "mbpo batched"), named=True):
     logs = [_build.library_path().with_suffix(".log")] if named else []
     for label in labels:
         _, kernel, variant, _ = plan["builds"][label]
-        logs.append(_build.generated_path(kernel.header(), 1 << variant).with_suffix(".log"))
+        logs.append(_build.generated_path(kernel.header(), variant_mask(variant))
+                    .with_suffix(".log"))
     out = []
     for log in logs:
         for e in ptxas_entries(log.read_text()) if log.is_file() else []:
@@ -3728,9 +3755,16 @@ def _dense_layer_shapes(model, terminal):
             shapes(terminal.program, [terminal.output]))
 
 
+def variant_mask(variant):
+    """The ``FUSED_MPPI_GENERATED`` mask of a build's variant, or of a
+    tuple of variants built into one library."""
+    return sum(1 << v for v in variant) if isinstance(variant, tuple) else 1 << variant
+
+
 def start_builds(plan):
     """Each (kernel, variant) of ``plan`` built in a thread of its own (one
-    ``nvcc`` each): label -> (thread, kernel, variant, result)."""
+    ``nvcc`` each; a tuple of variants into one library): label ->
+    (thread, kernel, variant, result)."""
     builds = {}
     for label, (kernel, variant) in plan.items():
         result = {}
@@ -3738,7 +3772,10 @@ def start_builds(plan):
         def run(kernel=kernel, variant=variant, result=result):
             start = time.perf_counter()
             try:
-                kernel.library(variant)
+                if isinstance(variant, tuple):
+                    kernel.library(variant[0], variant[1:])
+                else:
+                    kernel.library(variant)
             except BaseException as e:  # reported, with nvcc's output, after the join
                 result["error"] = e
             result["wall_s"] = time.perf_counter() - start
@@ -3835,7 +3872,8 @@ def world_model(dev, gen, plan):
     for label, (_, kernel, variant, _) in plan["builds"].items():
         if label.split()[0] in ("tdmpc", "dog"):
             report["build_s"][label] = plan["build_s"].get(label)
-            log = _build.generated_path(kernel.header(), 1 << variant).with_suffix(".log").name
+            log = _build.generated_path(kernel.header(), variant_mask(variant)).with_suffix(
+                ".log").name
             entries = [e for e in report["ptxas"] if e["log"] == log]
             if entries:  # the kernel's instantiations, tiles in shared and in global memory
                 report["ptxas_of"][label] = dict(
@@ -4115,6 +4153,536 @@ def world_kernel_rows(report):
     return rows
 
 
+def swarm_callables(dev, agents=SWARM_AGENTS):
+    """Phase 4g's swarm as a user writes it in torch, untagged: ``agents``
+    planar double integrators, the state their positions then their
+    velocities, the actions their accelerations (``SWARM_DT`` a step); the
+    running cost |p - goal|² + 0.1 |v|² + the pairwise collision cost
+    Σ_{i<j} exp(-|p_i - p_j|² / 0.25), with ``view``, broadcasting and a
+    constant upper-triangle mask, no matrix product (so the tracer makes no
+    dense layer).  The goals are seeded in [-2, 2]²."""
+    g = torch.Generator().manual_seed(31)
+    goal = (torch.rand(agents, 2, generator=g) * 4 - 2).to(dev)
+    mask = torch.triu(torch.ones(agents, agents), 1).to(dev)
+    half = 2 * agents
+
+    def dynamics(s, u):
+        p, v = s[:, :half].view(-1, agents, 2), s[:, half:].view(-1, agents, 2)
+        v2 = v + u.view(-1, agents, 2) * SWARM_DT
+        p2 = p + v2 * SWARM_DT
+        return torch.cat([p2.reshape(-1, half), v2.reshape(-1, half)], dim=-1)
+
+    def cost(s, u):
+        p, v = s[:, :half].view(-1, agents, 2), s[:, half:].view(-1, agents, 2)
+        d = p[:, :, None, :] - p[:, None, :, :]
+        near = (torch.exp(-(d ** 2).sum(-1) / 0.25) * mask).sum((-1, -2))
+        return ((p - goal) ** 2).sum((-1, -2)) + 0.1 * (v ** 2).sum((-1, -2)) + near
+
+    return dynamics, cost
+
+
+def step4_callables(dev):
+    """Phase 4g's program of the tracer's last primitives: a linear plant
+    (nx = STEP4_NX, nu = STEP4_NU, B seeded) whose running cost, beside
+    |goal - x|², reads erfinv, nextafter, both integer shifts, cummax,
+    cummin, logcumsumexp and interior padding (``out[:, ::2] = x``)."""
+    g = torch.Generator().manual_seed(37)
+    nx, nu = STEP4_NX, STEP4_NU
+    B = (torch.randn(nx, nu, generator=g) * 0.3).to(dev)
+    goal = torch.linspace(-1.0, 1.0, nx).to(dev)
+
+    def dynamics(s, u):
+        return s + u @ B.T
+
+    def cost(s, u):
+        e = torch.erfinv(torch.tanh(0.5 * s)).sum(-1)
+        n = (torch.nextafter(s, torch.zeros_like(s)) - s).sum(-1) * 1e6
+        i = (torch.floor(s * 4).long() << 2) + (torch.floor(u[:, :1] * 8).long() >> 1)
+        c = torch.cummax(s, 1).values.sum(-1) - torch.cummin(s, 1).values.sum(-1)
+        lc = torch.logcumsumexp(u, 1)[:, nu - 1]
+        pad = s.new_zeros(s.shape[0], 2 * nx - 1)
+        pad[:, ::2] = s
+        return ((goal - s) ** 2).sum(-1) + 0.01 * (e + n + 1e-2 * i.to(s.dtype).sum(-1) + c
+                                                     + lc + (pad ** 2).sum(-1))
+
+    return dynamics, cost
+
+
+def dense_terminal(dev):
+    """Phase 4g's traced terminal cost with dense layers, on (x_T, u_T)
+    of the flagship's nx = nu = 2: tanh(tanh([x, u] W1) W2) summed, W1 (4,
+    200) and W2 (200, 200) seeded."""
+    g = torch.Generator().manual_seed(41)
+    W1 = (torch.randn(4, 200, generator=g) * 0.5).to(dev)
+    W2 = (torch.randn(200, 200, generator=g) * 0.07).to(dev)
+
+    def terminal(s, a):
+        return torch.tanh(torch.tanh(torch.cat([s, a], -1) @ W1) @ W2).sum(-1)
+
+    return terminal
+
+
+def wide_plan(dev):
+    """Phase 4g's traced models and the libraries phase 2 builds for them
+    (``start_builds``, behind the named library): the swarm's kernel A
+    variants, batched pair and rollout in one library (one ``nvcc``); the
+    step-4 program's kernel A; the trace of the named ``linear_quadratic``
+    at nx = SWARM_NX, nu = SWARM_NU; the flagship's named model beside the
+    traced dense terminal cost.  Returns (callables, models, plan)."""
+    from pytorch_mppi_tpu_torch import linear_quadratic
+    from pytorch_mppi_tpu_torch.config import MPPIConfig
+    from pytorch_mppi_tpu_torch.ops import batch_last as BL
+    from pytorch_mppi_tpu_torch.ops import fused_solve as FS
+
+    fns, models, plan = {}, {}, {}
+    start = time.perf_counter()
+    fns["swarm"] = swarm_callables(dev)
+    cfg = MPPIConfig(nx=SWARM_NX, nu=SWARM_NU, K=K, T=T)
+    models["swarm"] = BL.kernel_model(cfg, *fns["swarm"])
+    swarm = BL.generated_kernel(models["swarm"], None)
+    plan["swarm all"] = (swarm, (FS.MPPI, FS.SMPPI, FS.KMPPI, FS.BATCHED, FS.ROLLOUT))
+    print(f"# traced swarm [{SWARM_AGENTS} agents] nx={SWARM_NX} nu={SWARM_NU}: "
+          f"{time.perf_counter() - start:.1f} s to trace; "
+          f"{BL._count_ops(models['swarm'].program, models['swarm'].outputs)} scalar operations "
+          f"a step, {len(models['swarm'].program.dense_layers(models['swarm'].outputs))} dense "
+          f"layers; header {len(swarm.header())} characters")
+    fns["step4"] = step4_callables(dev)
+    models["step4"] = BL.kernel_model(MPPIConfig(nx=STEP4_NX, nu=STEP4_NU, K=K, T=T),
+                                      *fns["step4"])
+    plan["step4 mppi"] = (BL.generated_kernel(models["step4"], None), FS.MPPI)
+    g = torch.Generator().manual_seed(43)
+    lq64 = linear_quadratic((torch.randn(SWARM_NX, SWARM_NU, generator=g) * 0.2).to(dev),
+                            (torch.rand(SWARM_NX, generator=g) * 2 - 1).to(dev))
+    models["lq64 named"] = lq64
+    models["lq64"] = BL.kernel_device_model(cfg, lq64)
+    plan["lq64 mppi"] = (BL.generated_kernel(models["lq64"], None), FS.MPPI)
+    flag = MPPIConfig(nx=NX, nu=NU, K=K, T=T)
+    B = torch.tensor([[1.0, 0.0], [0.0, -1.0]], device=dev)
+    lq = linear_quadratic(B, torch.tensor([2.0, 2.0], device=dev))
+    fns["dense terminal"] = dense_terminal(dev)
+    terminal = BL.kernel_terminal(flag, fns["dense terminal"])
+    models["dense terminal"] = (BL.kernel_device_model(flag, lq, terminal), terminal, lq)
+    plan["dense terminal mppi"] = (BL.generated_kernel(models["dense terminal"][0], terminal),
+                                   FS.MPPI)
+    return fns, models, plan
+
+
+def swarm_x0(gen, dev, n=None):
+    """Swarm states: positions uniform in [-2, 2]², velocities N(0, 0.3²);
+    (SWARM_NX,), or (n, SWARM_NX)."""
+    shape = (n or 1, SWARM_AGENTS * 2)
+    p = torch.rand(shape, generator=gen, device=dev) * 4 - 2
+    v = torch.randn(shape, generator=gen, device=dev) * 0.3
+    x = torch.cat([p, v], dim=-1)
+    return x if n else x[0]
+
+
+def rowmajor_pert(solve, bits, U, chol, mu, lo, hi):
+    """The round-1 solve's (D, K) perturbed actions as its plain version
+    draws them, for ``f64_agree``."""
+    from pytorch_mppi_tpu_torch.ops import rowmajor as RM
+
+    T_, nu = U.shape
+    K_ = solve.spec.K
+    z = RM._normals(bits, torch.arange(K_, device=bits.device), T_ * nu, (solve.K_pad, T_ * nu))
+    pert = U.reshape(-1) + (z.reshape(K_, T_, nu) @ chol.T + mu).reshape(K_, -1)
+    return torch.clamp(pert, lo.repeat(T_), hi.repeat(T_)).T.contiguous()
+
+
+def wide_programs(dev, gen, plan):
+    """Phase 4g, the dynamics bridge's last refusals lifted (traced in phase
+    2, ``wide_plan``, the libraries built there): each new library's
+    kernels' registers, spill stores and stack (``block_ptxas``) and its
+    ``nvcc`` seconds; the swarm (``SWARM_*``, a per-sample program beyond
+    32 states: a block program without layers) through kernel A's three
+    variants and the legacy rollout at K = 10,000, T = 30 and the batched
+    pair at N = BATCH_SMALL_N, K = BATCH_SMALL_K; the step-4 program's
+    kernel A; the named ``linear_quadratic`` at nx = SWARM_NX (the trace of
+    its callables); the flagship's named model beside a traced terminal
+    cost with dense layers; and the round-1 solve (``ops/rowmajor.py``) of
+    the quadrotor's ``ResidualMLPBlock``: each against its plain version in
+    bits mode, each cost's error against a float64 rollout within
+    ``F64_FACTOR`` of the float32 plain version's (``f64_agree``), m, s and
+    delta/s as ``agree``, the launch counted; each timed from a CUDA graph
+    of 20 calls beside its bound (``fused_work``, ``bound``; ``tc_bound``
+    for dense layers) and its plain version; then ``SWARM_COMMANDS``
+    closed-loop swarm commands of ``MPPI(..., use_pallas=True)`` with the
+    launch counters showing the swarm's kernel A, against the plain
+    route's.  Returns the rows' numbers."""
+    from pytorch_mppi_tpu_torch import MPPI
+    from pytorch_mppi_tpu_torch.config import MPPIConfig
+    from pytorch_mppi_tpu_torch.models import mlp_init
+    from pytorch_mppi_tpu_torch.ops import _build
+    from pytorch_mppi_tpu_torch.ops import fused_solve as FS
+    from pytorch_mppi_tpu_torch.ops import legacy as LG
+    from pytorch_mppi_tpu_torch.ops import rowmajor as RM
+    from pytorch_mppi_tpu_torch.ops.kernel_models import residual_mlp_model
+
+    phase_start = time.perf_counter()
+    fns, models = plan["wide_fns"], plan["wide_models"]
+    report = {"timed": {}, "err": {}, "launches": {}, "build_s": {}, "ptxas_of": {}}
+    labels = [k for k in plan["builds"] if k.split()[0] in ("swarm", "step4", "lq64", "dense")]
+
+    def reset_launches():
+        for name in FS.launches:
+            FS.launches[name] = 0
+
+    def launched():
+        return {k: v for k, v in FS.launches.items() if v}
+
+    def mark(what):
+        print(f"# phase 4g: {what} done at {time.perf_counter() - phase_start:.1f} s")
+
+    def bits(R, cols):
+        return torch.randint(-2**31, 2**31 - 1, (R, cols), dtype=torch.int32, generator=gen,
+                             device=dev)
+
+    def seed():
+        return tuple(int(v) for v in torch.randint(0, 2**32, (2,), generator=gen, device=dev))
+
+    ptxas = block_ptxas(plan, labels, named=False)
+    for label in labels:
+        _, kernel, variant, _ = plan["builds"][label]
+        report["build_s"][label] = plan["build_s"].get(label)
+        log = _build.generated_path(kernel.header(), variant_mask(variant)).with_suffix(
+            ".log").name
+        for e in (e for e in ptxas if e["log"] == log):
+            print(f"# ptxas [{label}: {e['name']}]: {e.get('registers')} registers, "
+                  f"{e.get('spills')} bytes spill stores, {e.get('stack')} bytes stack frame, "
+                  f"{e['blocks_by_registers']} blocks an SM by registers")
+        entries = [e for e in ptxas if e["log"] == log]
+        check(entries, f"no generated kernel of [{label}] in its build log {log}")
+        if entries:
+            report["ptxas_of"][label] = dict(
+                registers=max(e.get("registers", 0) for e in entries),
+                spills=max(e.get("spills", 0) for e in entries),
+                stack=max(e.get("stack", 0) for e in entries),
+                blocks_by_registers=min(e["blocks_by_registers"] for e in entries))
+    print(f"# phase 4g libraries, nvcc seconds: {report['build_s']} | registers and spill "
+          f"stores (the largest of each library's kernels): {report['ptxas_of']}")
+
+    def kernel_a(key, variant, model, nx, nu, terminal=None, terminal_fn=None, x0=None,
+                 expect=None):
+        """Kernel A's ``variant`` with ``model`` against its plain version
+        in bits mode, then timed in seed mode."""
+        cfg = MPPIConfig(nx=nx, nu=nu, K=K, T=T, diag_sigma=True, smppi=variant == "smppi",
+                         num_support_pts=NSP if variant == "kmppi" else 0)
+        make = {"mppi": FS.make_transposed_fused_solve, "smppi": FS.make_transposed_smppi_solve,
+                "kmppi": FS.make_transposed_kmppi_solve}[variant]
+        solve = make(cfg, model, emit_perturbed=True, terminal_final=terminal_fn)
+        x0T = x0[:, None].expand(nx, K)
+        ops = wide_operands(dev, gen, variant, nx, nu, x0T)
+        lead, out = bits(solve.spec.R, solve.bits_cols), []
+        reset_launches()
+        dk, mk, sk, ck, _ = solve(lead, *ops)
+        torch.cuda.synchronize()
+        n_k = launched()
+        plain_ms = events_ms(lambda: out.append(solve.plain(lead, *ops)), 1, warmup=0)
+        dp, mp, sp, cp, pp = out.pop()
+        ok, e_k, e_p, lim, _ = f64_agree(solve.model, ck, cp, pp, x0T, T, nu, terminal=terminal)
+        ok2, c_err, u_err, w_tol = agree(ck, cp, dk / sk, dp / sp, 1.0, mk, mp, sk, sp,
+                                         rtol=0.0, atol=lim + e_p)
+        ok = ok and ok2 and n_k == expect
+        report["err"][key] = dict(kernel_f64=e_k, plain_f64=e_p, kernel_plain=c_err,
+                                  update=u_err)
+        report["launches"][key] = n_k
+        print(f"# wide [{key} bits] nx={nx} nu={nu} K={K} T={T} S={solve.tile_k} group "
+              f"{solve.act_rows} act_ld {solve.spec.act_ld} tiles {solve.tiles}: cost error "
+              f"against float64 kernel {e_k:.3e}, plain {e_p:.3e} (limit {lim:.3e}) | kernel "
+              f"against plain {c_err:.3e} | delta/s err {u_err:.3e} (tol {w_tol:.3e}) | "
+              f"launches {n_k}" + ("" if ok else "  <-- FAIL"))
+        check(ok, f"phase 4g's kernel A disagrees with its plain version: {key}")
+        k = seed()
+        dev_ms = graph_ms(lambda: solve(k, *ops), 20)
+        op = ops[3] if variant != "mppi" else ops[2]
+        work = fused_work(cfg, solve.model, k, x0T, op, variant=variant, terminal=terminal)
+        f32_ms, f32_by = bound(work)
+        macs = K * (T * _dense_macs(solve.model) + (_dense_macs(terminal) if terminal else 0))
+        bound_ms, bound_by = tc_bound(work, macs) if macs else (f32_ms, f32_by)
+        report["timed"][key] = (dev_ms, plain_ms, bound_ms, bound_by)
+        print(f"# kernel alone [{key}] K={K} T={T} seed: device {dev_ms:.6f} ms (a CUDA graph "
+              f"of 20 calls) | plain version {plain_ms:.5f} ms ({plain_ms / dev_ms:.1f}x) | "
+              f"bound {bound_ms:.6f} ms by {bound_by}: {dev_ms / bound_ms:.1f}x | {card_line()}")
+        mark(key)
+
+    print(f"# kernel vs plain [phase 4g]: each cost's error against a float64 rollout of the "
+          f"same actions within {F64_FACTOR}x the float32 plain version's (f64_agree); m, s and "
+          f"delta/s as the other cases (agree)")
+    swarm = models["swarm"]
+    for variant in FS.VARIANTS:
+        kernel_a(f"swarm {variant}", variant, fns["swarm"], SWARM_NX, SWARM_NU,
+                 x0=swarm_x0(gen, dev), expect={f"generated_{variant}_block": 1})
+    kernel_a("step4 mppi", "mppi", fns["step4"], STEP4_NX, STEP4_NU,
+             x0=torch.randn(STEP4_NX, generator=gen, device=dev) * 0.5,
+             expect={"generated_mppi": 1})
+    kernel_a("lq64 mppi", "mppi", models["lq64 named"], SWARM_NX, SWARM_NU,
+             x0=torch.rand(SWARM_NX, generator=gen, device=dev) * 2 - 1,
+             expect={"generated_mppi_block": 1})
+    model_t, terminal, lq = models["dense terminal"]
+    kernel_a("dense terminal mppi", "mppi", lq, NX, NU, terminal=terminal,
+             terminal_fn=fns["dense terminal"], x0=torch.tensor([-3.0, -2.0], device=dev),
+             expect={"generated_mppi_block": 1})
+
+    # the swarm's batched pair: BATCH_SMALL_N swarms, each its own state
+    D = T * SWARM_NU
+    b_cfg = MPPIConfig(nx=SWARM_NX, nu=SWARM_NU, K=BATCH_SMALL_K, T=T, diag_sigma=True)
+    solve = FS.make_transposed_batched_solve(b_cfg, BATCH_SMALL_N, fns["swarm"])
+    vec = lambda v: torch.full((D,), v, device=dev)  # noqa: E731
+    U2T = (torch.randn(BATCH_SMALL_N, D, generator=gen, device=dev) * 0.3).T
+    rest = (swarm_x0(gen, dev, BATCH_SMALL_N).T.contiguous(), U2T, vec(1.0), vec(0.0),
+            vec(-SWARM_U), vec(SWARM_U), U2T.contiguous(), torch.tensor(1.0, device=dev))
+    lead, out = bits(D, solve.bits_cols), []
+    reset_launches()
+    dk, msk, ck = solve(lead, *rest)
+    torch.cuda.synchronize()
+    n_k = launched()
+    plain_ms = events_ms(lambda: out.append(solve.plain(lead, *rest)), 1, warmup=0)
+    dp, msp, cp = out.pop()
+    pert, x0_all = batched_pert(solve, lead, rest, T, SWARM_NU, BATCH_SMALL_K)
+    ok, e_k, e_p, lim, _ = f64_agree(solve.model, ck.reshape(-1), cp.reshape(-1), pert, x0_all,
+                                     T, SWARM_NU)
+    ok2, c_err, u_err, _ = agree(ck, cp, dk / msk[1], dp / msp[1], 1.0, msk[0], msp[0], msk[1],
+                                 msp[1], rtol=0.0, atol=lim + e_p)
+    ok = ok and ok2 and n_k == {"generated_batched_block": 2}
+    report["err"]["swarm batched"] = dict(kernel_f64=e_k, plain_f64=e_p, kernel_plain=c_err,
+                                          update=u_err)
+    report["launches"]["swarm batched"] = n_k
+    print(f"# wide [swarm batched bits] N={BATCH_SMALL_N} K={BATCH_SMALL_K} P="
+          f"{solve.plant_group} group {solve.act_rows} tiles {solve.tiles}: cost error against "
+          f"float64 kernel {e_k:.3e}, plain {e_p:.3e} (limit {lim:.3e}) | kernel against plain "
+          f"{c_err:.3e} | delta/s err {u_err:.3e} | launches {n_k}" + ("" if ok else "  <-- FAIL"))
+    check(ok, "the swarm's batched pair disagrees with its plain version")
+    k = seed()
+    dev_ms = graph_ms(lambda: solve(k, *rest), 20)
+    work = fused_work(b_cfg, solve.model, k, rest[0], rest[2], variant="batched",
+                      plants=BATCH_SMALL_N)
+    bound_ms, bound_by = bound(work)
+    report["timed"]["swarm batched"] = (dev_ms, plain_ms, bound_ms, bound_by)
+    print(f"# kernel alone [swarm batched] N={BATCH_SMALL_N} K={BATCH_SMALL_K} seed: device "
+          f"{dev_ms:.6f} ms (a CUDA graph of 20 calls) | plain version {plain_ms:.5f} ms | bound "
+          f"{bound_ms:.6f} ms by {bound_by}: {dev_ms / bound_ms:.1f}x | {card_line()}")
+    mark("swarm batched")
+
+    # the swarm's legacy rollout
+    r = LG.make_fused_rollout(MPPIConfig(nx=SWARM_NX, nu=SWARM_NU, K=K, T=T), fns["swarm"])
+    x0_K = swarm_x0(gen, dev, K)
+    u = torch.clamp(torch.randn(K, T, SWARM_NU, generator=gen, device=dev), -SWARM_U, SWARM_U)
+    reset_launches()
+    ck = r(x0_K, u)
+    torch.cuda.synchronize()
+    n_k = launched()
+    out = []
+    plain_ms = events_ms(lambda: out.append(r.plain(x0_K, u)), 1, warmup=0)
+    cp = out.pop()
+    ok, e_k, e_p, lim, _ = f64_agree(swarm, ck, cp, u.reshape(K, -1).T, x0_K.T.contiguous(), T,
+                                     SWARM_NU)
+    ok = ok and n_k == {"generated_rollout_block": 1}
+    report["err"]["swarm rollout"] = dict(kernel_f64=e_k, plain_f64=e_p,
+                                          kernel_plain=float((ck - cp).abs().max()))
+    report["launches"]["swarm rollout"] = n_k
+    dev_ms = graph_ms(lambda: r(x0_K, u), 20)
+    bound_ms, bound_by = bound(rollout_work(swarm, x0_K, u))
+    report["timed"]["swarm rollout"] = (dev_ms, plain_ms, bound_ms, bound_by)
+    print(f"# wide [swarm rollout] K={K} T={T}: cost error against float64 kernel {e_k:.3e}, "
+          f"plain {e_p:.3e} (limit {lim:.3e}) | launches {n_k} | device {dev_ms:.6f} ms | plain "
+          f"version {plain_ms:.5f} ms | bound {bound_ms:.6f} ms by {bound_by}: "
+          f"{dev_ms / bound_ms:.1f}x | {card_line()}" + ("" if ok else "  <-- FAIL"))
+    check(ok, "the swarm's rollout disagrees with its plain version")
+    mark("swarm rollout")
+
+    # the round-1 solve of the quadrotor's ResidualMLPBlock (phase 4e's network)
+    qp = mlp_init(QUAD_SIZES, torch.Generator().manual_seed(29), torch.float32, dev)
+    Wq, bq = qp[-1]
+    qp[-1] = (Wq * QUAD_STEP, bq * QUAD_STEP)
+    quad = residual_mlp_model(qp, QUAD_NX, QUAD_NU, cost="quadratic", goal=QUAD_GOAL)
+    solve = RM.make_fused_solve(MPPIConfig(nx=QUAD_NX, nu=QUAD_NU, K=K, T=T), quad)
+    x0 = torch.tensor(QUAD_X0, device=dev)
+    U = torch.randn(T, QUAD_NU, generator=gen, device=dev) * 0.1
+    chol, mu = 0.5 * torch.eye(QUAD_NU, device=dev), torch.zeros(QUAD_NU, device=dev)
+    lo, hi = -torch.ones(QUAD_NU, device=dev), torch.ones(QUAD_NU, device=dev)
+    a_flat, lam = (U / 0.25).reshape(-1).contiguous(), torch.tensor(1.0, device=dev)
+    args = (x0, U, chol, mu, lo, hi, a_flat, lam)
+    lead = torch.randint(-2**31, 2**31 - 1, (solve.K_pad, T * QUAD_NU), dtype=torch.int32,
+                         generator=gen, device=dev)
+    reset_launches()
+    dk, mk, sk, ck = solve(lead, *args)
+    torch.cuda.synchronize()
+    n_k = launched()
+    out = []
+    plain_ms = events_ms(lambda: out.append(solve.plain(lead, *args)), 1, warmup=0)
+    dp, mp, sp, cp = out.pop()
+    pert = rowmajor_pert(solve, lead, U, chol, mu, lo, hi)
+    x0T = x0[:, None].expand(QUAD_NX, K)
+    ok, e_k, e_p, lim, _ = f64_agree(quad, ck, cp, pert, x0T, T, QUAD_NU)
+    ok2, c_err, u_err, w_tol = agree(ck, cp, (dk / sk).reshape(-1), (dp / sp).reshape(-1), 1.0,
+                                     mk, mp, sk, sp, rtol=0.0, atol=lim + e_p)
+    ok = ok and ok2 and n_k == {"rowmajor": 1}
+    report["err"]["quad rowmajor"] = dict(kernel_f64=e_k, plain_f64=e_p, kernel_plain=c_err,
+                                          update=u_err)
+    report["launches"]["quad rowmajor"] = n_k
+    print(f"# wide [quadrotor round-1 solve bits] {QUAD_SIZES} K={K} T={T} S={solve.tile_k} "
+          f"group {solve.act_rows} tiles {solve.tiles}: cost error against float64 kernel "
+          f"{e_k:.3e}, plain {e_p:.3e} (limit {lim:.3e}) | kernel against plain {c_err:.3e} | "
+          f"delta/s err {u_err:.3e} (tol {w_tol:.3e}) | launches {n_k}"
+          + ("" if ok else "  <-- FAIL"))
+    check(ok, "the quadrotor's round-1 solve disagrees with its plain version")
+    k = seed()
+    dev_ms = graph_ms(lambda: solve(k, *args), 20)
+    work = fused_work(MPPIConfig(nx=QUAD_NX, nu=QUAD_NU, K=K, T=T), quad, k, x0, chol,
+                      variant="rowmajor")
+    bound_ms, bound_by = tc_bound(work, K * T * _dense_macs(quad))
+    report["timed"]["quad rowmajor"] = (dev_ms, plain_ms, bound_ms, bound_by)
+    print(f"# kernel alone [quadrotor round-1 solve] K={K} T={T} seed: device {dev_ms:.6f} ms "
+          f"(a CUDA graph of 20 calls) | plain version {plain_ms:.5f} ms | bound {bound_ms:.6f} "
+          f"ms by {bound_by} (tensor cores): {dev_ms / bound_ms:.1f}x | {card_line()}")
+    mark("quadrotor round-1 solve")
+
+    # the main path: SWARM_COMMANDS closed-loop swarm commands, fused and plain
+    dyn, cost = fns["swarm"]
+    lim_u = SWARM_U * torch.ones(SWARM_NU, device=dev)
+
+    def loop(use_pallas):
+        built = time.perf_counter()
+        with Captured() as warned:
+            ctrl = MPPI(dyn, cost, SWARM_NX, torch.eye(SWARM_NU, device=dev), num_samples=K,
+                        horizon=T, lambda_=1.0, u_min=-lim_u, u_max=lim_u, seed=5,
+                        use_pallas=use_pallas, device=dev)
+        build_s = time.perf_counter() - built
+        check(ctrl._fns.fused == use_pallas and not [m for m in warned.messages
+                                                     if "plain torch path" in m],
+              f"the swarm's MPPI(use_pallas={use_pallas}) routed wrong: {warned.messages}")
+        x = swarm_x0(torch.Generator(device=dev).manual_seed(7), dev)
+        times = []
+        reset_launches()
+        with torch.no_grad():
+            for _ in range(SWARM_COMMANDS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                a = ctrl.command(x)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                check(bool(torch.isfinite(a).all()) and float(a.abs().max()) <= SWARM_U,
+                      "a swarm command is not finite or out of its bounds")
+                x = dyn(x[None], a[None])[0]
+        return times, launched(), build_s, swarm_cost_at(x)
+
+    def swarm_cost_at(x):
+        return float(cost(x[None], torch.zeros(1, SWARM_NU, device=dev))[0])
+
+    # the swarm left alone for as many steps: its drift, which the commands must beat
+    x = swarm_x0(torch.Generator(device=dev).manual_seed(7), dev)
+    c0 = swarm_cost_at(x)
+    with torch.no_grad():
+        for _ in range(SWARM_COMMANDS):
+            x = dyn(x[None], torch.zeros(1, SWARM_NU, device=dev))[0]
+    c_drift = swarm_cost_at(x)
+    times, n, build_s, c1 = loop(True)
+    p_times, p_n, _, p_c1 = loop(False)
+    med, p_med = statistics.median(times), statistics.median(p_times)
+    report["loop"] = dict(launches=n, median_ms=med, plain_median_ms=p_med, times_ms=times,
+                          plain_launches=p_n, build_s=build_s)
+    print(f"# swarm main path [MPPI, {SWARM_AGENTS} agents, nx={SWARM_NX} nu={SWARM_NU}] "
+          f"{SWARM_COMMANDS} commands at K={K} T={T}: command median {med:.4f} ms fused, "
+          f"{p_med:.4f} ms plain ({p_med / med:.2f}x) | launches {n} (plain route {p_n}) | "
+          f"running cost {c0:.3f} -> {c1:.3f} (plain route {p_c1:.3f}; no action "
+          f"{c_drift:.3f}) | controller built in "
+          f"{build_s:.1f} s (its trace) | {card_line()}")
+    check(n == {"generated_mppi_block": SWARM_COMMANDS},
+          f"the swarm's main path launched {n}, expected generated_mppi_block {SWARM_COMMANDS}")
+    check(not p_n, f"the swarm's plain route launched {p_n}")
+    check(c1 < c_drift, f"the swarm's fused loop ends at running cost {c1}, no better than "
+          f"no action's {c_drift}")
+    report["seconds"] = time.perf_counter() - phase_start
+    print(f"# phase 4g, the dynamics bridge's last refusals: {report['seconds']:.1f} s")
+    return report
+
+
+def wide_operands(dev, gen, variant, nx, nu, x0T):
+    """Kernel A's operands for ``variant`` at phase 4g's shapes (K, T):
+    a nominal U of scale 0.3, sigma I, the drawn rows' and the actions'
+    bounds ±SWARM_U, the action cost lambda U sigma^-2, lambda 1."""
+    from pytorch_mppi_tpu_torch import RBFKernel
+    from pytorch_mppi_tpu_torch.ops.kernels import interpolation_operators
+
+    D, R_k = T * nu, NSP * nu
+    full = lambda v, n=D: torch.full((n,), v, device=dev)  # noqa: E731
+    lam, one = torch.tensor(1.0, device=dev), torch.tensor(1.0, device=dev)
+    U2 = torch.randn(D, generator=gen, device=dev) * 0.3
+    a_flat = U2.contiguous()
+    if variant == "mppi":
+        return (x0T, U2, full(1.0), full(0.0), full(-SWARM_U), full(SWARM_U), a_flat, lam)
+    if variant == "smppi":
+        return (x0T, U2, torch.randn(D, generator=gen, device=dev) * 0.3, full(1.0), full(0.0),
+                full(-SWARM_U), full(SWARM_U), full(-SWARM_U), full(SWARM_U), a_flat, lam, one,
+                torch.tensor(SWARM_DT * 10, device=dev))
+    interp, _ = interpolation_operators(RBFKernel(2.0), T, NSP, torch.float32, device=dev)
+    Wt = torch.kron(interp, torch.eye(nu, device=dev)).contiguous()
+    return (x0T, U2, torch.randn(R_k, generator=gen, device=dev) * 0.3, full(1.0, R_k),
+            full(0.0, R_k), full(-SWARM_U, R_k), full(SWARM_U, R_k), full(-SWARM_U),
+            full(SWARM_U), a_flat, Wt, lam)
+
+
+def wide_program_rows(report):
+    """Phase 7's rows for phase 4g: the swarm's five kernels, the step-4
+    program's kernel A, the named ``linear_quadratic`` at nx = SWARM_NX, the
+    dense terminal cost beside the named flagship model and the quadrotor's
+    round-1 solve, each with its numbers."""
+    rows = []
+    insts = {
+        "swarm mppi": ("mppi_fused_partial<Generated, 32, ..., kMPPI>, Generated::kPerSample",
+                       512, "generated_mppi_block", "swarm all"),
+        "swarm smppi": ("mppi_fused_partial<Generated, 32, ..., kSMPPI>, Generated::kPerSample",
+                        755, "generated_smppi_block", "swarm all"),
+        "swarm kmppi": ("mppi_fused_partial<Generated, 32, ..., kKMPPI>, Generated::kPerSample",
+                        940, "generated_kmppi_block", "swarm all"),
+        "swarm batched": ("batched_partial<Generated, 32, kGlobal> + flash_merge, "
+                          "Generated::kPerSample", 1118, "generated_batched_block", "swarm all"),
+        "swarm rollout": ("fused_rollout<Generated, 32>, Generated::kPerSample", 75,
+                          "generated_rollout_block", "swarm all"),
+        "step4 mppi": ("mppi_fused_partial<Generated, N, ..., kMPPI>", 512, "generated_mppi",
+                       "step4 mppi"),
+        "lq64 mppi": ("mppi_fused_partial<Generated, 32, ..., kMPPI>, Generated::kBlock", 512,
+                      "generated_mppi_block", "lq64 mppi"),
+        "dense terminal mppi": ("mppi_fused_partial<Generated, 32, ..., kMPPI>, "
+                                "Generated::kBlockTerminal", 512, "generated_mppi_block",
+                                "dense terminal mppi"),
+        "quad rowmajor": ("mppi_fused_partial<ResidualMLPBlock, 32, ..., kMPPI>, rowmajor", 1695,
+                          "rowmajor", None),
+    }
+    what = {"swarm": f"the swarm, {SWARM_AGENTS} agents, nx={SWARM_NX} nu={SWARM_NU}",
+            "step4": f"the step-4 primitives' program, nx={STEP4_NX} nu={STEP4_NU}",
+            "lq64": f"named linear_quadratic traced, nx={SWARM_NX} nu={SWARM_NU}",
+            "dense": "named linear_quadratic beside a traced terminal cost with dense layers",
+            "quad": f"round-1 solve, block residual MLP: the quadrotor {QUAD_SIZES}"}
+    for key, (inst, line, count, label) in insts.items():
+        d_ms, p_ms, b_ms, b_by = report["timed"][key]
+        launches = (report["loop"]["launches"].get(count, 0) if key == "swarm mppi"
+                    else report["launches"][key].get(count, 0))
+        rows.append({
+            "name": f"fused_mppi {key}, {what[key.split()[0]]} ({inst})",
+            "route": "cuda",
+            "source": "pytorch_mppi_tpu_torch/csrc/fused_mppi.cu",
+            "model_source": "pytorch_mppi_tpu_torch/ops/batch_last.py",
+            "replaces": f"pytorch_mppi_tpu/ops/pallas_rollout.py:{line}",
+            "launches": launches,
+            "launches_on": "main path" if key == "swarm mppi" else "check",
+            "max_abs_err": report["err"][key]["kernel_plain"],
+            "max_abs_err_f64": report["err"][key]["kernel_f64"],
+            "max_abs_err_plain_f64": report["err"][key]["plain_f64"],
+            "ms": d_ms,
+            "ms_source": "cuda_graph",
+            "plain_ms": p_ms,
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": None,
+            "build_s": report["build_s"].get(label) if label else None,
+            **(report["ptxas_of"].get(label, {}) if label else {}),
+        })
+    rows[0].update(command_median_ms=report["loop"]["median_ms"],
+                   plain_command_median_ms=report["loop"]["plain_median_ms"])
+    return rows
+
+
 def generated_builds(dev):
     """Trace phase 11's models (and phase 4e's and 4f's) and start each
     generated library's build (one ``nvcc`` a model and variant, in a
@@ -4176,8 +4744,11 @@ def generated_builds(dev):
     # phase 4f's world models (the humanoid's and the dog's)
     td_fns, td_models, td_plan = tdmpc_plan(dev)
     plan.update(td_plan)
+    # phase 4g's swarm, step-4 program, wide named model and dense terminal
+    wide_fns, wide_models, w_plan = wide_plan(dev)
+    plan.update(w_plan)
     return dict(fns=fns, models=models, builds=start_builds(plan), tdmpc_fns=td_fns,
-                tdmpc_models=td_models)
+                tdmpc_models=td_models, wide_fns=wide_fns, wide_models=wide_models)
 
 
 def join_generated_builds(plan):
@@ -4188,7 +4759,8 @@ def join_generated_builds(plan):
         thread.join()
         if "error" in result:
             fail(f"generated library [{label}] did not build: {result['error']}")
-        secs[label] = kernel.build_seconds.get(variant)
+        secs[label] = kernel.build_seconds.get(variant[0] if isinstance(variant, tuple)
+                                               else variant)
         print(f"# build generated [{label}]: {secs[label]} s of nvcc (None: already built), "
               f"{result['wall_s']:.1f} s wall from the script's build start")
     plan["build_s"] = secs
@@ -6624,6 +7196,10 @@ def main():
     stamp("4f")
     world = world_model(dev, gen, gen_plan)
 
+    # -- 4g. the dynamics bridge's last refusals ---------------------------------
+    stamp("4g")
+    wide_programs_report = wide_programs(dev, gen, gen_plan)
+
     # -- 5. swing-up -------------------------------------------------------------
     stamp("5")
     reset_launches()
@@ -6966,6 +7542,7 @@ def main():
                                    bound_ms_N16_seed=rep["timed"]["batched_N16_seed"][2])
     kernels += wide_kernel_rows(wide, build_parts, gen_plan["build_s"])
     kernels += world_kernel_rows(world)
+    kernels += wide_program_rows(wide_programs_report)
     # phase 9: kernel A with the null gate set against the static null row,
     # split over 8 shards (launches and merge), the largest error of a
     # merged split against the whole launch, and the launches of the

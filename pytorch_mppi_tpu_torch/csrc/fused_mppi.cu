@@ -177,8 +177,11 @@
 // with the normalisation and what follows it as a unit-wise epilogue.  A
 // block model keeps its state and action in shared memory, so it takes any
 // nx, nu that fit there beside the activations (MAXN bounds the per-sample
-// models' register arrays only).  What bounds them: the dense layers'
-// multiply-adds (72,704 a sample-step for a [16, 256, 256, 12] network), so
+// models' register arrays only); a generated per-sample program beyond MAXN
+// states or actions runs as a block model without layers (kPerSample), each
+// owner stepping its sample on its row with no barrier.  The round-1 solve
+// takes a block model as kernel A's MPPI does.  What bounds them: the dense
+// layers' multiply-adds (72,704 a sample-step for a [16, 256, 256, 12] network), so
 // block_dense runs them on the tensor cores, mma.sync m16n8k8 in 3xTF32
 // (float32's accuracy), a warp's task 32 rows by up to 64 units, its
 // weights read once a task through the read-only cache.  The host picks
@@ -1010,6 +1013,21 @@ __host__ __device__ constexpr bool block_terminal(long) {
 }
 template <class M>
 constexpr bool kBlockTerminalOf = block_terminal<M>(0);
+// Whether a block program has no layers (kPerSample: a generated per-sample
+// program beyond MAXN states or actions, whose state lives in shared memory
+// because register arrays of MAXN cannot hold it; a per-sample model beside a
+// terminal cost with layers): its owner steps the sample alone, with no
+// barrier; false where the struct says nothing.
+template <class M>
+__host__ __device__ constexpr auto per_sample(int) -> decltype(M::kPerSample) {
+  return M::kPerSample;
+}
+template <class M>
+__host__ __device__ constexpr bool per_sample(long) {
+  return false;
+}
+template <class M>
+constexpr bool kPerSampleOf = per_sample<M>(0);
 
 // One step of a block program (Model: a block model's step, or its
 // Model::Terminal) for every sample of the block: every thread calls it at
@@ -1020,10 +1038,18 @@ constexpr bool kBlockTerminalOf = block_terminal<M>(0);
 // act_stride): the group's owners write their first inputs, the block
 // computes each layer, the owners run the segments between and after them.
 // Returns the owner's cost where the program leaves one (kStepCost), else 0.
+// A program without layers (kPerSampleOf) is its first segment alone, which
+// each owner runs on its own row: no group and no barrier.
 template <class Model, int N>
 __device__ __forceinline__ float block_step(const float* c, float* x, const float* u, int nx,
                                             int nu, int t, int slot, int slots, int rows, int ld,
                                             float* act) {
+  if constexpr (kPerSampleOf<Model>) {
+    typename Model::Carry carry;
+    if (slot >= 0) Model::template begin<N>(c, x, u, nx, nu, t, carry, nullptr, 0);
+    if constexpr (kStepCostOf<Model>) return slot >= 0 ? carry.cost : 0.0f;
+    return 0.0f;
+  }
   const int layers = Model::layers(c), half = rows * ld;
   float cost = 0.0f;
   for (int r0 = 0; r0 < slots; r0 += rows) {
@@ -2892,9 +2918,10 @@ using Launcher = cudaError_t (*)(const Params&, int, size_t, cudaStream_t);
 #ifdef FUSED_MPPI_GENERATED
 // The generated model's launcher: the variants of the mask
 // FUSED_MPPI_GENERATED only, on register arrays of Generated::kN; a block
-// model's kernels keep its state and action in shared memory and read no
-// array of N (instantiated at MAXN, as ResidualMLPBlock's), so it may hold
-// more than MAXN.
+// model's kernels (a program with layers, or a per-sample one beyond MAXN)
+// keep its state and action in shared memory and read no array of N
+// (instantiated at MAXN, as ResidualMLPBlock's), so it may hold more than
+// MAXN.
 cudaError_t launch_generated(const Params& p, int v, size_t smem, cudaStream_t s) {
   constexpr int mask = FUSED_MPPI_GENERATED;
   constexpr int N = kBlockOf<Generated> ? MAXN : Generated::kN;
@@ -3292,7 +3319,9 @@ int fused_mppi_launch(int device, void* stream, int variant, int model_id, const
 // `rowmajor`, `tile_k` samples a block, merged in the kernel with `counter`.
 // bits (K_pad, D) row-major int32, or null with a Philox key; x0 (nx,) with
 // stride x0_stride; U and a (D,); chol (nu, nu) row-major; mu, lo, hi (nu,).
-// `scratch` as for fused_mppi_launch (two tiles).
+// `scratch` as for fused_mppi_launch (two tiles); a block model's group of
+// samples `act_rows` and activation row `act_ld` as there (0 for a
+// per-sample model).
 int fused_mppi_rowmajor_solve(int device, void* stream, int model_id, const float* consts, int K,
                               int T, int nx, int nu, const int* bits, unsigned key0,
                               unsigned key1, int null_action, int abs_cost, const float* x0,
@@ -3300,7 +3329,7 @@ int fused_mppi_rowmajor_solve(int device, void* stream, int model_id, const floa
                               const float* mu, const float* lo, const float* hi, const float* a,
                               const float* lam, float u_scale, float* cost, float* partial,
                               float* delta, float* ms, float* scratch, int tile_k,
-                              int* counter) {
+                              int* counter, int act_rows, int act_ld) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   Params p{};
@@ -3336,9 +3365,12 @@ int fused_mppi_rowmajor_solve(int device, void* stream, int model_id, const floa
   p.counter = counter;
   p.delta = delta;
   p.ms = ms;
-  // a block model's round-1 solve is not ported (ops/rowmajor.make_fused_solve refuses it)
-  if (!valid_tile(tile_k) || !counter || is_block(model_id)) return (int)cudaErrorInvalidValue;
-  const size_t smem = kernel_smem(kMPPI, p.D, p.R, 1, tile_k, scratch != nullptr);
+  p.act_rows = act_rows;
+  p.act_ld = act_ld;
+  if (!valid_tile(tile_k) || !counter || !valid_activations(model_id, tile_k, act_rows, act_ld))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      kernel_smem(kMPPI, p.D, p.R, 1, tile_k, scratch != nullptr, act_rows, act_ld, nx, nu);
   return (int)launch_solve(p, kMPPI, model_id, smem, (cudaStream_t)stream);
 }
 

@@ -32,27 +32,40 @@ together, JAX's batched @ constant (``_dot_general_batch_last``).
    value with a constant (n_in, n_out) matrix (and a constant bias) is one
    ``dense`` node with n_out outputs, whose weights stay in the constants
    (in the dynamics, the running cost and the terminal cost alike; beyond
-   ``MAXN`` states or actions always, where only a block model runs).  The
+   ``MAXN`` states or actions always, so that a product's weights stay in
+   the constants and its multiply-adds on the tensor cores).  The
    vocabulary, in aten terms:
    elementwise arithmetic and transcendentals (``elu``, ``silu``,
-   ``gelu``, ``softplus``, ``leaky_relu`` among them), comparisons,
-   ``where`` / ``clamp`` / ``remainder`` / ``fmod`` / ``atan2`` and casts;
-   reductions over feature axes (``sum``, ``mean``, ``amax``, ``amin``,
-   ``prod``, ``any``, ``all``, vector norms, ``softmax``), and
-   ``native_layer_norm`` over trailing feature axes (its row's statistics,
-   ``lnmean`` and ``lnrstd`` nodes, then elementwise); ``mm`` / ``bmm`` /
-   ``addmm`` / ``mv`` / ``dot`` of a batched value with a constant on either
-   side and the per-sample contractions that ``einsum`` quadratic forms
-   lower to; ``expand``, ``view`` / ``reshape`` on feature axes, ``permute``,
-   ``select`` / ``slice`` with constant indices and their scatters, ``cat``
-   / ``stack`` / ``split`` / ``unbind``, ``unsqueeze`` / ``squeeze``,
-   ``constant_pad_nd``, ``flip`` and ``cumsum`` / ``cumprod`` over a feature
-   axis.  Anything that reduces, indexes, sorts, contracts or concatenates
-   along the batch axis raises :class:`UnsupportedPrimitive` naming the op,
-   as JAX's interpreter does; so does any other op with a batched operand, a
-   random op, and a program whose scalar operations a step, besides its
-   dense layers' multiply-adds, exceed ``MAX_OPS`` (the dynamics and the
-   running cost together; the terminal cost alone).  A program within
+   ``gelu``, ``softplus``, ``leaky_relu`` and ``erfinv`` among them),
+   comparisons, ``where`` / ``clamp`` / ``remainder`` / ``fmod`` /
+   ``atan2`` / ``nextafter``, the integer shifts (``bitwise_left_shift``,
+   ``bitwise_right_shift``, ``<<``, ``>>``: JAX's ``shift_left`` and
+   ``shift_right_arithmetic``) and casts; reductions over feature axes
+   (``sum``, ``mean``, ``amax``, ``amin``, ``prod``, ``any``, ``all``,
+   vector norms, ``softmax``), and ``native_layer_norm`` over trailing
+   feature axes (its row's statistics, ``lnmean`` and ``lnrstd`` nodes, then
+   elementwise); ``mm`` / ``bmm`` / ``addmm`` / ``mv`` / ``dot`` of a
+   batched value with a constant on either side and the per-sample
+   contractions that ``einsum`` quadratic forms lower to; ``expand``,
+   ``view`` / ``reshape`` on feature axes, ``permute``, ``select`` /
+   ``slice`` with constant indices and their scatters (a ``slice_scatter``
+   with a step into a ``new_zeros`` is interior padding, JAX's ``pad`` with
+   interior padding), ``cat`` / ``stack`` / ``split`` / ``unbind``,
+   ``unsqueeze`` / ``squeeze``, ``constant_pad_nd``, ``flip`` and the scans
+   ``cumsum`` / ``cumprod`` / ``cummax`` / ``cummin`` (their values) /
+   ``logcumsumexp`` over a feature axis.  What stays refused raises
+   :class:`UnsupportedPrimitive` naming the op, each as JAX's interpreter
+   refuses it (``pytorch_mppi_tpu/ops/batch_last.py``): anything that
+   reduces, indexes, sorts, contracts or concatenates along the batch axis
+   (JAX: "... along the batch axis"); the indices of ``max`` / ``min`` over
+   a dim and of ``cummax`` / ``cummin``, indexing with anything but one
+   constant 1-D index, and sorting (JAX has no rule for ``argmax``,
+   ``gather`` or ``sort`` on a batched operand); any other op with a
+   batched operand (JAX: "primitive ... with batched operands"); a random
+   op (JAX's kernels take no key inside the user's code); and a program
+   whose scalar operations a step, besides its dense layers' multiply-adds,
+   exceed ``MAX_OPS`` (the dynamics and the running cost together; the
+   terminal cost alone), a bound of the port's alone.  A program within
    ``MAX_OPS`` as scalars is emitted as scalars.
 3. **Plain version.** :meth:`Program.evaluate` runs the nodes on
    ``(K,)``-batched torch tensors, one torch op a node (a dense node one
@@ -69,9 +82,11 @@ together, JAX's batched @ constant (``_dot_general_batch_last``).
    with its unit-wise epilogue, ``kBlock``; a running cost with dense
    layers runs in the step after the dynamics, ``kStepCost``, and a
    terminal cost with them as ``struct Terminal``, ``kBlockTerminal``).  A
-   program without dense layers holds at most ``MAXN`` states and actions
-   (the per-sample models' register arrays); a block model keeps them in
-   shared memory.  Tensor constants are read from the model's float32
+   program without dense layers within ``MAXN`` states and actions runs on
+   the per-sample models' register arrays; beyond them it is a block model
+   without layers (``kPerSample``: its state and action in a row of shared
+   memory, each owner stepping its sample alone), as a block model keeps
+   them.  Tensor constants are read from the model's float32
    ``consts`` buffer (the terminal cost's from its own), never written as
    literals, so two models that differ only in their weights give the same
    source and share one library; Python numbers in the callables are code,
@@ -99,7 +114,9 @@ together, JAX's batched @ constant (``_dot_general_batch_last``).
 
 A pair of callables that carries a named kernel model
 (:func:`~.kernel_models.find_kernel_model`) keeps it (:func:`kernel_model`);
-the tracer is tried only where there is none.
+the tracer is tried only where there is none, and where a named per-sample
+model's struct cannot run (beyond ``MAXN``, or beside a traced terminal
+cost with dense layers: :func:`kernel_device_model` traces its callables).
 """
 from __future__ import annotations
 
@@ -120,6 +137,10 @@ from .kernel_models import GENERATED, KernelModel, KernelTerminal, find_kernel_m
 PROBE_BATCH = 509  # the batch the callables are traced at (a prime no feature axis is)
 MAX_OPS = 16_384  # scalar operations of one step besides dense layers: dynamics and running cost
 MAXN = 32  # the largest nx or nu of a per-sample device model (MAXN in fused_mppi.cu)
+# the activation row of a per-sample program beyond MAXN, which keeps its state
+# in the block kernels' shared memory and writes no activation: the least row
+# the kernels lay out (valid_activations in fused_mppi.cu)
+ROWS_LD = 4
 
 F, I, B = "f", "i", "b"  # the kinds of a scalar node: float, integer, bool
 
@@ -143,6 +164,7 @@ _UNARY_F = {
     "atan": "atanf({0})", "sinh": "sinhf({0})", "cosh": "coshf({0})", "tanh": "tanhf({0})",
     "asinh": "asinhf({0})", "acosh": "acoshf({0})", "atanh": "atanhf({0})",
     "sigmoid": "(1.0f / (1.0f + expf(-{0})))", "erf": "erff({0})", "erfc": "erfcf({0})",
+    "erfinv": "erfinv_f({0})",
     "floor": "floorf({0})", "ceil": "ceilf({0})", "round": "rintf({0})",
     "trunc": "truncf({0})", "reciprocal": "(1.0f / {0})", "abs": "fabsf({0})",
     "sign": "(float)(({0} > 0.0f) - ({0} < 0.0f))",
@@ -154,6 +176,7 @@ _TORCH_UNARY = {
     "asin": torch.asin, "acos": torch.acos, "atan": torch.atan, "sinh": torch.sinh,
     "cosh": torch.cosh, "tanh": torch.tanh, "asinh": torch.asinh, "acosh": torch.acosh,
     "atanh": torch.atanh, "sigmoid": torch.sigmoid, "erf": torch.erf, "erfc": torch.erfc,
+    "erfinv": torch.erfinv,
     "floor": torch.floor, "ceil": torch.ceil, "round": torch.round, "trunc": torch.trunc,
     "reciprocal": torch.reciprocal, "abs": torch.abs, "sign": torch.sign,
     "neg": torch.neg, "not": torch.logical_not, "isnan": torch.isnan,
@@ -168,10 +191,11 @@ _BINARY_C = {
 _BINARY_F = {"pow": "powf({0}, {1})", "atan2": "atan2f({0}, {1})", "max": "fmaxf({0}, {1})",
              "min": "fminf({0}, {1})", "fmod": "fmodf({0}, {1})",
              "remainder": "rem_f({0}, {1})", "hypot": "hypotf({0}, {1})",
-             "copysign": "copysignf({0}, {1})"}
+             "copysign": "copysignf({0}, {1})", "nextafter": "nextafterf({0}, {1})"}
 _BINARY_I = {"max": "({0} > {1} ? {0} : {1})", "min": "({0} < {1} ? {0} : {1})",
              "fmod": "({0} % {1})", "remainder": "rem_i({0}, {1})",
-             "floordiv": "div_floor_i({0}, {1})"}
+             "floordiv": "div_floor_i({0}, {1})", "shl": "shl_i({0}, {1})",
+             "shr": "shr_i({0}, {1})"}
 _TORCH_BINARY = {
     "add": torch.add, "sub": torch.sub, "mul": torch.mul, "div": torch.div,
     "pow": torch.pow, "atan2": torch.atan2, "max": torch.maximum, "min": torch.minimum,
@@ -180,6 +204,8 @@ _TORCH_BINARY = {
     "le": torch.le, "gt": torch.gt, "ge": torch.ge, "and": torch.logical_and,
     "or": torch.logical_or, "xor": torch.logical_xor,
     "floordiv": lambda a, b: torch.div(a, b, rounding_mode="floor"),
+    "nextafter": torch.nextafter, "shl": torch.bitwise_left_shift,
+    "shr": torch.bitwise_right_shift,
 }
 _COMPARE = {"eq", "ne", "lt", "le", "gt", "ge"}
 _LOGICAL = {"and", "or", "xor", "not"}
@@ -196,6 +222,44 @@ _HELPERS = """\
   }
   __device__ static long long div_floor_i(long long a, long long b) {
     return (a - rem_i(a, b)) / b;
+  }
+  // torch's shifts of int64 (JAX's shift_left, shift_right_arithmetic): a
+  // shift outside [0, 64) gives 0 to the left and the sign to the right
+  __device__ static long long shl_i(long long a, long long b) {
+    return b < 0 || b >= 64 ? 0LL : (long long)((unsigned long long)a << b);
+  }
+  __device__ static long long shr_i(long long a, long long b) {
+    return a >> (b < 0 || b >= 64 ? 63 : b);
+  }
+  // torch.erfinv (JAX's erf_inv): Giles' single-precision polynomial, the
+  // one XLA uses for float32 ("Approximating the erfinv function", GPU
+  // Computing Gems, 2011); +-infinity at +-1, NaN beyond
+  __device__ static float erfinv_f(float x) {
+    float w = -log1pf(-x * x), p;
+    if (w < 5.0f) {
+      w = w - 2.5f;
+      p = 2.81022636e-08f;
+      p = 3.43273939e-07f + p * w;
+      p = -3.5233877e-06f + p * w;
+      p = -4.39150654e-06f + p * w;
+      p = 0.00021858087f + p * w;
+      p = -0.00125372503f + p * w;
+      p = -0.00417768164f + p * w;
+      p = 0.246640727f + p * w;
+      p = 1.50140941f + p * w;
+    } else {
+      w = sqrtf(w) - 3.0f;
+      p = -0.000200214257f;
+      p = 0.000100950558f + p * w;
+      p = 0.00134934322f + p * w;
+      p = -0.00367342844f + p * w;
+      p = 0.00573950773f + p * w;
+      p = -0.0076224613f + p * w;
+      p = 0.00943887047f + p * w;
+      p = 1.00167406f + p * w;
+      p = 2.83297682f + p * w;
+    }
+    return fabsf(x) < 1.0f ? p * x : fabsf(x) == 1.0f ? x * INFINITY : NAN;
   }
 """
 
@@ -741,6 +805,8 @@ class Program:
         if any(ph.final == "cost" for ph in phases):
             members.append("    float cost;")
         total = len(rows)
+        if not total:  # begin steps the sample: its owner needs no other thread
+            head = [*head, "  static constexpr bool kPerSample = true;  // no layers"]
         lines = [*head, "  struct Carry {", *members, "  };",
                  f"  __device__ static int layers(const float*) {{ return {total}; }}"]
         for i, body in enumerate(units):
@@ -792,9 +858,10 @@ class Program:
             return [line for part in parts for line in ("    {", *[f"  {x}" for x in part],
                                                         "    }")]
 
-        lines += ["  template <int N>",
-                  "  __device__ static void begin(const float* c, const float* x, const float* u, "
-                  "int, int, int t, Carry& k, float* row, int half) {", *combined(0), "  }",
+        lines += ["  template <int N>",  # without layers, begin steps the state: x is written
+                  f"  __device__ static void begin(const float* c, {'const ' if total else ''}"
+                  "float* x, const float* u, int, int, int t, Carry& k, float* row, int half) {",
+                  *combined(0), "  }",
                   "  template <int N>",
                   "  __device__ static void after(int l, const float* c, float* x, const float* u, "
                   "int, int, int t, Carry& k, float* row, int half) {",
@@ -1006,7 +1073,7 @@ class _Lowering:
         if op in _LOGICAL:
             return self.p.add(op, B, self.cast(a, B), self.cast(b, B))
         k = _promote(self.p.kind(a), self.p.kind(b))
-        if op in ("pow", "atan2", "hypot", "copysign"):
+        if op in ("pow", "atan2", "hypot", "copysign", "nextafter"):
             k = F if op != "pow" or k != I else I
         if op == "pow":
             node = self.p.nodes[b]
@@ -1166,7 +1233,9 @@ class _Tracer:
                   "lt": "lt", "le": "le", "gt": "gt", "ge": "ge", "logical_and": "and",
                   "logical_or": "or", "logical_xor": "xor", "bitwise_and": "and",
                   "bitwise_or": "or", "bitwise_xor": "xor", "floor_divide": "floordiv",
-                  "__and__": "and", "__or__": "or", "__xor__": "xor"}
+                  "__and__": "and", "__or__": "or", "__xor__": "xor", "nextafter": "nextafter",
+                  "bitwise_left_shift": "shl", "__lshift__": "shl",
+                  "bitwise_right_shift": "shr", "__rshift__": "shr"}
         unary = {"neg": "neg", "negative": "neg", "abs": "abs", "absolute": "abs",
                  "exp": "exp", "exp2": "exp2", "expm1": "expm1", "log": "log",
                  "log2": "log2", "log10": "log10", "log1p": "log1p", "sqrt": "sqrt",
@@ -1174,7 +1243,8 @@ class _Tracer:
                  "acos": "acos", "atan": "atan", "arcsin": "asin", "arccos": "acos",
                  "arctan": "atan", "sinh": "sinh", "cosh": "cosh", "tanh": "tanh",
                  "asinh": "asinh", "acosh": "acosh", "atanh": "atanh", "sigmoid": "sigmoid",
-                 "erf": "erf", "erfc": "erfc", "floor": "floor", "ceil": "ceil",
+                 "erf": "erf", "erfc": "erfc", "erfinv": "erfinv", "floor": "floor",
+                 "ceil": "ceil",
                  "trunc": "trunc", "fix": "trunc", "sign": "sign", "sgn": "sign",
                  "reciprocal": "reciprocal", "logical_not": "not", "bitwise_not": "not",
                  "isnan": "isnan", "isinf": "isinf", "isfinite": "isfinite"}
@@ -1393,6 +1463,35 @@ class _Tracer:
         if _is_sym(value):
             raise UnsupportedPrimitive("full_like with a traced fill value")
         return self._like(meta, a, value)
+
+    def _new(self, meta, value):
+        """A new tensor of the traced shape filled with ``value`` (``new_zeros``
+        and its kin take a batched value's dtype and device, not its
+        values): its batch-sized axis, where it has one, is the batch axis.
+        ``out = s.new_zeros(B, 2 n - 1); out[:, ::2] = s``, torch's interior
+        padding (JAX's ``pad`` with interior padding), lowers to one of
+        these and a ``slice_scatter`` with a step."""
+        shape, k = tuple(meta.shape), self.out_kind(meta)
+        axes = [d for d, n in enumerate(shape) if n == self.L.batch]
+        if len(axes) > 1:
+            raise UnsupportedPrimitive("a new tensor with several batch-sized axes")
+        q = axes[0] if axes else None
+        per = shape if q is None else _drop(shape, q)
+        return _Sym(shape, q, np.full(per, self.L.lit(value, k), dtype=object), k)
+
+    def op_new_zeros(self, meta, a, size, **kw):
+        return self._new(meta, 0)
+
+    def op_new_empty(self, meta, a, size, **kw):
+        return self._new(meta, 0)
+
+    def op_new_ones(self, meta, a, size, **kw):
+        return self._new(meta, 1)
+
+    def op_new_full(self, meta, a, size, value, **kw):
+        if _is_sym(value):
+            raise UnsupportedPrimitive("new_full with a traced fill value")
+        return self._new(meta, value)
 
     # -- shapes ------------------------------------------------------------------
 
@@ -1823,15 +1922,19 @@ class _Tracer:
     op_log_softmax = op__log_softmax
 
     def _scan(self, meta, a, dim, op, name):
+        """The inclusive scan of ``a`` along feature axis ``dim``: each
+        element the binary ``op`` (a node op, or ``fn(acc, x) -> node``) of
+        the one before and itself."""
         a = self.sym(a)
         ax = self._feature_axis(a, dim, name)
         k = self.out_kind(meta)
+        combine = op if callable(op) else (lambda x, y: self.L.binary(op, x, y))
         e = np.moveaxis(a.elems, ax, -1)
         out = np.empty(e.shape, dtype=object)
         for idx in itertools.product(*(range(n) for n in e.shape[:-1])):
             acc = None
             for j, n in enumerate(e[idx]):
-                acc = self.L.cast(n, k) if acc is None else self.L.binary(op, acc, n)
+                acc = self.L.cast(n, k) if acc is None else combine(acc, n)
                 out[idx + (j,)] = acc
         return self.finish(meta, _Sym(a.shape, a.bdim, np.moveaxis(out, -1, ax), k))
 
@@ -1840,6 +1943,26 @@ class _Tracer:
 
     def op_cumprod(self, meta, a, dim, dtype=None):
         return self._scan(meta, a, dim, "mul", "cumprod")
+
+    def op_cummax(self, meta, a, dim):
+        return (self._scan(meta[0], a, dim, "max", "cummax"),
+                _Unsupported("the indices of cummax"))
+
+    def op_cummin(self, meta, a, dim):
+        return (self._scan(meta[0], a, dim, "min", "cummin"),
+                _Unsupported("the indices of cummin"))
+
+    def op_logcumsumexp(self, meta, a, dim):
+        """log(sum of exp) of each prefix, a step at a time as torch's scan:
+        max + log1p(exp(min - max)), the infinite max kept."""
+        L = self.L
+
+        def logaddexp(x, y):
+            m = L.binary("max", x, y)
+            r = L.binary("add", m, L.unary("log1p", L.unary(
+                "exp", L.binary("sub", L.binary("min", x, y), m))))
+            return L.where(L.unary("isinf", m), m, r)
+        return self._scan(meta, a, dim, logaddexp, "logcumsumexp")
 
     # -- contractions ------------------------------------------------------------
 
@@ -2051,9 +2174,12 @@ class GeneratedModel(KernelModel):
 
     def activation_ld(self) -> int:
         """Floats of an activation row of its dense layers, the dynamics' and
-        the running cost's (the widest, in or out, rounded up to four); 0 for
-        a program without dense layers."""
-        return _widest(self.program, self.outputs)
+        the running cost's (the widest, in or out, rounded up to four); for a
+        program without dense layers, ``ROWS_LD`` beyond ``MAXN`` states or
+        actions (a per-sample program whose state lives in shared memory,
+        run by the block kernels) and 0 within (the per-sample kernels)."""
+        widest = _widest(self.program, self.outputs)
+        return widest or (ROWS_LD if max(self.nx, self.nu) > MAXN else 0)
 
 
 def _widest(prog: Program, outputs) -> int:
@@ -2208,14 +2334,9 @@ def trace_model(config, dynamics: Callable, running_cost: Callable) -> Generated
     the module docstring), and lets a ValueError or TypeError of the user's
     code through."""
     nx, nu = config.nx, config.nu
-    wide = max(nx, nu) > MAXN
     prog, pool, outputs = _lower(
-        lambda dense: _trace_pair(config, dynamics, running_cost, dense), "a program", wide)[:3]
-    if wide and not prog.dense_layers(outputs):
-        raise UnsupportedPrimitive(
-            f"nx={nx}, nu={nu}: a program without dense layers runs on the per-sample device "
-            f"models, which hold at most {MAXN} states and actions (ROADMAP.md Queue 2a step 3b; "
-            f"a block model, with dense layers, holds more)")
+        lambda dense: _trace_pair(config, dynamics, running_cost, dense), "a program",
+        max(nx, nu) > MAXN)[:3]
     return generated_model(prog, outputs, nx, nu, torch.tensor(pool or [0.0], dtype=torch.float64))
 
 
@@ -2324,16 +2445,41 @@ def kernel_act_ld(model: KernelModel, terminal: Optional[KernelTerminal]) -> int
     if term and not ld and not isinstance(model, GeneratedModel):
         raise UnsupportedPrimitive(
             f"a traced terminal cost with dense layers beside the per-sample kernel model "
-            f"{model.name!r} (the kernels of a traced or a block model run its layers)")
+            f"{model.name!r}, whose kernels hold no activations: run the trace of its "
+            f"callables (kernel_device_model)")
     return max(ld, term)
+
+
+def kernel_device_model(config, model: KernelModel,
+                        terminal: Optional[KernelTerminal] = None) -> KernelModel:
+    """The device model the kernels run for ``model`` beside ``terminal``:
+    ``model`` itself, or the trace of its own callables (:func:`trace_model`
+    of its plain ``dynamics`` and ``running_cost``) for a named per-sample
+    model whose struct cannot run there: beyond ``MAXN`` states or actions
+    (its register arrays), or beside a traced terminal cost with dense
+    layers (its kernels hold no activations).  The trace keeps its state in
+    shared memory (a block model).  A step-dependent config keeps the named
+    model, which takes no timestep (``fused_solve.check_kernel_model``
+    refuses it).  Raises :class:`UnsupportedPrimitive` where the trace
+    does."""
+    from .kernel_models import activation_ld
+
+    if (isinstance(model, GeneratedModel) or activation_ld(model)
+            or config.step_dependent_dynamics or (model.nx, model.nu) != (config.nx, config.nu)):
+        return model
+    dense_terminal = isinstance(terminal, GeneratedTerminal) and terminal.activation_ld() > 0
+    if max(model.nx, model.nu) > MAXN or dense_terminal:
+        return trace_model(config, model.dynamics, model.running_cost)
+    return model
 
 
 def kernel_terminal(config, terminal_final_cost: Callable) -> Optional[KernelTerminal]:
     """The kernel terminal cost of a ``terminal_final_cost``: the named one it
     carries (:func:`~.kernel_models.quadratic_terminal`), else its trace
-    (:func:`trace_terminal`); None for None."""
-    if terminal_final_cost is None:
-        return None
+    (:func:`trace_terminal`); None for None, and a kernel terminal cost
+    itself for one."""
+    if terminal_final_cost is None or isinstance(terminal_final_cost, KernelTerminal):
+        return terminal_final_cost
     from .kernel_models import find_kernel_terminal
 
     named = find_kernel_terminal(terminal_final_cost)
@@ -2364,6 +2510,7 @@ def _header(model: KernelModel, terminal: Optional[GeneratedTerminal]) -> str:
     n = max(model.nx, model.nu)
     base = "" if generated else f" : {_NAMED_STRUCTS[model.model_id]}"
     dense_terminal = terminal is not None and terminal.activation_ld() > 0
+    ld = kernel_act_ld(model, terminal) if dense_terminal or generated else 0
     lines = [
         "// A device model generated by pytorch_mppi_tpu_torch/ops/batch_last.py from",
         "// the user's torch callables: one statement a node of the traced program.",
@@ -2376,7 +2523,7 @@ def _header(model: KernelModel, terminal: Optional[GeneratedTerminal]) -> str:
         prog, nx = model.program, model.nx
         cost = model.outputs[nx]
         dense_cost = bool(prog.dense_layers([cost]))
-        if prog.dense_layers(model.outputs) or dense_terminal:  # a block model (fused_mppi.cu)
+        if ld:  # a block model (fused_mppi.cu), its state in shared memory
             # a running cost with dense layers runs in the step, after the dynamics
             lines += prog.emit_block(list(model.outputs[:nx]), cost if dense_cost else None)
         else:
@@ -2391,7 +2538,6 @@ def _header(model: KernelModel, terminal: Optional[GeneratedTerminal]) -> str:
                       "  __device__ static float cost(const float* c, const float* x, "
                       "const float* u, int, int, int t) {", *body,
                       f"    return {names[0]};", "  }"]
-    ld = kernel_act_ld(model, terminal) if dense_terminal or generated else 0
     if ld:
         from .fused_solve import KERNEL_A_BLOCK_BLOCKS, kernel_a_blocks
 
@@ -2451,19 +2597,23 @@ class GeneratedKernel:
         """The C++ struct ``Generated`` for ``csrc/fused_mppi.cu``."""
         return self._header
 
-    def library(self, variant: int):
+    def library(self, variant: int, together=()):
         """The loaded library of ``variant``'s kernels (``fused_solve``'s
         MPPI, SMPPI, KMPPI, BATCHED, or 4 for the legacy rollout), built with
-        ``nvcc`` on first use; raises with the compiler's output if the build
-        fails."""
+        ``nvcc`` on first use, with the kernels of the variants ``together``
+        in the same library (one ``nvcc``, which then serves them too);
+        raises with the compiler's output if the build fails."""
         lib = self._libraries.get(variant)
         if lib is None:
             from . import _build
 
-            lib, seconds = _build.load_generated(self.header(), 1 << variant)
-            if seconds is not None:
-                self.build_seconds[variant] = seconds
-            self._libraries[variant] = lib
+            variants = (variant, *together)
+            lib, seconds = _build.load_generated(self.header(),
+                                                 sum({1 << v for v in variants}))
+            for v in variants:
+                if seconds is not None:
+                    self.build_seconds[v] = seconds
+                self._libraries.setdefault(v, lib)
         return lib
 
     def describe(self) -> dict:

@@ -63,11 +63,12 @@ block size.
 Float32 only.  Normals come from Giles' single-precision erfinv, the
 polynomial XLA uses for ``erf_inv``, in both the kernel and the plain version.
 The kernel keeps its per-block tiles in shared memory when they fit in
-Hopper's 227 KB, else in a global scratch; the device models hold nx and nu
-up to 32.  Kernel A's merge counts its finished blocks in an int32 counter
-allocated once per launch configuration (:class:`LaunchSpec`), device and
-stream: launches on one stream run in order, and launches on two streams
-never share a counter.
+Hopper's 227 KB, else in a global scratch; the per-sample device models hold
+nx and nu up to 32 in registers, a block model (and a per-sample program
+beyond 32) in shared memory.  Kernel A's merge counts its finished blocks in
+an int32 counter allocated once per launch configuration
+(:class:`LaunchSpec`), device and stream: launches on one stream run in
+order, and launches on two streams never share a counter.
 
 The wrappers launch through :func:`launch_kernel_a`, directly or through
 the ``torch.library`` operators of ``ops/library.py`` (:func:`via_ops`),
@@ -663,7 +664,7 @@ def _set_argtypes(lib, generated: bool = False):
     lib.fused_mppi_rowmajor_solve.argtypes = [
         _I, _P, _I, _P, _I, _I, _I, _I, _P, ctypes.c_uint32, ctypes.c_uint32, _I,
         _I, _P, _L, _P, _P, _P, _P, _P, _P, _P, ctypes.c_float, _P, _P, _P, _P, _P,
-        _I, _P,
+        _I, _P, _I, _I,
     ]
     for fn in (lib.fused_mppi_launch, lib.fused_mppi_rollout, lib.fused_mppi_rowmajor_solve):
         fn.restype = _I
@@ -776,15 +777,19 @@ def raise_on_error(lib, rc, what):
                            f"({lib.fused_mppi_error_string(rc).decode()})")
 
 
-def as_kernel_model(config: MPPIConfig, model) -> KernelModel:
-    """A factory's ``model``: a :class:`~.kernel_models.KernelModel`, or a
-    ``(dynamics, running_cost)`` pair of the user's callables, which keeps
-    the named model it carries or is traced into a generated one
-    (:func:`~.batch_last.kernel_model`; UnsupportedPrimitive where it
-    cannot be)."""
+def as_kernel_model(config: MPPIConfig, model, terminal: KernelTerminal = None) -> KernelModel:
+    """The device model a factory's kernels run for its ``model`` beside
+    ``terminal``: a :class:`~.kernel_models.KernelModel`, or a ``(dynamics,
+    running_cost)`` pair of the user's callables, which keeps the named
+    model it carries or is traced into a generated one
+    (:func:`~.batch_last.kernel_model`); a named per-sample model that its
+    struct cannot run (beyond 32 states or actions, or beside a traced
+    terminal cost with dense layers) is traced from its callables
+    (:func:`~.batch_last.kernel_device_model`).  UnsupportedPrimitive where a
+    trace fails."""
     if isinstance(model, tuple):
-        return BL.kernel_model(config, *model)
-    return model
+        model = BL.kernel_model(config, *model)
+    return BL.kernel_device_model(config, model, terminal)
 
 
 def check_kernel_model(config: MPPIConfig, model: KernelModel, act_ld: int = None):
@@ -804,8 +809,9 @@ def check_kernel_model(config: MPPIConfig, model: KernelModel, act_ld: int = Non
     ld = KM.activation_ld(model) if act_ld is None else act_ld
     if not ld and max(nx, nu) > _MAXN:
         raise FusedSolveUnavailable(
-            f"nx={nx}, nu={nu}: the kernel's per-sample device models hold at most {_MAXN} of "
-            f"each (ROADMAP.md Queue 2a step 3b; a block model, with dense layers, holds more)")
+            f"nx={nx}, nu={nu}: the named per-sample device model {model.name!r} holds at most "
+            f"{_MAXN} of each in registers (the trace of its callables, which keeps them in "
+            f"shared memory, takes a config without step_dependent_dynamics)")
     if config.step_dependent_dynamics and not isinstance(model, BL.GeneratedModel):
         raise FusedSolveUnavailable(
             f"step_dependent_dynamics with the named kernel model {model.name!r}, which takes "
@@ -813,6 +819,7 @@ def check_kernel_model(config: MPPIConfig, model: KernelModel, act_ld: int = Non
     room = MAX_SMEM_BYTES - 4 * _HEAD
     if ld and activation_bytes(0, KM.DENSE_ROWS, ld, _BLOCK, nx, nu) > room:
         what = ("the residual MLP's block kernels" if model.model_id == KM.RESIDUAL_MLP_BLOCK
+                else "a per-sample program's block kernels" if ld == BL.ROWS_LD
                 else "a block model's kernels")
         rows = room - 4 * _BLOCK * state_ld(nx, nu)
         states = (room - activation_bytes(0, KM.DENSE_ROWS, ld)) // (4 * _BLOCK)
@@ -921,34 +928,32 @@ def launch_geometry(spec: LaunchSpec) -> dict:
     nblocks = -(-spec.K // spec.S)
     blocks = nblocks * -(-spec.plants // spec.group)
     act_rows = block_smem = 0
-    if spec.rowmajor:  # the raw normals keep a tile of their own: two (D, S) tiles
-        shared = smem_bytes(MPPI, D, D, True, spec.S) <= MAX_SMEM_BYTES
-        scratch = 0 if shared else nblocks * 2 * D * spec.S
-    else:
-        full_op = bool(spec.full_op)
-        shared = smem_bytes(spec.variant, D, spec.R, full_op, spec.S) <= MAX_SMEM_BYTES
-        if spec.act_ld:
-            # kernel A's merge takes its block scales, and its products
-            # their operator panel, in a block model's activations
-            # (fused_mppi.cu's block_head, kernel_smem)
-            panel = 0 if batched else panel_floats(spec.variant, full_op, spec.R, spec.S)
-            head = 0 if batched else 4 * (_MERGE_CHUNK_A + panel)
-            bases = [base_smem_bytes(spec.variant, D, spec.R, full_op, spec.S, place) - head
-                     for place in (True, False)]
-            act_rows, place = activation_rows(
-                spec.S, spec.act_ld, bases, spec.nx, spec.nu,
-                OCCUPANCY_TARGET if batched else KERNEL_A_BLOCK_BLOCKS, panel)
-            if not act_rows:
-                raise FusedSolveUnavailable(
-                    f"a block model's activations ({KM.DENSE_ROWS} samples of two rows of "
-                    f"{spec.act_ld} floats) do not fit in shared memory beside the kernel's own "
-                    f"{bases[1]} bytes, of the {MAX_SMEM_BYTES} a block may use")
-            shared = place == 0
-            block_smem = activation_bytes(bases[place], act_rows, spec.act_ld, spec.S, spec.nx,
-                                          spec.nu, panel)
-        tiles = (2 if full_op else 1) * spec.R * _BLOCK if batched else \
-            partial_tiles(spec.variant, full_op) * D * spec.S
-        scratch = 0 if shared else blocks * tiles
+    # (the round-1 solve is kernel A's MPPI with a full operator and R = D:
+    # its raw normals keep a tile of their own)
+    full_op = bool(spec.full_op)
+    shared = smem_bytes(spec.variant, D, spec.R, full_op, spec.S) <= MAX_SMEM_BYTES
+    if spec.act_ld:
+        # kernel A's merge takes its block scales, and its products their
+        # operator panel, in a block model's activations (fused_mppi.cu's
+        # block_head, kernel_smem)
+        panel = 0 if batched else panel_floats(spec.variant, full_op, spec.R, spec.S)
+        head = 0 if batched else 4 * (_MERGE_CHUNK_A + panel)
+        bases = [base_smem_bytes(spec.variant, D, spec.R, full_op, spec.S, place) - head
+                 for place in (True, False)]
+        act_rows, place = activation_rows(
+            spec.S, spec.act_ld, bases, spec.nx, spec.nu,
+            OCCUPANCY_TARGET if batched else KERNEL_A_BLOCK_BLOCKS, panel)
+        if not act_rows:
+            raise FusedSolveUnavailable(
+                f"a block model's activations ({KM.DENSE_ROWS} samples of two rows of "
+                f"{spec.act_ld} floats) do not fit in shared memory beside the kernel's own "
+                f"{bases[1]} bytes, of the {MAX_SMEM_BYTES} a block may use")
+        shared = place == 0
+        block_smem = activation_bytes(bases[place], act_rows, spec.act_ld, spec.S, spec.nx,
+                                      spec.nu, panel)
+    tiles = (2 if full_op else 1) * spec.R * _BLOCK if batched else \
+        partial_tiles(spec.variant, full_op) * D * spec.S
+    scratch = 0 if shared else blocks * tiles
     antithetic = bool(spec.antithetic) and not spec.noise_operand  # the operand holds the mirror
     if spec.shards > 1:  # the shard's own samples; the padding is the global bits'
         K_pad, bits_pad = spec.K, padded_k(spec.K * spec.shards, spec.pair_block)
@@ -1001,9 +1006,11 @@ def launch_kernel_a(spec: LaunchSpec, u_scale: float, lead, key, x0T, U2, base, 
             spec.abs_cost, x0T.data_ptr(), x0T.stride(0), U2.data_ptr(), op.data_ptr(),
             mu.data_ptr(), lo.data_ptr(), hi.data_ptr(), a_flat.data_ptr(), lam.data_ptr(),
             float(u_scale), cost.data_ptr(), partial.data_ptr(), delta.data_ptr(),
-            ms.data_ptr(), _ptr(scratch), spec.S, counter.data_ptr())
+            ms.data_ptr(), _ptr(scratch), spec.S, counter.data_ptr(), geo["act_rows"],
+            spec.act_ld)
         raise_on_error(lib, rc, "fused_mppi_rowmajor_solve")
-        launches["rowmajor" if spec.model_id < BL.GENERATED else "generated_mppi"] += 1
+        launches["rowmajor" if spec.model_id < BL.GENERATED else
+                 launch_name(spec.model_id, "mppi")] += 1
         return delta, ms, cost, None
     rc = lib.fused_mppi_launch(
         device_index(device), stream,
@@ -1105,7 +1112,7 @@ def _make_launch(variant: int, config: MPPIConfig, model: KernelModel, R: int,
     # a named terminal cost, or the trace of any other (UnsupportedPrimitive
     # where it cannot be traced, which the routing takes to the plain path)
     terminal = BL.kernel_terminal(config, terminal_final)
-    model = as_kernel_model(config, model)
+    model = as_kernel_model(config, model, terminal)
     act_ld = BL.kernel_act_ld(model, terminal)
     check_kernel_model(config, model, act_ld)
     model_id = BL.launch_id(model, terminal)
@@ -1235,9 +1242,9 @@ def make_transposed_fused_solve(config: MPPIConfig, model: KernelModel,
     for the other factories); ``solve.model`` holds the one it runs.
     Raises ValueError for a non-float32
     config or a model whose sizes differ from the config's, and
-    :class:`FusedSolveUnavailable` when nx or nu exceeds the device models'
-    registers (32), for a block model (a residual MLP beyond nx, nu ≤ 8 and
-    four layers of 64 units, or a traced one with dense layers) whose
+    :class:`FusedSolveUnavailable` for a block model (a residual MLP beyond
+    nx, nu ≤ 8 and four layers of 64 units, a traced one with dense layers,
+    a per-sample program beyond 32 states or actions) whose state and
     activations do not fit in shared memory (:func:`check_kernel_model`,
     :func:`launch_geometry`), for a step-dependent config with a named
     model, and for
@@ -1396,13 +1403,15 @@ def make_transposed_batched_solve(config: MPPIConfig, num_envs: int,
     # a block model's plant takes its block alone: its layers outweigh the
     # shared draw, and 1,280 blocks at N = 16, K = 10,240 fill the waves
     # that 320 leave a fifth full
-    group = group or (1 if KM.activation_ld(as_kernel_model(config, model)) else
+    terminal = BL.kernel_terminal(config, terminal_final)
+    model = as_kernel_model(config, model, terminal)
+    group = group or (1 if BL.kernel_act_ld(model, terminal) else
                       plant_group(plants, -(-config.K // _BLOCK), 2 * sm_count()))
     if not 1 <= group <= plants:
         raise ValueError(f"group must be in [1, num_envs={plants}], got {group}")
     D = config.T * config.nu
     launch, flags, info = _make_launch(BATCHED, config, model, D, pair_block, False,
-                                       terminal_final, plants=plants,
+                                       terminal, plants=plants,
                                        noise_operand=noise_operand, group=group)
 
     def solve(lead, x0T, U2T, op, mu_t, lo_t, hi_t, aT, lambda_):

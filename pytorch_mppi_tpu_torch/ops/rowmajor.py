@@ -303,20 +303,20 @@ def make_fused_solve(config: MPPIConfig, model: KernelModel, tile_k: int = None)
     ValueError for a non-float32 config or a model whose sizes differ from
     the config's, and :class:`~.fused_solve.FusedSolveUnavailable` for a
     step-dependent config with a named model (only a traced model,
-    ``ops/batch_last.py``, takes the timestep), nx or nu above 32, or a
-    block model (the residual MLP beyond its per-thread bounds, or a traced
-    model with dense layers), whose round-1 solve is not ported.  A traced
-    model (:func:`~.batch_last.kernel_model`) runs in its own library's
-    kernel A.  ``tile_k`` forces kernel A's samples a block, as for
-    :func:`~.fused_solve.make_transposed_fused_solve`; kernel A's merge
-    counter is its launch spec's and stream's (``fused_solve``'s
-    docstring)."""
+    ``ops/batch_last.py``, takes the timestep) or a block model whose
+    activations do not fit in shared memory (as
+    :func:`~.fused_solve.make_transposed_fused_solve`).  Any model JAX's
+    round-1 kernel takes runs: a traced model
+    (:func:`~.batch_last.kernel_model`) in its own library's kernel A, and
+    a block model (``ResidualMLPBlock``, a traced model with dense layers,
+    a per-sample program beyond 32 states or actions) in kernel A's block
+    path, its state in shared memory.  ``tile_k`` forces kernel A's samples
+    a block, as for :func:`~.fused_solve.make_transposed_fused_solve`;
+    kernel A's merge counter is its launch spec's and stream's
+    (``fused_solve``'s docstring)."""
     model = FS.as_kernel_model(config, model)
     FS.check_kernel_model(config, model)
-    if KM.activation_ld(model):
-        raise FS.FusedSolveUnavailable(
-            f"the round-1 solve of a block model ({model.name!r}, whose layers a block's "
-            f"threads compute together) is not ported: the transposed kernels take it")
+    act_ld = KM.activation_ld(model)
     K, T, nx, nu = config.K, config.T, config.nx, config.nu
     D = T * nu
     block_k, K_pad = fused_solve_block_and_pad(K)
@@ -324,7 +324,7 @@ def make_fused_solve(config: MPPIConfig, model: KernelModel, tile_k: int = None)
     # the same operator
     spec = FS.LaunchSpec(FS.MPPI, BL.launch_id(model), K, T, nx, nu, D, 0, 0,
                          int(config.sample_null_action), int(config.noise_abs_cost), 1, 0, 1,
-                         1, FS.check_tile(tile_k, K), 0, 0, rowmajor=1)
+                         1, FS.check_tile(tile_k, K), 0, 0, rowmajor=1, act_ld=act_ld)
     spec_ints, u_scale = list(spec), float(config.u_scale)
     flags = dict(model=model, K=K, T=T, nu=nu, null_action=config.sample_null_action,
                  abs_cost=config.noise_abs_cost, u_scale=u_scale)
@@ -353,4 +353,5 @@ def make_fused_solve(config: MPPIConfig, model: KernelModel, tile_k: int = None)
     geo = FS.launch_geometry(spec)
     return FS.finish(solve, rowmajor_solve_plain, flags,
                      dict(K_pad=K_pad, block_k=block_k, tile_k=spec.S,
-                          tiles="shared" if geo["shared"] else "global", spec=spec))
+                          tiles="shared" if geo["shared"] else "global", spec=spec, model=model,
+                          act_rows=geo["act_rows"]))

@@ -1500,7 +1500,7 @@ def _route_legacy_rollout(config: MPPIConfig, dynamics: Callable,
         model = traced[0]
         try:
             rollout = LG.make_fused_rollout(config, model)
-        except FS.FusedSolveUnavailable as e:
+        except (FS.FusedSolveUnavailable, BL.UnsupportedPrimitive) as e:
             why = str(e)
     if why is not None:
         logger.warning("use_pallas='rollout' requested but %s; using the plain torch path",

@@ -61,13 +61,14 @@ Guarantees and limits:
   there is no card raises: it is never moved to the CPU;
 - a live ``info`` payload raises a ValueError (the exported body takes
   ``info=None``), a file of a version this build does not read a
-  ValueError (it reads versions 1, without kernels, 2, 3, 4, 5 and 6;
+  ValueError (it reads versions 1, without kernels, 2, 3, 4, 5, 6 and 7;
   version 4 adds the block models, the residual MLP beyond its per-thread
   bounds and traced programs with dense layers, version 5 traced programs
   with a LayerNorm's statistics, dense layers in a running or terminal
   cost and more than 32 states or actions, version 6 stochastic dynamics,
-  which a build before each does not run, so it refuses their files by
-  their version).  A file of version 1 or 2 whose programs run the
+  version 7 programs with ``erfinv``, ``nextafter`` or an integer shift and
+  per-sample programs beyond 32 states or actions, which a build before
+  each does not run, so it refuses their files by their version).  A file of version 1 or 2 whose programs run the
   residual MLP's device model raises a ValueError too: its constants hold
   the goal in the 16-float header of before, which the kernels no longer
   read (export it again);
@@ -100,9 +101,12 @@ logger = logging.getLogger(__name__)
 # programs with the nodes lnmean and lnrstd (a LayerNorm), dense layers in a
 # running or terminal cost (struct Terminal) and block models beyond 32 states
 # or actions; version 6: stochastic dynamics (the plan of their draws, fed to
-# the programs); a build before each refuses such a file by its version
-_FORMAT_VERSION = 6
-_READS = (1, 2, 3, 4, 5, 6)  # version 1 carries no generated kernels
+# the programs); version 7: programs with the nodes erfinv, nextafter, shl and
+# shr, per-sample programs beyond 32 states or actions (block programs without
+# layers) and the round-1 solve of a block model; a build before each refuses
+# such a file by its version
+_FORMAT_VERSION = 7
+_READS = (1, 2, 3, 4, 5, 6, 7)  # version 1 carries no generated kernels
 # the first version whose residual-MLP constants have the header of
 # kernel_models.MLP_HEAD floats (20, the goal's nx <= 8 floats from 12 on)
 _MLP_LAYOUT = 3

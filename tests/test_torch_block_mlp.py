@@ -35,8 +35,8 @@
 * The block model's constants, ``plain_model``'s rebuild, the launch
   geometry (the group of samples and the tiles' place, by occupancy), the
   launch counters' names, the widest layers' groups of 8 samples (half an
-  m16 tile), and the refusals (the round-1 solve; activations beyond
-  shared memory).
+  m16 tile), the round-1 solve of the block model, and the refusal of
+  activations beyond shared memory.
 
 Tolerances.  Float32 on both sides.  Costs rtol 2e-5 / atol 1e-5, m the
 same, s rtol 2e-5, delta/s rtol 2e-4 / atol 2e-6: those of
@@ -716,9 +716,20 @@ def test_launch_counters_name_the_block_kernels():
 
 
 def test_round_one_solve_refuses_block_models():
+    """(Its name is the refusal it pinned before ROADMAP.md Queue 2a step
+    6.)  The round-1 solve takes the block model: kernel A's block path
+    with its ``rowmajor`` flag, its group of samples chosen as kernel A's
+    MPPI's, and its plain version runs the block model's.
+    ``tests/test_torch_wide_programs.py`` holds it against JAX's kernel."""
     _, _, model = _pair()
-    with pytest.raises(FS.FusedSolveUnavailable, match="round-1 solve of a block model"):
-        RM.make_fused_solve(MPPIConfig(nx=NX, nu=NU, K=K, T=T), model)
+    cfg = MPPIConfig(nx=NX, nu=NU, K=K, T=T)
+    solve = RM.make_fused_solve(cfg, model)
+    assert solve.spec.rowmajor and solve.spec.act_ld == KM.activation_ld(model) > 0
+    assert solve.act_rows == FS.make_transposed_fused_solve(cfg, model).act_rows
+    D = T * NU
+    out = solve((1, 2), torch.zeros(NX), torch.zeros(T, NU), torch.eye(NU), torch.zeros(NU),
+                -1.0, 1.0, torch.zeros(D), 1.0)
+    assert out[3].shape == (K,) and bool(torch.isfinite(out[3]).all())
 
 
 @pytest.mark.parametrize("use_pallas", [True, "rollout"])

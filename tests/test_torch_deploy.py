@@ -204,7 +204,7 @@ class TestExportRoundtrip:
         with the goal in the header of 16 floats, which the kernels no
         longer read: loading one raises; the same file as version 3 loads
         (the per-thread MLP's constants and launches are version 3's; the
-        file is written as version 6)."""
+        file is written as version 7)."""
         model = _learned_car()
         ctrl = P.MPPI(model.dynamics, model.running_cost, 4, torch.eye(1), num_samples=32,
                       horizon=4, seed=SEED, use_pallas=True, device="cpu")
@@ -212,7 +212,7 @@ class TestExportRoundtrip:
         deploy.export_solver(ctrl, path)
         tree = ckpt.load(path)
         meta = json.loads(tree["meta"])
-        assert meta["version"] == 6
+        assert meta["version"] == 7
         meta["version"] = version
         tree["meta"] = json.dumps(meta)
         ckpt.save(path, tree)

@@ -204,7 +204,7 @@ def test_served_equals_live(tmp_path, variant, M, style, step_dependent):
     ctrl = _ctrl(variant, style, step_dependent, **kw)
     solver = _export_and_replay(ctrl, tmp_path)
     meta = solver.meta
-    assert meta["version"] == 6 and meta["route"] == "plain"
+    assert meta["version"] == 7 and meta["route"] == "plain"
     assert meta["streams"]["stochastic_dynamics"]
     assert meta["streams"]["gradient_refinement_steps"] == 0
     op = "torch.randn" if style == "randn" else "Tensor.normal_"

@@ -374,12 +374,13 @@ def test_artifact_format(served):
     """Version 2 and later list each generated kernel's program (JSON, no
     compiled code): a traced model's nodes, outputs, sizes, timestep use
     and float64 constants; a named model's id; the traced terminal cost's
-    program.  Version 6 (version 3's residual-MLP constants with a header
+    program.  Version 7 (version 3's residual-MLP constants with a header
     of 20 floats, version 4's block models, version 5's programs with a
-    LayerNorm's statistics and dense layers in their costs, and the plan of
-    stochastic dynamics' draws) is written today."""
+    LayerNorm's statistics and dense layers in their costs, version 6's
+    plan of stochastic dynamics' draws, and version 7's new nodes and
+    per-sample programs beyond 32 states) is written today."""
     meta = served["solvers"]["fused_traced_terminal"].meta
-    assert meta["version"] == 6
+    assert meta["version"] == 7
     (desc,) = meta["kernels"]
     assert set(desc["model"]) == {"nodes", "outputs", "nx", "nu", "uses_t", "consts64"}
     assert not desc["model"]["uses_t"] and desc["terminal"]["nx"] == 2
@@ -450,7 +451,7 @@ def test_world_model_round_trip(served, monkeypatch):
     versions compute what the traced model's do."""
     solver = served["solvers"]["fused_world_model"]
     (desc,) = solver.meta["kernels"]
-    assert desc["model"]["uses_t"] and solver.meta["version"] == 6
+    assert desc["model"]["uses_t"] and solver.meta["version"] == 7
     assert {n[0] for n in desc["terminal"]["nodes"]} >= {"dense", "lnmean", "lnrstd"}
     (kernel,) = solver.kernels
     monkeypatch.setattr(BL, "_KERNELS", {})
@@ -521,11 +522,11 @@ class TestRegistry:
 
 
 def test_unreadable_version_raises(tmp_path):
-    path = str(tmp_path / "v7.npz")
+    path = str(tmp_path / "v8.npz")
     deploy.export_solver(ROUTES["version_1"][0](), path)
     tree = ckpt.load(path)
     meta = json.loads(tree["meta"])
-    meta["version"] = 7  # the first version this build does not read
+    meta["version"] = 8  # the first version this build does not read
     tree["meta"] = json.dumps(meta)
     ckpt.save(path, tree)
     with pytest.raises(ValueError, match="reads versions 1, 2"):

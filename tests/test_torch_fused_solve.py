@@ -294,9 +294,15 @@ def test_wrapper_rejects_other_devices():
     FS.make_transposed_fused_solve(
         MPPIConfig(nx=32, nu=2, K=8, T=3),
         linear_quadratic(torch.zeros(32, 2), torch.zeros(32)))
+    # beyond 32 the named model runs the trace of its callables, its state
+    # in shared memory; a step-dependent config keeps the named model, whose
+    # registers hold 32
+    wide = FS.make_transposed_fused_solve(
+        MPPIConfig(nx=33, nu=2, K=8, T=3), linear_quadratic(torch.zeros(33, 2), torch.zeros(33)))
+    assert wide.spec.model_id >= BL.GENERATED and wide.spec.act_ld > 0
     with pytest.raises(FS.FusedSolveUnavailable, match="at most 32"):
         FS.make_transposed_fused_solve(
-            MPPIConfig(nx=33, nu=2, K=8, T=3),
+            MPPIConfig(nx=33, nu=2, K=8, T=3, step_dependent_dynamics=True),
             linear_quadratic(torch.zeros(33, 2), torch.zeros(33)))
     with pytest.raises(ValueError, match="the config is"):
         FS.make_transposed_fused_solve(MPPIConfig(nx=3, nu=2, K=8, T=3), model)

@@ -367,8 +367,13 @@ def test_wrappers_check_their_inputs():
     rollout = LG.make_fused_rollout(MPPIConfig(nx=2, nu=2, K=8, T=3), LQ)
     with pytest.raises(ValueError, match="cuda or cpu"):
         rollout(torch.empty((8, 2), device="meta"), torch.empty((8, 3, 2), device="meta"))
+    # beyond 32 the named model runs the trace of its callables; a
+    # step-dependent config keeps the named model, whose registers hold 32
+    wide = LG.make_fused_rollout(MPPIConfig(nx=33, nu=2, K=8, T=3),
+                                 linear_quadratic(torch.zeros(33, 2), torch.zeros(33)))
+    assert wide(torch.zeros(8, 33), torch.zeros(8, 3, 2)).shape == (8,)
     with pytest.raises(FS.FusedSolveUnavailable, match="at most 32"):
-        LG.make_fused_rollout(MPPIConfig(nx=33, nu=2, K=8, T=3),
+        LG.make_fused_rollout(MPPIConfig(nx=33, nu=2, K=8, T=3, step_dependent_dynamics=True),
                               linear_quadratic(torch.zeros(33, 2), torch.zeros(33)))
     assert set(FS.launches) == {"mppi", "smppi", "kmppi", "batched", "rollout",
                                 "weighted_update", "sampler", "rowmajor",

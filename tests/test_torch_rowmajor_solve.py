@@ -203,9 +203,13 @@ def test_closed_loop_matches_jax(sigma):
 def test_factory_and_wrapper_checks():
     with pytest.raises(FS.FusedSolveUnavailable, match="timestep"):
         RM.make_fused_solve(MPPIConfig(nx=2, nu=2, K=8, T=3, step_dependent_dynamics=True), LQ)
-    with pytest.raises(FS.FusedSolveUnavailable, match="at most 32"):
-        RM.make_fused_solve(MPPIConfig(nx=33, nu=2, K=8, T=3),
-                            linear_quadratic(torch.zeros(33, 2), torch.zeros(33)))
+    # nx = 33, beyond the named model's register arrays: the trace of its
+    # callables, its state in shared memory (ROADMAP.md Queue 2a step 3b)
+    wide = RM.make_fused_solve(MPPIConfig(nx=33, nu=2, K=8, T=3),
+                               linear_quadratic(torch.zeros(33, 2), torch.zeros(33)))
+    assert wide.spec.nx == 33 and wide.spec.act_ld > 0
+    assert wide((1, 2), torch.ones(33), torch.zeros(3, 2), torch.eye(2), torch.zeros(2), -1.0,
+                1.0, torch.zeros(6), 1.0)[3].shape == (8,)
     with pytest.raises(ValueError, match="float32"):
         RM.make_fused_solve(MPPIConfig(nx=2, nu=2, K=8, T=3, dtype=torch.float64), LQ)
     solve = RM.make_fused_solve(MPPIConfig(nx=2, nu=2, K=8, T=3), LQ)

@@ -35,7 +35,9 @@ the last action).  The same numpy weights go into jnp functions and into
   warning, and both sides of the block models' bound on nx and nu (shared
   memory's): just inside runs in the kernels, just outside takes the plain
   path and the warning names the bound; a program without dense layers
-  beyond 32 states takes the plain path (ROADMAP.md Queue 2a step 3b).
+  beyond 32 states runs in the kernels as a block program without layers,
+  and a named per-sample model beside a dense terminal cost as the trace
+  of its callables.
 
 Tolerances: those of ``tests/test_torch_block_mlp.py`` (costs rtol 2e-5 /
 atol 1e-5, m the same, s rtol 2e-5, delta/s rtol 2e-4 / atol 2e-6), float32
@@ -684,23 +686,31 @@ def test_nx_64_in_every_kernel(which):
 
 
 def test_scalar_program_beyond_32_takes_the_plain_path(caplog):
-    """A program without dense layers beyond 32 states runs on the
-    per-sample models' register arrays, which hold 32: the tracer refuses
-    it, naming ROADMAP.md Queue 2a step 3b, and the controller warns."""
+    """(Its name is the refusal it pinned before ROADMAP.md Queue 2a step
+    3b.)  A program without dense layers beyond 32 states keeps its state
+    in shared memory: it traces into a block program without layers
+    (``kPerSample``, an activation row of ``ROWS_LD``), and the controller
+    takes the kernel with no warning."""
     nx = 40
-    with pytest.raises(BL.UnsupportedPrimitive, match="step 3b"):
-        BL.trace_model(MPPIConfig(nx=nx, nu=2, K=64, T=2), lambda s, a: s * 0.9,
-                       lambda s, a: (s ** 2).sum(-1))
+    model = BL.trace_model(MPPIConfig(nx=nx, nu=2, K=64, T=2), lambda s, a: s * 0.9,
+                           lambda s, a: (s ** 2).sum(-1))
+    assert not model.program.dense_layers(model.outputs)
+    assert model.activation_ld() == BL.ROWS_LD
+    assert "kPerSample = true" in BL.generated_kernel(model, None).header()
     with caplog.at_level(logging.WARNING, logger="pytorch_mppi_tpu_torch"):
         ctrl = P.MPPI(lambda s, a: s * 0.9, lambda s, a: (s ** 2).sum(-1), nx, torch.eye(2),
                       num_samples=32, horizon=2, use_pallas=True, device="cpu")
-    assert not ctrl._fns.fused and "step 3b" in caplog.text
+    assert ctrl._fns.fused and not caplog.text, caplog.text
+    assert bool(torch.isfinite(ctrl.command(torch.ones(nx))).all())
 
 
 def test_dense_terminal_beside_a_named_per_sample_model(caplog):
     """A traced terminal cost with dense layers beside a named per-sample
-    model (``linear_quadratic``): its kernels hold no activations, so the
-    factory refuses it and the controller takes the plain path, warning."""
+    model (``linear_quadratic``), whose kernels hold no activations: the
+    factory runs the trace of the named model's callables, a block program
+    without layers whose kernels hold the terminal's, and the controller
+    takes the kernel with no warning; its plain version is the named
+    model's arithmetic."""
     lq = P.linear_quadratic(torch.eye(2), torch.zeros(2))
     g = torch.Generator().manual_seed(1)
     W1, W2 = torch.randn(4, 200, generator=g) * 0.5, torch.randn(200, 200, generator=g) * 0.07
@@ -711,8 +721,15 @@ def test_dense_terminal_beside_a_named_per_sample_model(caplog):
     cfg = MPPIConfig(nx=2, nu=2, K=64, T=4)
     assert BL.trace_terminal(cfg, term).activation_ld() == 200
     with pytest.raises(BL.UnsupportedPrimitive, match="per-sample kernel model"):
-        FS.make_transposed_fused_solve(cfg, lq, terminal_final=term)
+        BL.kernel_act_ld(lq, BL.trace_terminal(cfg, term))
+    solve = FS.make_transposed_fused_solve(cfg, lq, terminal_final=term)
+    assert isinstance(solve.model, BL.GeneratedModel) and solve.spec.act_ld == 200
+    header = BL.kernel_of(solve.spec.model_id).header()
+    assert "kPerSample = true" in header and "kBlockTerminal = true" in header
+    x, u = torch.randn(64, 2), torch.randn(64, 2)
+    torch.testing.assert_close(solve.model.dynamics(x, u), lq.dynamics(x, u))
+    torch.testing.assert_close(solve.model.running_cost(x, u), lq.running_cost(x, u))
     with caplog.at_level(logging.WARNING, logger="pytorch_mppi_tpu_torch"):
         ctrl = P.MPPI(lq.dynamics, lq.running_cost, 2, torch.eye(2), num_samples=64, horizon=4,
                       use_pallas=True, device="cpu", terminal_final_cost=term)
-    assert not ctrl._fns.fused and "per-sample kernel model" in caplog.text
+    assert ctrl._fns.fused and not caplog.text, caplog.text
