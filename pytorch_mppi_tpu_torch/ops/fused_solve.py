@@ -620,7 +620,8 @@ def batched_solve_plain(lead, x0T, U2T, op, mu_t, lo_t, hi_t, aT, lambda_, *,
     N = x0T.shape[1]
     pair_block = pair_block or K + K % 2
     if noise_operand:
-        noise = lead[:, :K].to(x0T.device)
+        # the wrapper's check: bits or a key are no noise
+        noise = _check("noise", lead, lead.device, contiguous=False)[:, :K].to(x0T.device)
     else:
         noise = _noise(lead, D, K, pair_block, antithetic, op, mu_t, x0T.device)
     U_col = U2T.T[:, :, None]  # (N, D, 1)

@@ -698,3 +698,284 @@ class TestTerminalFinalCost:
             return float(self._fterm(s, ctrl.U[-1]))
 
         assert final_cost_of(ref) < final_cost_of(base)
+
+
+class TestSpecificDynamicsHook:
+    def test_specific_dynamics_applied_each_step(self):
+        """JAX's ``tests/test_extensions.py:98-119``: the sampler's per-step
+        ``specific_dynamics`` hook post-processes each rollout state, so
+        every stored state respects the hook's clamp."""
+
+        class ClampSampler(P.SpecificActionSampler):
+            num_trajectories = 1
+
+            def sample_trajectories(self, state, info):
+                return torch.zeros((1, 8, 2), dtype=DTYPE)
+
+            def specific_dynamics(self, next_state, state, action, t):
+                return torch.clamp(next_state, -1.5, 1.5)
+
+        ctrl = P.MPPI(linear_dynamics, quadratic_cost, 2, eye(), num_samples=64, horizon=8,
+                      lambda_=1.0, seed=SEED, specific_action_sampler=ClampSampler(),
+                      terminal_state_cost=lambda s, a: torch.zeros(s.shape[1], dtype=DTYPE),
+                      device="cpu")
+        ctrl.command(torch.tensor([0.0, 0.0], dtype=DTYPE))
+        assert float(torch.max(torch.abs(ctrl.states))) <= 1.5 + 1e-9
+
+
+class TestAntitheticSampling:
+    """``antithetic_sampling=True``: K/2 mirrored Gaussian draws
+    (``tests/test_extensions.py:161-206``)."""
+
+    def test_noise_pairs_mirror(self):
+        ctrl = P.MPPI(linear_dynamics, quadratic_cost, 2, eye(), num_samples=64, horizon=5,
+                      lambda_=1.0, seed=SEED, antithetic_sampling=True, device="cpu")
+        ctrl.command(torch.tensor([0.0, 0.0], dtype=DTYPE))
+        noise = ctrl.noise.numpy()  # (K, T, nu); unbounded, mu = 0: the raw draw
+        np.testing.assert_allclose(noise[:32], -noise[32:], atol=1e-12)
+
+    def test_mirrored_mean_is_mu(self):
+        mu = torch.tensor([0.3, -0.1], dtype=DTYPE)
+        ctrl = P.MPPI(linear_dynamics, quadratic_cost, 2, eye(), noise_mu=mu, num_samples=128,
+                      horizon=4, lambda_=1.0, seed=SEED, antithetic_sampling=True, device="cpu")
+        ctrl.command(torch.tensor([0.0, 0.0], dtype=DTYPE))
+        # the pairs cancel about mu: the sample mean over K is mu
+        mean = ctrl.noise.numpy().mean(axis=0)
+        np.testing.assert_allclose(mean, np.broadcast_to(mu.numpy(), mean.shape), atol=1e-12)
+
+    def test_reaches_goal_and_deterministic(self):
+        def run():
+            ctrl = P.MPPI(linear_dynamics, quadratic_cost, 2, eye(), num_samples=200,
+                          horizon=10, lambda_=1.0, seed=SEED, antithetic_sampling=True,
+                          device="cpu")
+            state = torch.tensor([-2.0, -2.0], dtype=DTYPE)
+            for _ in range(15):
+                state = linear_dynamics(state, ctrl.command(state))
+            return state.numpy()
+
+        s1, s2 = run(), run()
+        np.testing.assert_array_equal(s1, s2)
+        assert np.linalg.norm(s1 - GOAL.numpy()) < 1.0
+
+    def test_odd_k(self):
+        ctrl = P.MPPI(linear_dynamics, quadratic_cost, 2, eye(), num_samples=33, horizon=4,
+                      lambda_=1.0, seed=SEED, antithetic_sampling=True, device="cpu")
+        a = ctrl.command(torch.tensor([0.5, 0.5], dtype=DTYPE))
+        assert a.shape == (2,)
+        assert torch.isfinite(ctrl.cost_total).all()
+
+
+class TestScanUnroll:
+    def test_unroll_batched_and_variants(self):
+        """JAX's ``tests/test_extensions.py:758-775``: ``scan_unroll`` is a
+        scheduling knob, so KMPPI and MPPI_Batched give the same command bit
+        for bit at any factor (0 = the whole loop)."""
+        x = torch.tensor([0.5, -0.5], dtype=DTYPE)
+        a1 = P.KMPPI(linear_dynamics, quadratic_cost, 2, eye(), num_samples=32, horizon=8,
+                     seed=SEED, device="cpu").command(x)
+        a2 = P.KMPPI(linear_dynamics, quadratic_cost, 2, eye(), num_samples=32, horizon=8,
+                     seed=SEED, scan_unroll=0, device="cpu").command(x)
+        np.testing.assert_array_equal(a1.numpy(), a2.numpy())
+        xb = torch.stack([x, -x])
+        kw = dict(num_envs=2, num_samples=32, horizon=6, seed=SEED, device="cpu")
+        b1 = P.MPPI_Batched(linear_dynamics, quadratic_cost, 2, eye(), **kw).command(xb)
+        b2 = P.MPPI_Batched(linear_dynamics, quadratic_cost, 2, eye(), scan_unroll=0,
+                            **kw).command(xb)
+        np.testing.assert_array_equal(b1.numpy(), b2.numpy())
+
+
+class TestKMPPIHorizonGuard:
+    """``change_horizon`` below ``num_support_pts`` is clamped, so a horizon
+    sweep never ill-conditions the kernel's Gram solve
+    (``tests/test_extensions.py:778-810``)."""
+
+    def test_horizon_sweep_stays_finite(self):
+        ctrl = P.KMPPI(linear_dynamics, quadratic_cost, 2, eye(), num_samples=32, horizon=15,
+                       num_support_pts=5, seed=SEED, device="cpu")
+        s = torch.tensor([-1.0, 1.0], dtype=DTYPE)
+        for T in list(range(1, 51, 7)) + [1, 50, 3]:
+            ctrl.change_horizon(T)
+            assert ctrl.T >= ctrl.num_support_pts
+            assert torch.isfinite(ctrl._interp_full).all()
+            assert torch.isfinite(ctrl._interp_shift).all()
+            assert torch.isfinite(ctrl.command(s)).all()
+
+    def test_tiny_horizon_default_nsp(self):
+        ctrl = P.KMPPI(linear_dynamics, quadratic_cost, 2, eye(), num_samples=16, horizon=1,
+                       seed=SEED, device="cpu")
+        assert ctrl.num_support_pts == 1
+        assert torch.isfinite(ctrl.command(torch.zeros(2, dtype=DTYPE))).all()
+
+    def test_nsp_above_horizon_rejected(self):
+        with pytest.raises(ValueError):
+            P.KMPPI(linear_dynamics, quadratic_cost, 2, eye(), num_samples=16, horizon=4,
+                    num_support_pts=8, seed=SEED, device="cpu")
+
+
+def _white_params():
+    from pytorch_mppi_tpu_torch.config import MPPIParams
+
+    return MPPIParams(noise_mu=torch.zeros(2, dtype=DTYPE), noise_sigma=eye(),
+                      lambda_=torch.tensor(1.0, dtype=DTYPE),
+                      u_min=torch.full((2,), -math.inf, dtype=DTYPE),
+                      u_max=torch.full((2,), math.inf, dtype=DTYPE),
+                      u_init=torch.zeros(2, dtype=DTYPE))
+
+
+class TestTimeCorrelatedNoise:
+    """``noise_rho``: AR(1) correlation of the exploration noise along the
+    horizon, with N(mu, Sigma) marginals (``tests/test_extensions.py:813-885``).
+    The port's draws take a ``torch.Generator`` where JAX's take a key."""
+
+    def test_marginals_and_lag1_correlation(self):
+        rho = 0.8
+        n = PS.sample_noise_flat(torch.Generator().manual_seed(0), 4096, 20, _white_params(), DTYPE,
+                                 noise_rho=rho).numpy().reshape(4096, 20, 2)
+        # unit marginal variance at every step
+        assert abs(n.std(axis=0) - 1.0).max() < 0.08
+        x, y = n[:, :-1, :], n[:, 1:, :]
+        corr = (x * y).mean() / (x.std() * y.std())
+        assert abs(corr - rho) < 0.05
+
+    def test_rho_zero_is_white_and_bitwise_default(self):
+        a = PS.sample_noise_flat(torch.Generator().manual_seed(1), 64, 8, _white_params(), DTYPE)
+        b = PS.sample_noise_flat(torch.Generator().manual_seed(1), 64, 8, _white_params(), DTYPE,
+                                 noise_rho=0.0)
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+    def test_smoother_candidate_trajectories(self):
+        """The correlation smooths the candidates along the horizon
+        (E|n_t - n_{t-1}| scales with sqrt(2(1 - rho))), and the loop still
+        reaches the goal."""
+
+        def run(rho):
+            ctrl = P.MPPI(linear_dynamics, quadratic_cost, 2, eye(), num_samples=256,
+                          horizon=10, lambda_=1.0, seed=SEED, noise_rho=rho, device="cpu")
+            s = torch.tensor([-3.0, -2.0], dtype=DTYPE)
+            ctrl.command(s)
+            rough = float(torch.abs(torch.diff(ctrl.noise, dim=1)).mean())
+            for _ in range(14):
+                s = linear_dynamics(s, ctrl.command(s))
+            return rough, float(torch.linalg.norm(s - GOAL))
+
+        rough_w, _ = run(0.0)
+        rough_c, d_c = run(0.7)
+        assert d_c < 2.5
+        assert rough_c < 0.7 * rough_w
+
+    def test_invalid_rho_rejected(self):
+        with pytest.raises(ValueError):
+            P.MPPI(linear_dynamics, quadratic_cost, 2, eye(), num_samples=16, horizon=4, seed=0,
+                   noise_rho=1.0, device="cpu")
+
+
+class TestValidationGuards:
+    """Loud errors instead of silent wrong results
+    (``tests/test_extensions.py:888-1016``; its ``num_iterations`` and
+    ``run_mppi_jit`` checks stand in ``test_torch_iterations.py`` and
+    ``test_torch_runner.py``)."""
+
+    def test_batched_noise_rho_validated(self):
+        with pytest.raises(ValueError):
+            P.MPPI_Batched(linear_dynamics, quadratic_cost, 2, eye(), num_envs=2,
+                           num_samples=16, horizon=4, seed=0, noise_rho=1.5, device="cpu")
+
+    def test_batched_terminal_cost(self):
+        """MPPI_Batched takes a terminal cost, with the single-plant solve's
+        lazy rollout storage."""
+
+        def terminal(states, actions):
+            # (N, K, T, nx) -> (N, K): the last state weighed heavily
+            return 10.0 * ((GOAL - states[..., -1, :]) ** 2).sum(-1)
+
+        x0 = torch.tensor([[-3.0, -2.0], [3.0, 2.0]], dtype=DTYPE)
+        kw = dict(num_envs=2, horizon=8, seed=SEED, device="cpu")
+        plain = P.MPPI_Batched(linear_dynamics, quadratic_cost, 2, eye(), num_samples=64, **kw)
+        plain.command(x0)
+        assert plain.states is None  # lazy storage
+        term = P.MPPI_Batched(linear_dynamics, quadratic_cost, 2, eye(), num_samples=64,
+                              terminal_state_cost=terminal, **kw)
+        a = term.command(x0)
+        assert a.shape == (2, 2)
+        assert term.states.shape == (2, 64, 8, 2)
+        assert not np.allclose(a.numpy(), plain.command(x0).numpy())  # the cost matters
+        s = x0
+        ctrl = P.MPPI_Batched(linear_dynamics, quadratic_cost, 2, eye(), num_samples=128,
+                              terminal_state_cost=terminal, **kw)
+        for _ in range(15):
+            s = linear_dynamics(s, ctrl.command(s))
+        assert (torch.linalg.norm(GOAL - s, dim=-1).numpy() < 1.5).all()
+
+    def test_batched_terminal_cost_sees_scaled_actions(self):
+        """The batched terminal cost gets the ``u_scale``-scaled actions, as
+        the single-plant solve stores them."""
+
+        def identity_dyn(state, action):
+            return state
+
+        def zero_cost(state, action):
+            return torch.zeros(state.shape[:-1], dtype=DTYPE)
+
+        def action_energy(states, actions):
+            return (actions ** 2).sum(dim=(-1, -2))
+
+        def build(u_scale):
+            return P.MPPI_Batched(identity_dyn, zero_cost, 2, eye(), num_envs=2, num_samples=16,
+                                  horizon=4, seed=7, u_scale=u_scale,
+                                  terminal_state_cost=action_energy, device="cpu")
+
+        c1, c2 = build(1.0), build(2.0)
+        # a zero nominal makes the action cost zero: cost_total is the energy
+        c1.U = torch.zeros_like(c1.U)
+        c2.U = torch.zeros_like(c2.U)
+        x0 = torch.zeros((2, 2), dtype=DTYPE)
+        c1.command(x0, shift_nominal_trajectory=False)
+        c2.command(x0, shift_nominal_trajectory=False)
+        np.testing.assert_allclose(c2.cost_total.numpy(), 4.0 * c1.cost_total.numpy(),
+                                   rtol=1e-6)
+
+    def test_batched_num_iterations(self):
+        """MPPI_Batched takes ``num_iterations``: bit for bit the default at
+        1, a different command at 3, and 0 refused."""
+
+        def build(**kw):
+            return P.MPPI_Batched(linear_dynamics, quadratic_cost, 2, eye(), num_envs=3,
+                                  num_samples=32, horizon=6, seed=SEED, device="cpu", **kw)
+
+        x0 = torch.tensor([[-3.0, -2.0], [1.0, 1.0], [0.0, 0.0]], dtype=DTYPE)
+        a_default = build().command(x0)
+        a_one = build(num_iterations=1).command(x0)
+        np.testing.assert_array_equal(a_default.numpy(), a_one.numpy())
+        a_three = build(num_iterations=3).command(x0)
+        assert a_three.shape == (3, 2) and torch.isfinite(a_three).all()
+        assert not np.allclose(a_three.numpy(), a_one.numpy())
+        with pytest.raises(ValueError):
+            build(num_iterations=0)
+
+
+class TestReviewGates:
+    def test_batched_rejects_out_of_range_risk_alpha(self):
+        """JAX's ``tests/test_extensions.py:1544-1552``: ``make_batched_step``
+        checks the range of ``risk_alpha`` as the other factories do."""
+        config = MPPIConfig(nx=2, nu=2, K=8, T=5, dtype=DTYPE, risk_alpha=-0.5)
+        with pytest.raises(ValueError, match=r"risk_alpha must be in \[0, 1\]"):
+            PS.make_batched_step(config, 2, linear_dynamics, quadratic_cost)
+
+
+class TestEliteTerminalComposition:
+    def test_elites_with_terminal_final(self):
+        """JAX's ``tests/test_extensions.py:1556-1573``: the elites are the
+        lowest total costs, the final-state terminal cost included, and the
+        rollout storage stays lazy."""
+        ctrl = P.MPPI(linear_dynamics, quadratic_cost, 2, eye(0.5), num_samples=32, horizon=6,
+                      seed=4, num_elites=3,
+                      terminal_final_cost=lambda s, a: 5.0 * (s ** 2).sum(-1),
+                      u_min=-torch.ones(2, dtype=DTYPE), u_max=torch.ones(2, dtype=DTYPE),
+                      device="cpu")
+        x = torch.tensor([-2.0, 1.0], dtype=DTYPE)
+        for _ in range(3):
+            x = linear_dynamics(x, ctrl.command(x))
+        assert ctrl.states is None
+        idx = np.argsort(ctrl.cost_total.numpy())[:3]
+        np.testing.assert_array_equal(_trajectory_rowset(ctrl.perturbed_action[idx]),
+                                      _trajectory_rowset(ctrl._state.elites))

@@ -417,6 +417,62 @@ def case_kernels(mesh, Wt):
     return out
 
 
+def _learned_model(kind):
+    """The learned residual MLP on weights made from a seed with numpy, as
+    ``ResidualMLP`` (one thread a sample) or, forced, ``ResidualMLPBlock``
+    (a block's threads compute each layer)."""
+    from pytorch_mppi_tpu_torch.ops.kernel_models import residual_mlp_model
+    from pytorch_mppi_tpu_torch.utils.convert import mlp_params_from_numpy
+
+    rs = np.random.RandomState(12)
+    sizes = (NX + NU, 16, 16, NX)
+    w = [((rs.randn(a, b) / np.sqrt(a)).astype(np.float32), (rs.randn(b) * 0.1).astype(np.float32))
+         for a, b in zip(sizes[:-1], sizes[1:])]
+    return residual_mlp_model(mlp_params_from_numpy(w), NX, NU, cost="quadratic", goal=GOAL_NP,
+                              block=kind == "block")
+
+
+def case_learned(mesh):
+    """Queue 1 item 12b's learned models on a mesh: the batched MLP and the
+    block model in the K-sharded fused solve and the env-sharded batched
+    solve, beside the unsharded ones on the same bits."""
+    from torch.distributed import get_world_size
+
+    from pytorch_mppi_tpu_torch.config import MPPIConfig
+    from pytorch_mppi_tpu_torch.ops import fused_solve as FS
+    from pytorch_mppi_tpu_torch.ops import solve as PS
+    from pytorch_mppi_tpu_torch.parallel import all_gather_cat
+
+    n = get_world_size()
+    k_mesh, d_mesh, x = mesh((n,), ("k",)), mesh((n,), ("data",)), kernel_inputs()
+    kgroup, dgroup = PS.Split(k_mesh, "k", KS).group, PS.Split(d_mesh, "data", NB).group
+    cfg = MPPIConfig(nx=NX, nu=NU, K=KS, T=T, diag_sigma=True)
+    cfg_b = MPPIConfig(nx=NX, nu=NU, K=KB, T=T, diag_sigma=True)
+    x0T = torch.from_numpy(x["x0"])[:, None].expand(NX, KS)
+    out = {}
+    for kind in ("mlp", "block"):
+        model = _learned_model(kind)
+        sh = PS.make_sharded_transposed_solve(cfg, model, k_mesh, "k")
+        un = FS.make_transposed_fused_solve(cfg, model)
+        r_sh = sh(torch.from_numpy(x["bits"]), x0T, *_t(*_mppi_args(x)))
+        r_un = un(torch.from_numpy(x["bits"]), x0T, *_t(*_mppi_args(x)))
+        out.update({f"{kind}_d": _np(r_sh[0]), f"{kind}_m": _np(r_sh[1]),
+                    f"{kind}_s": _np(r_sh[2]), f"{kind}_c": _np(all_gather_cat(r_sh[3], 0, kgroup)),
+                    f"{kind}_d1": _np(r_un[0]), f"{kind}_m1": _np(r_un[1]),
+                    f"{kind}_s1": _np(r_un[2]), f"{kind}_c1": _np(r_un[3]),
+                    f"{kind}_id": np.array(un.model.model_id)})
+        shb = PS.make_sharded_batched_solve(cfg_b, NB, model, d_mesh, "data")
+        unb = FS.make_transposed_batched_solve(cfg_b, NB, model)
+        args = _t(*_batched_args(x))
+        d_s, ms_s, c_s = shb(torch.from_numpy(x["bits_b"]), *args)
+        d_1, ms_1, c_1 = unb(torch.from_numpy(x["bits_b"]), *args)
+        out.update({f"{kind}_bd": _np(all_gather_cat(d_s, 1, dgroup)),
+                    f"{kind}_bms": _np(all_gather_cat(ms_s, 1, dgroup)),
+                    f"{kind}_bc": _np(all_gather_cat(c_s, 0, dgroup)),
+                    f"{kind}_bd1": _np(d_1), f"{kind}_bms1": _np(ms_1), f"{kind}_bc1": _np(c_1)})
+    return out
+
+
 def case_fused_controllers(mesh):
     """MPPI, SMPPI and KMPPI on the fused route (the kernels' plain
     versions on the CPU) with a "k" mesh of 8 ranks, beside the unsharded
@@ -504,7 +560,7 @@ CASES = {
     8: (case_k_match, case_k_closed_loop, case_env_match, case_2d, case_progress,
         case_mesh_shapes, case_kernels, case_fused_controllers),
     4: (case_mesh_shapes, case_antithetic, case_terminal, case_uneven, case_kernels),
-    2: (case_routes, case_stochastic, case_kernels),
+    2: (case_routes, case_stochastic, case_kernels, case_learned),
 }
 
 
@@ -884,6 +940,26 @@ def test_sharded_batched_solve_matches_unsharded(worlds, jax_kernels):
                                    d_j / ms_j[1][None], **CPU_UPDATE_TOL)
     for k in ("op_c", "op_d", "op_ms"):
         np.testing.assert_array_equal(r[k], r[k + "1"])
+
+
+@pytest.mark.parametrize("kind", ["mlp", "block"])
+def test_learned_models_sharded_match_unsharded(worlds, kind):
+    """The learned residual MLP (``ResidualMLP``, and ``ResidualMLPBlock``
+    forced) reaches the sharded factories as any named model: K over 2
+    ranks merges to the unsharded fused solve, and the plants over 2 ranks
+    give the unsharded batched solve, at the linear cases' tolerances."""
+    from pytorch_mppi_tpu_torch.ops import kernel_models as KM
+
+    r = worlds.case(2, "case_learned")
+    assert int(r[f"{kind}_id"]) == (KM.RESIDUAL_MLP_BLOCK if kind == "block" else KM.RESIDUAL_MLP)
+    np.testing.assert_allclose(r[f"{kind}_m"], r[f"{kind}_m1"], rtol=1e-7)
+    np.testing.assert_allclose(r[f"{kind}_s"], r[f"{kind}_s1"], rtol=1e-5)
+    np.testing.assert_allclose(r[f"{kind}_c"], r[f"{kind}_c1"], rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(r[f"{kind}_d"] / r[f"{kind}_s"], r[f"{kind}_d1"] / r[f"{kind}_s1"],
+                               rtol=1e-4, atol=1e-7)
+    np.testing.assert_allclose(r[f"{kind}_bc"], r[f"{kind}_bc1"], rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(r[f"{kind}_bd"] / r[f"{kind}_bms"][1][None],
+                               r[f"{kind}_bd1"] / r[f"{kind}_bms1"][1][None], rtol=1e-4, atol=1e-6)
 
 
 @pytest.mark.parametrize("variant", ["mppi", "smppi", "kmppi"])

@@ -549,3 +549,203 @@ def test_toy2d_drawing_matches_jax(tmp_path):
     assert os.path.getsize(path) > 0
     plt.close(fig)
     plt.close(jfig)
+
+
+# -- JAX's TestPallasPath and TestFusedSolveKernel (tests/test_utils.py:286-566)
+
+F32 = torch.float32
+B32, GOAL32 = B.to(F32), GOAL.to(F32)
+
+
+def dyn32(state, action):
+    return state + action @ B32.T
+
+
+def cost32(state, action):
+    return ((GOAL32 - state) ** 2).sum(dim=-1)
+
+
+def _same_bits(monkeypatch, R, K, seed=0):
+    """One (R, K) draw of int32 bits for both routes: the kernel's plain
+    version takes the bits in place of its Philox key (``key_to_seed``),
+    and the plain path draws their normals (``standard_normal``) in the
+    (K, R) layout of ``sample_noise_flat``."""
+    from pytorch_mppi_tpu_torch.ops import fused_solve as FS
+    from pytorch_mppi_tpu_torch.ops import solve as PS
+
+    rs = np.random.RandomState(seed)
+    bits = torch.from_numpy(rs.randint(-2**31, 2**31 - 1, size=(R, K), dtype=np.int64)
+                            .astype(np.int32))
+    z = FS.bits_to_normal(bits).T.contiguous()
+    monkeypatch.setattr(FS, "key_to_seed", lambda s: bits)
+    monkeypatch.setattr(PS, "standard_normal",
+                        lambda gen, shape, dtype, device: z.to(dtype).reshape(shape))
+
+
+class TestPallasPath:
+    """``use_pallas`` on the CPU.  JAX's kernels need the TPU's generator, so
+    there ``use_pallas=True`` falls back to the XLA path bit for bit.  The
+    port's ``use_pallas=True`` on a CPU tensor runs the kernel's plain
+    version, which draws in bits mode, not a fallback: these translations
+    pin that route and hold it to the plain path on the same bits, at the
+    command tolerance of ``tests/test_pallas_transposed.py:102-107`` (rtol
+    2e-4 / atol 2e-6; the costs rtol 2e-5 / atol 1e-5).  Where JAX falls
+    back because the configuration is ineligible (float64, a terminal state
+    cost, ``dynamics_params``), the port does too, with a warning."""
+
+    def test_pallas_true_falls_back_on_cpu(self, monkeypatch):
+        kw = dict(num_samples=64, horizon=6, lambda_=1.0, seed=3, device="cpu")
+        c_ref = P.MPPI(dyn32, cost32, 2, torch.eye(2), **kw)
+        c_pal = P.MPPI(dyn32, cost32, 2, torch.eye(2), use_pallas=True, **kw)
+        assert c_pal._fns.fused and not c_ref._fns.fused
+        _same_bits(monkeypatch, 6 * 2, 64)
+        state = torch.tensor([-3.0, -2.0])
+        a_ref, a_pal = c_ref.command(state), c_pal.command(state)
+        np.testing.assert_allclose(c_pal.cost_total.numpy(), c_ref.cost_total.numpy(),
+                                   rtol=2e-5, atol=1e-5)
+        np.testing.assert_allclose(a_pal.numpy(), a_ref.numpy(), rtol=2e-4, atol=2e-6)
+        np.testing.assert_allclose(c_pal.U.numpy(), c_ref.U.numpy(), rtol=2e-4, atol=2e-6)
+
+    def test_pallas_falls_back_when_ineligible(self, caplog):
+        """float64 and a terminal state cost take the plain path (the
+        storage is there), with the warning."""
+        term = lambda states, actions: ((GOAL - states[..., -1, :]) ** 2).sum(-1)  # noqa: E731
+        with caplog.at_level("WARNING", logger="pytorch_mppi_tpu_torch"):
+            ctrl = _ctrl(use_pallas=True, terminal_state_cost=term)
+        assert not ctrl._fns.fused
+        assert "terminal_state_cost" in caplog.text
+        a = ctrl.command(torch.tensor([0.0, 0.0], dtype=F64))
+        assert a.shape == (2,)
+        assert ctrl.states is not None
+
+    @pytest.mark.parametrize("dtype", ["float64", "float32"])
+    def test_variant_pallas_falls_back_on_cpu(self, monkeypatch, caplog, dtype):
+        """SMPPI and KMPPI with ``use_pallas=True``.  In float64, JAX's
+        dtype, the port takes the plain path too (with the warning) and the
+        commands are equal bit for bit; in float32 the port runs the
+        kernel's plain version, held to the plain path on the same bits."""
+        dt = getattr(torch, dtype)
+        d, c = (dyn, cost) if dt == F64 else (dyn32, cost32)
+        state = torch.tensor([-1.0, 1.0], dtype=dt)
+        for cls, kw in ((P.SMPPI, dict(w_action_seq_cost=2.0, delta_t=0.5)),
+                        (P.KMPPI, dict(num_support_pts=4))):
+            base = dict(num_samples=64, horizon=8, lambda_=1.0, seed=SEED, device="cpu", **kw)
+            c_ref = cls(d, c, 2, torch.eye(2, dtype=dt), **base)
+            caplog.clear()
+            with caplog.at_level("WARNING", logger="pytorch_mppi_tpu_torch"):
+                c_pal = cls(d, c, 2, torch.eye(2, dtype=dt), use_pallas=True, **base)
+            if dt == F64:
+                assert not c_pal._fns.fused and "non-float32" in caplog.text
+                np.testing.assert_array_equal(c_ref.command(state).numpy(),
+                                              c_pal.command(state).numpy())
+                continue
+            assert c_pal._fns.fused
+            R = (4 if cls is P.KMPPI else 8) * 2
+            with monkeypatch.context() as m:
+                _same_bits(m, R, 64)
+                a_ref, a_pal = c_ref.command(state), c_pal.command(state)
+            np.testing.assert_allclose(c_pal.cost_total.numpy(), c_ref.cost_total.numpy(),
+                                       rtol=2e-5, atol=1e-5)
+            np.testing.assert_allclose(a_pal.numpy(), a_ref.numpy(), rtol=2e-4, atol=2e-6)
+
+
+class TestFusedSolveKernel:
+    """The parts of JAX's class that the round-1 solve's parity tests
+    (``test_torch_rowmajor_solve.py``) do not hold: the samplers' layouts,
+    the diagonal fast path, the bits-to-normal map, the key, and the
+    routing of ``dynamics_params``."""
+
+    @staticmethod
+    def _params(sigma, dt=F32):
+        return MPPIParams(noise_mu=torch.tensor([0.1, -0.2], dtype=dt),
+                          noise_sigma=torch.as_tensor(sigma, dtype=dt),
+                          lambda_=torch.tensor(1.0, dtype=dt),
+                          u_min=torch.full((2,), -torch.inf, dtype=dt),
+                          u_max=torch.full((2,), torch.inf, dtype=dt),
+                          u_init=torch.zeros(2, dtype=dt))
+
+    def test_sample_noise_flat_matches_3d(self):
+        """The flat sampler draws the 3-D one's normals (same generator,
+        row-major order): equal for a diagonal sigma, within one rounding
+        of the product for a full one."""
+        from pytorch_mppi_tpu_torch.ops import solve as PS
+
+        def draw(sigma):
+            p = self._params(sigma)
+            n3 = PS.sample_noise(torch.Generator().manual_seed(5), (64, 7), p, F32)
+            n2 = PS.sample_noise_flat(torch.Generator().manual_seed(5), 64, 7, p, F32)
+            return n3.reshape(64, 14).numpy(), n2.numpy()
+
+        n3, n2 = draw(torch.eye(2) * 0.5)
+        np.testing.assert_array_equal(n3, n2)
+        n3, n2 = draw([[1.0, 0.3], [0.3, 0.5]])
+        np.testing.assert_allclose(n3, n2, rtol=1e-6, atol=1e-6)
+
+    def test_diag_fast_path_bitwise_on_cpu(self):
+        """The diagonal fast path (an elementwise scale) draws the same
+        noise as the matrix path, bit for bit."""
+        from pytorch_mppi_tpu_torch.ops import solve as PS
+
+        p = self._params(torch.diag(torch.tensor([0.5, 2.0])))
+        z_diag = PS.sample_noise_flat(torch.Generator().manual_seed(7), 64, 5, p, F32,
+                                      diag_sigma=True)
+        z_mat = PS.sample_noise_flat(torch.Generator().manual_seed(7), 64, 5, p, F32,
+                                     diag_sigma=False)
+        np.testing.assert_array_equal(z_diag.numpy(), z_mat.numpy())
+
+    def test_diag_detection_respecializes(self):
+        """A full sigma set on a diagonal-built controller rebuilds the
+        solve; a diagonal one set back takes the cached solve again."""
+        ctrl = _ctrl()
+        assert ctrl.config.diag_sigma
+        fns_diag = ctrl._fns
+        ctrl.noise_sigma = torch.tensor([[1.0, 0.3], [0.3, 0.5]], dtype=F64)
+        assert not ctrl.config.diag_sigma
+        assert ctrl._fns is not fns_diag
+        assert torch.isfinite(ctrl.command(torch.zeros(2, dtype=F64))).all()
+        ctrl.noise_sigma = torch.eye(2, dtype=F64)
+        assert ctrl.config.diag_sigma
+        assert ctrl._fns is fns_diag  # the cache
+
+    def test_bits_to_normal_is_standard_normal(self):
+        """JAX's moments on the port's map, fed JAX's bits of key 3 (the
+        map is held to JAX's value for value by
+        ``test_torch_fused_solve.py::test_bits_to_normal_matches_jax``)."""
+        from pytorch_mppi_tpu_torch.ops import fused_solve as FS
+
+        bits = np.asarray(jax.random.bits(jax.random.PRNGKey(3), (4096, 64), jnp.uint32))
+        z = FS.bits_to_normal(torch.from_numpy(bits.astype(np.int32))).numpy()
+        assert np.isfinite(z).all()
+        assert abs(z.mean()) < 0.01
+        assert abs(z.std() - 1.0) < 0.01
+        # a 23-bit uniform through erfinv reaches well into the tails
+        assert 4.0 < abs(z).max() < 7.0
+
+    def test_pallas_ineligible_with_dynamics_params(self, caplog):
+        """``use_pallas`` with ``dynamics_params`` takes the plain path with
+        the warning, as JAX's does, and solves."""
+        from pytorch_mppi_tpu_torch.models import make_residual_dynamics, mlp_init
+
+        d = make_residual_dynamics(2, 1, u_clip=(-2, 2))
+        p = mlp_init([3, 16, 16, 2], torch.Generator().manual_seed(0), F32, device="cpu")
+        with caplog.at_level("WARNING", logger="pytorch_mppi_tpu_torch"):
+            ctrl = P.MPPI(d, lambda s, u: (s ** 2).sum(-1), 2, torch.eye(1) * 5.0,
+                          num_samples=128, horizon=5, dynamics_params=p, use_pallas=True,
+                          seed=0, device="cpu")
+        assert not ctrl._fns.fused and "parameterized dynamics" in caplog.text
+        a = ctrl.command(torch.zeros(2))
+        assert a.shape == (1,)
+        assert torch.isfinite(ctrl.cost_total).all()
+
+    def test_key_to_seed(self):
+        """The kernel's Philox key from an iteration's 64-bit seed: two
+        32-bit words, distinct for distinct seeds (the port's seeds are ints,
+        so JAX's typed and ``rbg`` keys have no counterpart)."""
+        from pytorch_mppi_tpu_torch.ops import fused_solve as FS
+        from pytorch_mppi_tpu_torch.ops import solve as PS
+
+        for s in (3, 2**40 + 3, PS.iteration_seed(3, 0)):
+            words = FS.key_to_seed(s)
+            assert len(words) == 2 and all(0 <= w < 2**32 for w in words)
+            assert (words[1] << 32) | words[0] == s
+        assert FS.key_to_seed(PS.iteration_seed(1, 0)) != FS.key_to_seed(PS.iteration_seed(2, 0))
