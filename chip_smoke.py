@@ -184,8 +184,9 @@ the package is not beside it.  Phases, each fatal when it fails:
    (``erfinv``, ``nextafter``, the shifts, ``cummax``, ``cummin``,
    ``logcumsumexp``, interior padding); the named ``linear_quadratic`` at
    nx = 64 (the trace of its callables); the flagship's named model beside
-   a traced terminal cost with dense layers; and the quadrotor's
-   ``ResidualMLPBlock`` in the round-1 solve; each against its plain
+   a traced terminal cost with dense layers; the quadrotor's
+   ``ResidualMLPBlock`` in the round-1 solve; and the named toy2d at nx =
+   64; each against its plain
    version and a float64 rollout, timed beside its bound with its
    registers and spills, then 10 swarm commands of ``MPPI(...,
    use_pallas=True)`` with exactly 10 ``generated_mppi_block`` launches
@@ -274,10 +275,22 @@ the package is not beside it.  Phases, each fatal when it fails:
    ``elite_reuse`` and ``deploy_serving`` at their JAX tests' sizes and
    ``gradient_refinement`` at one seed of its test's two, with those tests'
    checks; ``smooth_mppi``'s three rows finite after 20 steps;
+13. JAX's real-chip lane (``tpu_lane``, ``tpu_tests/``): one case of
+   ``TPU_LANE_CASES`` for each of its tests that no earlier phase holds
+   (71 of 74; ``docs/PORT_TESTS.md`` maps them all), with JAX's fixture,
+   seed, route and check: the behavioural contracts at K = 128, T = 8 on
+   the plain route (``change_horizon``, stochastic rollouts, ``run_mppi_jit``
+   as a CUDA graph, ...), the variants, the card against the CPU on one
+   draw, a controller placed on the CPU that never touches the card,
+   elites, the kernels at JAX's shapes against the plain path's
+   arithmetic, the 1-rank NCCL world's meshes, the card's Philox, bfloat16,
+   the quality floors at K = 500, T = 15, a deploy round trip and adaptive
+   covariance; each case's launches counted (none on the plain route), one
+   line a case;
 7. the ``kernels`` line (eight kernels, the residual MLP's ten
    instantiations with each build part's ``nvcc`` seconds and the traced
    network's times beside them, the block models' seven rows, the world
-   model's six, phase 4g's nine, the generated models' eight and phase
+   model's six, phase 4g's ten, the generated models' eight and phase
    12's generated batched pair), the
    card line, then the last line
    ``{"ok": true, "device": ...}``.
@@ -459,6 +472,9 @@ TD_DOG_NU, TD_BATCH_N, TD_COMMANDS, TD_SHORT = 38, 16, 20, 5
 # the program of the tracer's last primitives at STEP4_NX, STEP4_NU
 SWARM_AGENTS, SWARM_DT, SWARM_U, SWARM_COMMANDS = 16, 0.05, 2.0, 10
 SWARM_NX, SWARM_NU = 4 * SWARM_AGENTS, 2 * SWARM_AGENTS
+# ROADMAP Queue 2a's named toy2d beyond 32 states runs in phase 4g at nx =
+# SWARM_NX, nu = SWARM_NU (toy64_model); its program near MAX_OPS builds for
+# longer than this script's limit (pytorch_mppi_tpu_torch/tools/max_ops_alone.py)
 STEP4_NX, STEP4_NU = 8, 4
 # the deployment phase (8): commands each artifact replays in a fresh process
 # against the live controller, commands timed for the medians (after a
@@ -508,6 +524,57 @@ GEN_PEND_K, GEN_PEND_T, GEN_PEND_COMMANDS = 1000, 15, 150
 # (40 to 20)
 EX_STEPS = 30
 EX_TRAIN_STEPS, EX_REFINE_SEEDS, EX_SMOOTH_STEPS = 15, 1, 20
+# phase 13 (tpu_lane): JAX's real-chip lane, tpu_tests/, on the card, with
+# its fixtures: the plant B, GOAL and START of tpu_tests/test_tpu_behavior.py
+# (x' = x + u Bᵀ, cost |GOAL - x'|²), _ctrl's K = 128, T = 8, lambda 1 and
+# seed 42, test_tpu_quality.py's K = 500, T = 15 over 20 steps; one case for
+# each lane test that no earlier phase holds, named in docs/PORT_TESTS.md
+LANE_B, LANE_GOAL, LANE_START = ((1.0, 0.0), (0.0, -1.0)), (2.0, 2.0), (-3.0, -2.0)
+LANE_K, LANE_T, LANE_SEED = 128, 8, 42
+QUALITY_K, QUALITY_T, QUALITY_STEPS = 500, 15, 20
+TPU_LANE_CASES = (
+    # tpu_tests/test_tpu_behavior.py::TestCore
+    "action_shape_dtype", "cost_decreases_over_steps", "seeded_determinism_on_chip",
+    "bounds_enforced", "symmetric_bound_completion", "terminal_cost_and_lazy_storage",
+    "step_dependent_dynamics", "noise_abs_cost", "sample_null_action", "u_per_command",
+    "rollout_samples_var_cost", "get_rollouts", "change_horizon_both_ways",
+    "reset_resamples", "batch_state_input", "omega_sums_to_one", "scalar_sigma_1d_control",
+    "u_scale_unscaled_storage", "shift_semantics", "num_iterations_on_chip",
+    "run_mppi_jit_one_dispatch",
+    # ::TestVariantsOnChip
+    "smppi", "kmppi", "batched", "gradient_refinement_composes_with_fused_kernel",
+    # ::TestCrossBackend
+    "solve_matches_cpu_f32", "cpu_placed_controller_with_use_pallas",
+    "cpu_placed_batched_controller_stays_on_cpu", "weighting_matches_cpu",
+    # ::TestEliteReuseOnChip
+    "elites_close_loop_on_chip", "use_pallas_with_elites_falls_back_without_artifacts",
+    "use_pallas_with_elites_and_artifacts_stays_fused",
+    # tpu_tests/test_tpu_pallas.py::TestCompiledKernels and ::TestTerminalFinalOnChip
+    "pallas_rollout_matches_scan_compiled", "transposed_fused_closed_loop",
+    "fused_artifacts_surface", "fused_artifacts_smppi_kmppi", "transposed_smppi_closed_loop",
+    "transposed_kmppi_closed_loop", "transposed_batched_closed_loop",
+    "batched_noise_operand_compiled", "sharded_fused_solve_one_device_mesh",
+    "sharded_fused_null_and_artifacts_one_device_mesh",
+    "sharded_batched_fused_one_device_mesh", "population_evaluator_with_fused_controller",
+    "transposed_solve_compiled_pregen_bits", "transposed_solve_mlp_dynamics_compiled",
+    "fused_sampler_compiled", "fused_solve_compiled_pregen_bits",
+    "fused_solve_card_philox", "flash_weighting_matches_plain", "fused_rollout_compiled",
+    "terminal_final_compiled_pregen_bits_parity", "terminal_final_routing_and_closed_loop",
+    # tpu_tests/test_tpu_prng.py::TestRbg (the card's Philox) and ::TestBf16
+    "card_philox_controller_converges", "card_philox_deterministic_same_seed",
+    "card_philox_normal_moments", "bf16_sampling_finite", "bf16_controller_solve",
+    "antithetic_on_chip", "philox_matches_cpu", "diag_fast_path_matches_matmul_path",
+    # tpu_tests/test_tpu_quality.py::TestQualityFloors
+    "mppi_final_distance", "kmppi_final_distance", "more_samples_beat_fewer",
+    "works_for_short_and_long_horizons", "loop_bit_determinism",
+    "bounds_hold_over_full_loop", "antithetic_quality", "noise_rho_quality",
+    # tpu_tests/test_tpu_deploy.py
+    "artifact_roundtrip_matches_live", "adaptive_solve_compiles_and_improves_plan",
+)
+# the lane's mesh cases, run in a 1-rank world of this process
+LANE_MESH_CASES = ("sharded_fused_solve_one_device_mesh",
+                   "sharded_fused_null_and_artifacts_one_device_mesh",
+                   "sharded_batched_fused_one_device_mesh")
 SERVE_CHILD = r"""
 import json, statistics, sys
 import numpy as np
@@ -1022,21 +1089,28 @@ def breakdown(name, ctrl, step, x, n=BREAKDOWN_COMMANDS):
 
 
 class Captured(logging.Handler):
-    """The port's log records while it is attached (the routing warnings)."""
+    """The port's log records from ``level`` on while it is attached (the
+    routing warnings; with ``logging.INFO`` the routing's info too)."""
 
-    def __init__(self):
-        super().__init__(logging.WARNING)
+    def __init__(self, level=logging.WARNING):
+        super().__init__(level)
         self.messages = []
 
     def emit(self, record):
         self.messages.append(record.getMessage())
 
     def __enter__(self):
-        logging.getLogger("pytorch_mppi_tpu_torch").addHandler(self)
+        logger = logging.getLogger("pytorch_mppi_tpu_torch")
+        self.before = logger.level
+        if logger.getEffectiveLevel() > self.level:
+            logger.setLevel(self.level)
+        logger.addHandler(self)
         return self
 
     def __exit__(self, *exc):
-        logging.getLogger("pytorch_mppi_tpu_torch").removeHandler(self)
+        logger = logging.getLogger("pytorch_mppi_tpu_torch")
+        logger.removeHandler(self)
+        logger.setLevel(self.before)
 
 
 class EventGraph:
@@ -4222,6 +4296,30 @@ def dense_terminal(dev):
     return terminal
 
 
+def toy64_model(dev):
+    """Phase 4g's named toy2d beyond 32 states (``kernel_models.
+    toy2d_model``, the JAX package's ``models/toy2d.py`` task at nx =
+    SWARM_NX, nu = SWARM_NU): x' = x + u Bᵀ, cost |goal - x'|² + 0.1 |u|² +
+    2 exp(-(c - x')ᵀ Q_h (c - x')), with B seeded, the goal in [-1, 1],
+    the hill's centre at 0 and Q_h = 0.2 I."""
+    from pytorch_mppi_tpu_torch.ops.kernel_models import toy2d_model
+
+    g = torch.Generator().manual_seed(53)
+    B = (torch.randn(SWARM_NX, SWARM_NU, generator=g) * 0.2).to(dev)
+    goal = (torch.rand(SWARM_NX, generator=g) * 2 - 1).to(dev)
+    center, Qh = torch.zeros(SWARM_NX, device=dev), 0.2 * torch.eye(SWARM_NX, device=dev)
+
+    def dynamics(s, a):
+        return s + a @ B.T
+
+    def cost(s, a):
+        dc = center - s
+        return (((goal - s) ** 2).sum(-1) + 0.1 * (a ** 2).sum(-1)
+                + 2.0 * torch.exp(-(dc @ Qh * dc).sum(-1)))
+
+    return toy2d_model(dynamics, cost, B, goal, 0.1, Qh, center, 2.0)
+
+
 def wide_plan(dev):
     """Phase 4g's traced models and the libraries phase 2 builds for them
     (``start_builds``, behind the named library): the swarm's kernel A
@@ -4264,13 +4362,16 @@ def wide_plan(dev):
     models["dense terminal"] = (BL.kernel_device_model(flag, lq, terminal), terminal, lq)
     plan["dense terminal mppi"] = (BL.generated_kernel(models["dense terminal"][0], terminal),
                                    FS.MPPI)
+    models["toy64 named"] = toy64_model(dev)
+    models["toy64"] = BL.kernel_device_model(cfg, models["toy64 named"])
+    plan["toy64 mppi"] = (BL.generated_kernel(models["toy64"], None), FS.MPPI)
     return fns, models, plan
 
 
-def swarm_x0(gen, dev, n=None):
+def swarm_x0(gen, dev, n=None, agents=SWARM_AGENTS):
     """Swarm states: positions uniform in [-2, 2]², velocities N(0, 0.3²);
-    (SWARM_NX,), or (n, SWARM_NX)."""
-    shape = (n or 1, SWARM_AGENTS * 2)
+    (4 agents,), or (n, 4 agents)."""
+    shape = (n or 1, agents * 2)
     p = torch.rand(shape, generator=gen, device=dev) * 4 - 2
     v = torch.randn(shape, generator=gen, device=dev) * 0.3
     x = torch.cat([p, v], dim=-1)
@@ -4299,8 +4400,9 @@ def wide_programs(dev, gen, plan):
     pair at N = BATCH_SMALL_N, K = BATCH_SMALL_K; the step-4 program's
     kernel A; the named ``linear_quadratic`` at nx = SWARM_NX (the trace of
     its callables); the flagship's named model beside a traced terminal
-    cost with dense layers; and the round-1 solve (``ops/rowmajor.py``) of
-    the quadrotor's ``ResidualMLPBlock``: each against its plain version in
+    cost with dense layers; the round-1 solve (``ops/rowmajor.py``) of the
+    quadrotor's ``ResidualMLPBlock``; and the named toy2d at nx = SWARM_NX
+    (``toy64_model``): each against its plain version in
     bits mode, each cost's error against a float64 rollout within
     ``F64_FACTOR`` of the float32 plain version's (``f64_agree``), m, s and
     delta/s as ``agree``, the launch counted; each timed from a CUDA graph
@@ -4321,7 +4423,8 @@ def wide_programs(dev, gen, plan):
     phase_start = time.perf_counter()
     fns, models = plan["wide_fns"], plan["wide_models"]
     report = {"timed": {}, "err": {}, "launches": {}, "build_s": {}, "ptxas_of": {}}
-    labels = [k for k in plan["builds"] if k.split()[0] in ("swarm", "step4", "lq64", "dense")]
+    labels = [k for k in plan["builds"]
+              if k.split()[0] in ("swarm", "step4", "lq64", "dense", "toy64")]
 
     def reset_launches():
         for name in FS.launches:
@@ -4361,48 +4464,8 @@ def wide_programs(dev, gen, plan):
     print(f"# phase 4g libraries, nvcc seconds: {report['build_s']} | registers and spill "
           f"stores (the largest of each library's kernels): {report['ptxas_of']}")
 
-    def kernel_a(key, variant, model, nx, nu, terminal=None, terminal_fn=None, x0=None,
-                 expect=None):
-        """Kernel A's ``variant`` with ``model`` against its plain version
-        in bits mode, then timed in seed mode."""
-        cfg = MPPIConfig(nx=nx, nu=nu, K=K, T=T, diag_sigma=True, smppi=variant == "smppi",
-                         num_support_pts=NSP if variant == "kmppi" else 0)
-        make = {"mppi": FS.make_transposed_fused_solve, "smppi": FS.make_transposed_smppi_solve,
-                "kmppi": FS.make_transposed_kmppi_solve}[variant]
-        solve = make(cfg, model, emit_perturbed=True, terminal_final=terminal_fn)
-        x0T = x0[:, None].expand(nx, K)
-        ops = wide_operands(dev, gen, variant, nx, nu, x0T)
-        lead, out = bits(solve.spec.R, solve.bits_cols), []
-        reset_launches()
-        dk, mk, sk, ck, _ = solve(lead, *ops)
-        torch.cuda.synchronize()
-        n_k = launched()
-        plain_ms = events_ms(lambda: out.append(solve.plain(lead, *ops)), 1, warmup=0)
-        dp, mp, sp, cp, pp = out.pop()
-        ok, e_k, e_p, lim, _ = f64_agree(solve.model, ck, cp, pp, x0T, T, nu, terminal=terminal)
-        ok2, c_err, u_err, w_tol = agree(ck, cp, dk / sk, dp / sp, 1.0, mk, mp, sk, sp,
-                                         rtol=0.0, atol=lim + e_p)
-        ok = ok and ok2 and n_k == expect
-        report["err"][key] = dict(kernel_f64=e_k, plain_f64=e_p, kernel_plain=c_err,
-                                  update=u_err)
-        report["launches"][key] = n_k
-        print(f"# wide [{key} bits] nx={nx} nu={nu} K={K} T={T} S={solve.tile_k} group "
-              f"{solve.act_rows} act_ld {solve.spec.act_ld} tiles {solve.tiles}: cost error "
-              f"against float64 kernel {e_k:.3e}, plain {e_p:.3e} (limit {lim:.3e}) | kernel "
-              f"against plain {c_err:.3e} | delta/s err {u_err:.3e} (tol {w_tol:.3e}) | "
-              f"launches {n_k}" + ("" if ok else "  <-- FAIL"))
-        check(ok, f"phase 4g's kernel A disagrees with its plain version: {key}")
-        k = seed()
-        dev_ms = graph_ms(lambda: solve(k, *ops), 20)
-        op = ops[3] if variant != "mppi" else ops[2]
-        work = fused_work(cfg, solve.model, k, x0T, op, variant=variant, terminal=terminal)
-        f32_ms, f32_by = bound(work)
-        macs = K * (T * _dense_macs(solve.model) + (_dense_macs(terminal) if terminal else 0))
-        bound_ms, bound_by = tc_bound(work, macs) if macs else (f32_ms, f32_by)
-        report["timed"][key] = (dev_ms, plain_ms, bound_ms, bound_by)
-        print(f"# kernel alone [{key}] K={K} T={T} seed: device {dev_ms:.6f} ms (a CUDA graph "
-              f"of 20 calls) | plain version {plain_ms:.5f} ms ({plain_ms / dev_ms:.1f}x) | "
-              f"bound {bound_ms:.6f} ms by {bound_by}: {dev_ms / bound_ms:.1f}x | {card_line()}")
+    def kernel_a(key, *args, **kw):
+        wide_kernel_a(dev, gen, report, key, *args, **kw)
         mark(key)
 
     print(f"# kernel vs plain [phase 4g]: each cost's error against a float64 rollout of the "
@@ -4421,6 +4484,12 @@ def wide_programs(dev, gen, plan):
     model_t, terminal, lq = models["dense terminal"]
     kernel_a("dense terminal mppi", "mppi", lq, NX, NU, terminal=terminal,
              terminal_fn=fns["dense terminal"], x0=torch.tensor([-3.0, -2.0], device=dev),
+             expect={"generated_mppi_block": 1})
+    # ROADMAP Queue 2a: the named toy2d beyond 32 states (its other case, the
+    # program near MAX_OPS, builds too long for this script:
+    # tools/max_ops_alone.py)
+    kernel_a("toy64 mppi", "mppi", models["toy64 named"], SWARM_NX, SWARM_NU,
+             x0=torch.rand(SWARM_NX, generator=gen, device=dev) * 2 - 1,
              expect={"generated_mppi_block": 1})
 
     # the swarm's batched pair: BATCH_SMALL_N swarms, each its own state
@@ -4597,7 +4666,61 @@ def wide_programs(dev, gen, plan):
     return report
 
 
-def wide_operands(dev, gen, variant, nx, nu, x0T):
+def wide_kernel_a(dev, gen, report, key, variant, model, nx, nu, terminal=None,
+                  terminal_fn=None, x0=None, expect=None, T=T):
+    """Phase 4g's kernel A case: ``variant`` with ``model`` at K samples and
+    T steps from ``x0`` against its plain version in bits mode (``f64_agree``
+    and ``agree``, the launches ``expect``), then timed in seed mode beside
+    its bound; the numbers go to ``report`` under ``key``."""
+    from pytorch_mppi_tpu_torch.config import MPPIConfig
+    from pytorch_mppi_tpu_torch.ops import fused_solve as FS
+
+    def bits(R, cols):
+        return torch.randint(-2**31, 2**31 - 1, (R, cols), dtype=torch.int32, generator=gen,
+                             device=dev)
+
+    cfg = MPPIConfig(nx=nx, nu=nu, K=K, T=T, diag_sigma=True, smppi=variant == "smppi",
+                     num_support_pts=NSP if variant == "kmppi" else 0)
+    make = {"mppi": FS.make_transposed_fused_solve, "smppi": FS.make_transposed_smppi_solve,
+            "kmppi": FS.make_transposed_kmppi_solve}[variant]
+    solve = make(cfg, model, emit_perturbed=True, terminal_final=terminal_fn)
+    x0T = x0[:, None].expand(nx, K)
+    ops = wide_operands(dev, gen, variant, nx, nu, x0T, T)
+    lead, out = bits(solve.spec.R, solve.bits_cols), []
+    for name in FS.launches:
+        FS.launches[name] = 0
+    dk, mk, sk, ck, _ = solve(lead, *ops)
+    torch.cuda.synchronize()
+    n_k = {k: v for k, v in FS.launches.items() if v}
+    plain_ms = events_ms(lambda: out.append(solve.plain(lead, *ops)), 1, warmup=0)
+    dp, mp, sp, cp, pp = out.pop()
+    ok, e_k, e_p, lim, _ = f64_agree(solve.model, ck, cp, pp, x0T, T, nu, terminal=terminal)
+    ok2, c_err, u_err, w_tol = agree(ck, cp, dk / sk, dp / sp, 1.0, mk, mp, sk, sp,
+                                     rtol=0.0, atol=lim + e_p)
+    ok = ok and ok2 and n_k == expect
+    report["err"][key] = dict(kernel_f64=e_k, plain_f64=e_p, kernel_plain=c_err,
+                              update=u_err)
+    report["launches"][key] = n_k
+    print(f"# wide [{key} bits] nx={nx} nu={nu} K={K} T={T} S={solve.tile_k} group "
+          f"{solve.act_rows} act_ld {solve.spec.act_ld} tiles {solve.tiles}: cost error "
+          f"against float64 kernel {e_k:.3e}, plain {e_p:.3e} (limit {lim:.3e}) | kernel "
+          f"against plain {c_err:.3e} | delta/s err {u_err:.3e} (tol {w_tol:.3e}) | "
+          f"launches {n_k}" + ("" if ok else "  <-- FAIL"))
+    check(ok, f"phase 4g's kernel A disagrees with its plain version: {key}")
+    k = tuple(int(v) for v in torch.randint(0, 2**32, (2,), generator=gen, device=dev))
+    dev_ms = graph_ms(lambda: solve(k, *ops), 20)
+    op = ops[3] if variant != "mppi" else ops[2]
+    work = fused_work(cfg, solve.model, k, x0T, op, variant=variant, terminal=terminal)
+    f32_ms, f32_by = bound(work)
+    macs = K * (T * _dense_macs(solve.model) + (_dense_macs(terminal) if terminal else 0))
+    bound_ms, bound_by = tc_bound(work, macs) if macs else (f32_ms, f32_by)
+    report["timed"][key] = (dev_ms, plain_ms, bound_ms, bound_by)
+    print(f"# kernel alone [{key}] K={K} T={T} seed: device {dev_ms:.6f} ms (a CUDA graph "
+          f"of 20 calls) | plain version {plain_ms:.5f} ms ({plain_ms / dev_ms:.1f}x) | "
+          f"bound {bound_ms:.6f} ms by {bound_by}: {dev_ms / bound_ms:.1f}x | {card_line()}")
+
+
+def wide_operands(dev, gen, variant, nx, nu, x0T, T=T):
     """Kernel A's operands for ``variant`` at phase 4g's shapes (K, T):
     a nominal U of scale 0.3, sigma I, the drawn rows' and the actions'
     bounds ±SWARM_U, the action cost lambda U sigma^-2, lambda 1."""
@@ -4625,8 +4748,9 @@ def wide_operands(dev, gen, variant, nx, nu, x0T):
 def wide_program_rows(report):
     """Phase 7's rows for phase 4g: the swarm's five kernels, the step-4
     program's kernel A, the named ``linear_quadratic`` at nx = SWARM_NX, the
-    dense terminal cost beside the named flagship model and the quadrotor's
-    round-1 solve, each with its numbers."""
+    dense terminal cost beside the named flagship model, the quadrotor's
+    round-1 solve and the named toy2d at nx = SWARM_NX, each with its
+    numbers."""
     rows = []
     insts = {
         "swarm mppi": ("mppi_fused_partial<Generated, 32, ..., kMPPI>, Generated::kPerSample",
@@ -4648,12 +4772,15 @@ def wide_program_rows(report):
                                 "dense terminal mppi"),
         "quad rowmajor": ("mppi_fused_partial<ResidualMLPBlock, 32, ..., kMPPI>, rowmajor", 1695,
                           "rowmajor", None),
+        "toy64 mppi": ("mppi_fused_partial<Generated, 32, ..., kMPPI>, Generated::kBlock", 512,
+                       "generated_mppi_block", "toy64 mppi"),
     }
     what = {"swarm": f"the swarm, {SWARM_AGENTS} agents, nx={SWARM_NX} nu={SWARM_NU}",
             "step4": f"the step-4 primitives' program, nx={STEP4_NX} nu={STEP4_NU}",
             "lq64": f"named linear_quadratic traced, nx={SWARM_NX} nu={SWARM_NU}",
             "dense": "named linear_quadratic beside a traced terminal cost with dense layers",
-            "quad": f"round-1 solve, block residual MLP: the quadrotor {QUAD_SIZES}"}
+            "quad": f"round-1 solve, block residual MLP: the quadrotor {QUAD_SIZES}",
+            "toy64": f"named toy2d traced, nx={SWARM_NX} nu={SWARM_NU}"}
     for key, (inst, line, count, label) in insts.items():
         d_ms, p_ms, b_ms, b_by = report["timed"][key]
         launches = (report["loop"]["launches"].get(count, 0) if key == "swarm mppi"
@@ -4741,6 +4868,10 @@ def generated_builds(dev):
             # so its batched library is this one (the same header)
             "lq batched": (BL.generated_kernel(models["lq"], None), FS.BATCHED),
             "terminal mppi": (BL.generated_kernel(models["lq"], models["terminal"]), FS.MPPI)})
+    # phase 13's MLP dynamics (tpu_tests/test_tpu_pallas.py:448-479)
+    models["lane mlp"] = BL.kernel_model(MPPIConfig(nx=2, nu=2, K=256, T=5),
+                                         *lane_mlp_callables(dev))
+    plan["lane mlp mppi"] = (BL.generated_kernel(models["lane mlp"], None), FS.MPPI)
     # phase 4f's world models (the humanoid's and the dog's)
     td_fns, td_models, td_plan = tdmpc_plan(dev)
     plan.update(td_plan)
@@ -5382,6 +5513,1079 @@ def wide_kernel_rows(report, build_parts, gen_build_s):
             "build_s": gen_build_s.get(f"mbpo {key}"),
         })
     return rows
+
+
+def lane_mlp_callables(dev):
+    """Phase 13's MLP dynamics (``tpu_tests/test_tpu_pallas.py:448-479``),
+    untagged: s + tanh([s, a] W1 + b1) W2 with W1 (4, 32), b1 (32,) and W2
+    (32, 2) drawn as JAX's test draws them (numpy's RandomState(0)), and the
+    lane's cost |GOAL - x'|².  Phase 2 builds its kernel A library."""
+    import numpy as np
+
+    rs = np.random.RandomState(0)
+    W1, b1, W2 = (torch.tensor(w, dtype=torch.float32, device=dev)
+                  for w in (rs.randn(4, 32) * 0.3, rs.randn(32) * 0.1, rs.randn(32, 2) * 0.3))
+    goal = torch.tensor(LANE_GOAL, device=dev)
+
+    def dynamics(s, a):
+        return s + torch.tanh(torch.cat([s, a], -1) @ W1 + b1) @ W2
+
+    def cost(s, a):
+        return ((goal - s) ** 2).sum(-1)
+
+    return dynamics, cost
+
+
+def tpu_lane(dev, plan):
+    """Phase 13: JAX's real-chip lane (``tpu_tests/``) on the card, one case
+    of ``TPU_LANE_CASES`` for each lane test that no earlier phase holds,
+    each with JAX's fixture, seed, route and check (``docs/PORT_TESTS.md``
+    maps the 74 tests).  A case runs the default (plain) route unless JAX's
+    test asks for ``use_pallas``; then the named ``linear_quadratic`` of
+    the same plant takes the kernels, and the bridge's traced callables
+    where JAX's test traces them (the MLP dynamics and the terminal cost,
+    whose libraries phase 2 built).  Each case's launches are counted: a
+    plain case launches none, a kernel case exactly its route's.  Where the
+    card is held against the CPU, both take one draw (the plain path's
+    noise fed to both, or the kernels' Philox bits), since a card's
+    generator and the CPU's draw different numbers from one seed.  The mesh
+    cases run in a 1-rank world of this process (NCCL on the card).  No
+    library is built here.  Prints one line a case; returns the cases'
+    seconds and compared numbers."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from pytorch_mppi_tpu_torch import (
+        KMPPI,
+        MPPI,
+        SMPPI,
+        MPPI_Batched,
+        RBFKernel,
+        autotune,
+        linear_quadratic,
+        run_mppi_jit,
+    )
+    from pytorch_mppi_tpu_torch.config import BatchedState, MPPIConfig, MPPIParams
+    from pytorch_mppi_tpu_torch.ops import _build
+    from pytorch_mppi_tpu_torch.ops import fused_solve as FS
+    from pytorch_mppi_tpu_torch.ops import legacy as LG
+    from pytorch_mppi_tpu_torch.ops import rowmajor as RM
+    from pytorch_mppi_tpu_torch.ops import solve as PS
+    from pytorch_mppi_tpu_torch.parallel import initialize_multihost, make_mesh
+    from pytorch_mppi_tpu_torch.utils import deploy
+
+    phase_start = time.perf_counter()
+    f32, bf16, cpu = torch.float32, torch.bfloat16, torch.device("cpu")
+    out_dir = Path(__file__).resolve().parent / "build" / "lane"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    libraries = sorted(_build.BUILD_DIR.glob("*.so")) if _build.BUILD_DIR.is_dir() else []
+    B = torch.tensor(LANE_B, device=dev)
+    GOAL = torch.tensor(LANE_GOAL, device=dev)
+    START = torch.tensor(LANE_START, device=dev)
+    eye = torch.eye(2, device=dev)
+    ones2 = torch.ones(2, device=dev)
+
+    def plant(device):
+        """The lane's dyn and cost on ``device``."""
+        Bd, Gd = B.to(device), GOAL.to(device)
+        return (lambda s, a: s + a @ Bd.T), (lambda s, a: ((Gd - s) ** 2).sum(-1))
+
+    dyn, cost = plant(dev)
+    lq = linear_quadratic(B, GOAL)  # the same functions, tagged: the named kernel model
+    gen_dyn, gen_cost = plan["fns"]["lq"]  # the same functions, untagged (phase 11's trace)
+    gen_terminal = plan["fns"]["terminal"]  # JAX's _fterm: (3, 1) weights and 0.2 |u|²
+
+    def ctrl_(cls=MPPI, **kw):
+        """JAX's ``_ctrl``: the plain functions, or with ``use_pallas`` the
+        named model of the same plant."""
+        base = dict(num_samples=LANE_K, horizon=LANE_T, lambda_=1.0, seed=LANE_SEED, device=dev)
+        base.update(kw)
+        fns = (lq.dynamics, lq.running_cost) if base.get("use_pallas") else (dyn, cost)
+        return cls(*fns, 2, torch.eye(2, device=base["device"]), **base)
+
+    def dist_to_goal(x):
+        return float(torch.linalg.norm(GOAL - x))
+
+    def loop(ctrl, steps, x=START):
+        for _ in range(steps):
+            x = dyn(x, ctrl.command(x))
+        return x
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    def bits(shape, seed):
+        return torch.randint(-2**31, 2**31 - 1, shape, dtype=torch.int32, generator=gen(seed),
+                             device=dev)
+
+    def close(a, b, rtol, atol):
+        """JAX's assert_allclose, and the largest difference."""
+        a, b = a.double().cpu(), b.double().cpu()
+        return bool(((a - b).abs() <= atol + rtol * b.abs()).all()), float((a - b).abs().max())
+
+    def rowset(t):
+        f = t.reshape(t.shape[0], -1).cpu().numpy()
+        return f[np.lexsort(f.T[::-1])]
+
+    def params_(dtype=f32, device=dev):
+        z = torch.zeros(2, dtype=dtype, device=device)
+        return MPPIParams(noise_mu=z, noise_sigma=torch.eye(2, dtype=dtype, device=device),
+                          lambda_=torch.tensor(1.0, dtype=dtype, device=device),
+                          u_min=z - math.inf, u_max=z + math.inf, u_init=z)
+
+    def fed_solve(ctrl, x, draws):
+        """One command's body with ``draws`` in place of its noise stream."""
+        fns = ctrl._fns
+        with fns.streams.fed(ctrl.d, draws):
+            _, action, art = fns.body(ctrl._params, ctrl._state, x, None, None, True)
+        return action, art
+
+    def name_of(solve, kernel):
+        return FS.launch_name(solve.spec.model_id, kernel)
+
+    cases = {}
+
+    def case(fn):
+        cases[fn.__name__] = fn
+        return fn
+
+    # -- tpu_tests/test_tpu_behavior.py::TestCore ----------------------------------
+    @case
+    def action_shape_dtype():
+        a = ctrl_().command(START)
+        check(a.shape == (2,) and a.dtype == f32 and a.device.type == dev.type,
+              f"action {tuple(a.shape)} {a.dtype} on {a.device}")
+        return f"action {tuple(a.shape)} {a.dtype} on {a.device}", {}
+
+    @case
+    def cost_decreases_over_steps():
+        zero = torch.zeros(1, 2, device=dev)
+        first = float(cost(START[None], zero)[0])
+        last = float(cost(loop(ctrl_(num_samples=256, horizon=10), 8)[None], zero)[0])
+        check(last < first, f"cost {first} -> {last}")
+        return f"cost {first:.4f} -> {last:.4f} over 8 steps", {}
+
+    @case
+    def seeded_determinism_on_chip():
+        a1, a2 = ctrl_().command(START), ctrl_().command(START)
+        check(torch.equal(a1, a2), f"two controllers on one seed: {a1} and {a2}")
+        return "two controllers on seed 42 bit for bit", {}
+
+    @case
+    def bounds_enforced():
+        c = ctrl_(u_min=-0.5 * ones2, u_max=0.5 * ones2)
+        worst = 0.0
+        for _ in range(3):
+            a = c.command(START)
+            worst = max(worst, float(a.abs().max()), float(c.perturbed_action.abs().max()))
+        check(worst <= 0.5 + 1e-6, f"|action| or |perturbed| {worst} beyond 0.5")
+        return f"largest |action|, |perturbed| {worst:.6f} (bound 0.5)", {}
+
+    @case
+    def symmetric_bound_completion():
+        c = ctrl_(u_max=0.75)
+        ok, _ = close(c.u_min, torch.tensor([-0.75, -0.75]), 1e-7, 0)
+        check(ok, f"u_min {c.u_min}")
+        return f"u_min {c.u_min.tolist()}", {}
+
+    @case
+    def terminal_cost_and_lazy_storage():
+        plain = ctrl_()
+        plain.command(START)
+        term = ctrl_(terminal_state_cost=lambda st, ac: 10.0 * (
+            (GOAL - st[..., -1, :]) ** 2).sum(-1))
+        term.command(START)
+        check(plain.states is None and term.states is not None and term.states.shape[0] == 1,
+              "lazy storage or the terminal cost's states")
+        return f"states None without the terminal cost, {tuple(term.states.shape)} with it", {}
+
+    @case
+    def step_dependent_dynamics():
+        c = MPPI(lambda s, a, t: s + a @ B.T * (1.0 + 0.0 * t), lambda s, a, t: cost(s, a), 2,
+                 eye, num_samples=LANE_K, horizon=LANE_T, seed=LANE_SEED,
+                 step_dependent_dynamics=True, device=dev)
+        a = c.command(START)
+        check(bool(torch.isfinite(a).all()), f"step-dependent action {a}")
+        return f"action {a.tolist()}", {}
+
+    @case
+    def noise_abs_cost():
+        a = ctrl_(noise_abs_cost=True).command(START)
+        check(bool(torch.isfinite(a).all()), f"action {a}")
+        return f"action {a.tolist()}", {}
+
+    @case
+    def sample_null_action():
+        c = ctrl_(sample_null_action=True)
+        c.command(START)
+        check(bool((c.perturbed_action[0] == 0).all()), "sample 0 is not the null action")
+        return "perturbed_action[0] all 0", {}
+
+    @case
+    def u_per_command():
+        a = ctrl_(u_per_command=3).command(START)
+        check(a.shape == (3, 2), f"shape {tuple(a.shape)}")
+        return f"action {tuple(a.shape)}", {}
+
+    @case
+    def rollout_samples_var_cost():
+        # JAX builds this controller and never commands it (its dynamics take no key)
+        ctrl_(rollout_samples=3, rollout_var_cost=0.1, stochastic_dynamics=True)
+        c = MPPI(lambda s, a, rng: dyn(s, a) + 0.01 * torch.randn(s.shape, generator=rng,
+                                                                  device=s.device),
+                 cost, 2, eye, num_samples=64, horizon=6, seed=LANE_SEED, rollout_samples=3,
+                 rollout_var_cost=0.1, stochastic_dynamics=True, device=dev)
+        a = c.command(START)
+        check(bool(torch.isfinite(a).all()) and c.states.shape[0] == 3,
+              f"action {a}, states {tuple(c.states.shape)}")
+        return f"states {tuple(c.states.shape)}, action finite", {}
+
+    @case
+    def get_rollouts():
+        c = ctrl_()
+        c.command(START)
+        r = c.get_rollouts(START, num_rollouts=5)
+        check(r.shape == (5, LANE_T, 2) and bool(torch.isfinite(r).all()), f"{tuple(r.shape)}")
+        return f"rollouts {tuple(r.shape)}", {}
+
+    @case
+    def change_horizon_both_ways():
+        c = ctrl_(horizon=8)
+        c.command(START)
+        shapes = []
+        for T_ in (12, 5):
+            c.change_horizon(T_)
+            shapes.append(tuple(c.U.shape))
+            a = c.command(START)
+            check(c.U.shape == (T_, 2) and bool(torch.isfinite(a).all()),
+                  f"horizon {T_}: U {tuple(c.U.shape)}, action {a}")
+        return f"U {shapes[0]} then {shapes[1]}, commands finite", {}
+
+    @case
+    def reset_resamples():
+        c = ctrl_()
+        U1 = c.U.clone()
+        c.reset()
+        check(not torch.allclose(U1, c.U), "reset kept U")
+        return f"U moved by {float((U1 - c.U).abs().max()):.4f}", {}
+
+    @case
+    def batch_state_input():
+        a = ctrl_(num_samples=64).command(START.expand(64, 2))
+        check(a.shape == (2,), f"shape {tuple(a.shape)}")
+        return f"(64, 2) state -> action {tuple(a.shape)}", {}
+
+    @case
+    def omega_sums_to_one():
+        c = ctrl_()
+        c.command(START)
+        s = float(c.omega.sum())
+        check(abs(s - 1.0) <= 1e-5 and c.cost_total.shape == (LANE_K,), f"sum {s}")
+        return f"sum(omega) - 1 = {s - 1.0:.3e} (limit 1e-5)", {}
+
+    @case
+    def scalar_sigma_1d_control():
+        c = MPPI(lambda s, a: s + torch.nn.functional.pad(a, (0, 1)), cost, 2,
+                 torch.tensor(0.5, device=dev), num_samples=64, horizon=6, seed=LANE_SEED,
+                 device=dev)
+        a = c.command(START)
+        check(a.shape == (1,), f"shape {tuple(a.shape)}")
+        return f"action {tuple(a.shape)}", {}
+
+    @case
+    def u_scale_unscaled_storage():
+        c = ctrl_(u_scale=2.0, u_max=0.5)
+        c.command(START)
+        m = float(c.U.abs().max())
+        check(m <= 0.5 + 1e-6, f"|U| {m}")
+        return f"largest |U| {m:.6f} (bound 0.5)", {}
+
+    @case
+    def shift_semantics():
+        c = ctrl_()
+        c.command(START)
+        a = c.command(START, shift_nominal_trajectory=False)
+        c.shift_nominal_trajectory()
+        check(bool(torch.isfinite(a).all()) and torch.equal(c.U[-1], c.u_init),
+              f"U[-1] {c.U[-1]} after the shift")
+        return "no-shift command finite, U[-1] = u_init after the shift", {}
+
+    @case
+    def num_iterations_on_chip():
+        a = ctrl_(num_iterations=3).command(START)
+        check(bool(torch.isfinite(a).all()), f"action {a}")
+        return f"action {a.tolist()}", {}
+
+    @case
+    def run_mppi_jit_one_dispatch():
+        c = ctrl_(num_samples=64, horizon=6)
+        states, actions, total = run_mppi_jit(c, dyn, START, steps=10)
+        loop_kind = type(next(iter(c._runner_cache.values()))).__name__
+        check(states.shape == (11, 2) and actions.shape == (10, 2)
+              and math.isfinite(float(total)) and (dev.type == "cpu" or loop_kind == "_GraphLoop"),
+              f"{tuple(states.shape)} {tuple(actions.shape)} {loop_kind}")
+        return f"states {tuple(states.shape)}, actions {tuple(actions.shape)}, total " \
+               f"{float(total):.4f} ({loop_kind})", {}
+
+    # -- ::TestVariantsOnChip ------------------------------------------------------
+    @case
+    def smppi():
+        c = ctrl_(SMPPI, u_min=-ones2, u_max=ones2, action_min=-ones2, action_max=ones2,
+                  w_action_seq_cost=2.0)
+        x = loop(c, 5)
+        check(bool(torch.isfinite(x).all()), f"state {x}")
+        return f"state after 5 steps {x.tolist()}", {}
+
+    @case
+    def kmppi():
+        c = ctrl_(KMPPI, num_support_pts=4)
+        x = loop(c, 5)
+        check(bool(torch.isfinite(x).all()) and c.theta.shape == (4, 2),
+              f"state {x}, theta {tuple(c.theta.shape)}")
+        return f"state after 5 steps {x.tolist()}, theta {tuple(c.theta.shape)}", {}
+
+    @case
+    def batched():
+        c = MPPI_Batched(dyn, cost, 2, eye, num_envs=4, num_samples=64, horizon=6,
+                         seed=LANE_SEED, device=dev)
+        a = c.command(torch.stack([START, START * 0.5, -START, START * 2.0]))
+        check(a.shape == (4, 2) and not torch.allclose(a[0], a[2]), f"actions {a}")
+        return f"actions {tuple(a.shape)}, plants 0 and 2 differ by " \
+               f"{float((a[0] - a[2]).abs().max()):.4f}", {}
+
+    @case
+    def gradient_refinement_composes_with_fused_kernel():
+        def run(steps):
+            c = ctrl_(num_samples=16, horizon=8, u_max=ones2, use_pallas=True,
+                      gradient_refinement_steps=steps, gradient_refinement_lr=0.1)
+            check(c._fns.fused, "K = 16 with use_pallas did not take kernel A")
+            return dist_to_goal(loop(c, 10)), c
+
+        d_base, _ = run(0)
+        d_ref, c = run(20)
+        u_max = float(c.U.abs().max())
+        check(math.isfinite(d_ref) and d_ref < d_base + 1e-6 and u_max <= 1.0 + 1e-5,
+              f"refined {d_ref}, unrefined {d_base}, |U| {u_max}")
+        # kernel A at K = 16, below one block of 32: its phantom samples are
+        # masked (pallas_rollout.py:445), against its plain version on the same bits
+        cfg = MPPIConfig(nx=2, nu=2, K=16, T=8, diag_sigma=True)
+        solve = FS.make_transposed_fused_solve(cfg, lq)
+        D = 16
+        ops = (START[:, None].expand(2, 16), torch.zeros(D, device=dev), torch.ones(D, device=dev),
+               torch.zeros(D, device=dev), -torch.ones(D, device=dev), torch.ones(D, device=dev),
+               torch.zeros(D, device=dev), torch.tensor(1.0, device=dev))
+        lead = bits((solve.spec.R, solve.bits_cols), 16)
+        dk, mk, sk, ck = solve(lead, *ops)
+        dp, mp, sp, cp = solve.plain(lead, *ops)
+        ok, c_err, u_err, _ = agree(ck, cp, dk / sk, dp / sp, 1.0, mk, mp, sk, sp)
+        check(ok and ck.shape == (16,), f"K = 16 kernel A against its plain version: cost "
+              f"{c_err}, update {u_err}")
+        return f"refined {d_ref:.4f} <= unrefined {d_base:.4f}, |U| {u_max:.4f}; K = 16 " \
+               f"against plain: cost {c_err:.2e}, delta/s {u_err:.2e}", {"mppi": 21}
+
+    # -- ::TestCrossBackend ----------------------------------------------------------
+    @case
+    def solve_matches_cpu_f32():
+        dyn_c, cost_c = plant(cpu)
+        c_dev = ctrl_(num_samples=64, horizon=6, prng_impl=None)
+        c_cpu = MPPI(dyn_c, cost_c, 2, torch.eye(2), num_samples=64, horizon=6, lambda_=1.0,
+                     seed=LANE_SEED, prng_impl=None, device=cpu)
+        st = c_cpu._state
+        check(torch.equal(c_dev.U.cpu(), c_cpu.U), "the two controllers' U differ")
+        draws = c_cpu._fns.streams.feeds(st.seed, st.counter, cpu)
+        a_dev, _ = fed_solve(c_dev, START, [d.to(dev) for d in draws])
+        a_cpu, _ = fed_solve(c_cpu, START.cpu(), draws)
+        ok, err = close(a_dev, a_cpu, 5e-3, 5e-4)
+        check(ok, f"card {a_dev} against CPU {a_cpu}")
+        return f"card against CPU on one draw: action difference {err:.3e} (rtol 5e-3, " \
+               f"atol 5e-4)", {}
+
+    @case
+    def cpu_placed_controller_with_use_pallas():
+        """The port's ``use_pallas`` on CPU tensors runs the kernels' plain
+        versions: nothing may reach the card."""
+        lq_c = linear_quadratic(B.cpu(), GOAL.cpu())
+        allocs = torch.cuda.memory_stats(dev).get("allocation.all.allocated", 0)
+        c = MPPI(lq_c.dynamics, lq_c.running_cost, 2, torch.eye(2), num_samples=2048, horizon=5,
+                 seed=3, device="cpu", use_pallas=True)
+        a = c.command(torch.zeros(2))
+        b = MPPI_Batched(lq_c.dynamics, lq_c.running_cost, 2, torch.eye(2), num_envs=2,
+                         num_samples=2048, horizon=5, seed=3, device="cpu", use_pallas=True)
+        actions = b.command(torch.zeros(2, 2))
+        tensors = [a, actions, c.U, c.cost_total, b.U, b.cost_total, *c._params, *b._params]
+        on = {t.device.type for t in tensors}
+        after = torch.cuda.memory_stats(dev).get("allocation.all.allocated", 0)
+        check(on == {"cpu"} and c._fns.fused and b._fns.fused and after == allocs,
+              f"devices {on}, routes {c._fns.fused} {b._fns.fused}, card allocations "
+              f"{after - allocs}")
+        return f"MPPI and MPPI_Batched: outputs, state and parameters on {on}, the kernels' " \
+               f"plain versions, {after - allocs} card allocations", {}
+
+    @case
+    def cpu_placed_batched_controller_stays_on_cpu():
+        dyn_c, cost_c = plant(cpu)
+        c = MPPI_Batched(dyn_c, cost_c, 2, torch.eye(2), num_envs=2, num_samples=32, horizon=4,
+                         seed=LANE_SEED, device="cpu")
+        on = {t.device.type for t in c._params}
+        a = c.command(torch.zeros(2, 2))
+        check(on == {"cpu"} and a.device.type == "cpu" and c.prng_impl is None,
+              f"parameters on {on}, action on {a.device}, prng_impl {c.prng_impl}")
+        return f"parameters and action on the CPU, prng_impl {c.prng_impl}", {}
+
+    @case
+    def weighting_matches_cpu():
+        c = torch.linspace(0.0, 30.0, 512, device=dev)
+        om_dev = PS.compute_weighting(c, torch.tensor(1.0, device=dev), -1)[1]
+        om_cpu = PS.compute_weighting(c.cpu(), torch.tensor(1.0), -1)[1]
+        ok, err = close(om_dev, om_cpu, 1e-5, 1e-7)
+        check(ok, f"omega on the card against the CPU: {err}")
+        return f"omega difference {err:.3e} (rtol 1e-5, atol 1e-7)", {}
+
+    # -- ::TestEliteReuseOnChip ------------------------------------------------------
+    def elite_rows_ok(c):
+        idx = torch.argsort(c.cost_total)[:4]
+        return np.array_equal(rowset(c.perturbed_action[idx]), rowset(c._state.elites))
+
+    @case
+    def elites_close_loop_on_chip():
+        c = ctrl_(num_samples=64, num_elites=4, u_min=-ones2, u_max=ones2)
+        d = dist_to_goal(loop(c, 15))
+        check(d < 1.0 and elite_rows_ok(c), f"distance {d}, elites the top-4 rows "
+              f"{elite_rows_ok(c)}")
+        return f"distance {d:.4f} (limit 1.0), elites the 4 best rows", {}
+
+    @case
+    def use_pallas_with_elites_falls_back_without_artifacts():
+        with Captured() as warned:
+            c = ctrl_(num_samples=64, num_elites=2, use_pallas=True)
+        a = c.command(START)
+        check(not c._fns.fused and any("fused_artifacts" in m for m in warned.messages)
+              and bool(torch.isfinite(a).all()) and c.noise is not None
+              and c.perturbed_action is not None and c._state.elites.shape == (2, 8, 2),
+              f"route {c._fns.fused}, warnings {warned.messages}")
+        return "the plain path with the fused_artifacts warning, artifacts kept, elites " \
+               f"{tuple(c._state.elites.shape)}", {}
+
+    @case
+    def use_pallas_with_elites_and_artifacts_stays_fused():
+        with Captured(logging.INFO) as logged:
+            c = ctrl_(num_samples=64, num_elites=4, use_pallas=True, fused_artifacts=True,
+                      u_min=-ones2, u_max=ones2)
+        check(c._fns.fused and any("fused CUDA kernel" in m for m in logged.messages),
+              f"route {c._fns.fused}: {logged.messages}")
+        x = loop(c, 15)
+        d = dist_to_goal(x)
+        check(d < 1.0 and elite_rows_ok(c), f"distance {d}")
+        expected = torch.clamp(PS._shift_elites(c._state.elites, c._params.u_init), -1.0, 1.0)
+        c.command(x)
+        ok, err = close(c.perturbed_action[:4], expected, 1e-6, 1e-7)
+        check(ok, f"the shifted elites in rows 0-3: {err}")
+        return f"distance {d:.4f} (limit 1.0), elites the 4 best rows, shifted elites in " \
+               f"rows 0-3 within {err:.1e}", {"mppi": 16}
+
+    # -- tpu_tests/test_tpu_pallas.py ------------------------------------------------
+    @case
+    def pallas_rollout_matches_scan_compiled():
+        kw = dict(num_samples=256, horizon=8, lambda_=1.0, seed=3)
+        c_ref = ctrl_(**kw)
+        c_pal = ctrl_(use_pallas="rollout", **kw)
+        check(c_pal._fns.fused, "use_pallas='rollout' did not take the legacy kernels")
+        worst = 0.0
+        for _ in range(3):
+            a1, a2 = c_ref.command(START), c_pal.command(START)
+            ok, err = close(a2, a1, 5e-3, 5e-4)
+            check(ok, f"legacy route {a2} against plain {a1}")
+            worst = max(worst, err)
+            c_pal.U = c_ref.U
+        ok, w_err = close(c_pal.omega, c_ref.omega, 1e-3, 1e-6)
+        check(ok, f"omega {w_err}")
+        return f"actions within {worst:.2e} (rtol 5e-3, atol 5e-4), omega {w_err:.2e}", \
+            {"rollout": 3, "weighted_update": 3}
+
+    def fused_loop(ctrl, steps, limit):
+        check(ctrl._fns.fused, "use_pallas=True did not take the kernel")
+        d = dist_to_goal(loop(ctrl, steps))
+        check(d < limit, f"distance {d} (limit {limit})")
+        return d
+
+    @case
+    def transposed_fused_closed_loop():
+        kw = dict(num_samples=512, horizon=10, seed=3, u_max=ones2, use_pallas=True)
+        c = ctrl_(**kw)
+        d = fused_loop(c, 12, 1.0)
+        check(c.noise is None and c.perturbed_action is None
+              and abs(float(c.omega.sum()) - 1) <= 1e-4 and bool(torch.isfinite(c.cost_total).all()),
+              "artifacts or weights")
+        a2, a3 = ctrl_(**kw).command(START), ctrl_(**kw).command(START)
+        check(torch.equal(a2, a3), "two fused controllers on one seed differ")
+        return f"distance {d:.4f} (limit 1.0), sum(omega) {float(c.omega.sum()):.6f}, one " \
+               f"seed bit for bit", {"mppi": 14}
+
+    @case
+    def fused_artifacts_surface():
+        kw = dict(num_samples=512, horizon=8, seed=3, u_max=ones2, use_pallas=True)
+        c = ctrl_(fused_artifacts=True, **kw)
+        a = c.command(START)
+        pa, nz = c.perturbed_action, c.noise
+        check(pa.shape == (512, 8, 2) and nz.shape == (512, 8, 2)
+              and float(pa.abs().max()) <= 1.0 + 1e-6, "the artifacts' shapes or bounds")
+        U_sol = pa - nz
+        ok1, e1 = close(U_sol, U_sol[:1].expand_as(U_sol), 1e-5, 1e-6)
+        rc = PS.rollout_costs(c.config, PS.wrap_dynamics(c.config, dyn),
+                              PS.wrap_cost(c.config, cost), START, pa)[0]
+        pc = torch.einsum("ktu,tu->k", nz, U_sol[0])
+        ok2, e2 = close(c.cost_total, rc + pc, 2e-4, 2e-3)
+        c2 = ctrl_(**kw)
+        ok3, e3 = close(c2.command(START), a, 1e-5, 1e-6)
+        check(ok1 and ok2 and ok3 and c2.noise is None,
+              f"one nominal {e1}, re-rolled costs {e2}, without the artifacts {e3}")
+        return f"one nominal within {e1:.1e}, re-rolled costs within {e2:.2e} (rtol 2e-4, " \
+               f"atol 2e-3), the command without artifacts within {e3:.1e}", {"mppi": 2}
+
+    @case
+    def fused_artifacts_smppi_kmppi():
+        kw = dict(num_samples=256, horizon=8, seed=3, u_max=0.5 * ones2, use_pallas=True,
+                  fused_artifacts=True)
+        sm = ctrl_(SMPPI, delta_t=0.8, action_max=ones2, **kw)
+        sm.command(START)
+        check(sm.perturbed_action is not None and sm.noise is not None
+              and float(sm.perturbed_action.abs().max()) <= 1.0 + 1e-6, "SMPPI's artifacts")
+        rec = (sm.perturbed_action - 0.8 * sm.noise).reshape(256, -1)
+        ok1, e1 = close(rec, rec[:1].expand_as(rec), 1e-5, 1e-5)
+        km = ctrl_(KMPPI, num_support_pts=4, kernel=RBFKernel(sigma=2.0), **kw)
+        km.command(START)
+        pa = km.perturbed_action
+        check(pa is not None and km.noise is not None and pa.shape == (256, 8, 2)
+              and float(pa.abs().max()) <= 0.5 + 1e-6, "KMPPI's artifacts")
+        U_sol = pa - km.noise
+        ok2, e2 = close(U_sol, U_sol[:1].expand_as(U_sol), 1e-5, 1e-6)
+        check(ok1 and ok2, f"SMPPI's shared sequence {e1}, KMPPI's {e2}")
+        return f"SMPPI's action sequence shared within {e1:.1e}, KMPPI's nominal within " \
+               f"{e2:.1e}", {"smppi": 1, "kmppi": 1}
+
+    @case
+    def transposed_smppi_closed_loop():
+        c = ctrl_(SMPPI, num_samples=512, horizon=10, seed=3, u_max=0.5 * ones2,
+                  action_max=ones2, delta_t=0.8, w_action_seq_cost=2.0, use_pallas=True)
+        x = START
+        for _ in range(15):
+            a = c.command(x)
+            x = dyn(x, a)
+        d = dist_to_goal(x)
+        check(d < 1.2 and c.noise is None and abs(float(c.omega.sum()) - 1) <= 1e-4
+              and float(a.abs().max()) <= 1.0 + 1e-5, f"distance {d}")
+        return f"distance {d:.4f} (limit 1.2), last |action| {float(a.abs().max()):.4f}", \
+            {"smppi": 15}
+
+    @case
+    def transposed_kmppi_closed_loop():
+        c = ctrl_(KMPPI, num_samples=512, horizon=10, seed=3, u_max=ones2, num_support_pts=5,
+                  kernel=RBFKernel(sigma=2.0), use_pallas=True)
+        d = fused_loop(c, 15, 1.2)
+        check(c.noise is None and bool(torch.isfinite(c.theta).all()), "KMPPI's theta")
+        return f"distance {d:.4f} (limit 1.2)", {"kmppi": 15}
+
+    @case
+    def transposed_batched_closed_loop():
+        def make(n):
+            return MPPI_Batched(lq.dynamics, lq.running_cost, 2, eye, num_envs=n,
+                                num_samples=512, horizon=10, seed=3, u_max=ones2,
+                                use_pallas="force", device=dev)
+
+        c = make(4)
+        x = torch.tensor([[-3.0, -2.0], [-1.0, 1.0], [4.0, 4.0], [0.0, -3.0]], device=dev)
+        d0 = torch.linalg.norm(x - GOAL, dim=-1)
+        for _ in range(12):
+            x = dyn(x, c.command(x))
+        d1 = torch.linalg.norm(x - GOAL, dim=-1)
+        w = c.omega.sum(dim=1)
+        c2 = make(2)
+        c2.U = c2.U[0].expand_as(c2.U).clone()
+        a = c2.command(torch.tensor([[1.0, -1.0], [1.0, -1.0]], device=dev))
+        check(c._fns.fused and bool((d1 < d0 + 0.3).all()) and float(d1.max()) < 1.5
+              and bool(((w - 1).abs() <= 1e-4).all()) and torch.equal(a[0], a[1]),
+              f"distances {d0.tolist()} -> {d1.tolist()}, identical plants {a.tolist()}")
+        return f"largest distance {float(d1.max()):.4f} (limit 1.5), identical plants bit " \
+               f"for bit", {"batched": 26}
+
+    @case
+    def batched_noise_operand_compiled():
+        N, K_, T_ = 3, 256, 6
+        D = T_ * 2
+        cfg = MPPIConfig(nx=2, nu=2, K=K_, T=T_, diag_sigma=True)
+        solve_bits = FS.make_transposed_batched_solve(cfg, N, lq)
+        solve_op = FS.make_transposed_batched_solve(cfg, N, lq, noise_operand=True)
+        lead = bits((D, K_), 3)
+        U = torch.randn(N, T_, 2, generator=gen(5), device=dev) * 0.1
+        x0 = torch.tensor([[-3.0, -2.0], [1.0, 1.0], [0.5, -0.5]], device=dev)
+        scale = torch.full((D,), 0.8, device=dev)
+        vec = lambda v: torch.full((D,), v, device=dev)  # noqa: E731
+        lam = torch.tensor(1.0, device=dev)
+        args = (x0.T.contiguous(), U.reshape(N, D).T.contiguous(), scale, vec(0.0), vec(-1.0),
+                vec(1.0), (lam * U.reshape(N, D) / 0.64).T.contiguous(), lam)
+        delta_b, ms_b, ct_b = solve_bits(lead, *args)
+        delta_o, ms_o, ct_o = solve_op(FS.bits_to_normal(lead) * scale[:, None], *args)
+        oks = [close(ct_o, ct_b, 2e-4, 2e-3), close(delta_o, delta_b, 2e-3, 1e-4),
+               close(ms_o, ms_b, 2e-4, 0.0)]
+        check(all(ok for ok, _ in oks), f"operand against bits mode: {oks}")
+        # through the step: the plain path's draw fed to the operand kernel
+        params = MPPIParams(noise_mu=vec(0.0)[:2], noise_sigma=eye * 0.64, lambda_=lam,
+                            u_min=-ones2, u_max=ones2, u_init=torch.zeros(2, device=dev))
+        fns = PS.make_batched_step(cfg, N, lq.dynamics, lq.running_cost,
+                                   transposed_solve_override=solve_op)
+        state = BatchedState(U=PS.sample_noise(gen(3), (N, T_), params, f32), seed=3)
+        x, d0 = x0, torch.linalg.norm(x0 - GOAL, dim=-1)
+        for _ in range(12):
+            state, a, art = fns.step(params, state, x)
+            x = dyn(x, a)
+        d1 = torch.linalg.norm(x - GOAL, dim=-1)
+        w = art.omega.sum(dim=1)
+        check(bool((d1 < d0).all()) and float(d1.max()) < 1.5
+              and bool(((w - 1).abs() <= 1e-4).all()), f"distances {d0.tolist()} -> {d1.tolist()}")
+        return f"operand against bits mode: costs {oks[0][1]:.2e}, delta {oks[1][1]:.2e}, m " \
+               f"and s {oks[2][1]:.2e}; the step's loop: largest distance {float(d1.max()):.4f} " \
+               f"(limit 1.5)", {"batched": 28}
+
+    @case
+    def sharded_fused_solve_one_device_mesh():
+        c = ctrl_(num_samples=512, horizon=10, seed=3, mesh=make_mesh((1,), ("k",), device=str(dev)),
+                  sample_axis="k", use_pallas=True, u_max=ones2)
+        d = fused_loop(c, 12, 1.0)
+        check(c.noise is None, "the sharded fused route stored the noise")
+        return f"distance {d:.4f} (limit 1.0)", {"mppi": 12}
+
+    @case
+    def sharded_fused_null_and_artifacts_one_device_mesh():
+        c = ctrl_(num_samples=512, horizon=8, seed=3, mesh=make_mesh((1,), ("k",), device=str(dev)),
+                  sample_axis="k", use_pallas=True, fused_artifacts=True,
+                  sample_null_action=True, u_max=ones2)
+        d = fused_loop(c, 10, 1.2)
+        pa = c.perturbed_action
+        zero_rows = (pa.reshape(512, -1).abs() < 1e-12).all(dim=1)
+        check(pa.shape == (512, 8, 2) and c.noise is not None and bool((pa[0] == 0).all())
+              and int(zero_rows.sum()) == 1 and float(pa.abs().max()) <= 1.0 + 1e-6,
+              f"null rows {int(zero_rows.sum())}")
+        return f"distance {d:.4f} (limit 1.2), row 0 the only null row", {"mppi": 10}
+
+    @case
+    def sharded_batched_fused_one_device_mesh():
+        c = MPPI_Batched(lq.dynamics, lq.running_cost, 2, eye, num_envs=4, num_samples=2048,
+                         horizon=8, seed=3, mesh=make_mesh((1,), ("data",), device=str(dev)),
+                         env_axis="data", use_pallas=True, u_max=ones2, device=dev)
+        x = torch.tensor([[-3.0, -2.0], [-1.0, 1.0], [3.0, 3.0], [0.0, -2.0]], device=dev)
+        d0 = float(torch.linalg.norm(x - GOAL, dim=-1).max())
+        for _ in range(10):
+            x = dyn(x, c.command(x))
+        d1 = float(torch.linalg.norm(x - GOAL, dim=-1).max())
+        check(c._fns.fused and d1 < d0 and bool(torch.isfinite(c.cost_total).all()),
+              f"largest distance {d0} -> {d1}")
+        return f"largest distance {d0:.4f} -> {d1:.4f}", {"batched": 20}
+
+    @case
+    def population_evaluator_with_fused_controller():
+        c = ctrl_(num_samples=2048, horizon=8, seed=1, u_max=2 * ones2, use_pallas=True)
+        ev = autotune.PopulationEvaluator(c, START, num_refinement_steps=2, num_trajectories=1)
+        res = ev([{"sigma": torch.tensor([1.0, 1.0])}, {"sigma": torch.tensor([4.0, 4.0])},
+                  {"lambda": 0.5}])
+        costs = res.costs
+        c.command(START)
+        check(costs.shape == (3,) and bool(torch.isfinite(costs).all()) and c.noise is None
+              and c.use_pallas is True and c._fns.fused, f"costs {costs}")
+        return f"costs {[round(float(v), 3) for v in costs]}, the command still fused", \
+            {"mppi": 1}
+
+    def pregen_reference(cfg, fns, x0, lead, U2, lo, hi, a_flat, lam, terminal=None):
+        """JAX's plain reference of the transposed solve on injected bits:
+        (costs, the weights' update)."""
+        K_, T_, nu = cfg.K, cfg.T, cfg.nu
+        noise = FS.bits_to_normal(lead[:, :K_]).T
+        pert = torch.clamp(U2[None] + noise, lo, hi)
+        noise = pert - U2[None]
+        rc = PS.rollout_costs(cfg, PS.wrap_dynamics(cfg, fns[0]), PS.wrap_cost(cfg, fns[1]), x0,
+                              pert.reshape(K_, T_, nu),
+                              terminal_final_cost=None if terminal is None
+                              else PS.wrap_final_cost(terminal))[0]
+        ct = rc + noise @ a_flat
+        return ct, PS.compute_weighting(ct, lam)[1] @ noise
+
+    @case
+    def transposed_solve_compiled_pregen_bits():
+        K_, T_ = 256, 6
+        D = 2 * T_
+        cfg = MPPIConfig(nx=2, nu=2, K=K_, T=T_, diag_sigma=True)
+        solve = FS.make_transposed_fused_solve(cfg, lq)
+        lead = bits((solve.spec.R, solve.bits_cols), 3)
+        U2 = torch.randn(D, generator=gen(5), device=dev) * 0.1
+        one, lam = torch.ones(D, device=dev), torch.tensor(0.9, device=dev)
+        x0 = torch.tensor([-1.0, 0.5], device=dev)
+        delta, _, s, ct = solve(lead, x0[:, None].expand(2, K_), U2, one, 0 * one, -one, one,
+                                U2 * lam, lam)
+        ct_ref, upd_ref = pregen_reference(cfg, (dyn, cost), x0, lead, U2, -one, one, U2 * lam,
+                                           lam)
+        (ok1, e1), (ok2, e2) = close(ct, ct_ref, 2e-4, 2e-3), close(delta / s, upd_ref, 2e-3, 1e-4)
+        check(ok1 and ok2, f"costs {e1}, update {e2}")
+        return f"costs within {e1:.2e} (rtol 2e-4, atol 2e-3), delta/s {e2:.2e} (rtol 2e-3, " \
+               f"atol 1e-4)", {"mppi": 1}
+
+    @case
+    def transposed_solve_mlp_dynamics_compiled():
+        K_, T_ = 256, 5
+        D = 2 * T_
+        cfg = MPPIConfig(nx=2, nu=2, K=K_, T=T_, diag_sigma=True)
+        mlp = lane_mlp_callables(dev)
+        solve = FS.make_transposed_fused_solve(cfg, mlp)
+        lead = bits((solve.spec.R, solve.bits_cols), 7)
+        one, zero = torch.ones(D, device=dev), torch.zeros(D, device=dev)
+        lam = torch.tensor(1.0, device=dev)
+        x0 = torch.tensor([-1.0, 0.5], device=dev)
+        ct = solve(lead, x0[:, None].expand(2, K_), zero, one, zero, -2 * one, 2 * one, zero,
+                   lam)[3]
+        ct_ref, _ = pregen_reference(cfg, mlp, x0, lead, zero, -2 * one, 2 * one, zero, lam)
+        ok, err = close(ct, ct_ref, 1e-3, 5e-3)
+        check(ok, f"costs {err}")
+        return f"the traced MLP's costs within {err:.2e} (rtol 1e-3, atol 5e-3)", \
+            {name_of(solve, "mppi"): 1}
+
+    @case
+    def fused_sampler_compiled():
+        K_, T_ = 1024, 6
+        D = 2 * T_
+        sampler = RM.make_fused_sampler(MPPIConfig(nx=2, nu=2, K=K_, T=T_, diag_sigma=True))
+        lead = bits((sampler.bits_rows, D), 3)
+        U2 = torch.randn(D, generator=gen(4), device=dev) * 0.2
+        one = torch.ones(D, device=dev)
+        pert, pc = sampler(lead, U2, one, 0 * one, -one, one, U2)
+        pert_ref = torch.clamp(U2[None] + FS.bits_to_normal(lead[:K_]), -1.0, 1.0)
+        (ok1, e1), (ok2, e2) = (close(pert, pert_ref, 1e-5, 1e-6),
+                                close(pc, (pert_ref - U2[None]) @ U2, 1e-4, 1e-4))
+        z = sampler(FS.key_to_seed(11), 0 * U2, one, 0 * one, -10 * one, 10 * one, 0 * U2)[0]
+        mean, std = float(z.double().mean()), float(z.double().std())
+        check(ok1 and ok2 and abs(mean) < 0.02 and abs(std - 1.0) < 0.02,
+              f"perturbed {e1}, cost {e2}, moments {mean} {std}")
+        return f"bits: perturbed within {e1:.1e}, cost {e2:.1e}; Philox draws mean {mean:.4f} " \
+               f"std {std:.4f} (limits 0.02)", {"sampler": 2}
+
+    @case
+    def fused_solve_compiled_pregen_bits():
+        K_, T_ = 256, 6
+        cfg = MPPIConfig(nx=2, nu=2, K=K_, T=T_)
+        solve = RM.make_fused_solve(cfg, lq)
+        lead = bits((solve.K_pad, 2 * T_), 0)
+        U = torch.randn(T_, 2, generator=gen(1), device=dev) * 0.1
+        lo, hi, mu = -ones2, ones2, torch.zeros(2, device=dev)
+        lam = torch.tensor(0.7, device=dev)
+        x0 = torch.tensor([-1.0, 0.5], device=dev)
+        delta, _, s, ct = solve(lead, x0, U, eye, mu, lo, hi, (lam * U).reshape(-1), lam)
+        pert = torch.clamp(U[None] + FS.bits_to_normal(lead[:K_]).reshape(K_, T_, 2), lo, hi)
+        noise = pert - U[None]
+        rc = PS.rollout_costs(cfg, PS.wrap_dynamics(cfg, dyn), PS.wrap_cost(cfg, cost), x0,
+                              pert)[0]
+        ct_ref = rc + (U[None] * (lam * noise)).sum(dim=(1, 2))
+        delta_ref = torch.einsum("k,ktn->tn", PS.compute_weighting(ct_ref, lam)[1], noise)
+        (ok1, e1), (ok2, e2) = close(ct, ct_ref, 2e-4, 2e-3), close(delta / s, delta_ref, 2e-3,
+                                                                     1e-4)
+        check(ok1 and ok2, f"costs {e1}, update {e2}")
+        return f"costs within {e1:.2e} (rtol 2e-4, atol 2e-3), delta/s {e2:.2e}", \
+            {"rowmajor": 1}
+
+    @case
+    def fused_solve_card_philox():
+        K_, T_ = 512, 6
+        solve = RM.make_fused_solve(MPPIConfig(nx=2, nu=2, K=K_, T=T_), lq)
+        U, mu = torch.zeros(T_, 2, device=dev), torch.zeros(2, device=dev)
+        inf = torch.full((2,), math.inf, device=dev)
+        args = (torch.tensor([-1.0, 0.5], device=dev), U, eye, mu, -inf, inf,
+                torch.zeros(2 * T_, device=dev), torch.tensor(1.0, device=dev))
+        _, _, s, ct = solve(FS.key_to_seed(9), *args)
+        ct2 = solve(FS.key_to_seed(10), *args)[3]
+        check(bool(torch.isfinite(ct).all()) and float(s) > 0 and not torch.allclose(ct, ct2),
+              "the Philox solve's costs")
+        return f"costs finite, s {float(s):.4f} > 0, two keys' costs differ", {"rowmajor": 2}
+
+    @case
+    def flash_weighting_matches_plain():
+        K_, D = 1024, 60
+        ct = torch.rand(K_, generator=gen(11), device=dev) * 50.0
+        noise = torch.randn(K_, D, generator=gen(12), device=dev)
+        lam = torch.tensor(1.3, device=dev)
+        pert, m, s = LG.fused_weighted_update(ct, noise, lam)
+        om = PS.compute_weighting(ct, lam)[1]
+        (ok1, e1), (ok2, e2) = (close(pert / s, om @ noise, 2e-3, 1e-3),
+                                close(FS.weighting_from_stats(ct, lam, m, s)[1], om, 1e-4, 1e-7))
+        check(ok1 and ok2, f"update {e1}, weights {e2}")
+        return f"update within {e1:.2e} (rtol 2e-3, atol 1e-3), weights {e2:.2e}", \
+            {"weighted_update": 1}
+
+    @case
+    def fused_rollout_compiled():
+        K_, T_ = 256, 8
+        cfg = MPPIConfig(nx=2, nu=2, K=K_, T=T_)
+        x0 = torch.tensor([-1.0, 0.5], device=dev)
+        acts = torch.randn(K_, T_, 2, generator=gen(2), device=dev)
+        got = LG.make_fused_rollout(cfg, lq)(x0.expand(K_, 2), acts)
+        want = PS.rollout_costs(cfg, PS.wrap_dynamics(cfg, dyn), PS.wrap_cost(cfg, cost), x0,
+                                acts)[0]
+        ok, err = close(got, want, 2e-4, 2e-3)
+        check(ok, f"costs {err}")
+        return f"costs within {err:.2e} (rtol 2e-4, atol 2e-3)", {"rollout": 1}
+
+    @case
+    def terminal_final_compiled_pregen_bits_parity():
+        K_, T_ = 256, 6
+        D = 2 * T_
+        cfg = MPPIConfig(nx=2, nu=2, K=K_, T=T_, diag_sigma=True)
+        solve = FS.make_transposed_fused_solve(cfg, (gen_dyn, gen_cost),
+                                               terminal_final=gen_terminal)
+        lead = bits((solve.spec.R, solve.bits_cols), 3)
+        U2 = torch.randn(D, generator=gen(5), device=dev) * 0.1
+        one, lam = torch.ones(D, device=dev), torch.tensor(0.9, device=dev)
+        x0 = torch.tensor([-1.0, 0.5], device=dev)
+        ct = solve(lead, x0[:, None].expand(2, K_), U2, one, 0 * one, -one, one, U2 * lam,
+                   lam)[3]
+        ct_ref, _ = pregen_reference(cfg, (gen_dyn, gen_cost), x0, lead, U2, -one, one,
+                                     U2 * lam, lam, terminal=gen_terminal)
+        ok, err = close(ct, ct_ref, 2e-4, 2e-3)
+        check(ok, f"costs {err}")
+        return f"costs with the traced terminal cost within {err:.2e} (rtol 2e-4, atol 2e-3)", \
+            {name_of(solve, "mppi"): 1}
+
+    @case
+    def terminal_final_routing_and_closed_loop():
+        kw = dict(num_samples=512, horizon=10, lambda_=1.0, seed=3, u_max=ones2,
+                  use_pallas=True, device=dev)
+        with Captured(logging.INFO) as logged:
+            c_fin = MPPI(gen_dyn, gen_cost, 2, eye, terminal_final_cost=gen_terminal, **kw)
+        with Captured() as warned:
+            MPPI(gen_dyn, gen_cost, 2, eye, terminal_state_cost=lambda st, ac: gen_terminal(
+                st[..., -1, :], ac[..., -1, :]), **kw)
+        check(c_fin._fns.fused and any("fused CUDA kernel" in m for m in logged.messages)
+              and any("terminal_state_cost" in m and "plain torch path" in m
+                      for m in warned.messages), f"routes: {logged.messages} {warned.messages}")
+        d = fused_loop(c_fin, 12, 1.0)
+        check(c_fin.states is None, "the fused route stored the states")
+        return f"the kernel with the traced terminal cost, the plain path with " \
+               f"terminal_state_cost (warned); distance {d:.4f} (limit 1.0)", \
+            {"generated_mppi": 12}
+
+    # -- tpu_tests/test_tpu_prng.py ---------------------------------------------------
+    @case
+    def card_philox_controller_converges():
+        d = dist_to_goal(loop(ctrl_(num_samples=256, horizon=10), 12))
+        check(d < 2.0, f"distance {d}")
+        return f"distance {d:.4f} (limit 2.0)", {}
+
+    @case
+    def card_philox_deterministic_same_seed():
+        def act():
+            return ctrl_(num_samples=128, horizon=6, seed=5).command(ones2)
+
+        a1, a2 = act(), act()
+        check(torch.equal(a1, a2), f"{a1} and {a2}")
+        return "seed 5 twice bit for bit", {}
+
+    @case
+    def card_philox_normal_moments():
+        z = PS.sample_noise_flat(gen(0), 4096, 15, params_(), f32).double()
+        mean, std = float(z.mean()), float(z.std())
+        check(abs(mean) < 0.02 and abs(std - 1.0) < 0.02, f"moments {mean} {std}")
+        return f"mean {mean:.5f}, std {std:.5f} (limits 0.02)", {}
+
+    @case
+    def bf16_sampling_finite():
+        z = PS.sample_noise_flat(gen(0), 1024, 10, params_(bf16), bf16)
+        zf = z.float()
+        std = float(zf.std())
+        check(z.dtype == bf16 and bool(torch.isfinite(zf).all()) and abs(std - 1.0) < 0.05,
+              f"{z.dtype}, std {std}")
+        return f"bfloat16 draws, std {std:.4f} (limit 0.05)", {}
+
+    @case
+    def bf16_controller_solve():
+        B16, G16 = B.to(bf16), GOAL.to(bf16)
+        dyn16 = lambda s, a: s + a @ B16.T  # noqa: E731
+        cost16 = lambda s, a: ((G16 - s) ** 2).sum(-1)  # noqa: E731
+        kw = dict(num_samples=256, horizon=8, lambda_=1.0, seed=0, device=dev)
+        c = MPPI(dyn16, cost16, 2, torch.eye(2, dtype=bf16, device=dev), **kw)
+        s = START.to(bf16)
+        a = c.command(s)
+        af = a.float()
+        check(a.dtype == bf16 and bool(torch.isfinite(af).all()) and float(af[0]) > 0,
+              f"action {a}")
+        # a resized and reset bfloat16 controller keeps its dtype
+        c.change_horizon(12)
+        a12 = c.command(s)
+        c.reset()
+        check(c.U.dtype == bf16 and a12.dtype == bf16 and c.U.shape == (12, 2),
+              f"after change_horizon and reset: U {c.U.dtype}, action {a12.dtype}")
+        # use_pallas: the kernels take float32 only, so the plain path with the warning
+        with Captured() as warned:
+            cp = MPPI(dyn16, cost16, 2, torch.eye(2, dtype=bf16, device=dev),
+                      use_pallas=True, **kw)
+        ap = cp.command(s)
+        check(not cp._fns.fused and any("non-float32" in m for m in warned.messages)
+              and ap.dtype == bf16 and torch.equal(ap, a), f"use_pallas route "
+              f"{cp._fns.fused}: {warned.messages}")
+        return f"action {af.tolist()} (first > 0), bfloat16 after change_horizon and reset; " \
+               f"use_pallas: the plain path with the warning, the same action", {}
+
+    @case
+    def antithetic_on_chip():
+        z = PS.sample_noise_flat(gen(1), 256, 10, params_(), f32, antithetic=True)
+        check(torch.equal(z[:128], -z[128:]), "the halves do not mirror")
+        return "rows 0-127 the negatives of rows 128-255, exactly", {}
+
+    @case
+    def philox_matches_cpu():
+        key = FS.key_to_seed(PS.iteration_seed(123, 0))
+        cols = torch.arange(64)
+        b_dev, b_cpu = FS.philox_bits(key, cols.to(dev), 10), FS.philox_bits(key, cols, 10)
+        z_dev, z_cpu = FS.bits_to_normal(b_dev), FS.bits_to_normal(b_cpu)
+        ok, err = close(z_dev, z_cpu, 0.0, 2e-4)
+        check(torch.equal(b_dev.cpu(), b_cpu) and ok, f"bits equal {torch.equal(b_dev.cpu(), b_cpu)}, "
+              f"normals {err}")
+        return f"Philox bits bit for bit, normals within {err:.2e} (atol 2e-4)", {}
+
+    @case
+    def diag_fast_path_matches_matmul_path():
+        z_diag = PS.sample_noise_flat(gen(9), 128, 6, params_(), f32, diag_sigma=True)
+        z_mat = PS.sample_noise_flat(gen(9), 128, 6, params_(), f32, diag_sigma=False)
+        ok, err = close(z_diag, z_mat, 0.0, 2e-2)
+        check(ok, f"diagonal against matmul path {err}")
+        return f"diagonal against matmul path {err:.3e} (atol 2e-2; TF32 off)", {}
+
+    # -- tpu_tests/test_tpu_quality.py::TestQualityFloors -----------------------------
+    def run_loop(c, steps=QUALITY_STEPS):
+        s, accum = START, 0.0
+        for _ in range(steps):
+            a = c.command(s)
+            s = dyn(s, a)
+            accum += float(cost(s[None], a[None])[0])
+        return accum, dist_to_goal(s), s
+
+    def quality(cls=MPPI, **kw):
+        return ctrl_(cls, **{"num_samples": QUALITY_K, "horizon": QUALITY_T, **kw})
+
+    def floors(runs, what):
+        dists = [r[1] for r in runs]
+        mean_d, mean_c = statistics.mean(dists), statistics.mean(r[0] for r in runs)
+        check(mean_d < 2.0 and max(dists) < 3.0 and mean_c < 200.0,
+              f"{what}: distances {dists}, mean cost {mean_c}")
+        return f"distances {[round(d, 4) for d in dists]}, mean {mean_d:.4f} (limit 2.0), " \
+               f"largest (limit 3.0); mean accumulated cost {mean_c:.2f} (limit 200)", {}
+
+    @case
+    def mppi_final_distance():
+        return floors([run_loop(quality(seed=s)) for s in (0, 1, 2)], "MPPI")
+
+    @case
+    def kmppi_final_distance():
+        return floors([run_loop(quality(KMPPI, seed=s)) for s in (0, 1, 2)], "KMPPI")
+
+    @case
+    def more_samples_beat_fewer():
+        hi = run_loop(quality(seed=3, num_samples=500))[0]
+        lo = run_loop(quality(seed=3, num_samples=50))[0]
+        check(hi < lo * 1.5, f"accumulated cost {hi} at K = 500, {lo} at K = 50")
+        return f"accumulated cost {hi:.2f} at K = 500 < 1.5 x {lo:.2f} at K = 50", {}
+
+    @case
+    def works_for_short_and_long_horizons():
+        dists = [run_loop(quality(seed=1, horizon=T_))[1] for T_ in (5, 15)]
+        check(max(dists) < 2.5, f"distances {dists}")
+        return f"distances {[round(d, 4) for d in dists]} at T = 5, 15 (limit 2.5)", {}
+
+    @case
+    def loop_bit_determinism():
+        r1, r2 = run_loop(quality(seed=7), 10), run_loop(quality(seed=7), 10)
+        check(torch.equal(r1[2], r2[2]) and r1[0] == r2[0], f"{r1} and {r2}")
+        return f"two 10-step loops bit for bit (accumulated cost {r1[0]!r})", {}
+
+    @case
+    def bounds_hold_over_full_loop():
+        c = quality(seed=2, u_min=-0.8 * ones2, u_max=0.8 * ones2)
+        s, worst = START, 0.0
+        for _ in range(QUALITY_STEPS):
+            a = c.command(s)
+            worst = max(worst, float(a.abs().max()))
+            s = dyn(s, a)
+        check(worst <= 0.8 + 1e-6, f"|action| {worst}")
+        return f"largest |action| {worst:.6f} (bound 0.8)", {}
+
+    @case
+    def antithetic_quality():
+        dists = [run_loop(quality(seed=s, antithetic_sampling=True))[1] for s in (4, 5, 6)]
+        check(statistics.mean(dists) < 2.0, f"distances {dists}")
+        return f"distances {[round(d, 4) for d in dists]}, mean " \
+               f"{statistics.mean(dists):.4f} (limit 2.0)", {}
+
+    @case
+    def noise_rho_quality():
+        dists = [run_loop(quality(seed=s, noise_rho=0.3))[1] for s in (0, 1, 2)]
+        check(statistics.mean(dists) < 2.0, f"distances {dists}")
+        return f"distances {[round(d, 4) for d in dists]}, mean " \
+               f"{statistics.mean(dists):.4f} (limit 2.0)", {}
+
+    # -- tpu_tests/test_tpu_deploy.py --------------------------------------------------
+    @case
+    def artifact_roundtrip_matches_live():
+        c = ctrl_(seed=3)
+        path = out_dir / "lane_solver.npz"
+        deploy.export_solver(c, str(path))
+        solver = deploy.load_solver(str(path))
+        s = START
+        for _ in range(3):
+            a_live, a_served = c.command(s), solver.command(s)
+            check(torch.equal(a_live, a_served), f"served {a_served} against live {a_live}")
+            s = dyn(s, a_live)
+        check(solver.device.type == dev.type, f"the artifact serves on {solver.device}")
+        return f"3 commands bit for bit, served on {solver.device}", {}
+
+    @case
+    def adaptive_solve_compiles_and_improves_plan():
+        kw = dict(num_samples=256, horizon=10, lambda_=1.0, seed=11, num_iterations=5,
+                  u_max=0.6 * ones2, device=dev)
+
+        def best_plan(**extra):
+            c = MPPI(dyn, cost, 2, 25.0 * eye, **kw, **extra)
+            loop(c, 10)
+            return float(c.cost_total.min())
+
+        fixed = best_plan()
+        adapt = best_plan(adaptive_covariance=True, adaptive_cov_lr=0.8)
+        check(math.isfinite(adapt) and adapt < fixed / 1.5, f"adapted {adapt}, fixed {fixed}")
+        return f"best plan {adapt:.4f} adapted < {fixed:.4f} / 1.5 fixed", {}
+
+    check(tuple(cases) == TPU_LANE_CASES, "phase 13's cases and TPU_LANE_CASES differ: "
+          f"{sorted(set(cases) ^ set(TPU_LANE_CASES))}")
+    report = {"cases": {}}
+    world = None
+    try:
+        for name in TPU_LANE_CASES:
+            if name in LANE_MESH_CASES and world is None:
+                init = out_dir / "lane_world.init"
+                init.unlink(missing_ok=True)
+                initialize_multihost(f"file://{init}", 1, 0, device=str(dev))
+                world = dist.get_backend()
+            for k in FS.launches:
+                FS.launches[k] = 0
+            t0 = time.perf_counter()
+            text, expect = cases[name]()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            got = {k: v for k, v in FS.launches.items() if v}
+            print(f"# lane [{name}] passed in {secs:.2f} s | {text} | launches {got or 'none'}")
+            check(got == expect, f"lane case {name} launched {got}, expected {expect}")
+            report["cases"][name] = dict(seconds=secs, compared=text, launches=got)
+    finally:
+        if world is not None:
+            dist.destroy_process_group()
+    check(world in ("nccl", None) or dev.type == "cpu", f"the lane's 1-rank world took {world}")
+    built = sorted(_build.BUILD_DIR.glob("*.so")) if _build.BUILD_DIR.is_dir() else []
+    check(built == libraries, f"phase 13 built {sorted(set(built) - set(libraries))}")
+    report["seconds"] = time.perf_counter() - phase_start
+    print(f"# phase 13, JAX's chip lane: {len(report['cases'])} cases passed in "
+          f"{report['seconds']:.1f} s (the 1-rank world: {world}) | {card_line()}")
+    return report
 
 
 def card_line():
@@ -7334,6 +8538,10 @@ def main():
     # -- 12. the examples --------------------------------------------------------
     stamp("12")
     example_report = example_phase(dev, gen_plan, lq)
+
+    # -- 13. JAX's real-chip lane, tpu_tests/ --------------------------------------
+    stamp("13")
+    tpu_lane(dev, gen_plan)
 
     # -- 7. the kernels line and the last line ---------------------------------
     stamp("7")

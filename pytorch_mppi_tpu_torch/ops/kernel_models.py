@@ -195,16 +195,15 @@ def toy2d_model(dynamics: Callable, running_cost: Callable, B, goal, r: float,
                 hill_Q, hill_center, hill_cost: float) -> KernelModel:
     """Tag the 2-D navigation task's plain functions (``models/toy2d.py``)
     with the kernel's toy2d model: ``x' = x + u Bᵀ`` and the cost
-    ``‖goal − x'‖² + r‖u‖² + c0·exp(−(c − x')ᵀ Q_h (c − x'))``."""
-    B = torch.as_tensor(B, dtype=torch.float32)
-    nx, nu = B.shape
-    consts = torch.cat([
-        B.reshape(-1), torch.as_tensor(goal, dtype=torch.float32).reshape(-1),
-        torch.tensor([float(r)]),
-        torch.as_tensor(hill_Q, dtype=torch.float32).reshape(-1),
-        torch.as_tensor(hill_center, dtype=torch.float32).reshape(-1),
-        torch.tensor([float(hill_cost)]),
-    ]).cpu()
+    ``‖goal − x'‖² + r‖u‖² + c0·exp(−(c − x')ᵀ Q_h (c − x'))``.  The
+    constants may be on any device (the functions' own, as
+    :func:`linear_quadratic`'s); they are kept on the CPU."""
+    def flat(v):
+        return torch.as_tensor(v, dtype=torch.float32).detach().reshape(-1).cpu()
+
+    nx, nu = torch.as_tensor(B).shape
+    consts = torch.cat([flat(B), flat(goal), torch.tensor([float(r)]), flat(hill_Q),
+                        flat(hill_center), torch.tensor([float(hill_cost)])])
     if consts.numel() != nx * nu + 2 * nx + 2 + nx * nx:
         raise ValueError("toy2d_model needs goal (nx,), hill_Q (nx, nx) and hill_center (nx,)")
     return _tag(KernelModel("toy2d", TOY2D, nx, nu, consts, dynamics, running_cost))

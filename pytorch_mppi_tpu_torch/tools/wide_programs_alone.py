@@ -4,7 +4,8 @@ phase 4g's generated libraries built together (the named one in a thread,
 each generated one in a thread of its own, as phase 2 starts them), then
 ``chip_smoke.wide_programs`` (the swarm's five kernels, the step-4 program,
 the named LQ at nx = 64, the dense terminal beside the flagship's named
-model and the quadrotor's round-1 solve against their plain versions,
+model, the quadrotor's round-1 solve and the named toy2d at nx = 64
+against their plain versions,
 timed, and 10 swarm commands fused against plain), and its ``kernels``
 rows as one JSON line.
 
