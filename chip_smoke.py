@@ -185,8 +185,10 @@ the package is not beside it.  Phases, each fatal when it fails:
    ``logcumsumexp``, interior padding); the named ``linear_quadratic`` at
    nx = 64 (the trace of its callables); the flagship's named model beside
    a traced terminal cost with dense layers; the quadrotor's
-   ``ResidualMLPBlock`` in the round-1 solve; and the named toy2d at nx =
-   64; each against its plain
+   ``ResidualMLPBlock`` in the round-1 solve; the named toy2d at nx =
+   64; and the swarm near ``MAX_OPS`` (38 agents, 15,124 operations a step,
+   its library's functions in parts, a build of its own) in kernel A at T =
+   10; each against its plain
    version and a float64 rollout, timed beside its bound with its
    registers and spills, then 10 swarm commands of ``MPPI(...,
    use_pallas=True)`` with exactly 10 ``generated_mppi_block`` launches
@@ -473,8 +475,12 @@ TD_DOG_NU, TD_BATCH_N, TD_COMMANDS, TD_SHORT = 38, 16, 20, 5
 SWARM_AGENTS, SWARM_DT, SWARM_U, SWARM_COMMANDS = 16, 0.05, 2.0, 10
 SWARM_NX, SWARM_NU = 4 * SWARM_AGENTS, 2 * SWARM_AGENTS
 # ROADMAP Queue 2a's named toy2d beyond 32 states runs in phase 4g at nx =
-# SWARM_NX, nu = SWARM_NU (toy64_model); its program near MAX_OPS builds for
-# longer than this script's limit (pytorch_mppi_tpu_torch/tools/max_ops_alone.py)
+# SWARM_NX, nu = SWARM_NU (toy64_model), and its program near MAX_OPS: the swarm
+# at MAX_AGENTS agents (nx = 152, nu = 76, 15,124 scalar operations a step),
+# kernel A at K = 10,000, T = MAX_T, its library a build of its own beside the
+# others, its longest functions in parts of at most batch_last.CHUNK statements;
+# MAX_BUILD_S the most seconds of nvcc that library may take
+MAX_AGENTS, MAX_T, MAX_BUILD_S = 38, 10, 300
 STEP4_NX, STEP4_NU = 8, 4
 # the deployment phase (8): commands each artifact replays in a fresh process
 # against the live controller, commands timed for the medians (after a
@@ -1382,8 +1388,11 @@ def graph_loops(dev, lq, goal):
 
 def ptxas_entries(log):
     """Each kernel of ``nvcc -Xptxas -v`` output: ``{name, registers,
-    stack, spills, compile_ms}``."""
-    out, cur = [], None
+    stack, spills, compile_ms}``, and where it calls functions that are
+    not inlined (a generated program's ``__noinline__`` parts, whose
+    properties follow the kernel's), the largest stack frame and spill
+    stores among them, ``part_stack`` and ``part_spills``."""
+    out, cur, props = [], None, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
@@ -1392,9 +1401,15 @@ def ptxas_entries(log):
             continue
         if cur is None:
             continue
-        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", line)
+        m = re.search(r"Function properties for (\S+)", line)
         if m:
+            props = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", line)
+        if m and props == cur["name"]:
             cur.update(stack=int(m.group(1)), spills=int(m.group(2)))
+        elif m:
+            cur["part_stack"] = max(cur.get("part_stack", 0), int(m.group(1)))
+            cur["part_spills"] = max(cur.get("part_spills", 0), int(m.group(2)))
         m = re.search(r"Used (\d+) registers", line)
         if m:
             cur["registers"] = int(m.group(1))
@@ -2588,7 +2603,12 @@ def deployment(dev, lq, goal, mlp_params, plan):
       with stochastic dynamics, which take the plain path (no kernel, as in
       JAX), MPPI at the flagship with M = 4 rollouts of ``torch.randn`` from
       each step's generator, and SMPPI at the flagship with step-dependent
-      dynamics that draw with ``Tensor.normal_``: the programs take the
+      dynamics that draw with ``Tensor.normal_``, and MPPI at the flagship
+      with a Bernoulli-gated impulse, a state-scaled normal
+      (``torch.bernoulli(p)``, ``torch.normal(0, std)``: draws with tensor
+      arguments, fed as their base draws; whether torch's own ops draw the
+      same on the card is printed) and exponential noise on a drawn
+      permutation (``Tensor.exponential_``, ``torch.randperm``): the programs take the
       draws as inputs (the bytes fed a command printed; refinement on
       stochastic dynamics, whose export traces its backward pass for about
       50 s at M = 4, is phase 10e's and the CPU tests');
@@ -2664,6 +2684,21 @@ def deployment(dev, lq, goal, mlp_params, plan):
         growing with the step (step_dependent_dynamics)."""
         return lq.dynamics(s_, a) + STOCH_SCALE * (1.0 + 0.02 * t) * torch.empty_like(
             s_).normal_(generator=rng)
+
+    def gated_lq(s_, a, rng):
+        """The flagship's plant plus an impulse of STOCH_SCALE gated by a
+        Bernoulli draw whose probability the state sets, a normal of
+        state-scaled deviation (draws with tensor arguments,
+        ``torch.bernoulli(p)`` and ``torch.normal(0, std)``, fed as their
+        base draws), and exponential noise on a drawn permutation of the
+        state (``Tensor.exponential_``, ``torch.randperm``, replayed as
+        themselves)."""
+        gate = torch.bernoulli(torch.sigmoid(s_).clamp(0.1, 0.9), generator=rng)
+        std = STOCH_SCALE * (1.0 + 0.1 * s_.abs())
+        e = torch.empty_like(s_).exponential_(4.0, generator=rng)
+        perm = torch.randperm(s_.shape[-1], generator=rng, device=s_.device)
+        return (lq.dynamics(s_, a) + STOCH_SCALE * gate + torch.normal(0.0, std, generator=rng)
+                + STOCH_SCALE * torch.index_select(e, -1, perm))
 
     def lq_cost_step(s_, a, t):
         return lq.running_cost(s_, a)
@@ -2741,7 +2776,23 @@ def deployment(dev, lq, goal, mlp_params, plan):
                              action_min=torch.tensor([-3.0, -3.0]),
                              action_max=torch.tensor([3.0, 3.0])),
             lq_plant, flag_x0, {}),
+        "mppi plain, stochastic, bernoulli(p), normal(0, std), exponential_, randperm": (
+            lambda: flagship(fns=(gated_lq, lq.running_cost), stochastic_dynamics=True),
+            lq_plant, flag_x0, {}),
     }
+    # whether torch's own draws with tensor arguments consume a CUDA generator
+    # as the base draws the port defines them by (ops/solve._based): printed
+    p_ = torch.rand(4096, device=dev)
+
+    def g5():
+        return torch.Generator(device=dev).manual_seed(5)
+
+    own = [torch.bernoulli(p_, generator=g5()), torch.normal(0.0, p_, generator=g5())]
+    base = [(torch.rand(4096, device=dev, generator=g5()) < p_).float(),
+            p_ * torch.randn(4096, device=dev, generator=g5())]
+    print(f"# deploy: torch's own draws on the card equal their base draws: bernoulli(p) "
+          f"{torch.equal(own[0], base[0])}, normal(0, std) {torch.equal(own[1], base[1])} (the "
+          f"port draws the base draws in both the live and the served command)")
     cold = None
     jobs = {"artifacts": [], "warmup": DEPLOY_WARMUP, "timed": DEPLOY_TIMED, "device": str(dev)}
     live = {}
@@ -4365,6 +4416,18 @@ def wide_plan(dev):
     models["toy64 named"] = toy64_model(dev)
     models["toy64"] = BL.kernel_device_model(cfg, models["toy64 named"])
     plan["toy64 mppi"] = (BL.generated_kernel(models["toy64"], None), FS.MPPI)
+    start = time.perf_counter()
+    fns["swarm max"] = swarm_callables(dev, MAX_AGENTS)
+    models["swarm max"] = BL.kernel_model(
+        MPPIConfig(nx=4 * MAX_AGENTS, nu=2 * MAX_AGENTS, K=K, T=MAX_T), *fns["swarm max"])
+    near = BL.generated_kernel(models["swarm max"], None)
+    plan["swarm max mppi"] = (near, FS.MPPI)
+    print(f"# traced swarm near MAX_OPS [{MAX_AGENTS} agents] nx={4 * MAX_AGENTS} "
+          f"nu={2 * MAX_AGENTS}: {time.perf_counter() - start:.1f} s to trace; "
+          f"{BL._count_ops(models['swarm max'].program, models['swarm max'].outputs)} scalar "
+          f"operations a step (the bound MAX_OPS {BL.MAX_OPS}); header {len(near.header())} "
+          f"characters, {near.header().count('__noinline__')} functions in parts of at most "
+          f"{BL.CHUNK} statements")
     return fns, models, plan
 
 
@@ -4450,9 +4513,11 @@ def wide_programs(dev, gen, plan):
         log = _build.generated_path(kernel.header(), variant_mask(variant)).with_suffix(
             ".log").name
         for e in (e for e in ptxas if e["log"] == log):
+            parts = (f", its parts up to {e['part_spills']} bytes spill stores and "
+                     f"{e['part_stack']} bytes stack frame" if "part_stack" in e else "")
             print(f"# ptxas [{label}: {e['name']}]: {e.get('registers')} registers, "
-                  f"{e.get('spills')} bytes spill stores, {e.get('stack')} bytes stack frame, "
-                  f"{e['blocks_by_registers']} blocks an SM by registers")
+                  f"{e.get('spills')} bytes spill stores, {e.get('stack')} bytes stack frame"
+                  f"{parts}, {e['blocks_by_registers']} blocks an SM by registers")
         entries = [e for e in ptxas if e["log"] == log]
         check(entries, f"no generated kernel of [{label}] in its build log {log}")
         if entries:
@@ -4461,6 +4526,10 @@ def wide_programs(dev, gen, plan):
                 spills=max(e.get("spills", 0) for e in entries),
                 stack=max(e.get("stack", 0) for e in entries),
                 blocks_by_registers=min(e["blocks_by_registers"] for e in entries))
+            if any("part_stack" in e for e in entries):  # the functions the kernels call
+                report["ptxas_of"][label].update(
+                    part_spills=max(e.get("part_spills", 0) for e in entries),
+                    part_stack=max(e.get("part_stack", 0) for e in entries))
     print(f"# phase 4g libraries, nvcc seconds: {report['build_s']} | registers and spill "
           f"stores (the largest of each library's kernels): {report['ptxas_of']}")
 
@@ -4485,12 +4554,19 @@ def wide_programs(dev, gen, plan):
     kernel_a("dense terminal mppi", "mppi", lq, NX, NU, terminal=terminal,
              terminal_fn=fns["dense terminal"], x0=torch.tensor([-3.0, -2.0], device=dev),
              expect={"generated_mppi_block": 1})
-    # ROADMAP Queue 2a: the named toy2d beyond 32 states (its other case, the
-    # program near MAX_OPS, builds too long for this script:
-    # tools/max_ops_alone.py)
+    # ROADMAP Queue 2a: the named toy2d beyond 32 states, and the program near
+    # MAX_OPS, whose library (in parts) built beside the others
     kernel_a("toy64 mppi", "mppi", models["toy64 named"], SWARM_NX, SWARM_NU,
              x0=torch.rand(SWARM_NX, generator=gen, device=dev) * 2 - 1,
              expect={"generated_mppi_block": 1})
+    max_s = report["build_s"].get("swarm max mppi")
+    print(f"# swarm near MAX_OPS [{MAX_AGENTS} agents]: its kernel A library took {max_s} s of "
+          f"nvcc (the most allowed {MAX_BUILD_S} s) | {card_line()}")
+    check(max_s is not None and max_s <= MAX_BUILD_S,
+          f"the swarm near MAX_OPS took {max_s} s of nvcc, more than {MAX_BUILD_S}")
+    kernel_a("swarm max mppi", "mppi", fns["swarm max"], 4 * MAX_AGENTS, 2 * MAX_AGENTS,
+             x0=swarm_x0(gen, dev, agents=MAX_AGENTS), expect={"generated_mppi_block": 1},
+             T=MAX_T)
 
     # the swarm's batched pair: BATCH_SMALL_N swarms, each its own state
     D = T * SWARM_NU
@@ -4774,19 +4850,24 @@ def wide_program_rows(report):
                           "rowmajor", None),
         "toy64 mppi": ("mppi_fused_partial<Generated, 32, ..., kMPPI>, Generated::kBlock", 512,
                        "generated_mppi_block", "toy64 mppi"),
+        "swarm max mppi": ("mppi_fused_partial<Generated, 32, ..., kMPPI>, Generated::kPerSample,"
+                           " its functions in parts", 512, "generated_mppi_block",
+                           "swarm max mppi"),
     }
     what = {"swarm": f"the swarm, {SWARM_AGENTS} agents, nx={SWARM_NX} nu={SWARM_NU}",
             "step4": f"the step-4 primitives' program, nx={STEP4_NX} nu={STEP4_NU}",
             "lq64": f"named linear_quadratic traced, nx={SWARM_NX} nu={SWARM_NU}",
             "dense": "named linear_quadratic beside a traced terminal cost with dense layers",
             "quad": f"round-1 solve, block residual MLP: the quadrotor {QUAD_SIZES}",
-            "toy64": f"named toy2d traced, nx={SWARM_NX} nu={SWARM_NU}"}
+            "toy64": f"named toy2d traced, nx={SWARM_NX} nu={SWARM_NU}",
+            "swarm max": f"the swarm near MAX_OPS, {MAX_AGENTS} agents, nx={4 * MAX_AGENTS} "
+                         f"nu={2 * MAX_AGENTS}, T={MAX_T}"}
     for key, (inst, line, count, label) in insts.items():
         d_ms, p_ms, b_ms, b_by = report["timed"][key]
         launches = (report["loop"]["launches"].get(count, 0) if key == "swarm mppi"
                     else report["launches"][key].get(count, 0))
         rows.append({
-            "name": f"fused_mppi {key}, {what[key.split()[0]]} ({inst})",
+            "name": f"fused_mppi {key}, {what.get(key[:9], what[key.split()[0]])} ({inst})",
             "route": "cuda",
             "source": "pytorch_mppi_tpu_torch/csrc/fused_mppi.cu",
             "model_source": "pytorch_mppi_tpu_torch/ops/batch_last.py",

@@ -116,6 +116,14 @@ def generated_path(header: str, mask: int) -> Path:
     return BUILD_DIR / f"generated-{digest.hexdigest()[:16]}.so"
 
 
+def generated_command(nvcc: str, model: Path, mask: int, out: Path, extra=()) -> list:
+    """The ``nvcc`` command that builds the library ``out`` of the header
+    file ``model`` and the variants of ``mask`` (``extra``: more flags, such
+    as ``--time``, which leave the library's name as it is)."""
+    return [nvcc, *NVCC_FLAGS, *extra, f"-DFUSED_MPPI_GENERATED={int(mask)}",
+            f'-DFUSED_MPPI_MODEL_HEADER="{model}"', "-shared", "-o", str(out), str(SOURCE)]
+
+
 def build_generated(header: str, mask: int):
     """Compile ``fused_mppi.cu`` with a generated model's ``header`` (the
     struct ``Generated``) and the kernels of the variants of ``mask`` (bits
@@ -132,14 +140,22 @@ def build_generated(header: str, mask: int):
         model = Path(tmpdir) / "generated_model.cuh"
         model.write_text(header)
         tmp = Path(tmpdir) / out.name
-        log = _run([subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, f"-DFUSED_MPPI_GENERATED={int(mask)}",
-             f'-DFUSED_MPPI_MODEL_HEADER="{model}"', "-shared", "-o", str(tmp), str(SOURCE)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)])
-        out.with_suffix(".cuh").write_text(header)
-        out.with_suffix(".log").write_text("".join(log))
-        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+        log = _run([subprocess.Popen(generated_command(nvcc, model, mask, tmp),
+                                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                     text=True)])
+        install_generated(header, mask, tmp, "".join(log))
     return time.perf_counter() - start, "".join(log)
+
+
+def install_generated(header: str, mask: int, built: Path, log: str) -> Path:
+    """Move the library ``built`` of ``header`` and ``mask`` where
+    :func:`load_generated` finds it, its header and compiler output beside
+    it; returns its path."""
+    out = generated_path(header, mask)
+    out.with_suffix(".cuh").write_text(header)
+    out.with_suffix(".log").write_text(log)
+    os.replace(built, out)  # atomic: a concurrent loader never sees half a file
+    return out
 
 
 def load_generated(header: str, mask: int):

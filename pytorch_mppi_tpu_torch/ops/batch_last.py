@@ -136,6 +136,7 @@ from .kernel_models import GENERATED, KernelModel, KernelTerminal, find_kernel_m
 
 PROBE_BATCH = 509  # the batch the callables are traced at (a prime no feature axis is)
 MAX_OPS = 16_384  # scalar operations of one step besides dense layers: dynamics and running cost
+CHUNK = 4_096  # the most statements of one emitted function (Program.emit_parts)
 MAXN = 32  # the largest nx or nu of a per-sample device model (MAXN in fused_mppi.cu)
 # the activation row of a per-sample program beyond MAXN, which keeps its state
 # in the block kernels' shared memory and writes no activation: the least row
@@ -398,6 +399,130 @@ class Program:
             lines.append(f"{indent}const {_C_TYPE[self.kind(n)]} v{n} = "
                          f"{self._expr(n, lambda i: f'v{i}')};")
         return lines, [f"v{o}" for o in outputs]
+
+    def emit_parts(self, outputs, name: str, t: str = "t") -> tuple:
+        """(members, statements, names): :meth:`emit`'s statements and names,
+        and no members, where the program has at most ``CHUNK`` live nodes;
+        else the program as a run of ``__noinline__`` functions ``{name}0``,
+        ``{name}1``, ... (the members), each of at most ``CHUNK``
+        statements, and statements that call them in order (``t`` the
+        enclosing function's step).  One long run of statements costs
+        ``nvcc``'s front end (``cudafe++``, ``cicc``) far more than linear
+        time (``PERF.md`` §6); so each part holds consecutive nodes
+        of :meth:`_depth_first`'s order, each node's expression as
+        :meth:`emit` writes it (the same float32 operations on the same
+        operands), reading the leaves where it uses them and a value of an
+        earlier part from the caller's scratch rows (``sf``, ``si``,
+        ``sb``: float, integer and bool, in local memory), where a part
+        writes each value that a later part or an output reads.  A slot
+        serves again once the last part that reads its value has run.  The
+        names of the outputs are their slots; a leaf output (a state
+        element moved unchanged, as a shift or a roll of the state moves
+        it) is copied into a local first, as :meth:`emit` copies it, since
+        the caller may write ``x`` in place."""
+        live = self.live(outputs)
+        if len(live) <= CHUNK:
+            body, names = self.emit(outputs)
+            return [], body, names
+        if any(self.nodes[n][0] in ("dense", "dout") for n in live):
+            raise ValueError("a program with dense layers is emitted by emit_block")
+        comp = self._depth_first(outputs)
+        at = {n: i for i, n in enumerate(comp)}
+        last = dict(at)  # node -> the last position that reads it
+        for i, n in enumerate(comp):
+            for a in self.nodes[n][2:]:
+                if a in at:
+                    last[a] = i
+        for o in outputs:
+            if o in at:
+                last[o] = len(comp)
+        # consecutive runs of at most CHUNK statements: a node and, where a
+        # later run reads it, its store
+        parts, start = [], 0
+        while start < len(comp):
+            end, stores, ending = start, 0, {}  # ending: last read -> stores it ends
+            while end < len(comp):
+                n = comp[end]
+                # node `end` joins: the values it reads last need no store
+                grown = stores - ending.get(end, 0) + (last[n] > end)
+                if end + 1 - start + grown > CHUNK and end > start:
+                    break
+                if last[n] > end:
+                    ending[last[n]] = ending.get(last[n], 0) + 1
+                stores, end = grown, end + 1
+            parts.append((start, end))
+            start = end
+        part_of = [p for p, (a, b) in enumerate(parts) for _ in range(a, b)]
+        # the slots: a value written by part p and last read by part q (or the
+        # caller, len(parts)) holds its slot from p to q
+        arrays = {F: "sf", I: "si", B: "sb"}
+        size, free, slot, release = {F: 0, I: 0, B: 0}, {F: [], I: [], B: []}, {}, {}
+        for p, (a, b) in enumerate(parts):
+            for n in release.pop(p, []):
+                free[self.kind(n)].append(slot[n])
+            for i in range(a, b):
+                n = comp[i]
+                if last[n] < b:
+                    continue
+                kind = self.kind(n)
+                if free[kind]:
+                    slot[n] = free[kind].pop()
+                else:
+                    slot[n], size[kind] = size[kind], size[kind] + 1
+                reader = len(parts) if last[n] == len(comp) else part_of[last[n]]
+                release.setdefault(reader + 1, []).append(n)
+
+        def leaf_or_slot(p):
+            def name(a):
+                if a not in at:
+                    return self._expr(a, None)
+                return f"v{a}" if part_of[at[a]] == p else f"{arrays[self.kind(a)]}[{slot[a]}]"
+            return name
+
+        members = []
+        for p, (a, b) in enumerate(parts):
+            members += [f"  __device__ __noinline__ static void {name}{p}(const float* c, "
+                        "const float* x, const float* u, int t, float* sf, long long* si, "
+                        "bool* sb) {"]
+            name_of = leaf_or_slot(p)
+            for i in range(a, b):
+                n = comp[i]
+                members.append(f"    const {_C_TYPE[self.kind(n)]} v{n} = "
+                               f"{self._expr(n, name_of)};")
+                if last[n] >= b:
+                    members.append(f"    {arrays[self.kind(n)]}[{slot[n]}] = v{n};")
+            members.append("  }")
+        body = [f"    {_C_TYPE[k]} {arrays[k]}[{size[k]}];" for k in (F, I, B) if size[k]]
+        args = ", ".join(arrays[k] if size[k] else "nullptr" for k in (F, I, B))
+        body += [f"    {name}{p}(c, x, u, {t}, {args});" for p in range(len(parts))]
+        caller, names = leaf_or_slot(len(parts)), []
+        for o in outputs:
+            if o not in at and f"v{o}" not in names:
+                body.append(f"    const {_C_TYPE[self.kind(o)]} v{o} = {self._expr(o, None)};")
+            names.append(f"v{o}" if o not in at else caller(o))
+        return members, body, names
+
+    def _depth_first(self, outputs) -> list:
+        """The live nodes but the leaves, each after its operands and as
+        soon after them as a depth-first walk from the outputs allows: a
+        value is used near where it is made, so few values cross from one
+        part to another (:meth:`live`'s order, the tracer's, makes each
+        torch op's nodes for every element in turn).  Every node keeps its
+        expression and operands: only independent statements move."""
+        order, done = [], set()
+        for o in outputs:
+            stack = [(o, False)]
+            while stack:
+                n, ready = stack.pop()
+                if ready:
+                    order.append(n)
+                    continue
+                if n in done or self.nodes[n][0] in _LEAVES:
+                    continue
+                done.add(n)
+                stack.append((n, True))
+                stack += [(a, False) for a in reversed(self.nodes[n][2:]) if a not in done]
+        return order
 
     def _expr(self, n: int, name) -> str:
         """Node ``n``'s C expression, its arguments named by ``name(id)``."""
@@ -752,6 +877,7 @@ class Program:
             return functor(e["post"], r0, e["results"][0], e["stride"], named), nm["eps"]
 
         return types.SimpleNamespace(layers=self.dense_layers(outputs), half=half, last=last,
+                                     outputs=list(outputs),
                                      carried=carried, prefix=prefix, final=final,
                                      segment=segment, pre=pre_unit, post=post_unit)
 
@@ -858,10 +984,16 @@ class Program:
             return [line for part in parts for line in ("    {", *[f"  {x}" for x in part],
                                                         "    }")]
 
+        first = combined(0)
+        if not total and phases[0].final == "x":  # beyond CHUNK: begin calls its parts
+            parts, body, names = self.emit_parts(phases[0].outputs, "begin_part")
+            if parts:
+                lines += parts
+                first = [*body, *[f"    x[{i}] = {nm};" for i, nm in enumerate(names)]]
         lines += ["  template <int N>",  # without layers, begin steps the state: x is written
                   f"  __device__ static void begin(const float* c, {'const ' if total else ''}"
                   "float* x, const float* u, int, int, int t, Carry& k, float* row, int half) {",
-                  *combined(0), "  }",
+                  *first, "  }",
                   "  template <int N>",
                   "  __device__ static void after(int l, const float* c, float* x, const float* u, "
                   "int, int, int t, Carry& k, float* row, int half) {",
@@ -2527,14 +2659,14 @@ def _header(model: KernelModel, terminal: Optional[GeneratedTerminal]) -> str:
             # a running cost with dense layers runs in the step, after the dynamics
             lines += prog.emit_block(list(model.outputs[:nx]), cost if dense_cost else None)
         else:
-            body, names = prog.emit(list(model.outputs[:nx]))
-            lines += ["  template <int N>",
+            parts, body, names = prog.emit_parts(list(model.outputs[:nx]), "step_part")
+            lines += [*parts, "  template <int N>",
                       "  __device__ static void step(const float* c, float* x, const float* u, "
                       "int, int, int t) {", *body,
                       *[f"    x[{i}] = {nm};" for i, nm in enumerate(names)], "  }"]
         if not dense_cost:
-            body, names = prog.emit([cost])
-            lines += ["  template <int N>",
+            parts, body, names = prog.emit_parts([cost], "cost_part")
+            lines += [*parts, "  template <int N>",
                       "  __device__ static float cost(const float* c, const float* x, "
                       "const float* u, int, int, int t) {", *body,
                       f"    return {names[0]};", "  }"]
@@ -2547,8 +2679,8 @@ def _header(model: KernelModel, terminal: Optional[GeneratedTerminal]) -> str:
     if dense_terminal:
         lines += terminal.program.emit_terminal(terminal.output)
     elif terminal:
-        body, names = terminal.program.emit([terminal.output])
-        lines += ["  template <int N>",
+        parts, body, names = terminal.program.emit_parts([terminal.output], "terminal_part", "0")
+        lines += [*parts, "  template <int N>",
                   "  __device__ static float terminal(const float* c, const float* x, "
                   "const float* u, int, int) {", *body, f"    return {names[0]};", "  }"]
     lines.append("};")

@@ -143,11 +143,24 @@ def standard_normal(generator, shape, dtype, device) -> torch.Tensor:
 _ITEM_10 = "ROADMAP.md Queue 1 item 10"
 # the draws whose values depend only on the generator and on the arguments
 # recorded (Draw)
-_VOCABULARY = ("torch.randn", "torch.rand", "torch.randint", "torch.normal",
-               "Tensor.normal_", "Tensor.uniform_")
+_VOCABULARY = ("torch.randn", "torch.rand", "torch.randint", "torch.normal", "torch.randperm",
+               "torch.bernoulli", "Tensor.bernoulli", "Tensor.normal_", "Tensor.uniform_",
+               "Tensor.exponential_", "Tensor.bernoulli_", "Tensor.random_", "Tensor.cauchy_",
+               "Tensor.log_normal_", "Tensor.geometric_")
 # the scalar arguments of the in-place draws, after their tensor, with defaults
 _METHOD_ARGS = {"Tensor.normal_": (("mean", 0.0), ("std", 1.0)),
-                "Tensor.uniform_": (("from", 0.0), ("to", 1.0))}
+                "Tensor.uniform_": (("from", 0.0), ("to", 1.0)),
+                "Tensor.exponential_": (("lambd", 1.0),),
+                "Tensor.bernoulli_": (("p", 0.5),),
+                "Tensor.cauchy_": (("median", 0.0), ("sigma", 1.0)),
+                "Tensor.log_normal_": (("mean", 1.0), ("std", 2.0)),
+                "Tensor.geometric_": (("p", None),),
+                "Tensor.random_": (("from", None), ("to", None))}
+# the draws whose values depend on tensor arguments: the port defines them by
+# a draw of the vocabulary and arithmetic on those arguments (_based), the
+# functions that make them (_BasedDraws tests a call against these first)
+_BASED = ("torch.bernoulli", "Tensor.bernoulli", "torch.normal")
+_BASED_FUNCS = frozenset((torch.bernoulli, torch.Tensor.bernoulli, torch.normal))
 
 
 class Draw(NamedTuple):
@@ -174,36 +187,115 @@ def _op_name(func) -> str:
     return f"Tensor.{name}" if method else f"torch.{name}"
 
 
+def _based(func, args, kwargs):
+    """For a draw whose values depend on tensor arguments (``_BASED``:
+    ``torch.bernoulli(p)``, ``torch.normal`` with a tensor mean or std),
+    its base draw, which depends on the generator and a shape alone, and
+    the function of that draw's values that gives the result; else None.
+    The port defines these draws so, as ``jax.random`` defines its own:
+    Bernoulli(p) of a tensor p is ``U < p`` for U uniform in [0, 1) of p's
+    shape and dtype, and N(mean, std) is ``mean + std * Z`` for Z standard
+    normal of their broadcast shape.  A call with ``out=`` has none, and so
+    has ``bernoulli(input, p)`` with a number p, a draw of the vocabulary."""
+    op = _op_name(func)
+    if op not in _BASED or kwargs.get("out") is not None:
+        return None
+    if op == "torch.normal":
+        named = dict(zip(("mean", "std"), args))
+        named.update({k: kwargs[k] for k in ("mean", "std") if k in kwargs})
+        mean, std = named.get("mean", 0.0), named.get("std", 1.0)
+        tensors = [v for v in (mean, std) if isinstance(v, torch.Tensor)]
+        if not tensors or len(args) > 2 or "size" in kwargs:
+            return None
+        shape = torch.broadcast_shapes(*(v.shape for v in tensors))
+        dtype = torch.result_type(mean, std)
+        base = Draw("torch.randn", tuple(shape), str(dtype).removeprefix("torch."), ())
+        return base, tensors[0].device, lambda z: mean + std * z
+    like = args[0] if args else kwargs["input"]
+    if len(args) > 1 or "p" in kwargs:  # a scalar p: a draw of the vocabulary
+        return None
+    p = like
+    base = Draw("torch.rand", tuple(like.shape), str(like.dtype).removeprefix("torch."), ())
+    return base, like.device, lambda u: (u < p).to(like.dtype)
+
+
+class _BasedDraws(torch.overrides.TorchFunctionMode):
+    """Within the user's stochastic dynamics (:func:`wrap_dynamics`), a
+    draw from their step's ``generator`` whose values depend on tensor
+    arguments (:func:`_based`) made as its base draw and the arithmetic on
+    it, so that the live command and a fed one (:func:`fed_draws`, which
+    answers the base draw) compute the same values on every device.  It
+    sees every torch call of the dynamics, so a call that is not one of
+    ``_BASED_FUNCS`` with this generator runs at once."""
+
+    def __init__(self, generator: torch.Generator):
+        super().__init__()
+        self.generator = generator
+        self.made = False  # whether a draw was made as its base draw
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if func in _BASED_FUNCS and kwargs and kwargs.get("generator") is self.generator:
+            based = _based(func, args, kwargs)
+            if based is not None:
+                base, device, result = based
+                self.made = True
+                return result(_replay(base, self.generator, device))
+        return func(*args, **(kwargs or {}))
+
+
 def _draw_of(func, args, kwargs) -> Draw:
     """The :class:`Draw` of a call to ``func`` that takes a fed generator;
-    ``NotImplementedError`` for an op outside the vocabulary, or with an
-    argument whose value is a tensor's."""
+    ``NotImplementedError`` for an op outside the vocabulary, with ``out=``,
+    with an argument whose value is a tensor's (within the dynamics' step
+    :class:`_BasedDraws` has made ``_BASED``'s draws their base draws), or
+    with a shape given by a tensor's value."""
     op = _op_name(func)
     if op not in _VOCABULARY or kwargs.get("out") is not None:
         raise NotImplementedError(
             f"{op} draws from the generator of stochastic dynamics, and only "
-            f"{', '.join(_VOCABULARY)} with scalar arguments and no out= have a fed form "
-            f"(the deploy artifact and the population evaluator take the draws as inputs); "
+            f"{', '.join(_VOCABULARY)} with scalar arguments and no out=, and "
+            f"{', '.join(_BASED)} with tensor arguments and no out=, have a fed form (the "
+            f"deploy artifact and the population evaluator take the draws as inputs); "
             f"see {_ITEM_10}")
 
     def scalar(value):
         if isinstance(value, torch.Tensor):
             raise NotImplementedError(
-                f"{op} takes a tensor argument: its draws have no fed form; see {_ITEM_10}")
+                f"{op} takes a tensor argument: its draws have a fed form only as their base "
+                f"draws in the step of stochastic dynamics (wrap_dynamics); see {_ITEM_10}")
         return value
 
     def size(value):
         if len(value) == 1 and isinstance(value[0], (tuple, list, torch.Size)):
             value = value[0]
+        if any(isinstance(n, torch.Tensor) for n in value):
+            raise NotImplementedError(
+                f"{op} takes its shape from a tensor's value: a draw whose shape depends on "
+                f"the data has no fed form; see {_ITEM_10}")
         return tuple(int(n) for n in value)
 
     if op in _METHOD_ARGS:
         self, rest = args[0], args[1:]
-        scalars = tuple(scalar(rest[i] if i < len(rest) else kwargs.get(n, d))
-                        for i, (n, d) in enumerate(_METHOD_ARGS[op]))
+        if op == "Tensor.random_":  # random_(), random_(to) or random_(from, to)
+            to_only = len(rest) == 1 and "to" not in kwargs
+            named = dict(zip(("from", "to"), (0, *rest) if to_only else rest))
+            named.update({k: kwargs[k] for k in ("from", "to") if k in kwargs})
+            scalars = (() if not named else
+                       (scalar(named.get("from", 0)), scalar(named.get("to"))))
+        else:
+            scalars = tuple(scalar(rest[i] if i < len(rest) else kwargs.get(n, d))
+                            for i, (n, d) in enumerate(_METHOD_ARGS[op]))
         return Draw(op, tuple(self.shape), str(self.dtype).removeprefix("torch."), scalars)
     rest = list(args)
-    if op == "torch.randint":
+    if op in ("torch.bernoulli", "Tensor.bernoulli"):  # bernoulli(input, p): input's shape
+        like = rest[0] if rest else kwargs["input"]
+        scalars = (scalar(rest[1] if len(rest) > 1 else kwargs.get("p", like)),)
+        shape, dtype = tuple(like.shape), like.dtype
+    elif op == "torch.randperm":
+        n = kwargs["n"] if "n" in kwargs else rest.pop(0)
+        (n,) = size((n,))
+        scalars, shape, dtype = (n,), (n,), torch.int64
+    elif op == "torch.randint":
         shape = kwargs["size"] if "size" in kwargs else rest.pop()
         high = kwargs["high"] if "high" in kwargs else rest.pop()
         low = kwargs["low"] if "low" in kwargs else (rest.pop() if rest else 0)
@@ -211,10 +303,9 @@ def _draw_of(func, args, kwargs) -> Draw:
     elif op == "torch.normal":
         named = dict(zip(("mean", "std", "size"), rest))
         named.update({k: kwargs[k] for k in ("mean", "std", "size") if k in kwargs})
+        scalars = (scalar(named.get("mean", 0.0)), scalar(named.get("std", 1.0)))
         if "size" not in named:
-            raise NotImplementedError(
-                f"{op} with tensor mean or std: its draws have no fed form; see {_ITEM_10}")
-        scalars = (scalar(named["mean"]), scalar(named["std"]))
+            raise NotImplementedError(f"{op} without a size has no fed form; see {_ITEM_10}")
         shape, dtype = size((named["size"],)), torch.get_default_dtype()
     else:
         scalars = ()
@@ -224,11 +315,13 @@ def _draw_of(func, args, kwargs) -> Draw:
     return Draw(op, shape, str(dtype).removeprefix("torch."), scalars)
 
 
-def _replay(draw: Draw, generator: torch.Generator) -> torch.Tensor:
+def _replay(draw: Draw, generator: torch.Generator, device=None) -> torch.Tensor:
     """The values of ``draw`` from ``generator``: the call that made it,
-    on the generator's device."""
+    on the generator's device (or ``device``, where the draw's tensors
+    are: a CUDA device named without its index)."""
     dtype = getattr(torch, draw.dtype)
-    kw = dict(dtype=dtype, device=generator.device, generator=generator)
+    device = generator.device if device is None else device
+    kw = dict(dtype=dtype, device=device, generator=generator)
     if draw.op == "torch.randn":
         return torch.randn(draw.shape, **kw)
     if draw.op == "torch.rand":
@@ -237,9 +330,12 @@ def _replay(draw: Draw, generator: torch.Generator) -> torch.Tensor:
         return torch.randint(*draw.scalars, draw.shape, **kw)
     if draw.op == "torch.normal":
         return torch.normal(*draw.scalars, draw.shape, **kw)
-    out = torch.empty(draw.shape, dtype=dtype, device=generator.device)
-    method = out.normal_ if draw.op == "Tensor.normal_" else out.uniform_
-    return method(*draw.scalars, generator=generator)
+    if draw.op == "torch.randperm":
+        return torch.randperm(*draw.scalars, **kw)
+    out = torch.empty(draw.shape, dtype=dtype, device=device)
+    if draw.op in ("torch.bernoulli", "Tensor.bernoulli"):
+        return torch.bernoulli(out, *draw.scalars, generator=generator)
+    return getattr(out, draw.op.removeprefix("Tensor."))(*draw.scalars, generator=generator)
 
 
 def _transformed() -> bool:
@@ -838,13 +934,31 @@ def wrap_dynamics(config: MPPIConfig, dynamics: Callable) -> Callable:
     ``dynamics(state, u, rng)`` or ``dynamics(state, u, t, rng)``, where JAX
     passes a per-step key.  With ``parameterized_dynamics`` the dynamics
     parameters (a tensor, or a tuple, list or dict of tensors: a learned
-    model's weights) lead: ``dynamics(params, state, u[, t][, rng])``."""
+    model's weights) lead: ``dynamics(params, state, u[, t][, rng])``.
+
+    Stochastic dynamics run within :class:`_BasedDraws` on their generator
+    at each step ``t`` where their first call drew with tensor arguments;
+    the first call at a step learns that, and a step where it drew none
+    runs without the interception, whose Python call on every torch op
+    would slow the host-bound plain path by more than its draws cost
+    (``PERF.md`` §6).  A plan of draws is fixed for every command
+    (:func:`record_draws`), so the first call at a step speaks for the
+    rest."""
     lead, step, stochastic = (config.parameterized_dynamics, config.step_dependent_dynamics,
                               config.stochastic_dynamics)
+    based = {}  # step -> whether the dynamics' first call there drew with tensor arguments
 
     def call(s, u, t, rng=None, p=None):
-        return dynamics(*((p,) if lead else ()), s, u, *((t,) if step else ()),
-                        *((rng,) if stochastic else ()))
+        args = (*((p,) if lead else ()), s, u, *((t,) if step else ()),
+                *((rng,) if stochastic else ()))
+        key = t if isinstance(t, int) else None
+        if not isinstance(rng, torch.Generator) or based.get(key) is False:
+            return dynamics(*args)
+        mode = _BasedDraws(rng)
+        with mode:  # draws with tensor arguments as their base draws
+            out = dynamics(*args)
+        based.setdefault(key, mode.made)
+        return out
 
     return _adapt_batch_rank(call)
 

@@ -530,9 +530,18 @@ class TestOperators:
 
 
 # stochastic dynamics whose draws have no fed form: the draw of an op
-# outside the vocabulary of ops/solve.Draw, and torch.normal with a tensor mean
+# outside the vocabulary of ops/solve.Draw (torch.multinomial), and
+# torch.normal with a tensor mean into out=
 UNFED = {
-    "stochastic": lambda s, a, rng: linear_dynamics(s, a) + 0.1 * torch.bernoulli(
+    "stochastic": lambda s, a, rng: linear_dynamics(s, a) + 0.1 * torch.multinomial(
+        torch.ones(s.shape[0], 4), 1, generator=rng).to(s.dtype),
+    "tensor_mean": lambda s, a, rng: linear_dynamics(s, a) + torch.normal(
+        torch.zeros_like(s), 0.1, generator=rng, out=torch.empty_like(s)),
+}
+# stochastic dynamics whose draws have tensor arguments, refused before their
+# base draws were fed: torch.bernoulli(p) and torch.normal with a tensor mean
+FED_SINCE = {
+    "bernoulli": lambda s, a, rng: linear_dynamics(s, a) + 0.1 * torch.bernoulli(
         torch.full_like(s, 0.5), generator=rng),
     "tensor_mean": lambda s, a, rng: linear_dynamics(s, a) + torch.normal(
         torch.zeros_like(s), 0.1, generator=rng),
@@ -547,10 +556,23 @@ class TestRefusals:
         ROADMAP.md Queue 1 item 10, and no file is written."""
         ctrl = _mk(dynamics=UNFED[what], stochastic_dynamics=True)
         ctrl.command(torch.zeros(2))
-        op = "torch.bernoulli" if what == "stochastic" else "torch.normal"
+        op = "torch.multinomial" if what == "stochastic" else "torch.normal"
         with pytest.raises(NotImplementedError, match=f"{op}.*ROADMAP.md Queue 1 item 10"):
             deploy.export_solver(ctrl, str(tmp_path / "x.npz"))
         assert not (tmp_path / "x.npz").exists()
+
+    @pytest.mark.parametrize("what", sorted(FED_SINCE))
+    def test_draws_with_tensor_arguments_export(self, tmp_path, what):
+        """The draws with tensor arguments this test once refused export:
+        their base draws are fed, and the loaded artifact replays the live
+        controller bit for bit."""
+        ctrl = _mk(dynamics=FED_SINCE[what], stochastic_dynamics=True)
+        ctrl.command(torch.zeros(2))
+        path = str(tmp_path / "x.npz")
+        deploy.export_solver(ctrl, path)
+        solver = deploy.load_solver(path)
+        for x in (torch.zeros(2), torch.tensor([0.5, -1.0])):
+            torch.testing.assert_close(solver.command(x), ctrl.command(x), rtol=0, atol=0)
 
     def test_card_artifact_does_not_load_without_a_card(self, tmp_path):
         """An artifact exported on the card is never moved to the CPU: where

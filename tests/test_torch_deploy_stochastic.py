@@ -5,11 +5,20 @@ their draws (``pytorch_mppi_tpu_torch/ops/solve.py``: ``record_draws``,
 
 * the plan: each op of the vocabulary recorded with its shape, dtype and
   scalar arguments, and replayed bit for bit from a generator in the same
-  state; a draw outside it raises ``NotImplementedError`` naming ROADMAP.md
-  Queue 1 item 10; a draw that is not the plan's next, a draw beyond the
-  plan and a fed tensor left undrawn raise;
+  state (the in-place draws ``exponential_``, ``bernoulli_``, ``random_``,
+  ``cauchy_``, ``log_normal_``, ``geometric_`` and ``torch.randperm`` too);
+  ``torch.bernoulli(p)`` and ``torch.normal`` with tensor arguments in
+  the dynamics' step recorded and fed as their base draws (``torch.rand``,
+  ``torch.randn``), their values those the port defines, which torch's own
+  ops draw on the CPU too; ``torch.multinomial``, ``out=``, a shape from a
+  tensor's value, a draw with tensor arguments outside the step and
+  another op raise ``NotImplementedError`` naming ROADMAP.md Queue 1 item
+  10; a draw that is not the plan's next, a draw beyond the plan and
+  a fed tensor left undrawn raise;
 * ``export_solver`` on MPPI, SMPPI and KMPPI whose dynamics really draw
-  from their step's generator (``torch.randn``, ``Tensor.normal_``), at
+  from their step's generator (``torch.randn``, ``Tensor.normal_``; a
+  Bernoulli-gated impulse and a state-scaled normal with tensor arguments;
+  ``Tensor.exponential_``, ``torch.randperm`` and ``Tensor.cauchy_``), at
   M = 1 and M = 3, step-dependent, with iterations, with gradient
   refinement on the stochastic dynamics (its ``refine_seed`` streams), and
   on ``MPPI_Batched``'s plain path: the served actions and costs equal the
@@ -88,12 +97,135 @@ def test_each_op_recorded_and_replayed_bit_for_bit():
         assert torch.equal(a, b)
 
 
+P6 = torch.linspace(0.1, 0.9, 6, dtype=F64)
+# the draws fed since the vocabulary grew: (draw, the plan's entry, its values
+# made from a generator as the port defines them: a draw of the vocabulary as
+# itself, a draw with tensor arguments from its base draw)
+NEW_DRAWS = {
+    "bernoulli": (lambda g: torch.bernoulli(P6, generator=g),
+                  ("torch.rand", (6,), "float64", ()),
+                  lambda g: (torch.rand(6, dtype=F64, generator=g) < P6).to(F64)),
+    "bernoulli_method": (lambda g: P6.bernoulli(generator=g),
+                         ("torch.rand", (6,), "float64", ()),
+                         lambda g: (torch.rand(6, dtype=F64, generator=g) < P6).to(F64)),
+    "bernoulli_scalar_p": (lambda g: torch.bernoulli(torch.empty(2, 3), 0.4, generator=g),
+                           ("torch.bernoulli", (2, 3), "float32", (0.4,)),
+                           lambda g: torch.bernoulli(torch.zeros(2, 3), 0.4, generator=g)),
+    "tensor_std": (lambda g: torch.normal(0.0, P6, generator=g),
+                   ("torch.randn", (6,), "float64", ()),
+                   lambda g: 0.0 + P6 * torch.randn(6, dtype=F64, generator=g)),
+    "tensor_mean": (lambda g: torch.normal(P6, 0.5, generator=g),
+                    ("torch.randn", (6,), "float64", ()),
+                    lambda g: P6 + 0.5 * torch.randn(6, dtype=F64, generator=g)),
+    "tensor_mean_std": (lambda g: torch.normal(P6[:, None], P6, generator=g),
+                        ("torch.randn", (6, 6), "float64", ()),
+                        lambda g: P6[:, None] + P6 * torch.randn(6, 6, dtype=F64, generator=g)),
+    "randperm": (lambda g: torch.randperm(5, generator=g),
+                 ("torch.randperm", (5,), "int64", (5,)),
+                 lambda g: torch.randperm(5, generator=g)),
+    "exponential_": (lambda g: torch.empty(3).exponential_(generator=g),
+                     ("Tensor.exponential_", (3,), "float32", (1.0,)),
+                     lambda g: torch.empty(3).exponential_(1.0, generator=g)),
+    "bernoulli_": (lambda g: torch.empty(4, dtype=F64).bernoulli_(0.3, generator=g),
+                   ("Tensor.bernoulli_", (4,), "float64", (0.3,)),
+                   lambda g: torch.empty(4, dtype=F64).bernoulli_(0.3, generator=g)),
+    "random_": (lambda g: torch.empty(5, dtype=torch.int64).random_(generator=g),
+                ("Tensor.random_", (5,), "int64", ()),
+                lambda g: torch.empty(5, dtype=torch.int64).random_(generator=g)),
+    "random_to": (lambda g: torch.empty(5).random_(7, generator=g),
+                  ("Tensor.random_", (5,), "float32", (0, 7)),
+                  lambda g: torch.empty(5).random_(0, 7, generator=g)),
+    "random_from_to": (lambda g: torch.empty(5, dtype=F64).random_(-3, to=9, generator=g),
+                       ("Tensor.random_", (5,), "float64", (-3, 9)),
+                       lambda g: torch.empty(5, dtype=F64).random_(-3, 9, generator=g)),
+    "cauchy_": (lambda g: torch.empty(3).cauchy_(sigma=0.5, generator=g),
+                ("Tensor.cauchy_", (3,), "float32", (0.0, 0.5)),
+                lambda g: torch.empty(3).cauchy_(0.0, 0.5, generator=g)),
+    "log_normal_": (lambda g: torch.empty(3, dtype=F64).log_normal_(0.5, 0.25, generator=g),
+                    ("Tensor.log_normal_", (3,), "float64", (0.5, 0.25)),
+                    lambda g: torch.empty(3, dtype=F64).log_normal_(0.5, 0.25, generator=g)),
+    "geometric_": (lambda g: torch.empty(4).geometric_(0.2, generator=g),
+                   ("Tensor.geometric_", (4,), "float32", (0.2,)),
+                   lambda g: torch.empty(4).geometric_(0.2, generator=g)),
+}
+
+
+def _in_step(draw, g):
+    """``draw(g)`` as the dynamics' step makes it: ``wrap_dynamics`` calls
+    the dynamics within ``solve._BasedDraws`` on their generator."""
+    with PS._BasedDraws(g):
+        return draw(g)
+
+
+@pytest.mark.parametrize("what", sorted(NEW_DRAWS))
+def test_new_draws_recorded_and_replayed_bit_for_bit(what):
+    """Each draw fed since the vocabulary grew, made in the dynamics' step:
+    recorded as the plan's entry (a draw with tensor arguments as its base
+    draw), replayed and fed bit for bit, its values those the port defines
+    from a generator in the same state; and on the CPU torch's own op
+    draws the same values outside the step."""
+    draw, entry, defined = NEW_DRAWS[what]
+    g = torch.Generator().manual_seed(11)
+    live = []
+    plan = PS.record_draws([g], lambda: live.append(_in_step(draw, g)))
+    assert plan == ((PS.Draw(*entry),),)
+    assert PS.plan_from_json(json.loads(json.dumps(plan))) == plan
+    (replayed,) = PS.replay_draws(plan, [torch.Generator().manual_seed(11)])
+    want = defined(torch.Generator().manual_seed(11))
+    assert live[0].dtype == want.dtype and torch.equal(live[0], want)
+    with PS.fed_draws([g], plan, [replayed]):
+        assert torch.equal(_in_step(draw, g), want)
+    own = draw(torch.Generator().manual_seed(11))
+    assert torch.equal(own, want)
+
+
+def test_base_draws_only_at_the_steps_that_make_them(monkeypatch):
+    """``wrap_dynamics`` learns at each step's first call whether the
+    dynamics draw with tensor arguments: a step that does runs within
+    ``solve._BasedDraws`` at every call (its values the base draws'),
+    and a step that does not runs without it after that first call."""
+    from pytorch_mppi_tpu_torch.config import MPPIConfig
+
+    entered = []
+    enter = PS._BasedDraws.__enter__
+    monkeypatch.setattr(PS._BasedDraws, "__enter__",
+                        lambda self: entered.append(self) or enter(self))
+    p = torch.linspace(0.1, 0.9, 8, dtype=F64).reshape(4, 2)
+
+    def dyn(s, a, t, rng):
+        if t >= 2:
+            return s + a + torch.bernoulli(p, generator=rng)
+        return s + a + torch.randn(s.shape, generator=rng, dtype=s.dtype)
+
+    cfg = MPPIConfig(nx=2, nu=2, K=4, T=4, dtype=F64, step_dependent_dynamics=True,
+                     stochastic_dynamics=True)
+    wrapped = PS.wrap_dynamics(cfg, dyn)
+    s, a = torch.zeros(4, 2, dtype=F64), torch.zeros(4, 2, dtype=F64)
+    for rep in range(3):
+        for t in range(4):
+            got = wrapped(s, a, t, PS.step_generator(5, t, "cpu"))
+            if t >= 2:
+                u = torch.rand(4, 2, dtype=F64, generator=PS.step_generator(5, t, "cpu"))
+                assert torch.equal(got, (u < p).to(F64))
+    assert len(entered) == 4 + 2 * 2  # every step at first, then the two that draw so
+    assert [m.made for m in entered] == [False, False, True, True, True, True, True, True]
+
+
 UNFED = {
-    "bernoulli": lambda g: torch.bernoulli(torch.full((3,), 0.5), generator=g),
-    "randperm": lambda g: torch.randperm(5, generator=g),
-    "exponential_": lambda g: torch.empty(3).exponential_(generator=g),
-    "tensor_std": lambda g: torch.normal(0.0, torch.ones(3), generator=g),
     "out": lambda g: torch.randn(3, generator=g, out=torch.empty(3)),
+    "multinomial": lambda g: torch.multinomial(torch.ones(4), 2, generator=g),
+    "bernoulli_out": lambda g: torch.bernoulli(torch.full((3,), 0.5), generator=g,
+                                               out=torch.empty(3)),
+    "tensor_std_out": lambda g: torch.normal(0.0, torch.ones(3), generator=g,
+                                             out=torch.empty(3)),
+    "shape_from_data": lambda g: torch.randn(torch.tensor(3), generator=g),
+    "randperm_from_data": lambda g: torch.randperm(torch.tensor(4), generator=g),
+    "bernoulli_tensor_p_": lambda g: torch.empty(3).bernoulli_(torch.full((3,), 0.5),
+                                                               generator=g),
+    "poisson": lambda g: torch.poisson(torch.ones(3), generator=g),
+    # a draw with tensor arguments has its fed form only in the dynamics' step
+    "bernoulli_outside_the_step": lambda g: torch.bernoulli(torch.full((3,), 0.5), generator=g),
+    "tensor_std_outside_the_step": lambda g: torch.normal(0.0, torch.ones(3), generator=g),
 }
 
 
@@ -142,11 +274,23 @@ def test_mismatches_raise():
 
 def _stochastic(style, step_dependent):
     """Dynamics that draw from their step's generator: additive noise from
-    ``torch.randn`` or ``Tensor.normal_``, its scale by step where
-    step-dependent."""
+    ``torch.randn`` or ``Tensor.normal_``; a Bernoulli-gated impulse with
+    a state-dependent probability and a normal of state-scaled deviation
+    (``based``: ``torch.bernoulli(p)``, ``torch.normal(0, std)``); or
+    exponential noise on a drawn permutation of the state and a clipped
+    Cauchy draw (``in_place``: ``Tensor.exponential_``, ``torch.randperm``,
+    ``Tensor.cauchy_``); its scale by step where step-dependent."""
     def noise(s, rng):
         if style == "randn":
             return torch.randn(s.shape, generator=rng, dtype=s.dtype)
+        if style == "based":
+            gate = torch.bernoulli(torch.sigmoid(s).clamp(0.1, 0.9), generator=rng)
+            return 2.0 * gate + torch.normal(0.0, 1.0 + 0.1 * s.abs(), generator=rng)
+        if style == "in_place":
+            e = torch.empty_like(s).exponential_(4.0, generator=rng)
+            perm = torch.randperm(s.shape[-1], generator=rng)
+            c = torch.empty_like(s).cauchy_(0.0, 0.2, generator=rng)
+            return torch.index_select(e, -1, perm) + c.clamp(-1.0, 1.0)
         return torch.empty_like(s).normal_(0.0, 1.0, generator=rng)
 
     if step_dependent:
@@ -195,10 +339,19 @@ def _export_and_replay(ctrl, tmp_path, x0=None):
     return loaded
 
 
+# a step's plan for each style of _stochastic: (op, scalars) of each draw, of
+# the state's shape unless a shape is given
+STEP_PLANS = {"randn": [("torch.randn", [])], "normal_": [("Tensor.normal_", [0.0, 1.0])],
+              "based": [("torch.rand", []), ("torch.randn", [])],
+              "in_place": [("Tensor.exponential_", [4.0]), ("torch.randperm", [2], [2], "int64"),
+                           ("Tensor.cauchy_", [0.0, 0.2])]}
+
+
 @pytest.mark.parametrize("variant", sorted(VARIANTS))
 @pytest.mark.parametrize("M", [1, 3])
-@pytest.mark.parametrize("style,step_dependent", [("randn", False), ("normal_", True)],
-                         ids=["randn", "normal_step"])
+@pytest.mark.parametrize("style,step_dependent", [("randn", False), ("normal_", True),
+                                                  ("based", False), ("in_place", True)],
+                         ids=["randn", "normal_step", "based", "in_place_step"])
 def test_served_equals_live(tmp_path, variant, M, style, step_dependent):
     kw = dict(rollout_samples=M, rollout_var_cost=0.2) if M > 1 else {}
     ctrl = _ctrl(variant, style, step_dependent, **kw)
@@ -207,11 +360,11 @@ def test_served_equals_live(tmp_path, variant, M, style, step_dependent):
     assert meta["version"] == 7 and meta["route"] == "plain"
     assert meta["streams"]["stochastic_dynamics"]
     assert meta["streams"]["gradient_refinement_steps"] == 0
-    op = "torch.randn" if style == "randn" else "Tensor.normal_"
+    want = [[op, *(rest[:1] or [[M * 32, 2]]), *(rest[1:] or ["float64"]), scalars]
+            for op, scalars, *rest in STEP_PLANS[style]]
     plan = meta["draws"]
     assert len(plan) == ctrl.config.num_iterations * ctrl.T
-    assert all(slot == [[op, [M * 32, 2], "float64", [] if style == "randn" else [0.0, 1.0]]]
-               for slot in plan)
+    assert all(slot == want for slot in plan)
 
 
 @pytest.mark.parametrize("flags", [

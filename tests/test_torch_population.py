@@ -211,7 +211,11 @@ def _drawing_ctrl(variant, in_place="result", **kw):
     by step (step-dependent), as a user's would.  ``in_place`` says how the
     ``Tensor.normal_`` steps read their draw: "result" the method's result,
     "target" the tensor drawn into (``torch.empty_like`` of the state), and
-    "unbatched" the tensor drawn into, made with ``torch.empty``."""
+    "unbatched" the tensor drawn into, made with ``torch.empty``; "based"
+    draws instead a Bernoulli-gated impulse with a state-dependent
+    probability, a normal of state-scaled deviation and exponential noise
+    (``torch.bernoulli(p)``, ``torch.normal(0, std)``,
+    ``Tensor.exponential_``) at every step."""
     B = torch.tensor([[1.0, 0.0], [0.0, -1.0]], dtype=F64)
     goal = torch.tensor([2.0, 2.0], dtype=F64)
     stochastic = kw.setdefault("stochastic_dynamics", True)
@@ -220,6 +224,11 @@ def _drawing_ctrl(variant, in_place="result", **kw):
         nxt = s + a @ B.T
         if not stochastic:
             return nxt
+        if in_place == "based":
+            gate = torch.bernoulli(torch.sigmoid(s).clamp(0.1, 0.9), generator=rng)
+            e = torch.empty_like(s).exponential_(4.0, generator=rng)
+            std = 0.05 * (1.0 + 0.1 * s.abs())
+            return nxt + 0.05 * gate + torch.normal(0.0, std, generator=rng) + 0.01 * e
         if t % 2:
             return nxt + 0.05 * torch.randn(s.shape, generator=rng, dtype=s.dtype)
         if in_place == "result":
@@ -250,6 +259,12 @@ DRAWING = {
     "mppi_M3_target": ("mppi", dict(rollout_samples=3, in_place="target")),
     "mppi_M3_refine2_target": ("mppi", dict(rollout_samples=3, gradient_refinement_steps=2,
                                             in_place="target")),
+    # draws with tensor arguments, fed as their base draws, and Tensor.exponential_
+    "mppi_M3_based": ("mppi", dict(rollout_samples=3, in_place="based")),
+    "smppi_based": ("smppi", dict(in_place="based")),
+    "kmppi_M3_based": ("kmppi", dict(rollout_samples=3, in_place="based")),
+    "mppi_M3_refine2_based": ("mppi", dict(rollout_samples=3, gradient_refinement_steps=2,
+                                           in_place="based")),
 }
 
 

@@ -10,7 +10,11 @@
 * the port's stochastic stream: a ``torch.Generator`` a step, made from the
   iteration's rollout seed;
 * ``get_rollouts`` with stochastic dynamics, the gates and ValueErrors, and
-  the warnings that route M > 1 and stochastic dynamics to the plain path.
+  the warnings that route M > 1 and stochastic dynamics to the plain path;
+* draws with tensor arguments (``torch.bernoulli(p)``, ``torch.normal(0,
+  std)``) against ``jax.random.bernoulli`` and ``jax.random.normal`` in
+  distribution: the mean and variance of the rollout costs over five keys
+  or seeds, within four standard errors.
 
 The parity cases use step-dependent stochastic dynamics that add a
 (T, M·K, nx) numpy table indexed by ``t`` on both sides and ignore the key
@@ -482,3 +486,75 @@ def test_batched_stochastic_plain_path(caplog):
         a1, a2 = c1.command(x), c2.command(x)
         assert torch.equal(a1, a2) and torch.isfinite(a1).all()
         x = LQ.dynamics(x, a1)
+
+
+def _gated_pair(flip=False):
+    """A plant whose dynamics add a Bernoulli-gated impulse, its probability
+    by state, and a normal of state-scaled deviation: JAX's with
+    ``jax.random.bernoulli`` and ``jax.random.normal`` on the step's key,
+    the port's with ``torch.bernoulli(p)`` and ``torch.normal(0, std)`` on
+    the step's generator (``flip``: the port's gate at 1 - p, a wrong
+    definition the test must see)."""
+    jB, pB = jnp.asarray(B_NP), torch.tensor(B_NP)
+    jG, pG = jnp.asarray(GOAL_NP), torch.tensor(GOAL_NP)
+
+    def jdyn(s, a, key):
+        k1, k2 = jax.random.split(key)
+        gate = jax.random.bernoulli(k1, jnp.clip(jax.nn.sigmoid(2.0 * s), 0.1, 0.9))
+        std = 0.2 * (1.0 + jnp.abs(s))
+        return (s + 0.1 * a @ jB.T + 0.5 * gate.astype(s.dtype)
+                + std * jax.random.normal(k2, s.shape, s.dtype))
+
+    def pdyn(s, a, rng):
+        p = torch.clamp(torch.sigmoid(2.0 * s), 0.1, 0.9)
+        gate = torch.bernoulli(1.0 - p if flip else p, generator=rng)
+        return (s + 0.1 * a @ pB.T + 0.5 * gate
+                + torch.normal(0.0, 0.2 * (1.0 + s.abs()), generator=rng))
+
+    return (jdyn, lambda s, a: ((jG - s) ** 2).sum(axis=-1), pdyn,
+            lambda s, a: ((pG - s) ** 2).sum(-1))
+
+
+def _gated_costs(flip=False, K=2000, T=8, seeds=5):
+    """Each package's rollout costs of the same (K, T, 2) actions from the
+    same state over ``seeds`` keys or seeds, pooled: (JAX's, the port's)."""
+    rs = np.random.RandomState(3)
+    x0, acts = np.array([0.5, -0.5]), rs.randn(K, T, 2) * 0.5
+    fields = dict(nx=2, nu=2, K=K, T=T, stochastic_dynamics=True)
+    jcfg, cfg = JConfig(dtype=jnp.float64, **fields), MPPIConfig(dtype=torch.float64, **fields)
+    jdyn, jcost, pdyn, pcost = _gated_pair(flip)
+    jc = [np.asarray(JS.rollout_costs(
+        jcfg, JS.wrap_dynamics(jcfg, jdyn), JS.wrap_cost(jcfg, jcost), None, None, None,
+        jnp.asarray(x0), jnp.asarray(acts), jax.random.PRNGKey(s))[0]) for s in range(seeds)]
+    pc = [PS.rollout_costs(cfg, PS.wrap_dynamics(cfg, pdyn), PS.wrap_cost(cfg, pcost),
+                           torch.tensor(x0), torch.tensor(acts), seed=100 + s)[0].numpy()
+          for s in range(seeds)]
+    return np.concatenate(jc), np.concatenate(pc)
+
+
+def _same_distribution(a, b):
+    """The means, and the variances, within four standard errors of their
+    difference (a variance's from the fourth central moment: the costs'
+    tails are heavy)."""
+    def var_se2(x):
+        return (((x - x.mean()) ** 4).mean() - x.var() ** 2) / x.size
+
+    se_mean = np.sqrt(a.var() / a.size + b.var() / b.size)
+    se_var = np.sqrt(var_se2(a) + var_se2(b))
+    return (abs(a.mean() - b.mean()) <= 4 * se_mean
+            and abs(a.var() - b.var()) <= 4 * se_var)
+
+
+def test_bernoulli_and_state_scaled_normal_match_jax_in_distribution():
+    """Torch's streams cannot reproduce JAX's keys, so the draws with tensor
+    arguments are held against ``jax.random.bernoulli`` and
+    ``jax.random.normal`` in distribution (``tests/test_torch_deploy_
+    stochastic.py`` holds the served commands to the live ones bit for
+    bit): the rollout costs of 2,000 samples over 5 keys or seeds agree in
+    mean and variance within four standard errors, and a gate drawn at
+    1 - p does not."""
+    j, p = _gated_costs()
+    assert np.isfinite(p).all() and _same_distribution(j, p), (j.mean(), p.mean(), j.var(),
+                                                               p.var())
+    j, p = _gated_costs(flip=True)
+    assert not _same_distribution(j, p)

@@ -29,6 +29,15 @@
   ``max`` and of ``cummax`` (JAX's interpreter has no rule for ``argmax``
   on a batched operand), indexing with a traced index (nor for ``gather``),
   and a program whose rows of state do not fit in shared memory.
+* **Programs beyond ``CHUNK`` statements.**  A function of the generated
+  struct beyond ``batch_last.CHUNK`` statements is emitted as
+  ``__noinline__`` parts in depth-first order, values between them in
+  scratch rows: the 38-agent swarm near ``MAX_OPS`` (its running cost in
+  parts) and, at a small ``CHUNK``, the 10-agent swarm's ``begin`` and a
+  per-sample program's ``step`` on register arrays, each compiled with the
+  host ``g++`` and held against the program's evaluator (rtol 1e-5); no
+  function holds more than ``CHUNK`` statements; a program within it
+  emits the header it emits as one function.
 * **The round-1 solve of a block model.**  ``ops/rowmajor.make_fused_solve``
   with the block residual MLP (``ResidualMLPBlock``) and with an nx = 33
   program, against JAX's ``make_fused_solve`` with the same functions
@@ -47,6 +56,7 @@ against these plain versions on the card by ``chip_smoke.py`` (phase 4g, a
 16-agent swarm at K = 10,000, T = 30).
 """
 import logging
+import re
 import shutil
 import struct
 import subprocess
@@ -671,3 +681,190 @@ def test_swarm_artifact_replays_the_live_controller(tmp_path):
         a, b = ctrl.command(x_live), solver.command(x_served)
         torch.testing.assert_close(b, a, rtol=0, atol=0)
         x_live, x_served = dyn(x_live[None], a[None])[0], dyn(x_served[None], b[None])[0]
+
+
+# ---------------------------------------------------------------------------
+# Programs beyond CHUNK statements: the emitted parts
+# ---------------------------------------------------------------------------
+
+MAX_AGENTS = 38  # the swarm near MAX_OPS: nx = 152, nu = 76, 15,124 operations a step
+_W6 = torch.linspace(-1.0, 1.0, 18).reshape(3, 6)
+
+
+def _small_callables():
+    """A per-sample program within 32 states (nx = 6, nu = 3: register
+    arrays, ``step``) of about a hundred nodes in each of its dynamics and
+    cost."""
+    def dyn(s, a):
+        z = torch.tanh(a @ _W6) + torch.sin(s * s.sum(-1, keepdim=True))
+        return s + 0.1 * z * torch.cos(z).prod(-1, keepdim=True)
+
+    def cost(s, a):
+        d = s[:, :, None] - s[:, None, :]
+        return (s ** 2).sum(-1) + torch.exp(-d ** 2).sum((-1, -2)) + (a ** 2).sum(-1)
+
+    return dyn, cost
+
+
+def _functions(header):
+    """(name, statements) of each function of a generated header: its
+    lines that end in ';' up to the line that closes it."""
+    out, cur = [], None
+    for line in header.splitlines():
+        m = re.match(r"\s*(?:template <int N>\s*)?__device__ .*?(\w+)\(.*\{\s*$", line)
+        if m:
+            cur = [m.group(1), 0]
+            out.append(cur)
+        elif cur is not None and re.match(r"  \}\s*$", line):
+            cur = None
+        elif cur is not None and line.rstrip().endswith(";"):
+            cur[1] += 1
+    return out
+
+
+def _on_the_host(tmp_path, model, kernel, x, u):
+    """The emitted header compiled with the host ``g++`` (``_HOST``, with
+    ``__noinline__`` a host attribute): each sample's next state and cost,
+    against the program's evaluator in float32."""
+    if shutil.which("g++") is None:
+        pytest.skip("no host g++ to compile the emitted source")
+    (tmp_path / "model.cuh").write_text(kernel.header())
+    (tmp_path / "host.cpp").write_text("#define __noinline__ __attribute__((noinline))\n" + _HOST)
+    exe = tmp_path / "host"
+    subprocess.run(["g++", "-std=c++17", "-O1", "-ffp-contract=off",
+                    f"-DBLOCK={int(kernel.block)}", "-o", str(exe), str(tmp_path / "host.cpp")],
+                   check=True, capture_output=True, timeout=600)
+    n, nx, nu = x.shape[0], x.shape[1], u.shape[1]
+    blob = struct.pack("4i", n, nx, nu, model.consts.numel())
+    blob += b"".join(a.float().contiguous().numpy().tobytes() for a in (model.consts, x, u))
+    out = subprocess.run([str(exe)], input=blob, capture_output=True, check=True,
+                         timeout=120).stdout
+    res = np.frombuffer(out, np.float32).reshape(n, nx + 1)
+    ns, c = model.rollout_step(x, u, 0)
+    np.testing.assert_allclose(res[:, :nx], ns.numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(res[:, nx], c.numpy(), rtol=1e-5, atol=1e-5)
+
+
+def _max_swarm():
+    g = torch.Generator().manual_seed(31)
+    goal = torch.rand(MAX_AGENTS, 2, generator=g) * 4 - 2
+    return swarm_torch(MAX_AGENTS, goal, torch.triu(torch.ones(MAX_AGENTS, MAX_AGENTS), 1))
+
+
+def test_swarm_near_max_ops_in_parts_on_the_host(tmp_path):
+    """The 38-agent swarm (15,124 operations a step, within ``MAX_OPS``;
+    its cost about 16,500 statements as one function, which ``nvcc``
+    did not build within an hour): its header's cost in ``__noinline__``
+    parts of at most ``CHUNK`` statements, compiled with the host ``g++``
+    and held against the program's evaluator."""
+    nx, nu = 4 * MAX_AGENTS, 2 * MAX_AGENTS
+    model = BL.kernel_model(MPPIConfig(nx=nx, nu=nu, K=64, T=3), *_max_swarm())
+    assert BL._count_ops(model.program, model.outputs) == 15_124 <= BL.MAX_OPS
+    kernel = BL.generated_kernel(model, None)
+    funcs = _functions(kernel.header())
+    parts = [f for f, _ in funcs if re.match(r"cost_part\d+$", f)]
+    assert len(parts) >= len(model.program.live([model.outputs[nx]])) // BL.CHUNK
+    assert max(n for _, n in funcs) <= BL.CHUNK
+    rs = np.random.RandomState(8)
+    x = torch.from_numpy(np.concatenate([rs.uniform(-2, 2, (16, nu)),
+                                         rs.randn(16, nu) * 0.3], 1).astype(np.float32))
+    u = torch.from_numpy(rs.randn(16, nu).astype(np.float32))
+    _on_the_host(tmp_path, model, kernel, x, u)
+
+
+def _shift_callables(nx, nu):
+    """Dynamics that shift a history of the state upward and put a
+    computed row of nu values in front (``torch.cat([z, s[:, :-nu]])``): the
+    next state's elements from nu on are state elements moved unchanged,
+    which the step reads after it has written the first nu in place."""
+    def dyn(s, a):
+        z = torch.tanh(0.5 * a + s[:, :nu]) + torch.sin(s[:, -nu:] * s.sum(-1, keepdim=True))
+        return torch.cat([z, s[:, :-nu]], -1)
+
+    def cost(s, a):
+        return (s ** 2).sum(-1) + torch.exp(-s[:, :nu] ** 2).sum(-1) + (a ** 2).sum(-1)
+
+    return dyn, cost
+
+
+@pytest.mark.parametrize("case,chunk", [("swarm", 64), ("swarm", 200), ("small", 24),
+                                        ("small", 64), ("shift", 24), ("shift_wide", 96)])
+def test_parts_on_the_host(tmp_path, monkeypatch, case, chunk):
+    """Programs split at a small ``CHUNK``: the layer-less block struct's
+    ``begin`` and ``cost`` (10 agents, nx = 40), a per-sample program's
+    ``step`` and ``cost`` on register arrays (nx = 6), and a shift of the
+    state's history in both (nx = 6, and nx = 40 in ``begin``), whose
+    unchanged elements the step must read before it writes the state in
+    place: no emitted function holds more than ``CHUNK`` statements, values
+    cross parts in the scratch rows, and the host build agrees with the
+    evaluator."""
+    monkeypatch.setattr(BL, "CHUNK", chunk)
+    if case == "swarm":
+        fns, nx, nu = swarm_torch(), NX, NU
+    elif case == "small":
+        fns, nx, nu = _small_callables(), 6, 3
+    else:
+        nx, nu = (6, 3) if case == "shift" else (40, 4)
+        fns = _shift_callables(nx, nu)
+    model = BL.kernel_model(MPPIConfig(nx=nx, nu=nu, K=64, T=3), *fns)
+    kernel = BL.generated_kernel(model, None)
+    funcs = _functions(kernel.header())
+    first = "begin" if nx > BL.MAXN else "step"
+    split = {f"{first}_part0"} if len(model.program.live(model.outputs[:nx])) > chunk else set()
+    assert split | {"cost_part0"} <= {f for f, _ in funcs}
+    assert max(n for _, n in funcs) <= chunk
+    rs = np.random.RandomState(9)
+    x = torch.from_numpy(np.stack([_x0(rs) for _ in range(16)]) if case == "swarm"
+                         else rs.randn(16, nx).astype(np.float32))
+    u = torch.from_numpy(rs.randn(16, nu).astype(np.float32))
+    _on_the_host(tmp_path, model, kernel, x, u)
+
+
+@pytest.mark.parametrize("chunk", [500, 1024, None])
+def test_no_function_beyond_chunk(monkeypatch, chunk):
+    """The 38-agent swarm's header at ``CHUNK`` (None: the default), and
+    a traced terminal cost beyond it: no emitted function holds more than
+    ``CHUNK`` statements, and a part writes only what a later part or the
+    caller reads."""
+    if chunk is not None:
+        monkeypatch.setattr(BL, "CHUNK", chunk)
+    nx, nu = 4 * MAX_AGENTS, 2 * MAX_AGENTS
+    cfg = MPPIConfig(nx=nx, nu=nu, K=64, T=3)
+    dyn, cost = _max_swarm()
+    header = BL.generated_kernel(BL.kernel_model(cfg, dyn, cost),
+                                 BL.trace_terminal(cfg, lambda s, a: cost(s, a))).header()
+    funcs = _functions(header)
+    assert {"cost_part0", "terminal_part0"} <= {f for f, _ in funcs}
+    assert max(n for _, n in funcs) <= BL.CHUNK
+    for name in re.findall(r"static void (\w+_part\d+)\(", header):
+        body = header.split(f"static void {name}(", 1)[1].split("\n  }\n", 1)[0]
+        stored = set(re.findall(r"(s[fib]\[\d+\]) = v\d+;", body))
+        assert len(stored) == len(re.findall(r" = v\d+;", body))  # a slot once a part
+
+
+@pytest.mark.parametrize("case", ["swarm16", "swarm10", "small", "lq_terminal"])
+def test_within_one_chunk_the_header_is_one_function(monkeypatch, case):
+    """A program of at most ``CHUNK`` statements emits the header it
+    emitted as one function (``Program.emit``), with no part: the 16- and
+    10-agent swarms, a per-sample program and the flagship LQ beside a
+    traced terminal cost."""
+    cfg_of = lambda nx, nu: MPPIConfig(nx=nx, nu=nu, K=64, T=3)  # noqa: E731
+    if case.startswith("swarm"):
+        agents = int(case[5:])
+        g = torch.Generator().manual_seed(31)
+        fns = swarm_torch(agents, torch.rand(agents, 2, generator=g) * 4 - 2,
+                          torch.triu(torch.ones(agents, agents), 1))
+        model, terminal = BL.kernel_model(cfg_of(4 * agents, 2 * agents), *fns), None
+    elif case == "small":
+        model, terminal = BL.kernel_model(cfg_of(6, 3), *_small_callables()), None
+    else:
+        B = torch.tensor([[1.0, 0.0], [0.0, -1.0]])
+        model = BL.kernel_model(cfg_of(2, 2), lambda s, a: s + a @ B.T,
+                                lambda s, a: ((s - 2.0) ** 2).sum(-1))
+        terminal = BL.trace_terminal(cfg_of(2, 2), lambda s, a: 10.0 * (s ** 2).sum(-1))
+    live = max(len(model.program.live([o])) for o in model.outputs)
+    assert len(model.program.live(model.outputs[:model.nx])) <= BL.CHUNK and live <= BL.CHUNK
+    header = BL._header(model, terminal)
+    assert "__noinline__" not in header
+    monkeypatch.setattr(BL, "CHUNK", 10 ** 9)
+    assert BL._header(model, terminal) == header
